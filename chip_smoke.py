@@ -1,0 +1,551 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch / CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one CUDA card (an H100):
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
+against its plain PyTorch version at the shapes the served model gives it,
+times both (with a PyTorch library call as yardstick where one computes the
+same function), then serves ``zamba2-2.7b`` at full width through the slot
+pool and checks that every decode step went through both kernels.  Phases:
+
+  1. device   2. build   3. exact powers of two   4. state-update kernel
+  5. attention kernel   6. timing   7. main path   8. kernels line
+
+Any failure exits non-zero; with no card it fails (it never falls back to
+the CPU).  The last three lines of standard output are the kernels' JSON
+object, the card's name and power limit from ``nvidia-smi``, and
+``{"ok": true, "device": {...}}``.
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) flop/s
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+
+SU_SHAPES = ((4, 80, 64, 64), (4, 80, 64, 128))   # zamba2-2.7b, mamba2-2.7b
+ATTN = dict(B=4, T=1024, H=32, KVH=32, d=80)       # zamba2-2.7b shared attn
+PROMPT_LENS = (64, 400, 133, 251, 97, 320)         # main path, 64..400 tokens
+MAX_NEW = 24
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def phase(n, name, **fields):
+    body = " ".join(f"{k}={v}" for k, v in fields.items())
+    print(f"[{n}] {name}: {body}", flush=True)
+
+
+def nvidia_smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def host_loop_ms(fn, n, warmup=3):
+    """Per-call time of ``fn`` issued from a Python loop, CUDA events around
+    the loop: what a caller that launches from Python sees (host overhead
+    included when it exceeds the device time)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def graph_ms(calls, replays):
+    """Per-call device time: ``calls`` captured once into a CUDA graph,
+    replayed ``replays`` times between CUDA events, so no host overhead
+    sits between launches."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in calls:
+            c()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in calls:
+            c()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * len(calls))
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_device():
+    import torch
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    phase(1, "device", card=repr(smi), torch=torch.__version__,
+          cuda=torch.version.cuda, count=torch.cuda.device_count(),
+          allow_tf32="False(matmul,cudnn)")
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    paths = _build.build(["mx_state_update", "mx_attention"])
+    dt = time.perf_counter() - t0
+    for name, path in paths.items():
+        report = _build.PTXAS_REPORT.get(name, "(cached build)")
+        usage = [ln.strip() for ln in report.splitlines()
+                 if "registers" in ln or "smem" in ln or "spill" in ln]
+        phase(2, f"build {name}", lib=path.name,
+              ptxas=repr(" | ".join(usage)))
+    phase(2, "build", seconds=f"{dt:.2f}", parallel_nvcc=len(paths))
+
+
+def phase_exact_pow2():
+    import torch
+    from repro_torch.core import formats as F
+    e = torch.arange(-140, 128, device="cuda")
+    want = torch.ldexp(torch.ones_like(e, dtype=torch.float64), e)
+    got = F.exact_pow2(e).double()
+    check(torch.equal(got, want), "bit-built powers of two are not exact")
+    ex = torch.exp2(e.float()).double()
+    phase(3, "exact powers of two", range="[-140,127]", bit_built="exact",
+          torch_exp2_inexact=int((ex != want).sum()))
+
+
+def _su_case(shape, rounding, mag, scalar_decay, seed):
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_state_update as KS
+    B, H, dv, dk = shape[0], shape[1], shape[2], shape[3]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S0 = torch.randn((B, H, dv, dk), generator=g, device="cuda") * mag
+    d = torch.sigmoid(torch.randn((B, H, 1 if scalar_decay else dk),
+                                  generator=g, device="cuda"))
+    k = torch.randn((B, H, dk), generator=g, device="cuda")
+    q = torch.randn((B, H, dk), generator=g, device="cuda")
+    v = torch.randn((B, H, dv), generator=g, device="cuda")
+    qS = F.mx8_quantize(S0)
+    qp, yp = KS.plain(qS.clone(), d, k, v, q, rounding=rounding, seed=seed)
+    qk, yk = KS.mx_state_update(qS.clone(), d, k, v, q, seed=seed,
+                                rounding=rounding)
+    torch.cuda.synchronize()
+    for f in ("exponent", "micro"):
+        check(torch.equal(qp.payload[f], qk.payload[f]),
+              f"state update {shape} {rounding}: {f} bytes differ")
+    dm = (qp.payload["mantissa"].int() - qk.payload["mantissa"].int()).abs()
+    check(int(dm.max()) <= 1, f"state update {shape}: mantissa off by >1")
+    diff = dm > 0
+    ok = ~diff.any(-1)
+    atol = 1e-5 * float(yp.abs().max())
+    err_ok = float((yk[ok] - yp[ok]).abs().max())
+    check(bool(((yk[ok] - yp[ok]).abs() <= atol + 1e-5 * yp[ok].abs()).all()),
+          f"state update {shape} {rounding}: y differs beyond rtol 1e-5, "
+          f"atol {atol:.3g} (max err {err_ok:.3g})")
+    return int(diff.sum()), diff.numel(), float((yk - yp).abs().max())
+
+
+def phase_state_update():
+    mism = total = 0
+    max_err = 0.0
+    for shape in SU_SHAPES:
+        for rounding in ("stochastic", "nearest"):
+            for mag, scalar in ((1.0, True), (1e-3, False)):
+                n_bad, n, err = _su_case(shape, rounding, mag, scalar,
+                                         seed=shape[3] + int(mag * 10))
+                mism, total, max_err = mism + n_bad, total + n, max(max_err,
+                                                                   err)
+    rate = mism / total
+    check(rate <= 1e-5, f"state update mantissa mismatch rate {rate:.3g}")
+    phase(4, "mx_state_update vs plain", shapes=list(SU_SHAPES),
+          exp_micro="bitwise", mantissa_mismatch=f"{mism}/{total}",
+          rate=f"{rate:.3g}", y_max_abs_err=f"{max_err:.3g}")
+    return max_err
+
+
+def _attn_inputs(lengths, seed=0):
+    import torch
+    from repro_torch.core import formats as F
+    a = ATTN
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((a["B"], a["H"], a["d"]), generator=g, device="cuda")
+    shp = (a["B"], a["T"], a["KVH"], a["d"])
+    K = F.mx8_quantize(torch.randn(shp, generator=g, device="cuda"))
+    V = F.mx8_quantize(torch.randn(shp, generator=g, device="cuda"))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, K, V, lens
+
+
+def phase_attention():
+    import torch
+    from repro_torch.kernels import mx_attention as KA
+    max_err = 0.0
+    for lengths in ((64, 333, 700, 1024), (1, 129, 128, 1000)):
+        q, K, V, lens = _attn_inputs(lengths, seed=lengths[1])
+        yk = KA.mx_attention_decode(q, K, V, lens)
+        yp = KA.plain(q, K, V, lens)
+        torch.cuda.synchronize()
+        err = (yk - yp).abs()
+        check(bool((err <= 2e-5 + 2e-4 * yp.abs()).all()),
+              f"attention {lengths}: beyond rtol 2e-4 atol 2e-5 "
+              f"(max err {float(err.max()):.3g})")
+        max_err = max(max_err, float(err.max()))
+    phase(5, "mx_attention_decode vs plain", B=ATTN["B"], T=ATTN["T"],
+          H=ATTN["H"], KVH=ATTN["KVH"], d=ATTN["d"],
+          ragged="(64,333,700,1024),(1,129,128,1000)",
+          max_abs_err=f"{max_err:.3g}", tol="rtol2e-4,atol2e-5")
+    return max_err
+
+
+def _report(name, ms, plain_ms, lib_ms, host_ms, nbytes, flops,
+            logical_bytes):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    phase(6, f"time {name}", ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+          library_ms="null" if lib_ms is None else f"{lib_ms:.5f}",
+          host_loop_ms=f"{host_ms:.5f}", bound_ms=f"{bound:.5f}",
+          bound_by=by, bytes=int(nbytes),
+          traffic_plan_bytes=int(logical_bytes),
+          GBps=f"{nbytes / ms / 1e6:.1f}",
+          share_of_3p35TBps=f"{t_bytes / ms:.3f}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by)
+
+
+def phase_timing():
+    """Device times from CUDA-graph replay (kernel, plain version, library
+    yardstick), inputs cold in L2, plus the kernel's time when launched
+    from a Python loop."""
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_state_update as KS
+
+    # -- state update at the zamba2 shape; 54 layer states (80 MB) rotate,
+    # as one decode step walks 54 layers, so each launch finds its state
+    # cold in the 50 MB L2
+    B, H, dv, dk = SU_SHAPES[0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    states = [F.mx8_quantize(torch.randn((B, H, dv, dk), generator=g,
+                                         device="cuda")) for _ in range(54)]
+    d = torch.sigmoid(torch.randn((B, H, 1), generator=g, device="cuda"))
+    k, q = (torch.randn((B, H, dk), generator=g, device="cuda") for _ in "kq")
+    v = torch.randn((B, H, dv), generator=g, device="cuda")
+    kern = [lambda i=i: KS.mx_state_update(states[i], d, k, v, q, seed=i)
+            for i in range(54)]
+    plain = [lambda i=i: KS.plain(states[i], d, k, v, q, seed=i)
+             for i in range(9)]
+    it = iter(range(10 ** 9))
+    ms = graph_ms(kern, 20)
+    plain_ms = graph_ms(plain, 5)
+    host_ms = host_loop_ms(lambda: kern[next(it) % 54](), 540)
+    n_val = B * H * dv * dk
+    payload = n_val * (1 + 2 / F.MX8_GROUP)   # int8 + exponent + micro
+    operands = 4 * (B * H * (1 + 2 * dk + dv) + B * H * dv)
+    plan = OPS.plan_state_update_dims(B, H, dk, dv, OPS.StateQuantConfig())
+    su = _report("mx_state_update", ms, plain_ms, None, host_ms,
+                 2 * payload + operands, 10 * n_val,
+                 OPS.traffic(plan).total)
+
+    # -- attention at the main path's mid-decode lengths; 9 caches
+    # (212 MB, one per shared-attention application) rotate
+    a = ATTN
+    lengths = [n + MAX_NEW // 2 for n in PROMPT_LENS[:a["B"]]]
+    caches = [_attn_inputs(lengths, seed=s) for s in range(9)]
+    kern2 = [lambda c=c: KA.mx_attention_decode(*c) for c in caches]
+    plain2 = [lambda c=c: KA.plain(*c) for c in caches]
+    # yardstick: one SDPA call on the dequantized fp32 K/V (never used by
+    # the port)
+    lib = []
+    for qq, K, V, lens in caches:
+        kf = F.dequantize(K).permute(0, 2, 1, 3).contiguous()
+        vf = F.dequantize(V).permute(0, 2, 1, 3).contiguous()
+        mask = (torch.arange(a["T"], device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        lib.append(lambda t=(qq[:, :, None, :], kf, vf, mask):
+                   torch.nn.functional.scaled_dot_product_attention(
+                       t[0], t[1], t[2], attn_mask=t[3]))
+    ms2 = graph_ms(kern2, 30)
+    plain2_ms = graph_ms(plain2, 3)
+    lib_ms = graph_ms(lib, 30)
+    host2_ms = host_loop_ms(lambda: kern2[next(it) % 9](), 270)
+    valid = sum(lengths)
+    d_ = a["d"]
+    nbytes = (valid * a["KVH"] * 2 * d_ * (1 + 2 / F.MX8_GROUP)
+              + 4 * a["B"] * a["H"] * 2 * d_ + 4 * a["B"])
+    flops = valid * a["H"] * 4 * d_
+    plan = OPS.plan_attn_decode_dims(
+        dict(B=1, T=1, KVH=a["KVH"], dk=d_, dv=d_, H=a["H"]),
+        OPS.StateQuantConfig())
+    at = _report("mx_attention_decode", ms2, plain2_ms, lib_ms, host2_ms,
+                 nbytes, flops, OPS.traffic(plan).state_read * valid)
+    return su, at
+
+
+def _payload_bytes(x):
+    import torch
+    from repro_torch.core import formats as F
+    if isinstance(x, F.QuantizedTensor):
+        return sum(a.numel() * a.element_size() for a in x.payload.values())
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, dict):
+        return sum(_payload_bytes(v) for v in x.values())
+    return 0
+
+
+def phase_main_path():
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import attention_cache as AC
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_state_update as KS
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import Engine, ServeConfig
+
+    cfg = get_config("zamba2-2.7b")
+    check(cfg.n_layers == 54 and cfg.d_model == 2560 and
+          cfg.state_quant.fmt == "mx8" and cfg.state_quant.backend == "cuda",
+          f"unexpected config {cfg.name}")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_model(cfg, gen, device="cuda")
+    n_params = sum(p.numel() for p in _leaves(params))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(params, cfg, ServeConfig(backend="slots", batch=4,
+                                          cache_capacity=1024))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    KS.mx_state_update.launches = 0
+    KA.mx_attention_decode.launches = 0
+    t1 = time.perf_counter()
+    handles = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    n_su, n_at = KS.mx_state_update.launches, KA.mx_attention_decode.launches
+    steps = eng.engine.step_count
+    for h in handles:
+        check(h.status == "done" and len(h.output) == MAX_NEW,
+              f"request {h.rid}: {h.status} with {len(h.output)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in h.output),
+              f"request {h.rid}: token out of range")
+    check(steps > 0 and n_su == 54 * steps and n_at == 9 * steps,
+          f"launches: state_update {n_su}, attention {n_at} over {steps} "
+          "decode steps (want 54x and 9x)")
+    st = eng.stats()
+    caches = eng.engine.caches
+    kv_bytes = sum(_payload_bytes(c.k) + _payload_bytes(c.v)
+                   for c in M.iter_kv_caches(caches))
+    state_bytes = sum(_payload_bytes(c) for grp in caches for c in grp
+                      if not isinstance(c, AC.KVCache))
+    phase(7, "main path zamba2-2.7b slots", params=n_params,
+          init_s=f"{init_s:.1f}", requests=len(handles), decode_steps=steps,
+          launches=f"su={n_su},attn={n_at}", wall_s=f"{wall:.3f}",
+          tokens_per_s=f"{st['tokens_per_s']:.2f}",
+          p50_step_ms=f"{st['p50_step_s'] * 1e3:.3f}",
+          p99_step_ms=f"{st['p99_step_s'] * 1e3:.3f}",
+          p50_ttft_ms=f"{st['p50_ttft_s'] * 1e3:.3f}",
+          peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          state_MB=f"{state_bytes / 1e6:.2f}", kv_MB=f"{kv_bytes / 1e6:.2f}")
+    _profile_decode(eng, cfg, rng)
+    _reference_check(params, cfg, prompts[0])
+    return n_su, n_at
+
+
+def _profile_decode(eng, cfg, rng, n_steps=5):
+    """Device busy / idle share of steady decode steps at batch 4, from a
+    torch.profiler window (kernel time summed over the device timeline)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for n in PROMPT_LENS[:4]:
+        eng.submit(rng.integers(0, cfg.vocab_size, n),
+                   max_new_tokens=n_steps + 2)
+    eng.step()                       # admissions (prefill) + first decode
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, n_kernels = {}, 0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            n_kernels += 1
+            by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us())
+    eng.run()
+    busy = sum(by_name.values())
+    if not by_name:
+        phase(7, "decode profile", device_time="not measured (profiler "
+              "recorded no device events)")
+        return
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    phase(7, "decode profile", steps=n_steps,
+          step_wall_ms=f"{wall_us / n_steps / 1e3:.3f}",
+          device_busy_ms_per_step=f"{busy / n_steps / 1e3:.3f}",
+          device_ops_per_step=f"{n_kernels / n_steps:.0f}",
+          idle_share=f"{1 - busy / wall_us:.3f}",
+          top=repr([(name[:48], f"{us / n_steps / 1e3:.3f}ms")
+                    for name, us in top]))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _clone_caches(caches):
+    from repro_torch.core import attention_cache as AC
+    out = []
+    for grp in caches:
+        row = []
+        for c in grp:
+            if isinstance(c, AC.KVCache):
+                row.append(AC.KVCache(c.k.clone(), c.v.clone(),
+                                      c.lengths.clone(), c.fmt))
+            else:
+                row.append({n: (v.clone()) for n, v in c.items()})
+        out.append(row)
+    return out
+
+
+def _reference_check(params, cfg, prompt):
+    """The served path (CUDA kernels) against the plain ops on the same
+    prefill: first-step logits to rtol 1e-3 (a few SR decisions may flip
+    where the kernel's FMA and the plain fp64 emulation round apart) and
+    the greedy token agreement over 4 steps."""
+    import numpy as np
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.models import model as M
+    tok = torch.as_tensor(np.asarray(prompt)[None], device="cuda")
+    logits, caches = M.prefill(params, cfg, {"tokens": tok})
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    plain_cfg = cfg.with_(state_quant=OPS.StateQuantConfig(
+        "mx8", "stochastic", "torch"))
+    runs = []
+    for c in (cfg, plain_cfg):
+        cc = _clone_caches(caches)
+        t = logits.argmax(-1)
+        lens = torch.full((1,), tok.shape[1], dtype=torch.int32, device="cuda")
+        seq = []
+        for i in range(4):
+            lg, cc = M.decode_step(params, c, t, cc, lens + i, seed=i + 1)
+            seq.append(lg)
+            t = lg.argmax(-1)
+        runs.append(seq)
+    a, b = runs[0][0], runs[1][0]
+    check(bool(torch.isfinite(a).all()), "decode logits not finite")
+    err = float((a - b).abs().max())
+    check(bool(((a - b).abs() <= 1e-3 * (b.abs() + b.abs().max())).all()),
+          f"first decode step: kernels vs plain max err {err:.3g}")
+    agree = np.mean([int(x.argmax()) == int(y.argmax())
+                     for x, y in zip(*runs)])
+    phase(7, "reference check (kernels vs plain ops, same prefill)",
+          first_step_max_abs_err=f"{err:.3g}",
+          greedy_agreement_4_steps=f"{agree:.2f}")
+
+
+def main():
+    if not (SRC / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found next to chip_smoke.py; "
+              "run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false); the port's kernels run only on the card",
+              file=sys.stderr)
+        return 1
+    try:
+        smi = phase_device()
+        phase_build()
+        phase_exact_pow2()
+        su_err = phase_state_update()
+        at_err = phase_attention()
+        su_t, at_t = phase_timing()
+        n_su, n_at = phase_main_path()
+        kernels = kernels_line(su_err, at_err, su_t, at_t, n_su, n_at)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernels_line(su_err, at_err, su_t, at_t, n_su, n_at):
+    kernels = [
+        dict(name="mx_state_update", route="cuda",
+             source="src/repro_torch/csrc/mx_state_update.cu",
+             replaces="src/repro/kernels/mx_state_update.py:104",
+             launches=n_su, max_abs_err=su_err, **su_t),
+        dict(name="mx_attention_decode", route="cuda",
+             source="src/repro_torch/csrc/mx_attention.cu",
+             replaces="src/repro/kernels/mx_attention.py:98",
+             launches=n_at, max_abs_err=at_err, **at_t),
+    ]
+    for k in kernels:
+        for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
+            check(math.isfinite(k[key]), f"{k['name']}: {key} not finite")
+    phase(8, "kernels", names=[k["name"] for k in kernels])
+    return kernels
+
+
+if __name__ == "__main__":
+    sys.exit(main())

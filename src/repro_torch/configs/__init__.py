@@ -1,0 +1,32 @@
+"""Architecture registry of the port: ``get_config(name)`` / ``--arch``.
+
+Each module defines CONFIG (full size) and SMOKE (a reduced same-family
+config for CPU tests), field for field the JAX package's.  The port carries
+the three architectures of its first slice; the other twelve follow with
+their mixers (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+ALL_ARCHS = ("zamba2-2.7b", "mamba2-2.7b", "llama3.2-1b")
+
+
+def _module_name(arch: str) -> str:
+    return "repro_torch.configs." + arch.replace("-", "_").replace(".", "p")
+
+
+def _module(arch: str):
+    if arch not in ALL_ARCHS:
+        raise KeyError(f"arch {arch!r} is not ported yet; ported: {ALL_ARCHS}")
+    return importlib.import_module(_module_name(arch))
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).SMOKE

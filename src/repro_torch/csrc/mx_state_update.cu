@@ -1,0 +1,182 @@
+// Fused MX8 state update for Hopper (sm_90a): one decode step of paper Eq. 2
+//
+//     S' = d (.) S + k v^T ;   y = S'^T q
+//
+// over a packed MX8 state stored transposed, (B, H, dv, dk), with groups of
+// 16 values along dk that share an 8-bit exponent and pairs that share a
+// micro-exponent bit.
+//
+// Replaces the TPU kernel repro/kernels/mx_state_update.py::mx_state_update
+// (_state_update_kernel).  What bounds it on an H100: bytes.  Each step reads
+// and writes the packed state once (9 stored bits per value) and does about
+// ten flops per value, far below the card's ~20 flops-per-byte fp32 ridge.
+// The design therefore touches every state byte exactly once: one thread
+// owns one 16-value group of one dv row (one 16-byte mantissa load plus its
+// exponent and micro bytes), dequantizes, updates, requantizes and writes it
+// back in place, and the row's output dot product is reduced in shared
+// memory.  No intermediate leaves registers.
+//
+// Numerics match repro_torch/kernels/ref.py and, to a stated mismatch rate,
+// the JAX package (see ROADMAP.md):
+//   * scales are exact powers of two built from bits (no exp2f, and no
+//     flush-to-zero: scales reach 2^-133, a subnormal);
+//   * Sn = fma(S, d, round(v * k)) with explicit intrinsics, the contraction
+//     XLA:CPU applies to the jitted reference;
+//   * SR bits come from the same counter hash over the global flat index
+//     ((b*H + h)*dv + row)*dk + col, in uint32 arithmetic.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kGroup = 16;
+constexpr int kMBits = 6;
+constexpr int kExpBias = 127;
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float exact_pow2(int e) {
+  // 2^e for e in [-149, 127]; below 2^-126 a single mantissa bit
+  if (e >= -126) return __int_as_float((e + 127) << 23);
+  return __int_as_float(1 << (e + 149));
+}
+
+__device__ __forceinline__ uint32_t counter_hash_u32(uint32_t counter,
+                                                     uint32_t seed) {
+  uint32_t x = counter ^ (seed * 0x9E3779B9u);
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ int frexp_exponent(float x) {
+  // e with 2^(e-1) <= x < 2^e for normal x > 0; -126 otherwise
+  if (!(x > 0.f)) return -kExpBias + 1;
+  return ((__float_as_int(x) >> 23) & 0xFF) - 126;
+}
+
+union Group16 {
+  int4 vec;
+  int8_t m[kGroup];
+};
+
+__global__ void __launch_bounds__(kThreads)
+mx_state_update_kernel(int8_t* __restrict__ mant, uint8_t* __restrict__ expo,
+                       uint8_t* __restrict__ micro,
+                       const float* __restrict__ d,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ q,
+                       float* __restrict__ y,
+                       int dv, int dk, int d_per_channel, uint32_t seed,
+                       int stochastic, int rows_per_block) {
+  extern __shared__ float part[];  // rows_per_block * ngroups partial dots
+  const int ngroups = dk / kGroup;
+  const int bh = blockIdx.x;
+  const int local = threadIdx.x;
+  const int row = blockIdx.y * rows_per_block + local / ngroups;
+  const int grp = local % ngroups;
+
+  float partial = 0.f;
+  if (row < dv) {
+    const size_t rowid = (size_t)bh * dv + row;
+    const size_t gid = rowid * ngroups + grp;
+    const int col0 = grp * kGroup;
+    const float vrow = v[rowid];
+
+    Group16 g;
+    g.vec = *reinterpret_cast<const int4*>(mant + rowid * dk + col0);
+    const int e_old = (int)expo[gid] - kExpBias;
+    const int mic_old = micro[gid];
+
+    // dequantize, decay + outer product: Sn = fma(S, d, v*k)
+    float sn[kGroup];
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int mb = (mic_old >> (j >> 1)) & 1;
+      const float s = __fmul_rn((float)g.m[j], exact_pow2(e_old - kMBits - mb));
+      const float dj = d_per_channel ? d[(size_t)bh * dk + col0 + j] : d[bh];
+      const float vk = __fmul_rn(vrow, k[(size_t)bh * dk + col0 + j]);
+      sn[j] = __fmaf_rn(s, dj, vk);
+    }
+
+    // shared exponent from the group max, micro bits from the pair maxima
+    float gmax = 0.f;
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) gmax = fmaxf(gmax, fabsf(sn[j]));
+    int e = frexp_exponent(gmax);
+    e = e < -kExpBias + 1 ? -kExpBias + 1 : (e > 127 ? 127 : e);
+    // a group at the exponent floor (all zero, or below 2^-126) keeps
+    // micro 0, as formats.py defines it
+    const float half_range = exact_pow2(e - 1);
+    int mic = 0;
+#pragma unroll
+    for (int p = 0; p < kGroup / 2; ++p) {
+      const float pmax = fmaxf(fabsf(sn[2 * p]), fabsf(sn[2 * p + 1]));
+      mic |= (e > -kExpBias + 1 && pmax < half_range ? 1 : 0) << p;
+    }
+
+    // requantize (RNE or SR), then the output dot product on stored values
+    const uint32_t flat0 = (uint32_t)(rowid * (size_t)dk + col0);
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const float scale = exact_pow2(e - kMBits - ((mic >> (j >> 1)) & 1));
+      float qv = __fdiv_rn(sn[j], scale);
+      if (stochastic) {
+        const uint32_t bits = counter_hash_u32(flat0 + (uint32_t)j, seed);
+        const float u = __fmul_rn(__uint2float_rn(bits), 2.3283064365386963e-10f);
+        qv = floorf(__fadd_rn(qv, u));
+      } else {
+        qv = rintf(qv);
+      }
+      qv = fminf(fmaxf(qv, -63.f), 63.f);
+      g.m[j] = (int8_t)qv;
+      partial = __fmaf_rn(__fmul_rn(qv, scale), q[(size_t)bh * dk + col0 + j],
+                          partial);
+    }
+
+    *reinterpret_cast<int4*>(mant + rowid * dk + col0) = g.vec;  // in place
+    expo[gid] = (uint8_t)(e + kExpBias);
+    micro[gid] = (uint8_t)mic;
+  }
+
+  part[local] = partial;
+  __syncthreads();
+  if (local < rows_per_block) {
+    const int r = blockIdx.y * rows_per_block + local;
+    if (r < dv) {
+      float s = 0.f;
+      for (int j = 0; j < ngroups; ++j) s += part[local * ngroups + j];
+      y[(size_t)bh * dv + r] = s;
+    }
+  }
+}
+
+}  // namespace
+
+// State (mant, expo, micro) is updated in place.  d is (BH, dk) when
+// d_per_channel, else (BH,); k, q are (BH, dk); v, y are (BH, dv); all f32,
+// contiguous.  Returns cudaGetLastError() after the launch.
+extern "C" int mx_state_update_launch(void* mant, void* expo, void* micro,
+                                      const void* d, const void* k,
+                                      const void* v, const void* q, void* y,
+                                      int BH, int dv, int dk,
+                                      int d_per_channel, unsigned int seed,
+                                      int stochastic, void* stream) {
+  if (BH <= 0 || dv <= 0 || dk <= 0 || dk % kGroup != 0 ||
+      dk / kGroup > kThreads)
+    return (int)cudaErrorInvalidValue;
+  const int ngroups = dk / kGroup;
+  int rows_per_block = kThreads / ngroups;
+  if (rows_per_block > dv) rows_per_block = dv;
+  const dim3 grid(BH, (dv + rows_per_block - 1) / rows_per_block);
+  const dim3 block(rows_per_block * ngroups);
+  const size_t smem = (size_t)rows_per_block * ngroups * sizeof(float);
+  mx_state_update_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      (int8_t*)mant, (uint8_t*)expo, (uint8_t*)micro, (const float*)d,
+      (const float*)k, (const float*)v, (const float*)q, (float*)y, dv, dk,
+      d_per_channel, (uint32_t)seed, stochastic, rows_per_block);
+  return (int)cudaGetLastError();
+}

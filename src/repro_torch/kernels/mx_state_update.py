@@ -1,0 +1,105 @@
+"""Fused MX8 state update: the wrapper around ``csrc/mx_state_update.cu``.
+
+Replaces the TPU kernel ``repro/kernels/mx_state_update.py::mx_state_update``.
+On an H100 the step is bound by bytes: the packed state is read and written
+once (9 stored bits per value) against ~10 flops per value.  The kernel
+touches each state byte once -- one thread per 16-value group, in-place
+write-back, the output dot product reduced in shared memory (see the
+source's header for the numerics).
+
+The wrapper takes the plain version (:mod:`repro_torch.kernels.ref`) only
+for a state on the CPU.  For a CUDA state it launches the kernel or raises.
+The CUDA path updates the state **in place** and returns the same
+container; callers must use the returned state, never the old reference.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.core import formats as F
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+
+SOURCE = "mx_state_update"
+
+#: plain version of the same function (the oracle)
+plain = _ref.quantized_state_update_stored_ref
+
+
+def _operand(x: torch.Tensor, shape, name: str) -> torch.Tensor:
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+    return x.to(torch.float32).contiguous()
+
+
+def _check_payload(qS: F.QuantizedTensor) -> None:
+    B, H, dv, dk = qS.shape
+    want = {"mantissa": ((B, H, dv, dk), torch.int8),
+            "exponent": ((B, H, dv, dk // F.MX8_GROUP), torch.uint8),
+            "micro": ((B, H, dv, dk // F.MX8_GROUP), torch.uint8)}
+    for f, (shape, dtype) in want.items():
+        a = qS.payload[f]
+        if tuple(a.shape) != shape or a.dtype != dtype:
+            raise ValueError(f"state {f}: {tuple(a.shape)} {a.dtype}, "
+                             f"expected {shape} {dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"state {f} must be contiguous")
+    if qS.payload["mantissa"].data_ptr() % 16:
+        raise ValueError("state mantissa must be 16-byte aligned")
+
+
+def mx_state_update(qS: F.QuantizedTensor, d: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, q: torch.Tensor, seed: int = 0, *,
+                    rounding: str = "stochastic"
+                    ) -> Tuple[F.QuantizedTensor, torch.Tensor]:
+    """Fused quantized state update.
+
+    qS: packed MX8 state, logical ``(B, H, dv, dk)``; d: ``(B, H, dk)`` or
+    ``(B, H, 1)``; k, q: ``(B, H, dk)``; v: ``(B, H, dv)``; seed: uint32 SR
+    seed.  Returns ``(state, y)`` with y ``(B, H, dv)`` float32.
+    """
+    if qS.fmt != "mx8":
+        raise ValueError(f"mx_state_update takes mx8 state, got {qS.fmt}")
+    if rounding not in F.ROUNDINGS:
+        raise ValueError(f"unknown rounding {rounding!r}")
+    seed = int(seed) & 0xFFFFFFFF
+    dev = qS.device
+    if dev.type == "cpu":
+        return plain(qS, d, k, v, q, rounding=rounding, seed=seed)
+    if dev.type != "cuda":
+        raise ValueError(f"mx_state_update: unsupported device {dev}")
+    B, H, dv, dk = qS.shape
+    if dk % F.MX8_GROUP or dk // F.MX8_GROUP > 256:
+        raise ValueError(f"dk={dk} must be a multiple of 16, at most 4096")
+    _check_payload(qS)
+    for name, t in (("d", d), ("k", k), ("v", v), ("q", q)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, state on {dev}")
+    if d.shape[-1] not in (1, dk):
+        raise ValueError(f"d must be (B,H,1) or (B,H,{dk}), got {tuple(d.shape)}")
+    d_ = _operand(d, (B, H, d.shape[-1]), "d")
+    k_ = _operand(k, (B, H, dk), "k")
+    q_ = _operand(q, (B, H, dk), "q")
+    v_ = _operand(v, (B, H, dv), "v")
+    y = torch.empty((B, H, dv), dtype=torch.float32, device=dev)
+    fn = _build.load(SOURCE).mx_state_update_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]
+    p = qS.payload
+    err = fn(p["mantissa"].data_ptr(), p["exponent"].data_ptr(),
+             p["micro"].data_ptr(), d_.data_ptr(), k_.data_ptr(),
+             v_.data_ptr(), q_.data_ptr(), y.data_ptr(), B * H, dv, dk,
+             int(d.shape[-1] == dk), seed,
+             int(rounding == "stochastic"),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "mx_state_update")
+    mx_state_update.launches += 1
+    return qS, y
+
+
+#: launches of the CUDA kernel since the count was last reset
+mx_state_update.launches = 0

@@ -1,0 +1,94 @@
+"""Plain PyTorch versions of the port's kernels (the oracles).
+
+The CPU tests hold these to the JAX package, and ``chip_smoke.py`` holds
+each CUDA kernel to its plain version on the card.  They also serve every
+storage format the kernels do not (the ``torch`` op backend).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import formats as F
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fp32 ``a * b + c`` with one rounding, as a fused multiply-add.
+
+    The product of two fp32 values is exact in fp64; the fp64 sum then
+    rounds once more before the final rounding to fp32, which differs from
+    a true FMA only where the fp64 sum lands exactly on an fp32 rounding
+    midpoint (rare; ``chip_smoke.py`` reports the measured rate).  The JAX
+    reference gets this contraction from XLA:CPU under ``jax.jit``.
+    """
+    return (a.double() * b.double() + c.double()).float()
+
+
+def quantized_state_update_stored_ref(
+    qS: F.QuantizedTensor, d: torch.Tensor, k: torch.Tensor,
+    v: torch.Tensor, q: torch.Tensor, *, rounding: str = "stochastic",
+    seed: int = 0,
+) -> Tuple[F.QuantizedTensor, torch.Tensor]:
+    """One Eq. 2 step over a quantized state stored as Sᵀ, (B, H, dv, dk).
+
+    Dequantize -> ``Sn = fma(S, d, v*k)`` -> requantize (SR bits from the
+    counter hash over the flat index) -> ``y = dequant(Sn_q) · q``.  Any
+    quantized format; returns a new container.
+    """
+    B, H, dv, dk = qS.shape
+    St = F.dequantize(qS)
+    d_ = d.to(torch.float32).expand(B, H, dk)[:, :, None, :]
+    vk = v.to(torch.float32)[..., :, None] * k.to(torch.float32)[..., None, :]
+    Sn = fma_f32(St, d_, vk)
+    bits = (F.sr_bits(Sn.shape, seed, device=Sn.device)
+            if rounding == "stochastic" else None)
+    qSn = F.quantize(Sn, qS.fmt, rounding, bits)
+    y = torch.einsum("bhvk,bhk->bhv", F.dequantize(qSn), q.to(torch.float32))
+    return qSn, y
+
+
+def state_update_float(S: torch.Tensor, d, k, v, q,
+                       dtype=torch.bfloat16) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """Unquantized Eq. 2 step, state layout (B, H, dv, dk)."""
+    St = S.to(torch.float32)
+    B, H, dv, dk = St.shape
+    d_ = d.to(torch.float32).expand(B, H, dk)[:, :, None, :]
+    vk = v.to(torch.float32)[..., :, None] * k.to(torch.float32)[..., None, :]
+    Sn = fma_f32(St, d_, vk)
+    y = torch.einsum("bhvk,bhk->bhv", Sn, q.to(torch.float32))
+    return Sn.to(dtype), y
+
+
+def attention_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lengths: torch.Tensor,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token GQA attention softmax(q·Kᵀ)·V; q (B,H,dh), caches
+    (B,T,KVH,d) already dequantized; returns (B, H, dv) f32."""
+    B, H, dh = q.shape
+    _, T, KVH, dk = k_cache.shape
+    if dh != dk:
+        raise ValueError(f"query width {dh} != key width {dk}")
+    G = H // KVH
+    scale = scale if scale is not None else dh ** -0.5
+    qg = q.reshape(B, KVH, G, dh).to(torch.float32)
+    scores = torch.einsum("bngd,btnd->bngt", qg,
+                          k_cache.to(torch.float32)) * scale
+    mask = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bngt,btnv->bngv", p, v_cache.to(torch.float32))
+    return out.reshape(B, H, -1)
+
+
+def mx_attention_decode_ref(q: torch.Tensor, qK: F.QuantizedTensor,
+                            qV: Optional[F.QuantizedTensor],
+                            lengths: torch.Tensor,
+                            scale: Optional[float] = None,
+                            v_width: Optional[int] = None) -> torch.Tensor:
+    """Decode attention over a packed cache; ``qV=None`` is MLA mode (values
+    are the first ``v_width`` lanes of the key stream)."""
+    kf = F.dequantize(qK)
+    vf = kf[..., :v_width] if qV is None else F.dequantize(qV)
+    return attention_decode_ref(q, kf, vf, lengths, scale)

@@ -1,0 +1,118 @@
+"""Serving launcher of the PyTorch port: the slot-pool path.
+
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --requests 6 \\
+        --slots 4 --max-new 24 --cache-capacity 1024
+
+runs on the card (the CUDA kernels build at first use).  ``--device cpu``
+runs the same path on the CPU with the kernels' plain versions, e.g. at
+smoke size:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+        --smoke-size --device cpu --requests 4 --max-new 6
+
+Weights are random, from ``--seed``.
+"""
+import argparse
+import sys
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke-size", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="'cpu' runs on the CPU with the kernels' plain "
+                         "versions; default: the CUDA card (an error if "
+                         "there is none)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--cache-capacity", type=int, default=256)
+    ap.add_argument("--state-format", default="mx8",
+                    choices=["mx8", "int8", "fp16", "fp32"])
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "cuda", "torch"],
+                    help="SPU op backend; 'auto' asks the op registry for "
+                         "the preferred backend capable of --state-format; "
+                         "a concrete choice errors if a compute op the "
+                         "model runs lacks that registration")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--metrics", default=None, metavar="OUT",
+                    help="dump the metrics registry in Prometheus text "
+                         "format at exit ('-' for stdout)")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import Engine, ServeConfig
+    from repro_torch.serving.sampler import SamplingConfig
+
+    device = M.resolve_device(args.device)
+    cfg = (get_smoke_config(args.arch) if args.smoke_size
+           else get_config(args.arch))
+    requested = None if args.backend == "auto" else args.backend
+    compute_kinds = sorted({e.kind for e in OPS.decode_op_plans(cfg, 1, 128)}
+                           - {"kv_append"})
+    try:
+        resolved = [OPS.resolve_backend(kind, args.state_format, requested,
+                                        strict=requested is not None)
+                    for kind in compute_kinds]
+    except ValueError as e:
+        raise SystemExit(f"--backend {args.backend}: {e}")
+    backend = resolved[0]
+    cfg = cfg.with_(state_quant=OPS.StateQuantConfig(
+        fmt=args.state_format, rounding="stochastic", backend=backend))
+
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = M.init_model(cfg, gen, device=device)
+    sampling = SamplingConfig(temperature=args.temperature,
+                              top_k=40 if args.temperature > 0 else 0,
+                              top_p=args.top_p)
+    eng = Engine(params, cfg, ServeConfig(
+        backend="slots", batch=args.slots,
+        cache_capacity=args.cache_capacity, sampling=sampling,
+        seed=args.seed))
+
+    rng = np.random.default_rng(args.seed)
+    for i in range(args.requests):
+        eng.submit(rng.integers(0, cfg.vocab_size, 8 + i % 24),
+                   max_new_tokens=args.max_new)
+    t0 = time.perf_counter()
+    done = eng.run()
+    stats = eng.stats()
+    print(f"{len(done)} requests, {stats['tokens']:.0f} tokens, "
+          f"{stats['tokens_per_s']:.1f} tok/s (wall "
+          f"{time.perf_counter() - t0:.1f}s, state={args.state_format}, "
+          f"backend={backend}, pool=slots, device={device})")
+    print(f"  steps: p50={stats['p50_step_s'] * 1e3:.1f}ms "
+          f"p99={stats['p99_step_s'] * 1e3:.1f}ms "
+          f"p99_nocompile={stats['p99_step_nocompile_s'] * 1e3:.1f}ms "
+          f"({int(stats['compile_steps'])} steps paid a kernel build)")
+    traffic = {k.split("/", 1)[1]: v for k, v in stats.items()
+               if k.startswith("op_traffic_bytes/")}
+    if traffic:
+        total = sum(traffic.values())
+        parts = " ".join(f"{k}={v / 1e6:.1f}MB" for k, v in traffic.items())
+        print(f"  spu op traffic: {parts} (total {total / 1e6:.1f}MB)")
+    print("  " + " ".join(f"{k}={stats[k] * 1e3:.1f}ms" for k in (
+        "mean_ttft_s", "p50_ttft_s", "p99_ttft_s", "p50_tok_latency_s",
+        "p99_tok_latency_s")))
+    if args.metrics:
+        text = eng.prometheus_text()
+        if args.metrics == "-":
+            sys.stdout.write(text)
+        else:
+            with open(args.metrics, "w") as f:
+                f.write(text)
+            print(f"metrics: {args.metrics}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

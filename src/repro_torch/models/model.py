@@ -1,0 +1,328 @@
+"""Model assembly: block patterns, prefill and decode (PyTorch port of
+``repro/models/model.py``).
+
+A model is a repeating ``pattern`` of mixer blocks, optionally followed by
+a weight-shared attention block per group (Zamba2).  Where the JAX package
+stacks group parameters and caches along a leading axis and scans, the
+port keeps per-layer lists and loops: ``params["groups"][g][pos]`` and
+``caches[g][pos]`` (the shared block's cache last in each group).
+
+  * prefill -- full-sequence forward that also builds the decode caches
+  * decode  -- one token through the quantized caches (the Pimba fast path)
+
+Decode seeds are the JAX package's exactly: per group
+``uint32(seed) + g * 1000003``, then ``+ pos + 1`` per element and ``+ 99``
+for the shared block, all wrapping in uint32.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.core import attention_cache as AC
+from repro_torch.core import formats as F
+from repro_torch.models import attention as ATT
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
+from repro_torch.models.config import ModelConfig
+
+Params = dict
+_NO_FFN = ("mamba2", "mlstm", "slstm")
+_SEED_STRIDE = 1000003
+_U32 = 0xFFFFFFFF
+_PORTED = ("attn", "mamba2")
+
+
+def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
+    return cfg.ffn_kind != "none" and kind not in _NO_FFN
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for configuration features the port does not carry yet."""
+    missing = sorted(set(cfg.pattern) - set(_PORTED))
+    if missing or cfg.prelude:
+        raise NotImplementedError(
+            f"{cfg.name}: mixers {missing or list(cfg.prelude)} are not "
+            "ported yet (ROADMAP.md: the other mixers and configs)")
+    if cfg.ffn_kind not in ("swiglu", "none") or cfg.norm_kind != "rmsnorm" \
+            or cfg.pos_emb not in ("rope", "none") or cfg.frontend is not None \
+            or cfg.prefix_len or cfg.encoder_only or not cfg.causal:
+        raise NotImplementedError(
+            f"{cfg.name}: only causal rmsnorm models with swiglu (or no) FFN "
+            "and rope (or no) positions are ported; MoE, other FFNs and "
+            "norms, frontends and encoders follow (ROADMAP.md)")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU.  Finding no card without being asked for the CPU is an
+    error, not a fallback."""
+    if device is not None and torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass device='cpu' "
+                           "(or --device cpu) to run on the CPU")
+    return torch.device(device if device is not None else "cuda")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_element(gen, cfg: ModelConfig, kind: str, device) -> Params:
+    dt = getattr(torch, cfg.param_dtype)
+    p: Params = {"norm": L.init_norm(cfg.d_model, dt, device)}
+    if kind == "attn":
+        p["mixer"] = ATT.init_attention(gen, cfg, device)
+    else:
+        p["mixer"] = SSM.init_mamba2(gen, cfg, device)
+    if _has_ffn(cfg, kind):
+        p["ffn_norm"] = L.init_norm(cfg.d_model, dt, device)
+        p["ffn"] = L.init_ffn(gen, cfg, device)
+    return p
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator,
+               device=None) -> Params:
+    """Random weights from ``generator``, allocated on ``device`` (the card
+    unless ``device="cpu"``).  Shapes and scales are the JAX package's;
+    the numbers are not (use :func:`repro_torch.models.convert` for that)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    dt = getattr(torch, cfg.param_dtype)
+    params: Params = {
+        "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, dt,
+                              device),
+        "groups": [[_init_element(generator, cfg, kind, device)
+                    for kind in cfg.pattern] for _ in range(cfg.n_groups)],
+    }
+    if cfg.shared_attn:
+        params["shared"] = {
+            "norm": L.init_norm(cfg.d_model, dt, device),
+            "attn": ATT.init_attention(generator, cfg, device),
+            "ffn_norm": L.init_norm(cfg.d_model, dt, device),
+            "ffn": L.init_ffn(generator, cfg, device),
+        }
+    params["final_norm"] = L.init_norm(cfg.d_model, dt, device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(generator, cfg.d_model,
+                                         cfg.vocab_size, dt, device)
+    return params
+
+
+def _lm_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def params_device(params: Params) -> torch.device:
+    return params["embed"].device
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+def _build_kv_cache(k: torch.Tensor, v: torch.Tensor,
+                    cfg: ModelConfig) -> AC.KVCache:
+    """Quantize full-sequence K/V into a cache with tile-aligned capacity."""
+    B, S = k.shape[:2]
+    pad = -(-S // AC.PAGE_TOKENS) * AC.PAGE_TOKENS - S
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    sq = cfg.state_quant
+    lengths = torch.full((B,), S, dtype=torch.int32, device=k.device)
+    if sq.quantized:
+        return AC.KVCache(F.quantize(k, sq.fmt), F.quantize(v, sq.fmt),
+                          lengths, sq.fmt)
+    dt = F.FLOAT_DTYPES[sq.fmt]
+    return AC.KVCache(k.to(dt), v.to(dt), lengths, sq.fmt)
+
+
+def _attn_block_forward(p: Params, x, cfg: ModelConfig, positions):
+    """Attention + cache build shared by pattern and shared blocks."""
+    y = ATT.attention_forward(p, x, cfg, positions)
+    k, v = ATT.attention_prefill_kv(p, x, cfg, positions)
+    return y, _build_kv_cache(k, v, cfg)
+
+
+def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
+                     positions) -> Tuple[torch.Tensor, Any]:
+    h = L.apply_norm(p["norm"], x, cfg.norm_eps)
+    if kind == "attn":
+        y, cache = _attn_block_forward(p["mixer"], h, cfg, positions)
+    else:
+        y, cache = SSM.mamba2_forward(p["mixer"], h, cfg)
+    x = x + y
+    if _has_ffn(cfg, kind):
+        h = L.apply_norm(p["ffn_norm"], x, cfg.norm_eps)
+        x = x + L.apply_ffn(p["ffn"], h)
+    return x, cache
+
+
+def _shared_block_forward(p: Params, x, cfg: ModelConfig, positions):
+    h = L.apply_norm(p["norm"], x, cfg.norm_eps)
+    y, cache = _attn_block_forward(p["attn"], h, cfg, positions)
+    x = x + y
+    h = L.apply_norm(p["ffn_norm"], x, cfg.norm_eps)
+    return x + L.apply_ffn(p["ffn"], h), cache
+
+
+@torch.no_grad()
+def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, List[List[Any]]]:
+    """Full-sequence forward; returns (last-position logits, caches)."""
+    tokens = batch["tokens"]
+    x = params["embed"][tokens]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    shared = params.get("shared")
+    caches = []
+    for g in range(cfg.n_groups):
+        group = []
+        for pos, kind in enumerate(cfg.pattern):
+            x, c = _element_forward(params["groups"][g][pos], x, cfg, kind,
+                                    positions)
+            group.append(c)
+        if shared is not None:
+            x, c = _shared_block_forward(shared, x, cfg, positions)
+            group.append(c)
+        caches.append(group)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
+    return x[:, -1] @ _lm_head(params, cfg), caches
+
+
+# ---------------------------------------------------------------------------
+# decode caches
+# ---------------------------------------------------------------------------
+
+def _kv_cache(cfg: ModelConfig, B: int, cap: int, device) -> AC.KVCache:
+    return AC.init_kv_cache(B, cap, cfg.n_kv_heads, cfg.head_dim,
+                            cfg.state_quant, device=device)
+
+
+def init_decode_caches(cfg: ModelConfig, B: int, cache_capacity: int,
+                       device=None) -> List[List[Any]]:
+    """Zeroed caches, ``caches[g][pos]`` (shared block's cache last)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+
+    def one_element(kind):
+        if kind == "attn":
+            return _kv_cache(cfg, B, cache_capacity, device)
+        return SSM.mamba2_init_state(B, cfg, device)
+
+    caches = []
+    for _ in range(cfg.n_groups):
+        group = [one_element(k) for k in cfg.pattern]
+        if cfg.shared_attn:
+            group.append(_kv_cache(cfg, B, cache_capacity, device))
+        caches.append(group)
+    return caches
+
+
+def iter_kv_caches(caches):
+    for group in caches:
+        for c in group:
+            if isinstance(c, AC.KVCache):
+                yield c
+
+
+def set_cache_lengths(caches, lengths: torch.Tensor):
+    """Overwrite every KVCache.lengths (e.g. decode over a warm cache)."""
+    out = []
+    for group in caches:
+        out.append([AC.KVCache(c.k, c.v, lengths.to(torch.int32).clone(),
+                               c.fmt)
+                    if isinstance(c, AC.KVCache) else c for c in group])
+    return out
+
+
+def _copy_stream(dst, src, slot: int, n_time: int):
+    if isinstance(dst, F.QuantizedTensor):
+        for f, a in dst.payload.items():
+            a[slot, :n_time] = src.payload[f][0, :n_time]
+    else:
+        dst[slot, :n_time] = src[0, :n_time]
+
+
+@torch.no_grad()
+def write_row(caches, row_caches, slot: int, length: int) -> None:
+    """Write a batch-1 prefill's caches into row ``slot`` of the pool caches,
+    in place, and set that row's KV length to ``length``.
+
+    Structure-aware: KV streams copy their first ``min(T_row, T_pool)``
+    positions (later positions of the row are masked by the length);
+    recurrent state and conv tails copy whole.
+    """
+    for group, row_group in zip(caches, row_caches):
+        for c, r in zip(group, row_group):
+            if isinstance(c, AC.KVCache):
+                n = min(r.max_len, c.max_len)
+                _copy_stream(c.k, r.k, slot, n)
+                _copy_stream(c.v, r.v, slot, n)
+                c.lengths[slot] = length
+                continue
+            for name, leaf in c.items():
+                src = r[name]
+                if isinstance(leaf, F.QuantizedTensor):
+                    for f, a in leaf.payload.items():
+                        a[slot] = src.payload[f][0]
+                else:
+                    leaf[slot] = src[0]
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def _element_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
+                    positions, seed: int) -> Tuple[torch.Tensor, Any]:
+    h = L.apply_norm(p["norm"], x, cfg.norm_eps)
+    if kind == "attn":
+        y, cache = ATT.attention_decode(p["mixer"], h, cache, cfg,
+                                        positions[:, None], seed)
+    else:
+        y, cache = SSM.mamba2_decode(p["mixer"], h, cache, cfg, seed)
+    x = x + y
+    if _has_ffn(cfg, kind):
+        h = L.apply_norm(p["ffn_norm"], x, cfg.norm_eps)
+        x = x + L.apply_ffn(p["ffn"], h)
+    return x, cache
+
+
+@torch.no_grad()
+def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                caches, lengths: torch.Tensor, seed: int = 0
+                ) -> Tuple[torch.Tensor, List[List[Any]]]:
+    """One decode step.  tokens: (B,) int; lengths: (B,) positions so far.
+
+    Returns (logits (B, V), new caches).  On the card the MX8 state and KV
+    buffers are updated in place; always continue from the returned caches.
+    """
+    x = params["embed"][tokens][:, None]                       # (B,1,d)
+    positions = lengths
+    shared = params.get("shared")
+    new_caches = []
+    for g in range(cfg.n_groups):
+        seed_g = (int(seed) + g * _SEED_STRIDE) & _U32
+        gcaches = caches[g]
+        group = []
+        for pos, kind in enumerate(cfg.pattern):
+            x, c = _element_decode(params["groups"][g][pos], x, gcaches[pos],
+                                   cfg, kind, positions,
+                                   (seed_g + pos + 1) & _U32)
+            group.append(c)
+        if shared is not None:
+            h = L.apply_norm(shared["norm"], x, cfg.norm_eps)
+            y, c = ATT.attention_decode(shared["attn"], h, gcaches[-1], cfg,
+                                        positions[:, None],
+                                        (seed_g + 99) & _U32)
+            x = x + y
+            h = L.apply_norm(shared["ffn_norm"], x, cfg.norm_eps)
+            x = x + L.apply_ffn(shared["ffn"], h)
+            group.append(c)
+        new_caches.append(group)
+    x = L.apply_norm(params["final_norm"], x[:, 0], cfg.norm_eps)
+    return x @ _lm_head(params, cfg), new_caches

@@ -1,0 +1,228 @@
+"""State-update mixers -- PyTorch port of ``repro/models/ssm.py`` (Mamba-2).
+
+Prefill runs the chunked linear-attention form (quadratic within chunks,
+recurrent across chunks); decode routes through ONE registered SPU op
+invocation per layer (``state_update_step``), whose MX8 backend on the card
+is the fused CUDA kernel.  GLA / RetNet / HGRN2 / mLSTM / sLSTM follow in a
+later slice of the port (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as Fn
+
+from repro_torch import ops as OPS
+from repro_torch.core import formats as F
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+Params = dict
+MixerState = Dict[str, object]
+
+
+def _spu_state_update(state, decay, k, v, q, cfg: ModelConfig, seed: int):
+    """The one decode-time Eq. 2 invocation (registry-dispatched)."""
+    return OPS.state_update_step(state, decay, k, v, q, cfg.state_quant,
+                                 seed=seed)
+
+
+#: per-family decode decay hooks: log-decay -> Eq. 2 d_t
+_DECAY_HOOKS = {
+    "mamba2": lambda log_f: torch.exp(log_f),              # (B,H,1)
+}
+
+
+def chunked_la_scalar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      log_a: torch.Tensor, chunk: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scalar-decay chunked scan.
+
+    q, k: (B,H,S,dk); v: (B,H,S,dv); log_a: (B,H,S) per-step log decay.
+    Returns y (B,H,S,dv) and the final state (B,H,dk,dv) in f32.
+    """
+    B, H, S, dk = q.shape
+    dv = v.shape[-1]
+    c = min(chunk, S)
+    S0_len = S
+    pad = (-S) % c
+    if pad:  # zero tokens with decay 1 leave the state untouched
+        def zpad(a):
+            return Fn.pad(a, (0, 0) * (a.dim() - 3) + (0, pad))
+        q, k, v, log_a = zpad(q), zpad(k), zpad(v), zpad(log_a)
+        S += pad
+    nc = S // c
+    qc = q.reshape(B, H, nc, c, dk)
+    kc = k.reshape(B, H, nc, c, dk)
+    vc = v.reshape(B, H, nc, c, dv)
+    cum = torch.cumsum(log_a.to(torch.float32).reshape(B, H, nc, c), dim=-1)
+    total = cum[..., -1:]
+    tril = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
+    S_prev = torch.zeros((B, H, dk, dv), dtype=torch.float32, device=q.device)
+    ys = []
+    for i in range(nc):
+        qi, ki, vi = qc[:, :, i], kc[:, :, i], vc[:, :, i]
+        cumi, toti = cum[:, :, i], total[:, :, i]
+        dmat = torch.exp(cumi[..., :, None] - cumi[..., None, :])
+        A = torch.einsum("bhcd,bhed->bhce", qi.float(), ki.float()) * dmat
+        A = torch.where(tril, A, torch.zeros_like(A))
+        y = torch.einsum("bhce,bhev->bhcv", A.to(vi.dtype), vi).float()
+        q_in = (qi.float() * torch.exp(cumi)[..., None]).to(qi.dtype)
+        y = y + torch.einsum("bhcd,bhdv->bhcv", q_in,
+                             S_prev.to(qi.dtype)).float()
+        k_end = (ki.float() * torch.exp(toti - cumi)[..., None]).to(ki.dtype)
+        S_prev = torch.exp(toti)[..., None] * S_prev + torch.einsum(
+            "bhcd,bhcv->bhdv", k_end, vi).float()
+        ys.append(y)
+    y = torch.stack(ys, dim=2).reshape(B, H, S, dv)[:, :, :S0_len]
+    return y, S_prev
+
+
+def _store_state(S_logical: torch.Tensor, cfg: ModelConfig) -> OPS.StateLike:
+    """(B,H,dk,dv) f32 -> stored container (B,H,dv,dk)."""
+    St = S_logical.transpose(-1, -2).contiguous()
+    sq = cfg.state_quant
+    if not sq.quantized:
+        return St.to(F.FLOAT_DTYPES[sq.fmt])
+    return F.quantize(St, sq.fmt)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """x: (B,S,C), w: (d_conv, C): y_t = sum_i w_i * x_{t-d_conv+1+i} + b."""
+    d_conv = w.shape[0]
+    out = torch.zeros_like(x)
+    for i in range(d_conv):
+        shift = d_conv - 1 - i
+        xi = Fn.pad(x, (0, 0, shift, 0))[:, :x.shape[1]]
+        out = out + xi * w[i]
+    return out + b
+
+
+def causal_conv_step(x_new: torch.Tensor, conv_state: torch.Tensor,
+                     w: torch.Tensor, b: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token conv step.  x_new: (B,C); conv_state: (B,d_conv-1,C)."""
+    win = torch.cat([conv_state, x_new[:, None]], dim=1)      # (B,d_conv,C)
+    y = torch.einsum("bdc,dc->bc", win, w) + b
+    return y, win[:, 1:]
+
+
+def _m2_dims(cfg: ModelConfig):
+    sc = cfg.ssm
+    d_inner = sc.expand * cfg.d_model
+    return d_inner, d_inner // sc.head_dim, sc.d_state, sc.head_dim
+
+
+def init_mamba2(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    d = cfg.d_model
+    d_inner, H, N, P = _m2_dims(cfg)
+    dt = getattr(torch, cfg.param_dtype)
+    dc = cfg.ssm.d_conv
+
+    def conv_w(width):
+        return (torch.randn((dc, width), generator=gen, device=device)
+                * (1.0 / np.sqrt(dc))).to(dt)
+
+    return {
+        "wz": L.dense_init(gen, d, d_inner, dt, device),
+        "wx": L.dense_init(gen, d, d_inner, dt, device),
+        "wbc": L.dense_init(gen, d, 2 * N, dt, device),
+        "wdt": L.dense_init(gen, d, H, dt, device),
+        "conv_x_w": conv_w(d_inner),
+        "conv_x_b": torch.zeros((d_inner,), dtype=dt, device=device),
+        "conv_bc_w": conv_w(2 * N),
+        "conv_bc_b": torch.zeros((2 * N,), dtype=dt, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=device)),
+        "D": torch.ones((H,), device=device),
+        "dt_bias": torch.full((H,), float(np.log(np.expm1(0.01))),
+                              device=device),
+        "norm": L.init_norm(d_inner, dt, device),
+        "out_proj": L.dense_init(gen, d_inner, d, dt, device,
+                                 1.0 / np.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def _m2_project(p, x, cfg):
+    N = cfg.ssm.d_state
+    bc = x @ p["wbc"]
+    return x @ p["wz"], x @ p["wx"], bc[..., :N], bc[..., N:], x @ p["wdt"]
+
+
+def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
+                   ) -> Tuple[torch.Tensor, MixerState]:
+    B, S, _ = x.shape
+    d_inner, H, N, P = _m2_dims(cfg)
+    z, xin, Bv, Cv, dt_ = _m2_project(p, x, cfg)
+    xin = Fn.silu(causal_conv(xin, p["conv_x_w"], p["conv_x_b"]))
+    bc = Fn.silu(causal_conv(torch.cat([Bv, Cv], -1), p["conv_bc_w"],
+                             p["conv_bc_b"]))
+    Bv, Cv = bc[..., :N], bc[..., N:]
+
+    dt_f = Fn.softplus(dt_.to(torch.float32) + p["dt_bias"])    # (B,S,H)
+    a = -torch.exp(p["A_log"])
+    log_decay = (dt_f * a).transpose(1, 2)                      # (B,H,S)
+    k = Bv[:, :, None, :].expand(B, S, H, N).transpose(1, 2)
+    q = Cv[:, :, None, :].expand(B, S, H, N).transpose(1, 2)
+    xh = xin.reshape(B, S, H, P)
+    v = (xh * dt_f[..., None].to(xh.dtype)).transpose(1, 2)     # (B,H,S,P)
+
+    y, S_fin = chunked_la_scalar(q, k, v, log_decay, cfg.ssm.chunk)
+    y = y + p["D"][None, :, None, None] * xh.transpose(1, 2)
+    y = y.transpose(1, 2).reshape(B, S, d_inner).to(x.dtype)
+    y = L.rmsnorm_gated(y, p["norm"]["scale"], z, cfg.norm_eps)
+    out = y @ p["out_proj"]
+
+    # conv caches hold the pre-activation inputs of the last d_conv-1 steps
+    # (zero rows stand in for positions before the prompt)
+    tail = cfg.ssm.d_conv - 1
+    xt = x[:, -tail:]
+    if xt.shape[1] < tail:
+        xt = Fn.pad(xt, (0, 0, tail - xt.shape[1], 0))
+    _, xin2, Bv2, Cv2, _ = _m2_project(p, xt, cfg)
+    state = {"S": _store_state(S_fin, cfg), "conv_x": xin2,
+             "conv_bc": torch.cat([Bv2, Cv2], -1)}
+    return out, state
+
+
+def mamba2_init_state(B: int, cfg: ModelConfig, device) -> MixerState:
+    d_inner, H, N, P = _m2_dims(cfg)
+    dt = getattr(torch, cfg.param_dtype)
+    tail = cfg.ssm.d_conv - 1
+    return {"S": OPS.init_state(B, H, N, P, cfg.state_quant, device=device),
+            "conv_x": torch.zeros((B, tail, d_inner), dtype=dt, device=device),
+            "conv_bc": torch.zeros((B, tail, 2 * N), dtype=dt, device=device)}
+
+
+def mamba2_decode(p: Params, x: torch.Tensor, state: MixerState,
+                  cfg: ModelConfig, seed: int
+                  ) -> Tuple[torch.Tensor, MixerState]:
+    """x: (B, 1, d) one token."""
+    B = x.shape[0]
+    d_inner, H, N, P = _m2_dims(cfg)
+    z, xin, Bv, Cv, dt_ = _m2_project(p, x[:, 0], cfg)
+    xin, conv_x_state = causal_conv_step(xin, state["conv_x"],
+                                         p["conv_x_w"], p["conv_x_b"])
+    xin = Fn.silu(xin)
+    bc, conv_bc_state = causal_conv_step(torch.cat([Bv, Cv], -1),
+                                         state["conv_bc"], p["conv_bc_w"],
+                                         p["conv_bc_b"])
+    bc = Fn.silu(bc)
+    Bv, Cv = bc[..., :N], bc[..., N:]
+
+    dt_f = Fn.softplus(dt_.to(torch.float32) + p["dt_bias"])    # (B,H)
+    a = -torch.exp(p["A_log"])
+    decay = _DECAY_HOOKS["mamba2"]((dt_f * a)[..., None])       # (B,H,1)
+    k = Bv[:, None, :].expand(B, H, N)
+    q = Cv[:, None, :].expand(B, H, N)
+    xh = xin.reshape(B, H, P)
+    v = xh * dt_f[..., None]
+
+    Sn, y = _spu_state_update(state["S"], decay, k, v, q, cfg, seed)
+    y = y + p["D"][None, :, None] * xh
+    y = y.reshape(B, d_inner).to(x.dtype)
+    y = L.rmsnorm_gated(y, p["norm"]["scale"], z, cfg.norm_eps)
+    out = (y @ p["out_proj"])[:, None]
+    return out, {"S": Sn, "conv_x": conv_x_state, "conv_bc": conv_bc_state}

@@ -1,0 +1,160 @@
+"""Decode attention and KV-cache append as registered SpuOps (PyTorch port).
+
+Mirrors ``repro/ops/attention.py``:
+
+``kv_append``   -- quantize the new token's K/V rows (SR seeds ``seed`` and
+                   ``seed + 1``) and scatter them into the cache at each
+                   row's length.  Plain PyTorch (a quantize and a scatter,
+                   as the JAX package leaves it to XLA), written in place.
+``attn_decode`` -- one-token GQA attention against the packed cache:
+                   ``cuda`` (the MX8 kernel) or ``torch`` (every format).
+
+The MLA variant (``mla_decode``) follows with the MLA mode of the attention
+kernel (ROADMAP.md); its plain version is ``ref.mx_attention_decode_ref``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import attention_cache as AC
+from repro_torch.core import formats as F
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.mx_attention import mx_attention_decode as _attn_cuda
+from repro_torch.ops import registry
+from repro_torch.ops.base import (OPERAND_BYTES, OUTPUT_BYTES, OpPlan, SpuOp,
+                                  StateQuantConfig, TrafficBytes,
+                                  fmt_of_state)
+
+_U32 = 0xFFFFFFFF
+
+
+def _cache_row_vals(plan: OpPlan) -> int:
+    """Stored values per cached token across K and V streams."""
+    return plan.dim("KVH") * (plan.dim("dk") + plan.dim("dv"))
+
+
+@registry.register
+class KVAppendTorch(SpuOp):
+    """Quantize + scatter n new token rows into a KV cache (in place)."""
+    kind = "kv_append"
+    backend = "torch"
+    formats = ("mx8", "int8", "fp8_e4m3", "fp8_e5m2", "fp32", "bf16", "fp16")
+
+    def execute(self, cache: AC.KVCache, inputs: Dict[str, Any],
+                plan: OpPlan) -> Tuple[AC.KVCache, None]:
+        k_new, v_new = inputs["k"], inputs["v"]
+        seed = int(inputs.get("seed", 0)) & _U32
+        stochastic = plan.rounding == "stochastic"
+
+        def put(stream, rows, s):
+            if not isinstance(stream, F.QuantizedTensor):
+                return AC._update_at(stream, rows, cache.lengths)
+            bits = (F.sr_bits(rows.shape, s, device=rows.device)
+                    if stochastic else None)
+            qr = F.quantize(rows, cache.fmt, plan.rounding, bits)
+            for f, a in stream.payload.items():
+                AC._update_at(a, qr.payload[f], cache.lengths)
+            return stream
+
+        nk = put(cache.k, k_new, seed)
+        nv = put(cache.v, v_new, (seed + 1) & _U32)
+        return AC.KVCache(nk, nv, cache.lengths + k_new.shape[1],
+                          cache.fmt), None
+
+    def traffic(self, plan: OpPlan) -> TrafficBytes:
+        B, n = plan.dim("B"), plan.dim("n")
+        vals = B * n * _cache_row_vals(plan)
+        return TrafficBytes(state_write=vals * plan.bits_per_val / 8.0,
+                            operand_read=vals * OPERAND_BYTES)
+
+
+class _AttnDecodeBase(SpuOp):
+    kind = "attn_decode"
+
+    def traffic(self, plan: OpPlan) -> TrafficBytes:
+        B, T, H = plan.dim("B"), plan.dim("T"), plan.dim("H")
+        cache = B * T * _cache_row_vals(plan) * plan.bits_per_val / 8.0
+        return TrafficBytes(
+            state_read=cache,
+            operand_read=B * H * plan.dim("dk") * OPERAND_BYTES,
+            output_write=B * H * plan.dim("dv") * OUTPUT_BYTES)
+
+
+@registry.register
+class AttnDecodeCuda(_AttnDecodeBase):
+    """Fused decode attention over the packed MX8 cache (GQA)."""
+    backend = "cuda"
+    formats = ("mx8",)
+
+    def execute(self, cache: AC.KVCache, inputs: Dict[str, Any],
+                plan: OpPlan) -> Tuple[AC.KVCache, torch.Tensor]:
+        return cache, _attn_cuda(inputs["q"], cache.k, cache.v, cache.lengths,
+                                 scale=plan.opt("scale"))
+
+
+@registry.register
+class AttnDecodeTorch(_AttnDecodeBase):
+    """Plain decode attention for every storage format."""
+    backend = "torch"
+    formats = ("mx8", "int8", "fp8_e4m3", "fp8_e5m2", "fp32", "bf16", "fp16")
+
+    def execute(self, cache: AC.KVCache, inputs: Dict[str, Any],
+                plan: OpPlan) -> Tuple[AC.KVCache, torch.Tensor]:
+        def deq(s):
+            return (F.dequantize(s) if isinstance(s, F.QuantizedTensor)
+                    else s.to(torch.float32))
+        return cache, _ref.attention_decode_ref(
+            inputs["q"], deq(cache.k), deq(cache.v), cache.lengths,
+            plan.opt("scale"))
+
+
+def _cache_quant(cache: AC.KVCache, cfg: StateQuantConfig) -> StateQuantConfig:
+    return StateQuantConfig(fmt=fmt_of_state(cache.k), rounding=cfg.rounding,
+                            backend=cfg.backend)
+
+
+def _cache_dims(cache: AC.KVCache, n: int = 1) -> Dict[str, int]:
+    B, T, KVH, dk = cache.k.shape
+    return dict(B=B, T=T, KVH=KVH, dk=dk, dv=cache.v.shape[-1], n=n)
+
+
+def plan_attn_decode_dims(dims: Dict[str, int], cfg: StateQuantConfig, *,
+                          scale=None, strict: bool = False) -> OpPlan:
+    """Plan a decode-attention invocation from explicit dims (cost models)."""
+    dims = dict(dims)
+    dims.setdefault("H", dims["KVH"])
+    return registry.plan("attn_decode", dims, cfg, cfg.backend,
+                         strict=strict, scale=scale)
+
+
+def kv_append(cache: AC.KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+              cfg: StateQuantConfig, seed: int = 0) -> AC.KVCache:
+    """Append one (or n) token(s): k_new (B, n, KVH, dk).  In place."""
+    p = registry.plan("kv_append", _cache_dims(cache, n=k_new.shape[1]),
+                      _cache_quant(cache, cfg), cfg.backend)
+    new_cache, _ = registry.execute(cache, {"k": k_new, "v": v_new,
+                                            "seed": seed}, p)
+    return new_cache
+
+
+def attn_decode(cache: AC.KVCache, q: torch.Tensor, cfg: StateQuantConfig,
+                scale: Optional[float] = None) -> torch.Tensor:
+    """Decode attention of current-token queries q (B,H,dk) vs the cache."""
+    dims = _cache_dims(cache)
+    dims["H"] = q.shape[1]
+    p = registry.plan("attn_decode", dims, _cache_quant(cache, cfg),
+                      cfg.backend, scale=scale)
+    _, out = registry.execute(cache, {"q": q}, p)
+    return out
+
+
+def attention_decode_step(cache: AC.KVCache, k_new: torch.Tensor,
+                          v_new: torch.Tensor, q: torch.Tensor,
+                          cfg: StateQuantConfig, *,
+                          scale: Optional[float] = None, seed: int = 0,
+                          ) -> Tuple[torch.Tensor, AC.KVCache]:
+    """One decode step: append the token's K/V, then attend."""
+    cache = kv_append(cache, k_new, v_new, cfg, seed=seed)
+    return attn_decode(cache, q, cfg, scale=scale), cache

@@ -1,0 +1,82 @@
+"""Per-model decode-op plans: the bridge from a ModelConfig to SpuOp traffic.
+
+The PyTorch twin of ``repro/ops/model_traffic.py`` for the dense layout:
+``decode_op_plans(cfg, batch, seq_len)`` enumerates every registered SPU op
+one decode step runs, with its per-step count, so the serving engine's
+traffic meter and the cost accounting read the ops' own ``traffic(plan)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
+
+from repro_torch.ops import registry
+from repro_torch.ops.base import OpPlan, TrafficBytes
+
+
+@dataclasses.dataclass(frozen=True)
+class OpTrafficEntry:
+    """One op kind's plan and how many times a decode step runs it."""
+    kind: str
+    plan: OpPlan
+    count: int
+
+    @property
+    def traffic(self) -> TrafficBytes:
+        return registry.traffic(self.plan).scaled(self.count)
+
+
+def _state_dims(cfg, kind: str):
+    """(H, dk, dv) of one mixer's recurrent state."""
+    if kind != "mamba2":
+        raise NotImplementedError(
+            f"mixer {kind!r} is not ported yet (ROADMAP.md: other mixers)")
+    sc = cfg.ssm
+    return (sc.expand * cfg.d_model) // sc.head_dim, sc.d_state, sc.head_dim
+
+
+def decode_op_plans(cfg, batch: int, seq_len: int) -> List[OpTrafficEntry]:
+    """Every SPU op one decode step runs for ``cfg`` (dense layout), with
+    layer counts."""
+    quant = cfg.state_quant
+    entries: List[OpTrafficEntry] = []
+
+    def layer_count(kind: str) -> int:
+        return (cfg.pattern.count(kind) * cfg.n_groups
+                + cfg.prelude.count(kind))
+
+    state_counts: Dict[tuple, int] = {}
+    for kind in ("mamba2", "gla", "retnet", "hgrn2", "mlstm"):
+        n = layer_count(kind)
+        if n and cfg.ssm is not None:
+            dims = _state_dims(cfg, kind)
+            state_counts[dims] = state_counts.get(dims, 0) + n
+    from repro_torch.ops.state_update import plan_state_update_dims
+    for (H, dk, dv), n in sorted(state_counts.items()):
+        entries.append(OpTrafficEntry(
+            "state_update", plan_state_update_dims(batch, H, dk, dv, quant),
+            n))
+
+    from repro_torch.ops.attention import plan_attn_decode_dims
+    n_attn = layer_count("attn") + (cfg.n_groups if cfg.shared_attn else 0)
+    if n_attn:
+        dims = dict(B=batch, T=seq_len, KVH=cfg.n_kv_heads,
+                    dk=cfg.head_dim, dv=cfg.head_dim, n=1, H=cfg.n_heads)
+        entries.append(OpTrafficEntry(
+            "attn_decode", plan_attn_decode_dims(dims, quant), n_attn))
+        entries.append(OpTrafficEntry(
+            "kv_append", registry.plan("kv_append", dims, quant,
+                                       quant.backend), n_attn))
+    if layer_count("mla"):
+        raise NotImplementedError(
+            "MLA layers are not ported yet (ROADMAP.md: MLA mode)")
+    return entries
+
+
+def decode_traffic_by_kind(cfg, batch: int,
+                           seq_len: int) -> Dict[str, TrafficBytes]:
+    """Per-op-kind traffic of one decode step (sums entries of a kind)."""
+    out: Dict[str, TrafficBytes] = {}
+    for e in decode_op_plans(cfg, batch, seq_len):
+        out[e.kind] = out.get(e.kind, TrafficBytes()) + e.traffic
+    return out

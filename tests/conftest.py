@@ -32,3 +32,10 @@ def subprocess_env(**extra):
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels); skips "
+        "without one -- run on the card with `pytest -m gpu "
+        "tests/test_torch_cuda.py`")
