@@ -9,10 +9,14 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 against its plain PyTorch version at the shapes the served model gives it,
 times both (with a PyTorch library call as yardstick where one computes the
 same function), then serves ``zamba2-2.7b`` at full width through the slot
-pool and checks that every decode step went through both kernels.  Phases:
+pool and through the paged pool (``Engine``'s default), and checks that
+every decode step went through the kernels of its path.  Phases, in the
+order they run:
 
   1. device   2. build   3. exact powers of two   4. state-update kernel
-  5. attention kernel   6. timing   7. main path   8. kernels line
+  5. attention kernel   9. paged kernels (paged attention, paged append,
+  state update in slab mode)   6. timing   10. paged-kernel timing
+  7. main path, slot pool   11. main path, paged pool   8. kernels line
 
 Any failure exits non-zero; with no card it fails (it never falls back to
 the CPU).  The last three lines of standard output are the kernels' JSON
@@ -37,6 +41,12 @@ SU_SHAPES = ((4, 80, 64, 64), (4, 80, 64, 128))   # zamba2-2.7b, mamba2-2.7b
 ATTN = dict(B=4, T=1024, H=32, KVH=32, d=80)       # zamba2-2.7b shared attn
 PROMPT_LENS = (64, 400, 133, 251, 97, 320)         # main path, 64..400 tokens
 MAX_NEW = 24
+#: the paged main path: 9 pages (8 usable) of zamba2-2.7b KV make FCFS
+#: preempt through the headroom check (the six requests need 13 pages
+#: at their ends, four at a time up to 10)
+PAGED = dict(batch=4, n_pages=9, prefill_chunk=256)
+N_STACK = 9                                         # shared-attn applications
+PAGED_LENGTHS = ((1, 127, 128, 129), (1000, 128, 129, 1))
 
 
 class SmokeFailure(RuntimeError):
@@ -125,7 +135,8 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    paths = _build.build(["mx_state_update", "mx_attention"])
+    paths = _build.build(["mx_state_update", "mx_attention",
+                          "mx_paged_attention"])
     dt = time.perf_counter() - t0
     for name, path in paths.items():
         report = _build.PTXAS_REPORT.get(name, "(cached build)")
@@ -165,18 +176,27 @@ def _su_case(shape, rounding, mag, scalar_decay, seed):
     qk, yk = KS.mx_state_update(qS.clone(), d, k, v, q, seed=seed,
                                 rounding=rounding)
     torch.cuda.synchronize()
+    return _hold_su(f"state update {shape} {rounding}", qp.payload, yp,
+                    qk.payload, yk)
+
+
+def _hold_su(label, plain, yp, kern, yk):
+    """The state-update contract, kernel against plain on the same inputs:
+    exponent and micro bytes bitwise, mantissa within one step, ``y`` to
+    rtol 1e-5 / atol 1e-5*max|y| on rows whose state matches.  Returns
+    (mantissa mismatches, values, max |y error|)."""
+    import torch
     for f in ("exponent", "micro"):
-        check(torch.equal(qp.payload[f], qk.payload[f]),
-              f"state update {shape} {rounding}: {f} bytes differ")
-    dm = (qp.payload["mantissa"].int() - qk.payload["mantissa"].int()).abs()
-    check(int(dm.max()) <= 1, f"state update {shape}: mantissa off by >1")
+        check(torch.equal(plain[f], kern[f]), f"{label}: {f} bytes differ")
+    dm = (plain["mantissa"].int() - kern["mantissa"].int()).abs()
+    check(int(dm.max()) <= 1, f"{label}: mantissa off by >1")
     diff = dm > 0
     ok = ~diff.any(-1)
     atol = 1e-5 * float(yp.abs().max())
     err_ok = float((yk[ok] - yp[ok]).abs().max())
     check(bool(((yk[ok] - yp[ok]).abs() <= atol + 1e-5 * yp[ok].abs()).all()),
-          f"state update {shape} {rounding}: y differs beyond rtol 1e-5, "
-          f"atol {atol:.3g} (max err {err_ok:.3g})")
+          f"{label}: y differs beyond rtol 1e-5, atol {atol:.3g} (max err "
+          f"{err_ok:.3g})")
     return int(diff.sum()), diff.numel(), float((yk - yp).abs().max())
 
 
@@ -233,12 +253,12 @@ def phase_attention():
 
 
 def _report(name, ms, plain_ms, lib_ms, host_ms, nbytes, flops,
-            logical_bytes):
+            logical_bytes, n=6):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes >= t_ops else "operations"
-    phase(6, f"time {name}", ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+    phase(n, f"time {name}", ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
           library_ms="null" if lib_ms is None else f"{lib_ms:.5f}",
           host_loop_ms=f"{host_ms:.5f}", bound_ms=f"{bound:.5f}",
           bound_by=by, bytes=int(nbytes),
@@ -320,6 +340,269 @@ def phase_timing():
     return su, at
 
 
+# ---------------------------------------------------------------------------
+# the paged kernels (paged attention, paged append, slab-mode state update)
+# ---------------------------------------------------------------------------
+
+def _paged_kv(lengths, seed, spare=2):
+    """Page pools (P, N_STACK, 128, KVH, d) of random MX8 K/V, and a block
+    table of shuffled, non-contiguous page ids covering ``len + 1``
+    positions per row (the append slot included), bucketed to a power of
+    two with scratch page 0 in its tail."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.core.paged import pages_for
+    from repro_torch.serving.memory import bucket_pages
+    a = ATTN
+    need = [pages_for(n + 1) for n in lengths]
+    P = 1 + sum(need) + spare
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = (torch.randperm(P - 1, generator=g, device="cuda") + 1).tolist()
+    bt = torch.zeros((len(lengths), bucket_pages(max(need))),
+                     dtype=torch.int32)
+    for b, n in enumerate(need):
+        bt[b, :n] = torch.tensor(ids[:n])
+        ids = ids[n:]
+    shp = (P, N_STACK, 128, a["KVH"], a["d"])
+    K = F.mx8_quantize(torch.randn(shp, generator=g, device="cuda"))
+    V = F.mx8_quantize(torch.randn(shp, generator=g, device="cuda"))
+    q = torch.randn((len(lengths), a["H"], a["d"]), generator=g,
+                    device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, K, V, bt.cuda(), lens
+
+
+def _append_rows(B, seed):
+    """One token's K and V rows quantized as the paged append op does (SR
+    seeds ``seed`` / ``seed + 1``): six payload rows (B, KVH, w), K then V,
+    fields sorted."""
+    import torch
+    from repro_torch.core import formats as F
+    a = ATTN
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for s in (seed, seed + 1):
+        x = torch.randn((B, 1, a["KVH"], a["d"]), generator=g, device="cuda")
+        qx = F.quantize(x, "mx8", "stochastic",
+                        F.sr_bits(x.shape, s, device="cuda"))
+        rows += [qx.payload[f][:, 0] for f in sorted(qx.payload)]
+    return rows
+
+
+def _payload_pools(K, V):
+    return ([K.payload[f] for f in sorted(K.payload)]
+            + [V.payload[f] for f in sorted(V.payload)])
+
+
+def phase_paged_kernels():
+    """Kernel 3 against its plain version and bitwise against kernel 2 over
+    the gathered pages; kernel 4 bitwise against its plain version with
+    every other pool byte unchanged; kernel 1 in slab mode bitwise against
+    dense mode on the gathered rows -- all at zamba2-2.7b shapes."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_state_update as KS
+    from repro_torch.kernels import ref as R
+    attn_err = append_err = 0
+    for i, lengths in enumerate(PAGED_LENGTHS):
+        q, K, V, bt, lens = _paged_kv(lengths, seed=30 + i)
+        group = 4 + i
+        y3 = KP.mx_paged_attention_decode(q, K, V, bt, group, lens)
+        yp = KP.plain(q, K, V, bt, group, lens)
+        y2 = KA.mx_attention_decode(q, R.gather_pages(K, bt, group),
+                                    R.gather_pages(V, bt, group), lens)
+        torch.cuda.synchronize()
+        err = (y3 - yp).abs()
+        check(bool((err <= 2e-5 + 2e-4 * yp.abs()).all()),
+              f"paged attention {lengths}: beyond rtol 2e-4 atol 2e-5 "
+              f"(max err {float(err.max()):.3g})")
+        check(torch.equal(y3, y2), f"paged attention {lengths}: not bitwise "
+              f"equal to the dense kernel over the gathered pages")
+        attn_err = max(attn_err, float(err.max()))
+
+        pools = _payload_pools(K, V)
+        rows = _append_rows(len(lengths), seed=40 + i)
+        before = [p.clone() for p in pools]
+        plain_pools = [p.clone() for p in pools]
+        KP.mx_paged_kv_append(pools, rows, bt, group, lens)
+        KP.plain_append(plain_pools, rows, bt, group, lens)
+        torch.cuda.synchronize()
+        for j, (a, b) in enumerate(zip(pools, plain_pools)):
+            append_err = max(append_err, int((a.int() - b.int()).abs().max()))
+            check(torch.equal(a, b), f"paged append {lengths}: pool {j} "
+                  "differs from the plain version")
+        keep = torch.ones(pools[0].shape[:3], dtype=torch.bool,
+                          device="cuda")
+        for b, n in enumerate(lengths):
+            keep[bt[b, n // 128], group, n % 128] = False
+        for j, (a, b) in enumerate(zip(pools, before)):
+            check(torch.equal(a[keep], b[keep]), f"paged append {lengths}: "
+                  f"pool {j} changed outside the appended slots")
+    phase(9, "mx_paged_attention_decode vs plain and vs dense kernel",
+          B=4, H=ATTN["H"], KVH=ATTN["KVH"], d=ATTN["d"], n_stack=N_STACK,
+          lengths=list(PAGED_LENGTHS), max_abs_err=f"{attn_err:.3g}",
+          tol="rtol2e-4,atol2e-5", vs_dense_on_gathered_pages="bitwise")
+    phase(9, "mx_paged_kv_append vs plain", pools=6, result="bitwise",
+          max_abs_err=append_err, untouched_bytes="unchanged")
+
+    mism = total = 0
+    slab_err = 0.0
+    for B, H, dv, dk in SU_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(dk)
+        n_slabs, n_stack, group = 9, 6, 4
+        pool = F.mx8_quantize(torch.randn((n_slabs, n_stack, H, dv, dk),
+                                          generator=g, device="cuda"))
+        slabs = torch.tensor([7, 2, 5, 3], dtype=torch.int32, device="cuda")
+        d = torch.sigmoid(torch.randn((B, H, 1), generator=g, device="cuda"))
+        k, q = (torch.randn((B, H, dk), generator=g, device="cuda")
+                for _ in "kq")
+        v = torch.randn((B, H, dv), generator=g, device="cuda")
+        idx = (slabs.long(), group)
+        rows = F.QuantizedTensor("mx8", (B, H, dv, dk), {
+            f: a[idx].clone() for f, a in pool.payload.items()})
+        before = pool.clone()
+        plain, yp = KS.plain_slab(pool.clone(), slabs, group, d, k, v, q,
+                                  seed=9)
+        dense, yd = KS.mx_state_update(rows, d, k, v, q, seed=9)
+        _, ys = KS.mx_state_update(pool, d, k, v, q, seed=9, slabs=slabs,
+                                   group=group)
+        torch.cuda.synchronize()
+        label = f"slab mode {(B, H, dv, dk)}"
+        check(torch.equal(ys, yd), f"{label}: y differs from dense mode on "
+              "the gathered rows")
+        keep = torch.ones((n_slabs, n_stack), dtype=torch.bool, device="cuda")
+        keep[idx] = False
+        for f, a in pool.payload.items():
+            check(torch.equal(a[idx], dense.payload[f]),
+                  f"{label}: {f} differs from dense mode")
+            check(torch.equal(a[keep], before.payload[f][keep]),
+                  f"{label}: {f} changed outside the owned slab rows")
+        n_bad, n, err = _hold_su(
+            f"{label} vs plain", {f: a[idx] for f, a in
+                                  plain.payload.items()}, yp,
+            {f: a[idx] for f, a in pool.payload.items()}, ys)
+        mism, total, slab_err = mism + n_bad, total + n, max(slab_err, err)
+    rate = mism / total
+    check(rate <= 1e-5, f"slab mode mantissa mismatch rate {rate:.3g}")
+    phase(9, "mx_state_update slab mode vs dense mode and vs plain",
+          shapes=list(SU_SHAPES), vs_dense="bitwise (state and y)",
+          untouched_slabs="unchanged", vs_plain_exp_micro="bitwise",
+          vs_plain_mantissa_mismatch=f"{mism}/{total}",
+          y_max_abs_err=f"{slab_err:.3g}")
+    return attn_err, float(append_err), slab_err
+
+
+def phase_paged_timing():
+    """Device times of the paged kernels from CUDA-graph replay at the main
+    path's shapes, pools larger than the 50 MB L2."""
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.core import formats as F
+    from repro_torch.core.paged import pages_for
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_state_update as KS
+    from repro_torch.kernels import ref as R
+    a = ATTN
+    it = iter(range(10 ** 9))
+
+    # -- paged attention at the main path's mid-decode lengths, the 9
+    # shared-attention layers' pages (73 MB) rotating
+    lengths = [n + MAX_NEW // 2 for n in PROMPT_LENS[:a["B"]]]
+    q, K, V, bt, lens = _paged_kv(lengths, seed=50, spare=0)
+    kern = [lambda g=g: KP.mx_paged_attention_decode(q, K, V, bt, g, lens)
+            for g in range(N_STACK)]
+    plain = [lambda g=g: KP.plain(q, K, V, bt, g, lens)
+             for g in range(N_STACK)]
+    lib = []
+    T = bt.shape[1] * 128
+    mask = (torch.arange(T, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    for g in range(N_STACK):
+        kf = F.dequantize(R.gather_pages(K, bt, g)).permute(0, 2, 1, 3
+                                                            ).contiguous()
+        vf = F.dequantize(R.gather_pages(V, bt, g)).permute(0, 2, 1, 3
+                                                            ).contiguous()
+        lib.append(lambda t=(q[:, :, None, :], kf, vf):
+                   torch.nn.functional.scaled_dot_product_attention(
+                       t[0], t[1], t[2], attn_mask=mask))
+    ms = graph_ms(kern, 30)
+    plain_ms = graph_ms(plain, 3)
+    lib_ms = graph_ms(lib, 30)
+    host_ms = host_loop_ms(lambda: kern[next(it) % N_STACK](), 270)
+    valid = sum(lengths)
+    d_ = a["d"]
+    npg_b = [pages_for(n) for n in lengths]
+    nbytes = (valid * a["KVH"] * 2 * d_ * (1 + 2 / F.MX8_GROUP)
+              + 4 * a["B"] * a["H"] * 2 * d_ + 4 * a["B"] + 4 * sum(npg_b))
+    # traffic(plan) streams whole pages: each row's pages, read once
+    pa = _report("mx_paged_attention_decode", ms, plain_ms, lib_ms, host_ms,
+                 nbytes, valid * a["H"] * 4 * d_,
+                 sum(OPS.traffic(OPS.plan_attn_decode_dims(
+                     dict(B=1, T=n, KVH=a["KVH"], dk=d_, dv=d_, H=a["H"]),
+                     OPS.StateQuantConfig(), layout="paged")).state_read
+                     for n in lengths), n=10)
+
+    # -- paged append: one launch writes the six payload pools' slots; the
+    # library yardstick is the six index_put_ calls writing the same slots
+    pools = _payload_pools(K, V)
+    rows = _append_rows(a["B"], seed=60)
+    kern = [lambda g=g: KP.mx_paged_kv_append(pools, rows, bt, g, lens)
+            for g in range(N_STACK)]
+    plain = [lambda g=g: KP.plain_append(pools, rows, bt, g, lens)
+             for g in range(N_STACK)]
+    page = bt.long()[torch.arange(a["B"], device="cuda"),
+                     lens.long() // 128]
+    off = lens.long() % 128
+    lib = []
+    for g in range(N_STACK):
+        gi = torch.full_like(page, g)
+        lib.append(lambda gi=gi: [p.index_put_((page, gi, off), r)
+                                  for p, r in zip(pools, rows)])
+    ms = graph_ms(kern, 50)
+    plain_ms = graph_ms(plain, 10)
+    lib_ms = graph_ms(lib, 50)
+    host_ms = host_loop_ms(lambda: kern[next(it) % N_STACK](), 270)
+    row_bytes = sum(r.numel() for r in rows)           # 1-byte payloads
+    nbytes = 2 * row_bytes + 4 * a["B"] * 2             # rows in, slots out
+    plan = OPS.registry.plan("kv_append", dict(B=a["B"], T=1, KVH=a["KVH"],
+                                               dk=d_, dv=d_, n=1),
+                             OPS.StateQuantConfig(), "cuda", layout="paged")
+    ap = _report("mx_paged_kv_append", ms, plain_ms, lib_ms, host_ms,
+                 nbytes, 0, OPS.traffic(plan).total, n=10)
+
+    # -- the state update in slab mode: the six pattern positions' slab
+    # pools (9 slabs x 9 layers each), 54 launches over 4 owned slabs
+    B, H, dv, dk = SU_SHAPES[0]
+    g = torch.Generator(device="cuda").manual_seed(70)
+    spools = [F.mx8_quantize(torch.randn((9, N_STACK, H, dv, dk),
+                                         generator=g, device="cuda"))
+              for _ in range(6)]
+    slabs = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device="cuda")
+    d = torch.sigmoid(torch.randn((B, H, 1), generator=g, device="cuda"))
+    k, qq = (torch.randn((B, H, dk), generator=g, device="cuda")
+             for _ in "kq")
+    v = torch.randn((B, H, dv), generator=g, device="cuda")
+    kern = [lambda p=p, l=l: KS.mx_state_update(
+        spools[p], d, k, v, qq, seed=l, slabs=slabs, group=l)
+        for p in range(6) for l in range(N_STACK)]
+    plain = [lambda l=l: KS.plain_slab(spools[0], slabs, l, d, k, v, qq,
+                                       seed=l) for l in range(N_STACK)]
+    ms = graph_ms(kern, 20)
+    plain_ms = graph_ms(plain, 5)
+    host_ms = host_loop_ms(lambda: kern[next(it) % 54](), 540)
+    n_val = B * H * dv * dk
+    payload = n_val * (1 + 2 / F.MX8_GROUP)
+    operands = 4 * (B * H * (1 + 2 * dk + dv) + B * H * dv) + 4 * B
+    plan = OPS.plan_state_update_dims(B, H, dk, dv, OPS.StateQuantConfig(),
+                                      layout="paged")
+    su = _report("mx_state_update[slab]", ms, plain_ms, None, host_ms,
+                 2 * payload + operands, 10 * n_val, OPS.traffic(plan).total,
+                 n=10)
+    return pa, ap, su
+
+
 def _payload_bytes(x):
     import torch
     from repro_torch.core import formats as F
@@ -332,16 +615,12 @@ def _payload_bytes(x):
     return 0
 
 
-def phase_main_path():
-    import numpy as np
+def _model():
+    """zamba2-2.7b at full width with random weights from a seeded CUDA
+    generator, shared by both main paths."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import attention_cache as AC
-    from repro_torch.kernels import mx_attention as KA
-    from repro_torch.kernels import mx_state_update as KS
     from repro_torch.models import model as M
-    from repro_torch.serving.api import Engine, ServeConfig
-
     cfg = get_config("zamba2-2.7b")
     check(cfg.n_layers == 54 and cfg.d_model == 2560 and
           cfg.state_quant.fmt == "mx8" and cfg.state_quant.backend == "cuda",
@@ -349,9 +628,35 @@ def phase_main_path():
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = M.init_model(cfg, gen, device="cuda")
-    n_params = sum(p.numel() for p in _leaves(params))
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    return cfg, params, time.perf_counter() - t0
+
+
+def _step_fields(st):
+    return dict(tokens_per_s=f"{st['tokens_per_s']:.2f}",
+                p50_step_ms=f"{st['p50_step_s'] * 1e3:.3f}",
+                p99_step_ms=f"{st['p99_step_s'] * 1e3:.3f}",
+                p50_ttft_ms=f"{st['p50_ttft_s'] * 1e3:.3f}")
+
+
+def _check_done(handles, cfg):
+    for h in handles:
+        check(h.status == "done" and len(h.output) == MAX_NEW,
+              f"request {h.rid}: {h.status} with {len(h.output)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in h.output),
+              f"request {h.rid}: token out of range")
+
+
+def phase_main_path(cfg, params, init_s):
+    import numpy as np
+    import torch
+    from repro_torch.core import attention_cache as AC
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_state_update as KS
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import Engine, ServeConfig
+
+    n_params = sum(p.numel() for p in _leaves(params))
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(params, cfg, ServeConfig(backend="slots", batch=4,
                                           cache_capacity=1024))
@@ -366,15 +671,12 @@ def phase_main_path():
     wall = time.perf_counter() - t1
     n_su, n_at = KS.mx_state_update.launches, KA.mx_attention_decode.launches
     steps = eng.engine.step_count
-    for h in handles:
-        check(h.status == "done" and len(h.output) == MAX_NEW,
-              f"request {h.rid}: {h.status} with {len(h.output)} tokens")
-        check(all(0 <= t < cfg.vocab_size for t in h.output),
-              f"request {h.rid}: token out of range")
+    _check_done(handles, cfg)
     check(steps > 0 and n_su == 54 * steps and n_at == 9 * steps,
           f"launches: state_update {n_su}, attention {n_at} over {steps} "
           "decode steps (want 54x and 9x)")
     st = eng.stats()
+    peak = torch.cuda.max_memory_allocated()
     caches = eng.engine.caches
     kv_bytes = sum(_payload_bytes(c.k) + _payload_bytes(c.v)
                    for c in M.iter_kv_caches(caches))
@@ -383,25 +685,146 @@ def phase_main_path():
     phase(7, "main path zamba2-2.7b slots", params=n_params,
           init_s=f"{init_s:.1f}", requests=len(handles), decode_steps=steps,
           launches=f"su={n_su},attn={n_at}", wall_s=f"{wall:.3f}",
-          tokens_per_s=f"{st['tokens_per_s']:.2f}",
-          p50_step_ms=f"{st['p50_step_s'] * 1e3:.3f}",
-          p99_step_ms=f"{st['p99_step_s'] * 1e3:.3f}",
-          p50_ttft_ms=f"{st['p50_ttft_s'] * 1e3:.3f}",
-          peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          **_step_fields(st), peak_mem_GB=f"{peak / 1e9:.2f}",
           state_MB=f"{state_bytes / 1e6:.2f}", kv_MB=f"{kv_bytes / 1e6:.2f}")
-    _profile_decode(eng, cfg, rng)
+    prof = _profile_decode(eng, cfg, rng, PROMPT_LENS[:4], 7)
     _reference_check(params, cfg, prompts[0])
-    return n_su, n_at
+    return dict(n_su=n_su, n_at=n_at, stats=st, peak=peak, prof=prof)
 
 
-def _profile_decode(eng, cfg, rng, n_steps=5):
+def _paged_vs_gather(eng, cfg, rng, n_steps=4, lens0=(64, 129, 127, 200)):
+    """One pool snapshot decoded ``n_steps`` steps twice, with
+    ``decode_mode="gather"`` (dense kernels over gathered pages) and
+    ``"paged"`` (the paged kernels in place); the logits of the four
+    active rows must be bit-identical."""
+    import numpy as np
+    import torch
+    from repro_torch.core.paged import pages_for
+    from repro_torch.models import model as M
+    pool, params = eng.engine.pool, eng.engine.params
+    rids = [10_000 + i for i in range(len(lens0))]
+    toks = []
+    for rid, n in zip(rids, lens0):
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
+                                 device="cuda")[None]
+        logits, row = M.prefill(params, cfg, {"tokens": prompt})
+        check(pool.register(rid, pages_for(n)), f"no pages for rid {rid}")
+        pool.insert_prefill(rid, row)
+        toks.append(int(logits[0].argmax()))
+    snapshot = [p.clone() for p in pool.pools]
+    tables = {r: list(pool.page_table[r]) for r in rids}
+    runs = {}
+    for mode in ("gather", "paged"):
+        for p, s in zip(pool.pools, snapshot):
+            p.copy_(s)
+        for r in rids:
+            grown = [p for p in pool.page_table[r] if p not in tables[r]]
+            if grown:
+                pool.placement.unref(grown)
+            pool.page_table[r] = list(tables[r])
+        pool.decode_mode = mode
+        L, t, out = np.array(lens0, np.int32), np.array(toks), []
+        for step in range(n_steps):
+            for r, n in zip(rids, L):
+                while n // 128 + 1 > len(pool.page_table[r]):
+                    check(pool.grow(r, 1), f"no page to grow rid {r}")
+            lg = pool.decode(params, rids, t, L, seed=1000 + step)
+            out.append(lg.clone())
+            t, L = lg.argmax(-1).cpu().numpy(), L + 1
+        runs[mode] = out
+    pool.decode_mode = "paged"
+    for r in rids:
+        pool.release(r)
+    for step, (a, b) in enumerate(zip(runs["gather"], runs["paged"])):
+        check(bool(torch.isfinite(b).all()), f"paged logits not finite "
+              f"(step {step})")
+        check(torch.equal(a, b), f"paged vs gather logits differ at step "
+              f"{step} (max abs {float((a - b).abs().max()):.3g})")
+    return runs["paged"][0].shape
+
+
+def phase_paged_main_path(cfg, params, slot):
+    """zamba2-2.7b at full width through ``Engine``'s default paged backend,
+    a pool small enough that FCFS preempts; each decode step must launch
+    the slab-mode state update 54 times and the paged attention and append
+    kernels 9 times each, and the dense attention kernel never."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_state_update as KS
+    from repro_torch.serving.api import Engine, ServeConfig
+
+    rng = np.random.default_rng(1)
+    eng = Engine(params, cfg, ServeConfig(**PAGED))
+    check(eng.backend == "paged", f"default backend {eng.backend}")
+    shape = _paged_vs_gather(eng, cfg, rng)
+    phase(11, "paged vs gather logits, fresh pool", steps=4,
+          logits=tuple(shape), result="bit-identical")
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    counters = (KS.mx_state_update, KP.mx_paged_attention_decode,
+                KP.mx_paged_kv_append, KA.mx_attention_decode)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    KS.mx_state_update.slab_launches = 0
+    t1 = time.perf_counter()
+    handles = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    n_dense, n_pa, n_ap, n_at = (c.launches for c in counters)
+    n_su = KS.mx_state_update.slab_launches
+    peak = torch.cuda.max_memory_allocated()
+    steps = eng.engine.step_count
+    _check_done(handles, cfg)
+    st = eng.stats()
+    check(st["preemptions"] >= 1, f"no preemption with {PAGED}")
+    check(steps > 0 and n_su == 54 * steps and n_dense == 0
+          and n_pa == 9 * steps and n_ap == 9 * steps and n_at == 0,
+          f"launches over {steps} decode steps: state_update slab mode "
+          f"{n_su} (want 54x), dense mode {n_dense} (0), paged attention "
+          f"{n_pa} (9x), paged append {n_ap} (9x), dense attention {n_at} "
+          f"(0)")
+    pool = eng.engine.pool
+    phase(11, "main path zamba2-2.7b paged", requests=len(handles),
+          decode_steps=steps, launches=f"su_slab={n_su},su_dense={n_dense},"
+          f"paged_attn={n_pa},paged_append={n_ap},dense_attn={n_at}",
+          wall_s=f"{wall:.3f}",
+          **_step_fields(st), peak_mem_GB=f"{peak / 1e9:.2f}",
+          preemptions=int(st["preemptions"]),
+          pages=f"{pool.n_pages}x{pool.page_nbytes}B",
+          page_MB=f"{pool.n_pages * pool.page_nbytes / 1e6:.2f}",
+          slab_MB=f"{pool.n_slabs * pool.slab_nbytes / 1e6:.2f}",
+          gather_MB=f"{st['gather_bytes'] / 1e6:.2f}",
+          occupancy=f"{st['occupancy']:.3f}")
+    prof = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 11)
+    _paged_vs_gather(eng, cfg, rng)
+    phase(11, "paged vs gather logits, after the run", steps=4,
+          result="bit-identical")
+    so = slot["stats"]
+    phase(11, "paged vs slots (same run, same weights)",
+          p50_step_ms=f"{st['p50_step_s'] * 1e3:.3f} vs "
+          f"{so['p50_step_s'] * 1e3:.3f}",
+          tokens_per_s=f"{st['tokens_per_s']:.2f} vs "
+          f"{so['tokens_per_s']:.2f}",
+          p50_ttft_ms=f"{st['p50_ttft_s'] * 1e3:.3f} vs "
+          f"{so['p50_ttft_s'] * 1e3:.3f}",
+          peak_mem_GB=f"{peak / 1e9:.2f} vs {slot['peak'] / 1e9:.2f}",
+          idle_share=f"{prof['idle_share']:.3f} vs "
+          f"{slot['prof']['idle_share']:.3f}")
+    return dict(n_su=n_su, n_pa=n_pa, n_ap=n_ap)
+
+
+def _profile_decode(eng, cfg, rng, prompt_lens, n, n_steps=5):
     """Device busy / idle share of steady decode steps at batch 4, from a
-    torch.profiler window (kernel time summed over the device timeline)."""
+    torch.profiler window (kernel time summed over the device timeline).
+    A window without device events fails the run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for n in PROMPT_LENS[:4]:
-        eng.submit(rng.integers(0, cfg.vocab_size, n),
+    for length in prompt_lens:
+        eng.submit(rng.integers(0, cfg.vocab_size, length),
                    max_new_tokens=n_steps + 2)
     eng.step()                       # admissions (prefill) + first decode
     torch.cuda.synchronize()
@@ -419,19 +842,19 @@ def _profile_decode(eng, cfg, rng, n_steps=5):
             by_name[evt.name] = (by_name.get(evt.name, 0.0)
                                  + evt.time_range.elapsed_us())
     eng.run()
+    check(bool(by_name), "decode profile: the profiler recorded no device "
+          "events")
     busy = sum(by_name.values())
-    if not by_name:
-        phase(7, "decode profile", device_time="not measured (profiler "
-              "recorded no device events)")
-        return
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    phase(7, "decode profile", steps=n_steps,
+    out = dict(idle_share=1 - busy / wall_us)
+    phase(n, "decode profile", steps=n_steps,
           step_wall_ms=f"{wall_us / n_steps / 1e3:.3f}",
           device_busy_ms_per_step=f"{busy / n_steps / 1e3:.3f}",
           device_ops_per_step=f"{n_kernels / n_steps:.0f}",
-          idle_share=f"{1 - busy / wall_us:.3f}",
+          idle_share=f"{out['idle_share']:.3f}",
           top=repr([(name[:48], f"{us / n_steps / 1e3:.3f}ms")
                     for name, us in top]))
+    return out
 
 
 def _leaves(tree):
@@ -513,11 +936,14 @@ def main():
         smi = phase_device()
         phase_build()
         phase_exact_pow2()
-        su_err = phase_state_update()
-        at_err = phase_attention()
-        su_t, at_t = phase_timing()
-        n_su, n_at = phase_main_path()
-        kernels = kernels_line(su_err, at_err, su_t, at_t, n_su, n_at)
+        errs = dict(su=phase_state_update(), at=phase_attention())
+        errs.update(zip(("pa", "ap", "su_slab"), phase_paged_kernels()))
+        times = dict(zip(("su", "at"), phase_timing()))
+        times.update(zip(("pa", "ap", "su_slab"), phase_paged_timing()))
+        cfg, params, init_s = _model()
+        slot = phase_main_path(cfg, params, init_s)
+        paged = phase_paged_main_path(cfg, params, slot)
+        kernels = kernels_line(errs, times, slot, paged)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -529,16 +955,31 @@ def main():
     return 0
 
 
-def kernels_line(su_err, at_err, su_t, at_t, n_su, n_at):
+def kernels_line(errs, times, slot, paged):
+    """One entry per kernel (kernel 1 twice: dense mode on the slot path,
+    slab mode on the paged path); ``launches`` counts each one's own main
+    path, ``max_abs_err`` is each one's measured difference from its plain
+    version (``y`` for the state update, bytes for the append)."""
+    su_src = "src/repro_torch/csrc/mx_state_update.cu"
+    su_tpu = "src/repro/kernels/mx_state_update.py:104"
+    pa_src = "src/repro_torch/csrc/mx_paged_attention.cu"
     kernels = [
-        dict(name="mx_state_update", route="cuda",
-             source="src/repro_torch/csrc/mx_state_update.cu",
-             replaces="src/repro/kernels/mx_state_update.py:104",
-             launches=n_su, max_abs_err=su_err, **su_t),
+        dict(name="mx_state_update", route="cuda", source=su_src,
+             replaces=su_tpu, launches=slot["n_su"], max_abs_err=errs["su"],
+             **times["su"]),
         dict(name="mx_attention_decode", route="cuda",
              source="src/repro_torch/csrc/mx_attention.cu",
              replaces="src/repro/kernels/mx_attention.py:98",
-             launches=n_at, max_abs_err=at_err, **at_t),
+             launches=slot["n_at"], max_abs_err=errs["at"], **times["at"]),
+        dict(name="mx_paged_attention_decode", route="cuda", source=pa_src,
+             replaces="src/repro/kernels/mx_paged_attention.py:108",
+             launches=paged["n_pa"], max_abs_err=errs["pa"], **times["pa"]),
+        dict(name="mx_paged_kv_append", route="cuda", source=pa_src,
+             replaces="src/repro/kernels/mx_paged_attention.py:199",
+             launches=paged["n_ap"], max_abs_err=errs["ap"], **times["ap"]),
+        dict(name="mx_state_update[slab]", route="cuda", source=su_src,
+             replaces=su_tpu, launches=paged["n_su"],
+             max_abs_err=errs["su_slab"], **times["su_slab"]),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):

@@ -15,9 +15,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core import formats as F
+from repro_torch.core.paged import PAGE_TOKENS
 from repro_torch.ops.base import StateQuantConfig
-
-PAGE_TOKENS = 128
 
 
 @dataclasses.dataclass

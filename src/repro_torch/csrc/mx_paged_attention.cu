@@ -1,0 +1,149 @@
+// Paged MX8 decode attention and the in-place paged KV append, for Hopper
+// (sm_90a).
+//
+// mx_paged_attention_decode replaces the TPU kernel
+// repro/kernels/mx_paged_attention.py::mx_paged_attention_decode
+// (_paged_attn_kernel).  Bound by bytes, like the dense kernel: every valid
+// cached K and V value is read once.  It is the dense kernel's tile loop
+// (mx_attention_tile.cuh) with one change: tile t of row b is page
+// bt[b, t] of the shared pool at layer `group`, so each 128-token page
+// streams straight out of the pool in place and no dense copy of the
+// context exists.  Tiles past ceil(len / 128) are never read, so the
+// block table's bucketed tail (scratch page 0) is never touched.  Same
+// tile order and accumulators as the dense kernel: bitwise equal to it over
+// the gathered pages.
+//
+// mx_paged_kv_append replaces repro/kernels/mx_paged_attention.py::
+// mx_paged_kv_append (_append_kernel).  It writes one token's already
+// quantized payload rows into their page slot
+// pool[bt[b, len // 128], group, len % 128] in place -- the PIM analogue of
+// a single-column read-modify-write.  Bound by launch latency: it moves
+// B * KVH * (dk + dv) * 9/8 bytes.  One launch covers every payload pool
+// (K and V x mantissa / exponent / micro): grid (B, n_pools * KVH), one
+// block copies one row's w bytes.
+//
+// Pools are (n_pages, n_stack, 128, KVH, w) with n_stack the layers that
+// share the pattern position; q (B, KVH, G, dk) pre-scaled f32; bt
+// (B, npg) int32; lengths (B,) int32; out (B, KVH, G, dv) f32.
+#include <cassert>
+
+#include "mx_attention_tile.cuh"
+
+namespace {
+
+using namespace mxattn;
+
+constexpr int kMaxPools = 8;
+
+// Paged pool: tile t of row b is page bt[b, t] of layer `group`.
+struct PagedRows {
+  const int* bt;
+  int npg, n_stack, group, KVH;
+  __device__ __forceinline__ size_t tile_base(int b, int tile) const {
+    const int page = bt[(size_t)b * npg + tile];
+    return ((size_t)page * n_stack + group) * kTile * KVH;
+  }
+};
+
+__global__ void __launch_bounds__(kTile)
+mx_paged_attention_decode_kernel(const float* __restrict__ q,
+                                 const int8_t* __restrict__ km,
+                                 const uint8_t* __restrict__ ke,
+                                 const uint8_t* __restrict__ kmi,
+                                 const int8_t* __restrict__ vm,
+                                 const uint8_t* __restrict__ ve,
+                                 const uint8_t* __restrict__ vmi,
+                                 const int* __restrict__ bt,
+                                 const int* __restrict__ lengths,
+                                 float* __restrict__ out, int npg,
+                                 int n_stack, int group, int KVH, int G,
+                                 int dk, int dv) {
+  attention_tiles(PagedRows{bt, npg, n_stack, group, KVH}, q, km, ke, kmi,
+                  vm, ve, vmi, lengths, out, npg * kTile, KVH, G, dk, dv);
+}
+
+struct AppendArgs {
+  int8_t* pool[kMaxPools];
+  const int8_t* row[kMaxPools];
+  int width[kMaxPools];
+};
+
+__global__ void mx_paged_kv_append_kernel(AppendArgs a,
+                                          const int* __restrict__ bt,
+                                          const int* __restrict__ lengths,
+                                          int npg, int n_pages, int n_stack,
+                                          int group, int KVH) {
+  const int b = blockIdx.x;
+  const int i = blockIdx.y / KVH, h = blockIdx.y % KVH;
+  const int len = lengths[b];
+  // A slot outside the block table has no page to land in (the engine's
+  // headroom check guarantees one).  Fail loudly, as the plain version's
+  // IndexError does: a device-side assert, which the next synchronizing
+  // call reports, and never a write to a neighbour's page.
+  const bool slot_in_table = len >= 0 && len / kTile < npg;
+  assert(slot_in_table);
+  if (!slot_in_table) return;
+  const int page = bt[(size_t)b * npg + len / kTile];
+  const bool page_in_pool = page >= 0 && page < n_pages;
+  assert(page_in_pool);
+  if (!page_in_pool) return;
+  const int w = a.width[i];
+  const size_t dst =
+      ((((size_t)page * n_stack + group) * kTile + len % kTile) * KVH + h) *
+      w;
+  const size_t src = ((size_t)b * KVH + h) * w;
+  for (int j = threadIdx.x; j < w; j += blockDim.x)
+    a.pool[i][dst + j] = a.row[i][src + j];
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// shape the kernel does not take).
+extern "C" int mx_paged_attention_decode_launch(
+    const void* q, const void* km, const void* ke, const void* kmi,
+    const void* vm, const void* ve, const void* vmi, const void* bt,
+    const void* lengths, void* out, int B, int npg, int n_stack, int group,
+    int KVH, int G, int dk, int dv, void* stream) {
+  if (B <= 0 || npg <= 0 || KVH <= 0 || n_stack <= 0 || group < 0 ||
+      group >= n_stack || !shape_ok(G, dk, dv))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(G, dk, dv);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mx_paged_attention_decode_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(B, KVH);
+  mx_paged_attention_decode_kernel<<<grid, kTile, smem,
+                                     (cudaStream_t)stream>>>(
+      (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
+      (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
+      (const uint8_t*)vmi, (const int*)bt, (const int*)lengths, (float*)out,
+      npg, n_stack, group, KVH, G, dk, dv);
+  return (int)cudaGetLastError();
+}
+
+// pools / rows: n device pointers each (host arrays of 64-bit addresses);
+// widths: the n payload row widths in bytes.  Pools are updated in place.
+extern "C" int mx_paged_kv_append_launch(
+    const unsigned long long* pools, const unsigned long long* rows,
+    const int* widths, int n, const void* bt, const void* lengths, int B,
+    int npg, int n_pages, int n_stack, int group, int KVH, void* stream) {
+  if (n <= 0 || n > kMaxPools || B <= 0 || npg <= 0 || KVH <= 0 ||
+      n_stack <= 0 || group < 0 || group >= n_stack)
+    return (int)cudaErrorInvalidValue;
+  AppendArgs a;
+  for (int i = 0; i < kMaxPools; ++i) {
+    a.pool[i] = i < n ? (int8_t*)pools[i] : nullptr;
+    a.row[i] = i < n ? (const int8_t*)rows[i] : nullptr;
+    a.width[i] = i < n ? widths[i] : 0;
+    if (i < n && a.width[i] <= 0) return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(B, n * KVH);
+  mx_paged_kv_append_kernel<<<grid, 32, 0, (cudaStream_t)stream>>>(
+      a, (const int*)bt, (const int*)lengths, npg, n_pages, n_stack, group,
+      KVH);
+  return (int)cudaGetLastError();
+}

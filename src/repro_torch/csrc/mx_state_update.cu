@@ -24,6 +24,15 @@
 //     XLA:CPU applies to the jitted reference;
 //   * SR bits come from the same counter hash over the global flat index
 //     ((b*H + h)*dv + row)*dk + col, in uint32 arithmetic.
+//
+// Slab mode (the paged serving pool): the state rows live in a slab pool
+// (n_slabs, n_stack, H, dv, dk) and row b of the batch owns slab slab[b] at
+// layer `group`, so the state pointer of (b, h) becomes
+// pool[(slab[b] * n_stack + group) * H + h], updated in place -- no gather
+// or scatter around the kernel.  The SR counter and the operand indices
+// stay on the batch row b*H + h, so slab mode is bitwise equal to dense
+// mode on the gathered rows.  Idle rows all point at scratch slab 0; their
+// concurrent updates of it race harmlessly (it is never read back).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -70,24 +79,32 @@ mx_state_update_kernel(int8_t* __restrict__ mant, uint8_t* __restrict__ expo,
                        const float* __restrict__ v,
                        const float* __restrict__ q,
                        float* __restrict__ y,
-                       int dv, int dk, int d_per_channel, uint32_t seed,
-                       int stochastic, int rows_per_block) {
+                       const int* __restrict__ slab, int H, int n_stack,
+                       int group, int dv, int dk, int d_per_channel,
+                       uint32_t seed, int stochastic, int rows_per_block) {
   extern __shared__ float part[];  // rows_per_block * ngroups partial dots
   const int ngroups = dk / kGroup;
   const int bh = blockIdx.x;
   const int local = threadIdx.x;
   const int row = blockIdx.y * rows_per_block + local / ngroups;
   const int grp = local % ngroups;
+  // state row of (b, h): the batch row itself, or its slab's row at layer
+  // `group` in slab mode
+  const size_t sbh =
+      slab == nullptr
+          ? (size_t)bh
+          : ((size_t)slab[bh / H] * n_stack + group) * H + bh % H;
 
   float partial = 0.f;
   if (row < dv) {
-    const size_t rowid = (size_t)bh * dv + row;
-    const size_t gid = rowid * ngroups + grp;
+    const size_t rowid = (size_t)bh * dv + row;       // operands, SR counter
+    const size_t srow = sbh * dv + row;               // state storage
+    const size_t gid = srow * ngroups + grp;
     const int col0 = grp * kGroup;
     const float vrow = v[rowid];
 
     Group16 g;
-    g.vec = *reinterpret_cast<const int4*>(mant + rowid * dk + col0);
+    g.vec = *reinterpret_cast<const int4*>(mant + srow * dk + col0);
     const int e_old = (int)expo[gid] - kExpBias;
     const int mic_old = micro[gid];
 
@@ -137,7 +154,7 @@ mx_state_update_kernel(int8_t* __restrict__ mant, uint8_t* __restrict__ expo,
                           partial);
     }
 
-    *reinterpret_cast<int4*>(mant + rowid * dk + col0) = g.vec;  // in place
+    *reinterpret_cast<int4*>(mant + srow * dk + col0) = g.vec;   // in place
     expo[gid] = (uint8_t)(e + kExpBias);
     micro[gid] = (uint8_t)mic;
   }
@@ -158,15 +175,19 @@ mx_state_update_kernel(int8_t* __restrict__ mant, uint8_t* __restrict__ expo,
 
 // State (mant, expo, micro) is updated in place.  d is (BH, dk) when
 // d_per_channel, else (BH,); k, q are (BH, dk); v, y are (BH, dv); all f32,
-// contiguous.  Returns cudaGetLastError() after the launch.
+// contiguous.  slab is NULL (dense state (BH, dv, dk)) or (BH / H,) int32
+// slab ids into a (n_slabs, n_stack, H, dv, dk) pool at layer `group`.
+// Returns cudaGetLastError() after the launch.
 extern "C" int mx_state_update_launch(void* mant, void* expo, void* micro,
                                       const void* d, const void* k,
                                       const void* v, const void* q, void* y,
-                                      int BH, int dv, int dk,
+                                      const void* slab, int BH, int H,
+                                      int n_stack, int group, int dv, int dk,
                                       int d_per_channel, unsigned int seed,
                                       int stochastic, void* stream) {
-  if (BH <= 0 || dv <= 0 || dk <= 0 || dk % kGroup != 0 ||
-      dk / kGroup > kThreads)
+  if (BH <= 0 || H <= 0 || BH % H != 0 || dv <= 0 || dk <= 0 ||
+      dk % kGroup != 0 || dk / kGroup > kThreads || n_stack <= 0 ||
+      group < 0 || group >= n_stack)
     return (int)cudaErrorInvalidValue;
   const int ngroups = dk / kGroup;
   int rows_per_block = kThreads / ngroups;
@@ -176,7 +197,8 @@ extern "C" int mx_state_update_launch(void* mant, void* expo, void* micro,
   const size_t smem = (size_t)rows_per_block * ngroups * sizeof(float);
   mx_state_update_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       (int8_t*)mant, (uint8_t*)expo, (uint8_t*)micro, (const float*)d,
-      (const float*)k, (const float*)v, (const float*)q, (float*)y, dv, dk,
-      d_per_channel, (uint32_t)seed, stochastic, rows_per_block);
+      (const float*)k, (const float*)v, (const float*)q, (float*)y,
+      (const int*)slab, H, n_stack, group, dv, dk, d_per_channel,
+      (uint32_t)seed, stochastic, rows_per_block);
   return (int)cudaGetLastError();
 }

@@ -46,7 +46,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lands: named by a hash of
+    the source, the shared headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{tag}.so"
 
@@ -98,3 +101,13 @@ def check(err: int, what: str) -> None:
     """Raise if a launch entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def entry(source: str, name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``name`` of ``csrc/<source>.cu`` with its argument
+    types set (``ctypes.c_void_p`` for pointers and the stream, or ctypes
+    would pass them as 32-bit ints) and an ``int`` (CUDA error) result."""
+    fn = getattr(load(source), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes)
+    return fn

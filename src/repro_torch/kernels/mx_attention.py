@@ -28,6 +28,8 @@ T_BLOCK = 128
 #: plain version of the same function (the oracle)
 plain = _ref.mx_attention_decode_ref
 
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
 
 def _check_stream(qt: F.QuantizedTensor, B: int, T: int, KVH: int,
                   name: str) -> int:
@@ -86,10 +88,7 @@ def mx_attention_decode(q: torch.Tensor, qK: F.QuantizedTensor,
     qg = (q.to(torch.float32) * scale).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty((B, H, dv), dtype=torch.float32, device=q.device)
-    fn = _build.load(SOURCE).mx_attention_decode_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
+    fn = _build.entry(SOURCE, "mx_attention_decode_launch", _ARGTYPES)
     kp, vp = qK.payload, qV.payload
     err = fn(qg.data_ptr(), kp["mantissa"].data_ptr(),
              kp["exponent"].data_ptr(), kp["micro"].data_ptr(),

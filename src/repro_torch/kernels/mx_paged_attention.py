@@ -1,0 +1,189 @@
+"""Paged MX8 decode attention and the in-place paged KV append: the wrappers
+around ``csrc/mx_paged_attention.cu``.
+
+``mx_paged_attention_decode`` replaces the TPU kernel
+``repro/kernels/mx_paged_attention.py::mx_paged_attention_decode``: the
+dense decode-attention kernel's tile loop, with tile ``t`` of row ``b``
+read from page ``bt[b, t]`` of the shared pool at layer ``group``.  Bitwise
+equal to :func:`repro_torch.kernels.mx_attention.mx_attention_decode` over
+the gathered pages.
+
+``mx_paged_kv_append`` replaces
+``repro/kernels/mx_paged_attention.py::mx_paged_kv_append``: one launch
+writes one token's quantized payload rows into their page slots of every
+payload pool, in place.
+
+Each wrapper takes its plain version (:mod:`repro_torch.kernels.ref`) only
+for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+MLA mode (``v_pool=None``) exists in the plain version only.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.core import formats as F
+from repro_torch.core.paged import PAGE_TOKENS
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+
+SOURCE = "mx_paged_attention"
+MAX_POOLS = 8
+
+#: plain versions of the same functions (the oracles)
+plain = _ref.mx_paged_attention_decode_ref
+plain_append = _ref.paged_kv_append_ref
+
+_ATTN_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+    ctypes.c_void_p]
+_APPEND_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
+    ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def _check_pool(qt: F.QuantizedTensor, name: str) -> tuple:
+    if qt.fmt != "mx8":
+        raise ValueError(f"{name} pool must be mx8, got {qt.fmt}")
+    P, n_stack, tb, KVH, w = qt.payload["mantissa"].shape
+    if tb != PAGE_TOKENS:
+        raise ValueError(f"{name} pool pages hold {tb} tokens, expected "
+                         f"{PAGE_TOKENS}")
+    want = {"mantissa": ((P, n_stack, tb, KVH, w), torch.int8),
+            "exponent": ((P, n_stack, tb, KVH, w // F.MX8_GROUP),
+                         torch.uint8),
+            "micro": ((P, n_stack, tb, KVH, w // F.MX8_GROUP), torch.uint8)}
+    for f, (shape, dtype) in want.items():
+        a = qt.payload[f]
+        if tuple(a.shape) != shape or a.dtype != dtype or \
+                not a.is_contiguous():
+            raise ValueError(f"{name} {f}: {tuple(a.shape)} {a.dtype} "
+                             f"(contiguous={a.is_contiguous()}), expected "
+                             f"contiguous {shape} {dtype}")
+    if qt.payload["mantissa"].data_ptr() % 16:
+        raise ValueError(f"{name} mantissa must be 16-byte aligned")
+    return P, n_stack, KVH, w
+
+
+def _index(t: torch.Tensor, dev, name: str) -> torch.Tensor:
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    return t.to(torch.int32).contiguous()
+
+
+def mx_paged_attention_decode(q: torch.Tensor, k_pool: F.QuantizedTensor,
+                              v_pool: Optional[F.QuantizedTensor],
+                              bt: torch.Tensor, group: int,
+                              lengths: torch.Tensor, *,
+                              scale: Optional[float] = None,
+                              v_width: Optional[int] = None) -> torch.Tensor:
+    """Paged decode attention: q ``(B, H, dk)`` against pools
+    ``(P, n_stack, 128, KVH, d)`` through the block table ``bt (B, npg)`` at
+    layer ``group``, masked to ``pos < lengths``; returns ``(B, H, dv)``
+    float32."""
+    if q.device.type == "cpu":
+        return plain(q, k_pool, v_pool, bt, group, lengths, scale, v_width)
+    if q.device.type != "cuda":
+        raise ValueError(f"mx_paged_attention_decode: unsupported device "
+                         f"{q.device}")
+    if v_pool is None:
+        raise NotImplementedError(
+            "MLA mode (v_pool=None) of mx_paged_attention_decode has no CUDA "
+            "kernel yet (ROADMAP.md, TPU kernels to port); its plain version "
+            "runs on the CPU only")
+    B, H, dk = q.shape
+    _, n_stack, KVH, wk = _check_pool(k_pool, "K")
+    P, n_stack_v, KVH_v, dv = _check_pool(v_pool, "V")
+    if (n_stack_v, KVH_v) != (n_stack, KVH) or wk != dk or H % KVH:
+        raise ValueError(f"pools K {k_pool.payload['mantissa'].shape} / V "
+                         f"{v_pool.payload['mantissa'].shape} do not fit q "
+                         f"{tuple(q.shape)}")
+    G = H // KVH
+    if G > 16 or G * dv > 2048:
+        raise ValueError(f"G={G}, dv={dv}: the kernel takes G <= 16 and "
+                         f"G*dv <= 2048")
+    if not 0 <= int(group) < n_stack:
+        raise ValueError(f"group {group} outside the pool's {n_stack}")
+    for name, t in (("K", k_pool.payload["mantissa"]),
+                    ("V", v_pool.payload["mantissa"])):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    bt_ = _index(bt, q.device, "bt")
+    lens = _index(lengths, q.device, "lengths")
+    if bt_.dim() != 2 or bt_.shape[0] != B or lens.shape != (B,):
+        raise ValueError(f"bt {tuple(bt.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not fit batch {B}")
+    scale = scale if scale is not None else dk ** -0.5
+    qg = (q.to(torch.float32) * scale).contiguous()
+    out = torch.empty((B, H, dv), dtype=torch.float32, device=q.device)
+    fn = _build.entry(SOURCE, "mx_paged_attention_decode_launch",
+                      _ATTN_ARGTYPES)
+    kp, vp = k_pool.payload, v_pool.payload
+    err = fn(qg.data_ptr(), kp["mantissa"].data_ptr(),
+             kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
+             vp["mantissa"].data_ptr(), vp["exponent"].data_ptr(),
+             vp["micro"].data_ptr(), bt_.data_ptr(), lens.data_ptr(),
+             out.data_ptr(), B, int(bt_.shape[1]), n_stack, int(group), KVH,
+             G, dk, dv, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "mx_paged_attention_decode")
+    mx_paged_attention_decode.launches += 1
+    return out
+
+
+def mx_paged_kv_append(pools: Sequence[torch.Tensor],
+                       rows: Sequence[torch.Tensor], bt: torch.Tensor,
+                       group: int, lengths: torch.Tensor
+                       ) -> Sequence[torch.Tensor]:
+    """Write each ``rows[i] (B, KVH, w)`` into its page slot
+    ``pools[i][bt[b, len//128], group, len%128]`` of the byte pools
+    ``(P, n_stack, 128, KVH, w)``, in place; returns the pools.
+
+    A slot outside its block table (``len // 128 >= npg``, or a page id
+    outside the pool) is a fault: the plain version raises ``IndexError``;
+    the kernel fails a device-side assert, which the next synchronizing
+    call raises (and which leaves the CUDA context unusable)."""
+    pools, rows = list(pools), list(rows)
+    if not pools or len(pools) != len(rows) or len(pools) > MAX_POOLS:
+        raise ValueError(f"{len(pools)} pools / {len(rows)} rows: expected "
+                         f"1..{MAX_POOLS} of each, paired")
+    dev = pools[0].device
+    if dev.type == "cpu":
+        return plain_append(pools, rows, bt, group, lengths)
+    if dev.type != "cuda":
+        raise ValueError(f"mx_paged_kv_append: unsupported device {dev}")
+    P, n_stack, tb, KVH, _ = pools[0].shape
+    B = bt.shape[0]
+    rows_ = []
+    for i, (pool, row) in enumerate(zip(pools, rows)):
+        w = pool.shape[-1]
+        if (pool.dim() != 5 or tuple(pool.shape[:4]) != (P, n_stack, tb, KVH)
+                or tb != PAGE_TOKENS or pool.element_size() != 1
+                or not pool.is_contiguous() or pool.device != dev):
+            raise ValueError(f"pool {i}: {tuple(pool.shape)} {pool.dtype} "
+                             f"on {pool.device}, expected contiguous 1-byte "
+                             f"({P}, {n_stack}, {PAGE_TOKENS}, {KVH}, w) on "
+                             f"{dev}")
+        if tuple(row.shape) != (B, KVH, w) or row.device != dev:
+            raise ValueError(f"row {i}: {tuple(row.shape)} on {row.device}, "
+                             f"expected ({B}, {KVH}, {w}) on {dev}")
+        rows_.append(row.to(pool.dtype).contiguous())
+    if not 0 <= int(group) < n_stack:
+        raise ValueError(f"group {group} outside the pool's {n_stack}")
+    bt_ = _index(bt, dev, "bt")
+    lens = _index(lengths, dev, "lengths")
+    n = len(pools)
+    ptrs = (ctypes.c_ulonglong * n)(*[p.data_ptr() for p in pools])
+    rptrs = (ctypes.c_ulonglong * n)(*[r.data_ptr() for r in rows_])
+    widths = (ctypes.c_int * n)(*[int(p.shape[-1]) for p in pools])
+    fn = _build.entry(SOURCE, "mx_paged_kv_append_launch", _APPEND_ARGTYPES)
+    err = fn(ptrs, rptrs, widths, n, bt_.data_ptr(), lens.data_ptr(), B,
+             int(bt_.shape[1]), P, n_stack, int(group), KVH,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "mx_paged_kv_append")
+    mx_paged_kv_append.launches += 1
+    return pools
+
+
+#: launches of the CUDA kernels since the counts were last reset
+mx_paged_attention_decode.launches = 0
+mx_paged_kv_append.launches = 0

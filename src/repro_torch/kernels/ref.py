@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import formats as F
+from repro_torch.core.paged import PAGE_TOKENS
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -92,3 +93,69 @@ def mx_attention_decode_ref(q: torch.Tensor, qK: F.QuantizedTensor,
     kf = F.dequantize(qK)
     vf = kf[..., :v_width] if qV is None else F.dequantize(qV)
     return attention_decode_ref(q, kf, vf, lengths, scale)
+
+
+# ---------------------------------------------------------------------------
+# paged layout: page pools (P, G, 128, KVH, w), slab pools (S, G, H, dv, dk)
+# ---------------------------------------------------------------------------
+
+def gather_pages(stream, bt: torch.Tensor, group: int):
+    """Pool stream (P, G, 128, KVH, w) -> dense (B, npg*128, KVH, w): the
+    block table's pages of layer ``group``, in table order."""
+    def one(a):
+        g = a[bt.long(), int(group)]                 # (B, npg, 128, KVH, w)
+        B, npg = g.shape[:2]
+        return g.reshape((B, npg * g.shape[2]) + tuple(g.shape[3:]))
+    if isinstance(stream, F.QuantizedTensor):
+        payload = {f: one(a) for f, a in stream.payload.items()}
+        return F.QuantizedTensor(stream.fmt,
+                                 tuple(payload["mantissa"].shape), payload)
+    return one(stream)
+
+
+def mx_paged_attention_decode_ref(q: torch.Tensor, k_pool: F.QuantizedTensor,
+                                  v_pool: Optional[F.QuantizedTensor],
+                                  bt: torch.Tensor, group: int,
+                                  lengths: torch.Tensor,
+                                  scale: Optional[float] = None,
+                                  v_width: Optional[int] = None
+                                  ) -> torch.Tensor:
+    """Paged decode attention: the block table's pages gathered into the
+    dense layout, then :func:`mx_attention_decode_ref`."""
+    qK = gather_pages(k_pool, bt, group)
+    qV = None if v_pool is None else gather_pages(v_pool, bt, group)
+    return mx_attention_decode_ref(q, qK, qV, lengths, scale, v_width)
+
+
+def paged_kv_append_ref(pools, rows, bt: torch.Tensor, group: int,
+                        lengths: torch.Tensor):
+    """Write each row's payload ``rows[i] (B, KVH, w)`` into the page slot
+    ``pools[i][bt[b, len//128], group, len%128]``, in place."""
+    B = bt.shape[0]
+    lens = lengths.long()
+    page = bt.long()[torch.arange(B, device=bt.device), lens // PAGE_TOKENS]
+    off = lens % PAGE_TOKENS
+    for pool, row in zip(pools, rows):
+        pool[page, int(group), off] = row.to(pool.dtype)
+    return pools
+
+
+def state_update_slab_ref(pool, slabs: torch.Tensor, group: int, d, k, v, q,
+                          *, rounding: str = "stochastic", seed: int = 0):
+    """The state update on slab rows ``pool[slabs, group]``, written back in
+    place: the rows are gathered into a dense ``(B, H, dv, dk)`` state, so
+    SR counters and operands index the batch row, exactly as the dense op
+    on gathered rows.  Returns ``(pool, y)``."""
+    idx = (slabs.long(), int(group))
+    if isinstance(pool, F.QuantizedTensor):
+        payload = {f: a[idx] for f, a in pool.payload.items()}
+        rows = F.QuantizedTensor(pool.fmt,
+                                 tuple(payload["mantissa"].shape), payload)
+        new, y = quantized_state_update_stored_ref(
+            rows, d, k, v, q, rounding=rounding, seed=seed)
+        for f, a in pool.payload.items():
+            a[idx] = new.payload[f]
+        return pool, y
+    new, y = state_update_float(pool[idx], d, k, v, q, dtype=pool.dtype)
+    pool[idx] = new
+    return pool, y

@@ -8,7 +8,9 @@ port keeps per-layer lists and loops: ``params["groups"][g][pos]`` and
 ``caches[g][pos]`` (the shared block's cache last in each group).
 
   * prefill -- full-sequence forward that also builds the decode caches
-  * decode  -- one token through the quantized caches (the Pimba fast path)
+  * decode  -- one token through the quantized caches (the Pimba fast path):
+    ``decode_step`` over dense caches, ``paged_decode_step`` over the paged
+    pool's views (one view per pattern position, re-bound per layer)
 
 Decode seeds are the JAX package's exactly: per group
 ``uint32(seed) + g * 1000003``, then ``+ pos + 1`` per element and ``+ 99``
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch.core import attention_cache as AC
 from repro_torch.core import formats as F
+from repro_torch.core import paged as PG
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
@@ -324,5 +327,58 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             x = x + L.apply_ffn(shared["ffn"], h)
             group.append(c)
         new_caches.append(group)
+    x = L.apply_norm(params["final_norm"], x[:, 0], cfg.norm_eps)
+    return x @ _lm_head(params, cfg), new_caches
+
+
+def _stack_position(view, layers: List[Any]):
+    """One pattern position's view after a step: paged containers stay (the
+    ops updated their pools in place); residual leaves re-stack their
+    per-layer rows to ``(G, B, ...)``."""
+    if PG.is_paged(view):
+        return view
+    return {k: v if PG.is_paged(v) else torch.stack([c[k] for c in layers])
+            for k, v in view.items()}
+
+
+@torch.no_grad()
+def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                      caches, lengths: torch.Tensor, seed: int = 0
+                      ) -> Tuple[torch.Tensor, List[Any]]:
+    """One decode step over block-table-native paged cache views.
+
+    ``caches[pos]`` is one view per pattern position (the shared block's
+    last), serving all ``G`` layers of it: a
+    :class:`~repro_torch.core.paged.PagedKVCache` for attention, and for a
+    mixer a dict whose ``"S"`` is a
+    :class:`~repro_torch.core.paged.PagedState` and whose other leaves (the
+    conv tails) are gathered rows stacked ``(G, B, ...)``.  Each layer
+    re-binds ``group`` and the step's base ``lengths`` on the views; the
+    paged ops update the pools in place.  Element math and seeds are
+    :func:`decode_step`'s, so logits equal the dense path's over gathered
+    pages.  Returns (logits (B, V), the views with re-stacked residuals).
+    """
+    x = params["embed"][tokens][:, None]                       # (B,1,d)
+    positions = lengths
+    shared = params.get("shared")
+    per_layer = [[] for _ in caches]
+    for g in range(cfg.n_groups):
+        seed_g = (int(seed) + g * _SEED_STRIDE) & _U32
+        for pos, kind in enumerate(cfg.pattern):
+            x, c = _element_decode(params["groups"][g][pos], x,
+                                   PG.with_group(caches[pos], g, lengths),
+                                   cfg, kind, positions,
+                                   (seed_g + pos + 1) & _U32)
+            per_layer[pos].append(c)
+        if shared is not None:
+            h = L.apply_norm(shared["norm"], x, cfg.norm_eps)
+            y, _ = ATT.attention_decode(
+                shared["attn"], h, caches[-1].with_step(g, lengths), cfg,
+                positions[:, None], (seed_g + 99) & _U32)
+            x = x + y
+            h = L.apply_norm(shared["ffn_norm"], x, cfg.norm_eps)
+            x = x + L.apply_ffn(shared["ffn"], h)
+    new_caches = [_stack_position(v, layers)
+                  for v, layers in zip(caches, per_layer)]
     x = L.apply_norm(params["final_norm"], x[:, 0], cfg.norm_eps)
     return x @ _lm_head(params, cfg), new_caches

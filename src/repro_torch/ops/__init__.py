@@ -12,7 +12,8 @@ One registry-dispatched decode-op interface for attention and state updates
                                            cfg.state_quant, seed=seed)
 """
 # base and registry first, then the op implementations (they register
-# themselves on import), then the model-level traffic bridge
+# themselves on import; dense, then the paged layout), then the model-level
+# traffic bridge
 from repro_torch.ops.base import (LAYOUTS, OpPlan, SpuOp, StateQuantConfig,
                                   TrafficBytes, fmt_bits, fmt_of_state)
 from repro_torch.ops.registry import (BACKEND_PREFERENCE, OP_KINDS,
@@ -25,6 +26,7 @@ from repro_torch.ops.state_update import (StateLike, init_state,
                                           state_update_step)
 from repro_torch.ops.attention import (attention_decode_step, attn_decode,
                                        kv_append, plan_attn_decode_dims)
+from repro_torch.ops import paged_ops  # noqa: F401  (registers layout="paged")
 from repro_torch.ops.model_traffic import (OpTrafficEntry, decode_op_plans,
                                            decode_traffic_by_kind)
 

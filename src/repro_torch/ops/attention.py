@@ -9,8 +9,11 @@ Mirrors ``repro/ops/attention.py``:
 ``attn_decode`` -- one-token GQA attention against the packed cache:
                    ``cuda`` (the MX8 kernel) or ``torch`` (every format).
 
-The MLA variant (``mla_decode``) follows with the MLA mode of the attention
-kernel (ROADMAP.md); its plain version is ``ref.mx_attention_decode_ref``.
+The cache container picks the layout: a dense ``KVCache`` dispatches the
+ops here, a block-table ``PagedKVCache`` the ``layout="paged"`` ops of
+``repro_torch/ops/paged_ops.py``.  The MLA variant (``mla_decode``) follows
+with the MLA mode of the attention kernel (ROADMAP.md); its plain version is
+``ref.mx_attention_decode_ref``.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.core import attention_cache as AC
 from repro_torch.core import formats as F
+from repro_torch.core.paged import PagedKVCache
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.mx_attention import mx_attention_decode as _attn_cuda
 from repro_torch.ops import registry
@@ -110,51 +114,66 @@ class AttnDecodeTorch(_AttnDecodeBase):
             plan.opt("scale"))
 
 
-def _cache_quant(cache: AC.KVCache, cfg: StateQuantConfig) -> StateQuantConfig:
-    return StateQuantConfig(fmt=fmt_of_state(cache.k), rounding=cfg.rounding,
+def _layout_of(cache) -> str:
+    """The container type selects the op layout: a ``PagedKVCache``
+    dispatches the block-table-native ops, a dense ``KVCache`` the dense
+    ones."""
+    return "paged" if isinstance(cache, PagedKVCache) else "dense"
+
+
+def _cache_quant(cache, cfg: StateQuantConfig) -> StateQuantConfig:
+    fmt = (cache.fmt if isinstance(cache, PagedKVCache)
+           else fmt_of_state(cache.k))
+    return StateQuantConfig(fmt=fmt, rounding=cfg.rounding,
                             backend=cfg.backend)
 
 
-def _cache_dims(cache: AC.KVCache, n: int = 1) -> Dict[str, int]:
+def _cache_dims(cache, n: int = 1) -> Dict[str, int]:
+    if isinstance(cache, PagedKVCache):
+        return dict(B=cache.batch, T=cache.max_len, KVH=cache.kv_heads,
+                    dk=cache.dk, dv=cache.dv, n=n)
     B, T, KVH, dk = cache.k.shape
     return dict(B=B, T=T, KVH=KVH, dk=dk, dv=cache.v.shape[-1], n=n)
 
 
 def plan_attn_decode_dims(dims: Dict[str, int], cfg: StateQuantConfig, *,
-                          scale=None, strict: bool = False) -> OpPlan:
+                          scale=None, layout: str = "dense",
+                          strict: bool = False) -> OpPlan:
     """Plan a decode-attention invocation from explicit dims (cost models)."""
     dims = dict(dims)
     dims.setdefault("H", dims["KVH"])
     return registry.plan("attn_decode", dims, cfg, cfg.backend,
-                         strict=strict, scale=scale)
+                         layout=layout, strict=strict, scale=scale)
 
 
-def kv_append(cache: AC.KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
-              cfg: StateQuantConfig, seed: int = 0) -> AC.KVCache:
+def kv_append(cache, k_new: torch.Tensor, v_new: torch.Tensor,
+              cfg: StateQuantConfig, seed: int = 0):
     """Append one (or n) token(s): k_new (B, n, KVH, dk).  In place."""
     p = registry.plan("kv_append", _cache_dims(cache, n=k_new.shape[1]),
-                      _cache_quant(cache, cfg), cfg.backend)
+                      _cache_quant(cache, cfg), cfg.backend,
+                      layout=_layout_of(cache))
     new_cache, _ = registry.execute(cache, {"k": k_new, "v": v_new,
                                             "seed": seed}, p)
     return new_cache
 
 
-def attn_decode(cache: AC.KVCache, q: torch.Tensor, cfg: StateQuantConfig,
+def attn_decode(cache, q: torch.Tensor, cfg: StateQuantConfig,
                 scale: Optional[float] = None) -> torch.Tensor:
     """Decode attention of current-token queries q (B,H,dk) vs the cache."""
     dims = _cache_dims(cache)
     dims["H"] = q.shape[1]
     p = registry.plan("attn_decode", dims, _cache_quant(cache, cfg),
-                      cfg.backend, scale=scale)
+                      cfg.backend, layout=_layout_of(cache), scale=scale)
     _, out = registry.execute(cache, {"q": q}, p)
     return out
 
 
-def attention_decode_step(cache: AC.KVCache, k_new: torch.Tensor,
+def attention_decode_step(cache, k_new: torch.Tensor,
                           v_new: torch.Tensor, q: torch.Tensor,
                           cfg: StateQuantConfig, *,
                           scale: Optional[float] = None, seed: int = 0,
-                          ) -> Tuple[torch.Tensor, AC.KVCache]:
-    """One decode step: append the token's K/V, then attend."""
+                          ) -> Tuple[torch.Tensor, Any]:
+    """One decode step: append the token's K/V, then attend.  The cache
+    container (``KVCache`` or ``PagedKVCache``) selects the layout."""
     cache = kv_append(cache, k_new, v_new, cfg, seed=seed)
     return attn_decode(cache, q, cfg, scale=scale), cache

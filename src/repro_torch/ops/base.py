@@ -61,6 +61,10 @@ class TrafficBytes:
     output_write: float = 0.0
 
     @property
+    def state_total(self) -> float:
+        return self.state_read + self.state_write
+
+    @property
     def total(self) -> float:
         return (self.state_read + self.state_write
                 + self.operand_read + self.output_write)
@@ -76,9 +80,10 @@ class TrafficBytes:
                             self.output_write + o.output_write)
 
 
-#: operand layouts.  The port implements the dense layout (contiguous
-#: per-layer caches); the paged layout is the next slice (ROADMAP.md).
-LAYOUTS = ("dense",)
+#: operand layouts: contiguous per-layer caches, or the paged serving
+#: pool's page / slab pools walked through a block table
+#: (``repro_torch/core/paged.py``)
+LAYOUTS = ("dense", "paged")
 
 
 @dataclasses.dataclass(frozen=True)

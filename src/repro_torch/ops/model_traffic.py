@@ -1,9 +1,11 @@
 """Per-model decode-op plans: the bridge from a ModelConfig to SpuOp traffic.
 
-The PyTorch twin of ``repro/ops/model_traffic.py`` for the dense layout:
-``decode_op_plans(cfg, batch, seq_len)`` enumerates every registered SPU op
-one decode step runs, with its per-step count, so the serving engine's
-traffic meter and the cost accounting read the ops' own ``traffic(plan)``.
+The PyTorch twin of ``repro/ops/model_traffic.py``:
+``decode_op_plans(cfg, batch, seq_len, layout)`` enumerates every registered
+SPU op one decode step runs, with its per-step count, so the serving
+engines' traffic meters and the cost accounting read the ops' own
+``traffic(plan)``.  ``layout="paged"`` enumerates the block-table-native
+ops (page-granular attention reads, one-slot appends).
 """
 from __future__ import annotations
 
@@ -35,8 +37,9 @@ def _state_dims(cfg, kind: str):
     return (sc.expand * cfg.d_model) // sc.head_dim, sc.d_state, sc.head_dim
 
 
-def decode_op_plans(cfg, batch: int, seq_len: int) -> List[OpTrafficEntry]:
-    """Every SPU op one decode step runs for ``cfg`` (dense layout), with
+def decode_op_plans(cfg, batch: int, seq_len: int,
+                    layout: str = "dense") -> List[OpTrafficEntry]:
+    """Every SPU op one decode step runs for ``cfg`` in ``layout``, with
     layer counts."""
     quant = cfg.state_quant
     entries: List[OpTrafficEntry] = []
@@ -54,7 +57,8 @@ def decode_op_plans(cfg, batch: int, seq_len: int) -> List[OpTrafficEntry]:
     from repro_torch.ops.state_update import plan_state_update_dims
     for (H, dk, dv), n in sorted(state_counts.items()):
         entries.append(OpTrafficEntry(
-            "state_update", plan_state_update_dims(batch, H, dk, dv, quant),
+            "state_update",
+            plan_state_update_dims(batch, H, dk, dv, quant, layout=layout),
             n))
 
     from repro_torch.ops.attention import plan_attn_decode_dims
@@ -63,20 +67,22 @@ def decode_op_plans(cfg, batch: int, seq_len: int) -> List[OpTrafficEntry]:
         dims = dict(B=batch, T=seq_len, KVH=cfg.n_kv_heads,
                     dk=cfg.head_dim, dv=cfg.head_dim, n=1, H=cfg.n_heads)
         entries.append(OpTrafficEntry(
-            "attn_decode", plan_attn_decode_dims(dims, quant), n_attn))
+            "attn_decode", plan_attn_decode_dims(dims, quant, layout=layout),
+            n_attn))
         entries.append(OpTrafficEntry(
             "kv_append", registry.plan("kv_append", dims, quant,
-                                       quant.backend), n_attn))
+                                       quant.backend, layout=layout),
+            n_attn))
     if layer_count("mla"):
         raise NotImplementedError(
             "MLA layers are not ported yet (ROADMAP.md: MLA mode)")
     return entries
 
 
-def decode_traffic_by_kind(cfg, batch: int,
-                           seq_len: int) -> Dict[str, TrafficBytes]:
+def decode_traffic_by_kind(cfg, batch: int, seq_len: int,
+                           layout: str = "dense") -> Dict[str, TrafficBytes]:
     """Per-op-kind traffic of one decode step (sums entries of a kind)."""
     out: Dict[str, TrafficBytes] = {}
-    for e in decode_op_plans(cfg, batch, seq_len):
+    for e in decode_op_plans(cfg, batch, seq_len, layout):
         out[e.kind] = out.get(e.kind, TrafficBytes()) + e.traffic
     return out

@@ -8,6 +8,10 @@ The PyTorch twin of ``repro/ops/state_update.py``.  Stored state layout is
 * ``cuda``  -- the fused kernel (``kernels/mx_state_update.py``), MX8 only.
   It updates the state in place on the card.
 * ``torch`` -- the plain version for every storage format (a new state).
+
+A ``PagedState`` slab view dispatches the ``layout="paged"`` ops of
+``repro_torch/ops/paged_ops.py`` instead, which update the owned slab rows
+of the pool in place.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Any, Dict, Tuple, Union
 import torch
 
 from repro_torch.core import formats as F
+from repro_torch.core.paged import PagedState
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.mx_state_update import mx_state_update as _su_cuda
 from repro_torch.ops import registry
@@ -87,11 +92,14 @@ def plan_state_update_dims(B: int, H: int, dk: int, dv: int,
 
 
 def plan_state_update(state, cfg: StateQuantConfig) -> OpPlan:
-    """Plan from a live state container (format from the container)."""
+    """Plan from a live state container: format and layout come from the
+    container (a ``PagedState`` slab view plans the paged op)."""
     B, H, dv, dk = state.shape
-    quant = StateQuantConfig(fmt=fmt_of_state(state), rounding=cfg.rounding,
-                             backend=cfg.backend)
-    return plan_state_update_dims(B, H, dk, dv, quant)
+    paged = isinstance(state, PagedState)
+    quant = StateQuantConfig(fmt=state.fmt if paged else fmt_of_state(state),
+                             rounding=cfg.rounding, backend=cfg.backend)
+    return plan_state_update_dims(B, H, dk, dv, quant,
+                                  layout="paged" if paged else "dense")
 
 
 def state_update_step(state: StateLike, d: torch.Tensor, k: torch.Tensor,

@@ -1,38 +1,55 @@
-"""Batched serving over the fixed slot pool (PyTorch port of the
-``ServingEngine`` of ``repro/serving/engine.py``).
+"""Batched serving engines (PyTorch port of ``repro/serving/engine.py``).
 
-``ServingEngine`` runs continuous batching over ``slots x cache_capacity``
-preallocated caches: an explicit ``step()`` event loop (admit what fits +
-one batched decode step), ``submit`` / ``abort`` with terminal statuses
-(``done`` / ``aborted`` / ``truncated``) and a ``run()`` drain wrapper.
-Prefill runs at batch 1 per admitted request and writes its caches straight
-into the slot's row (:func:`repro_torch.models.model.write_row`).
+Two engines share the request-lifecycle machinery (``_EngineCore``): an
+explicit ``step()`` event loop (admit + one batched decode step),
+``submit`` / ``abort`` with terminal statuses and a ``run()`` drain wrapper,
+and one ``stats()`` schema.  The streaming facade over them lives in
+:mod:`repro_torch.serving.api`.
 
-On the card every decode step launches the fused MX8 state-update kernel
-once per Mamba-2 layer and the MX8 decode-attention kernel once per
-attention layer, and synchronizes with the host once, to read the sampled
-tokens.  The paged pool (``PagedServingEngine``) is the next slice of the
-port (ROADMAP.md).
+``ServingEngine`` -- the fixed slot pool: continuous batching over
+``slots x cache_capacity`` preallocated caches.  Prefill runs at batch 1
+per admitted request and writes its caches straight into the slot's row.
+
+``PagedServingEngine`` -- the paged pool (``serving/memory``): state / KV
+memory is page granular with a block table per request, admission follows
+a priority / deadline scheduler (``serving/scheduler``), prefill is
+chunked (the tail of a long prompt streams through the decode batch), the
+pool preempts by page eviction (victim pages spill to host bit-exactly,
+resume re-pins them), and finished requests can be **retained** as
+copy-on-write ``fork`` parents.  The JAX package's host tier, prefix store,
+speculation and fault hooks follow in later slices (ROADMAP.md).
+
+On the card every decode step of the paged engine launches the state-update
+kernel (slab mode) once per Mamba-2 layer and the paged attention and append
+kernels once per attention layer, and synchronizes with the host once, to
+read the sampled tokens.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import ops as OPS
+from repro_torch.core import pimsim
+from repro_torch.core.paged import PAGE_TOKENS, pages_for
 from repro_torch.kernels import _build
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import Observability
+from repro_torch.serving.memory import PagedStatePool, SpilledRequest
+from repro_torch.serving.resilience import retry_transient
 from repro_torch.serving.sampler import SamplingConfig, sample
+from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 
-#: terminal request statuses of the slot engine (the JAX package's paged
-#: engine adds ``failed`` / ``rejected``; ``stats()`` keeps their counters)
-TERMINAL_STATUSES = ("done", "aborted", "truncated")
+#: terminal request statuses -- a request in one of these will never
+#: produce another token.  ``rejected``: the paged engine shed it before it
+#: ever decoded; ``failed`` is kept for the JAX schema (fault handling is a
+#: later slice).
+TERMINAL_STATUSES = ("done", "aborted", "truncated", "failed", "rejected")
 
 
 @dataclasses.dataclass
@@ -41,9 +58,15 @@ class Request:
     prompt: np.ndarray                 # (S,) int32
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
+    priority: int = 0                  # lower = more urgent (paged engine)
+    deadline: Optional[float] = None   # absolute time (paged engine, EDF)
+    retain: bool = False               # keep pages pinned after finish
+                                       # (paged engine: enables fork())
+    parent_rid: Optional[int] = None   # copy-on-write fork parent
+    # filled by the engine
     output: List[int] = dataclasses.field(default_factory=list)
-    status: str = "new"                # new|queued|running|done|aborted|
-                                       # truncated
+    status: str = "new"                # new|queued|running|<terminal>
+    detail: Optional[str] = None       # why a request was rejected
     t_submit: float = 0.0
     t_first: float = 0.0
     t_done: float = 0.0
@@ -64,25 +87,31 @@ class EngineConfig:
 
 class _OpTrafficMeter:
     """Accumulates per-op-kind SPU traffic over decode steps, from the
-    registered ops' own ``traffic(plan)`` at each active row's context
-    length (affine in the length: probed once at 1 and 2 tokens)."""
+    registered ops' own ``traffic(plan)``.  Dense traffic is affine in the
+    context length, paged traffic in the page count (whole pages stream,
+    appends write one slot); either way the descriptors are probed once at
+    two operating points."""
 
-    def __init__(self, cfg: ModelConfig, metrics=None):
+    def __init__(self, cfg: ModelConfig, layout: str = "dense",
+                 metrics=None):
         self.cfg = cfg
+        self.layout = layout
         self.metrics = metrics
         self.by_kind: Dict[str, float] = {}
         self._affine = None
 
     def _coeffs(self) -> Dict[str, tuple]:
         if self._affine is None:
-            t1 = OPS.decode_traffic_by_kind(self.cfg, 1, 1)
-            t2 = OPS.decode_traffic_by_kind(self.cfg, 1, 2)
+            u1, u2 = ((PAGE_TOKENS, 2 * PAGE_TOKENS) if self.layout == "paged"
+                      else (1, 2))
+            t1 = OPS.decode_traffic_by_kind(self.cfg, 1, u1, self.layout)
+            t2 = OPS.decode_traffic_by_kind(self.cfg, 1, u2, self.layout)
             self._affine = {k: (t1[k].total, t2[k].total - t1[k].total)
                             for k in t1}
         return self._affine
 
-    def account_step(self, lengths: Sequence[int]) -> None:
-        units = [max(int(L), 1) for L in lengths]
+    def account_units(self, units: Sequence[int]) -> None:
+        """One step over rows of ``units`` tokens (dense) or pages (paged)."""
         if not units:
             return
         n, total = len(units), sum(units)
@@ -98,63 +127,90 @@ class _OpTrafficMeter:
                 for k, v in sorted(self.by_kind.items())}
 
 
-class ServingEngine:
-    """Continuous batching over the fixed slot pool.
+# ===========================================================================
+# Shared stepper core
+# ===========================================================================
 
-    ``submit`` -> ``step``/``run`` -> terminal status, plus ``abort``;
-    ``stats()`` keeps the JAX slot engine's key set.
+
+class _EngineCore:
+    """Request-lifecycle machinery both engines are rebased onto.
+
+    Subclasses implement the mechanics (``step``, ``_enqueue``,
+    ``_abort_impl``, ``has_work``, ``pending_requests``); the core owns
+    ``submit`` -> ``step``/``run`` -> terminal status, ``abort`` and the
+    stats schema (a view over the obs metrics registry).
     """
 
-    backend = "slots"
+    backend: str = "?"
 
-    def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig,
-                 obs: Optional[Observability] = None):
+    def __init__(self, cfg: ModelConfig, obs: Optional[Observability] = None):
         self.cfg = cfg
         self.obs = obs if obs is not None else Observability()
         self.done: List[Request] = []
         self.step_count = 0
-        self.params = params
-        self.ecfg = ecfg
-        self.device = M.params_device(params)
-        B = ecfg.slots
-        self.caches = M.init_decode_caches(cfg, B, ecfg.cache_capacity,
-                                           device=self.device)
-        # host-side mirror of per-slot lengths: the engine is the writer of
-        # record, so it streams host->device with the decode call instead
-        # of being read back every step
-        self.lengths = np.zeros((B,), np.int32)
-        self.cur_tokens = torch.zeros((B,), dtype=torch.int64,
-                                      device=self.device)
-        self.active = np.zeros((B,), bool)
-        self.slot_req: List[Optional[Request]] = [None] * B
-        self.queue: List[Request] = []
-        self._gen = torch.Generator(device=self.device).manual_seed(ecfg.seed)
-        self._traffic = _OpTrafficMeter(cfg, metrics=self.obs.metrics)
 
     # ------------- public lifecycle API -------------
 
     def submit(self, req: Request):
+        self._validate(req)
         req.t_submit = time.perf_counter()
         req.status = "queued"
         self.obs.metrics.counter("requests_submitted_total").inc()
         self.obs.lifecycle.enqueued(req.rid, t=req.t_submit)
-        self.queue.append(req)
+        self._enqueue(req)
+
+    def step(self) -> bool:
+        """One event-loop iteration: admit what fits, run one batched decode
+        step if anything is active.  True while work remains."""
+        raise NotImplementedError
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         """Drain: step until queue and batch are empty; returns terminal
         requests, with still-pending ones surfaced at the end (their spans
-        closed as ``interrupted``) if ``max_steps`` is hit first."""
+        closed as ``interrupted``) if ``max_steps`` is hit first.  Three
+        steps in a row without progress shed the stuck work (``run()``
+        terminates, never spins)."""
         for r in self.pending_requests():
             self.obs.lifecycle.reopen(r.rid)
+        stalled = 0
         while self.has_work() and self.step_count < max_steps:
+            before = (self.step_count, len(self.done))
             self.step()
+            stalled = 0 if (self.step_count, len(self.done)) != before \
+                else stalled + 1
+            if stalled >= 3:
+                self._break_stall()
+                stalled = 0
         if self.has_work():
             pending = self.pending_requests()
             for r in pending:
                 self.obs.lifecycle.interrupt(r.rid)
             return self.done + pending
+        self._sanitize_teardown()
         return self.done
 
+    def _sanitize_teardown(self) -> None:
+        """Shadow-ledger leak check after a full drain (paged engine)."""
+
+    def _break_stall(self) -> None:
+        """Called by ``run()`` after consecutive no-progress steps: shed
+        every queued request (the slot engine cannot stall; the paged engine
+        overrides with a targeted drop of the unadmittable head)."""
+        for r in list(self.pending_requests()):
+            if r.status == "queued":
+                self._abort_impl(r.rid)
+
+    def abort(self, rid: int) -> bool:
+        """Cancel a request at any lifecycle point (waiting, mid-decode,
+        spilled); it lands in ``done`` with status ``aborted``.  False if
+        ``rid`` is unknown or already terminal."""
+        return self._abort_impl(rid)
+
+    def has_work(self) -> bool:
+        raise NotImplementedError
+
+    def pending_requests(self) -> List[Request]:
+        raise NotImplementedError
 
     def stats(self) -> Dict[str, float]:
         """Always the full key schema -- zeros before anything finishes."""
@@ -201,13 +257,91 @@ class ServingEngine:
         tok = m.histogram("tok_latency_s")
         out["p50_tok_latency_s"] = tok.percentile(50)
         out["p99_tok_latency_s"] = tok.percentile(99)
-        out["recompiles"] = 0.0        # no recompile watcher in this slice
-        # speculation is schema-stable and zero here (paged engine only)
+        out["recompiles"] = 0.0        # no recompile watcher in the port yet
+        # speculation is schema-stable and zero (a later slice)
         for k in ("proposed_tokens", "accepted_tokens", "acceptance_rate",
                   "accepted_tokens_per_step"):
             out[k] = 0.0
         out.update(self._traffic.stats())
         return out
+
+    # ------------- subclass hooks -------------
+
+    def _validate(self, req: Request):
+        if req.parent_rid is not None:
+            raise ValueError(
+                f"{type(self).__name__} does not support fork/sessions "
+                "(copy-on-write prefix sharing needs the paged pool)")
+        if req.retain:
+            raise ValueError(
+                f"{type(self).__name__} cannot retain finished requests "
+                "(page refcounts need the paged pool)")
+
+    def _enqueue(self, req: Request):
+        raise NotImplementedError
+
+    def _abort_impl(self, rid: int) -> bool:
+        raise NotImplementedError
+
+    def _finalize(self, req: Request, status: str,
+                  detail: Optional[str] = None):
+        req.status = status
+        if detail is not None:
+            req.detail = detail
+        req.truncated = status == "truncated"
+        req.t_done = time.perf_counter()
+        self.done.append(req)
+        m = self.obs.metrics
+        m.counter("requests_total", status=status).inc()
+        m.counter("tokens_total").inc(len(req.output))
+        self.obs.lifecycle.finish(req.rid, status,
+                                  n_tokens=len(req.output), t=req.t_done)
+
+    def _count_prefill(self, n: int):
+        """Fresh-context tokens ingested (prefill + streamed tails)."""
+        self.obs.metrics.counter("prefill_tokens_total").inc(int(n))
+
+    def _record_step(self, t0: float, builds_before: int):
+        """The step-time histogram, tagged ``compile="true"`` when the step
+        paid for a kernel build (the port's twin of a JAX compile)."""
+        compiled = "true" if _build.builds_done() > builds_before else "false"
+        self.obs.metrics.histogram("step_s", compile=compiled).observe(
+            time.perf_counter() - t0)
+
+
+# ===========================================================================
+# Fixed-slot engine
+# ===========================================================================
+
+
+class ServingEngine(_EngineCore):
+    """Continuous batching over the fixed slot pool."""
+
+    backend = "slots"
+
+    def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig,
+                 obs: Optional[Observability] = None):
+        super().__init__(cfg, obs)
+        self.params = params
+        self.ecfg = ecfg
+        self.device = M.params_device(params)
+        B = ecfg.slots
+        self.caches = M.init_decode_caches(cfg, B, ecfg.cache_capacity,
+                                           device=self.device)
+        # host-side mirror of per-slot lengths: the engine is the writer of
+        # record, so it streams host->device with the decode call instead
+        # of being read back every step
+        self.lengths = np.zeros((B,), np.int32)
+        self.cur_tokens = torch.zeros((B,), dtype=torch.int64,
+                                      device=self.device)
+        self.active = np.zeros((B,), bool)
+        self.slot_req: List[Optional[Request]] = [None] * B
+        self.queue: List[Request] = []
+        self._gen = torch.Generator(device=self.device).manual_seed(ecfg.seed)
+        self._traffic = _OpTrafficMeter(cfg, metrics=self.obs.metrics)
+
+    def _enqueue(self, req: Request):
+        self.queue.append(req)
 
     def step(self) -> bool:
         self._admit()
@@ -222,9 +356,7 @@ class ServingEngine:
         return ([r for r in self.slot_req if r is not None]
                 + list(self.queue))
 
-    def abort(self, rid: int) -> bool:
-        """Cancel a queued or running request; its slot frees immediately
-        and it lands in ``done`` with status ``aborted``."""
+    def _abort_impl(self, rid: int) -> bool:
         for i, r in enumerate(self.queue):
             if r.rid == rid:
                 self.queue.pop(i)
@@ -239,29 +371,15 @@ class ServingEngine:
                 return True
         return False
 
-    # ------------- internals -------------
-
-    def _finalize(self, req: Request, status: str):
-        req.status = status
-        req.truncated = status == "truncated"
-        req.t_done = time.perf_counter()
-        self.done.append(req)
-        m = self.obs.metrics
-        m.counter("requests_total", status=status).inc()
-        m.counter("tokens_total").inc(len(req.output))
-        self.obs.lifecycle.finish(req.rid, status,
-                                  n_tokens=len(req.output), t=req.t_done)
-
     def _admit(self):
         while self.queue and not self.active.all():
             slot = int(np.flatnonzero(~self.active)[0])
             self._prefill_into(slot, self.queue.pop(0))
 
     def _prefill_into(self, slot: int, req: Request):
-        t_p0 = time.perf_counter()
-        self.obs.lifecycle.phase(req.rid, "prefill", t=t_p0)
+        self.obs.lifecycle.phase(req.rid, "prefill", t=time.perf_counter())
         S = int(req.prompt.shape[0])
-        self.obs.metrics.counter("prefill_tokens_total").inc(S)
+        self._count_prefill(S)
         prompt = torch.as_tensor(req.prompt, dtype=torch.int64,
                                  device=self.device)[None]
         logits, row_caches = M.prefill(self.params, self.cfg,
@@ -295,12 +413,10 @@ class ServingEngine:
         self.cur_tokens = toks
         # the sampled tokens are the step's single device->host sync
         toks_np = toks.cpu().numpy()
-        # a step that paid for a kernel build is tagged like a JAX compile
-        compiled = "true" if _build.builds_done() > builds else "false"
-        self.obs.metrics.histogram("step_s", compile=compiled).observe(
-            time.perf_counter() - t0)
+        self._record_step(t0, builds)
         lengths_np = self.lengths
-        self._traffic.account_step(lengths_np[self.active])
+        self._traffic.account_units(
+            [max(int(n), 1) for n in lengths_np[self.active]])
         for slot in np.flatnonzero(self.active):
             req = self.slot_req[slot]
             req.output.append(int(toks_np[slot]))
@@ -312,3 +428,460 @@ class ServingEngine:
                 self.active[slot] = False
                 # stopped only by slot capacity: clipped, not completed
                 self._finalize(req, "done" if done else "truncated")
+
+
+# ===========================================================================
+# Paged engine
+# ===========================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedEngineConfig:
+    max_decode_batch: int = 4         # rows in the decode step
+    n_pages: Optional[int] = 33       # 128-token pages (incl. 1 scratch)
+    n_slabs: int = 9                  # state slabs (incl. 1 scratch)
+    byte_budget: Optional[int] = None  # alternative to n_pages
+    prefill_chunk: int = 128          # longest full-sequence prefill; the
+                                      # prompt tail streams through decode
+    # opt-in prefill length bucketing: the full-sequence prefill length
+    # snaps down to the largest bucket <= the prompt length and the rest
+    # streams through the decode batch (off by default: moving tokens from
+    # prefill to decode changes which op consumes which SR draw)
+    prefill_buckets: Optional[Tuple[int, ...]] = None
+    sampling: SamplingConfig = SamplingConfig()
+    scheduler: SchedulerConfig = SchedulerConfig()
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class _Active:
+    req: Request
+    length: int                       # cached positions so far
+    pending: List[int]                # prompt tokens not yet consumed
+    cur_token: int                    # next token to feed once prompt is done
+
+
+class PagedServingEngine(_EngineCore):
+    """Continuous batching over the paged, bank-aware state/KV pool."""
+
+    backend = "paged"
+
+    def __init__(self, params, cfg: ModelConfig, pcfg: PagedEngineConfig,
+                 obs: Optional[Observability] = None):
+        super().__init__(cfg, obs)
+        self.params = params
+        self.pcfg = pcfg
+        self.device = M.params_device(params)
+        self.pool = PagedStatePool(
+            cfg, n_pages=None if pcfg.byte_budget is not None else pcfg.n_pages,
+            n_slabs=pcfg.n_slabs, byte_budget=pcfg.byte_budget,
+            device=self.device)
+        self.pool.attach_obs(self.obs)
+        self.sched = Scheduler(pcfg.scheduler)
+        self.active: Dict[int, _Active] = {}
+        self.rows: List[Optional[int]] = [None] * pcfg.max_decode_batch
+        self.spilled: Dict[int, Tuple[SpilledRequest, List[int], int]] = {}
+        #: finished-but-pinned requests: fork parents for sessions /
+        #: N-way continuations; release_retained() frees them
+        self.retained: Dict[int, _Active] = {}
+        self._traffic = _OpTrafficMeter(cfg, layout="paged",
+                                        metrics=self.obs.metrics)
+        self.preemptions = 0
+        self._occ: List[float] = []
+        self._frag: List[float] = []
+        self.last_traffic: Optional[np.ndarray] = None
+        #: rid -> consecutive failed admission attempts (degradation rung)
+        self._admit_fails: Dict[int, int] = {}
+        self._gen = torch.Generator(device=self.device).manual_seed(pcfg.seed)
+        if pages_for(pcfg.prefill_chunk) > self.pool.usable_pages:
+            raise ValueError("prefill_chunk does not fit the page pool")
+
+    # ------------- lifecycle -------------
+
+    def _validate(self, req: Request):
+        if req.parent_rid is not None and req.parent_rid not in self.retained:
+            raise ValueError(
+                f"fork parent {req.parent_rid} is not retained (submit the "
+                "parent with retain=True and let it finish first)")
+
+    def _enqueue(self, req: Request):
+        self.sched.push(req)
+
+    def step(self) -> bool:
+        admitted = self._admit()
+        if self.active:
+            self._ensure_headroom()
+        if self.active:
+            self._decode_step()
+        elif self.sched and not admitted:
+            # queue non-empty but nothing fits and nothing runs: shed the
+            # head loudly rather than spinning
+            self._drop_queued(
+                self.sched.peek(), "rejected",
+                detail="cannot admit with the pool idle (request does not "
+                       "fit the page budget)")
+        return self.has_work()
+
+    def _drop_queued(self, req: Request, status: str, detail: str) -> None:
+        """Remove a not-yet-admitted request (queued or spilled) with full
+        cleanup: scheduler entry and spill blob."""
+        rid = req.rid
+        self.sched.remove(rid)
+        if rid in self.spilled:
+            sp, _, _ = self.spilled.pop(rid)
+            self.pool.drop_spilled(sp)
+        self._admit_fails.pop(rid, None)
+        self._finalize(req, status, detail=detail)
+
+    def has_work(self) -> bool:
+        return bool(self.sched) or bool(self.active)
+
+    def pending_requests(self) -> List[Request]:
+        return ([a.req for a in self.active.values()]
+                + self.sched.requests())
+
+    def _abort_impl(self, rid: int) -> bool:
+        if rid in self.active:
+            a = self.active.pop(rid)
+            self._free_row(rid)
+            self.pool.release(rid)
+            self._finalize(a.req, "aborted")
+            return True
+        if rid in self.spilled:
+            sp, _, _ = self.spilled.pop(rid)
+            self.pool.drop_spilled(sp)
+            req = self.sched.remove(rid)
+            assert req is not None, "spilled request must be in the heap"
+            self._finalize(req, "aborted")
+            return True
+        req = self.sched.remove(rid)
+        if req is not None:
+            self._finalize(req, "aborted")
+            return True
+        return False
+
+    # ------------- retained parents / copy-on-write fork -------------
+
+    def retained_length(self, rid: int) -> int:
+        return self.retained[rid].length
+
+    def release_retained(self, rid: int):
+        """Drop a retained parent's page references (shared pages free when
+        the last fork drops; must not race a never-admitted fork child)."""
+        assert all(r.parent_rid != rid or r.rid in self.spilled
+                   for r in self.sched.requests()), \
+            f"retained {rid} still has unadmitted fork children"
+        self.retained.pop(rid)
+        self.pool.release(rid)
+
+    # ------------- admission / preemption -------------
+
+    def _admission_need(self, req: Request) -> int:
+        """Pages admission must find free for ``req`` (plus one slab)."""
+        if req.rid in self.spilled:
+            return self.spilled[req.rid][0].pages_needed
+        if req.parent_rid is not None:
+            # CoW fork: at most the private tail-page copy
+            return 1 if self.retained[req.parent_rid].length % PAGE_TOKENS \
+                else 0
+        return pages_for(min(len(req.prompt), self.pcfg.prefill_chunk))
+
+    def _admit(self) -> bool:
+        admitted = False
+        while len(self.active) < self.pcfg.max_decode_batch and self.sched:
+            head = self.sched.peek()
+            need = self._admission_need(head)
+            if not self.pool.can_admit(need):
+                victim = self.sched.choose_victim(
+                    [a.req for a in self.active.values()])
+                if victim is not None and self.sched.should_preempt(head,
+                                                                    victim):
+                    self._preempt(victim.rid)
+                    continue
+                break
+            req = self.sched.pop()
+            if req.rid in self.spilled:
+                ok = self._resume(req)
+            elif req.parent_rid is not None:
+                ok = self._fork_into(req)
+            else:
+                ok = self._prefill_into(req)
+            if not ok:
+                # transient allocation failure survived bounded retry: walk
+                # the degradation ladder (the last rung sheds the request)
+                self._degrade(req, need)
+                continue
+            self._admit_fails.pop(req.rid, None)
+            admitted = True
+        return admitted
+
+    def _retry(self, site: str, fn) -> bool:
+        """Bounded retry around an allocation-style pool call (the PL206
+        contract: alloc sites never assert success, they retry and
+        escalate)."""
+        def on_retry(_k):
+            self.obs.metrics.counter("fault_retries_total", site=site).inc()
+        return bool(retry_transient(fn, on_retry=on_retry))
+
+    def _degrade(self, req: Request, need: int) -> None:
+        """Admission of a popped request failed after bounded retry:
+        re-queue it, then preempt live work, then shed it ``rejected``.
+        (The JAX ladder's first rung reclaims host-store pages; with no host
+        tier here, it is a plain re-queue.)"""
+        fails = self._admit_fails.get(req.rid, 0) + 1
+        self._admit_fails[req.rid] = fails
+        m = self.obs.metrics
+        if fails == 1:
+            m.counter("degradations_total", rung="requeue").inc()
+        elif fails == 2:
+            victim = self.sched.choose_victim(
+                [a.req for a in self.active.values()])
+            if victim is not None:
+                self._preempt(victim.rid)
+            m.counter("degradations_total", rung="preempt").inc()
+        else:
+            m.counter("degradations_total", rung="shed").inc()
+            self._drop_queued(
+                req, "rejected",
+                detail=f"admission failed after retries (need {need} pages)")
+            return
+        req.status = "queued"
+        self.sched.push(req, resumed=True)
+
+    def _assign_row(self, rid: int):
+        self.rows[self.rows.index(None)] = rid
+
+    def _free_row(self, rid: int):
+        self.rows[self.rows.index(rid)] = None
+
+    def _bucket_prefill_len(self, n: int) -> int:
+        """Full-sequence prefill length for an ``n``-token prompt:
+        ``min(n, prefill_chunk)``, snapped down to the largest of
+        ``prefill_buckets`` that fits (when set)."""
+        s0 = min(n, self.pcfg.prefill_chunk)
+        fits = [b for b in (self.pcfg.prefill_buckets or ()) if 0 < b <= s0]
+        return max(fits) if fits else s0
+
+    def _start(self, a: _Active) -> None:
+        """Seat an admitted request in a decode row."""
+        self.active[a.req.rid] = a
+        self._assign_row(a.req.rid)
+        a.req.status = "running"
+        self.obs.lifecycle.phase(a.req.rid, "decode")
+
+    def _prefill_into(self, req: Request) -> bool:
+        self.obs.lifecycle.phase(req.rid, "prefill", t=time.perf_counter())
+        s0 = self._bucket_prefill_len(len(req.prompt))
+        if not self._retry("alloc",
+                           lambda: self.pool.register(req.rid, pages_for(s0))):
+            return False
+        # the whole prompt is fresh context: s0 through full-sequence
+        # prefill, the tail streamed through the decode batch
+        self._count_prefill(len(req.prompt))
+        prompt = torch.as_tensor(req.prompt[:s0], dtype=torch.int64,
+                                 device=self.device)[None]
+        logits, row_caches = M.prefill(self.params, self.cfg,
+                                       {"tokens": prompt})
+        self.pool.insert_prefill(req.rid, row_caches)
+        a = _Active(req, length=s0, pending=list(map(int, req.prompt[s0:])),
+                    cur_token=-1)
+        if not a.pending:
+            tok = int(sample(logits, self.pcfg.sampling, self._gen)[0])
+            req.t_first = time.perf_counter()
+            self.obs.lifecycle.first_token(req.rid, t=req.t_first)
+            req.output.append(tok)
+            a.cur_token = tok
+        self._start(a)
+        if req.output and (len(req.output) >= req.max_new_tokens
+                           or (req.eos_id is not None
+                               and req.output[-1] == req.eos_id)):
+            self._finish(req.rid)       # prefill already produced the end
+        return True
+
+    def _fork_into(self, req: Request) -> bool:
+        """Admit a copy-on-write fork: share the retained parent's full
+        prefix pages, copy only its partial tail page + slab, and stream the
+        continuation (the parent's final sampled token, then the new turn's
+        tokens) through the decode batch -- no re-prefill of the prefix."""
+        parent = self.retained[req.parent_rid]
+        if not self._retry("alloc", lambda: self.pool.fork(
+                req.parent_rid, req.rid, parent.length)):
+            return False
+        pending = [int(parent.cur_token)] + list(map(int, req.prompt))
+        self._count_prefill(len(pending))
+        self._start(_Active(req, length=parent.length, pending=pending,
+                            cur_token=-1))
+        return True
+
+    def _resume(self, req: Request) -> bool:
+        sp, pending, cur = self.spilled[req.rid]
+        if not self._retry("alloc", lambda: self.pool.resume(req.rid, sp)):
+            return False
+        del self.spilled[req.rid]
+        self._start(_Active(req, sp.length, pending, cur))
+        return True
+
+    def _preempt(self, rid: int):
+        """Evict by page spill: state leaves the device bit-exactly and the
+        request goes back to the scheduler queue."""
+        a = self.active.pop(rid)
+        self._free_row(rid)
+        sp = self.pool.spill(rid, a.length)
+        self.spilled[rid] = (sp, a.pending, a.cur_token)
+        a.req.status = "queued"
+        self.obs.lifecycle.phase(rid, "spilled")
+        self.obs.metrics.counter("preemptions_total").inc()
+        self.sched.push(a.req, resumed=True)
+        self.preemptions += 1
+
+    def _finish(self, rid: int, truncated: bool = False):
+        a = self.active.pop(rid)
+        self._free_row(rid)
+        if a.req.retain and not truncated:
+            self.retained[rid] = a      # pages stay pinned: a fork parent
+        else:
+            self.pool.release(rid)
+        self._finalize(a.req, "truncated" if truncated else "done")
+
+    def _ensure_headroom(self):
+        """Every active request must own the page its next token writes;
+        when the pool is short, preempt the least urgent other request (or
+        truncate this one when it is alone)."""
+        for rid in list(self.active):
+            a = self.active.get(rid)
+            if a is None:
+                continue
+            needed = a.length // PAGE_TOKENS + 1
+            while needed > len(self.pool.page_table[rid]):
+                short = needed - len(self.pool.page_table[rid])
+                if self._retry("alloc",
+                               lambda: self.pool.grow(rid, short)):
+                    break
+                victim = self.sched.choose_victim(
+                    [b.req for b in self.active.values()], exclude=a.req)
+                if victim is None:
+                    self._finish(rid, truncated=True)
+                    break
+                self._preempt(victim.rid)
+
+    # ------------- the decode step -------------
+
+    def _decode_step(self):
+        self.step_count += 1
+        B = self.pcfg.max_decode_batch
+        tokens = np.zeros((B,), np.int32)
+        lengths = np.zeros((B,), np.int32)
+        for row, rid in enumerate(self.rows):
+            if rid is None:
+                continue
+            a = self.active[rid]
+            tokens[row] = a.pending[0] if a.pending else a.cur_token
+            lengths[row] = a.length
+        builds = _build.builds_done()
+        t0 = time.perf_counter()
+        logits = self.pool.decode(self.params, self.rows, tokens, lengths,
+                                  seed=self.step_count)
+        toks = sample(logits, self.pcfg.sampling, self._gen)
+        # the sampled tokens are the step's single device->host sync
+        toks_np = toks.cpu().numpy()
+        self._record_step(t0, builds)
+        # account at the attended length (length + 1); a copy-on-write
+        # shared page streamed for several forks is attributed once
+        seen_pages = set()
+        units = []
+        for row, rid in enumerate(self.rows):
+            if rid is None:
+                continue
+            npg = pages_for(int(lengths[row]) + 1)
+            fresh = [p for p in self.pool.page_table[rid][:npg]
+                     if p not in seen_pages]
+            seen_pages.update(fresh)
+            units.append(max(len(fresh), 1))
+        self._traffic.account_units(units)
+
+        rids = [r for r in self.rows if r is not None]
+        self.last_traffic = self.pool.bank_traffic(rids)
+        self._occ.append(self.pool.occupancy())
+        self._frag.append(self.pool.fragmentation(
+            {r: self.active[r].length for r in rids}))
+        bank = pimsim.bank_trace_counters(self.last_traffic)
+        self.obs.metrics.gauge("bank_conflict_factor").set(
+            bank["conflict_factor"])
+        self.obs.metrics.gauge("bank_step_us").set(bank["t_real_us"])
+
+        for row, rid in enumerate(self.rows):
+            if rid is None:
+                continue
+            a = self.active[rid]
+            a.length += 1
+            if a.pending:
+                a.cur_token = a.pending.pop(0)
+                if a.pending:
+                    continue            # still consuming the prompt
+                # that was the last prompt token: this step's logits are
+                # the first-generation distribution
+                if not a.req.t_first:
+                    a.req.t_first = time.perf_counter()
+                    self.obs.lifecycle.first_token(rid, t=a.req.t_first)
+            tok = int(toks_np[row])
+            a.req.output.append(tok)
+            a.cur_token = tok
+            req = a.req
+            hit_eos = req.eos_id is not None and req.output[-1] == req.eos_id
+            if len(req.output) >= req.max_new_tokens or hit_eos:
+                self._finish(rid)
+
+    def _break_stall(self) -> None:
+        """No-progress steps in ``run()``: shed the unadmittable queue head
+        with a clear reason instead of spinning forever."""
+        head = self.sched.peek() if self.sched else None
+        if head is None:
+            super()._break_stall()
+            return
+        self.obs.metrics.counter("stalls_broken_total").inc()
+        self._drop_queued(
+            head, "rejected",
+            detail="engine made no progress for 3 consecutive steps with "
+                   "this request at the head of the queue")
+
+    def _sanitize_teardown(self) -> None:
+        # only once the spill set is empty: engine-held SpilledRequest
+        # objects legitimately own shared pages mid-flight
+        if not self.spilled:
+            self.pool.sanitizer_check_leaks(
+                what=f"drained paged engine (step {self.step_count})")
+
+    # ------------- stats -------------
+
+    def stats(self) -> Dict[str, float]:
+        out = super().stats()
+        out.update({
+            "preemptions": float(self.preemptions),
+            "occupancy": float(np.mean(self._occ)) if self._occ else 0.0,
+            "fragmentation": (float(np.mean(self._frag))
+                              if self._frag else 0.0),
+            # bytes still moved by gather/scatter: spill/resume, prefill
+            # insertion and the one-page fork copy -- the decode loop adds 0
+            "gather_bytes": float(self.pool.gather_bytes),
+            "pages_allocated": float(self.pool.pages_allocated),
+            "shared_page_hits": float(self.pool.shared_page_hits),
+            "shared_page_savings": float(self.pool.shared_savings_peak),
+            "shared_page_savings_live": float(self.pool.shared_page_savings),
+        })
+        # the host tier and prefix store are a later slice: schema-stable
+        # zeros, as the JAX engine reports with them off
+        for k in ("prefix_hits", "prefix_hit_pages", "prefix_hit_tokens",
+                  "prefix_store_pages", "prefetch_commits", "tier_hits",
+                  "tier_misses", "promote_bytes", "demote_bytes",
+                  "host_bytes"):
+            out[k] = 0.0
+        return out
+
+    def bank_report(self) -> Dict[str, float]:
+        """Score the pool's *actual* page map with the PIM timing model."""
+        m = self.last_traffic
+        if m is None:
+            m = self.pool.bank_traffic(list(self.active))
+        rep = pimsim.placement_step_latency(m, pimsim.SystemConfig())
+        rep["imbalance"] = self.pool.placement.imbalance()
+        return rep

@@ -53,10 +53,16 @@ def test_state_update_kernel_vs_plain(cuda, B, H, dk, dv, rounding,
                                 rounding=rounding)
     torch.cuda.synchronize()
     assert KS.mx_state_update.launches == n0 + 1
+    _assert_state_update_contract(qp.payload, yp, qk.payload, yk)
+
+
+def _assert_state_update_contract(plain, yp, kern, yk):
+    """Exponent and micro bitwise, mantissa within one step at a mismatch
+    rate <= 1e-5, ``y`` close on the rows whose state matches."""
     for f in ("exponent", "micro"):
-        assert torch.equal(qp.payload[f], qk.payload[f]), f
-    diff = qp.payload["mantissa"] != qk.payload["mantissa"]
-    assert (qp.payload["mantissa"].int() - qk.payload["mantissa"].int()
+        assert torch.equal(plain[f], kern[f]), f
+    diff = plain["mantissa"] != kern["mantissa"]
+    assert (plain["mantissa"].int() - kern["mantissa"].int()
             ).abs().max() <= 1
     assert diff.float().mean().item() <= 1e-5
     ok = ~diff.any(-1)
@@ -89,6 +95,170 @@ def test_attention_kernel_refuses_mla_mode(cuda):
     with pytest.raises(NotImplementedError, match="MLA"):
         KA.mx_attention_decode(q, K, None, torch.ones(1, dtype=torch.int32,
                                                       device=cuda), v_width=16)
+
+
+def _paged_kv(cuda, lengths, n_stack, KVH, d, H, seed):
+    """Pools of random MX8 K/V and a block table of shuffled pages covering
+    ``len + 1`` positions per row (bucketed, scratch page 0 in the tail)."""
+    from repro_torch.core.paged import pages_for
+    from repro_torch.serving.memory import bucket_pages
+    need = [pages_for(n + 1) for n in lengths]
+    P = 2 + sum(need)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    ids = (torch.randperm(P - 1, generator=g, device=cuda) + 1).tolist()
+    bt = torch.zeros((len(lengths), bucket_pages(max(need))),
+                     dtype=torch.int32)
+    for b, n in enumerate(need):
+        bt[b, :n] = torch.tensor(ids[:n])
+        ids = ids[n:]
+    shp = (P, n_stack, 128, KVH, d)
+    K = F.mx8_quantize(torch.randn(shp, generator=g, device=cuda))
+    V = F.mx8_quantize(torch.randn(shp, generator=g, device=cuda))
+    q = torch.randn((len(lengths), H, d), generator=g, device=cuda)
+    return q, K, V, bt.to(cuda), torch.tensor(lengths, dtype=torch.int32,
+                                              device=cuda)
+
+
+@pytest.mark.parametrize("lens,H,KVH,d", [
+    ((1, 127, 128, 129), 32, 32, 80),       # zamba2-2.7b shared attention
+    ((1000, 128, 129, 1), 32, 32, 80),
+    ((5, 200), 4, 2, 32),                   # llama3.2-1b smoke: G = 2
+])
+def test_paged_attention_kernel_vs_plain_and_dense(cuda, lens, H, KVH, d):
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import ref as R
+    q, K, V, bt, lengths = _paged_kv(cuda, lens, 9, KVH, d, H, seed=d)
+    n0 = KP.mx_paged_attention_decode.launches
+    y3 = KP.mx_paged_attention_decode(q, K, V, bt, 5, lengths)
+    y2 = KA.mx_attention_decode(q, R.gather_pages(K, bt, 5),
+                                R.gather_pages(V, bt, 5), lengths)
+    torch.cuda.synchronize()
+    assert KP.mx_paged_attention_decode.launches == n0 + 1
+    torch.testing.assert_close(y3, KP.plain(q, K, V, bt, 5, lengths),
+                               rtol=2e-4, atol=2e-5)
+    assert torch.equal(y3, y2)              # bitwise: same tiles, same order
+
+
+def test_paged_kv_append_kernel_bitwise(cuda):
+    from repro_torch.kernels import mx_paged_attention as KP
+    lens = (0, 127, 128, 1000)
+    _, K, V, bt, lengths = _paged_kv(cuda, lens, 9, 32, 80, 32, seed=3)
+    pools = [K.payload[f] for f in sorted(K.payload)] + [
+        V.payload[f] for f in sorted(V.payload)]
+    g = torch.Generator(device=cuda).manual_seed(4)
+    rows = [torch.randint(-63, 64, (4, 32, p.shape[-1]), generator=g,
+                          device=cuda).to(p.dtype) for p in pools]
+    before = [p.clone() for p in pools]
+    plain = [p.clone() for p in pools]
+    n0 = KP.mx_paged_kv_append.launches
+    KP.mx_paged_kv_append(pools, rows, bt, 7, lengths)
+    KP.plain_append(plain, rows, bt, 7, lengths)
+    torch.cuda.synchronize()
+    assert KP.mx_paged_kv_append.launches == n0 + 1
+    keep = torch.ones(pools[0].shape[:3], dtype=torch.bool, device=cuda)
+    for b, n in enumerate(lens):
+        keep[bt[b, n // 128], 7, n % 128] = False
+    for a, p, b0 in zip(pools, plain, before):
+        assert torch.equal(a, p)
+        assert torch.equal(a[keep], b0[keep])
+
+
+_APPEND_OUTSIDE_TABLE = """
+import torch
+from repro_torch.kernels import mx_paged_attention as KP
+pools = [torch.zeros((3, 1, 128, 2, 16), dtype=torch.int8, device="cuda")]
+rows = [torch.ones((1, 2, 16), dtype=torch.int8, device="cuda")]
+bt = torch.tensor([[1]], dtype=torch.int32, device="cuda")
+lengths = torch.tensor([128], dtype=torch.int32, device="cuda")
+try:
+    KP.plain_append([p.cpu() for p in pools], [r.cpu() for r in rows],
+                    bt.cpu(), 0, lengths.cpu())
+except IndexError:
+    print("plain: IndexError", flush=True)
+KP.mx_paged_kv_append(pools, rows, bt, 0, lengths)
+torch.cuda.synchronize()
+print("kernel: no error", flush=True)
+"""
+
+
+def test_paged_kv_append_outside_the_table_raises(cuda):
+    """A slot past the block table (len // 128 >= npg): the plain version
+    raises IndexError, the kernel fails a device-side assert that the next
+    synchronize raises.  In a child process: the assert leaves the CUDA
+    context unusable."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    out = subprocess.run([sys.executable, "-c", _APPEND_OUTSIDE_TABLE],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert "plain: IndexError" in out.stdout
+    assert out.returncode != 0 and "kernel: no error" not in out.stdout
+    assert "device-side assert" in out.stderr, out.stderr[-2000:]
+
+
+@pytest.mark.parametrize("B,H,dk,dv", [(4, 80, 64, 64), (4, 80, 128, 64)])
+@pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
+def test_state_update_slab_mode_bitwise_vs_dense(cuda, B, H, dk, dv,
+                                                 rounding):
+    g = torch.Generator(device=cuda).manual_seed(dk)
+    pool = F.mx8_quantize(torch.randn((9, 6, H, dv, dk), generator=g,
+                                      device=cuda))
+    slabs = torch.tensor([7, 2, 5, 3], dtype=torch.int32, device=cuda)
+    _, d, k, v, q = _su_inputs(B, H, dk, dv, cuda, scalar_decay=False)
+    idx = (slabs.long(), 4)
+    rows = F.QuantizedTensor("mx8", (B, H, dv, dk), {
+        f: a[idx].clone() for f, a in pool.payload.items()})
+    plain, yp = KS.plain_slab(pool.clone(), slabs, 4, d, k, v, q,
+                              rounding=rounding, seed=3)
+    n0 = (KS.mx_state_update.launches, KS.mx_state_update.slab_launches)
+    dense, yd = KS.mx_state_update(rows, d, k, v, q, seed=3,
+                                   rounding=rounding)
+    _, ys = KS.mx_state_update(pool, d, k, v, q, seed=3, rounding=rounding,
+                               slabs=slabs, group=4)
+    torch.cuda.synchronize()
+    assert (KS.mx_state_update.launches,
+            KS.mx_state_update.slab_launches) == (n0[0] + 1, n0[1] + 1)
+    assert torch.equal(ys, yd)
+    for f, a in pool.payload.items():
+        assert torch.equal(a[idx], dense.payload[f]), f
+    # and against the plain slab version on the same inputs: the owned rows
+    # under the state-update contract, every other slab row untouched
+    _assert_state_update_contract(
+        {f: a[idx] for f, a in plain.payload.items()}, yp,
+        {f: a[idx] for f, a in pool.payload.items()}, ys)
+    keep = torch.ones((9, 6), dtype=torch.bool, device=cuda)
+    keep[idx] = False
+    for f, a in pool.payload.items():
+        assert torch.equal(a[keep], plain.payload[f][keep]), f
+
+
+def test_paged_smoke_engine_launches_each_kernel_per_layer(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import Engine, ServeConfig
+    cfg = get_smoke_config("zamba2-2.7b")
+    params = M.init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                          device=cuda)
+    eng = Engine(params, cfg, ServeConfig(batch=2, n_pages=4))
+    rng = np.random.default_rng(0)
+    hs = [eng.submit(rng.integers(0, cfg.vocab_size, n), max_new_tokens=5)
+          for n in (9, 140, 17)]
+    counters = (KS.mx_state_update, KP.mx_paged_attention_decode,
+                KP.mx_paged_kv_append, KA.mx_attention_decode)
+    for c in counters:
+        c.launches = 0
+    KS.mx_state_update.slab_launches = 0
+    eng.run()
+    steps = eng.engine.step_count
+    assert all(h.status == "done" and len(h.output) == 5 for h in hs)
+    n_m2 = cfg.pattern.count("mamba2") * cfg.n_groups
+    assert KS.mx_state_update.slab_launches == n_m2 * steps
+    assert [c.launches for c in counters] == [
+        0, cfg.n_groups * steps, cfg.n_groups * steps, 0]
 
 
 def test_smoke_engine_launches_each_kernel_per_layer(cuda):

@@ -108,14 +108,6 @@ def test_stats_schema_before_any_finish(zamba_fp32):
     assert all(v == 0.0 for v in st.values())
 
 
-def test_paged_backend_raises_naming_the_roadmap_item(zamba_fp32):
-    _, tcfg, _, tparams, _ = zamba_fp32
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        Engine(tparams, tcfg, ServeConfig(backend="paged"))
-    with pytest.raises(ValueError):
-        ServeConfig(backend="gpu")
-
-
 def test_engine_with_cuda_backend_on_cpu_runs_plain_versions(zamba_fp32):
     """MX8 with the ``cuda`` backend requested: on CPU tensors the kernel
     wrappers take their plain versions, so the engine serves and launches
