@@ -9,14 +9,18 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 against its plain PyTorch version at the shapes the served model gives it,
 times both (with a PyTorch library call as yardstick where one computes the
 same function), then serves ``zamba2-2.7b`` at full width through the slot
-pool and through the paged pool (``Engine``'s default), and checks that
-every decode step went through the kernels of its path.  Phases, in the
-order they run:
+pool, through the paged pool (``Engine``'s default) and through the paged
+pool with speculative decoding, and checks that every decode step went
+through the kernels of its path.  Phases, in the order they run:
 
   1. device   2. build   3. exact powers of two   4. state-update kernel
   5. attention kernel   9. paged kernels (paged attention, paged append,
-  state update in slab mode)   6. timing   10. paged-kernel timing
-  7. main path, slot pool   11. main path, paged pool   8. kernels line
+  state update in slab mode)   12. speculative-verify kernels (dense and
+  paged)   6. timing   10. paged-kernel timing   13. verify-kernel timing
+  7. main path, slot pool   11. main path, paged pool   12. matmul row
+  invariance at the model's shapes   14. main path, paged pool with
+  speculation (n-gram drafts; a short model-draft run; the pool-level
+  rollback check)   8. kernels line
 
 Any failure exits non-zero; with no card it fails (it never falls back to
 the CPU).  The last three lines of standard output are the kernels' JSON
@@ -47,6 +51,11 @@ MAX_NEW = 24
 PAGED = dict(batch=4, n_pages=9, prefill_chunk=256)
 N_STACK = 9                                         # shared-attn applications
 PAGED_LENGTHS = ((1, 127, 128, 129), (1000, 128, 129, 1))
+SPEC_K = 3                                          # drafts per verify step
+KQ = SPEC_K + 1                                     # verify positions
+#: verify-kernel checks: lengths count the Kq appended rows and straddle a
+#: tile boundary (row j sees len - (Kq - 1 - j) positions)
+SPEC_LENGTHS = ((4, 127, 128, 129), (1000, 131, 129, 5))
 
 
 class SmokeFailure(RuntimeError):
@@ -135,8 +144,7 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    paths = _build.build(["mx_state_update", "mx_attention",
-                          "mx_paged_attention"])
+    paths = _build.build(_build.SOURCES)
     dt = time.perf_counter() - t0
     for name, path in paths.items():
         report = _build.PTXAS_REPORT.get(name, "(cached build)")
@@ -494,6 +502,138 @@ def phase_paged_kernels():
     return attn_err, float(append_err), slab_err
 
 
+def _spec_kv(lengths, G, seed, spare=2):
+    """Kernel-5 inputs at zamba2-2.7b widths with G query heads per kv
+    head (H = 32, KVH = 32 / G, d = 80): page pools of N_STACK layers, a
+    block table of shuffled non-contiguous page ids spanning each row's
+    ``len`` positions, and q ``(B, KQ, H, d)``."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.core.paged import pages_for
+    from repro_torch.serving.memory import bucket_pages
+    H, d, KVH = ATTN["H"], ATTN["d"], ATTN["H"] // G
+    need = [pages_for(n) for n in lengths]
+    P = 1 + sum(need) + spare
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = (torch.randperm(P - 1, generator=g, device="cuda") + 1).tolist()
+    bt = torch.zeros((len(lengths), bucket_pages(max(need))),
+                     dtype=torch.int32)
+    for b, n in enumerate(need):
+        bt[b, :n] = torch.tensor(ids[:n])
+        ids = ids[n:]
+    shp = (P, N_STACK, 128, KVH, d)
+    K = F.mx8_quantize(torch.randn(shp, generator=g, device="cuda"))
+    V = F.mx8_quantize(torch.randn(shp, generator=g, device="cuda"))
+    q = torch.randn((len(lengths), KQ, H, d), generator=g, device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, K, V, bt.cuda(), lens
+
+
+def phase_spec_kernels():
+    """Kernels 6 (dense) and 5 (paged) against their plain versions; kernel
+    5 bitwise kernel 6 over the gathered pages; verify row j bitwise
+    kernels 2 and 3 at length len - (Kq - 1 - j) -- at Kq 1, 2 and 4, G 1
+    and 4, lengths straddling a tile boundary, 9 layers, shuffled pages."""
+    import torch
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    err5 = err6 = 0.0
+    cases = 0
+    for G in (1, 4):
+        for i, lengths in enumerate(SPEC_LENGTHS):
+            q_all, K, V, bt, lens = _spec_kv(lengths, G, seed=80 + 10 * G + i)
+            group = 3 + i
+            Kd, Vd = R.gather_pages(K, bt, group), R.gather_pages(V, bt, group)
+            for Kq in (1, 2, 4):
+                q = q_all[:, :Kq].contiguous()
+                label = f"Kq={Kq} G={G} lengths={lengths}"
+                y5 = KV.mx_paged_spec_attention_decode(q, K, V, bt, group,
+                                                       lens)
+                y6 = KV.mx_spec_attention_decode(q, Kd, Vd, lens)
+                p5 = KV.plain_paged(q, K, V, bt, group, lens)
+                p6 = KV.plain(q, Kd, Vd, lens)
+                torch.cuda.synchronize()
+                for name, y, yp in (("kernel 5", y5, p5), ("kernel 6", y6,
+                                                          p6)):
+                    err = (y - yp).abs()
+                    check(bool((err <= 2e-5 + 2e-4 * yp.abs()).all()),
+                          f"{name} {label}: beyond rtol 2e-4 atol 2e-5 (max "
+                          f"err {float(err.max()):.3g})")
+                err5 = max(err5, float((y5 - p5).abs().max()))
+                err6 = max(err6, float((y6 - p6).abs().max()))
+                check(torch.equal(y5, y6), f"{label}: kernel 5 not bitwise "
+                      "kernel 6 over the gathered pages")
+                for j in range(Kq):
+                    lj = lens - (Kq - 1 - j)
+                    qj = q[:, j].contiguous()
+                    check(torch.equal(y6[:, j], KA.mx_attention_decode(
+                        qj, Kd, Vd, lj)), f"{label}: row {j} not bitwise "
+                        "kernel 2 at the shifted length")
+                    check(torch.equal(y5[:, j], KP.mx_paged_attention_decode(
+                        qj, K, V, bt, group, lj)), f"{label}: row {j} not "
+                        "bitwise kernel 3 at the shifted length")
+                cases += 1
+    app = _spec_appends_check()
+    refused = 0
+    q, K, V, bt, lens = _spec_kv((130, 5), 4, seed=99)
+    for bad in (torch.cat([q, q[:, :1]], 1),):          # Kq = 5, G = 4
+        try:
+            KV.mx_paged_spec_attention_decode(bad, K, V, bt, 0, lens)
+        except ValueError:
+            refused += 1
+    check(refused == 1, "Kq*G = 20 rows was not refused")
+    phase(12, "mx_spec_attention_decode / mx_paged_spec_attention_decode "
+          "vs plain", cases=cases, Kq="1,2,4", G="1,4", H=ATTN["H"],
+          d=ATTN["d"], n_stack=N_STACK, lengths=list(SPEC_LENGTHS),
+          max_abs_err_5=f"{err5:.3g}", max_abs_err_6=f"{err6:.3g}",
+          tol="rtol2e-4,atol2e-5", paged_vs_dense="bitwise",
+          row_j_vs_kernels_2_and_3="bitwise", Kq_times_G_20="ValueError")
+    phase(12, "attention_spec_step appends vs sequential kv_append",
+          Kq=KQ, lengths=app, result="bitwise (every pool byte)",
+          verify_vs_spec_attend="bitwise")
+    return err5, err6
+
+
+def _spec_appends_check():
+    """``attention_spec_step`` on a paged cache (CUDA kernels): its KQ
+    appends, seeds seed + i, equal KQ sequential ``kv_append`` calls byte
+    for byte over every pool (so no byte outside the appended slots moves),
+    and its verify output is ``spec_attend`` over the appended cache."""
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.core import paged as PG
+    a = ATTN
+    base = (1, 124, 125, 1000)                      # crosses page boundaries
+    q, K, V, bt, _ = _spec_kv([n + KQ for n in base], 1, seed=97)
+    lens = torch.tensor(base, dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(98)
+    k_new, v_new = (torch.randn((len(base), KQ, a["KVH"], a["d"]),
+                                generator=g, device="cuda") for _ in "kv")
+    cfg = OPS.StateQuantConfig()
+    caches = [PG.PagedKVCache(K.clone(), V.clone(), bt, lens, 5, "mx8")
+              for _ in range(2)]
+    y, c = OPS.attention_spec_step(caches[0], k_new, v_new, q, cfg,
+                                   seed=0xFFFFFFFE)
+    seq = caches[1]
+    for i in range(KQ):
+        seq = OPS.kv_append(seq, k_new[:, i:i + 1].contiguous(),
+                            v_new[:, i:i + 1].contiguous(), cfg,
+                            seed=(0xFFFFFFFE + i) & 0xFFFFFFFF)
+    y_seq = OPS.spec_attend(seq, q, cfg)
+    torch.cuda.synchronize()
+    check(torch.equal(c.lengths, seq.lengths), "append lengths differ")
+    for f in K.payload:
+        check(torch.equal(c.k.payload[f], seq.k.payload[f]) and
+              torch.equal(c.v.payload[f], seq.v.payload[f]),
+              f"attention_spec_step appends differ from sequential "
+              f"kv_append ({f})")
+    check(torch.equal(y, y_seq), "attention_spec_step verify differs from "
+          "spec_attend over the same cache")
+    return list(base)
+
+
 def phase_paged_timing():
     """Device times of the paged kernels from CUDA-graph replay at the main
     path's shapes, pools larger than the 50 MB L2."""
@@ -601,6 +741,214 @@ def phase_paged_timing():
                  2 * payload + operands, 10 * n_val, OPS.traffic(plan).total,
                  n=10)
     return pa, ap, su
+
+
+def phase_spec_timing():
+    """Device times of kernels 5 and 6 from CUDA-graph replay at the main
+    path's mid-decode lengths with Kq = 4 (lengths count the appended
+    rows), the 9 shared-attention layers' pages (and their gathered dense
+    copies) rotating cold in L2; the yardstick is one
+    ``scaled_dot_product_attention`` call with a boolean (B, H, Kq, T) mask
+    over the gathered, dequantized fp32 K/V."""
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.core import formats as F
+    from repro_torch.core.paged import pages_for
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    a = ATTN
+    it = iter(range(10 ** 9))
+    lengths = [n + MAX_NEW // 2 + KQ for n in PROMPT_LENS[:a["B"]]]
+    q, K, V, bt, lens = _spec_kv(lengths, 1, seed=90, spare=0)
+    dense = [(R.gather_pages(K, bt, g), R.gather_pages(V, bt, g))
+             for g in range(N_STACK)]
+    T = bt.shape[1] * 128
+    shift = torch.arange(KQ, device="cuda") - (KQ - 1)
+    mask = (torch.arange(T, device="cuda")[None, None, :]
+            < (lens[:, None] + shift[None, :])[:, :, None])[:, None]
+    qh = q.permute(0, 2, 1, 3).contiguous()             # (B, H, Kq, d)
+    lib = []
+    for kd, vd in dense:
+        kf = F.dequantize(kd).permute(0, 2, 1, 3).contiguous()
+        vf = F.dequantize(vd).permute(0, 2, 1, 3).contiguous()
+        lib.append(lambda t=(kf, vf):
+                   torch.nn.functional.scaled_dot_product_attention(
+                       qh, t[0], t[1], attn_mask=mask))
+    # the yardstick computes the same function
+    y_lib = lib[0]().permute(0, 2, 1, 3)
+    y_k = KV.mx_spec_attention_decode(q, *dense[0], lens)
+    torch.cuda.synchronize()
+    check(bool(((y_lib - y_k).abs() <= 1e-4 + 1e-3 * y_k.abs()).all()),
+          "verify yardstick (SDPA) disagrees with kernel 6")
+    d_ = a["d"]
+    row_pos = sum(n - (KQ - 1 - j) for n in lengths for j in range(KQ))
+    flops = row_pos * a["H"] * 4 * d_
+    io = 4 * a["B"] * KQ * a["H"] * 2 * d_ + 4 * a["B"]
+    cache = sum(lengths) * a["KVH"] * 2 * d_ * (1 + 2 / F.MX8_GROUP)
+    npg_b = [pages_for(n) for n in lengths]
+    out = []
+    for name, kern, plain, extra, layout in (
+            ("mx_paged_spec_attention_decode",
+             [lambda g=g: KV.mx_paged_spec_attention_decode(q, K, V, bt, g,
+                                                            lens)
+              for g in range(N_STACK)],
+             [lambda g=g: KV.plain_paged(q, K, V, bt, g, lens)
+              for g in range(N_STACK)], 4 * sum(npg_b), "paged"),
+            ("mx_spec_attention_decode",
+             [lambda c=c: KV.mx_spec_attention_decode(q, *c, lens)
+              for c in dense],
+             [lambda c=c: KV.plain(q, *c, lens) for c in dense], 0,
+             "dense")):
+        ms = graph_ms(kern, 30)
+        plain_ms = graph_ms(plain, 3)
+        lib_ms = graph_ms(lib, 30)
+        host_ms = host_loop_ms(lambda k=kern: k[next(it) % N_STACK](), 270)
+        plan_bytes = sum(OPS.traffic(OPS.registry.plan(
+            "spec_verify", dict(B=1, T=n, KVH=a["KVH"], dk=d_, dv=d_, n=1,
+                                H=a["H"], Kq=KQ), OPS.StateQuantConfig(),
+            "cuda", layout=layout)).total for n in lengths)
+        out.append(_report(name, ms, plain_ms, lib_ms, host_ms,
+                           cache + io + extra, flops, plan_bytes, n=13))
+    phase(13, "verify lengths", lengths=lengths, Kq=KQ,
+          per_row_positions=row_pos)
+    return out[0], out[1]
+
+
+def _row_invariance(params, cfg):
+    """Trouble spot of speculation on the card: the verify step runs the
+    projections at M = B * Kq = 16 rows, the plain step at M = B = 4.
+    Row i of ``(B, Kq, d) @ W`` against the contiguous ``(B, 1, d) @ W`` of
+    position i, bitwise, at every weight shape of the model (fp32, TF32
+    off), and the RMSNorm reduction likewise.  Returns {name: bool}."""
+    import torch
+    from repro_torch.models import layers as L
+    g = torch.Generator(device="cuda").manual_seed(7)
+    sh, m2 = params["shared"], params["groups"][0][0]["mixer"]
+    weights = dict(wq=sh["attn"]["wq"], wk=sh["attn"]["wk"],
+                   wv=sh["attn"]["wv"], wo=sh["attn"]["wo"],
+                   ffn_wi=sh["ffn"]["wi"], ffn_wg=sh["ffn"]["wg"],
+                   ffn_wo=sh["ffn"]["wo"], m2_wz=m2["wz"], m2_wx=m2["wx"],
+                   m2_wbc=m2["wbc"], m2_wdt=m2["wdt"],
+                   m2_out_proj=m2["out_proj"], lm_head=params["embed"].T
+                   if cfg.tie_embeddings else params["lm_head"])
+    out = {}
+    B = ATTN["B"]
+    for name, w in weights.items():
+        x = torch.randn((B, KQ, w.shape[0]), generator=g, device="cuda")
+        full = x @ w
+        out[name] = all(torch.equal(full[:, i:i + 1],
+                                    x[:, i:i + 1].contiguous() @ w)
+                        for i in range(KQ))
+    x = torch.randn((B, KQ, cfg.d_model), generator=g, device="cuda")
+    full = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
+    out["rmsnorm"] = all(torch.equal(full[:, i:i + 1], L.apply_norm(
+        params["final_norm"], x[:, i:i + 1].contiguous(), cfg.norm_eps))
+        for i in range(KQ))
+    return out
+
+
+def _agreement(ref, got):
+    """Greedy token agreement of two stream sets: the share of positions
+    equal before each request's first difference, and the earliest
+    differing token index over requests (None when all equal)."""
+    same = total = 0
+    first = None
+    for a, b in zip(ref, got):
+        k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        same += k
+        total += max(len(a), len(b))
+        if k < max(len(a), len(b)):
+            first = k if first is None else min(first, k)
+    return same / max(total, 1), first
+
+
+def _spec_rollback_check(eng, cfg, rng, invariant, lens0=(64, 129, 126,
+                                                          200)):
+    """The pool-level contract at full width, four active rows: one verify
+    pass over KQ tokens against KQ sequential paged decode steps (seeds
+    1..KQ), then ``commit_spec`` at all-accept and at sel = 0.  Always held:
+    the state rows a commit restores are exactly the snapshot rows of the
+    selected position, and the all-accept snapshot is the state the
+    kernels left in place.  Held bitwise against the sequential steps (and
+    their logits) when the matmuls are row invariant; otherwise the logits'
+    largest difference and the argmax agreement are reported."""
+    import numpy as np
+    import torch
+    from repro_torch.core.paged import pages_for
+    from repro_torch.models import model as M
+    pool, params = eng.engine.pool, eng.engine.params
+    rids = [20_000 + i for i in range(len(lens0))]
+    toks0 = []
+    for rid, n in zip(rids, lens0):
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
+                                 device="cuda")[None]
+        logits, row = M.prefill(params, cfg, {"tokens": prompt})
+        check(pool.register(rid, pages_for(n + KQ)), f"no pages for {rid}")
+        toks0.append(int(logits[0].argmax()))
+        pool.paging.insert_request(pool.pools, row, pool._ids(
+            pool.page_table[rid][:pages_for(n)]), pool.slab_of[rid])
+    snapshot = [p.clone() for p in pool.pools]
+    slabs = [pool.slab_of[r] for r in rids]
+
+    def slab_rows():
+        return [p[slabs].clone() for p, sp in zip(pool.pools,
+                                                  pool.paging.specs)
+                if sp.kind == "slab"]
+
+    L0 = np.array(lens0, np.int32)
+    seq, t = [], np.array(toks0)
+    toks = [t]
+    for i in range(KQ):
+        lg = pool.decode(params, rids, t, L0 + i, seed=1 + i)
+        seq.append(lg.clone())
+        t = lg.argmax(-1).cpu().numpy()
+        toks.append(t)
+    seq_slabs = slab_rows()
+    tokens = np.stack(toks[:KQ], axis=1)
+    results = {}
+    for sel in (KQ - 1, 0):
+        for p, s_ in zip(pool.pools, snapshot):
+            p.copy_(s_)
+        lg, snaps = pool.decode_spec(params, rids, tokens, L0, seed=1,
+                                     min_pages=pages_for(int(L0.max()) + KQ))
+        inplace = slab_rows()
+        pool.commit_spec(rids, snaps, np.full(len(rids), sel))
+        rolled = slab_rows()
+        # the commit restores exactly the selected snapshot rows
+        want = [snaps[sp.pos][sp.path][sel].to(p.dtype)
+                for p, sp in zip(pool.pools, pool.paging.specs)
+                if sp.kind == "slab"]
+        check(all(torch.equal(a, b) for a, b in zip(rolled, want)),
+              f"commit_spec(sel={sel}) did not restore the snapshot rows")
+        if sel == KQ - 1:
+            # the last snapshot is the state the step left in place
+            check(all(torch.equal(a, b) for a, b in zip(inplace, rolled)),
+                  "all-accept snapshot differs from the in-place state")
+        results[sel] = (lg, rolled)
+    lg = results[KQ - 1][0]
+    diffs = [float((lg[:, i] - seq[i]).abs().max()) for i in range(KQ)]
+    agree = float(np.mean([bool((lg[:, i].argmax(-1) == seq[i].argmax(-1)
+                                 ).all()) for i in range(KQ)]))
+    bitwise = all(torch.equal(lg[:, i], seq[i]) for i in range(KQ)) and all(
+        torch.equal(a, b) for a, b in zip(results[KQ - 1][1], seq_slabs))
+    # sel = 0 against exactly one sequential step
+    for p, s_ in zip(pool.pools, snapshot):
+        p.copy_(s_)
+    pool.decode(params, rids, np.array(toks0), L0, seed=1)
+    one = all(torch.equal(a, b) for a, b in zip(results[0][1], slab_rows()))
+    for r in rids:
+        pool.release(r)
+    if invariant:
+        check(bitwise and one, f"row-invariant matmuls, yet verify "
+              f"positions differ from sequential steps (max |dlogit| "
+              f"{max(diffs):.3g}, sel=0 rows equal: {one})")
+    phase(14, "pool-level verify and rollback, full width", rows=len(rids),
+          lengths=list(lens0), Kq=KQ, commit_restores_snapshot="bitwise",
+          all_accept_snapshot_vs_in_place="bitwise",
+          vs_sequential_bitwise=bitwise and one,
+          max_abs_dlogit=f"{max(diffs):.3g}", argmax_agreement=f"{agree:.2f}")
+    return bitwise and one
 
 
 def _payload_bytes(x):
@@ -761,7 +1109,7 @@ def phase_paged_main_path(cfg, params, slot):
     shape = _paged_vs_gather(eng, cfg, rng)
     phase(11, "paged vs gather logits, fresh pool", steps=4,
           logits=tuple(shape), result="bit-identical")
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    prompts = _pattern_prompts(rng, cfg)
     counters = (KS.mx_state_update, KP.mx_paged_attention_decode,
                 KP.mx_paged_kv_append, KA.mx_attention_decode)
     torch.cuda.reset_peak_memory_stats()
@@ -813,7 +1161,144 @@ def phase_paged_main_path(cfg, params, slot):
           peak_mem_GB=f"{peak / 1e9:.2f} vs {slot['peak'] / 1e9:.2f}",
           idle_share=f"{prof['idle_share']:.3f} vs "
           f"{slot['prof']['idle_share']:.3f}")
-    return dict(n_su=n_su, n_pa=n_pa, n_ap=n_ap)
+    return dict(n_su=n_su, n_pa=n_pa, n_ap=n_ap, prompts=prompts,
+                outputs=[h.output for h in handles], stats=st, peak=peak,
+                steps=steps)
+
+
+def _pattern_prompts(rng, cfg):
+    """The paged main paths' prompts: PROMPT_LENS tokens each, a random
+    8-token pattern repeated, so the n-gram draft source of phase 14 has
+    earlier occurrences to propose from."""
+    import numpy as np
+    return [np.resize(rng.integers(0, cfg.vocab_size, 8), n)
+            for n in PROMPT_LENS]
+
+
+def phase_spec_main_path(cfg, params, paged):
+    """zamba2-2.7b at full width through the paged ``Engine`` with n-gram
+    speculation (``spec_k = 3``), on phase 11's prompts and weights.  Each
+    verify step must launch the paged verify kernel 9 times, the append
+    9 * Kq times and the slab-mode state update 54 * Kq times, and kernels
+    2, 3 and 6 never.  Its greedy stream is compared with phase 11's, which
+    drew other stochastic-rounding seeds (a plain step seeds with its step
+    count, a verify pass with its own counter), so only agreement is
+    reported.  Greedy exactness is held where it is defined: a plain run
+    and speculative runs with both draft sources, all at round-to-nearest,
+    equal when the matmuls are row invariant; then the pool-level rollback
+    check."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import mx_state_update as KS
+    from repro_torch.serving.api import Engine, ServeConfig
+
+    rows = _row_invariance(params, cfg)
+    invariant = all(rows.values())
+    phase(12, "matmul row invariance, (B,Kq,d)@W rows vs (B,1,d)@W, fp32, "
+          "TF32 off", B=ATTN["B"], Kq=KQ, all_equal=invariant,
+          rows=repr({k: int(v) for k, v in rows.items()}))
+    eng = Engine(params, cfg, ServeConfig(**PAGED, spec="ngram",
+                                          spec_k=SPEC_K))
+    counters = (KV.mx_paged_spec_attention_decode, KV.mx_spec_attention_decode,
+                KP.mx_paged_attention_decode, KP.mx_paged_kv_append,
+                KA.mx_attention_decode, KS.mx_state_update)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    KS.mx_state_update.slab_launches = 0
+    t1 = time.perf_counter()
+    handles = [eng.submit(p, max_new_tokens=MAX_NEW)
+               for p in paged["prompts"]]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    n5, n6, n3, n4, n2, n1 = (c.launches for c in counters)
+    n1s = KS.mx_state_update.slab_launches
+    peak = torch.cuda.max_memory_allocated()
+    steps = eng.engine.step_count
+    _check_done(handles, cfg)
+    st = eng.stats()
+    check(steps > 0 and n5 == 9 * steps and n4 == 9 * KQ * steps
+          and n1s == 54 * KQ * steps and n6 == n3 == n2 == n1 == 0,
+          f"launches over {steps} verify steps: paged verify {n5} (want 9x), "
+          f"append {n4} ({9 * KQ}x), state update slab {n1s} ({54 * KQ}x), "
+          f"dense verify {n6}, paged attention {n3}, dense attention {n2}, "
+          f"dense state update {n1} (0 each)")
+    agree, first = _agreement(paged["outputs"], [h.output for h in handles])
+    ps = paged["stats"]
+    phase(14, "main path zamba2-2.7b paged + ngram speculation",
+          requests=len(handles), verify_steps=steps, Kq=KQ,
+          launches=f"paged_verify={n5},append={n4},su_slab={n1s},"
+          f"dense_verify={n6},paged_attn={n3},dense_attn={n2},su_dense={n1}",
+          per_step=f"{n5 / steps:g},{n4 / steps:g},{n1s / steps:g}",
+          proposed=int(st["proposed_tokens"]),
+          accepted=int(st["accepted_tokens"]),
+          acceptance_rate=f"{st['acceptance_rate']:.3f}",
+          accepted_tokens_per_step=f"{st['accepted_tokens_per_step']:.3f}",
+          wall_s=f"{wall:.3f}", **_step_fields(st),
+          peak_mem_GB=f"{peak / 1e9:.2f}",
+          preemptions=int(st["preemptions"]),
+          vs_phase_11_other_sr_seeds="equal" if first is None else
+          f"agreement {agree:.3f}, first difference at token {first}")
+    phase(14, "speculative vs plain paged (same run, same weights, same "
+          "prompts)", decode_steps=f"{steps} vs {paged['steps']}",
+          p50_step_ms=f"{st['p50_step_s'] * 1e3:.3f} vs "
+          f"{ps['p50_step_s'] * 1e3:.3f}",
+          tokens_per_s=f"{st['tokens_per_s']:.2f} vs "
+          f"{ps['tokens_per_s']:.2f}",
+          p50_ttft_ms=f"{st['p50_ttft_s'] * 1e3:.3f} vs "
+          f"{ps['p50_ttft_s'] * 1e3:.3f}",
+          peak_mem_GB=f"{peak / 1e9:.2f} vs {paged['peak'] / 1e9:.2f}")
+    rng = np.random.default_rng(2)
+    prof = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 14)
+    _spec_rollback_check(eng, cfg, rng, invariant)
+
+    _greedy_exactness(params, cfg, paged["prompts"], invariant)
+    return dict(n5=n5, n6=n6, stats=st, prof=prof, invariant=invariant)
+
+
+def _greedy_exactness(params, cfg, prompts, invariant):
+    """Greedy exactness at full width: the prompts that fit
+    ``prefill_chunk``, round-to-nearest MX8 (so no stochastic-rounding seed
+    enters), through the plain paged engine and the speculative one with
+    the n-gram and the model draft sources (the llama3.2-1b smoke draft,
+    vocabulary 512, always proposes).  Equal streams are required when the
+    matmuls are row invariant; otherwise the agreement is reported."""
+    from repro_torch import ops as OPS
+    from repro_torch.serving.api import Engine, ServeConfig
+    ncfg = cfg.with_(state_quant=OPS.StateQuantConfig("mx8", "nearest",
+                                                      "cuda"))
+    short = [p for p in prompts if len(p) <= PAGED["prefill_chunk"]]
+    runs = {}
+    for spec in (None, "ngram", "model:llama3.2-1b"):
+        eng = Engine(params, ncfg, ServeConfig(**PAGED, spec=spec,
+                                               spec_k=SPEC_K))
+        hs = [eng.submit(p, max_new_tokens=MAX_NEW) for p in short]
+        t0 = time.perf_counter()
+        eng.run()
+        _check_done(hs, cfg)
+        runs[spec] = ([h.output for h in hs], eng.stats(),
+                      eng.engine.step_count, time.perf_counter() - t0)
+    ref = runs[None][0]
+    for spec in ("ngram", "model:llama3.2-1b"):
+        out, st, steps, wall = runs[spec]
+        agree, first = _agreement(ref, out)
+        if invariant:
+            check(first is None, f"{spec}: greedy stream differs from the "
+                  f"plain paged stream at token {first} (round-to-nearest)")
+        phase(14, f"greedy exactness, {spec} vs plain, round-to-nearest",
+              requests=len(short), steps=f"{steps} vs {runs[None][2]}",
+              proposed=int(st["proposed_tokens"]),
+              accepted=int(st["accepted_tokens"]),
+              accepted_tokens_per_step=f"{st['accepted_tokens_per_step']:.3f}",
+              wall_s=f"{wall:.3f} vs {runs[None][3]:.3f}",
+              stream="equal" if first is None else
+              f"agreement {agree:.3f}, first difference at token {first}")
+    check(runs["model:llama3.2-1b"][1]["proposed_tokens"] > 0,
+          "the model draft proposed nothing")
 
 
 def _profile_decode(eng, cfg, rng, prompt_lens, n, n_steps=5):
@@ -938,12 +1423,15 @@ def main():
         phase_exact_pow2()
         errs = dict(su=phase_state_update(), at=phase_attention())
         errs.update(zip(("pa", "ap", "su_slab"), phase_paged_kernels()))
+        errs.update(zip(("sv_paged", "sv_dense"), phase_spec_kernels()))
         times = dict(zip(("su", "at"), phase_timing()))
         times.update(zip(("pa", "ap", "su_slab"), phase_paged_timing()))
+        times.update(zip(("sv_paged", "sv_dense"), phase_spec_timing()))
         cfg, params, init_s = _model()
         slot = phase_main_path(cfg, params, init_s)
         paged = phase_paged_main_path(cfg, params, slot)
-        kernels = kernels_line(errs, times, slot, paged)
+        spec = phase_spec_main_path(cfg, params, paged)
+        kernels = kernels_line(errs, times, slot, paged, spec)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -955,14 +1443,17 @@ def main():
     return 0
 
 
-def kernels_line(errs, times, slot, paged):
+def kernels_line(errs, times, slot, paged, spec):
     """One entry per kernel (kernel 1 twice: dense mode on the slot path,
     slab mode on the paged path); ``launches`` counts each one's own main
-    path, ``max_abs_err`` is each one's measured difference from its plain
-    version (``y`` for the state update, bytes for the append)."""
+    path (the verify kernels: the speculative path, where kernel 6, the
+    dense-cache twin, has no launch), ``max_abs_err`` is each one's
+    measured difference from its plain version (``y`` for the state
+    update, bytes for the append)."""
     su_src = "src/repro_torch/csrc/mx_state_update.cu"
     su_tpu = "src/repro/kernels/mx_state_update.py:104"
     pa_src = "src/repro_torch/csrc/mx_paged_attention.cu"
+    sv_src = "src/repro_torch/csrc/mx_spec_attention.cu"
     kernels = [
         dict(name="mx_state_update", route="cuda", source=su_src,
              replaces=su_tpu, launches=slot["n_su"], max_abs_err=errs["su"],
@@ -980,6 +1471,15 @@ def kernels_line(errs, times, slot, paged):
         dict(name="mx_state_update[slab]", route="cuda", source=su_src,
              replaces=su_tpu, launches=paged["n_su"],
              max_abs_err=errs["su_slab"], **times["su_slab"]),
+        dict(name="mx_paged_spec_attention_decode", route="cuda",
+             source=sv_src,
+             replaces="src/repro/kernels/mx_spec_attention.py:193",
+             launches=spec["n5"], max_abs_err=errs["sv_paged"],
+             **times["sv_paged"]),
+        dict(name="mx_spec_attention_decode", route="cuda", source=sv_src,
+             replaces="src/repro/kernels/mx_spec_attention.py:123",
+             launches=spec["n6"], max_abs_err=errs["sv_dense"],
+             **times["sv_dense"]),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):

@@ -7,7 +7,8 @@
 // about four flops per value and query head, far below the fp32 ridge.
 // The design streams the cache once: one block per (batch row, kv head)
 // walks the valid 128-position tiles only -- the tile loop in
-// mx_attention_tile.cuh, shared with the paged kernel.  Splitting the time
+// mx_attention_tile.cuh, shared with the paged and the speculative-verify
+// kernels (this one is its single-query instance).  Splitting the time
 // axis across blocks (more blocks than B * KVH) is left to a later change.
 //
 // Layouts as in the JAX package: q (B, KVH, G, dk) pre-scaled f32; K and V
@@ -18,14 +19,6 @@
 namespace {
 
 using namespace mxattn;
-
-// Dense cache: tile t of row b starts at position b*T + t*128.
-struct DenseRows {
-  int T, KVH;
-  __device__ __forceinline__ size_t tile_base(int b, int tile) const {
-    return ((size_t)b * T + (size_t)tile * kTile) * KVH;
-  }
-};
 
 __global__ void __launch_bounds__(kTile)
 mx_attention_decode_kernel(const float* __restrict__ q,
@@ -39,7 +32,7 @@ mx_attention_decode_kernel(const float* __restrict__ q,
                            float* __restrict__ out,
                            int T, int KVH, int G, int dk, int dv) {
   attention_tiles(DenseRows{T, KVH}, q, km, ke, kmi, vm, ve, vmi, lengths,
-                  out, T, KVH, G, dk, dv);
+                  out, T, KVH, G, /*n_q=*/1, dk, dv);
 }
 
 }  // namespace

@@ -1,19 +1,31 @@
-// The decode-attention tile loop shared by the dense (mx_attention.cu) and
-// the paged (mx_paged_attention.cu) kernels, for Hopper (sm_90a).
+// The decode-attention tile loop shared by the dense (mx_attention.cu), the
+// paged (mx_paged_attention.cu) and the speculative-verify
+// (mx_spec_attention.cu) kernels, for Hopper (sm_90a).
 //
-// One block per (batch row, kv head) walks the valid 128-position tiles of
-// its row (tiles past the row's length are never read).  One thread per
-// position dequantizes its K row and forms the G pre-scaled query heads'
-// scores in fp32; the tile's V rows are dequantized into shared memory for
-// the probability-weighted sum; the softmax is the streaming (flash) max /
-// sum / rescale in fp32.  The two kernels differ only in where tile `t` of
-// row `b` lives, which the `Rows` policy answers:
+// One block per (batch row, kv head) walks the 128-position tiles of its
+// row's longest query (tiles past it are never read).  One thread per
+// position dequantizes its K row and forms the R = n_q * G pre-scaled query
+// rows' scores in fp32; the tile's V rows are dequantized into shared memory
+// for the probability-weighted sum; the softmax is the streaming (flash)
+// max / sum / rescale in fp32, one private (m, l, acc) lane per query row.
+//
+// Query rows are query-major, r = j * G + g: n_q verify positions of the G
+// query heads that share one kv head.  Row r masks to its own length
+// len - (n_q - 1 - j), so position j of a verify pass sees the cache exactly
+// as the j-th sequential decode step did.  A tile that is fully masked for
+// a row that already saw a valid position is the identity on its (m, l,
+// acc): alpha = expf(0) = 1, p = expf(-1e30 - m) = 0 and fmaf(0, v, a) = a.
+// So row j of an n_q-position pass is bitwise the n_q = 1 kernel at length
+// len - (n_q - 1 - j), and the decode kernels are the n_q = 1 instance.
+//
+// The kernels differ only in where tile `t` of row `b` lives, which the
+// `Rows` policy answers:
 //
 //   Rows::tile_base(b, t)  ->  row index (in units of one position of one
 //                              kv head) of position t*128, kv head 0
 //
 // so the arithmetic, the tile order and the accumulators are one code, and
-// the paged kernel is bitwise equal to the dense one over gathered pages.
+// the paged kernels are bitwise equal to the dense ones over gathered pages.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,8 +38,8 @@ constexpr int kMBits = 6;
 constexpr int kExpBias = 127;
 constexpr int kTile = 128;        // positions per tile == threads per block
 constexpr int kWarps = kTile / 32;
-constexpr int kMaxG = 16;         // query heads per kv head
-constexpr int kMaxAcc = 16;       // accumulator items per thread (G*dv <= 2048)
+constexpr int kMaxG = 16;         // query rows per block (n_q * G)
+constexpr int kMaxAcc = 16;       // accumulator items per thread (R*dv <= 2048)
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float exact_pow2(int e) {
@@ -64,22 +76,47 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Dynamic shared memory the tile loop needs (bytes).
-inline size_t smem_bytes(int G, int dk, int dv) {
-  return ((size_t)G * dk + (size_t)G * kTile + (size_t)kTile * dv) *
+// Dynamic shared memory the tile loop needs (bytes), R query rows.
+inline size_t smem_bytes(int R, int dk, int dv) {
+  return ((size_t)R * dk + (size_t)R * kTile + (size_t)kTile * dv) *
          sizeof(float);
 }
 
-// Host-side shape check shared by both launchers.
-inline bool shape_ok(int G, int dk, int dv) {
-  return G > 0 && G <= kMaxG && dk % kGroup == 0 && dv % kGroup == 0 &&
-         G * dv <= kTile * kMaxAcc;
+// Host-side shape check shared by every launcher: R = n_q * G query rows.
+inline bool shape_ok(int R, int dk, int dv) {
+  return R > 0 && R <= kMaxG && dk % kGroup == 0 && dv % kGroup == 0 &&
+         R * dv <= kTile * kMaxAcc;
 }
 
-// q (B, KVH, G, dk) pre-scaled f32; K / V mantissas int8 and exponent /
-// micro bytes addressed through `rows`; lengths (B,) int32 clipped to `cap`
-// positions; out (B, KVH, G, dv) f32.  Launched with kTile threads and
-// smem_bytes(G, dk, dv) of dynamic shared memory, grid (B, KVH).
+__device__ __forceinline__ int clip_len(int len, int cap) {
+  return len < 0 ? 0 : (len > cap ? cap : len);
+}
+
+// Dense cache (B, T, KVH, d): tile t of row b starts at position b*T + t*128.
+struct DenseRows {
+  int T, KVH;
+  __device__ __forceinline__ size_t tile_base(int b, int tile) const {
+    return ((size_t)b * T + (size_t)tile * kTile) * KVH;
+  }
+};
+
+// Paged pool (P, n_stack, 128, KVH, d): tile t of row b is page bt[b, t] of
+// layer `group`.
+struct PagedRows {
+  const int* bt;
+  int npg, n_stack, group, KVH;
+  __device__ __forceinline__ size_t tile_base(int b, int tile) const {
+    const int page = bt[(size_t)b * npg + tile];
+    return ((size_t)page * n_stack + group) * kTile * KVH;
+  }
+};
+
+// q (B, KVH, n_q * G, dk) pre-scaled f32, query-major rows; K / V
+// mantissas int8 and exponent / micro bytes addressed through `rows`;
+// lengths (B,) int32 counting all n_q positions, each row's length clipped
+// to `cap` positions; out (B, KVH, n_q * G, dv) f32.  Launched with kTile
+// threads and smem_bytes(n_q * G, dk, dv) of dynamic shared memory, grid
+// (B, KVH).
 template <class Rows>
 __device__ __forceinline__ void attention_tiles(
     const Rows& rows, const float* __restrict__ q,
@@ -87,11 +124,12 @@ __device__ __forceinline__ void attention_tiles(
     const uint8_t* __restrict__ kmi, const int8_t* __restrict__ vm,
     const uint8_t* __restrict__ ve, const uint8_t* __restrict__ vmi,
     const int* __restrict__ lengths, float* __restrict__ out, int cap,
-    int KVH, int G, int dk, int dv) {
+    int KVH, int G, int n_q, int dk, int dv) {
   extern __shared__ float smem[];
-  float* qs = smem;                  // G * dk   pre-scaled queries
-  float* ps = qs + G * dk;           // G * kTile probabilities of this tile
-  float* vs = ps + G * kTile;        // kTile * dv dequantized V rows
+  const int R = n_q * G;             // query rows of this block
+  float* qs = smem;                  // R * dk   pre-scaled queries
+  float* ps = qs + R * dk;           // R * kTile probabilities of this tile
+  float* vs = ps + R * kTile;        // kTile * dv dequantized V rows
   __shared__ float red[kMaxG][kWarps];
   __shared__ float m_sh[kMaxG], l_sh[kMaxG], alpha_sh[kMaxG];
 
@@ -100,13 +138,19 @@ __device__ __forceinline__ void attention_tiles(
   const int ngk = dk / kGroup, ngv = dv / kGroup;
   const size_t head = (size_t)b * KVH + h;
 
-  for (int i = tid; i < G * dk; i += kTile) qs[i] = q[head * G * dk + i];
-  if (tid < G) {
+  for (int i = tid; i < R * dk; i += kTile) qs[i] = q[head * R * dk + i];
+  if (tid < R) {
     m_sh[tid] = kNegInf;
     l_sh[tid] = 0.f;
   }
-  int len = lengths[b];
-  len = len < 0 ? 0 : (len > cap ? cap : len);
+  // row r = j * G + g masks to pos < len - (n_q - 1 - j); the last
+  // position's row is the longest and sets the tiles the block walks
+  const int len_all = lengths[b];
+  int row_len[kMaxG];
+#pragma unroll
+  for (int r = 0; r < kMaxG; ++r)
+    row_len[r] = clip_len(len_all - (n_q - 1 - r / G), cap);
+  const int len = clip_len(len_all, cap);
   const int n_tiles = len > 0 ? (len + kTile - 1) / kTile : 1;
   float acc[kMaxAcc];
 #pragma unroll
@@ -125,14 +169,13 @@ __device__ __forceinline__ void attention_tiles(
                     kmi[rowid * ngk + grp], vals);
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
+        if (g < R) {
           const float* qg = qs + g * dk + grp * kGroup;
 #pragma unroll
           for (int j = 0; j < kGroup; ++j) s[g] = fmaf(qg[j], vals[j], s[g]);
         }
       }
     }
-    const bool valid = pos < len;
     for (int grp = 0; grp < ngv; ++grp)
       dequant_group(vm + rowid * dv + grp * kGroup, ve[rowid * ngv + grp],
                     vmi[rowid * ngv + grp], vs + tid * dv + grp * kGroup);
@@ -140,14 +183,14 @@ __device__ __forceinline__ void attention_tiles(
     // streaming softmax: tile max per query head
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        s[g] = valid ? s[g] : kNegInf;
+      if (g < R) {
+        s[g] = pos < row_len[g] ? s[g] : kNegInf;
         const float mx = warp_max(s[g]);
         if (lane == 0) red[g][warp] = mx;
       }
     }
     __syncthreads();
-    if (tid < G) {
+    if (tid < R) {
       float tmax = red[tid][0];
       for (int w = 1; w < kWarps; ++w) tmax = fmaxf(tmax, red[tid][w]);
       const float m_prev = m_sh[tid];
@@ -158,7 +201,7 @@ __device__ __forceinline__ void attention_tiles(
     __syncthreads();
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
+      if (g < R) {
         const float p = expf(s[g] - m_sh[g]);
         ps[g * kTile + tid] = p;
         const float sum = warp_sum(p);
@@ -166,7 +209,7 @@ __device__ __forceinline__ void attention_tiles(
       }
     }
     __syncthreads();
-    if (tid < G) {
+    if (tid < R) {
       float sum = 0.f;
       for (int w = 0; w < kWarps; ++w) sum += red[tid][w];
       l_sh[tid] = l_sh[tid] * alpha_sh[tid] + sum;
@@ -175,7 +218,7 @@ __device__ __forceinline__ void attention_tiles(
 #pragma unroll
     for (int i = 0; i < kMaxAcc; ++i) {
       const int item = tid + i * kTile;
-      if (item < G * dv) {
+      if (item < R * dv) {
         const int g = item / dv, c = item - g * dv;
         float a = acc[i] * alpha_sh[g];
         const float* pg = ps + g * kTile;
@@ -189,9 +232,9 @@ __device__ __forceinline__ void attention_tiles(
 #pragma unroll
   for (int i = 0; i < kMaxAcc; ++i) {
     const int item = tid + i * kTile;
-    if (item < G * dv) {
+    if (item < R * dv) {
       const int g = item / dv;
-      out[head * G * dv + item] = acc[i] / fmaxf(l_sh[g], 1e-30f);
+      out[head * R * dv + item] = acc[i] / fmaxf(l_sh[g], 1e-30f);
     }
   }
 }

@@ -35,16 +35,6 @@ using namespace mxattn;
 
 constexpr int kMaxPools = 8;
 
-// Paged pool: tile t of row b is page bt[b, t] of layer `group`.
-struct PagedRows {
-  const int* bt;
-  int npg, n_stack, group, KVH;
-  __device__ __forceinline__ size_t tile_base(int b, int tile) const {
-    const int page = bt[(size_t)b * npg + tile];
-    return ((size_t)page * n_stack + group) * kTile * KVH;
-  }
-};
-
 __global__ void __launch_bounds__(kTile)
 mx_paged_attention_decode_kernel(const float* __restrict__ q,
                                  const int8_t* __restrict__ km,
@@ -59,7 +49,8 @@ mx_paged_attention_decode_kernel(const float* __restrict__ q,
                                  int n_stack, int group, int KVH, int G,
                                  int dk, int dv) {
   attention_tiles(PagedRows{bt, npg, n_stack, group, KVH}, q, km, ke, kmi,
-                  vm, ve, vmi, lengths, out, npg * kTile, KVH, G, dk, dv);
+                  vm, ve, vmi, lengths, out, npg * kTile, KVH, G,
+                  /*n_q=*/1, dk, dv);
 }
 
 struct AppendArgs {

@@ -1,0 +1,127 @@
+// Speculative-verify MX8 attention, dense and paged, GQA mode, for Hopper
+// (sm_90a).
+//
+// mx_spec_attention_decode replaces the TPU kernel
+// repro/kernels/mx_spec_attention.py::mx_spec_attention_decode
+// (_spec_kernel); mx_paged_spec_attention_decode replaces
+// mx_paged_spec_attention_decode (_paged_spec_kernel) of the same file.
+//
+// A verify pass scores n_q = spec_k + 1 query positions against a cache
+// that already holds their n_q appended rows; position j sees
+// pos < len - (n_q - 1 - j).  What bounds it on an H100: bytes, as for the
+// single-query kernels -- and the point of the design is that the bytes do
+// not grow with n_q.  The n_q positions of the G query heads that share a
+// kv head are folded into the query rows of one block (row r = j * G + g,
+// query-major, as the TPU kernel's _fold_queries does), so each block
+// streams its row's valid K / V tiles once for all n_q positions: one
+// memory-bound cache read amortised over the drafted tokens.  The tile
+// loop is mx_attention_tile.cuh's, the one the decode kernels run with
+// n_q = 1; every row carries its own length, and the tiles past a row's
+// length are the identity on its accumulators, so row j is bitwise the
+// decode kernel at length len - (n_q - 1 - j), and the paged kernel is
+// bitwise the dense one over the gathered pages.
+//
+// Limits: n_q * G <= 16 query rows and n_q * G * dv <= 2048 accumulator
+// items per block (the launchers refuse the rest).
+//
+// Layouts: q (B, KVH, n_q * G, dk) pre-scaled f32, query-major rows; dense
+// K / V mantissas (B, T, KVH, d) int8 with exponent / micro bytes
+// (B, T, KVH, d/16); paged pools (P, n_stack, 128, KVH, d) walked through
+// bt (B, npg) int32 at layer `group`; lengths (B,) int32 counting the n_q
+// appended rows; out (B, KVH, n_q * G, dv) f32.
+#include "mx_attention_tile.cuh"
+
+namespace {
+
+using namespace mxattn;
+
+__global__ void __launch_bounds__(kTile)
+mx_spec_attention_decode_kernel(const float* __restrict__ q,
+                                const int8_t* __restrict__ km,
+                                const uint8_t* __restrict__ ke,
+                                const uint8_t* __restrict__ kmi,
+                                const int8_t* __restrict__ vm,
+                                const uint8_t* __restrict__ ve,
+                                const uint8_t* __restrict__ vmi,
+                                const int* __restrict__ lengths,
+                                float* __restrict__ out, int T, int KVH,
+                                int G, int n_q, int dk, int dv) {
+  attention_tiles(DenseRows{T, KVH}, q, km, ke, kmi, vm, ve, vmi, lengths,
+                  out, T, KVH, G, n_q, dk, dv);
+}
+
+__global__ void __launch_bounds__(kTile)
+mx_paged_spec_attention_decode_kernel(const float* __restrict__ q,
+                                      const int8_t* __restrict__ km,
+                                      const uint8_t* __restrict__ ke,
+                                      const uint8_t* __restrict__ kmi,
+                                      const int8_t* __restrict__ vm,
+                                      const uint8_t* __restrict__ ve,
+                                      const uint8_t* __restrict__ vmi,
+                                      const int* __restrict__ bt,
+                                      const int* __restrict__ lengths,
+                                      float* __restrict__ out, int npg,
+                                      int n_stack, int group, int KVH, int G,
+                                      int n_q, int dk, int dv) {
+  attention_tiles(PagedRows{bt, npg, n_stack, group, KVH}, q, km, ke, kmi,
+                  vm, ve, vmi, lengths, out, npg * kTile, KVH, G, n_q, dk,
+                  dv);
+}
+
+template <class Kernel>
+int prepare(Kernel kernel, int G, int n_q, int dk, int dv, size_t* smem) {
+  if (G <= 0 || n_q <= 0 || !shape_ok(n_q * G, dk, dv))
+    return (int)cudaErrorInvalidValue;
+  *smem = smem_bytes(n_q * G, dk, dv);
+  if (*smem > 48 * 1024)
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  return (int)cudaSuccess;
+}
+
+}  // namespace
+
+// Both return cudaGetLastError() after the launch (cudaErrorInvalidValue
+// for a shape the kernel does not take).  T must be a multiple of 128.
+extern "C" int mx_spec_attention_decode_launch(
+    const void* q, const void* km, const void* ke, const void* kmi,
+    const void* vm, const void* ve, const void* vmi, const void* lengths,
+    void* out, int B, int T, int KVH, int G, int n_q, int dk, int dv,
+    void* stream) {
+  if (B <= 0 || KVH <= 0 || T <= 0 || T % kTile != 0)
+    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  const int err = prepare(mx_spec_attention_decode_kernel, G, n_q, dk, dv,
+                          &smem);
+  if (err != (int)cudaSuccess) return err;
+  const dim3 grid(B, KVH);
+  mx_spec_attention_decode_kernel<<<grid, kTile, smem,
+                                    (cudaStream_t)stream>>>(
+      (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
+      (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
+      (const uint8_t*)vmi, (const int*)lengths, (float*)out, T, KVH, G, n_q,
+      dk, dv);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mx_paged_spec_attention_decode_launch(
+    const void* q, const void* km, const void* ke, const void* kmi,
+    const void* vm, const void* ve, const void* vmi, const void* bt,
+    const void* lengths, void* out, int B, int npg, int n_stack, int group,
+    int KVH, int G, int n_q, int dk, int dv, void* stream) {
+  if (B <= 0 || npg <= 0 || KVH <= 0 || n_stack <= 0 || group < 0 ||
+      group >= n_stack)
+    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  const int err = prepare(mx_paged_spec_attention_decode_kernel, G, n_q, dk,
+                          dv, &smem);
+  if (err != (int)cudaSuccess) return err;
+  const dim3 grid(B, KVH);
+  mx_paged_spec_attention_decode_kernel<<<grid, kTile, smem,
+                                          (cudaStream_t)stream>>>(
+      (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
+      (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
+      (const uint8_t*)vmi, (const int*)bt, (const int*)lengths, (float*)out,
+      npg, n_stack, group, KVH, G, n_q, dk, dv);
+  return (int)cudaGetLastError();
+}

@@ -30,6 +30,11 @@ PTXAS_REPORT: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+#: every source under ``csrc/`` (one library each)
+SOURCES = ("mx_state_update", "mx_attention", "mx_paged_attention",
+           "mx_spec_attention")
+
+
 class KernelBuildError(RuntimeError):
     pass
 

@@ -127,6 +127,49 @@ def mx_paged_attention_decode_ref(q: torch.Tensor, k_pool: F.QuantizedTensor,
     return mx_attention_decode_ref(q, qK, qV, lengths, scale, v_width)
 
 
+def spec_attention_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, lengths: torch.Tensor,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Speculative-verify attention: q ``(B, Kq, H, dk)`` against caches
+    ``(B, T, KVH, d)`` (already dequantized) whose ``lengths`` count the
+    ``Kq`` appended rows; query position ``j`` is
+    :func:`attention_decode_ref` at ``lengths - (Kq - 1 - j)`` (on a
+    contiguous copy of its queries).  Returns ``(B, Kq, H, dv)`` f32."""
+    Kq = q.shape[1]
+    return torch.stack([attention_decode_ref(q[:, j].contiguous(), k_cache,
+                                             v_cache, lengths - (Kq - 1 - j),
+                                             scale)
+                        for j in range(Kq)], dim=1)
+
+
+def mx_spec_attention_decode_ref(q: torch.Tensor, qK: F.QuantizedTensor,
+                                 qV: Optional[F.QuantizedTensor],
+                                 lengths: torch.Tensor,
+                                 scale: Optional[float] = None,
+                                 v_width: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """Verify attention over a packed cache (``qV=None``: MLA mode), the
+    dense twin of kernel 5's plain version."""
+    kf = F.dequantize(qK)
+    vf = kf[..., :v_width] if qV is None else F.dequantize(qV)
+    return spec_attention_decode_ref(q, kf, vf, lengths, scale)
+
+
+def mx_paged_spec_attention_decode_ref(q: torch.Tensor,
+                                       k_pool: F.QuantizedTensor,
+                                       v_pool: Optional[F.QuantizedTensor],
+                                       bt: torch.Tensor, group: int,
+                                       lengths: torch.Tensor,
+                                       scale: Optional[float] = None,
+                                       v_width: Optional[int] = None
+                                       ) -> torch.Tensor:
+    """Paged speculative-verify attention: the block table's pages gathered
+    into the dense layout, then :func:`mx_spec_attention_decode_ref`."""
+    qK = gather_pages(k_pool, bt, group)
+    qV = None if v_pool is None else gather_pages(v_pool, bt, group)
+    return mx_spec_attention_decode_ref(q, qK, qV, lengths, scale, v_width)
+
+
 def paged_kv_append_ref(pools, rows, bt: torch.Tensor, group: int,
                         lengths: torch.Tensor):
     """Write each row's payload ``rows[i] (B, KVH, w)`` into the page slot

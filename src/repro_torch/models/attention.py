@@ -3,7 +3,8 @@
 Prefill uses a blockwise ("flash") formulation in plain PyTorch -- q chunks
 outer, kv chunks inner, streaming max / sum -- so the (S, S) score matrix
 never materializes.  Decode goes through the registered SPU ops
-(``kv_append`` + ``attn_decode``) in one step.  MLA is not ported yet.
+(``kv_append`` + ``attn_decode``) in one step, the speculative verify step
+through ``kv_append`` x n + ``spec_verify``.  MLA is not ported yet.
 """
 from __future__ import annotations
 
@@ -124,3 +125,24 @@ def attention_decode(p: L.Params, x: torch.Tensor, cache: AC.KVCache,
     o, cache = OPS.attention_decode_step(cache, k, v, q.reshape(B, H, dh),
                                          cfg.state_quant, seed=seed)
     return (o.reshape(B, 1, H * dh).to(x.dtype) @ p["wo"]), cache
+
+
+def attention_spec_decode(p: L.Params, x: torch.Tensor, cache,
+                          cfg: ModelConfig, positions: torch.Tensor,
+                          seed: int) -> Tuple[torch.Tensor, object]:
+    """Speculative decode: x (B, n, d) at positions (B, n) -> (out (B, n, d),
+    updated cache).  Appends all n K/V rows (per-position seeds
+    ``seed + i``), then verifies the n queries in one ``spec_verify`` pass:
+    position j's attention row is bitwise the j-th sequential
+    :func:`attention_decode` call's."""
+    B, n, _ = x.shape
+    H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, n, H, dh)
+    k = (x @ p["wk"]).reshape(B, n, KVH, dh)
+    v = (x @ p["wv"]).reshape(B, n, KVH, dh)
+    if cfg.pos_emb == "rope":
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+    o, cache = OPS.attention_spec_step(cache, k, v, q, cfg.state_quant,
+                                       seed=seed)
+    return (o.reshape(B, n, H * dh).to(x.dtype) @ p["wo"]), cache

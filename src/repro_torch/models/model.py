@@ -11,6 +11,9 @@ port keeps per-layer lists and loops: ``params["groups"][g][pos]`` and
   * decode  -- one token through the quantized caches (the Pimba fast path):
     ``decode_step`` over dense caches, ``paged_decode_step`` over the paged
     pool's views (one view per pattern position, re-bound per layer)
+  * speculative verify -- ``paged_spec_decode_step``: n positions per row
+    in one pass over the paged views, with per-position state snapshots so
+    the serving pool can roll rejected positions back bit-exactly
 
 Decode seeds are the JAX package's exactly: per group
 ``uint32(seed) + g * 1000003``, then ``+ pos + 1`` per element and ``+ 99``
@@ -382,3 +385,131 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   for v, layers in zip(caches, per_layer)]
     x = L.apply_norm(params["final_norm"], x[:, 0], cfg.norm_eps)
     return x @ _lm_head(params, cfg), new_caches
+
+
+# ---------------------------------------------------------------------------
+# speculative decode: multi-position step with per-position state snapshots
+# ---------------------------------------------------------------------------
+
+def _state_snapshot(cache) -> Dict[tuple, torch.Tensor]:
+    """Copies of the per-request rows of every recurrent-state leaf of one
+    layer-bound mixer view, keyed by the leaf's path in the pool layout
+    (``("S", field)`` for a quantized state, ``("conv_x",)``, ...), each
+    ``(B, ...)``.  The state kernel overwrites ``pool[slabs, group]`` in
+    place at every position, so the slab rows are copied out by advanced
+    indexing; the conv tails are copied too.  KV caches need no snapshot:
+    rejected positions are masked by the host lengths and overwritten."""
+    out: Dict[tuple, torch.Tensor] = {}
+    for key in sorted(cache):
+        leaf = cache[key]
+        if isinstance(leaf, PG.PagedState):
+            idx = (leaf.slabs.long(), int(leaf.group))
+            pool = leaf.pool
+            if isinstance(pool, F.QuantizedTensor):
+                for f in sorted(pool.payload):
+                    out[(key, f)] = pool.payload[f][idx]
+            else:
+                out[(key,)] = pool[idx]
+        else:
+            out[(key,)] = leaf.clone()
+    return out
+
+
+def _element_spec_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
+                         positions, seed: int):
+    """Multi-position twin of :func:`_element_decode`.
+
+    ``x`` is (B, n, d) -- the current token plus the drafted ones -- and
+    ``positions`` the (B, n) absolute positions.  Attention scores all n
+    positions in one ``spec_verify`` pass over a single cache stream; the
+    Mamba-2 mixer advances through the n positions one at a time (the state
+    update is serial) with the per-position seed ``seed + i`` of n
+    sequential steps, each position's input made contiguous first (a
+    strided slice would round the projections differently from the plain
+    step's (B, 1, d) input), and a state snapshot after each position.
+
+    Returns ``(x, cache, snaps)``, ``snaps`` a list of n snapshots (None
+    for attention).
+    """
+    n = x.shape[1]
+    h = L.apply_norm(p["norm"], x, cfg.norm_eps)
+    if kind == "attn":
+        y, cache = ATT.attention_spec_decode(p["mixer"], h, cache, cfg,
+                                             positions, seed)
+        snaps = None
+    else:
+        ys, snaps = [], []
+        for i in range(n):
+            yi, cache = SSM.mamba2_decode(p["mixer"],
+                                          h[:, i:i + 1].contiguous(), cache,
+                                          cfg, (int(seed) + i) & _U32)
+            ys.append(yi)
+            snaps.append(_state_snapshot(cache))
+        y = torch.cat(ys, dim=1)
+    x = x + y
+    if _has_ffn(cfg, kind):
+        h = L.apply_norm(p["ffn_norm"], x, cfg.norm_eps)
+        x = x + L.apply_ffn(p["ffn"], h)
+    return x, cache, snaps
+
+
+def _stack_snaps(per_layer: List[List[Dict[tuple, torch.Tensor]]]
+                 ) -> Dict[tuple, torch.Tensor]:
+    """``per_layer[g][i][path]`` (B, ...) -> ``{path: (n, B, G, ...)}``,
+    position-major, as the pool's ``commit_select`` reads it."""
+    return {path: torch.stack([torch.stack([layer[i][path]
+                                            for layer in per_layer], dim=1)
+                               for i in range(len(per_layer[0]))])
+            for path in per_layer[0][0]}
+
+
+@torch.no_grad()
+def paged_spec_decode_step(params: Params, cfg: ModelConfig,
+                           tokens: torch.Tensor, caches,
+                           lengths: torch.Tensor, seed: int = 0):
+    """Speculative verify step: n positions per row through the paged views.
+
+    ``tokens`` (B, n) holds each row's current token followed by its drafted
+    (or garbage padding) tokens; ``lengths`` (B,) count positions *before*
+    this step.  Structure and every element seed mirror
+    :func:`paged_decode_step` -- position i of a row runs with the seeds of
+    the sequential decode step ``seed + i`` -- so position i's logits are
+    the i-th sequential step's.  The attention appends land on the block
+    table's pages in place (rows past a request's pages on scratch page 0:
+    the table must span ``lengths + n``).
+
+    Returns ``(logits (B, n, V), views, snaps)``: ``snaps[pos]`` is None for
+    attention positions and, for a mixer position, ``{path: (n, B, G,
+    ...)}`` -- the state rows after each position, which the pool's
+    ``commit_select`` restores per row.
+    """
+    B, n = tokens.shape
+    x = params["embed"][tokens]                                # (B,n,d)
+    positions = lengths[:, None] + torch.arange(
+        n, dtype=lengths.dtype, device=lengths.device)[None]
+    shared = params.get("shared")
+    per_layer = [[] for _ in caches]
+    layer_snaps = [[] for _ in caches]
+    for g in range(cfg.n_groups):
+        seed_g = (int(seed) + g * _SEED_STRIDE) & _U32
+        for pos, kind in enumerate(cfg.pattern):
+            x, c, sn = _element_spec_decode(
+                params["groups"][g][pos], x,
+                PG.with_group(caches[pos], g, lengths), cfg, kind, positions,
+                (seed_g + pos + 1) & _U32)
+            per_layer[pos].append(c)
+            if sn is not None:
+                layer_snaps[pos].append(sn)
+        if shared is not None:
+            h = L.apply_norm(shared["norm"], x, cfg.norm_eps)
+            y, _ = ATT.attention_spec_decode(
+                shared["attn"], h, caches[-1].with_step(g, lengths), cfg,
+                positions, (seed_g + 99) & _U32)
+            x = x + y
+            h = L.apply_norm(shared["ffn_norm"], x, cfg.norm_eps)
+            x = x + L.apply_ffn(shared["ffn"], h)
+    new_caches = [_stack_position(v, layers)
+                  for v, layers in zip(caches, per_layer)]
+    snaps = [_stack_snaps(s) if s else None for s in layer_snaps]
+    x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
+    return x @ _lm_head(params, cfg), new_caches, snaps

@@ -10,6 +10,8 @@ One registry-dispatched decode-op interface for attention and state updates
     Sn, y = OPS.state_update_step(S, d, k, v, q, cfg.state_quant, seed=seed)
     out, cache = OPS.attention_decode_step(cache, k_new, v_new, q,
                                            cfg.state_quant, seed=seed)
+    out, cache = OPS.attention_spec_step(cache, k_new, v_new, q_n,
+                                         cfg.state_quant, seed=seed)
 """
 # base and registry first, then the op implementations (they register
 # themselves on import; dense, then the paged layout), then the model-level
@@ -27,6 +29,7 @@ from repro_torch.ops.state_update import (StateLike, init_state,
 from repro_torch.ops.attention import (attention_decode_step, attn_decode,
                                        kv_append, plan_attn_decode_dims)
 from repro_torch.ops import paged_ops  # noqa: F401  (registers layout="paged")
+from repro_torch.ops.spec_verify import attention_spec_step, spec_attend
 from repro_torch.ops.model_traffic import (OpTrafficEntry, decode_op_plans,
                                            decode_traffic_by_kind)
 
@@ -39,5 +42,6 @@ __all__ = [
     "state_update_step",
     "attention_decode_step", "attn_decode", "kv_append",
     "plan_attn_decode_dims",
+    "attention_spec_step", "spec_attend",
     "OpTrafficEntry", "decode_op_plans", "decode_traffic_by_kind",
 ]

@@ -5,7 +5,8 @@ The PyTorch twin of ``repro/ops/model_traffic.py``:
 SPU op one decode step runs, with its per-step count, so the serving
 engines' traffic meters and the cost accounting read the ops' own
 ``traffic(plan)``.  ``layout="paged"`` enumerates the block-table-native
-ops (page-granular attention reads, one-slot appends).
+ops (page-granular attention reads, one-slot appends); ``spec_k > 0`` one
+speculative verify step.
 """
 from __future__ import annotations
 
@@ -38,10 +39,15 @@ def _state_dims(cfg, kind: str):
 
 
 def decode_op_plans(cfg, batch: int, seq_len: int,
-                    layout: str = "dense") -> List[OpTrafficEntry]:
+                    layout: str = "dense",
+                    spec_k: int = 0) -> List[OpTrafficEntry]:
     """Every SPU op one decode step runs for ``cfg`` in ``layout``, with
-    layer counts."""
+    layer counts.  ``spec_k > 0`` describes one speculative step at
+    ``Kq = spec_k + 1`` query positions: attention streams through
+    ``spec_verify`` (one cache stream for all positions), appends and
+    recurrent-state updates run once per position."""
     quant = cfg.state_quant
+    Kq = spec_k + 1
     entries: List[OpTrafficEntry] = []
 
     def layer_count(kind: str) -> int:
@@ -59,20 +65,26 @@ def decode_op_plans(cfg, batch: int, seq_len: int,
         entries.append(OpTrafficEntry(
             "state_update",
             plan_state_update_dims(batch, H, dk, dv, quant, layout=layout),
-            n))
+            n * Kq))
 
     from repro_torch.ops.attention import plan_attn_decode_dims
     n_attn = layer_count("attn") + (cfg.n_groups if cfg.shared_attn else 0)
     if n_attn:
         dims = dict(B=batch, T=seq_len, KVH=cfg.n_kv_heads,
                     dk=cfg.head_dim, dv=cfg.head_dim, n=1, H=cfg.n_heads)
-        entries.append(OpTrafficEntry(
-            "attn_decode", plan_attn_decode_dims(dims, quant, layout=layout),
-            n_attn))
+        if spec_k > 0:
+            entries.append(OpTrafficEntry(
+                "spec_verify", registry.plan("spec_verify", dict(dims, Kq=Kq),
+                                             quant, quant.backend,
+                                             layout=layout), n_attn))
+        else:
+            entries.append(OpTrafficEntry(
+                "attn_decode", plan_attn_decode_dims(dims, quant,
+                                                     layout=layout), n_attn))
         entries.append(OpTrafficEntry(
             "kv_append", registry.plan("kv_append", dims, quant,
                                        quant.backend, layout=layout),
-            n_attn))
+            n_attn * Kq))
     if layer_count("mla"):
         raise NotImplementedError(
             "MLA layers are not ported yet (ROADMAP.md: MLA mode)")

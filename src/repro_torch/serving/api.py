@@ -18,9 +18,11 @@ prefill and copy-on-write forks) or ``"slots"`` (a fixed
 they are sampled each ``step()``, exposes the terminal status and can
 ``abort()`` mid-decode.  ``Engine.fork()`` continues a finished, retained
 parent through copy-on-write prefix sharing; :class:`Session` wraps that
-into multi-turn chat.  The JAX package's prefix cache, host tier, fault
-injection, admission control and speculation options follow with their
-slices (ROADMAP.md).
+into multi-turn chat.  ``spec="ngram"`` or ``spec="model:<arch>"`` (paged
+backend) decodes speculatively: up to ``spec_k`` drafted tokens per row
+verified in one pass, greedy output the non-speculative stream.  The JAX
+package's prefix cache, host tier, fault injection and admission control
+options follow with their slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -59,11 +61,20 @@ class ServeConfig:
     sampling: SamplingConfig = SamplingConfig()
     scheduler: SchedulerConfig = SchedulerConfig()
     seed: int = 0
+    # --- speculative decoding (paged backend only) ---
+    spec: Optional[str] = None         # draft source: "ngram" (self-draft)
+                                       # or "model:<arch>" (small model)
+    spec_k: int = 3                    # max drafts verified per step
+    spec_window: int = 8               # k-controller acceptance window
 
     def __post_init__(self):
         if self.backend not in ("paged", "slots"):
             raise ValueError(f"backend must be 'paged' or 'slots', "
                              f"got {self.backend!r}")
+        if self.backend == "slots" and self.spec is not None:
+            raise ValueError("speculative decoding needs the paged backend "
+                             "(the spec_verify step walks block tables and "
+                             "rolls state slabs back)")
 
     def engine_config(self):
         """The backend-specific config this ServeConfig lowers to."""
@@ -81,7 +92,10 @@ class ServeConfig:
             prefill_buckets=self.prefill_buckets,
             sampling=self.sampling,
             scheduler=self.scheduler,
-            seed=self.seed)
+            seed=self.seed,
+            spec=self.spec,
+            spec_k=self.spec_k,
+            spec_window=self.spec_window)
 
 
 class RequestHandle:

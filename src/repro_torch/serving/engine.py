@@ -16,13 +16,18 @@ a priority / deadline scheduler (``serving/scheduler``), prefill is
 chunked (the tail of a long prompt streams through the decode batch), the
 pool preempts by page eviction (victim pages spill to host bit-exactly,
 resume re-pins them), and finished requests can be **retained** as
-copy-on-write ``fork`` parents.  The JAX package's host tier, prefix store,
-speculation and fault hooks follow in later slices (ROADMAP.md).
+copy-on-write ``fork`` parents.  With ``spec`` set it decodes
+speculatively (``serving/spec``): a draft source proposes up to ``spec_k``
+tokens per row, one verify pass scores them all, and the pool rolls state
+back to the accepted prefix.  The JAX package's host tier, prefix store and
+fault hooks follow in later slices (ROADMAP.md).
 
 On the card every decode step of the paged engine launches the state-update
 kernel (slab mode) once per Mamba-2 layer and the paged attention and append
 kernels once per attention layer, and synchronizes with the host once, to
-read the sampled tokens.
+read the sampled tokens.  A speculative step at ``n = spec_k + 1``
+positions launches the state update n times per Mamba-2 layer, the append n
+times and the paged verify kernel once per attention layer.
 """
 from __future__ import annotations
 
@@ -42,8 +47,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.obs import Observability
 from repro_torch.serving.memory import PagedStatePool, SpilledRequest
 from repro_torch.serving.resilience import retry_transient
-from repro_torch.serving.sampler import SamplingConfig, sample
+from repro_torch.serving.sampler import SamplingConfig, filtered_probs, sample
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+from repro_torch.serving.spec import KController, ModelDraft, NGramDraft
 
 #: terminal request statuses -- a request in one of these will never
 #: produce another token.  ``rejected``: the paged engine shed it before it
@@ -258,10 +264,17 @@ class _EngineCore:
         out["p50_tok_latency_s"] = tok.percentile(50)
         out["p99_tok_latency_s"] = tok.percentile(99)
         out["recompiles"] = 0.0        # no recompile watcher in the port yet
-        # speculation is schema-stable and zero (a later slice)
-        for k in ("proposed_tokens", "accepted_tokens", "acceptance_rate",
-                  "accepted_tokens_per_step"):
-            out[k] = 0.0
+        # speculation accounting is schema-stable: zeros when it is off
+        proposed = m.value("spec_proposed_tokens_total")
+        accepted = m.value("spec_accepted_tokens_total")
+        steps = m.value("spec_verify_steps_total")
+        out["proposed_tokens"] = proposed
+        out["accepted_tokens"] = accepted
+        out["acceptance_rate"] = accepted / proposed if proposed else 0.0
+        # each verify row-step emits the accepted drafts plus one token the
+        # target model produced itself, so the floor is 1.0, not 0.0
+        out["accepted_tokens_per_step"] = ((accepted + steps) / steps
+                                           if steps else 0.0)
         out.update(self._traffic.stats())
         return out
 
@@ -451,6 +464,13 @@ class PagedEngineConfig:
     sampling: SamplingConfig = SamplingConfig()
     scheduler: SchedulerConfig = SchedulerConfig()
     seed: int = 0
+    # --- speculative decoding (serving/spec) ---
+    spec: Optional[str] = None        # draft source: None (off), "ngram"
+                                      # (self-drafting) or "model:<arch>"
+                                      # (small-model drafting)
+    spec_k: int = 3                   # max drafts per row; the verify step
+                                      # always runs at spec_k+1 positions
+    spec_window: int = 8              # acceptance window of the k-controller
 
 
 @dataclasses.dataclass
@@ -495,6 +515,30 @@ class PagedServingEngine(_EngineCore):
         self._gen = torch.Generator(device=self.device).manual_seed(pcfg.seed)
         if pages_for(pcfg.prefill_chunk) > self.pool.usable_pages:
             raise ValueError("prefill_chunk does not fit the page pool")
+        # --- speculative decoding (serving/spec) ---
+        self.draft = None
+        self.kctl = None
+        if pcfg.spec is not None:
+            if pcfg.spec_k < 1:
+                raise ValueError(f"spec_k must be at least 1, got "
+                                 f"{pcfg.spec_k}")
+            if pcfg.spec == "ngram":
+                self.draft = NGramDraft()
+            elif pcfg.spec.startswith("model:"):
+                from repro_torch.configs import get_smoke_config
+                dcfg = get_smoke_config(pcfg.spec.split(":", 1)[1]).with_(
+                    state_quant=cfg.state_quant)
+                self.draft = ModelDraft(
+                    dcfg, max_requests=pcfg.max_decode_batch + 1,
+                    seed=pcfg.seed, device=self.device)
+            else:
+                raise ValueError(
+                    f"unknown spec draft source {pcfg.spec!r} "
+                    "(expected 'ngram' or 'model:<arch>')")
+            self.kctl = KController(pcfg.spec_k, window=pcfg.spec_window)
+            # per-position seeds inside the verify step are spec_seed + i,
+            # so advance by n per step to keep the streams non-overlapping
+            self._spec_seed = 0
 
     # ------------- lifecycle -------------
 
@@ -544,6 +588,7 @@ class PagedServingEngine(_EngineCore):
         if rid in self.active:
             a = self.active.pop(rid)
             self._free_row(rid)
+            self._spec_release(rid)
             self.pool.release(rid)
             self._finalize(a.req, "aborted")
             return True
@@ -650,9 +695,22 @@ class PagedServingEngine(_EngineCore):
 
     def _assign_row(self, rid: int):
         self.rows[self.rows.index(None)] = rid
+        if self.draft is not None:
+            # draft-side admission is best-effort: a refusal (draft pool
+            # full) just means this request decodes without drafts for now
+            self.draft.admit(rid, list(map(int, self.active[rid].req.prompt)))
 
     def _free_row(self, rid: int):
         self.rows[self.rows.index(rid)] = None
+
+    def _spec_release(self, rid: int) -> None:
+        """Drop every speculation-side trace of a terminal request: drafted-
+        but-unverified tokens die with the draft state (they were never in
+        ``req.output``), draft-model pages free, acceptance history resets."""
+        if self.draft is not None:
+            self.draft.release(rid)
+        if self.kctl is not None:
+            self.kctl.forget(rid)
 
     def _bucket_prefill_len(self, n: int) -> int:
         """Full-sequence prefill length for an ``n``-token prompt:
@@ -726,6 +784,8 @@ class PagedServingEngine(_EngineCore):
         request goes back to the scheduler queue."""
         a = self.active.pop(rid)
         self._free_row(rid)
+        if self.draft is not None:
+            self.draft.suspend(rid)
         sp = self.pool.spill(rid, a.length)
         self.spilled[rid] = (sp, a.pending, a.cur_token)
         a.req.status = "queued"
@@ -737,6 +797,7 @@ class PagedServingEngine(_EngineCore):
     def _finish(self, rid: int, truncated: bool = False):
         a = self.active.pop(rid)
         self._free_row(rid)
+        self._spec_release(rid)
         if a.req.retain and not truncated:
             self.retained[rid] = a      # pages stay pinned: a fork parent
         else:
@@ -744,14 +805,19 @@ class PagedServingEngine(_EngineCore):
         self._finalize(a.req, "truncated" if truncated else "done")
 
     def _ensure_headroom(self):
-        """Every active request must own the page its next token writes;
-        when the pool is short, preempt the least urgent other request (or
-        truncate this one when it is alone)."""
+        """Every active request must own the page its next token writes --
+        and with speculation on, every page an *accepted* draft could write
+        (a generation row may commit up to ``spec_k + 1`` tokens per step,
+        none of which may land on the scratch page); when the pool is
+        short, preempt the least urgent other request (or truncate this one
+        when it is alone)."""
         for rid in list(self.active):
             a = self.active.get(rid)
             if a is None:
                 continue
-            needed = a.length // PAGE_TOKENS + 1
+            span = (self.pcfg.spec_k
+                    if self.draft is not None and not a.pending else 0)
+            needed = (a.length + span) // PAGE_TOKENS + 1
             while needed > len(self.pool.page_table[rid]):
                 short = needed - len(self.pool.page_table[rid])
                 if self._retry("alloc",
@@ -767,6 +833,9 @@ class PagedServingEngine(_EngineCore):
     # ------------- the decode step -------------
 
     def _decode_step(self):
+        if self.draft is not None:
+            self._spec_decode_step()
+            return
         self.step_count += 1
         B = self.pcfg.max_decode_batch
         tokens = np.zeros((B,), np.int32)
@@ -785,29 +854,7 @@ class PagedServingEngine(_EngineCore):
         # the sampled tokens are the step's single device->host sync
         toks_np = toks.cpu().numpy()
         self._record_step(t0, builds)
-        # account at the attended length (length + 1); a copy-on-write
-        # shared page streamed for several forks is attributed once
-        seen_pages = set()
-        units = []
-        for row, rid in enumerate(self.rows):
-            if rid is None:
-                continue
-            npg = pages_for(int(lengths[row]) + 1)
-            fresh = [p for p in self.pool.page_table[rid][:npg]
-                     if p not in seen_pages]
-            seen_pages.update(fresh)
-            units.append(max(len(fresh), 1))
-        self._traffic.account_units(units)
-
-        rids = [r for r in self.rows if r is not None]
-        self.last_traffic = self.pool.bank_traffic(rids)
-        self._occ.append(self.pool.occupancy())
-        self._frag.append(self.pool.fragmentation(
-            {r: self.active[r].length for r in rids}))
-        bank = pimsim.bank_trace_counters(self.last_traffic)
-        self.obs.metrics.gauge("bank_conflict_factor").set(
-            bank["conflict_factor"])
-        self.obs.metrics.gauge("bank_step_us").set(bank["t_real_us"])
+        self._account_step(lengths, 1)
 
         for row, rid in enumerate(self.rows):
             if rid is None:
@@ -831,6 +878,198 @@ class PagedServingEngine(_EngineCore):
             if len(req.output) >= req.max_new_tokens or hit_eos:
                 self._finish(rid)
 
+    def _account_step(self, lengths: np.ndarray, n: int) -> None:
+        """Traffic, bank, occupancy and fragmentation of one step whose rows
+        attend ``lengths + n`` positions (n = 1 for a plain step; a verify
+        pass streams its pages once for all n).  A copy-on-write page
+        streamed for several forks is attributed once."""
+        seen_pages = set()
+        units = []
+        for row, rid in enumerate(self.rows):
+            if rid is None:
+                continue
+            table = self.pool.page_table[rid]
+            npg = min(pages_for(int(lengths[row]) + n), len(table))
+            fresh = [p for p in table[:npg] if p not in seen_pages]
+            seen_pages.update(fresh)
+            units.append(max(len(fresh), 1))
+        self._traffic.account_units(units)
+
+        rids = [r for r in self.rows if r is not None]
+        self.last_traffic = self.pool.bank_traffic(rids)
+        self._occ.append(self.pool.occupancy())
+        self._frag.append(self.pool.fragmentation(
+            {r: self.active[r].length for r in rids}))
+        bank = pimsim.bank_trace_counters(self.last_traffic)
+        self.obs.metrics.gauge("bank_conflict_factor").set(
+            bank["conflict_factor"])
+        self.obs.metrics.gauge("bank_step_us").set(bank["t_real_us"])
+
+    # ------------- the speculative decode step -------------
+
+    def _spec_decode_step(self):
+        """One continuous-batching step with speculative verification.
+
+        Every active row rides the same verify pass at the fixed width
+        ``n = spec_k + 1``: generation rows carry their current token plus
+        up to ``k`` drafted continuations, prompt-streaming rows carry one
+        real position padded with garbage.  Afterwards the recurrent state
+        is rolled back per row to exactly the accepted prefix
+        (``commit_spec``), which also unwinds the garbage positions.
+
+        Greedy rows emit the model's own argmax stream -- drafts only decide
+        how many of those tokens one pass may confirm -- so greedy output
+        is the non-speculative stream wherever the verify pass's position
+        rows equal the plain step's.  Sampled rows use rejection sampling
+        against :func:`filtered_probs` with numpy draws seeded by
+        ``(seed, step, row)``, as the JAX engine does.
+        """
+        self.step_count += 1
+        B = self.pcfg.max_decode_batch
+        n = self.pcfg.spec_k + 1
+        tokens = np.zeros((B, n), np.int32)
+        lengths = np.zeros((B,), np.int32)
+        drafts: Dict[int, List[int]] = {}
+        for row, rid in enumerate(self.rows):
+            if rid is None:
+                continue
+            a = self.active[rid]
+            lengths[row] = a.length
+            if a.pending:
+                tokens[row, 0] = a.pending[0]   # positions 1.. are garbage
+                continue
+            # the budget keeps one fully-accepted step inside the request's
+            # remaining token allowance
+            budget = min(self.kctl.k_for(rid), self.pcfg.spec_k,
+                         a.req.max_new_tokens - len(a.req.output) - 1)
+            d = []
+            if budget > 0:
+                ctx = list(map(int, a.req.prompt)) + list(a.req.output)
+                d = [int(t) for t in
+                     self.draft.propose(rid, ctx, budget)[:budget]]
+            drafts[rid] = d
+            tokens[row, 0] = a.cur_token
+            tokens[row, 1:1 + len(d)] = d
+        builds = _build.builds_done()
+        t0 = time.perf_counter()
+        # every row's block table must span the garbage positions too: the
+        # append kernel refuses a slot outside the table
+        min_pages = max(pages_for(int(lengths[row]) + n)
+                        for row, rid in enumerate(self.rows)
+                        if rid is not None)
+        seed = self._spec_seed
+        self._spec_seed += n
+        logits, snaps = self.pool.decode_spec(
+            self.params, self.rows, tokens, lengths, seed=seed,
+            min_pages=min_pages)
+        greedy = self.pcfg.sampling.temperature <= 0.0
+        if greedy:
+            # the sampler's greedy op, so ties break as in plain decoding;
+            # the step's device->host sync
+            g = torch.argmax(logits, dim=-1).cpu().numpy()
+        else:
+            probs = filtered_probs(logits, self.pcfg.sampling).cpu().numpy()
+        sel = np.zeros((B,), np.int64)
+        emits: Dict[int, List[int]] = {}
+        for row, rid in enumerate(self.rows):
+            if rid is None:
+                continue
+            a = self.active[rid]
+            if a.pending:
+                continue                      # single real position: sel = 0
+            d = drafts.get(rid, [])
+            if greedy:
+                m = 0
+                while m < len(d) and d[m] == int(g[row, m]):
+                    m += 1
+                emit = [int(g[row, j]) for j in range(m + 1)]
+            else:
+                emit = self._rejection_sample(probs[row], d, row)
+            if a.req.eos_id is not None and a.req.eos_id in emit:
+                emit = emit[:emit.index(a.req.eos_id) + 1]
+            sel[row] = len(emit) - 1
+            emits[rid] = emit
+        # roll state back to the accepted prefix before any host-side
+        # bookkeeping -- prompt rows too: their garbage padding advanced
+        # the recurrent state
+        self.pool.commit_spec(self.rows, snaps, sel)
+        self._record_step(t0, builds)
+        self._account_step(lengths, n)
+        n_proposed = n_accepted = n_steps = 0
+        for row, rid in enumerate(self.rows):
+            if rid is None:
+                continue
+            a = self.active[rid]
+            if a.pending:
+                a.length += 1
+                a.cur_token = a.pending.pop(0)
+                if a.pending:
+                    continue
+                tok = (int(g[row, 0]) if greedy else int(
+                    np.random.default_rng(
+                        (self.pcfg.seed, self.step_count, row)
+                    ).choice(probs.shape[-1],
+                             p=probs[row, 0] / probs[row, 0].sum())))
+                if not a.req.t_first:
+                    a.req.t_first = time.perf_counter()
+                    self.obs.lifecycle.first_token(rid, t=a.req.t_first)
+                a.req.output.append(tok)
+                a.cur_token = tok
+            else:
+                emit = emits[rid]
+                proposed = len(drafts.get(rid, []))
+                # the last emitted token is the model's own (correction or
+                # bonus), so drafts surviving into the stream are len - 1,
+                # capped by proposed (an eos cut can only shorten it)
+                accepted = min(len(emit) - 1, proposed)
+                self.kctl.observe(rid, proposed, accepted)
+                n_proposed += proposed
+                n_accepted += accepted
+                n_steps += 1
+                a.length += len(emit)
+                if not a.req.t_first:
+                    a.req.t_first = time.perf_counter()
+                    self.obs.lifecycle.first_token(rid, t=a.req.t_first)
+                a.req.output.extend(emit)
+                a.cur_token = emit[-1]
+            req = a.req
+            hit_eos = (req.eos_id is not None and req.output
+                       and req.output[-1] == req.eos_id)
+            if len(req.output) >= req.max_new_tokens or hit_eos:
+                self._finish(rid)
+        m = self.obs.metrics
+        m.counter("spec_proposed_tokens_total").inc(n_proposed)
+        m.counter("spec_accepted_tokens_total").inc(n_accepted)
+        m.counter("spec_verify_steps_total").inc(n_steps)
+
+    def _rejection_sample(self, probs: np.ndarray, d: List[int],
+                          row: int) -> List[int]:
+        """Sampled-mode acceptance of drafts ``d`` against the target's
+        per-position distributions ``probs (n, V)``: accept draft t with
+        probability p(t), else emit a correction from the residual
+        max(0, p - q) of the one-hot draft q and stop; all accepted: one
+        bonus draw from the next position.  Draws from numpy's
+        ``default_rng((seed, step, row))``, as the JAX engine's."""
+        rng = np.random.default_rng((self.pcfg.seed, self.step_count, row))
+        emit = []
+        for j, t in enumerate(d):
+            pj = probs[j]
+            pj = pj / pj.sum()
+            if rng.random() < pj[t]:
+                emit.append(t)                # accepted with probability p(t)
+                continue
+            q = pj.copy()
+            q[t] = 0.0
+            s = q.sum()
+            if s <= 0.0:
+                emit.append(t)                # p was a point mass on t
+                continue
+            emit.append(int(rng.choice(len(q), p=q / s)))
+            return emit
+        pj = probs[len(d)]
+        emit.append(int(rng.choice(len(pj), p=pj / pj.sum())))
+        return emit
+
     def _break_stall(self) -> None:
         """No-progress steps in ``run()``: shed the unadmittable queue head
         with a clear reason instead of spinning forever."""
@@ -850,6 +1089,9 @@ class PagedServingEngine(_EngineCore):
         if not self.spilled:
             self.pool.sanitizer_check_leaks(
                 what=f"drained paged engine (step {self.step_count})")
+            if isinstance(self.draft, ModelDraft):
+                self.draft.sanitizer_check_leaks(
+                    what=f"drained draft pool (step {self.step_count})")
 
     # ------------- stats -------------
 

@@ -248,6 +248,30 @@ class CachePaging:
                 pool[slabs.long()] = _get(views[spec.pos],
                                           spec.path).transpose(0, 1)
 
+    def commit_select(self, pools: Sequence[torch.Tensor], snaps,
+                      slabs: torch.Tensor, sel: torch.Tensor) -> None:
+        """Roll every slab row back to one selected speculative position.
+
+        ``snaps`` is what ``paged_spec_decode_step`` returns: per pattern
+        position, None (attention: KV rollback is a host-side length reset)
+        or ``{path: (n, B, G, *row)}``, the state rows after each of the n
+        positions.  Row ``b`` of every slab pool is rewritten with
+        ``snap[sel[b], b]``, in place.  A request that accepted every
+        position rewrites its final state verbatim, so running this after
+        :meth:`commit` is idempotent for it.
+        """
+        B = int(slabs.shape[0])
+        bidx = torch.arange(B, device=slabs.device)
+        sel = sel.long()
+        for pool, spec in zip(pools, self.specs):
+            if spec.kind != "slab":
+                continue
+            snap = snaps[spec.pos]
+            if snap is None:
+                raise ValueError(f"no snapshot for slab leaf {spec.path} of "
+                                 f"position {spec.pos}")
+            pool[slabs.long()] = snap[spec.path][sel, bidx].to(pool.dtype)
+
     # ------------------------------------------------------------------
     # the dense-gather reference path (parity testing)
     # ------------------------------------------------------------------

@@ -317,11 +317,21 @@ class PagedStatePool:
     # the decode step
     # ------------------------------------------------------------------
 
-    def block_table(self, rids: Sequence[Optional[int]]) -> np.ndarray:
-        """Dense (B, npg_bucket) block table; absent rows use scratch ids."""
+    def block_table(self, rids: Sequence[Optional[int]],
+                    min_pages: int = 1) -> np.ndarray:
+        """Dense (B, npg_bucket) block table; absent rows use scratch ids.
+
+        ``min_pages`` floors the (pre-bucketing) width: the speculative
+        verify step appends n rows per request, so its table must span
+        ``pages_for(length + n)`` even where a garbage-padded row does not
+        own that many pages yet -- those appends land on scratch page 0,
+        like idle rows' writes, and are never read back (the append kernel
+        refuses a slot outside the table).
+        """
         npg = max([len(self.page_table[r]) for r in rids if r is not None],
                   default=1)
-        bt = np.zeros((len(rids), bucket_pages(npg)), np.int32)
+        bt = np.zeros((len(rids), bucket_pages(max(npg, min_pages))),
+                      np.int32)
         shadow = self.placement._shadow
         if shadow is not None:   # PL254: every addressed page must be live
             shadow.check_live(
@@ -335,6 +345,19 @@ class PagedStatePool:
                 bt[i, :len(pages)] = pages
         return bt
 
+    def _step_tensors(self, rids, lengths, tokens, min_pages: int = 1):
+        dev = self.device
+        bt = torch.as_tensor(self.block_table(rids, min_pages), device=dev)
+        slabs = self._slabs(rids)
+        lens = torch.as_tensor(np.asarray(lengths, np.int32), device=dev)
+        toks = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)
+        return bt, slabs, lens, toks
+
+    def _slabs(self, rids) -> torch.Tensor:
+        return torch.tensor([self.slab_of[r] if r is not None else 0
+                             for r in rids], dtype=torch.int32,
+                            device=self.device)
+
     def decode(self, params, rids: Sequence[Optional[int]],
                tokens: np.ndarray, lengths: np.ndarray, seed: int
                ) -> torch.Tensor:
@@ -344,12 +367,7 @@ class PagedStatePool:
         ``decode_mode="paged"`` runs the block-table-native ops over the
         pools; ``"gather"`` the dense-gather reference path.
         """
-        dev = self.device
-        bt = torch.as_tensor(self.block_table(rids), device=dev)
-        slabs = torch.tensor([self.slab_of[r] if r is not None else 0
-                              for r in rids], dtype=torch.int32, device=dev)
-        lens = torch.as_tensor(np.asarray(lengths, np.int32), device=dev)
-        toks = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)
+        bt, slabs, lens, toks = self._step_tensors(rids, lengths, tokens)
         if self.decode_mode == "paged":
             views = self.paging.paged_view(self.pools, bt, slabs, lens)
             logits, views = M.paged_decode_step(params, self.cfg, toks,
@@ -361,6 +379,38 @@ class PagedStatePool:
                                            lens, seed=seed)
             self.paging.scatter_step(self.pools, caches, bt, slabs, lens)
         return logits
+
+    def decode_spec(self, params, rids: Sequence[Optional[int]],
+                    tokens: np.ndarray, lengths: np.ndarray, seed: int,
+                    min_pages: int = 1):
+        """Run one speculative verify step: tokens (B, n) per row, logits
+        (B, n, V) back, plus the snapshots for :meth:`commit_spec`.
+
+        Position i of every row runs with the seeds of the sequential
+        decode step ``seed + i``, so its logits row is the one decoding that
+        token in a plain step gives.  ``min_pages`` must span
+        ``pages_for(length + n)`` over the batch (see :meth:`block_table`).
+        """
+        if self.decode_mode != "paged":
+            raise ValueError("speculative decode needs the block-table-"
+                             "native path (decode_mode='paged')")
+        bt, slabs, lens, toks = self._step_tensors(rids, lengths, tokens,
+                                                   min_pages)
+        views = self.paging.paged_view(self.pools, bt, slabs, lens)
+        logits, views, snaps = M.paged_spec_decode_step(
+            params, self.cfg, toks, views, lens, seed=seed)
+        self.paging.commit(self.pools, views, slabs)
+        return logits, snaps
+
+    def commit_spec(self, rids: Sequence[Optional[int]], snaps,
+                    sel: np.ndarray) -> None:
+        """Roll recurrent state back to each row's last accepted position
+        (``sel`` (B,), an index into the verify step's n positions).  KV
+        needs no rollback -- the engine's host lengths mask rejected rows
+        and later appends overwrite them."""
+        self.paging.commit_select(
+            self.pools, snaps, self._slabs(rids),
+            torch.as_tensor(np.asarray(sel, np.int64), device=self.device))
 
     # ------------------------------------------------------------------
     # accounting

@@ -43,6 +43,18 @@ def filtered_logits(logits: torch.Tensor, cfg: SamplingConfig) -> torch.Tensor:
     return logits
 
 
+def filtered_probs(logits: torch.Tensor, cfg: SamplingConfig) -> torch.Tensor:
+    """Post-filter sampling distribution over the last axis: the
+    temperature / top-k / top-p chain of :func:`sample`, stopped before the
+    draw.  The speculative engine needs the distribution itself for its
+    host-side rejection sampling.  Greedy (temperature <= 0) is a point
+    mass on the argmax."""
+    if cfg.temperature <= 0.0:
+        return torch.nn.functional.one_hot(
+            torch.argmax(logits, dim=-1), logits.shape[-1]).to(torch.float32)
+    return torch.softmax(filtered_logits(logits, cfg), dim=-1)
+
+
 def sample(logits: torch.Tensor, cfg: SamplingConfig,
            generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """logits (B, V) -> tokens (B,) int64 on the logits' device."""

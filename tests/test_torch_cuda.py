@@ -280,3 +280,151 @@ def test_smoke_engine_launches_each_kernel_per_layer(cuda):
     n_m2 = cfg.pattern.count("mamba2") * cfg.n_groups
     assert KS.mx_state_update.launches == n_m2 * steps
     assert KA.mx_attention_decode.launches == cfg.n_groups * steps
+
+
+# ---------------------------------------------------------------------------
+# speculative-verify attention (kernels 5 and 6) and the speculative engine
+# ---------------------------------------------------------------------------
+
+def _spec_pools(cuda, lengths, Kq, G, d, seed, n_stack=9, KVH=8):
+    q1, K, V, bt, lens = _paged_kv(cuda, lengths, n_stack, KVH, d, KVH * G,
+                                   seed)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    q = torch.randn((len(lengths), Kq, KVH * G, d), generator=g, device=cuda)
+    return q, K, V, bt, lens
+
+
+@pytest.mark.parametrize("Kq", [1, 2, 4])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("lens", [(4, 127, 128, 129), (1000, 131, 129, 5)])
+def test_spec_attention_kernels_vs_plain_and_decode_kernels(cuda, Kq, G,
+                                                            lens):
+    """Kernel 6 and kernel 5 against their plain versions (rtol 2e-4, atol
+    2e-5); kernel 5 bitwise kernel 6 over the gathered pages; row j
+    bitwise kernels 2 and 3 at the shifted length -- across tile
+    boundaries, shuffled non-contiguous pages, 9 layers."""
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    q, K, V, bt, lengths = _spec_pools(cuda, lens, Kq, G, 80, seed=Kq * G)
+    group = 6
+    Kd, Vd = R.gather_pages(K, bt, group), R.gather_pages(V, bt, group)
+    n5, n6 = (KV.mx_paged_spec_attention_decode.launches,
+              KV.mx_spec_attention_decode.launches)
+    y5 = KV.mx_paged_spec_attention_decode(q, K, V, bt, group, lengths)
+    y6 = KV.mx_spec_attention_decode(q, Kd, Vd, lengths)
+    torch.cuda.synchronize()
+    assert (KV.mx_paged_spec_attention_decode.launches,
+            KV.mx_spec_attention_decode.launches) == (n5 + 1, n6 + 1)
+    assert y5.shape == (len(lens), Kq, 8 * G, 80)
+    torch.testing.assert_close(y6, KV.plain(q, Kd, Vd, lengths), rtol=2e-4,
+                               atol=2e-5)
+    torch.testing.assert_close(
+        y5, KV.plain_paged(q, K, V, bt, group, lengths), rtol=2e-4,
+        atol=2e-5)
+    assert torch.equal(y5, y6)
+    for j in range(Kq):
+        lj = lengths - (Kq - 1 - j)
+        qj = q[:, j].contiguous()
+        assert torch.equal(y6[:, j], KA.mx_attention_decode(qj, Kd, Vd, lj))
+        assert torch.equal(y5[:, j], KP.mx_paged_attention_decode(
+            qj, K, V, bt, group, lj))
+
+
+def test_spec_attention_kernels_refuse_out_of_limit_and_mla(cuda):
+    from repro_torch.kernels import mx_spec_attention as KV
+    q, K, V, bt, lengths = _spec_pools(cuda, (130, 5), 5, 4, 32, seed=1)
+    with pytest.raises(ValueError, match="Kq\\*G"):           # 20 rows
+        KV.mx_paged_spec_attention_decode(q, K, V, bt, 0, lengths)
+    q, K, V, bt, lengths = _spec_pools(cuda, (130, 5), 2, 8, 144, seed=2)
+    with pytest.raises(ValueError, match="Kq\\*G\\*dv"):      # 16*144 items
+        KV.mx_paged_spec_attention_decode(q, K, V, bt, 0, lengths)
+    with pytest.raises(NotImplementedError, match="MLA"):
+        KV.mx_paged_spec_attention_decode(q, K, None, bt, 0, lengths,
+                                          v_width=16)
+    from repro_torch.kernels import ref as R
+    with pytest.raises(NotImplementedError, match="MLA"):
+        KV.mx_spec_attention_decode(q, R.gather_pages(K, bt, 0), None,
+                                    lengths, v_width=16)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b",
+                                  "zamba2-2.7b"])
+def test_smoke_ngram_spec_greedy_equals_plain_on_card(cuda, arch):
+    """The n-gram speculative stream equals the plain paged stream (MX8,
+    nearest rounding, CUDA kernels), and a verify step launches the paged
+    verify kernel once and the append n times per attention layer, the
+    slab-mode state update n times per Mamba-2 layer."""
+    from repro_torch import ops as OPS
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import Engine, ServeConfig
+    cfg = get_smoke_config(arch).with_(
+        state_quant=OPS.StateQuantConfig("mx8", "nearest", "cuda"))
+    params = M.init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                          device=cuda)
+    rng = np.random.default_rng(3)
+    base = rng.integers(0, cfg.vocab_size, 6)
+    prompts = [np.tile(base, 4), rng.integers(0, cfg.vocab_size, 9),
+               np.tile(base[:3], 45)]
+    outs, counts = [], None
+    for spec in (None, "ngram"):
+        eng = Engine(params, cfg, ServeConfig(batch=2, n_pages=17, n_slabs=5,
+                                              spec=spec, spec_k=3))
+        hs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+        if spec is not None:
+            counters = (KV.mx_paged_spec_attention_decode,
+                        KP.mx_paged_attention_decode, KP.mx_paged_kv_append)
+            for c in counters:
+                c.launches = 0
+            KS.mx_state_update.slab_launches = 0
+        eng.run()
+        outs.append([h.output for h in hs])
+        assert all(h.status == "done" and len(h.output) == 12 for h in hs)
+    steps = eng.engine.step_count
+    n_attn = (cfg.pattern.count("attn") * cfg.n_groups
+              + (cfg.n_groups if cfg.shared_attn else 0))
+    n_m2 = cfg.pattern.count("mamba2") * cfg.n_groups
+    assert [c.launches for c in counters] == [n_attn * steps, 0,
+                                              4 * n_attn * steps]
+    assert KS.mx_state_update.slab_launches == 4 * n_m2 * steps
+    assert outs[1] == outs[0]
+    assert eng.stats()["proposed_tokens"] > 0
+
+
+def test_attention_spec_step_appends_equal_sequential_kv_append_on_card(
+        cuda):
+    """On the card (append kernel, verify kernel): n appends with seeds
+    seed + i equal n sequential ``kv_append`` calls byte for byte over every
+    pool, and the verify is ``spec_attend`` over the appended cache."""
+    from repro_torch import ops as OPS
+    from repro_torch.core import paged as PG
+    from repro_torch.kernels import mx_spec_attention as KV
+    base, Kq = (1, 124, 125, 300), 4
+    q, K, V, bt, _ = _spec_pools(cuda, [n + Kq for n in base], Kq, 2, 64,
+                                 seed=5)
+    lens = torch.tensor(base, dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    k_new, v_new = (torch.randn((4, Kq, 8, 64), generator=g, device=cuda)
+                    for _ in "kv")
+    cfg = OPS.StateQuantConfig()
+    caches = [PG.PagedKVCache(K.clone(), V.clone(), bt, lens, 3, "mx8")
+              for _ in range(2)]
+    n0 = KV.mx_paged_spec_attention_decode.launches
+    y, c = OPS.attention_spec_step(caches[0], k_new, v_new, q, cfg,
+                                   seed=0xFFFFFFFF)
+    assert KV.mx_paged_spec_attention_decode.launches == n0 + 1
+    seq = caches[1]
+    for i in range(Kq):
+        seq = OPS.kv_append(seq, k_new[:, i:i + 1].contiguous(),
+                            v_new[:, i:i + 1].contiguous(), cfg,
+                            seed=(0xFFFFFFFF + i) & 0xFFFFFFFF)
+    y_seq = OPS.spec_attend(seq, q, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(c.lengths, seq.lengths)
+    for f in K.payload:
+        assert torch.equal(c.k.payload[f], seq.k.payload[f]), f
+        assert torch.equal(c.v.payload[f], seq.v.payload[f]), f
+    assert torch.equal(y, y_seq)

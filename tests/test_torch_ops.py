@@ -225,6 +225,8 @@ def test_traffic_equals_jax_registry(kind, backend, fmt, layout):
     dims = dict(B=3, T=256, KVH=2, dk=64, dv=64, n=1, H=8)
     if kind == "state_update":
         dims = dict(B=3, H=80, dk=64, dv=64)
+    if kind == "spec_verify":
+        dims["Kq"] = 4
     jp = JOPS.get_op(kind, jb, fmt, layout).plan(
         dims, JOPS.StateQuantConfig(fmt, "stochastic", jb))
     tp = TOPS.get_op(kind, backend, fmt, layout).plan(
