@@ -10,8 +10,10 @@ against its plain PyTorch version at the shapes the served model gives it,
 times both (with a PyTorch library call as yardstick where one computes the
 same function), then serves ``zamba2-2.7b`` at full width through the slot
 pool, through the paged pool (``Engine``'s default) and through the paged
-pool with speculative decoding, and checks that every decode step went
-through the kernels of its path.  Phases, in the order they run:
+pool with speculative decoding, then ``deepseek-v2-236b`` at full width
+(depth cut to 4 of its 60 layers: 53.2 GB of fp32 weights) through the same
+three paths, and checks that every decode step went through the kernels of
+its path.  Phases, in the order they run:
 
   1. device   2. build   3. exact powers of two   4. state-update kernel
   5. attention kernel   9. paged kernels (paged attention, paged append,
@@ -20,13 +22,17 @@ through the kernels of its path.  Phases, in the order they run:
   7. main path, slot pool   11. main path, paged pool   12. matmul row
   invariance at the model's shapes   14. main path, paged pool with
   speculation (n-gram drafts; a short model-draft run; the pool-level
-  rollback check)   8. kernels line
+  rollback check)   15. MLA mode of kernels 2, 3, 5 and 6 and the
+  latent-only append at deepseek-v2-236b's widths   16. MLA timing
+  17. deepseek-v2-236b, slot pool   18. deepseek-v2-236b, paged pool
+  19. deepseek-v2-236b, paged pool with speculation   8. kernels line
 
 Any failure exits non-zero; with no card it fails (it never falls back to
 the CPU).  The last three lines of standard output are the kernels' JSON
 object, the card's name and power limit from ``nvidia-smi``, and
 ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import math
 import subprocess
@@ -56,6 +62,17 @@ KQ = SPEC_K + 1                                     # verify positions
 #: verify-kernel checks: lengths count the Kq appended rows and straddle a
 #: tile boundary (row j sees len - (Kq - 1 - j) positions)
 SPEC_LENGTHS = ((4, 127, 128, 129), (1000, 131, 129, 5))
+#: deepseek-v2-236b: depth cut to its dense prelude layer + 3 MoE groups,
+#: the most of the 60 layers that fits one 80 GB card with room for prefill
+DS_LAYERS = 4
+DS_REDUCED = "n_layers 60 -> 4 (53.2 GB fp32 of 80 GB)"
+DS_PROMPT_LENS = (64, 400, 133, 251, 97)
+DS_MAX_NEW = 16
+DS_PAGED = dict(batch=4, n_pages=9, prefill_chunk=256)
+#: the MLA latent cache: one kv head of kv_lora + rope = 576 lanes, values
+#: its first 512, 128 query heads; 3 MoE groups share the pattern position
+MLA = dict(B=4, H=128, dk=576, dv=512, n_stack=3)
+MLA_LENGTHS = ((4, 127, 128, 129), (1000, 131, 129, 5))
 
 
 class SmokeFailure(RuntimeError):
@@ -1342,6 +1359,384 @@ def _profile_decode(eng, cfg, rng, prompt_lens, n, n_steps=5):
     return out
 
 
+# ---------------------------------------------------------------------------
+# MLA mode (kernels 2, 3, 5, 6) and deepseek-v2-236b at full width
+# ---------------------------------------------------------------------------
+
+def _mla_pool(lengths, seed, n_stack=None, spare=2):
+    """A latent page pool (P, n_stack, 128, 1, 576) of random MX8 rows, a
+    block table of shuffled non-contiguous pages spanning ``len + 1``
+    positions per row (bucketed, scratch page 0 in the tail), and q
+    ``(B, KQ, 128, 576)``."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.core.paged import pages_for
+    from repro_torch.serving.memory import bucket_pages
+    m = MLA
+    n_stack = n_stack or m["n_stack"]
+    need = [pages_for(n + 1) for n in lengths]
+    P = 1 + sum(need) + spare
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = (torch.randperm(P - 1, generator=g, device="cuda") + 1).tolist()
+    bt = torch.zeros((len(lengths), bucket_pages(max(need))),
+                     dtype=torch.int32)
+    for b, n in enumerate(need):
+        bt[b, :n] = torch.tensor(ids[:n])
+        ids = ids[n:]
+    C = F.mx8_quantize(torch.randn((P, n_stack, 128, 1, m["dk"]), generator=g,
+                                   device="cuda"))
+    q = torch.randn((len(lengths), KQ, m["H"], m["dk"]), generator=g,
+                    device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, C, bt.cuda(), lens
+
+
+def _mla_scale():
+    return (128 + 64) ** -0.5              # (nope_dim + rope_dim) ** -0.5
+
+
+def phase_mla_kernels():
+    """The MLA mode of kernels 6 (dense verify), 5 (paged verify), 2
+    (dense decode) and 3 (paged decode) at deepseek-v2-236b's widths
+    against their plain versions (rtol 2e-4, atol 2e-5), and the three
+    bitwise contracts: paged == dense over the gathered pages, verify row
+    j == decode at length len - (Kq - 1 - j), Kq = 1 == decode.  Then the
+    latent-only append (kernel 4 over the stream's three payload pools)
+    byte for byte against its plain version."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    m = MLA
+    kw = dict(scale=_mla_scale(), v_width=m["dv"])
+    errs = dict(e2=0.0, e3=0.0, e5=0.0, e6=0.0)
+    cases = 0
+    for i, lengths in enumerate(MLA_LENGTHS):
+        q_all, C, bt, lens = _mla_pool(lengths, seed=110 + i)
+        group = 1 + i
+        Cd = R.gather_pages(C, bt, group)
+        for Kq in (1, 2, 4):
+            q = q_all[:, :Kq].contiguous()
+            label = f"MLA Kq={Kq} lengths={lengths}"
+            y5 = KV.mx_paged_spec_attention_decode(q, C, None, bt, group,
+                                                   lens, **kw)
+            y6 = KV.mx_spec_attention_decode(q, Cd, None, lens, **kw)
+            p5 = KV.plain_paged(q, C, None, bt, group, lens, kw["scale"],
+                                m["dv"])
+            p6 = KV.plain(q, Cd, None, lens, kw["scale"], m["dv"])
+            torch.cuda.synchronize()
+            for key, y, yp in (("e5", y5, p5), ("e6", y6, p6)):
+                err = (y - yp).abs()
+                check(bool((err <= 2e-5 + 2e-4 * yp.abs()).all()),
+                      f"{label} kernel {key[1]}: beyond rtol 2e-4 atol 2e-5 "
+                      f"(max err {float(err.max()):.3g})")
+                errs[key] = max(errs[key], float(err.max()))
+            check(torch.equal(y5, y6), f"{label}: kernel 5 not bitwise "
+                  "kernel 6 over the gathered pages")
+            for j in range(Kq):
+                lj = lens - (Kq - 1 - j)
+                qj = q[:, j].contiguous()
+                y2 = KA.mx_attention_decode(qj, Cd, None, lj, **kw)
+                y3 = KP.mx_paged_attention_decode(qj, C, None, bt, group, lj,
+                                                  **kw)
+                if Kq == 4:
+                    p2 = KA.plain(qj, Cd, None, lj, kw["scale"], m["dv"])
+                    torch.cuda.synchronize()
+                    for key, y in (("e2", y2), ("e3", y3)):
+                        err = (y - p2).abs()
+                        check(bool((err <= 2e-5 + 2e-4 * p2.abs()).all()),
+                              f"{label} row {j} kernel {key[1]}: beyond "
+                              f"rtol 2e-4 atol 2e-5")
+                        errs[key] = max(errs[key], float(err.max()))
+                check(torch.equal(y3, y2), f"{label}: row {j} kernel 3 not "
+                      "bitwise kernel 2 over the gathered pages")
+                check(torch.equal(y6[:, j], y2), f"{label}: row {j} not "
+                      "bitwise kernel 2 at the shifted length")
+            cases += 1
+
+        # latent-only append: three payload pools of one stream
+        B = len(lengths)
+        g = torch.Generator(device="cuda").manual_seed(120 + i)
+        x = torch.randn((B, 1, 1, m["dk"]), generator=g, device="cuda")
+        qx = F.quantize(x, "mx8", "stochastic",
+                        F.sr_bits(x.shape, 7 + i, device="cuda"))
+        rows = [qx.payload[f][:, 0] for f in sorted(qx.payload)]
+        pools = [C.payload[f] for f in sorted(C.payload)]
+        before = [p.clone() for p in pools]
+        plain_pools = [p.clone() for p in pools]
+        KP.mx_paged_kv_append(pools, rows, bt, group, lens)
+        KP.plain_append(plain_pools, rows, bt, group, lens)
+        torch.cuda.synchronize()
+        keep = torch.ones(pools[0].shape[:3], dtype=torch.bool,
+                          device="cuda")
+        for b, n in enumerate(lengths):
+            keep[bt[b, n // 128], group, n % 128] = False
+        for j, (a, b, b0) in enumerate(zip(pools, plain_pools, before)):
+            check(torch.equal(a, b), f"latent append {lengths}: pool {j} "
+                  "differs from the plain version")
+            check(torch.equal(a[keep], b0[keep]), f"latent append "
+                  f"{lengths}: pool {j} changed outside the appended slots")
+    phase(15, "MLA mode of kernels 2, 3, 5, 6 vs plain, full width",
+          B=m["B"], H=m["H"], dk=m["dk"], dv=m["dv"], n_stack=m["n_stack"],
+          lengths=list(MLA_LENGTHS), Kq="1,2,4", cases=cases,
+          max_abs_err=",".join(f"{k}={v:.3g}" for k, v in errs.items()),
+          tol="rtol2e-4,atol2e-5", paged_vs_dense="bitwise",
+          row_j_vs_decode="bitwise", Kq1_vs_decode="bitwise")
+    phase(15, "mx_paged_kv_append latent-only vs plain", pools=3,
+          widths=f"{m['dk']},{m['dk'] // 16},{m['dk'] // 16}",
+          result="bitwise", untouched_bytes="unchanged")
+    return errs
+
+
+def phase_mla_timing():
+    """Device times of the four MLA modes from CUDA-graph replay at the
+    deepseek main path's mid-decode lengths (B = 4, Kq = 4 for the verify
+    kernels, lengths counting the appended rows), 96 layers' latent pages
+    (and their gathered dense copies) rotating cold in L2.  The yardstick
+    is one ``scaled_dot_product_attention`` call on the dequantized latent
+    (q (B, 128, n_q, 576), K (B, 1, T, 576) shared by the 128 heads, V its
+    first 512 lanes, the verify mask for n_q = 4).  Bound: fp32 operations
+    (~430 flops per cached byte)."""
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.core import formats as F
+    from repro_torch.core.paged import pages_for
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    m = MLA
+    n_rot = 96
+    it = iter(range(10 ** 9))
+    base = [n + DS_MAX_NEW // 2 for n in DS_PROMPT_LENS[:m["B"]]]
+    scale = _mla_scale()
+    kw = dict(scale=scale, v_width=m["dv"])
+    out = {}
+    for n_q in (1, KQ):
+        lengths = [n + n_q - 1 for n in base]
+        q_all, C, bt, lens = _mla_pool(lengths, seed=130 + n_q,
+                                       n_stack=n_rot, spare=0)
+        q = q_all[:, :n_q].contiguous()
+        q1 = q[:, 0].contiguous()
+        dense = [R.gather_pages(C, bt, g) for g in range(n_rot)]
+        T = bt.shape[1] * 128
+        shift = torch.arange(n_q, device="cuda") - (n_q - 1)
+        mask = (torch.arange(T, device="cuda")[None, None, :]
+                < (lens[:, None] + shift[None, :])[:, :, None])[:, None]
+        qh = q.permute(0, 2, 1, 3).contiguous()        # (B, 128, n_q, 576)
+        kfs = [F.dequantize(c)[:, :, 0][:, None] for c in dense[:8]]
+        lib = [lambda k=k: torch.nn.functional.scaled_dot_product_attention(
+            qh, k, k[..., :m["dv"]], attn_mask=mask, scale=scale,
+            enable_gqa=True) for k in kfs]
+        y_lib = lib[0]().permute(0, 2, 1, 3)
+        y_k = KV.mx_spec_attention_decode(q, dense[0], None, lens, **kw)
+        torch.cuda.synchronize()
+        check(bool(((y_lib - y_k).abs() <= 1e-4 + 1e-3 * y_k.abs()).all()),
+              f"MLA yardstick (SDPA) disagrees with kernel 6 at n_q={n_q}")
+        row_pos = sum(n - (n_q - 1 - j) for n in lengths for j in range(n_q))
+        flops = row_pos * m["H"] * 2 * (m["dk"] + m["dv"])
+        io = 4 * m["B"] * n_q * m["H"] * (m["dk"] + m["dv"]) + 4 * m["B"]
+        cache = sum(lengths) * m["dk"] * (1 + 2 / F.MX8_GROUP)
+        bt_bytes = 4 * sum(pages_for(n) for n in lengths)
+        if n_q == 1:
+            cases = (
+                ("mx_paged_attention_decode[mla]",
+                 [lambda g=g: KP.mx_paged_attention_decode(
+                     q1, C, None, bt, g, lens, **kw) for g in range(n_rot)],
+                 [lambda g=g: KP.plain(q1, C, None, bt, g, lens, scale,
+                                       m["dv"]) for g in range(8)],
+                 bt_bytes),
+                ("mx_attention_decode[mla]",
+                 [lambda c=c: KA.mx_attention_decode(q1, c, None, lens, **kw)
+                  for c in dense],
+                 [lambda c=c: KA.plain(q1, c, None, lens, scale, m["dv"])
+                  for c in dense[:8]], 0))
+        else:
+            cases = (
+                ("mx_paged_spec_attention_decode[mla]",
+                 [lambda g=g: KV.mx_paged_spec_attention_decode(
+                     q, C, None, bt, g, lens, **kw) for g in range(n_rot)],
+                 [lambda g=g: KV.plain_paged(q, C, None, bt, g, lens, scale,
+                                             m["dv"]) for g in range(8)],
+                 bt_bytes),
+                ("mx_spec_attention_decode[mla]",
+                 [lambda c=c: KV.mx_spec_attention_decode(q, c, None, lens,
+                                                          **kw)
+                  for c in dense],
+                 [lambda c=c: KV.plain(q, c, None, lens, scale, m["dv"])
+                  for c in dense[:8]], 0))
+        kind = "mla_decode" if n_q == 1 else "spec_verify"
+        for (name, kern, plain, extra), layout in zip(cases,
+                                                      ("paged", "dense")):
+            ms = graph_ms(kern, 5)
+            plain_ms = graph_ms(plain, 2)
+            lib_ms = graph_ms(lib, 5)
+            host_ms = host_loop_ms(lambda k=kern: k[next(it) % n_rot](), 96)
+            plan_bytes = sum(OPS.traffic(OPS.registry.plan(
+                kind, dict(B=1, T=n, KVH=1, dk=m["dk"], dv=0, n=1, H=m["H"],
+                           Kq=n_q), OPS.StateQuantConfig(), "cuda",
+                layout=layout, v_width=m["dv"])).total for n in lengths)
+            out[name] = _report(name, ms, plain_ms, lib_ms, host_ms,
+                                cache + io + extra, flops, plan_bytes, n=16)
+        phase(16, "MLA lengths", n_q=n_q, lengths=lengths,
+              per_row_positions=row_pos, flops_per_launch=flops)
+        del dense, kfs, lib, C
+    return out
+
+
+def _ds_model():
+    """deepseek-v2-236b at full width, depth cut to ``DS_LAYERS`` (the
+    dense-FFN prelude layer and 3 MoE groups), random weights from a
+    seeded CUDA generator."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    full = get_config("deepseek-v2-236b")
+    cfg = full.with_(n_layers=DS_LAYERS)
+    check(full.n_layers == 60 and cfg.d_model == 5120 and cfg.n_heads == 128
+          and cfg.mla.cache_width == 576 and cfg.moe.n_experts == 160
+          and cfg.n_groups == DS_LAYERS - 1
+          and cfg.state_quant.fmt == "mx8"
+          and cfg.state_quant.backend == "cuda", f"unexpected {cfg.name}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_model(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in _leaves(params))
+    nbytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    phase(17, "deepseek-v2-236b weights", params=n,
+          GB=f"{nbytes / 1e9:.2f}", init_s=f"{time.perf_counter() - t0:.1f}",
+          reduced=DS_REDUCED)
+    return cfg, params
+
+
+def _mla_counters():
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    return dict(k2=KA.mx_attention_decode, k3=KP.mx_paged_attention_decode,
+                k5=KV.mx_paged_spec_attention_decode,
+                k6=KV.mx_spec_attention_decode)
+
+
+def _ds_counts_reset():
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_state_update as KS
+    for c in _mla_counters().values():
+        c.launches = c.mla_launches = 0
+    KP.mx_paged_kv_append.launches = 0
+    KS.mx_state_update.launches = KS.mx_state_update.slab_launches = 0
+
+
+def _ds_counts():
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_state_update as KS
+    out = {k: c.mla_launches for k, c in _mla_counters().items()}
+    out.update({f"{k}_gqa": c.launches for k, c in _mla_counters().items()})
+    out["k4"] = KP.mx_paged_kv_append.launches
+    out["k1"] = (KS.mx_state_update.launches
+                 + KS.mx_state_update.slab_launches)
+    return out
+
+
+def _ds_serve(eng, cfg, prompts, want, label):
+    """Serve ``prompts`` with the MLA counters reset just before and read
+    just after; ``want`` maps counter -> launches per step."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    _ds_counts_reset()
+    t1 = time.perf_counter()
+    handles = [eng.submit(p, max_new_tokens=DS_MAX_NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    n = _ds_counts()
+    steps = eng.engine.step_count
+    for h in handles:
+        check(h.status == "done" and len(h.output) == DS_MAX_NEW,
+              f"{label} request {h.rid}: {h.status} with {len(h.output)}")
+        check(all(0 <= t < cfg.vocab_size for t in h.output),
+              f"{label} request {h.rid}: token out of range")
+    expect = {k: want.get(k, 0) * steps for k in n}
+    check(steps > 0 and n == expect, f"{label} launches over {steps} steps: "
+          f"{n}, want {expect}")
+    st = eng.stats()
+    return dict(handles=handles, n=n, steps=steps, wall=wall, stats=st,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def _ds_fields(r):
+    st = r["stats"]
+    per = {k: v / r["steps"] for k, v in r["n"].items() if v}
+    return dict(requests=len(r["handles"]), steps=r["steps"],
+                launches_per_step=",".join(f"{k}={v:g}"
+                                           for k, v in per.items()),
+                wall_s=f"{r['wall']:.3f}", **_step_fields(st),
+                peak_mem_GB=f"{r['peak'] / 1e9:.2f}")
+
+
+def phase_deepseek(cfg, params):
+    """deepseek-v2-236b through the slot pool (phase 17), the paged pool
+    with preemption (18; paged logits bitwise the dense-gather path's on a
+    fresh pool first) and the paged pool with n-gram speculation (19).
+    Every decode step must launch the MLA kernel of its path once per
+    layer (4) and no GQA attention or state-update kernel."""
+    import numpy as np
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import Engine, ServeConfig
+    rng = np.random.default_rng(3)
+    prompts = [np.resize(rng.integers(0, cfg.vocab_size, 8), n)
+               for n in DS_PROMPT_LENS]
+    L = cfg.n_layers
+
+    eng = Engine(params, cfg, ServeConfig(backend="slots", batch=4,
+                                          cache_capacity=1024))
+    slot = _ds_serve(eng, cfg, prompts, dict(k2=L), "deepseek slots")
+    kv = sum(_payload_bytes(c.k) for c in M.iter_kv_caches(eng.engine.caches))
+    phase(17, "main path deepseek-v2-236b slots", reduced=DS_REDUCED,
+          **_ds_fields(slot), kv_MB=f"{kv / 1e6:.2f}")
+    slot["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 17)
+    _reference_check(params, cfg, prompts[0], n=17)
+    del eng                    # frees the slot pool's caches
+
+    eng = Engine(params, cfg, ServeConfig(**DS_PAGED))
+    shape = _paged_vs_gather(eng, cfg, rng)
+    phase(18, "deepseek paged vs gather logits, fresh pool", steps=4,
+          logits=tuple(shape), result="bit-identical")
+    paged = _ds_serve(eng, cfg, prompts, dict(k3=L, k4=L), "deepseek paged")
+    st = paged["stats"]
+    check(st["preemptions"] >= 1, f"deepseek: no preemption with {DS_PAGED}")
+    pool = eng.engine.pool
+    phase(18, "main path deepseek-v2-236b paged", reduced=DS_REDUCED,
+          **_ds_fields(paged), preemptions=int(st["preemptions"]),
+          pages=f"{pool.n_pages}x{pool.page_nbytes}B",
+          gather_MB=f"{st['gather_bytes'] / 1e6:.2f}")
+    paged["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 18)
+    del eng
+
+    eng = Engine(params, cfg, ServeConfig(**DS_PAGED, spec="ngram",
+                                          spec_k=SPEC_K))
+    spec = _ds_serve(eng, cfg, prompts, dict(k5=L, k4=L * KQ),
+                     "deepseek paged + ngram")
+    st = spec["stats"]
+    agree, first = _agreement([h.output for h in paged["handles"]],
+                              [h.output for h in spec["handles"]])
+    phase(19, "main path deepseek-v2-236b paged + ngram speculation",
+          reduced=DS_REDUCED, Kq=KQ, **_ds_fields(spec),
+          proposed=int(st["proposed_tokens"]),
+          accepted=int(st["accepted_tokens"]),
+          acceptance_rate=f"{st['acceptance_rate']:.3f}",
+          preemptions=int(st["preemptions"]),
+          vs_phase_18_other_sr_seeds="equal" if first is None else
+          f"agreement {agree:.3f}, first difference at token {first}")
+    spec["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 19)
+    del eng
+    return dict(slot=slot, paged=paged, spec=spec)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1355,20 +1750,21 @@ def _leaves(tree):
 
 def _clone_caches(caches):
     from repro_torch.core import attention_cache as AC
-    out = []
-    for grp in caches:
-        row = []
-        for c in grp:
-            if isinstance(c, AC.KVCache):
-                row.append(AC.KVCache(c.k.clone(), c.v.clone(),
-                                      c.lengths.clone(), c.fmt))
-            else:
-                row.append({n: (v.clone()) for n, v in c.items()})
-        out.append(row)
-    return out
+    from repro_torch.models import model as M
+
+    def one(c):
+        if isinstance(c, AC.KVCache):
+            return AC.KVCache(c.k.clone(),
+                              None if c.v is None else c.v.clone(),
+                              c.lengths.clone(), c.fmt, c.v_width)
+        return {n: v.clone() for n, v in c.items()}
+
+    prelude, groups = M.split_caches(caches)
+    return M.join_caches([one(c) for c in prelude],
+                         [[one(c) for c in grp] for grp in groups])
 
 
-def _reference_check(params, cfg, prompt):
+def _reference_check(params, cfg, prompt, n=7):
     """The served path (CUDA kernels) against the plain ops on the same
     prefill: first-step logits to rtol 1e-3 (a few SR decisions may flip
     where the kernel's FMA and the plain fp64 emulation round apart) and
@@ -1400,7 +1796,7 @@ def _reference_check(params, cfg, prompt):
           f"first decode step: kernels vs plain max err {err:.3g}")
     agree = np.mean([int(x.argmax()) == int(y.argmax())
                      for x, y in zip(*runs)])
-    phase(7, "reference check (kernels vs plain ops, same prefill)",
+    phase(n, "reference check (kernels vs plain ops, same prefill)",
           first_step_max_abs_err=f"{err:.3g}",
           greedy_agreement_4_steps=f"{agree:.2f}")
 
@@ -1431,7 +1827,19 @@ def main():
         slot = phase_main_path(cfg, params, init_s)
         paged = phase_paged_main_path(cfg, params, slot)
         spec = phase_spec_main_path(cfg, params, paged)
-        kernels = kernels_line(errs, times, slot, paged, spec)
+        # zamba2's weights and pools go before deepseek's 53.2 GB arrive
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        errs.update(phase_mla_kernels())
+        times.update(phase_mla_timing())
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(17, "device memory before deepseek-v2-236b",
+              allocated_GB=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+        ds_cfg, ds_params = _ds_model()
+        ds = phase_deepseek(ds_cfg, ds_params)
+        kernels = kernels_line(errs, times, slot, paged, spec, ds)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1443,11 +1851,12 @@ def main():
     return 0
 
 
-def kernels_line(errs, times, slot, paged, spec):
+def kernels_line(errs, times, slot, paged, spec, ds):
     """One entry per kernel (kernel 1 twice: dense mode on the slot path,
-    slab mode on the paged path); ``launches`` counts each one's own main
-    path (the verify kernels: the speculative path, where kernel 6, the
-    dense-cache twin, has no launch), ``max_abs_err`` is each one's
+    slab mode on the paged path; kernels 2, 3, 5 and 6 twice: GQA mode on
+    zamba2's paths, MLA mode on deepseek's); ``launches`` counts each one's
+    own main path (the verify kernels: the speculative path, where kernel
+    6, the dense-cache twin, has no launch), ``max_abs_err`` is each one's
     measured difference from its plain version (``y`` for the state
     update, bytes for the append)."""
     su_src = "src/repro_torch/csrc/mx_state_update.cu"
@@ -1480,6 +1889,26 @@ def kernels_line(errs, times, slot, paged, spec):
              replaces="src/repro/kernels/mx_spec_attention.py:123",
              launches=spec["n6"], max_abs_err=errs["sv_dense"],
              **times["sv_dense"]),
+        dict(name="mx_attention_decode[mla]", route="cuda",
+             source="src/repro_torch/csrc/mx_attention.cu",
+             replaces="src/repro/kernels/mx_attention.py:98",
+             launches=ds["slot"]["n"]["k2"], max_abs_err=errs["e2"],
+             **times["mx_attention_decode[mla]"]),
+        dict(name="mx_paged_attention_decode[mla]", route="cuda",
+             source=pa_src,
+             replaces="src/repro/kernels/mx_paged_attention.py:108",
+             launches=ds["paged"]["n"]["k3"], max_abs_err=errs["e3"],
+             **times["mx_paged_attention_decode[mla]"]),
+        dict(name="mx_paged_spec_attention_decode[mla]", route="cuda",
+             source=sv_src,
+             replaces="src/repro/kernels/mx_spec_attention.py:193",
+             launches=ds["spec"]["n"]["k5"], max_abs_err=errs["e5"],
+             **times["mx_paged_spec_attention_decode[mla]"]),
+        dict(name="mx_spec_attention_decode[mla]", route="cuda",
+             source=sv_src,
+             replaces="src/repro/kernels/mx_spec_attention.py:123",
+             launches=ds["spec"]["n"]["k6"], max_abs_err=errs["e6"],
+             **times["mx_spec_attention_decode[mla]"]),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):

@@ -28,7 +28,7 @@ Python, so the JAX package's scan-carry split (``split_paged`` /
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -63,9 +63,10 @@ class PagedKVCache:
     """Block-table view of one pattern position's shared K/V page pools.
 
     ``k``/``v`` hold the whole pool, ``(n_pages, G, PAGE_TOKENS, KVH, d)``
-    (quantized streams keep one pool per payload field).  ``bt`` is the
-    step's dense block table, ``lengths`` the valid context per row and
-    ``group`` the layer of the position this view addresses.
+    (quantized streams keep one pool per payload field; an MLA view has no
+    ``v`` and its values are the first ``v_width`` lanes of ``k``).  ``bt``
+    is the step's dense block table, ``lengths`` the valid context per row
+    and ``group`` the layer of the position this view addresses.
     """
     k: object
     v: object
@@ -73,6 +74,7 @@ class PagedKVCache:
     lengths: torch.Tensor            # (B,) int32 valid cached positions
     group: int = 0                   # layer index within the position
     fmt: str = "mx8"
+    v_width: Optional[int] = None    # MLA only
 
     @property
     def batch(self) -> int:
@@ -97,6 +99,10 @@ class PagedKVCache:
 
     @property
     def dv(self) -> int:
+        if self.v is None:
+            if self.v_width is None:
+                raise ValueError("a latent-only view needs v_width")
+            return self.v_width
         return _payload_dims(self.v)[4]
 
     def with_step(self, group: int,

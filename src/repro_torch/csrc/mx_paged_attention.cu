@@ -22,12 +22,19 @@
 // (K and V x mantissa / exponent / micro): grid (B, n_pools * KVH), one
 // block copies one row's w bytes.
 //
+// MLA mode (mx_paged_attention_decode_mla_launch; the TPU kernel's
+// v_pool=None, v_width): the dense MLA kernel's loop (mx_mla_tile.cuh) over
+// the pool's latent pages, bound by fp32 operations, bitwise the dense MLA
+// kernel over the gathered pages.  A latent-only append is the append
+// kernel with three pools (mantissa / exponent / micro of the one stream).
+//
 // Pools are (n_pages, n_stack, 128, KVH, w) with n_stack the layers that
 // share the pattern position; q (B, KVH, G, dk) pre-scaled f32; bt
 // (B, npg) int32; lengths (B,) int32; out (B, KVH, G, dv) f32.
 #include <cassert>
 
 #include "mx_attention_tile.cuh"
+#include "mx_mla_tile.cuh"
 
 namespace {
 
@@ -51,6 +58,20 @@ mx_paged_attention_decode_kernel(const float* __restrict__ q,
   attention_tiles(PagedRows{bt, npg, n_stack, group, KVH}, q, km, ke, kmi,
                   vm, ve, vmi, lengths, out, npg * kTile, KVH, G,
                   /*n_q=*/1, dk, dv);
+}
+
+__global__ void __launch_bounds__(mla::kThreads)
+mx_paged_attention_decode_mla_kernel(const float* __restrict__ q,
+                                     const int8_t* __restrict__ km,
+                                     const uint8_t* __restrict__ ke,
+                                     const uint8_t* __restrict__ kmi,
+                                     const int* __restrict__ bt,
+                                     const int* __restrict__ lengths,
+                                     float* __restrict__ out, int npg,
+                                     int n_stack, int group, int KVH, int G,
+                                     int dk, int dv) {
+  mla::mla_tiles(PagedRows{bt, npg, n_stack, group, KVH}, q, km, ke, kmi,
+                 lengths, out, npg * kTile, KVH, G, /*n_q=*/1, dk, dv);
 }
 
 struct AppendArgs {
@@ -112,6 +133,27 @@ extern "C" int mx_paged_attention_decode_launch(
       (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
       (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
       (const uint8_t*)vmi, (const int*)bt, (const int*)lengths, (float*)out,
+      npg, n_stack, group, KVH, G, dk, dv);
+  return (int)cudaGetLastError();
+}
+
+// MLA mode over the latent pools (km / ke / kmi); same return convention.
+extern "C" int mx_paged_attention_decode_mla_launch(
+    const void* q, const void* km, const void* ke, const void* kmi,
+    const void* bt, const void* lengths, void* out, int B, int npg,
+    int n_stack, int group, int KVH, int G, int dk, int dv, void* stream) {
+  if (B <= 0 || npg <= 0 || KVH <= 0 || n_stack <= 0 || group < 0 ||
+      group >= n_stack)
+    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  const int err =
+      mla::prepare(mx_paged_attention_decode_mla_kernel, G, dk, dv, &smem);
+  if (err != (int)cudaSuccess) return err;
+  const dim3 grid(B, KVH * mla::row_blocks(G));
+  mx_paged_attention_decode_mla_kernel<<<grid, mla::kThreads, smem,
+                                         (cudaStream_t)stream>>>(
+      (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
+      (const uint8_t*)kmi, (const int*)bt, (const int*)lengths, (float*)out,
       npg, n_stack, group, KVH, G, dk, dv);
   return (int)cudaGetLastError();
 }

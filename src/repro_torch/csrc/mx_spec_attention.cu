@@ -1,5 +1,5 @@
-// Speculative-verify MX8 attention, dense and paged, GQA mode, for Hopper
-// (sm_90a).
+// Speculative-verify MX8 attention, dense and paged, GQA and MLA modes,
+// for Hopper (sm_90a).
 //
 // mx_spec_attention_decode replaces the TPU kernel
 // repro/kernels/mx_spec_attention.py::mx_spec_attention_decode
@@ -24,12 +24,21 @@
 // Limits: n_q * G <= 16 query rows and n_q * G * dv <= 2048 accumulator
 // items per block (the launchers refuse the rest).
 //
+// MLA mode (the *_mla_launch entry points; the TPU kernels' qV / v_pool
+// None, v_width): the n_q positions fold into the query rows of
+// mx_mla_tile.cuh's loop the same way (R = n_q * G, e.g. 4 x 128 = 512 rows
+// in 32 blocks per batch row at deepseek-v2-236b's widths), each block
+// dequantizing a latent row once for both products.  Bound by fp32
+// operations.  Row j is bitwise the MLA decode kernel at the shifted
+// length; the paged kernel bitwise the dense one over gathered pages.
+//
 // Layouts: q (B, KVH, n_q * G, dk) pre-scaled f32, query-major rows; dense
 // K / V mantissas (B, T, KVH, d) int8 with exponent / micro bytes
 // (B, T, KVH, d/16); paged pools (P, n_stack, 128, KVH, d) walked through
 // bt (B, npg) int32 at layer `group`; lengths (B,) int32 counting the n_q
 // appended rows; out (B, KVH, n_q * G, dv) f32.
 #include "mx_attention_tile.cuh"
+#include "mx_mla_tile.cuh"
 
 namespace {
 
@@ -66,6 +75,32 @@ mx_paged_spec_attention_decode_kernel(const float* __restrict__ q,
   attention_tiles(PagedRows{bt, npg, n_stack, group, KVH}, q, km, ke, kmi,
                   vm, ve, vmi, lengths, out, npg * kTile, KVH, G, n_q, dk,
                   dv);
+}
+
+__global__ void __launch_bounds__(mla::kThreads)
+mx_spec_attention_decode_mla_kernel(const float* __restrict__ q,
+                                    const int8_t* __restrict__ km,
+                                    const uint8_t* __restrict__ ke,
+                                    const uint8_t* __restrict__ kmi,
+                                    const int* __restrict__ lengths,
+                                    float* __restrict__ out, int T, int KVH,
+                                    int G, int n_q, int dk, int dv) {
+  mla::mla_tiles(DenseRows{T, KVH}, q, km, ke, kmi, lengths, out, T, KVH, G,
+                 n_q, dk, dv);
+}
+
+__global__ void __launch_bounds__(mla::kThreads)
+mx_paged_spec_attention_decode_mla_kernel(const float* __restrict__ q,
+                                          const int8_t* __restrict__ km,
+                                          const uint8_t* __restrict__ ke,
+                                          const uint8_t* __restrict__ kmi,
+                                          const int* __restrict__ bt,
+                                          const int* __restrict__ lengths,
+                                          float* __restrict__ out, int npg,
+                                          int n_stack, int group, int KVH,
+                                          int G, int n_q, int dk, int dv) {
+  mla::mla_tiles(PagedRows{bt, npg, n_stack, group, KVH}, q, km, ke, kmi,
+                 lengths, out, npg * kTile, KVH, G, n_q, dk, dv);
 }
 
 template <class Kernel>
@@ -122,6 +157,47 @@ extern "C" int mx_paged_spec_attention_decode_launch(
       (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
       (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
       (const uint8_t*)vmi, (const int*)bt, (const int*)lengths, (float*)out,
+      npg, n_stack, group, KVH, G, n_q, dk, dv);
+  return (int)cudaGetLastError();
+}
+
+// MLA mode over the latent stream (km / ke / kmi); same return convention.
+extern "C" int mx_spec_attention_decode_mla_launch(
+    const void* q, const void* km, const void* ke, const void* kmi,
+    const void* lengths, void* out, int B, int T, int KVH, int G, int n_q,
+    int dk, int dv, void* stream) {
+  if (B <= 0 || KVH <= 0 || T <= 0 || T % kTile != 0 || G <= 0 || n_q <= 0)
+    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  const int err = mla::prepare(mx_spec_attention_decode_mla_kernel, n_q * G,
+                               dk, dv, &smem);
+  if (err != (int)cudaSuccess) return err;
+  const dim3 grid(B, KVH * mla::row_blocks(n_q * G));
+  mx_spec_attention_decode_mla_kernel<<<grid, mla::kThreads, smem,
+                                        (cudaStream_t)stream>>>(
+      (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
+      (const uint8_t*)kmi, (const int*)lengths, (float*)out, T, KVH, G, n_q,
+      dk, dv);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mx_paged_spec_attention_decode_mla_launch(
+    const void* q, const void* km, const void* ke, const void* kmi,
+    const void* bt, const void* lengths, void* out, int B, int npg,
+    int n_stack, int group, int KVH, int G, int n_q, int dk, int dv,
+    void* stream) {
+  if (B <= 0 || npg <= 0 || KVH <= 0 || n_stack <= 0 || group < 0 ||
+      group >= n_stack || G <= 0 || n_q <= 0)
+    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  const int err = mla::prepare(mx_paged_spec_attention_decode_mla_kernel,
+                               n_q * G, dk, dv, &smem);
+  if (err != (int)cudaSuccess) return err;
+  const dim3 grid(B, KVH * mla::row_blocks(n_q * G));
+  mx_paged_spec_attention_decode_mla_kernel<<<grid, mla::kThreads, smem,
+                                              (cudaStream_t)stream>>>(
+      (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
+      (const uint8_t*)kmi, (const int*)bt, (const int*)lengths, (float*)out,
       npg, n_stack, group, KVH, G, n_q, dk, dv);
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,19 @@
 """Decode attention over a dense MX8 KV cache: the wrapper around
 ``csrc/mx_attention.cu``.
 
-Replaces the TPU kernel ``repro/kernels/mx_attention.py::mx_attention_decode``
-(GQA mode).  On an H100 one decode query per head is bound by bytes: each
-valid cached K and V value is read once (9 stored bits) against ~4 flops
-per query head.  The kernel streams only the valid 128-position tiles of
-each row, one block per (row, kv head), with a flash-style fp32 softmax.
+Replaces the TPU kernel ``repro/kernels/mx_attention.py::mx_attention_decode``,
+both modes.  GQA: on an H100 one decode query per head is bound by bytes:
+each valid cached K and V value is read once (9 stored bits) against ~4
+flops per query head.  The kernel streams only the valid 128-position tiles
+of each row, one block per (row, kv head), with a flash-style fp32 softmax.
+MLA (``qV=None``, ``v_width``): one latent stream whose first ``v_width``
+lanes are the values; at deepseek-v2-236b's widths it is bound by fp32
+operations (128 heads per latent row) and runs ``csrc/mx_mla_tile.cuh``'s
+loop, a block per 16 query rows.
 
 The wrapper takes the plain version (:mod:`repro_torch.kernels.ref`) only
-for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
-MLA mode (``qV=None``) exists in the plain version only and raises on CUDA.
+for tensors on the CPU; for CUDA tensors it launches the kernel of its mode
+or raises.  ``launches`` counts GQA launches, ``mla_launches`` MLA ones.
 """
 from __future__ import annotations
 
@@ -24,11 +28,14 @@ from repro_torch.kernels import ref as _ref
 
 SOURCE = "mx_attention"
 T_BLOCK = 128
+MLA_MAX_DK = 704        # csrc/mx_mla_tile.cuh: kMaxDk (shared memory)
+MLA_MAX_DV = 512        # kMaxDv: two output columns per thread
 
 #: plain version of the same function (the oracle)
 plain = _ref.mx_attention_decode_ref
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_MLA_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _check_stream(qt: F.QuantizedTensor, B: int, T: int, KVH: int,
@@ -64,10 +71,7 @@ def mx_attention_decode(q: torch.Tensor, qK: F.QuantizedTensor,
     if q.device.type != "cuda":
         raise ValueError(f"mx_attention_decode: unsupported device {q.device}")
     if qV is None:
-        raise NotImplementedError(
-            "MLA mode (qV=None) of mx_attention_decode has no CUDA kernel "
-            "yet (ROADMAP.md, TPU kernels to port); its plain version runs "
-            "on the CPU only")
+        return _mla_decode(q, qK, lengths, scale, v_width)
     B, H, dk = q.shape
     _, T, KVH, _ = qK.shape
     if H % KVH or T % T_BLOCK:
@@ -101,5 +105,46 @@ def mx_attention_decode(q: torch.Tensor, qK: F.QuantizedTensor,
     return out
 
 
-#: launches of the CUDA kernel since the count was last reset
+def mla_checked(dk: int, v_width: Optional[int], name: str) -> int:
+    """The value width of an MLA-mode call, after the kernel's limits."""
+    if v_width is None:
+        raise ValueError(f"{name}: MLA mode (no value stream) needs v_width")
+    if dk % 16 or dk > MLA_MAX_DK or not 0 < v_width <= min(dk, MLA_MAX_DV):
+        raise ValueError(f"{name}: MLA kernel takes dk % 16 == 0, "
+                         f"dk <= {MLA_MAX_DK}, 0 < v_width <= min(dk, "
+                         f"{MLA_MAX_DV}); got dk={dk}, v_width={v_width}")
+    return int(v_width)
+
+
+def _mla_decode(q: torch.Tensor, qK: F.QuantizedTensor,
+                lengths: torch.Tensor, scale: Optional[float],
+                v_width: Optional[int]) -> torch.Tensor:
+    B, H, dk = q.shape
+    _, T, KVH, _ = qK.shape
+    if H % KVH or T % T_BLOCK:
+        raise ValueError(f"H={H} must divide by KVH={KVH}; T={T} must be a "
+                         f"multiple of {T_BLOCK}")
+    if _check_stream(qK, B, T, KVH, "latent") != dk:
+        raise ValueError(f"latent width {qK.shape[-1]} != query width {dk}")
+    dv = mla_checked(dk, v_width, "mx_attention_decode")
+    for name, t in (("latent", qK.payload["mantissa"]), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    scale = scale if scale is not None else dk ** -0.5
+    qg = (q.to(torch.float32) * scale).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty((B, H, dv), dtype=torch.float32, device=q.device)
+    fn = _build.entry(SOURCE, "mx_attention_decode_mla_launch", _MLA_ARGTYPES)
+    kp = qK.payload
+    err = fn(qg.data_ptr(), kp["mantissa"].data_ptr(),
+             kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
+             lens.data_ptr(), out.data_ptr(), B, T, KVH, H // KVH, dk, dv,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "mx_attention_decode (MLA)")
+    mx_attention_decode.mla_launches += 1
+    return out
+
+
+#: launches of the CUDA kernels (GQA, MLA) since the counts were last reset
 mx_attention_decode.launches = 0
+mx_attention_decode.mla_launches = 0

@@ -13,9 +13,13 @@ the gathered pages.
 writes one token's quantized payload rows into their page slots of every
 payload pool, in place.
 
+MLA mode (``v_pool=None``, ``v_width``) is the dense MLA kernel's loop over
+the latent pages (bitwise it over the gathered pages); a latent-only append
+is one launch over the stream's three payload pools.
+
 Each wrapper takes its plain version (:mod:`repro_torch.kernels.ref`) only
-for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
-MLA mode (``v_pool=None``) exists in the plain version only.
+for tensors on the CPU; for CUDA tensors it launches the kernel of its mode
+or raises.  ``launches`` counts GQA launches, ``mla_launches`` MLA ones.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from repro_torch.core import formats as F
 from repro_torch.core.paged import PAGE_TOKENS
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.mx_attention import mla_checked
 
 SOURCE = "mx_paged_attention"
 MAX_POOLS = 8
@@ -37,6 +42,8 @@ plain = _ref.mx_paged_attention_decode_ref
 plain_append = _ref.paged_kv_append_ref
 
 _ATTN_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+    ctypes.c_void_p]
+_MLA_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
     ctypes.c_void_p]
 _APPEND_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
     ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -87,10 +94,7 @@ def mx_paged_attention_decode(q: torch.Tensor, k_pool: F.QuantizedTensor,
         raise ValueError(f"mx_paged_attention_decode: unsupported device "
                          f"{q.device}")
     if v_pool is None:
-        raise NotImplementedError(
-            "MLA mode (v_pool=None) of mx_paged_attention_decode has no CUDA "
-            "kernel yet (ROADMAP.md, TPU kernels to port); its plain version "
-            "runs on the CPU only")
+        return _mla_paged(q, k_pool, bt, group, lengths, scale, v_width)
     B, H, dk = q.shape
     _, n_stack, KVH, wk = _check_pool(k_pool, "K")
     P, n_stack_v, KVH_v, dv = _check_pool(v_pool, "V")
@@ -127,6 +131,42 @@ def mx_paged_attention_decode(q: torch.Tensor, k_pool: F.QuantizedTensor,
              G, dk, dv, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mx_paged_attention_decode")
     mx_paged_attention_decode.launches += 1
+    return out
+
+
+def _mla_paged(q: torch.Tensor, k_pool: F.QuantizedTensor, bt: torch.Tensor,
+               group: int, lengths: torch.Tensor, scale: Optional[float],
+               v_width: Optional[int]) -> torch.Tensor:
+    B, H, dk = q.shape
+    _, n_stack, KVH, wk = _check_pool(k_pool, "latent")
+    if wk != dk or H % KVH:
+        raise ValueError(f"latent pool {k_pool.payload['mantissa'].shape} "
+                         f"does not fit q {tuple(q.shape)}")
+    dv = mla_checked(dk, v_width, "mx_paged_attention_decode")
+    if not 0 <= int(group) < n_stack:
+        raise ValueError(f"group {group} outside the pool's {n_stack}")
+    if k_pool.payload["mantissa"].device != q.device:
+        raise ValueError(f"latent pool is on "
+                         f"{k_pool.payload['mantissa'].device}, q on "
+                         f"{q.device}")
+    bt_ = _index(bt, q.device, "bt")
+    lens = _index(lengths, q.device, "lengths")
+    if bt_.dim() != 2 or bt_.shape[0] != B or lens.shape != (B,):
+        raise ValueError(f"bt {tuple(bt.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not fit batch {B}")
+    scale = scale if scale is not None else dk ** -0.5
+    qg = (q.to(torch.float32) * scale).contiguous()
+    out = torch.empty((B, H, dv), dtype=torch.float32, device=q.device)
+    fn = _build.entry(SOURCE, "mx_paged_attention_decode_mla_launch",
+                      _MLA_ARGTYPES)
+    kp = k_pool.payload
+    err = fn(qg.data_ptr(), kp["mantissa"].data_ptr(),
+             kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
+             bt_.data_ptr(), lens.data_ptr(), out.data_ptr(), B,
+             int(bt_.shape[1]), n_stack, int(group), KVH, H // KVH, dk, dv,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "mx_paged_attention_decode (MLA)")
+    mx_paged_attention_decode.mla_launches += 1
     return out
 
 
@@ -186,4 +226,5 @@ def mx_paged_kv_append(pools: Sequence[torch.Tensor],
 
 #: launches of the CUDA kernels since the counts were last reset
 mx_paged_attention_decode.launches = 0
+mx_paged_attention_decode.mla_launches = 0
 mx_paged_kv_append.launches = 0

@@ -15,10 +15,14 @@ kernel, and the paged kernel is bitwise the dense one over the gathered
 pages.
 
 Limits: ``Kq * G <= 16`` and ``Kq * G * dv <= 2048`` (``ValueError``
-beyond them, never a fallback).  Each wrapper takes its plain version
-(:mod:`repro_torch.kernels.ref`) only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.  MLA mode (``qV`` / ``v_pool``
-``None``) exists in the plain version only.
+beyond them, never a fallback).  MLA mode (``qV`` / ``v_pool`` ``None``,
+``v_width``) folds the ``Kq`` positions into the query rows of
+``csrc/mx_mla_tile.cuh``'s loop the same way, with no row limit (``Kq = 4``
+x 128 heads = 512 rows at deepseek-v2-236b's widths); row ``j`` is bitwise
+the MLA decode kernel at the shifted length.  Each wrapper takes its plain
+version (:mod:`repro_torch.kernels.ref`) only for tensors on the CPU; for
+CUDA tensors it launches the kernel of its mode or raises.  ``launches``
+counts GQA launches, ``mla_launches`` MLA ones.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ import torch
 from repro_torch.core import formats as F
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.mx_attention import T_BLOCK, _check_stream
+from repro_torch.kernels.mx_attention import (T_BLOCK, _check_stream,
+                                              mla_checked)
 from repro_torch.kernels.mx_paged_attention import _check_pool, _index
 
 SOURCE = "mx_spec_attention"
@@ -45,24 +50,22 @@ _DENSE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
 _PAGED_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
     ctypes.c_void_p]
+_MLA_DENSE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    ctypes.c_void_p]
+_MLA_PAGED_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+    ctypes.c_void_p]
 
 
-def _mla_refused(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"MLA mode (no value stream) of {name} has no CUDA kernel yet "
-        "(ROADMAP.md, TPU kernels to port); its plain version runs on the "
-        "CPU only")
-
-
-def _fold(q: torch.Tensor, KVH: int, dv: int, scale: Optional[float]
-          ) -> torch.Tensor:
+def _fold(q: torch.Tensor, KVH: int, dv: int, scale: Optional[float],
+          mla: bool = False) -> torch.Tensor:
     """(B, Kq, H, dk) -> pre-scaled (B, KVH, Kq*G, dk), query-major rows
-    (the TPU kernel's ``_fold_queries``), after checking the limits."""
+    (the TPU kernel's ``_fold_queries``), after checking the GQA limits
+    (the MLA loop has no row limit)."""
     B, Kq, H, dk = q.shape
     if H % KVH:
         raise ValueError(f"H={H} must divide by KVH={KVH}")
     G = H // KVH
-    if Kq * G > MAX_ROWS or Kq * G * dv > MAX_ACC:
+    if not mla and (Kq * G > MAX_ROWS or Kq * G * dv > MAX_ACC):
         raise ValueError(f"Kq={Kq}, G={G}, dv={dv}: the kernel takes "
                          f"Kq*G <= {MAX_ROWS} and Kq*G*dv <= {MAX_ACC}")
     scale = scale if scale is not None else dk ** -0.5
@@ -96,7 +99,7 @@ def mx_spec_attention_decode(q: torch.Tensor, qK: F.QuantizedTensor,
         return plain(q, qK, qV, lengths, scale, v_width)
     _device_checked(q, "mx_spec_attention_decode")
     if qV is None:
-        raise _mla_refused("mx_spec_attention_decode")
+        return _mla_dense(q, qK, lengths, scale, v_width)
     B, Kq, H, dk = q.shape
     _, T, KVH, _ = qK.shape
     if T % T_BLOCK:
@@ -145,7 +148,7 @@ def mx_paged_spec_attention_decode(q: torch.Tensor, k_pool: F.QuantizedTensor,
                            v_width)
     _device_checked(q, "mx_paged_spec_attention_decode")
     if v_pool is None:
-        raise _mla_refused("mx_paged_spec_attention_decode")
+        return _mla_paged(q, k_pool, bt, group, lengths, scale, v_width)
     B, Kq, H, dk = q.shape
     _, n_stack, KVH, wk = _check_pool(k_pool, "K")
     _, n_stack_v, KVH_v, dv = _check_pool(v_pool, "V")
@@ -182,6 +185,77 @@ def mx_paged_spec_attention_decode(q: torch.Tensor, k_pool: F.QuantizedTensor,
     return _unfold(out)
 
 
-#: launches of the CUDA kernels since the counts were last reset
+def _mla_dense(q: torch.Tensor, qK: F.QuantizedTensor, lengths: torch.Tensor,
+               scale: Optional[float], v_width: Optional[int]
+               ) -> torch.Tensor:
+    B, Kq, H, dk = q.shape
+    _, T, KVH, _ = qK.shape
+    if T % T_BLOCK:
+        raise ValueError(f"T={T} must be a multiple of {T_BLOCK}")
+    if _check_stream(qK, B, T, KVH, "latent") != dk:
+        raise ValueError(f"latent width {qK.shape[-1]} != query width {dk}")
+    dv = mla_checked(dk, v_width, "mx_spec_attention_decode")
+    qg = _fold(q, KVH, dv, scale, mla=True)
+    for name, t in (("latent", qK.payload["mantissa"]), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    lens = lengths.to(torch.int32).contiguous()
+    if lens.shape != (B,):
+        raise ValueError(f"lengths {tuple(lengths.shape)} for batch {B}")
+    G = H // KVH
+    out = torch.empty((B, KVH, Kq, G, dv), dtype=torch.float32,
+                      device=q.device)
+    fn = _build.entry(SOURCE, "mx_spec_attention_decode_mla_launch",
+                      _MLA_DENSE_ARGTYPES)
+    kp = qK.payload
+    err = fn(qg.data_ptr(), kp["mantissa"].data_ptr(),
+             kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
+             lens.data_ptr(), out.data_ptr(), B, T, KVH, G, Kq, dk, dv,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "mx_spec_attention_decode (MLA)")
+    mx_spec_attention_decode.mla_launches += 1
+    return _unfold(out)
+
+
+def _mla_paged(q: torch.Tensor, k_pool: F.QuantizedTensor, bt: torch.Tensor,
+               group: int, lengths: torch.Tensor, scale: Optional[float],
+               v_width: Optional[int]) -> torch.Tensor:
+    B, Kq, H, dk = q.shape
+    _, n_stack, KVH, wk = _check_pool(k_pool, "latent")
+    if wk != dk:
+        raise ValueError(f"latent pool {k_pool.payload['mantissa'].shape} "
+                         f"does not fit q {tuple(q.shape)}")
+    dv = mla_checked(dk, v_width, "mx_paged_spec_attention_decode")
+    qg = _fold(q, KVH, dv, scale, mla=True)
+    if not 0 <= int(group) < n_stack:
+        raise ValueError(f"group {group} outside the pool's {n_stack}")
+    if k_pool.payload["mantissa"].device != q.device:
+        raise ValueError(f"latent pool is on "
+                         f"{k_pool.payload['mantissa'].device}, q on "
+                         f"{q.device}")
+    bt_ = _index(bt, q.device, "bt")
+    lens = _index(lengths, q.device, "lengths")
+    if bt_.dim() != 2 or bt_.shape[0] != B or lens.shape != (B,):
+        raise ValueError(f"bt {tuple(bt.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not fit batch {B}")
+    G = H // KVH
+    out = torch.empty((B, KVH, Kq, G, dv), dtype=torch.float32,
+                      device=q.device)
+    fn = _build.entry(SOURCE, "mx_paged_spec_attention_decode_mla_launch",
+                      _MLA_PAGED_ARGTYPES)
+    kp = k_pool.payload
+    err = fn(qg.data_ptr(), kp["mantissa"].data_ptr(),
+             kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
+             bt_.data_ptr(), lens.data_ptr(), out.data_ptr(), B,
+             int(bt_.shape[1]), n_stack, int(group), KVH, G, Kq, dk, dv,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "mx_paged_spec_attention_decode (MLA)")
+    mx_paged_spec_attention_decode.mla_launches += 1
+    return _unfold(out)
+
+
+#: launches of the CUDA kernels (GQA, MLA) since the counts were last reset
 mx_spec_attention_decode.launches = 0
+mx_spec_attention_decode.mla_launches = 0
 mx_paged_spec_attention_decode.launches = 0
+mx_paged_spec_attention_decode.mla_launches = 0

@@ -10,8 +10,11 @@ with the kernels' plain versions, e.g. at smoke size:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         --smoke-size --device cpu --paged --requests 4 --max-new 6
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-236b --smoke-size --device cpu --paged --pages 6
 
-Weights are random, from ``--seed``.
+``--arch`` takes any architecture the port carries
+(``repro_torch.configs.ALL_ARCHS``).  Weights are random, from ``--seed``.
 """
 import argparse
 import sys

@@ -1,10 +1,15 @@
-"""GQA attention mixer (PyTorch port of ``repro/models/attention.py``).
+"""Attention mixers: GQA and MLA (DeepSeek-V2), PyTorch port of
+``repro/models/attention.py``.
 
 Prefill uses a blockwise ("flash") formulation in plain PyTorch -- q chunks
 outer, kv chunks inner, streaming max / sum -- so the (S, S) score matrix
 never materializes.  Decode goes through the registered SPU ops
-(``kv_append`` + ``attn_decode``) in one step, the speculative verify step
-through ``kv_append`` x n + ``spec_verify``.  MLA is not ported yet.
+(``kv_append`` + ``attn_decode`` / ``mla_decode``) in one step, the
+speculative verify step through ``kv_append`` x n + ``spec_verify``.
+
+MLA runs in absorbed form everywhere, as in the JAX package: queries are
+projected into the latent space, so the cache is one (kv_lora + rope)
+stream whose first kv_lora lanes are the values -- the kernels' MLA mode.
 """
 from __future__ import annotations
 
@@ -146,3 +151,105 @@ def attention_spec_decode(p: L.Params, x: torch.Tensor, cache,
     o, cache = OPS.attention_spec_step(cache, k, v, q, cfg.state_quant,
                                        seed=seed)
     return (o.reshape(B, n, H * dh).to(x.dtype) @ p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2), absorbed form
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, device) -> L.Params:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    dt = getattr(torch, cfg.param_dtype)
+
+    def heads(shape, fan_in):
+        w = torch.randn(shape, generator=gen, device=device)
+        return w.mul_(1.0 / np.sqrt(fan_in)).to(dt)
+
+    return {
+        "wq_a": L.dense_init(gen, d, m.q_lora, dt, device),
+        "q_norm": L.init_norm(m.q_lora, dt, device),
+        # per-head query heads: nope part + rope part
+        "wq_b": L.dense_init(gen, m.q_lora, H * (m.nope_dim + m.rope_dim),
+                             dt, device),
+        "wkv_a": L.dense_init(gen, d, m.kv_lora + m.rope_dim, dt, device),
+        "kv_norm": L.init_norm(m.kv_lora, dt, device),
+        # absorbed projections: W_UK (H, nope, kv_lora), W_UV (H, kv_lora, v)
+        "w_uk": heads((H, m.nope_dim, m.kv_lora), m.nope_dim),
+        "w_uv": heads((H, m.kv_lora, m.v_dim), m.kv_lora),
+        "wo": L.dense_init(gen, H * m.v_dim, d, dt, device,
+                           1.0 / np.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def _mla_queries(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
+    """Absorbed queries (B, S, H, kv_lora + rope)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    ql = L.apply_norm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps)
+    qh = (ql @ p["wq_b"]).reshape(B, S, cfg.n_heads, m.nope_dim + m.rope_dim)
+    q_nope, q_rope = qh[..., :m.nope_dim], qh[..., m.nope_dim:]
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    # absorb W_UK: q_eff = q_nope @ W_UK -> (B, S, H, kv_lora)
+    q_eff = torch.einsum("bshn,hnc->bshc", q_nope, p["w_uk"])
+    return torch.cat([q_eff, q_rope], dim=-1)
+
+
+def mla_cache_stream(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
+    """Latent cache stream (B, S, kv_lora + rope): values are the first
+    kv_lora lanes."""
+    m = cfg.mla
+    kv = x @ p["wkv_a"]
+    c = L.apply_norm(p["kv_norm"], kv[..., :m.kv_lora], cfg.norm_eps)
+    k_rope = L.apply_rope(kv[..., m.kv_lora:], positions, cfg.rope_theta)
+    return torch.cat([c, k_rope], dim=-1)
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.mla.nope_dim + cfg.mla.rope_dim) ** -0.5
+
+
+def mla_forward(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence MLA in absorbed form (one latent KV stream)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    q = _mla_queries(p, x, cfg, positions)              # (B, S, H, cw)
+    kv = mla_cache_stream(p, x, cfg, positions)[:, :, None, :]   # KVH = 1
+    ctx = blockwise_attention(q, kv, kv[..., :m.kv_lora],
+                              scale=_mla_scale(cfg),
+                              q_chunk=cfg.attn_q_chunk,
+                              kv_chunk=cfg.attn_kv_chunk)  # (B,S,H,kv_lora)
+    o = torch.einsum("bshc,hcv->bshv", ctx, p["w_uv"])
+    return o.reshape(B, S, cfg.n_heads * m.v_dim) @ p["wo"]
+
+
+def mla_decode(p: L.Params, x: torch.Tensor, cache, cfg: ModelConfig,
+               positions: torch.Tensor, seed: int) -> Tuple[torch.Tensor,
+                                                            object]:
+    """One-token MLA decode: x (B, 1, d) -> (out (B, 1, d), cache).  The
+    same op step as GQA; the cache's ``v_width`` selects ``mla_decode``."""
+    m = cfg.mla
+    B = x.shape[0]
+    q = _mla_queries(p, x, cfg, positions).reshape(B, cfg.n_heads, -1)
+    ckv = mla_cache_stream(p, x, cfg, positions)[:, :, None, :]  # (B,1,1,cw)
+    ctx, cache = OPS.attention_decode_step(cache, ckv, None, q,
+                                           cfg.state_quant,
+                                           scale=_mla_scale(cfg), seed=seed)
+    o = torch.einsum("bhc,hcv->bhv", ctx.to(x.dtype), p["w_uv"])
+    return o.reshape(B, 1, cfg.n_heads * m.v_dim) @ p["wo"], cache
+
+
+def mla_spec_decode(p: L.Params, x: torch.Tensor, cache, cfg: ModelConfig,
+                    positions: torch.Tensor, seed: int
+                    ) -> Tuple[torch.Tensor, object]:
+    """Speculative MLA decode over n positions (see
+    :func:`attention_spec_decode`)."""
+    m = cfg.mla
+    B, n, _ = x.shape
+    q = _mla_queries(p, x, cfg, positions)                # (B, n, H, cw)
+    ckv = mla_cache_stream(p, x, cfg, positions)[:, :, None, :]  # (B,n,1,cw)
+    ctx, cache = OPS.attention_spec_step(cache, ckv, None, q, cfg.state_quant,
+                                         scale=_mla_scale(cfg), seed=seed)
+    o = torch.einsum("bnhc,hcv->bnhv", ctx.to(x.dtype), p["w_uv"])
+    return o.reshape(B, n, cfg.n_heads * m.v_dim) @ p["wo"], cache

@@ -3,9 +3,11 @@
 ``params_from_jax(tree, cfg, device)`` takes the JAX parameter tree already
 converted to numpy (``jax.tree.map(np.asarray, init_model(key, cfg))``):
 it unstacks the ``(G, ...)`` group axis of ``groups[pos]`` into the port's
-per-layer lists and copies ``embed``, ``shared``, ``final_norm`` and
-``lm_head`` (absent when the embedding is tied) leaf for leaf.  Nothing
-here imports JAX; the tree is plain dicts, tuples and numpy arrays.
+per-layer lists (MoE experts keep their ``(E, d_in, d_out)`` stacks),
+lists the unstacked ``prelude`` layers, and copies ``embed``, ``shared``,
+``final_norm`` and ``lm_head`` (absent when the embedding is tied) leaf for
+leaf.  Nothing here imports JAX; the tree is plain dicts, tuples and numpy
+arrays.
 """
 from __future__ import annotations
 
@@ -34,6 +36,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     out = {"groups": [[_to_torch(tree["groups"][pos], device, index=g)
                        for pos in range(len(cfg.pattern))]
                       for g in range(cfg.n_groups)]}
+    if cfg.prelude:
+        out["prelude"] = [_to_torch(layer, device)
+                          for layer in tree["prelude"]]
     for name in ("embed", "shared", "final_norm", "lm_head"):
         if name in tree:
             out[name] = _to_torch(tree[name], device)

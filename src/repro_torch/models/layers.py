@@ -1,8 +1,11 @@
 """Core NN layers (functional, dict-of-tensor params) -- PyTorch port of
 ``repro/models/layers.py`` for the served architectures: RMSNorm, the gated
-RMSNorm of Mamba-2, RoPE and the SwiGLU feed-forward.  LayerNorm, the other
-FFN kinds and MoE follow with the architectures that use them."""
+RMSNorm of Mamba-2, RoPE, the SwiGLU feed-forward and the DeepSeek-style
+mixture of experts.  LayerNorm and the other FFN kinds follow with the
+architectures that use them."""
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -65,11 +68,13 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """x: (B, S, H, dh); positions: (B, S)."""
+    """x: (B, S, H, dh) or (B, S, dh); positions: (B, S)."""
     dh = x.shape[-1]
     freqs = torch.from_numpy(np.asarray(rope_freqs(dh, theta), np.float32)
                              ).to(x.device)
-    ang = (positions.to(torch.float32)[..., None] * freqs)[..., None, :]
+    ang = positions.to(torch.float32)[..., None] * freqs
+    if x.dim() == ang.dim() + 1:                       # head axis present
+        ang = ang[..., None, :]
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -80,8 +85,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # feed-forward (SwiGLU)
 # ---------------------------------------------------------------------------
 
-def init_ffn(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    d, dff = cfg.d_model, cfg.d_ff
+def init_ffn(gen: torch.Generator, cfg: ModelConfig, device,
+             d_ff: Optional[int] = None) -> Params:
+    d, dff = cfg.d_model, (d_ff or cfg.d_ff)
     dt = getattr(torch, cfg.param_dtype)
     return {"wi": dense_init(gen, d, dff, dt, device),
             "wg": dense_init(gen, d, dff, dt, device),
@@ -91,3 +97,109 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 def apply_ffn(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (Fn.silu(x @ p["wi"]) * (x @ p["wg"])) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts (the JAX package's single-shard path)
+# ---------------------------------------------------------------------------
+#
+# Routing as in the JAX package: softmax over the router logits, top-k,
+# weights renormalised; each expert takes at most
+# ``cap = max(ceil(N * k / E * capacity_factor), 4)`` entries, claimed in
+# token order (entry ``n * k + i``), the rest dropped.  A (E, cap) table of
+# source tokens turns dispatch into one gather, the experts run as batched
+# matmuls over every expert (as the JAX package's einsums do), and shared
+# experts are added after.  The combine sums each token's kept entries in
+# ascending expert order -- the order of the JAX package's scatter-add --
+# with no atomics, so it is deterministic on the card.
+
+def _stack_init(gen: torch.Generator, n: int, d_in: int, d_out: int, dtype,
+                device, scale: float = 1.0) -> torch.Tensor:
+    w = torch.randn((n, d_in, d_out), generator=gen, device=device)
+    return w.mul_(scale / np.sqrt(d_in)).to(dtype)
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    mc = cfg.moe
+    d, de = cfg.d_model, mc.d_expert
+    dt = getattr(torch, cfg.param_dtype)
+    scale_out = 1.0 / np.sqrt(2 * cfg.n_layers)
+    p = {
+        "router": dense_init(gen, d, mc.n_experts, torch.float32, device),
+        "wi": _stack_init(gen, mc.n_experts, d, de, dt, device),
+        "wg": _stack_init(gen, mc.n_experts, d, de, dt, device),
+        "wo": _stack_init(gen, mc.n_experts, de, d, dt, device, scale_out),
+    }
+    if mc.n_shared:
+        p["shared"] = init_ffn(gen, cfg, device, d_ff=de * mc.n_shared)
+    return p
+
+
+def moe_capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    """Entries one expert takes per call (the JAX package's formula)."""
+    mc = cfg.moe
+    cap = int(np.ceil(n_tokens * mc.top_k / mc.n_experts
+                      * mc.capacity_factor))
+    return max(cap, 4)
+
+
+def _moe_dispatch_compute(x_flat: torch.Tensor, sel: torch.Tensor,
+                          w: torch.Tensor, wi, wg, wo,
+                          cap: int) -> torch.Tensor:
+    """Every expert's contribution for all tokens.  x_flat (N, d); sel
+    (N, k) expert ids; w (N, k) combine weights; wi/wg/wo (E, ...)."""
+    N, d = x_flat.shape
+    k = sel.shape[-1]
+    E = wi.shape[0]
+    dev = x_flat.device
+    sel_f = sel.reshape(-1).long()                               # (N*k,)
+    entry_tok = torch.arange(N, device=dev).repeat_interleave(k)
+    # slot within expert: rank among earlier entries of the same expert
+    oh = Fn.one_hot(sel_f, E)                                    # (N*k, E)
+    slot = (oh.cumsum(0) - oh).gather(1, sel_f[:, None])[:, 0]
+    keep = slot < cap
+    e_idx = torch.where(keep, sel_f, E)
+    s_idx = torch.where(keep, slot, cap)
+    # destination -> source token index (N = the zero padding row)
+    src = torch.full((E + 1, cap + 1), N, dtype=torch.long, device=dev)
+    src[e_idx[keep], s_idx[keep]] = entry_tok[keep]
+    src = src[:E, :cap]
+    x_pad = torch.cat([x_flat, x_flat.new_zeros((1, d))])
+    buf = x_pad[src]                                             # (E, cap, d)
+    h = Fn.silu(torch.bmm(buf, wi)) * torch.bmm(buf, wg)
+    y_e = torch.bmm(h, wo)                                       # (E, cap, d)
+    # combine: each entry's weighted output, summed per token in ascending
+    # expert order (dropped entries contribute nothing)
+    got = y_e[e_idx.clamp(max=E - 1), s_idx.clamp(max=cap - 1)]
+    contrib = torch.where(keep[:, None], got * w.reshape(-1, 1).to(got.dtype),
+                          torch.zeros_like(got)).reshape(N, k, d)
+    order = sel.argsort(dim=-1)
+    contrib = contrib.gather(1, order[..., None].expand(N, k, d))
+    out = contrib[:, 0]
+    for i in range(1, k):
+        out = out + contrib[:, i]
+    return out
+
+
+def _moe_local(x: torch.Tensor, router, wi, wg, wo,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Route + dispatch + expert FFNs for all tokens of ``x`` (B, S, d)."""
+    mc = cfg.moe
+    B, S, d = x.shape
+    x_flat = x.reshape(-1, d)
+    logits = (x_flat.to(torch.float32) @ router).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    w, sel = torch.topk(probs, mc.top_k, dim=-1)                 # (N, k)
+    w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+    out = _moe_dispatch_compute(x_flat, sel, w, wi, wg, wo,
+                                moe_capacity(x_flat.shape[0], cfg))
+    return out.reshape(B, S, d).to(x.dtype)
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """MoE FFN.  x: (B, S, d).  The JAX package's expert-parallel branch
+    (``shard_map`` over a mesh) has no counterpart in the one-card port."""
+    out = _moe_local(x, p["router"], p["wi"], p["wg"], p["wo"], cfg)
+    if cfg.moe.n_shared:
+        out = out + apply_ffn(p["shared"], x)
+    return out

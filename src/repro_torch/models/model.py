@@ -1,11 +1,15 @@
 """Model assembly: block patterns, prefill and decode (PyTorch port of
 ``repro/models/model.py``).
 
-A model is a repeating ``pattern`` of mixer blocks, optionally followed by
-a weight-shared attention block per group (Zamba2).  Where the JAX package
-stacks group parameters and caches along a leading axis and scans, the
-port keeps per-layer lists and loops: ``params["groups"][g][pos]`` and
-``caches[g][pos]`` (the shared block's cache last in each group).
+A model is an optional ``prelude`` of leading layers (DeepSeek-V2's
+dense-FFN first layer) and a repeating ``pattern`` of mixer blocks,
+optionally followed by a weight-shared attention block per group (Zamba2).
+Where the JAX package stacks group parameters and caches along a leading
+axis and scans, the port keeps per-layer lists and loops:
+``params["groups"][g][pos]`` and ``caches[g][pos]`` (the shared block's
+cache last in each group).  A model with a prelude keeps the JAX package's
+split, ``params["prelude"][i]`` and caches ``{"prelude": [...], "groups":
+caches[g][pos]}`` (:func:`split_caches` / :func:`join_caches`).
 
   * prefill -- full-sequence forward that also builds the decode caches
   * decode  -- one token through the quantized caches (the Pimba fast path):
@@ -15,9 +19,10 @@ port keeps per-layer lists and loops: ``params["groups"][g][pos]`` and
     in one pass over the paged views, with per-position state snapshots so
     the serving pool can roll rejected positions back bit-exactly
 
-Decode seeds are the JAX package's exactly: per group
-``uint32(seed) + g * 1000003``, then ``+ pos + 1`` per element and ``+ 99``
-for the shared block, all wrapping in uint32.
+Decode seeds are the JAX package's exactly: ``uint32(seed) + 7919 * (i +
+1)`` for prelude layer ``i``; per group ``uint32(seed) + g * 1000003``,
+then ``+ pos + 1`` per element and ``+ 99`` for the shared block, all
+wrapping in uint32.
 """
 from __future__ import annotations
 
@@ -36,8 +41,9 @@ from repro_torch.models.config import ModelConfig
 Params = dict
 _NO_FFN = ("mamba2", "mlstm", "slstm")
 _SEED_STRIDE = 1000003
+_PRELUDE_SEED = 7919
 _U32 = 0xFFFFFFFF
-_PORTED = ("attn", "mamba2")
+_PORTED = ("attn", "mamba2", "mla")
 
 
 def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
@@ -46,18 +52,19 @@ def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for configuration features the port does not carry yet."""
-    missing = sorted(set(cfg.pattern) - set(_PORTED))
-    if missing or cfg.prelude:
+    missing = sorted(set(cfg.pattern + cfg.prelude) - set(_PORTED))
+    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: mixers {missing or list(cfg.prelude)} are not "
-            "ported yet (ROADMAP.md: the other mixers and configs)")
-    if cfg.ffn_kind not in ("swiglu", "none") or cfg.norm_kind != "rmsnorm" \
+            f"{cfg.name}: mixers {missing} are not ported yet (ROADMAP.md: "
+            "the other mixers and configs)")
+    if cfg.ffn_kind not in ("swiglu", "moe", "none") \
+            or cfg.norm_kind != "rmsnorm" \
             or cfg.pos_emb not in ("rope", "none") or cfg.frontend is not None \
             or cfg.prefix_len or cfg.encoder_only or not cfg.causal:
         raise NotImplementedError(
-            f"{cfg.name}: only causal rmsnorm models with swiglu (or no) FFN "
-            "and rope (or no) positions are ported; MoE, other FFNs and "
-            "norms, frontends and encoders follow (ROADMAP.md)")
+            f"{cfg.name}: only causal rmsnorm models with swiglu, MoE (swiglu "
+            "experts) or no FFN and rope (or no) positions are ported; other "
+            "FFNs and norms, frontends and encoders follow (ROADMAP.md)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -76,17 +83,36 @@ def resolve_device(device=None) -> torch.device:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_element(gen, cfg: ModelConfig, kind: str, device) -> Params:
+def _init_element(gen, cfg: ModelConfig, kind: str, device,
+                  dense_ffn: bool = False) -> Params:
+    """One layer; ``dense_ffn`` (prelude layers) gives an MoE model's layer
+    a dense FFN ``moe.first_dense_ff`` wide."""
     dt = getattr(torch, cfg.param_dtype)
     p: Params = {"norm": L.init_norm(cfg.d_model, dt, device)}
     if kind == "attn":
         p["mixer"] = ATT.init_attention(gen, cfg, device)
+    elif kind == "mla":
+        p["mixer"] = ATT.init_mla(gen, cfg, device)
     else:
         p["mixer"] = SSM.init_mamba2(gen, cfg, device)
     if _has_ffn(cfg, kind):
         p["ffn_norm"] = L.init_norm(cfg.d_model, dt, device)
-        p["ffn"] = L.init_ffn(gen, cfg, device)
+        if cfg.ffn_kind != "moe":
+            p["ffn"] = L.init_ffn(gen, cfg, device)
+        elif dense_ffn:
+            p["ffn"] = L.init_ffn(
+                gen, cfg, device,
+                d_ff=cfg.moe.first_dense_ff or cfg.moe.d_expert)
+        else:
+            p["ffn"] = L.init_moe(gen, cfg, device)
     return p
+
+
+def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The element's FFN: MoE where its params route, else dense SwiGLU."""
+    if cfg.ffn_kind == "moe" and "router" in p:
+        return L.apply_moe(p, h, cfg)
+    return L.apply_ffn(p, h)
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
@@ -99,10 +125,14 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     dt = getattr(torch, cfg.param_dtype)
     params: Params = {
         "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, dt,
-                              device),
-        "groups": [[_init_element(generator, cfg, kind, device)
-                    for kind in cfg.pattern] for _ in range(cfg.n_groups)],
-    }
+                              device)}
+    if cfg.prelude:
+        params["prelude"] = [_init_element(generator, cfg, kind, device,
+                                           dense_ffn=True)
+                             for kind in cfg.prelude]
+    params["groups"] = [[_init_element(generator, cfg, kind, device)
+                         for kind in cfg.pattern]
+                        for _ in range(cfg.n_groups)]
     if cfg.shared_attn:
         params["shared"] = {
             "norm": L.init_norm(cfg.d_model, dt, device),
@@ -129,21 +159,25 @@ def params_device(params: Params) -> torch.device:
 # prefill
 # ---------------------------------------------------------------------------
 
-def _build_kv_cache(k: torch.Tensor, v: torch.Tensor,
-                    cfg: ModelConfig) -> AC.KVCache:
-    """Quantize full-sequence K/V into a cache with tile-aligned capacity."""
+def _build_kv_cache(k: torch.Tensor, v, cfg: ModelConfig,
+                    v_width=None) -> AC.KVCache:
+    """Quantize full-sequence K/V (``v`` None: an MLA latent stream) into a
+    cache with tile-aligned capacity."""
     B, S = k.shape[:2]
     pad = -(-S // AC.PAGE_TOKENS) * AC.PAGE_TOKENS - S
-    if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+
+    def store(a):
+        if a is None:
+            return None
+        if pad:
+            a = torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
+        if sq.quantized:
+            return F.quantize(a, sq.fmt)
+        return a.to(F.FLOAT_DTYPES[sq.fmt])
+
     sq = cfg.state_quant
     lengths = torch.full((B,), S, dtype=torch.int32, device=k.device)
-    if sq.quantized:
-        return AC.KVCache(F.quantize(k, sq.fmt), F.quantize(v, sq.fmt),
-                          lengths, sq.fmt)
-    dt = F.FLOAT_DTYPES[sq.fmt]
-    return AC.KVCache(k.to(dt), v.to(dt), lengths, sq.fmt)
+    return AC.KVCache(store(k), store(v), lengths, sq.fmt, v_width)
 
 
 def _attn_block_forward(p: Params, x, cfg: ModelConfig, positions):
@@ -158,12 +192,17 @@ def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
     h = L.apply_norm(p["norm"], x, cfg.norm_eps)
     if kind == "attn":
         y, cache = _attn_block_forward(p["mixer"], h, cfg, positions)
+    elif kind == "mla":
+        y = ATT.mla_forward(p["mixer"], h, cfg, positions)
+        ckv = ATT.mla_cache_stream(p["mixer"], h, cfg, positions)
+        cache = _build_kv_cache(ckv[:, :, None, :], None, cfg,
+                                v_width=cfg.mla.kv_lora)
     else:
         y, cache = SSM.mamba2_forward(p["mixer"], h, cfg)
     x = x + y
     if _has_ffn(cfg, kind):
         h = L.apply_norm(p["ffn_norm"], x, cfg.norm_eps)
-        x = x + L.apply_ffn(p["ffn"], h)
+        x = x + _ffn(p["ffn"], h, cfg)
     return x, cache
 
 
@@ -184,6 +223,11 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     shared = params.get("shared")
+    prelude = []
+    for i, kind in enumerate(cfg.prelude):
+        x, c = _element_forward(params["prelude"][i], x, cfg, kind,
+                                positions)
+        prelude.append(c)
     caches = []
     for g in range(cfg.n_groups):
         group = []
@@ -196,12 +240,25 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             group.append(c)
         caches.append(group)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
-    return x[:, -1] @ _lm_head(params, cfg), caches
+    return x[:, -1] @ _lm_head(params, cfg), join_caches(prelude, caches)
 
 
 # ---------------------------------------------------------------------------
 # decode caches
 # ---------------------------------------------------------------------------
+
+def split_caches(caches) -> Tuple[List[Any], List[List[Any]]]:
+    """(prelude caches, group caches ``[g][pos]``) of a cache tree."""
+    if isinstance(caches, dict):
+        return caches["prelude"], caches["groups"]
+    return [], caches
+
+
+def join_caches(prelude: List[Any], groups: List[List[Any]]):
+    """Inverse of :func:`split_caches`: a model without a prelude keeps the
+    bare ``[g][pos]`` list."""
+    return {"prelude": prelude, "groups": groups} if prelude else groups
+
 
 def _kv_cache(cfg: ModelConfig, B: int, cap: int, device) -> AC.KVCache:
     return AC.init_kv_cache(B, cap, cfg.n_kv_heads, cfg.head_dim,
@@ -209,14 +266,20 @@ def _kv_cache(cfg: ModelConfig, B: int, cap: int, device) -> AC.KVCache:
 
 
 def init_decode_caches(cfg: ModelConfig, B: int, cache_capacity: int,
-                       device=None) -> List[List[Any]]:
-    """Zeroed caches, ``caches[g][pos]`` (shared block's cache last)."""
+                       device=None):
+    """Zeroed caches, ``caches[g][pos]`` (shared block's cache last), with
+    the prelude's split off as :func:`join_caches` builds it."""
     check_supported(cfg)
     device = resolve_device(device)
 
     def one_element(kind):
         if kind == "attn":
             return _kv_cache(cfg, B, cache_capacity, device)
+        if kind == "mla":
+            return AC.init_kv_cache(B, cache_capacity, 1,
+                                    cfg.mla.cache_width, cfg.state_quant,
+                                    device=device,
+                                    mla_v_width=cfg.mla.kv_lora)
         return SSM.mamba2_init_state(B, cfg, device)
 
     caches = []
@@ -225,27 +288,36 @@ def init_decode_caches(cfg: ModelConfig, B: int, cache_capacity: int,
         if cfg.shared_attn:
             group.append(_kv_cache(cfg, B, cache_capacity, device))
         caches.append(group)
-    return caches
+    return join_caches([one_element(k) for k in cfg.prelude], caches)
+
+
+def _layers(caches) -> List[Any]:
+    """Every layer's cache, prelude first."""
+    prelude, groups = split_caches(caches)
+    return list(prelude) + [c for group in groups for c in group]
 
 
 def iter_kv_caches(caches):
-    for group in caches:
-        for c in group:
-            if isinstance(c, AC.KVCache):
-                yield c
+    for c in _layers(caches):
+        if isinstance(c, AC.KVCache):
+            yield c
 
 
 def set_cache_lengths(caches, lengths: torch.Tensor):
     """Overwrite every KVCache.lengths (e.g. decode over a warm cache)."""
-    out = []
-    for group in caches:
-        out.append([AC.KVCache(c.k, c.v, lengths.to(torch.int32).clone(),
-                               c.fmt)
-                    if isinstance(c, AC.KVCache) else c for c in group])
-    return out
+    def fix(c):
+        if isinstance(c, AC.KVCache):
+            return AC.KVCache(c.k, c.v, lengths.to(torch.int32).clone(),
+                              c.fmt, c.v_width)
+        return c
+    prelude, groups = split_caches(caches)
+    return join_caches([fix(c) for c in prelude],
+                       [[fix(c) for c in group] for group in groups])
 
 
 def _copy_stream(dst, src, slot: int, n_time: int):
+    if dst is None:                      # an MLA cache has no value stream
+        return
     if isinstance(dst, F.QuantizedTensor):
         for f, a in dst.payload.items():
             a[slot, :n_time] = src.payload[f][0, :n_time]
@@ -262,21 +334,20 @@ def write_row(caches, row_caches, slot: int, length: int) -> None:
     positions (later positions of the row are masked by the length);
     recurrent state and conv tails copy whole.
     """
-    for group, row_group in zip(caches, row_caches):
-        for c, r in zip(group, row_group):
-            if isinstance(c, AC.KVCache):
-                n = min(r.max_len, c.max_len)
-                _copy_stream(c.k, r.k, slot, n)
-                _copy_stream(c.v, r.v, slot, n)
-                c.lengths[slot] = length
-                continue
-            for name, leaf in c.items():
-                src = r[name]
-                if isinstance(leaf, F.QuantizedTensor):
-                    for f, a in leaf.payload.items():
-                        a[slot] = src.payload[f][0]
-                else:
-                    leaf[slot] = src[0]
+    for c, r in zip(_layers(caches), _layers(row_caches)):
+        if isinstance(c, AC.KVCache):
+            n = min(r.max_len, c.max_len)
+            _copy_stream(c.k, r.k, slot, n)
+            _copy_stream(c.v, r.v, slot, n)
+            c.lengths[slot] = length
+            continue
+        for name, leaf in c.items():
+            src = r[name]
+            if isinstance(leaf, F.QuantizedTensor):
+                for f, a in leaf.payload.items():
+                    a[slot] = src.payload[f][0]
+            else:
+                leaf[slot] = src[0]
 
 
 # ---------------------------------------------------------------------------
@@ -289,13 +360,20 @@ def _element_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
     if kind == "attn":
         y, cache = ATT.attention_decode(p["mixer"], h, cache, cfg,
                                         positions[:, None], seed)
+    elif kind == "mla":
+        y, cache = ATT.mla_decode(p["mixer"], h, cache, cfg,
+                                  positions[:, None], seed)
     else:
         y, cache = SSM.mamba2_decode(p["mixer"], h, cache, cfg, seed)
     x = x + y
     if _has_ffn(cfg, kind):
         h = L.apply_norm(p["ffn_norm"], x, cfg.norm_eps)
-        x = x + L.apply_ffn(p["ffn"], h)
+        x = x + _ffn(p["ffn"], h, cfg)
     return x, cache
+
+
+def _prelude_seed(seed: int, i: int) -> int:
+    return (int(seed) + _PRELUDE_SEED * (i + 1)) & _U32
 
 
 @torch.no_grad()
@@ -310,6 +388,12 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = params["embed"][tokens][:, None]                       # (B,1,d)
     positions = lengths
     shared = params.get("shared")
+    prelude, caches = split_caches(caches)
+    new_prelude = []
+    for i, kind in enumerate(cfg.prelude):
+        x, c = _element_decode(params["prelude"][i], x, prelude[i], cfg,
+                               kind, positions, _prelude_seed(seed, i))
+        new_prelude.append(c)
     new_caches = []
     for g in range(cfg.n_groups):
         seed_g = (int(seed) + g * _SEED_STRIDE) & _U32
@@ -331,7 +415,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             group.append(c)
         new_caches.append(group)
     x = L.apply_norm(params["final_norm"], x[:, 0], cfg.norm_eps)
-    return x @ _lm_head(params, cfg), new_caches
+    return x @ _lm_head(params, cfg), join_caches(new_prelude, new_caches)
 
 
 def _stack_position(view, layers: List[Any]):
@@ -351,7 +435,8 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """One decode step over block-table-native paged cache views.
 
     ``caches[pos]`` is one view per pattern position (the shared block's
-    last), serving all ``G`` layers of it: a
+    last; a prelude's views split off as :func:`join_caches` does, one per
+    prelude layer), serving all ``G`` layers of it: a
     :class:`~repro_torch.core.paged.PagedKVCache` for attention, and for a
     mixer a dict whose ``"S"`` is a
     :class:`~repro_torch.core.paged.PagedState` and whose other leaves (the
@@ -364,6 +449,13 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = params["embed"][tokens][:, None]                       # (B,1,d)
     positions = lengths
     shared = params.get("shared")
+    prelude, caches = split_caches(caches)
+    new_prelude = []
+    for i, kind in enumerate(cfg.prelude):
+        x, c = _element_decode(params["prelude"][i], x,
+                               PG.with_group(prelude[i], 0, lengths), cfg,
+                               kind, positions, _prelude_seed(seed, i))
+        new_prelude.append(_stack_position(prelude[i], [c]))
     per_layer = [[] for _ in caches]
     for g in range(cfg.n_groups):
         seed_g = (int(seed) + g * _SEED_STRIDE) & _U32
@@ -384,7 +476,7 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     new_caches = [_stack_position(v, layers)
                   for v, layers in zip(caches, per_layer)]
     x = L.apply_norm(params["final_norm"], x[:, 0], cfg.norm_eps)
-    return x @ _lm_head(params, cfg), new_caches
+    return x @ _lm_head(params, cfg), join_caches(new_prelude, new_caches)
 
 
 # ---------------------------------------------------------------------------
@@ -437,6 +529,10 @@ def _element_spec_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
         y, cache = ATT.attention_spec_decode(p["mixer"], h, cache, cfg,
                                              positions, seed)
         snaps = None
+    elif kind == "mla":
+        y, cache = ATT.mla_spec_decode(p["mixer"], h, cache, cfg, positions,
+                                       seed)
+        snaps = None
     else:
         ys, snaps = [], []
         for i in range(n):
@@ -449,7 +545,7 @@ def _element_spec_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
     x = x + y
     if _has_ffn(cfg, kind):
         h = L.apply_norm(p["ffn_norm"], x, cfg.norm_eps)
-        x = x + L.apply_ffn(p["ffn"], h)
+        x = x + _ffn(p["ffn"], h, cfg)
     return x, cache, snaps
 
 
@@ -481,13 +577,22 @@ def paged_spec_decode_step(params: Params, cfg: ModelConfig,
     Returns ``(logits (B, n, V), views, snaps)``: ``snaps[pos]`` is None for
     attention positions and, for a mixer position, ``{path: (n, B, G,
     ...)}`` -- the state rows after each position, which the pool's
-    ``commit_select`` restores per row.
+    ``commit_select`` restores per row.  A prelude's views and snapshots
+    split off as :func:`join_caches` does (``G = 1`` each).
     """
     B, n = tokens.shape
     x = params["embed"][tokens]                                # (B,n,d)
     positions = lengths[:, None] + torch.arange(
         n, dtype=lengths.dtype, device=lengths.device)[None]
     shared = params.get("shared")
+    prelude, caches = split_caches(caches)
+    new_prelude, prelude_snaps = [], []
+    for i, kind in enumerate(cfg.prelude):
+        x, c, sn = _element_spec_decode(
+            params["prelude"][i], x, PG.with_group(prelude[i], 0, lengths),
+            cfg, kind, positions, _prelude_seed(seed, i))
+        new_prelude.append(_stack_position(prelude[i], [c]))
+        prelude_snaps.append(None if sn is None else _stack_snaps([sn]))
     per_layer = [[] for _ in caches]
     layer_snaps = [[] for _ in caches]
     for g in range(cfg.n_groups):
@@ -512,4 +617,5 @@ def paged_spec_decode_step(params: Params, cfg: ModelConfig,
                   for v, layers in zip(caches, per_layer)]
     snaps = [_stack_snaps(s) if s else None for s in layer_snaps]
     x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
-    return x @ _lm_head(params, cfg), new_caches, snaps
+    return (x @ _lm_head(params, cfg), join_caches(new_prelude, new_caches),
+            join_caches(prelude_snaps, snaps))

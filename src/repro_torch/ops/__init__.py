@@ -27,7 +27,8 @@ from repro_torch.ops.state_update import (StateLike, init_state,
                                           plan_state_update_dims,
                                           state_update_step)
 from repro_torch.ops.attention import (attention_decode_step, attn_decode,
-                                       kv_append, plan_attn_decode_dims)
+                                       attn_kind_of, kv_append,
+                                       plan_attn_decode_dims)
 from repro_torch.ops import paged_ops  # noqa: F401  (registers layout="paged")
 from repro_torch.ops.spec_verify import attention_spec_step, spec_attend
 from repro_torch.ops.model_traffic import (OpTrafficEntry, decode_op_plans,
@@ -40,7 +41,7 @@ __all__ = [
     "plan", "register", "registered", "resolve_backend", "traffic",
     "StateLike", "init_state", "plan_state_update", "plan_state_update_dims",
     "state_update_step",
-    "attention_decode_step", "attn_decode", "kv_append",
+    "attention_decode_step", "attn_decode", "attn_kind_of", "kv_append",
     "plan_attn_decode_dims",
     "attention_spec_step", "spec_attend",
     "OpTrafficEntry", "decode_op_plans", "decode_traffic_by_kind",

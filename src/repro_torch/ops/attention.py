@@ -2,18 +2,20 @@
 
 Mirrors ``repro/ops/attention.py``:
 
-``kv_append``   -- quantize the new token's K/V rows (SR seeds ``seed`` and
-                   ``seed + 1``) and scatter them into the cache at each
-                   row's length.  Plain PyTorch (a quantize and a scatter,
-                   as the JAX package leaves it to XLA), written in place.
+``kv_append``   -- quantize the new token's K/V (or MLA latent) rows (SR
+                   seeds ``seed`` and ``seed + 1``) and scatter them into
+                   the cache at each row's length.  Plain PyTorch (a
+                   quantize and a scatter, as the JAX package leaves it to
+                   XLA), written in place.
 ``attn_decode`` -- one-token GQA attention against the packed cache:
                    ``cuda`` (the MX8 kernel) or ``torch`` (every format).
+``mla_decode``  -- the MLA variant: a single latent stream whose first
+                   ``v_width`` lanes double as values (the kernel's MLA
+                   mode).  The cache's ``v_width`` selects it.
 
 The cache container picks the layout: a dense ``KVCache`` dispatches the
 ops here, a block-table ``PagedKVCache`` the ``layout="paged"`` ops of
-``repro_torch/ops/paged_ops.py``.  The MLA variant (``mla_decode``) follows
-with the MLA mode of the attention kernel (ROADMAP.md); its plain version is
-``ref.mx_attention_decode_ref``.
+``repro_torch/ops/paged_ops.py``.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ class KVAppendTorch(SpuOp):
 
     def execute(self, cache: AC.KVCache, inputs: Dict[str, Any],
                 plan: OpPlan) -> Tuple[AC.KVCache, None]:
-        k_new, v_new = inputs["k"], inputs["v"]
+        k_new, v_new = inputs["k"], inputs.get("v")
         seed = int(inputs.get("seed", 0)) & _U32
         stochastic = plan.rounding == "stochastic"
 
@@ -63,9 +65,10 @@ class KVAppendTorch(SpuOp):
             return stream
 
         nk = put(cache.k, k_new, seed)
-        nv = put(cache.v, v_new, (seed + 1) & _U32)
+        nv = (cache.v if v_new is None
+              else put(cache.v, v_new, (seed + 1) & _U32))
         return AC.KVCache(nk, nv, cache.lengths + k_new.shape[1],
-                          cache.fmt), None
+                          cache.fmt, cache.v_width), None
 
     def traffic(self, plan: OpPlan) -> TrafficBytes:
         B, n = plan.dim("B"), plan.dim("n")
@@ -75,43 +78,75 @@ class KVAppendTorch(SpuOp):
 
 
 class _AttnDecodeBase(SpuOp):
-    kind = "attn_decode"
-
     def traffic(self, plan: OpPlan) -> TrafficBytes:
         B, T, H = plan.dim("B"), plan.dim("T"), plan.dim("H")
         cache = B * T * _cache_row_vals(plan) * plan.bits_per_val / 8.0
+        dv_out = plan.opt("v_width") or plan.dim("dv")
         return TrafficBytes(
             state_read=cache,
             operand_read=B * H * plan.dim("dk") * OPERAND_BYTES,
-            output_write=B * H * plan.dim("dv") * OUTPUT_BYTES)
+            output_write=B * H * dv_out * OUTPUT_BYTES)
 
 
-@registry.register
-class AttnDecodeCuda(_AttnDecodeBase):
-    """Fused decode attention over the packed MX8 cache (GQA)."""
+class _AttnDecodeCuda(_AttnDecodeBase):
+    """Fused decode attention over the packed MX8 cache (GQA or MLA)."""
     backend = "cuda"
     formats = ("mx8",)
 
     def execute(self, cache: AC.KVCache, inputs: Dict[str, Any],
                 plan: OpPlan) -> Tuple[AC.KVCache, torch.Tensor]:
         return cache, _attn_cuda(inputs["q"], cache.k, cache.v, cache.lengths,
-                                 scale=plan.opt("scale"))
+                                 scale=plan.opt("scale"),
+                                 v_width=plan.opt("v_width"))
 
 
-@registry.register
-class AttnDecodeTorch(_AttnDecodeBase):
+def dequantized(cache, v_width: Optional[int]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A dense cache's K and V in f32; MLA: V is K's first ``v_width``
+    lanes."""
+    def deq(s):
+        return (F.dequantize(s) if isinstance(s, F.QuantizedTensor)
+                else s.to(torch.float32))
+    kf = deq(cache.k)
+    return kf, kf[..., :v_width] if cache.v is None else deq(cache.v)
+
+
+class _AttnDecodeTorch(_AttnDecodeBase):
     """Plain decode attention for every storage format."""
     backend = "torch"
     formats = ("mx8", "int8", "fp8_e4m3", "fp8_e5m2", "fp32", "bf16", "fp16")
 
     def execute(self, cache: AC.KVCache, inputs: Dict[str, Any],
                 plan: OpPlan) -> Tuple[AC.KVCache, torch.Tensor]:
-        def deq(s):
-            return (F.dequantize(s) if isinstance(s, F.QuantizedTensor)
-                    else s.to(torch.float32))
-        return cache, _ref.attention_decode_ref(
-            inputs["q"], deq(cache.k), deq(cache.v), cache.lengths,
-            plan.opt("scale"))
+        kf, vf = dequantized(cache, plan.opt("v_width"))
+        return cache, _ref.attention_decode_ref(inputs["q"], kf, vf,
+                                                cache.lengths,
+                                                plan.opt("scale"))
+
+
+@registry.register
+class AttnDecodeCuda(_AttnDecodeCuda):
+    kind = "attn_decode"
+
+
+@registry.register
+class AttnDecodeTorch(_AttnDecodeTorch):
+    kind = "attn_decode"
+
+
+@registry.register
+class MlaDecodeCuda(_AttnDecodeCuda):
+    kind = "mla_decode"
+
+
+@registry.register
+class MlaDecodeTorch(_AttnDecodeTorch):
+    kind = "mla_decode"
+
+
+def attn_kind_of(cache) -> str:
+    """``mla_decode`` for a latent-only cache, else ``attn_decode``."""
+    return "mla_decode" if cache.v_width is not None else "attn_decode"
 
 
 def _layout_of(cache) -> str:
@@ -129,26 +164,32 @@ def _cache_quant(cache, cfg: StateQuantConfig) -> StateQuantConfig:
 
 
 def _cache_dims(cache, n: int = 1) -> Dict[str, int]:
+    """Plan dims of a cache; ``dv`` counts stored value lanes (0 for a
+    latent-only MLA cache, whose output width is the plan's ``v_width``)."""
     if isinstance(cache, PagedKVCache):
         return dict(B=cache.batch, T=cache.max_len, KVH=cache.kv_heads,
-                    dk=cache.dk, dv=cache.dv, n=n)
+                    dk=cache.dk, dv=0 if cache.v is None else cache.dv, n=n)
     B, T, KVH, dk = cache.k.shape
-    return dict(B=B, T=T, KVH=KVH, dk=dk, dv=cache.v.shape[-1], n=n)
+    dv = 0 if cache.v is None else cache.v.shape[-1]
+    return dict(B=B, T=T, KVH=KVH, dk=dk, dv=dv, n=n)
 
 
 def plan_attn_decode_dims(dims: Dict[str, int], cfg: StateQuantConfig, *,
-                          scale=None, layout: str = "dense",
+                          kind: str = "attn_decode", scale=None,
+                          v_width=None, layout: str = "dense",
                           strict: bool = False) -> OpPlan:
-    """Plan a decode-attention invocation from explicit dims (cost models)."""
+    """Plan a decode-attention invocation (``attn_decode`` or
+    ``mla_decode``) from explicit dims (cost models)."""
     dims = dict(dims)
     dims.setdefault("H", dims["KVH"])
-    return registry.plan("attn_decode", dims, cfg, cfg.backend,
-                         layout=layout, strict=strict, scale=scale)
+    return registry.plan(kind, dims, cfg, cfg.backend, layout=layout,
+                         strict=strict, scale=scale, v_width=v_width)
 
 
-def kv_append(cache, k_new: torch.Tensor, v_new: torch.Tensor,
+def kv_append(cache, k_new: torch.Tensor, v_new: Optional[torch.Tensor],
               cfg: StateQuantConfig, seed: int = 0):
-    """Append one (or n) token(s): k_new (B, n, KVH, dk).  In place."""
+    """Append one (or n) token(s): k_new (B, n, KVH, dk); ``v_new`` None
+    for a latent-only MLA cache.  In place."""
     p = registry.plan("kv_append", _cache_dims(cache, n=k_new.shape[1]),
                       _cache_quant(cache, cfg), cfg.backend,
                       layout=_layout_of(cache))
@@ -162,14 +203,15 @@ def attn_decode(cache, q: torch.Tensor, cfg: StateQuantConfig,
     """Decode attention of current-token queries q (B,H,dk) vs the cache."""
     dims = _cache_dims(cache)
     dims["H"] = q.shape[1]
-    p = registry.plan("attn_decode", dims, _cache_quant(cache, cfg),
-                      cfg.backend, layout=_layout_of(cache), scale=scale)
+    p = registry.plan(attn_kind_of(cache), dims, _cache_quant(cache, cfg),
+                      cfg.backend, layout=_layout_of(cache), scale=scale,
+                      v_width=cache.v_width)
     _, out = registry.execute(cache, {"q": q}, p)
     return out
 
 
 def attention_decode_step(cache, k_new: torch.Tensor,
-                          v_new: torch.Tensor, q: torch.Tensor,
+                          v_new: Optional[torch.Tensor], q: torch.Tensor,
                           cfg: StateQuantConfig, *,
                           scale: Optional[float] = None, seed: int = 0,
                           ) -> Tuple[torch.Tensor, Any]:

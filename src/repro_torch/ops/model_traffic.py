@@ -85,9 +85,27 @@ def decode_op_plans(cfg, batch: int, seq_len: int,
             "kv_append", registry.plan("kv_append", dims, quant,
                                        quant.backend, layout=layout),
             n_attn * Kq))
-    if layer_count("mla"):
-        raise NotImplementedError(
-            "MLA layers are not ported yet (ROADMAP.md: MLA mode)")
+    n_mla = layer_count("mla")
+    if n_mla and cfg.mla is not None:
+        # one latent stream (KVH = 1, no V); the output is kv_lora wide
+        dims = dict(B=batch, T=seq_len, KVH=1, dk=cfg.mla.cache_width,
+                    dv=0, n=1, H=cfg.n_heads)
+        if spec_k > 0:
+            entries.append(OpTrafficEntry(
+                "spec_verify", registry.plan("spec_verify", dict(dims, Kq=Kq),
+                                             quant, quant.backend,
+                                             layout=layout,
+                                             v_width=cfg.mla.kv_lora),
+                n_mla))
+        else:
+            entries.append(OpTrafficEntry(
+                "mla_decode", plan_attn_decode_dims(
+                    dims, quant, kind="mla_decode", v_width=cfg.mla.kv_lora,
+                    layout=layout), n_mla))
+        entries.append(OpTrafficEntry(
+            "kv_append", registry.plan("kv_append", dims, quant,
+                                       quant.backend, layout=layout),
+            n_mla * Kq))
     return entries
 
 

@@ -4,17 +4,19 @@
 They consume the paged containers of :mod:`repro_torch.core.paged` -- the
 serving pool's page / slab pools plus the step's block table -- in place:
 
-``attn_decode``  ``cuda`` (mx8): the paged attention kernel walks
-                 ``bt[B, npg]``, one 128-token page per tile, straight out
-                 of the pool.  ``torch`` (every format): the reference --
-                 gathers the block table's pages inside the op and runs the
-                 dense plain op, so paged logits equal the dense-gather
-                 path's by construction.
+``attn_decode`` / ``mla_decode``
+                 ``cuda`` (mx8): the paged attention kernel (GQA or MLA
+                 mode) walks ``bt[B, npg]`` straight out of the pool.
+                 ``torch`` (every format): the reference -- gathers the
+                 block table's pages inside the op and runs the dense plain
+                 op, so paged logits equal the dense-gather path's by
+                 construction.
 ``kv_append``    quantizes the new token's rows with the dense op's bits
                  (same shape and seeds ``seed`` / ``seed + 1``) and writes
                  them into their page slot: the append kernel (``cuda``,
-                 mx8, one launch for all payload pools) or a one-slot
-                 indexed write (``torch``).
+                 mx8, one launch for all payload pools -- six for K and V,
+                 three for an MLA latent stream) or a one-slot indexed
+                 write (``torch``).
 ``state_update`` the slab rows ``pool[slabs, group]``: the fused kernel in
                  slab mode (``cuda``, mx8, in place) or the dense plain op
                  on the gathered rows, written back (``torch``).
@@ -51,17 +53,17 @@ _ALL_FORMATS = ("mx8", "int8", "fp8_e4m3", "fp8_e5m2", "fp32", "bf16", "fp16")
 def dense_view(cache: PagedKVCache) -> AC.KVCache:
     """The block table's dense ``KVCache`` at layer ``cache.group`` (the
     reference path's gather-in-op)."""
-    return AC.KVCache(_ref.gather_pages(cache.k, cache.bt, cache.group),
-                      _ref.gather_pages(cache.v, cache.bt, cache.group),
-                      cache.lengths, cache.fmt)
+    v = (None if cache.v is None
+         else _ref.gather_pages(cache.v, cache.bt, cache.group))
+    return AC.KVCache(_ref.gather_pages(cache.k, cache.bt, cache.group), v,
+                      cache.lengths, cache.fmt, cache.v_width)
 
 
 # ---------------------------------------------------------------------------
-# attn_decode
+# attn_decode / mla_decode
 # ---------------------------------------------------------------------------
 
 class _PagedAttnBase(SpuOp):
-    kind = "attn_decode"
     layout = "paged"
 
     def traffic(self, plan: OpPlan) -> TrafficBytes:
@@ -70,14 +72,14 @@ class _PagedAttnBase(SpuOp):
         toks = pages_for(T) * PAGE_TOKENS
         cache = B * toks * _cache_row_vals(plan) * plan.bits_per_val / 8.0
         bt_bytes = B * pages_for(T) * 4.0               # the block table walk
+        dv_out = plan.opt("v_width") or plan.dim("dv")
         return TrafficBytes(
             state_read=cache,
             operand_read=B * H * plan.dim("dk") * OPERAND_BYTES + bt_bytes,
-            output_write=B * H * plan.dim("dv") * OUTPUT_BYTES)
+            output_write=B * H * dv_out * OUTPUT_BYTES)
 
 
-@registry.register
-class PagedAttnDecodeCuda(_PagedAttnBase):
+class _PagedAttnCuda(_PagedAttnBase):
     """Paged decode attention: the kernel walks the block table."""
     backend = "cuda"
     formats = ("mx8",)
@@ -86,20 +88,40 @@ class PagedAttnDecodeCuda(_PagedAttnBase):
                 plan: OpPlan) -> Tuple[PagedKVCache, torch.Tensor]:
         return cache, _paged_attn_cuda(inputs["q"], cache.k, cache.v,
                                        cache.bt, cache.group, cache.lengths,
-                                       scale=plan.opt("scale"))
+                                       scale=plan.opt("scale"),
+                                       v_width=plan.opt("v_width"))
 
 
-@registry.register
-class PagedAttnDecodeTorch(_PagedAttnBase):
+class _PagedAttnTorch(_PagedAttnBase):
     """Reference paged attention: gather-in-op + the dense plain op."""
     backend = "torch"
     formats = _ALL_FORMATS
 
     def execute(self, cache: PagedKVCache, inputs: Dict[str, Any],
                 plan: OpPlan) -> Tuple[PagedKVCache, torch.Tensor]:
-        dense_op = registry.get_op("attn_decode", "torch", plan.fmt, "dense")
+        dense_op = registry.get_op(plan.kind, "torch", plan.fmt, "dense")
         _, out = dense_op.execute(dense_view(cache), inputs, plan)
         return cache, out
+
+
+@registry.register
+class PagedAttnDecodeCuda(_PagedAttnCuda):
+    kind = "attn_decode"
+
+
+@registry.register
+class PagedAttnDecodeTorch(_PagedAttnTorch):
+    kind = "attn_decode"
+
+
+@registry.register
+class PagedMlaDecodeCuda(_PagedAttnCuda):
+    kind = "mla_decode"
+
+
+@registry.register
+class PagedMlaDecodeTorch(_PagedAttnTorch):
+    kind = "mla_decode"
 
 
 # ---------------------------------------------------------------------------
@@ -145,10 +167,12 @@ class _PagedKVAppendBase(SpuOp):
     def execute(self, cache: PagedKVCache, inputs: Dict[str, Any],
                 plan: OpPlan) -> Tuple[PagedKVCache, None]:
         seed = int(inputs.get("seed", 0)) & _U32
-        k_new, v_new = inputs["k"], inputs["v"]
-        rows = (self._quant_rows(cache, k_new, plan, seed)
-                + self._quant_rows(cache, v_new, plan, (seed + 1) & _U32))
-        pools = self._pools_of(cache.k) + self._pools_of(cache.v)
+        k_new, v_new = inputs["k"], inputs.get("v")
+        rows = self._quant_rows(cache, k_new, plan, seed)
+        pools = self._pools_of(cache.k)
+        if v_new is not None:           # an MLA latent stream has no V
+            rows += self._quant_rows(cache, v_new, plan, (seed + 1) & _U32)
+            pools += self._pools_of(cache.v)
         self._write(pools, rows, cache)
         return dataclasses.replace(cache, lengths=cache.lengths + 1), None
 

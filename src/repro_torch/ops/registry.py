@@ -12,7 +12,8 @@ from typing import Dict, List, Optional, Tuple
 from repro_torch.ops.base import LAYOUTS, OpPlan, SpuOp, StateQuantConfig, \
     TrafficBytes
 
-OP_KINDS = ("state_update", "attn_decode", "kv_append", "spec_verify")
+OP_KINDS = ("state_update", "attn_decode", "mla_decode", "kv_append",
+            "spec_verify")
 
 #: backend preference for capability negotiation ("auto" requests)
 BACKEND_PREFERENCE = ("cuda", "torch")

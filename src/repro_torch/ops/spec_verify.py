@@ -34,7 +34,6 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import attention_cache as AC
-from repro_torch.core import formats as F
 from repro_torch.core.paged import PAGE_TOKENS, PagedKVCache, pages_for
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.mx_spec_attention import (
@@ -42,7 +41,8 @@ from repro_torch.kernels.mx_spec_attention import (
     mx_spec_attention_decode as _spec_cuda)
 from repro_torch.ops import registry
 from repro_torch.ops.attention import (_cache_dims, _cache_quant,
-                                       _cache_row_vals, _layout_of, kv_append)
+                                       _cache_row_vals, _layout_of,
+                                       dequantized, kv_append)
 from repro_torch.ops.base import (OPERAND_BYTES, OUTPUT_BYTES, OpPlan, SpuOp,
                                   StateQuantConfig, TrafficBytes)
 from repro_torch.ops.paged_ops import _ALL_FORMATS, dense_view
@@ -69,24 +69,23 @@ class _SpecVerifyBase(SpuOp):
 def _verify_torch(cache: AC.KVCache, q: torch.Tensor,
                   plan: OpPlan) -> torch.Tensor:
     """Reference semantics: per-position single-query attention at the
-    shifted lengths, stacked ``(B, Kq, H, dv)``."""
-    def deq(s):
-        return (F.dequantize(s) if isinstance(s, F.QuantizedTensor)
-                else s.to(torch.float32))
-    return _ref.spec_attention_decode_ref(q, deq(cache.k), deq(cache.v),
-                                          cache.lengths, plan.opt("scale"))
+    shifted lengths, stacked ``(B, Kq, H, dv)`` (MLA: ``v_width`` lanes)."""
+    kf, vf = dequantized(cache, plan.opt("v_width"))
+    return _ref.spec_attention_decode_ref(q, kf, vf, cache.lengths,
+                                          plan.opt("scale"))
 
 
 @registry.register
 class SpecVerifyCuda(_SpecVerifyBase):
-    """Fused dense verify over the packed MX8 cache (GQA)."""
+    """Fused dense verify over the packed MX8 cache (GQA or MLA)."""
     backend = "cuda"
     formats = ("mx8",)
 
     def execute(self, cache: AC.KVCache, inputs: Dict[str, Any],
                 plan: OpPlan) -> Tuple[AC.KVCache, torch.Tensor]:
         return cache, _spec_cuda(inputs["q"], cache.k, cache.v, cache.lengths,
-                                 scale=plan.opt("scale"))
+                                 scale=plan.opt("scale"),
+                                 v_width=plan.opt("v_width"))
 
 
 @registry.register
@@ -130,7 +129,8 @@ class PagedSpecVerifyCuda(_PagedSpecVerifyBase):
                 plan: OpPlan) -> Tuple[PagedKVCache, torch.Tensor]:
         return cache, _paged_spec_cuda(inputs["q"], cache.k, cache.v,
                                        cache.bt, cache.group, cache.lengths,
-                                       scale=plan.opt("scale"))
+                                       scale=plan.opt("scale"),
+                                       v_width=plan.opt("v_width"))
 
 
 @registry.register
@@ -157,17 +157,20 @@ def spec_attend(cache, q: torch.Tensor, cfg: StateQuantConfig,
     dims["H"] = q.shape[2]
     dims["Kq"] = q.shape[1]
     p = registry.plan("spec_verify", dims, _cache_quant(cache, cfg),
-                      cfg.backend, layout=_layout_of(cache), scale=scale)
+                      cfg.backend, layout=_layout_of(cache), scale=scale,
+                      v_width=cache.v_width)
     _, out = registry.execute(cache, {"q": q}, p)
     return out
 
 
-def attention_spec_step(cache, k_new: torch.Tensor, v_new: torch.Tensor,
+def attention_spec_step(cache, k_new: torch.Tensor,
+                        v_new: Optional[torch.Tensor],
                         q: torch.Tensor, cfg: StateQuantConfig, *,
                         scale: Optional[float] = None, seed: int = 0):
     """One speculative step: append the n new K/V rows, then verify.
 
-    k_new/v_new are ``(B, n, KVH, d)``, q is ``(B, n, H, dk)``.  Rows append
+    k_new/v_new are ``(B, n, KVH, d)`` (``v_new`` None for an MLA latent
+    stream), q is ``(B, n, H, dk)``.  Rows append
     one at a time with seed ``seed + i`` (uint32), so position i quantizes
     with exactly the bits the i-th sequential decode step would have used
     -- the greedy-exactness guarantee rests on this.  In place on the
@@ -175,6 +178,7 @@ def attention_spec_step(cache, k_new: torch.Tensor, v_new: torch.Tensor,
     """
     for i in range(k_new.shape[1]):
         cache = kv_append(cache, k_new[:, i:i + 1].contiguous(),
-                          v_new[:, i:i + 1].contiguous(), cfg,
+                          None if v_new is None
+                          else v_new[:, i:i + 1].contiguous(), cfg,
                           seed=(int(seed) + i) & _U32)
     return spec_attend(cache, q, cfg, scale=scale), cache

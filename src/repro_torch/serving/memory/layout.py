@@ -2,21 +2,23 @@
 slab pools and back (PyTorch port of ``repro/serving/memory/layout.py``).
 
 The port's decode caches are ``caches[g][pos]`` (layer ``g`` of pattern
-position ``pos``, the shared block last), with
+position ``pos``, the shared block last) -- for a model with a prelude
+``{"prelude": [...], "groups": caches[g][pos]}`` -- with
 
-  * ``KVCache`` nodes -- K/V streams ``(B, T, KVH, d)`` whose time axis is
-    paged: cut into 128-token pages, each page at a physical page id shared
-    by every KV leaf;
+  * ``KVCache`` nodes -- K/V streams ``(B, T, KVH, d)`` (an MLA cache: one
+    latent stream, no V) whose time axis is paged: cut into 128-token
+    pages, each page at a physical page id shared by every KV leaf;
   * fixed-size recurrent leaves (the mixer's ``"S"`` state, conv tails) --
     slab allocated: one slab id per request indexes one row of every slab
     pool.
 
 The port walks its own cache structure instead of probing shapes, in the
 JAX package's spec order (positions in pattern order, then the shared
-block; dict keys sorted; payload fields sorted), and keeps the JAX physical
-layout: page pools ``(n_pages, G, 128, KVH, w)``, slab pools
-``(n_slabs, G, *row)``, ``G`` the layers of a position.  So the two
-packages' pool lists zip array for array.
+block, then the prelude layers -- the JAX tree's sorted ``"groups"`` /
+``"prelude"`` keys; dict keys sorted; payload fields sorted), and keeps the
+JAX physical layout: page pools ``(n_pages, G, 128, KVH, w)``, slab pools
+``(n_slabs, G, *row)``, ``G`` the layers of a position (1 for a prelude
+layer, which the JAX package stores without the G axis).
 
 Every move is eager PyTorch and writes the pools in place.
 """
@@ -33,6 +35,7 @@ from repro_torch.core import formats as F
 from repro_torch.core import paged as PG
 from repro_torch.core.paged import PAGE_TOKENS
 from repro_torch.kernels import ref as _ref
+from repro_torch.models.model import join_caches, split_caches
 from repro_torch.ops.base import fmt_of_state
 
 Path = Tuple[str, ...]
@@ -42,7 +45,7 @@ Path = Tuple[str, ...]
 class LeafSpec:
     """One pooled array leaf of the cache tree."""
     kind: str                      # "page" | "slab"
-    pos: int                       # pattern position (shared block last)
+    pos: int                       # position (pattern, shared, prelude)
     path: Path                     # keys from the position's cache to it
     content_shape: Tuple[int, ...]  # one page (G, 128, KVH, w) / slab (G, ..)
     dtype: torch.dtype
@@ -62,9 +65,25 @@ def _stream_paths(stream, prefix: Path) -> List[Path]:
 def _leaf_paths(cache) -> List[Path]:
     """Array leaves of one position's cache, in the canonical order."""
     if isinstance(cache, AC.KVCache):
-        return _stream_paths(cache.k, ("k",)) + _stream_paths(cache.v, ("v",))
+        v = [] if cache.v is None else _stream_paths(cache.v, ("v",))
+        return _stream_paths(cache.k, ("k",)) + v
     return [p for key in sorted(cache)
             for p in _stream_paths(cache[key], (key,))]
+
+
+def _positions(tree) -> List[List[Any]]:
+    """Per position (pattern positions and the shared block, then each
+    prelude layer), its layers' nodes: ``[caches[g][pos] for g]`` or
+    ``[prelude[i]]``.  Works on cache trees, view lists and snapshots."""
+    prelude, groups = split_caches(tree)
+    return ([[grp[pos] for grp in groups] for pos in range(len(groups[0]))]
+            + [[c] for c in prelude])
+
+
+def _flat_views(views) -> List[Any]:
+    """One node per position of a view tree (views have no layer axis)."""
+    prelude, groups = split_caches(views)
+    return list(groups) + list(prelude)
 
 
 def _get(node, path: Path):
@@ -86,18 +105,27 @@ class CachePaging:
     pooled storage and the model's caches (dense trees or paged views)."""
 
     def __init__(self, template):
-        """``template`` is a real cache tree ``caches[g][pos]`` at
-        (B=1, T=PAGE_TOKENS) (``models.model.init_decode_caches``)."""
+        """``template`` is a real cache tree at (B=1, T=PAGE_TOKENS)
+        (``models.model.init_decode_caches``)."""
         self.template = template
-        self.n_layers = len(template)
+        self.n_group_pos = len(split_caches(template)[1][0])
+        layers = _positions(template)
+        self.n_layers = [len(ls) for ls in layers]     # G per position
+        self.templates = [ls[0] for ls in layers]      # layer 0's node
         self.specs: List[LeafSpec] = []
-        for pos, cache in enumerate(template[0]):
+        for pos, cache in enumerate(self.templates):
             kind = "page" if isinstance(cache, AC.KVCache) else "slab"
             for path in _leaf_paths(cache):
                 leaf = _get(cache, path)
                 self.specs.append(LeafSpec(
-                    kind, pos, path, (self.n_layers,) + tuple(leaf.shape[1:]),
+                    kind, pos, path,
+                    (self.n_layers[pos],) + tuple(leaf.shape[1:]),
                     leaf.dtype))
+
+    def _nest(self, per_pos: List[Any]):
+        """Per-position nodes back into the model's tree structure."""
+        return join_caches(per_pos[self.n_group_pos:],
+                           per_pos[:self.n_group_pos])
 
     # ------------------------------------------------------------------
     # pools
@@ -105,8 +133,8 @@ class CachePaging:
 
     def _stacked(self, caches, spec: LeafSpec) -> torch.Tensor:
         """``spec``'s leaf of every layer, stacked ``(G, B, ...)``."""
-        return torch.stack([_get(caches[g][spec.pos], spec.path)
-                            for g in range(self.n_layers)])
+        return torch.stack([_get(c, spec.path)
+                            for c in _positions(caches)[spec.pos]])
 
     def make_pools(self, n_pages: int, n_slabs: int) -> List[torch.Tensor]:
         """One pool per spec: zeroed pages ``(n_pages, *content)``, and slabs
@@ -115,7 +143,7 @@ class CachePaging:
         pools = []
         for spec in self.specs:
             if spec.kind == "page":
-                dev = _get(self.template[0][spec.pos], spec.path).device
+                dev = _get(self.templates[spec.pos], spec.path).device
                 pools.append(torch.zeros((n_pages,) + spec.content_shape,
                                          dtype=spec.dtype, device=dev))
             else:
@@ -208,19 +236,21 @@ class CachePaging:
         return {(s.pos, s.path): p for s, p in zip(self.specs, pools)}
 
     def paged_view(self, pools: Sequence[torch.Tensor], bt: torch.Tensor,
-                   slabs: torch.Tensor, lengths: torch.Tensor) -> List[Any]:
-        """One view per pattern position for a decode step: KV pools as
-        ``PagedKVCache``, ``"S"`` pools as ``PagedState`` (zero-copy), and
-        the residual slab leaves (conv tails) gathered as ``(G, B, ...)``
-        rows -- the minimal traffic, since every step rewrites them."""
+                   slabs: torch.Tensor, lengths: torch.Tensor):
+        """One view per position for a decode step (nested as the model's
+        caches are): KV pools as ``PagedKVCache``, ``"S"`` pools as
+        ``PagedState`` (zero-copy), and the residual slab leaves (conv
+        tails) gathered as ``(G, B, ...)`` rows -- the minimal traffic,
+        since every step rewrites them."""
         by_path = self._by_path(pools)
         views = []
-        for pos, t in enumerate(self.template[0]):
+        for pos, t in enumerate(self.templates):
             if isinstance(t, AC.KVCache):
                 views.append(PG.PagedKVCache(
                     self._pool_stream(by_path, pos, "k", t.k),
-                    self._pool_stream(by_path, pos, "v", t.v),
-                    bt, lengths, 0, t.fmt))
+                    None if t.v is None
+                    else self._pool_stream(by_path, pos, "v", t.v),
+                    bt, lengths, 0, t.fmt, t.v_width))
                 continue
             view = {}
             for key in sorted(t):
@@ -237,12 +267,13 @@ class CachePaging:
                     view[key] = by_path[(pos, (key,))][slabs.long()
                                                        ].transpose(0, 1)
             views.append(view)
-        return views
+        return self._nest(views)
 
     def commit(self, pools: Sequence[torch.Tensor], views,
                slabs: torch.Tensor) -> None:
         """Commit a paged decode step: the KV and state pools were updated in
         place by the ops; scatter the residual slab rows back."""
+        views = _flat_views(views)
         for pool, spec in zip(pools, self.specs):
             if spec.kind == "slab" and spec.path[0] != "S":
                 pool[slabs.long()] = _get(views[spec.pos],
@@ -263,6 +294,7 @@ class CachePaging:
         B = int(slabs.shape[0])
         bidx = torch.arange(B, device=slabs.device)
         sel = sel.long()
+        snaps = _flat_views(snaps)
         for pool, spec in zip(pools, self.specs):
             if spec.kind != "slab":
                 continue
@@ -280,22 +312,24 @@ class CachePaging:
                slabs: torch.Tensor, lengths: torch.Tensor):
         """Materialize the dense cache tree ``caches[g][pos]`` of one decode
         step: the block table's pages and the slab rows, copied out."""
-        views = self.paged_view(pools, bt, slabs, lengths)
-        caches = []
-        for g in range(self.n_layers):
-            layer = []
-            for view in views:
-                if isinstance(view, PG.PagedKVCache):
-                    layer.append(AC.KVCache(
-                        _ref.gather_pages(view.k, bt, g),
-                        _ref.gather_pages(view.v, bt, g), lengths, view.fmt))
-                    continue
-                layer.append({k: (_gather_rows(v.pool, slabs, g)
-                                  if isinstance(v, PG.PagedState)
-                                  else v[g].clone())
-                              for k, v in view.items()})
-            caches.append(layer)
-        return caches
+        views = _flat_views(self.paged_view(pools, bt, slabs, lengths))
+
+        def dense(view, g):
+            if isinstance(view, PG.PagedKVCache):
+                v = (None if view.v is None
+                     else _ref.gather_pages(view.v, bt, g))
+                return AC.KVCache(_ref.gather_pages(view.k, bt, g), v,
+                                  lengths, view.fmt, view.v_width)
+            return {k: (_gather_rows(v.pool, slabs, g)
+                        if isinstance(v, PG.PagedState) else v[g].clone())
+                    for k, v in view.items()}
+
+        per_pos = [[dense(view, g) for g in range(n)]
+                   for view, n in zip(views, self.n_layers)]
+        groups = [[per_pos[pos][g] for pos in range(self.n_group_pos)]
+                  for g in range(self.n_layers[0])]
+        return join_caches([ls[0] for ls in per_pos[self.n_group_pos:]],
+                           groups)
 
     def scatter_step(self, pools: Sequence[torch.Tensor], new_caches,
                      bt: torch.Tensor, slabs: torch.Tensor,

@@ -126,7 +126,8 @@ class PagedStatePool:
         # model come from the layout="paged" ops' own traffic descriptors
         entries = OPS.decode_op_plans(cfg, 1, PAGE_TOKENS, layout="paged")
         self._page_stream_bytes = sum(
-            e.traffic.state_read for e in entries if e.kind == "attn_decode")
+            e.traffic.state_read for e in entries
+            if e.kind in ("attn_decode", "mla_decode"))
         self._slab_rw_bytes = sum(
             e.traffic.state_total for e in entries
             if e.kind == "state_update")

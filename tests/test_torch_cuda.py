@@ -89,14 +89,6 @@ def test_attention_kernel_vs_plain(cuda, B, T, H, KVH, d, lens):
                                atol=2e-5)
 
 
-def test_attention_kernel_refuses_mla_mode(cuda):
-    q = torch.zeros((1, 2, 32), device=cuda)
-    K = F.mx8_quantize(torch.zeros((1, 128, 1, 32), device=cuda))
-    with pytest.raises(NotImplementedError, match="MLA"):
-        KA.mx_attention_decode(q, K, None, torch.ones(1, dtype=torch.int32,
-                                                      device=cuda), v_width=16)
-
-
 def _paged_kv(cuda, lengths, n_stack, KVH, d, H, seed):
     """Pools of random MX8 K/V and a block table of shuffled pages covering
     ``len + 1`` positions per row (bucketed, scratch page 0 in the tail)."""
@@ -139,14 +131,18 @@ def test_paged_attention_kernel_vs_plain_and_dense(cuda, lens, H, KVH, d):
     assert torch.equal(y3, y2)              # bitwise: same tiles, same order
 
 
-def test_paged_kv_append_kernel_bitwise(cuda):
+@pytest.mark.parametrize("KVH,d,streams", [
+    (32, 80, ("K", "V")),       # zamba2-2.7b: six pools
+    (1, 576, ("K",)),           # deepseek-v2-236b latent only: three pools
+])
+def test_paged_kv_append_kernel_bitwise(cuda, KVH, d, streams):
     from repro_torch.kernels import mx_paged_attention as KP
     lens = (0, 127, 128, 1000)
-    _, K, V, bt, lengths = _paged_kv(cuda, lens, 9, 32, 80, 32, seed=3)
-    pools = [K.payload[f] for f in sorted(K.payload)] + [
-        V.payload[f] for f in sorted(V.payload)]
+    _, K, V, bt, lengths = _paged_kv(cuda, lens, 9, KVH, d, KVH, seed=3)
+    pools = [s.payload[f] for s in (K, V)[:len(streams)]
+             for f in sorted(s.payload)]
     g = torch.Generator(device=cuda).manual_seed(4)
-    rows = [torch.randint(-63, 64, (4, 32, p.shape[-1]), generator=g,
+    rows = [torch.randint(-63, 64, (4, KVH, p.shape[-1]), generator=g,
                           device=cuda).to(p.dtype) for p in pools]
     before = [p.clone() for p in pools]
     plain = [p.clone() for p in pools]
@@ -339,13 +335,72 @@ def test_spec_attention_kernels_refuse_out_of_limit_and_mla(cuda):
     q, K, V, bt, lengths = _spec_pools(cuda, (130, 5), 2, 8, 144, seed=2)
     with pytest.raises(ValueError, match="Kq\\*G\\*dv"):      # 16*144 items
         KV.mx_paged_spec_attention_decode(q, K, V, bt, 0, lengths)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        KV.mx_paged_spec_attention_decode(q, K, None, bt, 0, lengths,
-                                          v_width=16)
+    # MLA mode has no row limit, but its own width limits (no fallback)
     from repro_torch.kernels import ref as R
-    with pytest.raises(NotImplementedError, match="MLA"):
+    with pytest.raises(ValueError, match="v_width"):          # missing
+        KV.mx_paged_spec_attention_decode(q, K, None, bt, 0, lengths)
+    with pytest.raises(ValueError, match="v_width"):          # dv > dk
         KV.mx_spec_attention_decode(q, R.gather_pages(K, bt, 0), None,
-                                    lengths, v_width=16)
+                                    lengths, v_width=160)
+    q, K, _, bt, lengths = _spec_pools(cuda, (130, 5), 1, 2, 720, seed=3,
+                                       KVH=1)
+    with pytest.raises(ValueError, match="dk <= 704"):        # smem bound
+        KV.mx_paged_spec_attention_decode(q, K, None, bt, 0, lengths,
+                                          v_width=512)
+
+
+# ---------------------------------------------------------------------------
+# MLA mode of kernels 2, 3, 5 and 6 (latent stream, values = first dv lanes)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("H,dk,dv", [
+    (8, 64, 32),             # deepseek-v2-236b smoke widths: a partial block
+    (16, 192, 128),          # the JAX kernel test's widths
+    (128, 576, 512),         # deepseek-v2-236b: 128 heads, kv_lora + rope
+])
+@pytest.mark.parametrize("Kq", [1, 4])
+@pytest.mark.parametrize("lens", [(4, 127, 128, 129), (1000, 131, 129, 5)])
+def test_mla_kernels_vs_plain_and_bitwise_contracts(cuda, H, dk, dv, Kq,
+                                                    lens):
+    """MLA mode of kernels 2, 3, 5 and 6 against their plain versions (rtol
+    2e-4, atol 2e-5); the paged kernels bitwise the dense ones over the
+    gathered pages; verify row j bitwise the decode kernels at the shifted
+    length (Kq = 1: the verify kernels are the decode kernels)."""
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    q, K, _, bt, lengths = _spec_pools(cuda, lens, Kq, H, dk, seed=dk + Kq,
+                                       n_stack=3, KVH=1)
+    group, scale = 2, 0.125
+    kw = dict(scale=scale, v_width=dv)
+    Kd = R.gather_pages(K, bt, group)
+    n0 = [c.mla_launches for c in (KA.mx_attention_decode,
+                                   KP.mx_paged_attention_decode,
+                                   KV.mx_paged_spec_attention_decode,
+                                   KV.mx_spec_attention_decode)]
+    y5 = KV.mx_paged_spec_attention_decode(q, K, None, bt, group, lengths,
+                                           **kw)
+    y6 = KV.mx_spec_attention_decode(q, Kd, None, lengths, **kw)
+    torch.testing.assert_close(
+        y6, KV.plain(q, Kd, None, lengths, scale, dv), rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(
+        y5, KV.plain_paged(q, K, None, bt, group, lengths, scale, dv),
+        rtol=2e-4, atol=2e-5)
+    assert y5.shape == (len(lens), Kq, H, dv) and torch.equal(y5, y6)
+    for j in range(Kq):
+        lj = lengths - (Kq - 1 - j)
+        qj = q[:, j].contiguous()
+        y2 = KA.mx_attention_decode(qj, Kd, None, lj, **kw)
+        y3 = KP.mx_paged_attention_decode(qj, K, None, bt, group, lj, **kw)
+        torch.testing.assert_close(y2, KA.plain(qj, Kd, None, lj, scale, dv),
+                                   rtol=2e-4, atol=2e-5)
+        assert torch.equal(y3, y2) and torch.equal(y6[:, j], y2)
+    torch.cuda.synchronize()
+    assert [c.mla_launches for c in (KA.mx_attention_decode,
+                                     KP.mx_paged_attention_decode,
+                                     KV.mx_paged_spec_attention_decode,
+                                     KV.mx_spec_attention_decode)] == [
+        n0[0] + Kq, n0[1] + Kq, n0[2] + 1, n0[3] + 1]
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b",

@@ -37,7 +37,7 @@ from repro_torch.serving.memory import (BankAwarePlacement, BankTopology,
                                         PagedStatePool)
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 
-ARCHS = ("llama3.2-1b", "mamba2-2.7b", "zamba2-2.7b")
+ARCHS = ("llama3.2-1b", "mamba2-2.7b", "zamba2-2.7b", "deepseek-v2-236b")
 
 
 def _pair(arch, fmt="fp32"):

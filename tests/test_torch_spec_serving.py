@@ -216,7 +216,7 @@ def test_spec_model_draft_greedy_equals_plain(arch, fmt, backend):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "deepseek-v2-236b"])
 def test_greedy_spec_stream_matches_jax(arch):
     jcfg = j_smoke(arch).with_(state_quant=JOPS.StateQuantConfig(
         "fp32", "nearest", "jnp"))
