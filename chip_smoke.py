@@ -12,27 +12,37 @@ same function), then serves ``zamba2-2.7b`` at full width through the slot
 pool, through the paged pool (``Engine``'s default) and through the paged
 pool with speculative decoding, then ``deepseek-v2-236b`` at full width
 (depth cut to 4 of its 60 layers: 53.2 GB of fp32 weights) through the same
-three paths, and checks that every decode step went through the kernels of
-its path.  Phases, in the order they run:
+three paths, then the paper's GLA-family models at full width and all 32
+layers: ``gla-2.7b`` through the same three paths, ``retnet-2.7b`` and
+``hgrn2-2.7b`` through the paged pool.  It checks that every decode step
+went through the kernels of its path, and every prefill through the MX8
+quantizer (kernel 7).  Phases, in the order they run:
 
   1. device   2. build   3. exact powers of two   4. state-update kernel
   5. attention kernel   9. paged kernels (paged attention, paged append,
   state update in slab mode)   12. speculative-verify kernels (dense and
-  paged)   6. timing   10. paged-kernel timing   13. verify-kernel timing
-  7. main path, slot pool   11. main path, paged pool   12. matmul row
-  invariance at the model's shapes   14. main path, paged pool with
-  speculation (n-gram drafts; a short model-draft run; the pool-level
-  rollback check)   15. MLA mode of kernels 2, 3, 5 and 6 and the
-  latent-only append at deepseek-v2-236b's widths   16. MLA timing
-  17. deepseek-v2-236b, slot pool   18. deepseek-v2-236b, paged pool
-  19. deepseek-v2-236b, paged pool with speculation   8. kernels line
+  paged)   20. the MX8 quantizer (kernel 7), bitwise   21. the
+  state-update kernel at the GLA family's heads   6. timing   10.
+  paged-kernel timing   13. verify-kernel timing   22. timing of kernels 7
+  and 1 at the GLA family's shapes   7. main path, slot pool   11. main
+  path, paged pool   12. matmul row invariance at the model's shapes
+  14. main path, paged pool with speculation (n-gram drafts; a short
+  model-draft run; the pool-level rollback check)   15. MLA mode of
+  kernels 2, 3, 5 and 6 and the latent-only append at deepseek-v2-236b's
+  widths   16. MLA timing   17. deepseek-v2-236b, slot pool   18.
+  deepseek-v2-236b, paged pool   19. deepseek-v2-236b, paged pool with
+  speculation   23. gla-2.7b, slot pool   24. gla-2.7b, paged pool
+  25. gla-2.7b, paged pool with speculation   26. retnet-2.7b, paged
+  pool   27. hgrn2-2.7b, paged pool   8. kernels line
 
 Any failure exits non-zero; with no card it fails (it never falls back to
 the CPU).  The last three lines of standard output are the kernels' JSON
 object, the card's name and power limit from ``nvidia-smi``, and
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -73,6 +83,23 @@ DS_PAGED = dict(batch=4, n_pages=9, prefill_chunk=256)
 #: its first 512, 128 query heads; 3 MoE groups share the pattern position
 MLA = dict(B=4, H=128, dk=576, dv=512, n_stack=3)
 MLA_LENGTHS = ((4, 127, 128, 129), (1000, 131, 129, 5))
+#: kernel 1 at the GLA family's heads: (arch, (B, H, dv, dk), scalar decay)
+GLA_SU = (("gla-2.7b", (4, 4, 640, 320), False),
+          ("retnet-2.7b", (4, 10, 512, 256), True),
+          ("hgrn2-2.7b", (4, 20, 128, 128), False))
+#: kernel 7's checks: the GLA family's prefill states at batch 1 and 4,
+#: zamba2's K and deepseek's latent at their prefill shapes, the JAX kernel
+#: test's shapes, and one tensor of 67M values
+QUANT_SHAPES = (tuple((b,) + shape[1:] for _, shape, _ in GLA_SU
+                      for b in (1, 4))
+                + ((4, 1024, 32, 80), (4, 512, 1, 576), (16, 64), (300, 128),
+                   (5, 7, 32), (4096, 16384)))
+#: the GLA family's kernels-vs-plain difference at each depth, at most
+#: this many times that of the plain ops with one layer's y moved one ulp
+#: (the H100 read 0.08-2.2 times at 1-32 layer groups)
+CONTROL_FACTOR = 4
+#: retnet-2.7b / hgrn2-2.7b: a few requests through the paged pool
+OTHER_MAX_NEW = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -419,6 +446,53 @@ def _payload_pools(K, V):
             + [V.payload[f] for f in sorted(V.payload)])
 
 
+def _slab_case(shape, gen_seed, sr_seed, scalar_decay=True,
+               rounding="stochastic", mag=1.0):
+    """Kernel 1 in slab mode on a (9, 6, H, dv, dk) pool of state values of
+    magnitude ``mag``, rows of slabs (7, 2, 5, 3) at layer 4: bitwise dense
+    mode on the gathered rows, every other slab row unchanged, and the
+    state-update contract against the plain slab version.  Returns
+    (mantissa mismatches, values, max |y error|)."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_state_update as KS
+    B, H, dv, dk = shape
+    g = torch.Generator(device="cuda").manual_seed(gen_seed)
+    n_slabs, n_stack, group = 9, 6, 4
+    pool = F.mx8_quantize(torch.randn((n_slabs, n_stack, H, dv, dk),
+                                      generator=g, device="cuda") * mag)
+    slabs = torch.tensor([7, 2, 5, 3], dtype=torch.int32, device="cuda")
+    d = torch.sigmoid(torch.randn((B, H, 1 if scalar_decay else dk),
+                                  generator=g, device="cuda"))
+    k, q = (torch.randn((B, H, dk), generator=g, device="cuda")
+            for _ in "kq")
+    v = torch.randn((B, H, dv), generator=g, device="cuda")
+    idx = (slabs.long(), group)
+    rows = F.QuantizedTensor("mx8", (B, H, dv, dk), {
+        f: a[idx].clone() for f, a in pool.payload.items()})
+    before = pool.clone()
+    plain, yp = KS.plain_slab(pool.clone(), slabs, group, d, k, v, q,
+                              seed=sr_seed, rounding=rounding)
+    dense, yd = KS.mx_state_update(rows, d, k, v, q, seed=sr_seed,
+                                   rounding=rounding)
+    _, ys = KS.mx_state_update(pool, d, k, v, q, seed=sr_seed,
+                               rounding=rounding, slabs=slabs, group=group)
+    torch.cuda.synchronize()
+    label = f"slab mode {(B, H, dv, dk)} {rounding}"
+    check(torch.equal(ys, yd), f"{label}: y differs from dense mode on "
+          "the gathered rows")
+    keep = torch.ones((n_slabs, n_stack), dtype=torch.bool, device="cuda")
+    keep[idx] = False
+    for f, a in pool.payload.items():
+        check(torch.equal(a[idx], dense.payload[f]),
+              f"{label}: {f} differs from dense mode")
+        check(torch.equal(a[keep], before.payload[f][keep]),
+              f"{label}: {f} changed outside the owned slab rows")
+    return _hold_su(f"{label} vs plain",
+                    {f: a[idx] for f, a in plain.payload.items()}, yp,
+                    {f: a[idx] for f, a in pool.payload.items()}, ys)
+
+
 def phase_paged_kernels():
     """Kernel 3 against its plain version and bitwise against kernel 2 over
     the gathered pages; kernel 4 bitwise against its plain version with
@@ -474,40 +548,8 @@ def phase_paged_kernels():
 
     mism = total = 0
     slab_err = 0.0
-    for B, H, dv, dk in SU_SHAPES:
-        g = torch.Generator(device="cuda").manual_seed(dk)
-        n_slabs, n_stack, group = 9, 6, 4
-        pool = F.mx8_quantize(torch.randn((n_slabs, n_stack, H, dv, dk),
-                                          generator=g, device="cuda"))
-        slabs = torch.tensor([7, 2, 5, 3], dtype=torch.int32, device="cuda")
-        d = torch.sigmoid(torch.randn((B, H, 1), generator=g, device="cuda"))
-        k, q = (torch.randn((B, H, dk), generator=g, device="cuda")
-                for _ in "kq")
-        v = torch.randn((B, H, dv), generator=g, device="cuda")
-        idx = (slabs.long(), group)
-        rows = F.QuantizedTensor("mx8", (B, H, dv, dk), {
-            f: a[idx].clone() for f, a in pool.payload.items()})
-        before = pool.clone()
-        plain, yp = KS.plain_slab(pool.clone(), slabs, group, d, k, v, q,
-                                  seed=9)
-        dense, yd = KS.mx_state_update(rows, d, k, v, q, seed=9)
-        _, ys = KS.mx_state_update(pool, d, k, v, q, seed=9, slabs=slabs,
-                                   group=group)
-        torch.cuda.synchronize()
-        label = f"slab mode {(B, H, dv, dk)}"
-        check(torch.equal(ys, yd), f"{label}: y differs from dense mode on "
-              "the gathered rows")
-        keep = torch.ones((n_slabs, n_stack), dtype=torch.bool, device="cuda")
-        keep[idx] = False
-        for f, a in pool.payload.items():
-            check(torch.equal(a[idx], dense.payload[f]),
-                  f"{label}: {f} differs from dense mode")
-            check(torch.equal(a[keep], before.payload[f][keep]),
-                  f"{label}: {f} changed outside the owned slab rows")
-        n_bad, n, err = _hold_su(
-            f"{label} vs plain", {f: a[idx] for f, a in
-                                  plain.payload.items()}, yp,
-            {f: a[idx] for f, a in pool.payload.items()}, ys)
+    for shape in SU_SHAPES:
+        n_bad, n, err = _slab_case(shape, gen_seed=shape[3], sr_seed=9)
         mism, total, slab_err = mism + n_bad, total + n, max(slab_err, err)
     rate = mism / total
     check(rate <= 1e-5, f"slab mode mantissa mismatch rate {rate:.3g}")
@@ -1017,6 +1059,7 @@ def phase_main_path(cfg, params, init_s):
     import torch
     from repro_torch.core import attention_cache as AC
     from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_quant as K7
     from repro_torch.kernels import mx_state_update as KS
     from repro_torch.models import model as M
     from repro_torch.serving.api import Engine, ServeConfig
@@ -1029,17 +1072,21 @@ def phase_main_path(cfg, params, init_s):
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
     KS.mx_state_update.launches = 0
     KA.mx_attention_decode.launches = 0
+    K7.mx_quantize.launches = 0
     t1 = time.perf_counter()
     handles = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     n_su, n_at = KS.mx_state_update.launches, KA.mx_attention_decode.launches
+    n_q = K7.mx_quantize.launches
     steps = eng.engine.step_count
     _check_done(handles, cfg)
-    check(steps > 0 and n_su == 54 * steps and n_at == 9 * steps,
+    check(steps > 0 and n_su == 54 * steps and n_at == 9 * steps
+          and n_q == _k7_per_prefill(cfg) * len(prompts),
           f"launches: state_update {n_su}, attention {n_at} over {steps} "
-          "decode steps (want 54x and 9x)")
+          f"decode steps (want 54x and 9x), quantizer {n_q} over "
+          f"{len(prompts)} prefills (want {_k7_per_prefill(cfg)}x)")
     st = eng.stats()
     peak = torch.cuda.max_memory_allocated()
     caches = eng.engine.caches
@@ -1049,7 +1096,7 @@ def phase_main_path(cfg, params, init_s):
                       if not isinstance(c, AC.KVCache))
     phase(7, "main path zamba2-2.7b slots", params=n_params,
           init_s=f"{init_s:.1f}", requests=len(handles), decode_steps=steps,
-          launches=f"su={n_su},attn={n_at}", wall_s=f"{wall:.3f}",
+          launches=f"su={n_su},attn={n_at},quant={n_q}", wall_s=f"{wall:.3f}",
           **_step_fields(st), peak_mem_GB=f"{peak / 1e9:.2f}",
           state_MB=f"{state_bytes / 1e6:.2f}", kv_MB=f"{kv_bytes / 1e6:.2f}")
     prof = _profile_decode(eng, cfg, rng, PROMPT_LENS[:4], 7)
@@ -1117,6 +1164,7 @@ def phase_paged_main_path(cfg, params, slot):
     import torch
     from repro_torch.kernels import mx_attention as KA
     from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_quant as K7
     from repro_torch.kernels import mx_state_update as KS
     from repro_torch.serving.api import Engine, ServeConfig
 
@@ -1128,7 +1176,8 @@ def phase_paged_main_path(cfg, params, slot):
           logits=tuple(shape), result="bit-identical")
     prompts = _pattern_prompts(rng, cfg)
     counters = (KS.mx_state_update, KP.mx_paged_attention_decode,
-                KP.mx_paged_kv_append, KA.mx_attention_decode)
+                KP.mx_paged_kv_append, KA.mx_attention_decode,
+                K7.mx_quantize)
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
@@ -1138,7 +1187,7 @@ def phase_paged_main_path(cfg, params, slot):
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    n_dense, n_pa, n_ap, n_at = (c.launches for c in counters)
+    n_dense, n_pa, n_ap, n_at, n_q = (c.launches for c in counters)
     n_su = KS.mx_state_update.slab_launches
     peak = torch.cuda.max_memory_allocated()
     steps = eng.engine.step_count
@@ -1146,15 +1195,17 @@ def phase_paged_main_path(cfg, params, slot):
     st = eng.stats()
     check(st["preemptions"] >= 1, f"no preemption with {PAGED}")
     check(steps > 0 and n_su == 54 * steps and n_dense == 0
-          and n_pa == 9 * steps and n_ap == 9 * steps and n_at == 0,
+          and n_pa == 9 * steps and n_ap == 9 * steps and n_at == 0
+          and n_q == _k7_per_prefill(cfg) * len(prompts),
           f"launches over {steps} decode steps: state_update slab mode "
           f"{n_su} (want 54x), dense mode {n_dense} (0), paged attention "
           f"{n_pa} (9x), paged append {n_ap} (9x), dense attention {n_at} "
-          f"(0)")
+          f"(0); quantizer {n_q} over {len(prompts)} prefills")
     pool = eng.engine.pool
     phase(11, "main path zamba2-2.7b paged", requests=len(handles),
           decode_steps=steps, launches=f"su_slab={n_su},su_dense={n_dense},"
-          f"paged_attn={n_pa},paged_append={n_ap},dense_attn={n_at}",
+          f"paged_attn={n_pa},paged_append={n_ap},dense_attn={n_at},"
+          f"quant={n_q}",
           wall_s=f"{wall:.3f}",
           **_step_fields(st), peak_mem_GB=f"{peak / 1e9:.2f}",
           preemptions=int(st["preemptions"]),
@@ -1208,6 +1259,7 @@ def phase_spec_main_path(cfg, params, paged):
     import torch
     from repro_torch.kernels import mx_attention as KA
     from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_quant as K7
     from repro_torch.kernels import mx_spec_attention as KV
     from repro_torch.kernels import mx_state_update as KS
     from repro_torch.serving.api import Engine, ServeConfig
@@ -1221,7 +1273,7 @@ def phase_spec_main_path(cfg, params, paged):
                                           spec_k=SPEC_K))
     counters = (KV.mx_paged_spec_attention_decode, KV.mx_spec_attention_decode,
                 KP.mx_paged_attention_decode, KP.mx_paged_kv_append,
-                KA.mx_attention_decode, KS.mx_state_update)
+                KA.mx_attention_decode, KS.mx_state_update, K7.mx_quantize)
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
@@ -1232,24 +1284,27 @@ def phase_spec_main_path(cfg, params, paged):
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    n5, n6, n3, n4, n2, n1 = (c.launches for c in counters)
+    n5, n6, n3, n4, n2, n1, n_q = (c.launches for c in counters)
     n1s = KS.mx_state_update.slab_launches
     peak = torch.cuda.max_memory_allocated()
     steps = eng.engine.step_count
     _check_done(handles, cfg)
     st = eng.stats()
     check(steps > 0 and n5 == 9 * steps and n4 == 9 * KQ * steps
-          and n1s == 54 * KQ * steps and n6 == n3 == n2 == n1 == 0,
+          and n1s == 54 * KQ * steps and n6 == n3 == n2 == n1 == 0
+          and n_q == _k7_per_prefill(cfg) * len(handles),
           f"launches over {steps} verify steps: paged verify {n5} (want 9x), "
           f"append {n4} ({9 * KQ}x), state update slab {n1s} ({54 * KQ}x), "
           f"dense verify {n6}, paged attention {n3}, dense attention {n2}, "
-          f"dense state update {n1} (0 each)")
+          f"dense state update {n1} (0 each); quantizer {n_q} over "
+          f"{len(handles)} prefills")
     agree, first = _agreement(paged["outputs"], [h.output for h in handles])
     ps = paged["stats"]
     phase(14, "main path zamba2-2.7b paged + ngram speculation",
           requests=len(handles), verify_steps=steps, Kq=KQ,
           launches=f"paged_verify={n5},append={n4},su_slab={n1s},"
-          f"dense_verify={n6},paged_attn={n3},dense_attn={n2},su_dense={n1}",
+          f"dense_verify={n6},paged_attn={n3},dense_attn={n2},su_dense={n1},"
+          f"quant={n_q}",
           per_step=f"{n5 / steps:g},{n4 / steps:g},{n1s / steps:g}",
           proposed=int(st["proposed_tokens"]),
           accepted=int(st["accepted_tokens"]),
@@ -1622,68 +1677,13 @@ def _mla_counters():
                 k6=KV.mx_spec_attention_decode)
 
 
-def _ds_counts_reset():
-    from repro_torch.kernels import mx_paged_attention as KP
-    from repro_torch.kernels import mx_state_update as KS
-    for c in _mla_counters().values():
-        c.launches = c.mla_launches = 0
-    KP.mx_paged_kv_append.launches = 0
-    KS.mx_state_update.launches = KS.mx_state_update.slab_launches = 0
-
-
-def _ds_counts():
-    from repro_torch.kernels import mx_paged_attention as KP
-    from repro_torch.kernels import mx_state_update as KS
-    out = {k: c.mla_launches for k, c in _mla_counters().items()}
-    out.update({f"{k}_gqa": c.launches for k, c in _mla_counters().items()})
-    out["k4"] = KP.mx_paged_kv_append.launches
-    out["k1"] = (KS.mx_state_update.launches
-                 + KS.mx_state_update.slab_launches)
-    return out
-
-
-def _ds_serve(eng, cfg, prompts, want, label):
-    """Serve ``prompts`` with the MLA counters reset just before and read
-    just after; ``want`` maps counter -> launches per step."""
-    import torch
-    torch.cuda.reset_peak_memory_stats()
-    _ds_counts_reset()
-    t1 = time.perf_counter()
-    handles = [eng.submit(p, max_new_tokens=DS_MAX_NEW) for p in prompts]
-    eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    n = _ds_counts()
-    steps = eng.engine.step_count
-    for h in handles:
-        check(h.status == "done" and len(h.output) == DS_MAX_NEW,
-              f"{label} request {h.rid}: {h.status} with {len(h.output)}")
-        check(all(0 <= t < cfg.vocab_size for t in h.output),
-              f"{label} request {h.rid}: token out of range")
-    expect = {k: want.get(k, 0) * steps for k in n}
-    check(steps > 0 and n == expect, f"{label} launches over {steps} steps: "
-          f"{n}, want {expect}")
-    st = eng.stats()
-    return dict(handles=handles, n=n, steps=steps, wall=wall, stats=st,
-                peak=torch.cuda.max_memory_allocated())
-
-
-def _ds_fields(r):
-    st = r["stats"]
-    per = {k: v / r["steps"] for k, v in r["n"].items() if v}
-    return dict(requests=len(r["handles"]), steps=r["steps"],
-                launches_per_step=",".join(f"{k}={v:g}"
-                                           for k, v in per.items()),
-                wall_s=f"{r['wall']:.3f}", **_step_fields(st),
-                peak_mem_GB=f"{r['peak'] / 1e9:.2f}")
-
-
 def phase_deepseek(cfg, params):
     """deepseek-v2-236b through the slot pool (phase 17), the paged pool
     with preemption (18; paged logits bitwise the dense-gather path's on a
     fresh pool first) and the paged pool with n-gram speculation (19).
     Every decode step must launch the MLA kernel of its path once per
-    layer (4) and no GQA attention or state-update kernel."""
+    layer (4) and no GQA attention or state-update kernel; every request's
+    prefill kernel 7 once per layer (one latent stream each)."""
     import numpy as np
     from repro_torch.models import model as M
     from repro_torch.serving.api import Engine, ServeConfig
@@ -1694,10 +1694,11 @@ def phase_deepseek(cfg, params):
 
     eng = Engine(params, cfg, ServeConfig(backend="slots", batch=4,
                                           cache_capacity=1024))
-    slot = _ds_serve(eng, cfg, prompts, dict(k2=L), "deepseek slots")
+    slot = _serve_counted(eng, cfg, prompts, DS_MAX_NEW, dict(k2=L),
+                          _k7_per_prefill(cfg), "deepseek slots")
     kv = sum(_payload_bytes(c.k) for c in M.iter_kv_caches(eng.engine.caches))
     phase(17, "main path deepseek-v2-236b slots", reduced=DS_REDUCED,
-          **_ds_fields(slot), kv_MB=f"{kv / 1e6:.2f}")
+          **_fields(slot), kv_MB=f"{kv / 1e6:.2f}")
     slot["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 17)
     _reference_check(params, cfg, prompts[0], n=17)
     del eng                    # frees the slot pool's caches
@@ -1706,12 +1707,13 @@ def phase_deepseek(cfg, params):
     shape = _paged_vs_gather(eng, cfg, rng)
     phase(18, "deepseek paged vs gather logits, fresh pool", steps=4,
           logits=tuple(shape), result="bit-identical")
-    paged = _ds_serve(eng, cfg, prompts, dict(k3=L, k4=L), "deepseek paged")
+    paged = _serve_counted(eng, cfg, prompts, DS_MAX_NEW, dict(k3=L, k4=L),
+                           _k7_per_prefill(cfg), "deepseek paged")
     st = paged["stats"]
     check(st["preemptions"] >= 1, f"deepseek: no preemption with {DS_PAGED}")
     pool = eng.engine.pool
     phase(18, "main path deepseek-v2-236b paged", reduced=DS_REDUCED,
-          **_ds_fields(paged), preemptions=int(st["preemptions"]),
+          **_fields(paged), preemptions=int(st["preemptions"]),
           pages=f"{pool.n_pages}x{pool.page_nbytes}B",
           gather_MB=f"{st['gather_bytes'] / 1e6:.2f}")
     paged["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 18)
@@ -1719,13 +1721,13 @@ def phase_deepseek(cfg, params):
 
     eng = Engine(params, cfg, ServeConfig(**DS_PAGED, spec="ngram",
                                           spec_k=SPEC_K))
-    spec = _ds_serve(eng, cfg, prompts, dict(k5=L, k4=L * KQ),
-                     "deepseek paged + ngram")
+    spec = _serve_counted(eng, cfg, prompts, DS_MAX_NEW,
+                          dict(k5=L, k4=L * KQ), _k7_per_prefill(cfg),
+                          "deepseek paged + ngram")
     st = spec["stats"]
-    agree, first = _agreement([h.output for h in paged["handles"]],
-                              [h.output for h in spec["handles"]])
+    agree, first = _agreement(paged["outputs"], spec["outputs"])
     phase(19, "main path deepseek-v2-236b paged + ngram speculation",
-          reduced=DS_REDUCED, Kq=KQ, **_ds_fields(spec),
+          reduced=DS_REDUCED, Kq=KQ, **_fields(spec),
           proposed=int(st["proposed_tokens"]),
           accepted=int(st["accepted_tokens"]),
           acceptance_rate=f"{st['acceptance_rate']:.3f}",
@@ -1735,6 +1737,370 @@ def phase_deepseek(cfg, params):
     spec["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 19)
     del eng
     return dict(slot=slot, paged=paged, spec=spec)
+
+
+# ---------------------------------------------------------------------------
+# kernel 7 (the MX8 quantizer), kernel 1 at the GLA family's heads, and
+# gla-2.7b / retnet-2.7b / hgrn2-2.7b at full width and full depth
+# ---------------------------------------------------------------------------
+
+def phase_quant():
+    """Kernel 7 bitwise its plain version (mantissa, exponent, micro), both
+    roundings, at the prefill REG_WRITE shapes of every served model and
+    the JAX kernel test's shapes; values spread over 45 decades with zero
+    groups, so the exponent floor and subnormal scales are held too."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_quant as K7
+    n_vals, max_err = 0, 0
+    for i, shape in enumerate(QUANT_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(20 + i)
+        x = torch.randn(shape, generator=g, device="cuda")
+        x *= torch.pow(10.0, torch.randint(-40, 6, shape[:-1] + (1,),
+                                           generator=g, device="cuda").float())
+        x.view(-1, F.MX8_GROUP)[::7] = 0.0
+        for rounding in ("nearest", "stochastic"):
+            got = K7.mx_quantize(x, 77 + i, rounding=rounding)
+            want = K7.plain(x, rounding, 77 + i)
+            torch.cuda.synchronize()
+            for f in want.payload:
+                max_err = max(max_err, int((got.payload[f].int()
+                                            - want.payload[f].int())
+                                           .abs().max()))
+                check(torch.equal(got.payload[f], want.payload[f]),
+                      f"mx_quantize {shape} {rounding}: {f} differs from "
+                      "the plain version")
+            del got, want
+        n_vals += x.numel()
+        del x
+    torch.cuda.empty_cache()
+    phase(20, "mx_quantize vs plain", shapes=len(QUANT_SHAPES),
+          largest=QUANT_SHAPES[-1], values=n_vals,
+          roundings="nearest,stochastic", max_abs_err=max_err,
+          result="bitwise (mantissa, exponent, micro)")
+    return float(max_err)
+
+
+def phase_gla_state_update():
+    """Kernel 1 at the GLA family's heads (gla: dk 320, 20 groups a row,
+    blocks of 12 rows, dv 640 ending in a partial block; retnet; hgrn2),
+    dense and slab mode, scalar and per-channel decay each at state
+    magnitudes 1 and 1e-3, both roundings, against the plain version: mantissa, exponent and micro bitwise, y
+    within the contract."""
+    mism = total = 0
+    errs = {}
+    for name, shape, _ in GLA_SU:
+        err = 0.0
+        for rounding, mag, scalar in itertools.product(
+                ("stochastic", "nearest"), (1.0, 1e-3), (True, False)):
+            n_bad, n, e = _su_case(shape, rounding, mag, scalar,
+                                   seed=shape[3] + int(mag * 10))
+            mism, total, err = mism + n_bad, total + n, max(err, e)
+            n_bad, n, e = _slab_case(shape, gen_seed=shape[2] + int(mag * 10),
+                                     sr_seed=21, scalar_decay=scalar,
+                                     rounding=rounding, mag=mag)
+            mism, total, err = mism + n_bad, total + n, max(err, e)
+        errs[name] = err
+    check(mism == 0, f"kernel 1 at the GLA family's shapes: {mism} of "
+          f"{total} mantissas differ from the plain version")
+    phase(21, "mx_state_update at the GLA family's heads vs plain",
+          shapes=[s for _, s, _ in GLA_SU], modes="dense,slab",
+          decay="scalar,per-channel", state_magnitude="1,1e-3",
+          roundings="stochastic,nearest",
+          mantissa_exp_micro="bitwise", values=total,
+          y_max_abs_err=repr({k: f"{v:.3g}" for k, v in errs.items()}))
+    return errs
+
+
+def _rotation(nbytes_each, minimum=32):
+    """How many copies of an input rotate so that each launch finds its
+    input cold in the 50 MB L2 (twice the L2 at least)."""
+    return max(minimum, math.ceil(2 * 50e6 / nbytes_each))
+
+
+def phase_gla_timing():
+    """Device times from CUDA-graph replay, inputs rotated past L2: kernel 7
+    at gla's prefill state (B = 4, round to nearest: what the REG_WRITE
+    sites run), kernel 1 dense at gla's heads and in slab mode at the three
+    models' heads (per-channel decay for gla / hgrn2, scalar for retnet).
+    No single PyTorch call quantizes to MX8 or updates an MX8 state, so the
+    library times are null."""
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_quant as K7
+    from repro_torch.kernels import mx_state_update as KS
+    it = iter(range(10 ** 9))
+    out = {}
+
+    # -- kernel 7: bytes = 4 B read + 1.125 B written per value
+    B, H, dv, dk = GLA_SU[0][1]
+    n_val = B * H * dv * dk
+    n_rot = _rotation(n_val * 4)
+    g = torch.Generator(device="cuda").manual_seed(22)
+    xs = [torch.randn((B, H, dv, dk), generator=g, device="cuda")
+          for _ in range(n_rot)]
+    kern = [lambda x=x: K7.mx_quantize(x) for x in xs]
+    plain = [lambda x=x: K7.plain(x) for x in xs[:8]]
+    ms = graph_ms(kern, 10)
+    plain_ms = graph_ms(plain, 3)
+    host_ms = host_loop_ms(lambda: kern[next(it) % n_rot](), 10 * n_rot)
+    nbytes = n_val * (4 + 1 + 2 / F.MX8_GROUP)
+    out["mx_quantize"] = _report("mx_quantize", ms, plain_ms, None, host_ms,
+                                 nbytes, 5 * n_val, n_val * 9 / 8 + 4 * n_val,
+                                 n=22)
+    del xs, kern, plain
+
+    # -- kernel 1, dense at gla's heads and slab mode at all three
+    for name, shape, scalar in GLA_SU:
+        B, H, dv, dk = shape
+        n_val = B * H * dv * dk
+        payload = n_val * (1 + 2 / F.MX8_GROUP)
+        dd = 1 if scalar else dk
+        operands = 4 * (B * H * (dd + 2 * dk + dv) + B * H * dv)
+        g = torch.Generator(device="cuda").manual_seed(dk)
+        d = torch.sigmoid(torch.randn((B, H, dd), generator=g,
+                                      device="cuda"))
+        k, q = (torch.randn((B, H, dk), generator=g, device="cuda")
+                for _ in "kq")
+        v = torch.randn((B, H, dv), generator=g, device="cuda")
+        n_rot = _rotation(payload)
+        modes = (("dense", "slab") if name == "gla-2.7b" else ("slab",))
+        for mode in modes:
+            if mode == "dense":
+                states = [F.mx8_quantize(torch.randn(
+                    shape, generator=g, device="cuda")) for _ in range(n_rot)]
+                kern = [lambda i=i: KS.mx_state_update(states[i], d, k, v, q,
+                                                       seed=i)
+                        for i in range(n_rot)]
+                plain = [lambda i=i: KS.plain(states[i], d, k, v, q, seed=i)
+                         for i in range(8)]
+                key = f"mx_state_update[{name.split('-')[0]}]"
+                extra = 0
+            else:
+                pool = F.mx8_quantize(torch.randn(
+                    (B + 1, n_rot, H, dv, dk), generator=g, device="cuda"))
+                slabs = torch.arange(1, B + 1, dtype=torch.int32,
+                                     device="cuda")
+                kern = [lambda i=i: KS.mx_state_update(
+                    pool, d, k, v, q, seed=i, slabs=slabs, group=i)
+                    for i in range(n_rot)]
+                plain = [lambda i=i: KS.plain_slab(pool, slabs, i, d, k, v,
+                                                   q, seed=i)
+                         for i in range(8)]
+                key = f"mx_state_update[slab,{name.split('-')[0]}]"
+                extra = 4 * B
+            ms = graph_ms(kern, 10)
+            plain_ms = graph_ms(plain, 3)
+            host_ms = host_loop_ms(lambda: kern[next(it) % n_rot](),
+                                   10 * n_rot)
+            plan = OPS.plan_state_update_dims(
+                B, H, dk, dv, OPS.StateQuantConfig(),
+                layout="dense" if mode == "dense" else "paged")
+            out[key] = _report(key, ms, plain_ms, None, host_ms,
+                               2 * payload + operands + extra, 10 * n_val,
+                               OPS.traffic(plan).total, n=22)
+            del kern, plain
+            if mode == "dense":
+                del states
+            else:
+                del pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def _k7_per_prefill(cfg):
+    """Kernel 7's launches in one request's prefill: one per recurrent
+    state, two (K and V) per attention application, one per MLA latent
+    stream."""
+    per = (lambda kinds: sum(cfg.pattern.count(k) for k in kinds)
+           * cfg.n_groups + sum(cfg.prelude.count(k) for k in kinds))
+    return (per(("mamba2", "gla", "retnet", "hgrn2"))
+            + 2 * (per(("attn",)) + (cfg.n_groups if cfg.shared_attn else 0))
+            + per(("mla",)))
+
+
+def _counter_attrs():
+    """Every launch counter the main paths read: (function, attribute)."""
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_quant as K7
+    from repro_torch.kernels import mx_state_update as KS
+    out = {}
+    for k, fn in _mla_counters().items():
+        out[k] = (fn, "mla_launches")
+        out[f"{k}_gqa"] = (fn, "launches")
+    out["k4"] = (KP.mx_paged_kv_append, "launches")
+    out["k1"] = (KS.mx_state_update, "launches")
+    out["k1s"] = (KS.mx_state_update, "slab_launches")
+    out["k7"] = (K7.mx_quantize, "launches")
+    return out
+
+
+def _counts_reset():
+    for fn, attr in _counter_attrs().values():
+        setattr(fn, attr, 0)
+
+
+def _counts():
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counter_attrs().items()}
+
+
+def _serve_counted(eng, cfg, prompts, max_new, want, per_prefill, label):
+    """Serve ``prompts`` with every launch counter reset just before and
+    read just after; ``want`` maps counter -> launches per decode step,
+    ``per_prefill`` is kernel 7's launches per request prefill; every other
+    counter must stay 0."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    _counts_reset()
+    t1 = time.perf_counter()
+    handles = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    n = _counts()
+    steps = eng.engine.step_count
+    for h in handles:
+        check(h.status == "done" and len(h.output) == max_new,
+              f"{label} request {h.rid}: {h.status} with {len(h.output)}")
+        check(all(0 <= t < cfg.vocab_size for t in h.output),
+              f"{label} request {h.rid}: token out of range")
+    expect = {k: want.get(k, 0) * steps for k in n}
+    expect["k7"] = per_prefill * len(prompts)
+    check(steps > 0 and n == expect, f"{label} launches over {steps} steps "
+          f"and {len(prompts)} prefills: {n}, want {expect}")
+    st = eng.stats()
+    # outputs, not the handles: a handle keeps its engine (and the model's
+    # weights) alive
+    return dict(outputs=[h.output for h in handles], n=n, steps=steps,
+                wall=wall, stats=st, peak=torch.cuda.max_memory_allocated())
+
+
+def _fields(r):
+    st = r["stats"]
+    per = {k: v / r["steps"] for k, v in r["n"].items() if v and k != "k7"}
+    return dict(requests=len(r["outputs"]), steps=r["steps"],
+                launches_per_step=",".join(f"{k}={v:g}"
+                                           for k, v in per.items()),
+                k7_launches=r["n"]["k7"], wall_s=f"{r['wall']:.3f}",
+                **_step_fields(st), peak_mem_GB=f"{r['peak'] / 1e9:.2f}")
+
+
+def _gla_model(arch):
+    """A GLA-family model at full width and full depth (32 layers), random
+    weights from a seeded CUDA generator."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(arch)
+    check(cfg.n_layers == 32 and cfg.d_model == 2560
+          and cfg.state_quant.fmt == "mx8"
+          and cfg.state_quant.backend == "cuda", f"unexpected {cfg.name}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_model(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in _leaves(params))
+    nbytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    return cfg, params, dict(params=n, GB=f"{nbytes / 1e9:.2f}",
+                             init_s=f"{time.perf_counter() - t0:.1f}")
+
+
+def phase_gla(init):
+    """gla-2.7b at full width and all 32 layers through the slot pool (23),
+    the paged pool (24; paged logits bitwise the dense-gather path's on a
+    fresh pool first) and the paged pool with n-gram speculation (25).
+    Every decode step launches kernel 1 once per layer (dense on the slot
+    pool, slab mode on the paged pool; Kq times per verify step), every
+    request's prefill kernel 7 once per layer, and nothing else."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.api import Engine, ServeConfig
+    cfg, params, info = init
+    L = cfg.n_layers
+    phase(23, "gla-2.7b weights", **info)
+    rng = np.random.default_rng(4)
+    prompts = _pattern_prompts(rng, cfg)
+
+    eng = Engine(params, cfg, ServeConfig(backend="slots", batch=4,
+                                          cache_capacity=1024))
+    slot = _serve_counted(eng, cfg, prompts, MAX_NEW, dict(k1=L),
+                          _k7_per_prefill(cfg), "gla slots")
+    state = sum(_payload_bytes(c) for grp in eng.engine.caches for c in grp)
+    phase(23, "main path gla-2.7b slots", **_fields(slot),
+          state_MB=f"{state / 1e6:.2f}")
+    slot["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 23)
+    _reference_check_by_depth(params, cfg, prompts[0], n=23)
+    del eng
+
+    eng = Engine(params, cfg, ServeConfig(**PAGED))
+    shape = _paged_vs_gather(eng, cfg, rng)
+    phase(24, "gla paged vs gather logits, fresh pool", steps=4,
+          logits=tuple(shape), result="bit-identical")
+    paged = _serve_counted(eng, cfg, prompts, MAX_NEW, dict(k1s=L),
+                           _k7_per_prefill(cfg), "gla paged")
+    pool = eng.engine.pool
+    check(pool.page_nbytes == 0, f"gla holds no KV, yet pages of "
+          f"{pool.page_nbytes} B")
+    slab_nbytes = pool.slab_nbytes
+    phase(24, "main path gla-2.7b paged", **_fields(paged),
+          preemptions=int(paged["stats"]["preemptions"]),
+          page_bytes=pool.page_nbytes,
+          slab_MB=f"{slab_nbytes / 1e6:.2f}",
+          gather_MB=f"{paged['stats']['gather_bytes'] / 1e6:.2f}")
+    paged["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 24)
+    del eng
+
+    eng = Engine(params, cfg, ServeConfig(**PAGED, spec="ngram",
+                                          spec_k=SPEC_K))
+    spec = _serve_counted(eng, cfg, prompts, MAX_NEW, dict(k1s=L * KQ),
+                          _k7_per_prefill(cfg), "gla paged + ngram")
+    st = spec["stats"]
+    agree, first = _agreement(paged["outputs"], spec["outputs"])
+    # a verify step snapshots every recurrent leaf of every active row
+    # after each of its Kq positions (the rollback's source)
+    phase(25, "main path gla-2.7b paged + ngram speculation", Kq=KQ,
+          **_fields(spec), proposed=int(st["proposed_tokens"]),
+          accepted=int(st["accepted_tokens"]),
+          acceptance_rate=f"{st['acceptance_rate']:.3f}",
+          snapshot_MB_per_verify_step_at_batch_4=(
+              f"{KQ * 4 * slab_nbytes / 1e6:.2f}"),
+          vs_phase_24_other_sr_seeds="equal" if first is None else
+          f"agreement {agree:.3f}, first difference at token {first}")
+    spec["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 25)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(slot=slot, paged=paged, spec=spec)
+
+
+def phase_gla_paged(arch, n):
+    """retnet-2.7b (26) or hgrn2-2.7b (27) at full width and all 32 layers
+    through the paged pool: paged logits bitwise the dense-gather path's,
+    kernel 1 in slab mode once per layer per step, kernel 7 once per layer
+    per prefill."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.api import Engine, ServeConfig
+    cfg, params, info = _gla_model(arch)
+    L = cfg.n_layers
+    phase(n, f"{arch} weights", **info)
+    rng = np.random.default_rng(n)
+    prompts = _pattern_prompts(rng, cfg)[:4]
+    eng = Engine(params, cfg, ServeConfig(**PAGED))
+    _paged_vs_gather(eng, cfg, rng)
+    phase(n, f"{arch} paged vs gather logits, fresh pool", steps=4,
+          result="bit-identical")
+    r = _serve_counted(eng, cfg, prompts, OTHER_MAX_NEW, dict(k1s=L),
+                       _k7_per_prefill(cfg), f"{arch} paged")
+    phase(n, f"main path {arch} paged", **_fields(r),
+          slab_MB=f"{eng.engine.pool.slab_nbytes / 1e6:.2f}")
+    _reference_check_by_depth(params, cfg, prompts[0], n=n)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
 
 
 def _leaves(tree):
@@ -1764,6 +2130,78 @@ def _clone_caches(caches):
                          [[one(c) for c in grp] for grp in groups])
 
 
+@contextlib.contextmanager
+def _first_update_one_ulp_up():
+    """The control of the reference check: while open, the first state
+    update that a decode step runs (layer 0 of the first step) returns its
+    ``y`` moved one ulp up, every value; every later update is untouched."""
+    import torch
+    from repro_torch.models import ssm as SSM
+    real, calls = SSM._spu_state_update, [0]
+
+    def nudged(*args, **kwargs):
+        S, y = real(*args, **kwargs)
+        calls[0] += 1
+        if calls[0] == 1:
+            y = torch.nextafter(y, torch.full_like(y, math.inf))
+        return S, y
+
+    SSM._spu_state_update = nudged
+    try:
+        yield
+    finally:
+        SSM._spu_state_update = real
+    check(calls[0] > 0, "the control ran no state update")
+
+
+def _kernel_vs_plain_runs(params, cfg, tok, n_steps=4,
+                          rounding="stochastic", control=False):
+    """Greedy decode steps from one prefill, through the served path
+    (CUDA kernels) and through the plain ops, MX8 state and KV at
+    ``rounding``: two lists of logits, and with ``control`` a third: the
+    plain ops again with layer 0's first ``y`` moved one ulp."""
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.models import model as M
+    cfg, plain_cfg = (cfg.with_(state_quant=OPS.StateQuantConfig(
+        "mx8", rounding, backend)) for backend in ("cuda", "torch"))
+    logits, caches = M.prefill(params, cfg, {"tokens": tok})
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+
+    def run(c):
+        cc = _clone_caches(caches)
+        t = logits.argmax(-1)
+        lens = torch.full((1,), tok.shape[1], dtype=torch.int32, device="cuda")
+        seq = []
+        for i in range(n_steps):
+            lg, cc = M.decode_step(params, c, t, cc, lens + i, seed=i + 1)
+            seq.append(lg)
+            t = lg.argmax(-1)
+        return seq
+
+    runs = [run(cfg), run(plain_cfg)]
+    if control:
+        with _first_update_one_ulp_up():
+            runs.append(run(plain_cfg))
+    check(bool(torch.isfinite(runs[0][0]).all()), "decode logits not finite")
+    return runs
+
+
+def _first_step_error(runs, other=0):
+    """Max |run ``other`` - plain| of the first decode step's logits (run 0:
+    the kernels), and whether it is within rtol 1e-3 of the plain logits
+    (atol 1e-3 * max)."""
+    a, b = runs[other][0], runs[1][0]
+    within = bool(((a - b).abs() <= 1e-3 * (b.abs() + b.abs().max())).all())
+    return float((a - b).abs().max()), within
+
+
+def _agreement_4(runs, other=0):
+    import numpy as np
+    return np.mean([int(x.argmax()) == int(y.argmax())
+                    for x, y in zip(runs[other], runs[1])])
+
+
 def _reference_check(params, cfg, prompt, n=7):
     """The served path (CUDA kernels) against the plain ops on the same
     prefill: first-step logits to rtol 1e-3 (a few SR decisions may flip
@@ -1771,34 +2209,74 @@ def _reference_check(params, cfg, prompt, n=7):
     the greedy token agreement over 4 steps."""
     import numpy as np
     import torch
-    from repro_torch import ops as OPS
-    from repro_torch.models import model as M
     tok = torch.as_tensor(np.asarray(prompt)[None], device="cuda")
-    logits, caches = M.prefill(params, cfg, {"tokens": tok})
-    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
-    plain_cfg = cfg.with_(state_quant=OPS.StateQuantConfig(
-        "mx8", "stochastic", "torch"))
-    runs = []
-    for c in (cfg, plain_cfg):
-        cc = _clone_caches(caches)
-        t = logits.argmax(-1)
-        lens = torch.full((1,), tok.shape[1], dtype=torch.int32, device="cuda")
-        seq = []
-        for i in range(4):
-            lg, cc = M.decode_step(params, c, t, cc, lens + i, seed=i + 1)
-            seq.append(lg)
-            t = lg.argmax(-1)
-        runs.append(seq)
-    a, b = runs[0][0], runs[1][0]
-    check(bool(torch.isfinite(a).all()), "decode logits not finite")
-    err = float((a - b).abs().max())
-    check(bool(((a - b).abs() <= 1e-3 * (b.abs() + b.abs().max())).all()),
-          f"first decode step: kernels vs plain max err {err:.3g}")
-    agree = np.mean([int(x.argmax()) == int(y.argmax())
-                     for x, y in zip(*runs)])
+    runs = _kernel_vs_plain_runs(params, cfg, tok)
+    err, within = _first_step_error(runs)
+    check(within, f"first decode step: kernels vs plain max err {err:.3g}")
     phase(n, "reference check (kernels vs plain ops, same prefill)",
           first_step_max_abs_err=f"{err:.3g}",
-          greedy_agreement_4_steps=f"{agree:.2f}")
+          greedy_agreement_4_steps=f"{_agreement_4(runs):.2f}")
+
+
+def _reference_check_by_depth(params, cfg, prompt, n):
+    """The GLA family's reference check, at growing depth: the first g
+    layer groups of the same weights.  The contract of
+    :func:`_reference_check` (first-step logits to rtol 1e-3) is held at
+    one group, where the two paths differ only in the kernel's fp32
+    summation order.  Deeper, a last-bit difference in a layer's input
+    moves state values across MX8 rounding boundaries, the layers after it
+    see inputs that differ more, and the difference grows with depth.  The
+    control measures that growth without the kernels: the plain ops
+    against themselves with layer 0's first ``y`` moved one ulp, at the
+    same depths and roundings.  Held at every depth and rounding: the
+    kernels' difference is at most ``CONTROL_FACTOR`` times the control's
+    (the kernels part from the plain ops no more than one ulp of one layer
+    does); and at round to nearest the greedy tokens of 4 steps at full
+    depth are the plain ops' (stochastic rounding: reported, a near-tie
+    of the top logits may flip)."""
+    import numpy as np
+    import torch
+    tok = torch.as_tensor(np.asarray(prompt)[None], device="cuda")
+    depths = [g for g in sorted({1, 2, 4, 8, 16, cfg.n_groups})
+              if g <= cfg.n_groups]
+    errs, ctrl, full = {}, {}, {}
+    for rounding in ("stochastic", "nearest"):
+        for g in depths:
+            runs = _kernel_vs_plain_runs(
+                dict(params, groups=params["groups"][:g]),
+                cfg.with_(n_layers=g * len(cfg.pattern)), tok,
+                n_steps=4 if g == cfg.n_groups else 1, rounding=rounding,
+                control=True)
+            errs[rounding, g] = _first_step_error(runs)
+            ctrl[rounding, g] = _first_step_error(runs, other=2)
+            if g == 1:
+                check(errs[rounding, g][1], f"first decode step, one layer "
+                      f"group, {rounding}: kernels vs plain max err "
+                      f"{errs[rounding, g][0]:.3g}")
+        full[rounding] = runs
+    for (r, g), (err, _) in errs.items():
+        check(err <= CONTROL_FACTOR * ctrl[r, g][0], f"{cfg.name}, {g} layer "
+              f"groups, {r}: kernels vs plain {err:.3g} beyond "
+              f"{CONTROL_FACTOR}x the one-ulp control {ctrl[r, g][0]:.3g}")
+    check(_agreement_4(full["nearest"]) == 1.0, f"{cfg.name}, full depth, "
+          "round to nearest: greedy tokens differ from the plain ops'")
+    fields = {}
+    for r in full:
+        fields[f"max_abs_err_by_groups_{r}"] = repr(
+            {g: f"{errs[r, g][0]:.3g}" for g in depths})
+        fields[f"control_by_groups_{r}"] = repr(
+            {g: f"{ctrl[r, g][0]:.3g}" for g in depths})
+    top = float(full["stochastic"][1][0].abs().max())
+    phase(n, "reference check by depth (kernels vs plain ops, same prefill; "
+          "control: plain vs plain with one y moved 1 ulp)",
+          one_group="within rtol 1e-3",
+          every_depth=f"within {CONTROL_FACTOR}x control", **fields,
+          full_depth_max_abs_logit=f"{top:.3g}",
+          greedy_agreement_4_steps_full_depth=repr(
+              {r: f"{_agreement_4(runs):.2f}" for r, runs in full.items()}),
+          control_greedy_agreement_4_steps_full_depth=repr(
+              {r: f"{_agreement_4(runs, 2):.2f}"
+               for r, runs in full.items()}))
 
 
 def main():
@@ -1820,9 +2298,13 @@ def main():
         errs = dict(su=phase_state_update(), at=phase_attention())
         errs.update(zip(("pa", "ap", "su_slab"), phase_paged_kernels()))
         errs.update(zip(("sv_paged", "sv_dense"), phase_spec_kernels()))
+        errs["k7"] = phase_quant()
+        errs.update({f"su_{a}": e
+                     for a, e in phase_gla_state_update().items()})
         times = dict(zip(("su", "at"), phase_timing()))
         times.update(zip(("pa", "ap", "su_slab"), phase_paged_timing()))
         times.update(zip(("sv_paged", "sv_dense"), phase_spec_timing()))
+        times.update(phase_gla_timing())
         cfg, params, init_s = _model()
         slot = phase_main_path(cfg, params, init_s)
         paged = phase_paged_main_path(cfg, params, slot)
@@ -1839,7 +2321,13 @@ def main():
               allocated_GB=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
         ds_cfg, ds_params = _ds_model()
         ds = phase_deepseek(ds_cfg, ds_params)
-        kernels = kernels_line(errs, times, slot, paged, spec, ds)
+        del ds_params
+        gc.collect()
+        torch.cuda.empty_cache()
+        gla = phase_gla(_gla_model("gla-2.7b"))
+        gla.update({arch: phase_gla_paged(arch, n)
+                    for arch, n in (("retnet-2.7b", 26), ("hgrn2-2.7b", 27))})
+        kernels = kernels_line(errs, times, slot, paged, spec, ds, gla)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1851,14 +2339,15 @@ def main():
     return 0
 
 
-def kernels_line(errs, times, slot, paged, spec, ds):
-    """One entry per kernel (kernel 1 twice: dense mode on the slot path,
-    slab mode on the paged path; kernels 2, 3, 5 and 6 twice: GQA mode on
-    zamba2's paths, MLA mode on deepseek's); ``launches`` counts each one's
-    own main path (the verify kernels: the speculative path, where kernel
-    6, the dense-cache twin, has no launch), ``max_abs_err`` is each one's
-    measured difference from its plain version (``y`` for the state
-    update, bytes for the append)."""
+def kernels_line(errs, times, slot, paged, spec, ds, gla):
+    """One entry per kernel and mode (kernel 1: dense mode on the slot
+    path, slab mode on the paged path, at zamba2's heads and again at the
+    GLA family's; kernels 2, 3, 5 and 6: GQA mode on zamba2's paths, MLA
+    mode on deepseek's; kernel 7 on gla's slot path); ``launches`` counts
+    each one's own main path (the verify kernels: the speculative path,
+    where kernel 6, the dense-cache twin, has no launch), ``max_abs_err``
+    is each one's measured difference from its plain version (``y`` for
+    the state update, bytes for the append and the quantizer)."""
     su_src = "src/repro_torch/csrc/mx_state_update.cu"
     su_tpu = "src/repro/kernels/mx_state_update.py:104"
     pa_src = "src/repro_torch/csrc/mx_paged_attention.cu"
@@ -1909,6 +2398,25 @@ def kernels_line(errs, times, slot, paged, spec, ds):
              replaces="src/repro/kernels/mx_spec_attention.py:123",
              launches=ds["spec"]["n"]["k6"], max_abs_err=errs["e6"],
              **times["mx_spec_attention_decode[mla]"]),
+        dict(name="mx_quantize", route="cuda",
+             source="src/repro_torch/csrc/mx_quant.cu",
+             replaces="src/repro/kernels/mx_quant.py:35",
+             launches=gla["slot"]["n"]["k7"], max_abs_err=errs["k7"],
+             **times["mx_quantize"]),
+        dict(name="mx_state_update[gla]", route="cuda", source=su_src,
+             replaces=su_tpu, launches=gla["slot"]["n"]["k1"],
+             max_abs_err=errs["su_gla-2.7b"],
+             **times["mx_state_update[gla]"]),
+        dict(name="mx_state_update[slab,gla]", route="cuda", source=su_src,
+             replaces=su_tpu, launches=gla["paged"]["n"]["k1s"],
+             max_abs_err=errs["su_gla-2.7b"],
+             **times["mx_state_update[slab,gla]"]),
+    ] + [
+        dict(name=f"mx_state_update[slab,{arch.split('-')[0]}]",
+             route="cuda", source=su_src, replaces=su_tpu,
+             launches=gla[arch]["n"]["k1s"], max_abs_err=errs[f"su_{arch}"],
+             **times[f"mx_state_update[slab,{arch.split('-')[0]}]"])
+        for arch in ("retnet-2.7b", "hgrn2-2.7b")
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):

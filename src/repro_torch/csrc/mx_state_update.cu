@@ -17,7 +17,8 @@
 // memory.  No intermediate leaves registers.
 //
 // Numerics match repro_torch/kernels/ref.py and, to a stated mismatch rate,
-// the JAX package (see ROADMAP.md):
+// the JAX package (see ROADMAP.md); the group requantize is mx8_group.cuh's,
+// shared with the standalone quantizer (mx_quant.cu):
 //   * scales are exact powers of two built from bits (no exp2f, and no
 //     flush-to-zero: scales reach 2^-133, a subnormal);
 //   * Sn = fma(S, d, round(v * k)) with explicit intrinsics, the contraction
@@ -36,35 +37,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mx8_group.cuh"
+
 namespace {
 
-constexpr int kGroup = 16;
-constexpr int kMBits = 6;
-constexpr int kExpBias = 127;
+using mx8::kExpBias;
+using mx8::kGroup;
+using mx8::kMBits;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float exact_pow2(int e) {
-  // 2^e for e in [-149, 127]; below 2^-126 a single mantissa bit
-  if (e >= -126) return __int_as_float((e + 127) << 23);
-  return __int_as_float(1 << (e + 149));
-}
-
-__device__ __forceinline__ uint32_t counter_hash_u32(uint32_t counter,
-                                                     uint32_t seed) {
-  uint32_t x = counter ^ (seed * 0x9E3779B9u);
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ int frexp_exponent(float x) {
-  // e with 2^(e-1) <= x < 2^e for normal x > 0; -126 otherwise
-  if (!(x > 0.f)) return -kExpBias + 1;
-  return ((__float_as_int(x) >> 23) & 0xFF) - 126;
-}
 
 union Group16 {
   int4 vec;
@@ -113,45 +93,24 @@ mx_state_update_kernel(int8_t* __restrict__ mant, uint8_t* __restrict__ expo,
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
       const int mb = (mic_old >> (j >> 1)) & 1;
-      const float s = __fmul_rn((float)g.m[j], exact_pow2(e_old - kMBits - mb));
+      const float s =
+          __fmul_rn((float)g.m[j], mx8::exact_pow2(e_old - kMBits - mb));
       const float dj = d_per_channel ? d[(size_t)bh * dk + col0 + j] : d[bh];
       const float vk = __fmul_rn(vrow, k[(size_t)bh * dk + col0 + j]);
       sn[j] = __fmaf_rn(s, dj, vk);
     }
 
-    // shared exponent from the group max, micro bits from the pair maxima
-    float gmax = 0.f;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) gmax = fmaxf(gmax, fabsf(sn[j]));
-    int e = frexp_exponent(gmax);
-    e = e < -kExpBias + 1 ? -kExpBias + 1 : (e > 127 ? 127 : e);
-    // a group at the exponent floor (all zero, or below 2^-126) keeps
-    // micro 0, as formats.py defines it
-    const float half_range = exact_pow2(e - 1);
-    int mic = 0;
-#pragma unroll
-    for (int p = 0; p < kGroup / 2; ++p) {
-      const float pmax = fmaxf(fabsf(sn[2 * p]), fabsf(sn[2 * p + 1]));
-      mic |= (e > -kExpBias + 1 && pmax < half_range ? 1 : 0) << p;
-    }
-
-    // requantize (RNE or SR), then the output dot product on stored values
-    const uint32_t flat0 = (uint32_t)(rowid * (size_t)dk + col0);
+    // requantize (RNE or SR; the group arithmetic of mx8_group.cuh), then
+    // the output dot product on the stored values
+    float qv[kGroup];
+    int e, mic;
+    mx8::quantize_group(sn, (uint32_t)(rowid * (size_t)dk + col0), seed,
+                        stochastic, qv, e, mic);
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
-      const float scale = exact_pow2(e - kMBits - ((mic >> (j >> 1)) & 1));
-      float qv = __fdiv_rn(sn[j], scale);
-      if (stochastic) {
-        const uint32_t bits = counter_hash_u32(flat0 + (uint32_t)j, seed);
-        const float u = __fmul_rn(__uint2float_rn(bits), 2.3283064365386963e-10f);
-        qv = floorf(__fadd_rn(qv, u));
-      } else {
-        qv = rintf(qv);
-      }
-      qv = fminf(fmaxf(qv, -63.f), 63.f);
-      g.m[j] = (int8_t)qv;
-      partial = __fmaf_rn(__fmul_rn(qv, scale), q[(size_t)bh * dk + col0 + j],
-                          partial);
+      g.m[j] = (int8_t)qv[j];
+      partial = __fmaf_rn(__fmul_rn(qv[j], mx8::group_scale(e, mic, j)),
+                          q[(size_t)bh * dk + col0 + j], partial);
     }
 
     *reinterpret_cast<int4*>(mant + srow * dk + col0) = g.vec;   // in place

@@ -32,7 +32,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 #: every source under ``csrc/`` (one library each)
 SOURCES = ("mx_state_update", "mx_attention", "mx_paged_attention",
-           "mx_spec_attention")
+           "mx_spec_attention", "mx_quant")
 
 
 class KernelBuildError(RuntimeError):

@@ -202,3 +202,16 @@ def state_update_slab_ref(pool, slabs: torch.Tensor, group: int, d, k, v, q,
     new, y = state_update_float(pool[idx], d, k, v, q, dtype=pool.dtype)
     pool[idx] = new
     return pool, y
+
+
+# ---------------------------------------------------------------------------
+# MX8 quantization (the host "Quantization Unit" of the REG_WRITE path)
+# ---------------------------------------------------------------------------
+
+def mx_quantize_ref(x: torch.Tensor, rounding: str = "nearest",
+                    seed: int = 0) -> F.QuantizedTensor:
+    """MX8 quantize along the last axis; SR bits from the counter hash over
+    the flat index (what kernel 7 computes)."""
+    bits = (F.sr_bits(x.shape, seed, device=x.device)
+            if rounding == "stochastic" else None)
+    return F.mx8_quantize(x, rounding, bits)

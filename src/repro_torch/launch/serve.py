@@ -12,6 +12,8 @@ with the kernels' plain versions, e.g. at smoke size:
         --smoke-size --device cpu --paged --requests 4 --max-new 6
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v2-236b --smoke-size --device cpu --paged --pages 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gla-2.7b \\
+        --smoke-size --device cpu --paged     # or retnet-2.7b, hgrn2-2.7b
 
 ``--arch`` takes any architecture the port carries
 (``repro_torch.configs.ALL_ARCHS``).  Weights are random, from ``--seed``.

@@ -1,6 +1,6 @@
 """Core NN layers (functional, dict-of-tensor params) -- PyTorch port of
 ``repro/models/layers.py`` for the served architectures: RMSNorm, the gated
-RMSNorm of Mamba-2, RoPE, the SwiGLU feed-forward and the DeepSeek-style
+RMSNorm of Mamba-2, the per-head RMSNorm of the GLA family, RoPE, the SwiGLU feed-forward and the DeepSeek-style
 mixture of experts.  LayerNorm and the other FFN kinds follow with the
 architectures that use them."""
 from __future__ import annotations
@@ -55,6 +55,13 @@ def rmsnorm_gated(x: torch.Tensor, scale: torch.Tensor, gate: torch.Tensor,
     xf = (x * Fn.silu(gate.to(torch.float32))).to(torch.float32)
     ms = xf.square().mean(-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+def head_rmsnorm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Per-head RMSNorm without scale (GLA / RetNet / HGRN2 output norm)."""
+    xf = x.to(torch.float32)
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

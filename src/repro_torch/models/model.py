@@ -33,6 +33,7 @@ import torch
 from repro_torch.core import attention_cache as AC
 from repro_torch.core import formats as F
 from repro_torch.core import paged as PG
+from repro_torch.kernels.mx_quant import store_quantized
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
@@ -43,7 +44,7 @@ _NO_FFN = ("mamba2", "mlstm", "slstm")
 _SEED_STRIDE = 1000003
 _PRELUDE_SEED = 7919
 _U32 = 0xFFFFFFFF
-_PORTED = ("attn", "mamba2", "mla")
+_PORTED = ("attn", "mamba2", "mla") + SSM.GLA_FAMILY
 
 
 def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
@@ -83,16 +84,22 @@ def resolve_device(device=None) -> torch.device:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_element(gen, cfg: ModelConfig, kind: str, device,
+def _init_element(gen, cfg: ModelConfig, kind: str, device, layer_idx: int,
                   dense_ffn: bool = False) -> Params:
     """One layer; ``dense_ffn`` (prelude layers) gives an MoE model's layer
-    a dense FFN ``moe.first_dense_ff`` wide."""
+    a dense FFN ``moe.first_dense_ff`` wide.  ``layer_idx`` (``g *
+    len(pattern) + pos``, as in the JAX package) sets HGRN2's forget-gate
+    lower bound ``beta = layer_idx / n_layers``."""
     dt = getattr(torch, cfg.param_dtype)
     p: Params = {"norm": L.init_norm(cfg.d_model, dt, device)}
     if kind == "attn":
         p["mixer"] = ATT.init_attention(gen, cfg, device)
     elif kind == "mla":
         p["mixer"] = ATT.init_mla(gen, cfg, device)
+    elif kind in SSM.GLA_FAMILY:
+        p["mixer"] = SSM.init_gla_family(gen, cfg, kind, device)
+        if kind == "hgrn2":
+            p["mixer"]["beta"].fill_(layer_idx / max(cfg.n_layers, 1))
     else:
         p["mixer"] = SSM.init_mamba2(gen, cfg, device)
     if _has_ffn(cfg, kind):
@@ -127,12 +134,13 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
         "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, dt,
                               device)}
     if cfg.prelude:
-        params["prelude"] = [_init_element(generator, cfg, kind, device,
+        params["prelude"] = [_init_element(generator, cfg, kind, device, i,
                                            dense_ffn=True)
-                             for kind in cfg.prelude]
-    params["groups"] = [[_init_element(generator, cfg, kind, device)
-                         for kind in cfg.pattern]
-                        for _ in range(cfg.n_groups)]
+                             for i, kind in enumerate(cfg.prelude)]
+    params["groups"] = [[_init_element(generator, cfg, kind, device,
+                                       g * len(cfg.pattern) + pos)
+                         for pos, kind in enumerate(cfg.pattern)]
+                        for g in range(cfg.n_groups)]
     if cfg.shared_attn:
         params["shared"] = {
             "norm": L.init_norm(cfg.d_model, dt, device),
@@ -172,7 +180,7 @@ def _build_kv_cache(k: torch.Tensor, v, cfg: ModelConfig,
         if pad:
             a = torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
         if sq.quantized:
-            return F.quantize(a, sq.fmt)
+            return store_quantized(a, sq)
         return a.to(F.FLOAT_DTYPES[sq.fmt])
 
     sq = cfg.state_quant
@@ -197,6 +205,8 @@ def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
         ckv = ATT.mla_cache_stream(p["mixer"], h, cfg, positions)
         cache = _build_kv_cache(ckv[:, :, None, :], None, cfg,
                                 v_width=cfg.mla.kv_lora)
+    elif kind in SSM.GLA_FAMILY:
+        y, cache = SSM.gla_family_forward(p["mixer"], h, cfg, kind)
     else:
         y, cache = SSM.mamba2_forward(p["mixer"], h, cfg)
     x = x + y
@@ -280,6 +290,8 @@ def init_decode_caches(cfg: ModelConfig, B: int, cache_capacity: int,
                                     cfg.mla.cache_width, cfg.state_quant,
                                     device=device,
                                     mla_v_width=cfg.mla.kv_lora)
+        if kind in SSM.GLA_FAMILY:
+            return SSM.gla_family_init_state(B, cfg, device)
         return SSM.mamba2_init_state(B, cfg, device)
 
     caches = []
@@ -364,12 +376,20 @@ def _element_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
         y, cache = ATT.mla_decode(p["mixer"], h, cache, cfg,
                                   positions[:, None], seed)
     else:
-        y, cache = SSM.mamba2_decode(p["mixer"], h, cache, cfg, seed)
+        y, cache = _recurrent_decode(p["mixer"], h, cache, cfg, kind, seed)
     x = x + y
     if _has_ffn(cfg, kind):
         h = L.apply_norm(p["ffn_norm"], x, cfg.norm_eps)
         x = x + _ffn(p["ffn"], h, cfg)
     return x, cache
+
+
+def _recurrent_decode(p: Params, h, cache, cfg: ModelConfig, kind: str,
+                      seed: int):
+    """One token (B, 1, d) through a recurrent mixer."""
+    if kind in SSM.GLA_FAMILY:
+        return SSM.gla_family_decode(p, h, cache, cfg, kind, seed)
+    return SSM.mamba2_decode(p, h, cache, cfg, seed)
 
 
 def _prelude_seed(seed: int, i: int) -> int:
@@ -513,12 +533,13 @@ def _element_spec_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
 
     ``x`` is (B, n, d) -- the current token plus the drafted ones -- and
     ``positions`` the (B, n) absolute positions.  Attention scores all n
-    positions in one ``spec_verify`` pass over a single cache stream; the
-    Mamba-2 mixer advances through the n positions one at a time (the state
-    update is serial) with the per-position seed ``seed + i`` of n
-    sequential steps, each position's input made contiguous first (a
-    strided slice would round the projections differently from the plain
-    step's (B, 1, d) input), and a state snapshot after each position.
+    positions in one ``spec_verify`` pass over a single cache stream; a
+    recurrent mixer (Mamba-2, the GLA family) advances through the n
+    positions one at a time (the state update is serial) with the
+    per-position seed ``seed + i`` of n sequential steps, each position's
+    input made contiguous first (a strided slice would round the
+    projections differently from the plain step's (B, 1, d) input), and a
+    state snapshot after each position.
 
     Returns ``(x, cache, snaps)``, ``snaps`` a list of n snapshots (None
     for attention).
@@ -536,9 +557,9 @@ def _element_spec_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
     else:
         ys, snaps = [], []
         for i in range(n):
-            yi, cache = SSM.mamba2_decode(p["mixer"],
+            yi, cache = _recurrent_decode(p["mixer"],
                                           h[:, i:i + 1].contiguous(), cache,
-                                          cfg, (int(seed) + i) & _U32)
+                                          cfg, kind, (int(seed) + i) & _U32)
             ys.append(yi)
             snaps.append(_state_snapshot(cache))
         y = torch.cat(ys, dim=1)

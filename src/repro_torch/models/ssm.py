@@ -1,10 +1,13 @@
-"""State-update mixers -- PyTorch port of ``repro/models/ssm.py`` (Mamba-2).
+"""State-update mixers -- PyTorch port of ``repro/models/ssm.py``: Mamba-2
+and the GLA family (GLA, RetNet, HGRN2).
 
 Prefill runs the chunked linear-attention form (quadratic within chunks,
-recurrent across chunks); decode routes through ONE registered SPU op
-invocation per layer (``state_update_step``), whose MX8 backend on the card
-is the fused CUDA kernel.  GLA / RetNet / HGRN2 / mLSTM / sLSTM follow in a
-later slice of the port (ROADMAP.md).
+recurrent across chunks), with scalar per-step decay (Mamba-2, RetNet) or
+per-channel decay (GLA, HGRN2); decode routes through ONE registered SPU
+op invocation per layer (``state_update_step``), whose MX8 backend on the
+card is the fused CUDA kernel.  What differs per family is the decay hook
+that makes Eq. 2's d_t (``_DECAY_HOOKS``) and the projections around the
+op.  mLSTM / sLSTM follow in a later slice of the port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch.nn.functional as Fn
 
 from repro_torch import ops as OPS
 from repro_torch.core import formats as F
+from repro_torch.kernels.mx_quant import store_quantized
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -29,10 +33,17 @@ def _spu_state_update(state, decay, k, v, q, cfg: ModelConfig, seed: int):
                                  seed=seed)
 
 
-#: per-family decode decay hooks: log-decay -> Eq. 2 d_t
+#: per-family decode decay hooks: log-decay -> Eq. 2 d_t.  Scalar families
+#: feed (B,H,1); vector-gated families the per-channel (B,H,dk) gate.
 _DECAY_HOOKS = {
+    "gla": lambda log_f: torch.exp(log_f[:, :, 0]),        # (B,H,dk)
+    "hgrn2": lambda log_f: torch.exp(log_f[:, :, 0]),      # (B,H,dk)
+    "retnet": lambda log_f: torch.exp(log_f[..., :1]),     # (B,H,1)
     "mamba2": lambda log_f: torch.exp(log_f),              # (B,H,1)
 }
+
+#: the mixers that share the GLA-family projections
+GLA_FAMILY = ("gla", "retnet", "hgrn2")
 
 
 def chunked_la_scalar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,13 +91,60 @@ def chunked_la_scalar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, S_prev
 
 
+def chunked_la_vector(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      log_f: torch.Tensor, chunk: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Vector-decay chunked scan (GLA / HGRN2).
+
+    log_f: (B,H,S,dk) per-channel log decay, clamped >= cfg.log_decay_min by
+    the caller so exp(-cum) stays finite within a chunk (e^64 at most for a
+    64-token chunk: fp32 holds it).  Returns y (B,H,S,dv) and the final
+    state (B,H,dk,dv) in f32.
+    """
+    B, H, S, dk = q.shape
+    dv = v.shape[-1]
+    c = min(chunk, S)
+    S0_len = S
+    pad = (-S) % c
+    if pad:  # zero tokens with log-decay 0 leave the state untouched
+        def zpad(a):
+            return Fn.pad(a, (0, 0, 0, pad))
+        q, k, v, log_f = zpad(q), zpad(k), zpad(v), zpad(log_f)
+        S += pad
+    nc = S // c
+    qc = q.reshape(B, H, nc, c, dk)
+    kc = k.reshape(B, H, nc, c, dk)
+    vc = v.reshape(B, H, nc, c, dv)
+    cum = torch.cumsum(log_f.to(torch.float32).reshape(B, H, nc, c, dk),
+                       dim=-2)
+    total = cum[..., -1:, :]
+    tril = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
+    S_prev = torch.zeros((B, H, dk, dv), dtype=torch.float32, device=q.device)
+    ys = []
+    for i in range(nc):
+        qi, ki, vi = qc[:, :, i], kc[:, :, i], vc[:, :, i]
+        cumi, toti = cum[:, :, i], total[:, :, i]
+        q_in = qi.float() * torch.exp(cumi)
+        k_de = ki.float() * torch.exp(-cumi)
+        A = torch.einsum("bhcd,bhed->bhce", q_in, k_de)
+        A = torch.where(tril, A, torch.zeros_like(A))
+        y = torch.einsum("bhce,bhev->bhcv", A.to(vi.dtype), vi).float()
+        y = y + torch.einsum("bhcd,bhdv->bhcv", q_in, S_prev)
+        k_end = ki.float() * torch.exp(toti - cumi)
+        S_prev = torch.exp(toti[..., 0, :, None]) * S_prev + torch.einsum(
+            "bhcd,bhcv->bhdv", k_end, vi.float())
+        ys.append(y)
+    y = torch.stack(ys, dim=2).reshape(B, H, S, dv)[:, :, :S0_len]
+    return y, S_prev
+
+
 def _store_state(S_logical: torch.Tensor, cfg: ModelConfig) -> OPS.StateLike:
     """(B,H,dk,dv) f32 -> stored container (B,H,dv,dk)."""
     St = S_logical.transpose(-1, -2).contiguous()
     sq = cfg.state_quant
     if not sq.quantized:
         return St.to(F.FLOAT_DTYPES[sq.fmt])
-    return F.quantize(St, sq.fmt)
+    return store_quantized(St, sq)
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -226,3 +284,107 @@ def mamba2_decode(p: Params, x: torch.Tensor, state: MixerState,
     y = L.rmsnorm_gated(y, p["norm"]["scale"], z, cfg.norm_eps)
     out = (y @ p["out_proj"])[:, None]
     return out, {"S": Sn, "conv_x": conv_x_state, "conv_bc": conv_bc_state}
+
+
+# ---------------------------------------------------------------------------
+# GLA family (GLA / RetNet / HGRN2): shared projections
+# ---------------------------------------------------------------------------
+
+def _gla_dims(cfg: ModelConfig):
+    sc = cfg.ssm
+    return (sc.n_heads or cfg.n_heads, sc.dk_head or cfg.head_dim,
+            sc.dv_head or cfg.head_dim)
+
+
+def init_gla_family(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                    device) -> Params:
+    """HGRN2's ``beta`` (the depth-dependent forget-gate lower bound) is
+    set by the model assembler."""
+    d = cfg.d_model
+    H, dk, dv = _gla_dims(cfg)
+    dt = getattr(torch, cfg.param_dtype)
+    p = {
+        "wq": L.dense_init(gen, d, H * dk, dt, device),
+        "wk": L.dense_init(gen, d, H * dk, dt, device),
+        "wv": L.dense_init(gen, d, H * dv, dt, device),
+        "wg_out": L.dense_init(gen, d, H * dv, dt, device),
+        "wo": L.dense_init(gen, H * dv, d, dt, device,
+                           1.0 / np.sqrt(2 * cfg.n_layers)),
+    }
+    if kind == "gla":
+        p["wga"] = L.dense_init(gen, d, 16, dt, device)
+        p["wgb"] = L.dense_init(gen, 16, H * dk, dt, device)
+        p["gb"] = torch.full((H * dk,), 4.0, device=device)  # gates near 1
+    elif kind == "hgrn2":
+        p["wf"] = L.dense_init(gen, d, H * dk, dt, device)
+        p["fb"] = torch.zeros((H * dk,), device=device)
+        p["beta"] = torch.zeros((1,), device=device)
+    elif kind != "retnet":                  # RetNet: fixed per-head decay
+        raise ValueError(kind)
+    return p
+
+
+def _retnet_log_gamma(H: int, device) -> torch.Tensor:
+    h = torch.arange(H, dtype=torch.float32, device=device)
+    return torch.log1p(-torch.exp2(-5.0 - h))
+
+
+def _gla_family_qkv(p, x, cfg: ModelConfig, kind: str):
+    """q, k (B,H,S,dk), v (B,H,S,dv) and the log decay: (B,H,S,dk) for GLA
+    (``log_sigmoid(g) / 16``) and HGRN2 (the forget gate over its lower
+    bound, with ``k = 1 - f``), both clamped to ``ssm.log_decay_min``;
+    (B,H,S) for RetNet (the fixed per-head gamma)."""
+    B, S, _ = x.shape
+    H, dk, dv = _gla_dims(cfg)
+    q = (x @ p["wq"]).reshape(B, S, H, dk).transpose(1, 2)
+    k = (x @ p["wk"]).reshape(B, S, H, dk).transpose(1, 2)
+    v = (x @ p["wv"]).reshape(B, S, H, dv).transpose(1, 2)
+    if kind == "gla":
+        g = (x @ p["wga"]) @ p["wgb"] + p["gb"]
+        log_f = Fn.logsigmoid(g.to(torch.float32)) / 16.0
+        log_f = torch.clamp(log_f, min=cfg.ssm.log_decay_min)
+        log_f = log_f.reshape(B, S, H, dk).transpose(1, 2)
+    elif kind == "hgrn2":
+        f_pre = (x @ p["wf"]) + p["fb"]
+        beta = p["beta"][0]
+        fgate = beta + (1.0 - beta) * torch.sigmoid(f_pre.to(torch.float32))
+        log_f = torch.clamp(torch.log(fgate + 1e-9),
+                            min=cfg.ssm.log_decay_min)
+        log_f = log_f.reshape(B, S, H, dk).transpose(1, 2)
+        k = (1.0 - torch.exp(log_f)).to(k.dtype)    # input gate = 1 - f
+    else:
+        log_f = _retnet_log_gamma(H, x.device)[None, :, None].expand(B, H, S)
+    return q * (dk ** -0.5), k, v, log_f
+
+
+def _gla_family_out(p, y, x, cfg: ModelConfig):
+    """Per-head RMSNorm of y (B,H,S,dv), output gate, out projection."""
+    B, S, _ = x.shape
+    y = L.head_rmsnorm(y, cfg.norm_eps).transpose(1, 2).reshape(B, S, -1)
+    gate = Fn.silu(x @ p["wg_out"])
+    return (y.to(x.dtype) * gate) @ p["wo"]
+
+
+def gla_family_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                       kind: str) -> Tuple[torch.Tensor, MixerState]:
+    q, k, v, log_f = _gla_family_qkv(p, x, cfg, kind)
+    scan = chunked_la_scalar if kind == "retnet" else chunked_la_vector
+    y, S_fin = scan(q, k, v, log_f, cfg.ssm.chunk)
+    return _gla_family_out(p, y, x, cfg), {"S": _store_state(S_fin, cfg)}
+
+
+def gla_family_init_state(B: int, cfg: ModelConfig, device) -> MixerState:
+    H, dk, dv = _gla_dims(cfg)
+    return {"S": OPS.init_state(B, H, dk, dv, cfg.state_quant,
+                                device=device)}
+
+
+def gla_family_decode(p: Params, x: torch.Tensor, state: MixerState,
+                      cfg: ModelConfig, kind: str, seed: int
+                      ) -> Tuple[torch.Tensor, MixerState]:
+    """x: (B, 1, d) one token."""
+    q, k, v, log_f = _gla_family_qkv(p, x, cfg, kind)       # (B,H,1,*)
+    decay = _DECAY_HOOKS[kind](log_f)
+    Sn, y = _spu_state_update(state["S"], decay, k[:, :, 0], v[:, :, 0],
+                              q[:, :, 0], cfg, seed)
+    return _gla_family_out(p, y[:, :, None], x, cfg), {"S": Sn}

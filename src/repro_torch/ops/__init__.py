@@ -16,8 +16,9 @@ One registry-dispatched decode-op interface for attention and state updates
 # base and registry first, then the op implementations (they register
 # themselves on import; dense, then the paged layout), then the model-level
 # traffic bridge
-from repro_torch.ops.base import (LAYOUTS, OpPlan, SpuOp, StateQuantConfig,
-                                  TrafficBytes, fmt_bits, fmt_of_state)
+from repro_torch.ops.base import (LAYOUTS, OpPlan, SpuDeprecationWarning,
+                                  SpuOp, StateQuantConfig, TrafficBytes,
+                                  fmt_bits, fmt_of_state)
 from repro_torch.ops.registry import (BACKEND_PREFERENCE, OP_KINDS,
                                       backends_for, execute, get_op, plan,
                                       register, registered, resolve_backend,
@@ -25,7 +26,7 @@ from repro_torch.ops.registry import (BACKEND_PREFERENCE, OP_KINDS,
 from repro_torch.ops.state_update import (StateLike, init_state,
                                           plan_state_update,
                                           plan_state_update_dims,
-                                          state_update_step)
+                                          state_nbytes, state_update_step)
 from repro_torch.ops.attention import (attention_decode_step, attn_decode,
                                        attn_kind_of, kv_append,
                                        plan_attn_decode_dims)
@@ -35,12 +36,13 @@ from repro_torch.ops.model_traffic import (OpTrafficEntry, decode_op_plans,
                                            decode_traffic_by_kind)
 
 __all__ = [
-    "LAYOUTS", "OpPlan", "SpuOp", "StateQuantConfig", "TrafficBytes",
+    "LAYOUTS", "OpPlan", "SpuDeprecationWarning", "SpuOp",
+    "StateQuantConfig", "TrafficBytes",
     "fmt_bits", "fmt_of_state",
     "BACKEND_PREFERENCE", "OP_KINDS", "backends_for", "execute", "get_op",
     "plan", "register", "registered", "resolve_backend", "traffic",
     "StateLike", "init_state", "plan_state_update", "plan_state_update_dims",
-    "state_update_step",
+    "state_nbytes", "state_update_step",
     "attention_decode_step", "attn_decode", "attn_kind_of", "kv_append",
     "plan_attn_decode_dims",
     "attention_spec_step", "spec_attend",

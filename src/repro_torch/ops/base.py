@@ -23,6 +23,16 @@ import torch
 from repro_torch.core import formats as F
 
 
+class SpuDeprecationWarning(DeprecationWarning):
+    """Raised by the pre-registry entry points (``repro_torch.kernels.ops``,
+    ``repro_torch.core.state_update.state_update_step``).
+
+    A distinct subclass so first-party tests can run under
+    ``-W error::repro_torch.ops.base.SpuDeprecationWarning`` without
+    tripping on unrelated third-party DeprecationWarnings.
+    """
+
+
 @dataclasses.dataclass(frozen=True)
 class StateQuantConfig:
     """How recurrent state (and KV caches) are stored.

@@ -30,12 +30,17 @@ class OpTrafficEntry:
 
 
 def _state_dims(cfg, kind: str):
-    """(H, dk, dv) of one mixer's recurrent state."""
-    if kind != "mamba2":
-        raise NotImplementedError(
-            f"mixer {kind!r} is not ported yet (ROADMAP.md: other mixers)")
-    sc = cfg.ssm
-    return (sc.expand * cfg.d_model) // sc.head_dim, sc.d_state, sc.head_dim
+    """(H, dk, dv) of one mixer's recurrent state, from the mixers' own
+    dimension helpers in ``models/ssm.py`` (imported lazily: ssm imports
+    ``repro_torch.ops`` at module top)."""
+    from repro_torch.models import ssm as SSM
+    if kind == "mamba2":
+        _, H, N, P = SSM._m2_dims(cfg)
+        return H, N, P
+    if kind in SSM.GLA_FAMILY:
+        return SSM._gla_dims(cfg)
+    raise NotImplementedError(
+        f"mixer {kind!r} is not ported yet (ROADMAP.md: other mixers)")
 
 
 def decode_op_plans(cfg, batch: int, seq_len: int,

@@ -91,6 +91,13 @@ def plan_state_update_dims(B: int, H: int, dk: int, dv: int,
                          cfg, cfg.backend, layout=layout, strict=strict)
 
 
+def state_nbytes(B: int, H: int, dk: int, dv: int,
+                 cfg: StateQuantConfig) -> float:
+    """Logical storage bytes of one layer's state (bandwidth accounting)."""
+    return registry.traffic(plan_state_update_dims(B, H, dk, dv,
+                                                   cfg)).state_read
+
+
 def plan_state_update(state, cfg: StateQuantConfig) -> OpPlan:
     """Plan from a live state container: format and layout come from the
     container (a ``PagedState`` slab view plans the paged op)."""

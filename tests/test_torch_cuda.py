@@ -40,8 +40,14 @@ def _su_inputs(B, H, dk, dv, dev, scalar_decay, mag=1.0):
     return F.mx8_quantize(S0), d, k, v, q
 
 
+#: zamba2 / mamba2, a small odd shape, and the GLA family's heads: gla
+#: (dk 320: 20 groups a row, blocks of 12 rows, dv 640 ends in a partial
+#: block), retnet, hgrn2
+GLA_SU = [(4, 4, 320, 640), (4, 10, 256, 512), (4, 20, 128, 128)]
+
+
 @pytest.mark.parametrize("B,H,dk,dv", [(4, 80, 64, 64), (4, 80, 128, 64),
-                                       (1, 3, 16, 48)])
+                                       (1, 3, 16, 48)] + GLA_SU)
 @pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
 @pytest.mark.parametrize("scalar_decay", [True, False])
 def test_state_update_kernel_vs_plain(cuda, B, H, dk, dv, rounding,
@@ -195,7 +201,8 @@ def test_paged_kv_append_outside_the_table_raises(cuda):
     assert "device-side assert" in out.stderr, out.stderr[-2000:]
 
 
-@pytest.mark.parametrize("B,H,dk,dv", [(4, 80, 64, 64), (4, 80, 128, 64)])
+@pytest.mark.parametrize("B,H,dk,dv", [(4, 80, 64, 64), (4, 80, 128, 64)]
+                         + GLA_SU)
 @pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
 def test_state_update_slab_mode_bitwise_vs_dense(cuda, B, H, dk, dv,
                                                  rounding):
@@ -404,12 +411,12 @@ def test_mla_kernels_vs_plain_and_bitwise_contracts(cuda, H, dk, dv, Kq,
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "gla-2.7b"])
 def test_smoke_ngram_spec_greedy_equals_plain_on_card(cuda, arch):
     """The n-gram speculative stream equals the plain paged stream (MX8,
     nearest rounding, CUDA kernels), and a verify step launches the paged
     verify kernel once and the append n times per attention layer, the
-    slab-mode state update n times per Mamba-2 layer."""
+    slab-mode state update n times per recurrent layer."""
     from repro_torch import ops as OPS
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import mx_paged_attention as KP
@@ -441,10 +448,11 @@ def test_smoke_ngram_spec_greedy_equals_plain_on_card(cuda, arch):
     steps = eng.engine.step_count
     n_attn = (cfg.pattern.count("attn") * cfg.n_groups
               + (cfg.n_groups if cfg.shared_attn else 0))
-    n_m2 = cfg.pattern.count("mamba2") * cfg.n_groups
+    n_rec = sum(cfg.pattern.count(k) for k in ("mamba2", "gla", "retnet",
+                                                "hgrn2")) * cfg.n_groups
     assert [c.launches for c in counters] == [n_attn * steps, 0,
                                               4 * n_attn * steps]
-    assert KS.mx_state_update.slab_launches == 4 * n_m2 * steps
+    assert KS.mx_state_update.slab_launches == 4 * n_rec * steps
     assert outs[1] == outs[0]
     assert eng.stats()["proposed_tokens"] > 0
 
@@ -483,3 +491,79 @@ def test_attention_spec_step_appends_equal_sequential_kv_append_on_card(
         assert torch.equal(c.k.payload[f], seq.k.payload[f]), f
         assert torch.equal(c.v.payload[f], seq.v.payload[f]), f
     assert torch.equal(y, y_seq)
+
+
+# ---------------------------------------------------------------------------
+# kernel 7: the MX8 quantizer, and the GLA family served on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(16, 64), (300, 128), (5, 7, 32),
+                                   (1, 4, 640, 320), (4, 4, 640, 320),
+                                   (4, 10, 512, 256), (4, 20, 128, 128)])
+@pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
+def test_mx_quant_kernel_bitwise_vs_plain(cuda, shape, rounding):
+    """Bitwise in mantissa, exponent and micro: values across magnitudes,
+    with zero groups and subnormals (the exponent floor and its micro 0)."""
+    from repro_torch.kernels import mx_quant as KQ
+    g = torch.Generator(device=cuda).manual_seed(len(shape) + shape[-1])
+    x = torch.randn(shape, generator=g, device=cuda)
+    mag = torch.pow(10.0, torch.randint(-40, 6, shape[:-1] + (1,),
+                                        generator=g, device=cuda).float())
+    x = x * mag
+    x.view(-1, 16)[::7] = 0.0
+    n0 = KQ.mx_quantize.launches
+    got = KQ.mx_quantize(x, 1234, rounding=rounding)
+    torch.cuda.synchronize()
+    assert KQ.mx_quantize.launches == n0 + 1
+    want = KQ.plain(x, rounding, 1234)
+    for f in want.payload:
+        assert torch.equal(got.payload[f], want.payload[f]), f
+
+
+def test_mx_quant_kernel_takes_strided_and_unaligned_inputs(cuda):
+    from repro_torch.kernels import mx_quant as KQ
+    g = torch.Generator(device=cuda).manual_seed(0)
+    base = torch.randn((4, 33, 64), generator=g, device=cuda)
+    for x in (base.transpose(0, 1), base.reshape(-1)[1:1 + 64 * 20]
+              .reshape(20, 64)):
+        got = KQ.mx_quantize(x, 5, rounding="stochastic")
+        want = KQ.plain(x.contiguous(), "stochastic", 5)
+        for f in want.payload:
+            assert torch.equal(got.payload[f], want.payload[f]), f
+
+
+def test_gla_smoke_served_with_kernels_equals_plain_ops(cuda):
+    """gla smoke through the paged engine, MX8 at round to nearest: the
+    CUDA backend's tokens equal the torch backend's, with the state update
+    launched once per layer per step and the quantizer once per layer per
+    request prefill."""
+    from repro_torch import ops as OPS
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import mx_quant as KQ
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import Engine, ServeConfig
+    base = get_smoke_config("gla-2.7b")
+    params = M.init_model(base, torch.Generator(device=cuda).manual_seed(0),
+                          device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, base.vocab_size, n) for n in (9, 140, 17)]
+    outs = []
+    for backend in ("cuda", "torch"):
+        cfg = base.with_(state_quant=OPS.StateQuantConfig("mx8", "nearest",
+                                                          backend))
+        eng = Engine(params, cfg, ServeConfig(batch=2, n_pages=4,
+                                              prefill_chunk=64))
+        hs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        KS.mx_state_update.launches = KS.mx_state_update.slab_launches = 0
+        KQ.mx_quantize.launches = 0
+        eng.run()
+        assert all(h.status == "done" and len(h.output) == 6 for h in hs)
+        outs.append([h.output for h in hs])
+        steps = eng.engine.step_count
+        on = backend == "cuda"
+        assert KS.mx_state_update.slab_launches == (
+            cfg.n_layers * steps if on else 0)
+        assert KS.mx_state_update.launches == 0
+        assert KQ.mx_quantize.launches == (
+            cfg.n_layers * len(prompts) if on else 0)
+    assert outs[0] == outs[1]

@@ -37,7 +37,8 @@ from repro_torch.serving.memory import (BankAwarePlacement, BankTopology,
                                         PagedStatePool)
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 
-ARCHS = ("llama3.2-1b", "mamba2-2.7b", "zamba2-2.7b", "deepseek-v2-236b")
+ARCHS = ("llama3.2-1b", "mamba2-2.7b", "zamba2-2.7b", "deepseek-v2-236b",
+         "gla-2.7b", "retnet-2.7b", "hgrn2-2.7b")
 
 
 def _pair(arch, fmt="fp32"):
@@ -200,6 +201,24 @@ def test_greedy_streams_match_jax_mixed_prompts_chunked(zamba_fp32):
     for k in js:
         if k.startswith("op_traffic_bytes/"):
             assert ts[k] == pytest.approx(js[k], rel=1e-12), k
+
+
+@pytest.mark.parametrize("arch", ["gla-2.7b", "retnet-2.7b", "hgrn2-2.7b"])
+def test_pure_ssm_greedy_streams_match_jax(arch):
+    """The GLA family holds no KV: the paged engine admits it with state
+    slabs only (0 page bytes) and streams prompts past ``prefill_chunk``
+    through decode as the JAX engine does."""
+    pair = _pair(arch)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 512, n) for n in (150, 9, 70, 20)]
+    jeng, teng = _engines(pair, batch=3, n_pages=4, prefill_chunk=64)
+    _same_streams(jeng, teng, prompts, max_new=5)
+    js, ts = jeng.stats(), teng.stats()
+    for k in ("tokens", "prefill_tokens", "requests_done", "preemptions",
+              "pages_allocated", "gather_bytes"):
+        assert ts[k] == js[k], k
+    pool = teng.engine.pool
+    assert pool.page_nbytes == 0 and pool.slab_nbytes > 0
 
 
 def test_greedy_streams_match_jax_with_preemption(zamba_fp32):

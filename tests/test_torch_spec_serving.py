@@ -79,7 +79,8 @@ def _prompts(cfg, seed=3):
 
 @pytest.mark.parametrize("arch,length,fmt", [("mamba2-2.7b", 127, "fp32"),
                                              ("zamba2-2.7b", 128, "fp32"),
-                                             ("zamba2-2.7b", 126, "mx8")])
+                                             ("zamba2-2.7b", 126, "mx8"),
+                                             ("gla-2.7b", 129, "mx8")])
 def test_spec_verify_positions_and_rollback_bit_exact(arch, length, fmt,
                                                       n=3):
     """decode_spec position i's logits == the i-th sequential decode step,
@@ -175,6 +176,7 @@ PARITY_MATRIX = [
     ("mamba2-2.7b", "mx8", "torch"),
     ("zamba2-2.7b", "fp32", "torch"),
     ("zamba2-2.7b", "mx8", "torch"),
+    ("gla-2.7b", "mx8", "cuda"),           # cuda on CPU: the plain versions
 ]
 
 
@@ -216,7 +218,8 @@ def test_spec_model_draft_greedy_equals_plain(arch, fmt, backend):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b",
-                                  "zamba2-2.7b", "deepseek-v2-236b"])
+                                  "zamba2-2.7b", "deepseek-v2-236b",
+                                  "gla-2.7b"])
 def test_greedy_spec_stream_matches_jax(arch):
     jcfg = j_smoke(arch).with_(state_quant=JOPS.StateQuantConfig(
         "fp32", "nearest", "jnp"))

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Decode-attention kernels (2 and 3) of this checkout against another
-checkout's, bitwise, on the card.
+"""Decode-attention kernels (2 and 3) and the state-update kernel (1) of
+this checkout against another checkout's, bitwise, on the card.
 
 Usage, from the repository root, on a machine with one CUDA card:
 
     python3 tools/kernels_vs_parent.py OTHER_CHECKOUT
 
-It compiles ``OTHER_CHECKOUT/src/repro_torch/csrc/mx_attention.cu`` and
-``mx_paged_attention.cu`` with this checkout's nvcc flags into a temporary
-directory, launches them and this checkout's kernels through the same C
-entry points on the same inputs (zamba2-2.7b and llama3.2-1b smoke widths,
-lengths across tile boundaries, shuffled pages), and exits non-zero unless
-every output is bitwise equal.  Prints one line per case.
+It compiles ``OTHER_CHECKOUT/src/repro_torch/csrc/mx_attention.cu``,
+``mx_paged_attention.cu`` and ``mx_state_update.cu`` with this checkout's
+nvcc flags into a temporary directory, launches them and this checkout's
+kernels through the same C entry points on the same inputs (attention:
+zamba2-2.7b and llama3.2-1b smoke widths, lengths across tile boundaries,
+shuffled pages; state update: the zamba2 / mamba2 heads and the GLA
+family's, dense and slab mode, scalar and per-channel decay, both
+roundings), and exits non-zero unless every output is bitwise equal.
+Prints one line per case.
 """
 import ctypes
 import subprocess
@@ -46,7 +49,8 @@ def main() -> int:
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
         other = {n: _other_lib(csrc, n, Path(tmp), _build.NVCC_FLAGS)
-                 for n in ("mx_attention", "mx_paged_attention")}
+                 for n in ("mx_attention", "mx_paged_attention",
+                           "mx_state_update")}
         for fn_name, lib_name, argtypes in (
                 ("mx_attention_decode_launch", "mx_attention",
                  KA._ARGTYPES),
@@ -108,8 +112,75 @@ def main() -> int:
                   f", kernel 2 "
                   f"{'bitwise equal' if torch.equal(y2, o2) else 'DIFFERS'}"
                   f" (launch errors {err}, {err2})", flush=True)
+        ok &= _state_update_cases(other["mx_state_update"])
     print("kernels_vs_parent:", "ok" if ok else "FAILED")
     return 0 if ok else 1
+
+
+#: (B, H, dv, dk): zamba2, mamba2, gla, retnet, hgrn2
+SU_SHAPES = ((4, 80, 64, 64), (4, 80, 64, 128), (4, 4, 640, 320),
+             (4, 10, 512, 256), (4, 20, 128, 128))
+
+
+def _state_update_cases(lib) -> bool:
+    """Kernel 1, dense and slab mode, this checkout's wrapper against the
+    other checkout's entry point on clones of the same state."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_state_update as KS
+    fn = lib.mx_state_update_launch
+    fn.restype, fn.argtypes = ctypes.c_int, list(KS._ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+    ok = True
+    for B, H, dv, dk in SU_SHAPES:
+        for per_channel in (False, True):
+            for rounding in ("nearest", "stochastic"):
+                g = torch.Generator(device="cuda").manual_seed(dk + dv)
+                n_slabs, n_stack, group = 6, 3, 1
+                pool = F.mx8_quantize(torch.randn(
+                    (n_slabs, n_stack, H, dv, dk), generator=g,
+                    device="cuda"))
+                slabs = torch.tensor([4, 1, 5, 2][:B], dtype=torch.int32,
+                                     device="cuda")
+                d = torch.sigmoid(torch.randn(
+                    (B, H, dk if per_channel else 1), generator=g,
+                    device="cuda"))
+                k, q = (torch.randn((B, H, dk), generator=g, device="cuda")
+                        for _ in "kq")
+                v = torch.randn((B, H, dv), generator=g, device="cuda")
+                idx = (slabs.long(), group)
+                dense = F.QuantizedTensor("mx8", (B, H, dv, dk), {
+                    f: a[idx].clone() for f, a in pool.payload.items()})
+                res = []
+                for mode in ("dense", "slab"):
+                    st = dense if mode == "dense" else pool
+                    a, b = st.clone(), st.clone()
+                    kw = ({} if mode == "dense"
+                          else dict(slabs=slabs, group=group))
+                    _, y = KS.mx_state_update(a, d, k, v, q, seed=11,
+                                              rounding=rounding, **kw)
+                    yo = torch.empty_like(y)
+                    p = b.payload
+                    err = fn(p["mantissa"].data_ptr(),
+                             p["exponent"].data_ptr(), p["micro"].data_ptr(),
+                             d.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             q.data_ptr(), yo.data_ptr(),
+                             None if mode == "dense" else slabs.data_ptr(),
+                             B * H, H, 1 if mode == "dense" else n_stack,
+                             0 if mode == "dense" else group, dv, dk,
+                             int(per_channel), 11,
+                             int(rounding == "stochastic"), stream)
+                    torch.cuda.synchronize()
+                    res.append(err == 0 and torch.equal(y, yo) and all(
+                        torch.equal(a.payload[f], p[f]) for f in p))
+                ok &= all(res)
+                print(f"state update (B,H,dv,dk)={(B, H, dv, dk)} "
+                      f"{'per-channel' if per_channel else 'scalar'} "
+                      f"{rounding}: dense "
+                      f"{'bitwise equal' if res[0] else 'DIFFERS'}, slab "
+                      f"{'bitwise equal' if res[1] else 'DIFFERS'}",
+                      flush=True)
+    return ok
 
 
 if __name__ == "__main__":
