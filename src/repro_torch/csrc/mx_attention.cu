@@ -5,11 +5,12 @@
 // (_attn_kernel).  What bounds it on an H100: bytes.  One decode query per
 // head reads every cached K and V value once (9 stored bits each) and does
 // about four flops per value and query head, far below the fp32 ridge.
-// The design streams the cache once: one block per (batch row, kv head)
-// walks the valid 128-position tiles only -- the tile loop in
-// mx_attention_tile.cuh, shared with the paged and the speculative-verify
-// kernels (this one is its single-query instance).  Splitting the time
-// axis across blocks (more blocks than B * KVH) is left to a later change.
+// The design streams the cache once, split across blocks along the time
+// axis: grid (B, KVH, T / 128), one block per valid 128-position split,
+// K / V staged through shared memory with cp.async, the splits combined in
+// order by the last block of each (row, kv head) -- the loop in
+// mx_attention_split.cuh, shared with the paged and the speculative-verify
+// kernels (this one is its single-query instance).
 //
 // MLA mode (mx_attention_decode_mla_launch; the TPU kernel's qV=None,
 // v_width) reads one latent stream whose first dv lanes are the values.
@@ -17,17 +18,21 @@
 // deepseek-v2-236b's widths) and runs mx_mla_tile.cuh's loop: a block per
 // 16 query rows, each latent row dequantized once per block.
 //
-// Layouts as in the JAX package: q (B, KVH, G, dk) pre-scaled f32; K and V
-// mantissas (B, T, KVH, d) int8 with exponent / micro bytes
-// (B, T, KVH, d/16); lengths (B,) int32; out (B, KVH, G, dv) f32.
-#include "mx_attention_tile.cuh"
+// Layouts as in the JAX package: q (B, KVH * G, dk) f32 (GQA: scaled in the
+// kernel by `scale`; MLA: pre-scaled); K and V mantissas (B, T, KVH, d) int8
+// with exponent / micro bytes (B, T, KVH, d/16); lengths (B,) int32; out
+// (B, KVH * G, dv) f32.  The GQA launch also takes the split loop's
+// workspace (ws, ws_floats) and its per-(row, kv head) counters, zero and
+// left zero.
+#include "mx_attention_split.cuh"
 #include "mx_mla_tile.cuh"
 
 namespace {
 
 using namespace mxattn;
 
-__global__ void __launch_bounds__(kTile)
+template <int MAXR>
+__global__ void __launch_bounds__(split::kThreads, split::kMinBlocks)
 mx_attention_decode_kernel(const float* __restrict__ q,
                            const int8_t* __restrict__ km,
                            const uint8_t* __restrict__ ke,
@@ -36,10 +41,13 @@ mx_attention_decode_kernel(const float* __restrict__ q,
                            const uint8_t* __restrict__ ve,
                            const uint8_t* __restrict__ vmi,
                            const int* __restrict__ lengths,
-                           float* __restrict__ out,
-                           int T, int KVH, int G, int dk, int dv) {
-  attention_tiles(DenseRows{T, KVH}, q, km, ke, kmi, vm, ve, vmi, lengths,
-                  out, T, KVH, G, /*n_q=*/1, dk, dv);
+                           float* __restrict__ out, float* __restrict__ ws,
+                           int* __restrict__ counters, int T, int KVH, int G,
+                           int dk, int dv, float scale) {
+  split::split_attention<MAXR>(DenseRows{T, KVH}, q,
+                         split::Stream{km, ke, kmi, vm, ve, vmi}, lengths,
+                         out, ws, counters, T, KVH, G, /*n_q=*/1, dk, dv,
+                         scale);
 }
 
 __global__ void __launch_bounds__(mla::kThreads)
@@ -61,23 +69,25 @@ mx_attention_decode_mla_kernel(const float* __restrict__ q,
 extern "C" int mx_attention_decode_launch(
     const void* q, const void* km, const void* ke, const void* kmi,
     const void* vm, const void* ve, const void* vmi, const void* lengths,
-    void* out, int B, int T, int KVH, int G, int dk, int dv, void* stream) {
-  if (B <= 0 || KVH <= 0 || T <= 0 || T % kTile != 0 || !shape_ok(G, dk, dv))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(G, dk, dv);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mx_attention_decode_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid(B, KVH);
-  mx_attention_decode_kernel<<<grid, kTile, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
-      (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
-      (const uint8_t*)vmi, (const int*)lengths, (float*)out, T, KVH, G, dk,
-      dv);
-  return (int)cudaGetLastError();
+    void* out, void* ws, void* counters, int B, int T, int KVH, int G,
+    int dk, int dv, float scale, long long ws_floats, int n_counters,
+    void* stream) {
+  if (T <= 0 || T % kTile != 0) return (int)cudaErrorInvalidValue;
+  const int S = T / split::kSplit;
+  return split::with_row_bound(G, [&](auto bound) {
+    constexpr int M = decltype(bound)::value;
+    size_t smem = 0;
+    const int err = split::prepare(mx_attention_decode_kernel<M>, B, KVH, S,
+                                   G, dk, dv, ws_floats, n_counters, &smem);
+    if (err != (int)cudaSuccess) return err;
+    mx_attention_decode_kernel<M><<<dim3(B, KVH, S), split::kThreads, smem,
+                                    (cudaStream_t)stream>>>(
+        (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
+        (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
+        (const uint8_t*)vmi, (const int*)lengths, (float*)out, (float*)ws,
+        (int*)counters, T, KVH, G, dk, dv, scale);
+    return (int)cudaGetLastError();
+  });
 }
 
 // MLA mode: values are the first dv lanes of the latent stream (km / ke /

@@ -4,14 +4,14 @@
 // mx_paged_attention_decode replaces the TPU kernel
 // repro/kernels/mx_paged_attention.py::mx_paged_attention_decode
 // (_paged_attn_kernel).  Bound by bytes, like the dense kernel: every valid
-// cached K and V value is read once.  It is the dense kernel's tile loop
-// (mx_attention_tile.cuh) with one change: tile t of row b is page
-// bt[b, t] of the shared pool at layer `group`, so each 128-token page
-// streams straight out of the pool in place and no dense copy of the
-// context exists.  Tiles past ceil(len / 128) are never read, so the
-// block table's bucketed tail (scratch page 0) is never touched.  Same
-// tile order and accumulators as the dense kernel: bitwise equal to it over
-// the gathered pages.
+// cached K and V value is read once.  It is the dense kernel's split loop
+// (mx_attention_split.cuh) with one change: split s of row b is page
+// bt[b, s] of the shared pool at layer `group`, so each 128-token page
+// streams straight out of the pool in place, one block per page, and no
+// dense copy of the context exists.  Splits past ceil(len / 128) exit at
+// once, so the block table's bucketed tail (scratch page 0) is never
+// touched.  Same splits, order and accumulators as the dense kernel:
+// bitwise equal to it over the gathered pages.
 //
 // mx_paged_kv_append replaces repro/kernels/mx_paged_attention.py::
 // mx_paged_kv_append (_append_kernel).  It writes one token's already
@@ -29,11 +29,13 @@
 // kernel with three pools (mantissa / exponent / micro of the one stream).
 //
 // Pools are (n_pages, n_stack, 128, KVH, w) with n_stack the layers that
-// share the pattern position; q (B, KVH, G, dk) pre-scaled f32; bt
-// (B, npg) int32; lengths (B,) int32; out (B, KVH, G, dv) f32.
+// share the pattern position; q (B, KVH * G, dk) f32 (GQA: scaled in the
+// kernel; MLA: pre-scaled); bt (B, npg) int32; lengths (B,) int32; out
+// (B, KVH * G, dv) f32.  The GQA launch also takes the split loop's
+// workspace and counters.
 #include <cassert>
 
-#include "mx_attention_tile.cuh"
+#include "mx_attention_split.cuh"
 #include "mx_mla_tile.cuh"
 
 namespace {
@@ -42,7 +44,8 @@ using namespace mxattn;
 
 constexpr int kMaxPools = 8;
 
-__global__ void __launch_bounds__(kTile)
+template <int MAXR>
+__global__ void __launch_bounds__(split::kThreads, split::kMinBlocks)
 mx_paged_attention_decode_kernel(const float* __restrict__ q,
                                  const int8_t* __restrict__ km,
                                  const uint8_t* __restrict__ ke,
@@ -52,12 +55,15 @@ mx_paged_attention_decode_kernel(const float* __restrict__ q,
                                  const uint8_t* __restrict__ vmi,
                                  const int* __restrict__ bt,
                                  const int* __restrict__ lengths,
-                                 float* __restrict__ out, int npg,
+                                 float* __restrict__ out,
+                                 float* __restrict__ ws,
+                                 int* __restrict__ counters, int npg,
                                  int n_stack, int group, int KVH, int G,
-                                 int dk, int dv) {
-  attention_tiles(PagedRows{bt, npg, n_stack, group, KVH}, q, km, ke, kmi,
-                  vm, ve, vmi, lengths, out, npg * kTile, KVH, G,
-                  /*n_q=*/1, dk, dv);
+                                 int dk, int dv, float scale) {
+  split::split_attention<MAXR>(PagedRows{bt, npg, n_stack, group, KVH}, q,
+                               split::Stream{km, ke, kmi, vm, ve, vmi},
+                               lengths, out, ws, counters, npg * kTile, KVH,
+                               G, /*n_q=*/1, dk, dv, scale);
 }
 
 __global__ void __launch_bounds__(mla::kThreads)
@@ -115,26 +121,27 @@ __global__ void mx_paged_kv_append_kernel(AppendArgs a,
 extern "C" int mx_paged_attention_decode_launch(
     const void* q, const void* km, const void* ke, const void* kmi,
     const void* vm, const void* ve, const void* vmi, const void* bt,
-    const void* lengths, void* out, int B, int npg, int n_stack, int group,
-    int KVH, int G, int dk, int dv, void* stream) {
-  if (B <= 0 || npg <= 0 || KVH <= 0 || n_stack <= 0 || group < 0 ||
-      group >= n_stack || !shape_ok(G, dk, dv))
+    const void* lengths, void* out, void* ws, void* counters, int B, int npg,
+    int n_stack, int group, int KVH, int G, int dk, int dv, float scale,
+    long long ws_floats, int n_counters, void* stream) {
+  if (npg <= 0 || n_stack <= 0 || group < 0 || group >= n_stack)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(G, dk, dv);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mx_paged_attention_decode_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid(B, KVH);
-  mx_paged_attention_decode_kernel<<<grid, kTile, smem,
-                                     (cudaStream_t)stream>>>(
-      (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
-      (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
-      (const uint8_t*)vmi, (const int*)bt, (const int*)lengths, (float*)out,
-      npg, n_stack, group, KVH, G, dk, dv);
-  return (int)cudaGetLastError();
+  return split::with_row_bound(G, [&](auto bound) {
+    constexpr int M = decltype(bound)::value;
+    size_t smem = 0;
+    const int err = split::prepare(mx_paged_attention_decode_kernel<M>, B,
+                                   KVH, npg, G, dk, dv, ws_floats,
+                                   n_counters, &smem);
+    if (err != (int)cudaSuccess) return err;
+    mx_paged_attention_decode_kernel<M><<<dim3(B, KVH, npg), split::kThreads,
+                                          smem, (cudaStream_t)stream>>>(
+        (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
+        (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
+        (const uint8_t*)vmi, (const int*)bt, (const int*)lengths,
+        (float*)out, (float*)ws, (int*)counters, npg, n_stack, group, KVH, G,
+        dk, dv, scale);
+    return (int)cudaGetLastError();
+  });
 }
 
 // MLA mode over the latent pools (km / ke / kmi); same return convention.

@@ -14,12 +14,14 @@
 // kv head are folded into the query rows of one block (row r = j * G + g,
 // query-major, as the TPU kernel's _fold_queries does), so each block
 // streams its row's valid K / V tiles once for all n_q positions: one
-// memory-bound cache read amortised over the drafted tokens.  The tile
-// loop is mx_attention_tile.cuh's, the one the decode kernels run with
-// n_q = 1; every row carries its own length, and the tiles past a row's
-// length are the identity on its accumulators, so row j is bitwise the
-// decode kernel at length len - (n_q - 1 - j), and the paged kernel is
-// bitwise the dense one over the gathered pages.
+// memory-bound cache read amortised over the drafted tokens.  The loop is
+// mx_attention_split.cuh's, the one the decode kernels run with n_q = 1:
+// grid (B, KVH, 128-position splits), K / V staged with cp.async, the
+// splits combined in order in the same launch.  Every row carries its own
+// length, and the sub-tiles and splits past a row's length are the
+// identity on its accumulators, so row j is bitwise the decode kernel at
+// length len - (n_q - 1 - j), and the paged kernel is bitwise the dense one
+// over the gathered pages.
 //
 // Limits: n_q * G <= 16 query rows and n_q * G * dv <= 2048 accumulator
 // items per block (the launchers refuse the rest).
@@ -32,19 +34,23 @@
 // operations.  Row j is bitwise the MLA decode kernel at the shifted
 // length; the paged kernel bitwise the dense one over gathered pages.
 //
-// Layouts: q (B, KVH, n_q * G, dk) pre-scaled f32, query-major rows; dense
-// K / V mantissas (B, T, KVH, d) int8 with exponent / micro bytes
-// (B, T, KVH, d/16); paged pools (P, n_stack, 128, KVH, d) walked through
-// bt (B, npg) int32 at layer `group`; lengths (B,) int32 counting the n_q
-// appended rows; out (B, KVH, n_q * G, dv) f32.
-#include "mx_attention_tile.cuh"
+// Layouts: GQA q (B, n_q, KVH * G, dk) f32, scaled and folded into
+// query-major rows in the kernel, out (B, n_q, KVH * G, dv) f32; MLA q
+// (B, KVH, n_q * G, dk) pre-scaled f32, query-major rows, out
+// (B, KVH, n_q * G, dv) f32; dense K / V mantissas (B, T, KVH, d) int8 with
+// exponent / micro bytes (B, T, KVH, d/16); paged pools
+// (P, n_stack, 128, KVH, d) walked through bt (B, npg) int32 at layer
+// `group`; lengths (B,) int32 counting the n_q appended rows.  The GQA
+// launches also take the split loop's workspace and counters.
+#include "mx_attention_split.cuh"
 #include "mx_mla_tile.cuh"
 
 namespace {
 
 using namespace mxattn;
 
-__global__ void __launch_bounds__(kTile)
+template <int MAXR>
+__global__ void __launch_bounds__(split::kThreads, split::kMinBlocks)
 mx_spec_attention_decode_kernel(const float* __restrict__ q,
                                 const int8_t* __restrict__ km,
                                 const uint8_t* __restrict__ ke,
@@ -53,13 +59,17 @@ mx_spec_attention_decode_kernel(const float* __restrict__ q,
                                 const uint8_t* __restrict__ ve,
                                 const uint8_t* __restrict__ vmi,
                                 const int* __restrict__ lengths,
-                                float* __restrict__ out, int T, int KVH,
-                                int G, int n_q, int dk, int dv) {
-  attention_tiles(DenseRows{T, KVH}, q, km, ke, kmi, vm, ve, vmi, lengths,
-                  out, T, KVH, G, n_q, dk, dv);
+                                float* __restrict__ out,
+                                float* __restrict__ ws,
+                                int* __restrict__ counters, int T, int KVH,
+                                int G, int n_q, int dk, int dv, float scale) {
+  split::split_attention<MAXR>(DenseRows{T, KVH}, q,
+                         split::Stream{km, ke, kmi, vm, ve, vmi}, lengths,
+                         out, ws, counters, T, KVH, G, n_q, dk, dv, scale);
 }
 
-__global__ void __launch_bounds__(kTile)
+template <int MAXR>
+__global__ void __launch_bounds__(split::kThreads, split::kMinBlocks)
 mx_paged_spec_attention_decode_kernel(const float* __restrict__ q,
                                       const int8_t* __restrict__ km,
                                       const uint8_t* __restrict__ ke,
@@ -69,12 +79,15 @@ mx_paged_spec_attention_decode_kernel(const float* __restrict__ q,
                                       const uint8_t* __restrict__ vmi,
                                       const int* __restrict__ bt,
                                       const int* __restrict__ lengths,
-                                      float* __restrict__ out, int npg,
+                                      float* __restrict__ out,
+                                      float* __restrict__ ws,
+                                      int* __restrict__ counters, int npg,
                                       int n_stack, int group, int KVH, int G,
-                                      int n_q, int dk, int dv) {
-  attention_tiles(PagedRows{bt, npg, n_stack, group, KVH}, q, km, ke, kmi,
-                  vm, ve, vmi, lengths, out, npg * kTile, KVH, G, n_q, dk,
-                  dv);
+                                      int n_q, int dk, int dv, float scale) {
+  split::split_attention<MAXR>(PagedRows{bt, npg, n_stack, group, KVH}, q,
+                               split::Stream{km, ke, kmi, vm, ve, vmi},
+                               lengths, out, ws, counters, npg * kTile, KVH,
+                               G, n_q, dk, dv, scale);
 }
 
 __global__ void __launch_bounds__(mla::kThreads)
@@ -103,17 +116,6 @@ mx_paged_spec_attention_decode_mla_kernel(const float* __restrict__ q,
                  lengths, out, npg * kTile, KVH, G, n_q, dk, dv);
 }
 
-template <class Kernel>
-int prepare(Kernel kernel, int G, int n_q, int dk, int dv, size_t* smem) {
-  if (G <= 0 || n_q <= 0 || !shape_ok(n_q * G, dk, dv))
-    return (int)cudaErrorInvalidValue;
-  *smem = smem_bytes(n_q * G, dk, dv);
-  if (*smem > 48 * 1024)
-    return (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-  return (int)cudaSuccess;
-}
-
 }  // namespace
 
 // Both return cudaGetLastError() after the launch (cudaErrorInvalidValue
@@ -121,44 +123,54 @@ int prepare(Kernel kernel, int G, int n_q, int dk, int dv, size_t* smem) {
 extern "C" int mx_spec_attention_decode_launch(
     const void* q, const void* km, const void* ke, const void* kmi,
     const void* vm, const void* ve, const void* vmi, const void* lengths,
-    void* out, int B, int T, int KVH, int G, int n_q, int dk, int dv,
+    void* out, void* ws, void* counters, int B, int T, int KVH, int G,
+    int n_q, int dk, int dv, float scale, long long ws_floats, int n_counters,
     void* stream) {
-  if (B <= 0 || KVH <= 0 || T <= 0 || T % kTile != 0)
+  if (T <= 0 || T % kTile != 0 || G <= 0 || n_q <= 0)
     return (int)cudaErrorInvalidValue;
-  size_t smem = 0;
-  const int err = prepare(mx_spec_attention_decode_kernel, G, n_q, dk, dv,
-                          &smem);
-  if (err != (int)cudaSuccess) return err;
-  const dim3 grid(B, KVH);
-  mx_spec_attention_decode_kernel<<<grid, kTile, smem,
-                                    (cudaStream_t)stream>>>(
-      (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
-      (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
-      (const uint8_t*)vmi, (const int*)lengths, (float*)out, T, KVH, G, n_q,
-      dk, dv);
-  return (int)cudaGetLastError();
+  const int S = T / split::kSplit;
+  return split::with_row_bound(n_q * G, [&](auto bound) {
+    constexpr int M = decltype(bound)::value;
+    size_t smem = 0;
+    const int err = split::prepare(mx_spec_attention_decode_kernel<M>, B,
+                                   KVH, S, n_q * G, dk, dv, ws_floats,
+                                   n_counters, &smem);
+    if (err != (int)cudaSuccess) return err;
+    mx_spec_attention_decode_kernel<M><<<dim3(B, KVH, S), split::kThreads,
+                                         smem, (cudaStream_t)stream>>>(
+        (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
+        (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
+        (const uint8_t*)vmi, (const int*)lengths, (float*)out, (float*)ws,
+        (int*)counters, T, KVH, G, n_q, dk, dv, scale);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int mx_paged_spec_attention_decode_launch(
     const void* q, const void* km, const void* ke, const void* kmi,
     const void* vm, const void* ve, const void* vmi, const void* bt,
-    const void* lengths, void* out, int B, int npg, int n_stack, int group,
-    int KVH, int G, int n_q, int dk, int dv, void* stream) {
-  if (B <= 0 || npg <= 0 || KVH <= 0 || n_stack <= 0 || group < 0 ||
-      group >= n_stack)
+    const void* lengths, void* out, void* ws, void* counters, int B, int npg,
+    int n_stack, int group, int KVH, int G, int n_q, int dk, int dv,
+    float scale, long long ws_floats, int n_counters, void* stream) {
+  if (npg <= 0 || n_stack <= 0 || group < 0 || group >= n_stack || G <= 0 ||
+      n_q <= 0)
     return (int)cudaErrorInvalidValue;
-  size_t smem = 0;
-  const int err = prepare(mx_paged_spec_attention_decode_kernel, G, n_q, dk,
-                          dv, &smem);
-  if (err != (int)cudaSuccess) return err;
-  const dim3 grid(B, KVH);
-  mx_paged_spec_attention_decode_kernel<<<grid, kTile, smem,
-                                          (cudaStream_t)stream>>>(
-      (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
-      (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
-      (const uint8_t*)vmi, (const int*)bt, (const int*)lengths, (float*)out,
-      npg, n_stack, group, KVH, G, n_q, dk, dv);
-  return (int)cudaGetLastError();
+  return split::with_row_bound(n_q * G, [&](auto bound) {
+    constexpr int M = decltype(bound)::value;
+    size_t smem = 0;
+    const int err = split::prepare(mx_paged_spec_attention_decode_kernel<M>,
+                                   B, KVH, npg, n_q * G, dk, dv, ws_floats,
+                                   n_counters, &smem);
+    if (err != (int)cudaSuccess) return err;
+    mx_paged_spec_attention_decode_kernel<M><<<
+        dim3(B, KVH, npg), split::kThreads, smem, (cudaStream_t)stream>>>(
+        (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
+        (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
+        (const uint8_t*)vmi, (const int*)bt, (const int*)lengths,
+        (float*)out, (float*)ws, (int*)counters, npg, n_stack, group, KVH, G,
+        n_q, dk, dv, scale);
+    return (int)cudaGetLastError();
+  });
 }
 
 // MLA mode over the latent stream (km / ke / kmi); same return convention.

@@ -4,8 +4,16 @@
 Replaces the TPU kernel ``repro/kernels/mx_attention.py::mx_attention_decode``,
 both modes.  GQA: on an H100 one decode query per head is bound by bytes:
 each valid cached K and V value is read once (9 stored bits) against ~4
-flops per query head.  The kernel streams only the valid 128-position tiles
-of each row, one block per (row, kv head), with a flash-style fp32 softmax.
+flops per query head.  The kernel splits each row's time axis into
+128-position splits, one block each (grid ``(B, KVH, T / 128)``), stages
+K / V through shared memory with ``cp.async``, and combines the splits'
+flash-style fp32 partials in order in the same launch
+(``csrc/mx_attention_split.cuh``).  :func:`split_scratch` gives it a
+workspace for the partials and the per-(row, kv head) counters through
+which the last block of each pair finds out it is last; the counters are
+cached per device and stay zero between launches (each pair's last block
+resets its own), so a CUDA graph can replay the launch.  Kernels that share
+the counters must not run concurrently on two streams.
 MLA (``qV=None``, ``v_width``): one latent stream whose first ``v_width``
 lanes are the values; at deepseek-v2-236b's widths it is bound by fp32
 operations (128 heads per latent row) and runs ``csrc/mx_mla_tile.cuh``'s
@@ -18,7 +26,7 @@ or raises.  ``launches`` counts GQA launches, ``mla_launches`` MLA ones.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -28,14 +36,46 @@ from repro_torch.kernels import ref as _ref
 
 SOURCE = "mx_attention"
 T_BLOCK = 128
+SPLIT = 128             # csrc/mx_attention_split.cuh: kSplit positions a block
+MIN_COUNTERS = 4096     # (row, kv head) pairs the first counter buffer holds
 MLA_MAX_DK = 704        # csrc/mx_mla_tile.cuh: kMaxDk (shared memory)
 MLA_MAX_DV = 512        # kMaxDv: two output columns per thread
 
 #: plain version of the same function (the oracle)
 plain = _ref.mx_attention_decode_ref
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 _MLA_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+#: the split loop's counters per device; a buffer outgrown stays referenced,
+#: since a captured CUDA graph may still launch with its address
+_COUNTERS: Dict[Tuple[str, int], List[torch.Tensor]] = {}
+
+
+def split_scratch(B: int, KVH: int, S: int, R: int, dv: int,
+                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The GQA split loop's workspace for grid ``(B, KVH, S)`` with ``R``
+    query rows of width ``dv`` (a new buffer: every split the kernel
+    combines writes its partial first), and the device's zeroed
+    per-(row, kv head) counters."""
+    key = (device.type, device.index if device.index is not None
+           else torch.cuda.current_device())
+    held = _COUNTERS.setdefault(key, [])
+    if not held or held[-1].numel() < B * KVH:
+        held.append(torch.zeros(max(B * KVH, MIN_COUNTERS),
+                                dtype=torch.int32, device=device))
+    ws = torch.empty(B * KVH * S * R * (dv + 2), dtype=torch.float32,
+                     device=device)
+    return ws, held[-1]
+
+
+def _aligned(q: torch.Tensor) -> torch.Tensor:
+    """q as contiguous fp32 at a 16-byte aligned address (the GQA kernels
+    stage it with 16-byte cp.async)."""
+    qg = q.to(torch.float32).contiguous()
+    return qg.clone() if qg.data_ptr() % 16 else qg
 
 
 def _check_stream(qt: F.QuantizedTensor, B: int, T: int, KVH: int,
@@ -89,16 +129,18 @@ def mx_attention_decode(q: torch.Tensor, qK: F.QuantizedTensor,
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     scale = scale if scale is not None else dk ** -0.5
-    qg = (q.to(torch.float32) * scale).contiguous()
+    qg = _aligned(q)                           # the kernel applies scale
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty((B, H, dv), dtype=torch.float32, device=q.device)
+    ws, counters = split_scratch(B, KVH, T // SPLIT, G, dv, q.device)
     fn = _build.entry(SOURCE, "mx_attention_decode_launch", _ARGTYPES)
     kp, vp = qK.payload, qV.payload
     err = fn(qg.data_ptr(), kp["mantissa"].data_ptr(),
              kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
              vp["mantissa"].data_ptr(), vp["exponent"].data_ptr(),
              vp["micro"].data_ptr(), lens.data_ptr(), out.data_ptr(),
-             B, T, KVH, G, dk, dv,
+             ws.data_ptr(), counters.data_ptr(), B, T, KVH, G, dk, dv,
+             scale, ws.numel(), counters.numel(),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mx_attention_decode")
     mx_attention_decode.launches += 1

@@ -3,10 +3,11 @@ around ``csrc/mx_paged_attention.cu``.
 
 ``mx_paged_attention_decode`` replaces the TPU kernel
 ``repro/kernels/mx_paged_attention.py::mx_paged_attention_decode``: the
-dense decode-attention kernel's tile loop, with tile ``t`` of row ``b``
-read from page ``bt[b, t]`` of the shared pool at layer ``group``.  Bitwise
-equal to :func:`repro_torch.kernels.mx_attention.mx_attention_decode` over
-the gathered pages.
+dense decode-attention kernel's split loop, with split ``s`` of row ``b``
+(one block) read from page ``bt[b, s]`` of the shared pool at layer
+``group``.  Bitwise equal to
+:func:`repro_torch.kernels.mx_attention.mx_attention_decode` over the
+gathered pages.
 
 ``mx_paged_kv_append`` replaces
 ``repro/kernels/mx_paged_attention.py::mx_paged_kv_append``: one launch
@@ -32,7 +33,8 @@ from repro_torch.core import formats as F
 from repro_torch.core.paged import PAGE_TOKENS
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.mx_attention import mla_checked
+from repro_torch.kernels.mx_attention import (_aligned, mla_checked,
+                                              split_scratch)
 
 SOURCE = "mx_paged_attention"
 MAX_POOLS = 8
@@ -41,8 +43,8 @@ MAX_POOLS = 8
 plain = _ref.mx_paged_attention_decode_ref
 plain_append = _ref.paged_kv_append_ref
 
-_ATTN_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
-    ctypes.c_void_p]
+_ATTN_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 _MLA_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
     ctypes.c_void_p]
 _APPEND_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
@@ -118,8 +120,10 @@ def mx_paged_attention_decode(q: torch.Tensor, k_pool: F.QuantizedTensor,
         raise ValueError(f"bt {tuple(bt.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not fit batch {B}")
     scale = scale if scale is not None else dk ** -0.5
-    qg = (q.to(torch.float32) * scale).contiguous()
+    qg = _aligned(q)                           # the kernel applies scale
     out = torch.empty((B, H, dv), dtype=torch.float32, device=q.device)
+    npg = int(bt_.shape[1])
+    ws, counters = split_scratch(B, KVH, npg, G, dv, q.device)
     fn = _build.entry(SOURCE, "mx_paged_attention_decode_launch",
                       _ATTN_ARGTYPES)
     kp, vp = k_pool.payload, v_pool.payload
@@ -127,8 +131,10 @@ def mx_paged_attention_decode(q: torch.Tensor, k_pool: F.QuantizedTensor,
              kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
              vp["mantissa"].data_ptr(), vp["exponent"].data_ptr(),
              vp["micro"].data_ptr(), bt_.data_ptr(), lens.data_ptr(),
-             out.data_ptr(), B, int(bt_.shape[1]), n_stack, int(group), KVH,
-             G, dk, dv, torch.cuda.current_stream(q.device).cuda_stream)
+             out.data_ptr(), ws.data_ptr(), counters.data_ptr(), B, npg,
+             n_stack, int(group), KVH, G, dk, dv, scale, ws.numel(),
+             counters.numel(),
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mx_paged_attention_decode")
     mx_paged_attention_decode.launches += 1
     return out

@@ -7,9 +7,11 @@
 mode).  A verify pass scores ``Kq = spec_k + 1`` query positions against a
 cache whose lengths already count the ``Kq`` appended rows; position ``j``
 sees ``pos < lengths - (Kq - 1 - j)``.  The kernels fold the ``Kq``
-positions into the query rows of the decode kernels' tile loop, so each
-block streams its cache tiles once for all positions -- the bytes of one
-decode step, amortised over the drafted tokens.  Row ``j`` is bitwise the
+positions into the query rows of the decode kernels' split loop
+(``csrc/mx_attention_split.cuh``: one block per 128-position split, the
+splits combined in order in the same launch), so each block streams its
+cache positions once for all query positions -- the bytes of one decode
+step, amortised over the drafted tokens.  Row ``j`` is bitwise the
 decode kernel at the shifted length, ``Kq = 1`` is bitwise the decode
 kernel, and the paged kernel is bitwise the dense one over the gathered
 pages.
@@ -34,8 +36,9 @@ import torch
 from repro_torch.core import formats as F
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.mx_attention import (T_BLOCK, _check_stream,
-                                              mla_checked)
+from repro_torch.kernels.mx_attention import (SPLIT, T_BLOCK, _aligned,
+                                              _check_stream, mla_checked,
+                                              split_scratch)
 from repro_torch.kernels.mx_paged_attention import _check_pool, _index
 
 SOURCE = "mx_spec_attention"
@@ -46,28 +49,38 @@ MAX_ACC = 2048         # accumulator items per block: Kq * G * dv
 plain = _ref.mx_spec_attention_decode_ref
 plain_paged = _ref.mx_paged_spec_attention_decode_ref
 
-_DENSE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-    ctypes.c_void_p]
-_PAGED_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
-    ctypes.c_void_p]
+_DENSE_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+_PAGED_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [
+    ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 _MLA_DENSE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
 _MLA_PAGED_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
     ctypes.c_void_p]
 
 
-def _fold(q: torch.Tensor, KVH: int, dv: int, scale: Optional[float],
-          mla: bool = False) -> torch.Tensor:
-    """(B, Kq, H, dk) -> pre-scaled (B, KVH, Kq*G, dk), query-major rows
-    (the TPU kernel's ``_fold_queries``), after checking the GQA limits
-    (the MLA loop has no row limit)."""
+def _gqa_rows(q: torch.Tensor, KVH: int, dv: int) -> int:
+    """G after checking the GQA kernels' limits (``ValueError`` beyond
+    them, never a fallback)."""
     B, Kq, H, dk = q.shape
     if H % KVH:
         raise ValueError(f"H={H} must divide by KVH={KVH}")
     G = H // KVH
-    if not mla and (Kq * G > MAX_ROWS or Kq * G * dv > MAX_ACC):
+    if Kq * G > MAX_ROWS or Kq * G * dv > MAX_ACC:
         raise ValueError(f"Kq={Kq}, G={G}, dv={dv}: the kernel takes "
                          f"Kq*G <= {MAX_ROWS} and Kq*G*dv <= {MAX_ACC}")
+    return G
+
+
+def _fold(q: torch.Tensor, KVH: int, scale: Optional[float]
+          ) -> torch.Tensor:
+    """MLA mode: (B, Kq, H, dk) -> pre-scaled (B, KVH, Kq*G, dk),
+    query-major rows (the TPU kernel's ``_fold_queries``; the GQA kernels
+    fold and scale in the kernel)."""
+    B, Kq, H, dk = q.shape
+    if H % KVH:
+        raise ValueError(f"H={H} must divide by KVH={KVH}")
+    G = H // KVH
     scale = scale if scale is not None else dk ** -0.5
     qg = (q.to(torch.float32) * scale).reshape(B, Kq, KVH, G, dk)
     return qg.permute(0, 2, 1, 3, 4).contiguous()
@@ -107,7 +120,7 @@ def mx_spec_attention_decode(q: torch.Tensor, qK: F.QuantizedTensor,
     if _check_stream(qK, B, T, KVH, "K") != dk:
         raise ValueError(f"key width {qK.shape[-1]} != query width {dk}")
     dv = _check_stream(qV, B, T, KVH, "V")
-    qg = _fold(q, KVH, dv, scale)
+    G = _gqa_rows(q, KVH, dv)
     for name, t in (("K", qK.payload["mantissa"]),
                     ("V", qV.payload["mantissa"]), ("lengths", lengths)):
         if t.device != q.device:
@@ -115,9 +128,10 @@ def mx_spec_attention_decode(q: torch.Tensor, qK: F.QuantizedTensor,
     lens = lengths.to(torch.int32).contiguous()
     if lens.shape != (B,):
         raise ValueError(f"lengths {tuple(lengths.shape)} for batch {B}")
-    G = H // KVH
-    out = torch.empty((B, KVH, Kq, G, dv), dtype=torch.float32,
-                      device=q.device)
+    scale = scale if scale is not None else dk ** -0.5
+    qg = _aligned(q)                        # the kernel folds and scales
+    out = torch.empty((B, Kq, H, dv), dtype=torch.float32, device=q.device)
+    ws, counters = split_scratch(B, KVH, T // SPLIT, Kq * G, dv, q.device)
     fn = _build.entry(SOURCE, "mx_spec_attention_decode_launch",
                       _DENSE_ARGTYPES)
     kp, vp = qK.payload, qV.payload
@@ -125,11 +139,12 @@ def mx_spec_attention_decode(q: torch.Tensor, qK: F.QuantizedTensor,
              kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
              vp["mantissa"].data_ptr(), vp["exponent"].data_ptr(),
              vp["micro"].data_ptr(), lens.data_ptr(), out.data_ptr(),
-             B, T, KVH, G, Kq, dk, dv,
+             ws.data_ptr(), counters.data_ptr(), B, T, KVH, G, Kq, dk, dv,
+             scale, ws.numel(), counters.numel(),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mx_spec_attention_decode")
     mx_spec_attention_decode.launches += 1
-    return _unfold(out)
+    return out
 
 
 def mx_paged_spec_attention_decode(q: torch.Tensor, k_pool: F.QuantizedTensor,
@@ -156,7 +171,7 @@ def mx_paged_spec_attention_decode(q: torch.Tensor, k_pool: F.QuantizedTensor,
         raise ValueError(f"pools K {k_pool.payload['mantissa'].shape} / V "
                          f"{v_pool.payload['mantissa'].shape} do not fit q "
                          f"{tuple(q.shape)}")
-    qg = _fold(q, KVH, dv, scale)
+    G = _gqa_rows(q, KVH, dv)
     if not 0 <= int(group) < n_stack:
         raise ValueError(f"group {group} outside the pool's {n_stack}")
     for name, t in (("K", k_pool.payload["mantissa"]),
@@ -168,9 +183,11 @@ def mx_paged_spec_attention_decode(q: torch.Tensor, k_pool: F.QuantizedTensor,
     if bt_.dim() != 2 or bt_.shape[0] != B or lens.shape != (B,):
         raise ValueError(f"bt {tuple(bt.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not fit batch {B}")
-    G = H // KVH
-    out = torch.empty((B, KVH, Kq, G, dv), dtype=torch.float32,
-                      device=q.device)
+    scale = scale if scale is not None else dk ** -0.5
+    qg = _aligned(q)                        # the kernel folds and scales
+    out = torch.empty((B, Kq, H, dv), dtype=torch.float32, device=q.device)
+    npg = int(bt_.shape[1])
+    ws, counters = split_scratch(B, KVH, npg, Kq * G, dv, q.device)
     fn = _build.entry(SOURCE, "mx_paged_spec_attention_decode_launch",
                       _PAGED_ARGTYPES)
     kp, vp = k_pool.payload, v_pool.payload
@@ -178,11 +195,13 @@ def mx_paged_spec_attention_decode(q: torch.Tensor, k_pool: F.QuantizedTensor,
              kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
              vp["mantissa"].data_ptr(), vp["exponent"].data_ptr(),
              vp["micro"].data_ptr(), bt_.data_ptr(), lens.data_ptr(),
-             out.data_ptr(), B, int(bt_.shape[1]), n_stack, int(group), KVH,
-             G, Kq, dk, dv, torch.cuda.current_stream(q.device).cuda_stream)
+             out.data_ptr(), ws.data_ptr(), counters.data_ptr(), B, npg,
+             n_stack, int(group), KVH, G, Kq, dk, dv, scale, ws.numel(),
+             counters.numel(),
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mx_paged_spec_attention_decode")
     mx_paged_spec_attention_decode.launches += 1
-    return _unfold(out)
+    return out
 
 
 def _mla_dense(q: torch.Tensor, qK: F.QuantizedTensor, lengths: torch.Tensor,
@@ -195,7 +214,7 @@ def _mla_dense(q: torch.Tensor, qK: F.QuantizedTensor, lengths: torch.Tensor,
     if _check_stream(qK, B, T, KVH, "latent") != dk:
         raise ValueError(f"latent width {qK.shape[-1]} != query width {dk}")
     dv = mla_checked(dk, v_width, "mx_spec_attention_decode")
-    qg = _fold(q, KVH, dv, scale, mla=True)
+    qg = _fold(q, KVH, scale)
     for name, t in (("latent", qK.payload["mantissa"]), ("lengths", lengths)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -226,7 +245,7 @@ def _mla_paged(q: torch.Tensor, k_pool: F.QuantizedTensor, bt: torch.Tensor,
         raise ValueError(f"latent pool {k_pool.payload['mantissa'].shape} "
                          f"does not fit q {tuple(q.shape)}")
     dv = mla_checked(dk, v_width, "mx_paged_spec_attention_decode")
-    qg = _fold(q, KVH, dv, scale, mla=True)
+    qg = _fold(q, KVH, scale)
     if not 0 <= int(group) < n_stack:
         raise ValueError(f"group {group} outside the pool's {n_stack}")
     if k_pool.payload["mantissa"].device != q.device:

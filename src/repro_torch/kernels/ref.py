@@ -170,6 +170,86 @@ def mx_paged_spec_attention_decode_ref(q: torch.Tensor,
     return mx_spec_attention_decode_ref(q, qK, qV, lengths, scale, v_width)
 
 
+# ---------------------------------------------------------------------------
+# the combine rule of the GQA kernels' split loop (csrc/mx_attention_split.cuh)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30         # the kernels' finite "minus infinity"
+
+
+def split_partial(qg: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
+                  row_len: torch.Tensor, start: int, stop: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One split's flash partial ``(m, l, acc)`` over positions
+    ``[start, stop)``: pre-scaled queries ``qg (B, KVH, G, dk)``, dequantized
+    caches ``(B, T, KVH, d)``, each row masked to ``pos < row_len (B,)``.
+    A masked position has ``p = 0`` exactly; a row with no valid position
+    in the split gets ``(-1e30, 0, 0)``.  Sums run over ``d`` and the
+    positions in ascending order, one elementwise step each, so a row's
+    numbers do not depend on the other rows or on the batch shape."""
+    kt = kf[:, start:stop].to(torch.float32).permute(0, 2, 1, 3)
+    vt = vf[:, start:stop].to(torch.float32).permute(0, 2, 1, 3)
+    s = torch.zeros(qg.shape[:3] + (stop - start,), dtype=torch.float32)
+    for d in range(qg.shape[-1]):
+        s = s + qg[..., d, None] * kt[:, :, None, :, d]
+    pos = torch.arange(start, stop)
+    valid = (pos[None, :] < row_len[:, None])[:, None, None, :]
+    m = torch.where(valid, s, torch.full_like(s, NEG_INF)).amax(-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = torch.zeros_like(m)
+    acc = torch.zeros(qg.shape[:3] + (vt.shape[-1],), dtype=torch.float32)
+    for t in range(stop - start):
+        l = l + p[..., t]
+        acc = acc + p[..., t, None] * vt[:, :, None, t]
+    return m, l, acc
+
+
+def combine_split(state: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                  part: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fold the next split's partial into the running ``(M, L, A)``: the
+    larger max, each side rescaled by ``exp(its max - the new max)``.  A
+    partial that is fully masked for a row, ``(-1e30, 0, 0)``, leaves that
+    row's running state bitwise: its weight is ``exp(0) = 1`` on the state
+    and 0 on the partial."""
+    M, L, A = state
+    m, l, acc = part
+    m_new = torch.maximum(M, m)
+    alpha, beta = torch.exp(M - m_new), torch.exp(m - m_new)
+    return (m_new, L * alpha + l * beta,
+            A * alpha[..., None] + acc * beta[..., None])
+
+
+def split_spec_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, lengths: torch.Tensor,
+                             split: int = 128,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """Verify attention computed the way the GQA kernels split it: q
+    ``(B, Kq, H, dk)`` against dequantized caches ``(B, T, KVH, d)``, query
+    position ``j`` masked to ``lengths - (Kq - 1 - j)``; fixed splits of
+    ``split`` positions up to the longest row, each split's partial
+    combined in order (:func:`combine_split`).  Kq = 1 is decode.  Used by
+    the tests only; returns ``(B, Kq, H, dv)`` f32."""
+    B, Kq, H, dk = q.shape
+    _, T, KVH, _ = k_cache.shape
+    G = H // KVH
+    scale = scale if scale is not None else dk ** -0.5
+    qg = (q.to(torch.float32) * scale).reshape(B, Kq, KVH, G, dk)
+    lens = lengths.to(torch.int64).clamp(0, T)
+    n_split = max(1, -(-int(lens.max()) // split))
+    out = []
+    for j in range(Kq):
+        row_len = (lengths.to(torch.int64) - (Kq - 1 - j)).clamp(0, T)
+        state = None
+        for s in range(n_split):
+            part = split_partial(qg[:, j], k_cache, v_cache, row_len,
+                                 s * split, min(T, (s + 1) * split))
+            state = part if state is None else combine_split(state, part)
+        _, L, A = state
+        out.append(A / L.clamp_min(1e-30)[..., None])
+    return torch.stack(out, 1).reshape(B, Kq, H, -1)
+
+
 def paged_kv_append_ref(pools, rows, bt: torch.Tensor, group: int,
                         lengths: torch.Tensor):
     """Write each row's payload ``rows[i] (B, KVH, w)`` into the page slot

@@ -80,6 +80,9 @@ def _assert_state_update_contract(plain, yp, kern, yk):
     (4, 1024, 32, 32, 80, (1, 129, 700, 1024)),
     (2, 256, 4, 2, 32, (5, 200)),
     (1, 384, 16, 2, 128, (300,)),
+    # split boundaries (128 positions a block) and rows of 8-10 splits
+    (4, 1280, 32, 32, 80, (1025, 1280, 255, 256)),
+    (2, 1152, 32, 8, 80, (1151, 1024)),
 ])
 def test_attention_kernel_vs_plain(cuda, B, T, H, KVH, d, lens):
     g = torch.Generator(device=cuda).manual_seed(d)
@@ -121,6 +124,7 @@ def _paged_kv(cuda, lengths, n_stack, KVH, d, H, seed):
     ((1, 127, 128, 129), 32, 32, 80),       # zamba2-2.7b shared attention
     ((1000, 128, 129, 1), 32, 32, 80),
     ((5, 200), 4, 2, 32),                   # llama3.2-1b smoke: G = 2
+    ((1100, 1023, 257, 384), 32, 32, 80),   # 3 to 9 splits a row
 ])
 def test_paged_attention_kernel_vs_plain_and_dense(cuda, lens, H, KVH, d):
     from repro_torch.kernels import mx_paged_attention as KP
@@ -299,13 +303,16 @@ def _spec_pools(cuda, lengths, Kq, G, d, seed, n_stack=9, KVH=8):
 
 @pytest.mark.parametrize("Kq", [1, 2, 4])
 @pytest.mark.parametrize("G", [1, 4])
-@pytest.mark.parametrize("lens", [(4, 127, 128, 129), (1000, 131, 129, 5)])
+@pytest.mark.parametrize("lens", [(4, 127, 128, 129), (1000, 131, 129, 5),
+                                  (1025, 1154, 640, 8)])
 def test_spec_attention_kernels_vs_plain_and_decode_kernels(cuda, Kq, G,
                                                             lens):
     """Kernel 6 and kernel 5 against their plain versions (rtol 2e-4, atol
     2e-5); kernel 5 bitwise kernel 6 over the gathered pages; row j
-    bitwise kernels 2 and 3 at the shifted length -- across tile
-    boundaries, shuffled non-contiguous pages, 9 layers."""
+    bitwise kernels 2 and 3 at the shifted length -- across split
+    boundaries, rows of 9-10 splits, shuffled non-contiguous pages, 9
+    layers.  At Kq = 4, lengths 129, 131, 1025 and 1154 end row 0 one
+    split before row 3: that split is fully masked for row 0."""
     from repro_torch.kernels import mx_paged_attention as KP
     from repro_torch.kernels import mx_spec_attention as KV
     from repro_torch.kernels import ref as R
@@ -332,6 +339,40 @@ def test_spec_attention_kernels_vs_plain_and_decode_kernels(cuda, Kq, G,
         assert torch.equal(y6[:, j], KA.mx_attention_decode(qj, Kd, Vd, lj))
         assert torch.equal(y5[:, j], KP.mx_paged_attention_decode(
             qj, K, V, bt, group, lj))
+
+
+def test_split_kernels_replay_in_a_cuda_graph_bitwise(cuda):
+    """20 CUDA-graph replays of kernels 3 and 5 give the eager launch's
+    output bitwise: the last block of each (row, kv head) leaves its split
+    counter at zero, so every replay combines its splits afresh."""
+    from repro_torch.kernels import mx_attention as KA_
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    lens = (1025, 300, 129, 700)                       # 2 to 9 splits a row
+    q, K, V, bt, lengths = _spec_pools(cuda, lens, 4, 4, 80, seed=11)
+    q1 = q[:, 0].contiguous()
+    calls = {"kernel 3": lambda: KP.mx_paged_attention_decode(
+                 q1, K, V, bt, 2, lengths),
+             "kernel 5": lambda: KV.mx_paged_spec_attention_decode(
+                 q, K, V, bt, 2, lengths)}
+    for name, call in calls.items():
+        eager = call()
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for i in range(20):
+            out.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager), (name, i)
+        for held in KA_._COUNTERS.values():
+            assert int(held[-1].abs().sum()) == 0, name
 
 
 def test_spec_attention_kernels_refuse_out_of_limit_and_mla(cuda):

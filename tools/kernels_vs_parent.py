@@ -1,21 +1,33 @@
 #!/usr/bin/env python3
-"""Decode-attention kernels (2 and 3) and the state-update kernel (1) of
-this checkout against another checkout's, bitwise, on the card.
+"""The CUDA kernels of this checkout against another checkout's, bitwise,
+on the card, by families of cases.
 
 Usage, from the repository root, on a machine with one CUDA card:
 
-    python3 tools/kernels_vs_parent.py OTHER_CHECKOUT
+    python3 tools/kernels_vs_parent.py OTHER_CHECKOUT [--cases mla,k1,k7]
 
-It compiles ``OTHER_CHECKOUT/src/repro_torch/csrc/mx_attention.cu``,
-``mx_paged_attention.cu`` and ``mx_state_update.cu`` with this checkout's
-nvcc flags into a temporary directory, launches them and this checkout's
-kernels through the same C entry points on the same inputs (attention:
-zamba2-2.7b and llama3.2-1b smoke widths, lengths across tile boundaries,
-shuffled pages; state update: the zamba2 / mamba2 heads and the GLA
-family's, dense and slab mode, scalar and per-channel decay, both
-roundings), and exits non-zero unless every output is bitwise equal.
-Prints one line per case.
+It compiles the other checkout's ``src/repro_torch/csrc`` sources that the
+chosen families need, with this checkout's nvcc flags, into a temporary
+directory, launches them and this checkout's kernels through the same C
+entry points on the same inputs, and exits non-zero unless every output is
+bitwise equal.  Prints one line per case.  Families (``--cases``, comma
+separated; default ``mla,k1,k7``):
+
+* ``mla``: kernels 2, 3, 5 and 6 in MLA mode (``csrc/mx_mla_tile.cuh``) at
+  deepseek-v2-236b's widths and its smoke widths, decode and Kq = 4
+  verify, lengths across tile boundaries, shuffled pages;
+* ``k1``: kernel 1, dense and slab mode, at the zamba2 / mamba2 heads and
+  the GLA family's, scalar and per-channel decay, both roundings;
+* ``k7``: kernel 7, the MX8 quantizer, at the served prefill shapes and
+  the JAX kernel test's, both roundings;
+* ``gqa``: kernels 2, 3, 5 and 6 in GQA mode (``csrc/mx_attention_split.cuh``)
+  at zamba2-2.7b's and llama3.2-1b's smoke widths, lengths across split
+  boundaries.  Their entry points take the split loop's workspace and
+  counters, so the other checkout must date from the split loop on; the
+  GQA kernels before it had other entry points and other arithmetic, and
+  ``chip_smoke.py`` holds them by their contracts instead.
 """
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -24,6 +36,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+
+FAMILIES = ("mla", "k1", "k7", "gqa")
+_SOURCES = {"mla": ("mx_attention", "mx_paged_attention",
+                    "mx_spec_attention"),
+            "gqa": ("mx_attention", "mx_paged_attention",
+                    "mx_spec_attention"),
+            "k1": ("mx_state_update",), "k7": ("mx_quant",)}
 
 
 def _other_lib(csrc: Path, name: str, out: Path, flags) -> ctypes.CDLL:
@@ -35,86 +54,167 @@ def _other_lib(csrc: Path, name: str, out: Path, flags) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def main() -> int:
+def _entry(lib, name, argtypes):
+    f = getattr(lib, name)
+    f.restype, f.argtypes = ctypes.c_int, list(argtypes)
+    return f
+
+
+def _pool(lens, KVH, d, n_stack, seed, Kq, H, value_pool=True):
+    """Pools of random MX8 K (and V) with a block table of shuffled pages
+    spanning each row's length, and queries (B, Kq, H, d)."""
     import torch
     from repro_torch.core import formats as F
     from repro_torch.core.paged import pages_for
-    from repro_torch.kernels import _build
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    need = [pages_for(n) for n in lens]
+    P = 1 + sum(need)
+    ids = (torch.randperm(P - 1, generator=g, device="cuda") + 1).tolist()
+    npg = 1 << max(0, (max(need) - 1).bit_length())
+    bt = torch.zeros((len(lens), npg), dtype=torch.int32)
+    for b, n in enumerate(need):
+        bt[b, :n] = torch.tensor(ids[:n])
+        ids = ids[n:]
+    shp = (P, n_stack, 128, KVH, d)
+    K = F.mx8_quantize(torch.randn(shp, generator=g, device="cuda"))
+    V = (F.mx8_quantize(torch.randn(shp, generator=g, device="cuda"))
+         if value_pool else None)
+    q = torch.randn((len(lens), Kq, H, d), generator=g, device="cuda")
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, K, V, bt.cuda(), lengths
+
+
+def _report(label, pairs, errs) -> bool:
+    import torch
+    same = [torch.equal(a, b) for a, b in pairs]
+    ok = all(same) and not any(errs)
+    print(f"{label}: " + ", ".join(
+        "bitwise equal" if s else "DIFFERS" for s in same)
+        + f" (launch errors {list(errs)})", flush=True)
+    return ok
+
+
+def _mla_cases(other) -> bool:
+    """MLA mode of kernels 2, 3 (decode) and 5, 6 (Kq = 4 verify)."""
+    import torch
     from repro_torch.kernels import mx_attention as KA
     from repro_torch.kernels import mx_paged_attention as KP
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
-        print(__doc__, file=sys.stderr)
-        return 2
-    csrc = Path(sys.argv[1]) / "src" / "repro_torch" / "csrc"
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    f2 = _entry(other["mx_attention"], "mx_attention_decode_mla_launch",
+                KA._MLA_ARGTYPES)
+    f3 = _entry(other["mx_paged_attention"],
+                "mx_paged_attention_decode_mla_launch", KP._MLA_ARGTYPES)
+    f6 = _entry(other["mx_spec_attention"],
+                "mx_spec_attention_decode_mla_launch",
+                KV._MLA_DENSE_ARGTYPES)
+    f5 = _entry(other["mx_spec_attention"],
+                "mx_paged_spec_attention_decode_mla_launch",
+                KV._MLA_PAGED_ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
     ok = True
-    with tempfile.TemporaryDirectory() as tmp:
-        other = {n: _other_lib(csrc, n, Path(tmp), _build.NVCC_FLAGS)
-                 for n in ("mx_attention", "mx_paged_attention",
-                           "mx_state_update")}
-        for fn_name, lib_name, argtypes in (
-                ("mx_attention_decode_launch", "mx_attention",
-                 KA._ARGTYPES),
-                ("mx_paged_attention_decode_launch", "mx_paged_attention",
-                 KP._ATTN_ARGTYPES)):
-            f = getattr(other[lib_name], fn_name)
-            f.restype, f.argtypes = ctypes.c_int, list(argtypes)
-        for H, KVH, d, lens in ((32, 32, 80, (1, 127, 128, 129)),
-                                (32, 32, 80, (1000, 128, 129, 1)),
-                                (4, 2, 32, (5, 200, 131, 64))):
-            g = torch.Generator(device="cuda").manual_seed(d + lens[0])
-            need = [pages_for(n) for n in lens]
-            P = 1 + sum(need)
-            ids = (torch.randperm(P - 1, generator=g, device="cuda")
-                   + 1).tolist()
-            npg = 1 << max(0, (max(need) - 1).bit_length())
-            bt = torch.zeros((len(lens), npg), dtype=torch.int32)
-            for b, n in enumerate(need):
-                bt[b, :n] = torch.tensor(ids[:n])
-                ids = ids[n:]
-            bt = bt.cuda()
-            K = F.mx8_quantize(torch.randn((P, 9, 128, KVH, d), generator=g,
-                                           device="cuda"))
-            V = F.mx8_quantize(torch.randn((P, 9, 128, KVH, d), generator=g,
-                                           device="cuda"))
-            q = torch.randn((len(lens), H, d), generator=g, device="cuda")
-            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            qg = (q * d ** -0.5).contiguous()
-            stream = torch.cuda.current_stream().cuda_stream
-            # kernel 3, this checkout (through its wrapper) and the other
-            y3 = KP.mx_paged_attention_decode(q, K, V, bt, 4, lengths)
-            o3 = torch.empty_like(y3)
-            kp, vp = K.payload, V.payload
-            err = other["mx_paged_attention"].mx_paged_attention_decode_launch(
-                qg.data_ptr(), kp["mantissa"].data_ptr(),
-                kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
-                vp["mantissa"].data_ptr(), vp["exponent"].data_ptr(),
-                vp["micro"].data_ptr(), bt.data_ptr(), lengths.data_ptr(),
-                o3.data_ptr(), len(lens), npg, 9, 4, KVH, H // KVH, d, d,
-                stream)
-            # kernel 2 over the gathered pages
-            from repro_torch.kernels import ref as R
-            Kd, Vd = R.gather_pages(K, bt, 4), R.gather_pages(V, bt, 4)
-            y2 = KA.mx_attention_decode(q, Kd, Vd, lengths)
-            o2 = torch.empty_like(y2)
-            kd, vd = Kd.payload, Vd.payload
-            err2 = other["mx_attention"].mx_attention_decode_launch(
-                qg.data_ptr(), kd["mantissa"].data_ptr(),
-                kd["exponent"].data_ptr(), kd["micro"].data_ptr(),
-                vd["mantissa"].data_ptr(), vd["exponent"].data_ptr(),
-                vd["micro"].data_ptr(), lengths.data_ptr(), o2.data_ptr(),
-                len(lens), npg * 128, KVH, H // KVH, d, d, stream)
+    for H, dk, dv in ((8, 64, 32), (128, 576, 512)):
+        for lens in ((4, 127, 128, 129), (1000, 131, 129, 5)):
+            q, K, _, bt, lengths = _pool(lens, 1, dk, 3, dk + lens[0], 4, H,
+                                         value_pool=False)
+            group, scale, B, npg = 2, dk ** -0.5, len(lens), bt.shape[1]
+            kw = dict(scale=scale, v_width=dv)
+            Kd = R.gather_pages(K, bt, group)
+            kp, kd = K.payload, Kd.payload
+            q1 = q[:, 0].contiguous()
+            q1s = (q1 * scale).contiguous()
+            qf = KV._fold(q, 1, scale)
+            y2 = KA.mx_attention_decode(q1, Kd, None, lengths, **kw)
+            y3 = KP.mx_paged_attention_decode(q1, K, None, bt, group,
+                                              lengths, **kw)
+            y6 = KV.mx_spec_attention_decode(q, Kd, None, lengths, **kw)
+            y5 = KV.mx_paged_spec_attention_decode(q, K, None, bt, group,
+                                                   lengths, **kw)
+            o2, o3 = torch.empty_like(y2), torch.empty_like(y3)
+            o5 = torch.empty((B, 1, 4, H, dv), device="cuda")
+            o6 = torch.empty_like(o5)
+            errs = (
+                f2(q1s.data_ptr(), kd["mantissa"].data_ptr(),
+                   kd["exponent"].data_ptr(), kd["micro"].data_ptr(),
+                   lengths.data_ptr(), o2.data_ptr(), B, npg * 128, 1, H,
+                   dk, dv, stream),
+                f3(q1s.data_ptr(), kp["mantissa"].data_ptr(),
+                   kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
+                   bt.data_ptr(), lengths.data_ptr(), o3.data_ptr(), B, npg,
+                   3, group, 1, H, dk, dv, stream),
+                f6(qf.data_ptr(), kd["mantissa"].data_ptr(),
+                   kd["exponent"].data_ptr(), kd["micro"].data_ptr(),
+                   lengths.data_ptr(), o6.data_ptr(), B, npg * 128, 1, H, 4,
+                   dk, dv, stream),
+                f5(qf.data_ptr(), kp["mantissa"].data_ptr(),
+                   kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
+                   bt.data_ptr(), lengths.data_ptr(), o5.data_ptr(), B, npg,
+                   3, group, 1, H, 4, dk, dv, stream))
             torch.cuda.synchronize()
-            same = (err == err2 == 0 and torch.equal(y3, o3)
-                    and torch.equal(y2, o2))
-            ok &= same
-            print(f"H={H} KVH={KVH} d={d} lengths={lens}: kernel 3 "
-                  f"{'bitwise equal' if torch.equal(y3, o3) else 'DIFFERS'}"
-                  f", kernel 2 "
-                  f"{'bitwise equal' if torch.equal(y2, o2) else 'DIFFERS'}"
-                  f" (launch errors {err}, {err2})", flush=True)
-        ok &= _state_update_cases(other["mx_state_update"])
-    print("kernels_vs_parent:", "ok" if ok else "FAILED")
-    return 0 if ok else 1
+            ok &= _report(
+                f"MLA H={H} dk={dk} dv={dv} lengths={lens}: kernels 2, 3, "
+                f"6, 5", [(y2, o2), (y3, o3), (y6, KV._unfold(o6)),
+                          (y5, KV._unfold(o5))], errs)
+    return ok
+
+
+def _gqa_cases(other) -> bool:
+    """GQA mode of kernels 2, 3 (decode) and 5, 6 (Kq = 4 verify): the
+    split loop's entry points."""
+    import torch
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    f2 = _entry(other["mx_attention"], "mx_attention_decode_launch",
+                KA._ARGTYPES)
+    f3 = _entry(other["mx_paged_attention"],
+                "mx_paged_attention_decode_launch", KP._ATTN_ARGTYPES)
+    f6 = _entry(other["mx_spec_attention"], "mx_spec_attention_decode_launch",
+                KV._DENSE_ARGTYPES)
+    f5 = _entry(other["mx_spec_attention"],
+                "mx_paged_spec_attention_decode_launch", KV._PAGED_ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+    ok = True
+    for H, KVH, d, lens in ((32, 32, 80, (4, 127, 128, 129)),
+                            (32, 32, 80, (1025, 131, 129, 5)),
+                            (4, 2, 32, (5, 200, 131, 64))):
+        q, K, V, bt, lengths = _pool(lens, KVH, d, 9, d + lens[0], 4, H)
+        group, B, npg, G = 4, len(lens), bt.shape[1], H // KVH
+        Kd, Vd = R.gather_pages(K, bt, group), R.gather_pages(V, bt, group)
+        q1 = q[:, 0].contiguous()
+        ys = (KA.mx_attention_decode(q1, Kd, Vd, lengths),
+              KP.mx_paged_attention_decode(q1, K, V, bt, group, lengths),
+              KV.mx_spec_attention_decode(q, Kd, Vd, lengths),
+              KV.mx_paged_spec_attention_decode(q, K, V, bt, group, lengths))
+        outs = [torch.empty_like(y) for y in ys]
+        errs = []
+        for i, (fn, qq, R_, paged) in enumerate(((f2, q1, G, False),
+                                                 (f3, q1, G, True),
+                                                 (f6, q, 4 * G, False),
+                                                 (f5, q, 4 * G, True))):
+            ws, counters = KA.split_scratch(B, KVH, npg, R_, d, q.device)
+            src, vsrc = (K, V) if paged else (Kd, Vd)
+            kp, vp = src.payload, vsrc.payload
+            ptrs = [qq.data_ptr(), kp["mantissa"].data_ptr(),
+                    kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
+                    vp["mantissa"].data_ptr(), vp["exponent"].data_ptr(),
+                    vp["micro"].data_ptr()]
+            if paged:
+                ptrs.append(bt.data_ptr())
+            ptrs += [lengths.data_ptr(), outs[i].data_ptr(), ws.data_ptr(),
+                     counters.data_ptr()]
+            dims = ([B, npg, 9, group, KVH, G] if paged
+                    else [B, npg * 128, KVH, G])
+            if i >= 2:
+                dims.append(4)
+            errs.append(fn(*ptrs, *dims, d, d, d ** -0.5, ws.numel(),
+                           counters.numel(), stream))
+        torch.cuda.synchronize()
+        ok &= _report(
+            f"GQA H={H} KVH={KVH} d={d} lengths={lens}: kernels 2, 3, 6, 5",
+            list(zip(ys, outs)), errs)
+    return ok
 
 
 #: (B, H, dv, dk): zamba2, mamba2, gla, retnet, hgrn2
@@ -128,8 +228,7 @@ def _state_update_cases(lib) -> bool:
     import torch
     from repro_torch.core import formats as F
     from repro_torch.kernels import mx_state_update as KS
-    fn = lib.mx_state_update_launch
-    fn.restype, fn.argtypes = ctypes.c_int, list(KS._ARGTYPES)
+    fn = _entry(lib, "mx_state_update_launch", KS._ARGTYPES)
     stream = torch.cuda.current_stream().cuda_stream
     ok = True
     for B, H, dv, dk in SU_SHAPES:
@@ -181,6 +280,76 @@ def _state_update_cases(lib) -> bool:
                       f"{'bitwise equal' if res[1] else 'DIFFERS'}",
                       flush=True)
     return ok
+
+
+#: kernel 7: the GLA family's prefill states, zamba2's K, deepseek's
+#: latent, the JAX kernel test's shapes
+QUANT_SHAPES = ((4, 4, 640, 320), (4, 10, 512, 256), (4, 20, 128, 128),
+                (4, 1024, 32, 80), (4, 512, 1, 576), (16, 64), (300, 128),
+                (5, 7, 32))
+
+
+def _quant_cases(lib) -> bool:
+    """Kernel 7, this checkout's wrapper against the other checkout's entry
+    point: values over many decades, zero groups."""
+    import torch
+    from repro_torch.kernels import mx_quant as KQ
+    fn = _entry(lib, "mx_quant_launch", KQ._ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+    ok = True
+    for shape in QUANT_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(shape[-1] + len(shape))
+        x = torch.randn(shape, generator=g, device="cuda") * torch.pow(
+            10.0, torch.randint(-40, 6, shape[:-1] + (1,), generator=g,
+                                device="cuda").float())
+        x.view(-1, 16)[::7] = 0.0
+        for rounding in ("nearest", "stochastic"):
+            got = KQ.mx_quantize(x, 77, rounding=rounding)
+            want = {f: torch.empty_like(a) for f, a in got.payload.items()}
+            err = fn(x.data_ptr(), want["mantissa"].data_ptr(),
+                     want["exponent"].data_ptr(), want["micro"].data_ptr(),
+                     x.numel() // 16, 77, int(rounding == "stochastic"),
+                     stream)
+            torch.cuda.synchronize()
+            ok &= _report(f"quantize {shape} {rounding}: mantissa, "
+                          f"exponent, micro",
+                          [(got.payload[f], want[f])
+                           for f in ("mantissa", "exponent", "micro")],
+                          [err])
+    return ok
+
+
+def main() -> int:
+    import torch
+    from repro_torch.kernels import _build
+    ap = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("other", help="the other checkout's root")
+    ap.add_argument("--cases", default="mla,k1,k7",
+                    help=f"comma-separated families of {FAMILIES}")
+    args = ap.parse_args()
+    cases = [c for c in args.cases.split(",") if c]
+    bad = [c for c in cases if c not in FAMILIES]
+    if bad or not cases:
+        ap.error(f"unknown case families {bad}; choose from {FAMILIES}")
+    if not torch.cuda.is_available():
+        print("kernels_vs_parent: no CUDA device", file=sys.stderr)
+        return 2
+    csrc = Path(args.other) / "src" / "repro_torch" / "csrc"
+    names = sorted({n for c in cases for n in _SOURCES[c]})
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        other = {n: _other_lib(csrc, n, Path(tmp), _build.NVCC_FLAGS)
+                 for n in names}
+        run = {"mla": lambda: _mla_cases(other),
+               "gqa": lambda: _gqa_cases(other),
+               "k1": lambda: _state_update_cases(other["mx_state_update"]),
+               "k7": lambda: _quant_cases(other["mx_quant"])}
+        for c in cases:
+            ok &= run[c]()
+    print(f"kernels_vs_parent ({','.join(cases)}):",
+          "ok" if ok else "FAILED")
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
