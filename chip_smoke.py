@@ -58,6 +58,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 
 SU_SHAPES = ((4, 80, 64, 64), (4, 80, 64, 128))   # zamba2-2.7b, mamba2-2.7b
+#: kernel 1 at a head of odd dv in a launch large enough that a thread owns
+#: two rows (301 rows: the last block of rows partial, its last row alone)
+SU_ODD = (4, 40, 301, 128)
+#: kernel 1's state magnitudes; at 1e-37 (v scaled alike) the new state's
+#: scales are subnormal and the quantizer takes its two-multiply path
+SU_TINY = 1e-37
 ATTN = dict(B=4, T=1024, H=32, KVH=32, d=80)       # zamba2-2.7b shared attn
 PROMPT_LENS = (64, 400, 133, 251, 97, 320)         # main path, 64..400 tokens
 MAX_NEW = 24
@@ -229,6 +235,8 @@ def _su_case(shape, rounding, mag, scalar_decay, seed):
     k = torch.randn((B, H, dk), generator=g, device="cuda")
     q = torch.randn((B, H, dk), generator=g, device="cuda")
     v = torch.randn((B, H, dv), generator=g, device="cuda")
+    if mag <= SU_TINY:
+        v *= mag
     qS = F.mx8_quantize(S0)
     qp, yp = KS.plain(qS.clone(), d, k, v, q, rounding=rounding, seed=seed)
     qk, yk = KS.mx_state_update(qS.clone(), d, k, v, q, seed=seed,
@@ -261,16 +269,18 @@ def _hold_su(label, plain, yp, kern, yk):
 def phase_state_update():
     mism = total = 0
     max_err = 0.0
-    for shape in SU_SHAPES:
+    for shape in SU_SHAPES + (SU_ODD,):
         for rounding in ("stochastic", "nearest"):
-            for mag, scalar in ((1.0, True), (1e-3, False)):
+            for mag, scalar in ((1.0, True), (1e-3, False), (SU_TINY, False),
+                                (SU_TINY, True)):
                 n_bad, n, err = _su_case(shape, rounding, mag, scalar,
                                          seed=shape[3] + int(mag * 10))
                 mism, total, max_err = mism + n_bad, total + n, max(max_err,
                                                                    err)
     rate = mism / total
     check(rate <= 1e-5, f"state update mantissa mismatch rate {rate:.3g}")
-    phase(4, "mx_state_update vs plain", shapes=list(SU_SHAPES),
+    phase(4, "mx_state_update vs plain", shapes=list(SU_SHAPES + (SU_ODD,)),
+          state_magnitudes=f"1,1e-3,{SU_TINY:g}",
           exp_micro="bitwise", mantissa_mismatch=f"{mism}/{total}",
           rate=f"{rate:.3g}", y_max_abs_err=f"{max_err:.3g}")
     return max_err
@@ -473,6 +483,8 @@ def _slab_case(shape, gen_seed, sr_seed, scalar_decay=True,
     k, q = (torch.randn((B, H, dk), generator=g, device="cuda")
             for _ in "kq")
     v = torch.randn((B, H, dv), generator=g, device="cuda")
+    if mag <= SU_TINY:
+        v *= mag
     idx = (slabs.long(), group)
     rows = F.QuantizedTensor("mx8", (B, H, dv, dk), {
         f: a[idx].clone() for f, a in pool.payload.items()})
@@ -554,13 +566,16 @@ def phase_paged_kernels():
 
     mism = total = 0
     slab_err = 0.0
-    for shape in SU_SHAPES:
-        n_bad, n, err = _slab_case(shape, gen_seed=shape[3], sr_seed=9)
+    for shape, mag in itertools.product(SU_SHAPES + (SU_ODD,),
+                                        (1.0, SU_TINY)):
+        n_bad, n, err = _slab_case(shape, gen_seed=shape[3], sr_seed=9,
+                                   mag=mag)
         mism, total, slab_err = mism + n_bad, total + n, max(slab_err, err)
     rate = mism / total
     check(rate <= 1e-5, f"slab mode mantissa mismatch rate {rate:.3g}")
     phase(9, "mx_state_update slab mode vs dense mode and vs plain",
-          shapes=list(SU_SHAPES), vs_dense="bitwise (state and y)",
+          shapes=list(SU_SHAPES + (SU_ODD,)),
+          state_magnitudes=f"1,{SU_TINY:g}", vs_dense="bitwise (state and y)",
           untouched_slabs="unchanged", vs_plain_exp_micro="bitwise",
           vs_plain_mantissa_mismatch=f"{mism}/{total}",
           y_max_abs_err=f"{slab_err:.3g}")
@@ -881,11 +896,14 @@ def phase_spec_timing():
 
 
 def _row_invariance(params, cfg):
-    """Trouble spot of speculation on the card: the verify step runs the
-    projections at M = B * Kq = 16 rows, the plain step at M = B = 4.
-    Row i of ``(B, Kq, d) @ W`` against the contiguous ``(B, 1, d) @ W`` of
-    position i, bitwise, at every weight shape of the model (fp32, TF32
-    off), and the RMSNorm reduction likewise.  Returns {name: bool}."""
+    """Trouble spot of speculation on the card: a GEMM at M = B * Kq = 16
+    rows need not round row i as at M = B = 4, so the verify step runs its
+    dense products position by position on the plain step's (B, 1, d)
+    input (``layers.per_position``).  Row i of ``(B, Kq, d) @ W`` against
+    the contiguous ``(B, 1, d) @ W`` of position i, bitwise, at every
+    weight shape of the model (fp32, TF32 off) -- what the per-position
+    products are for -- and the RMSNorm reduction, which the verify step
+    still runs over all Kq positions at once.  Returns {name: bool}."""
     import torch
     from repro_torch.models import layers as L
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -937,8 +955,9 @@ def _spec_rollback_check(eng, cfg, rng, invariant, lens0=(64, 129, 126,
     the state rows a commit restores are exactly the snapshot rows of the
     selected position, and the all-accept snapshot is the state the
     kernels left in place.  Held bitwise against the sequential steps (and
-    their logits) when the matmuls are row invariant; otherwise the logits'
-    largest difference and the argmax agreement are reported."""
+    their logits) when the verify step's remaining batched op (RMSNorm) is
+    row invariant; otherwise the logits' largest difference and the argmax
+    agreement are reported."""
     import numpy as np
     import torch
     from repro_torch.core.paged import pages_for
@@ -1006,7 +1025,7 @@ def _spec_rollback_check(eng, cfg, rng, invariant, lens0=(64, 129, 126,
     for r in rids:
         pool.release(r)
     if invariant:
-        check(bitwise and one, f"row-invariant matmuls, yet verify "
+        check(bitwise and one, f"row-invariant RMSNorm, yet verify "
               f"positions differ from sequential steps (max |dlogit| "
               f"{max(diffs):.3g}, sel=0 rows equal: {one})")
     phase(14, "pool-level verify and rollback, full width", rows=len(rids),
@@ -1260,8 +1279,9 @@ def phase_spec_main_path(cfg, params, paged):
     count, a verify pass with its own counter), so only agreement is
     reported.  Greedy exactness is held where it is defined: a plain run
     and speculative runs with both draft sources, all at round-to-nearest,
-    equal when the matmuls are row invariant; then the pool-level rollback
-    check."""
+    equal when the verify step's remaining batched op (RMSNorm, its dense
+    products run position by position) is row invariant; then the
+    pool-level rollback check."""
     import numpy as np
     import torch
     from repro_torch.kernels import mx_attention as KA
@@ -1272,10 +1292,12 @@ def phase_spec_main_path(cfg, params, paged):
     from repro_torch.serving.api import Engine, ServeConfig
 
     rows = _row_invariance(params, cfg)
-    invariant = all(rows.values())
+    invariant = rows["rmsnorm"]
     phase(12, "matmul row invariance, (B,Kq,d)@W rows vs (B,1,d)@W, fp32, "
-          "TF32 off", B=ATTN["B"], Kq=KQ, all_equal=invariant,
-          rows=repr({k: int(v) for k, v in rows.items()}))
+          "TF32 off", B=ATTN["B"], Kq=KQ, all_equal=all(rows.values()),
+          rows=repr({k: int(v) for k, v in rows.items()}),
+          verify_products="per position",
+          remaining_batched_op_invariant=invariant)
     eng = Engine(params, cfg, ServeConfig(**PAGED, spec="ngram",
                                           spec_k=SPEC_K))
     counters = (KV.mx_paged_spec_attention_decode, KV.mx_spec_attention_decode,
@@ -1345,7 +1367,8 @@ def _greedy_exactness(params, cfg, prompts, invariant):
     enters), through the plain paged engine and the speculative one with
     the n-gram and the model draft sources (the llama3.2-1b smoke draft,
     vocabulary 512, always proposes).  Equal streams are required when the
-    matmuls are row invariant; otherwise the agreement is reported."""
+    verify step's remaining batched op (RMSNorm) is row invariant;
+    otherwise the agreement is reported."""
     from repro_torch import ops as OPS
     from repro_torch.serving.api import Engine, ServeConfig
     ncfg = cfg.with_(state_quant=OPS.StateQuantConfig("mx8", "nearest",
@@ -1790,16 +1813,18 @@ def phase_quant():
 
 def phase_gla_state_update():
     """Kernel 1 at the GLA family's heads (gla: dk 320, 20 groups a row,
-    blocks of 12 rows, dv 640 ending in a partial block; retnet; hgrn2),
-    dense and slab mode, scalar and per-channel decay each at state
-    magnitudes 1 and 1e-3, both roundings, against the plain version: mantissa, exponent and micro bitwise, y
-    within the contract."""
+    two rows a thread, dv 640 ending in a partial block of rows; retnet;
+    hgrn2) and at SU_ODD, dense and slab mode, scalar and per-channel decay
+    each at state magnitudes 1, 1e-3 and SU_TINY, both roundings, against
+    the plain version: mantissa, exponent and micro bitwise, y within the
+    contract."""
     mism = total = 0
     errs = {}
-    for name, shape, _ in GLA_SU:
+    for name, shape, _ in GLA_SU + (("odd", SU_ODD, True),):
         err = 0.0
         for rounding, mag, scalar in itertools.product(
-                ("stochastic", "nearest"), (1.0, 1e-3), (True, False)):
+                ("stochastic", "nearest"), (1.0, 1e-3, SU_TINY),
+                (True, False)):
             n_bad, n, e = _su_case(shape, rounding, mag, scalar,
                                    seed=shape[3] + int(mag * 10))
             mism, total, err = mism + n_bad, total + n, max(err, e)
@@ -1811,8 +1836,8 @@ def phase_gla_state_update():
     check(mism == 0, f"kernel 1 at the GLA family's shapes: {mism} of "
           f"{total} mantissas differ from the plain version")
     phase(21, "mx_state_update at the GLA family's heads vs plain",
-          shapes=[s for _, s, _ in GLA_SU], modes="dense,slab",
-          decay="scalar,per-channel", state_magnitude="1,1e-3",
+          shapes=[s for _, s, _ in GLA_SU] + [SU_ODD], modes="dense,slab",
+          decay="scalar,per-channel", state_magnitude=f"1,1e-3,{SU_TINY:g}",
           roundings="stochastic,nearest",
           mantissa_exp_micro="bitwise", values=total,
           y_max_abs_err=repr({k: f"{v:.3g}" for k, v in errs.items()}))

@@ -29,11 +29,6 @@ using mx8::kGroup;
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;   // 16 blocks per SM, then grid-stride
 
-union Group16 {
-  int4 vec;
-  int8_t m[kGroup];
-};
-
 __global__ void __launch_bounds__(kThreads)
 mx_quant_kernel(const float* __restrict__ x, int8_t* __restrict__ mant,
                 uint8_t* __restrict__ expo, uint8_t* __restrict__ micro,
@@ -51,14 +46,14 @@ mx_quant_kernel(const float* __restrict__ x, int8_t* __restrict__ mant,
       v[4 * i + 2] = a.z;
       v[4 * i + 3] = a.w;
     }
-    float qv[kGroup];
+    float t[kGroup], scale[kGroup / 2];
+    uint32_t packed[4];
     int e, mic;
-    mx8::quantize_group(v, (uint32_t)(gid * kGroup), seed, stochastic, qv, e,
-                        mic);
-    Group16 g;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) g.m[j] = (int8_t)qv[j];
-    *reinterpret_cast<int4*>(mant + gid * kGroup) = g.vec;
+    mx8::quantize_group(v, (uint32_t)(gid * kGroup), seed, stochastic, t,
+                        packed, e, mic, scale);
+    *reinterpret_cast<int4*>(mant + gid * kGroup) =
+        make_int4((int)packed[0], (int)packed[1], (int)packed[2],
+                  (int)packed[3]);
     expo[gid] = (uint8_t)(e + kExpBias);
     micro[gid] = (uint8_t)mic;
   }

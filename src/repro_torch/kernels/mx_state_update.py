@@ -3,9 +3,10 @@
 Replaces the TPU kernel ``repro/kernels/mx_state_update.py::mx_state_update``.
 On an H100 the step is bound by bytes: the packed state is read and written
 once (9 stored bits per value) against ~10 flops per value.  The kernel
-touches each state byte once -- one thread per 16-value group, in-place
-write-back, the output dot product reduced in shared memory (see the
-source's header for the numerics).
+touches each state byte once, in place: a thread owns one 16-value group
+column across one or two rows of a head, with the head's ``k``, ``q`` and
+``d`` staged once per block; ``y`` is summed in the same order as before
+(see the source's header for the design and the numerics).
 
 Slab mode (``slabs=``, ``group=``) serves the paged pool: ``qS`` is then
 the whole slab pool ``(n_slabs, n_stack, H, dv, dk)`` and row ``b`` updates
@@ -38,10 +39,17 @@ _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
     ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]
 
 
-def _operand(x: torch.Tensor, shape, name: str) -> torch.Tensor:
+def _operand(x: torch.Tensor, shape, name: str,
+             aligned: bool = False) -> torch.Tensor:
+    """``x`` as contiguous float32; ``aligned``: also 16-byte aligned, as
+    the kernel stages it with 16-byte loads (a view at an odd offset is
+    copied)."""
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    return x.to(torch.float32).contiguous()
+    x = x.to(torch.float32).contiguous()
+    if aligned and x.data_ptr() % 16:
+        x = x.clone()
+    return x
 
 
 def _check_payload(qS: F.QuantizedTensor) -> None:
@@ -106,9 +114,9 @@ def mx_state_update(qS: F.QuantizedTensor, d: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, state on {dev}")
     if d.shape[-1] not in (1, dk):
         raise ValueError(f"d must be (B,H,1) or (B,H,{dk}), got {tuple(d.shape)}")
-    d_ = _operand(d, (B, H, d.shape[-1]), "d")
-    k_ = _operand(k, (B, H, dk), "k")
-    q_ = _operand(q, (B, H, dk), "q")
+    d_ = _operand(d, (B, H, d.shape[-1]), "d", aligned=True)
+    k_ = _operand(k, (B, H, dk), "k", aligned=True)
+    q_ = _operand(q, (B, H, dk), "q", aligned=True)
     v_ = _operand(v, (B, H, dv), "v")
     slab_ = (None if slabs is None
              else slabs.to(torch.int32).contiguous())

@@ -86,9 +86,10 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def attention_forward(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
-                      positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence attention (prefill math)."""
+def _project_qkv(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    """q (B, S, H, dh) and k, v (B, S, KVH, dh) of x (B, S, d), RoPE
+    applied at positions (B, S)."""
     B, S, _ = x.shape
     H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, dh)
@@ -97,6 +98,15 @@ def attention_forward(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
     if cfg.pos_emb == "rope":
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_forward(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
+                      positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence attention (prefill math)."""
+    B, S, _ = x.shape
+    H, dh = cfg.n_heads, cfg.head_dim
+    q, k, v = _project_qkv(p, x, cfg, positions)
     o = blockwise_attention(q, k, v, q_chunk=cfg.attn_q_chunk,
                             kv_chunk=cfg.attn_kv_chunk)
     return o.reshape(B, S, H * dh) @ p["wo"]
@@ -120,13 +130,8 @@ def attention_decode(p: L.Params, x: torch.Tensor, cache: AC.KVCache,
                      ) -> Tuple[torch.Tensor, AC.KVCache]:
     """One-token decode: x (B, 1, d) -> (out (B,1,d), updated cache)."""
     B = x.shape[0]
-    H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, 1, H, dh)
-    k = (x @ p["wk"]).reshape(B, 1, KVH, dh)
-    v = (x @ p["wv"]).reshape(B, 1, KVH, dh)
-    if cfg.pos_emb == "rope":
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+    H, dh = cfg.n_heads, cfg.head_dim
+    q, k, v = _project_qkv(p, x, cfg, positions)
     o, cache = OPS.attention_decode_step(cache, k, v, q.reshape(B, H, dh),
                                          cfg.state_quant, seed=seed)
     return (o.reshape(B, 1, H * dh).to(x.dtype) @ p["wo"]), cache
@@ -139,18 +144,17 @@ def attention_spec_decode(p: L.Params, x: torch.Tensor, cache,
     updated cache).  Appends all n K/V rows (per-position seeds
     ``seed + i``), then verifies the n queries in one ``spec_verify`` pass:
     position j's attention row is bitwise the j-th sequential
-    :func:`attention_decode` call's."""
+    :func:`attention_decode` call's, and so are its projections, which run
+    position by position on the decode step's (B, 1, d) input
+    (:func:`layers.per_position`)."""
     B, n, _ = x.shape
-    H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, n, H, dh)
-    k = (x @ p["wk"]).reshape(B, n, KVH, dh)
-    v = (x @ p["wv"]).reshape(B, n, KVH, dh)
-    if cfg.pos_emb == "rope":
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+    H, dh = cfg.n_heads, cfg.head_dim
+    q, k, v = L.per_position(
+        lambda xi, pi: _project_qkv(p, xi, cfg, pi), x, positions)
     o, cache = OPS.attention_spec_step(cache, k, v, q, cfg.state_quant,
                                        seed=seed)
-    return (o.reshape(B, n, H * dh).to(x.dtype) @ p["wo"]), cache
+    return L.per_position(lambda oi: oi @ p["wo"],
+                          o.reshape(B, n, H * dh).to(x.dtype)), cache
 
 
 # ---------------------------------------------------------------------------
@@ -229,27 +233,33 @@ def mla_decode(p: L.Params, x: torch.Tensor, cache, cfg: ModelConfig,
                                                             object]:
     """One-token MLA decode: x (B, 1, d) -> (out (B, 1, d), cache).  The
     same op step as GQA; the cache's ``v_width`` selects ``mla_decode``."""
-    m = cfg.mla
     B = x.shape[0]
     q = _mla_queries(p, x, cfg, positions).reshape(B, cfg.n_heads, -1)
     ckv = mla_cache_stream(p, x, cfg, positions)[:, :, None, :]  # (B,1,1,cw)
     ctx, cache = OPS.attention_decode_step(cache, ckv, None, q,
                                            cfg.state_quant,
                                            scale=_mla_scale(cfg), seed=seed)
-    o = torch.einsum("bhc,hcv->bhv", ctx.to(x.dtype), p["w_uv"])
-    return o.reshape(B, 1, cfg.n_heads * m.v_dim) @ p["wo"], cache
+    return _mla_out(p, ctx.to(x.dtype), cfg), cache
+
+
+def _mla_out(p: L.Params, ctx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One position's output (B, 1, d) of its latent context (B, H,
+    kv_lora): W_UV absorbed back, then ``wo``."""
+    o = torch.einsum("bhc,hcv->bhv", ctx, p["w_uv"])
+    return o.reshape(ctx.shape[0], 1, cfg.n_heads * cfg.mla.v_dim) @ p["wo"]
 
 
 def mla_spec_decode(p: L.Params, x: torch.Tensor, cache, cfg: ModelConfig,
                     positions: torch.Tensor, seed: int
                     ) -> Tuple[torch.Tensor, object]:
     """Speculative MLA decode over n positions (see
-    :func:`attention_spec_decode`)."""
-    m = cfg.mla
-    B, n, _ = x.shape
-    q = _mla_queries(p, x, cfg, positions)                # (B, n, H, cw)
-    ckv = mla_cache_stream(p, x, cfg, positions)[:, :, None, :]  # (B,n,1,cw)
-    ctx, cache = OPS.attention_spec_step(cache, ckv, None, q, cfg.state_quant,
+    :func:`attention_spec_decode`): the projections and both absorb
+    einsums run position by position, as :func:`mla_decode` runs them."""
+    q, ckv = L.per_position(
+        lambda xi, pi: (_mla_queries(p, xi, cfg, pi),
+                        mla_cache_stream(p, xi, cfg, pi)), x, positions)
+    ctx, cache = OPS.attention_spec_step(cache, ckv[:, :, None, :], None, q,
+                                         cfg.state_quant,
                                          scale=_mla_scale(cfg), seed=seed)
-    o = torch.einsum("bnhc,hcv->bnhv", ctx.to(x.dtype), p["w_uv"])
-    return o.reshape(B, n, cfg.n_heads * m.v_dim) @ p["wo"], cache
+    return L.per_position(lambda c: _mla_out(p, c[:, 0], cfg),
+                          ctx.to(x.dtype)), cache

@@ -34,6 +34,27 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
 
 
 # ---------------------------------------------------------------------------
+# position by position (the speculative verify step)
+# ---------------------------------------------------------------------------
+
+def per_position(fn, *xs: torch.Tensor):
+    """``fn`` over each position of the ``(B, n, ...)`` inputs ``xs`` on its
+    own -- a contiguous ``(B, 1, ...)`` slice of each -- with the results
+    (a tensor or a tuple of them) concatenated along dim 1.
+
+    The verify step runs its dense products so: position i then makes the
+    call the i-th sequential decode step makes, on the same ``(B, 1, d)``
+    input, and rounds as it does on any BLAS.  A GEMM's row i need not be
+    the same at ``M = B * n`` rows as at ``M = B`` (neither MKL's fp32 GEMM
+    nor cuBLAS's is)."""
+    outs = [fn(*(x[:, i:i + 1].contiguous() for x in xs))
+            for i in range(xs[0].shape[1])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 

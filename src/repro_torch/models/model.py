@@ -566,8 +566,17 @@ def _element_spec_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
     x = x + y
     if _has_ffn(cfg, kind):
         h = L.apply_norm(p["ffn_norm"], x, cfg.norm_eps)
-        x = x + _ffn(p["ffn"], h, cfg)
+        x = x + _verify_ffn(p["ffn"], h, cfg)
     return x, cache, snaps
+
+
+def _verify_ffn(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`_ffn` over a verify step's n positions: a dense FFN position by
+    position (:func:`layers.per_position`), MoE over all ``B * n`` tokens at
+    once, as the JAX package routes them (capacity couples the tokens)."""
+    if cfg.ffn_kind == "moe" and "router" in p:
+        return L.apply_moe(p, h, cfg)
+    return L.per_position(lambda t: L.apply_ffn(p, t), h)
 
 
 def _stack_snaps(per_layer: List[List[Dict[tuple, torch.Tensor]]]
@@ -590,10 +599,13 @@ def paged_spec_decode_step(params: Params, cfg: ModelConfig,
     (or garbage padding) tokens; ``lengths`` (B,) count positions *before*
     this step.  Structure and every element seed mirror
     :func:`paged_decode_step` -- position i of a row runs with the seeds of
-    the sequential decode step ``seed + i`` -- so position i's logits are
-    the i-th sequential step's.  The attention appends land on the block
-    table's pages in place (rows past a request's pages on scratch page 0:
-    the table must span ``lengths + n``).
+    the sequential decode step ``seed + i`` -- and every dense product but
+    MoE's runs position by position on the plain step's ``(B, 1, d)``
+    input (:func:`layers.per_position`), so no BLAS's blocking by row count
+    sets position i apart from the i-th sequential step (the RMSNorms still
+    reduce all n positions at once).  The attention appends land on the
+    block table's pages in place (rows past a request's pages on scratch
+    page 0: the table must span ``lengths + n``).
 
     Returns ``(logits (B, n, V), views, snaps)``: ``snaps[pos]`` is None for
     attention positions and, for a mixer position, ``{path: (n, B, G,
@@ -633,10 +645,12 @@ def paged_spec_decode_step(params: Params, cfg: ModelConfig,
                 positions, (seed_g + 99) & _U32)
             x = x + y
             h = L.apply_norm(shared["ffn_norm"], x, cfg.norm_eps)
-            x = x + L.apply_ffn(shared["ffn"], h)
+            x = x + _verify_ffn(shared["ffn"], h, cfg)
     new_caches = [_stack_position(v, layers)
                   for v, layers in zip(caches, per_layer)]
     snaps = [_stack_snaps(s) if s else None for s in layer_snaps]
     x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
-    return (x @ _lm_head(params, cfg), join_caches(new_prelude, new_caches),
+    head = _lm_head(params, cfg)
+    return (L.per_position(lambda t: t @ head, x),
+            join_caches(new_prelude, new_caches),
             join_caches(prelude_snaps, snaps))

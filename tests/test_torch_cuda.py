@@ -242,6 +242,96 @@ def test_state_update_slab_mode_bitwise_vs_dense(cuda, B, H, dk, dv,
         assert torch.equal(a[keep], plain.payload[f][keep]), f
 
 
+@pytest.mark.parametrize("dk,dv", [(16, 37), (4096, 5), (4096, 13)])
+@pytest.mark.parametrize("mag", [1.0, 1e-37])
+@pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
+@pytest.mark.parametrize("scalar_decay", [True, False])
+def test_state_update_kernel_edge_shapes_vs_plain(cuda, dk, dv, mag, rounding,
+                                                  scalar_decay):
+    """Kernel 1 at the wrapper's limits, one head (BH = 1): dk = 16 (one
+    group a row) and dk = 4096 (256 groups, operands staged in 48 KB), dv
+    not a multiple of the rows a thread owns.  At magnitude 1e-37 (v
+    scaled too, so the new state stays there) the scales are subnormal and
+    the quantizer takes its two-multiply path.  Operands at an odd offset
+    are copied by the wrapper before the kernel's 16-byte loads."""
+    qS, d, k, v, q = _su_inputs(1, 1, dk, dv, cuda, scalar_decay, mag)
+    v = v * mag
+    k_odd = torch.empty(dk + 1, device=cuda)[1:].view(1, 1, dk)
+    k_odd.copy_(k)
+    assert k_odd.data_ptr() % 16
+    qp, yp = KS.plain(qS.clone(), d, k, v, q, rounding=rounding, seed=5)
+    qk, yk = KS.mx_state_update(qS.clone(), d, k_odd, v, q, seed=5,
+                                rounding=rounding)
+    torch.cuda.synchronize()
+    assert int(qk.payload["exponent"].min()) < 127 - 120 or mag == 1.0
+    _assert_state_update_contract(qp.payload, yp, qk.payload, yk)
+
+
+def test_state_update_slab_mode_idle_rows_on_scratch_slab(cuda):
+    """Idle batch rows all point at scratch slab 0, as the paged pool's
+    do: their launches race on it, and the active rows still equal dense
+    mode on their gathered rows bitwise, every other slab untouched."""
+    B, H, dk, dv = 4, 4, 320, 640
+    g = torch.Generator(device=cuda).manual_seed(8)
+    pool = F.mx8_quantize(torch.randn((6, 3, H, dv, dk), generator=g,
+                                      device=cuda))
+    slabs = torch.tensor([3, 0, 5, 0], dtype=torch.int32, device=cuda)
+    _, d, k, v, q = _su_inputs(B, H, dk, dv, cuda, scalar_decay=False)
+    active = torch.tensor([0, 2], device=cuda)
+    idx = (slabs.long(), 1)
+    rows = F.QuantizedTensor("mx8", (B, H, dv, dk), {
+        f: a[idx].clone() for f, a in pool.payload.items()})
+    before = pool.clone()
+    dense, yd = KS.mx_state_update(rows, d, k, v, q, seed=4)
+    _, ys = KS.mx_state_update(pool, d, k, v, q, seed=4, slabs=slabs,
+                               group=1)
+    torch.cuda.synchronize()
+    assert torch.equal(ys[active], yd[active])
+    for f, a in pool.payload.items():
+        assert torch.equal(a[slabs.long()[active], 1],
+                           dense.payload[f][active]), f
+        assert torch.equal(a[1:3], before.payload[f][1:3]), f
+        assert torch.equal(a[4], before.payload[f][4]), f
+        assert torch.equal(a[[3, 5]][:, [0, 2]],
+                           before.payload[f][[3, 5]][:, [0, 2]]), f
+
+
+@pytest.mark.parametrize("mode", ["dense", "slab"])
+def test_state_update_replays_in_a_cuda_graph_bitwise(cuda, mode):
+    """20 CUDA-graph replays of kernel 1, each from the same state, give
+    the eager launch's state bytes and y bitwise."""
+    B, H, dk, dv = 4, 10, 256, 512
+    g = torch.Generator(device=cuda).manual_seed(9)
+    shape = (B, H, dv, dk) if mode == "dense" else (6, 2, H, dv, dk)
+    start = F.mx8_quantize(torch.randn(shape, generator=g, device=cuda))
+    _, d, k, v, q = _su_inputs(B, H, dk, dv, cuda, scalar_decay=True)
+    kw = {} if mode == "dense" else dict(
+        slabs=torch.tensor([1, 4, 2, 5], dtype=torch.int32, device=cuda),
+        group=1)
+    st = start.clone()
+    eager_state, eager_y = KS.mx_state_update(st, d, k, v, q, seed=6, **kw)
+    eager_state = eager_state.clone()
+    torch.cuda.synchronize()
+    st = start.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        KS.mx_state_update(st, d, k, v, q, seed=6, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _, y = KS.mx_state_update(st, d, k, v, q, seed=6, **kw)
+    for i in range(20):
+        for f, a in st.payload.items():
+            a.copy_(start.payload[f])
+        y.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, eager_y), i
+        for f, a in st.payload.items():
+            assert torch.equal(a, eager_state.payload[f]), (f, i)
+
+
 def test_paged_smoke_engine_launches_each_kernel_per_layer(cuda):
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import mx_paged_attention as KP

@@ -31,6 +31,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core.paged import PAGE_TOKENS, pages_for
 from repro_torch.models import model as M
 from repro_torch.models.convert import params_from_jax
+from repro_torch.models.layers import per_position
 from repro_torch.serving.api import Engine, ServeConfig
 from repro_torch.serving.engine import (PagedEngineConfig,
                                         PagedServingEngine, Request)
@@ -41,11 +42,13 @@ from repro_torch.serving.spec import KController, ModelDraft, NGramDraft
 _CACHE = {}
 
 
-def _build(arch, fmt="fp32", backend="torch"):
-    key = (arch, fmt, backend)
+def _build(arch, fmt="fp32", backend="torch", ffn_kind=None):
+    key = (arch, fmt, backend, ffn_kind)
     if key not in _CACHE:
         cfg = get_smoke_config(arch).with_(state_quant=TOPS.StateQuantConfig(
             fmt, "nearest", backend))
+        if ffn_kind is not None:
+            cfg = cfg.with_(ffn_kind=ffn_kind)
         _CACHE[key] = (M.init_model(cfg, torch.Generator().manual_seed(0),
                                     device="cpu"), cfg)
     return _CACHE[key]
@@ -77,18 +80,43 @@ def _prompts(cfg, seed=3):
 # pool level: verify positions and bit-exact rollback
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch,length,fmt", [("mamba2-2.7b", 127, "fp32"),
-                                             ("zamba2-2.7b", 128, "fp32"),
-                                             ("zamba2-2.7b", 126, "mx8"),
-                                             ("gla-2.7b", 129, "mx8")])
+def _verify_case(arch, length, fmt, batch=2, n=3, ffn_kind=None):
+    """One case of the test below; the first four keep their old ids."""
+    tag = f"{arch}-{length}-{fmt}"
+    if (batch, n) != (2, 3):
+        tag += f"-b{batch}-n{n}"
+    if ffn_kind is not None:
+        tag += f"-{ffn_kind}"
+    return pytest.param(arch, length, fmt, batch, n, ffn_kind, id=tag)
+
+
+@pytest.mark.parametrize("arch,length,fmt,batch,n,ffn_kind", [
+    _verify_case("mamba2-2.7b", 127, "fp32"),
+    _verify_case("zamba2-2.7b", 128, "fp32"),
+    _verify_case("zamba2-2.7b", 126, "mx8"),
+    _verify_case("gla-2.7b", 129, "mx8"),
+    # spec_k = 3 (n = 4): batch 4 is the card's served shape (cuBLAS rounds
+    # rows of 16 unlike rows of 4); MKL's fp32 GEMM can keep rows of 16
+    # like rows of 4 and yet round rows of 12 unlike rows of 3, so the
+    # attention-only and MLA cases run at batch 3
+    _verify_case("zamba2-2.7b", 127, "fp32", 4, 4),
+    _verify_case("llama3.2-1b", 130, "fp32", 3, 4),
+    # MLA with dense FFNs only: deepseek's MoE layers given its prelude's
+    # SwiGLU (MoE's expert products run at the verify step's capacity, so
+    # they are not held bitwise)
+    _verify_case("deepseek-v2-236b", 125, "fp32", 3, 4, ffn_kind="swiglu"),
+])
 def test_spec_verify_positions_and_rollback_bit_exact(arch, length, fmt,
-                                                      n=3):
+                                                      batch, n, ffn_kind):
     """decode_spec position i's logits == the i-th sequential decode step,
     and commit_spec restores the state slab of exactly the selected
     position: all-accept equals n sequential steps, sel=0 equals one.  MX8
     runs stochastic rounding with the kernels' plain versions: the
-    per-position seeds seed + i are the sequential steps' seeds."""
-    params, cfg = _build(arch, fmt, "cuda" if fmt == "mx8" else "torch")
+    per-position seeds seed + i are the sequential steps' seeds.  Row 0
+    holds the request, the other ``batch - 1`` rows are idle, so every
+    dense product of the verify pass runs at ``batch * n`` rows."""
+    params, cfg = _build(arch, fmt, "cuda" if fmt == "mx8" else "torch",
+                         ffn_kind)
     if fmt == "mx8":
         cfg = cfg.with_(state_quant=TOPS.StateQuantConfig(
             "mx8", "stochastic", "cuda"))
@@ -101,6 +129,8 @@ def test_spec_verify_positions_and_rollback_bit_exact(arch, length, fmt,
     tok = int(logits[0].argmax())
     snapshot = [p.clone() for p in pool.pools]
     pages0 = list(pool.page_table[1])
+    rows = [1] + [None] * (batch - 1)
+    idle = [0] * (batch - 1)
 
     def slab_rows():
         s = pool.slab_of[1]
@@ -119,11 +149,11 @@ def test_spec_verify_positions_and_rollback_bit_exact(arch, length, fmt,
 
     # sequential reference: n steps, seeds 1..n
     seq_logits, toks = [], [tok]
-    L = np.array([length, 0], np.int32)
+    L = np.array([length] + idle, np.int32)
     for step in range(n):
         while L[0] // PAGE_TOKENS + 1 > len(pool.page_table[1]):
             assert pool.grow(1, 1)
-        lg = pool.decode(params, [1, None], np.array([toks[-1], 0]), L,
+        lg = pool.decode(params, rows, np.array([toks[-1]] + idle), L,
                          seed=step + 1)
         seq_logits.append(lg.clone())
         toks.append(int(lg[0].argmax()))
@@ -132,28 +162,46 @@ def test_spec_verify_positions_and_rollback_bit_exact(arch, length, fmt,
 
     # one verify pass over the same n tokens at seed 1
     rewind(n)
-    tokens = np.array([toks[:n], [0] * n])
-    lengths = np.array([length, 0], np.int32)
-    lg, snaps = pool.decode_spec(params, [1, None], tokens, lengths, seed=1,
+    tokens = np.array([toks[:n]] + [[0] * n] * (batch - 1))
+    lengths = np.array([length] + idle, np.int32)
+    lg, snaps = pool.decode_spec(params, rows, tokens, lengths, seed=1,
                                  min_pages=pages_for(length + n))
-    assert lg.shape == (2, n, cfg.vocab_size)
+    assert lg.shape == (batch, n, cfg.vocab_size)
     for i in range(n):
         assert torch.equal(lg[:1, i], seq_logits[i][:1]), f"position {i}"
-    pool.commit_spec([1, None], snaps, np.array([n - 1, 0]))
+    pool.commit_spec(rows, snaps, np.array([n - 1] + idle))
     for a, b in zip(slab_rows(), seq_slabs):
         assert torch.equal(a, b)
 
     # rollback to position 0: slab rows == exactly one sequential step
     rewind(n)
-    _, snaps2 = pool.decode_spec(params, [1, None], tokens, lengths, seed=1,
+    _, snaps2 = pool.decode_spec(params, rows, tokens, lengths, seed=1,
                                  min_pages=pages_for(length + n))
-    pool.commit_spec([1, None], snaps2, np.array([0, 0]))
+    pool.commit_spec(rows, snaps2, np.array([0] + idle))
     rolled = slab_rows()
     rewind(1)
-    pool.decode(params, [1, None], np.array([toks[0], 0]),
-                np.array([length, 0], np.int32), seed=1)
+    pool.decode(params, rows, np.array([toks[0]] + idle),
+                np.array([length] + idle, np.int32), seed=1)
     for a, b in zip(rolled, slab_rows()):
         assert torch.equal(a, b)
+
+
+def test_per_position_is_the_plain_steps_product():
+    """Position i of a per-position (4, 4, d) product is bitwise the
+    contiguous (4, 1, d) product a plain decode step makes; several inputs
+    are sliced alike and tuple results concatenate field by field."""
+    rng = np.random.default_rng(7)
+    x = torch.as_tensor(rng.standard_normal((4, 4, 96), np.float32))
+    w = torch.as_tensor(rng.standard_normal((96, 160), np.float32))
+    pos = torch.as_tensor(rng.integers(0, 500, (4, 4)))
+    out = per_position(lambda t: t @ w, x)
+    assert out.shape == (4, 4, 160)
+    for i in range(4):
+        step = x[:, i].clone()[:, None]              # a fresh (4, 1, d) input
+        assert step.is_contiguous()
+        assert torch.equal(out[:, i:i + 1], step @ w), f"position {i}"
+    prod, shifted = per_position(lambda t, p: (t @ w, p + 1), x, pos)
+    assert torch.equal(prod, out) and torch.equal(shifted, pos + 1)
 
 
 def test_block_table_min_pages_spans_the_verify_positions():

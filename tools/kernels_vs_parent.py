@@ -5,6 +5,7 @@ on the card, by families of cases.
 Usage, from the repository root, on a machine with one CUDA card:
 
     python3 tools/kernels_vs_parent.py OTHER_CHECKOUT [--cases mla,k1,k7]
+    python3 tools/kernels_vs_parent.py OTHER_CHECKOUT --cases k1,k7 --time
 
 It compiles the other checkout's ``src/repro_torch/csrc`` sources that the
 chosen families need, with this checkout's nvcc flags, into a temporary
@@ -16,8 +17,10 @@ separated; default ``mla,k1,k7``):
 * ``mla``: kernels 2, 3, 5 and 6 in MLA mode (``csrc/mx_mla_tile.cuh``) at
   deepseek-v2-236b's widths and its smoke widths, decode and Kq = 4
   verify, lengths across tile boundaries, shuffled pages;
-* ``k1``: kernel 1, dense and slab mode, at the zamba2 / mamba2 heads and
-  the GLA family's, scalar and per-channel decay, both roundings;
+* ``k1``: kernel 1, dense and slab mode, at the zamba2 / mamba2 heads, the
+  GLA family's and three odd shapes (a partial last block of rows, dk = 16
+  and 4096), scalar and per-channel decay, both roundings, state
+  magnitudes 1, 1e-3, 1e-37 (subnormal scales) and 1e35;
 * ``k7``: kernel 7, the MX8 quantizer, at the served prefill shapes and
   the JAX kernel test's, both roundings;
 * ``gqa``: kernels 2, 3, 5 and 6 in GQA mode (``csrc/mx_attention_split.cuh``)
@@ -26,9 +29,18 @@ separated; default ``mla,k1,k7``):
   counters, so the other checkout must date from the split loop on; the
   GQA kernels before it had other entry points and other arithmetic, and
   ``chip_smoke.py`` holds them by their contracts instead.
+
+``--time`` then times kernels 1 and 7 of both checkouts at the shapes of
+``PERF.md``'s kernel table (kernel 1 at zamba2's and the GLA family's
+heads, dense and slab mode, stochastic rounding; kernel 7 at gla's
+prefill state), by CUDA-graph replay with inputs rotated so that every
+launch finds them cold in the 50 MB L2, in the turns other, this, this,
+other, and prints the card's name and power limit.
 """
 import argparse
 import ctypes
+import itertools
+import math
 import subprocess
 import sys
 import tempfile
@@ -36,6 +48,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))                 # chip_smoke's timing helpers
 
 FAMILIES = ("mla", "k1", "k7", "gqa")
 _SOURCES = {"mla": ("mx_attention", "mx_paged_attention",
@@ -217,9 +230,15 @@ def _gqa_cases(other) -> bool:
     return ok
 
 
-#: (B, H, dv, dk): zamba2, mamba2, gla, retnet, hgrn2
+#: (B, H, dv, dk): zamba2, mamba2, gla, retnet, hgrn2, then a head of dv
+#: 300 at dk 16 (its last block of rows partial), one of dv 45 at dk 48 and
+#: one of dk 4096
 SU_SHAPES = ((4, 80, 64, 64), (4, 80, 64, 128), (4, 4, 640, 320),
-             (4, 10, 512, 256), (4, 20, 128, 128))
+             (4, 10, 512, 256), (4, 20, 128, 128), (1, 2, 300, 16),
+             (2, 3, 45, 48), (1, 1, 13, 4096))
+#: state magnitudes; at 1e-37 and 1e35 v is scaled alike, so that the new
+#: state's scales are subnormal, or past kMagic * scale's range
+SU_MAGS = (1.0, 1e-3, 1e-37, 1e35)
 
 
 def _state_update_cases(lib) -> bool:
@@ -231,14 +250,14 @@ def _state_update_cases(lib) -> bool:
     fn = _entry(lib, "mx_state_update_launch", KS._ARGTYPES)
     stream = torch.cuda.current_stream().cuda_stream
     ok = True
-    for B, H, dv, dk in SU_SHAPES:
+    for (B, H, dv, dk), mag in itertools.product(SU_SHAPES, SU_MAGS):
         for per_channel in (False, True):
             for rounding in ("nearest", "stochastic"):
                 g = torch.Generator(device="cuda").manual_seed(dk + dv)
                 n_slabs, n_stack, group = 6, 3, 1
                 pool = F.mx8_quantize(torch.randn(
                     (n_slabs, n_stack, H, dv, dk), generator=g,
-                    device="cuda"))
+                    device="cuda") * mag)
                 slabs = torch.tensor([4, 1, 5, 2][:B], dtype=torch.int32,
                                      device="cuda")
                 d = torch.sigmoid(torch.randn(
@@ -247,6 +266,8 @@ def _state_update_cases(lib) -> bool:
                 k, q = (torch.randn((B, H, dk), generator=g, device="cuda")
                         for _ in "kq")
                 v = torch.randn((B, H, dv), generator=g, device="cuda")
+                if mag < 1e-30 or mag > 1e30:
+                    v *= mag
                 idx = (slabs.long(), group)
                 dense = F.QuantizedTensor("mx8", (B, H, dv, dk), {
                     f: a[idx].clone() for f, a in pool.payload.items()})
@@ -274,6 +295,7 @@ def _state_update_cases(lib) -> bool:
                         torch.equal(a.payload[f], p[f]) for f in p))
                 ok &= all(res)
                 print(f"state update (B,H,dv,dk)={(B, H, dv, dk)} "
+                      f"magnitude {mag:g} "
                       f"{'per-channel' if per_channel else 'scalar'} "
                       f"{rounding}: dense "
                       f"{'bitwise equal' if res[0] else 'DIFFERS'}, slab "
@@ -319,6 +341,103 @@ def _quant_cases(lib) -> bool:
     return ok
 
 
+#: kernel 1 as PERF.md's table times it: (label, (B, H, dv, dk), slab
+#: mode, per-channel decay)
+K1_TIMED = (("zamba2 dense", (4, 80, 64, 64), False, False),
+            ("zamba2 slab", (4, 80, 64, 64), True, False),
+            ("gla dense", (4, 4, 640, 320), False, True),
+            ("gla slab", (4, 4, 640, 320), True, True),
+            ("retnet slab", (4, 10, 512, 256), True, False),
+            ("hgrn2 slab", (4, 20, 128, 128), True, True))
+
+
+def _turns(label, calls, replays):
+    """Time both checkouts' calls in the turns other, this, this, other;
+    print and return the two means."""
+    from chip_smoke import graph_ms
+    ms = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        ms[who].append(graph_ms(calls[who], replays))
+    this, other = (sum(ms[w]) / 2 for w in ("this", "other"))
+    print(f"time {label}: this {this:.5f} ms ({ms['this'][0]:.5f}, "
+          f"{ms['this'][1]:.5f}), other {other:.5f} ms ({ms['other'][0]:.5f},"
+          f" {ms['other'][1]:.5f}), this/other {this / other:.3f}",
+          flush=True)
+    return this, other
+
+
+def _time_cases(other) -> None:
+    """Kernels 1 and 7 of both checkouts, timed through their C entry
+    points on the same inputs."""
+    import torch
+    from chip_smoke import _rotation
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mx_quant as KQ
+    from repro_torch.kernels import mx_state_update as KS
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(f"card: {smi.stdout.strip()}", flush=True)
+    f1 = {"this": _build.entry(KS.SOURCE, "mx_state_update_launch",
+                               KS._ARGTYPES),
+          "other": _entry(other["mx_state_update"], "mx_state_update_launch",
+                          KS._ARGTYPES)}
+    for label, (B, H, dv, dk), slab, per_channel in K1_TIMED:
+        g = torch.Generator(device="cuda").manual_seed(dk + dv)
+        payload = B * H * dv * dk * (1 + 2 / 16)
+        n_rot = _rotation(payload)
+        d = torch.sigmoid(torch.randn((B, H, dk if per_channel else 1),
+                                      generator=g, device="cuda"))
+        k, q = (torch.randn((B, H, dk), generator=g, device="cuda")
+                for _ in "kq")
+        v = torch.randn((B, H, dv), generator=g, device="cuda")
+        y = torch.empty((B, H, dv), device="cuda")
+        if slab:
+            pool = F.mx8_quantize(torch.randn((B + 1, n_rot, H, dv, dk),
+                                              generator=g, device="cuda"))
+            slabs = torch.arange(1, B + 1, dtype=torch.int32, device="cuda")
+            states = [(pool.payload, slabs.data_ptr(), n_rot, i)
+                      for i in range(n_rot)]
+        else:
+            states = [(F.mx8_quantize(torch.randn(
+                (B, H, dv, dk), generator=g, device="cuda")).payload, None,
+                1, 0) for _ in range(n_rot)]
+
+        def call(fn, i):
+            p, sl, n_stack, group = states[i]
+            return lambda: fn(
+                p["mantissa"].data_ptr(), p["exponent"].data_ptr(),
+                p["micro"].data_ptr(), d.data_ptr(), k.data_ptr(),
+                v.data_ptr(), q.data_ptr(), y.data_ptr(), sl, B * H, H,
+                n_stack, group, dv, dk, int(per_channel), i, 1,
+                torch.cuda.current_stream().cuda_stream)
+        _turns(f"kernel 1 {label} {(B, H, dv, dk)}",
+               {w: [call(f1[w], i) for i in range(n_rot)] for w in f1}, 10)
+        del states
+    f7 = {"this": _build.entry(KQ.SOURCE, "mx_quant_launch", KQ._ARGTYPES),
+          "other": _entry(other["mx_quant"], "mx_quant_launch",
+                          KQ._ARGTYPES)}
+    shape = (4, 4, 640, 320)
+    n = math.prod(shape)
+    n_rot = _rotation(4 * n)
+    g = torch.Generator(device="cuda").manual_seed(22)
+    xs = [torch.randn(shape, generator=g, device="cuda")
+          for _ in range(n_rot)]
+    outs = [(torch.empty(n, dtype=torch.int8, device="cuda"),
+             torch.empty(n // 16, dtype=torch.uint8, device="cuda"),
+             torch.empty(n // 16, dtype=torch.uint8, device="cuda"))
+            for _ in range(n_rot)]
+
+    def qcall(fn, i):
+        return lambda: fn(xs[i].data_ptr(), *(o.data_ptr() for o in outs[i]),
+                          n // 16, 77, 0,
+                          torch.cuda.current_stream().cuda_stream)
+    _turns(f"kernel 7 gla prefill state {shape} nearest",
+           {w: [qcall(f7[w], i) for i in range(n_rot)] for w in f7}, 10)
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     import torch
     from repro_torch.kernels import _build
@@ -327,6 +446,8 @@ def main() -> int:
     ap.add_argument("other", help="the other checkout's root")
     ap.add_argument("--cases", default="mla,k1,k7",
                     help=f"comma-separated families of {FAMILIES}")
+    ap.add_argument("--time", action="store_true",
+                    help="then time kernels 1 and 7 of both checkouts")
     args = ap.parse_args()
     cases = [c for c in args.cases.split(",") if c]
     bad = [c for c in cases if c not in FAMILIES]
@@ -336,7 +457,8 @@ def main() -> int:
         print("kernels_vs_parent: no CUDA device", file=sys.stderr)
         return 2
     csrc = Path(args.other) / "src" / "repro_torch" / "csrc"
-    names = sorted({n for c in cases for n in _SOURCES[c]})
+    names = sorted({n for c in cases for n in _SOURCES[c]}
+                   | ({"mx_state_update", "mx_quant"} if args.time else set()))
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
         other = {n: _other_lib(csrc, n, Path(tmp), _build.NVCC_FLAGS)
@@ -347,6 +469,8 @@ def main() -> int:
                "k7": lambda: _quant_cases(other["mx_quant"])}
         for c in cases:
             ok &= run[c]()
+        if args.time:
+            _time_cases(other)
     print(f"kernels_vs_parent ({','.join(cases)}):",
           "ok" if ok else "FAILED")
     return 0 if ok else 1
