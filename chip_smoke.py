@@ -53,9 +53,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) flop/s
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor)
+#: flop/s, dense bf16 tensor-core flop/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
+#: the MLA kernels' products: three bf16 terms of the fp32 operand, each a
+#: tensor-core product (csrc/mx_mla_tile.cuh)
+MLA_TERMS = 3
 
 SU_SHAPES = ((4, 80, 64, 64), (4, 80, 64, 128))   # zamba2-2.7b, mamba2-2.7b
 #: kernel 1 at a head of odd dv in a launch large enough that a thread owns
@@ -94,7 +99,10 @@ DS_PAGED = dict(batch=4, n_pages=9, prefill_chunk=256)
 #: the MLA latent cache: one kv head of kv_lora + rope = 576 lanes, values
 #: its first 512, 128 query heads; 3 MoE groups share the pattern position
 MLA = dict(B=4, H=128, dk=576, dv=512, n_stack=3)
-MLA_LENGTHS = ((4, 127, 128, 129), (1000, 131, 129, 5))
+#: MLA kernel checks: across the 64-position split and page boundaries;
+#: the third case spans 2 to 18 splits (9 pages), and at Kq = 4 the last
+#: split of 65 and of 193 is fully masked for verify rows 0 to 2
+MLA_LENGTHS = ((4, 127, 128, 129), (1000, 131, 129, 5), (1100, 65, 193, 4))
 #: kernel 1 at the GLA family's heads: (arch, (B, H, dv, dk), scalar decay)
 GLA_SU = (("gla-2.7b", (4, 4, 640, 320), False),
           ("retnet-2.7b", (4, 10, 512, 256), True),
@@ -321,15 +329,27 @@ def phase_attention():
 
 
 def _report(name, ms, plain_ms, lib_ms, host_ms, nbytes, flops,
-            logical_bytes, n=6):
+            logical_bytes, n=6, tc_flops=None):
+    """Print one kernel's times beside its bound and return the kernels
+    line's fields.  The bound is the larger of the bytes over the HBM rate
+    and the operations over the peak of their type: fp32 for a kernel that
+    computes in fp32 units; for one whose products run on the tensor cores
+    (``tc_flops``, bf16 products with their terms counted), that design's
+    own bound, with the fp32 bound printed beside it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_fp32 = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = t_fp32 if tc_flops is None else \
+        tc_flops / PEAK_BF16_TC_FLOPS * 1e3
     bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes >= t_ops else "operations"
+    extra = {} if tc_flops is None else dict(
+        fp32_bound_ms=f"{max(t_bytes, t_fp32):.5f}",
+        share_of_fp32_bound=f"{max(t_bytes, t_fp32) / ms:.3f}",
+        tc_flops=int(tc_flops), share_of_bound=f"{bound / ms:.3f}")
     phase(n, f"time {name}", ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
           library_ms="null" if lib_ms is None else f"{lib_ms:.5f}",
           host_loop_ms=f"{host_ms:.5f}", bound_ms=f"{bound:.5f}",
-          bound_by=by, bytes=int(nbytes),
+          bound_by=by, **extra, bytes=int(nbytes),
           traffic_plan_bytes=int(logical_bytes),
           GBps=f"{nbytes / ms / 1e6:.1f}",
           share_of_3p35TBps=f"{t_bytes / ms:.3f}")
@@ -1500,7 +1520,7 @@ def phase_mla_kernels():
     cases = 0
     for i, lengths in enumerate(MLA_LENGTHS):
         q_all, C, bt, lens = _mla_pool(lengths, seed=110 + i)
-        group = 1 + i
+        group = (1 + i) % m["n_stack"]
         Cd = R.gather_pages(C, bt, group)
         for Kq in (1, 2, 4):
             q = q_all[:, :Kq].contiguous()
@@ -1569,10 +1589,59 @@ def phase_mla_kernels():
           max_abs_err=",".join(f"{k}={v:.3g}" for k, v in errs.items()),
           tol="rtol2e-4,atol2e-5", paged_vs_dense="bitwise",
           row_j_vs_decode="bitwise", Kq1_vs_decode="bitwise")
+    _mla_subnormal_check(kw)
     phase(15, "mx_paged_kv_append latent-only vs plain", pools=3,
           widths=f"{m['dk']},{m['dk'] // 16},{m['dk'] // 16}",
           result="bitwise", untouched_bytes="unchanged")
     return errs
+
+
+def _mla_subnormal_check(kw):
+    """The MLA kernels on a latent at magnitude 1e-37: subnormal MX8
+    scales, and ~7 % of the values subnormal in bf16.  The latent is
+    nonnegative and the queries at 5e36 keep the scores O(1), so every
+    output is a normal weighted mean: kernels 5, 6, 3 and 2 are held to the
+    plain versions at rtol 2e-4 with atol 0, where a product that flushed
+    the subnormal values would miss by up to 50 %."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    lengths = (300, 65, 129, 4)
+    q, C, bt, lens = _mla_pool(lengths, seed=140)
+    g = torch.Generator(device="cuda").manual_seed(141)
+    C = F.mx8_quantize(torch.randn(C.shape, generator=g, device="cuda").abs()
+                       * 1e-37)
+    v = F.dequantize(C)
+    sub = float(((v != 0) & (v.abs() < 2.0 ** -126)).float().mean())
+    q = q * 5e36
+    group, scale, dv = 1, kw["scale"], kw["v_width"]
+    Cd = R.gather_pages(C, bt, group)
+    q1 = q[:, -1].contiguous()
+    got = (KV.mx_paged_spec_attention_decode(q, C, None, bt, group, lens,
+                                             **kw),
+           KV.mx_spec_attention_decode(q, Cd, None, lens, **kw),
+           KP.mx_paged_attention_decode(q1, C, None, bt, group, lens, **kw),
+           KA.mx_attention_decode(q1, Cd, None, lens, **kw))
+    want = (KV.plain_paged(q, C, None, bt, group, lens, scale, dv),
+            KV.plain(q, Cd, None, lens, scale, dv),
+            KP.plain(q1, C, None, bt, group, lens, scale, dv),
+            KA.plain(q1, Cd, None, lens, scale, dv))
+    torch.cuda.synchronize()
+    worst = 0.0
+    for k, y, yp in zip((5, 6, 3, 2), got, want):
+        rel = ((y - yp).abs() / yp.abs()).nan_to_num(0.0)
+        check(bool(((y - yp).abs() <= 2e-4 * yp.abs()).all()),
+              f"MLA latent at 1e-37: kernel {k} beyond rtol 2e-4 atol 0 "
+              f"(max rel err {float(rel.max()):.3g})")
+        worst = max(worst, float(rel.max()))
+    check(sub > 0.05, f"MLA latent at 1e-37: only {sub:.3f} subnormal")
+    phase(15, "MLA mode at latent magnitude 1e-37 vs plain", lengths=lengths,
+          Kq=KQ, bf16_subnormal_share=f"{sub:.3f}",
+          min_abs_out=f"{min(float(y.abs().min()) for y in want):.3g}",
+          max_rel_err=f"{worst:.3g}", tol="rtol2e-4,atol0")
 
 
 def phase_mla_timing():
@@ -1582,8 +1651,10 @@ def phase_mla_timing():
     (and their gathered dense copies) rotating cold in L2.  The yardstick
     is one ``scaled_dot_product_attention`` call on the dequantized latent
     (q (B, 128, n_q, 576), K (B, 1, T, 576) shared by the 128 heads, V its
-    first 512 lanes, the verify mask for n_q = 4).  Bound: fp32 operations
-    (~430 flops per cached byte)."""
+    first 512 lanes, the verify mask for n_q = 4).  Bound: the design's own
+    (three bf16 tensor-core products per multiply-add of the function, or
+    the bytes), the fp32-operations bound (~430 flops per cached byte)
+    printed beside it."""
     import torch
     from repro_torch import ops as OPS
     from repro_torch.core import formats as F
@@ -1664,7 +1735,8 @@ def phase_mla_timing():
                            Kq=n_q), OPS.StateQuantConfig(), "cuda",
                 layout=layout, v_width=m["dv"])).total for n in lengths)
             out[name] = _report(name, ms, plain_ms, lib_ms, host_ms,
-                                cache + io + extra, flops, plan_bytes, n=16)
+                                cache + io + extra, flops, plan_bytes, n=16,
+                                tc_flops=MLA_TERMS * flops)
         phase(16, "MLA lengths", n_q=n_q, lengths=lengths,
               per_row_positions=row_pos, flops_per_launch=flops)
         del dense, kfs, lib, C

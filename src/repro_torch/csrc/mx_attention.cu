@@ -14,16 +14,17 @@
 //
 // MLA mode (mx_attention_decode_mla_launch; the TPU kernel's qV=None,
 // v_width) reads one latent stream whose first dv lanes are the values.
-// It is bound by fp32 operations (~430 flops per cached byte at
-// deepseek-v2-236b's widths) and runs mx_mla_tile.cuh's loop: a block per
-// 16 query rows, each latent row dequantized once per block.
+// It is bound by arithmetic (~430 flops per cached byte at
+// deepseek-v2-236b's widths) and runs mx_mla_tile.cuh's loop: grid
+// (B, KVH * 16-row blocks, T / 64), one block per 64-position split and 16
+// query rows, both products on the tensor cores, the splits combined in
+// order in the same launch.
 //
 // Layouts as in the JAX package: q (B, KVH * G, dk) f32 (GQA: scaled in the
 // kernel by `scale`; MLA: pre-scaled); K and V mantissas (B, T, KVH, d) int8
 // with exponent / micro bytes (B, T, KVH, d/16); lengths (B,) int32; out
-// (B, KVH * G, dv) f32.  The GQA launch also takes the split loop's
-// workspace (ws, ws_floats) and its per-(row, kv head) counters, zero and
-// left zero.
+// (B, KVH * G, dv) f32.  Both launches also take their loop's workspace
+// (ws, ws_floats) and counters (zero, and left zero).
 #include "mx_attention_split.cuh"
 #include "mx_mla_tile.cuh"
 
@@ -50,16 +51,17 @@ mx_attention_decode_kernel(const float* __restrict__ q,
                          scale);
 }
 
-__global__ void __launch_bounds__(mla::kThreads)
+__global__ void __launch_bounds__(mla::kThreads, mla::kMinBlocks)
 mx_attention_decode_mla_kernel(const float* __restrict__ q,
                                const int8_t* __restrict__ km,
                                const uint8_t* __restrict__ ke,
                                const uint8_t* __restrict__ kmi,
                                const int* __restrict__ lengths,
-                               float* __restrict__ out, int T, int KVH,
+                               float* __restrict__ out, float* __restrict__ ws,
+                               int* __restrict__ counters, int T, int KVH,
                                int G, int dk, int dv) {
-  mla::mla_tiles(DenseRows{T, KVH}, q, km, ke, kmi, lengths, out, T, KVH, G,
-                 /*n_q=*/1, dk, dv);
+  mla::mla_split(DenseRows{T, KVH}, q, km, ke, kmi, lengths, out, ws,
+                 counters, T, KVH, G, /*n_q=*/1, dk, dv);
 }
 
 }  // namespace
@@ -91,22 +93,24 @@ extern "C" int mx_attention_decode_launch(
 }
 
 // MLA mode: values are the first dv lanes of the latent stream (km / ke /
-// kmi, (B, T, KVH, dk)); out (B, KVH, G, dv).  Same return convention.
+// kmi, (B, T, KVH, dk)); out (B, KVH, G, dv); ws / counters as sized by
+// mla::workspace_floats / counters_needed.  Same return convention.
 extern "C" int mx_attention_decode_mla_launch(
     const void* q, const void* km, const void* ke, const void* kmi,
-    const void* lengths, void* out, int B, int T, int KVH, int G, int dk,
-    int dv, void* stream) {
-  if (B <= 0 || KVH <= 0 || T <= 0 || T % kTile != 0)
-    return (int)cudaErrorInvalidValue;
+    const void* lengths, void* out, void* ws, void* counters, int B, int T,
+    int KVH, int G, int dk, int dv, long long ws_floats, int n_counters,
+    void* stream) {
+  if (T <= 0 || T % kTile != 0) return (int)cudaErrorInvalidValue;
+  const int S = T / mla::kSplit;
   size_t smem = 0;
-  const int err =
-      mla::prepare(mx_attention_decode_mla_kernel, G, dk, dv, &smem);
+  const int err = mla::prepare(mx_attention_decode_mla_kernel, B, KVH, S, G,
+                               dk, dv, ws_floats, n_counters, &smem);
   if (err != (int)cudaSuccess) return err;
-  const dim3 grid(B, KVH * mla::row_blocks(G));
+  const dim3 grid(B, KVH * mla::row_blocks(G), S);
   mx_attention_decode_mla_kernel<<<grid, mla::kThreads, smem,
-                                   (cudaStream_t)stream>>>(
+                                 (cudaStream_t)stream>>>(
       (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
-      (const uint8_t*)kmi, (const int*)lengths, (float*)out, T, KVH, G, dk,
-      dv);
+      (const uint8_t*)kmi, (const int*)lengths, (float*)out, (float*)ws,
+      (int*)counters, T, KVH, G, dk, dv);
   return (int)cudaGetLastError();
 }

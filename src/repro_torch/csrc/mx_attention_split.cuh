@@ -96,9 +96,6 @@ int with_row_bound(int R, F&& f) {
   }
 }
 
-// Aligned 16-byte chunks that can cover w bytes starting anywhere.
-__host__ __device__ inline int cover_chunks(int w) { return (w + 30) / 16; }
-
 // Staged K mantissa row stride: an odd number of 16-byte chunks, so the
 // 16-byte loads of eight consecutive positions hit distinct banks.
 __host__ __device__ inline int k_stride(int dk) {
@@ -135,18 +132,6 @@ __host__ __device__ inline Smem smem_layout(int R, int dk, int dv) {
   return L;
 }
 
-// An exact bf16 value's fp32 bits end in 16 zeros: two values in a word,
-// and back.
-__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
-  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xFFFF0000u);
-}
-__device__ __forceinline__ float bf16_lo(unsigned w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(unsigned w) {
-  return __uint_as_float(w & 0xFFFF0000u);
-}
-
 // Host-side shape check shared by every launcher: R = n_q * G query rows.
 inline bool shape_ok(int R, int dk, int dv) {
   return R > 0 && R <= kMaxRows && dk > 0 && dv > 0 && dk % kGroup == 0 &&
@@ -156,21 +141,6 @@ inline bool shape_ok(int R, int dk, int dv) {
 // Workspace floats for grid (B, KVH, S): (acc, then (m, l)) per split row.
 inline size_t workspace_floats(int B, int KVH, int S, int R, int dv) {
   return (size_t)B * KVH * S * R * ((size_t)dv + 2);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Offset of the first of a row's w bytes inside its first covering chunk.

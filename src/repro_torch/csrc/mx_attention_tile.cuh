@@ -1,6 +1,7 @@
 // What the decode-attention loops share, for Hopper (sm_90a): the MX8
-// dequantization of one 16-value group, the warp reductions, and where a
-// 128-position tile of a batch row lives (the `Rows` policies):
+// dequantization of one 16-value group, bf16 pairs, cp.async staging, the
+// warp reductions, and where a 128-position tile of a batch row lives (the
+// `Rows` policies):
 //
 //   Rows::tile_base(b, t)  ->  row index (in units of one position of one
 //                              kv head) of position t*128, kv head 0
@@ -41,6 +42,36 @@ __device__ __forceinline__ void dequant_group(const int8_t* m, uint8_t ebyte,
   for (int j = 0; j < kGroup; ++j)
     out[j] = __fmul_rn((float)g.m[j],
                        exact_pow2(e - kMBits - ((mic >> (j >> 1)) & 1)));
+}
+
+// An exact bf16 value's fp32 bits end in 16 zeros: two values in a word
+// (the first in the low half), and back.
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xFFFF0000u);
+}
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xFFFF0000u);
+}
+
+// Aligned 16-byte chunks that can cover w bytes starting anywhere.
+__host__ __device__ constexpr int cover_chunks(int w) { return (w + 30) / 16; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ float warp_max(float x) {

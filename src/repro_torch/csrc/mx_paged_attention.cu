@@ -23,15 +23,16 @@
 // block copies one row's w bytes.
 //
 // MLA mode (mx_paged_attention_decode_mla_launch; the TPU kernel's
-// v_pool=None, v_width): the dense MLA kernel's loop (mx_mla_tile.cuh) over
-// the pool's latent pages, bound by fp32 operations, bitwise the dense MLA
-// kernel over the gathered pages.  A latent-only append is the append
+// v_pool=None, v_width): the dense MLA kernel's split loop
+// (mx_mla_tile.cuh) over the pool's latent pages -- split s of row b is
+// half s % 2 of page bt[b, s / 2] -- bitwise the dense MLA kernel over the
+// gathered pages.  A latent-only append is the append
 // kernel with three pools (mantissa / exponent / micro of the one stream).
 //
 // Pools are (n_pages, n_stack, 128, KVH, w) with n_stack the layers that
 // share the pattern position; q (B, KVH * G, dk) f32 (GQA: scaled in the
 // kernel; MLA: pre-scaled); bt (B, npg) int32; lengths (B,) int32; out
-// (B, KVH * G, dv) f32.  The GQA launch also takes the split loop's
+// (B, KVH * G, dv) f32.  Both attention launches also take their loop's
 // workspace and counters.
 #include <cassert>
 
@@ -66,18 +67,21 @@ mx_paged_attention_decode_kernel(const float* __restrict__ q,
                                G, /*n_q=*/1, dk, dv, scale);
 }
 
-__global__ void __launch_bounds__(mla::kThreads)
+__global__ void __launch_bounds__(mla::kThreads, mla::kMinBlocks)
 mx_paged_attention_decode_mla_kernel(const float* __restrict__ q,
                                      const int8_t* __restrict__ km,
                                      const uint8_t* __restrict__ ke,
                                      const uint8_t* __restrict__ kmi,
                                      const int* __restrict__ bt,
                                      const int* __restrict__ lengths,
-                                     float* __restrict__ out, int npg,
+                                     float* __restrict__ out,
+                                     float* __restrict__ ws,
+                                     int* __restrict__ counters, int npg,
                                      int n_stack, int group, int KVH, int G,
                                      int dk, int dv) {
-  mla::mla_tiles(PagedRows{bt, npg, n_stack, group, KVH}, q, km, ke, kmi,
-                 lengths, out, npg * kTile, KVH, G, /*n_q=*/1, dk, dv);
+  mla::mla_split(PagedRows{bt, npg, n_stack, group, KVH}, q, km, ke, kmi,
+                 lengths, out, ws, counters, npg * kTile, KVH, G, /*n_q=*/1,
+                 dk, dv);
 }
 
 struct AppendArgs {
@@ -147,21 +151,22 @@ extern "C" int mx_paged_attention_decode_launch(
 // MLA mode over the latent pools (km / ke / kmi); same return convention.
 extern "C" int mx_paged_attention_decode_mla_launch(
     const void* q, const void* km, const void* ke, const void* kmi,
-    const void* bt, const void* lengths, void* out, int B, int npg,
-    int n_stack, int group, int KVH, int G, int dk, int dv, void* stream) {
-  if (B <= 0 || npg <= 0 || KVH <= 0 || n_stack <= 0 || group < 0 ||
-      group >= n_stack)
+    const void* bt, const void* lengths, void* out, void* ws, void* counters,
+    int B, int npg, int n_stack, int group, int KVH, int G, int dk, int dv,
+    long long ws_floats, int n_counters, void* stream) {
+  if (npg <= 0 || n_stack <= 0 || group < 0 || group >= n_stack)
     return (int)cudaErrorInvalidValue;
+  const int S = npg * (kTile / mla::kSplit);
   size_t smem = 0;
-  const int err =
-      mla::prepare(mx_paged_attention_decode_mla_kernel, G, dk, dv, &smem);
+  const int err = mla::prepare(mx_paged_attention_decode_mla_kernel, B, KVH,
+                               S, G, dk, dv, ws_floats, n_counters, &smem);
   if (err != (int)cudaSuccess) return err;
-  const dim3 grid(B, KVH * mla::row_blocks(G));
+  const dim3 grid(B, KVH * mla::row_blocks(G), S);
   mx_paged_attention_decode_mla_kernel<<<grid, mla::kThreads, smem,
-                                         (cudaStream_t)stream>>>(
+                                       (cudaStream_t)stream>>>(
       (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
       (const uint8_t*)kmi, (const int*)bt, (const int*)lengths, (float*)out,
-      npg, n_stack, group, KVH, G, dk, dv);
+      (float*)ws, (int*)counters, npg, n_stack, group, KVH, G, dk, dv);
   return (int)cudaGetLastError();
 }
 

@@ -28,11 +28,11 @@
 //
 // MLA mode (the *_mla_launch entry points; the TPU kernels' qV / v_pool
 // None, v_width): the n_q positions fold into the query rows of
-// mx_mla_tile.cuh's loop the same way (R = n_q * G, e.g. 4 x 128 = 512 rows
-// in 32 blocks per batch row at deepseek-v2-236b's widths), each block
-// dequantizing a latent row once for both products.  Bound by fp32
-// operations.  Row j is bitwise the MLA decode kernel at the shifted
-// length; the paged kernel bitwise the dense one over gathered pages.
+// mx_mla_tile.cuh's split loop the same way (R = n_q * G, e.g. 4 x 128 =
+// 512 rows in 32 row blocks of 16 at deepseek-v2-236b's widths; one block
+// per row block and 64-position split, both products on the tensor
+// cores).  Row j is bitwise the MLA decode kernel at the shifted length;
+// the paged kernel bitwise the dense one over gathered pages.
 //
 // Layouts: GQA q (B, n_q, KVH * G, dk) f32, scaled and folded into
 // query-major rows in the kernel, out (B, n_q, KVH * G, dv) f32; MLA q
@@ -40,8 +40,8 @@
 // (B, KVH, n_q * G, dv) f32; dense K / V mantissas (B, T, KVH, d) int8 with
 // exponent / micro bytes (B, T, KVH, d/16); paged pools
 // (P, n_stack, 128, KVH, d) walked through bt (B, npg) int32 at layer
-// `group`; lengths (B,) int32 counting the n_q appended rows.  The GQA
-// launches also take the split loop's workspace and counters.
+// `group`; lengths (B,) int32 counting the n_q appended rows.  Every
+// launch also takes its loop's workspace and counters.
 #include "mx_attention_split.cuh"
 #include "mx_mla_tile.cuh"
 
@@ -90,30 +90,35 @@ mx_paged_spec_attention_decode_kernel(const float* __restrict__ q,
                                G, n_q, dk, dv, scale);
 }
 
-__global__ void __launch_bounds__(mla::kThreads)
+__global__ void __launch_bounds__(mla::kThreads, mla::kMinBlocks)
 mx_spec_attention_decode_mla_kernel(const float* __restrict__ q,
                                     const int8_t* __restrict__ km,
                                     const uint8_t* __restrict__ ke,
                                     const uint8_t* __restrict__ kmi,
                                     const int* __restrict__ lengths,
-                                    float* __restrict__ out, int T, int KVH,
-                                    int G, int n_q, int dk, int dv) {
-  mla::mla_tiles(DenseRows{T, KVH}, q, km, ke, kmi, lengths, out, T, KVH, G,
-                 n_q, dk, dv);
+                                    float* __restrict__ out,
+                                    float* __restrict__ ws,
+                                    int* __restrict__ counters, int T,
+                                    int KVH, int G, int n_q, int dk, int dv) {
+  mla::mla_split(DenseRows{T, KVH}, q, km, ke, kmi, lengths, out, ws,
+                 counters, T, KVH, G, n_q, dk, dv);
 }
 
-__global__ void __launch_bounds__(mla::kThreads)
+__global__ void __launch_bounds__(mla::kThreads, mla::kMinBlocks)
 mx_paged_spec_attention_decode_mla_kernel(const float* __restrict__ q,
                                           const int8_t* __restrict__ km,
                                           const uint8_t* __restrict__ ke,
                                           const uint8_t* __restrict__ kmi,
                                           const int* __restrict__ bt,
                                           const int* __restrict__ lengths,
-                                          float* __restrict__ out, int npg,
+                                          float* __restrict__ out,
+                                          float* __restrict__ ws,
+                                          int* __restrict__ counters, int npg,
                                           int n_stack, int group, int KVH,
                                           int G, int n_q, int dk, int dv) {
-  mla::mla_tiles(PagedRows{bt, npg, n_stack, group, KVH}, q, km, ke, kmi,
-                 lengths, out, npg * kTile, KVH, G, n_q, dk, dv);
+  mla::mla_split(PagedRows{bt, npg, n_stack, group, KVH}, q, km, ke, kmi,
+                 lengths, out, ws, counters, npg * kTile, KVH, G, n_q, dk,
+                 dv);
 }
 
 }  // namespace
@@ -176,40 +181,45 @@ extern "C" int mx_paged_spec_attention_decode_launch(
 // MLA mode over the latent stream (km / ke / kmi); same return convention.
 extern "C" int mx_spec_attention_decode_mla_launch(
     const void* q, const void* km, const void* ke, const void* kmi,
-    const void* lengths, void* out, int B, int T, int KVH, int G, int n_q,
-    int dk, int dv, void* stream) {
-  if (B <= 0 || KVH <= 0 || T <= 0 || T % kTile != 0 || G <= 0 || n_q <= 0)
+    const void* lengths, void* out, void* ws, void* counters, int B, int T,
+    int KVH, int G, int n_q, int dk, int dv, long long ws_floats,
+    int n_counters, void* stream) {
+  if (T <= 0 || T % kTile != 0 || G <= 0 || n_q <= 0)
     return (int)cudaErrorInvalidValue;
+  const int S = T / mla::kSplit;
   size_t smem = 0;
-  const int err = mla::prepare(mx_spec_attention_decode_mla_kernel, n_q * G,
-                               dk, dv, &smem);
+  const int err = mla::prepare(mx_spec_attention_decode_mla_kernel, B, KVH,
+                               S, n_q * G, dk, dv, ws_floats, n_counters,
+                               &smem);
   if (err != (int)cudaSuccess) return err;
-  const dim3 grid(B, KVH * mla::row_blocks(n_q * G));
+  const dim3 grid(B, KVH * mla::row_blocks(n_q * G), S);
   mx_spec_attention_decode_mla_kernel<<<grid, mla::kThreads, smem,
-                                        (cudaStream_t)stream>>>(
+                                      (cudaStream_t)stream>>>(
       (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
-      (const uint8_t*)kmi, (const int*)lengths, (float*)out, T, KVH, G, n_q,
-      dk, dv);
+      (const uint8_t*)kmi, (const int*)lengths, (float*)out, (float*)ws,
+      (int*)counters, T, KVH, G, n_q, dk, dv);
   return (int)cudaGetLastError();
 }
 
 extern "C" int mx_paged_spec_attention_decode_mla_launch(
     const void* q, const void* km, const void* ke, const void* kmi,
-    const void* bt, const void* lengths, void* out, int B, int npg,
-    int n_stack, int group, int KVH, int G, int n_q, int dk, int dv,
-    void* stream) {
-  if (B <= 0 || npg <= 0 || KVH <= 0 || n_stack <= 0 || group < 0 ||
-      group >= n_stack || G <= 0 || n_q <= 0)
+    const void* bt, const void* lengths, void* out, void* ws, void* counters,
+    int B, int npg, int n_stack, int group, int KVH, int G, int n_q, int dk,
+    int dv, long long ws_floats, int n_counters, void* stream) {
+  if (npg <= 0 || n_stack <= 0 || group < 0 || group >= n_stack || G <= 0 ||
+      n_q <= 0)
     return (int)cudaErrorInvalidValue;
+  const int S = npg * (kTile / mla::kSplit);
   size_t smem = 0;
-  const int err = mla::prepare(mx_paged_spec_attention_decode_mla_kernel,
-                               n_q * G, dk, dv, &smem);
+  const int err = mla::prepare(mx_paged_spec_attention_decode_mla_kernel, B,
+                               KVH, S, n_q * G, dk, dv, ws_floats,
+                               n_counters, &smem);
   if (err != (int)cudaSuccess) return err;
-  const dim3 grid(B, KVH * mla::row_blocks(n_q * G));
+  const dim3 grid(B, KVH * mla::row_blocks(n_q * G), S);
   mx_paged_spec_attention_decode_mla_kernel<<<grid, mla::kThreads, smem,
-                                              (cudaStream_t)stream>>>(
+                                            (cudaStream_t)stream>>>(
       (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
       (const uint8_t*)kmi, (const int*)bt, (const int*)lengths, (float*)out,
-      npg, n_stack, group, KVH, G, n_q, dk, dv);
+      (float*)ws, (int*)counters, npg, n_stack, group, KVH, G, n_q, dk, dv);
   return (int)cudaGetLastError();
 }

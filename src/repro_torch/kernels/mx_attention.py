@@ -15,9 +15,13 @@ cached per device and stay zero between launches (each pair's last block
 resets its own), so a CUDA graph can replay the launch.  Kernels that share
 the counters must not run concurrently on two streams.
 MLA (``qV=None``, ``v_width``): one latent stream whose first ``v_width``
-lanes are the values; at deepseek-v2-236b's widths it is bound by fp32
-operations (128 heads per latent row) and runs ``csrc/mx_mla_tile.cuh``'s
-loop, a block per 16 query rows.
+lanes are the values; at deepseek-v2-236b's widths it is bound by
+arithmetic (128 heads per latent row) and runs ``csrc/mx_mla_tile.cuh``'s
+split loop: grid ``(B, KVH * ceil(R / 16), T / 64)``, one block per
+64-position split and 16 query rows, both products on the tensor cores
+(the fp32 operand in three bf16 terms), the splits combined in order in
+the same launch through :func:`mla_scratch`'s workspace and the same
+per-device counters as the GQA loop.
 
 The wrapper takes the plain version (:mod:`repro_torch.kernels.ref`) only
 for tensors on the CPU; for CUDA tensors it launches the kernel of its mode
@@ -38,20 +42,35 @@ SOURCE = "mx_attention"
 T_BLOCK = 128
 SPLIT = 128             # csrc/mx_attention_split.cuh: kSplit positions a block
 MIN_COUNTERS = 4096     # (row, kv head) pairs the first counter buffer holds
-MLA_MAX_DK = 704        # csrc/mx_mla_tile.cuh: kMaxDk (shared memory)
-MLA_MAX_DV = 512        # kMaxDv: two output columns per thread
+MLA_SPLIT = 64          # csrc/mx_mla_tile.cuh: kSplit positions a block
+MLA_ROWS = 16           # kRows query rows a block
+MLA_MAX_DK = 1152       # kMaxDk (shared memory)
+MLA_MAX_DV = 512        # kMaxDv: 64 output columns per warp
 
 #: plain version of the same function (the oracle)
 plain = _ref.mx_attention_decode_ref
 
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-_MLA_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_MLA_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
-#: the split loop's counters per device; a buffer outgrown stays referenced,
-#: since a captured CUDA graph may still launch with its address
+#: the split loops' counters per device (GQA and MLA share them); a buffer
+#: outgrown stays referenced, since a captured CUDA graph may still launch
+#: with its address
 _COUNTERS: Dict[Tuple[str, int], List[torch.Tensor]] = {}
+
+
+def _counters(n: int, device: torch.device) -> torch.Tensor:
+    """The device's zeroed counters, at least ``n`` of them."""
+    key = (device.type, device.index if device.index is not None
+           else torch.cuda.current_device())
+    held = _COUNTERS.setdefault(key, [])
+    if not held or held[-1].numel() < n:
+        held.append(torch.zeros(max(n, MIN_COUNTERS), dtype=torch.int32,
+                                device=device))
+    return held[-1]
 
 
 def split_scratch(B: int, KVH: int, S: int, R: int, dv: int,
@@ -60,15 +79,23 @@ def split_scratch(B: int, KVH: int, S: int, R: int, dv: int,
     query rows of width ``dv`` (a new buffer: every split the kernel
     combines writes its partial first), and the device's zeroed
     per-(row, kv head) counters."""
-    key = (device.type, device.index if device.index is not None
-           else torch.cuda.current_device())
-    held = _COUNTERS.setdefault(key, [])
-    if not held or held[-1].numel() < B * KVH:
-        held.append(torch.zeros(max(B * KVH, MIN_COUNTERS),
-                                dtype=torch.int32, device=device))
     ws = torch.empty(B * KVH * S * R * (dv + 2), dtype=torch.float32,
                      device=device)
-    return ws, held[-1]
+    return ws, _counters(B * KVH, device)
+
+
+def mla_scratch(B: int, KVH: int, T: int, R: int, dv: int,
+                device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MLA split loop's workspace for a cache of ``T`` positions (``T /
+    64`` splits) and ``R`` query rows of width ``dv`` per kv head: one
+    ``(m, l, acc)`` partial of 16 rows per (batch row, kv head, row block,
+    split), about ``R * dv`` floats per split; and the device's zeroed
+    counters, one per (batch row, kv head, row block)."""
+    nrb = -(-R // MLA_ROWS)
+    ldw = -(-dv // 4) * 4           # a row padded to whole float4s
+    ws = torch.empty(B * KVH * nrb * (T // MLA_SPLIT) * MLA_ROWS * (ldw + 2),
+                     dtype=torch.float32, device=device)
+    return ws, _counters(B * KVH * nrb, device)
 
 
 def _aligned(q: torch.Tensor) -> torch.Tensor:
@@ -176,12 +203,15 @@ def _mla_decode(q: torch.Tensor, qK: F.QuantizedTensor,
     qg = (q.to(torch.float32) * scale).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty((B, H, dv), dtype=torch.float32, device=q.device)
+    G = H // KVH
+    ws, counters = mla_scratch(B, KVH, T, G, dv, q.device)
     fn = _build.entry(SOURCE, "mx_attention_decode_mla_launch", _MLA_ARGTYPES)
     kp = qK.payload
     err = fn(qg.data_ptr(), kp["mantissa"].data_ptr(),
              kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
-             lens.data_ptr(), out.data_ptr(), B, T, KVH, H // KVH, dk, dv,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
+             counters.data_ptr(), B, T, KVH, G, dk, dv, ws.numel(),
+             counters.numel(), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mx_attention_decode (MLA)")
     mx_attention_decode.mla_launches += 1
     return out

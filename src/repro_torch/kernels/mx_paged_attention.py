@@ -14,9 +14,10 @@ gathered pages.
 writes one token's quantized payload rows into their page slots of every
 payload pool, in place.
 
-MLA mode (``v_pool=None``, ``v_width``) is the dense MLA kernel's loop over
-the latent pages (bitwise it over the gathered pages); a latent-only append
-is one launch over the stream's three payload pools.
+MLA mode (``v_pool=None``, ``v_width``) is the dense MLA kernel's split
+loop over the latent pages, split ``s`` of row ``b`` being half ``s % 2`` of
+page ``bt[b, s // 2]`` (bitwise it over the gathered pages); a latent-only
+append is one launch over the stream's three payload pools.
 
 Each wrapper takes its plain version (:mod:`repro_torch.kernels.ref`) only
 for tensors on the CPU; for CUDA tensors it launches the kernel of its mode
@@ -34,7 +35,7 @@ from repro_torch.core.paged import PAGE_TOKENS
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.mx_attention import (_aligned, mla_checked,
-                                              split_scratch)
+                                              mla_scratch, split_scratch)
 
 SOURCE = "mx_paged_attention"
 MAX_POOLS = 8
@@ -45,8 +46,8 @@ plain_append = _ref.paged_kv_append_ref
 
 _ATTN_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-_MLA_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-    ctypes.c_void_p]
+_MLA_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 _APPEND_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
     ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
@@ -163,13 +164,16 @@ def _mla_paged(q: torch.Tensor, k_pool: F.QuantizedTensor, bt: torch.Tensor,
     scale = scale if scale is not None else dk ** -0.5
     qg = (q.to(torch.float32) * scale).contiguous()
     out = torch.empty((B, H, dv), dtype=torch.float32, device=q.device)
+    npg, G = int(bt_.shape[1]), H // KVH
+    ws, counters = mla_scratch(B, KVH, npg * PAGE_TOKENS, G, dv, q.device)
     fn = _build.entry(SOURCE, "mx_paged_attention_decode_mla_launch",
                       _MLA_ARGTYPES)
     kp = k_pool.payload
     err = fn(qg.data_ptr(), kp["mantissa"].data_ptr(),
              kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
-             bt_.data_ptr(), lens.data_ptr(), out.data_ptr(), B,
-             int(bt_.shape[1]), n_stack, int(group), KVH, H // KVH, dk, dv,
+             bt_.data_ptr(), lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
+             counters.data_ptr(), B, npg, n_stack, int(group), KVH, G, dk,
+             dv, ws.numel(), counters.numel(),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mx_paged_attention_decode (MLA)")
     mx_paged_attention_decode.mla_launches += 1

@@ -19,9 +19,10 @@ pages.
 Limits: ``Kq * G <= 16`` and ``Kq * G * dv <= 2048`` (``ValueError``
 beyond them, never a fallback).  MLA mode (``qV`` / ``v_pool`` ``None``,
 ``v_width``) folds the ``Kq`` positions into the query rows of
-``csrc/mx_mla_tile.cuh``'s loop the same way, with no row limit (``Kq = 4``
-x 128 heads = 512 rows at deepseek-v2-236b's widths); row ``j`` is bitwise
-the MLA decode kernel at the shifted length.  Each wrapper takes its plain
+``csrc/mx_mla_tile.cuh``'s split loop the same way, with no row limit
+(``Kq = 4`` x 128 heads = 512 rows, 32 blocks of 16 per 64-position split
+at deepseek-v2-236b's widths); row ``j`` is bitwise the MLA decode kernel
+at the shifted length.  Each wrapper takes its plain
 version (:mod:`repro_torch.kernels.ref`) only for tensors on the CPU; for
 CUDA tensors it launches the kernel of its mode or raises.  ``launches``
 counts GQA launches, ``mla_launches`` MLA ones.
@@ -36,9 +37,10 @@ import torch
 from repro_torch.core import formats as F
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.core.paged import PAGE_TOKENS
 from repro_torch.kernels.mx_attention import (SPLIT, T_BLOCK, _aligned,
                                               _check_stream, mla_checked,
-                                              split_scratch)
+                                              mla_scratch, split_scratch)
 from repro_torch.kernels.mx_paged_attention import _check_pool, _index
 
 SOURCE = "mx_spec_attention"
@@ -53,10 +55,10 @@ _DENSE_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 _PAGED_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-_MLA_DENSE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-    ctypes.c_void_p]
-_MLA_PAGED_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
-    ctypes.c_void_p]
+_MLA_DENSE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+_MLA_PAGED_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
 def _gqa_rows(q: torch.Tensor, KVH: int, dv: int) -> int:
@@ -224,13 +226,15 @@ def _mla_dense(q: torch.Tensor, qK: F.QuantizedTensor, lengths: torch.Tensor,
     G = H // KVH
     out = torch.empty((B, KVH, Kq, G, dv), dtype=torch.float32,
                       device=q.device)
+    ws, counters = mla_scratch(B, KVH, T, Kq * G, dv, q.device)
     fn = _build.entry(SOURCE, "mx_spec_attention_decode_mla_launch",
                       _MLA_DENSE_ARGTYPES)
     kp = qK.payload
     err = fn(qg.data_ptr(), kp["mantissa"].data_ptr(),
              kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
-             lens.data_ptr(), out.data_ptr(), B, T, KVH, G, Kq, dk, dv,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
+             counters.data_ptr(), B, T, KVH, G, Kq, dk, dv, ws.numel(),
+             counters.numel(), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mx_spec_attention_decode (MLA)")
     mx_spec_attention_decode.mla_launches += 1
     return _unfold(out)
@@ -260,13 +264,17 @@ def _mla_paged(q: torch.Tensor, k_pool: F.QuantizedTensor, bt: torch.Tensor,
     G = H // KVH
     out = torch.empty((B, KVH, Kq, G, dv), dtype=torch.float32,
                       device=q.device)
+    npg = int(bt_.shape[1])
+    ws, counters = mla_scratch(B, KVH, npg * PAGE_TOKENS, Kq * G, dv,
+                               q.device)
     fn = _build.entry(SOURCE, "mx_paged_spec_attention_decode_mla_launch",
                       _MLA_PAGED_ARGTYPES)
     kp = k_pool.payload
     err = fn(qg.data_ptr(), kp["mantissa"].data_ptr(),
              kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
-             bt_.data_ptr(), lens.data_ptr(), out.data_ptr(), B,
-             int(bt_.shape[1]), n_stack, int(group), KVH, G, Kq, dk, dv,
+             bt_.data_ptr(), lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
+             counters.data_ptr(), B, npg, n_stack, int(group), KVH, G, Kq,
+             dk, dv, ws.numel(), counters.numel(),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mx_paged_spec_attention_decode (MLA)")
     mx_paged_spec_attention_decode.mla_launches += 1

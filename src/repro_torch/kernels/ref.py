@@ -250,6 +250,122 @@ def split_spec_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return torch.stack(out, 1).reshape(B, Kq, H, -1)
 
 
+# ---------------------------------------------------------------------------
+# the MLA kernels' split loop (csrc/mx_mla_tile.cuh): its order, for the tests
+# ---------------------------------------------------------------------------
+
+MLA_WARPS = 8           # the score k-steps are dealt to 8 warps
+
+
+def bf16_terms(x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fp32 ``x`` as three bf16 values ``(hi, mid, lo)`` held in fp32, by
+    truncation: ``hi`` keeps x's top 8 significant bits, ``mid`` the next 8
+    of the (exact) remainder, ``lo`` the rest -- at most 8 bits, so
+    ``hi + mid + lo == x`` exactly wherever ``|x| >= 2^-110`` (the MLA
+    kernels' split of the queries and the probabilities)."""
+    def trunc(v):
+        return (v.contiguous().view(torch.int32) & -65536).view(torch.float32)
+    x = x.to(torch.float32)
+    hi = trunc(x)
+    r = x - hi
+    mid = trunc(r)
+    return hi, mid, trunc(r - mid)
+
+
+def _mma(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+         ) -> torch.Tensor:
+    """``acc + a @ b`` as one tensor-core MMA is modelled here: the bf16
+    products and their 16-term sums exact (fp64), rounded once into the fp32
+    accumulator."""
+    return (acc.double() + a.double() @ b.double()).float()
+
+
+def mla_split_partial(q_terms, k: torch.Tensor, row_len: torch.Tensor,
+                      start: int, v_width: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One split's flash partial ``(m, l, acc)`` in the MLA kernels' order:
+    query rows as ``bf16_terms`` of the pre-scaled queries ``(R, dk)``, the
+    split's dequantized latent rows ``k (n, dk)`` at positions ``[start,
+    start + n)`` (bf16-exact, zero past the batch row's length), each row
+    masked to ``pos < row_len (R,)``, values the first ``v_width`` lanes.
+    Scores: "warp" ``w`` accumulates the 16-lane k-steps ``w, w + 8, ...``,
+    each as three MMAs (terms lo, mid, hi); the eight partials add as
+    ``((0 + 1) + (2 + 3)) + ((4 + 5) + (6 + 7))``.  P V: the probabilities'
+    terms against 16 positions at a time, lo, mid, hi.  A row with no valid
+    position gets ``(-1e30, 0, 0)``."""
+    n, dk = k.shape
+    R = q_terms[0].shape[0]
+    parts = []
+    for w in range(MLA_WARPS):
+        acc = torch.zeros((R, n), dtype=torch.float32)
+        for ks in range(w, dk // 16, MLA_WARPS):
+            lanes = slice(16 * ks, 16 * ks + 16)
+            for t in (2, 1, 0):
+                acc = _mma(acc, q_terms[t][:, lanes], k[:, lanes].T)
+        parts.append(acc)
+    p0, p1, p2, p3, p4, p5, p6, p7 = parts
+    s = ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7))
+    valid = (start + torch.arange(n))[None, :] < row_len[:, None]
+    m = torch.where(valid, s, torch.full_like(s, NEG_INF)).amax(-1)
+    p = torch.where(valid, torch.exp(s - m[:, None]), torch.zeros_like(s))
+    p_terms = bf16_terms(p)
+    acc = torch.zeros((R, v_width), dtype=torch.float32)
+    for kk in range(n // 16):
+        pos = slice(16 * kk, 16 * kk + 16)
+        for t in (2, 1, 0):
+            acc = _mma(acc, p_terms[t][:, pos], k[pos, :v_width])
+    return m, p.sum(-1), acc
+
+
+def split_mla_attention_ref(q: torch.Tensor, latent: F.QuantizedTensor,
+                            lengths: torch.Tensor, v_width: int,
+                            scale: Optional[float] = None, split: int = 64,
+                            bt: Optional[torch.Tensor] = None,
+                            group: int = 0) -> torch.Tensor:
+    """MLA verify attention computed the way the MLA kernels split it: q
+    ``(B, Kq, H, dk)`` against an MX8 latent stream -- dense ``(B, T, KVH,
+    dk)``, or a page pool ``(P, n_stack, 128, KVH, dk)`` read at layer
+    ``group`` through the block table ``bt (B, npg)`` -- whose first
+    ``v_width`` lanes are the values; query position ``j`` masked to
+    ``lengths - (Kq - 1 - j)``; fixed splits of ``split`` positions up to the
+    batch row's length, each split's :func:`mla_split_partial` combined in
+    order (:func:`combine_split`).  Kq = 1 is decode.  Used by the tests
+    only; returns ``(B, Kq, H, v_width)`` f32."""
+    B, Kq, H, dk = q.shape
+    kf = F.dequantize(latent)
+    paged = bt is not None
+    T = bt.shape[1] * PAGE_TOKENS if paged else kf.shape[1]
+    KVH = kf.shape[-2]
+    G = H // KVH
+    scale = scale if scale is not None else dk ** -0.5
+    qg = (q.to(torch.float32) * scale).reshape(B, Kq, KVH, G, dk)
+    out = torch.empty((B, Kq, KVH, G, v_width), dtype=torch.float32)
+    shift = torch.arange(Kq) - (Kq - 1)
+    for b in range(B):
+        n = int(lengths[b].clamp(0, T))
+        row_len = (int(lengths[b]) + shift).clamp(0, T).repeat_interleave(G)
+        for h in range(KVH):
+            q_terms = bf16_terms(qg[b, :, h].reshape(Kq * G, dk))
+            state = None
+            for s in range(max(1, -(-n // split))):
+                start = s * split
+                if paged:
+                    page, off = int(bt[b, start // PAGE_TOKENS]), \
+                        start % PAGE_TOKENS
+                    k = kf[page, int(group), off:off + split, h]
+                else:
+                    k = kf[b, start:start + split, h]
+                k = torch.where((start + torch.arange(split) < n)[:, None], k,
+                                torch.zeros_like(k))
+                part = mla_split_partial(q_terms, k, row_len, start, v_width)
+                state = part if state is None else combine_split(state, part)
+            _, L, A = state
+            out[b, :, h] = (A / L.clamp_min(1e-30)[:, None]).reshape(
+                Kq, G, v_width)
+    return out.reshape(B, Kq, H, v_width)
+
+
 def paged_kv_append_ref(pools, rows, bt: torch.Tensor, group: int,
                         lengths: torch.Tensor):
     """Write each row's payload ``rows[i] (B, KVH, w)`` into the page slot

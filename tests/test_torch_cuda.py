@@ -480,9 +480,9 @@ def test_spec_attention_kernels_refuse_out_of_limit_and_mla(cuda):
     with pytest.raises(ValueError, match="v_width"):          # dv > dk
         KV.mx_spec_attention_decode(q, R.gather_pages(K, bt, 0), None,
                                     lengths, v_width=160)
-    q, K, _, bt, lengths = _spec_pools(cuda, (130, 5), 1, 2, 720, seed=3,
+    q, K, _, bt, lengths = _spec_pools(cuda, (130, 5), 1, 2, 1168, seed=3,
                                        KVH=1)
-    with pytest.raises(ValueError, match="dk <= 704"):        # smem bound
+    with pytest.raises(ValueError, match="dk <= 1152"):       # smem bound
         KV.mx_paged_spec_attention_decode(q, K, None, bt, 0, lengths,
                                           v_width=512)
 
@@ -497,13 +497,16 @@ def test_spec_attention_kernels_refuse_out_of_limit_and_mla(cuda):
     (128, 576, 512),         # deepseek-v2-236b: 128 heads, kv_lora + rope
 ])
 @pytest.mark.parametrize("Kq", [1, 4])
-@pytest.mark.parametrize("lens", [(4, 127, 128, 129), (1000, 131, 129, 5)])
+@pytest.mark.parametrize("lens", [(4, 127, 128, 129), (1000, 131, 129, 5),
+                                  (1100, 65, 193, 4)])
 def test_mla_kernels_vs_plain_and_bitwise_contracts(cuda, H, dk, dv, Kq,
                                                     lens):
     """MLA mode of kernels 2, 3, 5 and 6 against their plain versions (rtol
     2e-4, atol 2e-5); the paged kernels bitwise the dense ones over the
     gathered pages; verify row j bitwise the decode kernels at the shifted
-    length (Kq = 1: the verify kernels are the decode kernels)."""
+    length (Kq = 1: the verify kernels are the decode kernels).  The third
+    lengths span 2 to 18 64-position splits (9 pages), and at Kq = 4 the
+    last split of 65 and 193 is fully masked for verify rows 0 to 2."""
     from repro_torch.kernels import mx_paged_attention as KP
     from repro_torch.kernels import mx_spec_attention as KV
     from repro_torch.kernels import ref as R
@@ -539,6 +542,111 @@ def test_mla_kernels_vs_plain_and_bitwise_contracts(cuda, H, dk, dv, Kq,
                                      KV.mx_paged_spec_attention_decode,
                                      KV.mx_spec_attention_decode)] == [
         n0[0] + Kq, n0[1] + Kq, n0[2] + 1, n0[3] + 1]
+
+
+@pytest.mark.parametrize("Kq", [1, 4])
+def test_mla_kernels_keep_a_subnormal_latent(cuda, Kq):
+    """A latent at magnitude 1e-37: the MX8 scales are subnormal, and about
+    7 % of the values are subnormal in bf16 too.  The queries at 5e36 keep
+    the scores O(1), and the latent is nonnegative, so every output is a
+    normal weighted mean that no cancellation makes tiny: held to the plain
+    versions at rtol 2e-4 with atol 0.  A product that flushed the
+    subnormal values to zero would miss by up to 50 %."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    q, K, _, bt, lengths = _spec_pools(cuda, (300, 65, 129, 4), Kq, 128, 576,
+                                       seed=37, n_stack=3, KVH=1)
+    g = torch.Generator(device=cuda).manual_seed(38)
+    K = F.mx8_quantize(torch.randn(K.shape, generator=g, device=cuda).abs()
+                       * 1e-37)
+    vals = F.dequantize(K)
+    assert float(((vals != 0) & (vals.abs() < 2.0 ** -126)).float().mean()) \
+        > 0.05
+    q = q * 5e36
+    group, scale = 1, 0.125
+    kw = dict(scale=scale, v_width=512)
+    Kd = R.gather_pages(K, bt, group)
+    y5 = KV.mx_paged_spec_attention_decode(q, K, None, bt, group, lengths,
+                                           **kw)
+    p5 = KV.plain_paged(q, K, None, bt, group, lengths, scale, 512)
+    torch.testing.assert_close(y5, p5, rtol=2e-4, atol=0.0)
+    y6 = KV.mx_spec_attention_decode(q, Kd, None, lengths, **kw)
+    assert torch.equal(y5, y6)
+    q1 = q[:, -1].contiguous()
+    y3 = KP.mx_paged_attention_decode(q1, K, None, bt, group, lengths, **kw)
+    torch.testing.assert_close(y3, KP.plain(q1, K, None, bt, group, lengths,
+                                            scale, 512), rtol=2e-4, atol=0.0)
+    assert torch.equal(y3, KA.mx_attention_decode(q1, Kd, None, lengths, **kw))
+    assert torch.equal(y6[:, -1], y3)
+
+
+def test_mla_kernels_with_interleaved_kv_heads_and_odd_value_width(cuda):
+    """Two kv heads (their latent rows interleave, so the split's mantissas
+    stage a row a copy), G = 8 (a 16-row block spans two verify positions)
+    and v_width 42 (the outputs' last quad partly past dv): kernels 5, 6,
+    2, 3 against their plain versions and the three bitwise contracts."""
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    Kq, dv = 4, 42
+    q, K, _, bt, lengths = _spec_pools(cuda, (300, 65, 129, 4), Kq, 8, 64,
+                                       seed=13, n_stack=3, KVH=2)
+    group, scale = 2, 0.125
+    kw = dict(scale=scale, v_width=dv)
+    Kd = R.gather_pages(K, bt, group)
+    y5 = KV.mx_paged_spec_attention_decode(q, K, None, bt, group, lengths,
+                                           **kw)
+    y6 = KV.mx_spec_attention_decode(q, Kd, None, lengths, **kw)
+    torch.testing.assert_close(
+        y6, KV.plain(q, Kd, None, lengths, scale, dv), rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(
+        y5, KV.plain_paged(q, K, None, bt, group, lengths, scale, dv),
+        rtol=2e-4, atol=2e-5)
+    assert y5.shape == (4, Kq, 16, dv) and torch.equal(y5, y6)
+    for j in range(Kq):
+        lj = lengths - (Kq - 1 - j)
+        qj = q[:, j].contiguous()
+        y2 = KA.mx_attention_decode(qj, Kd, None, lj, **kw)
+        y3 = KP.mx_paged_attention_decode(qj, K, None, bt, group, lj, **kw)
+        torch.testing.assert_close(y2, KA.plain(qj, Kd, None, lj, scale, dv),
+                                   rtol=2e-4, atol=2e-5)
+        assert torch.equal(y3, y2) and torch.equal(y6[:, j], y2)
+
+
+def test_mla_kernels_replay_in_a_cuda_graph_bitwise(cuda):
+    """20 CUDA-graph replays of the MLA mode of kernels 3 and 5 give the
+    eager launch's output bitwise, and the split counters are back at zero:
+    the last block of each (row, row block) resets its own."""
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    q, K, _, bt, lengths = _spec_pools(cuda, (1025, 300, 129, 700), 4, 128,
+                                       576, seed=12, n_stack=3, KVH=1)
+    q1 = q[:, 0].contiguous()
+    kw = dict(scale=0.1, v_width=512)
+    calls = {"kernel 3": lambda: KP.mx_paged_attention_decode(
+                 q1, K, None, bt, 2, lengths, **kw),
+             "kernel 5": lambda: KV.mx_paged_spec_attention_decode(
+                 q, K, None, bt, 2, lengths, **kw)}
+    for name, call in calls.items():
+        eager = call()
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for i in range(20):
+            out.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager), (name, i)
+        for held in KA._COUNTERS.values():
+            assert int(held[-1].abs().sum()) == 0, name
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b",

@@ -11,12 +11,17 @@ It compiles the other checkout's ``src/repro_torch/csrc`` sources that the
 chosen families need, with this checkout's nvcc flags, into a temporary
 directory, launches them and this checkout's kernels through the same C
 entry points on the same inputs, and exits non-zero unless every output is
-bitwise equal.  Prints one line per case.  Families (``--cases``, comma
+bitwise equal (the ``mla`` family against an older loop: within
+tolerance).  Prints one line per case.  Families (``--cases``, comma
 separated; default ``mla,k1,k7``):
 
 * ``mla``: kernels 2, 3, 5 and 6 in MLA mode (``csrc/mx_mla_tile.cuh``) at
   deepseek-v2-236b's widths and its smoke widths, decode and Kq = 4
-  verify, lengths across tile boundaries, shuffled pages;
+  verify, lengths across tile boundaries, shuffled pages.  Each checkout's
+  entry points are called with their own argument lists: against a
+  checkout that has the split MLA loop (its ``mla_split``), bitwise;
+  against an older one (the loop before, with other entry points and
+  fp32 products), within the kernels' rtol 2e-4, atol 2e-5;
 * ``k1``: kernel 1, dense and slab mode, at the zamba2 / mamba2 heads, the
   GLA family's and three odd shapes (a partial last block of rows, dk = 16
   and 4096), scalar and per-channel decay, both roundings, state
@@ -33,9 +38,11 @@ separated; default ``mla,k1,k7``):
 ``--time`` then times kernels 1 and 7 of both checkouts at the shapes of
 ``PERF.md``'s kernel table (kernel 1 at zamba2's and the GLA family's
 heads, dense and slab mode, stochastic rounding; kernel 7 at gla's
-prefill state), by CUDA-graph replay with inputs rotated so that every
-launch finds them cold in the 50 MB L2, in the turns other, this, this,
-other, and prints the card's name and power limit.
+prefill state) and the four MLA modes at deepseek-v2-236b's widths and
+the table's lengths (decode 72, 408, 141, 259; Kq = 4 verify), by
+CUDA-graph replay with inputs rotated so that every launch finds them
+cold in the 50 MB L2, in the turns other, this, this, other, and prints
+the card's name and power limit.
 """
 import argparse
 import ctypes
@@ -107,33 +114,76 @@ def _report(label, pairs, errs) -> bool:
     return ok
 
 
-def _mla_cases(other) -> bool:
+def _mla_split_loop(csrc: Path) -> bool:
+    """Whether a checkout's MLA kernels run the split loop (workspace and
+    counters in their entry points)."""
+    return "mla_split(" in (csrc / "mx_mla_tile.cuh").read_text()
+
+
+def _mla_entries(other, split_loop: bool):
+    """The other checkout's four MLA entry points (kernels 2, 3, 6, 5), as
+    functions of (q, latent payload, bt, lengths, out, B, npg, H, n_q, dk,
+    dv) that pass the arguments its own entry points take."""
+    import torch
+    from repro_torch.kernels import mx_attention as KA
+    old2 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    old3 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    old6 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    old5 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    f2 = _entry(other["mx_attention"], "mx_attention_decode_mla_launch",
+                KA._MLA_ARGTYPES if split_loop else old2)
+    f3 = _entry(other["mx_paged_attention"],
+                "mx_paged_attention_decode_mla_launch",
+                KP._MLA_ARGTYPES if split_loop else old3)
+    f6 = _entry(other["mx_spec_attention"],
+                "mx_spec_attention_decode_mla_launch",
+                KV._MLA_DENSE_ARGTYPES if split_loop else old6)
+    f5 = _entry(other["mx_spec_attention"],
+                "mx_paged_spec_attention_decode_mla_launch",
+                KV._MLA_PAGED_ARGTYPES if split_loop else old5)
+
+    def call(fn, paged, verify):
+        def run(q, p, bt, lengths, out, B, npg, H, n_q, dk, dv, scratch,
+                n_stack=3, group=2):
+            stream = torch.cuda.current_stream().cuda_stream
+            ptrs = [q.data_ptr(), p["mantissa"].data_ptr(),
+                    p["exponent"].data_ptr(), p["micro"].data_ptr()]
+            if paged:
+                ptrs.append(bt.data_ptr())
+            ptrs += [lengths.data_ptr(), out.data_ptr()]
+            dims = ([B, npg, n_stack, group, 1, H] if paged
+                    else [B, npg * 128, 1, H])
+            if verify:
+                dims.append(n_q)
+            if not split_loop:
+                return fn(*ptrs, *dims, dk, dv, stream)
+            ws, counters = scratch
+            return fn(*ptrs, ws.data_ptr(), counters.data_ptr(), *dims, dk,
+                      dv, ws.numel(), counters.numel(), stream)
+        return run
+    return (call(f2, False, False), call(f3, True, False),
+            call(f6, False, True), call(f5, True, True))
+
+
+def _mla_cases(other, split_loop: bool) -> bool:
     """MLA mode of kernels 2, 3 (decode) and 5, 6 (Kq = 4 verify)."""
     import torch
     from repro_torch.kernels import mx_attention as KA
     from repro_torch.kernels import mx_paged_attention as KP
     from repro_torch.kernels import mx_spec_attention as KV
     from repro_torch.kernels import ref as R
-    f2 = _entry(other["mx_attention"], "mx_attention_decode_mla_launch",
-                KA._MLA_ARGTYPES)
-    f3 = _entry(other["mx_paged_attention"],
-                "mx_paged_attention_decode_mla_launch", KP._MLA_ARGTYPES)
-    f6 = _entry(other["mx_spec_attention"],
-                "mx_spec_attention_decode_mla_launch",
-                KV._MLA_DENSE_ARGTYPES)
-    f5 = _entry(other["mx_spec_attention"],
-                "mx_paged_spec_attention_decode_mla_launch",
-                KV._MLA_PAGED_ARGTYPES)
-    stream = torch.cuda.current_stream().cuda_stream
+    f2, f3, f6, f5 = _mla_entries(other, split_loop)
     ok = True
     for H, dk, dv in ((8, 64, 32), (128, 576, 512)):
-        for lens in ((4, 127, 128, 129), (1000, 131, 129, 5)):
+        for lens in ((4, 127, 128, 129), (1000, 131, 129, 5),
+                     (1100, 65, 193, 4)):
             q, K, _, bt, lengths = _pool(lens, 1, dk, 3, dk + lens[0], 4, H,
                                          value_pool=False)
             group, scale, B, npg = 2, dk ** -0.5, len(lens), bt.shape[1]
             kw = dict(scale=scale, v_width=dv)
             Kd = R.gather_pages(K, bt, group)
-            kp, kd = K.payload, Kd.payload
             q1 = q[:, 0].contiguous()
             q1s = (q1 * scale).contiguous()
             qf = KV._fold(q, 1, scale)
@@ -146,28 +196,39 @@ def _mla_cases(other) -> bool:
             o2, o3 = torch.empty_like(y2), torch.empty_like(y3)
             o5 = torch.empty((B, 1, 4, H, dv), device="cuda")
             o6 = torch.empty_like(o5)
+            s1 = KA.mla_scratch(B, 1, npg * 128, H, dv, q.device)
+            s4 = KA.mla_scratch(B, 1, npg * 128, 4 * H, dv, q.device)
+            common = (B, npg, H)
             errs = (
-                f2(q1s.data_ptr(), kd["mantissa"].data_ptr(),
-                   kd["exponent"].data_ptr(), kd["micro"].data_ptr(),
-                   lengths.data_ptr(), o2.data_ptr(), B, npg * 128, 1, H,
-                   dk, dv, stream),
-                f3(q1s.data_ptr(), kp["mantissa"].data_ptr(),
-                   kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
-                   bt.data_ptr(), lengths.data_ptr(), o3.data_ptr(), B, npg,
-                   3, group, 1, H, dk, dv, stream),
-                f6(qf.data_ptr(), kd["mantissa"].data_ptr(),
-                   kd["exponent"].data_ptr(), kd["micro"].data_ptr(),
-                   lengths.data_ptr(), o6.data_ptr(), B, npg * 128, 1, H, 4,
-                   dk, dv, stream),
-                f5(qf.data_ptr(), kp["mantissa"].data_ptr(),
-                   kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
-                   bt.data_ptr(), lengths.data_ptr(), o5.data_ptr(), B, npg,
-                   3, group, 1, H, 4, dk, dv, stream))
+                f2(q1s, Kd.payload, None, lengths, o2, *common, 1, dk, dv,
+                   s1),
+                f3(q1s, K.payload, bt, lengths, o3, *common, 1, dk, dv, s1),
+                f6(qf, Kd.payload, None, lengths, o6, *common, 4, dk, dv,
+                   s4),
+                f5(qf, K.payload, bt, lengths, o5, *common, 4, dk, dv, s4))
             torch.cuda.synchronize()
-            ok &= _report(
-                f"MLA H={H} dk={dk} dv={dv} lengths={lens}: kernels 2, 3, "
-                f"6, 5", [(y2, o2), (y3, o3), (y6, KV._unfold(o6)),
-                          (y5, KV._unfold(o5))], errs)
+            pairs = [(y2, o2), (y3, o3), (y6, KV._unfold(o6)),
+                     (y5, KV._unfold(o5))]
+            label = (f"MLA H={H} dk={dk} dv={dv} lengths={lens}: kernels 2, "
+                     f"3, 6, 5")
+            if split_loop:
+                ok &= _report(label, pairs, errs)
+            else:
+                ok &= _report_close(label, pairs, errs)
+    return ok
+
+
+def _report_close(label, pairs, errs) -> bool:
+    """Within the kernels' tolerance (rtol 2e-4, atol 2e-5): a checkout
+    whose arithmetic differs."""
+    close = [bool(((a - b).abs() <= 2e-5 + 2e-4 * b.abs()).all())
+             for a, b in pairs]
+    worst = max(float((a - b).abs().max()) for a, b in pairs)
+    ok = all(close) and not any(errs)
+    print(f"{label}: " + ", ".join(
+        "within rtol 2e-4 atol 2e-5" if c else "BEYOND TOLERANCE"
+        for c in close) + f" (max abs diff {worst:.3g}; launch errors "
+        f"{list(errs)})", flush=True)
     return ok
 
 
@@ -366,9 +427,53 @@ def _turns(label, calls, replays):
     return this, other
 
 
-def _time_cases(other) -> None:
-    """Kernels 1 and 7 of both checkouts, timed through their C entry
-    points on the same inputs."""
+def _time_mla(other, split_loop: bool) -> None:
+    """The four MLA modes of both checkouts at deepseek-v2-236b's widths
+    and PERF.md's lengths, 96 layers' latent pages (and their gathered
+    dense copies) rotating cold in L2."""
+    import torch
+    from chip_smoke import DS_MAX_NEW, DS_PROMPT_LENS, MLA, _mla_pool
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    mine = _mla_entries({n: _build.load(n) for n in _SOURCES["mla"]}, True)
+    theirs = _mla_entries(other, split_loop)
+    m = MLA
+    H, dk, dv, n_rot = m["H"], m["dk"], m["dv"], 96
+    base = [n + DS_MAX_NEW // 2 for n in DS_PROMPT_LENS[:m["B"]]]
+    scale = (128 + 64) ** -0.5
+    for n_q in (1, 4):
+        lengths = [n + n_q - 1 for n in base]
+        q_all, C, bt, lens = _mla_pool(lengths, seed=130 + n_q,
+                                       n_stack=n_rot, spare=0)
+        B, npg = len(lengths), bt.shape[1]
+        qg = ((q_all[:, 0] * scale).contiguous() if n_q == 1
+              else KV._fold(q_all[:, :n_q].contiguous(), 1, scale))
+        out = torch.empty((B, n_q * H, dv), device="cuda")
+        scratch = KA.mla_scratch(B, 1, npg * 128, n_q * H, dv, qg.device)
+        dense = [R.gather_pages(C, bt, g) for g in range(n_rot)]
+        modes = ((("kernel 2 decode", 0, False), ("kernel 3 decode", 1, True))
+                 if n_q == 1 else
+                 (("kernel 6 verify", 2, False), ("kernel 5 verify", 3, True)))
+        for label, i, paged in modes:
+            def calls(fns):
+                if paged:
+                    return [lambda g=g: fns[i](
+                        qg, C.payload, bt, lens, out, B, npg, H, n_q, dk, dv,
+                        scratch, n_stack=n_rot, group=g)
+                        for g in range(n_rot)]
+                return [lambda c=c: fns[i](qg, c.payload, None, lens, out, B,
+                                           npg, H, n_q, dk, dv, scratch)
+                        for c in dense]
+            _turns(f"MLA {label} lengths={lengths}",
+                   {"other": calls(theirs), "this": calls(mine)}, 5)
+        del dense, C
+
+
+def _time_cases(other, split_loop: bool) -> None:
+    """Kernels 1 and 7, and the MLA modes, of both checkouts, timed through
+    their C entry points on the same inputs."""
     import torch
     from chip_smoke import _rotation
     from repro_torch.core import formats as F
@@ -435,6 +540,8 @@ def _time_cases(other) -> None:
                           torch.cuda.current_stream().cuda_stream)
     _turns(f"kernel 7 gla prefill state {shape} nearest",
            {w: [qcall(f7[w], i) for i in range(n_rot)] for w in f7}, 10)
+    del xs, outs
+    _time_mla(other, split_loop)
     torch.cuda.synchronize()
 
 
@@ -458,19 +565,21 @@ def main() -> int:
         return 2
     csrc = Path(args.other) / "src" / "repro_torch" / "csrc"
     names = sorted({n for c in cases for n in _SOURCES[c]}
-                   | ({"mx_state_update", "mx_quant"} if args.time else set()))
+                   | ({"mx_state_update", "mx_quant", *_SOURCES["mla"]}
+                      if args.time else set()))
+    split_loop = _mla_split_loop(csrc)
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
         other = {n: _other_lib(csrc, n, Path(tmp), _build.NVCC_FLAGS)
                  for n in names}
-        run = {"mla": lambda: _mla_cases(other),
+        run = {"mla": lambda: _mla_cases(other, split_loop),
                "gqa": lambda: _gqa_cases(other),
                "k1": lambda: _state_update_cases(other["mx_state_update"]),
                "k7": lambda: _quant_cases(other["mx_quant"])}
         for c in cases:
             ok &= run[c]()
         if args.time:
-            _time_cases(other)
+            _time_cases(other, split_loop)
     print(f"kernels_vs_parent ({','.join(cases)}):",
           "ok" if ok else "FAILED")
     return 0 if ok else 1
