@@ -16,11 +16,13 @@ three paths, then the paper's GLA-family models at full width and all 32
 layers: ``gla-2.7b`` through the same three paths, ``retnet-2.7b`` and
 ``hgrn2-2.7b`` through the paged pool.  It checks that every decode step
 went through the kernels of its path, and every prefill through the MX8
-quantizer (kernel 7).  Phases, in the order they run:
+quantizer (kernel 7), and that no paged decode or verify step ran the
+plain MX8 quantizer on the card.  Phases, in the order they run:
 
   1. device   2. build   3. exact powers of two   4. state-update kernel
-  5. attention kernel   9. paged kernels (paged attention, paged append,
-  state update in slab mode)   12. speculative-verify kernels (dense and
+  5. attention kernel   9. paged kernels (paged attention, paged append:
+  the copy and the fused quantize-and-append, state update in slab
+  mode)   12. speculative-verify kernels (dense and
   paged)   20. the MX8 quantizer (kernel 7), bitwise   21. the
   state-update kernel at the GLA family's heads   6. timing   10.
   paged-kernel timing   13. verify-kernel timing   22. timing of kernels 7
@@ -28,8 +30,9 @@ quantizer (kernel 7).  Phases, in the order they run:
   path, paged pool   12. matmul row invariance at the model's shapes
   14. main path, paged pool with speculation (n-gram drafts; a short
   model-draft run; the pool-level rollback check)   15. MLA mode of
-  kernels 2, 3, 5 and 6 and the latent-only append at deepseek-v2-236b's
-  widths   16. MLA timing   17. deepseek-v2-236b, slot pool   18.
+  kernels 2, 3, 5 and 6 and the latent-only appends (copy and fused) at
+  deepseek-v2-236b's widths   16. MLA timing   17. deepseek-v2-236b,
+  slot pool   18.
   deepseek-v2-236b, paged pool   19. deepseek-v2-236b, paged pool with
   speculation   23. gla-2.7b, slot pool   24. gla-2.7b, paged pool
   25. gla-2.7b, paged pool with speculation   26. retnet-2.7b, paged
@@ -103,6 +106,9 @@ MLA = dict(B=4, H=128, dk=576, dv=512, n_stack=3)
 #: the third case spans 2 to 18 splits (9 pages), and at Kq = 4 the last
 #: split of 65 and of 193 is fully masked for verify rows 0 to 2
 MLA_LENGTHS = ((4, 127, 128, 129), (1000, 131, 129, 5), (1100, 65, 193, 4))
+#: the fused quantize-and-append's value magnitudes: at 1e-37 the
+#: groups' scales are subnormal, at 1e35 near the top exponent
+APPEND_MAGS = (1.0, 1e-3, SU_TINY, 1e35)
 #: kernel 1 at the GLA family's heads: (arch, (B, H, dv, dk), scalar decay)
 GLA_SU = (("gla-2.7b", (4, 4, 640, 320), False),
           ("retnet-2.7b", (4, 10, 512, 256), True),
@@ -482,6 +488,77 @@ def _payload_pools(K, V):
             + [V.payload[f] for f in sorted(V.payload)])
 
 
+def _new_rows(B, KVH, d, n, seed, mag=1.0):
+    """The new token's fp32 rows (B, 1, KVH, d) of ``n`` streams at
+    magnitude ``mag``, every fifth 16-value group zero."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = [torch.randn((B, 1, KVH, d), generator=g, device="cuda") * mag
+            for _ in range(n)]
+    rows[0].view(-1, 16)[::5] = 0.0
+    return rows
+
+
+def _replaced_append(pools, rows, bt, group, lens, seed,
+                     rounding="stochastic"):
+    """The path the fused launch replaced on the card: each stream
+    quantized eagerly (``F.sr_bits`` + ``F.quantize``, seed ``seed + i``),
+    then the copy kernel over the payload pools."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_paged_attention as KP
+    payload, dst = [], []
+    for i, (x, pool) in enumerate(zip(rows, pools)):
+        bits = (F.sr_bits(x.shape, (seed + i) & 0xFFFFFFFF, device="cuda")
+                if rounding == "stochastic" else None)
+        q = F.quantize(x, "mx8", rounding, bits)
+        payload += [q.payload[f][:, 0] for f in sorted(q.payload)]
+        dst += [pool.payload[f] for f in sorted(pool.payload)]
+    KP.mx_paged_kv_append(dst, payload, bt, group, lens)
+
+
+def _hold_append_quant(pools, bt, group, lengths, seed, label):
+    """The fused quantize-and-append over ``pools`` (one MX8 page pool per
+    stream) at every magnitude of APPEND_MAGS and both roundings: its
+    mantissa, exponent and micro bytes bitwise its plain version's and the
+    replaced path's, every byte outside the appended slots unchanged.
+    Returns (cases, max byte difference)."""
+    import torch
+    from repro_torch.kernels import mx_paged_attention as KP
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    keep = torch.ones(pools[0].payload["mantissa"].shape[:3],
+                      dtype=torch.bool, device="cuda")
+    for b, n in enumerate(lengths):
+        keep[bt[b, n // 128], group, n % 128] = False
+    _, _, _, KVH, d = pools[0].payload["mantissa"].shape
+    cases = worst = 0
+    for mag, rounding in itertools.product(APPEND_MAGS,
+                                           ("nearest", "stochastic")):
+        rows = _new_rows(len(lengths), KVH, d, len(pools), seed + cases, mag)
+        before = [p.clone() for p in pools]
+        plain = [p.clone() for p in pools]
+        replaced = [p.clone() for p in pools]
+        KP.mx_paged_kv_append_quant(rows, pools, bt, group, lens, seed,
+                                    rounding=rounding)
+        KP.plain_append_quant(rows, plain, bt, group, lens, seed, rounding)
+        _replaced_append(replaced, rows, bt, group, lens, seed, rounding)
+        torch.cuda.synchronize()
+        for i, (a, p, r, b0) in enumerate(zip(pools, plain, replaced,
+                                              before)):
+            for f in ("mantissa", "exponent", "micro"):
+                x, y = a.payload[f], p.payload[f]
+                worst = max(worst, int((x.int() - y.int()).abs().max()))
+                where = f"{label} {lengths} magnitude {mag:g} {rounding}: " \
+                        f"stream {i} {f}"
+                check(torch.equal(x, y), f"{where} differs from the plain "
+                      "version")
+                check(torch.equal(x, r.payload[f]), f"{where} differs from "
+                      "the replaced path (eager quantize + copy kernel)")
+                check(torch.equal(x[keep], b0.payload[f][keep]),
+                      f"{where} changed outside the appended slots")
+        cases += 1
+    return cases, worst
+
+
 def _slab_case(shape, gen_seed, sr_seed, scalar_decay=True,
                rounding="stochastic", mag=1.0):
     """Kernel 1 in slab mode on a (9, 6, H, dv, dk) pool of state values of
@@ -542,7 +619,7 @@ def phase_paged_kernels():
     from repro_torch.kernels import mx_paged_attention as KP
     from repro_torch.kernels import mx_state_update as KS
     from repro_torch.kernels import ref as R
-    attn_err = append_err = 0
+    attn_err = append_err = quant_err = quant_cases = 0
     for i, lengths in enumerate(PAGED_LENGTHS):
         q, K, V, bt, lens = _paged_kv(lengths, seed=30 + i)
         group = 4 + i
@@ -577,12 +654,22 @@ def phase_paged_kernels():
         for j, (a, b) in enumerate(zip(pools, before)):
             check(torch.equal(a[keep], b[keep]), f"paged append {lengths}: "
                   f"pool {j} changed outside the appended slots")
+        n, err = _hold_append_quant([K, V], bt, group, lengths,
+                                    0xFFFFFFFF - i, "fused append")
+        quant_cases, quant_err = quant_cases + n, max(quant_err, err)
     phase(9, "mx_paged_attention_decode vs plain and vs dense kernel",
           B=4, H=ATTN["H"], KVH=ATTN["KVH"], d=ATTN["d"], n_stack=N_STACK,
           lengths=list(PAGED_LENGTHS), max_abs_err=f"{attn_err:.3g}",
           tol="rtol2e-4,atol2e-5", vs_dense_on_gathered_pages="bitwise")
     phase(9, "mx_paged_kv_append vs plain", pools=6, result="bitwise",
           max_abs_err=append_err, untouched_bytes="unchanged")
+    phase(9, "mx_paged_kv_append_quant vs plain and vs the replaced path "
+          "(eager quantize + copy kernel)", streams=2, pools=6,
+          KVH=ATTN["KVH"], d=ATTN["d"], lengths=list(PAGED_LENGTHS),
+          magnitudes=",".join(f"{m:g}" for m in APPEND_MAGS),
+          roundings="nearest,stochastic", cases=quant_cases,
+          fields="mantissa,exponent,micro", result="bitwise",
+          max_abs_err=quant_err, untouched_bytes="unchanged")
 
     mism = total = 0
     slab_err = 0.0
@@ -599,7 +686,7 @@ def phase_paged_kernels():
           untouched_slabs="unchanged", vs_plain_exp_micro="bitwise",
           vs_plain_mantissa_mismatch=f"{mism}/{total}",
           y_max_abs_err=f"{slab_err:.3g}")
-    return attn_err, float(append_err), slab_err
+    return attn_err, float(append_err), float(quant_err), slab_err
 
 
 def _spec_kv(lengths, G, seed, spare=2):
@@ -813,6 +900,12 @@ def phase_paged_timing():
     ap = _report("mx_paged_kv_append", ms, plain_ms, lib_ms, host_ms,
                  nbytes, 0, OPS.traffic(plan).total, n=10)
 
+    # -- the fused quantize-and-append the paged steps launch, beside its
+    # plain version and the path it replaced (eager quantize + copy)
+    apq = _time_append_quant([K, V], bt, lens, N_STACK,
+                             "mx_paged_kv_append[quant]", OPS.traffic(
+                                 plan).total, n=10)
+
     # -- the state update in slab mode: the six pattern positions' slab
     # pools (9 slabs x 9 layers each), 54 launches over 4 owned slabs
     B, H, dv, dk = SU_SHAPES[0]
@@ -841,7 +934,56 @@ def phase_paged_timing():
     su = _report("mx_state_update[slab]", ms, plain_ms, None, host_ms,
                  2 * payload + operands, 10 * n_val, OPS.traffic(plan).total,
                  n=10)
-    return pa, ap, su
+    return pa, ap, apq, su
+
+
+def _time_append_quant(pools, bt, lens, n_stack, name, plan_bytes, n):
+    """Device times, by CUDA-graph replay over the ``n_stack`` layers of
+    ``pools``, of the fused quantize-and-append, its plain version and the
+    replaced path (eager quantize + copy kernel); the host time of one
+    launch, and of one ``OPS.kv_append`` call (cuda backend, paged: the
+    fused launch) against the replaced path's calls issued from Python.
+    Bound: bytes, each fp32 row read once and its MX8 payload written
+    once, plus ``lengths`` and the block-table entry of each row.  No
+    single PyTorch call quantizes to MX8: the library time is null."""
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.core import formats as F
+    from repro_torch.core import paged as PG
+    from repro_torch.kernels import mx_paged_attention as KP
+    B = bt.shape[0]
+    _, _, _, KVH, d = pools[0].payload["mantissa"].shape
+    rows = _new_rows(B, KVH, d, len(pools), seed=61)
+    kern = [lambda g=g: KP.mx_paged_kv_append_quant(rows, pools, bt, g, lens,
+                                                    g)
+            for g in range(n_stack)]
+    plain = [lambda g=g: KP.plain_append_quant(rows, pools, bt, g, lens, g)
+             for g in range(n_stack)]
+    replaced = [lambda g=g: _replaced_append(pools, rows, bt, g, lens, g)
+                for g in range(n_stack)]
+    it = iter(range(10 ** 9))
+    ms = graph_ms(kern, 50)
+    plain_ms = graph_ms(plain, 10)
+    replaced_ms = graph_ms(replaced, 10)
+    host_ms = host_loop_ms(lambda: kern[next(it) % n_stack](), 30 * n_stack)
+    cache = PG.PagedKVCache(*pools, bt, lens, 1, "mx8") if len(pools) == 2 \
+        else PG.PagedKVCache(pools[0], None, bt, lens, 1, "mx8", d - 64)
+    cfg = OPS.StateQuantConfig()
+    op_ms = host_loop_ms(lambda: OPS.kv_append(
+        cache, rows[0], rows[1] if len(rows) == 2 else None, cfg, seed=3),
+        30 * n_stack)
+    replaced_host_ms = host_loop_ms(lambda: _replaced_append(
+        pools, rows, bt, 1, lens, 3), 30 * n_stack)
+    n_val = B * KVH * d * len(pools)
+    nbytes = n_val * (4 + 1 + 2 / F.MX8_GROUP) + 4 * B * 2
+    out = _report(name, ms, plain_ms, None, host_ms, nbytes, 5 * n_val,
+                  plan_bytes, n=n)
+    phase(n, f"{name} vs the replaced path", replaced_ms=f"{replaced_ms:.5f}",
+          fused_faster=f"{replaced_ms / ms:.2f}x",
+          host_kv_append_op_ms=f"{op_ms:.5f}",
+          host_replaced_path_ms=f"{replaced_host_ms:.5f}",
+          host_faster=f"{replaced_host_ms / op_ms:.2f}x")
+    return out
 
 
 def phase_spec_timing():
@@ -1204,8 +1346,9 @@ def _paged_vs_gather(eng, cfg, rng, n_steps=4, lens0=(64, 129, 127, 200)):
 def phase_paged_main_path(cfg, params, slot):
     """zamba2-2.7b at full width through ``Engine``'s default paged backend,
     a pool small enough that FCFS preempts; each decode step must launch
-    the slab-mode state update 54 times and the paged attention and append
-    kernels 9 times each, and the dense attention kernel never."""
+    the slab-mode state update 54 times and the paged attention and fused
+    quantize-and-append kernels 9 times each, and the dense attention
+    kernel, the copy append and the plain MX8 quantizer never."""
     import numpy as np
     import torch
     from repro_torch.kernels import mx_attention as KA
@@ -1222,36 +1365,42 @@ def phase_paged_main_path(cfg, params, slot):
           logits=tuple(shape), result="bit-identical")
     prompts = _pattern_prompts(rng, cfg)
     counters = (KS.mx_state_update, KP.mx_paged_attention_decode,
-                KP.mx_paged_kv_append, KA.mx_attention_decode,
-                K7.mx_quantize)
+                KP.mx_paged_kv_append_quant, KP.mx_paged_kv_append,
+                KA.mx_attention_decode, K7.mx_quantize)
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
     KS.mx_state_update.slab_launches = 0
+    PLAIN_QUANT["calls"] = 0
     t1 = time.perf_counter()
     handles = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    n_dense, n_pa, n_ap, n_at, n_q = (c.launches for c in counters)
+    n_dense, n_pa, n_apq, n_ap, n_at, n_q = (c.launches for c in counters)
     n_su = KS.mx_state_update.slab_launches
+    n_plain_q = PLAIN_QUANT["calls"]
     peak = torch.cuda.max_memory_allocated()
     steps = eng.engine.step_count
     _check_done(handles, cfg)
     st = eng.stats()
     check(st["preemptions"] >= 1, f"no preemption with {PAGED}")
     check(steps > 0 and n_su == 54 * steps and n_dense == 0
-          and n_pa == 9 * steps and n_ap == 9 * steps and n_at == 0
-          and n_q == _k7_per_prefill(cfg) * len(prompts),
+          and n_pa == 9 * steps and n_apq == 9 * steps and n_ap == 0
+          and n_at == 0 and n_q == _k7_per_prefill(cfg) * len(prompts),
           f"launches over {steps} decode steps: state_update slab mode "
           f"{n_su} (want 54x), dense mode {n_dense} (0), paged attention "
-          f"{n_pa} (9x), paged append {n_ap} (9x), dense attention {n_at} "
-          f"(0); quantizer {n_q} over {len(prompts)} prefills")
+          f"{n_pa} (9x), fused append {n_apq} (9x), copy append {n_ap} "
+          f"(0), dense attention {n_at} (0); quantizer {n_q} over "
+          f"{len(prompts)} prefills")
+    check(n_plain_q == 0, f"the plain MX8 quantizer ran {n_plain_q} times "
+          "on the card inside paged decode steps")
     pool = eng.engine.pool
     phase(11, "main path zamba2-2.7b paged", requests=len(handles),
           decode_steps=steps, launches=f"su_slab={n_su},su_dense={n_dense},"
-          f"paged_attn={n_pa},paged_append={n_ap},dense_attn={n_at},"
-          f"quant={n_q}",
+          f"paged_attn={n_pa},fused_append={n_apq},copy_append={n_ap},"
+          f"dense_attn={n_at},quant={n_q}",
+          plain_quantizer_calls_in_decode=n_plain_q,
           wall_s=f"{wall:.3f}",
           **_step_fields(st), peak_mem_GB=f"{peak / 1e9:.2f}",
           preemptions=int(st["preemptions"]),
@@ -1275,7 +1424,8 @@ def phase_paged_main_path(cfg, params, slot):
           peak_mem_GB=f"{peak / 1e9:.2f} vs {slot['peak'] / 1e9:.2f}",
           idle_share=f"{prof['idle_share']:.3f} vs "
           f"{slot['prof']['idle_share']:.3f}")
-    return dict(n_su=n_su, n_pa=n_pa, n_ap=n_ap, prompts=prompts,
+    return dict(n_su=n_su, n_pa=n_pa, n_ap=n_ap, n_apq=n_apq,
+                prompts=prompts,
                 outputs=[h.output for h in handles], stats=st, peak=peak,
                 steps=steps)
 
@@ -1292,9 +1442,10 @@ def _pattern_prompts(rng, cfg):
 def phase_spec_main_path(cfg, params, paged):
     """zamba2-2.7b at full width through the paged ``Engine`` with n-gram
     speculation (``spec_k = 3``), on phase 11's prompts and weights.  Each
-    verify step must launch the paged verify kernel 9 times, the append
-    9 * Kq times and the slab-mode state update 54 * Kq times, and kernels
-    2, 3 and 6 never.  Its greedy stream is compared with phase 11's, which
+    verify step must launch the paged verify kernel 9 times, the fused
+    append 9 * Kq times and the slab-mode state update 54 * Kq times, and
+    kernels 2, 3 and 6, the copy append and the plain MX8 quantizer
+    never.  Its greedy stream is compared with phase 11's, which
     drew other stochastic-rounding seeds (a plain step seeds with its step
     count, a verify pass with its own counter), so only agreement is
     reported.  Greedy exactness is held where it is defined: a plain run
@@ -1321,39 +1472,45 @@ def phase_spec_main_path(cfg, params, paged):
     eng = Engine(params, cfg, ServeConfig(**PAGED, spec="ngram",
                                           spec_k=SPEC_K))
     counters = (KV.mx_paged_spec_attention_decode, KV.mx_spec_attention_decode,
-                KP.mx_paged_attention_decode, KP.mx_paged_kv_append,
-                KA.mx_attention_decode, KS.mx_state_update, K7.mx_quantize)
+                KP.mx_paged_attention_decode, KP.mx_paged_kv_append_quant,
+                KP.mx_paged_kv_append, KA.mx_attention_decode,
+                KS.mx_state_update, K7.mx_quantize)
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
     KS.mx_state_update.slab_launches = 0
+    PLAIN_QUANT["calls"] = 0
     t1 = time.perf_counter()
     handles = [eng.submit(p, max_new_tokens=MAX_NEW)
                for p in paged["prompts"]]
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    n5, n6, n3, n4, n2, n1, n_q = (c.launches for c in counters)
+    n5, n6, n3, n4, n4c, n2, n1, n_q = (c.launches for c in counters)
     n1s = KS.mx_state_update.slab_launches
+    n_plain_q = PLAIN_QUANT["calls"]
     peak = torch.cuda.max_memory_allocated()
     steps = eng.engine.step_count
     _check_done(handles, cfg)
     st = eng.stats()
     check(steps > 0 and n5 == 9 * steps and n4 == 9 * KQ * steps
-          and n1s == 54 * KQ * steps and n6 == n3 == n2 == n1 == 0
+          and n1s == 54 * KQ * steps and n6 == n3 == n4c == n2 == n1 == 0
           and n_q == _k7_per_prefill(cfg) * len(handles),
           f"launches over {steps} verify steps: paged verify {n5} (want 9x), "
-          f"append {n4} ({9 * KQ}x), state update slab {n1s} ({54 * KQ}x), "
-          f"dense verify {n6}, paged attention {n3}, dense attention {n2}, "
-          f"dense state update {n1} (0 each); quantizer {n_q} over "
-          f"{len(handles)} prefills")
+          f"fused append {n4} ({9 * KQ}x), state update slab {n1s} "
+          f"({54 * KQ}x), dense verify {n6}, paged attention {n3}, copy "
+          f"append {n4c}, dense attention {n2}, dense state update {n1} (0 "
+          f"each); quantizer {n_q} over {len(handles)} prefills")
+    check(n_plain_q == 0, f"the plain MX8 quantizer ran {n_plain_q} times "
+          "on the card inside verify steps")
     agree, first = _agreement(paged["outputs"], [h.output for h in handles])
     ps = paged["stats"]
     phase(14, "main path zamba2-2.7b paged + ngram speculation",
           requests=len(handles), verify_steps=steps, Kq=KQ,
-          launches=f"paged_verify={n5},append={n4},su_slab={n1s},"
-          f"dense_verify={n6},paged_attn={n3},dense_attn={n2},su_dense={n1},"
-          f"quant={n_q}",
+          launches=f"paged_verify={n5},fused_append={n4},su_slab={n1s},"
+          f"dense_verify={n6},paged_attn={n3},copy_append={n4c},"
+          f"dense_attn={n2},su_dense={n1},quant={n_q}",
+          plain_quantizer_calls_in_verify=n_plain_q,
           per_step=f"{n5 / steps:g},{n4 / steps:g},{n1s / steps:g}",
           proposed=int(st["proposed_tokens"]),
           accepted=int(st["accepted_tokens"]),
@@ -1516,8 +1673,8 @@ def phase_mla_kernels():
     from repro_torch.kernels import ref as R
     m = MLA
     kw = dict(scale=_mla_scale(), v_width=m["dv"])
-    errs = dict(e2=0.0, e3=0.0, e5=0.0, e6=0.0)
-    cases = 0
+    errs = dict(e2=0.0, e3=0.0, e5=0.0, e6=0.0, apq_mla=0.0)
+    cases = quant_cases = 0
     for i, lengths in enumerate(MLA_LENGTHS):
         q_all, C, bt, lens = _mla_pool(lengths, seed=110 + i)
         group = (1 + i) % m["n_stack"]
@@ -1583,16 +1740,28 @@ def phase_mla_kernels():
                   "differs from the plain version")
             check(torch.equal(a[keep], b0[keep]), f"latent append "
                   f"{lengths}: pool {j} changed outside the appended slots")
+        n, err = _hold_append_quant([C], bt, group, lengths, 7 + i,
+                                    "fused latent append")
+        quant_cases, errs["apq_mla"] = quant_cases + n, max(
+            errs["apq_mla"], float(err))
     phase(15, "MLA mode of kernels 2, 3, 5, 6 vs plain, full width",
           B=m["B"], H=m["H"], dk=m["dk"], dv=m["dv"], n_stack=m["n_stack"],
           lengths=list(MLA_LENGTHS), Kq="1,2,4", cases=cases,
-          max_abs_err=",".join(f"{k}={v:.3g}" for k, v in errs.items()),
+          max_abs_err=",".join(f"{k}={v:.3g}" for k, v in errs.items()
+                               if k != "apq_mla"),
           tol="rtol2e-4,atol2e-5", paged_vs_dense="bitwise",
           row_j_vs_decode="bitwise", Kq1_vs_decode="bitwise")
     _mla_subnormal_check(kw)
     phase(15, "mx_paged_kv_append latent-only vs plain", pools=3,
           widths=f"{m['dk']},{m['dk'] // 16},{m['dk'] // 16}",
           result="bitwise", untouched_bytes="unchanged")
+    phase(15, "mx_paged_kv_append_quant latent-only vs plain and vs the "
+          "replaced path (eager quantize + copy kernel)", streams=1, pools=3,
+          d=m["dk"], lengths=list(MLA_LENGTHS),
+          magnitudes=",".join(f"{x:g}" for x in APPEND_MAGS),
+          roundings="nearest,stochastic", cases=quant_cases,
+          fields="mantissa,exponent,micro", result="bitwise",
+          max_abs_err=f"{errs['apq_mla']:g}", untouched_bytes="unchanged")
     return errs
 
 
@@ -1740,6 +1909,16 @@ def phase_mla_timing():
         phase(16, "MLA lengths", n_q=n_q, lengths=lengths,
               per_row_positions=row_pos, flops_per_launch=flops)
         del dense, kfs, lib, C
+
+    # -- the fused latent append at the decode lengths, over the 3 MoE
+    # groups' latent pages
+    _, C, bt, lens = _mla_pool(base, seed=150)
+    plan = OPS.registry.plan("kv_append", dict(B=m["B"], T=1, KVH=1,
+                                               dk=m["dk"], dv=0, n=1),
+                             OPS.StateQuantConfig(), "cuda", layout="paged")
+    name = "mx_paged_kv_append[quant,mla]"
+    out[name] = _time_append_quant([C], bt, lens, m["n_stack"], name,
+                                   OPS.traffic(plan).total, n=16)
     return out
 
 
@@ -1784,8 +1963,10 @@ def phase_deepseek(cfg, params):
     with preemption (18; paged logits bitwise the dense-gather path's on a
     fresh pool first) and the paged pool with n-gram speculation (19).
     Every decode step must launch the MLA kernel of its path once per
-    layer (4) and no GQA attention or state-update kernel; every request's
-    prefill kernel 7 once per layer (one latent stream each)."""
+    layer (4), the paged paths the fused latent append once per layer and
+    position (4, 16), and no GQA attention or state-update kernel, no copy
+    append and no plain MX8 quantizer; every request's prefill kernel 7
+    once per layer (one latent stream each)."""
     import numpy as np
     from repro_torch.models import model as M
     from repro_torch.serving.api import Engine, ServeConfig
@@ -1809,8 +1990,9 @@ def phase_deepseek(cfg, params):
     shape = _paged_vs_gather(eng, cfg, rng)
     phase(18, "deepseek paged vs gather logits, fresh pool", steps=4,
           logits=tuple(shape), result="bit-identical")
-    paged = _serve_counted(eng, cfg, prompts, DS_MAX_NEW, dict(k3=L, k4=L),
-                           _k7_per_prefill(cfg), "deepseek paged")
+    paged = _serve_counted(eng, cfg, prompts, DS_MAX_NEW,
+                           dict(k3=L, k4q_mla=L), _k7_per_prefill(cfg),
+                           "deepseek paged")
     st = paged["stats"]
     check(st["preemptions"] >= 1, f"deepseek: no preemption with {DS_PAGED}")
     pool = eng.engine.pool
@@ -1824,7 +2006,7 @@ def phase_deepseek(cfg, params):
     eng = Engine(params, cfg, ServeConfig(**DS_PAGED, spec="ngram",
                                           spec_k=SPEC_K))
     spec = _serve_counted(eng, cfg, prompts, DS_MAX_NEW,
-                          dict(k5=L, k4=L * KQ), _k7_per_prefill(cfg),
+                          dict(k5=L, k4q_mla=L * KQ), _k7_per_prefill(cfg),
                           "deepseek paged + ngram")
     st = spec["stats"]
     agree, first = _agreement(paged["outputs"], spec["outputs"])
@@ -2013,6 +2195,37 @@ def phase_gla_timing():
     return out
 
 
+#: calls of ``F.mx8_quantize`` on a CUDA tensor made inside the served
+#: model's paged decode and verify steps, counted by the wrappers that
+#: :func:`_watch_plain_quantizer` installs (``depth`` > 0 inside a step)
+PLAIN_QUANT = dict(depth=0, calls=0)
+
+
+def _watch_plain_quantizer():
+    """Wrap ``F.mx8_quantize`` (which ``F.quantize`` calls) to count its
+    calls on CUDA tensors inside ``M.paged_decode_step`` and
+    ``M.paged_spec_decode_step``, the steps the paged pool runs: on the
+    card every quantize there belongs in a kernel.  This script's own
+    checks call the plain quantizer outside those steps, uncounted."""
+    from repro_torch.core import formats as F
+    from repro_torch.models import model as M
+    quantize = F.mx8_quantize
+
+    def counted(x, *args, **kwargs):
+        if PLAIN_QUANT["depth"] and x.is_cuda:
+            PLAIN_QUANT["calls"] += 1
+        return quantize(x, *args, **kwargs)
+    F.mx8_quantize = counted
+    for name in ("paged_decode_step", "paged_spec_decode_step"):
+        def inside(*args, _step=getattr(M, name), **kwargs):
+            PLAIN_QUANT["depth"] += 1
+            try:
+                return _step(*args, **kwargs)
+            finally:
+                PLAIN_QUANT["depth"] -= 1
+        setattr(M, name, inside)
+
+
 def _k7_per_prefill(cfg):
     """Kernel 7's launches in one request's prefill: one per recurrent
     state, two (K and V) per attention application, one per MLA latent
@@ -2034,6 +2247,8 @@ def _counter_attrs():
         out[k] = (fn, "mla_launches")
         out[f"{k}_gqa"] = (fn, "launches")
     out["k4"] = (KP.mx_paged_kv_append, "launches")
+    out["k4q"] = (KP.mx_paged_kv_append_quant, "launches")
+    out["k4q_mla"] = (KP.mx_paged_kv_append_quant, "mla_launches")
     out["k1"] = (KS.mx_state_update, "launches")
     out["k1s"] = (KS.mx_state_update, "slab_launches")
     out["k7"] = (K7.mx_quantize, "launches")
@@ -2053,16 +2268,22 @@ def _serve_counted(eng, cfg, prompts, max_new, want, per_prefill, label):
     """Serve ``prompts`` with every launch counter reset just before and
     read just after; ``want`` maps counter -> launches per decode step,
     ``per_prefill`` is kernel 7's launches per request prefill; every other
-    counter must stay 0."""
+    counter must stay 0, and so must the plain MX8 quantizer's calls on the
+    card inside paged decode and verify steps."""
     import torch
     torch.cuda.reset_peak_memory_stats()
     _counts_reset()
+    PLAIN_QUANT["calls"] = 0
     t1 = time.perf_counter()
     handles = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     n = _counts()
+    n_plain_q = PLAIN_QUANT["calls"]
+    check(n_plain_q == 0, f"{label}: the plain MX8 quantizer ran "
+          f"{n_plain_q} times on the card inside paged decode or verify "
+          "steps")
     steps = eng.engine.step_count
     for h in handles:
         check(h.status == "done" and len(h.output) == max_new,
@@ -2077,7 +2298,8 @@ def _serve_counted(eng, cfg, prompts, max_new, want, per_prefill, label):
     # outputs, not the handles: a handle keeps its engine (and the model's
     # weights) alive
     return dict(outputs=[h.output for h in handles], n=n, steps=steps,
-                wall=wall, stats=st, peak=torch.cuda.max_memory_allocated())
+                wall=wall, stats=st, peak=torch.cuda.max_memory_allocated(),
+                plain_quant=n_plain_q)
 
 
 def _fields(r):
@@ -2086,7 +2308,9 @@ def _fields(r):
     return dict(requests=len(r["outputs"]), steps=r["steps"],
                 launches_per_step=",".join(f"{k}={v:g}"
                                            for k, v in per.items()),
-                k7_launches=r["n"]["k7"], wall_s=f"{r['wall']:.3f}",
+                k7_launches=r["n"]["k7"],
+                plain_quantizer_calls_in_paged_steps=r["plain_quant"],
+                wall_s=f"{r['wall']:.3f}",
                 **_step_fields(st), peak_mem_GB=f"{r['peak'] / 1e9:.2f}")
 
 
@@ -2426,16 +2650,19 @@ def main():
         return 1
     try:
         smi = phase_device()
+        _watch_plain_quantizer()
         phase_build()
         phase_exact_pow2()
         errs = dict(su=phase_state_update(), at=phase_attention())
-        errs.update(zip(("pa", "ap", "su_slab"), phase_paged_kernels()))
+        errs.update(zip(("pa", "ap", "apq", "su_slab"),
+                        phase_paged_kernels()))
         errs.update(zip(("sv_paged", "sv_dense"), phase_spec_kernels()))
         errs["k7"] = phase_quant()
         errs.update({f"su_{a}": e
                      for a, e in phase_gla_state_update().items()})
         times = dict(zip(("su", "at"), phase_timing()))
-        times.update(zip(("pa", "ap", "su_slab"), phase_paged_timing()))
+        times.update(zip(("pa", "ap", "apq", "su_slab"),
+                         phase_paged_timing()))
         times.update(zip(("sv_paged", "sv_dense"), phase_spec_timing()))
         times.update(phase_gla_timing())
         cfg, params, init_s = _model()
@@ -2478,9 +2705,11 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla):
     GLA family's; kernels 2, 3, 5 and 6: GQA mode on zamba2's paths, MLA
     mode on deepseek's; kernel 7 on gla's slot path); ``launches`` counts
     each one's own main path (the verify kernels: the speculative path,
-    where kernel 6, the dense-cache twin, has no launch), ``max_abs_err``
-    is each one's measured difference from its plain version (``y`` for
-    the state update, bytes for the append and the quantizer)."""
+    where kernel 6, the dense-cache twin, has no launch; kernel 4: the
+    fused quantize-and-append on the paged paths, the copy on none),
+    ``max_abs_err`` is each one's measured difference from its plain
+    version (``y`` for the state update, bytes for the appends and the
+    quantizer)."""
     su_src = "src/repro_torch/csrc/mx_state_update.cu"
     su_tpu = "src/repro/kernels/mx_state_update.py:104"
     pa_src = "src/repro_torch/csrc/mx_paged_attention.cu"
@@ -2499,6 +2728,10 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla):
         dict(name="mx_paged_kv_append", route="cuda", source=pa_src,
              replaces="src/repro/kernels/mx_paged_attention.py:199",
              launches=paged["n_ap"], max_abs_err=errs["ap"], **times["ap"]),
+        dict(name="mx_paged_kv_append[quant]", route="cuda", source=pa_src,
+             replaces="src/repro/kernels/mx_paged_attention.py:199",
+             launches=paged["n_apq"], max_abs_err=errs["apq"],
+             **times["apq"]),
         dict(name="mx_state_update[slab]", route="cuda", source=su_src,
              replaces=su_tpu, launches=paged["n_su"],
              max_abs_err=errs["su_slab"], **times["su_slab"]),
@@ -2521,6 +2754,12 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla):
              replaces="src/repro/kernels/mx_paged_attention.py:108",
              launches=ds["paged"]["n"]["k3"], max_abs_err=errs["e3"],
              **times["mx_paged_attention_decode[mla]"]),
+        dict(name="mx_paged_kv_append[quant,mla]", route="cuda",
+             source=pa_src,
+             replaces="src/repro/kernels/mx_paged_attention.py:199",
+             launches=ds["paged"]["n"]["k4q_mla"],
+             max_abs_err=errs["apq_mla"],
+             **times["mx_paged_kv_append[quant,mla]"]),
         dict(name="mx_paged_spec_attention_decode[mla]", route="cuda",
              source=sv_src,
              replaces="src/repro/kernels/mx_spec_attention.py:193",

@@ -12,7 +12,12 @@ gathered pages.
 ``mx_paged_kv_append`` replaces
 ``repro/kernels/mx_paged_attention.py::mx_paged_kv_append``: one launch
 writes one token's quantized payload rows into their page slots of every
-payload pool, in place.
+payload pool, in place.  ``mx_paged_kv_append_quant`` is that kernel
+designed for the card, the one the ``cuda`` backend's paged ``kv_append``
+launches: it takes the token's fp32 rows and one launch quantizes them
+(MX8, the SR bits of ``sr_bits((B, 1, KVH, w), seed + i)`` for stream
+``i``) straight into the slots -- byte for byte the eager quantize
+followed by the copy.
 
 MLA mode (``v_pool=None``, ``v_width``) is the dense MLA kernel's split
 loop over the latent pages, split ``s`` of row ``b`` being half ``s % 2`` of
@@ -21,7 +26,8 @@ append is one launch over the stream's three payload pools.
 
 Each wrapper takes its plain version (:mod:`repro_torch.kernels.ref`) only
 for tensors on the CPU; for CUDA tensors it launches the kernel of its mode
-or raises.  ``launches`` counts GQA launches, ``mla_launches`` MLA ones.
+or raises.  ``launches`` counts GQA launches, ``mla_launches`` MLA ones
+(for the fused append: one stream, an MLA latent).
 """
 from __future__ import annotations
 
@@ -39,10 +45,12 @@ from repro_torch.kernels.mx_attention import (_aligned, mla_checked,
 
 SOURCE = "mx_paged_attention"
 MAX_POOLS = 8
+MAX_STREAMS = 2                         # K and V; an MLA latent is one
 
 #: plain versions of the same functions (the oracles)
 plain = _ref.mx_paged_attention_decode_ref
 plain_append = _ref.paged_kv_append_ref
+plain_append_quant = _ref.paged_kv_append_quant_ref
 
 _ATTN_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
@@ -50,6 +58,9 @@ _MLA_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 _APPEND_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
     ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_APPEND_QUANT_ARGTYPES = _APPEND_ARGTYPES[:-1] + [ctypes.c_uint32,
+                                                  ctypes.c_int,
+                                                  ctypes.c_void_p]
 
 
 def _check_pool(qt: F.QuantizedTensor, name: str) -> tuple:
@@ -234,7 +245,84 @@ def mx_paged_kv_append(pools: Sequence[torch.Tensor],
     return pools
 
 
+def mx_paged_kv_append_quant(streams: Sequence[torch.Tensor],
+                             pools: Sequence[F.QuantizedTensor],
+                             bt: torch.Tensor, group: int,
+                             lengths: torch.Tensor, seed: int = 0, *,
+                             rounding: str = "stochastic"
+                             ) -> Sequence[F.QuantizedTensor]:
+    """Quantize each new token's fp32 row ``streams[i] (B, 1, KVH, w)`` to
+    MX8 (SR seed ``seed + i``) into its page slot
+    ``pools[i][bt[b, len//128], group, len%128]`` of the MX8 page pool
+    ``(P, n_stack, 128, KVH, w)``, in place; returns the pools.  K and V
+    are two streams, an MLA latent one.  A slot outside its block table is
+    a fault, as for :func:`mx_paged_kv_append`."""
+    streams, pools = list(streams), list(pools)
+    if not streams or len(streams) != len(pools) or \
+            len(streams) > MAX_STREAMS:
+        raise ValueError(f"{len(streams)} streams / {len(pools)} pools: "
+                         f"expected 1..{MAX_STREAMS} of each, paired")
+    if rounding not in F.ROUNDINGS:
+        raise ValueError(f"unknown rounding {rounding!r}")
+    dev = streams[0].device
+    B = bt.shape[0]
+    first = None
+    for i, (x, pool) in enumerate(zip(streams, pools)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"stream {i} must be float32, got {x.dtype}")
+        if not isinstance(pool, F.QuantizedTensor):
+            raise ValueError(f"pool {i} must be an mx8 QuantizedTensor, "
+                             f"got {type(pool).__name__}")
+        P, n_stack, KVH, w = _check_pool(pool, f"stream {i}")
+        first = first or (P, n_stack, KVH)
+        if (P, n_stack, KVH) != first or tuple(x.shape) != (B, 1, KVH, w) \
+                or x.device != dev or pool.device != dev:
+            raise ValueError(f"stream {i} {tuple(x.shape)} on {x.device} "
+                             f"does not fit its pool "
+                             f"{tuple(pool.payload['mantissa'].shape)} on "
+                             f"{pool.device} (want ({B}, 1, {KVH}, {w}) on "
+                             f"{dev}, pools alike)")
+    if not 0 <= int(group) < n_stack:
+        raise ValueError(f"group {group} outside the pool's {n_stack}")
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths {tuple(lengths.shape)} do not fit batch "
+                         f"{B}")
+    seed = int(seed) & 0xFFFFFFFF
+    if dev.type == "cpu":
+        return plain_append_quant(streams, pools, bt, group, lengths, seed,
+                                  rounding)
+    if dev.type != "cuda":
+        raise ValueError(f"mx_paged_kv_append_quant: unsupported device "
+                         f"{dev}")
+    bt_ = _index(bt, dev, "bt")
+    lens = _index(lengths, dev, "lengths")
+    xs = []
+    for x in streams:
+        xc = x.contiguous()
+        xs.append(xc.clone() if xc.data_ptr() % 16 else xc)  # float4 loads
+    n = len(streams)
+    xptrs = (ctypes.c_ulonglong * n)(*[x.data_ptr() for x in xs])
+    pptrs = (ctypes.c_ulonglong * (3 * n))(*[
+        p.payload[f].data_ptr() for p in pools
+        for f in ("mantissa", "exponent", "micro")])
+    widths = (ctypes.c_int * n)(*[int(x.shape[-1]) for x in xs])
+    fn = _build.entry(SOURCE, "mx_paged_kv_append_quant_launch",
+                      _APPEND_QUANT_ARGTYPES)
+    err = fn(xptrs, pptrs, widths, n, bt_.data_ptr(), lens.data_ptr(), B,
+             int(bt_.shape[1]), P, n_stack, int(group), KVH, seed,
+             int(rounding == "stochastic"),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "mx_paged_kv_append_quant")
+    if n == 1:
+        mx_paged_kv_append_quant.mla_launches += 1
+    else:
+        mx_paged_kv_append_quant.launches += 1
+    return pools
+
+
 #: launches of the CUDA kernels since the counts were last reset
 mx_paged_attention_decode.launches = 0
 mx_paged_attention_decode.mla_launches = 0
 mx_paged_kv_append.launches = 0
+mx_paged_kv_append_quant.launches = 0
+mx_paged_kv_append_quant.mla_launches = 0

@@ -379,6 +379,26 @@ def paged_kv_append_ref(pools, rows, bt: torch.Tensor, group: int,
     return pools
 
 
+def paged_kv_append_quant_ref(streams, pools, bt: torch.Tensor, group: int,
+                              lengths: torch.Tensor, seed: int = 0,
+                              rounding: str = "stochastic"):
+    """Quantize each new token's fp32 row ``streams[i] (B, 1, KVH, w)`` to
+    MX8 with SR bits ``sr_bits((B, 1, KVH, w), seed + i)`` and write its
+    payload into its page slot of ``pools[i]`` (an MX8 page pool), in
+    place: K is stream 0 and V stream 1, an MLA latent the one stream.
+    Returns the pools."""
+    rows, dst = [], []
+    for i, (x, pool) in enumerate(zip(streams, pools)):
+        bits = (F.sr_bits(x.shape, (int(seed) + i) & 0xFFFFFFFF,
+                          device=x.device)
+                if rounding == "stochastic" else None)
+        q = F.mx8_quantize(x, rounding, bits)
+        rows += [q.payload[f][:, 0] for f in sorted(q.payload)]
+        dst += [pool.payload[f] for f in sorted(pool.payload)]
+    paged_kv_append_ref(dst, rows, bt, group, lengths)
+    return pools
+
+
 def state_update_slab_ref(pool, slabs: torch.Tensor, group: int, d, k, v, q,
                           *, rounding: str = "stochastic", seed: int = 0):
     """The state update on slab rows ``pool[slabs, group]``, written back in

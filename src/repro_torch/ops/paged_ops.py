@@ -13,10 +13,11 @@ serving pool's page / slab pools plus the step's block table -- in place:
                  construction.
 ``kv_append``    quantizes the new token's rows with the dense op's bits
                  (same shape and seeds ``seed`` / ``seed + 1``) and writes
-                 them into their page slot: the append kernel (``cuda``,
-                 mx8, one launch for all payload pools -- six for K and V,
-                 three for an MLA latent stream) or a one-slot indexed
-                 write (``torch``).
+                 them into their page slot: ``cuda`` (mx8), the fused
+                 quantize-and-append kernel, one launch from the fp32 rows
+                 to every payload pool (six for K and V, three for an MLA
+                 latent stream); ``torch``, the eager quantize and a
+                 one-slot indexed write.
 ``state_update`` the slab rows ``pool[slabs, group]``: the fused kernel in
                  slab mode (``cuda``, mx8, in place) or the dense plain op
                  on the gathered rows, written back (``torch``).
@@ -39,7 +40,7 @@ from repro_torch.core.paged import (PAGE_TOKENS, PagedKVCache, PagedState,
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.mx_paged_attention import (
     mx_paged_attention_decode as _paged_attn_cuda,
-    mx_paged_kv_append as _paged_append_cuda)
+    mx_paged_kv_append_quant as _paged_append_quant_cuda)
 from repro_torch.kernels.mx_state_update import mx_state_update as _su_cuda
 from repro_torch.ops import registry
 from repro_torch.ops.attention import _cache_row_vals
@@ -142,15 +143,47 @@ class _PagedKVAppendBase(SpuOp):
                             operand_read=vals * OPERAND_BYTES + bt_bytes)
 
     @staticmethod
+    def _new_rows(inputs: Dict[str, Any]):
+        """The new token's K and V rows (V None for an MLA latent stream)
+        and the seed, after the one-token check."""
+        k_new, v_new = inputs["k"], inputs.get("v")
+        if k_new.shape[1] != 1:
+            raise ValueError(f"the paged kv_append writes one token per "
+                             f"step, got n={k_new.shape[1]}")
+        return k_new, v_new, int(inputs.get("seed", 0)) & _U32
+
+
+@registry.register
+class PagedKVAppendCuda(_PagedKVAppendBase):
+    """One fused launch quantizes the fp32 rows into every payload pool's
+    slot (K seed ``seed``, V ``seed + 1``)."""
+    backend = "cuda"
+    formats = ("mx8",)
+
+    def execute(self, cache: PagedKVCache, inputs: Dict[str, Any],
+                plan: OpPlan) -> Tuple[PagedKVCache, None]:
+        k_new, v_new, seed = self._new_rows(inputs)
+        streams, pools = [k_new.to(torch.float32)], [cache.k]
+        if v_new is not None:           # an MLA latent stream has no V
+            streams.append(v_new.to(torch.float32))
+            pools.append(cache.v)
+        _paged_append_quant_cuda(streams, pools, cache.bt, cache.group,
+                                 cache.lengths, seed, rounding=plan.rounding)
+        return dataclasses.replace(cache, lengths=cache.lengths + 1), None
+
+
+@registry.register
+class PagedKVAppendTorch(_PagedKVAppendBase):
+    """The eager quantize, then a one-slot indexed write into the page that
+    owns position ``lengths``."""
+    backend = "torch"
+
+    @staticmethod
     def _quant_rows(cache: PagedKVCache, new: torch.Tensor, plan: OpPlan,
                     seed: int) -> Tuple[torch.Tensor, ...]:
         """(B, 1, KVH, d) -> payload rows ((B, KVH, w), ...), sorted by
         field, bit-identical to what the dense append stores for the same
-        (shape, seed).  The quantize is plain PyTorch, as it is outside the
-        TPU kernel."""
-        if new.shape[1] != 1:
-            raise ValueError(f"the paged kv_append writes one token per "
-                             f"step, got n={new.shape[1]}")
+        (shape, seed)."""
         if not isinstance(cache.k, F.QuantizedTensor):
             return (new[:, 0],)
         bits = (F.sr_bits(new.shape, seed, device=new.device)
@@ -166,38 +199,15 @@ class _PagedKVAppendBase(SpuOp):
 
     def execute(self, cache: PagedKVCache, inputs: Dict[str, Any],
                 plan: OpPlan) -> Tuple[PagedKVCache, None]:
-        seed = int(inputs.get("seed", 0)) & _U32
-        k_new, v_new = inputs["k"], inputs.get("v")
+        k_new, v_new, seed = self._new_rows(inputs)
         rows = self._quant_rows(cache, k_new, plan, seed)
         pools = self._pools_of(cache.k)
         if v_new is not None:           # an MLA latent stream has no V
             rows += self._quant_rows(cache, v_new, plan, (seed + 1) & _U32)
             pools += self._pools_of(cache.v)
-        self._write(pools, rows, cache)
-        return dataclasses.replace(cache, lengths=cache.lengths + 1), None
-
-    def _write(self, pools, rows, cache: PagedKVCache) -> None:
-        raise NotImplementedError
-
-
-@registry.register
-class PagedKVAppendCuda(_PagedKVAppendBase):
-    """One append-kernel launch writes every payload pool's slot."""
-    backend = "cuda"
-    formats = ("mx8",)
-
-    def _write(self, pools, rows, cache: PagedKVCache) -> None:
-        _paged_append_cuda(pools, rows, cache.bt, cache.group, cache.lengths)
-
-
-@registry.register
-class PagedKVAppendTorch(_PagedKVAppendBase):
-    """One-slot indexed write into the page that owns position ``lengths``."""
-    backend = "torch"
-
-    def _write(self, pools, rows, cache: PagedKVCache) -> None:
         _ref.paged_kv_append_ref(pools, rows, cache.bt, cache.group,
                                  cache.lengths)
+        return dataclasses.replace(cache, lengths=cache.lengths + 1), None
 
 
 # ---------------------------------------------------------------------------

@@ -205,6 +205,156 @@ def test_paged_kv_append_outside_the_table_raises(cuda):
     assert "device-side assert" in out.stderr, out.stderr[-2000:]
 
 
+#: the fused append's value magnitudes: at 1e-37 the groups' scales are
+#: subnormal (the quantizer's two-multiply path), at 1e35 near the top
+APPEND_MAGS = (1.0, 1e-3, 1e-37, 1e35)
+
+
+def _append_quant_case(cuda, KVH, d, n, mag, lens=(0, 127, 128, 1000)):
+    """MX8 page pools (one per stream), shuffled pages whose slots straddle
+    page ends, and the new token's fp32 rows (4, 1, KVH, d) at ``mag``."""
+    _, K, V, bt, lengths = _paged_kv(cuda, lens, 9, KVH, d, KVH, seed=d + n)
+    g = torch.Generator(device=cuda).manual_seed(d)
+    rows = [torch.randn((len(lens), 1, KVH, d), generator=g, device=cuda)
+            * mag for _ in range(n)]
+    rows[0].view(-1, 16)[::5] = 0.0               # zero groups: micro 0
+    return [K, V][:n], rows, bt, lengths
+
+
+def _eager_append(pools, rows, bt, group, lengths, seed, rounding):
+    """The path the fused launch replaced: each stream quantized eagerly
+    (``sr_bits`` + ``F.quantize``, seed + i), then the copy kernel."""
+    from repro_torch.kernels import mx_paged_attention as KP
+    payload, dst = [], []
+    for i, (x, pool) in enumerate(zip(rows, pools)):
+        bits = (F.sr_bits(x.shape, (seed + i) & 0xFFFFFFFF, device=x.device)
+                if rounding == "stochastic" else None)
+        q = F.quantize(x, "mx8", rounding, bits)
+        payload += [q.payload[f][:, 0] for f in sorted(q.payload)]
+        dst += [pool.payload[f] for f in sorted(pool.payload)]
+    KP.mx_paged_kv_append(dst, payload, bt, group, lengths)
+
+
+@pytest.mark.parametrize("mag", APPEND_MAGS)
+@pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
+@pytest.mark.parametrize("KVH,d,n", [(32, 80, 2), (1, 576, 1)])
+def test_paged_kv_append_quant_kernel_bitwise(cuda, KVH, d, n, rounding,
+                                              mag):
+    """The fused quantize-and-append at zamba2-2.7b's K and V (six pools)
+    and deepseek-v2-236b's latent (three): mantissa, exponent and micro
+    bitwise its plain version and the eager quantize + copy it replaced,
+    every byte outside the appended slots unchanged, one launch."""
+    from repro_torch.kernels import mx_paged_attention as KP
+    pools, rows, bt, lengths = _append_quant_case(cuda, KVH, d, n, mag)
+    before = [p.clone() for p in pools]
+    plain = [p.clone() for p in pools]
+    eager = [p.clone() for p in pools]
+    seed = 0xFFFFFFFF
+    counts = (KP.mx_paged_kv_append_quant.launches,
+              KP.mx_paged_kv_append_quant.mla_launches)
+    KP.mx_paged_kv_append_quant(rows, pools, bt, 7, lengths, seed,
+                                rounding=rounding)
+    KP.plain_append_quant(rows, plain, bt, 7, lengths, seed, rounding)
+    _eager_append(eager, rows, bt, 7, lengths, seed, rounding)
+    torch.cuda.synchronize()
+    assert (KP.mx_paged_kv_append_quant.launches,
+            KP.mx_paged_kv_append_quant.mla_launches) == (
+        counts[0] + (n == 2), counts[1] + (n == 1))
+    keep = torch.ones(pools[0].payload["mantissa"].shape[:3],
+                      dtype=torch.bool, device=cuda)
+    for b, n_b in enumerate(lengths.tolist()):
+        keep[bt[b, n_b // 128], 7, n_b % 128] = False
+    for a, p, e, b0 in zip(pools, plain, eager, before):
+        for f in ("mantissa", "exponent", "micro"):
+            assert torch.equal(a.payload[f], p.payload[f]), f
+            assert torch.equal(a.payload[f], e.payload[f]), f
+            assert torch.equal(a.payload[f][keep], b0.payload[f][keep]), f
+
+
+def test_paged_kv_append_quant_takes_unaligned_rows(cuda):
+    """A stream that does not start on 16 bytes (a strided view's offset)
+    is copied before the float4 loads: the same bytes as aligned rows."""
+    from repro_torch.kernels import mx_paged_attention as KP
+    pools, rows, bt, lengths = _append_quant_case(cuda, 32, 80, 2, 1.0)
+    other = [p.clone() for p in pools]
+    base = torch.empty(rows[0].numel() + 1, device=cuda)
+    shifted = base[1:].view(rows[0].shape)
+    shifted.copy_(rows[0])
+    assert shifted.data_ptr() % 16
+    KP.mx_paged_kv_append_quant([shifted, rows[1]], pools, bt, 3, lengths, 5)
+    KP.mx_paged_kv_append_quant(rows, other, bt, 3, lengths, 5)
+    torch.cuda.synchronize()
+    for a, b in zip(pools, other):
+        for f in a.payload:
+            assert torch.equal(a.payload[f], b.payload[f]), f
+
+
+@pytest.mark.parametrize("KVH,d,n", [(32, 80, 2), (1, 576, 1)])
+def test_paged_kv_append_quant_replays_in_a_cuda_graph_bitwise(cuda, KVH, d,
+                                                               n):
+    """20 CUDA-graph replays of the fused append, each from the same pools,
+    give the eager launch's bytes."""
+    from repro_torch.kernels import mx_paged_attention as KP
+    start, rows, bt, lengths = _append_quant_case(cuda, KVH, d, n, 1.0)
+    eager = [p.clone() for p in start]
+    KP.mx_paged_kv_append_quant(rows, eager, bt, 2, lengths, 41)
+    pools = [p.clone() for p in start]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        KP.mx_paged_kv_append_quant(rows, pools, bt, 2, lengths, 41)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        KP.mx_paged_kv_append_quant(rows, pools, bt, 2, lengths, 41)
+    for i in range(20):
+        for p, s0 in zip(pools, start):
+            for f, a in p.payload.items():
+                a.copy_(s0.payload[f])
+        graph.replay()
+        torch.cuda.synchronize()
+        for p, e in zip(pools, eager):
+            for f, a in p.payload.items():
+                assert torch.equal(a, e.payload[f]), (f, i)
+
+
+_APPEND_QUANT_OUTSIDE_TABLE = """
+import torch
+from repro_torch.core import formats as F
+from repro_torch.kernels import mx_paged_attention as KP
+pool = F.mx8_quantize(torch.zeros((3, 1, 128, 2, 16), device="cuda"))
+rows = [torch.ones((1, 1, 2, 16), device="cuda")]
+bt = torch.tensor([[1]], dtype=torch.int32, device="cuda")
+lengths = torch.tensor([128], dtype=torch.int32, device="cuda")
+try:
+    KP.plain_append_quant([r.cpu() for r in rows],
+                          [F.mx8_quantize(torch.zeros((3, 1, 128, 2, 16)))],
+                          bt.cpu(), 0, lengths.cpu())
+except IndexError:
+    print("plain: IndexError", flush=True)
+KP.mx_paged_kv_append_quant(rows, [pool], bt, 0, lengths)
+torch.cuda.synchronize()
+print("kernel: no error", flush=True)
+"""
+
+
+def test_paged_kv_append_quant_outside_the_table_raises(cuda):
+    """A slot past the block table: the plain version raises IndexError,
+    the fused kernel fails its device-side assert (in a child process, as
+    for the copy kernel)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    out = subprocess.run([sys.executable, "-c", _APPEND_QUANT_OUTSIDE_TABLE],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert "plain: IndexError" in out.stdout
+    assert out.returncode != 0 and "kernel: no error" not in out.stdout
+    assert "device-side assert" in out.stderr, out.stderr[-2000:]
+
+
 @pytest.mark.parametrize("B,H,dk,dv", [(4, 80, 64, 64), (4, 80, 128, 64)]
                          + GLA_SU)
 @pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
@@ -345,7 +495,8 @@ def test_paged_smoke_engine_launches_each_kernel_per_layer(cuda):
     hs = [eng.submit(rng.integers(0, cfg.vocab_size, n), max_new_tokens=5)
           for n in (9, 140, 17)]
     counters = (KS.mx_state_update, KP.mx_paged_attention_decode,
-                KP.mx_paged_kv_append, KA.mx_attention_decode)
+                KP.mx_paged_kv_append_quant, KP.mx_paged_kv_append,
+                KA.mx_attention_decode)
     for c in counters:
         c.launches = 0
     KS.mx_state_update.slab_launches = 0
@@ -354,8 +505,9 @@ def test_paged_smoke_engine_launches_each_kernel_per_layer(cuda):
     assert all(h.status == "done" and len(h.output) == 5 for h in hs)
     n_m2 = cfg.pattern.count("mamba2") * cfg.n_groups
     assert KS.mx_state_update.slab_launches == n_m2 * steps
+    # the fused quantize-and-append, never the copy kernel
     assert [c.launches for c in counters] == [
-        0, cfg.n_groups * steps, cfg.n_groups * steps, 0]
+        0, cfg.n_groups * steps, cfg.n_groups * steps, 0, 0]
 
 
 def test_smoke_engine_launches_each_kernel_per_layer(cuda):
@@ -677,7 +829,8 @@ def test_smoke_ngram_spec_greedy_equals_plain_on_card(cuda, arch):
         hs = [eng.submit(p, max_new_tokens=12) for p in prompts]
         if spec is not None:
             counters = (KV.mx_paged_spec_attention_decode,
-                        KP.mx_paged_attention_decode, KP.mx_paged_kv_append)
+                        KP.mx_paged_attention_decode,
+                        KP.mx_paged_kv_append_quant, KP.mx_paged_kv_append)
             for c in counters:
                 c.launches = 0
             KS.mx_state_update.slab_launches = 0
@@ -690,7 +843,7 @@ def test_smoke_ngram_spec_greedy_equals_plain_on_card(cuda, arch):
     n_rec = sum(cfg.pattern.count(k) for k in ("mamba2", "gla", "retnet",
                                                 "hgrn2")) * cfg.n_groups
     assert [c.launches for c in counters] == [n_attn * steps, 0,
-                                              4 * n_attn * steps]
+                                              4 * n_attn * steps, 0]
     assert KS.mx_state_update.slab_launches == 4 * n_rec * steps
     assert outs[1] == outs[0]
     assert eng.stats()["proposed_tokens"] > 0

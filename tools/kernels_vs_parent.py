@@ -28,6 +28,12 @@ separated; default ``mla,k1,k7``):
   magnitudes 1, 1e-3, 1e-37 (subnormal scales) and 1e35;
 * ``k7``: kernel 7, the MX8 quantizer, at the served prefill shapes and
   the JAX kernel test's, both roundings;
+* ``k4``: kernel 4, this checkout's fused quantize-and-append against the
+  other checkout's append path (the eager quantize, ``F.sr_bits`` +
+  ``F.quantize`` with seeds seed / seed + 1, then its copy kernel
+  ``mx_paged_kv_append_launch``) at zamba2-2.7b's K and V and
+  deepseek-v2-236b's latent, magnitudes 1, 1e-3, 1e-37 and 1e35, both
+  roundings, slots straddling page ends: every pool byte;
 * ``gqa``: kernels 2, 3, 5 and 6 in GQA mode (``csrc/mx_attention_split.cuh``)
   at zamba2-2.7b's and llama3.2-1b's smoke widths, lengths across split
   boundaries.  Their entry points take the split loop's workspace and
@@ -38,8 +44,10 @@ separated; default ``mla,k1,k7``):
 ``--time`` then times kernels 1 and 7 of both checkouts at the shapes of
 ``PERF.md``'s kernel table (kernel 1 at zamba2's and the GLA family's
 heads, dense and slab mode, stochastic rounding; kernel 7 at gla's
-prefill state) and the four MLA modes at deepseek-v2-236b's widths and
-the table's lengths (decode 72, 408, 141, 259; Kq = 4 verify), by
+prefill state), the four MLA modes at deepseek-v2-236b's widths and
+the table's lengths (decode 72, 408, 141, 259; Kq = 4 verify), and
+kernel 4's append (this checkout's fused launch, the other's eager
+quantize + copy) at zamba2's K and V and deepseek's latent, by
 CUDA-graph replay with inputs rotated so that every launch finds them
 cold in the 50 MB L2, in the turns other, this, this, other, and prints
 the card's name and power limit.
@@ -57,9 +65,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))                 # chip_smoke's timing helpers
 
-FAMILIES = ("mla", "k1", "k7", "gqa")
+FAMILIES = ("mla", "k1", "k7", "gqa", "k4")
 _SOURCES = {"mla": ("mx_attention", "mx_paged_attention",
                     "mx_spec_attention"),
+            "k4": ("mx_paged_attention",),
             "gqa": ("mx_attention", "mx_paged_attention",
                     "mx_spec_attention"),
             "k1": ("mx_state_update",), "k7": ("mx_quant",)}
@@ -291,6 +300,91 @@ def _gqa_cases(other) -> bool:
     return ok
 
 
+#: kernel 4's cases: (label, KVH, width, streams)
+K4_CASES = (("zamba2 K and V", 32, 80, 2), ("deepseek latent", 1, 576, 1))
+K4_MAGS = (1.0, 1e-3, 1e-37, 1e35)
+
+
+def _other_append(fn, pools, rows, bt, group, lengths, seed, rounding):
+    """The other checkout's append path: the eager quantize of each stream
+    (seed + i), then its copy kernel over the payload pools."""
+    import torch
+    from repro_torch.core import formats as F
+    payload, dst = [], []
+    for i, (x, pool) in enumerate(zip(rows, pools)):
+        bits = (F.sr_bits(x.shape, (seed + i) & 0xFFFFFFFF, device="cuda")
+                if rounding == "stochastic" else None)
+        q = F.quantize(x, "mx8", rounding, bits)
+        payload += [q.payload[f][:, 0] for f in sorted(q.payload)]
+        dst += [pool.payload[f] for f in sorted(pool.payload)]
+    n = len(dst)
+    B, _, KVH, _ = rows[0].shape
+    P, n_stack = dst[0].shape[:2]
+    return fn((ctypes.c_ulonglong * n)(*[p.data_ptr() for p in dst]),
+              (ctypes.c_ulonglong * n)(*[r.data_ptr() for r in payload]),
+              (ctypes.c_int * n)(*[int(p.shape[-1]) for p in dst]), n,
+              bt.data_ptr(), lengths.data_ptr(), B, bt.shape[1], P, n_stack,
+              group, KVH, torch.cuda.current_stream().cuda_stream)
+
+
+def _append_cases(lib) -> bool:
+    """Kernel 4: this checkout's fused launch against the other checkout's
+    eager quantize + copy kernel, every pool byte."""
+    import torch
+    from repro_torch.kernels import mx_paged_attention as KP
+    fn = _entry(lib, "mx_paged_kv_append_launch", KP._APPEND_ARGTYPES)
+    ok = True
+    lens = (0, 127, 128, 1000)
+    for (label, KVH, d, n), mag in itertools.product(K4_CASES, K4_MAGS):
+        _, K, V, bt, lengths = _pool([x + 1 for x in lens], KVH, d, 3,
+                                     d + n, 1, KVH)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(d)
+        for rounding in ("nearest", "stochastic"):
+            rows = [torch.randn((4, 1, KVH, d), generator=g, device="cuda")
+                    * mag for _ in range(n)]
+            mine = [p.clone() for p in (K, V)[:n]]
+            theirs = [p.clone() for p in (K, V)[:n]]
+            KP.mx_paged_kv_append_quant(rows, mine, bt, 2, lengths,
+                                        0xFFFFFFFF, rounding=rounding)
+            err = _other_append(fn, theirs, rows, bt, 2, lengths,
+                                0xFFFFFFFF, rounding)
+            torch.cuda.synchronize()
+            ok &= _report(f"append {label} (KVH={KVH}, d={d}) magnitude "
+                          f"{mag:g} {rounding}: fused vs eager + copy, "
+                          f"mantissa, exponent, micro per stream",
+                          [(a.payload[f], b.payload[f])
+                           for a, b in zip(mine, theirs)
+                           for f in ("mantissa", "exponent", "micro")],
+                          [err])
+    return ok
+
+
+def _time_append(other) -> None:
+    """Kernel 4's append of both checkouts by CUDA-graph replay over 9
+    layers of pools: this checkout's fused launch, the other's eager
+    quantize + copy kernel."""
+    import torch
+    from repro_torch.kernels import mx_paged_attention as KP
+    fn = _entry(other["mx_paged_attention"], "mx_paged_kv_append_launch",
+                KP._APPEND_ARGTYPES)
+    lens = (76, 412, 145, 263)
+    for label, KVH, d, n in K4_CASES:
+        _, K, V, bt, _ = _pool([x + 1 for x in lens], KVH, d, 9, 5, 1, KVH)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(6)
+        rows = [torch.randn((4, 1, KVH, d), generator=g, device="cuda")
+                for _ in range(n)]
+        pools = [K, V][:n]
+        calls = {"this": [lambda l=l: KP.mx_paged_kv_append_quant(
+                     rows, pools, bt, l, lengths, l) for l in range(9)],
+                 "other": [lambda l=l: _other_append(
+                     fn, pools, rows, bt, l, lengths, l, "stochastic")
+                     for l in range(9)]}
+        _turns(f"kernel 4 append {label} (KVH={KVH}, d={d}) lengths={lens}",
+               calls, 20)
+
+
 #: (B, H, dv, dk): zamba2, mamba2, gla, retnet, hgrn2, then a head of dv
 #: 300 at dk 16 (its last block of rows partial), one of dv 45 at dk 48 and
 #: one of dk 4096
@@ -472,8 +566,10 @@ def _time_mla(other, split_loop: bool) -> None:
 
 
 def _time_cases(other, split_loop: bool) -> None:
-    """Kernels 1 and 7, and the MLA modes, of both checkouts, timed through
-    their C entry points on the same inputs."""
+    """Kernels 1 and 7, the MLA modes and kernel 4's append, of both
+    checkouts, timed on the same inputs (through their C entry points;
+    the append through this checkout's wrapper and the other's eager
+    quantize + copy)."""
     import torch
     from chip_smoke import _rotation
     from repro_torch.core import formats as F
@@ -542,6 +638,7 @@ def _time_cases(other, split_loop: bool) -> None:
            {w: [qcall(f7[w], i) for i in range(n_rot)] for w in f7}, 10)
     del xs, outs
     _time_mla(other, split_loop)
+    _time_append(other)
     torch.cuda.synchronize()
 
 
@@ -554,7 +651,8 @@ def main() -> int:
     ap.add_argument("--cases", default="mla,k1,k7",
                     help=f"comma-separated families of {FAMILIES}")
     ap.add_argument("--time", action="store_true",
-                    help="then time kernels 1 and 7 of both checkouts")
+                    help="then time kernels 1, 7, 4 and the MLA modes of "
+                    "both checkouts")
     args = ap.parse_args()
     cases = [c for c in args.cases.split(",") if c]
     bad = [c for c in cases if c not in FAMILIES]
@@ -575,7 +673,8 @@ def main() -> int:
         run = {"mla": lambda: _mla_cases(other, split_loop),
                "gqa": lambda: _gqa_cases(other),
                "k1": lambda: _state_update_cases(other["mx_state_update"]),
-               "k7": lambda: _quant_cases(other["mx_quant"])}
+               "k7": lambda: _quant_cases(other["mx_quant"]),
+               "k4": lambda: _append_cases(other["mx_paged_attention"])}
         for c in cases:
             ok &= run[c]()
         if args.time:
