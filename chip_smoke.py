@@ -14,7 +14,10 @@ pool with speculative decoding, then ``deepseek-v2-236b`` at full width
 (depth cut to 4 of its 60 layers: 53.2 GB of fp32 weights) through the same
 three paths, then the paper's GLA-family models at full width and all 32
 layers: ``gla-2.7b`` through the same three paths, ``retnet-2.7b`` and
-``hgrn2-2.7b`` through the paged pool.  It checks that every decode step
+``hgrn2-2.7b`` through the paged pool; then the paper's transformer
+baseline ``opt-6.7b`` (32 layers) and ``yi-9b`` (48 layers, grouped
+queries) at full width and full depth through the same three paths.  It
+checks that every decode step
 went through the kernels of its path, and every prefill through the MX8
 quantizer (kernel 7), and that no paged decode or verify step ran the
 plain MX8 quantizer on the card.  Phases, in the order they run:
@@ -24,9 +27,12 @@ plain MX8 quantizer on the card.  Phases, in the order they run:
   the copy and the fused quantize-and-append, state update in slab
   mode)   12. speculative-verify kernels (dense and
   paged)   20. the MX8 quantizer (kernel 7), bitwise   21. the
-  state-update kernel at the GLA family's heads   6. timing   10.
+  state-update kernel at the GLA family's heads   28. the GQA kernels,
+  the fused append and kernel 7 at opt-6.7b's and yi-9b's widths (yi-9b's
+  verify pass: 32 query rows a kv head, two row blocks)   6. timing   10.
   paged-kernel timing   13. verify-kernel timing   22. timing of kernels 7
-  and 1 at the GLA family's shapes   7. main path, slot pool   11. main
+  and 1 at the GLA family's shapes   29. timing at opt-6.7b's and yi-9b's
+  widths   7. main path, slot pool   11. main
   path, paged pool   12. matmul row invariance at the model's shapes
   14. main path, paged pool with speculation (n-gram drafts; a short
   model-draft run; the pool-level rollback check)   15. MLA mode of
@@ -36,7 +42,9 @@ plain MX8 quantizer on the card.  Phases, in the order they run:
   deepseek-v2-236b, paged pool   19. deepseek-v2-236b, paged pool with
   speculation   23. gla-2.7b, slot pool   24. gla-2.7b, paged pool
   25. gla-2.7b, paged pool with speculation   26. retnet-2.7b, paged
-  pool   27. hgrn2-2.7b, paged pool   8. kernels line
+  pool   27. hgrn2-2.7b, paged pool   30-32. opt-6.7b: slot pool, paged
+  pool, paged pool with speculation (the verify step's LayerNorm checked
+  for row invariance)   33-35. yi-9b, the same   8. kernels line
 
 Any failure exits non-zero; with no card it fails (it never falls back to
 the CPU).  The last three lines of standard output are the kernels' JSON
@@ -764,20 +772,20 @@ def phase_spec_kernels():
                         "bitwise kernel 3 at the shifted length")
                 cases += 1
     app = _spec_appends_check()
-    refused = 0
+    # Kq = 5, G = 4: 20 query rows a kv head, past one block's 16 -- two
+    # row blocks of whole positions (12 and 8 rows)
     q, K, V, bt, lens = _spec_kv((130, 5), 4, seed=99)
-    for bad in (torch.cat([q, q[:, :1]], 1),):          # Kq = 5, G = 4
-        try:
-            KV.mx_paged_spec_attention_decode(bad, K, V, bt, 0, lens)
-        except ValueError:
-            refused += 1
-    check(refused == 1, "Kq*G = 20 rows was not refused")
+    q5 = torch.cat([q, q[:, :1]], 1).contiguous()
+    err20 = _within(KV.mx_paged_spec_attention_decode(q5, K, V, bt, 0, lens),
+                    KV.plain_paged(q5, K, V, bt, 0, lens),
+                    "kernel 5 at Kq*G = 20")
     phase(12, "mx_spec_attention_decode / mx_paged_spec_attention_decode "
           "vs plain", cases=cases, Kq="1,2,4", G="1,4", H=ATTN["H"],
           d=ATTN["d"], n_stack=N_STACK, lengths=list(SPEC_LENGTHS),
           max_abs_err_5=f"{err5:.3g}", max_abs_err_6=f"{err6:.3g}",
           tol="rtol2e-4,atol2e-5", paged_vs_dense="bitwise",
-          row_j_vs_kernels_2_and_3="bitwise", Kq_times_G_20="ValueError")
+          row_j_vs_kernels_2_and_3="bitwise",
+          Kq_times_G_20=f"two row blocks, max err {err20:.3g}")
     phase(12, "attention_spec_step appends vs sequential kv_append",
           Kq=KQ, lengths=app, result="bitwise (every pool byte)",
           verify_vs_spec_attend="bitwise")
@@ -1086,10 +1094,10 @@ def _row_invariance(params, cfg):
                                     x[:, i:i + 1].contiguous() @ w)
                         for i in range(KQ))
     x = torch.randn((B, KQ, cfg.d_model), generator=g, device="cuda")
-    full = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
+    full = L.apply_norm(params["final_norm"], x, "rmsnorm", cfg.norm_eps)
     out["rmsnorm"] = all(torch.equal(full[:, i:i + 1], L.apply_norm(
-        params["final_norm"], x[:, i:i + 1].contiguous(), cfg.norm_eps))
-        for i in range(KQ))
+        params["final_norm"], x[:, i:i + 1].contiguous(), "rmsnorm",
+        cfg.norm_eps)) for i in range(KQ))
     return out
 
 
@@ -1110,7 +1118,7 @@ def _agreement(ref, got):
 
 
 def _spec_rollback_check(eng, cfg, rng, invariant, lens0=(64, 129, 126,
-                                                          200)):
+                                                          200), phase_n=14):
     """The pool-level contract at full width, four active rows: one verify
     pass over KQ tokens against KQ sequential paged decode steps (seeds
     1..KQ), then ``commit_spec`` at all-accept and at sel = 0.  Always held:
@@ -1187,10 +1195,11 @@ def _spec_rollback_check(eng, cfg, rng, invariant, lens0=(64, 129, 126,
     for r in rids:
         pool.release(r)
     if invariant:
-        check(bitwise and one, f"row-invariant RMSNorm, yet verify "
-              f"positions differ from sequential steps (max |dlogit| "
-              f"{max(diffs):.3g}, sel=0 rows equal: {one})")
-    phase(14, "pool-level verify and rollback, full width", rows=len(rids),
+        check(bitwise and one, f"{cfg.name}: row-invariant {cfg.norm_kind}, "
+              f"yet verify positions differ from sequential steps (max "
+              f"|dlogit| {max(diffs):.3g}, sel=0 rows equal: {one})")
+    phase(phase_n, "pool-level verify and rollback, full width",
+          rows=len(rids),
           lengths=list(lens0), Kq=KQ, commit_restores_snapshot="bitwise",
           all_accept_snapshot_vs_in_place="bitwise",
           vs_sequential_bitwise=bitwise and one,
@@ -1234,9 +1243,9 @@ def _step_fields(st):
                 p50_ttft_ms=f"{st['p50_ttft_s'] * 1e3:.3f}")
 
 
-def _check_done(handles, cfg):
+def _check_done(handles, cfg, max_new=MAX_NEW):
     for h in handles:
-        check(h.status == "done" and len(h.output) == MAX_NEW,
+        check(h.status == "done" and len(h.output) == max_new,
               f"request {h.rid}: {h.status} with {len(h.output)} tokens")
         check(all(0 <= t < cfg.vocab_size for t in h.output),
               f"request {h.rid}: token out of range")
@@ -1534,31 +1543,33 @@ def phase_spec_main_path(cfg, params, paged):
     prof = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 14)
     _spec_rollback_check(eng, cfg, rng, invariant)
 
-    _greedy_exactness(params, cfg, paged["prompts"], invariant)
+    _greedy_exactness(params, cfg, paged["prompts"], invariant, n=14)
     return dict(n5=n5, n6=n6, stats=st, prof=prof, invariant=invariant)
 
 
-def _greedy_exactness(params, cfg, prompts, invariant):
-    """Greedy exactness at full width: the prompts that fit
-    ``prefill_chunk``, round-to-nearest MX8 (so no stochastic-rounding seed
-    enters), through the plain paged engine and the speculative one with
+def _greedy_exactness(params, cfg, prompts, invariant, n, max_new=MAX_NEW,
+                      paged=PAGED):
+    """Greedy exactness at full width: the prompts of at most 256 tokens
+    (zamba2's ``prefill_chunk``), round-to-nearest MX8 (so no
+    stochastic-rounding seed enters), through the plain paged engine
+    (``paged``) and the speculative one with
     the n-gram and the model draft sources (the llama3.2-1b smoke draft,
     vocabulary 512, always proposes).  Equal streams are required when the
-    verify step's remaining batched op (RMSNorm) is row invariant;
-    otherwise the agreement is reported."""
+    verify step's remaining batched op (the norm: RMSNorm or LayerNorm) is
+    row invariant; otherwise the agreement is reported."""
     from repro_torch import ops as OPS
     from repro_torch.serving.api import Engine, ServeConfig
     ncfg = cfg.with_(state_quant=OPS.StateQuantConfig("mx8", "nearest",
                                                       "cuda"))
-    short = [p for p in prompts if len(p) <= PAGED["prefill_chunk"]]
+    short = [p for p in prompts if len(p) <= 256]
     runs = {}
     for spec in (None, "ngram", "model:llama3.2-1b"):
-        eng = Engine(params, ncfg, ServeConfig(**PAGED, spec=spec,
+        eng = Engine(params, ncfg, ServeConfig(**paged, spec=spec,
                                                spec_k=SPEC_K))
-        hs = [eng.submit(p, max_new_tokens=MAX_NEW) for p in short]
+        hs = [eng.submit(p, max_new_tokens=max_new) for p in short]
         t0 = time.perf_counter()
         eng.run()
-        _check_done(hs, cfg)
+        _check_done(hs, cfg, max_new)
         runs[spec] = ([h.output for h in hs], eng.stats(),
                       eng.engine.step_count, time.perf_counter() - t0)
     ref = runs[None][0]
@@ -1568,7 +1579,7 @@ def _greedy_exactness(params, cfg, prompts, invariant):
         if invariant:
             check(first is None, f"{spec}: greedy stream differs from the "
                   f"plain paged stream at token {first} (round-to-nearest)")
-        phase(14, f"greedy exactness, {spec} vs plain, round-to-nearest",
+        phase(n, f"greedy exactness, {spec} vs plain, round-to-nearest",
               requests=len(short), steps=f"{steps} vs {runs[None][2]}",
               proposed=int(st["proposed_tokens"]),
               accepted=int(st["accepted_tokens"]),
@@ -2636,6 +2647,461 @@ def _reference_check_by_depth(params, cfg, prompt, n):
                 for k, v in f.items()} for r, f in flips.items()}))
 
 
+# ---------------------------------------------------------------------------
+# the dense transformer family: opt-6.7b (the paper's baseline) and yi-9b
+# (GQA) at full width and full depth
+# ---------------------------------------------------------------------------
+
+#: the family's attention widths: opt-6.7b G = 1 (a Kq = 4 verify pass: 4
+#: rows a kv head), yi-9b G = 8 (32 rows: two row blocks of 16); ``n``: the
+#: first of the model's three main-path phases
+DENSE = {"opt-6.7b": dict(tag="opt", H=32, KVH=32, d=128, n=30),
+         "yi-9b": dict(tag="yi", H=32, KVH=4, d=128, n=33)}
+DENSE_MAX_NEW = 16
+#: their paged pool: four of the six requests at once, each prompt in one
+#: prefill (zamba2's and gla's paths stream prompt tails through decode
+#: and preempt)
+DENSE_PAGED = dict(batch=4, n_pages=17, prefill_chunk=512)
+#: layers of page pools in the kernel checks
+DENSE_STACK = 4
+
+
+def _dense_pool(lengths, w, n_stack, seed, Kq=KQ):
+    """Page pools (P, n_stack, 128, KVH, d) of random MX8 K/V at the
+    widths ``w``, a block table of shuffled non-contiguous page ids
+    spanning each row's ``len + 1`` positions (the append slot included,
+    bucketed to a power of two, scratch page 0 in its tail), and q ``(B,
+    Kq, H, d)``."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.core.paged import pages_for
+    from repro_torch.serving.memory import bucket_pages
+    need = [pages_for(n + 1) for n in lengths]
+    P = 1 + sum(need)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = (torch.randperm(P - 1, generator=g, device="cuda") + 1).tolist()
+    bt = torch.zeros((len(lengths), bucket_pages(max(need))),
+                     dtype=torch.int32)
+    for b, n in enumerate(need):
+        bt[b, :n] = torch.tensor(ids[:n])
+        ids = ids[n:]
+    shp = (P, n_stack, 128, w["KVH"], w["d"])
+    K = F.mx8_quantize(torch.randn(shp, generator=g, device="cuda"))
+    V = F.mx8_quantize(torch.randn(shp, generator=g, device="cuda"))
+    q = torch.randn((len(lengths), Kq, w["H"], w["d"]), generator=g,
+                    device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, K, V, bt.cuda(), lens
+
+
+def _within(y, yp, label):
+    err = (y - yp).abs()
+    check(bool((err <= 2e-5 + 2e-4 * yp.abs()).all()), f"{label}: beyond "
+          f"rtol 2e-4 atol 2e-5 (max err {float(err.max()):.3g})")
+    return float(err.max())
+
+
+def phase_dense_kernels():
+    """Phase 28: the GQA kernels at opt-6.7b's widths (G = 1) and
+    yi-9b's (G = 8, Kq * G = 32 query rows: two row blocks), against their
+    plain versions (rtol 2e-4, atol 2e-5) over SPEC_LENGTHS: kernels 2 and
+    3 (decode; kernel 3 bitwise kernel 2 over the gathered pages), kernels
+    6 and 5 at Kq 1, 2, 4 (kernel 5 bitwise kernel 6, verify row j bitwise
+    kernels 2 and 3 at length len - (Kq - 1 - j)); the fused
+    quantize-and-append at KVH x 128 (bitwise its plain version and the
+    replaced path); kernel 7 at a 400-token prefill's K stream (bitwise);
+    and each kernel's blocks per SM.  Returns {key: max error}."""
+    import torch
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_quant as K7
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    errs = {}
+    for arch, w in DENSE.items():
+        tag, G = w["tag"], w["H"] // w["KVH"]
+        e = dict.fromkeys(("2", "3", "5", "6"), 0.0)
+        cases = 0
+        for i, lengths in enumerate(SPEC_LENGTHS):
+            q, K, V, bt, lens = _dense_pool(lengths, w, DENSE_STACK,
+                                            seed=280 + 10 * i + G)
+            group = 1 + i
+            Kd, Vd = R.gather_pages(K, bt, group), R.gather_pages(V, bt, group)
+            q1 = q[:, 0].contiguous()
+            y2 = KA.mx_attention_decode(q1, Kd, Vd, lens)
+            y3 = KP.mx_paged_attention_decode(q1, K, V, bt, group, lens)
+            label = f"{arch} lengths={lengths}"
+            e["2"] = max(e["2"], _within(y2, KA.plain(q1, Kd, Vd, lens),
+                                         f"kernel 2 {label}"))
+            e["3"] = max(e["3"], _within(
+                y3, KP.plain(q1, K, V, bt, group, lens), f"kernel 3 {label}"))
+            check(torch.equal(y3, y2), f"{label}: kernel 3 not bitwise "
+                  "kernel 2 over the gathered pages")
+            for Kq in (1, 2, 4):
+                qk = q[:, :Kq].contiguous()
+                lab = f"{label} Kq={Kq} rows={Kq * G}"
+                y5 = KV.mx_paged_spec_attention_decode(qk, K, V, bt, group,
+                                                       lens)
+                y6 = KV.mx_spec_attention_decode(qk, Kd, Vd, lens)
+                e["5"] = max(e["5"], _within(
+                    y5, KV.plain_paged(qk, K, V, bt, group, lens),
+                    f"kernel 5 {lab}"))
+                e["6"] = max(e["6"], _within(
+                    y6, KV.plain(qk, Kd, Vd, lens), f"kernel 6 {lab}"))
+                check(torch.equal(y5, y6), f"{lab}: kernel 5 not bitwise "
+                      "kernel 6 over the gathered pages")
+                for j in range(Kq):
+                    lj = lens - (Kq - 1 - j)
+                    qj = qk[:, j].contiguous()
+                    check(torch.equal(y6[:, j], KA.mx_attention_decode(
+                        qj, Kd, Vd, lj)), f"{lab}: row {j} not bitwise "
+                        "kernel 2 at the shifted length")
+                    check(torch.equal(y5[:, j], KP.mx_paged_attention_decode(
+                        qj, K, V, bt, group, lj)), f"{lab}: row {j} not "
+                        "bitwise kernel 3 at the shifted length")
+                cases += 1
+        # the append slot of each row is its length: the table spans it
+        n_app, e4 = _hold_append_quant([K, V], bt, 1, SPEC_LENGTHS[-1],
+                                       seed=290 + G, label=f"{arch} K and V")
+        # kernel 7 at one request's prefill K stream (400 tokens padded
+        # to 512), values over 45 decades with zero groups
+        g = torch.Generator(device="cuda").manual_seed(295 + G)
+        x = torch.randn((1, 512, w["KVH"], w["d"]), generator=g,
+                        device="cuda")
+        x *= torch.pow(10.0, torch.randint(-40, 6, x.shape[:-1] + (1,),
+                                           generator=g, device="cuda").float())
+        x.view(-1, 16)[::7] = 0.0
+        e7 = 0
+        for rounding in ("nearest", "stochastic"):
+            got, want = (K7.mx_quantize(x, 7, rounding=rounding),
+                         K7.plain(x, rounding, 7))
+            for f in want.payload:
+                e7 = max(e7, int((got.payload[f].int()
+                                  - want.payload[f].int()).abs().max()))
+                check(torch.equal(got.payload[f], want.payload[f]),
+                      f"mx_quantize {tuple(x.shape)} {rounding}: {f} "
+                      "differs from the plain version")
+        rows = KQ * G
+        per_block = KA.split_block_rows(rows, G, w["d"])
+        smem = [KA.split_smem_bytes(r, w["d"], w["d"]) / 1024
+                for r in (G, per_block)]
+        # decode (kernels 2, 3) and verify (5, 6): blocks whose shared
+        # memory one SM holds
+        occ = [KA.split_blocks_per_sm(r, G, w["d"], w["d"])
+               for r in (G, rows)]
+        phase(28, f"GQA kernels at {arch}'s widths vs plain", H=w["H"],
+              KVH=w["KVH"], d=w["d"], G=G, cases=cases, Kq="1,2,4",
+              verify_rows=rows,
+              row_blocks=KA.split_row_blocks(rows, G, w["d"]),
+              rows_per_block=per_block,
+              smem_KB_decode_verify=f"{smem[0]:g},{smem[1]:g}",
+              blocks_per_sm_decode_verify=f"{occ[0]},{occ[1]}",
+              lengths=list(SPEC_LENGTHS),
+              max_abs_err=repr({k: f"{v:.3g}" for k, v in e.items()}),
+              tol="rtol2e-4,atol2e-5", paged_vs_dense="bitwise",
+              row_j_vs_kernels_2_and_3="bitwise")
+        phase(28, f"fused append and quantizer at {arch}'s widths",
+              append_cases=n_app, append="bitwise (plain, replaced path)",
+              quantizer_shape=tuple(x.shape), quantizer="bitwise")
+        errs.update({f"e{k}_{tag}": v for k, v in e.items()})
+        errs[f"apq_{tag}"] = float(e4)
+        errs[f"k7_{tag}"] = float(e7)
+        del q, K, V, Kd, Vd, x
+        torch.cuda.empty_cache()
+    return errs
+
+
+def _sdpa(q, kf, vf, mask, gqa):
+    import torch
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, kf, vf, attn_mask=mask, enable_gqa=gqa)
+
+
+def phase_dense_timing():
+    """Phase 29: device times (CUDA-graph replay, inputs rotated so each
+    launch finds them cold in L2) of kernels 2, 3, 6, 5, the fused append
+    and kernel 7 at opt-6.7b's and yi-9b's widths: batch 4 at the main
+    path's mid-decode lengths (verify: Kq = 4, lengths counting the
+    appended rows); the yardstick is one ``scaled_dot_product_attention``
+    call (``enable_gqa`` for yi-9b) on the dequantized fp32 K/V, with a
+    boolean mask.  Returns {kernels-line name: times}."""
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.core import formats as F
+    from repro_torch.core.paged import pages_for
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_quant as K7
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    it = iter(range(10 ** 9))
+    out = {}
+    sq = OPS.StateQuantConfig()
+    for arch, w in DENSE.items():
+        tag, H, KVH, d = w["tag"], w["H"], w["KVH"], w["d"]
+        G, gqa = H // KVH, H != KVH
+        dec = [n + DENSE_MAX_NEW // 2 for n in PROMPT_LENS[:4]]
+        ver = [n + KQ for n in dec]
+        n_stack = _rotation(sum(ver) * KVH * 2 * d * 1.125)
+        q, K, V, bt, lens_v = _dense_pool(ver, w, n_stack, seed=300 + G)
+        lens_d = torch.tensor(dec, dtype=torch.int32, device="cuda")
+        q1 = q[:, 0].contiguous()
+        T = bt.shape[1] * 128
+        dense = [(R.gather_pages(K, bt, g), R.gather_pages(V, bt, g))
+                 for g in range(n_stack)]
+        deq = [(F.dequantize(kd).permute(0, 2, 1, 3).contiguous(),
+                F.dequantize(vd).permute(0, 2, 1, 3).contiguous())
+               for kd, vd in dense]
+        pos = torch.arange(T, device="cuda")
+        mask_d = (pos[None, :] < lens_d[:, None])[:, None, None, :]
+        shift = torch.arange(KQ, device="cuda") - (KQ - 1)
+        mask_v = (pos[None, None, :] < (lens_v[:, None] + shift[None, :])
+                  [:, :, None])[:, None]
+        qh1 = q1[:, :, None, :]
+        qh = q.permute(0, 2, 1, 3).contiguous()
+        lib_d = [lambda t=t: _sdpa(qh1, *t, mask_d, gqa) for t in deq]
+        lib_v = [lambda t=t: _sdpa(qh, *t, mask_v, gqa) for t in deq]
+        # the yardsticks compute the same functions as the kernels
+        for lib, y in ((lib_d[0](), KA.mx_attention_decode(
+                            q1, *dense[0], lens_d)[:, :, None]),
+                       (lib_v[0]().permute(0, 2, 1, 3),
+                        KV.mx_spec_attention_decode(q, *dense[0], lens_v))):
+            check(bool(((lib.reshape(y.shape) - y).abs()
+                        <= 1e-4 + 1e-3 * y.abs()).all()),
+                  f"{arch}: SDPA yardstick disagrees with the kernel")
+        io_d = 4 * 4 * H * 2 * d + 4 * 4
+        io_v = 4 * 4 * KQ * H * 2 * d + 4 * 4
+        cache_d = sum(dec) * KVH * 2 * d * (1 + 2 / F.MX8_GROUP)
+        cache_v = sum(ver) * KVH * 2 * d * (1 + 2 / F.MX8_GROUP)
+        tbl_d = 4 * sum(pages_for(n) for n in dec)
+        tbl_v = 4 * sum(pages_for(n) for n in ver)
+        row_pos = sum(n - (KQ - 1 - j) for n in ver for j in range(KQ))
+
+        def plan_bytes(kind, n, layout):
+            dims = dict(B=1, T=n, KVH=KVH, dk=d, dv=d, H=H)
+            if kind == "spec_verify":
+                dims.update(n=1, Kq=KQ)
+                return OPS.traffic(OPS.registry.plan(
+                    kind, dims, sq, "cuda", layout=layout)).total
+            return OPS.traffic(OPS.plan_attn_decode_dims(
+                dims, sq, layout=layout)).state_read
+
+        for name, kern, plain, lib, nbytes, flops, kind, lens, layout in (
+                (f"mx_attention_decode[{tag}]",
+                 [lambda c=c: KA.mx_attention_decode(q1, *c, lens_d)
+                  for c in dense],
+                 [lambda c=c: KA.plain(q1, *c, lens_d) for c in dense[:3]],
+                 lib_d, cache_d + io_d, sum(dec) * H * 4 * d, "attn", dec,
+                 "dense"),
+                (f"mx_paged_attention_decode[{tag}]",
+                 [lambda g=g: KP.mx_paged_attention_decode(
+                     q1, K, V, bt, g, lens_d) for g in range(n_stack)],
+                 [lambda g=g: KP.plain(q1, K, V, bt, g, lens_d)
+                  for g in range(3)],
+                 lib_d, cache_d + io_d + tbl_d, sum(dec) * H * 4 * d,
+                 "attn", dec, "paged"),
+                (f"mx_paged_spec_attention_decode[{tag}]",
+                 [lambda g=g: KV.mx_paged_spec_attention_decode(
+                     q, K, V, bt, g, lens_v) for g in range(n_stack)],
+                 [lambda g=g: KV.plain_paged(q, K, V, bt, g, lens_v)
+                  for g in range(3)],
+                 lib_v, cache_v + io_v + tbl_v, row_pos * H * 4 * d,
+                 "spec_verify", ver, "paged"),
+                (f"mx_spec_attention_decode[{tag}]",
+                 [lambda c=c: KV.mx_spec_attention_decode(q, *c, lens_v)
+                  for c in dense],
+                 [lambda c=c: KV.plain(q, *c, lens_v) for c in dense[:3]],
+                 lib_v, cache_v + io_v, row_pos * H * 4 * d,
+                 "spec_verify", ver, "dense")):
+            ms = graph_ms(kern, 10)
+            plain_ms = graph_ms(plain, 3)
+            lib_ms = graph_ms(lib, 10)
+            host_ms = host_loop_ms(lambda k=kern: k[next(it) % n_stack](),
+                                   10 * n_stack)
+            out[name] = _report(name, ms, plain_ms, lib_ms, host_ms, nbytes,
+                                flops, sum(plan_bytes(kind, n, layout)
+                                           for n in lens), n=29)
+        del dense, deq, lib_d, lib_v
+        plan = OPS.registry.plan("kv_append", dict(B=4, T=1, KVH=KVH, dk=d,
+                                                   dv=d, n=1),
+                                 sq, "cuda", layout="paged")
+        out[f"mx_paged_kv_append[quant,{tag}]"] = _time_append_quant(
+            [K, V], bt, lens_d, n_stack, f"mx_paged_kv_append[quant,{tag}]",
+            OPS.traffic(plan).total, n=29)
+        del q, K, V
+        # kernel 7 at one request's prefill K stream (400 tokens, padded)
+        shape = (1, 512, KVH, d)
+        n_val = math.prod(shape)
+        n_rot = _rotation(4 * n_val)
+        g = torch.Generator(device="cuda").manual_seed(310 + G)
+        xs = [torch.randn(shape, generator=g, device="cuda")
+              for _ in range(n_rot)]
+        kern = [lambda x=x: K7.mx_quantize(x) for x in xs]
+        plain = [lambda x=x: K7.plain(x) for x in xs[:8]]
+        ms = graph_ms(kern, 10)
+        plain_ms = graph_ms(plain, 3)
+        host_ms = host_loop_ms(lambda: kern[next(it) % n_rot](), 10 * n_rot)
+        out[f"mx_quantize[{tag}]"] = _report(
+            f"mx_quantize[{tag}]", ms, plain_ms, None, host_ms,
+            n_val * (4 + 1 + 2 / F.MX8_GROUP), 5 * n_val,
+            n_val * 9 / 8 + 4 * n_val, n=29)
+        phase(29, f"{arch} timing shapes", B=4, decode_lengths=dec,
+              verify_lengths=ver, Kq=KQ, layers_rotated=n_stack,
+              quantizer_shape=shape)
+        del xs, kern, plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dense_model(arch):
+    """opt-6.7b or yi-9b at full width and full depth, random weights from
+    a seeded CUDA generator."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(arch)
+    w = DENSE[arch]
+    check(cfg.n_layers == {"opt-6.7b": 32, "yi-9b": 48}[arch]
+          and cfg.d_model == 4096 and cfg.n_heads == w["H"]
+          and cfg.n_kv_heads == w["KVH"] and cfg.head_dim == w["d"]
+          and cfg.state_quant.fmt == "mx8"
+          and cfg.state_quant.backend == "cuda", f"unexpected {cfg.name}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_model(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in _leaves(params))
+    nbytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    # a decode step streams every weight once but the tables it gathers
+    # rows from (the token embedding, the learned positions)
+    tables = sum(params[k].numel() * params[k].element_size()
+                 for k in ("embed", "pos") if k in params)
+    stream = nbytes - tables
+    return cfg, params, dict(params=n, GB=f"{nbytes / 1e9:.2f}",
+                             layers=f"{cfg.n_layers} of {cfg.n_layers}",
+                             weight_stream_GB=f"{stream / 1e9:.2f}",
+                             weight_stream_bound_ms=(
+                                 f"{stream / PEAK_BYTES_PER_S * 1e3:.2f}"),
+                             init_s=f"{time.perf_counter() - t0:.1f}")
+
+
+def _verify_invariance(params, cfg):
+    """The verify step's trouble spot on the card, at this model's shapes:
+    row i of ``(B, Kq, d) @ W`` against the contiguous ``(B, 1, d) @ W`` of
+    position i, bitwise, for layer 0's weights and the LM head (fp32, TF32
+    off; the verify step runs its products position by position, so these
+    only report), and the norm (RMSNorm or LayerNorm: its reductions run
+    over all Kq positions at once), which gates greedy exactness.  Returns
+    {name: bool}."""
+    import torch
+    from repro_torch.models import layers as L
+    g = torch.Generator(device="cuda").manual_seed(7)
+    layer = params["groups"][0][0]
+    weights = {f"attn_{k}": v for k, v in layer["mixer"].items()}
+    weights.update({f"ffn_{k}": v for k, v in layer["ffn"].items()})
+    weights["lm_head"] = (params["embed"].T if cfg.tie_embeddings
+                          else params["lm_head"])
+    out = {}
+    B = 4
+    for name, w in weights.items():
+        x = torch.randn((B, KQ, w.shape[0]), generator=g, device="cuda")
+        full = x @ w
+        out[name] = all(torch.equal(full[:, i:i + 1],
+                                    x[:, i:i + 1].contiguous() @ w)
+                        for i in range(KQ))
+    x = torch.randn((B, KQ, cfg.d_model), generator=g, device="cuda") * 3
+    for norm in (params["final_norm"], layer["norm"]):
+        full = L.apply_norm(norm, x, cfg.norm_kind, cfg.norm_eps)
+        out[cfg.norm_kind] = out.get(cfg.norm_kind, True) and all(
+            torch.equal(full[:, i:i + 1], L.apply_norm(
+                norm, x[:, i:i + 1].contiguous(), cfg.norm_kind,
+                cfg.norm_eps)) for i in range(KQ))
+    return out
+
+
+def phase_dense(arch):
+    """``arch`` (opt-6.7b or yi-9b) at full width and full depth through
+    the slot pool (phase n), the paged pool (n + 1; paged logits bitwise
+    the dense-gather path's on a fresh pool first) and the paged pool with
+    n-gram speculation (n + 2).  Every decode step launches the GQA
+    attention kernel of its path once per layer (kernel 2 on the slot
+    pool, 3 on the paged pool, 5 per verify step), the paged paths the
+    fused append once per layer and position, and nothing else of the
+    port's kernels; every request's prefill kernel 7 twice per layer (K
+    and V).  The verify step's norm is checked for row invariance, which
+    gates greedy exactness (spec == plain at round to nearest) and the
+    pool-level verify-vs-sequential check."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import Engine, ServeConfig
+    n = DENSE[arch]["n"]
+    cfg, params, info = _dense_model(arch)
+    L = cfg.n_layers
+    phase(n, f"{arch} weights", **info)
+    rng = np.random.default_rng(n)
+    prompts = _pattern_prompts(rng, cfg)
+    k7 = _k7_per_prefill(cfg)
+
+    eng = Engine(params, cfg, ServeConfig(backend="slots", batch=4,
+                                          cache_capacity=1024))
+    slot = _serve_counted(eng, cfg, prompts, DENSE_MAX_NEW, dict(k2_gqa=L),
+                          k7, f"{arch} slots")
+    kv = sum(_payload_bytes(c.k) + _payload_bytes(c.v)
+             for c in M.iter_kv_caches(eng.engine.caches))
+    phase(n, f"main path {arch} slots", **_fields(slot),
+          kv_MB=f"{kv / 1e6:.2f}")
+    slot["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), n)
+    _reference_check(params, cfg, prompts[0], n=n)
+    del eng
+
+    eng = Engine(params, cfg, ServeConfig(**DENSE_PAGED))
+    shape = _paged_vs_gather(eng, cfg, rng)
+    phase(n + 1, f"{arch} paged vs gather logits, fresh pool", steps=4,
+          logits=tuple(shape), result="bit-identical")
+    paged = _serve_counted(eng, cfg, prompts, DENSE_MAX_NEW,
+                           dict(k3_gqa=L, k4q=L), k7, f"{arch} paged")
+    pool = eng.engine.pool
+    phase(n + 1, f"main path {arch} paged", **_fields(paged),
+          preemptions=int(paged["stats"]["preemptions"]),
+          pages=f"{pool.n_pages}x{pool.page_nbytes}B",
+          gather_MB=f"{paged['stats']['gather_bytes'] / 1e6:.2f}")
+    paged["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), n + 1)
+    del eng
+
+    rows = _verify_invariance(params, cfg)
+    invariant = rows[cfg.norm_kind]
+    phase(n + 2, "matmul and norm row invariance, (B,Kq,d) rows vs (B,1,d), "
+          "fp32, TF32 off", B=4, Kq=KQ,
+          rows=repr({k: int(v) for k, v in rows.items()}),
+          verify_products="per position", norm=cfg.norm_kind,
+          remaining_batched_op_invariant=invariant)
+    eng = Engine(params, cfg, ServeConfig(**DENSE_PAGED, spec="ngram",
+                                          spec_k=SPEC_K))
+    spec = _serve_counted(eng, cfg, prompts, DENSE_MAX_NEW,
+                          dict(k5_gqa=L, k4q=L * KQ), k7,
+                          f"{arch} paged + ngram")
+    st = spec["stats"]
+    agree, first = _agreement(paged["outputs"], spec["outputs"])
+    phase(n + 2, f"main path {arch} paged + ngram speculation", Kq=KQ,
+          **_fields(spec), proposed=int(st["proposed_tokens"]),
+          accepted=int(st["accepted_tokens"]),
+          acceptance_rate=f"{st['acceptance_rate']:.3f}",
+          preemptions=int(st["preemptions"]),
+          vs_paged_other_sr_seeds="equal" if first is None else
+          f"agreement {agree:.3f}, first difference at token {first}")
+    spec["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), n + 2)
+    _spec_rollback_check(eng, cfg, rng, invariant, phase_n=n + 2)
+    del eng
+    _greedy_exactness(params, cfg, prompts, invariant, n=n + 2,
+                      max_new=DENSE_MAX_NEW, paged=DENSE_PAGED)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(slot=slot, paged=paged, spec=spec, invariant=invariant)
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to chip_smoke.py; "
@@ -2660,11 +3126,13 @@ def main():
         errs["k7"] = phase_quant()
         errs.update({f"su_{a}": e
                      for a, e in phase_gla_state_update().items()})
+        errs.update(phase_dense_kernels())
         times = dict(zip(("su", "at"), phase_timing()))
         times.update(zip(("pa", "ap", "apq", "su_slab"),
                          phase_paged_timing()))
         times.update(zip(("sv_paged", "sv_dense"), phase_spec_timing()))
         times.update(phase_gla_timing())
+        times.update(phase_dense_timing())
         cfg, params, init_s = _model()
         slot = phase_main_path(cfg, params, init_s)
         paged = phase_paged_main_path(cfg, params, slot)
@@ -2687,7 +3155,11 @@ def main():
         gla = phase_gla(_gla_model("gla-2.7b"))
         gla.update({arch: phase_gla_paged(arch, n)
                     for arch, n in (("retnet-2.7b", 26), ("hgrn2-2.7b", 27))})
-        kernels = kernels_line(errs, times, slot, paged, spec, ds, gla)
+        phase(30, "device memory before the dense family",
+              allocated_GB=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+        dense = {arch: phase_dense(arch) for arch in DENSE}
+        kernels = kernels_line(errs, times, slot, paged, spec, ds, gla,
+                               dense)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2699,11 +3171,12 @@ def main():
     return 0
 
 
-def kernels_line(errs, times, slot, paged, spec, ds, gla):
+def kernels_line(errs, times, slot, paged, spec, ds, gla, dense):
     """One entry per kernel and mode (kernel 1: dense mode on the slot
     path, slab mode on the paged path, at zamba2's heads and again at the
     GLA family's; kernels 2, 3, 5 and 6: GQA mode on zamba2's paths, MLA
-    mode on deepseek's; kernel 7 on gla's slot path); ``launches`` counts
+    mode on deepseek's; kernel 7 on gla's slot path; kernels 2 to 7 again
+    at opt-6.7b's and yi-9b's widths, on their paths); ``launches`` counts
     each one's own main path (the verify kernels: the speculative path,
     where kernel 6, the dense-cache twin, has no launch; kernel 4: the
     fused quantize-and-append on the paged paths, the copy on none),
@@ -2790,6 +3263,33 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla):
              **times[f"mx_state_update[slab,{arch.split('-')[0]}]"])
         for arch in ("retnet-2.7b", "hgrn2-2.7b")
     ]
+    for arch, w in DENSE.items():
+        tag, r = w["tag"], dense[arch]
+        for name, source, replaces, path, counter, err in (
+                ("mx_attention_decode", "src/repro_torch/csrc/mx_attention.cu",
+                 "src/repro/kernels/mx_attention.py:98", "slot", "k2_gqa",
+                 f"e2_{tag}"),
+                ("mx_paged_attention_decode", pa_src,
+                 "src/repro/kernels/mx_paged_attention.py:108", "paged",
+                 "k3_gqa", f"e3_{tag}"),
+                ("mx_paged_kv_append[quant", pa_src,
+                 "src/repro/kernels/mx_paged_attention.py:199", "paged",
+                 "k4q", f"apq_{tag}"),
+                ("mx_paged_spec_attention_decode", sv_src,
+                 "src/repro/kernels/mx_spec_attention.py:193", "spec",
+                 "k5_gqa", f"e5_{tag}"),
+                ("mx_spec_attention_decode", sv_src,
+                 "src/repro/kernels/mx_spec_attention.py:123", "spec",
+                 "k6_gqa", f"e6_{tag}"),
+                ("mx_quantize", "src/repro_torch/csrc/mx_quant.cu",
+                 "src/repro/kernels/mx_quant.py:35", "slot", "k7",
+                 f"k7_{tag}")):
+            key = (f"{name},{tag}]" if name.endswith("[quant")
+                   else f"{name}[{tag}]")
+            kernels.append(dict(name=key, route="cuda", source=source,
+                                replaces=replaces,
+                                launches=r[path]["n"][counter],
+                                max_abs_err=errs[err], **times[key]))
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             check(math.isfinite(k[key]), f"{k['name']}: {key} not finite")

@@ -76,13 +76,15 @@ extern "C" int mx_attention_decode_launch(
     void* stream) {
   if (T <= 0 || T % kTile != 0) return (int)cudaErrorInvalidValue;
   const int S = T / split::kSplit;
-  return split::with_row_bound(G, [&](auto bound) {
+  return split::with_row_bound(split::block_rows(G, G, dv), [&](auto bound) {
     constexpr int M = decltype(bound)::value;
     size_t smem = 0;
+    dim3 grid;
     const int err = split::prepare(mx_attention_decode_kernel<M>, B, KVH, S,
-                                   G, dk, dv, ws_floats, n_counters, &smem);
+                                   G, G, dk, dv, ws_floats, n_counters, &smem,
+                                   &grid);
     if (err != (int)cudaSuccess) return err;
-    mx_attention_decode_kernel<M><<<dim3(B, KVH, S), split::kThreads, smem,
+    mx_attention_decode_kernel<M><<<grid, split::kThreads, smem,
                                     (cudaStream_t)stream>>>(
         (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
         (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,

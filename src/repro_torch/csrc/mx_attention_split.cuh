@@ -8,11 +8,19 @@
 // row) the whole cache is ~5 MB, so the time goes to how many loads are in
 // flight and how long each block's chain of dependent steps is.  The design:
 //
-//   * The time axis is split across blocks: grid (B, KVH, S), block s owns
-//     the fixed positions [s * kSplit, (s + 1) * kSplit) -- one 128-token
-//     page, so a paged block reads one block-table entry.  Blocks past their
-//     row's longest length exit at once.  The split depends on nothing but
-//     the position, never on the lengths, n_q, G, B or the layout.
+//   * The time axis is split across blocks: grid (B, KVH * row blocks, S),
+//     block s owns the fixed positions [s * kSplit, (s + 1) * kSplit) --
+//     one 128-token page, so a paged block reads one block-table entry.
+//     Blocks past their row's longest length exit at once.  The split
+//     depends on nothing but the position, never on the lengths, n_q, G, B
+//     or the layout.
+//   * The query rows of a kv head are split into row blocks of at most
+//     kMaxRows rows and kMaxItems accumulator items (block_rows): all R =
+//     n_q * G rows in one block where they fit (then the grid is (B, KVH,
+//     S)), else as many whole verify positions as fit (yi-9b's Kq = 4
+//     verify pass, G = 8, dv = 128: two blocks of 2 positions, 16 rows),
+//     else, where one position's G rows do not fit, runs of as many rows
+//     as fit.  Each row block streams the split's K / V itself.
 //   * Each block stages its positions through shared memory with cp.async
 //     in kSub-position sub-tiles, double-buffered: consecutive threads copy
 //     consecutive 16-byte chunks of one position's K and V mantissas, then
@@ -32,10 +40,11 @@
 //     than a quarter of a key row (rounded up to whole groups) or 16
 //     positions.
 //   * The splits combine in the same launch: each block writes its rows'
-//     (m, l, acc) to a workspace, and the last block of (b, h) to finish --
-//     an acquire-release atomic counter per (b, h) -- combines splits
-//     0 .. n - 1 in that order and resets the counter (so a CUDA graph can
-//     replay the launch).  A row that fits one split skips the workspace.
+//     (m, l, acc) to a workspace, and the last block of (b, h, row block)
+//     to finish -- an acquire-release atomic counter per (b, h, row block)
+//     -- combines splits 0 .. n - 1 in that order and resets the counter
+//     (so a CUDA graph can replay the launch).  A row that fits one split
+//     skips the workspace.
 //
 // Query rows are query-major, r = j * G + g: n_q verify positions of the G
 // query heads that share one kv head.  Row r masks to its own length
@@ -44,7 +53,8 @@
 // it the partial (-1e30, 0, 0), the identity of the combine: the running
 // state's weight is expf(0) = 1 and the partial's expf(-1e30 - M) = 0.
 // Every row's arithmetic is a fixed function of its own query, its own
-// length and the cache, so row j of an n_q-position pass is bitwise the
+// length and the cache -- whatever its row block, its slot in the block or
+// the block's row bound -- so row j of an n_q-position pass is bitwise the
 // n_q = 1 launch at length len - (n_q - 1 - j), and the decode kernels are
 // the n_q = 1 instance.
 //
@@ -68,8 +78,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kSplit = kTile;     // positions per block: one page
 constexpr int kSub = 64;          // positions per staged sub-tile
 constexpr int kStages = 2;        // sub-tile buffers
-constexpr int kMaxRows = 16;      // query rows per block (n_q * G)
-constexpr int kMaxItems = 2048;   // accumulator items per block (R * dv)
+constexpr int kMaxRows = 16;      // query rows per block
+constexpr int kMaxItems = 2048;   // accumulator items per block (rows * dv)
+// dynamic shared memory a block may opt into on sm_90 (227 KB), less 1 KB
+// for the loop's static arrays
+constexpr size_t kMaxSmem = 227 * 1024 - 1024;
 constexpr int kMaxAcc = kMaxItems / kThreads;   // per thread
 constexpr int kParts = kThreads / kSub;         // threads per position
 constexpr int kPosPerWarp = kSplit / kWarps;     // P V positions a warp
@@ -79,8 +92,25 @@ static_assert(kSplit == 2 * kSub && kSub == 64,
               "two sub-tiles; softmax lanes take p + 32u, u < 4");
 static_assert(kPosPerWarp % 4 == 0, "P V steps 4 positions at a time");
 
+// Query rows a block takes of the R = n_q * G query-major rows of one kv
+// head: all of them where they fit kMaxRows rows and kMaxItems accumulator
+// items; else as many whole verify positions (G rows each) as fit; else,
+// where one position's rows do not fit, as many rows as fit.  Row block rb
+// holds rows [rb * block_rows, min(R, (rb + 1) * block_rows)).
+__host__ __device__ inline int block_rows(int R, int G, int dv) {
+  const int items = dv > 0 ? kMaxItems / dv : 0;
+  const int cap = items < kMaxRows ? items : kMaxRows;
+  if (R <= cap || cap < 1) return R;
+  return G <= cap ? cap / G * G : cap;
+}
+
+__host__ __device__ inline int row_blocks(int R, int G, int dv) {
+  const int rb = block_rows(R, G, dv);
+  return rb > 0 ? (R + rb - 1) / rb : 1;
+}
+
 // The row bound a launch is compiled for: the smallest of 1, 4, 16 that
-// holds R = n_q * G, so that the unrolled row loops issue no dead rows.
+// holds a block's rows, so that the unrolled row loops issue no dead rows.
 // Each row's arithmetic is the same whatever the bound (the bitwise
 // contracts between R = G and R = n_q * G rest on that).
 inline int row_bound(int R) { return R <= 1 ? 1 : R <= 4 ? 4 : kMaxRows; }
@@ -132,13 +162,18 @@ __host__ __device__ inline Smem smem_layout(int R, int dk, int dv) {
   return L;
 }
 
-// Host-side shape check shared by every launcher: R = n_q * G query rows.
-inline bool shape_ok(int R, int dk, int dv) {
-  return R > 0 && R <= kMaxRows && dk > 0 && dv > 0 && dk % kGroup == 0 &&
-         dv % kGroup == 0 && R * dv <= kMaxItems;
+// Host-side shape check shared by every launcher: R = n_q * G query rows
+// of G heads a kv head.  What it refuses is what a block cannot hold: a
+// value row wider than the accumulators (dv > kMaxItems) or a row block
+// past the shared memory (kMaxSmem).
+inline bool shape_ok(int R, int G, int dk, int dv) {
+  return R > 0 && G > 0 && R % G == 0 && dk > 0 && dv > 0 &&
+         dk % kGroup == 0 && dv % kGroup == 0 && dv <= kMaxItems &&
+         smem_layout(block_rows(R, G, dv), dk, dv).total <= kMaxSmem;
 }
 
-// Workspace floats for grid (B, KVH, S): (acc, then (m, l)) per split row.
+// Workspace floats for grid (B, KVH * row blocks, S): (acc, then (m, l))
+// per split and query row, the rows of all row blocks.
 inline size_t workspace_floats(int B, int KVH, int S, int R, int dv) {
   return (size_t)B * KVH * S * R * ((size_t)dv + 2);
 }
@@ -217,9 +252,11 @@ __device__ __forceinline__ void stage_copy(const Stage& st, const Stream& g,
 // addressed through `rows`; lengths (B,) int32 counting all n_q positions,
 // each row's length clipped to `cap` positions; out (B, n_q, KVH * G, dv)
 // f32, row r of block (b, h) at out[b, j, h * G + g]; ws
-// workspace_floats(B, KVH, S, R, dv) floats; counters (B * KVH) int32, all
-// zero, left zero.  Launched with kThreads threads, smem_layout(R, dk,
-// dv).total bytes of dynamic shared memory, grid (B, KVH, S = cap / 128).
+// workspace_floats(B, KVH, S, R, dv) floats; counters (B * KVH * row
+// blocks) int32, all zero, left zero.  Launched with kThreads threads,
+// smem_layout(block_rows(R, G, dv), dk, dv).total bytes of dynamic shared
+// memory, grid (B, KVH * row_blocks(R, G, dv), S = cap / 128); block
+// (b, h * row_blocks + rb, s) takes row block rb of kv head h.
 template <int MAXR, class Rows>
 __device__ __forceinline__ void split_attention(
     const Rows& rows, const float* __restrict__ q, const Stream& g,
@@ -230,7 +267,11 @@ __device__ __forceinline__ void split_attention(
   __shared__ float m_sh[kMaxRows], l_sh[kMaxRows];
   __shared__ int last_sh;
 
-  const int b = blockIdx.x, h = blockIdx.y, s = blockIdx.z, S = gridDim.z;
+  const int b = blockIdx.x, s = blockIdx.z, S = gridDim.z;
+  const int R_all = n_q * G, RB = block_rows(R_all, G, dv);
+  const int nrb = (R_all + RB - 1) / RB;
+  const int h = blockIdx.y / nrb, rb = blockIdx.y - h * nrb;
+  const int r0 = rb * RB;                   // the block's first query row
   // the split's first row (a paged block's one block-table entry) is read
   // beside the length, not after it: s < cap / 128 is inside the table
   const size_t row0 = rows.tile_base(b, s) + h;
@@ -239,7 +280,7 @@ __device__ __forceinline__ void split_attention(
   const int n_split = len > 0 ? (len + kSplit - 1) / kSplit : 1;
   if (s >= n_split) return;
 
-  const int R = n_q * G;
+  const int R = min(RB, R_all - r0);        // the block's rows
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ngk = dk / kGroup, ngv = dv / kGroup;
   const int wk = cover_chunks(ngk), wv = cover_chunks(ngv);
@@ -260,11 +301,13 @@ __device__ __forceinline__ void split_attention(
   const int n_sub = len > pos0 ? min(kSplit / kSub, (len - pos0 + kSub - 1) /
                                                         kSub)
                                : 1;
-  // query row r = j * G + g of this block lives at q[b, j, h * G + g]; the
-  // rows travel with the first sub-tile (scaled once they land)
+  // the block's row r is query row r0 + r = j * G + g of kv head h, at
+  // q[b, j, h * G + g]; the rows travel with the first sub-tile (scaled
+  // once they land)
   const size_t head = (size_t)b * KVH + h;
   auto qrow = [&](int r) {
-    return ((size_t)b * n_q + r / G) * KVH * G + (size_t)h * G + r % G;
+    const int rr = r0 + r;
+    return ((size_t)b * n_q + rr / G) * KVH * G + (size_t)h * G + rr % G;
   };
   for (int i = tid; i < R * dk / 4; i += kThreads) {
     const int r = i / (dk / 4), c = i - r * (dk / 4);
@@ -272,8 +315,8 @@ __device__ __forceinline__ void split_attention(
   }
   stage_copy(stage(0), g, row0, KVH, dk, dv, wk, wv, tid);
   cp_async_commit();
-  // row r = j * G + g masks to pos < len - (n_q - 1 - j); warp w owns the
-  // softmax of rows r = w + 8k
+  // query row r0 + r = j * G + g masks to pos < len - (n_q - 1 - j); warp
+  // w owns the softmax of the block's rows r = w + 8k
   constexpr int kRowsPerWarp = (MAXR + kWarps - 1) / kWarps;
   constexpr int kTileRows = MAXR < 4 ? MAXR : 4;    // rows of a P V tile
   const int RD = R * dv;
@@ -373,7 +416,7 @@ __device__ __forceinline__ void split_attention(
   for (int k = 0; k < kRowsPerWarp; ++k) {
     const int r = warp + k * kWarps;
     if (r < R) {
-      const int rl = clip_len(len_all - (n_q - 1 - r / G), cap) - pos0;
+      const int rl = clip_len(len_all - (n_q - 1 - (r0 + r) / G), cap) - pos0;
       float sv[4];
       float mx = kNegInf;
 #pragma unroll
@@ -473,11 +516,13 @@ __device__ __forceinline__ void split_attention(
     return;
   }
 
-  // this split's partial: acc at ws[((head * S + s) * R + r) * dv + c],
-  // (m, l) after all B * KVH * S * R * dv accumulators
+  // this split's partial: query row r0 + r's acc at ws[((head * S + s) *
+  // R_all + r0 + r) * dv + c], (m, l) after all B * KVH * S * R_all * dv
+  // accumulators
+  const size_t RDa = (size_t)R_all * dv;
   float* ws_acc = ws;
-  float* ws_ml = ws + (size_t)gridDim.x * KVH * S * RD;
-  const size_t split_row = (head * S + s) * R;
+  float* ws_ml = ws + (size_t)gridDim.x * KVH * S * RDa;
+  const size_t split_row = (head * S + s) * R_all + r0;
 #pragma unroll
   for (int i = 0; i < kMaxAcc; ++i) {
     const int item = tid + i * kThreads;
@@ -493,7 +538,8 @@ __device__ __forceinline__ void split_attention(
   // on by the barrier, orders the other splits' writes before its reads
   __syncthreads();
   if (tid == 0) {
-    cuda::atomic_ref<int, cuda::thread_scope_device> count(counters[head]);
+    cuda::atomic_ref<int, cuda::thread_scope_device> count(
+        counters[head * nrb + rb]);
     const int done = count.fetch_add(1, cuda::memory_order_acq_rel);
     last_sh = done == n_split - 1;
     if (last_sh) count.store(0, cuda::memory_order_relaxed);  // next launch
@@ -501,8 +547,8 @@ __device__ __forceinline__ void split_attention(
   __syncthreads();
   if (!last_sh) return;
 
-  // the last block of (b, h): combine splits 0 .. n_split - 1 in order
-  const size_t first_row = head * S * R;
+  // the last block of (b, h, rb): combine splits 0 .. n_split - 1 in order
+  const size_t first_row = head * S * R_all + r0;
 #pragma unroll
   for (int i = 0; i < kMaxAcc; ++i) {
     const int item = tid + i * kThreads;
@@ -514,9 +560,9 @@ __device__ __forceinline__ void split_attention(
       float M = __ldcg(ml), Lsum = __ldcg(ml + 1), A = __ldcg(ap);
 #pragma unroll 4
       for (int sp = 1; sp < n_split; ++sp) {
-        const float m_s = __ldcg(ml + (size_t)sp * R * 2);
-        const float l_s = __ldcg(ml + (size_t)sp * R * 2 + 1);
-        const float a_s = __ldcg(ap + (size_t)sp * RD);
+        const float m_s = __ldcg(ml + (size_t)sp * R_all * 2);
+        const float l_s = __ldcg(ml + (size_t)sp * R_all * 2 + 1);
+        const float a_s = __ldcg(ap + (size_t)sp * RDa);
         const float m_new = fmaxf(M, m_s);
         const float alpha = expf(M - m_new), beta = expf(m_s - m_new);
         Lsum = fmaf(Lsum, alpha, l_s * beta);
@@ -529,16 +575,21 @@ __device__ __forceinline__ void split_attention(
 }
 
 // Host-side launch preparation shared by the GQA launchers: the shape
-// check, the workspace and counter sizes, and the dynamic shared memory
-// opt-in.  Returns a cudaError_t.
+// check, the workspace and counter sizes, the dynamic shared memory
+// opt-in, and the grid (B, KVH * row blocks, S).  Returns a cudaError_t.
 template <class Kernel>
-int prepare(Kernel kernel, int B, int KVH, int S, int R, int dk, int dv,
-            long long ws_floats, long long n_counters, size_t* smem) {
-  if (B <= 0 || KVH <= 0 || S <= 0 || !shape_ok(R, dk, dv) ||
-      ws_floats < (long long)workspace_floats(B, KVH, S, R, dv) ||
-      n_counters < (long long)B * KVH)
+int prepare(Kernel kernel, int B, int KVH, int S, int R, int G, int dk,
+            int dv, long long ws_floats, long long n_counters, size_t* smem,
+            dim3* grid) {
+  if (B <= 0 || KVH <= 0 || S <= 0 || S > 65535 || !shape_ok(R, G, dk, dv))
     return (int)cudaErrorInvalidValue;
-  *smem = smem_layout(R, dk, dv).total;
+  const int nrb = row_blocks(R, G, dv);
+  if ((long long)KVH * nrb > 65535 ||
+      ws_floats < (long long)workspace_floats(B, KVH, S, R, dv) ||
+      n_counters < (long long)B * KVH * nrb)
+    return (int)cudaErrorInvalidValue;
+  *grid = dim3(B, KVH * nrb, S);
+  *smem = smem_layout(block_rows(R, G, dv), dk, dv).total;
   if (*smem > 48 * 1024)
     return (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);

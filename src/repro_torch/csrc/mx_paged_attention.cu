@@ -227,15 +227,16 @@ extern "C" int mx_paged_attention_decode_launch(
     long long ws_floats, int n_counters, void* stream) {
   if (npg <= 0 || n_stack <= 0 || group < 0 || group >= n_stack)
     return (int)cudaErrorInvalidValue;
-  return split::with_row_bound(G, [&](auto bound) {
+  return split::with_row_bound(split::block_rows(G, G, dv), [&](auto bound) {
     constexpr int M = decltype(bound)::value;
     size_t smem = 0;
+    dim3 grid;
     const int err = split::prepare(mx_paged_attention_decode_kernel<M>, B,
-                                   KVH, npg, G, dk, dv, ws_floats,
-                                   n_counters, &smem);
+                                   KVH, npg, G, G, dk, dv, ws_floats,
+                                   n_counters, &smem, &grid);
     if (err != (int)cudaSuccess) return err;
-    mx_paged_attention_decode_kernel<M><<<dim3(B, KVH, npg), split::kThreads,
-                                          smem, (cudaStream_t)stream>>>(
+    mx_paged_attention_decode_kernel<M><<<grid, split::kThreads, smem,
+                                          (cudaStream_t)stream>>>(
         (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
         (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
         (const uint8_t*)vmi, (const int*)bt, (const int*)lengths,

@@ -23,8 +23,11 @@
 // length len - (n_q - 1 - j), and the paged kernel is bitwise the dense one
 // over the gathered pages.
 //
-// Limits: n_q * G <= 16 query rows and n_q * G * dv <= 2048 accumulator
-// items per block (the launchers refuse the rest).
+// Rows: the n_q * G query rows of a kv head go to row blocks of at most 16
+// rows and 2048 accumulator items (mx_attention_split.cuh's block_rows:
+// whole verify positions where they fit), one block per row block and
+// split; the launchers refuse only what a block cannot hold (dv > 2048, or
+// a row block's shared memory past 226 KB).
 //
 // MLA mode (the *_mla_launch entry points; the TPU kernels' qV / v_pool
 // None, v_width): the n_q positions fold into the query rows of
@@ -133,16 +136,17 @@ extern "C" int mx_spec_attention_decode_launch(
     void* stream) {
   if (T <= 0 || T % kTile != 0 || G <= 0 || n_q <= 0)
     return (int)cudaErrorInvalidValue;
-  const int S = T / split::kSplit;
-  return split::with_row_bound(n_q * G, [&](auto bound) {
+  const int S = T / split::kSplit, R = n_q * G;
+  return split::with_row_bound(split::block_rows(R, G, dv), [&](auto bound) {
     constexpr int M = decltype(bound)::value;
     size_t smem = 0;
+    dim3 grid;
     const int err = split::prepare(mx_spec_attention_decode_kernel<M>, B,
-                                   KVH, S, n_q * G, dk, dv, ws_floats,
-                                   n_counters, &smem);
+                                   KVH, S, R, G, dk, dv, ws_floats,
+                                   n_counters, &smem, &grid);
     if (err != (int)cudaSuccess) return err;
-    mx_spec_attention_decode_kernel<M><<<dim3(B, KVH, S), split::kThreads,
-                                         smem, (cudaStream_t)stream>>>(
+    mx_spec_attention_decode_kernel<M><<<grid, split::kThreads, smem,
+                                         (cudaStream_t)stream>>>(
         (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
         (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
         (const uint8_t*)vmi, (const int*)lengths, (float*)out, (float*)ws,
@@ -160,15 +164,17 @@ extern "C" int mx_paged_spec_attention_decode_launch(
   if (npg <= 0 || n_stack <= 0 || group < 0 || group >= n_stack || G <= 0 ||
       n_q <= 0)
     return (int)cudaErrorInvalidValue;
-  return split::with_row_bound(n_q * G, [&](auto bound) {
+  const int R = n_q * G;
+  return split::with_row_bound(split::block_rows(R, G, dv), [&](auto bound) {
     constexpr int M = decltype(bound)::value;
     size_t smem = 0;
+    dim3 grid;
     const int err = split::prepare(mx_paged_spec_attention_decode_kernel<M>,
-                                   B, KVH, npg, n_q * G, dk, dv, ws_floats,
-                                   n_counters, &smem);
+                                   B, KVH, npg, R, G, dk, dv, ws_floats,
+                                   n_counters, &smem, &grid);
     if (err != (int)cudaSuccess) return err;
-    mx_paged_spec_attention_decode_kernel<M><<<
-        dim3(B, KVH, npg), split::kThreads, smem, (cudaStream_t)stream>>>(
+    mx_paged_spec_attention_decode_kernel<M><<<grid, split::kThreads, smem,
+                                               (cudaStream_t)stream>>>(
         (const float*)q, (const int8_t*)km, (const uint8_t*)ke,
         (const uint8_t*)kmi, (const int8_t*)vm, (const uint8_t*)ve,
         (const uint8_t*)vmi, (const int*)bt, (const int*)lengths,

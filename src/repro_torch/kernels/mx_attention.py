@@ -5,12 +5,15 @@ Replaces the TPU kernel ``repro/kernels/mx_attention.py::mx_attention_decode``,
 both modes.  GQA: on an H100 one decode query per head is bound by bytes:
 each valid cached K and V value is read once (9 stored bits) against ~4
 flops per query head.  The kernel splits each row's time axis into
-128-position splits, one block each (grid ``(B, KVH, T / 128)``), stages
-K / V through shared memory with ``cp.async``, and combines the splits'
-flash-style fp32 partials in order in the same launch
-(``csrc/mx_attention_split.cuh``).  :func:`split_scratch` gives it a
-workspace for the partials and the per-(row, kv head) counters through
-which the last block of each pair finds out it is last; the counters are
+128-position splits, one block each, and the ``G`` query heads of a kv
+head into row blocks of at most 16 rows and 2048 accumulator items (one
+block where they fit: grid ``(B, KVH * row blocks, T / 128)``,
+:func:`split_block_rows`), stages K / V through shared memory with
+``cp.async``, and combines the splits' flash-style fp32 partials in order
+in the same launch (``csrc/mx_attention_split.cuh``).
+:func:`split_scratch` gives it a workspace for the partials and the
+per-(row, kv head, row block) counters through which the last block of
+each finds out it is last; the counters are
 cached per device and stay zero between launches (each pair's last block
 resets its own), so a CUDA graph can replay the launch.  Kernels that share
 the counters must not run concurrently on two streams.
@@ -41,6 +44,10 @@ from repro_torch.kernels import ref as _ref
 SOURCE = "mx_attention"
 T_BLOCK = 128
 SPLIT = 128             # csrc/mx_attention_split.cuh: kSplit positions a block
+SPLIT_MAX_ROWS = 16     # kMaxRows query rows a block
+SPLIT_MAX_ITEMS = 2048  # kMaxItems accumulator items a block (rows * dv)
+SPLIT_MAX_SMEM = 227 * 1024 - 1024   # kMaxSmem dynamic shared memory bytes
+SM_SMEM = 228 * 1024    # shared memory of one SM (sm_90)
 MIN_COUNTERS = 4096     # (row, kv head) pairs the first counter buffer holds
 MLA_SPLIT = 64          # csrc/mx_mla_tile.cuh: kSplit positions a block
 MLA_ROWS = 16           # kRows query rows a block
@@ -73,15 +80,75 @@ def _counters(n: int, device: torch.device) -> torch.Tensor:
     return held[-1]
 
 
-def split_scratch(B: int, KVH: int, S: int, R: int, dv: int,
+def split_block_rows(R: int, G: int, dv: int) -> int:
+    """Query rows a block of the GQA split loop takes of the ``R = n_q *
+    G`` query-major rows of one kv head (``block_rows`` in
+    ``csrc/mx_attention_split.cuh``): all of them where they fit 16 rows and
+    2048 accumulator items; else as many whole verify positions (``G``
+    rows each) as fit; else as many rows as fit."""
+    cap = min(SPLIT_MAX_ROWS, SPLIT_MAX_ITEMS // dv) if dv > 0 else 0
+    if R <= cap or cap < 1:
+        return R
+    return cap // G * G if G <= cap else cap
+
+
+def split_row_blocks(R: int, G: int, dv: int) -> int:
+    """Row blocks of the GQA split loop per (batch row, kv head)."""
+    rb = split_block_rows(R, G, dv)
+    return -(-R // rb) if rb > 0 else 1
+
+
+def split_smem_bytes(R: int, dk: int, dv: int) -> int:
+    """Dynamic shared memory of a GQA split-loop block of ``R`` query
+    rows (``smem_layout`` in ``csrc/mx_attention_split.cuh``): the queries,
+    the score quarters (sharing their region with the eight warps' P V
+    partials), the probabilities, the split's values in bf16 and two
+    staged sub-tiles of 64 positions."""
+    def cover(w):
+        return (w + 30) // 16
+    ks = dk if (dk // 16) % 2 else dk + 16
+    stage = 64 * (ks + dv) + 64 * 32 * (cover(dk // 16) + cover(dv // 16))
+    return (4 * R * dk + 4 * R * max(4 * SPLIT, 8 * dv) + 4 * R * SPLIT
+            + 2 * SPLIT * (dv + 8) + 2 * stage)
+
+
+def split_blocks_per_sm(R: int, G: int, dk: int, dv: int) -> int:
+    """Blocks of the GQA split loop (``R`` query rows of ``G`` heads a kv
+    head) whose shared memory one SM holds at once: each block's dynamic
+    shared memory, its 256 B of static arrays and the 1 KB the SM reserves
+    a block."""
+    rows = split_block_rows(R, G, dv)
+    return SM_SMEM // (split_smem_bytes(rows, dk, dv) + 256 + 1024)
+
+
+def split_checked(R: int, G: int, dk: int, dv: int, name: str) -> None:
+    """Refuse (``ValueError``, never a fallback) what a block of the GQA
+    split loop cannot hold: a value row wider than its 2048 accumulators,
+    or a row block whose shared memory passes the 226 KB a block may opt
+    into (the 227 KB of sm_90, less 1 KB for the loop's static arrays)."""
+    if dk % 16 or dv % 16 or dk <= 0 or dv <= 0:
+        raise ValueError(f"{name}: dk={dk}, dv={dv} must be positive "
+                         "multiples of 16")
+    if dv > SPLIT_MAX_ITEMS:
+        raise ValueError(f"{name}: dv={dv} is wider than a block's "
+                         f"{SPLIT_MAX_ITEMS} accumulators")
+    rows = split_block_rows(R, G, dv)
+    smem = split_smem_bytes(rows, dk, dv)
+    if smem > SPLIT_MAX_SMEM:
+        raise ValueError(f"{name}: a block of {rows} query rows at dk={dk}, "
+                         f"dv={dv} needs {smem} B of shared memory, past the "
+                         f"{SPLIT_MAX_SMEM} B a block holds")
+
+
+def split_scratch(B: int, KVH: int, S: int, R: int, G: int, dv: int,
                   device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The GQA split loop's workspace for grid ``(B, KVH, S)`` with ``R``
-    query rows of width ``dv`` (a new buffer: every split the kernel
-    combines writes its partial first), and the device's zeroed
-    per-(row, kv head) counters."""
+    """The GQA split loop's workspace for ``S`` splits and ``R = n_q * G``
+    query rows of width ``dv`` per kv head (a new buffer: every split the
+    kernel combines writes its partial first), and the device's zeroed
+    per-(row, kv head, row block) counters."""
     ws = torch.empty(B * KVH * S * R * (dv + 2), dtype=torch.float32,
                      device=device)
-    return ws, _counters(B * KVH, device)
+    return ws, _counters(B * KVH * split_row_blocks(R, G, dv), device)
 
 
 def mla_scratch(B: int, KVH: int, T: int, R: int, dv: int,
@@ -148,9 +215,7 @@ def mx_attention_decode(q: torch.Tensor, qK: F.QuantizedTensor,
     if _check_stream(qK, B, T, KVH, "K") != dk:
         raise ValueError(f"key width {qK.shape[-1]} != query width {dk}")
     dv = _check_stream(qV, B, T, KVH, "V")
-    if G > 16 or G * dv > 2048:
-        raise ValueError(f"G={G}, dv={dv}: the kernel takes G <= 16 and "
-                         f"G*dv <= 2048")
+    split_checked(G, G, dk, dv, "mx_attention_decode")
     for name, t in (("K", qK.payload["mantissa"]),
                     ("V", qV.payload["mantissa"]), ("lengths", lengths)):
         if t.device != q.device:
@@ -159,7 +224,7 @@ def mx_attention_decode(q: torch.Tensor, qK: F.QuantizedTensor,
     qg = _aligned(q)                           # the kernel applies scale
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty((B, H, dv), dtype=torch.float32, device=q.device)
-    ws, counters = split_scratch(B, KVH, T // SPLIT, G, dv, q.device)
+    ws, counters = split_scratch(B, KVH, T // SPLIT, G, G, dv, q.device)
     fn = _build.entry(SOURCE, "mx_attention_decode_launch", _ARGTYPES)
     kp, vp = qK.payload, qV.payload
     err = fn(qg.data_ptr(), kp["mantissa"].data_ptr(),

@@ -41,7 +41,8 @@ from repro_torch.core.paged import PAGE_TOKENS
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.mx_attention import (_aligned, mla_checked,
-                                              mla_scratch, split_scratch)
+                                              mla_scratch, split_checked,
+                                              split_scratch)
 
 SOURCE = "mx_paged_attention"
 MAX_POOLS = 8
@@ -117,9 +118,7 @@ def mx_paged_attention_decode(q: torch.Tensor, k_pool: F.QuantizedTensor,
                          f"{v_pool.payload['mantissa'].shape} do not fit q "
                          f"{tuple(q.shape)}")
     G = H // KVH
-    if G > 16 or G * dv > 2048:
-        raise ValueError(f"G={G}, dv={dv}: the kernel takes G <= 16 and "
-                         f"G*dv <= 2048")
+    split_checked(G, G, dk, dv, "mx_paged_attention_decode")
     if not 0 <= int(group) < n_stack:
         raise ValueError(f"group {group} outside the pool's {n_stack}")
     for name, t in (("K", k_pool.payload["mantissa"]),
@@ -135,7 +134,7 @@ def mx_paged_attention_decode(q: torch.Tensor, k_pool: F.QuantizedTensor,
     qg = _aligned(q)                           # the kernel applies scale
     out = torch.empty((B, H, dv), dtype=torch.float32, device=q.device)
     npg = int(bt_.shape[1])
-    ws, counters = split_scratch(B, KVH, npg, G, dv, q.device)
+    ws, counters = split_scratch(B, KVH, npg, G, G, dv, q.device)
     fn = _build.entry(SOURCE, "mx_paged_attention_decode_launch",
                       _ATTN_ARGTYPES)
     kp, vp = k_pool.payload, v_pool.payload

@@ -16,8 +16,14 @@ decode kernel at the shifted length, ``Kq = 1`` is bitwise the decode
 kernel, and the paged kernel is bitwise the dense one over the gathered
 pages.
 
-Limits: ``Kq * G <= 16`` and ``Kq * G * dv <= 2048`` (``ValueError``
-beyond them, never a fallback).  MLA mode (``qV`` / ``v_pool`` ``None``,
+Rows: the ``Kq * G`` query rows of a kv head go to row blocks of at most
+16 rows and 2048 accumulator items, whole verify positions where they fit
+(:func:`~repro_torch.kernels.mx_attention.split_block_rows`; yi-9b's
+``Kq = 4``, ``G = 8``, ``dv = 128``: two blocks of two positions), one
+block per row block and split, as the TPU kernel takes all ``Kq * G`` rows
+at any count.  The wrappers refuse (``ValueError``, never a fallback) only
+what a block cannot hold: ``dv > 2048``, or a row block's shared memory
+past 226 KB.  MLA mode (``qV`` / ``v_pool`` ``None``,
 ``v_width``) folds the ``Kq`` positions into the query rows of
 ``csrc/mx_mla_tile.cuh``'s split loop the same way, with no row limit
 (``Kq = 4`` x 128 heads = 512 rows, 32 blocks of 16 per 64-position split
@@ -40,12 +46,11 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.core.paged import PAGE_TOKENS
 from repro_torch.kernels.mx_attention import (SPLIT, T_BLOCK, _aligned,
                                               _check_stream, mla_checked,
-                                              mla_scratch, split_scratch)
+                                              mla_scratch, split_checked,
+                                              split_scratch)
 from repro_torch.kernels.mx_paged_attention import _check_pool, _index
 
 SOURCE = "mx_spec_attention"
-MAX_ROWS = 16          # query rows per block: Kq * G
-MAX_ACC = 2048         # accumulator items per block: Kq * G * dv
 
 #: plain versions of the same functions (the oracles)
 plain = _ref.mx_spec_attention_decode_ref
@@ -61,16 +66,14 @@ _MLA_PAGED_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
-def _gqa_rows(q: torch.Tensor, KVH: int, dv: int) -> int:
-    """G after checking the GQA kernels' limits (``ValueError`` beyond
-    them, never a fallback)."""
+def _gqa_rows(q: torch.Tensor, KVH: int, dv: int, name: str) -> int:
+    """G after checking that a row block of the GQA kernels holds the
+    shape (``ValueError`` where it does not, never a fallback)."""
     B, Kq, H, dk = q.shape
     if H % KVH:
         raise ValueError(f"H={H} must divide by KVH={KVH}")
     G = H // KVH
-    if Kq * G > MAX_ROWS or Kq * G * dv > MAX_ACC:
-        raise ValueError(f"Kq={Kq}, G={G}, dv={dv}: the kernel takes "
-                         f"Kq*G <= {MAX_ROWS} and Kq*G*dv <= {MAX_ACC}")
+    split_checked(Kq * G, G, dk, dv, name)
     return G
 
 
@@ -122,7 +125,7 @@ def mx_spec_attention_decode(q: torch.Tensor, qK: F.QuantizedTensor,
     if _check_stream(qK, B, T, KVH, "K") != dk:
         raise ValueError(f"key width {qK.shape[-1]} != query width {dk}")
     dv = _check_stream(qV, B, T, KVH, "V")
-    G = _gqa_rows(q, KVH, dv)
+    G = _gqa_rows(q, KVH, dv, "mx_spec_attention_decode")
     for name, t in (("K", qK.payload["mantissa"]),
                     ("V", qV.payload["mantissa"]), ("lengths", lengths)):
         if t.device != q.device:
@@ -133,7 +136,8 @@ def mx_spec_attention_decode(q: torch.Tensor, qK: F.QuantizedTensor,
     scale = scale if scale is not None else dk ** -0.5
     qg = _aligned(q)                        # the kernel folds and scales
     out = torch.empty((B, Kq, H, dv), dtype=torch.float32, device=q.device)
-    ws, counters = split_scratch(B, KVH, T // SPLIT, Kq * G, dv, q.device)
+    ws, counters = split_scratch(B, KVH, T // SPLIT, Kq * G, G, dv,
+                                 q.device)
     fn = _build.entry(SOURCE, "mx_spec_attention_decode_launch",
                       _DENSE_ARGTYPES)
     kp, vp = qK.payload, qV.payload
@@ -173,7 +177,7 @@ def mx_paged_spec_attention_decode(q: torch.Tensor, k_pool: F.QuantizedTensor,
         raise ValueError(f"pools K {k_pool.payload['mantissa'].shape} / V "
                          f"{v_pool.payload['mantissa'].shape} do not fit q "
                          f"{tuple(q.shape)}")
-    G = _gqa_rows(q, KVH, dv)
+    G = _gqa_rows(q, KVH, dv, "mx_paged_spec_attention_decode")
     if not 0 <= int(group) < n_stack:
         raise ValueError(f"group {group} outside the pool's {n_stack}")
     for name, t in (("K", k_pool.payload["mantissa"]),
@@ -189,7 +193,7 @@ def mx_paged_spec_attention_decode(q: torch.Tensor, k_pool: F.QuantizedTensor,
     qg = _aligned(q)                        # the kernel folds and scales
     out = torch.empty((B, Kq, H, dv), dtype=torch.float32, device=q.device)
     npg = int(bt_.shape[1])
-    ws, counters = split_scratch(B, KVH, npg, Kq * G, dv, q.device)
+    ws, counters = split_scratch(B, KVH, npg, Kq * G, G, dv, q.device)
     fn = _build.entry(SOURCE, "mx_paged_spec_attention_decode_launch",
                       _PAGED_ARGTYPES)
     kp, vp = k_pool.payload, v_pool.payload

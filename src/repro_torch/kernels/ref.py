@@ -181,8 +181,9 @@ def split_partial(qg: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
                   row_len: torch.Tensor, start: int, stop: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One split's flash partial ``(m, l, acc)`` over positions
-    ``[start, stop)``: pre-scaled queries ``qg (B, KVH, G, dk)``, dequantized
-    caches ``(B, T, KVH, d)``, each row masked to ``pos < row_len (B,)``.
+    ``[start, stop)``: pre-scaled queries ``qg (B, KVH, R, dk)``, dequantized
+    caches ``(B, T, KVH, d)``, each row masked to ``pos < row_len`` --
+    ``(B,)``, one length a batch row, or ``(B, R)``, one a query row.
     A masked position has ``p = 0`` exactly; a row with no valid position
     in the split gets ``(-1e30, 0, 0)``.  Sums run over ``d`` and the
     positions in ascending order, one elementwise step each, so a row's
@@ -193,7 +194,10 @@ def split_partial(qg: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
     for d in range(qg.shape[-1]):
         s = s + qg[..., d, None] * kt[:, :, None, :, d]
     pos = torch.arange(start, stop)
-    valid = (pos[None, :] < row_len[:, None])[:, None, None, :]
+    if row_len.dim() == 1:
+        valid = (pos[None, :] < row_len[:, None])[:, None, None, :]
+    else:
+        valid = (pos < row_len[..., None])[:, None]
     m = torch.where(valid, s, torch.full_like(s, NEG_INF)).amax(-1)
     p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
     l = torch.zeros_like(m)
@@ -223,31 +227,45 @@ def combine_split(state: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
 def split_spec_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                              v_cache: torch.Tensor, lengths: torch.Tensor,
                              split: int = 128,
-                             scale: Optional[float] = None) -> torch.Tensor:
+                             scale: Optional[float] = None,
+                             block_rows: Optional[int] = None
+                             ) -> torch.Tensor:
     """Verify attention computed the way the GQA kernels split it: q
     ``(B, Kq, H, dk)`` against dequantized caches ``(B, T, KVH, d)``, query
-    position ``j`` masked to ``lengths - (Kq - 1 - j)``; fixed splits of
-    ``split`` positions up to the longest row, each split's partial
-    combined in order (:func:`combine_split`).  Kq = 1 is decode.  Used by
+    position ``j`` masked to ``lengths - (Kq - 1 - j)``.  The ``R = Kq * G``
+    query-major rows (``r = j * G + g``) of a kv head go to row blocks of
+    ``block_rows`` rows (default: the kernels' own,
+    :func:`repro_torch.kernels.mx_attention.split_block_rows`); each row
+    block walks fixed splits of ``split`` positions up to the longest row,
+    each split's partial combined in order (:func:`combine_split`).  A row's
+    numbers are the same whatever its block.  Kq = 1 is decode.  Used by
     the tests only; returns ``(B, Kq, H, dv)`` f32."""
+    from repro_torch.kernels.mx_attention import split_block_rows
     B, Kq, H, dk = q.shape
     _, T, KVH, _ = k_cache.shape
-    G = H // KVH
+    dv = v_cache.shape[-1]
+    G, R = H // KVH, Kq * (H // KVH)
+    rows = block_rows or split_block_rows(R, G, dv)
     scale = scale if scale is not None else dk ** -0.5
     qg = (q.to(torch.float32) * scale).reshape(B, Kq, KVH, G, dk)
+    qr = qg.permute(0, 2, 1, 3, 4).reshape(B, KVH, R, dk)   # query-major
+    shift = (torch.arange(R) // G) - (Kq - 1)
+    row_len = (lengths.to(torch.int64)[:, None] + shift).clamp(0, T)
     lens = lengths.to(torch.int64).clamp(0, T)
     n_split = max(1, -(-int(lens.max()) // split))
     out = []
-    for j in range(Kq):
-        row_len = (lengths.to(torch.int64) - (Kq - 1 - j)).clamp(0, T)
+    for r0 in range(0, R, rows):
+        r1 = min(R, r0 + rows)
         state = None
         for s in range(n_split):
-            part = split_partial(qg[:, j], k_cache, v_cache, row_len,
-                                 s * split, min(T, (s + 1) * split))
+            part = split_partial(qr[:, :, r0:r1], k_cache, v_cache,
+                                 row_len[:, r0:r1], s * split,
+                                 min(T, (s + 1) * split))
             state = part if state is None else combine_split(state, part)
         _, L, A = state
         out.append(A / L.clamp_min(1e-30)[..., None])
-    return torch.stack(out, 1).reshape(B, Kq, H, -1)
+    y = torch.cat(out, 2).reshape(B, KVH, Kq, G, dv)
+    return y.permute(0, 2, 1, 3, 4).reshape(B, Kq, H, dv)
 
 
 # ---------------------------------------------------------------------------

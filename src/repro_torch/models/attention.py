@@ -172,12 +172,12 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig, device) -> L.Params:
 
     return {
         "wq_a": L.dense_init(gen, d, m.q_lora, dt, device),
-        "q_norm": L.init_norm(m.q_lora, dt, device),
+        "q_norm": L.init_norm(m.q_lora, "rmsnorm", dt, device),
         # per-head query heads: nope part + rope part
         "wq_b": L.dense_init(gen, m.q_lora, H * (m.nope_dim + m.rope_dim),
                              dt, device),
         "wkv_a": L.dense_init(gen, d, m.kv_lora + m.rope_dim, dt, device),
-        "kv_norm": L.init_norm(m.kv_lora, dt, device),
+        "kv_norm": L.init_norm(m.kv_lora, "rmsnorm", dt, device),
         # absorbed projections: W_UK (H, nope, kv_lora), W_UV (H, kv_lora, v)
         "w_uk": heads((H, m.nope_dim, m.kv_lora), m.nope_dim),
         "w_uv": heads((H, m.kv_lora, m.v_dim), m.kv_lora),
@@ -190,7 +190,7 @@ def _mla_queries(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
     """Absorbed queries (B, S, H, kv_lora + rope)."""
     m = cfg.mla
     B, S, _ = x.shape
-    ql = L.apply_norm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps)
+    ql = L.apply_norm(p["q_norm"], x @ p["wq_a"], "rmsnorm", cfg.norm_eps)
     qh = (ql @ p["wq_b"]).reshape(B, S, cfg.n_heads, m.nope_dim + m.rope_dim)
     q_nope, q_rope = qh[..., :m.nope_dim], qh[..., m.nope_dim:]
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
@@ -204,7 +204,8 @@ def mla_cache_stream(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
     kv_lora lanes."""
     m = cfg.mla
     kv = x @ p["wkv_a"]
-    c = L.apply_norm(p["kv_norm"], kv[..., :m.kv_lora], cfg.norm_eps)
+    c = L.apply_norm(p["kv_norm"], kv[..., :m.kv_lora], "rmsnorm",
+                     cfg.norm_eps)
     k_rope = L.apply_rope(kv[..., m.kv_lora:], positions, cfg.rope_theta)
     return torch.cat([c, k_rope], dim=-1)
 

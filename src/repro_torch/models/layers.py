@@ -1,8 +1,8 @@
 """Core NN layers (functional, dict-of-tensor params) -- PyTorch port of
-``repro/models/layers.py`` for the served architectures: RMSNorm, the gated
-RMSNorm of Mamba-2, the per-head RMSNorm of the GLA family, RoPE, the SwiGLU feed-forward and the DeepSeek-style
-mixture of experts.  LayerNorm and the other FFN kinds follow with the
-architectures that use them."""
+``repro/models/layers.py`` for the served architectures: RMSNorm and
+LayerNorm, the gated RMSNorm of Mamba-2, the per-head RMSNorm of the GLA
+family, RoPE and sinusoidal positions, the four feed-forward kinds (SwiGLU,
+GeGLU, GELU, ReLU) and the DeepSeek-style mixture of experts."""
 from __future__ import annotations
 
 from typing import Optional
@@ -58,15 +58,26 @@ def per_position(fn, *xs: torch.Tensor):
 # norms
 # ---------------------------------------------------------------------------
 
-def init_norm(d: int, dtype, device) -> Params:
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def init_norm(d: int, kind: str, dtype, device) -> Params:
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
-def apply_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in f32."""
+def apply_norm(p: Params, x: torch.Tensor, kind: str,
+               eps: float) -> torch.Tensor:
+    """LayerNorm (population variance, as ``jnp.var``) or RMSNorm, in f32."""
     xf = x.to(torch.float32)
-    ms = xf.square().mean(-1, keepdim=True)
-    out = xf * torch.rsqrt(ms + eps) * p["scale"].to(torch.float32)
+    if kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + eps)
+        out = (out * p["scale"].to(torch.float32)
+               + p["bias"].to(torch.float32))
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * p["scale"].to(torch.float32)
     return out.to(x.dtype)
 
 
@@ -109,22 +120,48 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sincos_pos_emb(S: int, d: int, dtype, device) -> torch.Tensor:
+    """(S, d) sinusoidal positions, built in numpy as the JAX package
+    builds them."""
+    pos = np.arange(S)[:, None]
+    div = np.exp(np.arange(0, d, 2) * (-np.log(10000.0) / d))
+    pe = np.zeros((S, d), np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return torch.from_numpy(pe).to(device=device, dtype=dtype)
+
+
 # ---------------------------------------------------------------------------
-# feed-forward (SwiGLU)
+# feed-forward variants
 # ---------------------------------------------------------------------------
 
 def init_ffn(gen: torch.Generator, cfg: ModelConfig, device,
              d_ff: Optional[int] = None) -> Params:
+    """A dense FFN of kind ``cfg.ffn_kind_inner``: the gated kinds (swiglu,
+    geglu) have ``wg``, the ungated (gelu, relu) do not."""
     d, dff = cfg.d_model, (d_ff or cfg.d_ff)
     dt = getattr(torch, cfg.param_dtype)
-    return {"wi": dense_init(gen, d, dff, dt, device),
-            "wg": dense_init(gen, d, dff, dt, device),
-            "wo": dense_init(gen, dff, d, dt, device,
-                             1.0 / np.sqrt(2 * cfg.n_layers))}
+    p = {"wi": dense_init(gen, d, dff, dt, device)}
+    if cfg.ffn_kind_inner in ("swiglu", "geglu"):
+        p["wg"] = dense_init(gen, d, dff, dt, device)
+    p["wo"] = dense_init(gen, dff, d, dt, device,
+                         1.0 / np.sqrt(2 * cfg.n_layers))
+    return p
 
 
-def apply_ffn(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (Fn.silu(x @ p["wi"]) * (x @ p["wg"])) @ p["wo"]
+def apply_ffn(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """GELU is the tanh form, ``jax.nn.gelu``'s default."""
+    if kind == "swiglu":
+        h = Fn.silu(x @ p["wi"]) * (x @ p["wg"])
+    elif kind == "geglu":
+        h = Fn.gelu(x @ p["wi"], approximate="tanh") * (x @ p["wg"])
+    elif kind == "gelu":
+        h = Fn.gelu(x @ p["wi"], approximate="tanh")
+    elif kind == "relu":
+        h = Fn.relu(x @ p["wi"])
+    else:
+        raise ValueError(kind)
+    return h @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -229,5 +266,5 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     (``shard_map`` over a mesh) has no counterpart in the one-card port."""
     out = _moe_local(x, p["router"], p["wi"], p["wg"], p["wo"], cfg)
     if cfg.moe.n_shared:
-        out = out + apply_ffn(p["shared"], x)
+        out = out + apply_ffn(p["shared"], x, cfg.ffn_kind_inner)
     return out

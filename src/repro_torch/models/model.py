@@ -45,6 +45,10 @@ _SEED_STRIDE = 1000003
 _PRELUDE_SEED = 7919
 _U32 = 0xFFFFFFFF
 _PORTED = ("attn", "mamba2", "mla") + SSM.GLA_FAMILY
+_FFN_KINDS = ("swiglu", "geglu", "gelu", "relu", "moe", "none")
+#: rows of a learned position table (the JAX package's): positions 0 ..
+#: POS_ROWS - 1; the serving engines refuse what could reach past them
+POS_ROWS = 32768
 
 
 def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
@@ -58,14 +62,18 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: mixers {missing} are not ported yet (ROADMAP.md: "
             "the other mixers and configs)")
-    if cfg.ffn_kind not in ("swiglu", "moe", "none") \
-            or cfg.norm_kind != "rmsnorm" \
-            or cfg.pos_emb not in ("rope", "none") or cfg.frontend is not None \
-            or cfg.prefix_len or cfg.encoder_only or not cfg.causal:
+    if cfg.ffn_kind not in _FFN_KINDS \
+            or cfg.norm_kind not in ("rmsnorm", "layernorm") \
+            or cfg.pos_emb not in ("rope", "learned", "sincos", "none"):
         raise NotImplementedError(
-            f"{cfg.name}: only causal rmsnorm models with swiglu, MoE (swiglu "
-            "experts) or no FFN and rope (or no) positions are ported; other "
-            "FFNs and norms, frontends and encoders follow (ROADMAP.md)")
+            f"{cfg.name}: ffn {cfg.ffn_kind!r}, norm {cfg.norm_kind!r} or "
+            f"positions {cfg.pos_emb!r} unknown to the port")
+    if cfg.frontend is not None or cfg.prefix_len or cfg.encoder_only \
+            or not cfg.causal:
+        raise NotImplementedError(
+            f"{cfg.name}: only causal decoder-only token models are ported; "
+            "modality frontends, bidirectional prefixes and encoders follow "
+            "(ROADMAP.md)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -91,7 +99,7 @@ def _init_element(gen, cfg: ModelConfig, kind: str, device, layer_idx: int,
     len(pattern) + pos``, as in the JAX package) sets HGRN2's forget-gate
     lower bound ``beta = layer_idx / n_layers``."""
     dt = getattr(torch, cfg.param_dtype)
-    p: Params = {"norm": L.init_norm(cfg.d_model, dt, device)}
+    p: Params = {"norm": L.init_norm(cfg.d_model, cfg.norm_kind, dt, device)}
     if kind == "attn":
         p["mixer"] = ATT.init_attention(gen, cfg, device)
     elif kind == "mla":
@@ -103,7 +111,7 @@ def _init_element(gen, cfg: ModelConfig, kind: str, device, layer_idx: int,
     else:
         p["mixer"] = SSM.init_mamba2(gen, cfg, device)
     if _has_ffn(cfg, kind):
-        p["ffn_norm"] = L.init_norm(cfg.d_model, dt, device)
+        p["ffn_norm"] = L.init_norm(cfg.d_model, cfg.norm_kind, dt, device)
         if cfg.ffn_kind != "moe":
             p["ffn"] = L.init_ffn(gen, cfg, device)
         elif dense_ffn:
@@ -116,10 +124,11 @@ def _init_element(gen, cfg: ModelConfig, kind: str, device, layer_idx: int,
 
 
 def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The element's FFN: MoE where its params route, else dense SwiGLU."""
+    """The element's FFN: MoE where its params route, else the dense FFN of
+    kind ``cfg.ffn_kind_inner`` (an MoE model's dense layers: SwiGLU)."""
     if cfg.ffn_kind == "moe" and "router" in p:
         return L.apply_moe(p, h, cfg)
-    return L.apply_ffn(p, h)
+    return L.apply_ffn(p, h, cfg.ffn_kind_inner)
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
@@ -133,6 +142,9 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     params: Params = {
         "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, dt,
                               device)}
+    if cfg.pos_emb == "learned":
+        params["pos"] = L.embed_init(generator, POS_ROWS, cfg.d_model, dt,
+                                     device)
     if cfg.prelude:
         params["prelude"] = [_init_element(generator, cfg, kind, device, i,
                                            dense_ffn=True)
@@ -143,12 +155,13 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
                         for g in range(cfg.n_groups)]
     if cfg.shared_attn:
         params["shared"] = {
-            "norm": L.init_norm(cfg.d_model, dt, device),
+            "norm": L.init_norm(cfg.d_model, cfg.norm_kind, dt, device),
             "attn": ATT.init_attention(generator, cfg, device),
-            "ffn_norm": L.init_norm(cfg.d_model, dt, device),
+            "ffn_norm": L.init_norm(cfg.d_model, cfg.norm_kind, dt, device),
             "ffn": L.init_ffn(generator, cfg, device),
         }
-    params["final_norm"] = L.init_norm(cfg.d_model, dt, device)
+    params["final_norm"] = L.init_norm(cfg.d_model, cfg.norm_kind, dt,
+                                       device)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(generator, cfg.d_model,
                                          cfg.vocab_size, dt, device)
@@ -161,6 +174,18 @@ def _lm_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
 
 def params_device(params: Params) -> torch.device:
     return params["embed"].device
+
+
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    """Token embeddings ``(B, n, d)`` of ``tokens (B, n)`` at ``positions
+    (B, n)``, plus the learned position rows.  A position past the table
+    raises (the JAX gather clamps it): the engines refuse requests that
+    could reach one."""
+    x = params["embed"][tokens]
+    if cfg.pos_emb == "learned":
+        x = x + params["pos"][positions.long()]
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +222,7 @@ def _attn_block_forward(p: Params, x, cfg: ModelConfig, positions):
 
 def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
                      positions) -> Tuple[torch.Tensor, Any]:
-    h = L.apply_norm(p["norm"], x, cfg.norm_eps)
+    h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
     if kind == "attn":
         y, cache = _attn_block_forward(p["mixer"], h, cfg, positions)
     elif kind == "mla":
@@ -211,17 +236,17 @@ def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
         y, cache = SSM.mamba2_forward(p["mixer"], h, cfg)
     x = x + y
     if _has_ffn(cfg, kind):
-        h = L.apply_norm(p["ffn_norm"], x, cfg.norm_eps)
+        h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
         x = x + _ffn(p["ffn"], h, cfg)
     return x, cache
 
 
 def _shared_block_forward(p: Params, x, cfg: ModelConfig, positions):
-    h = L.apply_norm(p["norm"], x, cfg.norm_eps)
+    h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
     y, cache = _attn_block_forward(p["attn"], h, cfg, positions)
     x = x + y
-    h = L.apply_norm(p["ffn_norm"], x, cfg.norm_eps)
-    return x + L.apply_ffn(p["ffn"], h), cache
+    h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    return x + L.apply_ffn(p["ffn"], h, cfg.ffn_kind), cache
 
 
 @torch.no_grad()
@@ -229,9 +254,11 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, List[List[Any]]]:
     """Full-sequence forward; returns (last-position logits, caches)."""
     tokens = batch["tokens"]
-    x = params["embed"][tokens]
     B, S = tokens.shape
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x = _embed(params, cfg, tokens, positions)
+    if cfg.pos_emb == "sincos":                 # prefill only, as in JAX
+        x = x + L.sincos_pos_emb(S, cfg.d_model, x.dtype, x.device)[None]
     shared = params.get("shared")
     prelude = []
     for i, kind in enumerate(cfg.prelude):
@@ -249,7 +276,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             x, c = _shared_block_forward(shared, x, cfg, positions)
             group.append(c)
         caches.append(group)
-    x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     return x[:, -1] @ _lm_head(params, cfg), join_caches(prelude, caches)
 
 
@@ -368,7 +395,7 @@ def write_row(caches, row_caches, slot: int, length: int) -> None:
 
 def _element_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
                     positions, seed: int) -> Tuple[torch.Tensor, Any]:
-    h = L.apply_norm(p["norm"], x, cfg.norm_eps)
+    h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
     if kind == "attn":
         y, cache = ATT.attention_decode(p["mixer"], h, cache, cfg,
                                         positions[:, None], seed)
@@ -379,7 +406,7 @@ def _element_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
         y, cache = _recurrent_decode(p["mixer"], h, cache, cfg, kind, seed)
     x = x + y
     if _has_ffn(cfg, kind):
-        h = L.apply_norm(p["ffn_norm"], x, cfg.norm_eps)
+        h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
         x = x + _ffn(p["ffn"], h, cfg)
     return x, cache
 
@@ -405,8 +432,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     Returns (logits (B, V), new caches).  On the card the MX8 state and KV
     buffers are updated in place; always continue from the returned caches.
     """
-    x = params["embed"][tokens][:, None]                       # (B,1,d)
     positions = lengths
+    x = _embed(params, cfg, tokens[:, None], positions[:, None])  # (B,1,d)
     shared = params.get("shared")
     prelude, caches = split_caches(caches)
     new_prelude = []
@@ -425,16 +452,18 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                    (seed_g + pos + 1) & _U32)
             group.append(c)
         if shared is not None:
-            h = L.apply_norm(shared["norm"], x, cfg.norm_eps)
+            h = L.apply_norm(shared["norm"], x, cfg.norm_kind, cfg.norm_eps)
             y, c = ATT.attention_decode(shared["attn"], h, gcaches[-1], cfg,
                                         positions[:, None],
                                         (seed_g + 99) & _U32)
             x = x + y
-            h = L.apply_norm(shared["ffn_norm"], x, cfg.norm_eps)
-            x = x + L.apply_ffn(shared["ffn"], h)
+            h = L.apply_norm(shared["ffn_norm"], x, cfg.norm_kind,
+                             cfg.norm_eps)
+            x = x + L.apply_ffn(shared["ffn"], h, cfg.ffn_kind)
             group.append(c)
         new_caches.append(group)
-    x = L.apply_norm(params["final_norm"], x[:, 0], cfg.norm_eps)
+    x = L.apply_norm(params["final_norm"], x[:, 0], cfg.norm_kind,
+                     cfg.norm_eps)
     return x @ _lm_head(params, cfg), join_caches(new_prelude, new_caches)
 
 
@@ -466,8 +495,8 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     :func:`decode_step`'s, so logits equal the dense path's over gathered
     pages.  Returns (logits (B, V), the views with re-stacked residuals).
     """
-    x = params["embed"][tokens][:, None]                       # (B,1,d)
     positions = lengths
+    x = _embed(params, cfg, tokens[:, None], positions[:, None])  # (B,1,d)
     shared = params.get("shared")
     prelude, caches = split_caches(caches)
     new_prelude = []
@@ -486,16 +515,18 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                    (seed_g + pos + 1) & _U32)
             per_layer[pos].append(c)
         if shared is not None:
-            h = L.apply_norm(shared["norm"], x, cfg.norm_eps)
+            h = L.apply_norm(shared["norm"], x, cfg.norm_kind, cfg.norm_eps)
             y, _ = ATT.attention_decode(
                 shared["attn"], h, caches[-1].with_step(g, lengths), cfg,
                 positions[:, None], (seed_g + 99) & _U32)
             x = x + y
-            h = L.apply_norm(shared["ffn_norm"], x, cfg.norm_eps)
-            x = x + L.apply_ffn(shared["ffn"], h)
+            h = L.apply_norm(shared["ffn_norm"], x, cfg.norm_kind,
+                             cfg.norm_eps)
+            x = x + L.apply_ffn(shared["ffn"], h, cfg.ffn_kind)
     new_caches = [_stack_position(v, layers)
                   for v, layers in zip(caches, per_layer)]
-    x = L.apply_norm(params["final_norm"], x[:, 0], cfg.norm_eps)
+    x = L.apply_norm(params["final_norm"], x[:, 0], cfg.norm_kind,
+                     cfg.norm_eps)
     return x @ _lm_head(params, cfg), join_caches(new_prelude, new_caches)
 
 
@@ -545,7 +576,7 @@ def _element_spec_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
     for attention).
     """
     n = x.shape[1]
-    h = L.apply_norm(p["norm"], x, cfg.norm_eps)
+    h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
     if kind == "attn":
         y, cache = ATT.attention_spec_decode(p["mixer"], h, cache, cfg,
                                              positions, seed)
@@ -565,7 +596,7 @@ def _element_spec_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
         y = torch.cat(ys, dim=1)
     x = x + y
     if _has_ffn(cfg, kind):
-        h = L.apply_norm(p["ffn_norm"], x, cfg.norm_eps)
+        h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
         x = x + _verify_ffn(p["ffn"], h, cfg)
     return x, cache, snaps
 
@@ -576,7 +607,8 @@ def _verify_ffn(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     once, as the JAX package routes them (capacity couples the tokens)."""
     if cfg.ffn_kind == "moe" and "router" in p:
         return L.apply_moe(p, h, cfg)
-    return L.per_position(lambda t: L.apply_ffn(p, t), h)
+    return L.per_position(lambda t: L.apply_ffn(p, t, cfg.ffn_kind_inner),
+                          h)
 
 
 def _stack_snaps(per_layer: List[List[Dict[tuple, torch.Tensor]]]
@@ -602,10 +634,10 @@ def paged_spec_decode_step(params: Params, cfg: ModelConfig,
     the sequential decode step ``seed + i`` -- and every dense product but
     MoE's runs position by position on the plain step's ``(B, 1, d)``
     input (:func:`layers.per_position`), so no BLAS's blocking by row count
-    sets position i apart from the i-th sequential step (the RMSNorms still
-    reduce all n positions at once).  The attention appends land on the
-    block table's pages in place (rows past a request's pages on scratch
-    page 0: the table must span ``lengths + n``).
+    sets position i apart from the i-th sequential step (the norms, RMSNorm
+    or LayerNorm, still reduce all n positions at once).  The attention
+    appends land on the block table's pages in place (rows past a request's
+    pages on scratch page 0: the table must span ``lengths + n``).
 
     Returns ``(logits (B, n, V), views, snaps)``: ``snaps[pos]`` is None for
     attention positions and, for a mixer position, ``{path: (n, B, G,
@@ -614,9 +646,9 @@ def paged_spec_decode_step(params: Params, cfg: ModelConfig,
     split off as :func:`join_caches` does (``G = 1`` each).
     """
     B, n = tokens.shape
-    x = params["embed"][tokens]                                # (B,n,d)
     positions = lengths[:, None] + torch.arange(
         n, dtype=lengths.dtype, device=lengths.device)[None]
+    x = _embed(params, cfg, tokens, positions)                 # (B,n,d)
     shared = params.get("shared")
     prelude, caches = split_caches(caches)
     new_prelude, prelude_snaps = [], []
@@ -639,17 +671,18 @@ def paged_spec_decode_step(params: Params, cfg: ModelConfig,
             if sn is not None:
                 layer_snaps[pos].append(sn)
         if shared is not None:
-            h = L.apply_norm(shared["norm"], x, cfg.norm_eps)
+            h = L.apply_norm(shared["norm"], x, cfg.norm_kind, cfg.norm_eps)
             y, _ = ATT.attention_spec_decode(
                 shared["attn"], h, caches[-1].with_step(g, lengths), cfg,
                 positions, (seed_g + 99) & _U32)
             x = x + y
-            h = L.apply_norm(shared["ffn_norm"], x, cfg.norm_eps)
+            h = L.apply_norm(shared["ffn_norm"], x, cfg.norm_kind,
+                             cfg.norm_eps)
             x = x + _verify_ffn(shared["ffn"], h, cfg)
     new_caches = [_stack_position(v, layers)
                   for v, layers in zip(caches, per_layer)]
     snaps = [_stack_snaps(s) if s else None for s in layer_snaps]
-    x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     head = _lm_head(params, cfg)
     return (L.per_position(lambda t: t @ head, x),
             join_caches(new_prelude, new_caches),

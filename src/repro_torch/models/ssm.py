@@ -197,7 +197,7 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
         "D": torch.ones((H,), device=device),
         "dt_bias": torch.full((H,), float(np.log(np.expm1(0.01))),
                               device=device),
-        "norm": L.init_norm(d_inner, dt, device),
+        "norm": L.init_norm(d_inner, "rmsnorm", dt, device),
         "out_proj": L.dense_init(gen, d_inner, d, dt, device,
                                  1.0 / np.sqrt(2 * cfg.n_layers)),
     }

@@ -338,6 +338,10 @@ class ServingEngine(_EngineCore):
         self.params = params
         self.ecfg = ecfg
         self.device = M.params_device(params)
+        if cfg.pos_emb == "learned" and ecfg.cache_capacity > M.POS_ROWS:
+            raise ValueError(
+                f"cache_capacity {ecfg.cache_capacity} reaches past the "
+                f"{M.POS_ROWS} rows of {cfg.name}'s learned position table")
         B = ecfg.slots
         self.caches = M.init_decode_caches(cfg, B, ecfg.cache_capacity,
                                            device=self.device)
@@ -547,6 +551,19 @@ class PagedServingEngine(_EngineCore):
             raise ValueError(
                 f"fork parent {req.parent_rid} is not retained (submit the "
                 "parent with retain=True and let it finish first)")
+        if self.cfg.pos_emb == "learned":
+            # the last position a request can reach: its prompt (after a
+            # fork parent's positions), its new tokens, and a verify step's
+            # drafts past them
+            base = (self.retained[req.parent_rid].length
+                    if req.parent_rid is not None else 0)
+            reach = (base + len(req.prompt) + req.max_new_tokens
+                     + (self.pcfg.spec_k if self.pcfg.spec else 0))
+            if reach > M.POS_ROWS:
+                raise ValueError(
+                    f"request {req.rid} could reach position {reach - 1}, "
+                    f"past the {M.POS_ROWS} rows of {self.cfg.name}'s "
+                    "learned position table")
 
     def _enqueue(self, req: Request):
         self.sched.push(req)

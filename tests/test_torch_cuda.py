@@ -83,6 +83,11 @@ def _assert_state_update_contract(plain, yp, kern, yk):
     # split boundaries (128 positions a block) and rows of 8-10 splits
     (4, 1280, 32, 32, 80, (1025, 1280, 255, 256)),
     (2, 1152, 32, 8, 80, (1151, 1024)),
+    # opt-6.7b (G = 1) and yi-9b (G = 8) at head width 128; 32 heads over
+    # one kv head: one position's rows in two row blocks of 16
+    (4, 1024, 32, 32, 128, (1, 129, 700, 1024)),
+    (4, 1024, 32, 4, 128, (64, 333, 128, 1000)),
+    (2, 640, 32, 1, 128, (5, 600)),
 ])
 def test_attention_kernel_vs_plain(cuda, B, T, H, KVH, d, lens):
     g = torch.Generator(device=cuda).manual_seed(d)
@@ -125,6 +130,8 @@ def _paged_kv(cuda, lengths, n_stack, KVH, d, H, seed):
     ((1000, 128, 129, 1), 32, 32, 80),
     ((5, 200), 4, 2, 32),                   # llama3.2-1b smoke: G = 2
     ((1100, 1023, 257, 384), 32, 32, 80),   # 3 to 9 splits a row
+    ((1, 127, 128, 129), 32, 32, 128),      # opt-6.7b
+    ((1000, 131, 129, 5), 32, 4, 128),      # yi-9b: G = 8
 ])
 def test_paged_attention_kernel_vs_plain_and_dense(cuda, lens, H, KVH, d):
     from repro_torch.kernels import mx_paged_attention as KP
@@ -583,6 +590,44 @@ def test_spec_attention_kernels_vs_plain_and_decode_kernels(cuda, Kq, G,
             qj, K, V, bt, group, lj))
 
 
+#: (Kq, G): R = Kq * G query rows a kv head past one block's 16: yi-9b
+#: (32), yi-34b (28), dbrx-132b (24), two row blocks each
+ROW_BLOCK_CASES = [(4, 8), (4, 7), (4, 6)]
+
+
+@pytest.mark.parametrize("Kq,G", ROW_BLOCK_CASES)
+@pytest.mark.parametrize("lens", [(4, 127, 128, 129), (1000, 131, 129, 5),
+                                  (1025, 1154, 640, 8)])
+def test_spec_attention_row_blocks_vs_plain_and_decode_kernels(cuda, Kq, G,
+                                                               lens):
+    """Kernels 5 and 6 at Kq * G > 16 (head width 128, 4 kv heads): within
+    rtol 2e-4, atol 2e-5 of their plain versions; kernel 5 bitwise kernel
+    6 over the gathered pages; verify row j bitwise kernels 2 and 3 at
+    length len - (Kq - 1 - j)."""
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    q, K, V, bt, lengths = _spec_pools(cuda, lens, Kq, G, 128, seed=Kq * G,
+                                       n_stack=3, KVH=4)
+    group = 2
+    Kd, Vd = R.gather_pages(K, bt, group), R.gather_pages(V, bt, group)
+    y5 = KV.mx_paged_spec_attention_decode(q, K, V, bt, group, lengths)
+    y6 = KV.mx_spec_attention_decode(q, Kd, Vd, lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y6, KV.plain(q, Kd, Vd, lengths), rtol=2e-4,
+                               atol=2e-5)
+    torch.testing.assert_close(
+        y5, KV.plain_paged(q, K, V, bt, group, lengths), rtol=2e-4,
+        atol=2e-5)
+    assert torch.equal(y5, y6)
+    for j in range(Kq):
+        lj = lengths - (Kq - 1 - j)
+        qj = q[:, j].contiguous()
+        assert torch.equal(y6[:, j], KA.mx_attention_decode(qj, Kd, Vd, lj))
+        assert torch.equal(y5[:, j], KP.mx_paged_attention_decode(
+            qj, K, V, bt, group, lj))
+
+
 def test_split_kernels_replay_in_a_cuda_graph_bitwise(cuda):
     """20 CUDA-graph replays of kernels 3 and 5 give the eager launch's
     output bitwise: the last block of each (row, kv head) leaves its split
@@ -593,10 +638,15 @@ def test_split_kernels_replay_in_a_cuda_graph_bitwise(cuda):
     lens = (1025, 300, 129, 700)                       # 2 to 9 splits a row
     q, K, V, bt, lengths = _spec_pools(cuda, lens, 4, 4, 80, seed=11)
     q1 = q[:, 0].contiguous()
+    # yi-9b's verify shape: two row blocks, each with its own counters
+    qy, Ky, Vy, bty, _ = _spec_pools(cuda, lens, 4, 8, 128, seed=12,
+                                     n_stack=3, KVH=4)
     calls = {"kernel 3": lambda: KP.mx_paged_attention_decode(
                  q1, K, V, bt, 2, lengths),
              "kernel 5": lambda: KV.mx_paged_spec_attention_decode(
-                 q, K, V, bt, 2, lengths)}
+                 q, K, V, bt, 2, lengths),
+             "kernel 5, row blocks": lambda: KV.mx_paged_spec_attention_decode(
+                 qy, Ky, Vy, bty, 1, lengths)}
     for name, call in calls.items():
         eager = call()
         torch.cuda.synchronize()
@@ -618,14 +668,24 @@ def test_split_kernels_replay_in_a_cuda_graph_bitwise(cuda):
 
 
 def test_spec_attention_kernels_refuse_out_of_limit_and_mla(cuda):
+    """GQA mode refuses only what a block cannot hold -- a row block's
+    shared memory, a value row past the accumulators -- and launches the
+    shapes of the old 16-row limit (20 rows; 16 rows of 144 values)."""
     from repro_torch.kernels import mx_spec_attention as KV
-    q, K, V, bt, lengths = _spec_pools(cuda, (130, 5), 5, 4, 32, seed=1)
-    with pytest.raises(ValueError, match="Kq\\*G"):           # 20 rows
-        KV.mx_paged_spec_attention_decode(q, K, V, bt, 0, lengths)
-    q, K, V, bt, lengths = _spec_pools(cuda, (130, 5), 2, 8, 144, seed=2)
-    with pytest.raises(ValueError, match="Kq\\*G\\*dv"):      # 16*144 items
-        KV.mx_paged_spec_attention_decode(q, K, V, bt, 0, lengths)
-    # MLA mode has no row limit, but its own width limits (no fallback)
+    from repro_torch.kernels import ref as R_
+    for Kq, G, d in ((5, 4, 32), (2, 8, 144)):
+        q, K, V, bt, lengths = _spec_pools(cuda, (130, 5), Kq, G, d,
+                                           seed=Kq)
+        torch.testing.assert_close(
+            KV.mx_paged_spec_attention_decode(q, K, V, bt, 0, lengths),
+            R_.mx_paged_spec_attention_decode_ref(q, K, V, bt, 0, lengths),
+            rtol=2e-4, atol=2e-5)
+    q5, K5, V5, bt5, l5 = _spec_pools(cuda, (130, 5), 2, 8, 512, seed=2,
+                                      n_stack=1, KVH=1)
+    with pytest.raises(ValueError, match="shared memory"):   # 366592 B
+        KV.mx_paged_spec_attention_decode(q5, K5, V5, bt5, 0, l5)
+    # MLA mode has no row limit, but its own width limits (no fallback);
+    # q, K: the pools of width 144 above
     from repro_torch.kernels import ref as R
     with pytest.raises(ValueError, match="v_width"):          # missing
         KV.mx_paged_spec_attention_decode(q, K, None, bt, 0, lengths)
@@ -802,7 +862,8 @@ def test_mla_kernels_replay_in_a_cuda_graph_bitwise(cuda):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b",
-                                  "zamba2-2.7b", "gla-2.7b"])
+                                  "zamba2-2.7b", "gla-2.7b", "opt-6.7b",
+                                  "yi-9b"])
 def test_smoke_ngram_spec_greedy_equals_plain_on_card(cuda, arch):
     """The n-gram speculative stream equals the plain paged stream (MX8,
     nearest rounding, CUDA kernels), and a verify step launches the paged

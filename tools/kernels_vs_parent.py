@@ -35,8 +35,10 @@ separated; default ``mla,k1,k7``):
   deepseek-v2-236b's latent, magnitudes 1, 1e-3, 1e-37 and 1e35, both
   roundings, slots straddling page ends: every pool byte;
 * ``gqa``: kernels 2, 3, 5 and 6 in GQA mode (``csrc/mx_attention_split.cuh``)
-  at zamba2-2.7b's and llama3.2-1b's smoke widths, lengths across split
-  boundaries.  Their entry points take the split loop's workspace and
+  at zamba2-2.7b's, llama3.2-1b's smoke, opt-6.7b's and yi-9b's widths,
+  lengths across split boundaries, decode and verify (Kq = 4; yi-9b at Kq
+  = 2, its 16 rows the most one block took before the loop had row
+  blocks).  Their entry points take the split loop's workspace and
   counters, so the other checkout must date from the split loop on; the
   GQA kernels before it had other entry points and other arithmetic, and
   ``chip_smoke.py`` holds them by their contracts instead.
@@ -47,7 +49,8 @@ heads, dense and slab mode, stochastic rounding; kernel 7 at gla's
 prefill state), the four MLA modes at deepseek-v2-236b's widths and
 the table's lengths (decode 72, 408, 141, 259; Kq = 4 verify), and
 kernel 4's append (this checkout's fused launch, the other's eager
-quantize + copy) at zamba2's K and V and deepseek's latent, by
+quantize + copy) at zamba2's K and V and deepseek's latent, and kernels
+3 and 5 in GQA mode at zamba2's, opt-6.7b's and yi-9b's widths, by
 CUDA-graph replay with inputs rotated so that every launch finds them
 cold in the 50 MB L2, in the turns other, this, this, other, and prints
 the card's name and power limit.
@@ -241,29 +244,72 @@ def _report_close(label, pairs, errs) -> bool:
     return ok
 
 
+#: the gqa family's cases: (H, KVH, d, lengths, Kq of the verify kernels)
+GQA_CASES = ((32, 32, 80, (4, 127, 128, 129), 4),       # zamba2-2.7b
+             (32, 32, 80, (1025, 131, 129, 5), 4),
+             (4, 2, 32, (5, 200, 131, 64), 4),          # llama3.2-1b smoke
+             (32, 32, 128, (4, 127, 128, 129), 4),      # opt-6.7b
+             (32, 4, 128, (1025, 131, 129, 5), 2))      # yi-9b: 8 and 16 rows
+
+
+def _gqa_entries(libs):
+    """Kernels 2, 3, 6, 5 (GQA) of one checkout's libraries: C entries."""
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    return (_entry(libs["mx_attention"], "mx_attention_decode_launch",
+                   KA._ARGTYPES),
+            _entry(libs["mx_paged_attention"],
+                   "mx_paged_attention_decode_launch", KP._ATTN_ARGTYPES),
+            _entry(libs["mx_spec_attention"],
+                   "mx_spec_attention_decode_launch", KV._DENSE_ARGTYPES),
+            _entry(libs["mx_spec_attention"],
+                   "mx_paged_spec_attention_decode_launch",
+                   KV._PAGED_ARGTYPES))
+
+
+def _gqa_launch(fn, i, q, K, V, bt, lengths, out, group, n_stack, Kq):
+    """A call launching GQA kernel ``i`` (0: 2, 1: 3, 2: 6, 3: 5) through
+    the C entry ``fn`` -- paged over pools (``n_stack`` layers, layer
+    ``group``), dense over gathered caches -- with its own workspace and
+    the device's counters; the call returns the CUDA error code."""
+    import torch
+    from repro_torch.kernels import mx_attention as KA
+    B, npg = bt.shape
+    KVH, d = K.payload["mantissa"].shape[-2:]
+    G = q.shape[-2] // KVH
+    paged, verify = i in (1, 3), i >= 2
+    qq = q if verify else q[:, 0].contiguous()
+    ws, counters = KA.split_scratch(B, KVH, npg, (Kq if verify else 1) * G,
+                                    G, d, q.device)
+    kp, vp = K.payload, V.payload
+    ptrs = [qq.data_ptr(), kp["mantissa"].data_ptr(),
+            kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
+            vp["mantissa"].data_ptr(), vp["exponent"].data_ptr(),
+            vp["micro"].data_ptr()] + ([bt.data_ptr()] if paged else [])
+    ptrs += [lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+             counters.data_ptr()]
+    dims = ([B, npg, n_stack, group, KVH, G] if paged
+            else [B, npg * 128, KVH, G]) + ([Kq] if verify else [])
+    # the stream at launch time: a CUDA graph captures on its own
+    return lambda: fn(*ptrs, *dims, d, d, d ** -0.5, ws.numel(),
+                      counters.numel(),
+                      torch.cuda.current_stream().cuda_stream)
+
+
 def _gqa_cases(other) -> bool:
-    """GQA mode of kernels 2, 3 (decode) and 5, 6 (Kq = 4 verify): the
-    split loop's entry points."""
+    """GQA mode of kernels 2, 3 (decode) and 5, 6 (verify): the split
+    loop's entry points."""
     import torch
     from repro_torch.kernels import mx_attention as KA
     from repro_torch.kernels import mx_paged_attention as KP
     from repro_torch.kernels import mx_spec_attention as KV
     from repro_torch.kernels import ref as R
-    f2 = _entry(other["mx_attention"], "mx_attention_decode_launch",
-                KA._ARGTYPES)
-    f3 = _entry(other["mx_paged_attention"],
-                "mx_paged_attention_decode_launch", KP._ATTN_ARGTYPES)
-    f6 = _entry(other["mx_spec_attention"], "mx_spec_attention_decode_launch",
-                KV._DENSE_ARGTYPES)
-    f5 = _entry(other["mx_spec_attention"],
-                "mx_paged_spec_attention_decode_launch", KV._PAGED_ARGTYPES)
-    stream = torch.cuda.current_stream().cuda_stream
+    fns = _gqa_entries(other)
     ok = True
-    for H, KVH, d, lens in ((32, 32, 80, (4, 127, 128, 129)),
-                            (32, 32, 80, (1025, 131, 129, 5)),
-                            (4, 2, 32, (5, 200, 131, 64))):
-        q, K, V, bt, lengths = _pool(lens, KVH, d, 9, d + lens[0], 4, H)
-        group, B, npg, G = 4, len(lens), bt.shape[1], H // KVH
+    for H, KVH, d, lens, Kq in GQA_CASES:
+        q, K, V, bt, lengths = _pool(lens, KVH, d, 9, d + lens[0], Kq, H)
+        group = 4
         Kd, Vd = R.gather_pages(K, bt, group), R.gather_pages(V, bt, group)
         q1 = q[:, 0].contiguous()
         ys = (KA.mx_attention_decode(q1, Kd, Vd, lengths),
@@ -271,33 +317,45 @@ def _gqa_cases(other) -> bool:
               KV.mx_spec_attention_decode(q, Kd, Vd, lengths),
               KV.mx_paged_spec_attention_decode(q, K, V, bt, group, lengths))
         outs = [torch.empty_like(y) for y in ys]
-        errs = []
-        for i, (fn, qq, R_, paged) in enumerate(((f2, q1, G, False),
-                                                 (f3, q1, G, True),
-                                                 (f6, q, 4 * G, False),
-                                                 (f5, q, 4 * G, True))):
-            ws, counters = KA.split_scratch(B, KVH, npg, R_, d, q.device)
-            src, vsrc = (K, V) if paged else (Kd, Vd)
-            kp, vp = src.payload, vsrc.payload
-            ptrs = [qq.data_ptr(), kp["mantissa"].data_ptr(),
-                    kp["exponent"].data_ptr(), kp["micro"].data_ptr(),
-                    vp["mantissa"].data_ptr(), vp["exponent"].data_ptr(),
-                    vp["micro"].data_ptr()]
-            if paged:
-                ptrs.append(bt.data_ptr())
-            ptrs += [lengths.data_ptr(), outs[i].data_ptr(), ws.data_ptr(),
-                     counters.data_ptr()]
-            dims = ([B, npg, 9, group, KVH, G] if paged
-                    else [B, npg * 128, KVH, G])
-            if i >= 2:
-                dims.append(4)
-            errs.append(fn(*ptrs, *dims, d, d, d ** -0.5, ws.numel(),
-                           counters.numel(), stream))
+        errs = [_gqa_launch(fns[i], i, q, *((K, V) if i in (1, 3)
+                                            else (Kd, Vd)), bt, lengths,
+                            outs[i], group, 9, Kq)()
+                for i in range(4)]
         torch.cuda.synchronize()
         ok &= _report(
-            f"GQA H={H} KVH={KVH} d={d} lengths={lens}: kernels 2, 3, 6, 5",
+            f"GQA H={H} KVH={KVH} d={d} lengths={lens} Kq={Kq}: kernels 2, "
+            "3, 6, 5",
             list(zip(ys, outs)), errs)
     return ok
+
+
+def _time_gqa(other) -> None:
+    """Kernels 3 and 5 (GQA, paged: what the served paths launch) of both
+    checkouts at zamba2-2.7b's, opt-6.7b's and yi-9b's widths (yi-9b's
+    verify at Kq = 2, the most rows the loop took before row blocks), batch
+    4 at the decode lengths of PERF.md's kernel table, 64 layers of pages
+    rotating cold in L2."""
+    import torch
+    from repro_torch.kernels import _build
+    mine = _gqa_entries({n: _build.load(n) for n in _SOURCES["gqa"]})
+    theirs = _gqa_entries(other)
+    base = (72, 408, 141, 259)
+    n_rot = 64
+    for label, H, KVH, d, Kq in (("zamba2", 32, 32, 80, 4),
+                                 ("opt-6.7b", 32, 32, 128, 4),
+                                 ("yi-9b", 32, 4, 128, 2)):
+        lengths = [n + Kq - 1 for n in base]
+        q, K, V, bt, lens = _pool(lengths, KVH, d, n_rot, 140 + d + KVH, Kq,
+                                  H)
+        for name, i in (("kernel 3 decode", 1), ("kernel 5 verify", 3)):
+            out = torch.empty((len(lengths), Kq if i == 3 else 1, H, d),
+                              device="cuda")
+            _turns(f"GQA {label} {name} Kq={Kq if i == 3 else 1} "
+                   f"lengths={lengths}",
+                   {w: [_gqa_launch(fns[i], i, q, K, V, bt, lens, out, g,
+                                    n_rot, Kq) for g in range(n_rot)]
+                    for w, fns in (("other", theirs), ("this", mine))}, 20)
+        del q, K, V
 
 
 #: kernel 4's cases: (label, KVH, width, streams)
@@ -639,6 +697,7 @@ def _time_cases(other, split_loop: bool) -> None:
     del xs, outs
     _time_mla(other, split_loop)
     _time_append(other)
+    _time_gqa(other)
     torch.cuda.synchronize()
 
 
@@ -651,8 +710,8 @@ def main() -> int:
     ap.add_argument("--cases", default="mla,k1,k7",
                     help=f"comma-separated families of {FAMILIES}")
     ap.add_argument("--time", action="store_true",
-                    help="then time kernels 1, 7, 4 and the MLA modes of "
-                    "both checkouts")
+                    help="then time kernels 1, 7, 4, the MLA modes and "
+                    "GQA kernels 3 and 5 of both checkouts")
     args = ap.parse_args()
     cases = [c for c in args.cases.split(",") if c]
     bad = [c for c in cases if c not in FAMILIES]
