@@ -18,9 +18,11 @@ layers: ``gla-2.7b`` through the same three paths, ``retnet-2.7b`` and
 baseline ``opt-6.7b`` (32 layers) and ``yi-9b`` (48 layers, grouped
 queries) at full width and full depth through the same three paths.  It
 checks that every decode step
-went through the kernels of its path, and every prefill through the MX8
-quantizer (kernel 7), and that no paged decode or verify step ran the
-plain MX8 quantizer on the card.  Phases, in the order they run:
+went through the kernels of its path (the slot pool's appends through the
+fused dense quantize-and-append), and every prefill through the MX8
+quantizer (kernel 7, one launch for a layer's K and V), and that no
+decode, verify or prefill step ran the plain MX8 quantizer on the card.
+Phases, in the order they run:
 
   1. device   2. build   3. exact powers of two   4. state-update kernel
   5. attention kernel   9. paged kernels (paged attention, paged append:
@@ -29,10 +31,13 @@ plain MX8 quantizer on the card.  Phases, in the order they run:
   paged)   20. the MX8 quantizer (kernel 7), bitwise   21. the
   state-update kernel at the GLA family's heads   28. the GQA kernels,
   the fused append and kernel 7 at opt-6.7b's and yi-9b's widths (yi-9b's
-  verify pass: 32 query rows a kv head, two row blocks)   6. timing   10.
+  verify pass: 32 query rows a kv head, two row blocks)   36. the slot
+  pool's fused dense append at every served model's stream widths and
+  kernel 7's two-stream launch, bitwise   6. timing   10.
   paged-kernel timing   13. verify-kernel timing   22. timing of kernels 7
   and 1 at the GLA family's shapes   29. timing at opt-6.7b's and yi-9b's
-  widths   7. main path, slot pool   11. main
+  widths   37. timing of the dense append and of kernel 7's prefill
+  launch, with the paths they replaced   7. main path, slot pool   11. main
   path, paged pool   12. matmul row invariance at the model's shapes
   14. main path, paged pool with speculation (n-gram drafts; a short
   model-draft run; the pool-level rollback check)   15. MLA mode of
@@ -134,6 +139,13 @@ QUANT_SHAPES = (tuple((b,) + shape[1:] for _, shape, _ in GLA_SU
 CONTROL_FACTOR = 4
 #: retnet-2.7b / hgrn2-2.7b: a few requests through the paged pool
 OTHER_MAX_NEW = 8
+#: the slot paths' decode profiles before the fused dense append, when the
+#: slot pool quantized its appends eagerly: device busy ms and device
+#: operations a step (PERF.md section 5; an H100 80GB HBM3 at 700 W)
+EAGER_APPEND_PROFILE = {"zamba2-2.7b": (19.484, 4673),
+                     "deepseek-v2-236b": (27.336, 857),
+                     "gla-2.7b": (10.696, 1512), "opt-6.7b": (30.158, 7020),
+                     "yi-9b": (41.892, 11478)}
 
 
 class SmokeFailure(RuntimeError):
@@ -1270,6 +1282,8 @@ def phase_main_path(cfg, params, init_s):
     KS.mx_state_update.launches = 0
     KA.mx_attention_decode.launches = 0
     K7.mx_quantize.launches = 0
+    K7.mx_kv_append_quant.launches = K7.mx_kv_append_quant.mla_launches = 0
+    PLAIN_QUANT["calls"] = 0
     t1 = time.perf_counter()
     handles = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
     eng.run()
@@ -1277,13 +1291,19 @@ def phase_main_path(cfg, params, init_s):
     wall = time.perf_counter() - t1
     n_su, n_at = KS.mx_state_update.launches, KA.mx_attention_decode.launches
     n_q = K7.mx_quantize.launches
+    n_apd = K7.mx_kv_append_quant.launches
+    n_plain_q = PLAIN_QUANT["calls"]
     steps = eng.engine.step_count
     _check_done(handles, cfg)
     check(steps > 0 and n_su == 54 * steps and n_at == 9 * steps
+          and n_apd == 9 * steps and K7.mx_kv_append_quant.mla_launches == 0
           and n_q == _k7_per_prefill(cfg) * len(prompts),
-          f"launches: state_update {n_su}, attention {n_at} over {steps} "
-          f"decode steps (want 54x and 9x), quantizer {n_q} over "
-          f"{len(prompts)} prefills (want {_k7_per_prefill(cfg)}x)")
+          f"launches: state_update {n_su}, attention {n_at}, dense append "
+          f"{n_apd} over {steps} decode steps (want 54x, 9x and 9x), "
+          f"quantizer {n_q} over {len(prompts)} prefills (want "
+          f"{_k7_per_prefill(cfg)}x)")
+    check(n_plain_q == 0, f"the plain MX8 quantizer ran {n_plain_q} times "
+          "on the card inside slot decode steps or prefills")
     st = eng.stats()
     peak = torch.cuda.max_memory_allocated()
     caches = eng.engine.caches
@@ -1293,12 +1313,15 @@ def phase_main_path(cfg, params, init_s):
                       if not isinstance(c, AC.KVCache))
     phase(7, "main path zamba2-2.7b slots", params=n_params,
           init_s=f"{init_s:.1f}", requests=len(handles), decode_steps=steps,
-          launches=f"su={n_su},attn={n_at},quant={n_q}", wall_s=f"{wall:.3f}",
+          launches=f"su={n_su},attn={n_at},dense_append={n_apd},quant={n_q}",
+          plain_quantizer_calls_in_steps=n_plain_q, wall_s=f"{wall:.3f}",
           **_step_fields(st), peak_mem_GB=f"{peak / 1e9:.2f}",
           state_MB=f"{state_bytes / 1e6:.2f}", kv_MB=f"{kv_bytes / 1e6:.2f}")
-    prof = _profile_decode(eng, cfg, rng, PROMPT_LENS[:4], 7)
+    prof = _profile_decode(eng, cfg, rng, PROMPT_LENS[:4], 7,
+                           before=EAGER_APPEND_PROFILE[cfg.name])
     _reference_check(params, cfg, prompts[0])
-    return dict(n_su=n_su, n_at=n_at, stats=st, peak=peak, prof=prof)
+    return dict(n_su=n_su, n_at=n_at, n_apd=n_apd, stats=st, peak=peak,
+                prof=prof)
 
 
 def _paged_vs_gather(eng, cfg, rng, n_steps=4, lens0=(64, 129, 127, 200)):
@@ -1380,6 +1403,7 @@ def phase_paged_main_path(cfg, params, slot):
     for c in counters:
         c.launches = 0
     KS.mx_state_update.slab_launches = 0
+    K7.mx_kv_append_quant.launches = K7.mx_kv_append_quant.mla_launches = 0
     PLAIN_QUANT["calls"] = 0
     t1 = time.perf_counter()
     handles = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
@@ -1396,14 +1420,16 @@ def phase_paged_main_path(cfg, params, slot):
     check(st["preemptions"] >= 1, f"no preemption with {PAGED}")
     check(steps > 0 and n_su == 54 * steps and n_dense == 0
           and n_pa == 9 * steps and n_apq == 9 * steps and n_ap == 0
-          and n_at == 0 and n_q == _k7_per_prefill(cfg) * len(prompts),
+          and n_at == 0 and n_q == _k7_per_prefill(cfg) * len(prompts)
+          and K7.mx_kv_append_quant.launches == 0,
           f"launches over {steps} decode steps: state_update slab mode "
           f"{n_su} (want 54x), dense mode {n_dense} (0), paged attention "
           f"{n_pa} (9x), fused append {n_apq} (9x), copy append {n_ap} "
-          f"(0), dense attention {n_at} (0); quantizer {n_q} over "
+          f"(0), dense attention {n_at} (0), dense append "
+          f"{K7.mx_kv_append_quant.launches} (0); quantizer {n_q} over "
           f"{len(prompts)} prefills")
     check(n_plain_q == 0, f"the plain MX8 quantizer ran {n_plain_q} times "
-          "on the card inside paged decode steps")
+          "on the card inside paged decode steps or prefills")
     pool = eng.engine.pool
     phase(11, "main path zamba2-2.7b paged", requests=len(handles),
           decode_steps=steps, launches=f"su_slab={n_su},su_dense={n_dense},"
@@ -1488,6 +1514,7 @@ def phase_spec_main_path(cfg, params, paged):
     for c in counters:
         c.launches = 0
     KS.mx_state_update.slab_launches = 0
+    K7.mx_kv_append_quant.launches = K7.mx_kv_append_quant.mla_launches = 0
     PLAIN_QUANT["calls"] = 0
     t1 = time.perf_counter()
     handles = [eng.submit(p, max_new_tokens=MAX_NEW)
@@ -1504,14 +1531,15 @@ def phase_spec_main_path(cfg, params, paged):
     st = eng.stats()
     check(steps > 0 and n5 == 9 * steps and n4 == 9 * KQ * steps
           and n1s == 54 * KQ * steps and n6 == n3 == n4c == n2 == n1 == 0
-          and n_q == _k7_per_prefill(cfg) * len(handles),
+          and n_q == _k7_per_prefill(cfg) * len(handles)
+          and K7.mx_kv_append_quant.launches == 0,
           f"launches over {steps} verify steps: paged verify {n5} (want 9x), "
           f"fused append {n4} ({9 * KQ}x), state update slab {n1s} "
           f"({54 * KQ}x), dense verify {n6}, paged attention {n3}, copy "
           f"append {n4c}, dense attention {n2}, dense state update {n1} (0 "
           f"each); quantizer {n_q} over {len(handles)} prefills")
     check(n_plain_q == 0, f"the plain MX8 quantizer ran {n_plain_q} times "
-          "on the card inside verify steps")
+          "on the card inside verify steps or prefills")
     agree, first = _agreement(paged["outputs"], [h.output for h in handles])
     ps = paged["stats"]
     phase(14, "main path zamba2-2.7b paged + ngram speculation",
@@ -1591,10 +1619,12 @@ def _greedy_exactness(params, cfg, prompts, invariant, n, max_new=MAX_NEW,
           "the model draft proposed nothing")
 
 
-def _profile_decode(eng, cfg, rng, prompt_lens, n, n_steps=5):
+def _profile_decode(eng, cfg, rng, prompt_lens, n, n_steps=5, before=None):
     """Device busy / idle share of steady decode steps at batch 4, from a
     torch.profiler window (kernel time summed over the device timeline).
-    A window without device events fails the run."""
+    A window without device events fails the run.  ``before``: (device
+    busy ms, device operations) a step of an earlier build, printed
+    beside."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1622,10 +1652,13 @@ def _profile_decode(eng, cfg, rng, prompt_lens, n, n_steps=5):
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out = dict(idle_share=1 - busy / wall_us)
+    earlier = {} if before is None else dict(
+        eager_append_device_busy_ms_per_step=f"{before[0]:.3f}",
+        eager_append_device_ops_per_step=f"{before[1]:,}")
     phase(n, "decode profile", steps=n_steps,
           step_wall_ms=f"{wall_us / n_steps / 1e3:.3f}",
           device_busy_ms_per_step=f"{busy / n_steps / 1e3:.3f}",
-          device_ops_per_step=f"{n_kernels / n_steps:.0f}",
+          device_ops_per_step=f"{n_kernels / n_steps:.0f}", **earlier,
           idle_share=f"{out['idle_share']:.3f}",
           top=repr([(name[:48], f"{us / n_steps / 1e3:.3f}ms")
                     for name, us in top]))
@@ -1974,10 +2007,11 @@ def phase_deepseek(cfg, params):
     with preemption (18; paged logits bitwise the dense-gather path's on a
     fresh pool first) and the paged pool with n-gram speculation (19).
     Every decode step must launch the MLA kernel of its path once per
-    layer (4), the paged paths the fused latent append once per layer and
-    position (4, 16), and no GQA attention or state-update kernel, no copy
-    append and no plain MX8 quantizer; every request's prefill kernel 7
-    once per layer (one latent stream each)."""
+    layer (4), the fused latent append once per layer and position (the
+    dense one on the slot pool, the paged one on the paged paths: 4, 16),
+    and no GQA attention or state-update kernel, no copy append and no
+    plain MX8 quantizer; every request's prefill kernel 7 once per layer
+    (one latent stream each)."""
     import numpy as np
     from repro_torch.models import model as M
     from repro_torch.serving.api import Engine, ServeConfig
@@ -1988,12 +2022,14 @@ def phase_deepseek(cfg, params):
 
     eng = Engine(params, cfg, ServeConfig(backend="slots", batch=4,
                                           cache_capacity=1024))
-    slot = _serve_counted(eng, cfg, prompts, DS_MAX_NEW, dict(k2=L),
-                          _k7_per_prefill(cfg), "deepseek slots")
+    slot = _serve_counted(eng, cfg, prompts, DS_MAX_NEW,
+                          dict(k2=L, apd_mla=L), _k7_per_prefill(cfg),
+                          "deepseek slots")
     kv = sum(_payload_bytes(c.k) for c in M.iter_kv_caches(eng.engine.caches))
     phase(17, "main path deepseek-v2-236b slots", reduced=DS_REDUCED,
           **_fields(slot), kv_MB=f"{kv / 1e6:.2f}")
-    slot["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 17)
+    slot["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 17,
+                                   before=EAGER_APPEND_PROFILE[cfg.name])
     _reference_check(params, cfg, prompts[0], n=17)
     del eng                    # frees the slot pool's caches
 
@@ -2207,17 +2243,23 @@ def phase_gla_timing():
 
 
 #: calls of ``F.mx8_quantize`` on a CUDA tensor made inside the served
-#: model's paged decode and verify steps, counted by the wrappers that
+#: model's decode, verify and prefill steps, counted by the wrappers that
 #: :func:`_watch_plain_quantizer` installs (``depth`` > 0 inside a step)
 PLAIN_QUANT = dict(depth=0, calls=0)
+#: the steps the watcher wraps: the slot pool's decode step (and the paged
+#: pool's dense-gather reference path), the paged pool's decode and verify
+#: steps, and every prefill
+WATCHED_STEPS = ("decode_step", "paged_decode_step", "paged_spec_decode_step",
+                 "prefill")
 
 
 def _watch_plain_quantizer():
     """Wrap ``F.mx8_quantize`` (which ``F.quantize`` calls) to count its
-    calls on CUDA tensors inside ``M.paged_decode_step`` and
-    ``M.paged_spec_decode_step``, the steps the paged pool runs: on the
+    calls on CUDA tensors inside the steps of ``WATCHED_STEPS``: on the
     card every quantize there belongs in a kernel.  This script's own
-    checks call the plain quantizer outside those steps, uncounted."""
+    checks call the plain quantizer outside those steps, uncounted, and
+    its plain-ops reference runs inside them, outside the counted
+    windows."""
     from repro_torch.core import formats as F
     from repro_torch.models import model as M
     quantize = F.mx8_quantize
@@ -2227,7 +2269,7 @@ def _watch_plain_quantizer():
             PLAIN_QUANT["calls"] += 1
         return quantize(x, *args, **kwargs)
     F.mx8_quantize = counted
-    for name in ("paged_decode_step", "paged_spec_decode_step"):
+    for name in WATCHED_STEPS:
         def inside(*args, _step=getattr(M, name), **kwargs):
             PLAIN_QUANT["depth"] += 1
             try:
@@ -2239,13 +2281,12 @@ def _watch_plain_quantizer():
 
 def _k7_per_prefill(cfg):
     """Kernel 7's launches in one request's prefill: one per recurrent
-    state, two (K and V) per attention application, one per MLA latent
-    stream."""
+    state, one per attention application (K and V in one launch), one per
+    MLA latent stream."""
     per = (lambda kinds: sum(cfg.pattern.count(k) for k in kinds)
            * cfg.n_groups + sum(cfg.prelude.count(k) for k in kinds))
-    return (per(("mamba2", "gla", "retnet", "hgrn2"))
-            + 2 * (per(("attn",)) + (cfg.n_groups if cfg.shared_attn else 0))
-            + per(("mla",)))
+    return (per(("mamba2", "gla", "retnet", "hgrn2")) + per(("attn",))
+            + (cfg.n_groups if cfg.shared_attn else 0) + per(("mla",)))
 
 
 def _counter_attrs():
@@ -2263,6 +2304,8 @@ def _counter_attrs():
     out["k1"] = (KS.mx_state_update, "launches")
     out["k1s"] = (KS.mx_state_update, "slab_launches")
     out["k7"] = (K7.mx_quantize, "launches")
+    out["apd"] = (K7.mx_kv_append_quant, "launches")
+    out["apd_mla"] = (K7.mx_kv_append_quant, "mla_launches")
     return out
 
 
@@ -2280,7 +2323,7 @@ def _serve_counted(eng, cfg, prompts, max_new, want, per_prefill, label):
     read just after; ``want`` maps counter -> launches per decode step,
     ``per_prefill`` is kernel 7's launches per request prefill; every other
     counter must stay 0, and so must the plain MX8 quantizer's calls on the
-    card inside paged decode and verify steps."""
+    card inside decode, verify and prefill steps."""
     import torch
     torch.cuda.reset_peak_memory_stats()
     _counts_reset()
@@ -2293,7 +2336,7 @@ def _serve_counted(eng, cfg, prompts, max_new, want, per_prefill, label):
     n = _counts()
     n_plain_q = PLAIN_QUANT["calls"]
     check(n_plain_q == 0, f"{label}: the plain MX8 quantizer ran "
-          f"{n_plain_q} times on the card inside paged decode or verify "
+          f"{n_plain_q} times on the card inside decode, verify or prefill "
           "steps")
     steps = eng.engine.step_count
     for h in handles:
@@ -2320,7 +2363,7 @@ def _fields(r):
                 launches_per_step=",".join(f"{k}={v:g}"
                                            for k, v in per.items()),
                 k7_launches=r["n"]["k7"],
-                plain_quantizer_calls_in_paged_steps=r["plain_quant"],
+                plain_quantizer_calls_in_steps=r["plain_quant"],
                 wall_s=f"{r['wall']:.3f}",
                 **_step_fields(st), peak_mem_GB=f"{r['peak'] / 1e9:.2f}")
 
@@ -2369,7 +2412,8 @@ def phase_gla(init):
     state = sum(_payload_bytes(c) for grp in eng.engine.caches for c in grp)
     phase(23, "main path gla-2.7b slots", **_fields(slot),
           state_MB=f"{state / 1e6:.2f}")
-    slot["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 23)
+    slot["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 23,
+                                   before=EAGER_APPEND_PROFILE[cfg.name])
     _reference_check_by_depth(params, cfg, prompts[0], n=23)
     del eng
 
@@ -2819,19 +2863,19 @@ def _sdpa(q, kf, vf, mask, gqa):
 
 def phase_dense_timing():
     """Phase 29: device times (CUDA-graph replay, inputs rotated so each
-    launch finds them cold in L2) of kernels 2, 3, 6, 5, the fused append
-    and kernel 7 at opt-6.7b's and yi-9b's widths: batch 4 at the main
-    path's mid-decode lengths (verify: Kq = 4, lengths counting the
-    appended rows); the yardstick is one ``scaled_dot_product_attention``
-    call (``enable_gqa`` for yi-9b) on the dequantized fp32 K/V, with a
-    boolean mask.  Returns {kernels-line name: times}."""
+    launch finds them cold in L2) of kernels 2, 3, 6, 5 and the fused paged
+    append at opt-6.7b's and yi-9b's widths (kernel 7's: phase 37): batch
+    4 at the main path's mid-decode lengths (verify: Kq = 4, lengths
+    counting the appended rows); the yardstick is one
+    ``scaled_dot_product_attention`` call (``enable_gqa`` for yi-9b) on the
+    dequantized fp32 K/V, with a boolean mask.  Returns {kernels-line name:
+    times}."""
     import torch
     from repro_torch import ops as OPS
     from repro_torch.core import formats as F
     from repro_torch.core.paged import pages_for
     from repro_torch.kernels import mx_attention as KA
     from repro_torch.kernels import mx_paged_attention as KP
-    from repro_torch.kernels import mx_quant as K7
     from repro_torch.kernels import mx_spec_attention as KV
     from repro_torch.kernels import ref as R
     it = iter(range(10 ** 9))
@@ -2929,26 +2973,8 @@ def phase_dense_timing():
             [K, V], bt, lens_d, n_stack, f"mx_paged_kv_append[quant,{tag}]",
             OPS.traffic(plan).total, n=29)
         del q, K, V
-        # kernel 7 at one request's prefill K stream (400 tokens, padded)
-        shape = (1, 512, KVH, d)
-        n_val = math.prod(shape)
-        n_rot = _rotation(4 * n_val)
-        g = torch.Generator(device="cuda").manual_seed(310 + G)
-        xs = [torch.randn(shape, generator=g, device="cuda")
-              for _ in range(n_rot)]
-        kern = [lambda x=x: K7.mx_quantize(x) for x in xs]
-        plain = [lambda x=x: K7.plain(x) for x in xs[:8]]
-        ms = graph_ms(kern, 10)
-        plain_ms = graph_ms(plain, 3)
-        host_ms = host_loop_ms(lambda: kern[next(it) % n_rot](), 10 * n_rot)
-        out[f"mx_quantize[{tag}]"] = _report(
-            f"mx_quantize[{tag}]", ms, plain_ms, None, host_ms,
-            n_val * (4 + 1 + 2 / F.MX8_GROUP), 5 * n_val,
-            n_val * 9 / 8 + 4 * n_val, n=29)
         phase(29, f"{arch} timing shapes", B=4, decode_lengths=dec,
-              verify_lengths=ver, Kq=KQ, layers_rotated=n_stack,
-              quantizer_shape=shape)
-        del xs, kern, plain
+              verify_lengths=ver, Kq=KQ, layers_rotated=n_stack)
         torch.cuda.empty_cache()
     return out
 
@@ -3022,16 +3048,17 @@ def _verify_invariance(params, cfg):
 
 def phase_dense(arch):
     """``arch`` (opt-6.7b or yi-9b) at full width and full depth through
-    the slot pool (phase n), the paged pool (n + 1; paged logits bitwise
-    the dense-gather path's on a fresh pool first) and the paged pool with
+    the slot pool (phase n), the paged pool (n + 1; paged logits bitwise the
+    dense-gather path's on a fresh pool first) and the paged pool with
     n-gram speculation (n + 2).  Every decode step launches the GQA
     attention kernel of its path once per layer (kernel 2 on the slot
-    pool, 3 on the paged pool, 5 per verify step), the paged paths the
-    fused append once per layer and position, and nothing else of the
-    port's kernels; every request's prefill kernel 7 twice per layer (K
-    and V).  The verify step's norm is checked for row invariance, which
-    gates greedy exactness (spec == plain at round to nearest) and the
-    pool-level verify-vs-sequential check."""
+    pool, 3 on the paged pool, 5 per verify step), the fused append of its
+    pool once per layer and position (dense on the slot pool, paged on the
+    paged paths), and nothing else of the port's kernels; every request's
+    prefill kernel 7 once per layer (K and V in one launch).  The verify
+    step's norm is checked for row invariance, which gates greedy
+    exactness (spec == plain at round to nearest) and the pool-level
+    verify-vs-sequential check."""
     import numpy as np
     import torch
     from repro_torch.models import model as M
@@ -3046,13 +3073,14 @@ def phase_dense(arch):
 
     eng = Engine(params, cfg, ServeConfig(backend="slots", batch=4,
                                           cache_capacity=1024))
-    slot = _serve_counted(eng, cfg, prompts, DENSE_MAX_NEW, dict(k2_gqa=L),
-                          k7, f"{arch} slots")
+    slot = _serve_counted(eng, cfg, prompts, DENSE_MAX_NEW,
+                          dict(k2_gqa=L, apd=L), k7, f"{arch} slots")
     kv = sum(_payload_bytes(c.k) + _payload_bytes(c.v)
              for c in M.iter_kv_caches(eng.engine.caches))
     phase(n, f"main path {arch} slots", **_fields(slot),
           kv_MB=f"{kv / 1e6:.2f}")
-    slot["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), n)
+    slot["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), n,
+                                   before=EAGER_APPEND_PROFILE[arch])
     _reference_check(params, cfg, prompts[0], n=n)
     del eng
 
@@ -3102,6 +3130,264 @@ def phase_dense(arch):
     return dict(slot=slot, paged=paged, spec=spec, invariant=invariant)
 
 
+# ---------------------------------------------------------------------------
+# the slot pool's fused dense append and kernel 7's two-stream launch
+# ---------------------------------------------------------------------------
+
+#: the slot pools' appended streams: (label, KVH, width, streams) --
+#: zamba2's shared attention, opt-6.7b's and yi-9b's K and V, deepseek's
+#: latent -- and the layers whose caches a decode step walks
+APPEND_WIDTHS = (("zamba2", 32, 80, 2, N_STACK), ("opt", 32, 128, 2, 32),
+                 ("yi", 4, 128, 2, 48), ("mla", 1, 576, 1, DS_LAYERS))
+#: the slot caches' capacity (every slot path's ``cache_capacity``)
+SLOT_T = 1024
+#: the dense-append checks' lengths: an empty row, one mid-cache, T - 2
+#: (clamped to T - Kq at n = Kq) and an idle slot's, past T
+SLOT_LENGTHS = (0, 400, SLOT_T - 2, SLOT_T + 9)
+#: kernel 7's prefill checks: (label, stream shape, pad_to) -- two gla
+#: states, opt-6.7b's and yi-9b's 400-token K and V padded to the tile
+K7_STREAMS = (("gla state", GLA_SU[0][1], None),
+              ("opt K/V", (1, 400, 32, 128), 512),
+              ("yi K/V", (1, 400, 4, 128), 512))
+
+
+def _spread(shape, g, mag=None):
+    """Values over 45 decades (``mag`` None) or at magnitude ``mag``, every
+    seventh 16-value group zero."""
+    import torch
+    x = torch.randn(shape, generator=g, device="cuda")
+    if mag is None:
+        x *= torch.pow(10.0, torch.randint(-40, 6, shape[:-1] + (1,),
+                                           generator=g, device="cuda").float())
+    else:
+        x *= mag
+    x.view(-1, 16)[::7] = 0.0
+    return x
+
+
+def phase_dense_append():
+    """Phase 36: the fused dense append (``mx_kv_append_quant``) at every
+    served model's slot-pool streams (zamba2's K and V, 32 x 80; opt-6.7b's,
+    32 x 128; yi-9b's, 4 x 128; deepseek's latent, 576) into caches of
+    SLOT_T tokens, n = 1 and n = Kq new rows, lengths SLOT_LENGTHS (the
+    last past T - n), magnitudes APPEND_MAGS, both roundings: every cache
+    byte equal to its plain version's and to the replaced path's (the
+    ``torch`` backend's ``kv_append`` on the card: the eager quantize and
+    ``_update_at``), every byte outside the appended slots unchanged.
+    Then kernel 7's two-stream launch at K7_STREAMS (padded to the tile in
+    the launch where the prefill pads), values over 45 decades and at the
+    four magnitudes, both roundings: bitwise its plain version and a
+    one-stream ``mx_quantize`` per stream on the padded copy.  Returns
+    {key: max byte difference}."""
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.core import attention_cache as AC
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_quant as K7
+    errs = {}
+    B = len(SLOT_LENGTHS)
+    lens = torch.tensor(SLOT_LENGTHS, dtype=torch.int32, device="cuda")
+    fields = ("mantissa", "exponent", "micro")
+    for label, KVH, w, k, _ in APPEND_WIDTHS:
+        g = torch.Generator(device="cuda").manual_seed(360 + w)
+        base = [F.mx8_quantize(torch.randn((B, SLOT_T, KVH, w), generator=g,
+                                           device="cuda")) for _ in range(k)]
+        worst = cases = 0
+        for n, mag, rounding in itertools.product(
+                (1, KQ), APPEND_MAGS, ("nearest", "stochastic")):
+            rows = [torch.randn((B, n, KVH, w), generator=g, device="cuda")
+                    * mag for _ in range(k)]
+            rows[0].view(-1, 16)[::5] = 0.0
+            seed = 0xFFFFFFFF - cases            # V's seed wraps past 2^32
+            kern, plain, eager = ([c.clone() for c in base] for _ in "kpe")
+            K7.mx_kv_append_quant(rows, kern, lens, seed, rounding=rounding)
+            K7.plain_append(rows, plain, lens, seed, rounding)
+            cache = AC.KVCache(eager[0], eager[1] if k == 2 else None,
+                               lens.clone(), "mx8", None if k == 2 else 512)
+            OPS.kv_append(cache, rows[0], rows[1] if k == 2 else None,
+                          OPS.StateQuantConfig("mx8", rounding, "torch"),
+                          seed=seed)
+            torch.cuda.synchronize()
+            start = lens.long().clamp(0, SLOT_T - n)
+            keep = torch.ones((B, SLOT_T), dtype=torch.bool, device="cuda")
+            for b in range(B):
+                keep[b, int(start[b]):int(start[b]) + n] = False
+            for i in range(k):
+                for f in fields:
+                    x = kern[i].payload[f]
+                    worst = max(worst, int((x.int() - plain[i].payload[f]
+                                            .int()).abs().max()))
+                    where = (f"dense append {label} n={n} magnitude {mag:g} "
+                             f"{rounding}: stream {i} {f}")
+                    check(torch.equal(x, plain[i].payload[f]),
+                          f"{where} differs from the plain version")
+                    check(torch.equal(x, eager[i].payload[f]),
+                          f"{where} differs from the replaced path (the "
+                          "torch op's eager quantize + _update_at)")
+                    check(torch.equal(x[keep], base[i].payload[f][keep]),
+                          f"{where} changed outside the appended slots")
+            cases += 1
+            del kern, plain, eager, cache
+        errs[f"apd_{label}"] = float(worst)
+        phase(36, f"fused dense append at {label}'s widths", KVH=KVH, w=w,
+              streams=k, T=SLOT_T, lengths=SLOT_LENGTHS,
+              new_rows=f"1,{KQ}",
+              magnitudes=",".join(f"{m:g}" for m in APPEND_MAGS),
+              roundings="nearest,stochastic", cases=cases,
+              result="bitwise (plain version, replaced torch op; other "
+              "slots untouched)")
+        del base
+    worst = cases = 0
+    for label, shape, pad_to in K7_STREAMS:
+        g = torch.Generator(device="cuda").manual_seed(370 + shape[-1])
+        for mag, rounding in itertools.product((None,) + APPEND_MAGS,
+                                               ("nearest", "stochastic")):
+            xs = [_spread(shape, g, mag), _spread(shape, g, mag)]
+            seeds = [cases, 0xFFFFFFFF - cases]
+            got = K7.mx_quantize_streams(xs, seeds, rounding=rounding,
+                                         pad_to=pad_to)
+            want = K7.plain_streams(xs, seeds, rounding, pad_to)
+            for x, q, p, s in zip(xs, got, want, seeds):
+                if pad_to is not None:
+                    x = torch.nn.functional.pad(
+                        x, (0, 0, 0, 0, 0, pad_to - shape[1]))
+                one = K7.mx_quantize(x, s, rounding=rounding)
+                torch.cuda.synchronize()
+                for f in fields:
+                    worst = max(worst, int((q.payload[f].int() - p.payload[f]
+                                            .int()).abs().max()))
+                    where = (f"kernel 7, two streams, {label} {shape} "
+                             f"magnitude {mag} {rounding}: {f}")
+                    check(torch.equal(q.payload[f], p.payload[f]),
+                          f"{where} differs from the plain version")
+                    check(torch.equal(q.payload[f], one.payload[f]),
+                          f"{where} differs from a one-stream launch")
+            cases += 1
+            del xs, got, want
+    errs["k7_streams"] = float(worst)
+    phase(36, "kernel 7, two streams a launch, vs plain and vs one stream",
+          shapes=[f"{lab} {s}" + (f" padded to {p}" if p else "")
+                  for lab, s, p in K7_STREAMS], cases=cases,
+          values="45 decades," + ",".join(f"{m:g}" for m in APPEND_MAGS),
+          roundings="nearest,stochastic", max_abs_err=worst,
+          result="bitwise (mantissa, exponent, micro)")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_dense_append_timing():
+    """Phase 37: device times by CUDA-graph replay.  The fused dense append
+    at each slot path's streams, B = 4, n = 1, mid-decode lengths, walking
+    the caches of the model's attention layers as a decode step does;
+    beside it its plain version, the path it replaced (the ``torch``
+    backend's ``kv_append``: the eager quantize + ``_update_at``) and the
+    host time of one ``OPS.kv_append`` call through each backend.  Bound:
+    bytes, the fp32 rows read once and their MX8 payload written once, and
+    the lengths.  Then kernel 7 at opt-6.7b's and yi-9b's prefill (one
+    request of 400 tokens): the path's launch (K and V of (1, 400, KVH,
+    128), padded to 512 in the launch), the path it replaced (``F.pad`` and
+    one launch a stream), one stream of (1, 512, KVH, 128) (the shape timed
+    before the two-stream launch existed), and the least launch, one
+    16-value group, by the same method.  Inputs rotate so each launch finds
+    them cold in L2.  No single PyTorch call quantizes to MX8: the library
+    times are null.  Returns {kernels-line name: times}."""
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.core import attention_cache as AC
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_quant as K7
+    it = iter(range(10 ** 9))
+    out = {}
+    B = 4
+    lens = torch.tensor([n + DENSE_MAX_NEW // 2 for n in PROMPT_LENS[:B]],
+                        dtype=torch.int32, device="cuda")
+    cuda_cfg = OPS.StateQuantConfig()
+    torch_cfg = OPS.StateQuantConfig("mx8", "stochastic", "torch")
+    for label, KVH, w, k, L in APPEND_WIDTHS:
+        name = ("mx_kv_append_quant" if label == "zamba2"
+                else f"mx_kv_append_quant[{label}]")
+        g = torch.Generator(device="cuda").manual_seed(380 + w)
+        caches = [[F.mx8_quantize(torch.randn((B, SLOT_T, KVH, w),
+                                              generator=g, device="cuda"))
+                   for _ in range(k)] for _ in range(L)]
+        rows = [torch.randn((B, 1, KVH, w), generator=g, device="cuda")
+                for _ in range(k)]
+        kv = [AC.KVCache(c[0], c[1] if k == 2 else None, lens, "mx8",
+                         None if k == 2 else 512) for c in caches]
+        v_row = rows[1] if k == 2 else None
+        kern = [lambda c=c, i=i: K7.mx_kv_append_quant(rows, c, lens, i)
+                for i, c in enumerate(caches)]
+        plain = [lambda c=c, i=i: K7.plain_append(rows, c, lens, i)
+                 for i, c in enumerate(caches)]
+        replaced = [lambda c=c, i=i: OPS.kv_append(c, rows[0], v_row,
+                                                   torch_cfg, seed=i)
+                    for i, c in enumerate(kv)]
+        ms = graph_ms(kern, 50)
+        plain_ms = graph_ms(plain, 5)
+        replaced_ms = graph_ms(replaced, 5)
+        host_ms = host_loop_ms(lambda: kern[next(it) % L](), 30 * L)
+        op_ms = host_loop_ms(lambda: OPS.kv_append(kv[0], rows[0], v_row,
+                                                   cuda_cfg, seed=3), 30 * L)
+        replaced_host_ms = host_loop_ms(lambda: OPS.kv_append(
+            kv[0], rows[0], v_row, torch_cfg, seed=3), 30 * L)
+        n_val = B * KVH * w * k
+        plan = OPS.registry.plan("kv_append", dict(
+            B=B, T=1, KVH=KVH, dk=w, dv=w if k == 2 else 0, n=1), cuda_cfg,
+            "cuda")
+        out[name] = _report(name, ms, plain_ms, None, host_ms,
+                            n_val * (4 + 1 + 2 / F.MX8_GROUP) + 4 * B,
+                            5 * n_val, OPS.traffic(plan).total, n=37)
+        phase(37, f"{name} vs the replaced path", layers=L,
+              replaced_ms=f"{replaced_ms:.5f}",
+              fused_faster=f"{replaced_ms / ms:.2f}x",
+              per_step_layers_ms=f"{L * ms:.5f} vs {L * replaced_ms:.5f}",
+              host_kv_append_op_ms=f"{op_ms:.5f}",
+              host_replaced_op_ms=f"{replaced_host_ms:.5f}",
+              host_faster=f"{replaced_host_ms / op_ms:.2f}x")
+        del caches, kv, kern, plain, replaced
+        torch.cuda.empty_cache()
+    # the least launch of kernel 7: one group, the same method
+    xs = [torch.randn((1, 16), device="cuda") for _ in range(64)]
+    floor_ms = graph_ms([lambda x=x: K7.mx_quantize(x) for x in xs], 50)
+    for tag, KVH in (("opt", 32), ("yi", 4)):
+        shape = (1, 400, KVH, 128)
+        n_in, n_out = 2 * math.prod(shape), 2 * 512 * KVH * 128
+        n_rot = _rotation(4 * n_in)
+        g = torch.Generator(device="cuda").manual_seed(390 + KVH)
+        xs = [[torch.randn(shape, generator=g, device="cuda")
+               for _ in "kv"] for _ in range(n_rot)]
+        kern = [lambda x=x: K7.mx_quantize_streams(x, pad_to=512)
+                for x in xs]
+        plain = [lambda x=x: K7.plain_streams(x, [0, 0], "nearest", 512)
+                 for x in xs[:8]]
+        replaced = [lambda x=x: [K7.mx_quantize(torch.nn.functional.pad(
+            a, (0, 0, 0, 0, 0, 112))) for a in x] for x in xs]
+        ms = graph_ms(kern, 10)
+        plain_ms = graph_ms(plain, 3)
+        replaced_ms = graph_ms(replaced, 10)
+        host_ms = host_loop_ms(lambda: kern[next(it) % n_rot](), 10 * n_rot)
+        name = f"mx_quantize[{tag}]"
+        out[name] = _report(name, ms, plain_ms, None, host_ms,
+                            4 * n_in + n_out * (1 + 2 / F.MX8_GROUP),
+                            5 * n_out, 4 * n_in + n_out * 9 / 8, n=37)
+        one = (1, 512, KVH, 128)
+        n_one = math.prod(one)
+        ys = [torch.randn(one, generator=g, device="cuda")
+              for _ in range(_rotation(4 * n_one))]
+        one_ms = graph_ms([lambda y=y: K7.mx_quantize(y) for y in ys], 10)
+        one_bound = n_one * (4 + 1 + 2 / F.MX8_GROUP) / PEAK_BYTES_PER_S * 1e3
+        phase(37, f"{name}: the prefill's K and V, one launch", shape=shape,
+              pad_to=512, replaced_ms=f"{replaced_ms:.5f}",
+              replaced="F.pad + one launch a stream",
+              fused_faster=f"{replaced_ms / ms:.2f}x",
+              one_stream_shape=one, one_stream_ms=f"{one_ms:.5f}",
+              one_stream_bound_ms=f"{one_bound:.5f}",
+              least_launch_one_group_ms=f"{floor_ms:.5f}")
+        del xs, ys, kern, plain, replaced
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to chip_smoke.py; "
@@ -3127,12 +3413,14 @@ def main():
         errs.update({f"su_{a}": e
                      for a, e in phase_gla_state_update().items()})
         errs.update(phase_dense_kernels())
+        errs.update(phase_dense_append())
         times = dict(zip(("su", "at"), phase_timing()))
         times.update(zip(("pa", "ap", "apq", "su_slab"),
                          phase_paged_timing()))
         times.update(zip(("sv_paged", "sv_dense"), phase_spec_timing()))
         times.update(phase_gla_timing())
         times.update(phase_dense_timing())
+        times.update(phase_dense_append_timing())
         cfg, params, init_s = _model()
         slot = phase_main_path(cfg, params, init_s)
         paged = phase_paged_main_path(cfg, params, slot)
@@ -3175,8 +3463,10 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla, dense):
     """One entry per kernel and mode (kernel 1: dense mode on the slot
     path, slab mode on the paged path, at zamba2's heads and again at the
     GLA family's; kernels 2, 3, 5 and 6: GQA mode on zamba2's paths, MLA
-    mode on deepseek's; kernel 7 on gla's slot path; kernels 2 to 7 again
-    at opt-6.7b's and yi-9b's widths, on their paths); ``launches`` counts
+    mode on deepseek's; kernel 7 on gla's slot path; the fused dense append
+    on zamba2's and deepseek's slot paths; kernels 2 to 7 and the dense
+    append again at opt-6.7b's and yi-9b's widths, on their paths);
+    ``launches`` counts
     each one's own main path (the verify kernels: the speculative path,
     where kernel 6, the dense-cache twin, has no launch; kernel 4: the
     fused quantize-and-append on the paged paths, the copy on none),
@@ -3185,6 +3475,8 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla, dense):
     quantizer)."""
     su_src = "src/repro_torch/csrc/mx_state_update.cu"
     su_tpu = "src/repro/kernels/mx_state_update.py:104"
+    q_src = "src/repro_torch/csrc/mx_quant.cu"
+    q_tpu = "src/repro/kernels/mx_quant.py:35"
     pa_src = "src/repro_torch/csrc/mx_paged_attention.cu"
     sv_src = "src/repro_torch/csrc/mx_spec_attention.cu"
     kernels = [
@@ -3243,11 +3535,16 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla, dense):
              replaces="src/repro/kernels/mx_spec_attention.py:123",
              launches=ds["spec"]["n"]["k6"], max_abs_err=errs["e6"],
              **times["mx_spec_attention_decode[mla]"]),
-        dict(name="mx_quantize", route="cuda",
-             source="src/repro_torch/csrc/mx_quant.cu",
-             replaces="src/repro/kernels/mx_quant.py:35",
+        dict(name="mx_quantize", route="cuda", source=q_src, replaces=q_tpu,
              launches=gla["slot"]["n"]["k7"], max_abs_err=errs["k7"],
              **times["mx_quantize"]),
+        dict(name="mx_kv_append_quant", route="cuda", source=q_src,
+             replaces=q_tpu, launches=slot["n_apd"],
+             max_abs_err=errs["apd_zamba2"], **times["mx_kv_append_quant"]),
+        dict(name="mx_kv_append_quant[mla]", route="cuda", source=q_src,
+             replaces=q_tpu, launches=ds["slot"]["n"]["apd_mla"],
+             max_abs_err=errs["apd_mla"],
+             **times["mx_kv_append_quant[mla]"]),
         dict(name="mx_state_update[gla]", route="cuda", source=su_src,
              replaces=su_tpu, launches=gla["slot"]["n"]["k1"],
              max_abs_err=errs["su_gla-2.7b"],
@@ -3281,9 +3578,9 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla, dense):
                 ("mx_spec_attention_decode", sv_src,
                  "src/repro/kernels/mx_spec_attention.py:123", "spec",
                  "k6_gqa", f"e6_{tag}"),
-                ("mx_quantize", "src/repro_torch/csrc/mx_quant.cu",
-                 "src/repro/kernels/mx_quant.py:35", "slot", "k7",
-                 f"k7_{tag}")):
+                ("mx_quantize", q_src, q_tpu, "slot", "k7", f"k7_{tag}"),
+                ("mx_kv_append_quant", q_src, q_tpu, "slot", "apd",
+                 f"apd_{tag}")):
             key = (f"{name},{tag}]" if name.endswith("[quant")
                    else f"{name}[{tag}]")
             kernels.append(dict(name=key, route="cuda", source=source,

@@ -449,3 +449,35 @@ def mx_quantize_ref(x: torch.Tensor, rounding: str = "nearest",
     bits = (F.sr_bits(x.shape, seed, device=x.device)
             if rounding == "stochastic" else None)
     return F.mx8_quantize(x, rounding, bits)
+
+
+def mx_quantize_streams_ref(xs, seeds, rounding: str = "nearest",
+                            pad_to: Optional[int] = None):
+    """Kernel 7 over several streams: each stream (axis 1 padded with
+    zeros to ``pad_to`` first, when given) through :func:`mx_quantize_ref`
+    with its own seed."""
+    out = []
+    for x, seed in zip(xs, seeds):
+        if pad_to is not None and pad_to > x.shape[1]:
+            pad = [0, 0] * (x.dim() - 2) + [0, int(pad_to) - x.shape[1]]
+            x = torch.nn.functional.pad(x, pad)
+        out.append(mx_quantize_ref(x, rounding, seed))
+    return out
+
+
+def kv_append_quant_ref(streams, caches, lengths: torch.Tensor,
+                        seed: int = 0, rounding: str = "stochastic"):
+    """The dense append: each new fp32 row block ``streams[i] (B, n, KVH,
+    w)`` quantized to MX8 with SR bits ``sr_bits((B, n, KVH, w), seed +
+    i)``, each payload field written into the dense MX8 cache
+    ``caches[i]`` at ``lengths`` by ``_update_at`` (its clamp included), in
+    place.  Returns the caches."""
+    from repro_torch.core import attention_cache as AC
+    for i, (x, cache) in enumerate(zip(streams, caches)):
+        bits = (F.sr_bits(x.shape, (int(seed) + i) & 0xFFFFFFFF,
+                          device=x.device)
+                if rounding == "stochastic" else None)
+        q = F.quantize(x, "mx8", rounding, bits)
+        for f, a in cache.payload.items():
+            AC._update_at(a, q.payload[f], lengths)
+    return caches

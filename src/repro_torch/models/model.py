@@ -33,7 +33,7 @@ import torch
 from repro_torch.core import attention_cache as AC
 from repro_torch.core import formats as F
 from repro_torch.core import paged as PG
-from repro_torch.kernels.mx_quant import store_quantized
+from repro_torch.kernels.mx_quant import mx_quantize_streams
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
@@ -195,22 +195,24 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def _build_kv_cache(k: torch.Tensor, v, cfg: ModelConfig,
                     v_width=None) -> AC.KVCache:
     """Quantize full-sequence K/V (``v`` None: an MLA latent stream) into a
-    cache with tile-aligned capacity."""
+    cache with tile-aligned capacity: MX8 with the ``cuda`` backend in one
+    kernel-7 launch for both streams, which pads to the tile itself
+    (bitwise the padded copy quantized per stream)."""
     B, S = k.shape[:2]
-    pad = -(-S // AC.PAGE_TOKENS) * AC.PAGE_TOKENS - S
-
-    def store(a):
-        if a is None:
-            return None
-        if pad:
-            a = torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
-        if sq.quantized:
-            return store_quantized(a, sq)
-        return a.to(F.FLOAT_DTYPES[sq.fmt])
-
+    T = -(-S // AC.PAGE_TOKENS) * AC.PAGE_TOKENS
     sq = cfg.state_quant
     lengths = torch.full((B,), S, dtype=torch.int32, device=k.device)
-    return AC.KVCache(store(k), store(v), lengths, sq.fmt, v_width)
+    streams = [k] if v is None else [k, v]
+    if sq.fmt == "mx8" and sq.backend == "cuda":
+        stored = mx_quantize_streams([a.to(torch.float32) for a in streams],
+                                     pad_to=T)
+    else:
+        padded = [torch.nn.functional.pad(a, (0, 0, 0, 0, 0, T - S))
+                  for a in streams]
+        stored = [F.quantize(a, sq.fmt) if sq.quantized
+                  else a.to(F.FLOAT_DTYPES[sq.fmt]) for a in padded]
+    return AC.KVCache(stored[0], stored[1] if v is not None else None,
+                      lengths, sq.fmt, v_width)
 
 
 def _attn_block_forward(p: Params, x, cfg: ModelConfig, positions):

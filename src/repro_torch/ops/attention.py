@@ -4,9 +4,10 @@ Mirrors ``repro/ops/attention.py``:
 
 ``kv_append``   -- quantize the new token's K/V (or MLA latent) rows (SR
                    seeds ``seed`` and ``seed + 1``) and scatter them into
-                   the cache at each row's length.  Plain PyTorch (a
-                   quantize and a scatter, as the JAX package leaves it to
-                   XLA), written in place.
+                   the cache at each row's length, in place: ``cuda`` (MX8:
+                   one fused quantize-and-append launch for all streams)
+                   or ``torch`` (every format: a quantize and a scatter,
+                   as the JAX package leaves it to XLA).
 ``attn_decode`` -- one-token GQA attention against the packed cache:
                    ``cuda`` (the MX8 kernel) or ``torch`` (every format).
 ``mla_decode``  -- the MLA variant: a single latent stream whose first
@@ -28,6 +29,7 @@ from repro_torch.core import formats as F
 from repro_torch.core.paged import PagedKVCache
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.mx_attention import mx_attention_decode as _attn_cuda
+from repro_torch.kernels.mx_quant import mx_kv_append_quant as _append_cuda
 from repro_torch.ops import registry
 from repro_torch.ops.base import (OPERAND_BYTES, OUTPUT_BYTES, OpPlan, SpuOp,
                                   StateQuantConfig, TrafficBytes,
@@ -41,10 +43,41 @@ def _cache_row_vals(plan: OpPlan) -> int:
     return plan.dim("KVH") * (plan.dim("dk") + plan.dim("dv"))
 
 
-@registry.register
-class KVAppendTorch(SpuOp):
-    """Quantize + scatter n new token rows into a KV cache (in place)."""
+class _KVAppendBase(SpuOp):
     kind = "kv_append"
+
+    def traffic(self, plan: OpPlan) -> TrafficBytes:
+        B, n = plan.dim("B"), plan.dim("n")
+        vals = B * n * _cache_row_vals(plan)
+        return TrafficBytes(state_write=vals * plan.bits_per_val / 8.0,
+                            operand_read=vals * OPERAND_BYTES)
+
+
+@registry.register
+class KVAppendCuda(_KVAppendBase):
+    """One launch quantizes the n new rows of every stream (K seed
+    ``seed``, V ``seed + 1``) into the dense MX8 cache at each row's
+    length: bitwise the ``torch`` twin."""
+    backend = "cuda"
+    formats = ("mx8",)
+
+    def execute(self, cache: AC.KVCache, inputs: Dict[str, Any],
+                plan: OpPlan) -> Tuple[AC.KVCache, None]:
+        k_new, v_new = inputs["k"], inputs.get("v")
+        streams, caches = [k_new.to(torch.float32)], [cache.k]
+        if v_new is not None:           # an MLA latent stream has no V
+            streams.append(v_new.to(torch.float32))
+            caches.append(cache.v)
+        _append_cuda(streams, caches, cache.lengths,
+                     int(inputs.get("seed", 0)) & _U32,
+                     rounding=plan.rounding)
+        return AC.KVCache(cache.k, cache.v, cache.lengths + k_new.shape[1],
+                          cache.fmt, cache.v_width), None
+
+
+@registry.register
+class KVAppendTorch(_KVAppendBase):
+    """Quantize + scatter n new token rows into a KV cache (in place)."""
     backend = "torch"
     formats = ("mx8", "int8", "fp8_e4m3", "fp8_e5m2", "fp32", "bf16", "fp16")
 
@@ -69,12 +102,6 @@ class KVAppendTorch(SpuOp):
               else put(cache.v, v_new, (seed + 1) & _U32))
         return AC.KVCache(nk, nv, cache.lengths + k_new.shape[1],
                           cache.fmt, cache.v_width), None
-
-    def traffic(self, plan: OpPlan) -> TrafficBytes:
-        B, n = plan.dim("B"), plan.dim("n")
-        vals = B * n * _cache_row_vals(plan)
-        return TrafficBytes(state_write=vals * plan.bits_per_val / 8.0,
-                            operand_read=vals * OPERAND_BYTES)
 
 
 class _AttnDecodeBase(SpuOp):

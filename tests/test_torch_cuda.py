@@ -1020,3 +1020,184 @@ def test_gla_smoke_served_with_kernels_equals_plain_ops(cuda):
         assert KQ.mx_quantize.launches == (
             cfg.n_layers * len(prompts) if on else 0)
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# kernel 7's multi-stream launch and the slot pool's fused dense append
+# ---------------------------------------------------------------------------
+
+def _spread(shape, g, mag=None):
+    """Values over 45 decades (or at one magnitude ``mag``), every seventh
+    16-value group zero."""
+    x = torch.randn(shape, generator=g, device=g.device)
+    if mag is None:
+        x *= torch.pow(10.0, torch.randint(-40, 6, shape[:-1] + (1,),
+                                           generator=g,
+                                           device=g.device).float())
+    else:
+        x *= mag
+    x.view(-1, 16)[::7] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("shape,pad_to", [
+    ((1, 400, 4, 128), 512), ((1, 400, 32, 128), 512), ((3, 37, 2, 32), 128),
+    ((4, 512, 1, 576), None), ((4, 4, 640, 320), None), ((5, 7, 32), None)])
+@pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
+def test_mx_quant_streams_kernel_bitwise_vs_plain_and_per_stream(
+        cuda, shape, pad_to, rounding):
+    """One launch for two streams (seeds 9 and 0xFFFFFFFF), padded to the
+    tile in the launch where ``pad_to`` is set: bitwise its plain version
+    (``F.pad`` then ``mx_quantize_ref`` per stream) and a one-stream launch
+    per stream on the padded copy."""
+    from repro_torch.kernels import mx_quant as KQ
+    g = torch.Generator(device=cuda).manual_seed(shape[-1] + len(shape))
+    xs = [_spread(shape, g), _spread(shape, g)]
+    seeds = [9, 0xFFFFFFFF]
+    n0 = KQ.mx_quantize.launches
+    got = KQ.mx_quantize_streams(xs, seeds, rounding=rounding, pad_to=pad_to)
+    torch.cuda.synchronize()
+    assert KQ.mx_quantize.launches == n0 + 1
+    want = KQ.plain_streams(xs, seeds, rounding, pad_to)
+    for x, q, p, s in zip(xs, got, want, seeds):
+        if pad_to is not None:
+            x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad_to - shape[1]))
+        one = KQ.mx_quantize(x, s, rounding=rounding)
+        for f in p.payload:
+            assert torch.equal(q.payload[f], p.payload[f]), f
+            assert torch.equal(q.payload[f], one.payload[f]), f
+
+
+def _dense_append_case(cuda, KVH, w, n_streams, n, T=256, seed=0, mag=1.0):
+    """Dense MX8 caches (B = 4, T) of random values, lengths 0, 130, T - 1
+    and T + 9 (the last two clamped to T - n), the new rows (4, n, KVH, w)."""
+    g = torch.Generator(device=cuda).manual_seed(seed + 31 * n + w)
+    caches = [F.mx8_quantize(torch.randn((4, T, KVH, w), generator=g,
+                                         device=cuda))
+              for _ in range(n_streams)]
+    rows = [_spread((4, n, KVH, w), g, mag) for _ in range(n_streams)]
+    lens = torch.tensor([0, 130, T - 1, T + 9], dtype=torch.int32,
+                        device=cuda)
+    return caches, rows, lens
+
+
+@pytest.mark.parametrize("KVH,w,n_streams", [(32, 80, 2), (32, 128, 2),
+                                             (4, 128, 2), (1, 576, 1),
+                                             (2, 32, 2)])
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
+def test_dense_append_kernel_bitwise_vs_plain(cuda, KVH, w, n_streams, n,
+                                              rounding):
+    """The fused dense append at zamba2's, opt-6.7b's, yi-9b's and
+    deepseek's stream widths (and a smoke width), n = 1 and Kq, magnitudes
+    1, 1e-3, 1e-37 and 1e35: every cache byte equal to its plain version's
+    (the eager quantize + ``_update_at``), the clamped slots included."""
+    from repro_torch.kernels import mx_quant as KQ
+    for mag in (1.0, 1e-3, 1e-37, 1e35):
+        caches, rows, lens = _dense_append_case(cuda, KVH, w, n_streams, n,
+                                                mag=mag)
+        plain = [c.clone() for c in caches]
+        n0 = (KQ.mx_kv_append_quant.launches,
+              KQ.mx_kv_append_quant.mla_launches)
+        KQ.mx_kv_append_quant(rows, caches, lens, 0xFFFFFFFF,
+                              rounding=rounding)
+        torch.cuda.synchronize()
+        want = (n0[0] + 1, n0[1]) if n_streams == 2 else (n0[0], n0[1] + 1)
+        assert (KQ.mx_kv_append_quant.launches,
+                KQ.mx_kv_append_quant.mla_launches) == want
+        KQ.plain_append(rows, plain, lens, 0xFFFFFFFF, rounding)
+        for c, p in zip(caches, plain):
+            for f in p.payload:
+                assert torch.equal(c.payload[f], p.payload[f]), (f, mag)
+
+
+def test_dense_append_replays_in_a_cuda_graph_bitwise(cuda):
+    """Ten appends of K and V at yi-9b's widths (n = 1; the rows and
+    lengths written in place between them, as a decode step would) from a
+    CUDA graph captured once: every cache byte equal to the same ten
+    appends launched eagerly."""
+    from repro_torch.kernels import mx_quant as KQ
+    caches, rows, lens = _dense_append_case(cuda, 4, 128, 2, 1, seed=5)
+    eager = [c.clone() for c in caches]
+    torch.manual_seed(6)
+    news = [[torch.randn_like(r) for r in rows] for _ in range(10)]
+    lens0 = lens.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up outside the capture
+        KQ.mx_kv_append_quant(rows, [c.clone() for c in caches], lens, 7)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        KQ.mx_kv_append_quant(rows, caches, lens, 7)
+    for i, new in enumerate(news):
+        for r, x in zip(rows, new):
+            r.copy_(x)
+        lens.copy_(lens0 + 37 * i)
+        graph.replay()
+        KQ.mx_kv_append_quant(new, eager, lens0 + 37 * i, 7)
+    torch.cuda.synchronize()
+    for c, e in zip(caches, eager):
+        for f in e.payload:
+            assert torch.equal(c.payload[f], e.payload[f]), f
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "deepseek-v2-236b",
+                                  "opt-6.7b", "yi-9b"])
+def test_slot_engine_decode_makes_no_plain_quantizer_call(cuda, arch,
+                                                          monkeypatch):
+    """A slot engine on a smoke config: each decode step launches the fused
+    dense append once per attention application (two streams, or one MLA
+    latent), each prefill kernel 7 once per recurrent state and once per
+    attention application (K and V together), and ``F.mx8_quantize`` never
+    runs on the card inside ``M.decode_step`` or ``M.prefill``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import mx_quant as KQ
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import Engine, ServeConfig
+    cfg = get_smoke_config(arch)
+    params = M.init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                          device=cuda)
+    seen = {"inside": 0, "calls": 0}
+    quantize = F.mx8_quantize
+
+    def counted(x, *a, **kw):
+        if seen["inside"] and x.is_cuda:
+            seen["calls"] += 1
+        return quantize(x, *a, **kw)
+
+    def watched(fn):
+        def inside(*a, **kw):
+            seen["inside"] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                seen["inside"] -= 1
+        return inside
+
+    monkeypatch.setattr(F, "mx8_quantize", counted)
+    monkeypatch.setattr(M, "decode_step", watched(M.decode_step))
+    monkeypatch.setattr(M, "prefill", watched(M.prefill))
+    eng = Engine(params, cfg, ServeConfig(backend="slots", batch=2,
+                                          cache_capacity=256))
+    rng = np.random.default_rng(0)
+    hs = [eng.submit(rng.integers(0, cfg.vocab_size, n), max_new_tokens=5)
+          for n in (9, 40, 17)]
+    KQ.mx_kv_append_quant.launches = KQ.mx_kv_append_quant.mla_launches = 0
+    KQ.mx_quantize.launches = 0
+    eng.run()
+    torch.cuda.synchronize()
+    steps = eng.engine.step_count
+    assert all(h.status == "done" and len(h.output) == 5 for h in hs)
+    assert seen["calls"] == 0
+
+    def layers(kinds):
+        return (sum(cfg.pattern.count(k) for k in kinds) * cfg.n_groups
+                + sum(cfg.prelude.count(k) for k in kinds))
+    n_attn = layers(("attn",)) + (cfg.n_groups if cfg.shared_attn else 0)
+    n_mla = layers(("mla",))
+    n_rec = layers(("mamba2", "gla", "retnet", "hgrn2"))
+    assert (KQ.mx_kv_append_quant.launches,
+            KQ.mx_kv_append_quant.mla_launches) == (n_attn * steps,
+                                                    n_mla * steps)
+    assert KQ.mx_quantize.launches == (n_rec + n_attn + n_mla) * len(hs)

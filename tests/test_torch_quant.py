@@ -110,18 +110,22 @@ def test_stochastic_bits_follow_the_flat_index():
 
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
 def test_reg_write_sites_route_by_backend(monkeypatch, backend):
-    calls = {"kernel": 0, "quantize": 0}
-    real_kernel, real_quantize = KQ.mx_quantize, F.quantize
+    """MX8 with the ``cuda`` backend: kernel 7 (on CPU tensors its plain
+    version) once for the state and once for K and V together; ``torch``:
+    ``F.quantize`` per stream.  The same bytes either way."""
+    calls = {"kernel": 0, "streams": 0, "quantize": 0}
+    real_kernel, real_quantize = KQ.plain_streams, F.quantize
 
-    def kernel(x, *a, **kw):
+    def kernel(xs, *a, **kw):
         calls["kernel"] += 1
-        return real_kernel(x, *a, **kw)
+        calls["streams"] += len(xs)
+        return real_kernel(xs, *a, **kw)
 
     def quantize(x, fmt, *a, **kw):
         calls["quantize"] += 1
         return real_quantize(x, fmt, *a, **kw)
 
-    monkeypatch.setattr(KQ, "mx_quantize", kernel)
+    monkeypatch.setattr(KQ, "plain_streams", kernel)
     monkeypatch.setattr(F, "quantize", quantize)
     cfg = get_smoke_config("zamba2-2.7b").with_(
         state_quant=OPS.StateQuantConfig("mx8", "stochastic", backend))
@@ -129,40 +133,44 @@ def test_reg_write_sites_route_by_backend(monkeypatch, backend):
     st = SSM._store_state(S, cfg)
     k, v = (torch.from_numpy(_x((2, 5, 2, 32), seed=s)) for s in (2, 3))
     cache = M._build_kv_cache(k, v, cfg)
-    want = {"kernel": 3, "quantize": 0} if backend == "cuda" else \
-        {"kernel": 0, "quantize": 3}
+    want = {"kernel": 2, "streams": 3, "quantize": 0} if backend == "cuda" \
+        else {"kernel": 0, "streams": 0, "quantize": 3}
     assert calls == want
     # the same bytes either way (round to nearest)
     ref = real_quantize(S.transpose(-1, -2).contiguous(), "mx8")
     for f in ref.payload:
         assert torch.equal(st.payload[f], ref.payload[f]), f
     assert isinstance(cache, AC.KVCache) and cache.k.shape[1] == 128
-    kq = real_quantize(torch.nn.functional.pad(k, (0, 0, 0, 0, 0, 123)),
-                       "mx8")
-    for f in kq.payload:
-        assert torch.equal(cache.k.payload[f], kq.payload[f]), f
+    for got, x in ((cache.k, k), (cache.v, v)):
+        want_q = real_quantize(torch.nn.functional.pad(x, (0, 0, 0, 0, 0,
+                                                           123)), "mx8")
+        for f in want_q.payload:
+            assert torch.equal(got.payload[f], want_q.payload[f]), f
 
 
 def test_prefill_runs_one_quantizer_per_state_and_kv_stream(monkeypatch):
     """gla smoke: one REG_WRITE per layer state; zamba2 smoke: one per
-    Mamba-2 state and two (K and V) per shared-attention application."""
-    n = {"calls": 0}
-    real = KQ.mx_quantize
+    Mamba-2 state and one for each shared-attention application's K and V
+    together (two streams): kernel 7's launches on the card."""
+    n = {"calls": 0, "streams": 0}
+    real = KQ.plain_streams
 
-    def counting(x, *a, **kw):
+    def counting(xs, *a, **kw):
         n["calls"] += 1
-        return real(x, *a, **kw)
+        n["streams"] += len(xs)
+        return real(xs, *a, **kw)
 
-    monkeypatch.setattr(KQ, "mx_quantize", counting)
+    monkeypatch.setattr(KQ, "plain_streams", counting)
     for arch in ("gla-2.7b", "zamba2-2.7b"):
         cfg = get_smoke_config(arch)
         assert cfg.state_quant.backend == "cuda"
         params = M.init_model(cfg, torch.Generator().manual_seed(0),
                               device="cpu")
-        n["calls"] = 0
+        n["calls"] = n["streams"] = 0
         M.prefill(params, cfg, {"tokens": torch.arange(20)[None]})
-        want = cfg.n_layers + (2 * cfg.n_groups if cfg.shared_attn else 0)
-        assert n["calls"] == want, arch
+        n_attn = cfg.n_groups if cfg.shared_attn else 0
+        assert n == {"calls": cfg.n_layers + n_attn,
+                     "streams": cfg.n_layers + 2 * n_attn}, arch
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,18 @@ separated; default ``mla,k1,k7``):
   and 4096), scalar and per-channel decay, both roundings, state
   magnitudes 1, 1e-3, 1e-37 (subnormal scales) and 1e35;
 * ``k7``: kernel 7, the MX8 quantizer, at the served prefill shapes and
-  the JAX kernel test's, both roundings;
+  the JAX kernel test's, both roundings, values over 45 decades and at
+  magnitudes 1, 1e-3, 1e-37 and 1e35; and this checkout's two-stream
+  launch (K and V of a 400-token prefill at opt-6.7b's and yi-9b's widths,
+  padded to the 512-token tile in the launch) against the other
+  checkout's one launch a stream on the ``F.pad`` copies;
+* ``dense_append``: the slot pool's fused dense append (this checkout's
+  ``mx_kv_append_quant``) against the path it replaced, the eager quantize
+  (``F.sr_bits`` + ``F.quantize``, seeds seed / seed + 1) and
+  ``_update_at`` per field -- plain PyTorch, the same in both checkouts,
+  so no other build is needed -- at zamba2-2.7b's, opt-6.7b's and yi-9b's
+  K and V and deepseek-v2-236b's latent, n = 1 and 4, lengths past T - n,
+  magnitudes 1, 1e-3, 1e-37 and 1e35, both roundings: every cache byte;
 * ``k4``: kernel 4, this checkout's fused quantize-and-append against the
   other checkout's append path (the eager quantize, ``F.sr_bits`` +
   ``F.quantize`` with seeds seed / seed + 1, then its copy kernel
@@ -46,9 +57,12 @@ separated; default ``mla,k1,k7``):
 ``--time`` then times kernels 1 and 7 of both checkouts at the shapes of
 ``PERF.md``'s kernel table (kernel 1 at zamba2's and the GLA family's
 heads, dense and slab mode, stochastic rounding; kernel 7 at gla's
-prefill state), the four MLA modes at deepseek-v2-236b's widths and
-the table's lengths (decode 72, 408, 141, 259; Kq = 4 verify), and
-kernel 4's append (this checkout's fused launch, the other's eager
+prefill state, at one (1, 512, KVH, 128) stream of opt-6.7b and yi-9b,
+and at their prefill's K and V: this checkout's one padded launch, the
+other's ``F.pad`` and one launch a stream), the dense append against its
+eager path at the slot pools' widths, the four MLA modes at
+deepseek-v2-236b's widths and the table's lengths (decode 72, 408, 141,
+259; Kq = 4 verify), and kernel 4's append (this checkout's fused launch, the other's eager
 quantize + copy) at zamba2's K and V and deepseek's latent, and kernels
 3 and 5 in GQA mode at zamba2's, opt-6.7b's and yi-9b's widths, by
 CUDA-graph replay with inputs rotated so that every launch finds them
@@ -68,13 +82,14 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))                 # chip_smoke's timing helpers
 
-FAMILIES = ("mla", "k1", "k7", "gqa", "k4")
+FAMILIES = ("mla", "k1", "k7", "gqa", "k4", "dense_append")
 _SOURCES = {"mla": ("mx_attention", "mx_paged_attention",
                     "mx_spec_attention"),
             "k4": ("mx_paged_attention",),
             "gqa": ("mx_attention", "mx_paged_attention",
                     "mx_spec_attention"),
-            "k1": ("mx_state_update",), "k7": ("mx_quant",)}
+            "k1": ("mx_state_update",), "k7": ("mx_quant",),
+            "dense_append": ()}
 
 
 def _other_lib(csrc: Path, name: str, out: Path, flags) -> ctypes.CDLL:
@@ -524,34 +539,199 @@ QUANT_SHAPES = ((4, 4, 640, 320), (4, 10, 512, 256), (4, 20, 128, 128),
                 (5, 7, 32))
 
 
+#: kernel 7's values: over 45 decades (None), then at one magnitude each
+K7_MAGS = (None, 1.0, 1e-3, 1e-37, 1e35)
+#: a 400-token prefill's K and V, padded to the 512-token tile: opt-6.7b's
+#: and yi-9b's kv heads
+K7_PREFILL = (("opt-6.7b", 32), ("yi-9b", 4))
+
+
+def _k7_values(shape, g, mag):
+    import torch
+    x = torch.randn(shape, generator=g, device="cuda")
+    if mag is None:
+        x = x * torch.pow(10.0, torch.randint(-40, 6, shape[:-1] + (1,),
+                                              generator=g,
+                                              device="cuda").float())
+    else:
+        x = x * mag
+    x.view(-1, 16)[::7] = 0.0
+    return x
+
+
+def _other_quant(fn, x, seed, rounding):
+    """The other checkout's one-stream launch on ``x``: its three outputs
+    and the launch's return code."""
+    import torch
+    n = x.numel()
+    out = (torch.empty(x.shape, dtype=torch.int8, device="cuda"),
+           torch.empty(n // 16, dtype=torch.uint8, device="cuda"),
+           torch.empty(n // 16, dtype=torch.uint8, device="cuda"))
+    err = fn(x.data_ptr(), *(o.data_ptr() for o in out), n // 16, seed,
+             int(rounding == "stochastic"),
+             torch.cuda.current_stream().cuda_stream)
+    return out, err
+
+
 def _quant_cases(lib) -> bool:
     """Kernel 7, this checkout's wrapper against the other checkout's entry
-    point: values over many decades, zero groups."""
+    point: values over many decades and at four magnitudes, zero groups;
+    then this checkout's two-stream padded launch against the other's one
+    launch a stream on the padded copies."""
     import torch
     from repro_torch.kernels import mx_quant as KQ
     fn = _entry(lib, "mx_quant_launch", KQ._ARGTYPES)
-    stream = torch.cuda.current_stream().cuda_stream
     ok = True
-    for shape in QUANT_SHAPES:
+    for shape, mag in itertools.product(QUANT_SHAPES, K7_MAGS):
         g = torch.Generator(device="cuda").manual_seed(shape[-1] + len(shape))
-        x = torch.randn(shape, generator=g, device="cuda") * torch.pow(
-            10.0, torch.randint(-40, 6, shape[:-1] + (1,), generator=g,
-                                device="cuda").float())
-        x.view(-1, 16)[::7] = 0.0
+        x = _k7_values(shape, g, mag)
         for rounding in ("nearest", "stochastic"):
             got = KQ.mx_quantize(x, 77, rounding=rounding)
-            want = {f: torch.empty_like(a) for f, a in got.payload.items()}
-            err = fn(x.data_ptr(), want["mantissa"].data_ptr(),
-                     want["exponent"].data_ptr(), want["micro"].data_ptr(),
-                     x.numel() // 16, 77, int(rounding == "stochastic"),
-                     stream)
+            want, err = _other_quant(fn, x, 77, rounding)
             torch.cuda.synchronize()
-            ok &= _report(f"quantize {shape} {rounding}: mantissa, "
-                          f"exponent, micro",
-                          [(got.payload[f], want[f])
-                           for f in ("mantissa", "exponent", "micro")],
-                          [err])
+            ok &= _report(f"quantize {shape} magnitude {mag} {rounding}: "
+                          "mantissa, exponent, micro",
+                          [(got.payload[f].reshape(-1), w.reshape(-1))
+                           for f, w in zip(("mantissa", "exponent", "micro"),
+                                           want)], [err])
+    for (label, KVH), mag in itertools.product(K7_PREFILL, K7_MAGS):
+        g = torch.Generator(device="cuda").manual_seed(KVH)
+        xs = [_k7_values((1, 400, KVH, 128), g, mag) for _ in "kv"]
+        for rounding in ("nearest", "stochastic"):
+            got = KQ.mx_quantize_streams(xs, [5, 0xFFFFFFFF],
+                                         rounding=rounding, pad_to=512)
+            pairs, errs = [], []
+            for x, q, s in zip(xs, got, (5, 0xFFFFFFFF)):
+                xp = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 112))
+                want, err = _other_quant(fn, xp, s, rounding)
+                errs.append(err)
+                pairs += [(q.payload[f].reshape(-1), w.reshape(-1))
+                          for f, w in zip(("mantissa", "exponent", "micro"),
+                                          want)]
+            torch.cuda.synchronize()
+            ok &= _report(f"quantize {label} K and V (1, 400, {KVH}, 128) "
+                          f"padded to 512, one launch, magnitude {mag} "
+                          f"{rounding}: vs F.pad + one launch a stream",
+                          pairs, errs)
     return ok
+
+
+#: the slot pools' appended streams: (label, KVH, width, streams, layers
+#: a decode step walks)
+DA_CASES = (("zamba2 K and V", 32, 80, 2, 9),
+            ("opt-6.7b K and V", 32, 128, 2, 32),
+            ("yi-9b K and V", 4, 128, 2, 48),
+            ("deepseek latent", 1, 576, 1, 4))
+
+
+def _eager_append(caches, rows, lens, seed, rounding):
+    """The slot pool's append before the fused launch: each stream
+    quantized eagerly (seed + i), each field written by ``_update_at``."""
+    from repro_torch.core import attention_cache as AC
+    from repro_torch.core import formats as F
+    for i, (x, c) in enumerate(zip(rows, caches)):
+        bits = (F.sr_bits(x.shape, (seed + i) & 0xFFFFFFFF, device="cuda")
+                if rounding == "stochastic" else None)
+        q = F.quantize(x, "mx8", rounding, bits)
+        for f, a in c.payload.items():
+            AC._update_at(a, q.payload[f], lens)
+
+
+def _dense_append_cases() -> bool:
+    """The fused dense append against the eager path, every cache byte."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_quant as KQ
+    ok = True
+    lens = torch.tensor((0, 400, 1022, 1033), dtype=torch.int32,
+                        device="cuda")
+    for (label, KVH, d, k, _), mag, n in itertools.product(
+            DA_CASES, K4_MAGS, (1, 4)):
+        g = torch.Generator(device="cuda").manual_seed(d + n)
+        base = [F.mx8_quantize(torch.randn((4, 1024, KVH, d), generator=g,
+                                           device="cuda")) for _ in range(k)]
+        for rounding in ("nearest", "stochastic"):
+            rows = [torch.randn((4, n, KVH, d), generator=g, device="cuda")
+                    * mag for _ in range(k)]
+            mine, theirs = [c.clone() for c in base], [c.clone() for c in base]
+            KQ.mx_kv_append_quant(rows, mine, lens, 0xFFFFFFFF,
+                                  rounding=rounding)
+            _eager_append(theirs, rows, lens, 0xFFFFFFFF, rounding)
+            torch.cuda.synchronize()
+            ok &= _report(f"dense append {label} (KVH={KVH}, d={d}) n={n} "
+                          f"magnitude {mag:g} {rounding}: fused vs eager "
+                          "quantize + _update_at, every cache byte",
+                          [(a.payload[f], b.payload[f])
+                           for a, b in zip(mine, theirs)
+                           for f in ("mantissa", "exponent", "micro")], [])
+    return ok
+
+
+def _time_dense_append() -> None:
+    """The fused dense append against the eager path it replaced, B = 4,
+    n = 1, over the caches of the layers a decode step walks."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_quant as KQ
+    lens = torch.tensor((72, 105, 141, 128), dtype=torch.int32,
+                        device="cuda")
+    for label, KVH, d, k, L in DA_CASES:
+        g = torch.Generator(device="cuda").manual_seed(d)
+        caches = [[F.mx8_quantize(torch.randn((4, 1024, KVH, d), generator=g,
+                                              device="cuda"))
+                   for _ in range(k)] for _ in range(L)]
+        rows = [torch.randn((4, 1, KVH, d), generator=g, device="cuda")
+                for _ in range(k)]
+        calls = {"this": [lambda c=c, i=i: KQ.mx_kv_append_quant(
+                     rows, c, lens, i) for i, c in enumerate(caches)],
+                 "other": [lambda c=c, i=i: _eager_append(
+                     c, rows, lens, i, "stochastic")
+                     for i, c in enumerate(caches)]}
+        _turns(f"dense append {label} (KVH={KVH}, d={d}) over {L} layers "
+               "(other: the eager quantize + _update_at)", calls, 10)
+        del caches
+
+
+def _time_k7_prefill(other) -> None:
+    """Kernel 7 at opt-6.7b's and yi-9b's prefill: one (1, 512, KVH, 128)
+    stream through both checkouts' one-stream entry points, then K and V of
+    a 400-token prefill, this checkout's one padded launch against the
+    other's ``F.pad`` and one launch a stream."""
+    import torch
+    from chip_smoke import _rotation
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mx_quant as KQ
+    f7 = {"this": _build.entry(KQ.SOURCE, "mx_quant_launch", KQ._ARGTYPES),
+          "other": _entry(other["mx_quant"], "mx_quant_launch",
+                          KQ._ARGTYPES)}
+    for label, KVH in K7_PREFILL:
+        one = (1, 512, KVH, 128)
+        n = math.prod(one)
+        g = torch.Generator(device="cuda").manual_seed(KVH)
+        xs = [torch.randn(one, generator=g, device="cuda")
+              for _ in range(_rotation(4 * n))]
+        out = (torch.empty(n, dtype=torch.int8, device="cuda"),
+               torch.empty(n // 16, dtype=torch.uint8, device="cuda"),
+               torch.empty(n // 16, dtype=torch.uint8, device="cuda"))
+        _turns(f"kernel 7 {label} one stream {one} nearest",
+               {w: [lambda x=x, fn=fn: fn(
+                   x.data_ptr(), *(o.data_ptr() for o in out), n // 16, 0,
+                   0, torch.cuda.current_stream().cuda_stream) for x in xs]
+                for w, fn in f7.items()}, 10)
+        kv = [[torch.randn((1, 400, KVH, 128), generator=g, device="cuda")
+               for _ in "kv"] for _ in range(_rotation(8 * 400 * KVH * 128))]
+
+        def padded_calls(x, fn=f7["other"]):
+            for a in x:
+                _other_quant(fn, torch.nn.functional.pad(
+                    a, (0, 0, 0, 0, 0, 112)), 0, "nearest")
+        _turns(f"kernel 7 {label} prefill K and V (1, 400, {KVH}, 128) "
+               "nearest (this: one launch padding to 512; other: F.pad + "
+               "one launch a stream)",
+               {"this": [lambda x=x: KQ.mx_quantize_streams(x, pad_to=512)
+                         for x in kv],
+                "other": [lambda x=x: padded_calls(x) for x in kv]}, 10)
+        del xs, kv
 
 
 #: kernel 1 as PERF.md's table times it: (label, (B, H, dv, dk), slab
@@ -695,6 +875,8 @@ def _time_cases(other, split_loop: bool) -> None:
     _turns(f"kernel 7 gla prefill state {shape} nearest",
            {w: [qcall(f7[w], i) for i in range(n_rot)] for w in f7}, 10)
     del xs, outs
+    _time_k7_prefill(other)
+    _time_dense_append()
     _time_mla(other, split_loop)
     _time_append(other)
     _time_gqa(other)
@@ -710,8 +892,8 @@ def main() -> int:
     ap.add_argument("--cases", default="mla,k1,k7",
                     help=f"comma-separated families of {FAMILIES}")
     ap.add_argument("--time", action="store_true",
-                    help="then time kernels 1, 7, 4, the MLA modes and "
-                    "GQA kernels 3 and 5 of both checkouts")
+                    help="then time kernels 1, 7, 4, the dense append, the "
+                    "MLA modes and GQA kernels 3 and 5 of both checkouts")
     args = ap.parse_args()
     cases = [c for c in args.cases.split(",") if c]
     bad = [c for c in cases if c not in FAMILIES]
@@ -733,7 +915,8 @@ def main() -> int:
                "gqa": lambda: _gqa_cases(other),
                "k1": lambda: _state_update_cases(other["mx_state_update"]),
                "k7": lambda: _quant_cases(other["mx_quant"]),
-               "k4": lambda: _append_cases(other["mx_paged_attention"])}
+               "k4": lambda: _append_cases(other["mx_paged_attention"]),
+               "dense_append": _dense_append_cases}
         for c in cases:
             ok &= run[c]()
         if args.time:
