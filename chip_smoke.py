@@ -16,7 +16,9 @@ three paths, then the paper's GLA-family models at full width and all 32
 layers: ``gla-2.7b`` through the same three paths, ``retnet-2.7b`` and
 ``hgrn2-2.7b`` through the paged pool; then the paper's transformer
 baseline ``opt-6.7b`` (32 layers) and ``yi-9b`` (48 layers, grouped
-queries) at full width and full depth through the same three paths.  It
+queries) at full width and full depth through the same three paths, then
+``xlstm-1.3b`` (42 mLSTM + 6 sLSTM layers) at full width and depth
+through the same three paths.  It
 checks that every decode step
 went through the kernels of its path (the slot pool's appends through the
 fused dense quantize-and-append), and every prefill through the MX8
@@ -33,11 +35,14 @@ Phases, in the order they run:
   the fused append and kernel 7 at opt-6.7b's and yi-9b's widths (yi-9b's
   verify pass: 32 query rows a kv head, two row blocks)   36. the slot
   pool's fused dense append at every served model's stream widths and
-  kernel 7's two-stream launch, bitwise   6. timing   10.
+  kernel 7's two-stream launch, bitwise   38. kernel 1 at xlstm-1.3b's
+  mLSTM heads (1040 rows of 64 groups) and kernel 7 at its prefill
+  states, bitwise   6. timing   10.
   paged-kernel timing   13. verify-kernel timing   22. timing of kernels 7
   and 1 at the GLA family's shapes   29. timing at opt-6.7b's and yi-9b's
   widths   37. timing of the dense append and of kernel 7's prefill
-  launch, with the paths they replaced   7. main path, slot pool   11. main
+  launch, with the paths they replaced   39. timing of kernels 1 and 7 at
+  xlstm-1.3b's shapes   7. main path, slot pool   11. main
   path, paged pool   12. matmul row invariance at the model's shapes
   14. main path, paged pool with speculation (n-gram drafts; a short
   model-draft run; the pool-level rollback check)   15. MLA mode of
@@ -49,7 +54,10 @@ Phases, in the order they run:
   25. gla-2.7b, paged pool with speculation   26. retnet-2.7b, paged
   pool   27. hgrn2-2.7b, paged pool   30-32. opt-6.7b: slot pool, paged
   pool, paged pool with speculation (the verify step's LayerNorm checked
-  for row invariance)   33-35. yi-9b, the same   8. kernels line
+  for row invariance)   33-35. yi-9b, the same   40-42. xlstm-1.3b:
+  slot pool (with the sLSTM's share of a 400-token prefill), paged pool
+  (with a pool-level spill and resume), paged pool with speculation
+  8. kernels line
 
 Any failure exits non-zero; with no card it fails (it never falls back to
 the CPU).  The last three lines of standard output are the kernels' JSON
@@ -133,6 +141,17 @@ QUANT_SHAPES = (tuple((b,) + shape[1:] for _, shape, _ in GLA_SU
                       for b in (1, 4))
                 + ((4, 1024, 32, 80), (4, 512, 1, 576), (16, 64), (300, 128),
                    (5, 7, 32), (4096, 16384)))
+#: kernel 1 at xlstm-1.3b's mLSTM heads: (B, H, dv_aug, dk), dv_aug = dv +
+#: 16 (the normalizer row and 15 zero rows), scalar decay; kernel 7 at its
+#: prefill states, one request and four; 12 new tokens a request keep
+#: phases 38-42 near 90 s (a 48-layer step is host-bound at 50-100 ms)
+XLSTM_SU = (4, 4, 1040, 1024)
+XLSTM_K7 = ((1, 4, 1040, 1024), (4, 4, 1040, 1024))
+XLSTM_MAX_NEW = 12
+#: its paged pool prefills each prompt whole (a 400-token tail streamed
+#: through verify steps would cost ~150 of them); 8 usable pages of 0 bytes
+#: (no KV) still admit by page count, so FCFS may preempt
+XLSTM_PAGED = dict(batch=4, n_pages=9, prefill_chunk=512)
 #: the GLA family's kernels-vs-plain difference at each depth, at most
 #: this many times that of the plain ops with one layer's y moved one ulp
 #: (the H100 read 0.08-2.2 times at 1-32 layer groups)
@@ -257,7 +276,26 @@ def phase_exact_pow2():
           torch_exp2_inexact=int((ex != want).sum()))
 
 
-def _su_case(shape, rounding, mag, scalar_decay, seed):
+def _mlstm_like(S, d, k, v, g, mag):
+    """Reshape a kernel-1 case into the mLSTM's, in place: state row dv - 16
+    is the normalizer n (grown by exp(i) k each step: here 8 to ~50 times
+    the state's magnitude), rows past it are zero; v is ``[v, 1, 0 x
+    15]`` (the one scaled as v is at SU_TINY); k carries the input gate
+    exp(i), i in [-12, 4] per head; the forget gate is open (sigmoid(x +
+    3))."""
+    import torch
+    n = S.shape[-2] - 16
+    S[..., n, :] = (S[..., n, :].abs() + mag) * 8.0
+    S[..., n + 1:, :] = 0.0
+    v[..., n] = mag if mag <= SU_TINY else 1.0
+    v[..., n + 1:] = 0.0
+    k *= torch.exp(torch.rand(k.shape[:-1] + (1,), generator=g,
+                              device="cuda") * 16.0 - 12.0)
+    d.copy_(torch.sigmoid(torch.randn(d.shape, generator=g, device="cuda")
+                          + 3.0))
+
+
+def _su_case(shape, rounding, mag, scalar_decay, seed, mlstm=False):
     import torch
     from repro_torch.core import formats as F
     from repro_torch.kernels import mx_state_update as KS
@@ -271,6 +309,8 @@ def _su_case(shape, rounding, mag, scalar_decay, seed):
     v = torch.randn((B, H, dv), generator=g, device="cuda")
     if mag <= SU_TINY:
         v *= mag
+    if mlstm:
+        _mlstm_like(S0, d, k, v, g, mag)
     qS = F.mx8_quantize(S0)
     qp, yp = KS.plain(qS.clone(), d, k, v, q, rounding=rounding, seed=seed)
     qk, yk = KS.mx_state_update(qS.clone(), d, k, v, q, seed=seed,
@@ -282,9 +322,9 @@ def _su_case(shape, rounding, mag, scalar_decay, seed):
 
 def _hold_su(label, plain, yp, kern, yk):
     """The state-update contract, kernel against plain on the same inputs:
-    exponent and micro bytes bitwise, mantissa within one step, ``y`` to
-    rtol 1e-5 / atol 1e-5*max|y| on rows whose state matches.  Returns
-    (mantissa mismatches, values, max |y error|)."""
+    exponent and micro bytes bitwise, mantissa within one step, ``y``
+    bitwise on rows whose state matches (both sum in kernel 1's order).
+    Returns (mantissa mismatches, values, max |y error|)."""
     import torch
     for f in ("exponent", "micro"):
         check(torch.equal(plain[f], kern[f]), f"{label}: {f} bytes differ")
@@ -292,11 +332,9 @@ def _hold_su(label, plain, yp, kern, yk):
     check(int(dm.max()) <= 1, f"{label}: mantissa off by >1")
     diff = dm > 0
     ok = ~diff.any(-1)
-    atol = 1e-5 * float(yp.abs().max())
-    err_ok = float((yk[ok] - yp[ok]).abs().max())
-    check(bool(((yk[ok] - yp[ok]).abs() <= atol + 1e-5 * yp[ok].abs()).all()),
-          f"{label}: y differs beyond rtol 1e-5, atol {atol:.3g} (max err "
-          f"{err_ok:.3g})")
+    check(torch.equal(yk[ok], yp[ok]), f"{label}: y differs from the plain "
+          f"version's where the state matches (max err "
+          f"{float((yk[ok] - yp[ok]).abs().max()):.3g})")
     return int(diff.sum()), diff.numel(), float((yk - yp).abs().max())
 
 
@@ -580,20 +618,21 @@ def _hold_append_quant(pools, bt, group, lengths, seed, label):
 
 
 def _slab_case(shape, gen_seed, sr_seed, scalar_decay=True,
-               rounding="stochastic", mag=1.0):
+               rounding="stochastic", mag=1.0, mlstm=False):
     """Kernel 1 in slab mode on a (9, 6, H, dv, dk) pool of state values of
-    magnitude ``mag``, rows of slabs (7, 2, 5, 3) at layer 4: bitwise dense
-    mode on the gathered rows, every other slab row unchanged, and the
-    state-update contract against the plain slab version.  Returns
-    (mantissa mismatches, values, max |y error|)."""
+    magnitude ``mag`` (``mlstm``: shaped as :func:`_mlstm_like` does), rows
+    of slabs (7, 2, 5, 3) at layer 4: bitwise dense mode on the gathered
+    rows, every other slab row unchanged, and the state-update contract
+    against the plain slab version.  Returns (mantissa mismatches, values,
+    max |y error|)."""
     import torch
     from repro_torch.core import formats as F
     from repro_torch.kernels import mx_state_update as KS
     B, H, dv, dk = shape
     g = torch.Generator(device="cuda").manual_seed(gen_seed)
     n_slabs, n_stack, group = 9, 6, 4
-    pool = F.mx8_quantize(torch.randn((n_slabs, n_stack, H, dv, dk),
-                                      generator=g, device="cuda") * mag)
+    S0 = torch.randn((n_slabs, n_stack, H, dv, dk), generator=g,
+                     device="cuda") * mag
     slabs = torch.tensor([7, 2, 5, 3], dtype=torch.int32, device="cuda")
     d = torch.sigmoid(torch.randn((B, H, 1 if scalar_decay else dk),
                                   generator=g, device="cuda"))
@@ -602,6 +641,10 @@ def _slab_case(shape, gen_seed, sr_seed, scalar_decay=True,
     v = torch.randn((B, H, dv), generator=g, device="cuda")
     if mag <= SU_TINY:
         v *= mag
+    if mlstm:
+        _mlstm_like(S0, d, k, v, g, mag)
+    pool = F.mx8_quantize(S0)
+    del S0
     idx = (slabs.long(), group)
     rows = F.QuantizedTensor("mx8", (B, H, dv, dk), {
         f: a[idx].clone() for f, a in pool.payload.items()})
@@ -1133,13 +1176,14 @@ def _spec_rollback_check(eng, cfg, rng, invariant, lens0=(64, 129, 126,
                                                           200), phase_n=14):
     """The pool-level contract at full width, four active rows: one verify
     pass over KQ tokens against KQ sequential paged decode steps (seeds
-    1..KQ), then ``commit_spec`` at all-accept and at sel = 0.  Always held:
-    the state rows a commit restores are exactly the snapshot rows of the
-    selected position, and the all-accept snapshot is the state the
-    kernels left in place.  Held bitwise against the sequential steps (and
-    their logits) when the verify step's remaining batched op (RMSNorm) is
-    row invariant; otherwise the logits' largest difference and the argmax
-    agreement are reported."""
+    1..KQ), then ``commit_spec`` at all-accept, at sel = 0 and at a partial
+    accept, sel = 1.  Always held: the state rows a commit restores are
+    exactly the snapshot rows of the selected position, and the all-accept
+    snapshot is the state the kernels left in place.  Held bitwise against
+    the sequential steps (their logits, and at each sel the state after
+    sel + 1 steps) when the verify step's remaining batched op (RMSNorm)
+    is row invariant; otherwise the logits' largest difference and the
+    argmax agreement are reported."""
     import numpy as np
     import torch
     from repro_torch.core.paged import pages_for
@@ -1164,17 +1208,17 @@ def _spec_rollback_check(eng, cfg, rng, invariant, lens0=(64, 129, 126,
                 if sp.kind == "slab"]
 
     L0 = np.array(lens0, np.int32)
-    seq, t = [], np.array(toks0)
+    seq, seq_slabs, t = [], [], np.array(toks0)
     toks = [t]
     for i in range(KQ):
         lg = pool.decode(params, rids, t, L0 + i, seed=1 + i)
         seq.append(lg.clone())
+        seq_slabs.append(slab_rows())
         t = lg.argmax(-1).cpu().numpy()
         toks.append(t)
-    seq_slabs = slab_rows()
     tokens = np.stack(toks[:KQ], axis=1)
     results = {}
-    for sel in (KQ - 1, 0):
+    for sel in (KQ - 1, 0, 1):
         for p, s_ in zip(pool.pools, snapshot):
             p.copy_(s_)
         lg, snaps = pool.decode_spec(params, rids, tokens, L0, seed=1,
@@ -1197,26 +1241,26 @@ def _spec_rollback_check(eng, cfg, rng, invariant, lens0=(64, 129, 126,
     diffs = [float((lg[:, i] - seq[i]).abs().max()) for i in range(KQ)]
     agree = float(np.mean([bool((lg[:, i].argmax(-1) == seq[i].argmax(-1)
                                  ).all()) for i in range(KQ)]))
+    # each commit against the state after sel + 1 sequential steps
+    rows_eq = {sel: all(torch.equal(a, b) for a, b in
+                        zip(rolled, seq_slabs[sel]))
+               for sel, (_, rolled) in results.items()}
     bitwise = all(torch.equal(lg[:, i], seq[i]) for i in range(KQ)) and all(
-        torch.equal(a, b) for a, b in zip(results[KQ - 1][1], seq_slabs))
-    # sel = 0 against exactly one sequential step
-    for p, s_ in zip(pool.pools, snapshot):
-        p.copy_(s_)
-    pool.decode(params, rids, np.array(toks0), L0, seed=1)
-    one = all(torch.equal(a, b) for a, b in zip(results[0][1], slab_rows()))
+        rows_eq.values())
     for r in rids:
         pool.release(r)
     if invariant:
-        check(bitwise and one, f"{cfg.name}: row-invariant {cfg.norm_kind}, "
-              f"yet verify positions differ from sequential steps (max "
-              f"|dlogit| {max(diffs):.3g}, sel=0 rows equal: {one})")
+        check(bitwise, f"{cfg.name}: row-invariant {cfg.norm_kind}, yet "
+              f"verify positions differ from sequential steps (max |dlogit| "
+              f"{max(diffs):.3g}, committed rows equal by sel: {rows_eq})")
     phase(phase_n, "pool-level verify and rollback, full width",
           rows=len(rids),
-          lengths=list(lens0), Kq=KQ, commit_restores_snapshot="bitwise",
+          lengths=list(lens0), Kq=KQ, sels=sorted(results),
+          commit_restores_snapshot="bitwise",
           all_accept_snapshot_vs_in_place="bitwise",
-          vs_sequential_bitwise=bitwise and one,
+          vs_sequential_bitwise=bitwise, committed_rows_vs_sequential=rows_eq,
           max_abs_dlogit=f"{max(diffs):.3g}", argmax_agreement=f"{agree:.2f}")
-    return bitwise and one
+    return bitwise
 
 
 def _payload_bytes(x):
@@ -2075,16 +2119,16 @@ def phase_deepseek(cfg, params):
 # gla-2.7b / retnet-2.7b / hgrn2-2.7b at full width and full depth
 # ---------------------------------------------------------------------------
 
-def phase_quant():
-    """Kernel 7 bitwise its plain version (mantissa, exponent, micro), both
-    roundings, at the prefill REG_WRITE shapes of every served model and
-    the JAX kernel test's shapes; values spread over 45 decades with zero
-    groups, so the exponent floor and subnormal scales are held too."""
+def _hold_quant(shapes, seed0=0):
+    """Kernel 7 bitwise its plain version (mantissa, exponent, micro) at
+    ``shapes``, both roundings; values spread over 45 decades with zero
+    groups, so the exponent floor and subnormal scales are held too.
+    Returns (values, max |byte difference|)."""
     import torch
     from repro_torch.core import formats as F
     from repro_torch.kernels import mx_quant as K7
     n_vals, max_err = 0, 0
-    for i, shape in enumerate(QUANT_SHAPES):
+    for i, shape in enumerate(shapes, start=seed0):
         g = torch.Generator(device="cuda").manual_seed(20 + i)
         x = torch.randn(shape, generator=g, device="cuda")
         x *= torch.pow(10.0, torch.randint(-40, 6, shape[:-1] + (1,),
@@ -2105,6 +2149,13 @@ def phase_quant():
         n_vals += x.numel()
         del x
     torch.cuda.empty_cache()
+    return n_vals, max_err
+
+
+def phase_quant():
+    """Kernel 7 bitwise its plain version at the prefill REG_WRITE shapes of
+    every served model and the JAX kernel test's shapes."""
+    n_vals, max_err = _hold_quant(QUANT_SHAPES)
     phase(20, "mx_quantize vs plain", shapes=len(QUANT_SHAPES),
           largest=QUANT_SHAPES[-1], values=n_vals,
           roundings="nearest,stochastic", max_abs_err=max_err,
@@ -2117,8 +2168,8 @@ def phase_gla_state_update():
     two rows a thread, dv 640 ending in a partial block of rows; retnet;
     hgrn2) and at SU_ODD, dense and slab mode, scalar and per-channel decay
     each at state magnitudes 1, 1e-3 and SU_TINY, both roundings, against
-    the plain version: mantissa, exponent and micro bitwise, y within the
-    contract."""
+    the plain version: mantissa, exponent and micro bitwise, y bitwise
+    where the state matches."""
     mism = total = 0
     errs = {}
     for name, shape, _ in GLA_SU + (("odd", SU_ODD, True),):
@@ -2159,19 +2210,30 @@ def phase_gla_timing():
     No single PyTorch call quantizes to MX8 or updates an MX8 state, so the
     library times are null."""
     import torch
-    from repro_torch import ops as OPS
+    out = {"mx_quantize": _time_k7("mx_quantize", GLA_SU[0][1], n=22)}
+    for name, shape, scalar in GLA_SU:
+        tag = name.split("-")[0]
+        if name == "gla-2.7b":
+            out[f"mx_state_update[{tag}]"] = _time_su(
+                f"mx_state_update[{tag}]", shape, scalar, "dense", n=22)
+        out[f"mx_state_update[slab,{tag}]"] = _time_su(
+            f"mx_state_update[slab,{tag}]", shape, scalar, "slab", n=22)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _time_k7(key, shape, n):
+    """Kernel 7 at ``shape`` (round to nearest: what the REG_WRITE sites
+    run), its plain version, and its host-loop time; bytes = 4 B read +
+    1.125 B written per value."""
+    import torch
     from repro_torch.core import formats as F
     from repro_torch.kernels import mx_quant as K7
-    from repro_torch.kernels import mx_state_update as KS
     it = iter(range(10 ** 9))
-    out = {}
-
-    # -- kernel 7: bytes = 4 B read + 1.125 B written per value
-    B, H, dv, dk = GLA_SU[0][1]
-    n_val = B * H * dv * dk
+    n_val = math.prod(shape)
     n_rot = _rotation(n_val * 4)
     g = torch.Generator(device="cuda").manual_seed(22)
-    xs = [torch.randn((B, H, dv, dk), generator=g, device="cuda")
+    xs = [torch.randn(shape, generator=g, device="cuda")
           for _ in range(n_rot)]
     kern = [lambda x=x: K7.mx_quantize(x) for x in xs]
     plain = [lambda x=x: K7.plain(x) for x in xs[:8]]
@@ -2179,67 +2241,60 @@ def phase_gla_timing():
     plain_ms = graph_ms(plain, 3)
     host_ms = host_loop_ms(lambda: kern[next(it) % n_rot](), 10 * n_rot)
     nbytes = n_val * (4 + 1 + 2 / F.MX8_GROUP)
-    out["mx_quantize"] = _report("mx_quantize", ms, plain_ms, None, host_ms,
-                                 nbytes, 5 * n_val, n_val * 9 / 8 + 4 * n_val,
-                                 n=22)
-    del xs, kern, plain
+    return _report(key, ms, plain_ms, None, host_ms, nbytes, 5 * n_val,
+                   n_val * 9 / 8 + 4 * n_val, n=n)
 
-    # -- kernel 1, dense at gla's heads and slab mode at all three
-    for name, shape, scalar in GLA_SU:
-        B, H, dv, dk = shape
-        n_val = B * H * dv * dk
-        payload = n_val * (1 + 2 / F.MX8_GROUP)
-        dd = 1 if scalar else dk
-        operands = 4 * (B * H * (dd + 2 * dk + dv) + B * H * dv)
-        g = torch.Generator(device="cuda").manual_seed(dk)
-        d = torch.sigmoid(torch.randn((B, H, dd), generator=g,
-                                      device="cuda"))
-        k, q = (torch.randn((B, H, dk), generator=g, device="cuda")
-                for _ in "kq")
-        v = torch.randn((B, H, dv), generator=g, device="cuda")
-        n_rot = _rotation(payload)
-        modes = (("dense", "slab") if name == "gla-2.7b" else ("slab",))
-        for mode in modes:
-            if mode == "dense":
-                states = [F.mx8_quantize(torch.randn(
-                    shape, generator=g, device="cuda")) for _ in range(n_rot)]
-                kern = [lambda i=i: KS.mx_state_update(states[i], d, k, v, q,
-                                                       seed=i)
-                        for i in range(n_rot)]
-                plain = [lambda i=i: KS.plain(states[i], d, k, v, q, seed=i)
-                         for i in range(8)]
-                key = f"mx_state_update[{name.split('-')[0]}]"
-                extra = 0
-            else:
-                pool = F.mx8_quantize(torch.randn(
-                    (B + 1, n_rot, H, dv, dk), generator=g, device="cuda"))
-                slabs = torch.arange(1, B + 1, dtype=torch.int32,
-                                     device="cuda")
-                kern = [lambda i=i: KS.mx_state_update(
-                    pool, d, k, v, q, seed=i, slabs=slabs, group=i)
-                    for i in range(n_rot)]
-                plain = [lambda i=i: KS.plain_slab(pool, slabs, i, d, k, v,
-                                                   q, seed=i)
-                         for i in range(8)]
-                key = f"mx_state_update[slab,{name.split('-')[0]}]"
-                extra = 4 * B
-            ms = graph_ms(kern, 10)
-            plain_ms = graph_ms(plain, 3)
-            host_ms = host_loop_ms(lambda: kern[next(it) % n_rot](),
-                                   10 * n_rot)
-            plan = OPS.plan_state_update_dims(
-                B, H, dk, dv, OPS.StateQuantConfig(),
-                layout="dense" if mode == "dense" else "paged")
-            out[key] = _report(key, ms, plain_ms, None, host_ms,
-                               2 * payload + operands + extra, 10 * n_val,
-                               OPS.traffic(plan).total, n=22)
-            del kern, plain
-            if mode == "dense":
-                del states
-            else:
-                del pool
-    torch.cuda.empty_cache()
-    return out
+
+def _time_su(key, shape, scalar, mode, n):
+    """Kernel 1 at ``shape`` in ``mode`` ("dense", or "slab" on a pool of
+    ``n_rot`` layers), states rotated cold in L2, its plain version, and
+    its host-loop time; bytes = the payload read and written once, the
+    operands, y, and the slab ids."""
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_state_update as KS
+    it = iter(range(10 ** 9))
+    B, H, dv, dk = shape
+    n_val = B * H * dv * dk
+    payload = n_val * (1 + 2 / F.MX8_GROUP)
+    dd = 1 if scalar else dk
+    operands = 4 * (B * H * (dd + 2 * dk + dv) + B * H * dv)
+    g = torch.Generator(device="cuda").manual_seed(dk)
+    d = torch.sigmoid(torch.randn((B, H, dd), generator=g, device="cuda"))
+    k, q = (torch.randn((B, H, dk), generator=g, device="cuda")
+            for _ in "kq")
+    v = torch.randn((B, H, dv), generator=g, device="cuda")
+    n_rot = _rotation(payload)
+    if mode == "dense":
+        states = [F.mx8_quantize(torch.randn(shape, generator=g,
+                                             device="cuda"))
+                  for _ in range(n_rot)]
+        kern = [lambda i=i: KS.mx_state_update(states[i], d, k, v, q, seed=i)
+                for i in range(n_rot)]
+        plain = [lambda i=i: KS.plain(states[i], d, k, v, q, seed=i)
+                 for i in range(8)]
+        extra = 0
+    else:
+        states = F.mx8_quantize(torch.randn((B + 1, n_rot, H, dv, dk),
+                                            generator=g, device="cuda"))
+        slabs = torch.arange(1, B + 1, dtype=torch.int32, device="cuda")
+        kern = [lambda i=i: KS.mx_state_update(
+            states, d, k, v, q, seed=i, slabs=slabs, group=i)
+            for i in range(n_rot)]
+        plain = [lambda i=i: KS.plain_slab(states, slabs, i, d, k, v, q,
+                                           seed=i)
+                 for i in range(8)]
+        extra = 4 * B
+    ms = graph_ms(kern, 10)
+    plain_ms = graph_ms(plain, 3)
+    host_ms = host_loop_ms(lambda: kern[next(it) % n_rot](), 10 * n_rot)
+    plan = OPS.plan_state_update_dims(
+        B, H, dk, dv, OPS.StateQuantConfig(),
+        layout="dense" if mode == "dense" else "paged")
+    return _report(key, ms, plain_ms, None, host_ms,
+                   2 * payload + operands + extra, 10 * n_val,
+                   OPS.traffic(plan).total, n=n)
 
 
 #: calls of ``F.mx8_quantize`` on a CUDA tensor made inside the served
@@ -2285,7 +2340,8 @@ def _k7_per_prefill(cfg):
     MLA latent stream."""
     per = (lambda kinds: sum(cfg.pattern.count(k) for k in kinds)
            * cfg.n_groups + sum(cfg.prelude.count(k) for k in kinds))
-    return (per(("mamba2", "gla", "retnet", "hgrn2")) + per(("attn",))
+    return (per(("mamba2", "gla", "retnet", "hgrn2", "mlstm"))
+            + per(("attn",))
             + (cfg.n_groups if cfg.shared_attn else 0) + per(("mla",)))
 
 
@@ -2617,14 +2673,18 @@ def _reference_check(params, cfg, prompt, n=7):
 
 
 def _reference_check_by_depth(params, cfg, prompt, n):
-    """The GLA family's reference check, at growing depth: the first g
-    layer groups of the same weights.  The contract of
-    :func:`_reference_check` (first-step logits to rtol 1e-3) is held at
-    one group, where the two paths differ only in the kernel's fp32
-    summation order.  Deeper, a last-bit difference in a layer's input
-    moves state values across MX8 rounding boundaries, the layers after it
-    see inputs that differ more, and the difference grows with depth.  The
-    control measures that growth without the kernels: the plain ops
+    """The recurrent models' reference check, at growing depth: the first g
+    layer groups of the same weights, and first the pattern's first layer
+    alone where a group holds more than one (xlstm's 7 mLSTM + 1 sLSTM).
+    The contract of :func:`_reference_check` (first-step logits to rtol
+    1e-3) is held there and at one group, where the two paths differ only
+    in the few stochastic-rounding decisions that the kernel's FMA and the
+    plain fp64 emulation round apart (at round to nearest they are
+    bitwise: kernel 1's ``y`` sums in its plain version's order).
+    Deeper, a last-bit difference in a layer's input moves state values
+    across MX8 rounding boundaries, the layers after it see inputs that
+    differ more, and the difference grows with depth.  The control
+    measures that growth without the kernels: the plain ops
     against themselves with layer 0's first ``y`` moved one ulp, at the
     same depths and roundings.  Held at every depth and rounding: the
     kernels' difference is at most ``CONTROL_FACTOR`` times the control's
@@ -2639,24 +2699,28 @@ def _reference_check_by_depth(params, cfg, prompt, n):
     tok = torch.as_tensor(np.asarray(prompt)[None], device="cuda")
     depths = [g for g in sorted({1, 2, 4, 8, 16, cfg.n_groups})
               if g <= cfg.n_groups]
+    cut = {g: (dict(params, groups=params["groups"][:g]),
+               cfg.with_(n_layers=g * len(cfg.pattern))) for g in depths}
+    if len(cfg.pattern) > 1:
+        depths.insert(0, "layer")
+        cut["layer"] = (dict(params, groups=[params["groups"][0][:1]]),
+                        cfg.with_(pattern=cfg.pattern[:1], n_layers=1))
     errs, ctrl, full = {}, {}, {}
     for rounding in ("stochastic", "nearest"):
         for g in depths:
             runs = _kernel_vs_plain_runs(
-                dict(params, groups=params["groups"][:g]),
-                cfg.with_(n_layers=g * len(cfg.pattern)), tok,
-                n_steps=4 if g == cfg.n_groups else 1, rounding=rounding,
-                control=True)
+                *cut[g], tok, n_steps=4 if g == cfg.n_groups else 1,
+                rounding=rounding, control=True)
             errs[rounding, g] = _first_step_error(runs)
             ctrl[rounding, g] = _first_step_error(runs, other=2)
-            if g == 1:
-                check(errs[rounding, g][1], f"first decode step, one layer "
-                      f"group, {rounding}: kernels vs plain max err "
+            if g in ("layer", 1):
+                check(errs[rounding, g][1], f"first decode step, depth "
+                      f"{g} (groups), {rounding}: kernels vs plain max err "
                       f"{errs[rounding, g][0]:.3g}")
         full[rounding] = runs
     for (r, g), (err, _) in errs.items():
-        check(err <= CONTROL_FACTOR * ctrl[r, g][0], f"{cfg.name}, {g} layer "
-              f"groups, {r}: kernels vs plain {err:.3g} beyond "
+        check(err <= CONTROL_FACTOR * ctrl[r, g][0], f"{cfg.name}, depth "
+              f"{g} (groups), {r}: kernels vs plain {err:.3g} beyond "
               f"{CONTROL_FACTOR}x the one-ulp control {ctrl[r, g][0]:.3g}")
     check(_agreement_4(full["nearest"]) == 1.0, f"{cfg.name}, full depth, "
           "round to nearest: greedy tokens differ from the plain ops'")
@@ -2677,7 +2741,7 @@ def _reference_check_by_depth(params, cfg, prompt, n):
     top = float(full["stochastic"][1][0].abs().max())
     phase(n, "reference check by depth (kernels vs plain ops, same prefill; "
           "control: plain vs plain with one y moved 1 ulp)",
-          one_group="within rtol 1e-3",
+          one_layer_and_group="within rtol 1e-3",
           every_depth=f"within {CONTROL_FACTOR}x control", **fields,
           full_depth_max_abs_logit=f"{top:.3g}",
           greedy_agreement_4_steps_full_depth=repr(
@@ -3015,17 +3079,23 @@ def _dense_model(arch):
 def _verify_invariance(params, cfg):
     """The verify step's trouble spot on the card, at this model's shapes:
     row i of ``(B, Kq, d) @ W`` against the contiguous ``(B, 1, d) @ W`` of
-    position i, bitwise, for layer 0's weights and the LM head (fp32, TF32
-    off; the verify step runs its products position by position, so these
-    only report), and the norm (RMSNorm or LayerNorm: its reductions run
-    over all Kq positions at once), which gates greedy exactness.  Returns
-    {name: bool}."""
+    position i, bitwise, for the matrices of the first and last layer of
+    the pattern and the LM head (fp32, TF32 off; the verify step runs its
+    products position by position, so these only report), and the norm
+    (RMSNorm or LayerNorm: its reductions run over all Kq positions at
+    once), which gates greedy exactness.  Returns {name: bool}."""
     import torch
     from repro_torch.models import layers as L
     g = torch.Generator(device="cuda").manual_seed(7)
     layer = params["groups"][0][0]
-    weights = {f"attn_{k}": v for k, v in layer["mixer"].items()}
-    weights.update({f"ffn_{k}": v for k, v in layer["ffn"].items()})
+    weights = {}
+    for pos in sorted({0, len(cfg.pattern) - 1}):
+        kind, lp = cfg.pattern[pos], params["groups"][0][pos]
+        # not the mLSTM's conv taps and per-head tables, nor the block-
+        # diagonal (H, dk, dk) projections, which lead with H = 4
+        weights.update({f"{kind}_{k}": v for k, v in lp["mixer"].items()
+                        if v.shape[0] > 16})
+        weights.update({f"ffn_{k}": v for k, v in lp.get("ffn", {}).items()})
     weights["lm_head"] = (params["embed"].T if cfg.tie_embeddings
                           else params["lm_head"])
     out = {}
@@ -3387,6 +3457,273 @@ def phase_dense_append_timing():
         torch.cuda.empty_cache()
     return out
 
+# ---------------------------------------------------------------------------
+# xlstm-1.3b (mLSTM + sLSTM) at full width and full depth
+# ---------------------------------------------------------------------------
+
+def phase_xlstm_kernels():
+    """Phase 38: kernel 1 at xlstm-1.3b's mLSTM heads (4, 4, 1040, 1024):
+    64 groups a row, the normalizer row at 8 to ~50 times the state and 15
+    zero rows a head (the zero-group path), scalar decay, dense mode and
+    slab mode (n_stack 6, layer 4), both roundings, state magnitudes
+    APPEND_MAGS: mantissa, exponent and micro bitwise the plain version, y
+    bitwise where the state matches (its largest difference over all rows
+    printed by state magnitude; the kernels line takes magnitude 1's).
+    Then kernel 7 at the mLSTM's prefill states, bitwise."""
+    import torch
+    mism = total = 0
+    err = {m: 0.0 for m in APPEND_MAGS}
+    for rounding, mag in itertools.product(("stochastic", "nearest"),
+                                           APPEND_MAGS):
+        seed = 38 + APPEND_MAGS.index(mag)
+        for n_bad, n, e in (
+                _su_case(XLSTM_SU, rounding, mag, True, seed, mlstm=True),
+                _slab_case(XLSTM_SU, gen_seed=seed, sr_seed=0xFFFFFFF0 + seed,
+                           rounding=rounding, mag=mag, mlstm=True)):
+            mism, total, err[mag] = mism + n_bad, total + n, max(err[mag], e)
+        torch.cuda.empty_cache()
+    check(mism == 0, f"kernel 1 at xlstm's heads: {mism} of {total} "
+          "mantissas differ from the plain version")
+    phase(38, "mx_state_update at xlstm-1.3b's mLSTM heads vs plain",
+          shape=XLSTM_SU, modes="dense,slab", decay="scalar",
+          normalizer_row="8-50x the state, rows 1025-1039 zero",
+          state_magnitude=",".join(f"{m:g}" for m in APPEND_MAGS),
+          roundings="stochastic,nearest", mantissa_exp_micro="bitwise",
+          values=total, y_max_abs_err_by_magnitude=repr(
+              {f"{m:g}": f"{e:.3g}" for m, e in err.items()}))
+    n_vals, k7_err = _hold_quant(XLSTM_K7, seed0=38)
+    phase(38, "mx_quantize at xlstm-1.3b's prefill states vs plain",
+          shapes=list(XLSTM_K7), values=n_vals,
+          roundings="nearest,stochastic", max_abs_err=k7_err,
+          result="bitwise (mantissa, exponent, micro)")
+    return {"su_xlstm": err[1.0], "k7_xlstm": float(k7_err)}
+
+
+def phase_xlstm_timing():
+    """Phase 39: device times by CUDA-graph replay, inputs rotated cold in
+    L2: kernel 1 dense and slab at XLSTM_SU (scalar decay), kernel 7 at one
+    request's prefill state (1, 4, 1040, 1024).  No single PyTorch call
+    updates or makes an MX8 state: the library times are null."""
+    import torch
+    out = {"mx_state_update[xlstm]": _time_su(
+               "mx_state_update[xlstm]", XLSTM_SU, True, "dense", n=39),
+           "mx_state_update[xlstm_slab]": _time_su(
+               "mx_state_update[xlstm_slab]", XLSTM_SU, True, "slab", n=39),
+           "mx_quantize[xlstm]": _time_k7("mx_quantize[xlstm]", XLSTM_K7[0],
+                                          n=39)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _xlstm_model():
+    """xlstm-1.3b at full width and all 48 layers (6 groups of 7 mLSTM + 1
+    sLSTM), random weights from a seeded CUDA generator."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("xlstm-1.3b")
+    check(cfg.n_layers == 48 and cfg.d_model == 2048
+          and cfg.pattern.count("mlstm") * cfg.n_groups == 42
+          and cfg.state_quant.fmt == "mx8"
+          and cfg.state_quant.backend == "cuda", f"unexpected {cfg.name}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_model(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in _leaves(params))
+    nbytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    stream = nbytes - params["embed"].numel() * params["embed"].element_size()
+    return cfg, params, dict(params=n, GB=f"{nbytes / 1e9:.2f}",
+                             layers=f"{cfg.n_layers} of {cfg.n_layers}",
+                             weight_stream_GB=f"{stream / 1e9:.2f}",
+                             weight_stream_bound_ms=(
+                                 f"{stream / PEAK_BYTES_PER_S * 1e3:.2f}"),
+                             init_s=f"{time.perf_counter() - t0:.1f}")
+
+
+def _slstm_prefill_share(params, cfg, rng, n=40, length=400):
+    """The sLSTM's share of one request's prefill of ``length`` tokens: its
+    six layers run the cell position by position in plain PyTorch (no SPU
+    op, no kernel).  Each sLSTM forward is timed between device
+    synchronisations, and so is the whole prefill around it."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as SSM
+    real, spent = SSM.MIXERS["slstm"], []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real.forward(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, length),
+                          device="cuda")[None]
+    M.prefill(params, cfg, {"tokens": tok[:, :64]})          # warm up
+    SSM.MIXERS["slstm"] = real._replace(forward=timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M.prefill(params, cfg, {"tokens": tok})
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        SSM.MIXERS["slstm"] = real
+    check(len(spent) == cfg.pattern.count("slstm") * cfg.n_groups,
+          f"timed {len(spent)} sLSTM layers")
+    phase(n, "sLSTM share of a prefill", prompt_tokens=length,
+          slstm_layers=len(spent), prefill_s=f"{total:.3f}",
+          slstm_s=f"{sum(spent):.3f}", slstm_share=f"{sum(spent) / total:.3f}")
+    return dict(prefill_s=total, slstm_s=sum(spent))
+
+
+def _spill_resume_check(eng, cfg, rng, n=41):
+    """Spill and resume at the pool level: a slab-only model is never
+    preempted through the page headroom check, so a live request is
+    spilled (``extract_request`` into a host blob) and re-pinned
+    (``insert_blob``) on another slab, the freed one overwritten first.
+    Every slab leaf (the mLSTM state, its conv tail, the sLSTM's c, n, m,
+    h) must come back bitwise, and the request's next steps must equal
+    those of the uninterrupted run, bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.core.paged import pages_for
+    from repro_torch.models import model as M
+    pool, params = eng.engine.pool, eng.engine.params
+    rid, other = 30_000, 30_001
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, 97),
+                             device="cuda")[None]
+    logits, row = M.prefill(params, cfg, {"tokens": prompt})
+    check(pool.register(rid, pages_for(97 + 8)), "no pages for the spill")
+    pool.insert_prefill(rid, row)
+    rids = [rid, None, None, None]
+
+    def steps(t, L, k, seed0):
+        out = []
+        for i in range(k):
+            lg = pool.decode(params, rids, np.array([t, 0, 0, 0]),
+                             np.array([L + i, 0, 0, 0], np.int32),
+                             seed=seed0 + i)
+            out.append(lg[0].clone())
+            t = int(lg[0].argmax())
+        return out, t
+
+    _, t = steps(int(logits[0].argmax()), 97, 2, 1)
+    snapshot = [p.clone() for p in pool.pools]
+    want, _ = steps(t, 99, 3, 3)
+    for p, s_ in zip(pool.pools, snapshot):
+        p.copy_(s_)
+    slab = pool.slab_of[rid]
+    before = [p[slab].clone() for p in pool.pools]
+    sp = pool.spill(rid, 99)
+    for p in pool.pools:
+        p[slab] = 3
+    check(pool.register(other, 1), "no slab for the second request")
+    check(pool.resume(rid, sp), "resume refused")
+    new = pool.slab_of[rid]
+    check(new != slab, "resumed on the slab it left")
+    leaves = [sp_.path[0] for sp_ in pool.paging.specs]
+    for p, b, leaf in zip(pool.pools, before, leaves):
+        check(torch.equal(p[new], b), f"slab leaf {leaf} not given back "
+              "bitwise")
+    got, _ = steps(t, 99, 3, 3)
+    check(all(torch.equal(a, b) for a, b in zip(want, got)),
+          "the resumed stream differs from the uninterrupted one")
+    pool.release(rid)
+    pool.release(other)
+    blob = sum(a.numel() * a.element_size() for a in sp.blob)
+    phase(n, "spill and resume, pool level", leaves=sorted(set(leaves)),
+          slab_MB=f"{pool.slab_nbytes / 1e6:.2f}",
+          blob_MB=f"{blob / 1e6:.2f}",
+          leaves_after_resume="bitwise", next_3_steps="bitwise")
+
+
+def phase_xlstm():
+    """xlstm-1.3b at full width and all 48 layers through the slot pool
+    (40), the paged pool (41; paged logits bitwise the dense-gather path's
+    on a fresh pool first; spill and resume at the pool level) and the
+    paged pool with n-gram speculation (42; the pool-level verify and
+    rollback check; greedy spec == plain at round to nearest).  Every
+    decode step launches kernel 1 once per mLSTM layer (42: dense on the
+    slot pool, slab mode on the paged pool; Kq times per verify step),
+    every request's prefill kernel 7 once per mLSTM layer, and nothing
+    else of the port's kernels; the sLSTM runs in plain PyTorch."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.api import Engine, ServeConfig
+    cfg, params, info = _xlstm_model()
+    L = cfg.pattern.count("mlstm") * cfg.n_groups
+    k7 = _k7_per_prefill(cfg)
+    check(k7 == L == 42, f"kernel 7 per prefill {k7}, mLSTM layers {L}")
+    phase(40, "xlstm-1.3b weights", **info)
+    rng = np.random.default_rng(40)
+    prompts = _pattern_prompts(rng, cfg)
+
+    eng = Engine(params, cfg, ServeConfig(backend="slots", batch=4,
+                                          cache_capacity=1024))
+    slot = _serve_counted(eng, cfg, prompts, XLSTM_MAX_NEW, dict(k1=L), k7,
+                          "xlstm slots")
+    state = sum(_payload_bytes(c) for grp in eng.engine.caches for c in grp)
+    phase(40, "main path xlstm-1.3b slots", **_fields(slot),
+          state_MB_per_request=f"{state / 4 / 1e6:.2f}")
+    slot["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 40)
+    del eng
+    slot["slstm"] = _slstm_prefill_share(params, cfg, rng)
+    _reference_check_by_depth(params, cfg, prompts[0], n=40)
+
+    eng = Engine(params, cfg, ServeConfig(**XLSTM_PAGED))
+    shape = _paged_vs_gather(eng, cfg, rng)
+    phase(41, "xlstm paged vs gather logits, fresh pool", steps=4,
+          logits=tuple(shape), result="bit-identical")
+    paged = _serve_counted(eng, cfg, prompts, XLSTM_MAX_NEW, dict(k1s=L),
+                           k7, "xlstm paged")
+    pool = eng.engine.pool
+    check(pool.page_nbytes == 0, f"xlstm holds no KV, yet pages of "
+          f"{pool.page_nbytes} B")
+    phase(41, "main path xlstm-1.3b paged", **_fields(paged),
+          preemptions=int(paged["stats"]["preemptions"]),
+          page_bytes=pool.page_nbytes,
+          slab_MB=f"{pool.slab_nbytes / 1e6:.2f}",
+          gather_MB=f"{paged['stats']['gather_bytes'] / 1e6:.2f}")
+    _spill_resume_check(eng, cfg, rng)
+    paged["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 41)
+    del eng
+
+    rows = _verify_invariance(params, cfg)
+    invariant = rows[cfg.norm_kind]
+    phase(42, "matmul and norm row invariance, (B,Kq,d) rows vs (B,1,d), "
+          "fp32, TF32 off", B=4, Kq=KQ,
+          rows=repr({k: int(v) for k, v in rows.items()}),
+          verify_products="per position (the mixers' decode)",
+          norm=cfg.norm_kind, remaining_batched_op_invariant=invariant)
+    eng = Engine(params, cfg, ServeConfig(**XLSTM_PAGED, spec="ngram",
+                                          spec_k=SPEC_K))
+    spec = _serve_counted(eng, cfg, prompts, XLSTM_MAX_NEW,
+                          dict(k1s=L * KQ), k7, "xlstm paged + ngram")
+    st = spec["stats"]
+    agree, first = _agreement(paged["outputs"], spec["outputs"])
+    phase(42, "main path xlstm-1.3b paged + ngram speculation", Kq=KQ,
+          **_fields(spec), proposed=int(st["proposed_tokens"]),
+          accepted=int(st["accepted_tokens"]),
+          acceptance_rate=f"{st['acceptance_rate']:.3f}",
+          snapshot_MB_per_verify_step_at_batch_4=(
+              f"{KQ * 4 * eng.engine.pool.slab_nbytes / 1e6:.2f}"),
+          vs_phase_41_other_sr_seeds="equal" if first is None else
+          f"agreement {agree:.3f}, first difference at token {first}")
+    spec["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 42)
+    _spec_rollback_check(eng, cfg, rng, invariant, phase_n=42)
+    del eng
+    # 8 new tokens: the three engines' 4 requests keep phase 42 short
+    _greedy_exactness(params, cfg, prompts, invariant, n=42, max_new=8,
+                      paged=XLSTM_PAGED)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(slot=slot, paged=paged, spec=spec, invariant=invariant)
+
 
 def main():
     if not (SRC / "repro_torch").is_dir():
@@ -3446,8 +3783,18 @@ def main():
         phase(30, "device memory before the dense family",
               allocated_GB=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
         dense = {arch: phase_dense(arch) for arch in DENSE}
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_x = time.perf_counter()
+        errs.update(phase_xlstm_kernels())
+        times.update(phase_xlstm_timing())
+        phase(40, "device memory before xlstm-1.3b",
+              allocated_GB=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+        xlstm = phase_xlstm()
+        phase(42, "xlstm-1.3b phases 38-42",
+              seconds=f"{time.perf_counter() - t_x:.1f}")
         kernels = kernels_line(errs, times, slot, paged, spec, ds, gla,
-                               dense)
+                               dense, xlstm)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3459,13 +3806,14 @@ def main():
     return 0
 
 
-def kernels_line(errs, times, slot, paged, spec, ds, gla, dense):
+def kernels_line(errs, times, slot, paged, spec, ds, gla, dense, xlstm):
     """One entry per kernel and mode (kernel 1: dense mode on the slot
     path, slab mode on the paged path, at zamba2's heads and again at the
     GLA family's; kernels 2, 3, 5 and 6: GQA mode on zamba2's paths, MLA
     mode on deepseek's; kernel 7 on gla's slot path; the fused dense append
     on zamba2's and deepseek's slot paths; kernels 2 to 7 and the dense
-    append again at opt-6.7b's and yi-9b's widths, on their paths);
+    append again at opt-6.7b's and yi-9b's widths, on their paths; kernels
+    1 and 7 at xlstm-1.3b's mLSTM heads and prefill states, on its paths);
     ``launches`` counts
     each one's own main path (the verify kernels: the speculative path,
     where kernel 6, the dense-cache twin, has no launch; kernel 4: the
@@ -3587,6 +3935,15 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla, dense):
                                 replaces=replaces,
                                 launches=r[path]["n"][counter],
                                 max_abs_err=errs[err], **times[key]))
+    for key, path, counter, err in (
+            ("mx_state_update[xlstm]", "slot", "k1", "su_xlstm"),
+            ("mx_state_update[xlstm_slab]", "paged", "k1s", "su_xlstm"),
+            ("mx_quantize[xlstm]", "slot", "k7", "k7_xlstm")):
+        kernels.append(dict(name=key, route="cuda",
+                            source=q_src if counter == "k7" else su_src,
+                            replaces=q_tpu if counter == "k7" else su_tpu,
+                            launches=xlstm[path]["n"][counter],
+                            max_abs_err=errs[err], **times[key]))
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             check(math.isfinite(k[key]), f"{k['name']}: {key} not finite")

@@ -4,8 +4,9 @@ Each module defines CONFIG (full size) and SMOKE (a reduced same-family
 config for CPU tests), field for field the JAX package's.  The port carries
 the three architectures of its first slices, deepseek-v2-236b (MLA + MoE),
 the paper's GLA-family evaluation models (gla, retnet, hgrn2 at 2.7B), its
-transformer baseline opt-6.7b (LayerNorm, ReLU FFN, learned positions) and
-yi-9b (GQA); the other six follow (ROADMAP.md).
+transformer baseline opt-6.7b (LayerNorm, ReLU FFN, learned positions),
+yi-9b (GQA) and xlstm-1.3b (mLSTM + sLSTM); the other five follow
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ALL_ARCHS = ("zamba2-2.7b", "mamba2-2.7b", "llama3.2-1b", "deepseek-v2-236b",
-             "gla-2.7b", "retnet-2.7b", "hgrn2-2.7b", "opt-6.7b", "yi-9b")
+             "gla-2.7b", "retnet-2.7b", "hgrn2-2.7b", "opt-6.7b", "yi-9b",
+             "xlstm-1.3b")
 
 
 def _module_name(arch: str) -> str:

@@ -23,9 +23,14 @@
 //   * R is 1 where the SMs hold the whole grid at once, else 2;
 //   * the group arithmetic (mx8_group.cuh) has no division and no
 //     conversion instruction but the SR hash's on the value path;
-//   * y sums each row's group partials in group order from 0.f -- the
-//     order of the kernel's first design, so y is bitwise the same -- one
-//     thread per row of the block, all rows at once.
+//   * y rounds each product of a stored value and q to fp32 and adds a
+//     group's 16 products in order from 0.f, then each row's group
+//     partials in group order from 0.f, one thread per row of the block,
+//     all rows at once: no contraction into an FMA, so the plain version
+//     (ref.py, group_ordered_dot) gives y bitwise.  (On an H100 a
+//     pairwise sum a group took a 64-byte stack frame at one row a
+//     thread and 1.09-1.30x the time; this running sum costs 1-2 % over
+//     the FMA chain it replaced.)
 //
 // Numerics match repro_torch/kernels/ref.py and, to a stated mismatch rate,
 // the JAX package (see ROADMAP.md):
@@ -183,7 +188,8 @@ mx_state_update_kernel(int8_t* __restrict__ mant, uint8_t* __restrict__ expo,
     expo[gid] = (uint8_t)(e + kExpBias);
     micro[gid] = (uint8_t)mic;
     // stored value m_j * scale = t_j * scale - kMagic * scale: one exact
-    // FMA where kMagic * scale is a float (e <= 110), else two
+    // FMA where kMagic * scale is a float (e <= 110), else two; its
+    // product with q rounded, then added to the group's running sum
     float qq[kGroup];
 #pragma unroll
     for (int j4 = 0; j4 < kGroup / 4; ++j4) {
@@ -195,20 +201,18 @@ mx_state_update_kernel(int8_t* __restrict__ mant, uint8_t* __restrict__ expo,
 #pragma unroll
       for (int j = 0; j < kGroup; ++j) {
         const float sc = scale[j >> 1];
-        partial[i] = __fmaf_rn(
-            __fmaf_rn(t[j], sc, -__fmul_rn(mx8::kMagic, sc)), qq[j],
-            partial[i]);
+        partial[i] = __fadd_rn(partial[i], __fmul_rn(
+            __fmaf_rn(t[j], sc, -__fmul_rn(mx8::kMagic, sc)), qq[j]));
       }
     } else {
 #pragma unroll
       for (int j = 0; j < kGroup; ++j)
-        partial[i] = __fmaf_rn(
-            __fmul_rn(__fsub_rn(t[j], mx8::kMagic), scale[j >> 1]), qq[j],
-            partial[i]);
+        partial[i] = __fadd_rn(partial[i], __fmul_rn(
+            __fmul_rn(__fsub_rn(t[j], mx8::kMagic), scale[j >> 1]), qq[j]));
     }
   }
 
-  // y: each row's partials summed in group order from 0.f
+  // y: each row's partials summed in group order from 0.f, unfused
   const int stride = ngroups | 1;
   __syncthreads();                       // the operands are all read
   MX_SU_STAMP(2);
@@ -220,7 +224,8 @@ mx_state_update_kernel(int8_t* __restrict__ mant, uint8_t* __restrict__ expo,
     const int row = blockIdx.z * block_rows + r;
     if (row < dv) {
       float s = 0.f;
-      for (int j = 0; j < ngroups; ++j) s += smem[r * stride + j];
+      for (int j = 0; j < ngroups; ++j)
+        s = __fadd_rn(s, smem[r * stride + j]);
       y[(size_t)bh * dv + row] = s;
     }
   }

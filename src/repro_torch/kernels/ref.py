@@ -34,8 +34,9 @@ def quantized_state_update_stored_ref(
     """One Eq. 2 step over a quantized state stored as Sᵀ, (B, H, dv, dk).
 
     Dequantize -> ``Sn = fma(S, d, v*k)`` -> requantize (SR bits from the
-    counter hash over the flat index) -> ``y = dequant(Sn_q) · q``.  Any
-    quantized format; returns a new container.
+    counter hash over the flat index) -> ``y = dequant(Sn_q) · q``, for MX8
+    summed in kernel 1's order (:func:`group_ordered_dot`).  Any quantized
+    format; returns a new container.
     """
     B, H, dv, dk = qS.shape
     St = F.dequantize(qS)
@@ -45,8 +46,27 @@ def quantized_state_update_stored_ref(
     bits = (F.sr_bits(Sn.shape, seed, device=Sn.device)
             if rounding == "stochastic" else None)
     qSn = F.quantize(Sn, qS.fmt, rounding, bits)
-    y = torch.einsum("bhvk,bhk->bhv", F.dequantize(qSn), q.to(torch.float32))
+    if qS.fmt == "mx8":
+        y = group_ordered_dot(F.dequantize(qSn), q.to(torch.float32))
+    else:
+        y = torch.einsum("bhvk,bhk->bhv", F.dequantize(qSn),
+                         q.to(torch.float32))
     return qSn, y
+
+
+def group_ordered_dot(S: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``y = S · q`` over the last axis, (..., dv, dk) by (..., dk), summed
+    in kernel 1's order, so that its ``y`` is bitwise this one: each
+    product rounded to fp32, each 16-value group's products added in order
+    from 0, then the group sums in group order from 0."""
+    p = (S * q[..., None, :]).unflatten(-1, (-1, F.MX8_GROUP))
+    part = torch.zeros(p.shape[:-1], dtype=p.dtype, device=p.device)
+    for j in range(F.MX8_GROUP):
+        part = part + p[..., j]
+    y = torch.zeros(p.shape[:-2], dtype=p.dtype, device=p.device)
+    for g in range(p.shape[-2]):
+        y = y + part[..., g]
+    return y
 
 
 def state_update_float(S: torch.Tensor, d, k, v, q,

@@ -14,6 +14,8 @@ with the kernels' plain versions, e.g. at smoke size:
         --arch deepseek-v2-236b --smoke-size --device cpu --paged --pages 6
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gla-2.7b \\
         --smoke-size --device cpu --paged     # or retnet-2.7b, hgrn2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
+        --smoke-size --device cpu --paged     # mLSTM + sLSTM
 
 ``--arch`` takes any architecture the port carries
 (``repro_torch.configs.ALL_ARCHS``).  Weights are random, from ``--seed``.

@@ -44,7 +44,7 @@ _NO_FFN = ("mamba2", "mlstm", "slstm")
 _SEED_STRIDE = 1000003
 _PRELUDE_SEED = 7919
 _U32 = 0xFFFFFFFF
-_PORTED = ("attn", "mamba2", "mla") + SSM.GLA_FAMILY
+_PORTED = ("attn", "mla") + tuple(SSM.MIXERS)
 _FFN_KINDS = ("swiglu", "geglu", "gelu", "relu", "moe", "none")
 #: rows of a learned position table (the JAX package's): positions 0 ..
 #: POS_ROWS - 1; the serving engines refuse what could reach past them
@@ -104,12 +104,10 @@ def _init_element(gen, cfg: ModelConfig, kind: str, device, layer_idx: int,
         p["mixer"] = ATT.init_attention(gen, cfg, device)
     elif kind == "mla":
         p["mixer"] = ATT.init_mla(gen, cfg, device)
-    elif kind in SSM.GLA_FAMILY:
-        p["mixer"] = SSM.init_gla_family(gen, cfg, kind, device)
+    else:
+        p["mixer"] = SSM.mixer(kind).init(gen, cfg, device)
         if kind == "hgrn2":
             p["mixer"]["beta"].fill_(layer_idx / max(cfg.n_layers, 1))
-    else:
-        p["mixer"] = SSM.init_mamba2(gen, cfg, device)
     if _has_ffn(cfg, kind):
         p["ffn_norm"] = L.init_norm(cfg.d_model, cfg.norm_kind, dt, device)
         if cfg.ffn_kind != "moe":
@@ -232,10 +230,8 @@ def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
         ckv = ATT.mla_cache_stream(p["mixer"], h, cfg, positions)
         cache = _build_kv_cache(ckv[:, :, None, :], None, cfg,
                                 v_width=cfg.mla.kv_lora)
-    elif kind in SSM.GLA_FAMILY:
-        y, cache = SSM.gla_family_forward(p["mixer"], h, cfg, kind)
     else:
-        y, cache = SSM.mamba2_forward(p["mixer"], h, cfg)
+        y, cache = SSM.mixer(kind).forward(p["mixer"], h, cfg)
     x = x + y
     if _has_ffn(cfg, kind):
         h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
@@ -319,9 +315,7 @@ def init_decode_caches(cfg: ModelConfig, B: int, cache_capacity: int,
                                     cfg.mla.cache_width, cfg.state_quant,
                                     device=device,
                                     mla_v_width=cfg.mla.kv_lora)
-        if kind in SSM.GLA_FAMILY:
-            return SSM.gla_family_init_state(B, cfg, device)
-        return SSM.mamba2_init_state(B, cfg, device)
+        return SSM.mixer(kind).init_state(B, cfg, device)
 
     caches = []
     for _ in range(cfg.n_groups):
@@ -416,9 +410,7 @@ def _element_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
 def _recurrent_decode(p: Params, h, cache, cfg: ModelConfig, kind: str,
                       seed: int):
     """One token (B, 1, d) through a recurrent mixer."""
-    if kind in SSM.GLA_FAMILY:
-        return SSM.gla_family_decode(p, h, cache, cfg, kind, seed)
-    return SSM.mamba2_decode(p, h, cache, cfg, seed)
+    return SSM.mixer(kind).decode(p, h, cache, cfg, seed)
 
 
 def _prelude_seed(seed: int, i: int) -> int:
@@ -567,7 +559,7 @@ def _element_spec_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
     ``x`` is (B, n, d) -- the current token plus the drafted ones -- and
     ``positions`` the (B, n) absolute positions.  Attention scores all n
     positions in one ``spec_verify`` pass over a single cache stream; a
-    recurrent mixer (Mamba-2, the GLA family) advances through the n
+    recurrent mixer (Mamba-2, the GLA family, xLSTM) advances through the n
     positions one at a time (the state update is serial) with the
     per-position seed ``seed + i`` of n sequential steps, each position's
     input made contiguous first (a strided slice would round the

@@ -1,17 +1,18 @@
-"""State-update mixers -- PyTorch port of ``repro/models/ssm.py``: Mamba-2
-and the GLA family (GLA, RetNet, HGRN2).
+"""State-update mixers -- PyTorch port of ``repro/models/ssm.py``: Mamba-2,
+the GLA family (GLA, RetNet, HGRN2) and xLSTM's mLSTM and sLSTM.
 
 Prefill runs the chunked linear-attention form (quadratic within chunks,
-recurrent across chunks), with scalar per-step decay (Mamba-2, RetNet) or
-per-channel decay (GLA, HGRN2); decode routes through ONE registered SPU
-op invocation per layer (``state_update_step``), whose MX8 backend on the
-card is the fused CUDA kernel.  What differs per family is the decay hook
-that makes Eq. 2's d_t (``_DECAY_HOOKS``) and the projections around the
-op.  mLSTM / sLSTM follow in a later slice of the port (ROADMAP.md).
+recurrent across chunks), with scalar per-step decay (Mamba-2, RetNet,
+mLSTM) or per-channel decay (GLA, HGRN2); decode routes through ONE
+registered SPU op invocation per layer (``state_update_step``), whose MX8
+backend on the card is the fused CUDA kernel.  What differs per family is
+the decay hook that makes Eq. 2's d_t (``_DECAY_HOOKS``) and the
+projections around the op.  The sLSTM is a vector recurrence with fp32
+carries and no SPU op: plain PyTorch, prefill a loop over positions.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +41,7 @@ _DECAY_HOOKS = {
     "hgrn2": lambda log_f: torch.exp(log_f[:, :, 0]),      # (B,H,dk)
     "retnet": lambda log_f: torch.exp(log_f[..., :1]),     # (B,H,1)
     "mamba2": lambda log_f: torch.exp(log_f),              # (B,H,1)
+    "mlstm": lambda log_f: torch.exp(log_f),               # (B,H,1)
 }
 
 #: the mixers that share the GLA-family projections
@@ -174,6 +176,17 @@ def _m2_dims(cfg: ModelConfig):
     return d_inner, d_inner // sc.head_dim, sc.d_state, sc.head_dim
 
 
+def _conv_tail(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The last ``d_conv - 1`` rows of ``x`` (B, S, C), a conv cache's
+    contents after a prompt; zero rows stand in for positions before a
+    prompt shorter than that."""
+    tail = cfg.ssm.d_conv - 1
+    xt = x[:, -tail:]
+    if xt.shape[1] < tail:
+        xt = Fn.pad(xt, (0, 0, tail - xt.shape[1], 0))
+    return xt
+
+
 def init_mamba2(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     d = cfg.d_model
     d_inner, H, N, P = _m2_dims(cfg)
@@ -234,12 +247,7 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
     out = y @ p["out_proj"]
 
     # conv caches hold the pre-activation inputs of the last d_conv-1 steps
-    # (zero rows stand in for positions before the prompt)
-    tail = cfg.ssm.d_conv - 1
-    xt = x[:, -tail:]
-    if xt.shape[1] < tail:
-        xt = Fn.pad(xt, (0, 0, tail - xt.shape[1], 0))
-    _, xin2, Bv2, Cv2, _ = _m2_project(p, xt, cfg)
+    _, xin2, Bv2, Cv2, _ = _m2_project(p, _conv_tail(x, cfg), cfg)
     state = {"S": _store_state(S_fin, cfg), "conv_x": xin2,
              "conv_bc": torch.cat([Bv2, Cv2], -1)}
     return out, state
@@ -388,3 +396,237 @@ def gla_family_decode(p: Params, x: torch.Tensor, state: MixerState,
     Sn, y = _spu_state_update(state["S"], decay, k[:, :, 0], v[:, :, 0],
                               q[:, :, 0], cfg, seed)
     return _gla_family_out(p, y[:, :, None], x, cfg), {"S": Sn}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix-memory block)
+# ---------------------------------------------------------------------------
+
+def _mlstm_dims(cfg: ModelConfig):
+    sc = cfg.ssm
+    d_up = sc.expand * cfg.d_model
+    H = sc.n_heads or cfg.n_heads
+    dk = d_up // H
+    dv = d_up // H
+    dv_aug = dv + 16            # [v, 1, 0...] -- normalizer folded in
+    return d_up, H, dk, dv, dv_aug
+
+
+def init_mlstm(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    d = cfg.d_model
+    d_up, H, dk, dv, _ = _mlstm_dims(cfg)
+    dt = getattr(torch, cfg.param_dtype)
+    dc = cfg.ssm.d_conv
+
+    def heads(n):               # block-diagonal per-head (H, n, n)
+        return (torch.randn((H, n, n), generator=gen, device=device)
+                / np.sqrt(n)).to(dt)
+
+    return {
+        "wu": L.dense_init(gen, d, d_up, dt, device),
+        "wz": L.dense_init(gen, d, d_up, dt, device),
+        "conv_w": (torch.randn((dc, d_up), generator=gen, device=device)
+                   * (1.0 / np.sqrt(dc))).to(dt),
+        "conv_b": torch.zeros((d_up,), dtype=dt, device=device),
+        "wq": heads(dk), "wk": heads(dk), "wv": heads(dv),
+        "wi": L.dense_init(gen, d_up, H, torch.float32, device),
+        "wf": L.dense_init(gen, d_up, H, torch.float32, device),
+        "fb": torch.full((H,), 3.0, device=device),  # forget gates open
+        "hnorm": torch.ones((H, dv), dtype=dt, device=device),
+        "down": L.dense_init(gen, d_up, d, dt, device,
+                             1.0 / np.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def _mlstm_gates_qkv(p, u, uc, cfg: ModelConfig):
+    """q (B,H,S,dk), k_eff = k * exp(i) (B,H,S,dk), v_aug = [v, 1, 0 x 15]
+    (B,H,S,dv_aug) and the forget gate's log (B,H,S) of u / uc (B,S,d_up):
+    the exp input gate rides in k, the normalizer n as state row dv."""
+    B, S, _ = u.shape
+    _, H, dk, dv, dv_aug = _mlstm_dims(cfg)
+    uh = uc.reshape(B, S, H, dk)
+    q = torch.einsum("bshd,hde->bhse", uh, p["wq"])
+    k = torch.einsum("bshd,hde->bhse", uh, p["wk"]) * dk ** -0.5
+    v = torch.einsum("bshd,hde->bhse", u.reshape(B, S, H, dv), p["wv"])
+    i_log = torch.clamp((u @ p["wi"]).to(torch.float32), -12.0, 4.0)
+    log_f = Fn.logsigmoid((u @ p["wf"]).to(torch.float32) + p["fb"])
+    i_log = i_log.transpose(1, 2)                  # (B,H,S)
+    log_f = log_f.transpose(1, 2)
+    k_eff = (k.to(torch.float32) * torch.exp(i_log)[..., None]).to(k.dtype)
+    ones = torch.ones(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device)
+    zeros = torch.zeros(v.shape[:-1] + (dv_aug - dv - 1,), dtype=v.dtype,
+                        device=v.device)
+    v_aug = torch.cat([v, ones, zeros], dim=-1)
+    return q, k_eff, v_aug, log_f
+
+
+def _mlstm_out(p, y_aug, z, cfg: ModelConfig):
+    """h = y / max(|n.q|, 1), per-head RMSNorm times ``hnorm``, output gate
+    silu(z), down projection; y_aug (..., H, dv_aug) with heads before the
+    last axis, z (..., d_up)."""
+    _, H, _, dv, _ = _mlstm_dims(cfg)
+    y, n_dot = y_aug[..., :dv], y_aug[..., dv]
+    h = y / torch.clamp(torch.abs(n_dot), min=1.0)[..., None]
+    h = L.head_rmsnorm(h, cfg.norm_eps) * p["hnorm"]
+    h = h.reshape(z.shape).to(z.dtype)
+    return (h * Fn.silu(z)) @ p["down"]
+
+
+def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, MixerState]:
+    d_up, H, dk, dv, dv_aug = _mlstm_dims(cfg)
+    u, z = x @ p["wu"], x @ p["wz"]
+    uc = Fn.silu(causal_conv(u, p["conv_w"], p["conv_b"]))
+    q, k_eff, v_aug, log_f = _mlstm_gates_qkv(p, u, uc, cfg)
+    y_aug, S_fin = chunked_la_scalar(q, k_eff, v_aug, log_f, cfg.ssm.chunk)
+    out = _mlstm_out(p, y_aug.transpose(1, 2), z, cfg)
+    # the conv tail holds u of the last d_conv-1 steps
+    return out, {"S": _store_state(S_fin, cfg),
+                 "conv": _conv_tail(u, cfg).contiguous()}
+
+
+def mlstm_init_state(B: int, cfg: ModelConfig, device) -> MixerState:
+    d_up, H, dk, dv, dv_aug = _mlstm_dims(cfg)
+    dt = getattr(torch, cfg.param_dtype)
+    return {"S": OPS.init_state(B, H, dk, dv_aug, cfg.state_quant,
+                                device=device),
+            "conv": torch.zeros((B, cfg.ssm.d_conv - 1, d_up), dtype=dt,
+                                device=device)}
+
+
+def mlstm_decode(p: Params, x: torch.Tensor, state: MixerState,
+                 cfg: ModelConfig, seed: int
+                 ) -> Tuple[torch.Tensor, MixerState]:
+    """x: (B, 1, d) one token."""
+    u, z = x[:, 0] @ p["wu"], x[:, 0] @ p["wz"]
+    conv_out, conv_state = causal_conv_step(u, state["conv"], p["conv_w"],
+                                            p["conv_b"])
+    uc = Fn.silu(conv_out)
+    q, k_eff, v_aug, log_f = _mlstm_gates_qkv(p, u[:, None], uc[:, None],
+                                              cfg)
+    decay = _DECAY_HOOKS["mlstm"](log_f)                       # (B,H,1)
+    Sn, y_aug = _spu_state_update(state["S"], decay, k_eff[:, :, 0],
+                                  v_aug[:, :, 0], q[:, :, 0], cfg, seed)
+    out = _mlstm_out(p, y_aug, z, cfg)[:, None]
+    return out, {"S": Sn, "conv": conv_state}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (vector recurrence; inherently sequential)
+# ---------------------------------------------------------------------------
+
+def _slstm_dims(cfg: ModelConfig):
+    H = cfg.ssm.n_heads or cfg.n_heads
+    return H, cfg.d_model // H
+
+
+def init_slstm(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    d = cfg.d_model
+    H, dh = _slstm_dims(cfg)
+    dt = getattr(torch, cfg.param_dtype)
+    return {
+        "wx": L.dense_init(gen, d, 4 * d, dt, device),           # z,i,f,o
+        "r": (torch.randn((H, dh, 4 * dh), generator=gen, device=device)
+              / np.sqrt(dh)).to(dt),
+        "b": torch.zeros((4 * d,), device=device),
+        "out": L.dense_init(gen, d, d, dt, device,
+                            1.0 / np.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def _slstm_gx(p, x, cfg: ModelConfig):
+    """Gate pre-activations from the input, (..., H, 4*dh)."""
+    H, dh = _slstm_dims(cfg)
+    gx = (x @ p["wx"]) + p["b"].to(x.dtype)
+    return gx.reshape(gx.shape[:-1] + (H, 4 * dh))
+
+
+def _slstm_cell(p, gx, carry):
+    """gx: (B,H,4*dh) pre-activations from x; carry: (c, n, m, h)."""
+    c_prev, n_prev, m_prev, h_prev = carry
+    rec = torch.einsum("bhd,hde->bhe", h_prev.to(gx.dtype), p["r"])
+    g = (gx + rec).to(torch.float32)
+    zt, it, ft, ot = torch.chunk(g, 4, dim=-1)
+    zt = torch.tanh(zt)
+    log_f = Fn.logsigmoid(ft)
+    m_t = torch.maximum(log_f + m_prev, it)
+    i_p = torch.exp(it - m_t)
+    f_p = torch.exp(log_f + m_prev - m_t)
+    c_t = f_p * c_prev + i_p * zt
+    n_t = f_p * n_prev + i_p
+    h_t = torch.sigmoid(ot) * c_t / torch.clamp(n_t, min=1e-6)
+    return c_t, n_t, m_t, h_t
+
+
+def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, MixerState]:
+    """The prompt's positions one after another (the JAX package's
+    ``lax.scan``), from the zero carry with ``m = -1e30``."""
+    B, S, d = x.shape
+    gx = _slstm_gx(p, x, cfg)                                 # (B,S,H,4dh)
+    st = slstm_init_state(B, cfg, x.device)
+    carry = (st["c"], st["n"], st["m"], st["h"])
+    hs = []
+    for t in range(S):
+        carry = _slstm_cell(p, gx[:, t], carry)
+        hs.append(carry[3])
+    h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    return h @ p["out"], dict(zip("cnmh", carry))
+
+
+def slstm_init_state(B: int, cfg: ModelConfig, device) -> MixerState:
+    H, dh = _slstm_dims(cfg)
+    z0 = torch.zeros((B, H, dh), device=device)
+    return {"c": z0, "n": z0.clone(), "m": torch.full_like(z0, -1e30),
+            "h": z0.clone()}
+
+
+def slstm_decode(p: Params, x: torch.Tensor, state: MixerState,
+                 cfg: ModelConfig, seed: int
+                 ) -> Tuple[torch.Tensor, MixerState]:
+    """x: (B, 1, d) one token; ``seed`` is unused (no SPU op, fp32)."""
+    B = x.shape[0]
+    gx = _slstm_gx(p, x[:, 0], cfg)
+    c, n, m, h = _slstm_cell(p, gx, (state["c"], state["n"], state["m"],
+                                     state["h"]))
+    out = (h.reshape(B, cfg.d_model).to(x.dtype) @ p["out"])[:, None]
+    return out, {"c": c, "n": n, "m": m, "h": h}
+
+
+# ---------------------------------------------------------------------------
+# the recurrent mixers by kind (the model's one dispatch)
+# ---------------------------------------------------------------------------
+
+class Mixer(NamedTuple):
+    """A recurrent mixer's functions: ``init(gen, cfg, device)``,
+    ``forward(p, x, cfg)``, ``init_state(B, cfg, device)`` and
+    ``decode(p, x, state, cfg, seed)``."""
+    init: Callable
+    forward: Callable
+    init_state: Callable
+    decode: Callable
+
+
+def _gla_mixer(kind: str) -> Mixer:
+    return Mixer(
+        lambda gen, cfg, device: init_gla_family(gen, cfg, kind, device),
+        lambda p, x, cfg: gla_family_forward(p, x, cfg, kind),
+        gla_family_init_state,
+        lambda p, x, state, cfg, seed: gla_family_decode(p, x, state, cfg,
+                                                         kind, seed))
+
+
+MIXERS: Dict[str, Mixer] = {
+    "mamba2": Mixer(init_mamba2, mamba2_forward, mamba2_init_state,
+                    mamba2_decode),
+    "mlstm": Mixer(init_mlstm, mlstm_forward, mlstm_init_state, mlstm_decode),
+    "slstm": Mixer(init_slstm, slstm_forward, slstm_init_state, slstm_decode),
+    **{kind: _gla_mixer(kind) for kind in GLA_FAMILY},
+}
+
+
+def mixer(kind: str) -> Mixer:
+    """The recurrent mixer of ``kind``; ``ValueError`` for any other."""
+    if kind not in MIXERS:
+        raise ValueError(f"unknown mixer kind {kind!r}")
+    return MIXERS[kind]

@@ -39,8 +39,10 @@ def _state_dims(cfg, kind: str):
         return H, N, P
     if kind in SSM.GLA_FAMILY:
         return SSM._gla_dims(cfg)
-    raise NotImplementedError(
-        f"mixer {kind!r} is not ported yet (ROADMAP.md: other mixers)")
+    if kind == "mlstm":      # the normalizer-augmented dv
+        _, H, dk, _, dv_aug = SSM._mlstm_dims(cfg)
+        return H, dk, dv_aug
+    raise ValueError(f"mixer {kind!r} runs no state update")
 
 
 def decode_op_plans(cfg, batch: int, seq_len: int,
@@ -54,6 +56,7 @@ def decode_op_plans(cfg, batch: int, seq_len: int,
     quant = cfg.state_quant
     Kq = spec_k + 1
     entries: List[OpTrafficEntry] = []
+    # the sLSTM is a vector recurrence, not an SPU op: it has no entry
 
     def layer_count(kind: str) -> int:
         return (cfg.pattern.count(kind) * cfg.n_groups

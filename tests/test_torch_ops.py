@@ -122,6 +122,31 @@ def test_state_update_chained_steps_stay_in_contract():
         _compare_state_update(qj, yj, qt, yt, f"step {step}")
 
 
+@pytest.mark.parametrize("dk", [16, 64, 320])
+def test_group_ordered_dot_sums_in_kernel_order(dk):
+    """The plain ``y`` of kernel 1, bitwise a float32 numpy sum in the
+    kernel's order (products rounded, each 16-value group in order from 0,
+    then the groups in order from 0), on values over 12 decades where the
+    order shows."""
+    from repro_torch.kernels.ref import group_ordered_dot
+    r = np.random.default_rng(dk)
+    S = (r.standard_normal((2, 3, 5, dk))
+         * 10.0 ** r.integers(-6, 6, (2, 3, 5, dk))).astype(np.float32)
+    q = r.standard_normal((2, 3, dk)).astype(np.float32)
+    p = (S * q[:, :, None, :]).reshape(2, 3, 5, dk // 16, 16)
+    part = np.zeros((2, 3, 5, dk // 16), np.float32)
+    for j in range(16):
+        part = part + p[..., j]
+    want = np.zeros((2, 3, 5), np.float32)
+    for g in range(dk // 16):
+        want = want + part[..., g]
+    got = group_ordered_dot(torch.from_numpy(S), torch.from_numpy(q))
+    np.testing.assert_array_equal(got.numpy(), want)
+    exact = np.einsum("bhvk,bhk->bhv", S.astype(np.float64), q)
+    np.testing.assert_allclose(got.numpy(), exact, rtol=1e-4,
+                               atol=1e-6 * np.abs(S * q[:, :, None]).max())
+
+
 @pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3", "bf16", "fp32"])
 def test_state_update_other_formats_vs_jnp(fmt):
     S0, d, k, v, q = _su_inputs(2, 3, 64, 32, seed=9)

@@ -95,6 +95,9 @@ def _verify_case(arch, length, fmt, batch=2, n=3, ffn_kind=None):
     _verify_case("zamba2-2.7b", 128, "fp32"),
     _verify_case("zamba2-2.7b", 126, "mx8"),
     _verify_case("gla-2.7b", 129, "mx8"),
+    # xLSTM: the sLSTM's four carries and the mLSTM's conv tail are plain
+    # slab leaves, snapshotted and rolled back with the state
+    _verify_case("xlstm-1.3b", 9, "mx8"),
     # spec_k = 3 (n = 4): batch 4 is the card's served shape (cuBLAS rounds
     # rows of 16 unlike rows of 4); MKL's fp32 GEMM can keep rows of 16
     # like rows of 4 and yet round rows of 12 unlike rows of 3, so the

@@ -23,7 +23,7 @@ separated; default ``mla,k1,k7``):
   against an older one (the loop before, with other entry points and
   fp32 products), within the kernels' rtol 2e-4, atol 2e-5;
 * ``k1``: kernel 1, dense and slab mode, at the zamba2 / mamba2 heads, the
-  GLA family's and three odd shapes (a partial last block of rows, dk = 16
+  GLA family's, xlstm-1.3b's mLSTM heads and three odd shapes (a partial last block of rows, dk = 16
   and 4096), scalar and per-channel decay, both roundings, state
   magnitudes 1, 1e-3, 1e-37 (subnormal scales) and 1e35;
 * ``k7``: kernel 7, the MX8 quantizer, at the served prefill shapes and
@@ -458,12 +458,13 @@ def _time_append(other) -> None:
                calls, 20)
 
 
-#: (B, H, dv, dk): zamba2, mamba2, gla, retnet, hgrn2, then a head of dv
-#: 300 at dk 16 (its last block of rows partial), one of dv 45 at dk 48 and
-#: one of dk 4096
+#: (B, H, dv, dk): zamba2, mamba2, gla, retnet, hgrn2, xlstm's mLSTM (dv
+#: 1024 + 16: the normalizer row and 15 zero rows; 64 groups a row), then a
+#: head of dv 300 at dk 16 (its last block of rows partial), one of dv 45
+#: at dk 48 and one of dk 4096
 SU_SHAPES = ((4, 80, 64, 64), (4, 80, 64, 128), (4, 4, 640, 320),
-             (4, 10, 512, 256), (4, 20, 128, 128), (1, 2, 300, 16),
-             (2, 3, 45, 48), (1, 1, 13, 4096))
+             (4, 10, 512, 256), (4, 20, 128, 128), (4, 4, 1040, 1024),
+             (1, 2, 300, 16), (2, 3, 45, 48), (1, 1, 13, 4096))
 #: state magnitudes; at 1e-37 and 1e35 v is scaled alike, so that the new
 #: state's scales are subnormal, or past kMagic * scale's range
 SU_MAGS = (1.0, 1e-3, 1e-37, 1e35)
@@ -519,15 +520,18 @@ def _state_update_cases(lib) -> bool:
                              int(per_channel), 11,
                              int(rounding == "stochastic"), stream)
                     torch.cuda.synchronize()
-                    res.append(err == 0 and torch.equal(y, yo) and all(
-                        torch.equal(a.payload[f], p[f]) for f in p))
-                ok &= all(res)
+                    res.append((err == 0 and all(
+                        torch.equal(a.payload[f], p[f]) for f in p),
+                        torch.equal(y, yo), float((y - yo).abs().max())))
+                ok &= all(s and e for s, e, _ in res)
                 print(f"state update (B,H,dv,dk)={(B, H, dv, dk)} "
                       f"magnitude {mag:g} "
                       f"{'per-channel' if per_channel else 'scalar'} "
-                      f"{rounding}: dense "
-                      f"{'bitwise equal' if res[0] else 'DIFFERS'}, slab "
-                      f"{'bitwise equal' if res[1] else 'DIFFERS'}",
+                      f"{rounding}: " + ", ".join(
+                          f"{mode} state "
+                          f"{'bitwise equal' if s else 'DIFFERS'}, y "
+                          f"{'bitwise equal' if e else f'DIFFERS (max {dy:.3g})'}"
+                          for mode, (s, e, dy) in zip(("dense", "slab"), res)),
                       flush=True)
     return ok
 
@@ -741,7 +745,9 @@ K1_TIMED = (("zamba2 dense", (4, 80, 64, 64), False, False),
             ("gla dense", (4, 4, 640, 320), False, True),
             ("gla slab", (4, 4, 640, 320), True, True),
             ("retnet slab", (4, 10, 512, 256), True, False),
-            ("hgrn2 slab", (4, 20, 128, 128), True, True))
+            ("hgrn2 slab", (4, 20, 128, 128), True, True),
+            ("xlstm dense", (4, 4, 1040, 1024), False, False),
+            ("xlstm slab", (4, 4, 1040, 1024), True, False))
 
 
 def _turns(label, calls, replays):
