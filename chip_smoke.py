@@ -18,7 +18,12 @@ layers: ``gla-2.7b`` through the same three paths, ``retnet-2.7b`` and
 baseline ``opt-6.7b`` (32 layers) and ``yi-9b`` (48 layers, grouped
 queries) at full width and full depth through the same three paths, then
 ``xlstm-1.3b`` (42 mLSTM + 6 sLSTM layers) at full width and depth
-through the same three paths.  It
+through the same three paths, then the last five configs: ``smollm-360m``
+(all 32 layers), ``yi-34b`` (28 of 60 layers: 66.1 GB of fp32 weights)
+and ``dbrx-132b`` (4 of 40: 57.1 GB) through the same three paths,
+``paligemma-3b`` (all 18 layers) at model level -- 256 patch embeddings
+before each request's text, prefill then decode -- and ``hubert-xlarge``
+(all 48 layers), whose encoder has a prefill only.  It
 checks that every decode step
 went through the kernels of its path (the slot pool's appends through the
 fused dense quantize-and-append), and every prefill through the MX8
@@ -37,12 +42,16 @@ Phases, in the order they run:
   pool's fused dense append at every served model's stream widths and
   kernel 7's two-stream launch, bitwise   38. kernel 1 at xlstm-1.3b's
   mLSTM heads (1040 rows of 64 groups) and kernel 7 at its prefill
-  states, bitwise   6. timing   10.
+  states, bitwise   43. kernels 2 to 7 and the dense append at the last
+  five configs' widths (head width 64 at G = 3, 128 at G = 7 and 6, 256
+  at G = 8 over one kv head), bitwise or within their tolerances
+  6. timing   10.
   paged-kernel timing   13. verify-kernel timing   22. timing of kernels 7
   and 1 at the GLA family's shapes   29. timing at opt-6.7b's and yi-9b's
   widths   37. timing of the dense append and of kernel 7's prefill
   launch, with the paths they replaced   39. timing of kernels 1 and 7 at
-  xlstm-1.3b's shapes   7. main path, slot pool   11. main
+  xlstm-1.3b's shapes   44. timing at the last five configs' widths
+  7. main path, slot pool   11. main
   path, paged pool   12. matmul row invariance at the model's shapes
   14. main path, paged pool with speculation (n-gram drafts; a short
   model-draft run; the pool-level rollback check)   15. MLA mode of
@@ -57,7 +66,12 @@ Phases, in the order they run:
   for row invariance)   33-35. yi-9b, the same   40-42. xlstm-1.3b:
   slot pool (with the sLSTM's share of a 400-token prefill), paged pool
   (with a pool-level spill and resume), paged pool with speculation
-  8. kernels line
+  45-47. smollm-360m: slot pool, paged pool, paged pool with speculation
+  48. paligemma-3b at model level (prefill with patches, decode steps;
+  the reference check by depth)   49. hubert-xlarge's encoder prefill
+  50-52. yi-34b, the three paths   53-55. dbrx-132b, the three paths
+  (greedy exactness at batch 1: MoE capacity couples a verify step's
+  tokens)   8. kernels line
 
 Any failure exits non-zero; with no card it fails (it never falls back to
 the CPU).  The last three lines of standard output are the kernels' JSON
@@ -1652,7 +1666,8 @@ def _greedy_exactness(params, cfg, prompts, invariant, n, max_new=MAX_NEW,
             check(first is None, f"{spec}: greedy stream differs from the "
                   f"plain paged stream at token {first} (round-to-nearest)")
         phase(n, f"greedy exactness, {spec} vs plain, round-to-nearest",
-              requests=len(short), steps=f"{steps} vs {runs[None][2]}",
+              requests=len(short), batch=paged["batch"],
+              steps=f"{steps} vs {runs[None][2]}",
               proposed=int(st["proposed_tokens"]),
               accepted=int(st["accepted_tokens"]),
               accepted_tokens_per_step=f"{st['accepted_tokens_per_step']:.3f}",
@@ -1664,24 +1679,32 @@ def _greedy_exactness(params, cfg, prompts, invariant, n, max_new=MAX_NEW,
 
 
 def _profile_decode(eng, cfg, rng, prompt_lens, n, n_steps=5, before=None):
-    """Device busy / idle share of steady decode steps at batch 4, from a
-    torch.profiler window (kernel time summed over the device timeline).
-    A window without device events fails the run.  ``before``: (device
-    busy ms, device operations) a step of an earlier build, printed
-    beside."""
+    """Device busy / idle share of steady decode steps at batch 4 of
+    ``eng`` (:func:`_device_profile`).  ``before``: (device busy ms, device
+    operations) a step of an earlier build, printed beside."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for length in prompt_lens:
         eng.submit(rng.integers(0, cfg.vocab_size, length),
                    max_new_tokens=n_steps + 2)
     eng.step()                       # admissions (prefill) + first decode
     torch.cuda.synchronize()
+    out = _device_profile(eng.step, n_steps, n, before=before)
+    eng.run()
+    return out
+
+
+def _device_profile(step, n_steps, n, before=None):
+    """Device busy / idle share of ``n_steps`` calls of ``step``, from a
+    torch.profiler window (kernel time summed over the device timeline).
+    A window without device events fails the run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name, n_kernels = {}, 0
@@ -1690,7 +1713,6 @@ def _profile_decode(eng, cfg, rng, prompt_lens, n, n_steps=5, before=None):
             n_kernels += 1
             by_name[evt.name] = (by_name.get(evt.name, 0.0)
                                  + evt.time_range.elapsed_us())
-    eng.run()
     check(bool(by_name), "decode profile: the profiler recorded no device "
           "events")
     busy = sum(by_name.values())
@@ -2010,20 +2032,16 @@ def phase_mla_timing():
     return out
 
 
-def _ds_model():
-    """deepseek-v2-236b at full width, depth cut to ``DS_LAYERS`` (the
-    dense-FFN prelude layer and 3 MoE groups), random weights from a
-    seeded CUDA generator."""
+def _model_at(arch, layers=None):
+    """``arch`` at full width, ``layers`` deep (else all its layers),
+    random weights from a seeded CUDA generator: (cfg, params, info)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
-    full = get_config("deepseek-v2-236b")
-    cfg = full.with_(n_layers=DS_LAYERS)
-    check(full.n_layers == 60 and cfg.d_model == 5120 and cfg.n_heads == 128
-          and cfg.mla.cache_width == 576 and cfg.moe.n_experts == 160
-          and cfg.n_groups == DS_LAYERS - 1
-          and cfg.state_quant.fmt == "mx8"
-          and cfg.state_quant.backend == "cuda", f"unexpected {cfg.name}")
+    full = get_config(arch)
+    cfg = full.with_(n_layers=layers or full.n_layers)
+    check(cfg.state_quant.fmt == "mx8" and cfg.state_quant.backend == "cuda",
+          f"unexpected {cfg.name}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2031,9 +2049,33 @@ def _ds_model():
     torch.cuda.synchronize()
     n = sum(p.numel() for p in _leaves(params))
     nbytes = sum(p.numel() * p.element_size() for p in _leaves(params))
-    phase(17, "deepseek-v2-236b weights", params=n,
-          GB=f"{nbytes / 1e9:.2f}", init_s=f"{time.perf_counter() - t0:.1f}",
-          reduced=DS_REDUCED)
+    info = dict(params=n, GB=f"{nbytes / 1e9:.2f}",
+                layers=f"{cfg.n_layers} of {full.n_layers}")
+    if not cfg.encoder_only:
+        # a decode step streams every weight once but the tables it
+        # gathers rows from (the token embedding, unless it is the tied LM
+        # head, and the learned positions)
+        stream = nbytes - sum(
+            params[k].numel() * params[k].element_size()
+            for k in ("embed", "pos") if k in params
+            and not (k == "embed" and cfg.tie_embeddings))
+        info.update(weight_stream_GB=f"{stream / 1e9:.2f}",
+                    weight_stream_bound_ms=(
+                        f"{stream / PEAK_BYTES_PER_S * 1e3:.2f}"))
+    info["init_s"] = f"{time.perf_counter() - t0:.1f}"
+    return cfg, params, info
+
+
+def _ds_model():
+    """deepseek-v2-236b at full width, depth cut to ``DS_LAYERS`` (the
+    dense-FFN prelude layer and 3 MoE groups)."""
+    from repro_torch.configs import get_config
+    cfg, params, info = _model_at("deepseek-v2-236b", DS_LAYERS)
+    check(get_config(cfg.name).n_layers == 60 and cfg.d_model == 5120
+          and cfg.n_heads == 128 and cfg.mla.cache_width == 576
+          and cfg.moe.n_experts == 160 and cfg.n_groups == DS_LAYERS - 1,
+          f"unexpected {cfg.name}")
+    phase(17, "deepseek-v2-236b weights", **info, reduced=DS_REDUCED)
     return cfg, params
 
 
@@ -2425,24 +2467,11 @@ def _fields(r):
 
 
 def _gla_model(arch):
-    """A GLA-family model at full width and full depth (32 layers), random
-    weights from a seeded CUDA generator."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models import model as M
-    cfg = get_config(arch)
-    check(cfg.n_layers == 32 and cfg.d_model == 2560
-          and cfg.state_quant.fmt == "mx8"
-          and cfg.state_quant.backend == "cuda", f"unexpected {cfg.name}")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = M.init_model(cfg, gen, device="cuda")
-    torch.cuda.synchronize()
-    n = sum(p.numel() for p in _leaves(params))
-    nbytes = sum(p.numel() * p.element_size() for p in _leaves(params))
-    return cfg, params, dict(params=n, GB=f"{nbytes / 1e9:.2f}",
-                             init_s=f"{time.perf_counter() - t0:.1f}")
+    """A GLA-family model at full width and full depth (32 layers)."""
+    cfg, params, info = _model_at(arch)
+    check(cfg.n_layers == 32 and cfg.d_model == 2560,
+          f"unexpected {cfg.name}")
+    return cfg, params, info
 
 
 def phase_gla(init):
@@ -2470,7 +2499,7 @@ def phase_gla(init):
           state_MB=f"{state / 1e6:.2f}")
     slot["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 23,
                                    before=EAGER_APPEND_PROFILE[cfg.name])
-    _reference_check_by_depth(params, cfg, prompts[0], n=23)
+    _reference_check_by_depth(params, cfg, _token_batch(prompts[0]), n=23)
     del eng
 
     eng = Engine(params, cfg, ServeConfig(**PAGED))
@@ -2535,7 +2564,7 @@ def phase_gla_paged(arch, n):
                        _k7_per_prefill(cfg), f"{arch} paged")
     phase(n, f"main path {arch} paged", **_fields(r),
           slab_MB=f"{eng.engine.pool.slab_nbytes / 1e6:.2f}")
-    _reference_check_by_depth(params, cfg, prompts[0], n=n)
+    _reference_check_by_depth(params, cfg, _token_batch(prompts[0]), n=n)
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2570,47 +2599,58 @@ def _clone_caches(caches):
 
 
 @contextlib.contextmanager
-def _first_update_one_ulp_up():
+def _first_update_one_ulp_up(attention=False):
     """The control of the reference check: while open, the first state
     update that a decode step runs (layer 0 of the first step) returns its
-    ``y`` moved one ulp up, every value; every later update is untouched."""
+    ``y`` moved one ulp up, every value -- for an attention model
+    (``attention``), the first attention decode step its output; every
+    later update is untouched."""
     import torch
+    from repro_torch import ops as OPS
     from repro_torch.models import ssm as SSM
-    real, calls = SSM._spu_state_update, [0]
+    owner, name, i = ((OPS, "attention_decode_step", 0) if attention
+                      else (SSM, "_spu_state_update", 1))
+    real, calls = getattr(owner, name), [0]
 
     def nudged(*args, **kwargs):
-        S, y = real(*args, **kwargs)
+        out = list(real(*args, **kwargs))
         calls[0] += 1
         if calls[0] == 1:
-            y = torch.nextafter(y, torch.full_like(y, math.inf))
-        return S, y
+            out[i] = torch.nextafter(out[i], torch.full_like(out[i],
+                                                             math.inf))
+        return tuple(out)
 
-    SSM._spu_state_update = nudged
+    setattr(owner, name, nudged)
     try:
         yield
     finally:
-        SSM._spu_state_update = real
-    check(calls[0] > 0, "the control ran no state update")
+        setattr(owner, name, real)
+    check(calls[0] > 0, "the control ran no update")
 
 
-def _kernel_vs_plain_runs(params, cfg, tok, n_steps=4,
+def _kernel_vs_plain_runs(params, cfg, batch, n_steps=4,
                           rounding="stochastic", control=False):
-    """Greedy decode steps from one prefill, through the served path
+    """Greedy decode steps from one prefill of ``batch`` (tokens, and a
+    patch prefix where the model has one), through the served path
     (CUDA kernels) and through the plain ops, MX8 state and KV at
     ``rounding``: two lists of logits, and with ``control`` a third: the
-    plain ops again with layer 0's first ``y`` moved one ulp."""
+    plain ops again with layer 0's first ``y`` (attention output) moved
+    one ulp."""
     import torch
     from repro_torch import ops as OPS
     from repro_torch.models import model as M
+    from repro_torch.models import ssm as SSM
     cfg, plain_cfg = (cfg.with_(state_quant=OPS.StateQuantConfig(
         "mx8", rounding, backend)) for backend in ("cuda", "torch"))
-    logits, caches = M.prefill(params, cfg, {"tokens": tok})
+    logits, caches = M.prefill(params, cfg, batch)
     check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    S = sum(batch[k].shape[1] for k in ("patches", "tokens") if k in batch)
+    attention = not set(cfg.pattern) & set(SSM.MIXERS)
 
     def run(c):
         cc = _clone_caches(caches)
         t = logits.argmax(-1)
-        lens = torch.full((1,), tok.shape[1], dtype=torch.int32, device="cuda")
+        lens = torch.full((1,), S, dtype=torch.int32, device="cuda")
         seq = []
         for i in range(n_steps):
             lg, cc = M.decode_step(params, c, t, cc, lens + i, seed=i + 1)
@@ -2620,7 +2660,7 @@ def _kernel_vs_plain_runs(params, cfg, tok, n_steps=4,
 
     runs = [run(cfg), run(plain_cfg)]
     if control:
-        with _first_update_one_ulp_up():
+        with _first_update_one_ulp_up(attention):
             runs.append(run(plain_cfg))
     check(bool(torch.isfinite(runs[0][0]).all()), "decode logits not finite")
     return runs
@@ -2656,15 +2696,20 @@ def _first_flip(runs, other=0):
     return None
 
 
+def _token_batch(prompt):
+    """A prefill batch of one request's ``prompt`` tokens, on the card."""
+    import numpy as np
+    import torch
+    return {"tokens": torch.as_tensor(np.asarray(prompt)[None],
+                                      device="cuda")}
+
+
 def _reference_check(params, cfg, prompt, n=7):
     """The served path (CUDA kernels) against the plain ops on the same
     prefill: first-step logits to rtol 1e-3 (a few SR decisions may flip
     where the kernel's FMA and the plain fp64 emulation round apart) and
     the greedy token agreement over 4 steps."""
-    import numpy as np
-    import torch
-    tok = torch.as_tensor(np.asarray(prompt)[None], device="cuda")
-    runs = _kernel_vs_plain_runs(params, cfg, tok)
+    runs = _kernel_vs_plain_runs(params, cfg, _token_batch(prompt))
     err, within = _first_step_error(runs)
     check(within, f"first decode step: kernels vs plain max err {err:.3g}")
     phase(n, "reference check (kernels vs plain ops, same prefill)",
@@ -2672,8 +2717,10 @@ def _reference_check(params, cfg, prompt, n=7):
           greedy_agreement_4_steps=f"{_agreement_4(runs):.2f}")
 
 
-def _reference_check_by_depth(params, cfg, prompt, n):
-    """The recurrent models' reference check, at growing depth: the first g
+def _reference_check_by_depth(params, cfg, batch, n):
+    """The reference check at growing depth over one prefill of ``batch``
+    (the recurrent models; since phase 48 paligemma-3b's patch prefix and
+    text): the first g
     layer groups of the same weights, and first the pattern's first layer
     alone where a group holds more than one (xlstm's 7 mLSTM + 1 sLSTM).
     The contract of :func:`_reference_check` (first-step logits to rtol
@@ -2693,10 +2740,14 @@ def _reference_check_by_depth(params, cfg, prompt, n):
     are the plain ops'; and wherever the full-depth greedy tokens differ
     (gla at stochastic rounding), it is a tie: at the first step that
     differs, the plain logits' top-2 gap is at most the kernels' max
-    |logit difference| there."""
-    import numpy as np
-    import torch
-    tok = torch.as_tensor(np.asarray(prompt)[None], device="cuda")
+    |logit difference| there.  An attention model has no state update:
+    its control moves layer 0's first attention output one ulp, and its
+    kernels are held within rtol 1e-3 of the plain ops at every depth
+    (the attention kernels' split order parts from the plain version's
+    within rtol 2e-4, more than one ulp, so the ratio to the control is
+    reported, not held)."""
+    from repro_torch.models import ssm as SSM
+    attention = not set(cfg.pattern) & set(SSM.MIXERS)
     depths = [g for g in sorted({1, 2, 4, 8, 16, cfg.n_groups})
               if g <= cfg.n_groups]
     cut = {g: (dict(params, groups=params["groups"][:g]),
@@ -2709,19 +2760,20 @@ def _reference_check_by_depth(params, cfg, prompt, n):
     for rounding in ("stochastic", "nearest"):
         for g in depths:
             runs = _kernel_vs_plain_runs(
-                *cut[g], tok, n_steps=4 if g == cfg.n_groups else 1,
+                *cut[g], batch, n_steps=4 if g == cfg.n_groups else 1,
                 rounding=rounding, control=True)
             errs[rounding, g] = _first_step_error(runs)
             ctrl[rounding, g] = _first_step_error(runs, other=2)
-            if g in ("layer", 1):
+            if g in ("layer", 1) or attention:
                 check(errs[rounding, g][1], f"first decode step, depth "
                       f"{g} (groups), {rounding}: kernels vs plain max err "
                       f"{errs[rounding, g][0]:.3g}")
         full[rounding] = runs
     for (r, g), (err, _) in errs.items():
-        check(err <= CONTROL_FACTOR * ctrl[r, g][0], f"{cfg.name}, depth "
-              f"{g} (groups), {r}: kernels vs plain {err:.3g} beyond "
-              f"{CONTROL_FACTOR}x the one-ulp control {ctrl[r, g][0]:.3g}")
+        check(attention or err <= CONTROL_FACTOR * ctrl[r, g][0],
+              f"{cfg.name}, depth {g} (groups), {r}: kernels vs plain "
+              f"{err:.3g} beyond {CONTROL_FACTOR}x the one-ulp control "
+              f"{ctrl[r, g][0]:.3g}")
     check(_agreement_4(full["nearest"]) == 1.0, f"{cfg.name}, full depth, "
           "round to nearest: greedy tokens differ from the plain ops'")
     flips = {r: _first_flip(runs) for r, runs in full.items()}
@@ -2742,7 +2794,8 @@ def _reference_check_by_depth(params, cfg, prompt, n):
     phase(n, "reference check by depth (kernels vs plain ops, same prefill; "
           "control: plain vs plain with one y moved 1 ulp)",
           one_layer_and_group="within rtol 1e-3",
-          every_depth=f"within {CONTROL_FACTOR}x control", **fields,
+          every_depth="within rtol 1e-3" if attention
+          else f"within {CONTROL_FACTOR}x control", **fields,
           full_depth_max_abs_logit=f"{top:.3g}",
           greedy_agreement_4_steps_full_depth=repr(
               {r: f"{_agreement_4(runs):.2f}" for r, runs in full.items()}),
@@ -2763,8 +2816,9 @@ def _reference_check_by_depth(params, cfg, prompt, n):
 #: the family's attention widths: opt-6.7b G = 1 (a Kq = 4 verify pass: 4
 #: rows a kv head), yi-9b G = 8 (32 rows: two row blocks of 16); ``n``: the
 #: first of the model's three main-path phases
-DENSE = {"opt-6.7b": dict(tag="opt", H=32, KVH=32, d=128, n=30),
-         "yi-9b": dict(tag="yi", H=32, KVH=4, d=128, n=33)}
+DENSE = {"opt-6.7b": dict(tag="opt", H=32, KVH=32, d=128, n=30,
+                          full_layers=32),
+         "yi-9b": dict(tag="yi", H=32, KVH=4, d=128, n=33, full_layers=48)}
 DENSE_MAX_NEW = 16
 #: their paged pool: four of the six requests at once, each prompt in one
 #: prefill (zamba2's and gla's paths stream prompt tails through decode
@@ -2809,8 +2863,9 @@ def _within(y, yp, label):
     return float(err.max())
 
 
-def phase_dense_kernels():
-    """Phase 28: the GQA kernels at opt-6.7b's widths (G = 1) and
+def phase_dense_kernels(models=None, n=28):
+    """Phase 28 (``models`` None: DENSE; phase 43: NEW_GQA at the last five
+    configs' widths): the GQA kernels at opt-6.7b's widths (G = 1) and
     yi-9b's (G = 8, Kq * G = 32 query rows: two row blocks), against their
     plain versions (rtol 2e-4, atol 2e-5) over SPEC_LENGTHS: kernels 2 and
     3 (decode; kernel 3 bitwise kernel 2 over the gathered pages), kernels
@@ -2826,7 +2881,7 @@ def phase_dense_kernels():
     from repro_torch.kernels import mx_spec_attention as KV
     from repro_torch.kernels import ref as R
     errs = {}
-    for arch, w in DENSE.items():
+    for arch, w in (models or DENSE).items():
         tag, G = w["tag"], w["H"] // w["KVH"]
         e = dict.fromkeys(("2", "3", "5", "6"), 0.0)
         cases = 0
@@ -2897,7 +2952,7 @@ def phase_dense_kernels():
         # memory one SM holds
         occ = [KA.split_blocks_per_sm(r, G, w["d"], w["d"])
                for r in (G, rows)]
-        phase(28, f"GQA kernels at {arch}'s widths vs plain", H=w["H"],
+        phase(n, f"GQA kernels at {arch}'s widths vs plain", H=w["H"],
               KVH=w["KVH"], d=w["d"], G=G, cases=cases, Kq="1,2,4",
               verify_rows=rows,
               row_blocks=KA.split_row_blocks(rows, G, w["d"]),
@@ -2908,7 +2963,7 @@ def phase_dense_kernels():
               max_abs_err=repr({k: f"{v:.3g}" for k, v in e.items()}),
               tol="rtol2e-4,atol2e-5", paged_vs_dense="bitwise",
               row_j_vs_kernels_2_and_3="bitwise")
-        phase(28, f"fused append and quantizer at {arch}'s widths",
+        phase(n, f"fused append and quantizer at {arch}'s widths",
               append_cases=n_app, append="bitwise (plain, replaced path)",
               quantizer_shape=tuple(x.shape), quantizer="bitwise")
         errs.update({f"e{k}_{tag}": v for k, v in e.items()})
@@ -2925,12 +2980,14 @@ def _sdpa(q, kf, vf, mask, gqa):
         q, kf, vf, attn_mask=mask, enable_gqa=gqa)
 
 
-def phase_dense_timing():
-    """Phase 29: device times (CUDA-graph replay, inputs rotated so each
-    launch finds them cold in L2) of kernels 2, 3, 6, 5 and the fused paged
-    append at opt-6.7b's and yi-9b's widths (kernel 7's: phase 37): batch
-    4 at the main path's mid-decode lengths (verify: Kq = 4, lengths
-    counting the appended rows); the yardstick is one
+def phase_dense_timing(models=None, phase_n=29):
+    """Phase 29 (``models`` None: DENSE; phase 44: NEW_GQA): device times
+    (CUDA-graph replay, inputs rotated so each launch finds them cold in
+    L2) of kernels 2, 3, 6, 5 and the fused paged append at opt-6.7b's and
+    yi-9b's widths (kernel 7's: phase 37): batch 4 at the main path's
+    mid-decode lengths (``w["decode_lens"]`` where the model's prompts
+    differ: paligemma's 256 patches before its text; verify: Kq = 4,
+    lengths counting the appended rows); the yardstick is one
     ``scaled_dot_product_attention`` call (``enable_gqa`` for yi-9b) on the
     dequantized fp32 K/V, with a boolean mask.  Returns {kernels-line name:
     times}."""
@@ -2945,10 +3002,11 @@ def phase_dense_timing():
     it = iter(range(10 ** 9))
     out = {}
     sq = OPS.StateQuantConfig()
-    for arch, w in DENSE.items():
+    for arch, w in (models or DENSE).items():
         tag, H, KVH, d = w["tag"], w["H"], w["KVH"], w["d"]
         G, gqa = H // KVH, H != KVH
-        dec = [n + DENSE_MAX_NEW // 2 for n in PROMPT_LENS[:4]]
+        dec = list(w.get("decode_lens", [n + DENSE_MAX_NEW // 2
+                                         for n in PROMPT_LENS[:4]]))
         ver = [n + KQ for n in dec]
         n_stack = _rotation(sum(ver) * KVH * 2 * d * 1.125)
         q, K, V, bt, lens_v = _dense_pool(ver, w, n_stack, seed=300 + G)
@@ -3028,52 +3086,32 @@ def phase_dense_timing():
                                    10 * n_stack)
             out[name] = _report(name, ms, plain_ms, lib_ms, host_ms, nbytes,
                                 flops, sum(plan_bytes(kind, n, layout)
-                                           for n in lens), n=29)
+                                           for n in lens), n=phase_n)
         del dense, deq, lib_d, lib_v
         plan = OPS.registry.plan("kv_append", dict(B=4, T=1, KVH=KVH, dk=d,
                                                    dv=d, n=1),
                                  sq, "cuda", layout="paged")
         out[f"mx_paged_kv_append[quant,{tag}]"] = _time_append_quant(
             [K, V], bt, lens_d, n_stack, f"mx_paged_kv_append[quant,{tag}]",
-            OPS.traffic(plan).total, n=29)
+            OPS.traffic(plan).total, n=phase_n)
         del q, K, V
-        phase(29, f"{arch} timing shapes", B=4, decode_lengths=dec,
+        phase(phase_n, f"{arch} timing shapes", B=4, decode_lengths=dec,
               verify_lengths=ver, Kq=KQ, layers_rotated=n_stack)
         torch.cuda.empty_cache()
     return out
 
 
-def _dense_model(arch):
-    """opt-6.7b or yi-9b at full width and full depth, random weights from
-    a seeded CUDA generator."""
-    import torch
+def _dense_model(arch, w):
+    """A GQA model at full width (``w``: its widths, and ``layers`` where
+    its depth is cut)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import model as M
-    cfg = get_config(arch)
-    w = DENSE[arch]
-    check(cfg.n_layers == {"opt-6.7b": 32, "yi-9b": 48}[arch]
-          and cfg.d_model == 4096 and cfg.n_heads == w["H"]
-          and cfg.n_kv_heads == w["KVH"] and cfg.head_dim == w["d"]
-          and cfg.state_quant.fmt == "mx8"
-          and cfg.state_quant.backend == "cuda", f"unexpected {cfg.name}")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = M.init_model(cfg, gen, device="cuda")
-    torch.cuda.synchronize()
-    n = sum(p.numel() for p in _leaves(params))
-    nbytes = sum(p.numel() * p.element_size() for p in _leaves(params))
-    # a decode step streams every weight once but the tables it gathers
-    # rows from (the token embedding, the learned positions)
-    tables = sum(params[k].numel() * params[k].element_size()
-                 for k in ("embed", "pos") if k in params)
-    stream = nbytes - tables
-    return cfg, params, dict(params=n, GB=f"{nbytes / 1e9:.2f}",
-                             layers=f"{cfg.n_layers} of {cfg.n_layers}",
-                             weight_stream_GB=f"{stream / 1e9:.2f}",
-                             weight_stream_bound_ms=(
-                                 f"{stream / PEAK_BYTES_PER_S * 1e3:.2f}"),
-                             init_s=f"{time.perf_counter() - t0:.1f}")
+    cfg, params, info = _model_at(arch, w.get("layers"))
+    check(get_config(arch).n_layers == w["full_layers"]
+          and cfg.n_heads == w["H"] and cfg.n_kv_heads == w["KVH"]
+          and cfg.head_dim == w["d"], f"unexpected {cfg.name}")
+    if "reduced" in w:
+        info["reduced"] = repr(w["reduced"])
+    return cfg, params, info
 
 
 def _verify_invariance(params, cfg):
@@ -3092,10 +3130,13 @@ def _verify_invariance(params, cfg):
     for pos in sorted({0, len(cfg.pattern) - 1}):
         kind, lp = cfg.pattern[pos], params["groups"][0][pos]
         # not the mLSTM's conv taps and per-head tables, nor the block-
-        # diagonal (H, dk, dk) projections, which lead with H = 4
+        # diagonal (H, dk, dk) projections, which lead with H = 4; not the
+        # experts' (E, d, d_expert) stacks (MoE routes all B * Kq tokens
+        # at once)
         weights.update({f"{kind}_{k}": v for k, v in lp["mixer"].items()
                         if v.shape[0] > 16})
-        weights.update({f"ffn_{k}": v for k, v in lp.get("ffn", {}).items()})
+        weights.update({f"ffn_{k}": v for k, v in lp.get("ffn", {}).items()
+                        if v.dim() == 2})
     weights["lm_head"] = (params["embed"].T if cfg.tie_embeddings
                           else params["lm_head"])
     out = {}
@@ -3116,11 +3157,14 @@ def _verify_invariance(params, cfg):
     return out
 
 
-def phase_dense(arch):
-    """``arch`` (opt-6.7b or yi-9b) at full width and full depth through
-    the slot pool (phase n), the paged pool (n + 1; paged logits bitwise the
-    dense-gather path's on a fresh pool first) and the paged pool with
-    n-gram speculation (n + 2).  Every decode step launches the GQA
+def phase_dense(arch, w):
+    """``arch`` (opt-6.7b or yi-9b at full width and full depth; since
+    phase 45 smollm-360m, yi-34b and dbrx-132b at full width, ``w["layers"]``
+    deep) through the slot pool (phase n), the paged pool (n + 1; paged
+    logits bitwise the dense-gather path's on a fresh pool first) and the
+    paged pool with n-gram speculation (n + 2), ``w["requests"]`` of the
+    PROMPT_LENS prompts with ``w["max_new"]`` new tokens each.  Every decode
+    step launches the GQA
     attention kernel of its path once per layer (kernel 2 on the slot
     pool, 3 on the paged pool, 5 per verify step), the fused append of its
     pool once per layer and position (dense on the slot pool, paged on the
@@ -3128,29 +3172,34 @@ def phase_dense(arch):
     prefill kernel 7 once per layer (K and V in one launch).  The verify
     step's norm is checked for row invariance, which gates greedy
     exactness (spec == plain at round to nearest) and the pool-level
-    verify-vs-sequential check."""
+    verify-vs-sequential check.  An MoE model routes a verify step's B * Kq
+    tokens together where a plain step routes B, and expert capacity
+    couples them: its pool-level check at batch 4 only reports, and its
+    greedy exactness runs at batch 1, where no expert can overflow."""
     import numpy as np
     import torch
     from repro_torch.models import model as M
     from repro_torch.serving.api import Engine, ServeConfig
-    n = DENSE[arch]["n"]
-    cfg, params, info = _dense_model(arch)
+    n = w["n"]
+    max_new = w.get("max_new", DENSE_MAX_NEW)
+    cfg, params, info = _dense_model(arch, w)
     L = cfg.n_layers
     phase(n, f"{arch} weights", **info)
     rng = np.random.default_rng(n)
-    prompts = _pattern_prompts(rng, cfg)
+    prompts = _pattern_prompts(rng, cfg)[:w.get("requests", 6)]
     k7 = _k7_per_prefill(cfg)
+    moe = cfg.moe is not None
 
     eng = Engine(params, cfg, ServeConfig(backend="slots", batch=4,
                                           cache_capacity=1024))
-    slot = _serve_counted(eng, cfg, prompts, DENSE_MAX_NEW,
+    slot = _serve_counted(eng, cfg, prompts, max_new,
                           dict(k2_gqa=L, apd=L), k7, f"{arch} slots")
     kv = sum(_payload_bytes(c.k) + _payload_bytes(c.v)
              for c in M.iter_kv_caches(eng.engine.caches))
     phase(n, f"main path {arch} slots", **_fields(slot),
           kv_MB=f"{kv / 1e6:.2f}")
     slot["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), n,
-                                   before=EAGER_APPEND_PROFILE[arch])
+                                   before=EAGER_APPEND_PROFILE.get(arch))
     _reference_check(params, cfg, prompts[0], n=n)
     del eng
 
@@ -3158,7 +3207,7 @@ def phase_dense(arch):
     shape = _paged_vs_gather(eng, cfg, rng)
     phase(n + 1, f"{arch} paged vs gather logits, fresh pool", steps=4,
           logits=tuple(shape), result="bit-identical")
-    paged = _serve_counted(eng, cfg, prompts, DENSE_MAX_NEW,
+    paged = _serve_counted(eng, cfg, prompts, max_new,
                            dict(k3_gqa=L, k4q=L), k7, f"{arch} paged")
     pool = eng.engine.pool
     phase(n + 1, f"main path {arch} paged", **_fields(paged),
@@ -3177,7 +3226,7 @@ def phase_dense(arch):
           remaining_batched_op_invariant=invariant)
     eng = Engine(params, cfg, ServeConfig(**DENSE_PAGED, spec="ngram",
                                           spec_k=SPEC_K))
-    spec = _serve_counted(eng, cfg, prompts, DENSE_MAX_NEW,
+    spec = _serve_counted(eng, cfg, prompts, max_new,
                           dict(k5_gqa=L, k4q=L * KQ), k7,
                           f"{arch} paged + ngram")
     st = spec["stats"]
@@ -3190,10 +3239,11 @@ def phase_dense(arch):
           vs_paged_other_sr_seeds="equal" if first is None else
           f"agreement {agree:.3f}, first difference at token {first}")
     spec["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), n + 2)
-    _spec_rollback_check(eng, cfg, rng, invariant, phase_n=n + 2)
+    _spec_rollback_check(eng, cfg, rng, invariant and not moe, phase_n=n + 2)
     del eng
     _greedy_exactness(params, cfg, prompts, invariant, n=n + 2,
-                      max_new=DENSE_MAX_NEW, paged=DENSE_PAGED)
+                      max_new=max_new,
+                      paged=dict(DENSE_PAGED, batch=1) if moe else DENSE_PAGED)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3235,8 +3285,9 @@ def _spread(shape, g, mag=None):
     return x
 
 
-def phase_dense_append():
-    """Phase 36: the fused dense append (``mx_kv_append_quant``) at every
+def phase_dense_append(widths=None, k7_streams=None, phase_n=36):
+    """Phase 36 (phase 43 with the last five configs' ``widths`` and
+    ``k7_streams``): the fused dense append (``mx_kv_append_quant``) at every
     served model's slot-pool streams (zamba2's K and V, 32 x 80; opt-6.7b's,
     32 x 128; yi-9b's, 4 x 128; deepseek's latent, 576) into caches of
     SLOT_T tokens, n = 1 and n = Kq new rows, lengths SLOT_LENGTHS (the
@@ -3258,7 +3309,7 @@ def phase_dense_append():
     B = len(SLOT_LENGTHS)
     lens = torch.tensor(SLOT_LENGTHS, dtype=torch.int32, device="cuda")
     fields = ("mantissa", "exponent", "micro")
-    for label, KVH, w, k, _ in APPEND_WIDTHS:
+    for label, KVH, w, k, _ in widths or APPEND_WIDTHS:
         g = torch.Generator(device="cuda").manual_seed(360 + w)
         base = [F.mx8_quantize(torch.randn((B, SLOT_T, KVH, w), generator=g,
                                            device="cuda")) for _ in range(k)]
@@ -3299,7 +3350,8 @@ def phase_dense_append():
             cases += 1
             del kern, plain, eager, cache
         errs[f"apd_{label}"] = float(worst)
-        phase(36, f"fused dense append at {label}'s widths", KVH=KVH, w=w,
+        phase(phase_n, f"fused dense append at {label}'s widths", KVH=KVH,
+              w=w,
               streams=k, T=SLOT_T, lengths=SLOT_LENGTHS,
               new_rows=f"1,{KQ}",
               magnitudes=",".join(f"{m:g}" for m in APPEND_MAGS),
@@ -3308,7 +3360,8 @@ def phase_dense_append():
               "slots untouched)")
         del base
     worst = cases = 0
-    for label, shape, pad_to in K7_STREAMS:
+    k7_streams = k7_streams or K7_STREAMS
+    for label, shape, pad_to in k7_streams:
         g = torch.Generator(device="cuda").manual_seed(370 + shape[-1])
         for mag, rounding in itertools.product((None,) + APPEND_MAGS,
                                                ("nearest", "stochastic")):
@@ -3334,10 +3387,11 @@ def phase_dense_append():
                           f"{where} differs from a one-stream launch")
             cases += 1
             del xs, got, want
-    errs["k7_streams"] = float(worst)
-    phase(36, "kernel 7, two streams a launch, vs plain and vs one stream",
+    errs[f"k7_streams_{phase_n}"] = float(worst)
+    phase(phase_n, "kernel 7, two streams a launch, vs plain and vs one "
+          "stream",
           shapes=[f"{lab} {s}" + (f" padded to {p}" if p else "")
-                  for lab, s, p in K7_STREAMS], cases=cases,
+                  for lab, s, p in k7_streams], cases=cases,
           values="45 decades," + ",".join(f"{m:g}" for m in APPEND_MAGS),
           roundings="nearest,stochastic", max_abs_err=worst,
           result="bitwise (mantissa, exponent, micro)")
@@ -3345,8 +3399,11 @@ def phase_dense_append():
     return errs
 
 
-def phase_dense_append_timing():
-    """Phase 37: device times by CUDA-graph replay.  The fused dense append
+def phase_dense_append_timing(widths=None, k7_prefills=(("opt", 32, 128),
+                                                         ("yi", 4, 128)),
+                              n=37):
+    """Phase 37 (phase 44 with the last five configs' ``widths`` and
+    ``k7_prefills``): device times by CUDA-graph replay.  The fused dense append
     at each slot path's streams, B = 4, n = 1, mid-decode lengths, walking
     the caches of the model's attention layers as a decode step does;
     beside it its plain version, the path it replaced (the ``torch``
@@ -3373,7 +3430,7 @@ def phase_dense_append_timing():
                         dtype=torch.int32, device="cuda")
     cuda_cfg = OPS.StateQuantConfig()
     torch_cfg = OPS.StateQuantConfig("mx8", "stochastic", "torch")
-    for label, KVH, w, k, L in APPEND_WIDTHS:
+    for label, KVH, w, k, L in widths or APPEND_WIDTHS:
         name = ("mx_kv_append_quant" if label == "zamba2"
                 else f"mx_kv_append_quant[{label}]")
         g = torch.Generator(device="cuda").manual_seed(380 + w)
@@ -3406,8 +3463,8 @@ def phase_dense_append_timing():
             "cuda")
         out[name] = _report(name, ms, plain_ms, None, host_ms,
                             n_val * (4 + 1 + 2 / F.MX8_GROUP) + 4 * B,
-                            5 * n_val, OPS.traffic(plan).total, n=37)
-        phase(37, f"{name} vs the replaced path", layers=L,
+                            5 * n_val, OPS.traffic(plan).total, n=n)
+        phase(n, f"{name} vs the replaced path", layers=L,
               replaced_ms=f"{replaced_ms:.5f}",
               fused_faster=f"{replaced_ms / ms:.2f}x",
               per_step_layers_ms=f"{L * ms:.5f} vs {L * replaced_ms:.5f}",
@@ -3419,9 +3476,9 @@ def phase_dense_append_timing():
     # the least launch of kernel 7: one group, the same method
     xs = [torch.randn((1, 16), device="cuda") for _ in range(64)]
     floor_ms = graph_ms([lambda x=x: K7.mx_quantize(x) for x in xs], 50)
-    for tag, KVH in (("opt", 32), ("yi", 4)):
-        shape = (1, 400, KVH, 128)
-        n_in, n_out = 2 * math.prod(shape), 2 * 512 * KVH * 128
+    for tag, KVH, d in k7_prefills:
+        shape = (1, 400, KVH, d)
+        n_in, n_out = 2 * math.prod(shape), 2 * 512 * KVH * d
         n_rot = _rotation(4 * n_in)
         g = torch.Generator(device="cuda").manual_seed(390 + KVH)
         xs = [[torch.randn(shape, generator=g, device="cuda")
@@ -3439,14 +3496,14 @@ def phase_dense_append_timing():
         name = f"mx_quantize[{tag}]"
         out[name] = _report(name, ms, plain_ms, None, host_ms,
                             4 * n_in + n_out * (1 + 2 / F.MX8_GROUP),
-                            5 * n_out, 4 * n_in + n_out * 9 / 8, n=37)
-        one = (1, 512, KVH, 128)
+                            5 * n_out, 4 * n_in + n_out * 9 / 8, n=n)
+        one = (1, 512, KVH, d)
         n_one = math.prod(one)
         ys = [torch.randn(one, generator=g, device="cuda")
               for _ in range(_rotation(4 * n_one))]
         one_ms = graph_ms([lambda y=y: K7.mx_quantize(y) for y in ys], 10)
         one_bound = n_one * (4 + 1 + 2 / F.MX8_GROUP) / PEAK_BYTES_PER_S * 1e3
-        phase(37, f"{name}: the prefill's K and V, one launch", shape=shape,
+        phase(n, f"{name}: the prefill's K and V, one launch", shape=shape,
               pad_to=512, replaced_ms=f"{replaced_ms:.5f}",
               replaced="F.pad + one launch a stream",
               fused_faster=f"{replaced_ms / ms:.2f}x",
@@ -3517,29 +3574,12 @@ def phase_xlstm_timing():
 
 def _xlstm_model():
     """xlstm-1.3b at full width and all 48 layers (6 groups of 7 mLSTM + 1
-    sLSTM), random weights from a seeded CUDA generator."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models import model as M
-    cfg = get_config("xlstm-1.3b")
+    sLSTM)."""
+    cfg, params, info = _model_at("xlstm-1.3b")
     check(cfg.n_layers == 48 and cfg.d_model == 2048
-          and cfg.pattern.count("mlstm") * cfg.n_groups == 42
-          and cfg.state_quant.fmt == "mx8"
-          and cfg.state_quant.backend == "cuda", f"unexpected {cfg.name}")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = M.init_model(cfg, gen, device="cuda")
-    torch.cuda.synchronize()
-    n = sum(p.numel() for p in _leaves(params))
-    nbytes = sum(p.numel() * p.element_size() for p in _leaves(params))
-    stream = nbytes - params["embed"].numel() * params["embed"].element_size()
-    return cfg, params, dict(params=n, GB=f"{nbytes / 1e9:.2f}",
-                             layers=f"{cfg.n_layers} of {cfg.n_layers}",
-                             weight_stream_GB=f"{stream / 1e9:.2f}",
-                             weight_stream_bound_ms=(
-                                 f"{stream / PEAK_BYTES_PER_S * 1e3:.2f}"),
-                             init_s=f"{time.perf_counter() - t0:.1f}")
+          and cfg.pattern.count("mlstm") * cfg.n_groups == 42,
+          f"unexpected {cfg.name}")
+    return cfg, params, info
 
 
 def _slstm_prefill_share(params, cfg, rng, n=40, length=400):
@@ -3672,7 +3712,8 @@ def phase_xlstm():
     slot["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 40)
     del eng
     slot["slstm"] = _slstm_prefill_share(params, cfg, rng)
-    _reference_check_by_depth(params, cfg, prompts[0], n=40)
+    _reference_check_by_depth(params, cfg, _token_batch(prompts[0]),
+                              n=40)
 
     eng = Engine(params, cfg, ServeConfig(**XLSTM_PAGED))
     shape = _paged_vs_gather(eng, cfg, rng)
@@ -3723,6 +3764,204 @@ def phase_xlstm():
     gc.collect()
     torch.cuda.empty_cache()
     return dict(slot=slot, paged=paged, spec=spec, invariant=invariant)
+
+
+# ---------------------------------------------------------------------------
+# the last five configs: smollm-360m, yi-34b and dbrx-132b served through
+# the three paths, paligemma-3b's patch prefix and hubert-xlarge's encoder
+# at model level
+# ---------------------------------------------------------------------------
+
+#: paligemma-3b: four requests of 256 patch embeddings (a 224-px image in
+#: 14-px patches, 1152 wide as SigLIP gives them) and 64-256 text tokens
+#: (256 + S <= 512: one attention chunk), then 12 greedy decode steps
+PALI_TEXT = (64, 256, 133, 200)
+PALI_STEPS = 12
+#: its kernels' timing lengths: mid-decode, the patches counted
+PALI_DECODE_LENS = tuple(256 + t + PALI_STEPS // 2 for t in PALI_TEXT)
+#: the last five configs' attention widths -- smollm-360m G = 3 at head
+#: width 64; yi-34b G = 7 and dbrx-132b G = 6 at 128 (a Kq = 4 verify
+#: pass: 28 and 24 rows a kv head, two row blocks of 14 and 12);
+#: paligemma-3b G = 8 over one kv head at 256 (8 rows x 256 = 2048
+#: accumulator items a block, 229,376 B of shared memory; its verify pass
+#: four row blocks) -- held and timed in phases 43 and 44; the three
+#: served through the three paths from phase ``n`` on, ``requests`` of the
+#: PROMPT_LENS prompts with ``max_new`` new tokens, their depth cut to
+#: ``layers`` where the fp32 weights would not fit one card with the pools
+NEW_GQA = {
+    "smollm-360m": dict(tag="smollm", H=15, KVH=5, d=64, n=45,
+                        full_layers=32, requests=6, max_new=16),
+    "yi-34b": dict(tag="yi34", H=56, KVH=8, d=128, n=50, full_layers=60,
+                   layers=28, requests=4, max_new=8,
+                   reduced="n_layers 60 -> 28 (66.1 GB fp32 of 80 GB)"),
+    "dbrx-132b": dict(tag="dbrx", H=48, KVH=8, d=128, n=53, full_layers=40,
+                      layers=4, requests=4, max_new=8,
+                      reduced="n_layers 40 -> 4 (57.1 GB fp32 of 80 GB)"),
+    "paligemma-3b": dict(tag="pali", H=8, KVH=1, d=256, full_layers=18,
+                         decode_lens=PALI_DECODE_LENS),
+}
+SERVED_NEW = ("smollm-360m", "yi-34b", "dbrx-132b")
+#: the slot pools' appended streams at the new widths, with the layers a
+#: decode step walks (as APPEND_WIDTHS), and kernel 7 at one request's
+#: prefill K and V of 400 positions (paligemma: 256 patches + 144 tokens)
+NEW_APPEND_WIDTHS = (("smollm", 5, 64, 2, 32), ("yi34", 8, 128, 2, 28),
+                     ("dbrx", 8, 128, 2, 4), ("pali", 1, 256, 2, 18))
+NEW_K7_STREAMS = (("smollm K/V", (1, 400, 5, 64), 512),
+                  ("yi-34b and dbrx K/V", (1, 400, 8, 128), 512),
+                  ("paligemma K/V", (1, 400, 1, 256), 512))
+NEW_K7_PREFILLS = (("smollm", 5, 64), ("yi34", 8, 128), ("dbrx", 8, 128),
+                   ("pali", 1, 256))
+#: hubert-xlarge: two clips of 10 s of 16 kHz audio at its 20 ms frames
+HUBERT = dict(B=2, frames=500)
+
+
+def _pali_batch(cfg, g, n_text):
+    """One request: ``prefix_len`` seeded patch embeddings and ``n_text``
+    tokens."""
+    import torch
+    return {"patches": torch.randn((1, cfg.prefix_len, cfg.frontend_dim),
+                                   generator=g, device="cuda"),
+            "tokens": torch.randint(0, cfg.vocab_size, (1, n_text),
+                                    generator=g, device="cuda")}
+
+
+def phase_paligemma():
+    """Phase 48: paligemma-3b at full width and all 18 layers, at model
+    level (the engines prefill token prompts only, as the JAX package's
+    do): four requests of 256 seeded patch embeddings and PALI_TEXT
+    tokens, each prefilled alone (kernel 7 once per layer: the layer's K
+    and V over 256 + S positions in one launch) and written into a slot
+    cache of four rows (``write_row``), then PALI_STEPS greedy
+    ``decode_step``s from ``lengths = 256 + S`` (kernel 2 at R = 8, dv =
+    256, and the fused dense append, once per layer a step).  The launch
+    counters are set to 0 just before and read just after; no other
+    kernel runs and the plain MX8 quantizer is not called inside a step.
+    Then the decode profile and the reference check by depth over one
+    request's prefill."""
+    import torch
+    from repro_torch.models import model as M
+    cfg, params, info = _model_at("paligemma-3b")
+    check(cfg.prefix_len == 256 and cfg.frontend_dim == 1152
+          and cfg.n_kv_heads == 1 and cfg.head_dim == 256
+          and cfg.n_heads == 8, f"unexpected {cfg.name}")
+    phase(48, "paligemma-3b weights", **info)
+    L, B, V = cfg.n_layers, len(PALI_TEXT), cfg.vocab_size
+    g = torch.Generator(device="cuda").manual_seed(48)
+    batches = [_pali_batch(cfg, g, t) for t in PALI_TEXT]
+    lens = [cfg.prefix_len + t for t in PALI_TEXT]
+    cap = -(-(max(lens) + PALI_STEPS) // 128) * 128
+    torch.cuda.reset_peak_memory_stats()
+    caches = M.init_decode_caches(cfg, B, cap, device="cuda")
+    _counts_reset()
+    PLAIN_QUANT["calls"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = []
+    for slot, (b, S) in enumerate(zip(batches, lens)):
+        logits, row = M.prefill(params, cfg, b)
+        check(tuple(logits.shape) == (1, V)
+              and bool(torch.isfinite(logits).all()),
+              f"paligemma prefill {slot}: logits {tuple(logits.shape)}")
+        M.write_row(caches, row, slot, S)
+        first.append(int(logits[0].argmax()))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = torch.tensor(first, device="cuda")
+    L0 = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    step_ms = []
+    for i in range(PALI_STEPS):
+        t1 = time.perf_counter()
+        logits, caches = M.decode_step(params, cfg, tok, caches, L0 + i,
+                                       seed=i + 1)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        check(tuple(logits.shape) == (B, V)
+              and bool(torch.isfinite(logits).all()),
+              f"paligemma decode step {i}: logits not finite")
+    n = _counts()
+    check(PLAIN_QUANT["calls"] == 0, f"paligemma: the plain MX8 quantizer "
+          f"ran {PLAIN_QUANT['calls']} times inside prefill or decode")
+    expect = dict.fromkeys(n, 0)
+    expect.update(k7=L * B, k2_gqa=L * PALI_STEPS, apd=L * PALI_STEPS)
+    check(n == expect, f"paligemma launches {n}, want {expect}")
+    per = {k: v / PALI_STEPS for k, v in n.items() if v and k != "k7"}
+    phase(48, "main path paligemma-3b, model level (prefill with patches, "
+          "decode_step)", requests=B, patches=cfg.prefix_len,
+          text_tokens=list(PALI_TEXT), cache_capacity=cap,
+          steps=PALI_STEPS, launches_per_step=",".join(
+              f"{k}={v:g}" for k, v in per.items()),
+          k7_launches=n["k7"], plain_quantizer_calls_in_steps=0,
+          prefill_s=f"{prefill_s:.3f}",
+          p50_step_ms=f"{sorted(step_ms)[len(step_ms) // 2]:.3f}",
+          peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    state = dict(tok=tok, caches=caches, L=L0 + PALI_STEPS, i=PALI_STEPS)
+
+    def step():
+        state["i"] += 1
+        lg, state["caches"] = M.decode_step(params, cfg, state["tok"],
+                                            state["caches"], state["L"],
+                                            seed=state["i"])
+        state["tok"], state["L"] = lg.argmax(-1), state["L"] + 1
+
+    prof = _device_profile(step, 5, 48)
+    del caches, state
+    _reference_check_by_depth(params, cfg, batches[0], n=48)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(n=n, steps=PALI_STEPS, prof=prof, step_ms=step_ms,
+                prefill_s=prefill_s)
+
+
+def phase_hubert():
+    """Phase 49: hubert-xlarge at full width and all 48 layers, its
+    encoder's prefill (the only step it has, in the JAX package too) over
+    HUBERT["B"] clips of HUBERT["frames"] seeded frame features: per-position
+    logits (B, frames, 504), all finite; non-causal, so the first frame's
+    logits move with the last frame's features.  It launches no kernel:
+    an encoder builds no cache."""
+    import torch
+    from repro_torch.models import model as M
+    cfg, params, info = _model_at("hubert-xlarge")
+    check(cfg.encoder_only and not cfg.causal
+          and cfg.frontend == "audio_frames" and cfg.d_model == 1280,
+          f"unexpected {cfg.name}")
+    phase(49, "hubert-xlarge weights", **info)
+    g = torch.Generator(device="cuda").manual_seed(49)
+    frames = torch.randn((HUBERT["B"], HUBERT["frames"], cfg.frontend_dim),
+                         generator=g, device="cuda")
+    M.prefill(params, cfg, {"frames": frames[:, :100]})          # warm up
+    torch.cuda.reset_peak_memory_stats()
+    _counts_reset()
+    PLAIN_QUANT["calls"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = M.prefill(params, cfg, {"frames": frames})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    n = _counts()
+    want = (HUBERT["B"], HUBERT["frames"], cfg.vocab_size)
+    check(tuple(logits.shape) == want and caches is None,
+          f"hubert: logits {tuple(logits.shape)}, want {want}, no caches")
+    check(bool(torch.isfinite(logits).all()), "hubert logits not finite")
+    check(not any(n.values()) and PLAIN_QUANT["calls"] == 0,
+          f"hubert launched {n}")
+    moved = frames.clone()
+    moved[:, -1] += 1.0
+    late = M.prefill(params, cfg, {"frames": moved})[0]
+    check(not torch.equal(late[:, 0], logits[:, 0]), "hubert: the first "
+          "frame's logits ignore the last frame (causal?)")
+    phase(49, "main path hubert-xlarge, encoder prefill", clips=want[0],
+          frames=want[1], logits=want, finite=True, caches=None,
+          kernel_launches=0, prefill_s=f"{prefill_s:.3f}",
+          frames_per_s=f"{want[0] * want[1] / prefill_s:.1f}",
+          peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          first_frame_moves_with_last="yes")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(prefill_s=prefill_s, logits=want)
 
 
 def main():
@@ -3782,7 +4021,7 @@ def main():
                     for arch, n in (("retnet-2.7b", 26), ("hgrn2-2.7b", 27))})
         phase(30, "device memory before the dense family",
               allocated_GB=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
-        dense = {arch: phase_dense(arch) for arch in DENSE}
+        dense = {arch: phase_dense(arch, w) for arch, w in DENSE.items()}
         gc.collect()
         torch.cuda.empty_cache()
         t_x = time.perf_counter()
@@ -3793,8 +4032,27 @@ def main():
         xlstm = phase_xlstm()
         phase(42, "xlstm-1.3b phases 38-42",
               seconds=f"{time.perf_counter() - t_x:.1f}")
+        t_n = time.perf_counter()
+        errs.update(phase_dense_kernels(NEW_GQA, n=43))
+        errs.update(phase_dense_append(NEW_APPEND_WIDTHS, NEW_K7_STREAMS,
+                                       phase_n=43))
+        times.update(phase_dense_timing(NEW_GQA, phase_n=44))
+        times.update(phase_dense_append_timing(NEW_APPEND_WIDTHS,
+                                               NEW_K7_PREFILLS, n=44))
+        dense["smollm-360m"] = phase_dense("smollm-360m",
+                                           NEW_GQA["smollm-360m"])
+        pali = phase_paligemma()
+        phase_hubert()
+        for arch in ("yi-34b", "dbrx-132b"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase(NEW_GQA[arch]["n"], f"device memory before {arch}",
+                  allocated_GB=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+            dense[arch] = phase_dense(arch, NEW_GQA[arch])
+        phase(55, "the last five configs, phases 43-55",
+              seconds=f"{time.perf_counter() - t_n:.1f}")
         kernels = kernels_line(errs, times, slot, paged, spec, ds, gla,
-                               dense, xlstm)
+                               dense, xlstm, pali)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3806,15 +4064,19 @@ def main():
     return 0
 
 
-def kernels_line(errs, times, slot, paged, spec, ds, gla, dense, xlstm):
+def kernels_line(errs, times, slot, paged, spec, ds, gla, dense, xlstm,
+                 pali):
     """One entry per kernel and mode (kernel 1: dense mode on the slot
     path, slab mode on the paged path, at zamba2's heads and again at the
     GLA family's; kernels 2, 3, 5 and 6: GQA mode on zamba2's paths, MLA
     mode on deepseek's; kernel 7 on gla's slot path; the fused dense append
     on zamba2's and deepseek's slot paths; kernels 2 to 7 and the dense
     append again at opt-6.7b's and yi-9b's widths, on their paths; kernels
-    1 and 7 at xlstm-1.3b's mLSTM heads and prefill states, on its paths);
-    ``launches`` counts
+    1 and 7 at xlstm-1.3b's mLSTM heads and prefill states, on its paths;
+    kernels 2 to 7 and the dense append at smollm-360m's, yi-34b's and
+    dbrx-132b's widths, on their paths, and at paligemma-3b's, where its
+    model-level run launches kernels 2 and 7 and the dense append and
+    kernels 3 to 6 none); ``launches`` counts
     each one's own main path (the verify kernels: the speculative path,
     where kernel 6, the dense-cache twin, has no launch; kernel 4: the
     fused quantize-and-append on the paged paths, the copy on none),
@@ -3908,8 +4170,13 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla, dense, xlstm):
              **times[f"mx_state_update[slab,{arch.split('-')[0]}]"])
         for arch in ("retnet-2.7b", "hgrn2-2.7b")
     ]
-    for arch, w in DENSE.items():
-        tag, r = w["tag"], dense[arch]
+    new = {arch: NEW_GQA[arch] for arch in SERVED_NEW}
+    pali_runs = dict.fromkeys(("slot", "paged", "spec"), pali)
+    for arch, w in itertools.chain(DENSE.items(), new.items(),
+                                   [("paligemma-3b",
+                                     NEW_GQA["paligemma-3b"])]):
+        tag = w["tag"]
+        r = pali_runs if tag == "pali" else dense[arch]
         for name, source, replaces, path, counter, err in (
                 ("mx_attention_decode", "src/repro_torch/csrc/mx_attention.cu",
                  "src/repro/kernels/mx_attention.py:98", "slot", "k2_gqa",

@@ -17,8 +17,15 @@ with the kernels' plain versions, e.g. at smoke size:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
         --smoke-size --device cpu --paged     # mLSTM + sLSTM
 
-``--arch`` takes any architecture the port carries
-(``repro_torch.configs.ALL_ARCHS``).  Weights are random, from ``--seed``.
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+        --smoke-size --device cpu --paged     # or yi-34b, dbrx-132b
+
+``--arch`` takes any of the fifteen architectures
+(``repro_torch.configs.ALL_ARCHS``); an encoder (hubert-xlarge) exits with
+nothing to serve, and a model with a modality frontend (paligemma-3b)
+exits too: the engines prefill token prompts only, so it runs at model
+level (``models.model.prefill`` with its patches, then ``decode_step``).
+Weights are random, from ``--seed``.
 """
 import argparse
 import sys
@@ -71,12 +78,19 @@ def main(argv=None):
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models import model as M
     from repro_torch.serving.api import Engine, ServeConfig
+    from repro_torch.serving.engine import refuse_unservable
     from repro_torch.serving.sampler import SamplingConfig
     from repro_torch.serving.scheduler import SchedulerConfig
 
-    device = M.resolve_device(args.device)
     cfg = (get_smoke_config(args.arch) if args.smoke_size
            else get_config(args.arch))
+    if cfg.encoder_only:
+        raise SystemExit(f"{cfg.name} is encoder-only: nothing to serve")
+    try:
+        refuse_unservable(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    device = M.resolve_device(args.device)
     requested = None if args.backend == "auto" else args.backend
     # the capability check runs against the layout actually dispatched
     layout = "paged" if args.paged else "dense"

@@ -26,18 +26,25 @@ from repro_torch.models.config import ModelConfig
 NEG_INF = -1e30
 
 
-def _mask_chunk(s, q_idx, k_idx, q_chunk, kv_chunk):
-    """Additive causal mask for one (q chunk, kv chunk) pair."""
+def _mask_chunk(s, q_idx, k_idx, q_chunk, kv_chunk, prefix_len=0):
+    """Additive causal mask for one (q chunk, kv chunk) pair; the first
+    ``prefix_len`` kv positions are open to every query (prefix-LM)."""
     qp = q_idx * q_chunk + torch.arange(q_chunk, device=s.device)
     kp = k_idx * kv_chunk + torch.arange(kv_chunk, device=s.device)
     ok = qp[:, None] >= kp[None, :]
+    if prefix_len:
+        ok = ok | (kp[None, :] < prefix_len)
     return s + torch.where(ok, 0.0, NEG_INF).to(s.dtype)
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, scale: Optional[float] = None, q_chunk: int = 512,
+                        *, causal: bool = True, prefix_len: int = 0,
+                        scale: Optional[float] = None, q_chunk: int = 512,
                         kv_chunk: int = 512) -> torch.Tensor:
-    """Causal attention, q: (B,S,H,dh), k/v: (B,S,KVH,dh|dv) -> (B,S,H,dv)."""
+    """q: (B,S,H,dh), k/v: (B,S,KVH,dh|dv) -> (B,S,H,dv).  Causal unless
+    ``causal`` is false (an encoder: no mask at all); ``prefix_len > 0``
+    opens the first ``prefix_len`` positions to every query, and only
+    where attention is causal (as in the JAX package)."""
     B, S, H, dh = q.shape
     KVH, dv = k.shape[2], v.shape[-1]
     G = H // KVH
@@ -59,8 +66,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = torch.zeros_like(m)
         acc = torch.zeros((B, KVH, G, q_chunk, dv), device=q.device)
         for kj in range(nk):
-            s = _mask_chunk(torch.einsum("bngqd,bnkd->bngqk", qb[qi], kb[kj]),
-                            qi, kj, q_chunk, kv_chunk)
+            s = torch.einsum("bngqd,bnkd->bngqk", qb[qi], kb[kj])
+            if causal:
+                s = _mask_chunk(s, qi, kj, q_chunk, kv_chunk, prefix_len)
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             p = torch.exp(s - m_new)
             alpha = torch.exp(m - m_new)
@@ -102,12 +110,16 @@ def _project_qkv(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def attention_forward(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
-                      positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence attention (prefill math)."""
+                      positions: torch.Tensor,
+                      prefix_len: int = 0) -> torch.Tensor:
+    """Full-sequence attention (prefill math): causal but for an encoder,
+    the first ``prefix_len`` positions bidirectional."""
     B, S, _ = x.shape
     H, dh = cfg.n_heads, cfg.head_dim
     q, k, v = _project_qkv(p, x, cfg, positions)
-    o = blockwise_attention(q, k, v, q_chunk=cfg.attn_q_chunk,
+    o = blockwise_attention(q, k, v,
+                            causal=cfg.causal and not cfg.encoder_only,
+                            prefix_len=prefix_len, q_chunk=cfg.attn_q_chunk,
                             kv_chunk=cfg.attn_kv_chunk)
     return o.reshape(B, S, H * dh) @ p["wo"]
 

@@ -4,7 +4,8 @@
 converted to numpy (``jax.tree.map(np.asarray, init_model(key, cfg))``):
 it unstacks the ``(G, ...)`` group axis of ``groups[pos]`` into the port's
 per-layer lists (MoE experts keep their ``(E, d_in, d_out)`` stacks),
-lists the unstacked ``prelude`` layers, and copies ``embed``, ``pos`` (a
+lists the unstacked ``prelude`` layers, and copies ``embed`` (absent for
+an audio frontend), ``frontend_proj`` (a frontend's projection), ``pos`` (a
 learned position table), ``shared``, ``final_norm`` and ``lm_head`` (absent
 when the embedding is tied) leaf for leaf.  Nothing here imports JAX; the
 tree is plain dicts, tuples and numpy arrays.
@@ -39,7 +40,8 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     if cfg.prelude:
         out["prelude"] = [_to_torch(layer, device)
                           for layer in tree["prelude"]]
-    for name in ("embed", "pos", "shared", "final_norm", "lm_head"):
+    for name in ("embed", "frontend_proj", "pos", "shared", "final_norm",
+                 "lm_head"):
         if name in tree:
             out[name] = _to_torch(tree[name], device)
     return out

@@ -11,7 +11,10 @@ cache last in each group).  A model with a prelude keeps the JAX package's
 split, ``params["prelude"][i]`` and caches ``{"prelude": [...], "groups":
 caches[g][pos]}`` (:func:`split_caches` / :func:`join_caches`).
 
-  * prefill -- full-sequence forward that also builds the decode caches
+  * prefill -- full-sequence forward that also builds the decode caches;
+    the inputs are tokens, or a frontend's embeddings (:func:`embed_inputs`:
+    a patch prefix before the tokens, or audio frames alone), and an
+    encoder's prefill returns per-position logits and no caches
   * decode  -- one token through the quantized caches (the Pimba fast path):
     ``decode_step`` over dense caches, ``paged_decode_step`` over the paged
     pool's views (one view per pattern position, re-bound per layer)
@@ -46,6 +49,8 @@ _PRELUDE_SEED = 7919
 _U32 = 0xFFFFFFFF
 _PORTED = ("attn", "mla") + tuple(SSM.MIXERS)
 _FFN_KINDS = ("swiglu", "geglu", "gelu", "relu", "moe", "none")
+#: the modality frontends (stubs: the caller supplies the embeddings)
+FRONTENDS = ("patch", "audio_frames")
 #: rows of a learned position table (the JAX package's): positions 0 ..
 #: POS_ROWS - 1; the serving engines refuse what could reach past them
 POS_ROWS = 32768
@@ -68,20 +73,25 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: ffn {cfg.ffn_kind!r}, norm {cfg.norm_kind!r} or "
             f"positions {cfg.pos_emb!r} unknown to the port")
-    if cfg.frontend is not None or cfg.prefix_len or cfg.encoder_only \
-            or not cfg.causal:
+    if cfg.frontend is not None and cfg.frontend not in FRONTENDS:
         raise NotImplementedError(
-            f"{cfg.name}: only causal decoder-only token models are ported; "
-            "modality frontends, bidirectional prefixes and encoders follow "
-            "(ROADMAP.md)")
+            f"{cfg.name}: frontend {cfg.frontend!r} unknown to the port (its "
+            f"frontends: {', '.join(FRONTENDS)})")
+
+
+def check_decoder(cfg: ModelConfig) -> None:
+    """Raise for an encoder: it has no decode step (its prefill returns
+    per-position logits and no caches)."""
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
 
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller asks
-    for the CPU.  Finding no card without being asked for the CPU is an
-    error, not a fallback."""
-    if device is not None and torch.device(device).type == "cpu":
-        return torch.device("cpu")
+    for the CPU (or for ``meta``: shapes without storage).  Finding no card
+    without being asked for the CPU is an error, not a fallback."""
+    if device is not None and torch.device(device).type in ("cpu", "meta"):
+        return torch.device(torch.device(device).type)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass device='cpu' "
                            "(or --device cpu) to run on the CPU")
@@ -137,9 +147,13 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     check_supported(cfg)
     device = resolve_device(device)
     dt = getattr(torch, cfg.param_dtype)
-    params: Params = {
-        "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, dt,
-                              device)}
+    params: Params = {}
+    if cfg.frontend in (None, "patch"):        # a VLM embeds text tokens too
+        params["embed"] = L.embed_init(generator, cfg.vocab_size,
+                                       cfg.d_model, dt, device)
+    if cfg.frontend is not None:
+        params["frontend_proj"] = L.dense_init(generator, cfg.frontend_dim,
+                                               cfg.d_model, dt, device)
     if cfg.pos_emb == "learned":
         params["pos"] = L.embed_init(generator, POS_ROWS, cfg.d_model, dt,
                                      device)
@@ -171,7 +185,7 @@ def _lm_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def params_device(params: Params) -> torch.device:
-    return params["embed"].device
+    return params["final_norm"]["scale"].device
 
 
 def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -184,6 +198,36 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.pos_emb == "learned":
         x = x + params["pos"][positions.long()]
     return x
+
+
+def embed_inputs(params: Params, cfg: ModelConfig,
+                 batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """``(x (B, S, d), positions (B, S), prefix_len)`` of a prefill batch,
+    the twin of the JAX package's: the ``patch`` frontend puts the
+    projected ``batch["patches"]`` (B, P, frontend_dim) before the token
+    embeddings and opens those P positions to every query; the
+    ``audio_frames`` frontend projects ``batch["frames"]`` and embeds no
+    token; a token model embeds ``batch["tokens"]`` with the config's
+    ``prefix_len``.  Learned or sinusoidal positions 0 .. S - 1 are added
+    (sinusoidal ones at prefill only, as in the JAX package)."""
+    if cfg.frontend == "patch":
+        patches = batch["patches"] @ params["frontend_proj"]
+        x = torch.cat([patches, params["embed"][batch["tokens"]]], dim=1)
+        prefix_len = patches.shape[1]
+    elif cfg.frontend == "audio_frames":
+        x = batch["frames"] @ params["frontend_proj"]
+        prefix_len = 0
+    else:
+        x = params["embed"][batch["tokens"]]
+        prefix_len = cfg.prefix_len
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    if cfg.pos_emb == "learned":
+        x = x + params["pos"][positions]
+    elif cfg.pos_emb == "sincos":
+        x = x + L.sincos_pos_emb(S, cfg.d_model, x.dtype, x.device)[None]
+    return x, positions, prefix_len
 
 
 # ---------------------------------------------------------------------------
@@ -213,18 +257,24 @@ def _build_kv_cache(k: torch.Tensor, v, cfg: ModelConfig,
                       lengths, sq.fmt, v_width)
 
 
-def _attn_block_forward(p: Params, x, cfg: ModelConfig, positions):
-    """Attention + cache build shared by pattern and shared blocks."""
-    y = ATT.attention_forward(p, x, cfg, positions)
+def _attn_block_forward(p: Params, x, cfg: ModelConfig, positions,
+                        prefix_len: int = 0):
+    """Attention + cache build shared by pattern and shared blocks (an
+    encoder builds no cache)."""
+    y = ATT.attention_forward(p, x, cfg, positions, prefix_len)
+    if cfg.encoder_only:
+        return y, None
     k, v = ATT.attention_prefill_kv(p, x, cfg, positions)
     return y, _build_kv_cache(k, v, cfg)
 
 
 def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
-                     positions) -> Tuple[torch.Tensor, Any]:
+                     positions, prefix_len: int = 0
+                     ) -> Tuple[torch.Tensor, Any]:
     h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
     if kind == "attn":
-        y, cache = _attn_block_forward(p["mixer"], h, cfg, positions)
+        y, cache = _attn_block_forward(p["mixer"], h, cfg, positions,
+                                       prefix_len)
     elif kind == "mla":
         y = ATT.mla_forward(p["mixer"], h, cfg, positions)
         ckv = ATT.mla_cache_stream(p["mixer"], h, cfg, positions)
@@ -239,9 +289,10 @@ def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
     return x, cache
 
 
-def _shared_block_forward(p: Params, x, cfg: ModelConfig, positions):
+def _shared_block_forward(p: Params, x, cfg: ModelConfig, positions,
+                          prefix_len: int = 0):
     h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
-    y, cache = _attn_block_forward(p["attn"], h, cfg, positions)
+    y, cache = _attn_block_forward(p["attn"], h, cfg, positions, prefix_len)
     x = x + y
     h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
     return x + L.apply_ffn(p["ffn"], h, cfg.ffn_kind), cache
@@ -250,31 +301,31 @@ def _shared_block_forward(p: Params, x, cfg: ModelConfig, positions):
 @torch.no_grad()
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, List[List[Any]]]:
-    """Full-sequence forward; returns (last-position logits, caches)."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = _embed(params, cfg, tokens, positions)
-    if cfg.pos_emb == "sincos":                 # prefill only, as in JAX
-        x = x + L.sincos_pos_emb(S, cfg.d_model, x.dtype, x.device)[None]
+    """Full-sequence forward over ``batch`` (:func:`embed_inputs`); returns
+    (last-position logits (B, V), caches), or for an encoder (per-position
+    logits (B, S, V), None)."""
+    x, positions, prefix_len = embed_inputs(params, cfg, batch)
     shared = params.get("shared")
     prelude = []
     for i, kind in enumerate(cfg.prelude):
         x, c = _element_forward(params["prelude"][i], x, cfg, kind,
-                                positions)
+                                positions, prefix_len)
         prelude.append(c)
     caches = []
     for g in range(cfg.n_groups):
         group = []
         for pos, kind in enumerate(cfg.pattern):
             x, c = _element_forward(params["groups"][g][pos], x, cfg, kind,
-                                    positions)
+                                    positions, prefix_len)
             group.append(c)
         if shared is not None:
-            x, c = _shared_block_forward(shared, x, cfg, positions)
+            x, c = _shared_block_forward(shared, x, cfg, positions,
+                                         prefix_len)
             group.append(c)
         caches.append(group)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    if cfg.encoder_only:
+        return x @ _lm_head(params, cfg), None
     return x[:, -1] @ _lm_head(params, cfg), join_caches(prelude, caches)
 
 
@@ -426,6 +477,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     Returns (logits (B, V), new caches).  On the card the MX8 state and KV
     buffers are updated in place; always continue from the returned caches.
     """
+    check_decoder(cfg)
     positions = lengths
     x = _embed(params, cfg, tokens[:, None], positions[:, None])  # (B,1,d)
     shared = params.get("shared")
@@ -489,6 +541,7 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     :func:`decode_step`'s, so logits equal the dense path's over gathered
     pages.  Returns (logits (B, V), the views with re-stacked residuals).
     """
+    check_decoder(cfg)
     positions = lengths
     x = _embed(params, cfg, tokens[:, None], positions[:, None])  # (B,1,d)
     shared = params.get("shared")
@@ -639,6 +692,7 @@ def paged_spec_decode_step(params: Params, cfg: ModelConfig,
     ``commit_select`` restores per row.  A prelude's views and snapshots
     split off as :func:`join_caches` does (``G = 1`` each).
     """
+    check_decoder(cfg)
     B, n = tokens.shape
     positions = lengths[:, None] + torch.arange(
         n, dtype=lengths.dtype, device=lengths.device)[None]

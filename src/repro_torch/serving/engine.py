@@ -138,6 +138,23 @@ class _OpTrafficMeter:
 # ===========================================================================
 
 
+def refuse_unservable(cfg: ModelConfig) -> None:
+    """Raise for a model the engines cannot serve, as the JAX package's
+    cannot: an encoder has no decode step, and the engines prefill token
+    prompts only, so a frontend's embeddings (patches, audio frames) have
+    no way in.  Such models run at model level (``models.model.prefill``,
+    then ``decode_step`` for a decoder)."""
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no decode "
+                         "step to serve (run models.model.prefill)")
+    if cfg.frontend is not None:
+        raise ValueError(
+            f"{cfg.name} takes {cfg.frontend!r} embeddings, and the serving "
+            "engines prefill token prompts only, as the JAX package's do "
+            "(run models.model.prefill with the embeddings, then "
+            "decode_step)")
+
+
 class _EngineCore:
     """Request-lifecycle machinery both engines are rebased onto.
 
@@ -150,6 +167,7 @@ class _EngineCore:
     backend: str = "?"
 
     def __init__(self, cfg: ModelConfig, obs: Optional[Observability] = None):
+        refuse_unservable(cfg)
         self.cfg = cfg
         self.obs = obs if obs is not None else Observability()
         self.done: List[Request] = []

@@ -1331,3 +1331,217 @@ def test_xlstm_smoke_engine_launches_kernels_per_mlstm_layer(cuda, backend,
     assert KQ.mx_quantize.launches == n_mlstm * len(prompts)
     assert [c.launches for c in others] == [0] * len(others)
     assert seen["calls"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the last five configs' widths: smollm-360m (G = 3 at 64), yi-34b (G = 7)
+# and dbrx-132b (G = 6) at 128, paligemma-3b (G = 8 over one kv head at 256)
+# ---------------------------------------------------------------------------
+
+#: (H, KVH, d) of each model's attention
+NEW_WIDTHS = [(15, 5, 64), (56, 8, 128), (48, 8, 128), (8, 1, 256)]
+
+
+@pytest.mark.parametrize("H,KVH,d", NEW_WIDTHS)
+@pytest.mark.parametrize("lens", [(4, 127, 128, 129), (1025, 1154, 640, 8)])
+def test_new_widths_attention_kernels_vs_plain(cuda, H, KVH, d, lens):
+    """Kernels 2 and 3 (decode) and 6 and 5 (verify, Kq = 1 and 4: Kq * G =
+    12, 28, 24 and 32 rows a kv head) within rtol 2e-4, atol 2e-5 of their
+    plain versions; paged bitwise dense over the gathered pages; verify row
+    j bitwise kernels 2 and 3 at length len - (Kq - 1 - j)."""
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    G = H // KVH
+    q, K, V, bt, lengths = _spec_pools(cuda, lens, 4, G, d, seed=H + d,
+                                       n_stack=3, KVH=KVH)
+    group = 1
+    Kd, Vd = R.gather_pages(K, bt, group), R.gather_pages(V, bt, group)
+    q1 = q[:, 0].contiguous()
+    y2 = KA.mx_attention_decode(q1, Kd, Vd, lengths)
+    y3 = KP.mx_paged_attention_decode(q1, K, V, bt, group, lengths)
+    torch.testing.assert_close(y2, KA.plain(q1, Kd, Vd, lengths), rtol=2e-4,
+                               atol=2e-5)
+    torch.testing.assert_close(y3, KP.plain(q1, K, V, bt, group, lengths),
+                               rtol=2e-4, atol=2e-5)
+    assert torch.equal(y3, y2)
+    for Kq in (1, 4):
+        qk = q[:, :Kq].contiguous()
+        y5 = KV.mx_paged_spec_attention_decode(qk, K, V, bt, group, lengths)
+        y6 = KV.mx_spec_attention_decode(qk, Kd, Vd, lengths)
+        torch.testing.assert_close(y6, KV.plain(qk, Kd, Vd, lengths),
+                                   rtol=2e-4, atol=2e-5)
+        torch.testing.assert_close(
+            y5, KV.plain_paged(qk, K, V, bt, group, lengths), rtol=2e-4,
+            atol=2e-5)
+        assert torch.equal(y5, y6)
+        for j in range(Kq):
+            lj = lengths - (Kq - 1 - j)
+            qj = qk[:, j].contiguous()
+            assert torch.equal(y6[:, j],
+                               KA.mx_attention_decode(qj, Kd, Vd, lj))
+            assert torch.equal(y5[:, j], KP.mx_paged_attention_decode(
+                qj, K, V, bt, group, lj))
+
+
+def test_paligemma_block_fits_its_shared_memory(cuda):
+    """A decode block at paligemma-3b's widths holds 8 rows x 256 = 2048
+    accumulator items, and its verify pass of 32 rows runs as four such
+    blocks: 229,376 B of dynamic shared memory, under the 231,424 B a
+    block may opt into, one block an SM."""
+    for R in (8, 32):
+        assert KA.split_block_rows(R, 8, 256) == 8
+        KA.split_checked(R, 8, 256, 256, "paligemma")
+    assert KA.split_row_blocks(32, 8, 256) == 4
+    assert KA.split_smem_bytes(8, 256, 256) == 229_376
+    assert KA.split_smem_bytes(8, 256, 256) <= KA.SPLIT_MAX_SMEM
+    assert KA.split_blocks_per_sm(8, 8, 256, 256) == 1
+
+
+@pytest.mark.parametrize("KVH,d", [(5, 64), (8, 128), (1, 256)])
+@pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
+def test_new_widths_fused_appends_bitwise(cuda, KVH, d, rounding):
+    """The paged fused quantize-and-append (kernel 4) and the slot pool's
+    dense one at the new K/V widths, magnitudes 1, 1e-3, 1e-37 and 1e35:
+    every byte equal to its plain version's (and the paged one's to the
+    eager quantize + copy it replaced), nothing outside the slots moved."""
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_quant as KQ
+    for mag in APPEND_MAGS:
+        pools, rows, bt, lengths = _append_quant_case(cuda, KVH, d, 2, mag)
+        before = [p.clone() for p in pools]
+        plain = [p.clone() for p in pools]
+        eager = [p.clone() for p in pools]
+        KP.mx_paged_kv_append_quant(rows, pools, bt, 7, lengths, 0xFFFFFFFF,
+                                    rounding=rounding)
+        KP.plain_append_quant(rows, plain, bt, 7, lengths, 0xFFFFFFFF,
+                              rounding)
+        _eager_append(eager, rows, bt, 7, lengths, 0xFFFFFFFF, rounding)
+        torch.cuda.synchronize()
+        keep = torch.ones(pools[0].payload["mantissa"].shape[:3],
+                          dtype=torch.bool, device=cuda)
+        for b, n_b in enumerate(lengths.tolist()):
+            keep[bt[b, n_b // 128], 7, n_b % 128] = False
+        for a, p, e, b0 in zip(pools, plain, eager, before):
+            for f in ("mantissa", "exponent", "micro"):
+                assert torch.equal(a.payload[f], p.payload[f]), (f, mag)
+                assert torch.equal(a.payload[f], e.payload[f]), (f, mag)
+                assert torch.equal(a.payload[f][keep],
+                                   b0.payload[f][keep]), (f, mag)
+        for n in (1, 4):
+            caches, drows, dlens = _dense_append_case(cuda, KVH, d, 2, n,
+                                                      mag=mag)
+            dplain = [c.clone() for c in caches]
+            KQ.mx_kv_append_quant(drows, caches, dlens, 0xFFFFFFFF,
+                                  rounding=rounding)
+            KQ.plain_append(drows, dplain, dlens, 0xFFFFFFFF, rounding)
+            for c, p in zip(caches, dplain):
+                for f in p.payload:
+                    assert torch.equal(c.payload[f], p.payload[f]), (f, mag)
+
+
+@pytest.mark.parametrize("shape", [(1, 400, 5, 64), (1, 400, 8, 128),
+                                   (1, 400, 1, 256)])
+@pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
+def test_new_widths_prefill_quantizer_bitwise(cuda, shape, rounding):
+    """Kernel 7's two-stream launch at a prefill's K and V (smollm-360m,
+    yi-34b / dbrx-132b, paligemma-3b: 256 patches + 144 tokens), padded to
+    512 in the launch: bitwise its plain version."""
+    from repro_torch.kernels import mx_quant as KQ
+    g = torch.Generator(device=cuda).manual_seed(shape[-1] + shape[2])
+    xs = [_spread(shape, g), _spread(shape, g)]
+    got = KQ.mx_quantize_streams(xs, [5, 0xFFFFFFFF], rounding=rounding,
+                                 pad_to=512)
+    want = KQ.plain_streams(xs, [5, 0xFFFFFFFF], rounding, 512)
+    for q, p in zip(got, want):
+        for f in p.payload:
+            assert torch.equal(q.payload[f], p.payload[f]), f
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "yi-34b", "dbrx-132b"])
+@pytest.mark.parametrize("backend", ["slots", "paged"])
+def test_new_configs_smoke_engines_launch_per_layer(cuda, arch, backend):
+    """The three new served configs at smoke size on the card: the
+    attention kernel of the pool once per layer a decode step, its fused
+    append once per layer, kernel 7 once per layer a prefill; the greedy
+    streams at round to nearest equal the plain ops' (``torch`` backend)."""
+    from repro_torch import ops as OPS
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_quant as KQ
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import Engine, ServeConfig
+    base = get_smoke_config(arch)
+    params = M.init_model(base, torch.Generator(device=cuda).manual_seed(0),
+                          device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, base.vocab_size, n) for n in (9, 40, 17)]
+    sc = (ServeConfig(backend="slots", batch=2, cache_capacity=256)
+          if backend == "slots" else ServeConfig(batch=2, n_pages=4,
+                                                 prefill_chunk=64))
+    decode, append = ((KA.mx_attention_decode, KQ.mx_kv_append_quant)
+                      if backend == "slots" else
+                      (KP.mx_paged_attention_decode,
+                       KP.mx_paged_kv_append_quant))
+    outs = []
+    for be in ("cuda", "torch"):
+        cfg = base.with_(state_quant=OPS.StateQuantConfig("mx8", "nearest",
+                                                          be))
+        eng = Engine(params, cfg, sc)
+        hs = [eng.submit(p, max_new_tokens=5) for p in prompts]
+        decode.launches = append.launches = KQ.mx_quantize.launches = 0
+        eng.run()
+        torch.cuda.synchronize()
+        steps = eng.engine.step_count
+        assert all(h.status == "done" and len(h.output) == 5 for h in hs)
+        on = cfg.n_layers if be == "cuda" else 0
+        assert (decode.launches, append.launches) == (on * steps,
+                                                      on * steps)
+        assert KQ.mx_quantize.launches == on * len(prompts)
+        outs.append([h.output for h in hs])
+    print(arch, backend, "kernels vs plain ops greedy streams equal:",
+          outs[0] == outs[1])
+
+
+def test_paligemma_smoke_prefix_decode_on_card(cuda):
+    """paligemma smoke at model level on the card: patches + tokens
+    through ``prefill`` (kernel 7 once per layer), then ``decode_step``s
+    (kernel 2 and the dense append once per layer a step); the first
+    step's logits within rtol 1e-3 of the plain ops' on the same prefill."""
+    from repro_torch import ops as OPS
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import mx_quant as KQ
+    from repro_torch.models import model as M
+    base = get_smoke_config("paligemma-3b")
+    params = M.init_model(base, torch.Generator(device=cuda).manual_seed(0),
+                          device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"patches": torch.randn((2, base.prefix_len, base.frontend_dim),
+                                    generator=g, device=cuda),
+             "tokens": torch.randint(0, base.vocab_size, (2, 24),
+                                     generator=g, device=cuda)}
+    S = base.prefix_len + 24
+    first = []
+    for be in ("cuda", "torch"):
+        cfg = base.with_(state_quant=OPS.StateQuantConfig("mx8", "nearest",
+                                                          be))
+        KQ.mx_quantize.launches = KA.mx_attention_decode.launches = 0
+        KQ.mx_kv_append_quant.launches = 0
+        logits, caches = M.prefill(params, cfg, batch)
+        t = logits.argmax(-1)
+        lens = torch.full((2,), S, dtype=torch.int32, device=cuda)
+        steps = []
+        for i in range(3):
+            lg, caches = M.decode_step(params, cfg, t, caches, lens + i,
+                                       seed=i + 1)
+            steps.append(lg)
+            t = lg.argmax(-1)
+        torch.cuda.synchronize()
+        on = cfg.n_layers if be == "cuda" else 0
+        assert KQ.mx_quantize.launches == on
+        assert KA.mx_attention_decode.launches == 3 * on
+        assert KQ.mx_kv_append_quant.launches == 3 * on
+        first.append(steps[0])
+    a, b = first
+    assert bool(torch.isfinite(a).all())
+    assert bool(((a - b).abs() <= 1e-3 * (b.abs() + b.abs().max())).all())

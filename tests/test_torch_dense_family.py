@@ -444,15 +444,17 @@ def test_configs_match_jax_field_for_field(arch):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(frontend="patch", frontend_dim=64), "frontends"),
-    (dict(prefix_len=4), "prefixes"),
-    (dict(encoder_only=True), "encoders"),
-    (dict(causal=False), "causal"),
-    (dict(ffn_kind="squared_relu"), "unknown"),
-    (dict(norm_kind="batchnorm"), "unknown"),
-    (dict(pos_emb="alibi"), "unknown"),
+    pytest.param(dict(frontend="video", frontend_dim=64), "frontends",
+                 id="over0-frontends"),
+    pytest.param(dict(ffn_kind="squared_relu"), "unknown",
+                 id="over4-unknown"),
+    pytest.param(dict(norm_kind="batchnorm"), "unknown", id="over5-unknown"),
+    pytest.param(dict(pos_emb="alibi"), "unknown", id="over6-unknown"),
 ])
 def test_check_supported_still_refuses(over, match):
+    """Frontends (patch, audio frames), prefixes, encoders and non-causal
+    attention are ported (``tests/test_torch_frontends.py``); an unknown
+    frontend, FFN, norm or position kind is still refused."""
     with pytest.raises(NotImplementedError, match=match):
         TM.check_supported(t_smoke("opt-6.7b").with_(**over))
 
