@@ -28,7 +28,11 @@ checks that every decode step
 went through the kernels of its path (the slot pool's appends through the
 fused dense quantize-and-append), and every prefill through the MX8
 quantizer (kernel 7, one launch for a layer's K and V), and that no
-decode, verify or prefill step ran the plain MX8 quantizer on the card.
+decode, verify or prefill step ran the plain MX8 quantizer on the card;
+and it drives the paged engine's memory hierarchy and fault paths at full
+width: the host tier in pinned memory, the prefetch on a side stream, the
+radix prefix store (warm and cold hits through the same kernels) and the
+resilience layer.
 Phases, in the order they run:
 
   1. device   2. build   3. exact powers of two   4. state-update kernel
@@ -71,7 +75,17 @@ Phases, in the order they run:
   the reference check by depth)   49. hubert-xlarge's encoder prefill
   50-52. yi-34b, the three paths   53-55. dbrx-132b, the three paths
   (greedy exactness at batch 1: MoE capacity couples a verify step's
-  tokens)   8. kernels line
+  tokens)   56-58, 61 (on zamba2-2.7b's weights, after phase 14): 56.
+  the paged pool's tier moves (a page and a slab row to pinned host
+  memory and back, bitwise, timed beside the pageable path; a prefetch
+  on the side stream)   57. the radix prefix store (requests behind one
+  256-token system prompt, with and without the store, at both roundings;
+  a hit with speculation)   58. a cold hit (pages demoted to the host
+  tier, promoted), phase 11's spills, a prefetch resume and its overlap
+  with decode (torch.profiler)   61. fault plans (chaos under preemption,
+  a corrupt spill blob, nan, slow step) with the sanitizer on   59. the
+  prefix path on yi-9b (after phase 35)   60. on gla-2.7b (after phase
+  25)   8. kernels line
 
 Any failure exits non-zero; with no card it fails (it never falls back to
 the CPU).  The last three lines of standard output are the kernels' JSON
@@ -2419,9 +2433,10 @@ def _counts():
 def _serve_counted(eng, cfg, prompts, max_new, want, per_prefill, label):
     """Serve ``prompts`` with every launch counter reset just before and
     read just after; ``want`` maps counter -> launches per decode step,
-    ``per_prefill`` is kernel 7's launches per request prefill; every other
-    counter must stay 0, and so must the plain MX8 quantizer's calls on the
-    card inside decode, verify and prefill steps."""
+    ``per_prefill`` is kernel 7's launches per request prefill (a prefix-
+    store hit prefills nothing); every other counter must stay 0, and so
+    must the plain MX8 quantizer's calls on the card inside decode, verify
+    and prefill steps."""
     import torch
     torch.cuda.reset_peak_memory_stats()
     _counts_reset()
@@ -2442,11 +2457,11 @@ def _serve_counted(eng, cfg, prompts, max_new, want, per_prefill, label):
               f"{label} request {h.rid}: {h.status} with {len(h.output)}")
         check(all(0 <= t < cfg.vocab_size for t in h.output),
               f"{label} request {h.rid}: token out of range")
-    expect = {k: want.get(k, 0) * steps for k in n}
-    expect["k7"] = per_prefill * len(prompts)
-    check(steps > 0 and n == expect, f"{label} launches over {steps} steps "
-          f"and {len(prompts)} prefills: {n}, want {expect}")
     st = eng.stats()
+    expect = {k: want.get(k, 0) * steps for k in n}
+    expect["k7"] = per_prefill * int(len(prompts) - st.get("prefix_hits", 0))
+    check(steps > 0 and n == expect, f"{label} launches over {steps} steps "
+          f"and {len(prompts)} requests: {n}, want {expect}")
     # outputs, not the handles: a handle keeps its engine (and the model's
     # weights) alive
     return dict(outputs=[h.output for h in handles], n=n, steps=steps,
@@ -2474,13 +2489,14 @@ def _gla_model(arch):
     return cfg, params, info
 
 
-def phase_gla(init):
+def phase_gla(init, extra=None):
     """gla-2.7b at full width and all 32 layers through the slot pool (23),
     the paged pool (24; paged logits bitwise the dense-gather path's on a
     fresh pool first) and the paged pool with n-gram speculation (25).
     Every decode step launches kernel 1 once per layer (dense on the slot
     pool, slab mode on the paged pool; Kq times per verify step), every
-    request's prefill kernel 7 once per layer, and nothing else."""
+    request's prefill kernel 7 once per layer, and nothing else.
+    ``extra(params, cfg)`` runs last, on the same weights."""
     import numpy as np
     import torch
     from repro_torch.serving.api import Engine, ServeConfig
@@ -2537,7 +2553,10 @@ def phase_gla(init):
           vs_phase_24_other_sr_seeds="equal" if first is None else
           f"agreement {agree:.3f}, first difference at token {first}")
     spec["prof"] = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 25)
-    del eng, params
+    del eng
+    if extra is not None:
+        extra(params, cfg)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return dict(slot=slot, paged=paged, spec=spec)
@@ -3157,7 +3176,7 @@ def _verify_invariance(params, cfg):
     return out
 
 
-def phase_dense(arch, w):
+def phase_dense(arch, w, extra=None):
     """``arch`` (opt-6.7b or yi-9b at full width and full depth; since
     phase 45 smollm-360m, yi-34b and dbrx-132b at full width, ``w["layers"]``
     deep) through the slot pool (phase n), the paged pool (n + 1; paged
@@ -3175,7 +3194,8 @@ def phase_dense(arch, w):
     verify-vs-sequential check.  An MoE model routes a verify step's B * Kq
     tokens together where a plain step routes B, and expert capacity
     couples them: its pool-level check at batch 4 only reports, and its
-    greedy exactness runs at batch 1, where no expert can overflow."""
+    greedy exactness runs at batch 1, where no expert can overflow.
+    ``extra(params, cfg)`` runs last, on the same weights."""
     import numpy as np
     import torch
     from repro_torch.models import model as M
@@ -3244,6 +3264,8 @@ def phase_dense(arch, w):
     _greedy_exactness(params, cfg, prompts, invariant, n=n + 2,
                       max_new=max_new,
                       paged=dict(DENSE_PAGED, batch=1) if moe else DENSE_PAGED)
+    if extra is not None:
+        extra(params, cfg)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3964,6 +3986,653 @@ def phase_hubert():
     return dict(prefill_s=prefill_s, logits=want)
 
 
+# ---------------------------------------------------------------------------
+# the paged engine's memory hierarchy and fault paths: the tier moves
+# (pinned host memory, the prefetch side stream), the radix prefix store,
+# cold hits, preemption with prefetch, fault plans (phases 56-61)
+# ---------------------------------------------------------------------------
+
+#: the host link's nominal rate, one direction: PCIe Gen5 x16
+HOST_LINK_BYTES_PER_S = 64e9
+#: the prefix path (phases 57, 59, 60): requests behind one 256-token
+#: system prompt (two full pages, one prefill chunk), seeded tails of
+#: 16-150 tokens, 16 new tokens each
+PREFIX = dict(batch=4, n_pages=17, prefill_chunk=256, prefix_store_pages=8)
+PREFIX_SYS = 256
+PREFIX_MAX_NEW = 16
+#: the preempted request of phase 58 (the JAX tier test's pattern: a long
+#: request preempted by an urgent one at batch 1) and phase 61's chaos plan
+PREEMPT = dict(batch=1, n_pages=9, n_slabs=5, prefill_chunk=512)
+CHAOS = ("alloc:p=0.15;host_pin:p=0.5;blob_corrupt:p=0.3;"
+         "prefetch_commit:p=0.5;nan:p=0.03;slow_step:p=0.2,ms=5")
+
+
+def _nearest(cfg):
+    from repro_torch import ops as OPS
+    return cfg.with_(state_quant=OPS.StateQuantConfig("mx8", "nearest",
+                                                      "cuda"))
+
+
+def _random_bytes(pools, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for p in pools:
+        b = p.view(torch.uint8)
+        b.copy_(torch.randint(0, 256, b.shape, generator=g, device="cuda",
+                              dtype=torch.uint8))
+
+
+def _blob_mb(blob):
+    return sum(t.numel() * t.element_size() for t in blob) / 1e6
+
+
+def _median_ms(fn, n=10, warmup=2):
+    """Median host time of ``fn`` (which ends in a synchronize), ms."""
+    for _ in range(warmup):
+        fn()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[n // 2]
+
+
+def _trace_overlap(prof):
+    """A profiler window's side-stream work against the other streams'
+    kernels.  The prefetch's stream is the one of its pinned host-to-device
+    copies; its span is the union of that stream's copies and kernels (the
+    scatter).  Returns (stream, other streams, copy bytes, span us,
+    overlapped us)."""
+    import os
+    path = ROOT / "build" / "prefetch_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    try:
+        events = json.loads(path.read_text())["traceEvents"]
+    finally:
+        os.remove(path)
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset")]
+    for e in dev:
+        e.setdefault("args", {})
+    check(bool(dev), "prefetch profile: no device events in the trace")
+    h2d = [e for e in dev if e["cat"] == "gpu_memcpy"
+           and "HtoD" in e["name"] and "Pinned" in e["name"]
+           and e["args"].get("bytes", 0) >= 1 << 20]
+    check(bool(h2d), "prefetch profile: no pinned host-to-device copy")
+    side = h2d[0]["args"]["stream"]
+
+    def union(ivs):
+        out = []
+        for a, b in sorted(ivs):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    mine = union([(e["ts"], e["ts"] + e["dur"]) for e in dev
+                  if e["args"].get("stream") == side])
+    other = union([(e["ts"], e["ts"] + e["dur"]) for e in dev
+                   if e["cat"] == "kernel"
+                   and e["args"].get("stream") != side])
+    span = sum(b - a for a, b in mine)
+    lap = sum(max(0.0, min(b, d) - max(a, c))
+              for a, b in mine for c, d in other)
+    streams = sorted({e["args"].get("stream") for e in dev
+                      if e["cat"] == "kernel"} - {side})
+    return (side, streams, sum(e["args"]["bytes"] for e in h2d
+                               if e["args"]["stream"] == side), span, lap)
+
+
+def phase_tier_moves(cfg, params):
+    """Phase 56: the tier's units at zamba2-2.7b's full width.  A page (6
+    leaves) and a slab row (30 leaves) go to pinned host tensors
+    (``non_blocking`` copies waited on by an event before the checksum)
+    and back into other ids, byte for byte, the checksum that of a
+    synchronous copy; each is timed both ways beside the pageable
+    ``.to("cpu")`` path it replaces and a bound of its bytes over the host
+    link's nominal rate; a pinned allocation cold and from the caching
+    host allocator.  Then a request spilled and staged back by a prefetch
+    issued behind a busy stream: the copy runs on the pool's side stream,
+    waits for the current one, and a decode step launched right after the
+    commit gives the logits it gave before the spill, bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.core.paged import pages_for
+    from repro_torch.models import model as M
+    from repro_torch.serving.memory import TieredStatePool
+    from repro_torch.serving.memory.layout import host_copy
+    from repro_torch.serving.resilience import crc_blob
+    pool = TieredStatePool(cfg, n_pages=6, n_slabs=3, device="cuda")
+    paging = pool.paging
+    _random_bytes(pool.pools, 56)
+    before = [p.view(torch.uint8).clone() for p in pool.pools]
+    page_ids = torch.tensor([2], device="cuda")
+    units = {"page": (lambda: paging.extract_pages(pool.pools, page_ids),
+                      lambda blob: paging.insert_pages(
+                          pool.pools, blob, torch.tensor([4],
+                                                         device="cuda")),
+                      pool.page_nbytes),
+             "slab": (lambda: paging.extract_slab(pool.pools, 1),
+                      lambda blob: paging.insert_slab(pool.pools, blob, 2),
+                      pool.slab_nbytes)}
+    t0 = time.perf_counter()
+    host_copy(units["page"][0]())                      # first pinned alloc
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    rows = {}
+    for name, (extract, insert, nbytes) in units.items():
+        dev = extract()
+        pinned = host_copy(dev)
+        check(all(t.is_pinned() for t in pinned),
+              f"{name}: a blob tensor is not pinned")
+        check(crc_blob(pinned) == crc_blob([t.cpu() for t in dev]),
+              f"{name}: the pinned copy's checksum is not the synchronous "
+              "copy's (a copy read before it landed)")
+        check(sum(t.numel() * t.element_size() for t in pinned) == nbytes,
+              f"{name}: {nbytes} B expected")
+        insert(pinned)
+        torch.cuda.synchronize()
+        pageable = [t.to("cpu", copy=True) for t in dev]
+
+        def d2h_pageable():
+            [t.to("cpu", copy=True) for t in extract()]
+
+        def h2d(blob):
+            insert(blob)
+            torch.cuda.synchronize()
+        ms = dict(d2h=_median_ms(lambda: host_copy(extract())),
+                  d2h_pageable=_median_ms(d2h_pageable),
+                  h2d=_median_ms(lambda: h2d(pinned)),
+                  h2d_pageable=_median_ms(lambda: h2d(pageable)))
+        crc_ms = _median_ms(lambda: crc_blob(pinned), n=5)
+        bound = nbytes / HOST_LINK_BYTES_PER_S * 1e3
+        rows[name] = dict(bytes=nbytes, leaves=len(pinned), bound_ms=bound,
+                          crc_ms=crc_ms, **ms)
+        phase(56, f"tier move, one {name}", bytes=nbytes, leaves=len(pinned),
+              **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()},
+              **{f"{k}_GB_per_s": f"{nbytes / v / 1e6:.2f}"
+                 for k, v in ms.items()},
+              bound_ms=f"{bound:.4f}", round_trip="bitwise",
+              crc="matches the synchronous copy",
+              crc_host_ms=f"{crc_ms:.3f}")
+    after = [p.view(torch.uint8) for p in pool.pools]
+    for a, b, spec in zip(after, before, paging.specs):
+        same = (torch.equal(a[4], b[2]) if spec.kind == "page"
+                else torch.equal(a[2], b[1]))
+        check(same, f"round trip changed bytes of {spec.path}")
+    # the caching host allocator keeps freed pinned blocks by power-of-two
+    # size class: a class no blob has used yet pays cudaHostAlloc, a
+    # second allocation in it is served from the cache
+    nb = 3 * pool.slab_nbytes
+    t0 = time.perf_counter()
+    fresh = torch.empty(nb, dtype=torch.uint8, pin_memory=True)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    del fresh
+    t0 = time.perf_counter()
+    again = torch.empty(nb, dtype=torch.uint8, pin_memory=True)
+    cached_ms = (time.perf_counter() - t0) * 1e3
+    del again
+    phase(56, "pinned allocation", first_page_copy_ms=f"{cold_ms:.3f}",
+          new_size_class_MB=f"{nb / 1e6:.1f}", new_size_class_ms=(
+              f"{first_ms:.3f}"),
+          from_caching_host_allocator_ms=f"{cached_ms:.4f}")
+
+    del pool
+    gc.collect()
+
+    # a spilled request staged back on the side stream, behind a busy one
+    # (a fresh pool: the random bytes above are no valid MX8 state)
+    pool = TieredStatePool(cfg, n_pages=6, n_slabs=3, device="cuda")
+    rng = np.random.default_rng(56)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, 300),
+                             device="cuda")[None]
+    logits, row = M.prefill(params, cfg, {"tokens": prompt})
+    check(pool.register(1, pages_for(300)), "no pages for the prefill")
+    pool.insert_prefill(1, row)
+    tok = np.array([int(logits[0].argmax())], np.int64)
+    lens = np.array([300], np.int32)
+    snap = [p.clone() for p in pool.pools]
+    ref = pool.decode(params, [1], tok, lens, seed=5600).clone()
+    for p, s_ in zip(pool.pools, snap):
+        p.copy_(s_)
+    del snap
+    sp = pool.spill(1, 300)
+    check(all(t.is_pinned() for t in sp.blob), "spill blob not pinned")
+    torch.cuda._sleep(1_000_000_000)           # ~0.5 s of spin
+    check(pool.prefetch_begin(1, sp), "prefetch refused")
+    st = pool._staged[1]
+    side = pool.copy_stream.cuda_stream != torch.cuda.current_stream(
+        ).cuda_stream
+    waited = not st.done.query()
+    check(side and waited, f"prefetch copy: side stream {side}, waits on "
+          f"the busy current stream {waited}")
+    check(pool.prefetch_commit(1), "commit failed")
+    got = pool.decode(params, [1], tok, lens, seed=5600)
+    check(torch.equal(got, ref), "decode after prefetch_commit differs "
+          f"from before the spill (max abs {float((got - ref).abs().max())})")
+    pool.release(1)
+    phase(56, "prefetch on the side stream", stream="side (not the decode "
+          "step's)", waits_on_busy_current_stream=waited,
+          decode_after_commit="bitwise the logits before the spill",
+          staged_MB=f"{_blob_mb(sp.blob):.2f}")
+    del pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rows=rows, cold_ms=cold_ms, first_ms=first_ms,
+                cached_ms=cached_ms)
+
+
+def _prefix_prompts(cfg, seed, n=6):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sysp = rng.integers(0, cfg.vocab_size, PREFIX_SYS)
+    tails = rng.integers(16, 151, n)
+    return sysp, [np.concatenate([sysp, rng.integers(0, cfg.vocab_size, t)])
+                  for t in tails]
+
+
+def phase_prefix(params, cfg, n, want, roundings=("nearest", "stochastic"),
+                 requests=6):
+    """Phases 57, 59, 60: ``requests`` requests behind one 256-token system
+    prompt through the paged pool with the prefix store off and on, at each
+    rounding: the store's hits decode their un-cached tails through the
+    kernels of the paged step (``want`` a step; the plain MX8 quantizer
+    never), and prefill nothing (kernel 7 launches only for misses).  At
+    round to nearest the streams with the store equal those without; at
+    stochastic rounding a plain step seeds its rounding with its step
+    count, so the stored pages were rounded at other steps and the
+    agreement is reported.  Returns the round-to-nearest engines (store
+    on, store off) and the runs."""
+    from repro_torch.serving.api import Engine, ServeConfig
+    sysp, prompts = _prefix_prompts(cfg, n, requests)
+    per_prefill = _k7_per_prefill(cfg)
+    runs, engines = {}, {}
+    for rounding in roundings:
+        rcfg = _nearest(cfg) if rounding == "nearest" else cfg
+        for cache in (False, True):
+            eng = Engine(params, rcfg, ServeConfig(**PREFIX,
+                                                   prefix_cache=cache))
+            r = _serve_counted(eng, cfg, prompts, PREFIX_MAX_NEW, want,
+                               per_prefill, f"{cfg.name} prefix "
+                               f"{rounding} cache={cache}")
+            runs[rounding, cache] = r
+            if rounding == "nearest":
+                engines[cache] = eng
+            else:
+                del eng
+        off, on = runs[rounding, False], runs[rounding, True]
+        so, sn = off["stats"], on["stats"]
+        agree, first = _agreement(off["outputs"], on["outputs"])
+        if rounding == "nearest":
+            check(first is None, f"{cfg.name}: streams with the prefix "
+                  f"store differ at token {first} (round to nearest)")
+        check(sn["prefix_hits"] > 0 and sn["prefill_tokens"]
+              < so["prefill_tokens"], f"{cfg.name}: prefix store unused "
+              f"({sn['prefix_hits']} hits)")
+        phase(n, f"{cfg.name} prefix store, {rounding}",
+              requests=len(prompts), system_prompt=PREFIX_SYS,
+              tails=[len(p) - PREFIX_SYS for p in prompts],
+              steps=f"{on['steps']} vs {off['steps']} without",
+              prefix_hits=int(sn["prefix_hits"]),
+              prefix_hit_tokens=int(sn["prefix_hit_tokens"]),
+              prefill_tokens=f"{int(sn['prefill_tokens'])} vs "
+              f"{int(so['prefill_tokens'])}",
+              k7_launches=f"{on['n']['k7']} vs {off['n']['k7']}",
+              p50_ttft_ms=f"{sn['p50_ttft_s'] * 1e3:.3f} vs "
+              f"{so['p50_ttft_s'] * 1e3:.3f}",
+              mean_ttft_ms=f"{sn['mean_ttft_s'] * 1e3:.3f} vs "
+              f"{so['mean_ttft_s'] * 1e3:.3f}",
+              tokens_per_s=f"{sn['tokens_per_s']:.2f} vs "
+              f"{so['tokens_per_s']:.2f}",
+              p50_step_ms=f"{sn['p50_step_s'] * 1e3:.3f} vs "
+              f"{so['p50_step_s'] * 1e3:.3f}",
+              store_pages=int(sn["prefix_store_pages"]),
+              host_MB=f"{sn['host_bytes'] / 1e6:.2f}",
+              plain_quantizer_calls_in_steps=on["plain_quant"],
+              streams="equal" if first is None else
+              f"agreement {agree:.3f}, first difference at token {first}")
+    return engines, runs, sysp
+
+
+def _count_window(fn, label):
+    """Run ``fn`` with the launch counters and the plain-quantizer watcher
+    reset just before; returns the counts just after."""
+    import torch
+    _counts_reset()
+    PLAIN_QUANT["calls"] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    n = _counts()
+    check(PLAIN_QUANT["calls"] == 0, f"{label}: the plain MX8 quantizer ran "
+          f"{PLAIN_QUANT['calls']} times on the card")
+    return out, n
+
+
+def phase_cold_and_prefetch(cfg, params, engines, sysp, paged, want):
+    """Phase 58.  A cold hit: every stored page demoted to pinned host
+    memory, then a request on the prefix promotes them (checksum-verified)
+    and its stream equals the one without the store.  Phase 11's FCFS run
+    at n_pages=9: its spills' bytes out and back.  A prefetch: a long
+    request preempted by an urgent one at batch 1 (priority), staged back
+    on the side stream while the urgent one decodes, committed; its stream
+    equals a never-preempted run, the tier keys read the bytes that moved,
+    and a profiler window over the staging step says how much of the copy
+    overlapped a decode kernel."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.api import Engine, ServeConfig
+    from repro_torch.serving.scheduler import SchedulerConfig
+    ncfg = _nearest(cfg)
+    on, off = engines[True], engines[False]
+    pool = on.engine.pool
+    st0 = on.stats()
+    demoted = pool.demote_all()
+    check(demoted >= 1 and pool.host.cached_bytes > 0,
+          f"demote_all moved {demoted} nodes")
+    rng = np.random.default_rng(58)
+    prompt = np.concatenate([sysp, rng.integers(0, cfg.vocab_size, 40)])
+    s0 = on.engine.step_count
+
+    def cold():
+        h = on.submit(prompt, max_new_tokens=PREFIX_MAX_NEW)
+        on.run()
+        return h
+    h, n = _count_window(cold, "cold hit")
+    steps = on.engine.step_count - s0
+    ref = off.submit(prompt, max_new_tokens=PREFIX_MAX_NEW).result()
+    st = on.stats()
+    check(h.status == "done" and h.output == ref.output,
+          "cold hit stream differs from the stream without the store")
+    check(st["prefix_hits"] == st0["prefix_hits"] + 1
+          and st["promote_bytes"] > st0["promote_bytes"],
+          "the cold request did not hit / promote")
+    expect = {k: want.get(k, 0) * steps for k in n}
+    expect["k7"] = 0
+    check(n == expect, f"cold hit launches {n}, want {expect}")
+    up = st["promote_bytes"] - st0["promote_bytes"]
+    down = st["demote_bytes"] - st0["demote_bytes"]
+    phase(58, "cold hit (pages demoted to pinned host, promoted)",
+          nodes_demoted=demoted, steps=steps,
+          promoted_MB=f"{up / 1e6:.2f}", demoted_MB=f"{down / 1e6:.2f}",
+          launches_per_step=",".join(f"{k}={v // steps}"
+                                     for k, v in n.items() if v),
+          k7_launches=n["k7"], plain_quantizer_calls_in_steps=0,
+          stream="equal to the stream without the store")
+    del engines[True], engines[False], on, off
+    gc.collect()
+
+    ps = paged["stats"]
+    check(ps["demote_bytes"] > 0 and ps["promote_bytes"]
+          == ps["demote_bytes"] and ps["host_bytes"] == 0
+          and ps["tier_misses"] >= 1,
+          f"phase 11's spills: demote {ps['demote_bytes']}, promote "
+          f"{ps['promote_bytes']}, host {ps['host_bytes']}")
+    phase(58, "phase 11's FCFS run at n_pages=9 (prefetch_window=2)",
+          preemptions=int(ps["preemptions"]),
+          demote_MB=f"{ps['demote_bytes'] / 1e6:.2f}",
+          promote_MB=f"{ps['promote_bytes'] / 1e6:.2f}",
+          host_bytes_after=int(ps["host_bytes"]),
+          tier_misses=int(ps["tier_misses"]),
+          prefetch_commits=int(ps["prefetch_commits"]),
+          why_no_prefetch="FCFS queues a spilled request first, and "
+          "admission resumes it in the step its pages free, before "
+          "prefetches are issued")
+
+    rng = np.random.default_rng(580)
+    prompt_b = rng.integers(0, cfg.vocab_size, 400)
+    prompt_a = rng.integers(0, cfg.vocab_size, 64)
+    scfg = ServeConfig(**PREEMPT, scheduler=SchedulerConfig(
+        policy="priority"))
+    base = Engine(params, ncfg, scfg)
+    ref_b = base.submit(prompt_b, max_new_tokens=8, priority=5).result()
+    del base
+    eng = Engine(params, ncfg, scfg)
+    pool = eng.engine.pool
+    moved = {"out": 0, "back": 0}
+    spill, begin = pool.spill, pool.prefetch_begin
+
+    def counted_spill(rid, length):
+        sp = spill(rid, length)
+        moved["out"] += sum(t.numel() * t.element_size() for t in sp.blob)
+        return sp
+    window = {"prof": None, "staged": False, "traces": []}
+
+    def profiled_begin(rid, sp, reserve=1):
+        if rid in pool._staged:
+            return begin(rid, sp, reserve)
+        if window["prof"] is None:
+            window["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])
+            window["prof"].__enter__()
+        ok = begin(rid, sp, reserve)
+        if ok:
+            window["staged"] = True
+            moved["back"] += sum(t.numel() * t.element_size()
+                                 for t in sp.blob)
+        return ok
+    pool.spill, pool.prefetch_begin = counted_spill, profiled_begin
+
+    def serve():
+        hb = eng.submit(prompt_b, max_new_tokens=8, priority=5)
+        while hb.status == "queued" and eng.step():
+            pass
+        eng.step()
+        ha = eng.submit(prompt_a, max_new_tokens=6, priority=0)
+        eng.engine._preempt(hb.rid)
+        while eng.step():
+            if window["prof"] is not None:
+                torch.cuda.synchronize()
+                window["prof"].__exit__(None, None, None)
+                if window["staged"]:
+                    window["traces"].append(_trace_overlap(window["prof"]))
+                window["prof"], window["staged"] = None, False
+        return ha, hb
+    s0 = eng.engine.step_count
+    (ha, hb), n = _count_window(serve, "prefetch resume")
+    steps = eng.engine.step_count - s0
+    st = eng.stats()
+    check(ha.status == hb.status == "done" and hb.output == ref_b.output,
+          "the prefetched request's stream differs from the never-"
+          "preempted run")
+    check(st["prefetch_commits"] >= 1 and st["preemptions"] >= 1,
+          f"no prefetch commit ({st['prefetch_commits']})")
+    check(st["demote_bytes"] == moved["out"] and st["promote_bytes"]
+          == moved["back"] == moved["out"] and st["host_bytes"] == 0,
+          f"tier bytes {st['demote_bytes']} / {st['promote_bytes']} / "
+          f"{st['host_bytes']}, moved {moved}")
+    expect = {k: want.get(k, 0) * steps for k in n}
+    expect["k7"] = 2 * _k7_per_prefill(cfg)
+    check(n == expect, f"prefetch run launches {n}, want {expect}")
+    check(bool(window["traces"]), "no profiled prefetch")
+    side, others, nbytes, span, lap = window["traces"][0]
+    check(others and side not in others, f"the prefetch copy ran on stream "
+          f"{side}, the decode kernels on {others}")
+    phase(58, "prefetch resume (priority, batch 1, n_pages=9)",
+          preemptions=int(st["preemptions"]),
+          prefetch_commits=int(st["prefetch_commits"]),
+          tier_hits=int(st["tier_hits"]),
+          demote_MB=f"{st['demote_bytes'] / 1e6:.2f}",
+          promote_MB=f"{st['promote_bytes'] / 1e6:.2f}",
+          host_bytes_after=int(st["host_bytes"]), steps=steps,
+          launches_per_step=",".join(f"{k}={v // steps}"
+                                     for k, v in n.items()
+                                     if v and k != "k7"),
+          k7_launches=n["k7"], plain_quantizer_calls_in_steps=0,
+          stream="equal to the never-preempted run")
+    phase(58, "prefetch overlap (torch.profiler, the staging step)",
+          copy_stream=side, decode_streams=others,
+          copied_MB=f"{nbytes / 1e6:.2f}", copy_span_us=f"{span:.1f}",
+          copy_GB_per_s=f"{nbytes / max(span, 1e-9) / 1e3:.2f}",
+          overlapped_us=f"{lap:.1f}",
+          overlapped_share=f"{lap / max(span, 1e-9):.3f}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(span=span, lap=lap, nbytes=nbytes)
+
+
+def phase_faults(cfg, params):
+    """Phase 61: the resilience layer at zamba2-2.7b's full width, with the
+    shadow-ledger sanitizer on.  A chaos plan over every site under
+    preempting FCFS traffic (4 usable pages): every request terminal, the
+    engine drained, the sanitizer silent.  A corrupt spill blob: detected
+    at resume, recovered by re-prefill, the stream equal to the never-
+    preempted run (round to nearest).  A ``nan`` fault quarantines exactly
+    its row (the others' streams equal a fault-free run) and a
+    ``slow_step`` stall trips the watchdog."""
+    import os
+    import numpy as np
+    import torch
+    from repro_torch.serving.api import Engine, ServeConfig
+    from repro_torch.serving.engine import TERMINAL_STATUSES
+    from repro_torch.serving.scheduler import SchedulerConfig
+    ncfg = _nearest(cfg)
+    old = os.environ.get("REPRO_SANITIZE")
+    os.environ["REPRO_SANITIZE"] = "1"
+    try:
+        rng = np.random.default_rng(61)
+        eng = Engine(params, ncfg, ServeConfig(
+            batch=3, n_pages=5, prefill_chunk=128, fault_plan=CHAOS,
+            step_budget_s=0.5))
+        check(eng.engine.pool.placement._shadow is not None,
+              "the sanitizer is off")
+        hs = []
+        for L in rng.integers(118, 128, 6):     # each grows a second page
+            hs.append(eng.submit(rng.integers(0, cfg.vocab_size, L),
+                                 max_new_tokens=8))
+            eng.step()
+        eng.run()
+        statuses = [h.status for h in hs]
+        check(all(s in TERMINAL_STATUSES for s in statuses)
+              and not eng.engine.has_work()
+              and eng.engine.pool.host.pinned_bytes == 0,
+              f"chaos: statuses {statuses}, work left "
+              f"{eng.engine.has_work()}")
+        m = eng.obs.metrics
+        injected = dict(eng.engine.faults.injected)
+        phase(61, "chaos plan", plan=CHAOS, statuses=statuses,
+              injected=injected, preemptions=int(eng.stats()["preemptions"]),
+              recovered=int(m.family_total("faults_recovered_total")),
+              retries=int(m.family_total("fault_retries_total")),
+              degradations=int(m.family_total("degradations_total")),
+              quarantines=int(m.value("quarantines_total")),
+              blob_corruptions=int(m.value("blob_corruptions_total")),
+              watchdog_trips=eng.engine.watchdog.trips,
+              sanitizer="silent")
+        del eng
+
+        rng = np.random.default_rng(610)
+        prompt_b = rng.integers(0, cfg.vocab_size, 400)
+        prompt_a = rng.integers(0, cfg.vocab_size, 64)
+        sched = SchedulerConfig(policy="priority")
+        ref = Engine(params, ncfg, ServeConfig(**PREEMPT, scheduler=sched)
+                     ).submit(prompt_b, max_new_tokens=8, priority=5).result()
+        eng = Engine(params, ncfg, ServeConfig(
+            **PREEMPT, scheduler=sched, fault_plan="blob_corrupt:nth=1"))
+        hb = eng.submit(prompt_b, max_new_tokens=8, priority=5)
+        while hb.status == "queued" and eng.step():
+            pass
+        eng.step()
+        ha = eng.submit(prompt_a, max_new_tokens=6, priority=0)
+        eng.engine._preempt(hb.rid)
+        eng.run()
+        m = eng.obs.metrics
+        check(ha.status == hb.status == "done" and hb.output == ref.output
+              and m.value("blob_corruptions_total") == 1
+              and m.value("faults_recovered_total", site="blob_corrupt") == 1,
+              f"corrupt spill blob: {hb.status}, stream equal "
+              f"{hb.output == ref.output}, corruptions "
+              f"{m.value('blob_corruptions_total')}")
+        phase(61, "corrupt spill blob", detected="at resume",
+              recovered="re-prefill of prompt + generated tokens",
+              stream="equal to the never-preempted run",
+              prefill_tokens=int(eng.stats()["prefill_tokens"]))
+        del eng
+
+        rng = np.random.default_rng(611)
+        prompts = [rng.integers(0, cfg.vocab_size, L) for L in (64, 97, 120)]
+        outs = {}
+        for plan in (None, "nan:rid=1;slow_step:step=2,ms=400"):
+            eng = Engine(params, ncfg, ServeConfig(
+                batch=3, n_pages=9, fault_plan=plan,
+                step_budget_s=0.3 if plan else None))
+            hs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+            eng.run()
+            outs[plan] = [(h.status, h.output) for h in hs]
+            last = eng
+        m = last.obs.metrics
+        faulty, clean = outs[plan], outs[None]
+        check(faulty[1][0] == "failed" and faulty[0] == clean[0]
+              and faulty[2] == clean[2]
+              and m.value("quarantines_total") == 1,
+              f"nan: {[s for s, _ in faulty]}, other rows equal "
+              f"{faulty[0] == clean[0] and faulty[2] == clean[2]}")
+        check(last.engine.watchdog.trips >= 1, "the watchdog did not trip")
+        phase(61, "nan and slow_step", quarantined="exactly rid 1",
+              other_rows="equal to the fault-free run",
+              watchdog_trips=last.engine.watchdog.trips,
+              slowest_step_ms=f"{last.engine.watchdog.slowest_s * 1e3:.1f}")
+        del last, eng
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_SANITIZE", None)
+        else:
+            os.environ["REPRO_SANITIZE"] = old
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_prefix_other(params, cfg, n, want):
+    """Phase 59 (yi-9b at full width and depth: pure attention with grouped
+    queries) or 60 (gla-2.7b: no pages, so a hit is the state snapshot
+    alone): the prefix path of phase 57 at round to nearest, four
+    requests."""
+    engines, runs, _ = phase_prefix(params, cfg, n, want,
+                                    roundings=("nearest",), requests=4)
+    pool = engines[True].engine.pool
+    phase(n, f"{cfg.name} store units", page_bytes=pool.page_nbytes,
+          slab_bytes=pool.slab_nbytes,
+          hit="state snapshot alone" if pool.page_nbytes == 0
+          else "pages by reference" + (" + state snapshot"
+                                       if pool.slab_nbytes else ""))
+    engines.clear()
+    gc.collect()
+    return runs
+
+
+def phase_tiering(cfg, params, paged):
+    """Phases 56-58 and 61 on zamba2-2.7b's weights (phase 57: the prefix
+    path at both roundings; a prefix hit with speculation through kernel
+    5)."""
+    import numpy as np
+    from repro_torch.serving.api import Engine, ServeConfig
+    t0 = time.perf_counter()
+    moves = phase_tier_moves(cfg, params)
+    want = dict(k1s=54, k3_gqa=9, k4q=9)
+    engines, runs, sysp = phase_prefix(params, cfg, 57, want)
+    rng = np.random.default_rng(570)
+    prompts = [np.concatenate([sysp, rng.integers(0, cfg.vocab_size, t)])
+               for t in (16, 20)]
+    eng = Engine(params, _nearest(cfg), ServeConfig(
+        **dict(PREFIX, batch=2), prefix_cache=True, spec="ngram",
+        spec_k=SPEC_K))
+    spec = _serve_counted(eng, cfg, prompts, 8,
+                          dict(k1s=54 * KQ, k5_gqa=9, k4q=9 * KQ),
+                          _k7_per_prefill(cfg), "zamba2 prefix + ngram")
+    check(spec["stats"]["prefix_hits"] >= 1, "no prefix hit with speculation")
+    phase(57, "prefix hit with speculation (ngram)", **_fields(spec),
+          prefix_hits=int(spec["stats"]["prefix_hits"]))
+    del eng
+    over = phase_cold_and_prefetch(cfg, params, engines, sysp, paged, want)
+    phase_faults(cfg, params)
+    phase(61, "zamba2-2.7b tier and fault phases 56-58, 61",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    return dict(moves=moves, runs=runs, overlap=over)
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to chip_smoke.py; "
@@ -4001,6 +4670,7 @@ def main():
         slot = phase_main_path(cfg, params, init_s)
         paged = phase_paged_main_path(cfg, params, slot)
         spec = phase_spec_main_path(cfg, params, paged)
+        phase_tiering(cfg, params, paged)
         # zamba2's weights and pools go before deepseek's 53.2 GB arrive
         del params
         gc.collect()
@@ -4016,12 +4686,16 @@ def main():
         del ds_params
         gc.collect()
         torch.cuda.empty_cache()
-        gla = phase_gla(_gla_model("gla-2.7b"))
+        gla = phase_gla(_gla_model("gla-2.7b"), extra=lambda p, c:
+                        phase_prefix_other(p, c, 60, dict(k1s=32)))
         gla.update({arch: phase_gla_paged(arch, n)
                     for arch, n in (("retnet-2.7b", 26), ("hgrn2-2.7b", 27))})
         phase(30, "device memory before the dense family",
               allocated_GB=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
-        dense = {arch: phase_dense(arch, w) for arch, w in DENSE.items()}
+        dense = {arch: phase_dense(arch, w, extra=None if arch != "yi-9b"
+                                   else lambda p, c: phase_prefix_other(
+                                       p, c, 59, dict(k3_gqa=48, k4q=48)))
+                 for arch, w in DENSE.items()}
         gc.collect()
         torch.cuda.empty_cache()
         t_x = time.perf_counter()

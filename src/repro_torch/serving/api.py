@@ -20,9 +20,12 @@ they are sampled each ``step()``, exposes the terminal status and can
 parent through copy-on-write prefix sharing; :class:`Session` wraps that
 into multi-turn chat.  ``spec="ngram"`` or ``spec="model:<arch>"`` (paged
 backend) decodes speculatively: up to ``spec_k`` drafted tokens per row
-verified in one pass, greedy output the non-speculative stream.  The JAX
-package's prefix cache, host tier, fault injection and admission control
-options follow with their slices (ROADMAP.md).
+verified in one pass, greedy output the non-speculative stream.
+``prefix_cache=True`` (paged backend) adopts stored prompt pages across
+requests (the radix prefix store, pages demoted to pinned host memory under
+pressure); ``fault_plan`` (or ``REPRO_FAULTS``), ``nan_guard``,
+``max_queued``, ``request_timeout_s`` and ``step_budget_s`` drive the
+resilience layer of the paged engine.
 """
 from __future__ import annotations
 
@@ -61,6 +64,23 @@ class ServeConfig:
     sampling: SamplingConfig = SamplingConfig()
     scheduler: SchedulerConfig = SchedulerConfig()
     seed: int = 0
+    # --- tiered memory hierarchy (paged backend only) ---
+    prefix_cache: bool = False         # radix prefix store: requests that
+                                       # share a prompt prefix with earlier
+                                       # requests adopt its pages, no fork()
+    prefix_store_pages: int = 64       # store capacity in pages (LRU)
+    host_tier_bytes: Optional[int] = None  # host budget (None = unmetered)
+    prefetch_window: int = 2           # lookahead prefetch depth
+    # --- resilience / fault injection (paged backend only) ---
+    fault_plan: Optional[str] = None   # fault spec string (see
+                                       # serving/faults); REPRO_FAULTS env
+                                       # applies when unset
+    nan_guard: Optional[bool] = None   # post-step non-finite-logits guard
+                                       # (None = on iff faults active)
+    max_queued: Optional[int] = None   # admission control: queue-depth cap,
+                                       # excess submits end ``rejected``
+    request_timeout_s: Optional[float] = None  # max queue wait -> rejected
+    step_budget_s: Optional[float] = None      # watchdog wall-clock budget
     # --- speculative decoding (paged backend only) ---
     spec: Optional[str] = None         # draft source: "ngram" (self-draft)
                                        # or "model:<arch>" (small model)
@@ -71,10 +91,20 @@ class ServeConfig:
         if self.backend not in ("paged", "slots"):
             raise ValueError(f"backend must be 'paged' or 'slots', "
                              f"got {self.backend!r}")
+        if self.backend == "slots" and self.prefix_cache:
+            raise ValueError("prefix_cache needs the paged backend "
+                             "(page refcounts / block tables)")
         if self.backend == "slots" and self.spec is not None:
             raise ValueError("speculative decoding needs the paged backend "
                              "(the spec_verify step walks block tables and "
                              "rolls state slabs back)")
+        if self.backend == "slots":
+            for f in ("fault_plan", "nan_guard", "max_queued",
+                      "request_timeout_s", "step_budget_s"):
+                if getattr(self, f) is not None:
+                    raise ValueError(
+                        f"{f} needs the paged backend (the resilience "
+                        "layer lives in the paged engine / pool)")
 
     def engine_config(self):
         """The backend-specific config this ServeConfig lowers to."""
@@ -93,6 +123,15 @@ class ServeConfig:
             sampling=self.sampling,
             scheduler=self.scheduler,
             seed=self.seed,
+            prefix_cache=self.prefix_cache,
+            prefix_store_pages=self.prefix_store_pages,
+            host_tier_bytes=self.host_tier_bytes,
+            prefetch_window=self.prefetch_window,
+            fault_plan=self.fault_plan,
+            nan_guard=self.nan_guard,
+            max_queued=self.max_queued,
+            request_timeout_s=self.request_timeout_s,
+            step_budget_s=self.step_budget_s,
             spec=self.spec,
             spec_k=self.spec_k,
             spec_window=self.spec_window)
@@ -111,8 +150,13 @@ class RequestHandle:
         return self._req.rid
 
     @property
+    def request(self) -> Request:
+        return self._req
+
+    @property
     def status(self) -> str:
-        """queued | running | done | aborted | truncated | rejected."""
+        """queued | running | done | aborted | truncated | failed |
+        rejected."""
         return self._req.status
 
     @property

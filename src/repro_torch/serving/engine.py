@@ -16,18 +16,27 @@ a priority / deadline scheduler (``serving/scheduler``), prefill is
 chunked (the tail of a long prompt streams through the decode batch), the
 pool preempts by page eviction (victim pages spill to host bit-exactly,
 resume re-pins them), and finished requests can be **retained** as
-copy-on-write ``fork`` parents.  With ``spec`` set it decodes
-speculatively (``serving/spec``): a draft source proposes up to ``spec_k``
-tokens per row, one verify pass scores them all, and the pool rolls state
-back to the accepted prefix.  The JAX package's host tier, prefix store and
-fault hooks follow in later slices (ROADMAP.md).
+copy-on-write ``fork`` parents.  Its pool is the tiered pool
+(``serving/memory/tiered``): spill blobs are pinned in a host tier and come
+back through an async prefetch for the requests in the scheduler's
+lookahead window, and with ``prefix_cache`` a radix prefix store lets a
+request adopt the stored pages of an earlier request's prompt.  With
+``spec`` set it decodes speculatively (``serving/spec``): a draft source
+proposes up to ``spec_k`` tokens per row, one verify pass scores them all,
+and the pool rolls state back to the accepted prefix.  The resilience layer
+(``serving/faults``, ``serving/resilience``) injects planned faults at the
+pool's and the engine's sites and recovers from each: bounded retry and the
+degradation ladder at admission, re-prefill after a corrupt spill blob,
+quarantine of a row with non-finite logits, the step watchdog, and
+admission control (``max_queued``, ``request_timeout_s``).
 
 On the card every decode step of the paged engine launches the state-update
 kernel (slab mode) once per Mamba-2 layer and the paged attention and append
 kernels once per attention layer, and synchronizes with the host once, to
-read the sampled tokens.  A speculative step at ``n = spec_k + 1``
-positions launches the state update n times per Mamba-2 layer, the append n
-times and the paged verify kernel once per attention layer.
+read the sampled tokens (a second time when the non-finite guard is on).
+A speculative step at ``n = spec_k + 1`` positions launches the state update
+n times per Mamba-2 layer, the append n times and the paged verify kernel
+once per attention layer.
 """
 from __future__ import annotations
 
@@ -45,16 +54,19 @@ from repro_torch.kernels import _build
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import Observability
-from repro_torch.serving.memory import PagedStatePool, SpilledRequest
-from repro_torch.serving.resilience import retry_transient
+from repro_torch.serving.faults import FaultPlan
+from repro_torch.serving.memory import SpilledRequest, TieredStatePool
+from repro_torch.serving.resilience import (REPREFILL_CAP, BlobCorruption,
+                                            StepWatchdog, retry_transient)
 from repro_torch.serving.sampler import SamplingConfig, filtered_probs, sample
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 from repro_torch.serving.spec import KController, ModelDraft, NGramDraft
 
 #: terminal request statuses -- a request in one of these will never
 #: produce another token.  ``rejected``: the paged engine shed it before it
-#: ever decoded; ``failed`` is kept for the JAX schema (fault handling is a
-#: later slice).
+#: ever decoded (admission control, the ladder's last rung); ``failed``: a
+#: fault it could not recover from (non-finite logits, a spill blob corrupt
+#: past the re-prefill cap).
 TERMINAL_STATUSES = ("done", "aborted", "truncated", "failed", "rejected")
 
 
@@ -172,6 +184,7 @@ class _EngineCore:
         self.obs = obs if obs is not None else Observability()
         self.done: List[Request] = []
         self.step_count = 0
+        self.watchdog: Optional[StepWatchdog] = None
 
     # ------------- public lifecycle API -------------
 
@@ -336,8 +349,10 @@ class _EngineCore:
         """The step-time histogram, tagged ``compile="true"`` when the step
         paid for a kernel build (the port's twin of a JAX compile)."""
         compiled = "true" if _build.builds_done() > builds_before else "false"
-        self.obs.metrics.histogram("step_s", compile=compiled).observe(
-            time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        if self.watchdog is not None:
+            self.watchdog.observe(self.step_count, dt)
+        self.obs.metrics.histogram("step_s", compile=compiled).observe(dt)
 
 
 # ===========================================================================
@@ -486,6 +501,24 @@ class PagedEngineConfig:
     sampling: SamplingConfig = SamplingConfig()
     scheduler: SchedulerConfig = SchedulerConfig()
     seed: int = 0
+    # --- tiered memory hierarchy (serving/memory/tiered) ---
+    prefix_cache: bool = False        # radix prefix store: automatic
+                                      # cross-request CoW prefix sharing
+    prefix_store_pages: int = 64      # store capacity (LRU-evicted)
+    host_tier_bytes: Optional[int] = None  # host tier budget (None:
+                                           # unmetered)
+    prefetch_window: int = 2          # scheduler lookahead for async
+                                      # spill-resume / prefix prefetch
+    # --- resilience / fault injection (serving/faults, serving/resilience) ---
+    fault_plan: Optional[str] = None  # fault spec string; the REPRO_FAULTS
+                                      # env var applies when unset
+    nan_guard: Optional[bool] = None  # post-step non-finite-logits guard;
+                                      # None = enabled iff faults are active
+                                      # (the check costs one device sync)
+    max_queued: Optional[int] = None  # admission control: submits beyond
+                                      # this queue depth are ``rejected``
+    request_timeout_s: Optional[float] = None  # queued longer -> ``rejected``
+    step_budget_s: Optional[float] = None      # watchdog wall-clock budget
     # --- speculative decoding (serving/spec) ---
     spec: Optional[str] = None        # draft source: None (off), "ngram"
                                       # (self-drafting) or "model:<arch>"
@@ -501,6 +534,9 @@ class _Active:
     length: int                       # cached positions so far
     pending: List[int]                # prompt tokens not yet consumed
     cur_token: int                    # next token to feed once prompt is done
+    replayed: bool = False            # corruption-recovery re-prefill: the
+                                      # "prompt" includes generated tokens,
+                                      # so prefix-store inserts are skipped
 
 
 class PagedServingEngine(_EngineCore):
@@ -514,10 +550,12 @@ class PagedServingEngine(_EngineCore):
         self.params = params
         self.pcfg = pcfg
         self.device = M.params_device(params)
-        self.pool = PagedStatePool(
+        self.pool = TieredStatePool(
             cfg, n_pages=None if pcfg.byte_budget is not None else pcfg.n_pages,
             n_slabs=pcfg.n_slabs, byte_budget=pcfg.byte_budget,
-            device=self.device)
+            device=self.device, host_tier_bytes=pcfg.host_tier_bytes,
+            prefix_cache=pcfg.prefix_cache,
+            prefix_store_pages=pcfg.prefix_store_pages)
         self.pool.attach_obs(self.obs)
         self.sched = Scheduler(pcfg.scheduler)
         self.active: Dict[int, _Active] = {}
@@ -532,6 +570,16 @@ class PagedServingEngine(_EngineCore):
         self._occ: List[float] = []
         self._frag: List[float] = []
         self.last_traffic: Optional[np.ndarray] = None
+        # --- resilience wiring (all None / empty => zero overhead) ---
+        self.faults = FaultPlan.maybe(pcfg.fault_plan, seed=pcfg.seed)
+        self.pool.faults = self.faults
+        self.watchdog = StepWatchdog(pcfg.step_budget_s, obs=self.obs)
+        self._nan_guard = (pcfg.nan_guard if pcfg.nan_guard is not None
+                           else self.faults is not None)
+        #: rid -> full replay token stream (prompt + generated) for the
+        #: bounded re-prefill after a detected spill-blob corruption
+        self._replay: Dict[int, List[int]] = {}
+        self._reprefills: Dict[int, int] = {}
         #: rid -> consecutive failed admission attempts (degradation rung)
         self._admit_fails: Dict[int, int] = {}
         self._gen = torch.Generator(device=self.device).manual_seed(pcfg.seed)
@@ -584,13 +632,29 @@ class PagedServingEngine(_EngineCore):
                     "learned position table")
 
     def _enqueue(self, req: Request):
+        mq = self.pcfg.max_queued
+        if mq is not None and len(self.sched) >= mq:
+            # overload shedding at the door: better an immediate, explicit
+            # rejection than an unbounded queue nobody drains in time
+            self.obs.metrics.counter("degradations_total", rung="shed").inc()
+            self._finalize(req, "rejected",
+                           detail=f"queue full (max_queued={mq})")
+            return
         self.sched.push(req)
 
     def step(self) -> bool:
+        if self.faults is not None:
+            self.faults.set_step(self.step_count)
+        if self.pcfg.request_timeout_s is not None:
+            self._expire_queued()
         admitted = self._admit()
         if self.active:
             self._ensure_headroom()
         if self.active:
+            # stage prefetches *before* issuing decode: on the card the
+            # copies run on a side stream beside this step's kernels, so the
+            # next admission window's data lands while the step runs
+            self._issue_prefetches()
             self._decode_step()
         elif self.sched and not admitted:
             # queue non-empty but nothing fits and nothing runs: shed the
@@ -601,14 +665,27 @@ class PagedServingEngine(_EngineCore):
                        "fit the page budget)")
         return self.has_work()
 
+    def _expire_queued(self) -> None:
+        now = time.perf_counter()
+        budget = self.pcfg.request_timeout_s
+        for req in self.sched.requests():
+            if req.t_submit and now - req.t_submit > budget:
+                self.obs.metrics.counter("request_timeouts_total").inc()
+                self._drop_queued(
+                    req, "rejected",
+                    detail=f"queued longer than request_timeout_s={budget}")
+
     def _drop_queued(self, req: Request, status: str, detail: str) -> None:
         """Remove a not-yet-admitted request (queued or spilled) with full
-        cleanup: scheduler entry and spill blob."""
+        cleanup: scheduler entry, spill blob, staged prefetch, replay
+        context."""
         rid = req.rid
         self.sched.remove(rid)
         if rid in self.spilled:
             sp, _, _ = self.spilled.pop(rid)
-            self.pool.drop_spilled(sp)
+            self.pool.prefetch_cancel(rid)
+            self.pool.drop_spilled(sp, rid)
+        self._replay.pop(rid, None)
         self._admit_fails.pop(rid, None)
         self._finalize(req, status, detail=detail)
 
@@ -629,7 +706,8 @@ class PagedServingEngine(_EngineCore):
             return True
         if rid in self.spilled:
             sp, _, _ = self.spilled.pop(rid)
-            self.pool.drop_spilled(sp)
+            self.pool.prefetch_cancel(rid)
+            self.pool.drop_spilled(sp, rid)
             req = self.sched.remove(rid)
             assert req is not None, "spilled request must be in the heap"
             self._finalize(req, "aborted")
@@ -658,12 +736,24 @@ class PagedServingEngine(_EngineCore):
 
     def _admission_need(self, req: Request) -> int:
         """Pages admission must find free for ``req`` (plus one slab)."""
+        if req.rid in self._replay:
+            # corruption recovery re-prefills from the replay stream; the
+            # prefix store is bypassed entirely
+            return pages_for(
+                self._bucket_prefill_len(len(self._replay[req.rid])))
         if req.rid in self.spilled:
+            if self.pool.prefetch_ready(req.rid):
+                return 0            # staged: commit is O(1) bookkeeping
             return self.spilled[req.rid][0].pages_needed
         if req.parent_rid is not None:
             # CoW fork: at most the private tail-page copy
             return 1 if self.retained[req.parent_rid].length % PAGE_TOKENS \
                 else 0
+        nodes = self.pool.prefix_match(req.prompt)
+        if nodes:
+            # prefix hit: promote any demoted nodes + one page of headroom
+            # for the first streamed tail token
+            return sum(1 for n in nodes if not n.resident) + 1
         return pages_for(min(len(req.prompt), self.pcfg.prefill_chunk))
 
     def _admit(self) -> bool:
@@ -671,6 +761,10 @@ class PagedServingEngine(_EngineCore):
         while len(self.active) < self.pcfg.max_decode_batch and self.sched:
             head = self.sched.peek()
             need = self._admission_need(head)
+            if not self.pool.can_admit(need):
+                # first try reclaiming device pages from the prefix store
+                # (demote LRU nodes to host) before preempting live work
+                self.pool.reclaim(need)
             if not self.pool.can_admit(need):
                 victim = self.sched.choose_victim(
                     [a.req for a in self.active.values()])
@@ -680,12 +774,19 @@ class PagedServingEngine(_EngineCore):
                     continue
                 break
             req = self.sched.pop()
-            if req.rid in self.spilled:
-                ok = self._resume(req)
-            elif req.parent_rid is not None:
-                ok = self._fork_into(req)
-            else:
-                ok = self._prefill_into(req)
+            try:
+                if req.rid in self.spilled:
+                    ok = self._resume(req)
+                elif req.parent_rid is not None:
+                    ok = self._fork_into(req)
+                else:
+                    ok = self._prefill_into(req)
+            except BlobCorruption:
+                # the spill blob failed its checksum inside pool.resume with
+                # the spilled entry intact: recover by bounded re-prefill
+                # (the request was popped, so the recovery re-pushes it)
+                self._recover_corrupt(req, in_queue=False)
+                continue
             if not ok:
                 # transient allocation failure survived bounded retry: walk
                 # the degradation ladder (the last rung sheds the request)
@@ -698,21 +799,31 @@ class PagedServingEngine(_EngineCore):
     def _retry(self, site: str, fn) -> bool:
         """Bounded retry around an allocation-style pool call (the PL206
         contract: alloc sites never assert success, they retry and
-        escalate)."""
+        escalate).  Counts retries and recoveries per site."""
+        retried = [0]
+
         def on_retry(_k):
+            retried[0] += 1
             self.obs.metrics.counter("fault_retries_total", site=site).inc()
-        return bool(retry_transient(fn, on_retry=on_retry))
+
+        ok = bool(retry_transient(fn, on_retry=on_retry))
+        if ok and retried[0]:
+            self.obs.metrics.counter("faults_recovered_total",
+                                     site=site).inc()
+        return ok
 
     def _degrade(self, req: Request, need: int) -> None:
-        """Admission of a popped request failed after bounded retry:
-        re-queue it, then preempt live work, then shed it ``rejected``.
-        (The JAX ladder's first rung reclaims host-store pages; with no host
-        tier here, it is a plain re-queue.)"""
+        """Admission of a popped request failed after bounded retry: walk
+        the degradation ladder, escalating per request across attempts --
+        reclaim store pages (demote them to the host tier), then preempt
+        live work, then shed the request with ``rejected``.  The rung
+        counter guarantees termination."""
         fails = self._admit_fails.get(req.rid, 0) + 1
         self._admit_fails[req.rid] = fails
         m = self.obs.metrics
         if fails == 1:
-            m.counter("degradations_total", rung="requeue").inc()
+            self.pool.reclaim(need + 1)
+            m.counter("degradations_total", rung="demote_store").inc()
         elif fails == 2:
             victim = self.sched.choose_victim(
                 [a.req for a in self.active.values()])
@@ -727,6 +838,46 @@ class PagedServingEngine(_EngineCore):
             return
         req.status = "queued"
         self.sched.push(req, resumed=True)
+
+    def _recover_corrupt(self, req: Request, in_queue: bool) -> None:
+        """A spill blob failed its checksum: drop the poisoned bytes and
+        re-prefill the request from its retained token ids (prompt plus
+        every token generated so far), bounded by ``REPREFILL_CAP``.
+
+        ``in_queue`` distinguishes the two detection points: during a
+        prefetch (request still in the scheduler heap, which must not be
+        touched -- tombstoned rids cannot be re-pushed) vs during admission
+        (request just popped, so recovery re-pushes it)."""
+        rid = req.rid
+        entry = self.spilled.pop(rid, None)
+        self.pool.prefetch_cancel(rid)
+        if entry is not None:
+            self.pool.drop_spilled(entry[0], rid)
+        self.obs.metrics.counter("blob_corruptions_total").inc()
+        n = self._reprefills.get(rid, 0)
+        if req.parent_rid is not None or n >= REPREFILL_CAP:
+            # a fork child's shared prefix belongs to its parent -- its own
+            # token ids cannot rebuild that state -- and a request that
+            # keeps corrupting is dropped, not retried forever
+            why = ("fork child spill blob corrupted (shared prefix is not "
+                   "replayable)" if req.parent_rid is not None else
+                   f"spill blob corrupted {n + 1}x (re-prefill cap "
+                   f"{REPREFILL_CAP} exhausted)")
+            if in_queue:
+                self._drop_queued(req, "failed", detail=why)
+            else:
+                self._replay.pop(rid, None)
+                self._finalize(req, "failed", detail=why)
+            return
+        self._reprefills[rid] = n + 1
+        # everything the model had consumed, rebuilt through a fresh
+        # prefill + streamed tail: the prompt plus all generated tokens
+        self._replay[rid] = list(map(int, req.prompt)) + list(req.output)
+        self.obs.metrics.counter("faults_recovered_total",
+                                 site="blob_corrupt").inc()
+        if not in_queue:
+            req.status = "queued"
+            self.sched.push(req, resumed=True)
 
     def _assign_row(self, rid: int):
         self.rows[self.rows.index(None)] = rid
@@ -763,25 +914,46 @@ class PagedServingEngine(_EngineCore):
         self.obs.lifecycle.phase(a.req.rid, "decode")
 
     def _prefill_into(self, req: Request) -> bool:
+        replay = self._replay.get(req.rid)
+        if replay is None:
+            nodes = self.pool.prefix_match(req.prompt)
+            if nodes:
+                if self.pool.prefix_admit(req.rid, nodes):
+                    self._prefix_hit_into(req, nodes)
+                    return True
+                # ladder rung "drop_prefix": the store hit could not be
+                # admitted (promotion short) -- fall back to plain prefill
+                self.obs.metrics.counter("degradations_total",
+                                         rung="drop_prefix").inc()
+            self.pool.note_prefix_miss()
+        src = (np.asarray(replay, np.int32) if replay is not None
+               else req.prompt)
         self.obs.lifecycle.phase(req.rid, "prefill", t=time.perf_counter())
-        s0 = self._bucket_prefill_len(len(req.prompt))
+        s0 = self._bucket_prefill_len(len(src))
         if not self._retry("alloc",
                            lambda: self.pool.register(req.rid, pages_for(s0))):
-            return False
+            return False                # replay ctx (if any) stays for retry
+        self._replay.pop(req.rid, None)
         # the whole prompt is fresh context: s0 through full-sequence
         # prefill, the tail streamed through the decode batch
-        self._count_prefill(len(req.prompt))
-        prompt = torch.as_tensor(req.prompt[:s0], dtype=torch.int64,
+        self._count_prefill(len(src))
+        prompt = torch.as_tensor(src[:s0], dtype=torch.int64,
                                  device=self.device)[None]
         logits, row_caches = M.prefill(self.params, self.cfg,
                                        {"tokens": prompt})
         self.pool.insert_prefill(req.rid, row_caches)
-        a = _Active(req, length=s0, pending=list(map(int, req.prompt[s0:])),
-                    cur_token=-1)
+        if replay is None and s0 % PAGE_TOKENS == 0:
+            # the prefilled pages are full and immutable: remember them in
+            # the prefix store for future requests sharing this prompt
+            # (replay streams contain generated tokens -- never stored)
+            self.pool.store_insert(req.rid, req.prompt[:s0])
+        a = _Active(req, length=s0, pending=list(map(int, src[s0:])),
+                    cur_token=-1, replayed=replay is not None)
         if not a.pending:
             tok = int(sample(logits, self.pcfg.sampling, self._gen)[0])
-            req.t_first = time.perf_counter()
-            self.obs.lifecycle.first_token(req.rid, t=req.t_first)
+            if not req.t_first:         # replays already emitted tokens
+                req.t_first = time.perf_counter()
+                self.obs.lifecycle.first_token(req.rid, t=req.t_first)
             req.output.append(tok)
             a.cur_token = tok
         self._start(a)
@@ -790,6 +962,45 @@ class PagedServingEngine(_EngineCore):
                                and req.output[-1] == req.eos_id)):
             self._finish(req.rid)       # prefill already produced the end
         return True
+
+    def _prefix_hit_into(self, req: Request, nodes) -> None:
+        """Admit a request whose prompt prefix came out of the radix store:
+        the stored pages joined its block table by reference inside
+        ``prefix_admit`` (no prefill compute for them), the tail node's
+        recurrent-state snapshot seeded its slab, and only the *un-cached*
+        prompt tail streams through the decode batch -- the cross-request
+        twin of ``_fork_into``."""
+        length = len(nodes) * PAGE_TOKENS
+        self.obs.lifecycle.phase(req.rid, "prefill")
+        pending = list(map(int, req.prompt[length:]))
+        assert pending, "prefix match must leave a prompt tail"
+        # only the un-cached tail is fresh context -- that is the point
+        self._count_prefill(len(pending))
+        self._start(_Active(req, length=length, pending=pending,
+                            cur_token=-1))
+
+    def _issue_prefetches(self) -> None:
+        """Scheduler-lookahead prefetch: for requests in the next admission
+        window, issue spilled-blob copies into staging pages and promote
+        demoted prefix-store nodes *now*, so the copies overlap the decode
+        step issued right after and their admission is O(1)."""
+        window = self.pcfg.prefetch_window
+        if window <= 0:
+            return
+        reserve = max(1, len(self.active))
+        for req in self.sched.lookahead(window):
+            if req.rid in self.spilled:
+                try:
+                    self.pool.prefetch_begin(req.rid,
+                                             self.spilled[req.rid][0],
+                                             reserve=reserve)
+                except BlobCorruption:
+                    # detected before any copy was issued; the request stays
+                    # in the scheduler heap and its next admission
+                    # re-prefills from the replay stream
+                    self._recover_corrupt(req, in_queue=True)
+            elif req.parent_rid is None and req.rid not in self._replay:
+                self.pool.prefetch_prefix(req.prompt)
 
     def _fork_into(self, req: Request) -> bool:
         """Admit a copy-on-write fork: share the retained parent's full
@@ -883,10 +1094,12 @@ class PagedServingEngine(_EngineCore):
             lengths[row] = a.length
         builds = _build.builds_done()
         t0 = time.perf_counter()
+        self._maybe_stall()
         logits = self.pool.decode(self.params, self.rows, tokens, lengths,
                                   seed=self.step_count)
+        logits, bad_rows = self._guard(logits)
         toks = sample(logits, self.pcfg.sampling, self._gen)
-        # the sampled tokens are the step's single device->host sync
+        # the sampled tokens are the step's device->host sync
         toks_np = toks.cpu().numpy()
         self._record_step(t0, builds)
         self._account_step(lengths, 1)
@@ -894,8 +1107,15 @@ class PagedServingEngine(_EngineCore):
         for row, rid in enumerate(self.rows):
             if rid is None:
                 continue
+            if row in bad_rows:
+                # quarantine exactly this request -- its logits are
+                # non-finite and its sampled token is garbage; every other
+                # row's token stream is untouched (sampling is row-wise)
+                self._fail_active(rid, "non-finite logits after decode step")
+                continue
             a = self.active[rid]
             a.length += 1
+            self._store_streamed_page(a)
             if a.pending:
                 a.cur_token = a.pending.pop(0)
                 if a.pending:
@@ -987,6 +1207,7 @@ class PagedServingEngine(_EngineCore):
             tokens[row, 1:1 + len(d)] = d
         builds = _build.builds_done()
         t0 = time.perf_counter()
+        self._maybe_stall()
         # every row's block table must span the garbage positions too: the
         # append kernel refuses a slot outside the table
         min_pages = max(pages_for(int(lengths[row]) + n)
@@ -997,6 +1218,7 @@ class PagedServingEngine(_EngineCore):
         logits, snaps = self.pool.decode_spec(
             self.params, self.rows, tokens, lengths, seed=seed,
             min_pages=min_pages)
+        logits, bad_rows = self._guard(logits)
         greedy = self.pcfg.sampling.temperature <= 0.0
         if greedy:
             # the sampler's greedy op, so ties break as in plain decoding;
@@ -1007,7 +1229,7 @@ class PagedServingEngine(_EngineCore):
         sel = np.zeros((B,), np.int64)
         emits: Dict[int, List[int]] = {}
         for row, rid in enumerate(self.rows):
-            if rid is None:
+            if rid is None or row in bad_rows:
                 continue
             a = self.active[rid]
             if a.pending:
@@ -1034,9 +1256,13 @@ class PagedServingEngine(_EngineCore):
         for row, rid in enumerate(self.rows):
             if rid is None:
                 continue
+            if row in bad_rows:
+                self._fail_active(rid, "non-finite logits after decode step")
+                continue
             a = self.active[rid]
             if a.pending:
                 a.length += 1
+                self._store_streamed_page(a)
                 a.cur_token = a.pending.pop(0)
                 if a.pending:
                     continue
@@ -1105,6 +1331,71 @@ class PagedServingEngine(_EngineCore):
         emit.append(int(rng.choice(len(pj), p=pj / pj.sum())))
         return emit
 
+    # ------------- fault handling -------------
+
+    def _store_streamed_page(self, a: _Active) -> None:
+        """A chunk-streamed prompt just filled a page: the page is immutable
+        from here on and the slab holds the recurrent state at this exact
+        boundary -- store both (fork children and replays never: their
+        context is not their prompt)."""
+        if (a.req.parent_rid is None and not a.replayed
+                and a.length % PAGE_TOKENS == 0
+                and a.length <= len(a.req.prompt)):
+            self.pool.store_insert(a.req.rid, a.req.prompt[:a.length])
+
+    def _maybe_stall(self) -> None:
+        """The ``slow_step`` fault: sleep inside the timed window, so the
+        watchdog sees (and flags) the blown budget."""
+        if self.faults is not None and self.faults.should_fire("slow_step"):
+            self.obs.metrics.counter("faults_injected_total",
+                                     site="slow_step").inc()
+            time.sleep(self.faults.param("slow_step", "ms") / 1000.0)
+
+    def _guard(self, logits: torch.Tensor):
+        """Apply scheduled ``nan`` faults, then (with the guard on) find the
+        rows whose logits are non-finite.  Those rows' logits are zeroed
+        before sampling -- their requests are quarantined anyway, and
+        ``torch.multinomial`` refuses a non-finite distribution.  Returns
+        (logits, bad rows)."""
+        if self.faults is not None:
+            logits = self._inject_nan(logits)
+        bad_rows = self._scan_nonfinite(logits) if self._nan_guard else set()
+        if bad_rows:
+            logits = logits.clone()
+            logits[sorted(bad_rows)] = 0.0
+        return logits, bad_rows
+
+    def _inject_nan(self, logits: torch.Tensor) -> torch.Tensor:
+        """Apply any scheduled ``nan`` faults: poison the logits row of the
+        targeted request (the guard must quarantine it)."""
+        for row, rid in enumerate(self.rows):
+            if rid is not None and self.faults.should_fire("nan", rid=rid):
+                logits = logits.clone()
+                logits[row] = float("nan")
+                self.obs.metrics.counter("faults_injected_total",
+                                         site="nan").inc()
+        return logits
+
+    def _scan_nonfinite(self, logits: torch.Tensor) -> set:
+        """Rows whose logits contain NaN / Inf (one device sync; only runs
+        when the guard is on).  Reduces over every non-batch axis, so the
+        (B, V) plain step and the (B, n, V) verify step both collapse to one
+        flag per row."""
+        finite = torch.isfinite(logits).flatten(1).all(dim=1).cpu().numpy()
+        return {row for row, rid in enumerate(self.rows)
+                if rid is not None and not bool(finite[row])}
+
+    def _fail_active(self, rid: int, reason: str) -> None:
+        """Quarantine one active request mid-batch: free its row and pages
+        immediately, close it as ``failed``.  The rest of the batch keeps
+        decoding bit-exactly."""
+        a = self.active.pop(rid)
+        self._free_row(rid)
+        self._spec_release(rid)
+        self.pool.release(rid)
+        self.obs.metrics.counter("quarantines_total").inc()
+        self._finalize(a.req, "failed", detail=reason)
+
     def _break_stall(self) -> None:
         """No-progress steps in ``run()``: shed the unadmittable queue head
         with a clear reason instead of spinning forever."""
@@ -1144,14 +1435,21 @@ class PagedServingEngine(_EngineCore):
             "shared_page_hits": float(self.pool.shared_page_hits),
             "shared_page_savings": float(self.pool.shared_savings_peak),
             "shared_page_savings_live": float(self.pool.shared_page_savings),
+            # --- tiered memory hierarchy ---
+            "prefix_hits": float(self.pool.prefix_hits),
+            "prefix_hit_pages": float(self.pool.prefix_hit_pages),
+            "prefix_hit_tokens": float(self.pool.prefix_hit_tokens),
+            "prefix_store_pages": float(
+                self.pool.store.n_pages if self.pool.store else 0),
+            "prefetch_commits": float(self.pool.prefetch_commits),
+            "tier_hits": self.obs.metrics.family_total("tier_hit_total"),
+            "tier_misses": self.obs.metrics.family_total("tier_miss_total"),
+            "promote_bytes": self.obs.metrics.family_total(
+                "promote_bytes_total"),
+            "demote_bytes": self.obs.metrics.family_total(
+                "demote_bytes_total"),
+            "host_bytes": float(self.pool.host.bytes_used),
         })
-        # the host tier and prefix store are a later slice: schema-stable
-        # zeros, as the JAX engine reports with them off
-        for k in ("prefix_hits", "prefix_hit_pages", "prefix_hit_tokens",
-                  "prefix_store_pages", "prefetch_commits", "tier_hits",
-                  "tier_misses", "promote_bytes", "demote_bytes",
-                  "host_bytes"):
-            out[k] = 0.0
         return out
 
     def bank_report(self) -> Dict[str, float]:

@@ -20,7 +20,11 @@ JAX physical layout: page pools ``(n_pages, G, 128, KVH, w)``, slab pools
 ``(n_slabs, G, *row)``, ``G`` the layers of a position (1 for a prelude
 layer, which the JAX package stores without the G axis).
 
-Every move is eager PyTorch and writes the pools in place.
+Every move is eager PyTorch and writes the pools in place.  A copy to the
+host lands in pinned memory when the pools live on the card
+(:func:`host_copy`), and a copy back is issued with ``non_blocking=True``,
+so on the stream it is issued on it orders after the work before it and
+never blocks the host.
 """
 from __future__ import annotations
 
@@ -186,20 +190,58 @@ class CachePaging:
                         page_ids: torch.Tensor, slab: int
                         ) -> List[torch.Tensor]:
         """One request's pages + slab, copied to the host (a spill blob)."""
-        return [(pool[page_ids] if spec.kind == "page" else pool[slab]).to(
-                    "cpu", copy=True)
-                for pool, spec in zip(pools, self.specs)]
+        return host_copy([pool[page_ids] if spec.kind == "page"
+                          else pool[slab]
+                          for pool, spec in zip(pools, self.specs)])
 
     def insert_blob(self, pools: Sequence[torch.Tensor], blob,
                     page_ids: torch.Tensor, slab: int) -> None:
         """Re-pin a spilled request (inverse of :meth:`extract_request`);
         the physical page ids may differ from the ones it left."""
         for pool, spec, vals in zip(pools, self.specs, blob):
-            vals = vals.to(pool.device)
+            vals = vals.to(pool.device, non_blocking=True)
             if spec.kind == "page":
                 pool[page_ids] = vals
             else:
                 pool[slab] = vals
+
+    # ------------------------------------------------------------------
+    # tier moves: bare pages and slab rows (store demotion / promotion,
+    # state snapshots at page boundaries)
+    # ------------------------------------------------------------------
+
+    def extract_pages(self, pools: Sequence[torch.Tensor],
+                      page_ids: torch.Tensor) -> List[torch.Tensor]:
+        """Bare pages out of the page pools (no slab row), on the pools'
+        device: one ``(npg, *content)`` tensor per *page* spec, in spec
+        order -- the unit of host-tier demotion for prefix-store nodes."""
+        return [pool[page_ids] for pool, spec in zip(pools, self.specs)
+                if spec.kind == "page"]
+
+    def insert_pages(self, pools: Sequence[torch.Tensor], blob,
+                     page_ids: torch.Tensor) -> None:
+        """Re-pin bare pages (inverse of :meth:`extract_pages`); slab pools
+        are untouched."""
+        it = iter(blob)
+        for pool, spec in zip(pools, self.specs):
+            if spec.kind == "page":
+                pool[page_ids] = next(it).to(pool.device, non_blocking=True)
+
+    def extract_slab(self, pools: Sequence[torch.Tensor],
+                     slab: int) -> List[torch.Tensor]:
+        """One slab row per *slab* spec (a recurrent-state snapshot), on the
+        pools' device."""
+        return [pool[slab] for pool, spec in zip(pools, self.specs)
+                if spec.kind == "slab"]
+
+    def insert_slab(self, pools: Sequence[torch.Tensor], blob,
+                    slab: int) -> None:
+        """Write a snapshot back into one slab row (inverse of
+        :meth:`extract_slab`); page pools are untouched."""
+        it = iter(blob)
+        for pool, spec in zip(pools, self.specs):
+            if spec.kind == "slab":
+                pool[slab] = next(it).to(pool.device, non_blocking=True)
 
     def fork_copy(self, pools: Sequence[torch.Tensor], src_page: int,
                   dst_page: int, src_slab: int, dst_slab: int) -> None:
@@ -347,6 +389,25 @@ class CachePaging:
                 pool[page, :, off] = dense[:, rows, lens].transpose(0, 1)
             else:
                 pool[slabs.long()] = dense.transpose(0, 1)
+
+
+def host_copy(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Host copies of ``tensors`` (a blob).  From the card each lands in
+    pinned memory through a ``non_blocking`` device-to-host copy on the
+    current stream, and one event recorded after the last copy is waited on
+    before returning: a checksum reads the bytes next, and an unfinished
+    copy would checksum garbage.  CPU tensors are cloned."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return [t.to("cpu", copy=True) for t in tensors]
+    out = []
+    for t in tensors:
+        host = torch.empty(tuple(t.shape), dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        out.append(host)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return out
 
 
 def _gather_rows(pool, slabs: torch.Tensor, group: int):

@@ -21,8 +21,10 @@ slab rows where they live (on the card: the paged attention kernel, the
 append kernel and the state-update kernel in slab mode); ``"gather"`` is
 the dense reference path (gather the context, run the dense ops, scatter
 one token back), kept for bit-exact parity checks.  Preemption spills a
-victim's private pages + slab to host memory bit-exactly (CRC-checked);
-resume re-pins them to fresh physical ids.
+victim's private pages + slab to host memory bit-exactly (pinned on the
+card, CRC-checked); resume re-pins them to fresh physical ids.  The host
+tier, async prefetch and the prefix store extend this class in
+:mod:`.tiered`.
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ class SpilledRequest:
     (``shared``: (block-table position, physical id)), so resume reuses
     those ids verbatim.
     """
-    blob: List[torch.Tensor]
+    blob: List[torch.Tensor]            # pinned when spilled off the card
     n_pages: int                        # total block-table length
     length: int
     private_idx: List[int] = dataclasses.field(default_factory=list)
@@ -142,12 +144,27 @@ class PagedStatePool:
         self.shared_page_hits = 0
         #: optional repro_torch.obs.Observability (see ``attach_obs``)
         self._obs = None
+        #: optional repro_torch.serving.faults.FaultPlan -- when installed
+        #: (the engine sets it), allocation sites may report injected
+        #: transient failures
+        self.faults = None
 
     def attach_obs(self, obs) -> None:
         """Attach an engine's observability bundle: the placement mirrors
         page alloc / free / ref into its metrics registry."""
         self._obs = obs
         self.placement.metrics = obs.metrics
+
+    def _inject(self, site: str, rid: Optional[int] = None,
+                what: str = "") -> bool:
+        """One fault-plan consult: True means the caller must fail now.
+        Fires are mirrored into ``faults_injected_total{site=}``."""
+        if self.faults is None or not self.faults.should_fire(site, rid=rid):
+            return False
+        if self._obs is not None:
+            self._obs.metrics.counter("faults_injected_total",
+                                      site=site).inc()
+        return True
 
     def _account_gather(self, nbytes: float) -> None:
         self.gather_bytes += nbytes
@@ -182,6 +199,8 @@ class PagedStatePool:
         assert rid not in self.page_table
         if not self.can_admit(n_pages):
             return False
+        if self._inject("alloc", rid=rid, what="register"):
+            return False                # injected transient shortage
         pages = self.placement.alloc(n_pages)
         if pages is None:
             return False
@@ -192,6 +211,8 @@ class PagedStatePool:
 
     def grow(self, rid: int, n_new: int) -> bool:
         """Extend a request's block table -- copy-free, just new page ids."""
+        if self._inject("alloc", rid=rid, what="grow"):
+            return False                # injected transient shortage
         pages = self.placement.alloc(n_new)
         if pages is None:
             return False
@@ -292,6 +313,8 @@ class PagedStatePool:
         # a corrupted byte must stop here (BlobCorruption), not surface as
         # garbage logits
         verify_blob(sp.blob, sp.crc, "spill blob", rid=rid)
+        if self._inject("alloc", rid=rid, what="resume"):
+            return False                # injected transient shortage
         fresh = self.placement.alloc(sp.pages_needed)
         if fresh is None:
             return False
@@ -308,9 +331,10 @@ class PagedStatePool:
         self._account_gather(self.request_nbytes(sp.pages_needed))
         return True
 
-    def drop_spilled(self, sp: SpilledRequest):
+    def drop_spilled(self, sp: SpilledRequest, rid: Optional[int] = None):
         """Abort a spilled request: release the references its blob holds on
-        still-resident shared pages (the last owner to drop frees them)."""
+        still-resident shared pages (the last owner to drop frees them).
+        ``rid`` lets the tiered pool release per-request host accounting."""
         self.placement.unref([pid for _, pid in sp.shared])
         sp.shared = []
 
@@ -471,7 +495,8 @@ class PagedStatePool:
     # ------------------------------------------------------------------
 
     def sanitizer_owned_pages(self) -> set:
-        """Every page a resident request's block table accounts for."""
+        """Every page a resident request's block table accounts for; the
+        tiered pool adds staged prefetches and resident store nodes."""
         return {pid for pages in self.page_table.values() for pid in pages}
 
     def sanitizer_check_leaks(self, what: str = "engine teardown") -> None:

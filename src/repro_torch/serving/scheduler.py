@@ -92,6 +92,16 @@ class Scheduler:
         """Live (non-tombstoned) waiting requests, unordered."""
         return [req for _, _, req in self._heap if req.rid not in self._gone]
 
+    def lookahead(self, n: int) -> List[object]:
+        """The next ``n`` requests in dispatch order, without popping --
+        the admission window the tiered pool prefetches for (spilled blobs
+        staged to the device, demoted prefix pages promoted) so their data
+        is resident before they win admission."""
+        self._prune()
+        live = [e for e in self._heap if e[2].rid not in self._gone]
+        return [e[2] for e in heapq.nsmallest(n, live,
+                                              key=lambda e: (e[0], e[1]))]
+
     def __len__(self) -> int:
         return self._n_live
 

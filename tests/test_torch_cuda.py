@@ -1545,3 +1545,155 @@ def test_paligemma_smoke_prefix_decode_on_card(cuda):
     a, b = first
     assert bool(torch.isfinite(a).all())
     assert bool(((a - b).abs() <= 1e-3 * (b.abs() + b.abs().max())).all())
+
+
+# ---------------------------------------------------------------------------
+# the tiered pool on the card: pinned tier moves, the prefetch side stream,
+# prefix hits through the kernels
+# ---------------------------------------------------------------------------
+
+def _tiered_pool(dev, n_pages=8, n_slabs=5):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.memory import TieredStatePool
+    pool = TieredStatePool(get_smoke_config("zamba2-2.7b"), n_pages=n_pages,
+                           n_slabs=n_slabs, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for p in pool.pools:                     # random bytes, every dtype
+        b = p.view(torch.uint8)
+        b.copy_(torch.randint(0, 256, b.shape, generator=g, device=dev,
+                              dtype=torch.uint8))
+    return pool
+
+
+def _bytes(ts):
+    return [t.view(torch.uint8).cpu() for t in ts]
+
+
+def test_tier_moves_pinned_round_trip_bitwise(cuda):
+    """Pages and a slab row to pinned host tensors (non_blocking copies,
+    waited on before the checksum) and back into other ids, byte for byte;
+    the checksum is the one of a synchronous copy."""
+    from repro_torch.serving.memory.layout import host_copy
+    from repro_torch.serving.resilience import crc_blob
+    pool = _tiered_pool(cuda)
+    before = _bytes(pool.pools)
+    ids = torch.tensor([2, 5], device=cuda)
+    dev_pages = pool.paging.extract_pages(pool.pools, ids)
+    dev_slab = pool.paging.extract_slab(pool.pools, 1)
+    pages, slab = host_copy(dev_pages), host_copy(dev_slab)
+    assert all(t.is_pinned() for t in pages + slab)
+    assert crc_blob(pages + slab) == crc_blob(
+        [t.cpu() for t in dev_pages + dev_slab])
+    pool.paging.insert_pages(pool.pools, pages, torch.tensor([3, 6],
+                                                             device=cuda))
+    pool.paging.insert_slab(pool.pools, slab, 3)
+    torch.cuda.synchronize()
+    for p, b, spec in zip(_bytes(pool.pools), before, pool.paging.specs):
+        if spec.kind == "page":
+            assert torch.equal(p[[3, 6]], b[[2, 5]])
+        else:
+            assert torch.equal(p[3], b[1])
+
+
+def test_prefetch_runs_on_a_side_stream_ordered_by_events(cuda):
+    """A spill, then a prefetch issued while the current stream is busy (a
+    spin kernel): the side stream waits for it (the copy is not done when
+    ``prefetch_begin`` returns), commit makes the current stream wait on the
+    copy, and the committed pages and slab hold the spilled bytes."""
+    pool = _tiered_pool(cuda)
+    assert pool.register(7, 3)
+    torch.cuda.synchronize()
+    want = [b[pool.page_table[7]] if s.kind == "page" else b[pool.slab_of[7]]
+            for b, s in zip(_bytes(pool.pools), pool.paging.specs)]
+    sp = pool.spill(7, length=300)
+    assert all(t.is_pinned() for t in sp.blob)
+    torch.cuda._sleep(200_000_000)            # ~0.1 s of spin on the stream
+    assert pool.prefetch_begin(7, sp)
+    st = pool._staged[7]
+    assert pool.copy_stream != torch.cuda.current_stream()
+    assert not st.done.query()                # still behind the spin
+    assert pool.prefetch_commit(7)
+    got = [p[pool.page_table[7]] if s.kind == "page" else p[pool.slab_of[7]]
+           for p, s in zip(pool.pools, pool.paging.specs)]
+    for g, w in zip(_bytes(got), want):
+        assert torch.equal(g, w)
+    pool.release(7)
+
+
+def test_corrupt_blob_on_a_pinned_tensor(cuda):
+    from repro_torch.serving.resilience import corrupt_blob, crc_blob
+    t = torch.arange(64, dtype=torch.float32).pin_memory()
+    blob = [t]
+    crc = crc_blob(blob)
+    corrupt_blob(blob)
+    assert blob[0] is not t and blob[0].is_pinned()
+    assert crc_blob(blob) != crc
+    assert torch.equal(t, torch.arange(64, dtype=torch.float32))
+
+
+def test_prefix_hits_decode_through_the_kernels(cuda, monkeypatch):
+    """zamba2-2.7b smoke at MX8 round to nearest: three requests behind one
+    128-token prefix with the store on (warm hits), then a demote and a
+    fourth (a cold hit).  The streams equal the same requests without the
+    store, every decode step launches the slab-mode state update, the paged
+    attention and the fused append, and the plain MX8 quantizer never runs
+    on the card inside a decode step or a prefill."""
+    from repro_torch import ops as OPS
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_state_update as KSU
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import Engine, ServeConfig
+    cfg = get_smoke_config("zamba2-2.7b").with_(
+        state_quant=OPS.StateQuantConfig("mx8", "nearest", "cuda"))
+    params = M.init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                          device=cuda)
+    seen = {"inside": 0, "calls": 0}
+    quantize = F.mx8_quantize
+
+    def counted(x, *a, **kw):
+        if seen["inside"] and x.is_cuda:
+            seen["calls"] += 1
+        return quantize(x, *a, **kw)
+
+    def watched(fn):
+        def inside(*a, **kw):
+            seen["inside"] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                seen["inside"] -= 1
+        return inside
+
+    monkeypatch.setattr(F, "mx8_quantize", counted)
+    for name in ("paged_decode_step", "prefill"):
+        monkeypatch.setattr(M, name, watched(getattr(M, name)))
+    rng = np.random.default_rng(0)
+    sysp = rng.integers(0, cfg.vocab_size, 128)
+    prompts = [np.concatenate([sysp, rng.integers(0, cfg.vocab_size, n)])
+               for n in (10, 37, 5, 20)]
+    outs = {}
+    for cache in (False, True):
+        eng = Engine(params, cfg, ServeConfig(batch=2, n_pages=17,
+                                              prefix_cache=cache))
+        KSU.mx_state_update.slab_launches = 0
+        KP.mx_paged_attention_decode.launches = 0
+        KP.mx_paged_kv_append_quant.launches = 0
+        hs = [eng.submit(p, max_new_tokens=6) for p in prompts[:3]]
+        eng.run()
+        if cache:
+            assert eng.engine.pool.demote_all() >= 1
+        hs.append(eng.submit(prompts[3], max_new_tokens=6))
+        eng.run()
+        torch.cuda.synchronize()
+        steps = eng.engine.step_count
+        n_attn = cfg.n_groups if cfg.shared_attn else 0
+        assert KSU.mx_state_update.slab_launches == \
+            cfg.pattern.count("mamba2") * cfg.n_groups * steps
+        assert KP.mx_paged_attention_decode.launches == n_attn * steps
+        assert KP.mx_paged_kv_append_quant.launches == n_attn * steps
+        outs[cache] = [h.output for h in hs]
+        st = eng.stats()
+    assert seen["calls"] == 0
+    assert outs[True] == outs[False]
+    assert st["prefix_hits"] == 3 and st["promote_bytes"] > 0

@@ -43,6 +43,7 @@ except Exception as e:  # noqa: BLE001
     failed.append(f"chip_smoke.py: {type(e).__name__}: {e}")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
 print(f"IMPORTED {len(names)}")
+print("NAMES " + " ".join(sorted(names)))
 if failed or leaked:
     print("\\n".join(failed + [f"leaked: {m}" for m in leaked]))
     sys.exit(1)
@@ -56,6 +57,11 @@ def test_port_imports_without_jax_or_repro():
     assert proc.returncode == 0, (
         f"STDOUT:\n{proc.stdout}\nSTDERR:\n{proc.stderr}")
     assert int(proc.stdout.split("IMPORTED")[1].split()[0]) >= 25
+    names = set(proc.stdout.split("NAMES")[1].split())
+    # the tiering and resilience modules are in the walk
+    assert {"repro_torch.serving.faults", "repro_torch.serving.resilience",
+            "repro_torch.serving.memory.tiered",
+            "repro_torch.serving.memory.prefix_store"} <= names
 
 
 def _imported_roots(path: pathlib.Path):
