@@ -32,7 +32,9 @@ decode, verify or prefill step ran the plain MX8 quantizer on the card;
 and it drives the paged engine's memory hierarchy and fault paths at full
 width: the host tier in pinned memory, the prefetch on a side stream, the
 radix prefix store (warm and cold hits through the same kernels) and the
-resilience layer.
+resilience layer; every engine writes its structured trace (steps,
+request spans, bank counters, recompile instants), and the launcher runs
+as a user runs it.
 Phases, in the order they run:
 
   1. device   2. build   3. exact powers of two   4. state-update kernel
@@ -85,7 +87,14 @@ Phases, in the order they run:
   with decode (torch.profiler)   61. fault plans (chaos under preemption,
   a corrupt spill blob, nan, slow step) with the sanitizer on   59. the
   prefix path on yi-9b (after phase 35)   60. on gla-2.7b (after phase
-  25)   8. kernels line
+  25)   62 (after phase 61). the trace at full width: the slot, paged,
+  verify, tier and fault engines' traces saved under ``chiprun_out/`` and
+  validated (``repro_torch.obs.schema``) with their features; the
+  recompile watcher's per-site counts; a steady decode step adds no
+  watcher event; the events and the tracer's and watcher's host
+  microseconds per step   63. the launcher in its own process
+  (``--paged --mixed --stream --turns 2 --trace``), its trace validated
+  8. kernels line
 
 Any failure exits non-zero; with no card it fails (it never falls back to
 the CPU).  The last three lines of standard output are the kernels' JSON
@@ -104,6 +113,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+#: where the traces go (git-ignored)
+OUT = ROOT / "chiprun_out"
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor)
 #: flop/s, dense bf16 tensor-core flop/s
@@ -1393,7 +1404,7 @@ def phase_main_path(cfg, params, init_s):
                            before=EAGER_APPEND_PROFILE[cfg.name])
     _reference_check(params, cfg, prompts[0])
     return dict(n_su=n_su, n_at=n_at, n_apd=n_apd, stats=st, peak=peak,
-                prof=prof)
+                prof=prof, trace=_trace_record(eng, "slots"))
 
 
 def _paged_vs_gather(eng, cfg, rng, n_steps=4, lens0=(64, 129, 127, 200)):
@@ -1534,7 +1545,7 @@ def phase_paged_main_path(cfg, params, slot):
     return dict(n_su=n_su, n_pa=n_pa, n_ap=n_ap, n_apq=n_apq,
                 prompts=prompts,
                 outputs=[h.output for h in handles], stats=st, peak=peak,
-                steps=steps)
+                steps=steps, trace=_trace_record(eng, "paged"))
 
 
 def _pattern_prompts(rng, cfg):
@@ -1642,9 +1653,12 @@ def phase_spec_main_path(cfg, params, paged):
     rng = np.random.default_rng(2)
     prof = _profile_decode(eng, cfg, rng, (64, 97, 133, 120), 14)
     _spec_rollback_check(eng, cfg, rng, invariant)
+    trace = _trace_record(eng, "verify")
+    del eng
 
     _greedy_exactness(params, cfg, paged["prompts"], invariant, n=14)
-    return dict(n5=n5, n6=n6, stats=st, prof=prof, invariant=invariant)
+    return dict(n5=n5, n6=n6, stats=st, prof=prof, invariant=invariant,
+                trace=trace)
 
 
 def _greedy_exactness(params, cfg, prompts, invariant, n, max_new=MAX_NEW,
@@ -4468,10 +4482,11 @@ def phase_cold_and_prefetch(cfg, params, engines, sysp, paged, want):
           copy_GB_per_s=f"{nbytes / max(span, 1e-9) / 1e3:.2f}",
           overlapped_us=f"{lap:.1f}",
           overlapped_share=f"{lap / max(span, 1e-9):.3f}")
+    trace = _trace_record(eng, "tier")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(span=span, lap=lap, nbytes=nbytes)
+    return dict(span=span, lap=lap, nbytes=nbytes, trace=trace)
 
 
 def phase_faults(cfg, params):
@@ -4522,6 +4537,7 @@ def phase_faults(cfg, params):
               blob_corruptions=int(m.value("blob_corruptions_total")),
               watchdog_trips=eng.engine.watchdog.trips,
               sanitizer="silent")
+        trace = _trace_record(eng, "faults")
         del eng
 
         rng = np.random.default_rng(610)
@@ -4583,6 +4599,7 @@ def phase_faults(cfg, params):
             os.environ["REPRO_SANITIZE"] = old
     gc.collect()
     torch.cuda.empty_cache()
+    return trace
 
 
 def phase_prefix_other(params, cfg, n, want):
@@ -4627,10 +4644,224 @@ def phase_tiering(cfg, params, paged):
           prefix_hits=int(spec["stats"]["prefix_hits"]))
     del eng
     over = phase_cold_and_prefetch(cfg, params, engines, sysp, paged, want)
-    phase_faults(cfg, params)
+    faults = phase_faults(cfg, params)
     phase(61, "zamba2-2.7b tier and fault phases 56-58, 61",
           seconds=f"{time.perf_counter() - t0:.1f}")
-    return dict(moves=moves, runs=runs, overlap=over)
+    return dict(moves=moves, runs=runs, overlap=over,
+                traces=dict(tier=over["trace"], faults=faults))
+
+
+# ---------------------------------------------------------------------------
+# observability: the trace, the recompile watcher, the launcher (62-63)
+# ---------------------------------------------------------------------------
+
+#: the features each engine's trace must carry (repro_torch.obs.schema)
+TRACE_NEEDS = {
+    "slots": ("steps", "spans", "recompile"),
+    "paged": ("steps", "spans", "bank", "recompile"),
+    "verify": ("steps", "spans", "bank", "recompile", "speculation"),
+    "tier": ("steps", "spans", "bank", "recompile", "tiered"),
+    "faults": ("steps", "spans", "bank", "recompile", "tiered",
+               "resilience"),
+}
+#: replays of one step's emit and describe calls, timed for their host cost
+HOST_REPLAYS = 1000
+
+
+def _trace_record(eng, label):
+    """Save ``eng``'s trace as ``chiprun_out/trace_<label>.json`` and keep
+    what phase 62 reads of it: the watcher's per-site counts, the events
+    (metadata excluded) and the decode steps behind them."""
+    OUT.mkdir(exist_ok=True)
+    path = OUT / f"trace_{label}.json"
+    eng.save_trace(str(path))
+    return dict(path=path, counts=eng.obs.recompiles.counts(),
+                events=sum(1 for e in eng.obs.tracer.events()
+                           if e["ph"] != "M"),
+                dropped=eng.obs.tracer.dropped, steps=eng.engine.step_count)
+
+
+def _steady(eng, cfg, rng, sites, label, n_steps=8):
+    """Four 64-token requests through ``eng``; once all four decode, the
+    next ``n_steps`` steps (one page each, constant shapes) must add no
+    watcher event.  Returns the trace events per steady step, the steady
+    step's host wall, and one call's arguments of each site in ``sites``
+    (captured on the first steady step)."""
+    import torch
+    pool = eng.engine.pool
+    hs = [eng.submit(rng.integers(0, cfg.vocab_size, 64),
+                     max_new_tokens=n_steps + 4) for _ in range(4)]
+    eng.step()                  # four prefills + the first step
+    eng.step()
+    check(all(h.status == "running" for h in hs),
+          f"{label}: {[h.status for h in hs]} before the steady window")
+    captured, inner = {}, {}
+    for site in sites:
+        wfn = getattr(pool, site)
+        inner[site] = wfn._fn
+
+        def capture(*a, _site=site, **k):
+            captured.setdefault(_site, (a, k))
+            return inner[_site](*a, **k)
+        wfn._fn = capture
+    n0, ev0 = eng.obs.recompiles.n_events, len(eng.obs.tracer.events())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n_steps
+    for site in sites:
+        getattr(pool, site)._fn = inner[site]
+    per_step = (len(eng.obs.tracer.events()) - ev0) / n_steps
+    new = eng.obs.recompiles.events[n0:]
+    check(not new, f"{label}: a steady decode step added watcher events "
+          f"{[(e.fn, e.changed) for e in new]}")
+    eng.run()
+    check(all(h.status == "done" for h in hs), f"{label}: not done")
+    return dict(per_step=per_step, wall_ms=wall * 1e3, args=captured)
+
+
+def _key_us(wfn, calls):
+    """Host microseconds of ``wfn``'s per-call signature and lookup,
+    replayed over ``calls`` ((args, kwargs) each, in turn)."""
+    t0 = time.perf_counter()
+    for i in range(HOST_REPLAYS):
+        a, k = calls[i % len(calls)]
+        wfn.key(*a, **k) in wfn._seen
+    return (time.perf_counter() - t0) * 1e6 / HOST_REPLAYS
+
+
+def _emit_us(bank, spec):
+    """Host microseconds of one step's trace events (the decode_step X
+    event, the bank and pool counters, the spec counter on a verify
+    step), replayed into a scratch buffer."""
+    from repro_torch.obs import TraceBuffer
+    tr = TraceBuffer()
+    pool = {"occupancy": 0.5, "fragmentation": 0.25}
+    t0 = time.perf_counter()
+    for i in range(HOST_REPLAYS):
+        tr.complete("decode_step", cat="step", ts=tr.now_us(), dur=1.0,
+                    track="engine", step=i, batch=4, compiled=False)
+        tr.counter("bank_traffic", bank)
+        tr.counter("pool", pool)
+        if spec:
+            tr.counter("spec", {"proposed": 9, "accepted": 3})
+    return (time.perf_counter() - t0) * 1e6 / HOST_REPLAYS
+
+
+def phase_trace(cfg, params, records):
+    """Phase 62: the trace at full width.  The traces of the slot (7),
+    paged (11), verify (14), tier (58's prefetch resume) and fault (61's
+    chaos plan) engines validate and carry their features; the watcher's
+    per-site counts on each path.  On fresh paged and verify engines, a
+    steady decode step adds no watcher event; the trace events per steady
+    step; and the host time that the tracer (one step's events) and the
+    watcher (one step's signatures, the slot engine's cache tree included)
+    add to a step, each from 1,000 replays."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pimsim
+    from repro_torch.obs import trace_features, validate_chrome_trace
+    from repro_torch.obs.recompile import _describe as describe
+    from repro_torch.serving.api import Engine, ServeConfig
+    t0 = time.perf_counter()
+    for label, rec in records.items():
+        obj = json.loads(rec["path"].read_text())
+        errors = validate_chrome_trace(obj)
+        feats = trace_features(obj)
+        missing = sorted(set(TRACE_NEEDS[label]) - feats)
+        check(not errors and not missing and rec["dropped"] == 0,
+              f"trace {label}: errors {errors[:3]}, missing {missing}, "
+              f"dropped {rec['dropped']}")
+        phase(62, f"trace {label}", file=rec["path"].name,
+              MB=f"{rec['path'].stat().st_size / 1e6:.2f}",
+              events=rec["events"], decode_steps=rec["steps"],
+              events_per_step=f"{rec['events'] / max(rec['steps'], 1):.2f}",
+              features=",".join(sorted(feats)),
+              sites=repr(dict(sorted(rec["counts"].items()))))
+    rng = np.random.default_rng(62)
+    paged = Engine(params, cfg, ServeConfig(**PAGED))
+    plain = _steady(paged, cfg, rng, ("_decode",), "paged")
+    bank = pimsim.bank_trace_counters(paged.engine.last_traffic)
+    paged_key = _key_us(paged.engine.pool._decode, [plain["args"]["_decode"]])
+    paged_sites = paged.obs.recompiles.counts()
+    del paged
+    verify = Engine(params, cfg, ServeConfig(**PAGED, spec="ngram",
+                                             spec_k=SPEC_K))
+    spec = _steady(verify, cfg, rng, ("_decode_spec", "_commit_spec"),
+                   "verify")
+    vpool = verify.engine.pool
+    verify_key = (_key_us(vpool._decode_spec,
+                          [spec["args"]["_decode_spec"]])
+                  + _key_us(vpool._commit_spec,
+                            [spec["args"]["_commit_spec"]]))
+    verify_sites = verify.obs.recompiles.counts()
+    del verify
+    # the slot engine's decode gets a new cache list every step: replay
+    # two distinct lists over the same caches, so each call walks the tree
+    slot = Engine(params, cfg, ServeConfig(backend="slots", batch=4,
+                                           cache_capacity=1024))
+    se = slot.engine
+    lens = torch.full((4,), 64, dtype=torch.int32, device=se.device)
+    calls = [((params,), dict(tokens=se.cur_tokens, caches=list(se.caches),
+                              lengths=lens, seed=i)) for i in (1, 2)]
+    slot_key = _key_us(se._decode, calls)
+    n_leaves = len(describe((), {"caches": se.caches}))
+    del slot, se, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit_plain, emit_spec = _emit_us(bank, False), _emit_us(bank, True)
+    phase(62, "steady decode steps add no watcher event",
+          paged=f"{plain['per_step']:.2f} events/step, sites "
+          f"{dict(sorted(paged_sites.items()))}",
+          verify=f"{spec['per_step']:.2f} events/step, sites "
+          f"{dict(sorted(verify_sites.items()))}")
+    phase(62, "host cost per step (1,000 replays each)",
+          tracer_emit_us=f"paged {emit_plain:.2f}, verify {emit_spec:.2f}",
+          watcher_us=f"paged {paged_key:.2f}, verify {verify_key:.2f}, "
+          f"slots {slot_key:.2f} ({n_leaves} cache leaves)",
+          step_wall_ms=f"paged {plain['wall_ms']:.3f}, verify "
+          f"{spec['wall_ms']:.3f}",
+          share=f"paged {(emit_plain + paged_key) / 10 / plain['wall_ms']:.4f}"
+          f"%, verify {(emit_spec + verify_key) / 10 / spec['wall_ms']:.4f}%",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def phase_launcher():
+    """Phase 63: the launcher as a user runs it, in its own process, on
+    zamba2-2.7b at full width: ``--paged --mixed --stream --turns 2``; it
+    must exit 0, stream tokens, hold the session, and write a trace that
+    the schema CLI accepts with steps, spans, bank and recompile."""
+    import os
+    from repro_torch.obs.schema import main as schema_main
+    OUT.mkdir(exist_ok=True)
+    path = OUT / "serve_trace.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "zamba2-2.7b", "--paged", "--mixed", "--stream", "--turns", "2",
+           "--requests", "6", "--max-new", "8", "--trace", str(path)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          env=env, cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    (OUT / "serve_stdout.txt").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"launcher exited {proc.returncode}: "
+          f"{proc.stderr[-1500:]}")
+    lines = proc.stdout.splitlines()
+    check(any("] += [" in ln for ln in lines)
+          and any(ln.strip().startswith("turn 1: sent") for ln in lines)
+          and any(ln.startswith("trace: ") for ln in lines),
+          "launcher output lacks streamed tokens, the session or the trace "
+          "line")
+    rc = schema_main([str(path), "--require", "steps,spans,bank,recompile"])
+    check(rc == 0, f"the launcher's trace fails the schema (rc {rc})")
+    phase(63, "launcher zamba2-2.7b --paged --mixed --stream --turns 2",
+          wall_s=f"{wall:.1f}",
+          summary=repr(next(ln for ln in lines if "requests," in ln)),
+          trace=repr(next(ln for ln in lines if ln.startswith("trace: "))),
+          stdout=(OUT / "serve_stdout.txt").name)
 
 
 def main():
@@ -4670,7 +4901,15 @@ def main():
         slot = phase_main_path(cfg, params, init_s)
         paged = phase_paged_main_path(cfg, params, slot)
         spec = phase_spec_main_path(cfg, params, paged)
-        phase_tiering(cfg, params, paged)
+        tiers = phase_tiering(cfg, params, paged)
+        t_obs = time.perf_counter()
+        phase_trace(cfg, params, dict(slots=slot["trace"],
+                                      paged=paged["trace"],
+                                      verify=spec["trace"],
+                                      **tiers["traces"]))
+        phase_launcher()
+        phase(63, "observability phases 62-63",
+              seconds=f"{time.perf_counter() - t_obs:.1f}")
         # zamba2's weights and pools go before deepseek's 53.2 GB arrive
         del params
         gc.collect()

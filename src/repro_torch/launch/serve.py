@@ -20,6 +20,18 @@ with the kernels' plain versions, e.g. at smoke size:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --smoke-size --device cpu --paged     # or yi-34b, dbrx-132b
 
+``--mixed`` alternates short prompts with multi-page long ones;
+``--stream`` drives the engine open-loop (``step()``) and prints each
+request's tokens as they are sampled; ``--turns N`` runs an N-turn chat
+session on copy-on-write prefix sharing after the batch (paged only);
+``--trace OUT`` writes the structured trace at exit (Chrome-trace JSON, or
+JSONL for ``*.jsonl``), which ``python -m repro_torch.obs.schema OUT
+--require steps,spans,bank,recompile`` checks:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --smoke-size --device cpu --paged --mixed --stream --turns 2 \
+        --trace /tmp/serve.json
+
 ``--arch`` takes any of the fifteen architectures
 (``repro_torch.configs.ALL_ARCHS``); an encoder (hubert-xlarge) exits with
 nothing to serve, and a model with a modality frontend (paligemma-3b)
@@ -67,6 +79,20 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mixed", action="store_true",
+                    help="mixed workload: short and long prompts")
+    # request-lifecycle demos
+    ap.add_argument("--stream", action="store_true",
+                    help="drive the engine open-loop (step()) and print "
+                         "each request's tokens as they are sampled")
+    ap.add_argument("--turns", type=int, default=0,
+                    help="after the batch: run a --turns-turn chat session "
+                         "on copy-on-write prefix sharing (paged only)")
+    # observability
+    ap.add_argument("--trace", default=None, metavar="OUT",
+                    help="write the structured trace at exit: Chrome-trace "
+                         "JSON (open in https://ui.perfetto.dev), or JSONL "
+                         "if OUT ends in .jsonl")
     ap.add_argument("--metrics", default=None, metavar="OUT",
                     help="dump the metrics registry in Prometheus text "
                          "format at exit ('-' for stdout)")
@@ -86,6 +112,9 @@ def main(argv=None):
            else get_config(args.arch))
     if cfg.encoder_only:
         raise SystemExit(f"{cfg.name} is encoder-only: nothing to serve")
+    if args.turns and not args.paged:
+        raise SystemExit("--turns needs --paged (sessions are built on "
+                         "copy-on-write prefix sharing in the paged pool)")
     try:
         refuse_unservable(cfg)
     except ValueError as e:
@@ -120,14 +149,32 @@ def main(argv=None):
         scheduler=SchedulerConfig(policy=args.policy), seed=args.seed))
 
     rng = np.random.default_rng(args.seed)
+    handles = []
     for i in range(args.requests):
-        eng.submit(rng.integers(0, cfg.vocab_size, 8 + i % 24),
-                   max_new_tokens=args.max_new,
-                   priority=i % 3 if args.policy == "priority" else 0,
-                   deadline=(time.time() + 1 + i % 5
-                             if args.policy == "deadline" else None))
+        if args.mixed:
+            # alternate short prompts with multi-page long ones
+            n = 8 + i % 24 if i % 3 else 130 + 16 * (i % 4)
+        else:
+            n = 8 + i % 24
+        handles.append(eng.submit(
+            rng.integers(0, cfg.vocab_size, n),
+            max_new_tokens=args.max_new,
+            priority=i % 3 if args.policy == "priority" else 0,
+            deadline=(time.time() + 1 + i % 5
+                      if args.policy == "deadline" else None)))
     t0 = time.perf_counter()
-    done = eng.run()
+    if args.stream:
+        # open loop: one step at a time, tokens printed as they surface
+        running = True
+        while running:
+            running = eng.step()
+            for h in handles:
+                got = h.new_tokens()
+                if got:
+                    print(f"  req {h.rid} [{h.status}] += {got}")
+        done = [h.request for h in handles]
+    else:
+        done = eng.run()
     stats = eng.stats()
     print(f"{len(done)} requests, {stats['tokens']:.0f} tokens, "
           f"{stats['tokens_per_s']:.1f} tok/s (wall "
@@ -136,7 +183,8 @@ def main(argv=None):
     print(f"  steps: p50={stats['p50_step_s'] * 1e3:.1f}ms "
           f"p99={stats['p99_step_s'] * 1e3:.1f}ms "
           f"p99_nocompile={stats['p99_step_nocompile_s'] * 1e3:.1f}ms "
-          f"({int(stats['compile_steps'])} steps paid a kernel build)")
+          f"({int(stats['compile_steps'])} steps paid a kernel build, "
+          f"{int(stats['recompiles'])} step signatures)")
     traffic = {k.split("/", 1)[1]: v for k, v in stats.items()
                if k.startswith("op_traffic_bytes/")}
     if traffic:
@@ -156,6 +204,28 @@ def main(argv=None):
               f"ideal={rep['t_ideal_s'] * 1e6:.2f}us "
               f"conflict_factor={rep['conflict_factor']:.2f} "
               f"bank_imbalance={rep['imbalance']:.2f}")
+    if args.turns:
+        print(f"-- {args.turns}-turn session (copy-on-write prefix "
+              "sharing; turn N skips re-prefilling the history) --")
+        chat = eng.session()
+        before = eng.stats()["prefill_tokens"]
+        for t in range(args.turns):
+            turn = rng.integers(0, cfg.vocab_size, 8 + t)
+            h = chat.send(turn, max_new_tokens=args.max_new)
+            print(f"  turn {t}: sent {len(turn)} tokens -> {list(h)}")
+        after = eng.stats()["prefill_tokens"]
+        chat.close()
+        print(f"  session ingested {after - before:.0f} fresh tokens "
+              f"({eng.stats()['shared_page_hits']:.0f} shared-page hits; "
+              "an unshared engine would re-prefill the whole history "
+              "every turn)")
+    if args.trace:
+        eng.save_trace(args.trace)
+        counts = eng.obs.recompiles.counts()
+        print(f"trace: {len(eng.obs.tracer.events())} events -> "
+              f"{args.trace} (step signatures: "
+              + (" ".join(f"{k}={v}" for k, v in sorted(counts.items()))
+                 or "none") + ")")
     if args.metrics:
         text = eng.prometheus_text()
         if args.metrics == "-":

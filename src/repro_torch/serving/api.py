@@ -25,7 +25,10 @@ verified in one pass, greedy output the non-speculative stream.
 requests (the radix prefix store, pages demoted to pinned host memory under
 pressure); ``fault_plan`` (or ``REPRO_FAULTS``), ``nan_guard``,
 ``max_queued``, ``request_timeout_s`` and ``step_budget_s`` drive the
-resilience layer of the paged engine.
+resilience layer of the paged engine.  ``save_trace(path)`` writes the
+structured trace (Chrome-trace JSON, or JSONL for ``*.jsonl``; check it
+with ``python -m repro_torch.obs.schema``), ``lifecycle(handle)`` returns
+one request's phase spans.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.obs import Observability
+from repro_torch.obs import Observability, RequestRecord
 from repro_torch.serving.engine import (EngineConfig, PagedEngineConfig,
                                         PagedServingEngine, Request,
                                         ServingEngine, TERMINAL_STATUSES)
@@ -225,10 +228,24 @@ class Engine:
 
     @property
     def obs(self) -> Observability:
+        """The observability bundle: metrics registry, trace buffer,
+        lifecycle tracker, recompile watcher."""
         return self._eng.obs
 
+    # ------------- observability -------------
+
+    def save_trace(self, path: str) -> None:
+        """Write the structured trace: Chrome-trace JSON (Perfetto) or
+        JSONL for ``*.jsonl`` paths."""
+        self.obs.save_trace(path)
+
     def prometheus_text(self) -> str:
+        """The metrics registry in Prometheus text exposition format."""
         return self.obs.prometheus_text()
+
+    def lifecycle(self, handle) -> Optional[RequestRecord]:
+        """Per-request span record (queue delay, TTFT, preemption cost)."""
+        return self.obs.lifecycle.record(_rid_of(handle))
 
     # ------------- request lifecycle -------------
 

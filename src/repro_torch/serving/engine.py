@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from functools import partial
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -173,7 +174,13 @@ class _EngineCore:
     Subclasses implement the mechanics (``step``, ``_enqueue``,
     ``_abort_impl``, ``has_work``, ``pending_requests``); the core owns
     ``submit`` -> ``step``/``run`` -> terminal status, ``abort`` and the
-    stats schema (a view over the obs metrics registry).
+    stats schema.
+
+    Every engine carries an :class:`repro_torch.obs.Observability` bundle:
+    ``stats()`` is a schema-stable view over its metrics registry, request
+    phase transitions land in its lifecycle tracker, decode steps and
+    per-bank traffic stream into its trace ring buffer, and the steppers
+    are wrapped by its recompile watcher.
     """
 
     backend: str = "?"
@@ -294,7 +301,9 @@ class _EngineCore:
         tok = m.histogram("tok_latency_s")
         out["p50_tok_latency_s"] = tok.percentile(50)
         out["p99_tok_latency_s"] = tok.percentile(99)
-        out["recompiles"] = 0.0        # no recompile watcher in the port yet
+        # every new argument signature a wrapped stepper saw (the twin of
+        # the JAX engine's count of fresh XLA traces)
+        out["recompiles"] = float(self.obs.recompiles.n_events)
         # speculation accounting is schema-stable: zeros when it is off
         proposed = m.value("spec_proposed_tokens_total")
         accepted = m.value("spec_accepted_tokens_total")
@@ -345,14 +354,21 @@ class _EngineCore:
         """Fresh-context tokens ingested (prefill + streamed tails)."""
         self.obs.metrics.counter("prefill_tokens_total").inc(int(n))
 
-    def _record_step(self, t0: float, builds_before: int):
-        """The step-time histogram, tagged ``compile="true"`` when the step
-        paid for a kernel build (the port's twin of a JAX compile)."""
-        compiled = "true" if _build.builds_done() > builds_before else "false"
+    def _record_step(self, t0: float, builds_before: int, batch: int):
+        """Shared per-step bookkeeping: the ``step_s`` histogram, tagged
+        ``compile="true"`` when the step paid for a kernel build (the
+        port's twin of a JAX compile), and the ``decode_step`` X event on
+        the engine track."""
+        compiled = _build.builds_done() > builds_before
         dt = time.perf_counter() - t0
         if self.watchdog is not None:
             self.watchdog.observe(self.step_count, dt)
-        self.obs.metrics.histogram("step_s", compile=compiled).observe(dt)
+        self.obs.metrics.histogram(
+            "step_s", compile="true" if compiled else "false").observe(dt)
+        self.obs.tracer.complete(
+            "decode_step", cat="step", ts=self.obs.tracer.ts_of(t0),
+            dur=dt * 1e6, track="engine", step=self.step_count,
+            batch=batch, compiled=compiled)
 
 
 # ===========================================================================
@@ -389,6 +405,11 @@ class ServingEngine(_EngineCore):
         self.queue: List[Request] = []
         self._gen = torch.Generator(device=self.device).manual_seed(ecfg.seed)
         self._traffic = _OpTrafficMeter(cfg, metrics=self.obs.metrics)
+        self.obs.recompiles.fixed(params)
+        self._decode = self.obs.wrap_step(partial(M.decode_step, cfg=cfg),
+                                          "engine.decode")
+        self._prefill = self.obs.wrap_step(partial(M.prefill, cfg=cfg),
+                                           "engine.prefill")
 
     def _enqueue(self, req: Request):
         self.queue.append(req)
@@ -427,17 +448,22 @@ class ServingEngine(_EngineCore):
             self._prefill_into(slot, self.queue.pop(0))
 
     def _prefill_into(self, slot: int, req: Request):
-        self.obs.lifecycle.phase(req.rid, "prefill", t=time.perf_counter())
+        t_p0 = time.perf_counter()
+        self.obs.lifecycle.phase(req.rid, "prefill", t=t_p0)
         S = int(req.prompt.shape[0])
         self._count_prefill(S)
         prompt = torch.as_tensor(req.prompt, dtype=torch.int64,
                                  device=self.device)[None]
-        logits, row_caches = M.prefill(self.params, self.cfg,
-                                       {"tokens": prompt})
+        logits, row_caches = self._prefill(self.params,
+                                           batch={"tokens": prompt})
         M.write_row(self.caches, row_caches, slot, S)
         tok = int(sample(logits, self.ecfg.sampling, self._gen)[0])
         req.t_first = time.perf_counter()
         self.obs.lifecycle.first_token(req.rid, t=req.t_first)
+        self.obs.tracer.complete(
+            "prefill", cat="prefill", ts=self.obs.tracer.ts_of(t_p0),
+            dur=(req.t_first - t_p0) * 1e6, track="engine",
+            rid=req.rid, tokens=S)
         req.output.append(tok)
         hit_eos = req.eos_id is not None and tok == req.eos_id
         if len(req.output) >= req.max_new_tokens or hit_eos:
@@ -455,15 +481,15 @@ class ServingEngine(_EngineCore):
         builds = _build.builds_done()
         t0 = time.perf_counter()
         lengths = torch.from_numpy(self.lengths).to(self.device)
-        logits, self.caches = M.decode_step(self.params, self.cfg,
-                                            self.cur_tokens, self.caches,
-                                            lengths, seed=self.step_count)
+        logits, self.caches = self._decode(
+            self.params, tokens=self.cur_tokens, caches=self.caches,
+            lengths=lengths, seed=self.step_count)
         toks = sample(logits, self.ecfg.sampling, self._gen)
         self.lengths = self.lengths + self.active.astype(np.int32)
         self.cur_tokens = toks
         # the sampled tokens are the step's single device->host sync
         toks_np = toks.cpu().numpy()
-        self._record_step(t0, builds)
+        self._record_step(t0, builds, batch=int(self.active.sum()))
         lengths_np = self.lengths
         self._traffic.account_units(
             [max(int(n), 1) for n in lengths_np[self.active]])
@@ -557,7 +583,9 @@ class PagedServingEngine(_EngineCore):
             prefix_cache=pcfg.prefix_cache,
             prefix_store_pages=pcfg.prefix_store_pages)
         self.pool.attach_obs(self.obs)
+        self.obs.recompiles.fixed(params)
         self.sched = Scheduler(pcfg.scheduler)
+        self.sched.obs = self.obs
         self.active: Dict[int, _Active] = {}
         self.rows: List[Optional[int]] = [None] * pcfg.max_decode_batch
         self.spilled: Dict[int, Tuple[SpilledRequest, List[int], int]] = {}
@@ -583,6 +611,8 @@ class PagedServingEngine(_EngineCore):
         #: rid -> consecutive failed admission attempts (degradation rung)
         self._admit_fails: Dict[int, int] = {}
         self._gen = torch.Generator(device=self.device).manual_seed(pcfg.seed)
+        self._prefill = self.obs.wrap_step(partial(M.prefill, cfg=cfg),
+                                           "engine.prefill")
         if pages_for(pcfg.prefill_chunk) > self.pool.usable_pages:
             raise ValueError("prefill_chunk does not fit the page pool")
         # --- speculative decoding (serving/spec) ---
@@ -854,6 +884,8 @@ class PagedServingEngine(_EngineCore):
         if entry is not None:
             self.pool.drop_spilled(entry[0], rid)
         self.obs.metrics.counter("blob_corruptions_total").inc()
+        self.obs.tracer.instant("fault.blob_corrupt_detected", cat="fault",
+                                track="engine", rid=rid)
         n = self._reprefills.get(rid, 0)
         if req.parent_rid is not None or n >= REPREFILL_CAP:
             # a fork child's shared prefix belongs to its parent -- its own
@@ -928,7 +960,8 @@ class PagedServingEngine(_EngineCore):
             self.pool.note_prefix_miss()
         src = (np.asarray(replay, np.int32) if replay is not None
                else req.prompt)
-        self.obs.lifecycle.phase(req.rid, "prefill", t=time.perf_counter())
+        t_p0 = time.perf_counter()
+        self.obs.lifecycle.phase(req.rid, "prefill", t=t_p0)
         s0 = self._bucket_prefill_len(len(src))
         if not self._retry("alloc",
                            lambda: self.pool.register(req.rid, pages_for(s0))):
@@ -939,14 +972,19 @@ class PagedServingEngine(_EngineCore):
         self._count_prefill(len(src))
         prompt = torch.as_tensor(src[:s0], dtype=torch.int64,
                                  device=self.device)[None]
-        logits, row_caches = M.prefill(self.params, self.cfg,
-                                       {"tokens": prompt})
+        logits, row_caches = self._prefill(self.params,
+                                           batch={"tokens": prompt})
         self.pool.insert_prefill(req.rid, row_caches)
         if replay is None and s0 % PAGE_TOKENS == 0:
             # the prefilled pages are full and immutable: remember them in
             # the prefix store for future requests sharing this prompt
             # (replay streams contain generated tokens -- never stored)
             self.pool.store_insert(req.rid, req.prompt[:s0])
+        self.obs.tracer.complete(
+            "prefill", cat="prefill", ts=self.obs.tracer.ts_of(t_p0),
+            dur=(time.perf_counter() - t_p0) * 1e6, track="engine",
+            rid=req.rid, tokens=s0, chunked=bool(len(src) > s0),
+            replay=bool(replay is not None))
         a = _Active(req, length=s0, pending=list(map(int, src[s0:])),
                     cur_token=-1, replayed=replay is not None)
         if not a.pending:
@@ -1101,7 +1139,8 @@ class PagedServingEngine(_EngineCore):
         toks = sample(logits, self.pcfg.sampling, self._gen)
         # the sampled tokens are the step's device->host sync
         toks_np = toks.cpu().numpy()
-        self._record_step(t0, builds)
+        self._record_step(
+            t0, builds, batch=sum(1 for r in self.rows if r is not None))
         self._account_step(lengths, 1)
 
         for row, rid in enumerate(self.rows):
@@ -1159,6 +1198,9 @@ class PagedServingEngine(_EngineCore):
         self.obs.metrics.gauge("bank_conflict_factor").set(
             bank["conflict_factor"])
         self.obs.metrics.gauge("bank_step_us").set(bank["t_real_us"])
+        self.obs.tracer.counter("bank_traffic", bank)
+        self.obs.tracer.counter("pool", {"occupancy": self._occ[-1],
+                                         "fragmentation": self._frag[-1]})
 
     # ------------- the speculative decode step -------------
 
@@ -1250,7 +1292,8 @@ class PagedServingEngine(_EngineCore):
         # bookkeeping -- prompt rows too: their garbage padding advanced
         # the recurrent state
         self.pool.commit_spec(self.rows, snaps, sel)
-        self._record_step(t0, builds)
+        self._record_step(
+            t0, builds, batch=sum(1 for r in self.rows if r is not None))
         self._account_step(lengths, n)
         n_proposed = n_accepted = n_steps = 0
         for row, rid in enumerate(self.rows):
@@ -1302,6 +1345,9 @@ class PagedServingEngine(_EngineCore):
         m.counter("spec_proposed_tokens_total").inc(n_proposed)
         m.counter("spec_accepted_tokens_total").inc(n_accepted)
         m.counter("spec_verify_steps_total").inc(n_steps)
+        if n_steps:
+            self.obs.tracer.counter(
+                "spec", {"proposed": n_proposed, "accepted": n_accepted})
 
     def _rejection_sample(self, probs: np.ndarray, d: List[int],
                           row: int) -> List[int]:
@@ -1347,9 +1393,12 @@ class PagedServingEngine(_EngineCore):
         """The ``slow_step`` fault: sleep inside the timed window, so the
         watchdog sees (and flags) the blown budget."""
         if self.faults is not None and self.faults.should_fire("slow_step"):
+            stall_s = self.faults.param("slow_step", "ms") / 1000.0
             self.obs.metrics.counter("faults_injected_total",
                                      site="slow_step").inc()
-            time.sleep(self.faults.param("slow_step", "ms") / 1000.0)
+            self.obs.tracer.instant("fault.slow_step", cat="fault",
+                                    track="engine", ms=stall_s * 1e3)
+            time.sleep(stall_s)
 
     def _guard(self, logits: torch.Tensor):
         """Apply scheduled ``nan`` faults, then (with the guard on) find the
@@ -1374,6 +1423,8 @@ class PagedServingEngine(_EngineCore):
                 logits[row] = float("nan")
                 self.obs.metrics.counter("faults_injected_total",
                                          site="nan").inc()
+                self.obs.tracer.instant("fault.nan", cat="fault",
+                                        track="engine", rid=rid, row=row)
         return logits
 
     def _scan_nonfinite(self, logits: torch.Tensor) -> set:
@@ -1394,6 +1445,8 @@ class PagedServingEngine(_EngineCore):
         self._spec_release(rid)
         self.pool.release(rid)
         self.obs.metrics.counter("quarantines_total").inc()
+        self.obs.tracer.instant("fault.quarantine", cat="fault",
+                                track="engine", rid=rid)
         self._finalize(a.req, "failed", detail=reason)
 
     def _break_stall(self) -> None:

@@ -29,6 +29,7 @@ tier, async prefetch and the prefix store extend this class in
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -42,6 +43,41 @@ from repro_torch.serving.memory.layout import CachePaging
 from repro_torch.serving.memory.placement import (BankAwarePlacement,
                                                   BankTopology)
 from repro_torch.serving.resilience import crc_blob, verify_blob
+
+
+def _paged_step(paging: CachePaging, cfg: ModelConfig, params, pools, bt,
+                slabs, lengths, tokens, seed) -> torch.Tensor:
+    """Block-table-native step: the layout="paged" ops read pages and slab
+    rows where they live and write the new token / state back in place --
+    no gathered dense cache exists in the steady-state loop."""
+    views = paging.paged_view(pools, bt, slabs, lengths)
+    logits, views = M.paged_decode_step(params, cfg, tokens, views, lengths,
+                                        seed=seed)
+    paging.commit(pools, views, slabs)
+    return logits
+
+
+def _spec_step(paging: CachePaging, cfg: ModelConfig, params, pools, bt,
+               slabs, lengths, tokens, seed):
+    """Speculative verify step: tokens (B, n) through the paged caches in
+    one pass; the per-position state snapshots come back so ``commit_spec``
+    can roll rejected positions back bit-exactly."""
+    views = paging.paged_view(pools, bt, slabs, lengths)
+    logits, views, snaps = M.paged_spec_decode_step(
+        params, cfg, tokens, views, lengths, seed=seed)
+    paging.commit(pools, views, slabs)
+    return logits, snaps
+
+
+def _gather_step(paging: CachePaging, cfg: ModelConfig, params, pools, bt,
+                 slabs, lengths, tokens, seed) -> torch.Tensor:
+    """Dense-gather reference step: gather the context, run the dense ops,
+    scatter one token back (bit-exact parity checks)."""
+    caches = paging.gather(pools, bt, slabs, lengths)
+    logits, caches = M.decode_step(params, cfg, tokens, caches, lengths,
+                                   seed=seed)
+    paging.scatter_step(pools, caches, bt, slabs, lengths)
+    return logits
 
 
 def bucket_pages(npg: int) -> int:
@@ -109,6 +145,16 @@ class PagedStatePool:
         self.n_slabs = int(n_slabs)
 
         self.pools = self.paging.make_pools(self.n_pages, self.n_slabs)
+        # the steppers over the pools (in place); ``attach_obs`` puts the
+        # recompile watcher around each, under the JAX package's site names.
+        # None holds the pool itself: a pool dropped by its engine frees its
+        # device memory at once, without waiting for the cycle collector
+        self._decode = partial(_paged_step, self.paging, cfg)
+        self._decode_spec = partial(_spec_step, self.paging, cfg)
+        self._commit_spec = self.paging.commit_select
+        self._decode_gather = partial(_gather_step, self.paging, cfg)
+        self._insert = self.paging.insert_request
+        self._insert_blob = self.paging.insert_blob
         if topology is None:
             # size the coordinate space to the pool, so the conflict score
             # compares against a *reachable* ideal spread
@@ -150,20 +196,41 @@ class PagedStatePool:
         self.faults = None
 
     def attach_obs(self, obs) -> None:
-        """Attach an engine's observability bundle: the placement mirrors
-        page alloc / free / ref into its metrics registry."""
+        """Attach an engine's :class:`repro_torch.obs.Observability`
+        bundle: the pool steppers get recompile watchers, the placement
+        mirrors page alloc / free / ref into the metrics registry, and page
+        movement (register / grow / fork / spill / resume / release) emits
+        instants on the pool track."""
         self._obs = obs
+        obs.recompiles.fixed(self.pools)
+        self._decode = obs.wrap_step(self._decode, "pool.decode")
+        self._decode_spec = obs.wrap_step(self._decode_spec,
+                                          "pool.decode_spec")
+        self._commit_spec = obs.wrap_step(self._commit_spec,
+                                          "pool.commit_spec")
+        self._decode_gather = obs.wrap_step(self._decode_gather,
+                                            "pool.decode_gather")
+        self._insert = obs.wrap_step(self._insert, "pool.prefill_insert")
+        self._insert_blob = obs.wrap_step(self._insert_blob,
+                                          "pool.resume_insert")
         self.placement.metrics = obs.metrics
+
+    def _instant(self, name: str, **args) -> None:
+        if self._obs is not None:
+            self._obs.tracer.instant(name, cat="pool", track="pool", **args)
 
     def _inject(self, site: str, rid: Optional[int] = None,
                 what: str = "") -> bool:
         """One fault-plan consult: True means the caller must fail now.
-        Fires are mirrored into ``faults_injected_total{site=}``."""
+        Fires are mirrored into ``faults_injected_total{site=}`` and a
+        ``cat="fault"`` trace instant."""
         if self.faults is None or not self.faults.should_fire(site, rid=rid):
             return False
         if self._obs is not None:
             self._obs.metrics.counter("faults_injected_total",
                                       site=site).inc()
+            self._obs.tracer.instant(f"fault.{site}", cat="fault",
+                                     track="pool", rid=rid, what=what)
         return True
 
     def _account_gather(self, nbytes: float) -> None:
@@ -207,6 +274,7 @@ class PagedStatePool:
         self.page_table[rid] = pages
         self.slab_of[rid] = self._free_slabs.pop()
         self.pages_allocated += n_pages
+        self._instant("pool.register", rid=rid, pages=n_pages)
         return True
 
     def grow(self, rid: int, n_new: int) -> bool:
@@ -218,6 +286,7 @@ class PagedStatePool:
             return False
         self.page_table[rid].extend(pages)
         self.pages_allocated += n_new
+        self._instant("pool.grow", rid=rid, pages=n_new)
         return True
 
     def release(self, rid: int):
@@ -227,6 +296,7 @@ class PagedStatePool:
         pages = self.page_table.pop(rid)
         self.placement.unref(pages)
         self._free_slabs.append(self.slab_of.pop(rid))
+        self._instant("pool.release", rid=rid, pages=len(pages))
 
     def fork(self, parent_rid: int, child_rid: int, length: int) -> bool:
         """Copy-on-write fork: the child shares the parent's full prefix
@@ -261,6 +331,8 @@ class PagedStatePool:
         else:
             self.paging.copy_slab(self.pools, src_slab, slab)
             self._account_gather(self.slab_nbytes)
+        self._instant("pool.fork", parent=parent_rid, child=child_rid,
+                      shared_pages=len(shared), copied_pages=len(new_pages))
         if self._obs is not None:
             self._obs.metrics.counter("forks_total").inc()
             self._obs.metrics.counter(
@@ -277,9 +349,8 @@ class PagedStatePool:
 
     def insert_prefill(self, rid: int, row_caches):
         """Pin a prefilled B=1 cache row (T must equal npg*PAGE_TOKENS)."""
-        self.paging.insert_request(self.pools, row_caches,
-                                   self._ids(self.page_table[rid]),
-                                   self.slab_of[rid])
+        self._insert(self.pools, row_caches, self._ids(self.page_table[rid]),
+                     self.slab_of[rid])
         self._account_gather(self.request_nbytes(len(self.page_table[rid])))
 
     def spill(self, rid: int, length: int) -> SpilledRequest:
@@ -299,6 +370,8 @@ class PagedStatePool:
         self.placement.unref(priv)
         self._free_slabs.append(self.slab_of.pop(rid))
         self._account_gather(self.request_nbytes(len(priv)))
+        self._instant("pool.spill", rid=rid, private_pages=len(priv),
+                      shared_pages=len(shared))
         # checksum the host copy at the tier boundary: resume verifies it
         return SpilledRequest(blob, len(pages), length,
                               private_idx=private_idx, shared=shared,
@@ -327,8 +400,10 @@ class PagedStatePool:
         self.page_table[rid] = table
         slab = self._free_slabs.pop()
         self.slab_of[rid] = slab
-        self.paging.insert_blob(self.pools, sp.blob, self._ids(fresh), slab)
+        self._insert_blob(self.pools, sp.blob, self._ids(fresh), slab)
         self._account_gather(self.request_nbytes(sp.pages_needed))
+        self._instant("pool.resume", rid=rid, pages=sp.pages_needed,
+                      shared_pages=len(sp.shared))
         return True
 
     def drop_spilled(self, sp: SpilledRequest, rid: Optional[int] = None):
@@ -393,17 +468,9 @@ class PagedStatePool:
         pools; ``"gather"`` the dense-gather reference path.
         """
         bt, slabs, lens, toks = self._step_tensors(rids, lengths, tokens)
-        if self.decode_mode == "paged":
-            views = self.paging.paged_view(self.pools, bt, slabs, lens)
-            logits, views = M.paged_decode_step(params, self.cfg, toks,
-                                                views, lens, seed=seed)
-            self.paging.commit(self.pools, views, slabs)
-        else:
-            caches = self.paging.gather(self.pools, bt, slabs, lens)
-            logits, caches = M.decode_step(params, self.cfg, toks, caches,
-                                           lens, seed=seed)
-            self.paging.scatter_step(self.pools, caches, bt, slabs, lens)
-        return logits
+        step = (self._decode if self.decode_mode == "paged"
+                else self._decode_gather)
+        return step(params, self.pools, bt, slabs, lens, toks, seed)
 
     def decode_spec(self, params, rids: Sequence[Optional[int]],
                     tokens: np.ndarray, lengths: np.ndarray, seed: int,
@@ -421,11 +488,8 @@ class PagedStatePool:
                              "native path (decode_mode='paged')")
         bt, slabs, lens, toks = self._step_tensors(rids, lengths, tokens,
                                                    min_pages)
-        views = self.paging.paged_view(self.pools, bt, slabs, lens)
-        logits, views, snaps = M.paged_spec_decode_step(
-            params, self.cfg, toks, views, lens, seed=seed)
-        self.paging.commit(self.pools, views, slabs)
-        return logits, snaps
+        return self._decode_spec(params, self.pools, bt, slabs, lens, toks,
+                                 seed)
 
     def commit_spec(self, rids: Sequence[Optional[int]], snaps,
                     sel: np.ndarray) -> None:
@@ -433,7 +497,7 @@ class PagedStatePool:
         (``sel`` (B,), an index into the verify step's n positions).  KV
         needs no rollback -- the engine's host lengths mask rejected rows
         and later appends overwrite them."""
-        self.paging.commit_select(
+        self._commit_spec(
             self.pools, snaps, self._slabs(rids),
             torch.as_tensor(np.asarray(sel, np.int64), device=self.device))
 

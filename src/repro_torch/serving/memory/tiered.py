@@ -35,6 +35,12 @@ return to the free list.  Every temporary of the copy is allocated and used
 on the side stream; the pinned blob stays referenced until commit or
 cancel.  Demotion, promotion and state snapshots copy on the current stream:
 a page or a slab row each, small next to a step.
+
+In the trace, a prefetch is one ``b``/``e`` span on the pool track, emitted
+closed at commit or cancel: it runs from the host's issue of the copy to
+the commit (host time; the copy on the side stream is not timed here).
+Tier movement is ``cat="tier"`` instants (promote / demote / prefix_hit /
+evict / store_insert).
 """
 from __future__ import annotations
 
@@ -104,6 +110,7 @@ class _Staged:
     slab: int
     sp: SpilledRequest      # holds the pinned blob until commit / cancel
     done: Optional[torch.cuda.Event]   # side-stream completion (None: CPU)
+    ts0: float              # tracer timestamp when the copy was issued
 
 
 def _blob_nbytes(blob) -> float:
@@ -132,13 +139,37 @@ class TieredStatePool(PagedStatePool):
         self.prefetch_commits = 0
         self.prefetch_cancels = 0
         self._has_slabs = any(s.kind == "slab" for s in self.paging.specs)
+        # tier movement steppers: bare page stacks and slab rows (the units
+        # of store demotion / promotion and state-snapshot capture)
+        self._extract_pages = self.paging.extract_pages
+        self._insert_pages = self.paging.insert_pages
+        self._extract_slab = self.paging.extract_slab
+        self._insert_slab = self.paging.insert_slab
         #: the prefetch copies' stream (the card only)
         self.copy_stream = (torch.cuda.Stream(self.device)
                             if self.device.type == "cuda" else None)
 
+    def attach_obs(self, obs) -> None:
+        super().attach_obs(obs)
+        self._extract_pages = obs.wrap_step(self._extract_pages,
+                                            "pool.tier_extract")
+        self._insert_pages = obs.wrap_step(self._insert_pages,
+                                           "pool.tier_insert")
+        self._extract_slab = obs.wrap_step(self._extract_slab,
+                                           "pool.slab_extract")
+        self._insert_slab = obs.wrap_step(self._insert_slab,
+                                          "pool.slab_insert")
+
     def _tier_metric(self, name: str, v: float = 1.0, **labels) -> None:
         if self._obs is not None:
             self._obs.metrics.counter(name, **labels).inc(v)
+
+    def _tier_instant(self, name: str, **args) -> None:
+        if self._obs is not None:
+            self._obs.tracer.instant(name, cat="tier", track="pool", **args)
+
+    def _now_us(self) -> float:
+        return self._obs.tracer.now_us() if self._obs is not None else 0.0
 
     def _sync_host_gauge(self) -> None:
         if self._obs is not None:
@@ -158,6 +189,7 @@ class TieredStatePool(PagedStatePool):
         nbytes = _blob_nbytes(sp.blob)
         self._pin_with_retry(rid, nbytes)
         self._tier_metric("demote_bytes_total", nbytes, kind="spill")
+        self._tier_instant("tier.demote", rid=rid, bytes=nbytes, kind="spill")
         self._sync_host_gauge()
         return sp
 
@@ -186,6 +218,9 @@ class TieredStatePool(PagedStatePool):
         # budget by contract) and record the degradation
         self.host.pin(rid, nbytes)
         self._tier_metric("degradations_total", rung="force_pin")
+        if self._obs is not None:
+            self._obs.tracer.instant("fault.host_pin_forced", cat="fault",
+                                     track="pool", rid=rid)
 
     def resume(self, rid: int, sp: SpilledRequest) -> bool:
         """Synchronous resume -- the fallback when no prefetch was staged.
@@ -205,6 +240,8 @@ class TieredStatePool(PagedStatePool):
         nbytes = self.host.unpin(rid)
         self._tier_metric("tier_miss_total", kind="resume")
         self._tier_metric("promote_bytes_total", nbytes, kind="resume")
+        self._tier_instant("tier.promote", rid=rid, bytes=nbytes,
+                           kind="resume")
         self._sync_host_gauge()
         return True
 
@@ -238,10 +275,12 @@ class TieredStatePool(PagedStatePool):
         self.pages_allocated += need
         self.prefetch_begun += 1
         slab = self._free_slabs.pop()
+        # the span's start: the host's issue of the copy (the copy itself
+        # runs on the side stream and is not timed here)
+        ts0 = self._now_us()
         done = None
         if self.copy_stream is None:
-            self.paging.insert_blob(self.pools, sp.blob, self._ids(pages),
-                                    slab)
+            self._insert_blob(self.pools, sp.blob, self._ids(pages), slab)
         else:
             # every host-to-device copy here reads pinned memory: one from
             # pageable memory would make the host wait for the stream, and
@@ -250,12 +289,13 @@ class TieredStatePool(PagedStatePool):
             self.copy_stream.wait_stream(
                 torch.cuda.current_stream(self.device))
             with torch.cuda.stream(self.copy_stream):
-                self.paging.insert_blob(
-                    self.pools, sp.blob,
-                    ids.to(self.device, non_blocking=True), slab)
+                self._insert_blob(self.pools, sp.blob,
+                                  ids.to(self.device, non_blocking=True),
+                                  slab)
                 done = torch.cuda.Event()
                 done.record(self.copy_stream)
-        self._staged[rid] = _Staged(pages, slab, sp, done)
+        self._staged[rid] = _Staged(pages, slab, sp, done, ts0)
+        self._tier_instant("prefetch.dispatch", rid=rid, pages=need)
         return True
 
     def prefetch_ready(self, rid: int) -> bool:
@@ -289,6 +329,13 @@ class TieredStatePool(PagedStatePool):
         self._tier_metric("tier_hit_total", kind="prefetch")
         self._tier_metric("promote_bytes_total", nbytes, kind="prefetch")
         self._sync_host_gauge()
+        if self._obs is not None:
+            # emitted closed: an uncommitted prefetch never leaves a
+            # dangling ``b`` in the trace
+            self._obs.tracer.async_span(
+                "prefetch", rid, cat="prefetch", ts0=st.ts0,
+                ts1=self._now_us(), track="pool", rid=rid,
+                pages=sp.pages_needed)
         return True
 
     def prefetch_cancel(self, rid: int) -> None:
@@ -302,6 +349,10 @@ class TieredStatePool(PagedStatePool):
         self.placement.unref(st.pages)
         self._free_slabs.append(st.slab)
         self.prefetch_cancels += 1
+        if self._obs is not None:
+            self._obs.tracer.async_span(
+                "prefetch", rid, cat="prefetch", ts0=st.ts0,
+                ts1=self._now_us(), track="pool", rid=rid, canceled=True)
 
     # ------------------------------------------------------------------
     # prefix store: match / admit / insert / tiering
@@ -339,6 +390,7 @@ class TieredStatePool(PagedStatePool):
         for n in cold:
             if not self.promote_node(n):
                 return False
+        warm = len(nodes) - len(cold)
         pages = [n.device_page for n in nodes]
         self.placement.ref(pages)
         self.shared_page_hits += len(pages)
@@ -346,13 +398,15 @@ class TieredStatePool(PagedStatePool):
         slab = self._free_slabs.pop()
         self.slab_of[rid] = slab
         if self._has_slabs:
-            self.paging.insert_slab(self.pools, nodes[-1].state, slab)
+            self._insert_slab(self.pools, nodes[-1].state, slab)
             self._account_gather(self.slab_nbytes)
         self.store.touch(nodes)
         self.prefix_hits += 1
         self.prefix_hit_pages += len(nodes)
         self.prefix_hit_tokens += len(nodes) * PAGE_TOKENS
         self._tier_metric("tier_hit_total", kind="prefix")
+        self._tier_instant("tier.prefix_hit", rid=rid, pages=len(nodes),
+                           warm=warm, cold=len(cold))
         return True
 
     def note_prefix_miss(self) -> None:
@@ -363,8 +417,7 @@ class TieredStatePool(PagedStatePool):
         """Host copy of ``rid``'s recurrent-state slab row (may be [])."""
         if not self._has_slabs:
             return []
-        return host_copy(self.paging.extract_slab(self.pools,
-                                                  self.slab_of[rid]))
+        return host_copy(self._extract_slab(self.pools, self.slab_of[rid]))
 
     def store_insert(self, rid: int, tokens: Sequence[int]) -> int:
         """Record ``rid``'s pages for the exact-page-boundary prefix
@@ -388,6 +441,9 @@ class TieredStatePool(PagedStatePool):
             self.host.cache_add(_blob_nbytes(state))
             self._account_gather(self.slab_nbytes)
             self._sync_host_gauge()
+        if created:
+            self._tier_instant("tier.store_insert", rid=rid,
+                               pages=len(created), depth=len(path))
         self._enforce_store_capacity()
         return len(created)
 
@@ -413,7 +469,7 @@ class TieredStatePool(PagedStatePool):
             if node.is_leaf:
                 self.evict_node(node)
             return False
-        node.host_blob = host_copy(self.paging.extract_pages(
+        node.host_blob = host_copy(self._extract_pages(
             self.pools, self._ids([node.device_page])))
         node.host_crc = crc_blob(node.host_blob)
         if self._inject("blob_corrupt", what="store_demote"):
@@ -423,6 +479,8 @@ class TieredStatePool(PagedStatePool):
         self.host.cache_add(nbytes)
         self._account_gather(nbytes)
         self._tier_metric("demote_bytes_total", float(nbytes), kind="store")
+        self._tier_instant("tier.demote", node=node.node_id,
+                           bytes=float(nbytes), kind="store")
         self._sync_host_gauge()
         return True
 
@@ -440,6 +498,7 @@ class TieredStatePool(PagedStatePool):
         except BlobCorruption:
             self._evict_subtree(node)
             self._tier_metric("faults_recovered_total", site="store_promote")
+            self._tier_instant("tier.store_corrupt", node=node.node_id)
             return False
         if self._inject("alloc", what="promote"):
             return False
@@ -447,7 +506,7 @@ class TieredStatePool(PagedStatePool):
         if got is None:
             return False
         self.pages_allocated += 1
-        self.paging.insert_pages(self.pools, node.host_blob, self._ids(got))
+        self._insert_pages(self.pools, node.host_blob, self._ids(got))
         node.device_page = got[0]
         node.host_blob = None
         node.host_crc = None
@@ -455,6 +514,8 @@ class TieredStatePool(PagedStatePool):
         self.host.cache_drop(nbytes)
         self._account_gather(nbytes)
         self._tier_metric("promote_bytes_total", float(nbytes), kind="store")
+        self._tier_instant("tier.promote", node=node.node_id,
+                           bytes=float(nbytes), kind="store")
         self._sync_host_gauge()
         return True
 
@@ -472,6 +533,7 @@ class TieredStatePool(PagedStatePool):
         if node.state is not None:
             self.host.cache_drop(_blob_nbytes(node.state))
             node.state = None
+        self._tier_instant("tier.evict", node=node.node_id)
         self._sync_host_gauge()
 
     def _evict_subtree(self, node: StoredPage) -> int:
@@ -572,4 +634,6 @@ class TieredStatePool(PagedStatePool):
             if not node.resident and self.free_pages > 1:
                 if self.promote_node(node):
                     n += 1
+        if n:
+            self._tier_instant("prefetch.prefix", pages=n)
         return n

@@ -124,8 +124,8 @@ class StepWatchdog:
 
     ``observe(step, dt)`` compares a step's duration against the budget;
     disabled (zero cost) when the budget is None.  The watchdog only
-    *flags* -- a slow step feeds ``watchdog_trips_total``, it never aborts
-    work.
+    *flags* -- a slow step feeds the obs stream (``watchdog_trips_total``,
+    a ``cat="fault"`` instant), it never aborts work.
     """
 
     def __init__(self, budget_s: Optional[float], obs=None):
@@ -139,7 +139,7 @@ class StepWatchdog:
         return self.budget_s is not None
 
     def observe(self, step: int, dt: float) -> bool:
-        """True when the step blew its budget (after counting it)."""
+        """True when the step blew its budget (after reporting it)."""
         if self.budget_s is None:
             return False
         self.slowest_s = max(self.slowest_s, dt)
@@ -148,4 +148,7 @@ class StepWatchdog:
         self.trips += 1
         if self.obs is not None:
             self.obs.metrics.counter("watchdog_trips_total").inc()
+            self.obs.tracer.instant(
+                "watchdog.slow_step", cat="fault", track="engine",
+                step=step, dt_s=dt, budget_s=self.budget_s)
         return True

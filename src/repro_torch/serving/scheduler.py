@@ -42,6 +42,15 @@ class Scheduler:
         # skipped by peek/pop and pruned as they surface
         self._gone: Set[int] = set()
         self._n_live = 0
+        #: optional repro_torch.obs.Observability -- the owning engine
+        #: attaches its bundle so queue transitions land on the scheduler
+        #: track
+        self.obs = None
+
+    def _instant(self, name: str, **args):
+        if self.obs is not None:
+            self.obs.tracer.instant(name, cat="sched", track="scheduler",
+                                    **args)
 
     def _key(self, req, resumed: bool = False) -> tuple:
         boost = -1 if (resumed and self.cfg.resume_boost) else 0
@@ -62,6 +71,8 @@ class Scheduler:
         heapq.heappush(self._heap,
                        (self._key(req, resumed), next(self._seq), req))
         self._n_live += 1
+        self._instant("sched.enqueue", rid=req.rid, resumed=resumed,
+                      policy=self.cfg.policy)
 
     def _prune(self):
         while self._heap and self._heap[0][2].rid in self._gone:
@@ -75,7 +86,9 @@ class Scheduler:
     def pop(self):
         self._prune()
         self._n_live -= 1
-        return heapq.heappop(self._heap)[2]
+        req = heapq.heappop(self._heap)[2]
+        self._instant("sched.dispatch", rid=req.rid)
+        return req
 
     def remove(self, rid: int):
         """Abort support: drop a waiting request from the heap.  Returns the
@@ -85,6 +98,7 @@ class Scheduler:
             if req.rid == rid and rid not in self._gone:
                 self._gone.add(rid)
                 self._n_live -= 1
+                self._instant("sched.cancel", rid=rid)
                 return req
         return None
 

@@ -517,6 +517,35 @@ def test_paged_smoke_engine_launches_each_kernel_per_layer(cuda):
         0, cfg.n_groups * steps, cfg.n_groups * steps, 0, 0]
 
 
+def test_paged_engine_constant_shapes_one_decode_signature(cuda):
+    """The JAX retrace pin's constant-shape paged workload on the card:
+    equal-length prompts in one page bucket at the full decode batch run
+    at one ``pool.decode`` signature (warmup only), and the trace
+    validates."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.obs import trace_features, validate_chrome_trace
+    from repro_torch.serving.engine import (PagedEngineConfig,
+                                            PagedServingEngine, Request)
+    cfg = get_smoke_config("llama3.2-1b")
+    params = M.init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                          device=cuda)
+    eng = PagedServingEngine(params, cfg, PagedEngineConfig(
+        max_decode_batch=4, n_pages=9, n_slabs=9, prefill_chunk=128))
+    rng = np.random.default_rng(0)
+    for i in range(4):
+        eng.submit(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, 12).astype(np.int32), max_new_tokens=4))
+    done = eng.run()
+    assert len(done) == 4 and all(len(r.output) == 4 for r in done)
+    assert eng.pool._decode.n_compiles == 1
+    assert eng.obs.recompiles.counts()["pool.decode"] == 1
+    assert eng.obs.recompiles.n_recompiles == 0
+    obj = eng.obs.tracer.to_chrome()
+    assert validate_chrome_trace(obj) == []
+    assert {"steps", "spans", "bank", "recompile"} <= trace_features(obj)
+
+
 def test_smoke_engine_launches_each_kernel_per_layer(cuda):
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import model as M

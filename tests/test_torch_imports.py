@@ -58,10 +58,12 @@ def test_port_imports_without_jax_or_repro():
         f"STDOUT:\n{proc.stdout}\nSTDERR:\n{proc.stderr}")
     assert int(proc.stdout.split("IMPORTED")[1].split()[0]) >= 25
     names = set(proc.stdout.split("NAMES")[1].split())
-    # the tiering and resilience modules are in the walk
+    # the tiering, resilience and observability modules are in the walk
     assert {"repro_torch.serving.faults", "repro_torch.serving.resilience",
             "repro_torch.serving.memory.tiered",
-            "repro_torch.serving.memory.prefix_store"} <= names
+            "repro_torch.serving.memory.prefix_store",
+            "repro_torch.obs.trace", "repro_torch.obs.recompile",
+            "repro_torch.obs.schema"} <= names
 
 
 def _imported_roots(path: pathlib.Path):

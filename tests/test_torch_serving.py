@@ -62,7 +62,9 @@ def test_greedy_streams_match_jax_engine(zamba_fp32):
     js, ts = jeng.stats(), teng.stats()
     assert set(js) == set(ts)
     assert ts["tokens"] == js["tokens"] == MAX_NEW * len(prompts)
-    assert ts["recompiles"] == 0.0
+    # the watcher's count of new step signatures, site for site the JAX
+    # engine's count of fresh XLA traces
+    assert ts["recompiles"] == js["recompiles"]
     for k in js:
         if k.startswith("op_traffic_bytes/"):
             assert ts[k] == pytest.approx(js[k], rel=1e-12), k
