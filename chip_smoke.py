@@ -8,9 +8,10 @@ Run from the repository root on a machine with one CUDA card (an H100):
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 against its plain PyTorch version at the shapes the served model gives it,
 times both (with a PyTorch library call as yardstick where one computes the
-same function), then serves ``zamba2-2.7b`` at full width through the slot
-pool, through the paged pool (``Engine``'s default) and through the paged
-pool with speculative decoding, then ``deepseek-v2-236b`` at full width
+same function), then serves ``zamba2-2.7b`` at full width (24 of its 54
+layers: 4 of its 9 groups) through the slot pool, through the paged pool
+(``Engine``'s default) and through the paged pool with speculative
+decoding, then ``deepseek-v2-236b`` at full width
 (depth cut to 4 of its 60 layers: 53.2 GB of fp32 weights) through the same
 three paths, then the paper's GLA-family models at full width and all 32
 layers: ``gla-2.7b`` through the same three paths, ``retnet-2.7b`` and
@@ -34,7 +35,8 @@ width: the host tier in pinned memory, the prefetch on a side stream, the
 radix prefix store (warm and cold hits through the same kernels) and the
 resilience layer; every engine writes its structured trace (steps,
 request spans, bank counters, recompile instants), and the launcher runs
-as a user runs it.
+as a user runs it; last, the format study (paper Fig. 4) on the card,
+through kernel 1, and at mamba2-2.7b's full depth.
 Phases, in the order they run:
 
   1. device   2. build   3. exact powers of two   4. state-update kernel
@@ -94,7 +96,20 @@ Phases, in the order they run:
   watcher event; the events and the tracer's and watcher's host
   microseconds per step   63. the launcher in its own process
   (``--paged --mixed --stream --turns 2 --trace``), its trace validated
+  64-65 (after phase 55; the analysis layer): 64. the swamping study
+  (paper Fig. 4's mechanism, ``analysis/formats_study.py``, T = 300) on
+  the card, every format on the torch backend and again with mx8 through
+  kernel 1, held to kernel 1's contract at every step, the Fig. 4
+  orderings asserted, each error beside the CPU port's   65. the format
+  study at model level: mamba2-2.7b at full width and all 64 layers, a
+  16-token prefill and 24 decode steps under fp32, mx8 (both roundings,
+  kernels 1 and 7), int8 and fp8_e5m2 state; logit error and greedy
+  agreement against fp32, each step's time beside its roofline
   8. kernels line
+
+The card's peaks in every bound come from
+``repro_torch.analysis.roofline`` (``HBM_BW``, ``PEAK_FP32_FLOPS``,
+``PEAK_FLOPS``).
 
 Any failure exits non-zero; with no card it fails (it never falls back to
 the CPU).  The last three lines of standard output are the kernels' JSON
@@ -116,11 +131,6 @@ SRC = ROOT / "src"
 #: where the traces go (git-ignored)
 OUT = ROOT / "chiprun_out"
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor)
-#: flop/s, dense bf16 tensor-core flop/s
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_TC_FLOPS = 989e12
 #: the MLA kernels' products: three bf16 terms of the fp32 operand, each a
 #: tensor-core product (csrc/mx_mla_tile.cuh)
 MLA_TERMS = 3
@@ -200,10 +210,10 @@ OTHER_MAX_NEW = 8
 #: the slot paths' decode profiles before the fused dense append, when the
 #: slot pool quantized its appends eagerly: device busy ms and device
 #: operations a step (PERF.md section 5; an H100 80GB HBM3 at 700 W)
-EAGER_APPEND_PROFILE = {"zamba2-2.7b": (19.484, 4673),
-                     "deepseek-v2-236b": (27.336, 857),
-                     "gla-2.7b": (10.696, 1512), "opt-6.7b": (30.158, 7020),
-                     "yi-9b": (41.892, 11478)}
+EAGER_APPEND_PROFILE = {"deepseek-v2-236b": (27.336, 857),
+                        "gla-2.7b": (10.696, 1512),
+                        "opt-6.7b": (30.158, 7020),
+                        "yi-9b": (41.892, 11478)}
 
 
 class SmokeFailure(RuntimeError):
@@ -215,9 +225,14 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+#: the script's start, for each phase line's ``at_s`` (where the time goes)
+T0 = time.perf_counter()
+
+
 def phase(n, name, **fields):
     body = " ".join(f"{k}={v}" for k, v in fields.items())
-    print(f"[{n}] {name}: {body}", flush=True)
+    print(f"[{n}] {name}: {body} at_s={time.perf_counter() - T0:.1f}",
+          flush=True)
 
 
 def nvidia_smi_line():
@@ -438,11 +453,13 @@ def _report(name, ms, plain_ms, lib_ms, host_ms, nbytes, flops,
     and the operations over the peak of their type: fp32 for a kernel that
     computes in fp32 units; for one whose products run on the tensor cores
     (``tc_flops``, bf16 products with their terms counted), that design's
-    own bound, with the fp32 bound printed beside it."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    own bound, with the fp32 bound printed beside it.  The card's peaks
+    come from the port's roofline module."""
+    from repro_torch.analysis.roofline import (HBM_BW, PEAK_FLOPS,
+                                               PEAK_FP32_FLOPS)
+    t_bytes = nbytes / HBM_BW * 1e3
     t_fp32 = flops / PEAK_FP32_FLOPS * 1e3
-    t_ops = t_fp32 if tc_flops is None else \
-        tc_flops / PEAK_BF16_TC_FLOPS * 1e3
+    t_ops = t_fp32 if tc_flops is None else tc_flops / PEAK_FLOPS * 1e3
     bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes >= t_ops else "operations"
     extra = {} if tc_flops is None else dict(
@@ -1314,15 +1331,28 @@ def _payload_bytes(x):
     return 0
 
 
+#: zamba2-2.7b's depth on the main paths: 4 of its 9 groups (24 Mamba-2
+#: layers and 4 shared-attention applications), so the whole script keeps
+#: under 900 s on a slow host (the main paths cost about 5.6 s a layer)
+ZAMBA2_LAYERS = 24
+
+
+def _zamba2_launches(cfg):
+    """(state updates, attention applications) of one zamba2 decode step."""
+    return cfg.pattern.count("mamba2") * cfg.n_groups, cfg.n_groups
+
+
 def _model():
-    """zamba2-2.7b at full width with random weights from a seeded CUDA
-    generator, shared by both main paths."""
+    """zamba2-2.7b at full width and ``ZAMBA2_LAYERS`` deep with random
+    weights from a seeded CUDA generator, shared by both main paths."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
-    cfg = get_config("zamba2-2.7b")
-    check(cfg.n_layers == 54 and cfg.d_model == 2560 and
-          cfg.state_quant.fmt == "mx8" and cfg.state_quant.backend == "cuda",
+    full = get_config("zamba2-2.7b")
+    cfg = full.with_(n_layers=ZAMBA2_LAYERS)
+    check(full.n_layers == 54 and cfg.d_model == 2560 and cfg.shared_attn
+          and cfg.state_quant.fmt == "mx8"
+          and cfg.state_quant.backend == "cuda",
           f"unexpected config {cfg.name}")
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1378,11 +1408,12 @@ def phase_main_path(cfg, params, init_s):
     n_plain_q = PLAIN_QUANT["calls"]
     steps = eng.engine.step_count
     _check_done(handles, cfg)
-    check(steps > 0 and n_su == 54 * steps and n_at == 9 * steps
-          and n_apd == 9 * steps and K7.mx_kv_append_quant.mla_launches == 0
+    L, A = _zamba2_launches(cfg)
+    check(steps > 0 and n_su == L * steps and n_at == A * steps
+          and n_apd == A * steps and K7.mx_kv_append_quant.mla_launches == 0
           and n_q == _k7_per_prefill(cfg) * len(prompts),
           f"launches: state_update {n_su}, attention {n_at}, dense append "
-          f"{n_apd} over {steps} decode steps (want 54x, 9x and 9x), "
+          f"{n_apd} over {steps} decode steps (want {L}x, {A}x and {A}x), "
           f"quantizer {n_q} over {len(prompts)} prefills (want "
           f"{_k7_per_prefill(cfg)}x)")
     check(n_plain_q == 0, f"the plain MX8 quantizer ran {n_plain_q} times "
@@ -1395,13 +1426,14 @@ def phase_main_path(cfg, params, init_s):
     state_bytes = sum(_payload_bytes(c) for grp in caches for c in grp
                       if not isinstance(c, AC.KVCache))
     phase(7, "main path zamba2-2.7b slots", params=n_params,
+          layers=f"{cfg.n_layers} of 54",
+          reduced=repr(f"n_layers 54 -> {cfg.n_layers}"),
           init_s=f"{init_s:.1f}", requests=len(handles), decode_steps=steps,
           launches=f"su={n_su},attn={n_at},dense_append={n_apd},quant={n_q}",
           plain_quantizer_calls_in_steps=n_plain_q, wall_s=f"{wall:.3f}",
           **_step_fields(st), peak_mem_GB=f"{peak / 1e9:.2f}",
           state_MB=f"{state_bytes / 1e6:.2f}", kv_MB=f"{kv_bytes / 1e6:.2f}")
-    prof = _profile_decode(eng, cfg, rng, PROMPT_LENS[:4], 7,
-                           before=EAGER_APPEND_PROFILE[cfg.name])
+    prof = _profile_decode(eng, cfg, rng, PROMPT_LENS[:4], 7)
     _reference_check(params, cfg, prompts[0])
     return dict(n_su=n_su, n_at=n_at, n_apd=n_apd, stats=st, peak=peak,
                 prof=prof, trace=_trace_record(eng, "slots"))
@@ -1461,8 +1493,9 @@ def _paged_vs_gather(eng, cfg, rng, n_steps=4, lens0=(64, 129, 127, 200)):
 def phase_paged_main_path(cfg, params, slot):
     """zamba2-2.7b at full width through ``Engine``'s default paged backend,
     a pool small enough that FCFS preempts; each decode step must launch
-    the slab-mode state update 54 times and the paged attention and fused
-    quantize-and-append kernels 9 times each, and the dense attention
+    the slab-mode state update once a Mamba-2 layer and the paged attention
+    and fused quantize-and-append kernels once a shared-attention
+    application each, and the dense attention
     kernel, the copy append and the plain MX8 quantizer never."""
     import numpy as np
     import torch
@@ -1501,13 +1534,14 @@ def phase_paged_main_path(cfg, params, slot):
     _check_done(handles, cfg)
     st = eng.stats()
     check(st["preemptions"] >= 1, f"no preemption with {PAGED}")
-    check(steps > 0 and n_su == 54 * steps and n_dense == 0
-          and n_pa == 9 * steps and n_apq == 9 * steps and n_ap == 0
+    L, A = _zamba2_launches(cfg)
+    check(steps > 0 and n_su == L * steps and n_dense == 0
+          and n_pa == A * steps and n_apq == A * steps and n_ap == 0
           and n_at == 0 and n_q == _k7_per_prefill(cfg) * len(prompts)
           and K7.mx_kv_append_quant.launches == 0,
           f"launches over {steps} decode steps: state_update slab mode "
-          f"{n_su} (want 54x), dense mode {n_dense} (0), paged attention "
-          f"{n_pa} (9x), fused append {n_apq} (9x), copy append {n_ap} "
+          f"{n_su} (want {L}x), dense mode {n_dense} (0), paged attention "
+          f"{n_pa} ({A}x), fused append {n_apq} ({A}x), copy append {n_ap} "
           f"(0), dense attention {n_at} (0), dense append "
           f"{K7.mx_kv_append_quant.launches} (0); quantizer {n_q} over "
           f"{len(prompts)} prefills")
@@ -1560,8 +1594,9 @@ def _pattern_prompts(rng, cfg):
 def phase_spec_main_path(cfg, params, paged):
     """zamba2-2.7b at full width through the paged ``Engine`` with n-gram
     speculation (``spec_k = 3``), on phase 11's prompts and weights.  Each
-    verify step must launch the paged verify kernel 9 times, the fused
-    append 9 * Kq times and the slab-mode state update 54 * Kq times, and
+    verify step must launch the paged verify kernel once a shared-attention
+    application, the fused append Kq times as often and the slab-mode state
+    update Kq times a Mamba-2 layer, and
     kernels 2, 3 and 6, the copy append and the plain MX8 quantizer
     never.  Its greedy stream is compared with phase 11's, which
     drew other stochastic-rounding seeds (a plain step seeds with its step
@@ -1612,13 +1647,14 @@ def phase_spec_main_path(cfg, params, paged):
     steps = eng.engine.step_count
     _check_done(handles, cfg)
     st = eng.stats()
-    check(steps > 0 and n5 == 9 * steps and n4 == 9 * KQ * steps
-          and n1s == 54 * KQ * steps and n6 == n3 == n4c == n2 == n1 == 0
+    L, A = _zamba2_launches(cfg)
+    check(steps > 0 and n5 == A * steps and n4 == A * KQ * steps
+          and n1s == L * KQ * steps and n6 == n3 == n4c == n2 == n1 == 0
           and n_q == _k7_per_prefill(cfg) * len(handles)
           and K7.mx_kv_append_quant.launches == 0,
-          f"launches over {steps} verify steps: paged verify {n5} (want 9x), "
-          f"fused append {n4} ({9 * KQ}x), state update slab {n1s} "
-          f"({54 * KQ}x), dense verify {n6}, paged attention {n3}, copy "
+          f"launches over {steps} verify steps: paged verify {n5} (want "
+          f"{A}x), fused append {n4} ({A * KQ}x), state update slab {n1s} "
+          f"({L * KQ}x), dense verify {n6}, paged attention {n3}, copy "
           f"append {n4c}, dense attention {n2}, dense state update {n1} (0 "
           f"each); quantizer {n_q} over {len(handles)} prefills")
     check(n_plain_q == 0, f"the plain MX8 quantizer ran {n_plain_q} times "
@@ -2060,10 +2096,21 @@ def phase_mla_timing():
     return out
 
 
+def _weight_stream_bytes(cfg, params):
+    """The weight bytes a decode step streams: every weight once but the
+    tables it gathers rows from (the token embedding, unless it is the tied
+    LM head, and the learned positions)."""
+    return sum(p.numel() * p.element_size() for p in _leaves(params)) - sum(
+        params[k].numel() * params[k].element_size()
+        for k in ("embed", "pos") if k in params
+        and not (k == "embed" and cfg.tie_embeddings))
+
+
 def _model_at(arch, layers=None):
     """``arch`` at full width, ``layers`` deep (else all its layers),
     random weights from a seeded CUDA generator: (cfg, params, info)."""
     import torch
+    from repro_torch.analysis.roofline import HBM_BW
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     full = get_config(arch)
@@ -2080,16 +2127,10 @@ def _model_at(arch, layers=None):
     info = dict(params=n, GB=f"{nbytes / 1e9:.2f}",
                 layers=f"{cfg.n_layers} of {full.n_layers}")
     if not cfg.encoder_only:
-        # a decode step streams every weight once but the tables it
-        # gathers rows from (the token embedding, unless it is the tied LM
-        # head, and the learned positions)
-        stream = nbytes - sum(
-            params[k].numel() * params[k].element_size()
-            for k in ("embed", "pos") if k in params
-            and not (k == "embed" and cfg.tie_embeddings))
+        stream = _weight_stream_bytes(cfg, params)
         info.update(weight_stream_GB=f"{stream / 1e9:.2f}",
                     weight_stream_bound_ms=(
-                        f"{stream / PEAK_BYTES_PER_S * 1e3:.2f}"))
+                        f"{stream / HBM_BW * 1e3:.2f}"))
     info["init_s"] = f"{time.perf_counter() - t0:.1f}"
     return cfg, params, info
 
@@ -3456,6 +3497,7 @@ def phase_dense_append_timing(widths=None, k7_prefills=(("opt", 32, 128),
     times are null.  Returns {kernels-line name: times}."""
     import torch
     from repro_torch import ops as OPS
+    from repro_torch.analysis.roofline import HBM_BW
     from repro_torch.core import attention_cache as AC
     from repro_torch.core import formats as F
     from repro_torch.kernels import mx_quant as K7
@@ -3538,7 +3580,7 @@ def phase_dense_append_timing(widths=None, k7_prefills=(("opt", 32, 128),
         ys = [torch.randn(one, generator=g, device="cuda")
               for _ in range(_rotation(4 * n_one))]
         one_ms = graph_ms([lambda y=y: K7.mx_quantize(y) for y in ys], 10)
-        one_bound = n_one * (4 + 1 + 2 / F.MX8_GROUP) / PEAK_BYTES_PER_S * 1e3
+        one_bound = n_one * (4 + 1 + 2 / F.MX8_GROUP) / HBM_BW * 1e3
         phase(n, f"{name}: the prefill's K and V, one launch", shape=shape,
               pad_to=512, replaced_ms=f"{replaced_ms:.5f}",
               replaced="F.pad + one launch a stream",
@@ -4628,7 +4670,8 @@ def phase_tiering(cfg, params, paged):
     from repro_torch.serving.api import Engine, ServeConfig
     t0 = time.perf_counter()
     moves = phase_tier_moves(cfg, params)
-    want = dict(k1s=54, k3_gqa=9, k4q=9)
+    L, A = _zamba2_launches(cfg)
+    want = dict(k1s=L, k3_gqa=A, k4q=A)
     engines, runs, sysp = phase_prefix(params, cfg, 57, want)
     rng = np.random.default_rng(570)
     prompts = [np.concatenate([sysp, rng.integers(0, cfg.vocab_size, t)])
@@ -4637,7 +4680,7 @@ def phase_tiering(cfg, params, paged):
         **dict(PREFIX, batch=2), prefix_cache=True, spec="ngram",
         spec_k=SPEC_K))
     spec = _serve_counted(eng, cfg, prompts, 8,
-                          dict(k1s=54 * KQ, k5_gqa=9, k4q=9 * KQ),
+                          dict(k1s=L * KQ, k5_gqa=A, k4q=A * KQ),
                           _k7_per_prefill(cfg), "zamba2 prefix + ngram")
     check(spec["stats"]["prefix_hits"] >= 1, "no prefix hit with speculation")
     phase(57, "prefix hit with speculation (ngram)", **_fields(spec),
@@ -4864,6 +4907,219 @@ def phase_launcher():
           stdout=(OUT / "serve_stdout.txt").name)
 
 
+#: phase 64: the swamping study's length (300 kernel-1 launches a rounding)
+SWAMP_T = 300
+#: phase 65: mamba2-2.7b at full width and depth under each state format --
+#: (label, format, rounding, backend); mx8 through kernels 1 and 7
+FORMAT_RUNS = (("fp32", "fp32", "nearest", "torch"),
+               ("mx8_sr", "mx8", "stochastic", "cuda"),
+               ("mx8_rn", "mx8", "nearest", "cuda"),
+               ("int8_sr", "int8", "stochastic", "torch"),
+               ("fp8_e5m2_rn", "fp8_e5m2", "nearest", "torch"),
+               ("fp8_e5m2_sr", "fp8_e5m2", "stochastic", "torch"))
+FORMAT_PROMPT, FORMAT_STEPS = 16, 24
+
+
+def _swamping_orderings(errs):
+    """The orderings ``tests/test_state_update.py`` holds the JAX study to
+    (paper Fig. 4): the ones that fail."""
+    e = errs
+    rules = {
+        "mx8 SR < e5m2 RN / 2":
+            e[("mx8", "stochastic")] < e[("fp8_e5m2", "nearest")] / 2,
+        "int8 SR < e5m2 RN / 3":
+            e[("int8", "stochastic")] < e[("fp8_e5m2", "nearest")] / 3,
+        "e4m3 RN < e5m2 RN":
+            e[("fp8_e4m3", "nearest")] < e[("fp8_e5m2", "nearest")],
+        "fp16 < 0.01": e[("fp16", "nearest")] < 0.01,
+        "mx8 SR < mx8 RN":
+            e[("mx8", "stochastic")] < e[("mx8", "nearest")],
+        "e5m2 SR < e5m2 RN / 2":
+            e[("fp8_e5m2", "stochastic")] < e[("fp8_e5m2", "nearest")] / 2,
+        "e4m3 SR < e4m3 RN / 2":
+            e[("fp8_e4m3", "stochastic")] < e[("fp8_e4m3", "nearest")] / 2,
+    }
+    return [k for k, ok in rules.items() if not ok]
+
+
+def phase_swamping():
+    """Phase 64: the swamping study (paper Fig. 4's mechanism,
+    ``analysis/formats_study.py``) on the card, T = 300, from one set of
+    draws: every format on the torch backend, then with mx8 through kernel
+    1 (dense mode, one (1, 1, 32, 32) head; 300 launches a rounding,
+    counted).  Kernel 1 is held to its phase-4 contract against its plain
+    version at every step of the study's trajectory (both roundings), the
+    two runs' mx8 rows must agree to rtol 1e-3, and the Fig. 4 orderings
+    must hold on both.  Each error prints beside the CPU port's from the
+    same draws."""
+    import torch
+    from repro_torch.analysis.formats_study import (run_swamping_study,
+                                                    swamping_draws,
+                                                    swamping_inputs)
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_state_update as KS
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(64)
+    draws = swamping_draws(SWAMP_T, generator=g, device="cuda")
+    _counts_reset()
+    on_torch = run_swamping_study(SWAMP_T, draws=draws, device="cuda")
+    check(_counts()["k1"] == 0, "the torch-backend study launched kernel 1")
+    on_k1 = run_swamping_study(SWAMP_T, draws=draws, device="cuda",
+                               backend="cuda")
+    n_k1 = _counts()["k1"]
+    check(n_k1 == 2 * SWAMP_T, f"kernel 1 ran {n_k1} times in the study, "
+          f"not {2 * SWAMP_T}")
+    t_card = time.perf_counter() - t0
+    on_cpu = run_swamping_study(SWAMP_T, draws=[a.cpu() for a in draws],
+                                device="cpu")
+    # kernel 1 against its plain version at every step of the trajectory
+    d, ks, vs, qs = swamping_inputs(draws, "cuda")
+    mism = total = 0
+    y_err = 0.0
+    for rounding in ("nearest", "stochastic"):
+        qS = F.mx8_quantize(torch.zeros((1, 1, 32, 32), device="cuda"))
+        for t in range(SWAMP_T):
+            qp, yp = KS.plain(qS.clone(), d, ks[t], vs[t], qs[t],
+                              rounding=rounding, seed=t)
+            qk, yk = KS.mx_state_update(qS.clone(), d, ks[t], vs[t], qs[t],
+                                        seed=t, rounding=rounding)
+            n_bad, n, err = _hold_su(f"study step {t} {rounding}",
+                                     qp.payload, yp, qk.payload, yk)
+            mism, total, y_err = mism + n_bad, total + n, max(y_err, err)
+            qS = qk
+    rate = mism / total
+    check(rate <= 1e-5, f"study trajectory: mantissa mismatch rate {rate:.3g}")
+    for rounding in ("nearest", "stochastic"):
+        a, b = on_k1[("mx8", rounding)], on_torch[("mx8", rounding)]
+        check(abs(a - b) <= 1e-3 * b, f"mx8 {rounding}: kernel 1's study "
+              f"error {a:.6g} vs the torch backend's {b:.6g}")
+    for label, errs in (("torch backend", on_torch), ("kernel 1", on_k1),
+                        ("CPU port", on_cpu)):
+        bad = _swamping_orderings(errs)
+        check(not bad, f"swamping orderings fail on the {label}: {bad}")
+    phase(64, "swamping study on the card (T=300, Fig. 4 orderings hold)",
+          k1_launches=n_k1, trajectory_mantissa_mismatch=f"{mism}/{total}",
+          trajectory_y_max_abs_err=f"{y_err:.3g}",
+          card_s=f"{t_card:.1f}")
+    for key in on_torch:
+        fmt, rounding = key
+        phase(64, f"{fmt} {rounding}", card_torch=repr(on_torch[key]),
+              card_kernel1=(repr(on_k1[key]) if fmt == "mx8" else "-"),
+              cpu_port=repr(on_cpu[key]))
+    phase(64, "swamping study", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def phase_format_model():
+    """Phase 65: the format study at model level -- mamba2-2.7b (the arch
+    ``examples/format_ablation.py`` studies) at full width and all 64
+    layers, seeded weights on the card shared by every format, one
+    16-token prompt, a prefill then 24 ``decode_step``s under each state
+    format of ``FORMAT_RUNS``.  Every format is fed the fp32 run's greedy
+    tokens, so its logits compare with fp32's on the same inputs: the
+    relative error (Frobenius over the prefill and 24 steps) and the greedy
+    agreement print, reported, not asserted (the weights are random).
+    Asserted: finite logits, the fp32 run repeats bitwise, every mx8 decode
+    step launched kernel 1 once a layer and each prefill kernel 7 once a
+    layer, and no plain MX8 quantizer ran on the card.  Beside each
+    format's measured step time, its roofline: the weights at their served
+    fp32 size plus the cache and state bytes (``_cache_state_bytes``, the
+    state read and written), over ``HBM_BW``."""
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.analysis.roofline import (HBM_BW, _cache_state_bytes,
+                                               analytic_cost, count_params)
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeConfig
+    t0 = time.perf_counter()
+    cfg, params, info = _model_at("mamba2-2.7b")
+    check(cfg.n_layers == 64 and cfg.pattern == ("mamba2",),
+          f"unexpected {cfg.name}")
+    g = torch.Generator(device="cuda").manual_seed(65)
+    prompt = torch.randint(0, cfg.vocab_size, (1, FORMAT_PROMPT),
+                           generator=g, device="cuda")
+    lens = torch.full((1,), FORMAT_PROMPT, dtype=torch.int32, device="cuda")
+    sc = ShapeConfig("format_study", FORMAT_PROMPT + FORMAT_STEPS, 1,
+                     "decode")
+    weights = _weight_stream_bytes(cfg, params)
+    analytic_ms = analytic_cost(
+        cfg, sc, chips=1, tp=1, fs=1, pods=1,
+        n_params=count_params(params))["hbm_bytes"] / HBM_BW * 1e3
+
+    def run(fmt, rounding, backend, feed=None):
+        c = cfg.with_(state_quant=OPS.StateQuantConfig(fmt, rounding,
+                                                       backend))
+        _counts_reset()
+        q0 = PLAIN_QUANT["calls"]
+        logits, caches = M.prefill(params, c, {"tokens": prompt})
+        k7 = _counts()["k7"]
+        seq, fed = [logits], []
+        tok = logits.argmax(-1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(FORMAT_STEPS):
+            tok = tok if feed is None else feed[i]
+            fed.append(tok)
+            logits, caches = M.decode_step(params, c, tok, caches, lens + i,
+                                           seed=i + 1)
+            seq.append(logits)
+            tok = logits.argmax(-1)
+        end.record()
+        torch.cuda.synchronize()
+        n = _counts()
+        kv, state = _cache_state_bytes(c, sc)
+        return dict(logits=torch.stack(seq), fed=fed, k7=k7, k1=n["k1"],
+                    k1s=n["k1s"], plain=PLAIN_QUANT["calls"] - q0,
+                    step_ms=start.elapsed_time(end) / FORMAT_STEPS,
+                    bound_ms=(weights + kv + 2 * state) / HBM_BW * 1e3)
+
+    ref = run("fp32", "nearest", "torch")
+    again = run("fp32", "nearest", "torch", feed=ref["fed"])
+    check(bool(torch.isfinite(ref["logits"]).all()), "fp32 logits not finite")
+    check(torch.equal(ref["logits"], again["logits"]),
+          "the fp32 run does not repeat bitwise")
+    n_state = _k7_per_prefill(cfg)
+    rows = {}
+    for label, fmt, rounding, backend in FORMAT_RUNS[1:]:
+        r = run(fmt, rounding, backend, feed=ref["fed"])
+        check(bool(torch.isfinite(r["logits"]).all()),
+              f"{label}: logits not finite")
+        if fmt == "mx8":
+            check(r["k1"] == cfg.n_layers * FORMAT_STEPS and r["k1s"] == 0,
+                  f"{label}: kernel 1 ran {r['k1']} times in "
+                  f"{FORMAT_STEPS} steps of {cfg.n_layers} layers")
+            check(r["k7"] == n_state, f"{label}: kernel 7 ran {r['k7']} "
+                  f"times in the prefill, not {n_state}")
+            check(r["plain"] == 0, f"{label}: the plain MX8 quantizer ran "
+                  f"{r['plain']} times on the card")
+        else:
+            check(r["k1"] == 0, f"{label}: kernel 1 ran on the torch backend")
+        rows[label] = r
+    phase(65, "mamba2-2.7b format study: the model", **info,
+          prompt=FORMAT_PROMPT, decode_steps=FORMAT_STEPS,
+          fp32_repeat="bitwise", fp32_step_ms=f"{ref['step_ms']:.3f}",
+          fp32_bound_ms=f"{ref['bound_ms']:.3f}",
+          analytic_cost_bf16_weights_ms=f"{analytic_ms:.3f}")
+    ref_tok = ref["logits"].argmax(-1)
+    for label, r in rows.items():
+        diff = r["logits"] - ref["logits"]
+        rel = float(torch.linalg.norm(diff) / torch.linalg.norm(
+            ref["logits"]))
+        last = float(torch.linalg.norm(diff[-1]) / torch.linalg.norm(
+            ref["logits"][-1]))
+        agree = float((r["logits"].argmax(-1) == ref_tok).float().mean())
+        phase(65, f"{label} vs fp32", logit_rel_err=f"{rel:.4g}",
+              last_step_rel_err=f"{last:.4g}",
+              greedy_agreement=f"{agree:.3f}",
+              step_ms=f"{r['step_ms']:.3f}",
+              bound_ms=f"{r['bound_ms']:.3f}",
+              share_of_bound=f"{r['bound_ms'] / r['step_ms']:.3f}",
+              k1=r["k1"], k7=r["k7"], plain_quantizer=r["plain"])
+    del params
+    phase(65, "format study at model level",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to chip_smoke.py; "
@@ -4964,6 +5220,13 @@ def main():
             dense[arch] = phase_dense(arch, NEW_GQA[arch])
         phase(55, "the last five configs, phases 43-55",
               seconds=f"{time.perf_counter() - t_n:.1f}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_f = time.perf_counter()
+        phase_swamping()
+        phase_format_model()
+        phase(65, "the format study, phases 64-65",
+              seconds=f"{time.perf_counter() - t_f:.1f}")
         kernels = kernels_line(errs, times, slot, paged, spec, ds, gla,
                                dense, xlstm, pali)
     except SmokeFailure as e:

@@ -122,3 +122,26 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One benchmark cell: an input shape bound to a step kind (the cost
+    models' ``sc``; ``analysis/roofline.py::analytic_cost``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train|prefill|decode
+
+    @property
+    def cache_len(self) -> int:
+        # decode shapes attend to a cache of seq_len positions
+        return self.seq_len
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -26,7 +26,8 @@ from repro_torch.ops.registry import (BACKEND_PREFERENCE, OP_KINDS,
 from repro_torch.ops.state_update import (StateLike, init_state,
                                           plan_state_update,
                                           plan_state_update_dims,
-                                          state_nbytes, state_update_step)
+                                          state_nbytes, state_update_float,
+                                          state_update_step)
 from repro_torch.ops.attention import (attention_decode_step, attn_decode,
                                        attn_kind_of, kv_append,
                                        plan_attn_decode_dims)
@@ -42,7 +43,7 @@ __all__ = [
     "BACKEND_PREFERENCE", "OP_KINDS", "backends_for", "execute", "get_op",
     "plan", "register", "registered", "resolve_backend", "traffic",
     "StateLike", "init_state", "plan_state_update", "plan_state_update_dims",
-    "state_nbytes", "state_update_step",
+    "state_nbytes", "state_update_float", "state_update_step",
     "attention_decode_step", "attn_decode", "attn_kind_of", "kv_append",
     "plan_attn_decode_dims",
     "attention_spec_step", "spec_attend",

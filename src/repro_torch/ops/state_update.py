@@ -30,6 +30,10 @@ from repro_torch.ops.base import (OPERAND_BYTES, OUTPUT_BYTES, OpPlan, SpuOp,
 
 StateLike = Union[F.QuantizedTensor, torch.Tensor]
 
+#: the unquantized Eq. 2 step (the paper's "GPU" configuration), exported
+#: beside the quantized entry points as the JAX package's ops export it
+state_update_float = _ref.state_update_float
+
 
 def init_state(B: int, H: int, dk: int, dv: int, cfg: StateQuantConfig,
                device=None) -> StateLike:

@@ -970,6 +970,7 @@ class PagedServingEngine(_EngineCore):
         # the whole prompt is fresh context: s0 through full-sequence
         # prefill, the tail streamed through the decode batch
         self._count_prefill(len(src))
+        # lint: disable=JH103  s0 is bucketed (_bucket_prefill_len)
         prompt = torch.as_tensor(src[:s0], dtype=torch.int64,
                                  device=self.device)[None]
         logits, row_caches = self._prefill(self.params,

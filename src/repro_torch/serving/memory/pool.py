@@ -430,6 +430,7 @@ class PagedStatePool:
         """
         npg = max([len(self.page_table[r]) for r in rids if r is not None],
                   default=1)
+        # lint: disable=JH103  pages bucketed (bucket_pages); rows = slots
         bt = np.zeros((len(rids), bucket_pages(max(npg, min_pages))),
                       np.int32)
         shadow = self.placement._shadow

@@ -1726,3 +1726,25 @@ def test_prefix_hits_decode_through_the_kernels(cuda, monkeypatch):
     assert seen["calls"] == 0
     assert outs[True] == outs[False]
     assert st["prefix_hits"] == 3 and st["promote_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the swamping study (analysis/formats_study.py) through kernel 1
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
+def test_swamping_study_mx8_rows_kernel_equals_torch_backend(cuda, rounding):
+    """The study's mx8 row through kernel 1 (dense mode, one (1, 1, 32, 32)
+    head, one launch a step) equals the torch backend's on the same draws
+    on the card; the kernel ran once a step."""
+    from repro_torch.analysis import formats_study as FS
+    g = torch.Generator(device=cuda).manual_seed(26)
+    draws = FS.swamping_draws(120, generator=g, device=cuda)
+    fmts = [("mx8", rounding)]
+    plain = FS.run_swamping_study(120, formats=fmts, draws=draws,
+                                  device=cuda)
+    KS.mx_state_update.launches = 0
+    kern = FS.run_swamping_study(120, formats=fmts, draws=draws,
+                                 device=cuda, backend="cuda")
+    assert KS.mx_state_update.launches == 120
+    assert kern == plain
