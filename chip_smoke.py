@@ -36,7 +36,9 @@ radix prefix store (warm and cold hits through the same kernels) and the
 resilience layer; every engine writes its structured trace (steps,
 request spans, bank counters, recompile instants), and the launcher runs
 as a user runs it; last, the format study (paper Fig. 4) on the card,
-through kernel 1, and at mamba2-2.7b's full depth.
+through kernel 1, and at mamba2-2.7b's full depth; then training on the
+card (smollm-360m trained, resumed bitwise and served; zamba2-2.7b trained
+and served).
 Phases, in the order they run:
 
   1. device   2. build   3. exact powers of two   4. state-update kernel
@@ -105,6 +107,19 @@ Phases, in the order they run:
   16-token prefill and 24 decode steps under fp32, mx8 (both roundings,
   kernels 1 and 7), int8 and fp8_e5m2 state; logit error and greedy
   agreement against fp32, each step's time beside its roofline
+  66-68 (after phase 65; training, which runs none of the kernels): 66.
+  smollm-360m at full width and all 32 layers trained by
+  ``python -m repro_torch.launch.train`` in its own process (10 steps of
+  8 x 256 tokens, a 4.3 GB checkpoint at step 6), then a second process
+  auto-resumed from that checkpoint: losses and final parameters bitwise
+  the uninterrupted run's, the loss falling   67. that checkpoint served
+  through the paged pool and the paged pool with speculation (kernels 3,
+  4 fused, 5 and 7; no plain quantizer), the reference check   68.
+  zamba2-2.7b at full width (24 of 54 layers) trained three steps (step
+  0's loss against a ``want_cache=True`` forward's), then served through
+  the slot pool on its trained weights (kernels 1, 2, 7); one flash
+  attention forward and backward at S = 8192 far under one score
+  tensor's memory, against SDPA
   8. kernels line
 
 The card's peaks in every bound come from
@@ -2889,10 +2904,13 @@ def _reference_check_by_depth(params, cfg, batch, n):
 
 #: the family's attention widths: opt-6.7b G = 1 (a Kq = 4 verify pass: 4
 #: rows a kv head), yi-9b G = 8 (32 rows: two row blocks of 16); ``n``: the
-#: first of the model's three main-path phases
+#: first of the model's three main-path phases; yi-9b's depth is cut to
+#: keep the smoke in its time with the training phases 66-68
 DENSE = {"opt-6.7b": dict(tag="opt", H=32, KVH=32, d=128, n=30,
                           full_layers=32),
-         "yi-9b": dict(tag="yi", H=32, KVH=4, d=128, n=33, full_layers=48)}
+         "yi-9b": dict(tag="yi", H=32, KVH=4, d=128, n=33, full_layers=48,
+                       layers=24, reduced="n_layers 48 -> 24 (the smoke's "
+                                          "time, with phases 66-68)")}
 DENSE_MAX_NEW = 16
 #: their paged pool: four of the six requests at once, each prompt in one
 #: prefill (zamba2's and gla's paths stream prompt tails through decode
@@ -5120,6 +5138,329 @@ def phase_format_model():
           seconds=f"{time.perf_counter() - t0:.1f}")
 
 
+# ---------------------------------------------------------------------------
+# phases 66-68: training on the card
+# ---------------------------------------------------------------------------
+
+#: phase 66: smollm-360m at full width and all 32 layers through the
+#: trainer launcher (as its docstring runs it: 256 tokens, batch 8), a
+#: checkpoint every TRAIN["k"] steps (params + two fp32 moments: 4.3 GB):
+#: one, as 10 steps run
+TRAIN = dict(arch="smollm-360m", steps=10, k=6, seq_len=256, batch=8)
+#: the loss must fall by at least this many nats, mean of the last five
+#: steps against the first five (PERF.md: predicted about 2)
+TRAIN_LOSS_DROP = 0.5
+#: phase 68: zamba2-2.7b's training steps (batch 2 of 256 tokens)
+ZAMBA2_TRAIN = dict(steps=3, seq_len=256, batch=2)
+#: phase 68: one attention forward and backward at smollm's heads
+LONG_ATTN = dict(S=8192, chunk=512, H=15, KVH=5, d=64)
+
+
+def _trainer(ckpt_dir, label):
+    """``python -m repro_torch.launch.train`` at TRAIN in its own process
+    (its determinism settings come before CUDA initialises there); its
+    output goes to ``chiprun_out/train_<label>.txt``.  Returns the parsed
+    report: ``losses``, ``sha256`` (of the final parameters), ``step_ms``,
+    ``tokens_per_s``, ``peak_GB``, ``resumed`` (the step it resumed from,
+    or None), ``checkpoint_s`` (each save's seconds) and ``wall_s``."""
+    import os
+    OUT.mkdir(exist_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN["arch"], "--steps", str(TRAIN["steps"]), "--seq-len",
+           str(TRAIN["seq_len"]), "--global-batch", str(TRAIN["batch"]),
+           "--ckpt-every", str(TRAIN["k"]), "--ckpt-dir", str(ckpt_dir)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=400,
+                          env=env, cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    (OUT / f"train_{label}.txt").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"trainer ({label}) exited "
+          f"{proc.returncode}: {proc.stderr[-1500:]}")
+    lines = proc.stdout.splitlines()
+    done = next(ln for ln in lines if ln.startswith("done: loss"))
+    fields = dict(part.strip().split(" ", 1) for part in
+                  done.split(";")[1:])
+    resumed = [int(ln.rsplit(" ", 1)[1]) for ln in lines
+               if ln.startswith("auto-resumed from step")]
+    saves = [float(ln.split(" in ")[1].split()[0]) for ln in lines
+             if ln.startswith("checkpoint step")]
+    return dict(losses=[float(v) for v in next(
+        ln for ln in lines if ln.startswith("losses ")).split()[1:]],
+        sha256=next(ln.split()[1] for ln in lines
+                    if ln.startswith("params_sha256 ")),
+        checkpoint_s=saves,
+        step_ms=float(fields["step_ms"]),
+        tokens_per_s=float(fields["tokens_per_s"]),
+        peak_GB=fields["peak_GB"], wall_s=wall,
+        resumed=resumed[0] if resumed else None)
+
+
+def phase_train():
+    """Phases 66-67.  66: smollm-360m at full width and all 32 layers
+    trained by the launcher in its own process, TRAIN["steps"] steps with
+    a checkpoint every TRAIN["k"]; then a second process started on that
+    run's step-k checkpoint alone (what a run stopped at step k leaves on
+    disk) auto-resumes and trains to the end: its losses and its final
+    parameters (their SHA-256 digest) must be bitwise the uninterrupted
+    run's, and the uninterrupted run's loss must fall by TRAIN_LOSS_DROP.
+    67: the step-k checkpoint served (:func:`phase_trained_serve`).  The
+    temporary directory goes at the end."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # memory-backed where the machine has it: the phase times the trainer,
+    # not the disk (each checkpoint is 4.3 GB)
+    shm = Path("/dev/shm")
+    root = Path(tempfile.mkdtemp(prefix="train_smoke_",
+                                 dir=shm if shm.is_dir() else None))
+    try:
+        free = shutil.disk_usage(root).free
+        full, resumed = root / "full", root / "resumed"
+        run = _trainer(full, "full")
+        k, n = TRAIN["k"], TRAIN["steps"]
+        check(sorted(p.name for p in full.iterdir()) ==
+              ["LATEST", f"step_{k:08d}"],
+              f"checkpoints of the uninterrupted run: "
+              f"{sorted(p.name for p in full.iterdir())}")
+        (resumed / f"step_{k:08d}").mkdir(parents=True)
+        for f in (full / f"step_{k:08d}").iterdir():
+            os.link(f, resumed / f"step_{k:08d}" / f.name)
+        (resumed / "LATEST").write_text(str(k))
+        again = _trainer(resumed, "resumed")
+        check(again["resumed"] == k and len(again["losses"]) == n - k,
+              f"the restart resumed from {again['resumed']} and ran "
+              f"{len(again['losses'])} steps")
+        check(again["losses"] == run["losses"][k:],
+              "the resumed run's losses differ from the uninterrupted run's")
+        check(again["sha256"] == run["sha256"], "the resumed run's final "
+              "parameters differ from the uninterrupted run's")
+        losses = run["losses"]
+        first, final = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        check(all(math.isfinite(v) for v in losses), "a loss is not finite")
+        check(first - final >= TRAIN_LOSS_DROP, f"the loss fell "
+              f"{first - final:.3f} nats (want >= {TRAIN_LOSS_DROP})")
+        ckpt = full / f"step_{k:08d}"
+        ckpt_GB = sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9
+        phase(66, f"{TRAIN['arch']} trained, full width and depth",
+              steps=n, seq_len=TRAIN["seq_len"], batch=TRAIN["batch"],
+              loss_first5=f"{first:.4f}", loss_last5=f"{final:.4f}",
+              loss_drop=f"{first - final:.4f}",
+              step_ms=f"{run['step_ms']:.1f}",
+              tokens_per_s=f"{run['tokens_per_s']:.0f}",
+              peak_GB=run["peak_GB"], resumed_step_ms=f"{again['step_ms']:.1f}",
+              resume="bitwise", params_sha256=run["sha256"][:16],
+              checkpoint_GB=f"{ckpt_GB:.2f}",
+              checkpoint_save_s=run["checkpoint_s"],
+              process_s=f"{run['wall_s']:.1f},{again['wall_s']:.1f}",
+              tmp_free_GB=f"{free / 1e9:.0f}",
+              deterministic="use_deterministic_algorithms + "
+                            "CUBLAS_WORKSPACE_CONFIG=:4096:8")
+        phase_trained_serve(resumed, k)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_trained_serve(ckpt_dir, step):
+    """Phase 67: the parameters of phase 66's checkpoint at ``step``
+    restored onto the card (``restore(..., device="cuda")`` into a
+    ``meta`` template, the serve launcher's ``--ckpt-dir`` path) and
+    served through the paged pool
+    (kernels 3 and 4 fused a layer a step, kernel 7 a layer a prefill) and
+    the paged pool with n-gram speculation (kernels 5 and 4), no plain
+    quantizer inside any step; the slot path's logits held against the
+    plain ops on the same prefill."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import Engine, ServeConfig
+    cfg = get_config(TRAIN["arch"])
+    t0 = time.perf_counter()
+    like = M.init_model(cfg, torch.Generator(), device="meta")
+    t1 = time.perf_counter()
+    restored, got = CheckpointManager(str(ckpt_dir)).restore(
+        {"params": like, "opt_state": None}, device="cuda")
+    load_s = time.perf_counter() - t1
+    params = restored["params"]
+    check(got == step and all(
+        p.is_cuda and not p.requires_grad for p in _leaves(params)),
+        f"restored step {got}, want {step}")
+    L = cfg.n_layers
+    k7 = _k7_per_prefill(cfg)
+    prompts = _pattern_prompts(np.random.default_rng(67), cfg)[:4]
+    paged = _serve_counted(Engine(params, cfg, ServeConfig(**DENSE_PAGED)),
+                           cfg, prompts, 8, dict(k3_gqa=L, k4q=L), k7,
+                           "trained paged")
+    phase(67, f"trained {cfg.name} (checkpoint step {step}) paged",
+          template_s=f"{t1 - t0:.1f}", load_s=f"{load_s:.1f}",
+          **_fields(paged))
+    spec = _serve_counted(
+        Engine(params, cfg, ServeConfig(**DENSE_PAGED, spec="ngram",
+                                        spec_k=SPEC_K)),
+        cfg, prompts, 8, dict(k5_gqa=L, k4q=L * KQ), k7,
+        "trained paged + ngram")
+    phase(67, f"trained {cfg.name} paged + ngram speculation", Kq=KQ,
+          **_fields(spec),
+          acceptance_rate=f"{spec['stats']['acceptance_rate']:.3f}")
+    _reference_check(params, cfg, prompts[0], n=67)
+    del params, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _long_attention():
+    """One GQA ``blockwise_attention`` forward and backward at smollm's
+    heads over LONG_ATTN["S"] positions in 512-position chunks: its peak
+    memory above what it was handed, against one (H, S, S) fp32 score
+    tensor; its gradients against SDPA's (the library's fused fp32
+    attention) on the same inputs, and both timed."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.models import attention as ATT
+    w = LONG_ATTN
+    S, H, KVH, d, c = w["S"], w["H"], w["KVH"], w["d"], w["chunk"]
+    g = torch.Generator(device="cuda").manual_seed(68)
+    q = torch.randn((1, S, H, d), device="cuda", generator=g)
+    k = torch.randn((1, S, KVH, d), device="cuda", generator=g)
+    v = torch.randn((1, S, KVH, d), device="cuda", generator=g)
+    dout = torch.randn((1, S, H, d), device="cuda", generator=g)
+    inputs = [t.requires_grad_(True) for t in (q, k, v)]
+
+    def flash():
+        out = ATT.blockwise_attention(*inputs, q_chunk=c, kv_chunk=c)
+        return torch.autograd.grad(out, inputs, dout)
+
+    def sdpa():
+        G = H // KVH
+        qt, kt, vt = (t.transpose(1, 2) for t in inputs)
+        out = Fn.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(G, 1), vt.repeat_interleave(G, 1),
+            is_causal=True)
+        return torch.autograd.grad(out.transpose(1, 2), inputs, dout)
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = flash()
+    torch.cuda.synchronize()
+    flash_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    want = sdpa()
+    torch.cuda.synchronize()
+    sdpa_s = time.perf_counter() - t0
+    score = H * S * S * 4
+    check(peak < score / 8, f"flash forward + backward peaked at "
+          f"{peak / 1e9:.3f} GB against one score tensor's "
+          f"{score / 1e9:.2f} GB")
+    errs = []
+    for a, b, name in zip(got, want, "qkv"):
+        check(bool(torch.isfinite(a).all()), f"d{name} not finite")
+        errs.append(float((a - b).abs().max() / b.abs().max()))
+    # within 1e-2 of the largest: the library's fp32 attention may round
+    # its products through TF32; a wrong gradient is off by O(1)
+    check(max(errs) < 1e-2, f"flash gradients against SDPA's: {errs}")
+    return dict(peak_GB=f"{peak / 1e9:.3f}", score_GB=f"{score / 1e9:.2f}",
+                flash_fwd_bwd_ms=f"{flash_s * 1e3:.1f}",
+                sdpa_fwd_bwd_ms=f"{sdpa_s * 1e3:.1f}",
+                max_rel_err_vs_sdpa=",".join(f"{e:.2e}" for e in errs))
+
+
+def phase_train_zamba2():
+    """Phase 68: zamba2-2.7b at full width and ZAMBA2_LAYERS deep (its
+    main paths' depth) takes ZAMBA2_TRAIN["steps"] AdamW steps in this
+    process: finite losses and gradient norms, and step 0's loss equal to
+    rtol 1e-5 to the cross-entropy of a ``want_cache=True`` forward's
+    logits (the prefill's path, kernel 7 building its caches), and no
+    kernel launched by the training steps; the trained parameters then
+    serve through the slot pool (kernels 1 and 2 and the
+    dense append every step, kernel 7 every prefill); last, the long
+    attention of :func:`_long_attention`."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import Engine, ServeConfig
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import batch_to_device, make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params, init_s = _model()
+    w = ZAMBA2_TRAIN
+    opt = O.OptimizerConfig(warmup_steps=1, total_steps=w["steps"])
+    batch_fn = make_batch_fn(cfg, w["seq_len"], w["batch"])
+    b0 = batch_to_device(batch_fn(0), "cuda")
+    with torch.no_grad():
+        x, positions, prefix_len = M.embed_inputs(params, cfg, b0)
+        x, caches = M._run_blocks(params, x, cfg, positions, prefix_len,
+                                  want_cache=True)
+        x = L.apply_norm(params["final_norm"], x, cfg.norm_kind,
+                         cfg.norm_eps)
+        logits = (x @ M._lm_head(params, cfg)).float()
+        ref = float(Fn.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                     b0["targets"].reshape(-1)))
+    check(caches[0][0] is not None, "the want_cache=True forward built no "
+          "cache")
+    del x, caches, logits
+    opt_state = O.init_opt_state(params, opt)
+    step_fn = make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    _counts_reset()
+    losses, norms, times = [], [], []
+    for i in range(w["steps"]):
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch_fn(i))
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    launched = {k: v for k, v in _counts().items() if v}
+    check(not launched, f"the training steps launched kernels: {launched}")
+    check(all(math.isfinite(v) for v in losses + norms),
+          f"losses {losses}, gradient norms {norms}")
+    check(abs(losses[0] - ref) <= 1e-5 * abs(ref),
+          f"step 0's loss {losses[0]!r} against the want_cache=True "
+          f"forward's {ref!r}")
+    del opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(68, "zamba2-2.7b trained, full width",
+          layers=f"{cfg.n_layers} of 54", steps=w["steps"],
+          seq_len=w["seq_len"], batch=w["batch"],
+          losses=",".join(f"{v:.4f}" for v in losses),
+          grad_norms=",".join(f"{v:.3f}" for v in norms),
+          step0_vs_cache_forward=f"{abs(losses[0] - ref):.2e}",
+          step_ms=",".join(f"{t * 1e3:.0f}" for t in times),
+          peak_GB=f"{peak / 1e9:.2f}", init_s=f"{init_s:.1f}",
+          kernel_launches_in_training=0)
+    su, attn = _zamba2_launches(cfg)
+    prompts = [np.random.default_rng(68).integers(0, cfg.vocab_size, n)
+               for n in PROMPT_LENS[:4]]
+    slot = _serve_counted(
+        Engine(params, cfg, ServeConfig(backend="slots", batch=4,
+                                        cache_capacity=1024)),
+        cfg, prompts, 8, dict(k1=su, k2_gqa=attn, apd=attn),
+        _k7_per_prefill(cfg), "trained zamba2 slots")
+    phase(68, "trained zamba2-2.7b slots", **_fields(slot))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(68, "flash attention forward + backward, S=8192",
+          S=LONG_ATTN["S"], chunk=LONG_ATTN["chunk"], H=LONG_ATTN["H"],
+          KVH=LONG_ATTN["KVH"], **_long_attention())
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to chip_smoke.py; "
@@ -5189,7 +5530,8 @@ def main():
               allocated_GB=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
         dense = {arch: phase_dense(arch, w, extra=None if arch != "yi-9b"
                                    else lambda p, c: phase_prefix_other(
-                                       p, c, 59, dict(k3_gqa=48, k4q=48)))
+                                       p, c, 59, dict(k3_gqa=c.n_layers,
+                                                      k4q=c.n_layers)))
                  for arch, w in DENSE.items()}
         gc.collect()
         torch.cuda.empty_cache()
@@ -5227,6 +5569,11 @@ def main():
         phase_format_model()
         phase(65, "the format study, phases 64-65",
               seconds=f"{time.perf_counter() - t_f:.1f}")
+        t_t = time.perf_counter()
+        phase_train()
+        phase_train_zamba2()
+        phase(68, "training, phases 66-68",
+              seconds=f"{time.perf_counter() - t_t:.1f}")
         kernels = kernels_line(errs, times, slot, paged, spec, ds, gla,
                                dense, xlstm, pali)
     except SmokeFailure as e:

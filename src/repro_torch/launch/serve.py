@@ -37,7 +37,13 @@ JSONL for ``*.jsonl``), which ``python -m repro_torch.obs.schema OUT
 nothing to serve, and a model with a modality frontend (paligemma-3b)
 exits too: the engines prefill token prompts only, so it runs at model
 level (``models.model.prefill`` with its patches, then ``decode_step``).
-Weights are random, from ``--seed``.
+Weights are random, from ``--seed``, unless ``--ckpt-dir`` names a
+checkpoint directory of the trainer (``repro_torch.launch.train``): then
+the newest valid checkpoint's parameters are served (its optimizer state is
+not read):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --smoke-size --device cpu --paged --ckpt-dir /tmp/ck
 """
 import argparse
 import sys
@@ -79,6 +85,10 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the parameters of the newest valid "
+                         "checkpoint there (``repro_torch.launch.train`` "
+                         "writes them) instead of random weights")
     ap.add_argument("--mixed", action="store_true",
                     help="mixed workload: short and long prompts")
     # request-lifecycle demos
@@ -136,8 +146,17 @@ def main(argv=None):
     cfg = cfg.with_(state_quant=OPS.StateQuantConfig(
         fmt=args.state_format, rounding="stochastic", backend=backend))
 
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = M.init_model(cfg, gen, device=device)
+    if args.ckpt_dir:
+        from repro_torch.checkpoint.manager import CheckpointManager
+        like = M.init_model(cfg, torch.Generator().manual_seed(0),
+                            device="meta")
+        restored, step = CheckpointManager(args.ckpt_dir).restore(
+            {"params": like, "opt_state": None}, device=device)
+        params = restored["params"]
+        print(f"loaded checkpoint step {step}")
+    else:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = M.init_model(cfg, gen, device=device)
     sampling = SamplingConfig(temperature=args.temperature,
                               top_k=40 if args.temperature > 0 else 0,
                               top_p=args.top_p)

@@ -37,6 +37,75 @@ def _mask_chunk(s, q_idx, k_idx, q_chunk, kv_chunk, prefix_len=0):
     return s + torch.where(ok, 0.0, NEG_INF).to(s.dtype)
 
 
+def _scores(qi, kj, q_idx, k_idx, causal, prefix_len, q_chunk, kv_chunk):
+    """One (q chunk, kv chunk) pair's masked scores (B, KVH, G, qc, kc)."""
+    s = torch.einsum("bngqd,bnkd->bngqk", qi, kj)
+    if causal:
+        s = _mask_chunk(s, q_idx, k_idx, q_chunk, kv_chunk, prefix_len)
+    return s
+
+
+def _flash_fwd(qb, kb, vb, causal, prefix_len, q_chunk, kv_chunk):
+    """qb: (nq,B,KVH,G,qc,dh) pre-scaled f32; kb / vb: (nk,B,KVH,kc,d*).
+    q chunks outer, kv chunks inner, streaming max / sum.  Returns (out
+    (nq,B,KVH,G,qc,dv), lse (nq,B,KVH,G,qc,1))."""
+    nq, B, KVH, G, qc, _ = qb.shape
+    outs, lses = [], []
+    for qi in range(nq):
+        m = torch.full((B, KVH, G, qc, 1), NEG_INF, device=qb.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, KVH, G, qc, vb.shape[-1]), device=qb.device)
+        for kj in range(kb.shape[0]):
+            s = _scores(qb[qi], kb[kj], qi, kj, causal, prefix_len, q_chunk,
+                        kv_chunk)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bngqk,bnkv->bngqv", p, vb[kj])
+            m = m_new
+        l = l.clamp(min=1e-30)
+        outs.append(acc / l)
+        lses.append(m + torch.log(l))
+    return torch.stack(outs), torch.stack(lses)
+
+
+class _Flash(torch.autograd.Function):
+    """The blockwise attention with the flash backward (the JAX package's
+    ``_flash`` custom VJP): the forward saves its inputs, output and
+    log-sum-exp, and the backward recomputes each chunk pair's scores, so
+    no (S, S) score matrix exists forward or backward."""
+
+    @staticmethod
+    def forward(ctx, qb, kb, vb, causal, prefix_len, q_chunk, kv_chunk):
+        out, lse = _flash_fwd(qb, kb, vb, causal, prefix_len, q_chunk,
+                              kv_chunk)
+        ctx.save_for_backward(qb, kb, vb, out, lse)
+        ctx.mask = (causal, prefix_len, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qb, kb, vb, out, lse = ctx.saved_tensors
+        causal, prefix_len, q_chunk, kv_chunk = ctx.mask
+        Dr = (dout * out).sum(-1, keepdim=True)         # rowsum(dO * O)
+        dq = torch.zeros_like(qb)
+        dk = torch.zeros_like(kb)
+        dv = torch.zeros_like(vb)
+        for qi in range(qb.shape[0]):
+            doi = dout[qi]
+            for kj in range(kb.shape[0]):
+                s = _scores(qb[qi], kb[kj], qi, kj, causal, prefix_len,
+                            q_chunk, kv_chunk)
+                p = torch.exp(s - lse[qi])              # (B,KVH,G,qc,kc)
+                dv[kj] += torch.einsum("bngqk,bngqv->bnkv", p, doi)
+                dp = torch.einsum("bngqv,bnkv->bngqk", doi, vb[kj])
+                ds = p * (dp - Dr[qi])
+                dq[qi] += torch.einsum("bngqk,bnkd->bngqd", ds, kb[kj])
+                dk[kj] += torch.einsum("bngqk,bngqd->bnkd", ds, qb[qi])
+        return dq, dk, dv, None, None, None, None
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, prefix_len: int = 0,
                         scale: Optional[float] = None, q_chunk: int = 512,
@@ -44,7 +113,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B,S,H,dh), k/v: (B,S,KVH,dh|dv) -> (B,S,H,dv).  Causal unless
     ``causal`` is false (an encoder: no mask at all); ``prefix_len > 0``
     opens the first ``prefix_len`` positions to every query, and only
-    where attention is causal (as in the JAX package)."""
+    where attention is causal (as in the JAX package).  Differentiable
+    through the flash backward (:class:`_Flash`); ``k`` and ``v`` may be
+    views of one tensor (MLA), whose gradient then sums both."""
     B, S, H, dh = q.shape
     KVH, dv = k.shape[2], v.shape[-1]
     G = H // KVH
@@ -60,23 +131,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kb = kb.permute(1, 0, 3, 2, 4)                     # (nk,B,KVH,kc,dh)
     vb = v.to(torch.float32).reshape(B, nk, kv_chunk, KVH, dv)
     vb = vb.permute(1, 0, 3, 2, 4)
-    outs = []
-    for qi in range(nq):
-        m = torch.full((B, KVH, G, q_chunk, 1), NEG_INF, device=q.device)
-        l = torch.zeros_like(m)
-        acc = torch.zeros((B, KVH, G, q_chunk, dv), device=q.device)
-        for kj in range(nk):
-            s = torch.einsum("bngqd,bnkd->bngqk", qb[qi], kb[kj])
-            if causal:
-                s = _mask_chunk(s, qi, kj, q_chunk, kv_chunk, prefix_len)
-            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            p = torch.exp(s - m_new)
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(-1, keepdim=True)
-            acc = acc * alpha + torch.einsum("bngqk,bnkv->bngqv", p, vb[kj])
-            m = m_new
-        outs.append(acc / l.clamp(min=1e-30))
-    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, S, H, dv)
+    out = _Flash.apply(qb, kb, vb, causal, prefix_len, q_chunk, kv_chunk)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, S, H, dv)
     return out.to(q.dtype)
 
 

@@ -10,6 +10,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as Fn
+import torch.utils.checkpoint
 
 from repro_torch.models.config import ModelConfig
 
@@ -268,3 +269,44 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.moe.n_shared:
         out = out + apply_ffn(p["shared"], x, cfg.ffn_kind_inner)
     return out
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(xb: torch.Tensor, lm_head: torch.Tensor, lb: torch.Tensor,
+                mb: torch.Tensor):
+    """One chunk's summed masked NLL and mask count.  The gold logit is a
+    gather: bitwise the JAX package's masked sum over the vocabulary (one
+    term, the rest zeros), without its (B, chunk, V) mask."""
+    logits = (xb @ lm_head).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lb[..., None])[..., 0]
+    return ((logz - gold) * mb).sum(), mb.sum()
+
+
+def chunked_softmax_xent(x: torch.Tensor, lm_head: torch.Tensor,
+                         labels: torch.Tensor, mask: torch.Tensor,
+                         chunk: int = 1024) -> torch.Tensor:
+    """Cross-entropy over large vocabularies without a (B, S, V) logits
+    buffer.  x: (B, S, d) final hidden states; lm_head: (d, V);
+    labels / mask: (B, S).  The sequence is padded to whole chunks; each
+    chunk runs under a (non-reentrant) checkpoint, so the backward
+    recomputes its (B, chunk, V) logits instead of keeping them."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        x = Fn.pad(x, (0, 0, 0, pad))
+        labels = Fn.pad(labels, (0, pad))
+        mask = Fn.pad(mask, (0, pad))
+    labels = labels.long()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s in range(0, x.shape[1], chunk):
+        t, c = torch.utils.checkpoint.checkpoint(
+            _xent_chunk, x[:, s:s + chunk], lm_head, labels[:, s:s + chunk],
+            mask[:, s:s + chunk], use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / cnt.clamp(min=1.0)

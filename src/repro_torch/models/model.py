@@ -11,6 +11,8 @@ cache last in each group).  A model with a prelude keeps the JAX package's
 split, ``params["prelude"][i]`` and caches ``{"prelude": [...], "groups":
 caches[g][pos]}`` (:func:`split_caches` / :func:`join_caches`).
 
+  * train   -- ``train_loss``: full-sequence forward (no cache, remat per
+    ``cfg.remat``) + the chunked cross-entropy, differentiable
   * prefill -- full-sequence forward that also builds the decode caches;
     the inputs are tokens, or a frontend's embeddings (:func:`embed_inputs`:
     a patch prefix before the tokens, or audio frames alone), and an
@@ -29,9 +31,11 @@ wrapping in uint32.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import attention_cache as AC
 from repro_torch.core import formats as F
@@ -258,30 +262,36 @@ def _build_kv_cache(k: torch.Tensor, v, cfg: ModelConfig,
 
 
 def _attn_block_forward(p: Params, x, cfg: ModelConfig, positions,
-                        prefix_len: int = 0):
+                        prefix_len: int = 0, want_cache: bool = True):
     """Attention + cache build shared by pattern and shared blocks (an
-    encoder builds no cache)."""
+    encoder, or a forward that wants no cache, builds none)."""
     y = ATT.attention_forward(p, x, cfg, positions, prefix_len)
-    if cfg.encoder_only:
+    if cfg.encoder_only or not want_cache:
         return y, None
     k, v = ATT.attention_prefill_kv(p, x, cfg, positions)
     return y, _build_kv_cache(k, v, cfg)
 
 
 def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
-                     positions, prefix_len: int = 0
+                     positions, prefix_len: int = 0, want_cache: bool = True
                      ) -> Tuple[torch.Tensor, Any]:
+    """One layer over the full sequence: (x, its decode cache).  Without
+    ``want_cache`` (training) no cache is built: no state is stored or
+    quantized and no stochastic-rounding seed is drawn -- what XLA drops
+    as dead code in the JAX package, eager PyTorch must not run."""
     h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
     if kind == "attn":
         y, cache = _attn_block_forward(p["mixer"], h, cfg, positions,
-                                       prefix_len)
+                                       prefix_len, want_cache)
     elif kind == "mla":
         y = ATT.mla_forward(p["mixer"], h, cfg, positions)
-        ckv = ATT.mla_cache_stream(p["mixer"], h, cfg, positions)
-        cache = _build_kv_cache(ckv[:, :, None, :], None, cfg,
-                                v_width=cfg.mla.kv_lora)
+        cache = None
+        if want_cache:
+            ckv = ATT.mla_cache_stream(p["mixer"], h, cfg, positions)
+            cache = _build_kv_cache(ckv[:, :, None, :], None, cfg,
+                                    v_width=cfg.mla.kv_lora)
     else:
-        y, cache = SSM.mixer(kind).forward(p["mixer"], h, cfg)
+        y, cache = SSM.mixer(kind).forward(p["mixer"], h, cfg, want_cache)
     x = x + y
     if _has_ffn(cfg, kind):
         h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
@@ -290,12 +300,62 @@ def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
 
 
 def _shared_block_forward(p: Params, x, cfg: ModelConfig, positions,
-                          prefix_len: int = 0):
+                          prefix_len: int = 0, want_cache: bool = True):
     h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
-    y, cache = _attn_block_forward(p["attn"], h, cfg, positions, prefix_len)
+    y, cache = _attn_block_forward(p["attn"], h, cfg, positions, prefix_len,
+                                   want_cache)
     x = x + y
     h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
     return x + L.apply_ffn(p["ffn"], h, cfg.ffn_kind), cache
+
+
+def _run_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                positions, prefix_len: int, want_cache: bool):
+    """Every layer over the full sequence: (x, caches ``[g][pos]`` with the
+    shared block's last, and the prelude's split off) -- caches of None
+    without ``want_cache``.  With ``cfg.remat``, where autograd records,
+    each group and, where it holds more than one block, each of its
+    elements (the shared block too) runs under a non-reentrant checkpoint,
+    as the JAX package's nested ``jax.checkpoint``: the backward recomputes
+    one element's activations at a time instead of keeping every
+    layer's."""
+    shared = params.get("shared")
+    remat = cfg.remat and torch.is_grad_enabled()
+    # a group of one block needs no inner checkpoint: it would recompute
+    # the outer one's forward a third time
+    inner = remat and len(cfg.pattern) + (shared is not None) > 1
+
+    def run(on, fn, *args):
+        if on:
+            return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                     use_reentrant=False)
+        return fn(*args)
+
+    prelude = []
+    for i, kind in enumerate(cfg.prelude):
+        x, c = _element_forward(params["prelude"][i], x, cfg, kind,
+                                positions, prefix_len, want_cache)
+        prelude.append(c)
+
+    def group_body(gp, x):
+        group = []
+        for pos, kind in enumerate(cfg.pattern):
+            x, c = run(inner, functools.partial(
+                _element_forward, cfg=cfg, kind=kind, positions=positions,
+                prefix_len=prefix_len, want_cache=want_cache), gp[pos], x)
+            group.append(c)
+        if shared is not None:
+            x, c = run(inner, functools.partial(
+                _shared_block_forward, cfg=cfg, positions=positions,
+                prefix_len=prefix_len, want_cache=want_cache), shared, x)
+            group.append(c)
+        return x, group
+
+    caches = []
+    for g in range(cfg.n_groups):
+        x, group = run(remat, group_body, params["groups"][g], x)
+        caches.append(group)
+    return x, join_caches(prelude, caches)
 
 
 @torch.no_grad()
@@ -305,28 +365,36 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     (last-position logits (B, V), caches), or for an encoder (per-position
     logits (B, S, V), None)."""
     x, positions, prefix_len = embed_inputs(params, cfg, batch)
-    shared = params.get("shared")
-    prelude = []
-    for i, kind in enumerate(cfg.prelude):
-        x, c = _element_forward(params["prelude"][i], x, cfg, kind,
-                                positions, prefix_len)
-        prelude.append(c)
-    caches = []
-    for g in range(cfg.n_groups):
-        group = []
-        for pos, kind in enumerate(cfg.pattern):
-            x, c = _element_forward(params["groups"][g][pos], x, cfg, kind,
-                                    positions, prefix_len)
-            group.append(c)
-        if shared is not None:
-            x, c = _shared_block_forward(shared, x, cfg, positions,
-                                         prefix_len)
-            group.append(c)
-        caches.append(group)
+    x, caches = _run_blocks(params, x, cfg, positions, prefix_len,
+                            want_cache=not cfg.encoder_only)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     if cfg.encoder_only:
         return x @ _lm_head(params, cfg), None
-    return x[:, -1] @ _lm_head(params, cfg), join_caches(prelude, caches)
+    return x[:, -1] @ _lm_head(params, cfg), caches
+
+
+def train_loss(params: Params, cfg: ModelConfig,
+               batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The training objective over ``batch`` (tensors: the inputs of
+    :func:`embed_inputs`, ``targets`` (B, S) and an optional ``mask``):
+    the chunked cross-entropy of the next-token targets, averaged over the
+    mask -- a VLM's over its text positions only, an audio encoder's over
+    its masked frames.  Builds no cache; differentiable (the flash
+    backward in the attention, remat per ``cfg.remat``)."""
+    x, positions, prefix_len = embed_inputs(params, cfg, batch)
+    x, _ = _run_blocks(params, x, cfg, positions, prefix_len,
+                       want_cache=False)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    labels = batch["targets"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    if cfg.frontend == "patch":
+        # loss over text positions only; hidden states are offset by prefix
+        x = x[:, -labels.shape[1]:]
+    return L.chunked_softmax_xent(x, _lm_head(params, cfg), labels,
+                                  mask.to(torch.float32), cfg.logit_chunk)
 
 
 # ---------------------------------------------------------------------------

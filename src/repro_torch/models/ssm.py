@@ -78,7 +78,10 @@ def chunked_la_scalar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for i in range(nc):
         qi, ki, vi = qc[:, :, i], kc[:, :, i], vc[:, :, i]
         cumi, toti = cum[:, :, i], total[:, :, i]
-        dmat = torch.exp(cumi[..., :, None] - cumi[..., None, :])
+        # decays above the diagonal grow without bound (they are masked
+        # below); exp(-inf) there keeps their backward finite
+        dmat = torch.exp(torch.where(
+            tril, cumi[..., :, None] - cumi[..., None, :], -torch.inf))
         A = torch.einsum("bhcd,bhed->bhce", qi.float(), ki.float()) * dmat
         A = torch.where(tril, A, torch.zeros_like(A))
         y = torch.einsum("bhce,bhev->bhcv", A.to(vi.dtype), vi).float()
@@ -222,8 +225,11 @@ def _m2_project(p, x, cfg):
     return x @ p["wz"], x @ p["wx"], bc[..., :N], bc[..., N:], x @ p["wdt"]
 
 
-def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
+def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                   want_cache: bool = True
                    ) -> Tuple[torch.Tensor, MixerState]:
+    """Full-sequence Mamba-2; the decode state (``None`` unless
+    ``want_cache``: a training forward stores and quantizes nothing)."""
     B, S, _ = x.shape
     d_inner, H, N, P = _m2_dims(cfg)
     z, xin, Bv, Cv, dt_ = _m2_project(p, x, cfg)
@@ -245,6 +251,8 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
     y = y.transpose(1, 2).reshape(B, S, d_inner).to(x.dtype)
     y = L.rmsnorm_gated(y, p["norm"]["scale"], z, cfg.norm_eps)
     out = y @ p["out_proj"]
+    if not want_cache:
+        return out, None
 
     # conv caches hold the pre-activation inputs of the last d_conv-1 steps
     _, xin2, Bv2, Cv2, _ = _m2_project(p, _conv_tail(x, cfg), cfg)
@@ -374,11 +382,13 @@ def _gla_family_out(p, y, x, cfg: ModelConfig):
 
 
 def gla_family_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                       kind: str) -> Tuple[torch.Tensor, MixerState]:
+                       kind: str, want_cache: bool = True
+                       ) -> Tuple[torch.Tensor, MixerState]:
     q, k, v, log_f = _gla_family_qkv(p, x, cfg, kind)
     scan = chunked_la_scalar if kind == "retnet" else chunked_la_vector
     y, S_fin = scan(q, k, v, log_f, cfg.ssm.chunk)
-    return _gla_family_out(p, y, x, cfg), {"S": _store_state(S_fin, cfg)}
+    out = _gla_family_out(p, y, x, cfg)
+    return out, ({"S": _store_state(S_fin, cfg)} if want_cache else None)
 
 
 def gla_family_init_state(B: int, cfg: ModelConfig, device) -> MixerState:
@@ -472,7 +482,8 @@ def _mlstm_out(p, y_aug, z, cfg: ModelConfig):
     return (h * Fn.silu(z)) @ p["down"]
 
 
-def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
+def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  want_cache: bool = True
                   ) -> Tuple[torch.Tensor, MixerState]:
     d_up, H, dk, dv, dv_aug = _mlstm_dims(cfg)
     u, z = x @ p["wu"], x @ p["wz"]
@@ -480,6 +491,8 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
     q, k_eff, v_aug, log_f = _mlstm_gates_qkv(p, u, uc, cfg)
     y_aug, S_fin = chunked_la_scalar(q, k_eff, v_aug, log_f, cfg.ssm.chunk)
     out = _mlstm_out(p, y_aug.transpose(1, 2), z, cfg)
+    if not want_cache:
+        return out, None
     # the conv tail holds u of the last d_conv-1 steps
     return out, {"S": _store_state(S_fin, cfg),
                  "conv": _conv_tail(u, cfg).contiguous()}
@@ -558,7 +571,8 @@ def _slstm_cell(p, gx, carry):
     return c_t, n_t, m_t, h_t
 
 
-def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
+def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  want_cache: bool = True
                   ) -> Tuple[torch.Tensor, MixerState]:
     """The prompt's positions one after another (the JAX package's
     ``lax.scan``), from the zero carry with ``m = -1e30``."""
@@ -571,7 +585,7 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
         carry = _slstm_cell(p, gx[:, t], carry)
         hs.append(carry[3])
     h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
-    return h @ p["out"], dict(zip("cnmh", carry))
+    return h @ p["out"], dict(zip("cnmh", carry)) if want_cache else None
 
 
 def slstm_init_state(B: int, cfg: ModelConfig, device) -> MixerState:
@@ -599,7 +613,8 @@ def slstm_decode(p: Params, x: torch.Tensor, state: MixerState,
 
 class Mixer(NamedTuple):
     """A recurrent mixer's functions: ``init(gen, cfg, device)``,
-    ``forward(p, x, cfg)``, ``init_state(B, cfg, device)`` and
+    ``forward(p, x, cfg, want_cache=True)`` (the state ``None`` without
+    ``want_cache``), ``init_state(B, cfg, device)`` and
     ``decode(p, x, state, cfg, seed)``."""
     init: Callable
     forward: Callable
@@ -610,7 +625,8 @@ class Mixer(NamedTuple):
 def _gla_mixer(kind: str) -> Mixer:
     return Mixer(
         lambda gen, cfg, device: init_gla_family(gen, cfg, kind, device),
-        lambda p, x, cfg: gla_family_forward(p, x, cfg, kind),
+        lambda p, x, cfg, want_cache=True: gla_family_forward(
+            p, x, cfg, kind, want_cache),
         gla_family_init_state,
         lambda p, x, state, cfg, seed: gla_family_decode(p, x, state, cfg,
                                                          kind, seed))

@@ -64,6 +64,10 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.serving.memory.prefix_store",
             "repro_torch.obs.trace", "repro_torch.obs.recompile",
             "repro_torch.obs.schema"} <= names
+    # and the training path's
+    assert {"repro_torch.data.pipeline", "repro_torch.train.optimizer",
+            "repro_torch.train.train_loop", "repro_torch.checkpoint.manager",
+            "repro_torch.launch.train", "repro_torch.core.tree"} <= names
 
 
 def _imported_roots(path: pathlib.Path):
