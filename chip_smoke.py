@@ -119,7 +119,18 @@ Phases, in the order they run:
   0's loss against a ``want_cache=True`` forward's), then served through
   the slot pool on its trained weights (kernels 1, 2, 7); one flash
   attention forward and backward at S = 8192 far under one score
-  tensor's memory, against SDPA
+  tensor's memory, against SDPA   69 (after phase 68; the distribution
+  layer at world size 1: an NCCL process group of one rank and a (1, 1)
+  mesh): smollm-360m at full width and depth from phase 66's seeded
+  weights and batches, three ZeRO-sharded train steps (DTensor
+  parameters and moments) against three plain steps, losses and
+  parameters bitwise; on the trained weights a sharded model-level
+  prefill and 8 decode steps with parameters and caches in their
+  layouts, logits bitwise the unsharded steps' and kernels 2, 7 and the
+  dense append launched as often; the append of the last half batch's
+  rows with its SR row base bitwise the whole batch's append on those
+  rows; the int8 compressed all-reduce of a
+  gradient tree through NCCL, bitwise the CPU compressor's
   8. kernels line
 
 The card's peaks in every bound come from
@@ -5154,6 +5165,8 @@ TRAIN_LOSS_DROP = 0.5
 ZAMBA2_TRAIN = dict(steps=3, seq_len=256, batch=2)
 #: phase 68: one attention forward and backward at smollm's heads
 LONG_ATTN = dict(S=8192, chunk=512, H=15, KVH=5, d=64)
+#: phase 69: train steps of each kind, then the decode check's prompts
+DIST = dict(train_steps=3, prompts=4, prompt_len=64, decode_steps=8)
 
 
 def _trainer(ckpt_dir, label):
@@ -5461,6 +5474,282 @@ def phase_train_zamba2():
           KVH=LONG_ATTN["KVH"], **_long_attention())
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic kernels for the bitwise comparisons of phase 69 (the
+    embedding's and the gather's backward scatter without atomics), as the
+    trainer runs them.  This process sets no cuBLAS workspace, so cuBLAS
+    only warns (its products on one stream repeat bitwise).  The settings
+    come back after."""
+    import warnings
+    import torch
+    import torch.utils.deterministic as det
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*CUBLAS_WORKSPACE")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        det.fill_uninitialized_memory = was[2]
+
+
+def _dist_train(cfg, par, SH, M, O, make_train_step, batch_fn):
+    """Phase 69's training half: DIST["train_steps"] plain steps and as
+    many sharded ones from the same seeded weights and batches; losses,
+    parameters and moments bitwise.  Returns (plain parameters, sharded
+    parameters, step times, the gather's host ms)."""
+    import torch
+    from repro_torch.core import tree as T
+    opt = O.OptimizerConfig(lr=3e-4, total_steps=TRAIN["steps"],
+                            warmup_steps=max(TRAIN["steps"] // 20, 1))
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+    state = O.init_opt_state(params, opt)
+    p_shard = SH.param_shardings(params, cfg, par)
+    sp = SH.distribute(T.tree_map(torch.clone, params), p_shard)
+    ss = SH.distribute(T.tree_map(torch.clone, state),
+                       SH.opt_state_shardings(state, p_shard, par))
+    steps = dict(plain=make_train_step(cfg, opt),
+                 sharded=make_train_step(cfg, opt, par=par))
+    losses = dict(plain=[], sharded=[])
+    ms = dict(plain=[], sharded=[])
+    for i in range(DIST["train_steps"]):
+        batch = batch_fn(i)
+        for kind in ("plain", "sharded"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "plain":
+                params, state, m = steps[kind](params, state, batch)
+            else:
+                sp, ss, m = steps[kind](sp, ss, batch)
+            losses[kind].append(float(m["loss"]))
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+    check(losses["plain"] == losses["sharded"]
+          and all(math.isfinite(v) for v in losses["plain"]),
+          f"sharded losses {losses['sharded']} != plain {losses['plain']}")
+    for tree, dtree, what in ((params, sp, "parameters"),
+                              (state["m"], ss["m"], "first moments"),
+                              (state["v"], ss["v"], "second moments")):
+        bad = [i for i, (a, b) in enumerate(zip(T.leaves(tree),
+                                                T.leaves(dtree)))
+               if not torch.equal(a, b.to_local())]
+        check(not bad, f"sharded {what} differ from plain at leaves {bad}")
+    del state, ss
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        SH.gather_params(sp, cfg, par)
+    gather_ms = (time.perf_counter() - t0) / 5 * 1e3
+    return params, sp, losses, ms, gather_ms
+
+
+def _dist_decode(cfg, par, SH, M, params, sp):
+    """Phase 69's decode half: a model-level prefill of DIST["prompts"]
+    seeded prompts and DIST["decode_steps"] greedy steps, unsharded and
+    sharded (parameters, batch and caches in their layouts); logits
+    bitwise, each path's launches counted in its own window."""
+    import torch
+    B, S, n = DIST["prompts"], DIST["prompt_len"], DIST["decode_steps"]
+    g = torch.Generator(device="cuda").manual_seed(69)
+    tok = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                        device="cuda")
+    lengths = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    ln_layout = SH.batch_shardings(lengths, par)
+    runs, counts, ms = {}, {}, {}
+    for kind in ("plain", "sharded"):
+        PLAIN_QUANT["calls"] = 0
+        _counts_reset()
+        if kind == "plain":
+            logits, caches = M.prefill(params, cfg, {"tokens": tok})
+        else:
+            batch = SH.distribute({"tokens": tok}, SH.batch_shardings(
+                {"tokens": tok}, par))
+            logits, caches = SH.sharded_prefill(sp, cfg, batch, par)
+            logits = logits.full_tensor()
+        pre = _counts()
+        out = [logits]
+        nxt = logits.argmax(-1)
+        _counts_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            if kind == "plain":
+                logits, caches = M.decode_step(params, cfg, nxt, caches,
+                                               lengths + i, seed=i + 1)
+            else:
+                logits, caches = SH.sharded_decode_step(
+                    sp, cfg, SH.distribute(nxt, ln_layout), caches,
+                    SH.distribute(lengths + i, ln_layout), par, seed=i + 1)
+                logits = logits.full_tensor()
+            out.append(logits)
+            nxt = logits.argmax(-1)
+        torch.cuda.synchronize()
+        ms[kind] = (time.perf_counter() - t0) / n * 1e3
+        counts[kind] = (pre, _counts())
+        if kind == "plain":
+            plain_cache = next(M.iter_kv_caches(caches))
+        check(PLAIN_QUANT["calls"] == 0, f"{kind} decode: the plain MX8 "
+              f"quantizer ran {PLAIN_QUANT['calls']} times in a step")
+        runs[kind] = out
+    for i, (a, b) in enumerate(zip(runs["plain"], runs["sharded"])):
+        check(torch.equal(a, b), f"sharded logits differ from the "
+              f"unsharded at step {i}: max |d| "
+              f"{float((a - b).abs().max()):.3g}")
+    check(counts["plain"] == counts["sharded"], f"launches: sharded "
+          f"{counts['sharded']}, unsharded {counts['plain']}")
+    pre, dec = counts["sharded"]
+    check(pre["k7"] > 0 and dec["k2_gqa"] > 0 and dec["apd"] > 0,
+          f"phase 69's path launched no kernel 7, 2 or append: {pre} {dec}")
+    _row_base_append(plain_cache, B // 2)
+    return ({k: v / n for k, v in dec.items() if v}, pre["k7"], ms,
+            bool(torch.isfinite(runs["plain"][-1]).all()))
+
+
+def _row_base_append(cache, b0):
+    """A second data rank's dense append on the card, on the decoded
+    cache of the path's first attention layer: rows ``b0 ..`` of the K/V
+    rows appended with their row base are bitwise what the whole batch's
+    append writes for them, and what the plain version writes (the draws
+    ``sharded_decode_step`` keys on the rank's first row).  Kernel level:
+    a model-level half batch is not bitwise the whole batch's rows on the
+    card, as cuBLAS takes other GEMM kernels for fewer rows."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_quant as KQ
+    g = torch.Generator(device="cuda").manual_seed(70)
+    B, _, KVH, w = cache.k.shape
+    rows = [torch.randn((B, 1, KVH, w), generator=g, device="cuda")
+            for _ in "kv"]
+    rows_of = lambda qt, lo: F.QuantizedTensor(
+        "mx8", (B - lo,) + tuple(qt.shape[1:]),
+        {f: a[lo:].clone() for f, a in qt.payload.items()})
+    whole = [rows_of(c, 0) for c in (cache.k, cache.v)]
+    part = [rows_of(c, b0) for c in (cache.k, cache.v)]
+    plain = [rows_of(c, b0) for c in (cache.k, cache.v)]
+    n0 = KQ.mx_kv_append_quant.launches
+    KQ.mx_kv_append_quant(rows, whole, cache.lengths, 9)
+    KQ.mx_kv_append_quant([r[b0:] for r in rows], part, cache.lengths[b0:],
+                          9, row_base=b0)
+    KQ.plain_append([r[b0:] for r in rows], plain, cache.lengths[b0:], 9,
+                    "stochastic", b0)
+    torch.cuda.synchronize()
+    check(KQ.mx_kv_append_quant.launches == n0 + 2,
+          "the row-base append did not launch its kernel")
+    for w_, p_, q_ in zip(whole, part, plain):
+        for f in p_.payload:
+            check(torch.equal(p_.payload[f], w_.payload[f][b0:])
+                  and torch.equal(p_.payload[f], q_.payload[f]),
+                  f"the append's rows {b0}.. with their row base differ "
+                  f"from the whole batch's ({f})")
+
+
+def _dist_compress(cfg, M, params, batch_fn):
+    """Phase 69's compression: one gradient tree at the trained weights
+    through the compressed all-reduce over NCCL (the one-rank world) and
+    through the CPU compressor; ``q``, ``scale``, the reduced tree and
+    the residual bitwise."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import tree as T
+    from repro_torch.dist import compression as C
+    from repro_torch.train.train_loop import _loss_and_grads, batch_to_device
+    _, grads = _loss_and_grads(params, cfg, batch_to_device(
+        batch_fn(DIST["train_steps"]), "cuda"))
+    cpu = T.tree_map(lambda t: t.cpu(), grads)
+    for g, h in zip(T.leaves(grads), T.leaves(cpu)):
+        q, s = C.quantize_int8(g)
+        qc, sc = C.quantize_int8(h)
+        check(torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc),
+              "int8 q / scale on the card differ from the CPU's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    red, ef = C.compressed_allreduce_mean(grads, C.init_error_feedback(grads),
+                                          group=dist.group.WORLD)
+    torch.cuda.synchronize()
+    nccl_ms = (time.perf_counter() - t0) * 1e3
+    red_c, ef_c = C.compressed_allreduce_mean(cpu, C.init_error_feedback(cpu))
+    for a, b in zip(T.leaves(red) + T.leaves(ef),
+                    T.leaves(red_c) + T.leaves(ef_c)):
+        check(torch.equal(a.cpu(), b), "the NCCL compressed all-reduce "
+              "differs from the CPU compressor")
+    n = sum(g.numel() for g in T.leaves(grads))
+    # compressed_bytes is the int8 payload's nominal size; the all-reduce
+    # (as the JAX package's pmean) sends the dequantized fp32 values
+    return dict(values=n, int8_payload_bytes=C.compressed_bytes(grads),
+                bf16_bytes=2 * n, sent_fp32_bytes=4 * n,
+                leaves=len(T.leaves(grads)),
+                nccl_ms=f"{nccl_ms:.1f}")
+
+
+def phase_dist():
+    """Phase 69: the distribution layer on the card at world size 1 (NCCL
+    refuses two ranks on one card): an NCCL group of one rank and a (1, 1)
+    ``Parallel`` over "cuda", destroyed at the end.  smollm-360m at full
+    width and all 32 layers from phase 66's seeded weights and batches:
+    ZeRO-sharded train steps against plain ones (:func:`_dist_train`),
+    the sharded model-level prefill and decode on the trained weights
+    against the unsharded (:func:`_dist_decode`), and the compressed
+    all-reduce through NCCL against the CPU (:func:`_dist_compress`)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import local_init_method, make_local_parallel
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=local_init_method(),
+                            world_size=1, rank=0)
+    try:
+        par = make_local_parallel(1, 1, device_type="cuda")
+        cfg = get_config(TRAIN["arch"])
+        batch_fn = make_batch_fn(cfg, TRAIN["seq_len"], TRAIN["batch"])
+        init_s = time.perf_counter() - t_start
+        with _deterministic():
+            params, sp, losses, ms, gather_ms = _dist_train(
+                cfg, par, SH, M, O, make_train_step, batch_fn)
+        phase(69, f"{cfg.name} ZeRO-sharded train steps at world size 1 "
+              "(NCCL, a (1, 1) mesh)", steps=DIST["train_steps"],
+              losses=",".join(f"{v:.6f}" for v in losses["sharded"]),
+              losses_and_params="bitwise the plain steps'",
+              plain_step_ms=",".join(f"{v:.1f}" for v in ms["plain"]),
+              sharded_step_ms=",".join(f"{v:.1f}" for v in ms["sharded"]),
+              gather_params_host_ms=f"{gather_ms:.2f}",
+              nccl_init_s=f"{init_s:.1f}")
+        per_step, k7, dec_ms, finite = _dist_decode(cfg, par, SH, M, params,
+                                                    sp)
+        check(finite, "phase 69: the decode's logits are not finite")
+        phase(69, f"{cfg.name} sharded prefill + {DIST['decode_steps']} "
+              "decode steps", prompts=DIST["prompts"],
+              prompt_len=DIST["prompt_len"], logits="bitwise the unsharded",
+              append_rows_with_row_base="bitwise the whole batch's rows",
+              launches_per_step=",".join(f"{k}={v:g}"
+                                         for k, v in per_step.items()),
+              prefill_k7=k7, plain_quantizer_calls_in_steps=0,
+              plain_step_ms=f"{dec_ms['plain']:.2f}",
+              sharded_step_ms=f"{dec_ms['sharded']:.2f}")
+        del sp
+        comp = _dist_compress(cfg, M, params, batch_fn)
+        phase(69, "int8 compressed all-reduce through NCCL", **comp,
+              q_scale_reduced_residual="bitwise the CPU's")
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(69, "the distribution layer",
+          seconds=f"{time.perf_counter() - t_start:.1f}")
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to chip_smoke.py; "
@@ -5574,6 +5863,7 @@ def main():
         phase_train_zamba2()
         phase(68, "training, phases 66-68",
               seconds=f"{time.perf_counter() - t_t:.1f}")
+        phase_dist()
         kernels = kernels_line(errs, times, slot, paged, spec, ds, gla,
                                dense, xlstm, pali)
     except SmokeFailure as e:

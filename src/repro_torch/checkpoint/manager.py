@@ -14,6 +14,13 @@ Leaves are whole tensors in ``arrays.npz`` (bf16 as its uint16 bits), named
 in the manifest by their tree path (``params/groups/0/1/mixer/wq``), so a
 template may restore a subtree alone: ``{"params": ..., "opt_state":
 None}`` reads a trainer's checkpoint for serving.
+
+On a mesh the leaves are DTensors: every rank gathers each whole tensor,
+rank 0 writes them and the others wait at a barrier, so a checkpoint is
+the same file whatever the mesh (the manifest's ``shards`` stays None, as
+in the JAX package).  ``restore(..., shardings=...)`` places each leaf in
+a layout of any mesh -- elastic: a run saved on one mesh shape resumes on
+another.
 """
 from __future__ import annotations
 
@@ -25,8 +32,10 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import tree as T
+from repro_torch.dist.compat import DTensor
 
 
 def _name(path) -> str:
@@ -61,6 +70,20 @@ class CheckpointManager:
         items = list(T.leaves_with_paths({"params": params,
                                           "opt_state": opt_state}))
         final = os.path.join(self.dir, f"step_{step:08d}")
+        if any(isinstance(leaf, DTensor) for _, leaf in items):
+            # a collective: every rank gathers every leaf, in one order
+            items = [(p, leaf.full_tensor() if isinstance(leaf, DTensor)
+                      else leaf) for p, leaf in items]
+            if dist.get_rank() != 0:
+                dist.barrier()
+                return final
+            try:
+                return self._write(final, step, items, extra)
+            finally:
+                dist.barrier()
+        return self._write(final, step, items, extra)
+
+    def _write(self, final: str, step: int, items, extra) -> str:
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
@@ -116,13 +139,16 @@ class CheckpointManager:
         return step
 
     def restore(self, like: Any, step: Optional[int] = None,
-                device=None) -> Tuple[Any, int]:
+                device=None, shardings: Any = None) -> Tuple[Any, int]:
         """Restore into the structure of ``like``, a ``{'params': ...,
         'opt_state': ...}`` template whose leaves give each tensor's shape
-        and dtype (``meta`` tensors will do); a subtree that is ``None`` is
-        not read.  Leaves land on ``device`` (default: each template leaf's
-        own) as plain contiguous tensors that require no gradient.  Returns
-        (tree, step)."""
+        and dtype (``meta`` tensors or DTensors will do); a subtree that is
+        ``None`` is not read.  Leaves land on ``device`` (default: each
+        template leaf's own) as plain contiguous tensors that require no
+        gradient -- or, with ``shardings`` (a tree of ``dist.sharding``
+        layouts shaped as ``like``), as DTensors in those layouts on their
+        mesh's device: every rank reads the file and keeps its slice.
+        Returns (tree, step)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no valid checkpoint under {self.dir}")
@@ -148,9 +174,14 @@ class CheckpointManager:
                     raise ValueError(
                         f"{name}: checkpoint {t.dtype} {tuple(t.shape)}, "
                         f"template {tmpl.dtype} {tuple(tmpl.shape)}")
-                out.append(t.to(device if device is not None
+                out.append(t if shardings is not None else
+                           t.to(device if device is not None
                                 else tmpl.device))
-        return T.unflatten(like, out), step
+        tree = T.unflatten(like, out)
+        if shardings is not None:
+            from repro_torch.dist import sharding as SH
+            tree = SH.distribute(tree, shardings)
+        return tree, step
 
     # ---------------- internals ----------------
 

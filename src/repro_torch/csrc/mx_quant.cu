@@ -43,7 +43,10 @@
 // in uint32 arithmetic over that stream's own flat index: the padded
 // output's for kernel 7 (what quantizing the F.pad copy draws), the new
 // rows' (B, n, KVH, w) for the append (what F.sr_bits(rows.shape, seed_i)
-// draws).  For a group that index is group * 16 + j.
+// draws), offset by row_base rows: the append's row_base is the index in
+// the whole batch of its row 0 (a data-parallel rank's first row; 0
+// otherwise), so a rank's rows draw what the whole batch's append draws
+// for them.  For a group that index is base + group * 16 + j.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -192,7 +195,7 @@ struct AppendArgs {
 __global__ void __launch_bounds__(kThreads)
 mx_kv_append_quant_kernel(AppendArgs a, int n_streams,
                           const int* __restrict__ lengths, int B, int n,
-                          int T, int stochastic) {
+                          int T, uint32_t row_base, int stochastic) {
   // groups are numbered stream after stream; g becomes the index within
   // the stream's (B, n, row_groups) groups
   int g = blockIdx.x * blockDim.x + threadIdx.x;
@@ -223,8 +226,10 @@ mx_kv_append_quant_kernel(AppendArgs a, int n_streams,
   float q[kGroup], scale[kGroup / 2];
   uint32_t packed[4];
   int e, mic;
-  mx8::quantize_group(v, (uint32_t)g * kGroup, second ? a.seed[1] : a.seed[0],
-                      stochastic, q, packed, e, mic, scale);
+  const uint32_t flat0 = row_base * (uint32_t)(n * rg * kGroup) +
+                        (uint32_t)g * kGroup;
+  mx8::quantize_group(v, flat0, second ? a.seed[1] : a.seed[0], stochastic,
+                      q, packed, e, mic, scale);
   const size_t at = ((size_t)b * T + start + j) * rg + c;   // the group
   int8_t* mant = second ? a.mant[1] : a.mant[0];
   *reinterpret_cast<int4*>(mant + at * kGroup) =
@@ -277,12 +282,14 @@ extern "C" int mx_quant_launch(const void* x, void* mant, void* expo,
 // 16-byte aligned; caches: 3n device pointers, (mantissa, exponent, micro)
 // of each stream's dense MX8 cache (B, T, KVH * w_i), the mantissas 16-byte
 // aligned; row_groups: the n values KVH * w_i / 16; lengths: (B,) int32 on
-// the device.  Stream i rounds with seed + i.  The caches are updated in
-// place.  Same return convention.
+// the device.  Stream i rounds with seed + i, its SR counter starting at
+// row row_base of the whole batch.  The caches are updated in place.  Same
+// return convention.
 extern "C" int mx_kv_append_quant_launch(
     const unsigned long long* xs, const unsigned long long* caches,
     const int* row_groups, int n, const void* lengths, int B, int n_tok,
-    int T, unsigned int seed, int stochastic, void* stream) {
+    int T, unsigned int seed, unsigned int row_base, int stochastic,
+    void* stream) {
   if (n <= 0 || n > kMaxStreams || B <= 0 || n_tok <= 0 || T < n_tok)
     return (int)cudaErrorInvalidValue;
   AppendArgs a = {};
@@ -301,6 +308,6 @@ extern "C" int mx_kv_append_quant_launch(
   if (total > (1LL << 30)) return (int)cudaErrorInvalidValue;
   const int blocks = (int)((total + kThreads - 1) / kThreads);
   mx_kv_append_quant_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      a, n, (const int*)lengths, B, n_tok, T, stochastic);
+      a, n, (const int*)lengths, B, n_tok, T, (uint32_t)row_base, stochastic);
   return (int)cudaGetLastError();
 }

@@ -39,7 +39,10 @@
 //   * Sn = fma(S, d, round(v * k)) with explicit intrinsics, the contraction
 //     XLA:CPU applies to the jitted reference;
 //   * SR bits come from the same counter hash over the global flat index
-//     ((b*H + h)*dv + row)*dk + col, in uint32 arithmetic.
+//     (((row_base + b)*H + h)*dv + row)*dk + col, in uint32 arithmetic:
+//     row_base is the index in the whole batch of this call's row 0 (a
+//     data-parallel rank's first row; 0 otherwise), so a rank's rows draw
+//     what the whole batch's call draws for them.
 //
 // Slab mode (the paged serving pool): the state rows live in a slab pool
 // (n_slabs, n_stack, H, dv, dk) and row b of the batch owns slab slab[b] at
@@ -88,7 +91,8 @@ mx_state_update_kernel(int8_t* __restrict__ mant, uint8_t* __restrict__ expo,
                        const float* __restrict__ q,
                        float* __restrict__ y,
                        const int* __restrict__ slab, int H, int n_stack,
-                       int group, int dv, int dk, uint32_t seed, int slots) {
+                       int group, int dv, int dk, uint32_t seed,
+                       uint32_t flat_base, int slots) {
   extern __shared__ __align__(16) float smem[];
   MX_SU_STAMP(0);
   // block (ngroups, slots) threads, grid (H, B, row blocks): no division
@@ -180,7 +184,8 @@ mx_state_update_kernel(int8_t* __restrict__ mant, uint8_t* __restrict__ expo,
     float t[kGroup], scale[kGroup / 2];
     uint32_t packed[4];
     int e, mic;
-    mx8::quantize_group(sn, (uint32_t)rowid * (uint32_t)dk + (uint32_t)col0,
+    mx8::quantize_group(sn, flat_base + (uint32_t)rowid * (uint32_t)dk +
+                                (uint32_t)col0,
                         seed, kStochastic, t, packed, e, mic, scale);
     *reinterpret_cast<int4*>(mant + srow * dk + col0) =
         make_int4((int)packed[0], (int)packed[1], (int)packed[2],
@@ -310,7 +315,8 @@ int launch_shape(void* mant, void* expo, void* micro, const void* d,
                  const void* k, const void* v, const void* q, void* y,
                  const void* slab, int BH, int H, int n_stack, int group,
                  int dv, int dk, int d_per_channel, unsigned int seed,
-                 int stochastic, void* stream, int rows, int slots) {
+                 unsigned int row_base, int stochastic, void* stream,
+                 int rows, int slots) {
   const int ngroups = dk / kGroup;
   if (slots <= 0 || slots * ngroups > kMaxThreads ||
       (rows != 1 && rows != 2))
@@ -323,7 +329,8 @@ int launch_shape(void* mant, void* expo, void* micro, const void* d,
                                                 (cudaStream_t)stream>>>(
       (int8_t*)mant, (uint8_t*)expo, (uint8_t*)micro, (const float*)d,
       (const float*)k, (const float*)v, (const float*)q, (float*)y,
-      (const int*)slab, H, n_stack, group, dv, dk, (uint32_t)seed, slots);
+      (const int*)slab, H, n_stack, group, dv, dk, (uint32_t)seed,
+      (uint32_t)row_base * (uint32_t)H * (uint32_t)dv * (uint32_t)dk, slots);
   return (int)cudaGetLastError();
 }
 
@@ -333,15 +340,17 @@ int launch_shape(void* mant, void* expo, void* micro, const void* d,
 // d_per_channel, else (BH,); k, q are (BH, dk); v, y are (BH, dv); all f32,
 // contiguous; k, q and a per-channel d 16-byte aligned.  slab is NULL
 // (dense state (BH, dv, dk)) or (BH / H,) int32 slab ids into a (n_slabs,
-// n_stack, H, dv, dk) pool at layer `group`.  Returns cudaGetLastError()
-// after the launch.
+// n_stack, H, dv, dk) pool at layer `group`.  row_base: the index in the
+// whole batch of row 0 (the SR counter's, see above).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int mx_state_update_launch(void* mant, void* expo, void* micro,
                                       const void* d, const void* k,
                                       const void* v, const void* q, void* y,
                                       const void* slab, int BH, int H,
                                       int n_stack, int group, int dv, int dk,
                                       int d_per_channel, unsigned int seed,
-                                      int stochastic, void* stream) {
+                                      unsigned int row_base, int stochastic,
+                                      void* stream) {
   if (BH <= 0 || H <= 0 || BH % H != 0 || dv <= 0 || dk <= 0 ||
       dk % kGroup != 0 || dk / kGroup > kMaxThreads || n_stack <= 0 ||
       group < 0 || group >= n_stack)
@@ -349,6 +358,6 @@ extern "C" int mx_state_update_launch(void* mant, void* expo, void* micro,
   int rows, slots;
   pick_shape(BH, dv, dk, d_per_channel, stochastic, &rows, &slots);
   return launch_shape(mant, expo, micro, d, k, v, q, y, slab, BH, H, n_stack,
-                      group, dv, dk, d_per_channel, seed, stochastic, stream,
-                      rows, slots);
+                      group, dv, dk, d_per_channel, seed, row_base,
+                      stochastic, stream, rows, slots);
 }

@@ -1,0 +1,563 @@
+"""Sharding layouts for train / serve / dry-run steps (the port's copy of
+``repro/dist/sharding.py``), and their eager execution.
+
+One :class:`Parallel` binds a ``DeviceMesh`` with named dims to axis roles
+(which axes carry data parallelism, which one carries tensor / expert
+parallelism); the builders turn it into a :class:`Layout` tree for every
+tree a step touches, rule for rule the JAX package's:
+
+* :func:`param_shardings`     -- the larger of the two trailing weight dims
+  that divides tp over the model axis, plus FSDP / ZeRO of the first dim
+  over the intra-pod data axes; MoE expert banks shard their expert dim
+  over the model axis instead.
+* :func:`opt_state_shardings` -- AdamW moments follow the parameter layout
+  (ZeRO), the step counter is replicated.
+* :func:`batch_shardings`     -- the leading (batch) dim over all data axes.
+* :func:`cache_shardings`     -- decode caches; batch and time axes are
+  located by probing the port's ``init_decode_caches`` on the ``meta``
+  device at two batch sizes and two capacities, never guessed.
+* :func:`serving_cache_shardings` -- the port's own layout for the caches
+  its serving steps keep: the batch entries of :func:`cache_shardings`
+  alone (compute over the model axis is replicated here).
+* :func:`replicated`          -- the trivial layout.
+
+Rules shard only a dim that divides evenly; anything else replicates.  The
+port's parameters and caches are per-layer lists (``params_from_jax``
+unstacks the JAX package's ``(G, ...)`` group axis), so the JAX layouts'
+leading ``None`` for that scan-stack axis drops out and every other entry
+is the same.
+
+GSPMD partitions the JAX package's steps; the port has no such compiler,
+so it runs a layout eagerly.  At rest every leaf is a ``DTensor`` in its
+layout.  In a step each rank gathers what it computes with
+(:func:`gather`, :func:`gather_params`: every mesh axis, except the rows
+of the data axes and the expert banks' model shards), runs the port's
+single-device code on its own rows, and puts the results back into their
+layouts (:func:`place`; gradients: :func:`reduce_grads`, which sums them
+over the data axes).  Compute over the model axis is replicated, except
+the MoE expert banks, which compute where they live
+(``models/layers.py::apply_moe``).  Kernels see the local tensors, never
+a ``DTensor``.  Per-op tensor parallelism (Megatron's column / row
+products, JAX's ``shard_heads`` / ``_seq_shard``) is not ported: it
+changes where work runs, not what a step computes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.core import attention_cache as AC
+from repro_torch.core import tree as T
+from repro_torch.dist.compat import (DTensor, Partial, Replicate, Shard,
+                                     distribute_tensor)
+
+
+class Spec(tuple):
+    """The port's ``PartitionSpec``: one entry per tensor dim -- ``None``,
+    a mesh axis name, or a tuple of names that shards one dim over several
+    axes, major to minor."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "Spec(" + ", ".join(repr(e) for e in self) + ")"
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Named axes and their sizes without devices or processes: what the
+    builders need to compute a layout (the JAX package's shape-only
+    mesh).  ``shape`` and ``mesh_dim_names`` as on a ``DeviceMesh``."""
+
+    shape: Tuple[int, ...]
+    mesh_dim_names: Tuple[str, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A mesh and a :class:`Spec` (the JAX package's ``NamedSharding``)."""
+
+    mesh: Any
+    spec: Spec
+
+    @property
+    def placements(self) -> tuple:
+        """DTensor placements: ``Shard(d)`` on each mesh dim the spec names
+        at tensor dim ``d``, ``Replicate()`` elsewhere.  A tuple entry's
+        axes must follow the mesh's order: DTensor splits a dim over mesh
+        dims in their order, which is then JAX's major-to-minor."""
+        names = tuple(self.mesh.mesh_dim_names)
+        out = [Replicate()] * len(names)
+        for d, entry in enumerate(self.spec):
+            idx = [names.index(a) for a in _axes(entry)]
+            if idx != sorted(idx):
+                raise ValueError(f"{self.spec}: axes {_axes(entry)} of dim "
+                                 f"{d} are not in the mesh's order {names}")
+            for i in idx:
+                out[i] = Shard(d)
+        return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Parallel:
+    """A mesh plus the roles of its axes.
+
+    ``data_axes`` carry pure data parallelism (the optional leading 'pod'
+    axis is the inter-pod network -- see launch/mesh.py); ``model_axis``
+    carries tensor / expert parallelism.  ``mesh`` is a ``DeviceMesh`` with
+    named dims (or an :class:`AbstractMesh` where only layouts are built).
+    """
+
+    mesh: Any
+    data_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+
+    def size(self, axis: str) -> int:
+        return int(self.mesh.shape[self.mesh.mesh_dim_names.index(axis)])
+
+    @property
+    def tp(self) -> int:
+        """Tensor-parallel degree (size of the model axis)."""
+        return self.size(self.model_axis)
+
+    @property
+    def fsdp_axes(self) -> Tuple[str, ...]:
+        """Data axes that take part in parameter / ZeRO sharding: not
+        'pod' (parameters replicate across pods, so only gradient
+        all-reduces cross the slow inter-pod network)."""
+        return tuple(a for a in self.data_axes if a != "pod")
+
+    @property
+    def fsdp(self) -> int:
+        """FSDP / ZeRO degree (intra-pod data-parallel size)."""
+        out = 1
+        for a in self.fsdp_axes:
+            out *= self.size(a)
+        return out
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """Spec entry for the batch dim (all data axes)."""
+        return tuple(self.data_axes)
+
+    @property
+    def batch_size_divisor(self) -> int:
+        """Global batch sizes must divide this to shard over batch_axes."""
+        out = 1
+        for a in self.data_axes:
+            out *= self.size(a)
+        return out
+
+    def named(self, spec) -> Layout:
+        return Layout(self.mesh, Spec(*spec))
+
+    def coordinate(self, axis: str) -> int:
+        """This rank's index along ``axis``."""
+        return int(self.mesh.get_coordinate()[
+            self.mesh.mesh_dim_names.index(axis)])
+
+    def data_index(self) -> int:
+        """This rank's index over the data axes, major to minor: its rows
+        of a batch sharded over ``batch_axes``."""
+        out = 0
+        for a in self.data_axes:
+            out = out * self.size(a) + self.coordinate(a)
+        return out
+
+    def group(self, axis: str):
+        """The process group of ``axis`` through this rank."""
+        return self.mesh.get_group(axis)
+
+
+def replicated(par: Parallel) -> Layout:
+    return par.named(())
+
+
+# ---------------------------------------------------------------------------
+# trees: the parameter and optimizer trees, and the decode caches
+# ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# params / optimizer
+# ---------------------------------------------------------------------------
+
+def is_expert_bank(path, shape, cfg) -> bool:
+    """An MoE ``(E, d_in, d_out)`` expert bank (MoE models also carry 2-D
+    dense ``wi`` / ``wg`` / ``wo`` under ``ffn``: prelude layers, shared
+    experts, which take the generic layout)."""
+    names = [str(k) for k in path]
+    return (getattr(cfg, "moe", None) is not None and bool(names)
+            and names[-1] in ("wi", "wg", "wo") and "ffn" in names
+            and len(shape) == 3)
+
+
+def expert_parallel(cfg, par: Optional[Parallel]) -> bool:
+    """Whether ``apply_moe`` runs expert-parallel over the model axis."""
+    return (par is not None and getattr(cfg, "moe", None) is not None
+            and par.tp > 1 and cfg.moe.n_experts % par.tp == 0)
+
+
+def param_shardings(params: Any, cfg, par: Parallel) -> Any:
+    """Layout tree mirroring ``params`` (tensors of any device, ``meta``
+    included).
+
+    Per weight: the larger of the two trailing dims that divides tp is
+    tensor-parallel; the first dim is FSDP-sharded over the intra-pod data
+    axes.  MoE expert banks shard their expert dim over the model axis
+    instead, the layout ``apply_moe``'s expert parallelism computes in.
+    1-D leaves (norm scales, gates) are replicated.
+    """
+    tp, fsdp = par.tp, par.fsdp
+
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        if len(shape) < 2:
+            return replicated(par)
+        dims: list = [None] * len(shape)
+        if is_expert_bank(path, shape, cfg) and tp > 1 and shape[0] % tp == 0:
+            dims[0] = par.model_axis
+        elif tp > 1:
+            cands = [i for i in (len(shape) - 1, len(shape) - 2)
+                     if shape[i] % tp == 0 and shape[i] >= tp]
+            if cands:
+                dims[max(cands, key=lambda i: shape[i])] = par.model_axis
+        if fsdp > 1 and dims[0] is None and shape[0] % fsdp == 0 \
+                and shape[0] >= fsdp:
+            dims[0] = par.fsdp_axes
+        return par.named(dims)
+
+    return T.unflatten(params, [one(p, leaf) for p, leaf
+                                in T.leaves_with_paths(params)])
+
+
+def opt_state_shardings(opt_state: Any, p_shard: Any, par: Parallel) -> Any:
+    """AdamW state layout: moments follow the parameter layouts exactly
+    (which already carry the fs factor: ZeRO over the data axis); the step
+    counter is replicated."""
+    del opt_state  # structure is {'m': params, 'v': params, 'step': scalar}
+    return {"m": p_shard, "v": p_shard, "step": replicated(par)}
+
+
+# ---------------------------------------------------------------------------
+# batches / caches
+# ---------------------------------------------------------------------------
+
+def batch_shardings(batch: Any, par: Parallel) -> Any:
+    """Leading (batch) dim over all data axes; indivisible leaves
+    replicate."""
+    div = par.batch_size_divisor
+
+    def one(leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        if not shape or shape[0] % div != 0:
+            return replicated(par)
+        return par.named((par.batch_axes,) + (None,) * (len(shape) - 1))
+
+    return T.tree_map(one, batch)
+
+
+@functools.lru_cache(maxsize=32)
+def _probe_cache_axes(cfg) -> tuple:
+    """(batch_dim, time_dim) of every decode-cache leaf, located exactly:
+    the port's cache skeleton on the ``meta`` device at two batch sizes and
+    two capacities; a dim is the batch (time) axis iff it moves with B
+    (T).  A pure function of the (frozen) config, kept for the last few
+    configs: a serving prefill lays out its caches every call."""
+    from repro_torch.models import model as M
+    a, b, c = (T.leaves(M.init_decode_caches(cfg, B, cap, device="meta"))
+               for B, cap in ((2, 128), (6, 128), (2, 256)))
+    out = []
+    for la, lb, lc in zip(a, b, c):
+        bdim = next((i for i, (x, y) in enumerate(zip(la.shape, lb.shape))
+                     if x != y), None)
+        tdim = next((i for i, (x, y) in enumerate(zip(la.shape, lc.shape))
+                     if x != y), None)
+        out.append((bdim, tdim))
+    return tuple(out)
+
+
+def cache_shardings(cache_shapes: Any, cfg, par: Parallel,
+                    global_batch: int) -> Any:
+    """Decode-cache layout for a warm cache of ``global_batch`` sequences.
+
+    Batch axis over the data axes when the global batch divides.  Leaves
+    WITH a time axis (KV caches) shard it over the model axis -- every leaf
+    of one container shares that axis, so the whole cache keeps one layout;
+    time-less state slabs shard their largest head-like dim instead.  When
+    the batch cannot shard, the time axis spreads over BOTH data and model
+    axes so the cache still scales with the whole mesh.
+    """
+    items = T.leaves(cache_shapes)
+    axes = _probe_cache_axes(cfg)
+    if len(axes) != len(items):
+        raise ValueError(f"cache skeleton mismatch: probed {len(axes)} "
+                         f"leaves, got {len(items)}")
+    div, tp = par.batch_size_divisor, par.tp
+    shard_batch = global_batch % div == 0
+
+    out = []
+    for (bdim, tdim), leaf in zip(axes, items):
+        shape = tuple(leaf.shape)
+        dims: list = [None] * len(shape)
+        batch_ok = (shard_batch and bdim is not None
+                    and shape[bdim] % div == 0)
+        if batch_ok:
+            dims[bdim] = par.batch_axes
+        if tp > 1:
+            start = bdim + 1 if bdim is not None else 0
+            if tdim is not None:
+                if shape[tdim] % tp == 0:
+                    if not batch_ok and div > 1 \
+                            and shape[tdim] % (div * tp) == 0:
+                        dims[tdim] = par.batch_axes + (par.model_axis,)
+                    else:
+                        dims[tdim] = par.model_axis
+            else:
+                heads = [i for i in range(start, len(shape))
+                         if dims[i] is None and shape[i] % tp == 0
+                         and shape[i] >= tp]
+                if heads:
+                    dims[max(heads, key=lambda i: shape[i])] = par.model_axis
+        out.append(par.named(dims))
+    return T.unflatten(cache_shapes, out)
+
+
+def serving_cache_shardings(cache_shapes: Any, cfg, par: Parallel,
+                            global_batch: int) -> Any:
+    """The layout the port's serving steps keep decode caches in: JAX's
+    (:func:`cache_shardings`) with only its batch entries kept.  The port
+    replicates compute over the model axis, so every model rank reads its
+    rows' whole cache each step; in JAX's layout (time or heads over the
+    model axis) a step would all-gather every cache and slice it back.
+    The price is memory: a cache takes ``tp`` times the bytes a chip
+    would hold in JAX's layout (per-op tensor parallelism would shard it
+    by heads)."""
+    batch = par.batch_axes
+    return T.tree_map(
+        lambda l: par.named(tuple(e if e == batch else None for e in l.spec)),
+        cache_shardings(cache_shapes, cfg, par, global_batch))
+
+
+def logits_sharding(shape, par: Parallel, global_batch: int) -> Layout:
+    """Logits: batch over the data axes where the batch divides, vocab
+    over the model axis where it divides (the JAX dry run's)."""
+    dims: list = [None] * len(shape)
+    if global_batch % par.batch_size_divisor == 0:
+        dims[0] = par.batch_axes
+    if shape[-1] % par.tp == 0:
+        dims[-1] = par.model_axis
+    return par.named(dims)
+
+
+# ---------------------------------------------------------------------------
+# eager execution of a layout
+# ---------------------------------------------------------------------------
+
+def _mesh_placements(target) -> Tuple[Any, tuple]:
+    """(mesh, placements) of a :class:`Layout` or a ``DTensor``."""
+    if isinstance(target, DTensor):
+        return target.device_mesh, tuple(target.placements)
+    return target.mesh, target.placements
+
+
+def _rows(placements, names, keep) -> tuple:
+    """What a rank computes with: the placements' row shards (``Shard(0)``)
+    on the ``keep`` axes stay, everything else is gathered."""
+    return tuple(p if n in keep and p == Shard(0) else Replicate()
+                 for p, n in zip(placements, names))
+
+
+def distribute(tree: Any, layouts: Any) -> Any:
+    """``tree`` (full tensors, the same on every rank: seeded, or read
+    from a checkpoint) as DTensors in ``layouts``: each rank keeps its own
+    slice, with no communication."""
+    def one(t, layout):
+        mesh, pl = _mesh_placements(layout)
+        return distribute_tensor(t.detach().to(mesh.device_type), mesh, pl,
+                                 src_data_rank=None)
+    return T.tree_map(one, tree, layouts)
+
+
+def _gather_leaf(x, keep: Tuple[str, ...]):
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    target = _rows(x.placements, mesh.mesh_dim_names, keep)
+    if target != tuple(x.placements):
+        x = x.redistribute(mesh, target)
+    return x.to_local()
+
+
+def gather(tree: Any, keep: Tuple[str, ...] = ()) -> Any:
+    """Each ``DTensor`` leaf of ``tree`` as the local tensor a rank
+    computes with: a leaf sharded along its leading (batch) dim over the
+    ``keep`` axes stays so -- the rank's rows -- and every other shard is
+    gathered.  Other leaves pass through."""
+    return T.tree_map(lambda x: _gather_leaf(x, keep), tree)
+
+
+def gather_params(params: Any, cfg, par: Parallel) -> Any:
+    """The parameters a rank computes with: every leaf whole, except the
+    MoE expert banks under expert parallelism, which keep their model-axis
+    shard (the local experts)."""
+    ep = expert_parallel(cfg, par)
+
+    def one(path, x):
+        keep = ((par.model_axis,) if ep and is_expert_bank(path, x.shape, cfg)
+                else ())
+        return _gather_leaf(x, keep)
+
+    return T.unflatten(params, [one(p, x) for p, x
+                                in T.leaves_with_paths(params)])
+
+
+def place(tree: Any, layouts: Any, keep: Tuple[str, ...] = ()) -> Any:
+    """Local results into their layouts: each leaf of ``tree`` is what
+    :func:`gather` gives a rank (its rows over the ``keep`` axes, whole
+    elsewhere); ``layouts`` holds a :class:`Layout` or a ``DTensor`` (its
+    own layout) per leaf.  Moving from replicated to sharded slices
+    locally, with no communication."""
+    def one(t, target):
+        mesh, pl = _mesh_placements(target)
+        src = _rows(pl, mesh.mesh_dim_names, keep)
+        d = DTensor.from_local(t, mesh, src, run_check=False)
+        return d.redistribute(mesh, pl) if src != pl else d
+    return T.tree_map(one, tree, layouts)
+
+
+def reduce_grads(grads: Any, params: Any, cfg, par: Parallel) -> Any:
+    """Each rank's gradients (of its rows; expert banks: of its local
+    experts) summed over the data axes into the parameters' layouts: the
+    local shards.  A gradient is partial over the data axes -- each rank
+    holds its rows' share -- so it is declared ``Partial`` there and
+    reduce-scattered (or all-reduced where the parameter is replicated);
+    over the model axis compute is replicated, so it is ``Replicate``
+    there (the expert banks: their shard)."""
+    ep = expert_parallel(cfg, par)
+    data = set(par.data_axes)
+
+    def one(path, g, p):
+        mesh = p.device_mesh
+        keep = ((par.model_axis,) if ep and is_expert_bank(path, p.shape, cfg)
+                else ())
+        src = tuple(Partial() if n in data else r for n, r in
+                    zip(mesh.mesh_dim_names,
+                        _rows(p.placements, mesh.mesh_dim_names, keep)))
+        return DTensor.from_local(g, mesh, src, run_check=False).redistribute(
+            mesh, tuple(p.placements)).to_local()
+
+    return T.unflatten(params, [one(path, g, p) for (path, p), g in zip(
+        T.leaves_with_paths(params), T.leaves(grads))])
+
+
+def global_norm(local_grads: Any, params: Any) -> torch.Tensor:
+    """The global L2 norm of a gradient tree held as local shards in the
+    layouts of ``params`` (DTensors), summed in leaf order as
+    ``train/optimizer.py::global_norm`` sums the whole tree: each leaf's
+    sum of squares is counted once -- by the ranks at index 0 of every
+    mesh axis that replicates it -- and one vector of them, all-reduced
+    over every mesh dim, adds the shards'."""
+    sums = []
+    mesh = None
+    for g, p in zip(T.leaves(local_grads), T.leaves(params)):
+        mesh = p.device_mesh
+        coord = mesh.get_coordinate()
+        s = torch.sum(torch.square(g.to(torch.float32)))
+        owner = all(c == 0 for c, pl in zip(coord, p.placements)
+                    if pl == Replicate())
+        sums.append(s if owner else torch.zeros_like(s))
+    v = DTensor.from_local(torch.stack(sums), mesh,
+                           (Partial(),) * mesh.ndim,
+                           run_check=False).full_tensor()
+    return torch.sqrt(sum(v.unbind()))
+
+
+def local_shards(tree: Any) -> Any:
+    """Each ``DTensor`` leaf's local shard."""
+    return T.tree_map(lambda x: x.to_local() if isinstance(x, DTensor) else x,
+                    tree)
+
+
+def like(local: Any, dtensors: Any) -> Any:
+    """Local shards back into DTensors laid out as ``dtensors``."""
+    return T.tree_map(lambda t, d: DTensor.from_local(
+        t, d.device_mesh, d.placements, run_check=False, shape=d.shape,
+        stride=d.stride()), local, dtensors)
+
+
+# ---------------------------------------------------------------------------
+# sharded serving steps
+# ---------------------------------------------------------------------------
+
+def sharded_prefill(params: Any, cfg, batch: Any, par: Parallel):
+    """``M.prefill`` with parameters and batch in their layouts (DTensor
+    trees): each rank runs its rows.  Returns (last-position logits, caches)
+    in their layouts (:func:`logits_sharding`,
+    :func:`serving_cache_shardings`); an encoder's caches are None."""
+    from repro_torch.models import model as M
+    keep = par.batch_axes
+    local_b = gather(batch, keep)
+    logits, caches = M.prefill(gather_params(params, cfg, par), cfg,
+                               local_b, par=par)
+    B = next(iter(T.leaves(batch))).shape[0]
+    logits = place(logits, logits_sharding(
+        (B,) + tuple(logits.shape[1:]), par, B), keep)
+    if caches is None:
+        return logits, None
+    cap = next((c.max_len for c in M.iter_kv_caches(caches)),
+               AC.PAGE_TOKENS)
+    skel = M.init_decode_caches(cfg, B, cap, device="meta")
+    return logits, place(caches, serving_cache_shardings(skel, cfg, par, B),
+                         keep)
+
+
+def _row_base(x) -> int:
+    """The index in the whole batch of this rank's first row of ``x``: a
+    ``DTensor`` whose leading dim is split in equal parts over the mesh
+    dims that shard it (major to minor, as :class:`Layout` lays a tuple
+    entry out); 0 for a tensor or a replicated leading dim."""
+    if not isinstance(x, DTensor):
+        return 0
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    idx, parts = 0, 1
+    for i, pl in enumerate(x.placements):
+        if pl == Shard(0):
+            idx = idx * mesh.size(i) + coord[i]
+            parts *= mesh.size(i)
+    if x.shape[0] % parts:
+        raise ValueError(f"batch {x.shape[0]} is not split in {parts} equal "
+                         "parts")
+    return idx * (x.shape[0] // parts)
+
+
+def sharded_decode_step(params: Any, cfg, tokens, caches: Any, lengths,
+                        par: Parallel, seed: int = 0):
+    """``M.decode_step`` with parameters, tokens, lengths and caches in
+    their layouts: each rank decodes its rows against its rows' caches
+    (gathered over the model axis unless they are in
+    :func:`serving_cache_shardings`, as :func:`sharded_prefill` leaves
+    them).  Stochastic rounding counts from the rank's first row of the
+    whole batch (``ops.sr_rows_from``), so each element draws what the
+    single-device step draws for it.  Returns (logits, new caches) in
+    their layouts; the caches keep the layouts they came in."""
+    from repro_torch import ops as OPS
+    from repro_torch.models import model as M
+    keep = par.batch_axes
+    with OPS.sr_rows_from(_row_base(tokens)):
+        logits, new = M.decode_step(
+            gather_params(params, cfg, par), cfg, gather(tokens, keep),
+            gather(caches, keep), gather(lengths, keep), seed, par=par)
+    B = tokens.shape[0]
+    logits = place(logits, logits_sharding(
+        (B,) + tuple(logits.shape[1:]), par, B), keep)
+    return logits, place(new, caches, keep)

@@ -53,7 +53,8 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_uint32,
 _STREAMS_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [
     ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
 _APPEND_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] \
-    + [ctypes.c_int] * 3 + [ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int] * 3 + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+                            ctypes.c_void_p]
 
 _U32 = 0xFFFFFFFF
 
@@ -163,13 +164,14 @@ mx_quantize.launches = 0
 def mx_kv_append_quant(streams: Sequence[torch.Tensor],
                        caches: Sequence[F.QuantizedTensor],
                        lengths: torch.Tensor, seed: int = 0, *,
-                       rounding: str = "stochastic"
+                       rounding: str = "stochastic", row_base: int = 0
                        ) -> Sequence[F.QuantizedTensor]:
     """Quantize the new fp32 rows ``streams[i] (B, n, KVH, w_i)`` to MX8
-    (SR bits ``sr_bits((B, n, KVH, w_i), seed + i)``) into the dense MX8
-    cache ``caches[i] (B, T, KVH, w_i)`` at tokens ``clamp(lengths[b], 0,
-    T - n) + j``, in place; returns the caches.  K and V are two streams,
-    an MLA latent one."""
+    (SR bits ``sr_bits((B, n, KVH, w_i), seed + i)``, counted from row
+    ``row_base`` of the whole batch: a data-parallel rank's first row)
+    into the dense MX8 cache ``caches[i] (B, T, KVH, w_i)`` at tokens
+    ``clamp(lengths[b], 0, T - n) + j``, in place; returns the caches.  K
+    and V are two streams, an MLA latent one."""
     streams = _check_streams(streams, "mx_kv_append_quant")
     caches = list(caches)
     if len(caches) != len(streams):
@@ -198,7 +200,8 @@ def mx_kv_append_quant(streams: Sequence[torch.Tensor],
                          f"{lengths.device} do not fit batch {B} on {dev}")
     seed = int(seed) & _U32
     if dev.type == "cpu":
-        return plain_append(streams, caches, lengths, seed, rounding)
+        return plain_append(streams, caches, lengths, seed, rounding,
+                            row_base)
     if dev.type != "cuda":
         raise ValueError(f"mx_kv_append_quant: unsupported device {dev}")
     xs = [_aligned(x) for x in streams]
@@ -211,7 +214,7 @@ def mx_kv_append_quant(streams: Sequence[torch.Tensor],
              (ctypes.c_ulonglong * (3 * k))(*ptrs),
              (ctypes.c_int * k)(*[x.shape[2] * x.shape[3] // F.MX8_GROUP
                                   for x in xs]),
-             k, lens.data_ptr(), B, n, T, seed,
+             k, lens.data_ptr(), B, n, T, seed, int(row_base) & _U32,
              int(rounding == "stochastic"),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mx_kv_append_quant")

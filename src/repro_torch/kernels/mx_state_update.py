@@ -36,7 +36,7 @@ plain = _ref.quantized_state_update_stored_ref
 plain_slab = _ref.state_update_slab_ref
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-    ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]
 
 
 def _operand(x: torch.Tensor, shape, name: str,
@@ -71,7 +71,8 @@ def _check_payload(qS: F.QuantizedTensor) -> None:
 def mx_state_update(qS: F.QuantizedTensor, d: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor, q: torch.Tensor, seed: int = 0, *,
                     rounding: str = "stochastic",
-                    slabs: Optional[torch.Tensor] = None, group: int = 0
+                    slabs: Optional[torch.Tensor] = None, group: int = 0,
+                    row_base: int = 0
                     ) -> Tuple[F.QuantizedTensor, torch.Tensor]:
     """Fused quantized state update.
 
@@ -79,7 +80,9 @@ def mx_state_update(qS: F.QuantizedTensor, d: torch.Tensor, k: torch.Tensor,
     (``(B,)`` int slab ids), the slab pool ``(n_slabs, n_stack, H, dv, dk)``
     whose rows ``qS[slabs, group]`` are updated; d: ``(B, H, dk)`` or
     ``(B, H, 1)``; k, q: ``(B, H, dk)``; v: ``(B, H, dv)``; seed: uint32 SR
-    seed.  Returns ``(state, y)`` with y ``(B, H, dv)`` float32.
+    seed; row_base: the index in the whole batch of row 0, where the SR
+    counter starts (a data-parallel rank's first row).  Returns ``(state,
+    y)`` with y ``(B, H, dv)`` float32.
     """
     if qS.fmt != "mx8":
         raise ValueError(f"mx_state_update takes mx8 state, got {qS.fmt}")
@@ -90,8 +93,9 @@ def mx_state_update(qS: F.QuantizedTensor, d: torch.Tensor, k: torch.Tensor,
     if dev.type == "cpu":
         if slabs is not None:
             return plain_slab(qS, slabs, group, d, k, v, q,
-                              rounding=rounding, seed=seed)
-        return plain(qS, d, k, v, q, rounding=rounding, seed=seed)
+                              rounding=rounding, seed=seed, row_base=row_base)
+        return plain(qS, d, k, v, q, rounding=rounding, seed=seed,
+                     row_base=row_base)
     if dev.type != "cuda":
         raise ValueError(f"mx_state_update: unsupported device {dev}")
     if slabs is None:
@@ -128,7 +132,7 @@ def mx_state_update(qS: F.QuantizedTensor, d: torch.Tensor, k: torch.Tensor,
              v_.data_ptr(), q_.data_ptr(), y.data_ptr(),
              None if slab_ is None else slab_.data_ptr(), B * H, H, n_stack,
              int(group), dv, dk, int(d.shape[-1] == dk), seed,
-             int(rounding == "stochastic"),
+             int(row_base) & 0xFFFFFFFF, int(rounding == "stochastic"),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mx_state_update")
     if slabs is None:

@@ -29,21 +29,23 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def quantized_state_update_stored_ref(
     qS: F.QuantizedTensor, d: torch.Tensor, k: torch.Tensor,
     v: torch.Tensor, q: torch.Tensor, *, rounding: str = "stochastic",
-    seed: int = 0,
+    seed: int = 0, row_base: int = 0,
 ) -> Tuple[F.QuantizedTensor, torch.Tensor]:
     """One Eq. 2 step over a quantized state stored as Sᵀ, (B, H, dv, dk).
 
     Dequantize -> ``Sn = fma(S, d, v*k)`` -> requantize (SR bits from the
-    counter hash over the flat index) -> ``y = dequant(Sn_q) · q``, for MX8
-    summed in kernel 1's order (:func:`group_ordered_dot`).  Any quantized
-    format; returns a new container.
+    counter hash over the flat index, counted from row ``row_base`` of the
+    whole batch) -> ``y = dequant(Sn_q) · q``, for MX8 summed in kernel 1's
+    order (:func:`group_ordered_dot`).  Any quantized format; returns a new
+    container.
     """
     B, H, dv, dk = qS.shape
     St = F.dequantize(qS)
     d_ = d.to(torch.float32).expand(B, H, dk)[:, :, None, :]
     vk = v.to(torch.float32)[..., :, None] * k.to(torch.float32)[..., None, :]
     Sn = fma_f32(St, d_, vk)
-    bits = (F.sr_bits(Sn.shape, seed, device=Sn.device)
+    bits = (F.sr_bits(Sn.shape, seed, row_base * H * dv * dk,
+                      device=Sn.device)
             if rounding == "stochastic" else None)
     qSn = F.quantize(Sn, qS.fmt, rounding, bits)
     if qS.fmt == "mx8":
@@ -438,7 +440,8 @@ def paged_kv_append_quant_ref(streams, pools, bt: torch.Tensor, group: int,
 
 
 def state_update_slab_ref(pool, slabs: torch.Tensor, group: int, d, k, v, q,
-                          *, rounding: str = "stochastic", seed: int = 0):
+                          *, rounding: str = "stochastic", seed: int = 0,
+                          row_base: int = 0):
     """The state update on slab rows ``pool[slabs, group]``, written back in
     place: the rows are gathered into a dense ``(B, H, dv, dk)`` state, so
     SR counters and operands index the batch row, exactly as the dense op
@@ -449,7 +452,8 @@ def state_update_slab_ref(pool, slabs: torch.Tensor, group: int, d, k, v, q,
         rows = F.QuantizedTensor(pool.fmt,
                                  tuple(payload["mantissa"].shape), payload)
         new, y = quantized_state_update_stored_ref(
-            rows, d, k, v, q, rounding=rounding, seed=seed)
+            rows, d, k, v, q, rounding=rounding, seed=seed,
+            row_base=row_base)
         for f, a in pool.payload.items():
             a[idx] = new.payload[f]
         return pool, y
@@ -486,15 +490,17 @@ def mx_quantize_streams_ref(xs, seeds, rounding: str = "nearest",
 
 
 def kv_append_quant_ref(streams, caches, lengths: torch.Tensor,
-                        seed: int = 0, rounding: str = "stochastic"):
+                        seed: int = 0, rounding: str = "stochastic",
+                        row_base: int = 0):
     """The dense append: each new fp32 row block ``streams[i] (B, n, KVH,
     w)`` quantized to MX8 with SR bits ``sr_bits((B, n, KVH, w), seed +
-    i)``, each payload field written into the dense MX8 cache
-    ``caches[i]`` at ``lengths`` by ``_update_at`` (its clamp included), in
-    place.  Returns the caches."""
+    i)`` counted from row ``row_base`` of the whole batch, each payload
+    field written into the dense MX8 cache ``caches[i]`` at ``lengths`` by
+    ``_update_at`` (its clamp included), in place.  Returns the caches."""
     from repro_torch.core import attention_cache as AC
     for i, (x, cache) in enumerate(zip(streams, caches)):
         bits = (F.sr_bits(x.shape, (int(seed) + i) & 0xFFFFFFFF,
+                          row_base * (x.numel() // x.shape[0]),
                           device=x.device)
                 if rounding == "stochastic" else None)
         q = F.quantize(x, "mx8", rounding, bits)

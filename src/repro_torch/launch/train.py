@@ -26,6 +26,22 @@ prints every step's loss, a SHA-256 digest of the final parameters (two
 runs that end bitwise equal print the same one) and, last, the loss, the
 median step time (steps after the first), tokens a second and the peak
 device memory.
+
+On a mesh (``--mesh DxM``: D-way data parallelism with ZeRO-sharded
+parameters and moments, M-way expert parallelism for MoE layers and
+replicated compute otherwise -- ``dist/sharding.py``) every rank runs this
+program and rank 0 prints.  ``--host-devices N`` rehearses it on the CPU:
+it spawns N ranks over gloo (the JAX package's fake host devices; D * M
+must equal N):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+        --smoke-size --device cpu --mesh 2x2 --host-devices 4 --steps 2 \
+        --seq-len 32 --global-batch 4
+
+Without it the ranks come from ``torchrun`` (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), one a card over NCCL,
+or over gloo with ``--device cpu``.  Auto-resume restores into the mesh's
+layouts, whatever mesh wrote the checkpoint.
 """
 import argparse
 import hashlib
@@ -49,8 +65,75 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--mesh", default=None,
+                    help="'data x model', e.g. 2x4 (needs that many ranks)")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="spawn this many CPU ranks over gloo to rehearse "
+                         "--mesh (D * M must equal it)")
     args = ap.parse_args(argv)
+    if args.host_devices and not args.mesh:
+        ap.error("--host-devices rehearses a --mesh: give both")
+    if args.mesh:
+        shape = tuple(int(v) for v in args.mesh.split("x"))
+        if len(shape) != 2 or min(shape) < 1:
+            ap.error(f"--mesh {args.mesh!r}: want DxM, e.g. 2x4")
+        if args.host_devices:
+            if shape[0] * shape[1] != args.host_devices:
+                ap.error(f"--mesh {args.mesh} needs {shape[0] * shape[1]} "
+                         f"ranks, --host-devices gives {args.host_devices}")
+            if args.device not in (None, "cpu"):
+                ap.error("--host-devices ranks run on the CPU")
+            args.device = "cpu"
+            return _spawn(args)
+        env = os.environ
+        return _train(args, shape, int(env["RANK"]), int(env["WORLD_SIZE"]),
+                      int(env.get("LOCAL_RANK", 0)), "env://")
+    return _train(args)
 
+
+def _spawn(args) -> int:
+    """``--host-devices N``: N ranks of this program in spawned processes
+    (gloo over localhost); the exit code is 0 only if every rank's is.  A
+    rank that fails ends the others, which would wait for it in their
+    next collective."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    n = args.host_devices
+    from repro_torch.launch.mesh import local_init_method
+    init = local_init_method()
+    shape = tuple(int(v) for v in args.mesh.split("x"))
+    procs = [ctx.Process(target=_rank_main, args=(args, shape, r, n, init))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+    if bad:
+        print(f"ranks failed (rank, exit code): {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _rank_main(args, shape, rank, world, init):
+    import torch
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    sys.exit(_train(args, shape, rank, world, rank, init))
+
+
+def _train(args, shape=None, rank=0, world=1, local_rank=0,
+           init_method=None) -> int:
+    """Train on one device (``shape`` None) or as ``rank`` of a ``shape``
+    mesh of ``world`` ranks; rank 0 prints."""
     on_card = args.device is None or not args.device.startswith(("cpu",
                                                                  "meta"))
     if on_card:
@@ -58,6 +141,27 @@ def main(argv=None):
         # work of this process
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+    import torch
+    say = print if rank == 0 else (lambda *a, **k: None)
+    if shape is None:
+        return _run(args, None, say)
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_parallel
+    if on_card:
+        torch.cuda.set_device(local_rank)
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=init_method, world_size=world,
+                            rank=rank)
+    try:
+        return _run(args, make_local_parallel(
+            *shape, device_type="cuda" if on_card else "cpu"), say)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, par, say) -> int:
+    """The training run itself: on one device, or as a rank of ``par``'s
+    mesh (the process group is up)."""
     import torch
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import get_config, get_smoke_config
@@ -82,9 +186,19 @@ def main(argv=None):
     params = M.init_model(cfg, gen, device=device)
     opt_state = O.init_opt_state(params, opt)
     n = sum(p.numel() for p in T.leaves(params))
-    print(f"arch={cfg.name} params={n/1e6:.1f}M device={device}")
+    say(f"arch={cfg.name} params={n/1e6:.1f}M device={device} "
+        f"mesh={args.mesh or 'single'}")
 
-    step_fn = make_train_step(cfg, opt, grad_accum=args.grad_accum)
+    shardings = None
+    if par is not None:
+        from repro_torch.dist import sharding as SH
+        p_shard = SH.param_shardings(params, cfg, par)
+        shardings = {"params": p_shard,
+                     "opt_state": SH.opt_state_shardings(opt_state, p_shard,
+                                                         par)}
+        params = SH.distribute(params, shardings["params"])
+        opt_state = SH.distribute(opt_state, shardings["opt_state"])
+    step_fn = make_train_step(cfg, opt, par=par, grad_accum=args.grad_accum)
     seconds = []
 
     def timed_step(params, opt_state, batch):
@@ -101,8 +215,8 @@ def main(argv=None):
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start = 0
     if mgr is not None and mgr.latest_step() is not None:
-        state, start = mgr.restore(state)
-        print(f"auto-resumed from step {start}")
+        state, start = mgr.restore(state, shardings=shardings)
+        say(f"auto-resumed from step {start}")
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -111,9 +225,9 @@ def main(argv=None):
         timed_step, state.pop("params"), state.pop("opt_state"), batch_fn,
         LoopConfig(total_steps=args.steps, log_every=10,
                    checkpoint_every=args.ckpt_every),
-        checkpoint_mgr=mgr, start_step=start)
+        checkpoint_mgr=mgr, start_step=start, log=say)
     if not hist:
-        print(f"done: nothing to train (step {start} of {args.steps})")
+        say(f"done: nothing to train (step {start} of {args.steps})")
         return 0
     steady = sorted(seconds[1:] or seconds)
     step_s = steady[len(steady) // 2]
@@ -121,10 +235,12 @@ def main(argv=None):
             if device.type == "cuda" else "n/a")
     digest = hashlib.sha256()
     for leaf in T.leaves(params):
+        if par is not None:
+            leaf = leaf.full_tensor()           # a collective: every rank
         digest.update(leaf.detach().cpu().numpy().tobytes())
-    print("losses " + " ".join(repr(v) for v in hist))
-    print(f"params_sha256 {digest.hexdigest()}")
-    print(f"done: loss {hist[0]:.3f} -> {hist[-1]:.3f}; "
+    say("losses " + " ".join(repr(v) for v in hist))
+    say(f"params_sha256 {digest.hexdigest()}")
+    say(f"done: loss {hist[0]:.3f} -> {hist[-1]:.3f}; "
           f"step_ms {step_s * 1e3:.1f}; "
           f"tokens_per_s {args.global_batch * args.seq_len / step_s:.0f}; "
           f"peak_GB {peak}")

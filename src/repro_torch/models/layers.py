@@ -166,7 +166,7 @@ def apply_ffn(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# mixture of experts (the JAX package's single-shard path)
+# mixture of experts (expert-parallel over the model axis of a mesh)
 # ---------------------------------------------------------------------------
 #
 # Routing as in the JAX package: softmax over the router logits, top-k,
@@ -178,6 +178,16 @@ def apply_ffn(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
 # experts are added after.  The combine sums each token's kept entries in
 # ascending expert order -- the order of the JAX package's scatter-add --
 # with no atomics, so it is deterministic on the card.
+#
+# Under expert parallelism (``apply_moe`` with a ``Parallel`` whose model
+# axis divides the expert count) tokens are replicated over the model axis,
+# each rank holds E/tp experts and computes its local tokens x its local
+# experts at the capacity of its local tokens, and one sum over the model
+# axis combines -- the JAX package's ``shard_map``.  Every model rank then
+# holds the same output and so the same loss: the backward of that sum is
+# the identity, and the gradients of ``x`` and of the (replicated) router,
+# which each rank holds only for its own experts, are summed over the model
+# axis instead (Megatron's f / g pair, :class:`_SumGrad` / :class:`_SumOut`).
 
 def _stack_init(gen: torch.Generator, n: int, d_in: int, d_out: int, dtype,
                 device, scale: float = 1.0) -> torch.Tensor:
@@ -210,21 +220,24 @@ def moe_capacity(n_tokens: int, cfg: ModelConfig) -> int:
 
 
 def _moe_dispatch_compute(x_flat: torch.Tensor, sel: torch.Tensor,
-                          w: torch.Tensor, wi, wg, wo,
-                          cap: int) -> torch.Tensor:
-    """Every expert's contribution for all tokens.  x_flat (N, d); sel
-    (N, k) expert ids; w (N, k) combine weights; wi/wg/wo (E, ...)."""
+                          w: torch.Tensor, wi, wg, wo, cap: int,
+                          e_offset: int = 0) -> torch.Tensor:
+    """The local experts' contribution for all tokens.  x_flat (N, d); sel
+    (N, k) global expert ids; w (N, k) combine weights; wi/wg/wo (E_local,
+    ...), holding experts ``e_offset .. e_offset + E_local - 1``."""
     N, d = x_flat.shape
     k = sel.shape[-1]
     E = wi.shape[0]
     dev = x_flat.device
-    sel_f = sel.reshape(-1).long()                               # (N*k,)
+    local_e = sel.reshape(-1).long() - e_offset                  # (N*k,)
+    is_local = (local_e >= 0) & (local_e < E)
+    cls = torch.where(is_local, local_e, E)
     entry_tok = torch.arange(N, device=dev).repeat_interleave(k)
     # slot within expert: rank among earlier entries of the same expert
-    oh = Fn.one_hot(sel_f, E)                                    # (N*k, E)
-    slot = (oh.cumsum(0) - oh).gather(1, sel_f[:, None])[:, 0]
-    keep = slot < cap
-    e_idx = torch.where(keep, sel_f, E)
+    oh = Fn.one_hot(cls, E + 1)                                  # (N*k, E+1)
+    slot = (oh.cumsum(0) - oh).gather(1, cls[:, None])[:, 0]
+    keep = is_local & (slot < cap)
+    e_idx = torch.where(keep, local_e, E)
     s_idx = torch.where(keep, slot, cap)
     # destination -> source token index (N = the zero padding row)
     src = torch.full((E + 1, cap + 1), N, dtype=torch.long, device=dev)
@@ -247,25 +260,83 @@ def _moe_dispatch_compute(x_flat: torch.Tensor, sel: torch.Tensor,
     return out
 
 
-def _moe_local(x: torch.Tensor, router, wi, wg, wo,
-               cfg: ModelConfig) -> torch.Tensor:
-    """Route + dispatch + expert FFNs for all tokens of ``x`` (B, S, d)."""
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    from repro_torch.dist.compat import funcol
+    return funcol.wait_tensor(funcol.all_reduce(x.contiguous(), "sum",
+                                                group))
+
+
+class _SumGrad(torch.autograd.Function):
+    """Megatron's f: the identity forward, its gradient summed over
+    ``group`` in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _SumOut(torch.autograd.Function):
+    """Megatron's g: the forward sums over ``group``, the backward is the
+    identity (every rank of the group holds the same loss)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _moe_local(x: torch.Tensor, router, wi, wg, wo, cfg: ModelConfig,
+               par=None) -> torch.Tensor:
+    """Route + dispatch + expert FFNs for the tokens of ``x`` (B, S, d).
+
+    With ``par`` (expert parallelism): ``wi`` / ``wg`` / ``wo`` are this
+    rank's E/tp experts, routing is computed locally (the router is
+    replicated), capacity is per shard, and one sum over the model axis
+    combines."""
     mc = cfg.moe
     B, S, d = x.shape
+    group = None
+    if par is not None:
+        n_local = mc.n_experts // par.tp
+        if wi.shape[0] != n_local:
+            raise ValueError(f"expert parallelism over {par.tp} ranks needs "
+                             f"the local {n_local} experts a rank, got "
+                             f"{wi.shape[0]}")
+        group = par.group(par.model_axis)
+        x = _SumGrad.apply(x, group)
+        router = _SumGrad.apply(router, group)
     x_flat = x.reshape(-1, d)
     logits = (x_flat.to(torch.float32) @ router).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     w, sel = torch.topk(probs, mc.top_k, dim=-1)                 # (N, k)
     w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
-    out = _moe_dispatch_compute(x_flat, sel, w, wi, wg, wo,
-                                moe_capacity(x_flat.shape[0], cfg))
+    cap = moe_capacity(x_flat.shape[0], cfg)
+    if group is None:
+        out = _moe_dispatch_compute(x_flat, sel, w, wi, wg, wo, cap)
+    else:
+        out = _SumOut.apply(_moe_dispatch_compute(
+            x_flat, sel, w, wi, wg, wo, cap,
+            e_offset=par.coordinate(par.model_axis) * wi.shape[0]), group)
     return out.reshape(B, S, d).to(x.dtype)
 
 
-def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """MoE FFN.  x: (B, S, d).  The JAX package's expert-parallel branch
-    (``shard_map`` over a mesh) has no counterpart in the one-card port."""
-    out = _moe_local(x, p["router"], p["wi"], p["wg"], p["wo"], cfg)
+def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              par=None) -> torch.Tensor:
+    """MoE FFN.  x: (B, S, d).  ``par``: a ``repro_torch.dist.sharding.
+    Parallel`` or None; expert-parallel when its model axis divides the
+    expert count, and then ``p``'s expert banks are this rank's shard."""
+    if par is not None:
+        from repro_torch.dist.sharding import expert_parallel
+        par = par if expert_parallel(cfg, par) else None
+    out = _moe_local(x, p["router"], p["wi"], p["wg"], p["wo"], cfg, par)
     if cfg.moe.n_shared:
         out = out + apply_ffn(p["shared"], x, cfg.ffn_kind_inner)
     return out

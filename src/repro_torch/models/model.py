@@ -135,11 +135,13 @@ def _init_element(gen, cfg: ModelConfig, kind: str, device, layer_idx: int,
     return p
 
 
-def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The element's FFN: MoE where its params route, else the dense FFN of
-    kind ``cfg.ffn_kind_inner`` (an MoE model's dense layers: SwiGLU)."""
+def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig,
+         par=None) -> torch.Tensor:
+    """The element's FFN: MoE where its params route (expert-parallel
+    under ``par``), else the dense FFN of kind ``cfg.ffn_kind_inner`` (an
+    MoE model's dense layers: SwiGLU)."""
     if cfg.ffn_kind == "moe" and "router" in p:
-        return L.apply_moe(p, h, cfg)
+        return L.apply_moe(p, h, cfg, par)
     return L.apply_ffn(p, h, cfg.ffn_kind_inner)
 
 
@@ -273,8 +275,8 @@ def _attn_block_forward(p: Params, x, cfg: ModelConfig, positions,
 
 
 def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
-                     positions, prefix_len: int = 0, want_cache: bool = True
-                     ) -> Tuple[torch.Tensor, Any]:
+                     positions, prefix_len: int = 0, want_cache: bool = True,
+                     par=None) -> Tuple[torch.Tensor, Any]:
     """One layer over the full sequence: (x, its decode cache).  Without
     ``want_cache`` (training) no cache is built: no state is stored or
     quantized and no stochastic-rounding seed is drawn -- what XLA drops
@@ -295,7 +297,7 @@ def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
     x = x + y
     if _has_ffn(cfg, kind):
         h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
-        x = x + _ffn(p["ffn"], h, cfg)
+        x = x + _ffn(p["ffn"], h, cfg, par)
     return x, cache
 
 
@@ -310,7 +312,7 @@ def _shared_block_forward(p: Params, x, cfg: ModelConfig, positions,
 
 
 def _run_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig,
-                positions, prefix_len: int, want_cache: bool):
+                positions, prefix_len: int, want_cache: bool, par=None):
     """Every layer over the full sequence: (x, caches ``[g][pos]`` with the
     shared block's last, and the prelude's split off) -- caches of None
     without ``want_cache``.  With ``cfg.remat``, where autograd records,
@@ -318,7 +320,7 @@ def _run_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig,
     elements (the shared block too) runs under a non-reentrant checkpoint,
     as the JAX package's nested ``jax.checkpoint``: the backward recomputes
     one element's activations at a time instead of keeping every
-    layer's."""
+    layer's.  ``par`` reaches the MoE layers (expert parallelism)."""
     shared = params.get("shared")
     remat = cfg.remat and torch.is_grad_enabled()
     # a group of one block needs no inner checkpoint: it would recompute
@@ -334,7 +336,7 @@ def _run_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig,
     prelude = []
     for i, kind in enumerate(cfg.prelude):
         x, c = _element_forward(params["prelude"][i], x, cfg, kind,
-                                positions, prefix_len, want_cache)
+                                positions, prefix_len, want_cache, par)
         prelude.append(c)
 
     def group_body(gp, x):
@@ -342,7 +344,8 @@ def _run_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig,
         for pos, kind in enumerate(cfg.pattern):
             x, c = run(inner, functools.partial(
                 _element_forward, cfg=cfg, kind=kind, positions=positions,
-                prefix_len=prefix_len, want_cache=want_cache), gp[pos], x)
+                prefix_len=prefix_len, want_cache=want_cache, par=par),
+                gp[pos], x)
             group.append(c)
         if shared is not None:
             x, c = run(inner, functools.partial(
@@ -359,14 +362,16 @@ def _run_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 @torch.no_grad()
-def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
-            ) -> Tuple[torch.Tensor, List[List[Any]]]:
+def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            par=None) -> Tuple[torch.Tensor, List[List[Any]]]:
     """Full-sequence forward over ``batch`` (:func:`embed_inputs`); returns
     (last-position logits (B, V), caches), or for an encoder (per-position
-    logits (B, S, V), None)."""
+    logits (B, S, V), None).  ``par`` (a ``dist.sharding.Parallel``) makes
+    the MoE layers expert-parallel: ``params`` are then a rank's gathered
+    parameters (``dist/sharding.py::sharded_prefill``)."""
     x, positions, prefix_len = embed_inputs(params, cfg, batch)
     x, caches = _run_blocks(params, x, cfg, positions, prefix_len,
-                            want_cache=not cfg.encoder_only)
+                            want_cache=not cfg.encoder_only, par=par)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     if cfg.encoder_only:
         return x @ _lm_head(params, cfg), None
@@ -374,16 +379,17 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 
 def train_loss(params: Params, cfg: ModelConfig,
-               batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+               batch: Dict[str, torch.Tensor], par=None) -> torch.Tensor:
     """The training objective over ``batch`` (tensors: the inputs of
     :func:`embed_inputs`, ``targets`` (B, S) and an optional ``mask``):
     the chunked cross-entropy of the next-token targets, averaged over the
     mask -- a VLM's over its text positions only, an audio encoder's over
     its masked frames.  Builds no cache; differentiable (the flash
-    backward in the attention, remat per ``cfg.remat``)."""
+    backward in the attention, remat per ``cfg.remat``).  ``par``: as in
+    :func:`prefill` (``train/train_loop.py`` gathers the parameters)."""
     x, positions, prefix_len = embed_inputs(params, cfg, batch)
     x, _ = _run_blocks(params, x, cfg, positions, prefix_len,
-                       want_cache=False)
+                       want_cache=False, par=par)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     labels = batch["targets"]
     mask = batch.get("mask")
@@ -509,7 +515,8 @@ def write_row(caches, row_caches, slot: int, length: int) -> None:
 # ---------------------------------------------------------------------------
 
 def _element_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
-                    positions, seed: int) -> Tuple[torch.Tensor, Any]:
+                    positions, seed: int, par=None
+                    ) -> Tuple[torch.Tensor, Any]:
     h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
     if kind == "attn":
         y, cache = ATT.attention_decode(p["mixer"], h, cache, cfg,
@@ -522,7 +529,7 @@ def _element_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
     x = x + y
     if _has_ffn(cfg, kind):
         h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
-        x = x + _ffn(p["ffn"], h, cfg)
+        x = x + _ffn(p["ffn"], h, cfg, par)
     return x, cache
 
 
@@ -538,12 +545,14 @@ def _prelude_seed(seed: int, i: int) -> int:
 
 @torch.no_grad()
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                caches, lengths: torch.Tensor, seed: int = 0
+                caches, lengths: torch.Tensor, seed: int = 0, par=None
                 ) -> Tuple[torch.Tensor, List[List[Any]]]:
     """One decode step.  tokens: (B,) int; lengths: (B,) positions so far.
 
     Returns (logits (B, V), new caches).  On the card the MX8 state and KV
     buffers are updated in place; always continue from the returned caches.
+    ``par``: as in :func:`prefill` (``dist/sharding.py::
+    sharded_decode_step``).
     """
     check_decoder(cfg)
     positions = lengths
@@ -553,7 +562,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     new_prelude = []
     for i, kind in enumerate(cfg.prelude):
         x, c = _element_decode(params["prelude"][i], x, prelude[i], cfg,
-                               kind, positions, _prelude_seed(seed, i))
+                               kind, positions, _prelude_seed(seed, i), par)
         new_prelude.append(c)
     new_caches = []
     for g in range(cfg.n_groups):
@@ -563,7 +572,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         for pos, kind in enumerate(cfg.pattern):
             x, c = _element_decode(params["groups"][g][pos], x, gcaches[pos],
                                    cfg, kind, positions,
-                                   (seed_g + pos + 1) & _U32)
+                                   (seed_g + pos + 1) & _U32, par)
             group.append(c)
         if shared is not None:
             h = L.apply_norm(shared["norm"], x, cfg.norm_kind, cfg.norm_eps)

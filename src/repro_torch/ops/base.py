@@ -15,8 +15,10 @@ Backends in the port:
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import torch
 
@@ -49,6 +51,29 @@ class StateQuantConfig:
     @property
     def quantized(self) -> bool:
         return self.fmt in ("mx8", "int8", "fp8_e4m3", "fp8_e5m2")
+
+
+_SR_ROW_BASE = contextvars.ContextVar("sr_row_base", default=0)
+
+
+@contextlib.contextmanager
+def sr_rows_from(row_base: int) -> Iterator[None]:
+    """Within the block, the dense decode ops (state update, KV append)
+    count their stochastic-rounding draws from row ``row_base`` of the
+    whole batch: a data-parallel rank that decodes rows ``row_base ..
+    row_base + B - 1`` then draws for each element what the whole batch's
+    step draws for it (the counter is the element's flat index in the
+    whole batch, as under GSPMD)."""
+    token = _SR_ROW_BASE.set(int(row_base))
+    try:
+        yield
+    finally:
+        _SR_ROW_BASE.reset(token)
+
+
+def sr_row_base() -> int:
+    """The row base set by :func:`sr_rows_from` (0 outside it)."""
+    return _SR_ROW_BASE.get()
 
 
 def fmt_bits(fmt: str) -> float:

@@ -145,11 +145,14 @@ class _PagedKVAppendBase(SpuOp):
     @staticmethod
     def _new_rows(inputs: Dict[str, Any]):
         """The new token's K and V rows (V None for an MLA latent stream)
-        and the seed, after the one-token check."""
+        and the seed, after the one-token check (and that no row base is
+        set: the paged pool serves one whole batch)."""
         k_new, v_new = inputs["k"], inputs.get("v")
         if k_new.shape[1] != 1:
             raise ValueError(f"the paged kv_append writes one token per "
                              f"step, got n={k_new.shape[1]}")
+        if inputs.get("row_base", 0):
+            raise ValueError("the paged kv_append takes no SR row base")
         return k_new, v_new, int(inputs.get("seed", 0)) & _U32
 
 
@@ -236,7 +239,8 @@ class PagedStateUpdateCuda(_PagedStateUpdateBase):
         _, y = _su_cuda(state.pool, inputs["d"], inputs["k"], inputs["v"],
                         inputs["q"], inputs.get("seed", 0),
                         rounding=plan.rounding, slabs=state.slabs,
-                        group=state.group)
+                        group=state.group,
+                        row_base=inputs.get("row_base", 0))
         return state, y
 
 
@@ -251,5 +255,6 @@ class PagedStateUpdateTorch(_PagedStateUpdateBase):
         seed = int(inputs.get("seed", 0)) & _U32
         _, y = _ref.state_update_slab_ref(
             state.pool, state.slabs, state.group, inputs["d"], inputs["k"],
-            inputs["v"], inputs["q"], rounding=plan.rounding, seed=seed)
+            inputs["v"], inputs["q"], rounding=plan.rounding, seed=seed,
+            row_base=inputs.get("row_base", 0))
         return state, y

@@ -26,7 +26,7 @@ from repro_torch.kernels.mx_state_update import mx_state_update as _su_cuda
 from repro_torch.ops import registry
 from repro_torch.ops.base import (OPERAND_BYTES, OUTPUT_BYTES, OpPlan, SpuOp,
                                   StateQuantConfig, TrafficBytes,
-                                  fmt_of_state)
+                                  fmt_of_state, sr_row_base)
 
 StateLike = Union[F.QuantizedTensor, torch.Tensor]
 
@@ -67,7 +67,8 @@ class StateUpdateCuda(_StateUpdateBase):
                 plan: OpPlan) -> Tuple[StateLike, torch.Tensor]:
         return _su_cuda(state, inputs["d"], inputs["k"], inputs["v"],
                         inputs["q"], inputs.get("seed", 0),
-                        rounding=plan.rounding)
+                        rounding=plan.rounding,
+                        row_base=inputs.get("row_base", 0))
 
 
 @registry.register
@@ -84,7 +85,8 @@ class StateUpdateTorch(_StateUpdateBase):
             return _ref.state_update_float(state, d, k, v, q,
                                            dtype=state.dtype)
         return _ref.quantized_state_update_stored_ref(
-            state, d, k, v, q, rounding=plan.rounding, seed=seed)
+            state, d, k, v, q, rounding=plan.rounding, seed=seed,
+            row_base=inputs.get("row_base", 0))
 
 
 def plan_state_update_dims(B: int, H: int, dk: int, dv: int,
@@ -119,7 +121,10 @@ def state_update_step(state: StateLike, d: torch.Tensor, k: torch.Tensor,
     """One decode step of Eq. 2: plan + dispatch through the registry.
 
     d: (B,H,dk) or (B,H,1); k,q: (B,H,dk); v: (B,H,dv) -> y: (B,H,dv) f32.
+    Stochastic rounding counts from the row base of
+    :func:`~repro_torch.ops.base.sr_rows_from`.
     """
     p = plan_state_update(state, cfg)
     return registry.execute(state, {"d": d, "k": k, "v": v, "q": q,
-                                    "seed": seed}, p)
+                                    "seed": seed,
+                                    "row_base": sr_row_base()}, p)

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -75,15 +75,17 @@ def _decay_mask(path) -> bool:
 
 @torch.no_grad()
 def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
-                 opt: OptimizerConfig
+                 opt: OptimizerConfig, grad_norm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: (new params, new state, {"grad_norm", "lr"}).  The
     gradients are clipped to ``clip_norm`` by their global norm before they
     enter the moments; the moments are bias-corrected; decay is decoupled
-    (``p -= lr * wd * p``, on the leaves :func:`_decay_mask` picks)."""
+    (``p -= lr * wd * p``, on the leaves :func:`_decay_mask` picks).  Where
+    the trees are a rank's shards, ``grad_norm`` is the whole tree's norm
+    (``dist/sharding.py::global_norm``); by default the norm of ``grads``."""
     step = state["step"] + 1
     lr = schedule(opt, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(opt.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     b1, b2 = opt.b1, opt.b2
     stepf = step.to(torch.float32)

@@ -1,5 +1,7 @@
 """Train-step factory and the fault-tolerant training loop (the port's copy
-of ``repro/train/train_loop.py``, on one device)."""
+of ``repro/train/train_loop.py``): on one device, or on a mesh
+(``dist/sharding.py``: ZeRO-sharded data parallelism, expert-parallel
+MoE)."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,56 +22,134 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     as int64, everything else as it is."""
     out = {}
     for k, v in batch.items():
-        t = torch.as_tensor(np.asarray(v))
+        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+            np.asarray(v))
         if k in ("tokens", "targets"):
             t = t.long()
         out[k] = t.to(device)
     return out
 
 
-def _loss_and_grads(params, cfg: ModelConfig, batch):
-    """(loss, gradient tree) of ``M.train_loss`` at ``params``; a leaf the
-    loss does not reach gets a zero gradient, as under ``jax.grad``."""
+def _loss_and_grads(params, cfg: ModelConfig, batch, weight=None,
+                    par=None):
+    """(loss, gradient tree) of ``M.train_loss`` at ``params``, times
+    ``weight`` where one is given; a leaf the loss does not reach gets a
+    zero gradient, as under ``jax.grad``."""
     leaves = [p.detach().requires_grad_(True) for p in T.leaves(params)]
-    loss = M.train_loss(T.unflatten(params, leaves), cfg, batch)
+    loss = M.train_loss(T.unflatten(params, leaves), cfg, batch, par=par)
+    if weight is not None:
+        loss = loss * weight
     grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                 materialize_grads=True)
     return loss.detach(), T.unflatten(params, grads)
 
 
-def make_train_step(cfg: ModelConfig, opt: O.OptimizerConfig,
+def _split(batch, grad_accum: int, D: int = 1, r: int = 0):
+    """Microbatch ``i`` is rows ``i * B/ga .. (i + 1) * B/ga`` of the batch
+    (the JAX package's scan); data shard ``r`` of ``D`` takes its rows of
+    each (the JAX package's ``to_micro``)."""
+    B = next(iter(batch.values())).shape[0]
+    if B % (grad_accum * D):
+        raise ValueError(f"batch {B} does not split into {grad_accum} "
+                         f"microbatches" + (f" over {D} data shards"
+                                            if D > 1 else ""))
+    n = B // grad_accum
+    per = n // D
+    return [{k: v[i * n + r * per:i * n + (r + 1) * per]
+             for k, v in batch.items()} for i in range(grad_accum)]
+
+
+def _microbatches(batch, device, par, grad_accum: int):
+    """(the microbatches this rank runs, the weight of each one's loss).
+
+    Without ``par``: the batch (or its :func:`_split`), weights None.
+    With ``par`` a rank takes its rows of each microbatch, so masked means
+    take the same rows as JAX's; a batch of DTensors in its layout at
+    ``grad_accum == 1`` is already the rank's rows, otherwise it is
+    gathered first.  JAX's loss is the masked mean over the global batch,
+    so a rank's loss is weighted by its share of the microbatch's mask
+    count (1.0 on one rank)."""
+    if par is None:
+        batch = batch_to_device(batch, device)
+        micro = [batch] if grad_accum == 1 else _split(batch, grad_accum)
+        return micro, [None] * grad_accum
+    from repro_torch.dist import sharding as SH
+    D, r = par.batch_size_divisor, par.data_index()
+    if not any(isinstance(x, SH.DTensor) for x in T.leaves(batch)):
+        micro = _split(batch_to_device(batch, device), grad_accum, D, r)
+    elif grad_accum == 1 and all(
+            tuple(x.placements) == SH.batch_shardings(x, par).placements
+            for x in T.leaves(batch)):
+        micro = [SH.gather(batch, par.batch_axes)]
+    else:
+        micro = _split(SH.gather(batch), grad_accum, D, r)
+    counts = torch.stack([
+        (mb["mask"].to(torch.float32).sum() if "mask" in mb else
+         torch.tensor(float(mb["targets"].numel()), device=device))
+        for mb in micro])
+    return micro, counts / torch.clamp(_over_data(counts, par), min=1.0)
+
+
+def _over_data(t: torch.Tensor, par) -> torch.Tensor:
+    """``t`` (each rank's own) summed over the data axes of ``par``."""
+    from repro_torch.dist import sharding as SH
+    mesh, data = par.mesh, set(par.data_axes)
+    return SH.DTensor.from_local(t, mesh, tuple(
+        SH.Partial() if n in data else SH.Replicate()
+        for n in mesh.mesh_dim_names), run_check=False).full_tensor()
+
+
+def make_train_step(cfg: ModelConfig, opt: O.OptimizerConfig, par=None,
                     grad_accum: int = 1) -> Callable:
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics).  ``batch`` is a pipeline batch (numpy) or tensors; it moves to
     the parameters' device.  With ``grad_accum > 1`` the batch splits into
     that many microbatches along its first axis, run one after another:
     their losses and gradients are summed, then divided by ``grad_accum``
-    (the JAX package's scan)."""
+    (the JAX package's scan).
+
+    With ``par`` (a ``dist.sharding.Parallel``) the step runs over a mesh,
+    eagerly: parameters and AdamW moments are DTensors in the parameter
+    layout (ZeRO), the step counter replicated; the batch too may be.
+    Each rank gathers the parameters it computes with (the expert banks
+    stay sharded over the model axis), runs the same microbatch loop on
+    its rows (:func:`_microbatches`, each loss weighted so that the ranks'
+    sum is the global masked mean), sums the gradients over the data axes
+    into the parameter layout, and runs AdamW on its shards with the
+    global gradient norm.  On a one-rank mesh that is the single-device
+    step's arithmetic exactly."""
+    if par is not None:
+        from repro_torch.dist import sharding as SH
 
     def step(params, opt_state, batch):
-        batch = batch_to_device(batch, M.params_device(params))
+        device = (M.params_device(params) if par is None
+                  else torch.device(par.mesh.device_type))
+        micro, weights = _microbatches(batch, device, par, grad_accum)
+        local = params if par is None else SH.gather_params(params, cfg, par)
         if grad_accum == 1:
-            loss, grads = _loss_and_grads(params, cfg, batch)
+            loss, grads = _loss_and_grads(local, cfg, micro[0], weights[0],
+                                          par)
         else:
-            B = next(iter(batch.values())).shape[0]
-            if B % grad_accum:
-                raise ValueError(f"batch {B} does not split into "
-                                 f"{grad_accum} microbatches")
-            n = B // grad_accum
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=M.params_device(params))
+            loss = torch.zeros((), dtype=torch.float32, device=device)
             grads = T.tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            for i in range(grad_accum):
-                micro = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                loss_i, grads_i = _loss_and_grads(params, cfg, micro)
+                p.shape, dtype=torch.float32, device=device), local)
+            for mb, w in zip(micro, weights):
+                loss_i, grads_i = _loss_and_grads(local, cfg, mb, w, par)
                 loss = loss + loss_i
                 grads = T.tree_map(torch.add, grads, grads_i)
             loss = loss / grad_accum
             grads = T.tree_map(lambda g: g / grad_accum, grads)
-        params, opt_state, metrics = O.adamw_update(params, grads, opt_state,
-                                                    opt)
-        return params, opt_state, dict(metrics, loss=loss)
+        del local
+        if par is None:
+            params, opt_state, metrics = O.adamw_update(params, grads,
+                                                        opt_state, opt)
+            return params, opt_state, dict(metrics, loss=loss)
+        grads = SH.reduce_grads(grads, params, cfg, par)
+        new_p, new_s, metrics = O.adamw_update(
+            SH.local_shards(params), grads, SH.local_shards(opt_state), opt,
+            grad_norm=SH.global_norm(grads, params))
+        return (SH.like(new_p, params), SH.like(new_s, opt_state),
+                dict(metrics, loss=_over_data(loss, par)))
 
     return step
 

@@ -1140,6 +1140,56 @@ def test_dense_append_kernel_bitwise_vs_plain(cuda, KVH, w, n_streams, n,
                 assert torch.equal(c.payload[f], p.payload[f]), (f, mag)
 
 
+@pytest.mark.parametrize("B,H,dk,dv", [(4, 80, 64, 64), (4, 20, 128, 128)])
+def test_state_update_kernel_row_base_draws_the_whole_batchs_bits(
+        cuda, B, H, dk, dv):
+    """Kernel 1 on the last half of a batch with ``row_base`` at its first
+    row: bitwise the whole batch's launch on those rows, and within the
+    state update's contract of its plain version with the same row base
+    (a data-parallel rank's draws; zamba2 / mamba2 and the GLA family's
+    heads)."""
+    qS, d, k, v, q = _su_inputs(B, H, dk, dv, cuda, scalar_decay=True)
+    b0 = B // 2
+    rows = lambda t: t[b0:].contiguous()
+    part = F.QuantizedTensor("mx8", (B - b0,) + tuple(qS.shape[1:]),
+                             {f: rows(a) for f, a in qS.payload.items()})
+    qp, yp = KS.plain(part.clone(), rows(d), rows(k), rows(v), rows(q),
+                      rounding="stochastic", seed=5, row_base=b0)
+    qw, yw = KS.mx_state_update(qS.clone(), d, k, v, q, seed=5)
+    qk, yk = KS.mx_state_update(part.clone(), rows(d), rows(k), rows(v),
+                                rows(q), seed=5, row_base=b0)
+    torch.cuda.synchronize()
+    for f in qk.payload:
+        assert torch.equal(qk.payload[f], qw.payload[f][b0:]), f
+    assert torch.equal(yk, yw[b0:])
+    _assert_state_update_contract(qp.payload, yp, qk.payload, yk)
+
+
+@pytest.mark.parametrize("KVH,w,n_streams", [(5, 64, 2), (1, 576, 1)])
+def test_dense_append_row_base_draws_the_whole_batchs_bits(cuda, KVH, w,
+                                                           n_streams):
+    """The dense append on the last two rows with ``row_base`` 2: every
+    cache byte equal to the whole batch's append on those rows and to the
+    plain version's with the same row base (smollm's and deepseek's
+    streams)."""
+    from repro_torch.kernels import mx_quant as KQ
+    caches, rows, lens = _dense_append_case(cuda, KVH, w, n_streams, 1)
+    half = lambda c: F.QuantizedTensor(
+        "mx8", (2,) + tuple(c.shape[1:]),
+        {f: a[2:].clone() for f, a in c.payload.items()})
+    part, plain = [half(c) for c in caches], [half(c) for c in caches]
+    KQ.mx_kv_append_quant(rows, caches, lens, 17, rounding="stochastic")
+    KQ.mx_kv_append_quant([r[2:] for r in rows], part, lens[2:], 17,
+                          rounding="stochastic", row_base=2)
+    KQ.plain_append([r[2:] for r in rows], plain, lens[2:], 17,
+                    "stochastic", 2)
+    torch.cuda.synchronize()
+    for c, p, want in zip(caches, part, plain):
+        for f in p.payload:
+            assert torch.equal(p.payload[f], c.payload[f][2:]), f
+            assert torch.equal(p.payload[f], want.payload[f]), f
+
+
 def test_dense_append_replays_in_a_cuda_graph_bitwise(cuda):
     """Ten appends of K and V at yi-9b's widths (n = 1; the rows and
     lengths written in place between them, as a decode step would) from a
