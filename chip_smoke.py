@@ -13,12 +13,12 @@ layers: 4 of its 9 groups) through the slot pool, through the paged pool
 (``Engine``'s default) and through the paged pool with speculative
 decoding, then ``deepseek-v2-236b`` at full width
 (depth cut to 4 of its 60 layers: 53.2 GB of fp32 weights) through the same
-three paths, then the paper's GLA-family models at full width and all 32
-layers: ``gla-2.7b`` through the same three paths, ``retnet-2.7b`` and
+three paths, then the paper's GLA-family models at full width (16 of
+their 32 layers): ``gla-2.7b`` through the same three paths, ``retnet-2.7b`` and
 ``hgrn2-2.7b`` through the paged pool; then the paper's transformer
 baseline ``opt-6.7b`` (32 layers) and ``yi-9b`` (48 layers, grouped
 queries) at full width and full depth through the same three paths, then
-``xlstm-1.3b`` (42 mLSTM + 6 sLSTM layers) at full width and depth
+``xlstm-1.3b`` at full width (24 of 48 layers: 21 mLSTM + 3 sLSTM)
 through the same three paths, then the last five configs: ``smollm-360m``
 (all 32 layers), ``yi-34b`` (28 of 60 layers: 66.1 GB of fp32 weights)
 and ``dbrx-132b`` (4 of 40: 57.1 GB) through the same three paths,
@@ -130,7 +130,20 @@ Phases, in the order they run:
   dense append launched as often; the append of the last half batch's
   rows with its SR row base bitwise the whole batch's append on those
   rows; the int8 compressed all-reduce of a
-  gradient tree through NCCL, bitwise the CPU compressor's
+  gradient tree through NCCL, bitwise the CPU compressor's   70 (after
+  69; tensor-parallel serving): (a) at zamba2-2.7b's widths, rank tp - 1
+  of tp = 2 and 4: kernel 1 (dense and slab mode), the dense append and
+  the fused paged append on the rank's heads with their head base, and
+  kernels 2, 3 and 5 on its kv heads, each bitwise the whole launch's
+  heads, timed beside its plain version; (b) two ranks in their own
+  processes (this script with ``--tp-worker``) share the card over gloo
+  (NCCL refuses two ranks on one card) and serve zamba2-2.7b at full
+  width and ZAMBA2_LAYERS deep: a model-level prefill and decode steps
+  against tp = 1 in rank 0's process (fp32 state and MX8 SR), logits
+  bitwise across the ranks, then the paged engine (4 requests, 16 new
+  tokens); each rank's launches a step (kernel 1 at 40 heads, kernels 2
+  / 3 and the appends at 16 kv heads, no plain quantizer) and its weight
+  and pool bytes against tp = 1
   8. kernels line
 
 The card's peaks in every bound come from
@@ -227,6 +240,11 @@ XLSTM_MAX_NEW = 12
 #: through verify steps would cost ~150 of them); 8 usable pages of 0 bytes
 #: (no KV) still admit by page count, so FCFS may preempt
 XLSTM_PAGED = dict(batch=4, n_pages=9, prefill_chunk=512)
+#: gla-2.7b / retnet-2.7b / hgrn2-2.7b: depth cut to 16 of their 32
+#: layers, and xlstm-1.3b to 24 of its 48 (3 of its 6 groups: 21 mLSTM +
+#: 3 sLSTM layers), to keep the whole smoke well inside its time limit
+GLA_LAYERS = 16
+XLSTM_LAYERS = 24
 #: the GLA family's kernels-vs-plain difference at each depth, at most
 #: this many times that of the plain ops with one layer's y moved one ulp
 #: (the H100 read 0.08-2.2 times at 1-32 layer groups)
@@ -2253,7 +2271,7 @@ def phase_deepseek(cfg, params):
 
 # ---------------------------------------------------------------------------
 # kernel 7 (the MX8 quantizer), kernel 1 at the GLA family's heads, and
-# gla-2.7b / retnet-2.7b / hgrn2-2.7b at full width and full depth
+# gla-2.7b / retnet-2.7b / hgrn2-2.7b at full width, GLA_LAYERS deep
 # ---------------------------------------------------------------------------
 
 def _hold_quant(shapes, seed0=0):
@@ -2563,15 +2581,17 @@ def _fields(r):
 
 
 def _gla_model(arch):
-    """A GLA-family model at full width and full depth (32 layers)."""
-    cfg, params, info = _model_at(arch)
-    check(cfg.n_layers == 32 and cfg.d_model == 2560,
+    """A GLA-family model at full width and ``GLA_LAYERS`` of its 32
+    layers."""
+    cfg, params, info = _model_at(arch, GLA_LAYERS)
+    check(cfg.n_layers == GLA_LAYERS and cfg.d_model == 2560,
           f"unexpected {cfg.name}")
+    info["reduced"] = repr(f"n_layers 32 -> {GLA_LAYERS}")
     return cfg, params, info
 
 
 def phase_gla(init, extra=None):
-    """gla-2.7b at full width and all 32 layers through the slot pool (23),
+    """gla-2.7b at full width, ``GLA_LAYERS`` deep, through the slot pool (23),
     the paged pool (24; paged logits bitwise the dense-gather path's on a
     fresh pool first) and the paged pool with n-gram speculation (25).
     Every decode step launches kernel 1 once per layer (dense on the slot
@@ -2644,8 +2664,8 @@ def phase_gla(init, extra=None):
 
 
 def phase_gla_paged(arch, n):
-    """retnet-2.7b (26) or hgrn2-2.7b (27) at full width and all 32 layers
-    through the paged pool: paged logits bitwise the dense-gather path's,
+    """retnet-2.7b (26) or hgrn2-2.7b (27) at full width, ``GLA_LAYERS``
+    deep, through the paged pool: paged logits bitwise the dense-gather path's,
     kernel 1 in slab mode once per layer per step, kernel 7 once per layer
     per prefill."""
     import numpy as np
@@ -3622,7 +3642,7 @@ def phase_dense_append_timing(widths=None, k7_prefills=(("opt", 32, 128),
     return out
 
 # ---------------------------------------------------------------------------
-# xlstm-1.3b (mLSTM + sLSTM) at full width and full depth
+# xlstm-1.3b (mLSTM + sLSTM) at full width, XLSTM_LAYERS deep
 # ---------------------------------------------------------------------------
 
 def phase_xlstm_kernels():
@@ -3680,18 +3700,19 @@ def phase_xlstm_timing():
 
 
 def _xlstm_model():
-    """xlstm-1.3b at full width and all 48 layers (6 groups of 7 mLSTM + 1
-    sLSTM)."""
-    cfg, params, info = _model_at("xlstm-1.3b")
-    check(cfg.n_layers == 48 and cfg.d_model == 2048
-          and cfg.pattern.count("mlstm") * cfg.n_groups == 42,
-          f"unexpected {cfg.name}")
+    """xlstm-1.3b at full width and ``XLSTM_LAYERS`` of its 48 layers
+    (groups of 7 mLSTM + 1 sLSTM)."""
+    cfg, params, info = _model_at("xlstm-1.3b", XLSTM_LAYERS)
+    check(cfg.n_layers == XLSTM_LAYERS and cfg.d_model == 2048
+          and cfg.pattern.count("mlstm") * cfg.n_groups
+          == XLSTM_LAYERS // 8 * 7, f"unexpected {cfg.name}")
+    info["reduced"] = repr(f"n_layers 48 -> {XLSTM_LAYERS}")
     return cfg, params, info
 
 
 def _slstm_prefill_share(params, cfg, rng, n=40, length=400):
     """The sLSTM's share of one request's prefill of ``length`` tokens: its
-    six layers run the cell position by position in plain PyTorch (no SPU
+    sLSTM layers run the cell position by position in plain PyTorch (no SPU
     op, no kernel).  Each sLSTM forward is timed between device
     synchronisations, and so is the whole prefill around it."""
     import torch
@@ -3789,12 +3810,12 @@ def _spill_resume_check(eng, cfg, rng, n=41):
 
 
 def phase_xlstm():
-    """xlstm-1.3b at full width and all 48 layers through the slot pool
+    """xlstm-1.3b at full width, ``XLSTM_LAYERS`` deep, through the slot pool
     (40), the paged pool (41; paged logits bitwise the dense-gather path's
     on a fresh pool first; spill and resume at the pool level) and the
     paged pool with n-gram speculation (42; the pool-level verify and
     rollback check; greedy spec == plain at round to nearest).  Every
-    decode step launches kernel 1 once per mLSTM layer (42: dense on the
+    decode step launches kernel 1 once per mLSTM layer (21: dense on the
     slot pool, slab mode on the paged pool; Kq times per verify step),
     every request's prefill kernel 7 once per mLSTM layer, and nothing
     else of the port's kernels; the sLSTM runs in plain PyTorch."""
@@ -3804,7 +3825,8 @@ def phase_xlstm():
     cfg, params, info = _xlstm_model()
     L = cfg.pattern.count("mlstm") * cfg.n_groups
     k7 = _k7_per_prefill(cfg)
-    check(k7 == L == 42, f"kernel 7 per prefill {k7}, mLSTM layers {L}")
+    check(k7 == L == XLSTM_LAYERS // 8 * 7,
+          f"kernel 7 per prefill {k7}, mLSTM layers {L}")
     phase(40, "xlstm-1.3b weights", **info)
     rng = np.random.default_rng(40)
     prompts = _pattern_prompts(rng, cfg)
@@ -5750,11 +5772,532 @@ def phase_dist():
           seconds=f"{time.perf_counter() - t_start:.1f}")
 
 
+# ---------------------------------------------------------------------------
+# phase 70: tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+#: phase 70: (a) the head-shard launches at zamba2's widths, rank ``tp - 1``
+#: of tp = 2 and 4; (b) two ranks sharing the one card over gloo serve
+#: zamba2-2.7b at full width and ZAMBA2_LAYERS deep: a model-level prefill
+#: of ``B`` prompts of ``S`` tokens and ``steps`` decode steps at fp32
+#: state (``sr_steps`` at MX8 SR) against tp = 1, then the paged engine
+#: with four requests and ``max_new`` new tokens
+TP = dict(degrees=(2, 4), ranks=2, B=4, S=64, steps=8, sr_steps=4,
+          max_new=16, paged=dict(batch=4, n_pages=17, prefill_chunk=512),
+          prompts=(64, 400, 133, 251), timeout_s=400)
+
+
+def _shard(qt, h0, n, dim):
+    """Heads ``h0 .. h0 + n - 1`` (along ``dim``) of an MX8 tensor, a copy."""
+    from repro_torch.core import formats as F
+    return F.QuantizedTensor("mx8", tuple(
+        n if i == dim else e for i, e in enumerate(qt.shape)),
+        {f: a.narrow(dim, h0, n).clone() for f, a in qt.payload.items()})
+
+
+def _same_heads(shard, whole, h0, dim, what):
+    import torch
+    from repro_torch.core import formats as F
+    if isinstance(shard, F.QuantizedTensor):
+        for f, a in shard.payload.items():
+            check(torch.equal(a, whole.payload[f].narrow(dim, h0, a.shape[
+                dim])), f"{what}: {f} of the head shard differs from the "
+                "whole launch's heads")
+        return
+    check(torch.equal(shard, whole.narrow(dim, h0, shard.shape[dim])),
+          f"{what}: the head shard differs from the whole launch's heads")
+
+
+def _payload_err(a, b):
+    """Max |difference| over the payload bytes of two MX8 tensors."""
+    return max(float((a.payload[f].float() - b.payload[f].float()).abs()
+                     .max()) for f in a.payload)
+
+
+def _tp_kernels(tp):
+    """Phase 70 (a) at one degree: rank ``tp - 1``'s share of zamba2's
+    heads through kernel 1 (dense and slab mode), the dense append, the
+    fused paged append (each with its head base) and kernels 2, 3 and 5,
+    each held bitwise against the whole launch's heads and timed beside
+    its plain version (and SDPA for the attention kernels)."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_quant as K7
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import mx_state_update as KS
+    from repro_torch.kernels import ref as R
+    out, errs = {}, {}
+    B, H, dv, dk = SU_SHAPES[0]
+    n = H // tp
+    h0 = (tp - 1) * n
+    hs = lambda t: t[:, h0:h0 + n].contiguous()
+    g = torch.Generator(device="cuda").manual_seed(700 + tp)
+    # -- kernel 1, dense mode: 24 states (one a Mamba-2 layer) rotate
+    states = [F.mx8_quantize(torch.randn((B, H, dv, dk), generator=g,
+                                         device="cuda")) for _ in range(24)]
+    d = torch.sigmoid(torch.randn((B, H, 1), generator=g, device="cuda"))
+    k, q = (torch.randn((B, H, dk), generator=g, device="cuda") for _ in "kq")
+    v = torch.randn((B, H, dv), generator=g, device="cuda")
+    sw, yw = KS.mx_state_update(states[0].clone(), d, k, v, q, seed=7)
+    part = [_shard(s, h0, n, 1) for s in states]
+    args = (hs(d), hs(k), hs(v), hs(q))
+    ss, ys = KS.mx_state_update(part[0].clone(), *args, seed=7, head_base=h0,
+                                heads_total=H)
+    sp, yp = KS.plain(part[0].clone(), *args, seed=7, head_base=h0,
+                      heads_total=H)
+    torch.cuda.synchronize()
+    _same_heads(ss, sw, h0, 1, f"kernel 1 at tp={tp}")
+    _same_heads(ys, yw, h0, 1, f"kernel 1's y at tp={tp}")
+    _hold_su(f"kernel 1 head shard tp={tp}", sp.payload, yp, ss.payload, ys)
+    errs["su"] = float((ys - yp).abs().max())
+    kern = [lambda i=i: KS.mx_state_update(part[i], *args, seed=i,
+                                           head_base=h0, heads_total=H)
+            for i in range(24)]
+    plain = [lambda i=i: KS.plain(part[i], *args, seed=i, head_base=h0,
+                                  heads_total=H) for i in range(4)]
+    n_val = B * n * dv * dk
+    payload = n_val * (1 + 2 / F.MX8_GROUP)
+    operands = 4 * (B * n * (1 + 2 * dk + dv) + B * n * dv)
+    out["su"] = _report(f"mx_state_update[tp{tp}]", graph_ms(kern, 20),
+                        graph_ms(plain, 5), None, host_loop_ms(kern[0], 100),
+                        2 * payload + operands, 10 * n_val, 2 * payload,
+                        n=70)
+    # -- kernel 1, slab mode: the six positions' pools of the rank's heads
+    pools = [F.mx8_quantize(torch.randn((5, 4, H, dv, dk), generator=g,
+                                        device="cuda")) for _ in range(6)]
+    slabs = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device="cuda")
+    whole = pools[0].clone()
+    _, yw = KS.mx_state_update(whole, d, k, v, q, seed=9, slabs=slabs,
+                               group=2)
+    sp_pools = [_shard(p, h0, n, 2) for p in pools]
+    check_pool = sp_pools[0].clone()
+    _, ys = KS.mx_state_update(check_pool, *args, seed=9, slabs=slabs,
+                               group=2, head_base=h0, heads_total=H)
+    torch.cuda.synchronize()
+    _same_heads(check_pool, whole, h0, 2, f"kernel 1 slab mode at tp={tp}")
+    _same_heads(ys, yw, h0, 1, f"kernel 1 slab mode's y at tp={tp}")
+    kern = [lambda p=p, l=l: KS.mx_state_update(
+        sp_pools[p], *args, seed=l, slabs=slabs, group=l, head_base=h0,
+        heads_total=H) for p in range(6) for l in range(4)]
+    plain = [lambda l=l: KS.plain_slab(sp_pools[0], slabs, l, *args, seed=l,
+                                       head_base=h0, heads_total=H)
+             for l in range(4)]
+    out["su_slab"] = _report(f"mx_state_update[slab,tp{tp}]",
+                             graph_ms(kern, 20), graph_ms(plain, 5), None,
+                             host_loop_ms(kern[0], 100),
+                             2 * payload + operands + 4 * B, 10 * n_val,
+                             2 * payload, n=70)
+    errs["su_slab"] = errs["su"]
+    del states, part, pools, sp_pools
+    # -- the dense append (the slot pool's K and V of the rank's kv heads)
+    a = ATTN
+    KVH, w = a["KVH"], a["d"]
+    kn = KVH // tp
+    k0 = (tp - 1) * kn
+    T = 1024
+    caches = [F.mx8_quantize(torch.randn((B, T, KVH, w), generator=g,
+                                         device="cuda")) for _ in "kv"]
+    rows = [torch.randn((B, 1, KVH, w), generator=g, device="cuda")
+            for _ in "kv"]
+    lens = torch.tensor([0, 400, T - 2, T + 9], dtype=torch.int32,
+                        device="cuda")
+    mine = [r[:, :, k0:k0 + kn].contiguous() for r in rows]
+    part = [_shard(c, k0, kn, 2) for c in caches]
+    plain_part = [c.clone() for c in part]
+    K7.mx_kv_append_quant(rows, caches, lens, 17)
+    K7.mx_kv_append_quant(mine, part, lens, 17, head_base=k0,
+                          heads_total=KVH)
+    K7.plain_append(mine, plain_part, lens, 17, "stochastic", 0, k0, KVH)
+    torch.cuda.synchronize()
+    for c, p_, q_ in zip(caches, part, plain_part):
+        _same_heads(p_, c, k0, 2, f"the dense append at tp={tp}")
+        _same_heads(p_, q_, 0, 2, f"the dense append vs plain at tp={tp}")
+    errs["apd"] = max(_payload_err(p_, q_) for p_, q_ in zip(part,
+                                                             plain_part))
+    kern = [lambda i=i: K7.mx_kv_append_quant(mine, part, lens, i,
+                                              head_base=k0, heads_total=KVH)
+            for i in range(9)]
+    plain = [lambda i=i: K7.plain_append(mine, plain_part, lens, i,
+                                         "stochastic", 0, k0, KVH)
+             for i in range(3)]
+    n_val = 2 * B * kn * w
+    out["apd"] = _report(f"mx_kv_append_quant[tp{tp}]", graph_ms(kern, 50),
+                         graph_ms(plain, 10), None,
+                         host_loop_ms(kern[0], 100),
+                         n_val * (4 + 1 + 2 / F.MX8_GROUP) + 4 * B,
+                         5 * n_val, n_val * 9 / 8, n=70)
+    del caches, part, plain_part
+    # -- the fused paged append and kernels 2, 3, 5 over the rank's kv heads
+    lengths = [n_ + MAX_NEW // 2 for n_ in PROMPT_LENS[:B]]
+    qa, K, V, bt, lens = _paged_kv(lengths, seed=710 + tp, spare=0)
+    Ks, Vs = _shard(K, k0, kn, 3), _shard(V, k0, kn, 3)
+    rows = _new_rows(B, KVH, w, 2, seed=711)
+    mine = [r[:, :, k0:k0 + kn].contiguous() for r in rows]
+    Kw, Vw = K.clone(), V.clone()
+    KP.mx_paged_kv_append_quant(rows, [Kw, Vw], bt, 1, lens, 5)
+    Kc, Vc = Ks.clone(), Vs.clone()
+    KP.mx_paged_kv_append_quant(mine, [Kc, Vc], bt, 1, lens, 5, head_base=k0,
+                                heads_total=KVH)
+    Kp, Vp = Ks.clone(), Vs.clone()
+    KP.plain_append_quant(mine, [Kp, Vp], bt, 1, lens, 5, "stochastic", k0,
+                          KVH)
+    torch.cuda.synchronize()
+    for c, w_, p_ in ((Kc, Kw, Kp), (Vc, Vw, Vp)):
+        _same_heads(c, w_, k0, 3, f"the paged append at tp={tp}")
+        _same_heads(c, p_, 0, 3, f"the paged append vs plain at tp={tp}")
+    errs["apq"] = max(_payload_err(Kc, Kp), _payload_err(Vc, Vp))
+    # timed on copies: the attention kernels below read Ks / Vs
+    Kt, Vt = Ks.clone(), Vs.clone()
+    kern = [lambda l=l: KP.mx_paged_kv_append_quant(
+        mine, [Kt, Vt], bt, l, lens, l, head_base=k0, heads_total=KVH)
+        for l in range(N_STACK)]
+    plain = [lambda l=l: KP.plain_append_quant(mine, [Kt, Vt], bt, l, lens,
+                                               l, "stochastic", k0, KVH)
+             for l in range(3)]
+    n_val = 2 * B * kn * w
+    out["apq"] = _report(f"mx_paged_kv_append[quant,tp{tp}]",
+                         graph_ms(kern, 50), graph_ms(plain, 10), None,
+                         host_loop_ms(kern[0], 100),
+                         n_val * (4 + 1 + 2 / F.MX8_GROUP) + 4 * B * 2,
+                         5 * n_val, n_val * 9 / 8, n=70)
+    G_ = a["H"] // KVH
+    qs = qa[:, k0 * G_:(k0 + kn) * G_].contiguous()
+    Kd, Vd = R.gather_pages(K, bt, 1), R.gather_pages(V, bt, 1)
+    Kds, Vds = _shard(Kd, k0, kn, 2), _shard(Vd, k0, kn, 2)
+    y2, y2s = (KA.mx_attention_decode(qa, Kd, Vd, lens),
+               KA.mx_attention_decode(qs, Kds, Vds, lens))
+    y3, y3s = (KP.mx_paged_attention_decode(qa, K, V, bt, 1, lens),
+               KP.mx_paged_attention_decode(qs, Ks, Vs, bt, 1, lens))
+    q5 = torch.randn((B, KQ, a["H"], w), generator=g, device="cuda")
+    q5s = q5[:, :, k0 * G_:(k0 + kn) * G_].contiguous()
+    lens5 = lens + KQ
+    y5, y5s = (KV.mx_paged_spec_attention_decode(q5, K, V, bt, 1, lens5),
+               KV.mx_paged_spec_attention_decode(q5s, Ks, Vs, bt, 1, lens5))
+    torch.cuda.synchronize()
+    bitwise = {}
+    for name, whole_y, shard_y, plain_y in (
+            ("k2", y2, y2s, KA.plain(qs, Kds, Vds, lens)),
+            ("k3", y3, y3s, KP.plain(qs, Ks, Vs, bt, 1, lens)),
+            ("k5", y5, y5s, KV.plain_paged(q5s, Ks, Vs, bt, 1, lens5))):
+        sl = whole_y[..., k0 * G_:(k0 + kn) * G_, :]
+        bitwise[name] = torch.equal(shard_y, sl)
+        if not bitwise[name]:        # the decode-attention contract instead
+            torch.testing.assert_close(shard_y, sl, rtol=2e-4, atol=2e-5)
+        torch.testing.assert_close(shard_y, plain_y, rtol=2e-4, atol=2e-5)
+        errs[name] = float((shard_y - plain_y).abs().max())
+    valid = sum(lengths)
+    mask = (torch.arange(bt.shape[1] * 128, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    kf = F.dequantize(R.gather_pages(Ks, bt, 1)).permute(0, 2, 1, 3
+                                                         ).contiguous()
+    vf = F.dequantize(R.gather_pages(Vs, bt, 1)).permute(0, 2, 1, 3
+                                                         ).contiguous()
+    lib = [lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs[:, :, None, :], kf, vf, attn_mask=mask)]
+    nbytes = (valid * kn * 2 * w * (1 + 2 / F.MX8_GROUP)
+              + 4 * B * kn * G_ * 2 * w + 4 * B)
+    flops = valid * kn * G_ * 4 * w
+    kern = [lambda l=l: KP.mx_paged_attention_decode(qs, Ks, Vs, bt, l, lens)
+            for l in range(N_STACK)]
+    plain = [lambda l=l: KP.plain(qs, Ks, Vs, bt, l, lens) for l in range(3)]
+    out["k3"] = _report(f"mx_paged_attention_decode[tp{tp}]",
+                        graph_ms(kern, 30), graph_ms(plain, 3),
+                        graph_ms(lib, 30), host_loop_ms(kern[0], 100),
+                        nbytes + 4 * sum(bt.shape), flops, nbytes, n=70)
+    kern = [lambda: KA.mx_attention_decode(qs, Kds, Vds, lens)]
+    plain = [lambda: KA.plain(qs, Kds, Vds, lens)]
+    out["k2"] = _report(f"mx_attention_decode[tp{tp}]", graph_ms(kern, 30),
+                        graph_ms(plain, 3), graph_ms(lib, 30),
+                        host_loop_ms(kern[0], 100), nbytes, flops, nbytes,
+                        n=70)
+    kern = [lambda l=l: KV.mx_paged_spec_attention_decode(
+        q5s, Ks, Vs, bt, l, lens5) for l in range(N_STACK)]
+    plain = [lambda: KV.plain_paged(q5s, Ks, Vs, bt, 1, lens5)]
+    out["k5"] = _report(f"mx_paged_spec_attention_decode[tp{tp}]",
+                        graph_ms(kern, 30), graph_ms(plain, 3), None,
+                        host_loop_ms(kern[0], 100),
+                        nbytes + 4 * B * kn * G_ * 2 * w * (KQ - 1),
+                        KQ * flops, nbytes, n=70)
+    phase(70, f"head shards at tp={tp} (rank {tp - 1}: heads {h0}..{h0 + n - 1}"
+          f" of {H}, kv heads {k0}..{k0 + kn - 1} of {KVH})",
+          kernel1_dense_and_slab="bitwise the whole launch's heads",
+          dense_append="bitwise", paged_append="bitwise",
+          **{f"{k}_shard": "bitwise" if v else "within rtol 2e-4, atol 2e-5"
+             for k, v in bitwise.items()},
+          max_abs_err_vs_plain=",".join(f"{k}={v:.3g}"
+                                        for k, v in errs.items()))
+    return out, errs, bitwise
+
+
+def phase_tp_kernels():
+    """Phase 70 (a): the head-shard launches at tp = 2 and 4."""
+    t0 = time.perf_counter()
+    res = {tp: _tp_kernels(tp) for tp in TP["degrees"]}
+    phase(70, "head-shard kernels", seconds=f"{time.perf_counter() - t0:.1f}")
+    return res
+
+
+def _tp_decode(M, p, c, par, tok, lengths, n, feed=None):
+    """Model-level prefill + ``n`` decode steps (greedy, or fed ``feed``):
+    (logits (n + 1, B, V), the fed tokens (n, B), step ms)."""
+    import torch
+    logits, caches = M.prefill(p, c, {"tokens": tok}, par=par)
+    out, fed, ms = [logits], [], []
+    for s in range(n):
+        nxt = logits.argmax(-1) if feed is None else feed[s]
+        fed.append(nxt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = M.decode_step(p, c, nxt, caches, lengths + s,
+                                       seed=s + 1, par=par)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits)
+    return torch.stack(out), torch.stack(fed), ms
+
+
+def tp_worker(rank, world, init, out):
+    """One rank of phase 70 (b), in its own process: a gloo group of
+    ``world`` ranks on the one card (NCCL refuses two ranks on one card;
+    gloo takes CUDA tensors for ``all_reduce`` and ``broadcast``)."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _watch_plain_quantizer()
+    from repro_torch import ops as OPS
+    from repro_torch.core import tree as T
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist.tp import tp_sum
+    from repro_torch.launch.mesh import make_local_parallel
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import Engine, ServeConfig
+    from repro_torch.serving.memory.layout import CachePaging
+    torch.cuda.set_device(0)
+    t_start = time.perf_counter()
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    res = {}
+    try:
+        par = make_local_parallel(1, world, device_type="cuda")
+        # the forward path's one collective on CUDA tensors, first
+        x = torch.full((3,), float(rank + 1), device="cuda")
+        y = tp_sum(x, par)
+        check(y.is_cuda and torch.equal(y, torch.full_like(
+            x, world * (world + 1) / 2)), f"gloo's all_reduce of a CUDA "
+            f"tensor gave {y}")
+        cfg, params, _ = _model()
+        g = torch.Generator(device="cuda").manual_seed(70)
+        B, S = TP["B"], TP["S"]
+        tok = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                            device="cuda")
+        lengths = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        res["setup_s"] = time.perf_counter() - t_start
+        for tag, sq in (("fp32", OPS.StateQuantConfig("fp32", "nearest",
+                                                      "torch")),
+                        ("sr", cfg.state_quant)):
+            c = cfg.with_(state_quant=sq)
+            n = TP["steps"] if tag == "fp32" else TP["sr_steps"]
+            feed = torch.zeros((n, B), dtype=torch.int64, device="cuda")
+            if rank == 0:                      # tp = 1 in rank 0's process
+                ref, fed, ms1 = _tp_decode(M, params, c, None, tok, lengths,
+                                           n)
+                feed.copy_(fed)
+                res[f"{tag}_tp1_step_ms"] = ms1
+            dist.broadcast(feed, src=0)
+            p = SH.tp_params(params, c, par)
+            PLAIN_QUANT["calls"] = 0
+            _counts_reset()
+            got, _, ms = _tp_decode(M, p, c, par, tok, lengths, n, feed)
+            res[f"{tag}_counts"] = {k: v for k, v in _counts().items() if v}
+            res[f"{tag}_plain_quant"] = PLAIN_QUANT["calls"]
+            res[f"{tag}_step_ms"] = ms
+            np.save(Path(out) / f"rank{rank}_{tag}.npy", got.cpu().numpy())
+            if rank == 0:
+                res[f"{tag}_max_dlogit"] = float((got - ref).abs().max())
+                res[f"{tag}_agree"] = float(
+                    (got.argmax(-1) == ref.argmax(-1)).float().mean())
+                res[f"{tag}_finite"] = bool(torch.isfinite(got).all())
+            del p
+        # the paged engine at the config's MX8 SR
+        rng = np.random.default_rng(70)
+        prompts = [rng.integers(0, cfg.vocab_size, n_)
+                   for n_ in TP["prompts"]]
+        eng = Engine(params, cfg, ServeConfig(**TP["paged"]), par=par)
+        pool = eng.engine.pool
+        steps = []
+        decode = pool.decode
+        pool.decode = lambda *a, **k: steps.append(1) or decode(*a, **k)
+        PLAIN_QUANT["calls"] = 0
+        _counts_reset()
+        t0 = time.perf_counter()
+        hs = [eng.submit(pr, max_new_tokens=TP["max_new"]) for pr in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        res["engine_s"] = time.perf_counter() - t0
+        res["engine_counts"] = {k: v for k, v in _counts().items() if v}
+        res["engine_plain_quant"] = PLAIN_QUANT["calls"]
+        res["engine_steps"] = len(steps)
+        res["engine_tokens"] = [list(map(int, h.result().output)) for h in hs]
+        res["engine_status"] = [h.status for h in hs]
+        st = eng.stats()
+        res["engine_p50_step_ms"] = st["p50_step_s"] * 1e3
+        res["engine_tokens_per_s"] = st["tokens_per_s"]
+        whole = CachePaging(M.init_decode_caches(cfg, 1, 128, device="meta"))
+        nbytes = lambda tree: sum(t.numel() * t.element_size()
+                                  for t in T.leaves(tree))
+        res["bytes"] = dict(
+            weights=nbytes(eng.engine.params), weights_tp1=nbytes(params),
+            page=pool.paging.page_nbytes, page_tp1=whole.page_nbytes,
+            slab=pool.paging.slab_nbytes, slab_tp1=whole.slab_nbytes,
+            pool=sum(t.numel() * t.element_size() for t in pool.pools),
+            pool_tp1=(pool.n_pages * whole.page_nbytes
+                      + pool.n_slabs * whole.slab_nbytes))
+        res["heads"] = dict(
+            state=[int(t.shape[2]) for t, s in zip(pool.pools,
+                                                   pool.paging.specs)
+                   if s.kind == "slab" and t.dim() == 5][:1],
+            kv=[int(t.shape[3]) for t, s in zip(pool.pools,
+                                                pool.paging.specs)
+                if s.kind == "page"][:1])
+        del eng, params
+        res["seconds"] = time.perf_counter() - t_start
+    finally:
+        dist.destroy_process_group()
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def phase_tp_serve():
+    """Phase 70 (b): two ranks on the card, each in its own process
+    (:func:`tp_worker`), serve zamba2-2.7b tensor-parallel; this process
+    checks what they wrote."""
+    import tempfile
+    import numpy as np
+    from repro_torch.launch.mesh import local_init_method
+    t0 = time.perf_counter()
+    world = TP["ranks"]
+    with tempfile.TemporaryDirectory() as tmp:
+        init = local_init_method()
+        logs = [open(Path(tmp) / f"rank{r}.log", "w") for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-worker",
+             str(r), str(world), init, tmp], stdout=logs[r],
+            stderr=subprocess.STDOUT) for r in range(world)]
+        deadline = time.monotonic() + TP["timeout_s"]
+        while any(p.poll() is None for p in procs) \
+                and time.monotonic() < deadline \
+                and not any(p.poll() for p in procs):
+            time.sleep(0.2)
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+        for r, p in enumerate(procs):
+            text = (Path(tmp) / f"rank{r}.log").read_text()
+            check(p.returncode == 0, f"phase 70 rank {r} exited "
+                  f"{p.returncode}:\n{text[-3000:]}")
+        res = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+               for r in range(world)]
+        for tag in ("fp32", "sr"):
+            a, b = (np.load(Path(tmp) / f"rank{r}_{tag}.npy")
+                    for r in range(2))
+            check(np.array_equal(a, b), f"phase 70: the ranks' {tag} "
+                  "logits differ")
+    r0 = res[0]
+    cfg_steps = TP["steps"]
+    n_su, n_at = _zamba2_launches(_model_cfg())
+    check(r0["fp32_max_dlogit"] <= 1e-3 and r0["fp32_agree"] == 1.0
+          and r0["fp32_finite"], f"phase 70 fp32 state: |dlogit| "
+          f"{r0['fp32_max_dlogit']:.3g}, agreement {r0['fp32_agree']}")
+    check(r0["sr_max_dlogit"] < 1e-2 and r0["sr_finite"],
+          f"phase 70 MX8 SR: |dlogit| {r0['sr_max_dlogit']:.3g}")
+    for r in res:
+        c = r["sr_counts"]
+        check(c.get("k1") == n_su * TP["sr_steps"]
+              and c.get("k2_gqa") == n_at * TP["sr_steps"]
+              and c.get("apd") == n_at * TP["sr_steps"]
+              and r["sr_plain_quant"] == 0,
+              f"phase 70 model-level launches {c}, plain quantizer "
+              f"{r['sr_plain_quant']}")
+        e, n = r["engine_counts"], r["engine_steps"]
+        check(e.get("k1s") == n_su * n and e.get("k3_gqa") == n_at * n
+              and e.get("k4q") == n_at * n and e.get("k7", 0) > 0
+              and r["engine_plain_quant"] == 0,
+              f"phase 70 engine launches {e} over {n} steps, plain "
+              f"quantizer {r['engine_plain_quant']}")
+        check(r["heads"] == dict(state=[40], kv=[16]), f"phase 70 a rank's "
+              f"heads {r['heads']}")
+        check(all(s == "done" for s in r["engine_status"])
+              and all(len(t) == TP["max_new"] for t in r["engine_tokens"]),
+              f"phase 70 engine requests {r['engine_status']}")
+    check(res[0]["engine_tokens"] == res[1]["engine_tokens"],
+          "phase 70: the ranks' engines sampled other tokens")
+    by = r0["bytes"]
+    phase(70, "tensor-parallel zamba2-2.7b, two ranks on one card over gloo "
+          "(all_reduce on CUDA tensors), model level",
+          layers=ZAMBA2_LAYERS, prompts=f"{TP['B']}x{TP['S']}",
+          fp32_steps=cfg_steps,
+          fp32_max_dlogit_vs_tp1=f"{r0['fp32_max_dlogit']:.3g}",
+          fp32_greedy_agreement=r0["fp32_agree"],
+          sr_steps=TP["sr_steps"],
+          sr_max_dlogit_vs_tp1=f"{r0['sr_max_dlogit']:.3g}",
+          sr_greedy_agreement=r0["sr_agree"],
+          logits_across_ranks="bitwise",
+          launches_per_rank=",".join(f"{k}={v}" for k, v in
+                                     r0["sr_counts"].items()),
+          plain_quantizer_calls=0)
+    phase(70, "step times (two ranks sharing one card over gloo, whose "
+          "CUDA all-reduce goes through the host: not a tensor-parallel "
+          "speed figure)",
+          fp32_tp1_step_ms=f"{np.median(r0['fp32_tp1_step_ms']):.2f}",
+          fp32_tp2_step_ms=f"{np.median(r0['fp32_step_ms']):.2f}",
+          sr_tp1_step_ms=f"{np.median(r0['sr_tp1_step_ms']):.2f}",
+          sr_tp2_step_ms=f"{np.median(r0['sr_step_ms']):.2f}",
+          engine_p50_step_ms=f"{r0['engine_p50_step_ms']:.2f}",
+          engine_tokens_per_s=f"{r0['engine_tokens_per_s']:.2f}")
+    phase(70, "tensor-parallel paged engine", requests=len(TP["prompts"]),
+          max_new=TP["max_new"], decode_steps=r0["engine_steps"],
+          launches_per_rank=",".join(f"{k}={v}" for k, v in
+                                     r0["engine_counts"].items()),
+          state_heads_a_rank=40, kv_heads_a_rank=16,
+          tokens_across_ranks="equal", plain_quantizer_calls=0,
+          engine_s=f"{r0['engine_s']:.1f}")
+    phase(70, "a rank's bytes against tp = 1",
+          weights_GB=f"{by['weights'] / 1e9:.3f}",
+          weights_tp1_GB=f"{by['weights_tp1'] / 1e9:.3f}",
+          page_bytes=by["page"], page_tp1_bytes=by["page_tp1"],
+          slab_bytes=by["slab"], slab_tp1_bytes=by["slab_tp1"],
+          pool_GB=f"{by['pool'] / 1e9:.4f}",
+          pool_tp1_GB=f"{by['pool_tp1'] / 1e9:.4f}")
+    phase(70, "tensor-parallel serving", seconds=f"{time.perf_counter() - t0:.1f}",
+          rank_seconds=",".join(f"{r['seconds']:.1f}" for r in res),
+          rank_setup_s=",".join(f"{r['setup_s']:.1f}" for r in res))
+    return r0
+
+
+def _model_cfg():
+    from repro_torch.configs import get_config
+    return get_config("zamba2-2.7b").with_(n_layers=ZAMBA2_LAYERS)
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to chip_smoke.py; "
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--tp-worker"]:      # one rank of phase 70 (b)
+        rank, world, init, out = sys.argv[2:6]
+        try:
+            return tp_worker(int(rank), int(world), init, out)
+        except SmokeFailure as e:
+            print(f"chip_smoke: rank {rank} FAILED: {e}", file=sys.stderr)
+            return 1
     sys.path.insert(0, str(SRC))
     import torch
     if not torch.cuda.is_available():
@@ -5812,7 +6355,8 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         gla = phase_gla(_gla_model("gla-2.7b"), extra=lambda p, c:
-                        phase_prefix_other(p, c, 60, dict(k1s=32)))
+                        phase_prefix_other(p, c, 60,
+                                           dict(k1s=GLA_LAYERS)))
         gla.update({arch: phase_gla_paged(arch, n)
                     for arch, n in (("retnet-2.7b", 26), ("hgrn2-2.7b", 27))})
         phase(30, "device memory before the dense family",
@@ -5864,8 +6408,10 @@ def main():
         phase(68, "training, phases 66-68",
               seconds=f"{time.perf_counter() - t_t:.1f}")
         phase_dist()
+        tp_kern = phase_tp_kernels()
+        tp_run = phase_tp_serve()
         kernels = kernels_line(errs, times, slot, paged, spec, ds, gla,
-                               dense, xlstm, pali)
+                               dense, xlstm, pali, tp_kern, tp_run)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5878,7 +6424,7 @@ def main():
 
 
 def kernels_line(errs, times, slot, paged, spec, ds, gla, dense, xlstm,
-                 pali):
+                 pali, tp_kern, tp_run):
     """One entry per kernel and mode (kernel 1: dense mode on the slot
     path, slab mode on the paged path, at zamba2's heads and again at the
     GLA family's; kernels 2, 3, 5 and 6: GQA mode on zamba2's paths, MLA
@@ -5889,7 +6435,11 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla, dense, xlstm,
     kernels 2 to 7 and the dense append at smollm-360m's, yi-34b's and
     dbrx-132b's widths, on their paths, and at paligemma-3b's, where its
     model-level run launches kernels 2 and 7 and the dense append and
-    kernels 3 to 6 none); ``launches`` counts
+    kernels 3 to 6 none; and the head-shard launches of tensor-parallel
+    serving at tp = 2, counted on phase 70's path in rank 0's process:
+    kernels 1, 2 and the dense append on its model-level decode, kernel 1
+    in slab mode, kernel 3 and the fused paged append on its paged
+    engine); ``launches`` counts
     each one's own main path (the verify kernels: the speculative path,
     where kernel 6, the dense-cache twin, has no launch; kernel 4: the
     fused quantize-and-append on the paged paths, the copy on none),
@@ -6024,6 +6574,28 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla, dense, xlstm,
                             replaces=q_tpu if counter == "k7" else su_tpu,
                             launches=xlstm[path]["n"][counter],
                             max_abs_err=errs[err], **times[key]))
+    out2, errs2, _ = tp_kern[2]
+    for key, counts, counter, source, replaces in (
+            ("su", "sr_counts", "k1", su_src, su_tpu),
+            ("su_slab", "engine_counts", "k1s", su_src, su_tpu),
+            ("k2", "sr_counts", "k2_gqa",
+             "src/repro_torch/csrc/mx_attention.cu",
+             "src/repro/kernels/mx_attention.py:98"),
+            ("k3", "engine_counts", "k3_gqa", pa_src,
+             "src/repro/kernels/mx_paged_attention.py:108"),
+            ("apd", "sr_counts", "apd", q_src, q_tpu),
+            ("apq", "engine_counts", "k4q", pa_src,
+             "src/repro/kernels/mx_paged_attention.py:199")):
+        name = {"su": "mx_state_update[tp2]",
+                "su_slab": "mx_state_update[slab,tp2]",
+                "k2": "mx_attention_decode[tp2]",
+                "k3": "mx_paged_attention_decode[tp2]",
+                "apd": "mx_kv_append_quant[tp2]",
+                "apq": "mx_paged_kv_append[quant,tp2]"}[key]
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces,
+                            launches=tp_run[counts].get(counter, 0),
+                            max_abs_err=errs2[key], **out2[key]))
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             check(math.isfinite(k[key]), f"{k['name']}: {key} not finite")

@@ -118,6 +118,37 @@ def sr_bits(shape, seed, offset: int = 0, device=None) -> torch.Tensor:
     return counter_hash_u32(idx, seed).reshape(tuple(shape))
 
 
+def sr_bits_at(shape, seed, row_base: int = 0, head_axis: int = 1,
+               head_base: int = 0, heads_total=None,
+               device=None) -> torch.Tensor:
+    """SR bits for a block of a larger array: ``shape`` is rows
+    ``row_base ..`` of its dim 0 and heads ``head_base ..`` of its dim
+    ``head_axis``, which holds ``heads_total`` heads in the whole array
+    (``None``: all of them).  Each element draws at its flat index in the
+    whole array, in uint32 arithmetic, so a data-parallel rank's rows and a
+    tensor-parallel rank's heads draw what the whole array's call draws
+    for them.  Bitwise :func:`sr_bits` at the row offset when the block
+    holds every head."""
+    shape = tuple(shape)
+    H = shape[head_axis]
+    Ht = H if heads_total is None else int(heads_total)
+    if head_base == 0 and Ht == H:
+        return sr_bits(shape, seed, int(row_base) * math.prod(shape[1:]),
+                       device)
+    if not 0 <= head_base <= Ht - H:
+        raise ValueError(f"heads {head_base} .. {head_base + H - 1} outside "
+                         f"the whole array's {Ht}")
+    lead = shape[0] * math.prod(shape[1:head_axis])
+    inner = math.prod(shape[head_axis + 1:])
+    a = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+    # flat index of (row, ..., head, ...) in the whole array: the leading
+    # dims as one counter from row_base, then the head, then the rest
+    outer = a(lead) + int(row_base) * math.prod(shape[1:head_axis])
+    idx = ((outer[:, None] * Ht + head_base + a(H)[None, :])[..., None]
+           * inner + a(inner)) & _U32
+    return counter_hash_u32(idx, seed).reshape(shape)
+
+
 def _u32_to_unit(bits: torch.Tensor) -> torch.Tensor:
     """uint32 -> uniform in [0, 1) (round-to-nearest u32 -> f32)."""
     return bits.to(torch.float32) * (2.0 ** -32)

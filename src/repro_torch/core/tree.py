@@ -46,8 +46,10 @@ def leaves(tree: Any) -> List[Any]:
 def unflatten(like: Any, new_leaves) -> Any:
     """A tree shaped as ``like`` holding ``new_leaves`` in
     :func:`leaves_with_paths` order.  A rebuilt ``QuantizedTensor`` whose
-    parts are tensors takes its leading (batch) dim from them: a rank's
-    rows of a quantized cache are a quantized cache of its rows."""
+    parts are tensors takes every dim but the last from them (the parts
+    of every format share those with the values): a rank's rows, or its
+    heads, of a quantized cache are a quantized cache of its rows or
+    heads."""
     it = iter(new_leaves)
 
     def build(t):
@@ -60,8 +62,8 @@ def unflatten(like: Any, new_leaves) -> Any:
             payload = {k: build(t.payload[k]) for k in sorted(t.payload)}
             part = next(iter(payload.values()))
             shape = tuple(t.shape)
-            if hasattr(part, "shape") and shape:
-                shape = (part.shape[0],) + shape[1:]
+            if hasattr(part, "shape") and len(part.shape) == len(shape):
+                shape = tuple(part.shape[:-1]) + shape[-1:]
             return F.QuantizedTensor(t.fmt, shape, payload)
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}

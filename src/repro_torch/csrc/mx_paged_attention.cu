@@ -32,9 +32,11 @@
 // thread owns one 16-value group, across (stream x B x KVH x w / 16): four
 // float4 loads, mx8_group.cuh's arithmetic (kernels 1 and 7's), one
 // 16-byte mantissa store into the slot, one exponent byte, one micro byte.
-// Stream i rounds with SR bits counter_hash_u32((b * KVH + h) * w + j,
-// seed + i): what sr_bits over (B, 1, KVH, w) gives, so the slots hold
-// byte for byte what the eager quantize followed by the copy wrote.  Bound
+// Stream i rounds with SR bits counter_hash_u32((b * KVH_tot + kvh_base +
+// h) * w + j, seed + i): what sr_bits over the layer's (B, 1, KVH_tot, w)
+// gives its heads kvh_base .. (a tensor-parallel rank's kv heads; 0 and
+// KVH for a whole layer), so the slots hold byte for byte what the eager
+// quantize followed by the copy wrote.  Bound
 // by launch latency too (B * KVH * (dk + dv) * (4 + 9/8) bytes).
 //
 // MLA mode (mx_paged_attention_decode_mla_launch; the TPU kernel's
@@ -150,7 +152,8 @@ mx_paged_kv_append_quant_kernel(AppendQuantArgs a, int n,
                                 const int* __restrict__ bt,
                                 const int* __restrict__ lengths, int B,
                                 int npg, int n_pages, int n_stack, int group,
-                                int KVH, int stochastic) {
+                                int KVH, uint32_t kvh_base,
+                                uint32_t kvh_total, int stochastic) {
   // groups are numbered stream after stream; g becomes the index within
   // the stream's (B, KVH, w / 16) groups (constant indices only, so the
   // arguments stay in the parameter space)
@@ -203,8 +206,12 @@ mx_paged_kv_append_quant_kernel(AppendQuantArgs a, int n,
   float t[kGroup], scale[kGroup / 2];
   uint32_t packed[4];
   int e, micro_bits;
-  mx8::quantize_group(v, (uint32_t)g * kGroup, seed, stochastic, t, packed,
-                      e, micro_bits, scale);
+  // the SR counter: the element's flat index among the layer's kv heads
+  const uint32_t flat0 =
+      (((uint32_t)b * kvh_total + kvh_base + (uint32_t)h) * (uint32_t)ng +
+       (uint32_t)j) * kGroup;
+  mx8::quantize_group(v, flat0, seed, stochastic, t, packed, e, micro_bits,
+                      scale);
   const size_t slot =
       (((size_t)page * n_stack + group) * kTile + len % kTile) * KVH + h;
   const size_t at = slot * ng + j;                 // the group's index
@@ -294,15 +301,19 @@ extern "C" int mx_paged_kv_append_launch(
 // xs: n device pointers to the streams' fp32 rows (B, KVH, w_i), 16-byte
 // aligned; pools: 3n device pointers, (mantissa, exponent, micro) of each
 // stream's MX8 page pool, the mantissas 16-byte aligned; widths: the n row
-// widths w_i (multiples of 16).  Stream i rounds with seed + i.  Pools are
+// widths w_i (multiples of 16).  Stream i rounds with seed + i, its SR
+// counter over the layer's kvh_total kv heads, of which the rows hold
+// kvh_base .. kvh_base + KVH - 1 (0 and KVH for a whole layer).  Pools are
 // updated in place.  Same return convention.
 extern "C" int mx_paged_kv_append_quant_launch(
     const unsigned long long* xs, const unsigned long long* pools,
     const int* widths, int n, const void* bt, const void* lengths, int B,
     int npg, int n_pages, int n_stack, int group, int KVH, unsigned int seed,
-    int stochastic, void* stream) {
+    unsigned int kvh_base, unsigned int kvh_total, int stochastic,
+    void* stream) {
   if (n <= 0 || n > kMaxStreams || B <= 0 || npg <= 0 || KVH <= 0 ||
-      n_pages <= 0 || n_stack <= 0 || group < 0 || group >= n_stack)
+      n_pages <= 0 || n_stack <= 0 || group < 0 || group >= n_stack ||
+      kvh_total < (unsigned int)KVH || kvh_base > kvh_total - KVH)
     return (int)cudaErrorInvalidValue;
   AppendQuantArgs a = {};
   long long total = 0;
@@ -323,6 +334,6 @@ extern "C" int mx_paged_kv_append_quant_launch(
   mx_paged_kv_append_quant_kernel<<<blocks, kQuantThreads, 0,
                                     (cudaStream_t)stream>>>(
       a, n, (const int*)bt, (const int*)lengths, B, npg, n_pages, n_stack,
-      group, KVH, stochastic);
+      group, KVH, kvh_base, kvh_total, stochastic);
   return (int)cudaGetLastError();
 }

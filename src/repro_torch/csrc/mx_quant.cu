@@ -43,10 +43,14 @@
 // in uint32 arithmetic over that stream's own flat index: the padded
 // output's for kernel 7 (what quantizing the F.pad copy draws), the new
 // rows' (B, n, KVH, w) for the append (what F.sr_bits(rows.shape, seed_i)
-// draws), offset by row_base rows: the append's row_base is the index in
-// the whole batch of its row 0 (a data-parallel rank's first row; 0
-// otherwise), so a rank's rows draw what the whole batch's append draws
-// for them.  For a group that index is base + group * 16 + j.
+// draws), counted in the whole batch's array: the append's row_base is
+// the index in the whole batch of its row 0 (a data-parallel rank's first
+// row; 0 otherwise) and its kvh_base the index among the layer's kvh_total
+// kv heads of its head 0 (a tensor-parallel rank's first kv head; 0 and
+// KVH otherwise), so a rank's rows and heads draw what the whole append
+// draws for them: element (b, j, h, c) of a stream of width w draws at
+// (((row_base + b) * n + j) * kvh_total + kvh_base + h) * w + c.  For a
+// group of kernel 7 that index is group * 16 + j.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -190,6 +194,8 @@ struct AppendArgs {
   uint8_t* micro[kMaxStreams];   // the same
   int row_groups[kMaxStreams];   // KVH * w_i / 16
   uint32_t seed[kMaxStreams];    // seed + i, mod 2^32
+  uint32_t base[kMaxStreams];    // kvh_base * w_i: the SR counter of head 0
+  uint32_t row_vals[kMaxStreams];  // kvh_total * w_i: values a whole row
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -226,8 +232,10 @@ mx_kv_append_quant_kernel(AppendArgs a, int n_streams,
   float q[kGroup], scale[kGroup / 2];
   uint32_t packed[4];
   int e, mic;
-  const uint32_t flat0 = row_base * (uint32_t)(n * rg * kGroup) +
-                        (uint32_t)g * kGroup;
+  const uint32_t flat0 =
+      (row_base * (uint32_t)n + (uint32_t)r) *
+          (second ? a.row_vals[1] : a.row_vals[0]) +
+      (second ? a.base[1] : a.base[0]) + (uint32_t)c * kGroup;
   mx8::quantize_group(v, flat0, second ? a.seed[1] : a.seed[0], stochastic,
                       q, packed, e, mic, scale);
   const size_t at = ((size_t)b * T + start + j) * rg + c;   // the group
@@ -282,21 +290,29 @@ extern "C" int mx_quant_launch(const void* x, void* mant, void* expo,
 // 16-byte aligned; caches: 3n device pointers, (mantissa, exponent, micro)
 // of each stream's dense MX8 cache (B, T, KVH * w_i), the mantissas 16-byte
 // aligned; row_groups: the n values KVH * w_i / 16; lengths: (B,) int32 on
-// the device.  Stream i rounds with seed + i, its SR counter starting at
-// row row_base of the whole batch.  The caches are updated in place.  Same
-// return convention.
+// the device.  Stream i rounds with seed + i, its SR counter counted in
+// the whole batch's array: rows from row row_base, the KVH kv heads from
+// head kvh_base of kvh_total (see above).  The caches are updated in
+// place.  Same return convention.
 extern "C" int mx_kv_append_quant_launch(
     const unsigned long long* xs, const unsigned long long* caches,
     const int* row_groups, int n, const void* lengths, int B, int n_tok,
-    int T, unsigned int seed, unsigned int row_base, int stochastic,
+    int T, unsigned int seed, unsigned int row_base, int KVH,
+    unsigned int kvh_base, unsigned int kvh_total, int stochastic,
     void* stream) {
-  if (n <= 0 || n > kMaxStreams || B <= 0 || n_tok <= 0 || T < n_tok)
+  if (n <= 0 || n > kMaxStreams || B <= 0 || n_tok <= 0 || T < n_tok ||
+      KVH <= 0 || kvh_total < (unsigned int)KVH ||
+      kvh_base > kvh_total - KVH)
     return (int)cudaErrorInvalidValue;
   AppendArgs a = {};
   long long total = 0;
   for (int i = 0; i < n; ++i) {
-    if (row_groups[i] <= 0 || xs[i] % 16 || caches[3 * i] % 16)
+    if (row_groups[i] <= 0 || (row_groups[i] * kGroup) % KVH ||
+        xs[i] % 16 || caches[3 * i] % 16)
       return (int)cudaErrorInvalidValue;
+    const uint32_t w = (uint32_t)(row_groups[i] * kGroup / KVH);
+    a.base[i] = kvh_base * w;
+    a.row_vals[i] = kvh_total * w;
     a.x[i] = (const float*)xs[i];
     a.mant[i] = (int8_t*)caches[3 * i];
     a.expo[i] = (uint8_t*)caches[3 * i + 1];

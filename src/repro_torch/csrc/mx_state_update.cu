@@ -39,10 +39,12 @@
 //   * Sn = fma(S, d, round(v * k)) with explicit intrinsics, the contraction
 //     XLA:CPU applies to the jitted reference;
 //   * SR bits come from the same counter hash over the global flat index
-//     (((row_base + b)*H + h)*dv + row)*dk + col, in uint32 arithmetic:
-//     row_base is the index in the whole batch of this call's row 0 (a
-//     data-parallel rank's first row; 0 otherwise), so a rank's rows draw
-//     what the whole batch's call draws for them.
+//     (((row_base + b)*H_tot + head_base + h)*dv + row)*dk + col, in
+//     uint32 arithmetic: row_base is the index in the whole batch of this
+//     call's row 0 (a data-parallel rank's first row; 0 otherwise), and
+//     head_base the index among the layer's H_tot heads of this call's
+//     head 0 (a tensor-parallel rank's first head; 0 and H otherwise), so
+//     a rank's rows and heads draw what the whole call draws for them.
 //
 // Slab mode (the paged serving pool): the state rows live in a slab pool
 // (n_slabs, n_stack, H, dv, dk) and row b of the batch owns slab slab[b] at
@@ -92,7 +94,7 @@ mx_state_update_kernel(int8_t* __restrict__ mant, uint8_t* __restrict__ expo,
                        float* __restrict__ y,
                        const int* __restrict__ slab, int H, int n_stack,
                        int group, int dv, int dk, uint32_t seed,
-                       uint32_t flat_base, int slots) {
+                       uint32_t flat_base, uint32_t row_stride, int slots) {
   extern __shared__ __align__(16) float smem[];
   MX_SU_STAMP(0);
   // block (ngroups, slots) threads, grid (H, B, row blocks): no division
@@ -112,6 +114,9 @@ mx_state_update_kernel(int8_t* __restrict__ mant, uint8_t* __restrict__ expo,
   const size_t sbh = slab == nullptr
                          ? (size_t)bh
                          : ((size_t)slab[b] * n_stack + group) * H + h;
+  // the SR counter of (b, h, row 0, col 0) in the whole state
+  const uint32_t sr_head = flat_base + (uint32_t)b * row_stride +
+                           (uint32_t)h * (uint32_t)dv * (uint32_t)dk;
 
   // the head's operands, once per block, with 16-byte loads
   {
@@ -156,7 +161,7 @@ mx_state_update_kernel(int8_t* __restrict__ mant, uint8_t* __restrict__ expo,
     partial[i] = 0.f;
     const int row = row0 + i * slots;
     if (row >= dv) continue;
-    const size_t rowid = (size_t)bh * dv + row;       // operands, SR counter
+    const size_t rowid = (size_t)bh * dv + row;       // operands
     const size_t srow = sbh * dv + row;               // state storage
     const size_t gid = srow * ngroups + grp;
 
@@ -184,7 +189,7 @@ mx_state_update_kernel(int8_t* __restrict__ mant, uint8_t* __restrict__ expo,
     float t[kGroup], scale[kGroup / 2];
     uint32_t packed[4];
     int e, mic;
-    mx8::quantize_group(sn, flat_base + (uint32_t)rowid * (uint32_t)dk +
+    mx8::quantize_group(sn, sr_head + (uint32_t)row * (uint32_t)dk +
                                 (uint32_t)col0,
                         seed, kStochastic, t, packed, e, mic, scale);
     *reinterpret_cast<int4*>(mant + srow * dk + col0) =
@@ -315,7 +320,8 @@ int launch_shape(void* mant, void* expo, void* micro, const void* d,
                  const void* k, const void* v, const void* q, void* y,
                  const void* slab, int BH, int H, int n_stack, int group,
                  int dv, int dk, int d_per_channel, unsigned int seed,
-                 unsigned int row_base, int stochastic, void* stream,
+                 unsigned int row_base, unsigned int head_base,
+                 unsigned int heads_total, int stochastic, void* stream,
                  int rows, int slots) {
   const int ngroups = dk / kGroup;
   if (slots <= 0 || slots * ngroups > kMaxThreads ||
@@ -330,7 +336,9 @@ int launch_shape(void* mant, void* expo, void* micro, const void* d,
       (int8_t*)mant, (uint8_t*)expo, (uint8_t*)micro, (const float*)d,
       (const float*)k, (const float*)v, (const float*)q, (float*)y,
       (const int*)slab, H, n_stack, group, dv, dk, (uint32_t)seed,
-      (uint32_t)row_base * (uint32_t)H * (uint32_t)dv * (uint32_t)dk, slots);
+      ((uint32_t)row_base * heads_total + head_base) * (uint32_t)dv *
+          (uint32_t)dk,
+      heads_total * (uint32_t)dv * (uint32_t)dk, slots);
   return (int)cudaGetLastError();
 }
 
@@ -341,17 +349,21 @@ int launch_shape(void* mant, void* expo, void* micro, const void* d,
 // contiguous; k, q and a per-channel d 16-byte aligned.  slab is NULL
 // (dense state (BH, dv, dk)) or (BH / H,) int32 slab ids into a (n_slabs,
 // n_stack, H, dv, dk) pool at layer `group`.  row_base: the index in the
-// whole batch of row 0 (the SR counter's, see above).  Returns
-// cudaGetLastError() after the launch.
+// whole batch of row 0; head_base, heads_total: the index of head 0 among
+// the layer's heads_total heads (0 and H for a whole layer) -- the SR
+// counter's, see above.  Returns cudaGetLastError() after the launch.
 extern "C" int mx_state_update_launch(void* mant, void* expo, void* micro,
                                       const void* d, const void* k,
                                       const void* v, const void* q, void* y,
                                       const void* slab, int BH, int H,
                                       int n_stack, int group, int dv, int dk,
                                       int d_per_channel, unsigned int seed,
-                                      unsigned int row_base, int stochastic,
-                                      void* stream) {
+                                      unsigned int row_base,
+                                      unsigned int head_base,
+                                      unsigned int heads_total,
+                                      int stochastic, void* stream) {
   if (BH <= 0 || H <= 0 || BH % H != 0 || dv <= 0 || dk <= 0 ||
+      heads_total < (unsigned int)H || head_base > heads_total - H ||
       dk % kGroup != 0 || dk / kGroup > kMaxThreads || n_stack <= 0 ||
       group < 0 || group >= n_stack)
     return (int)cudaErrorInvalidValue;
@@ -359,5 +371,6 @@ extern "C" int mx_state_update_launch(void* mant, void* expo, void* micro,
   pick_shape(BH, dv, dk, d_per_channel, stochastic, &rows, &slots);
   return launch_shape(mant, expo, micro, d, k, v, q, y, slab, BH, H, n_stack,
                       group, dv, dk, d_per_channel, seed, row_base,
-                      stochastic, stream, rows, slots);
+                      head_base, heads_total, stochastic, stream, rows,
+                      slots);
 }

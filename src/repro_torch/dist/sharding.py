@@ -17,8 +17,12 @@ tree a step touches, rule for rule the JAX package's:
   located by probing the port's ``init_decode_caches`` on the ``meta``
   device at two batch sizes and two capacities, never guessed.
 * :func:`serving_cache_shardings` -- the port's own layout for the caches
-  its serving steps keep: the batch entries of :func:`cache_shardings`
-  alone (compute over the model axis is replicated here).
+  its serving steps keep: the batch entries of :func:`cache_shardings`,
+  and the model axis on the heads of the caches the tensor-parallel step
+  splits.
+* :func:`serving_param_shardings` -- the port's own layout for the
+  parameters of its serving steps: :func:`tp_params`' cuts on the model
+  axis.
 * :func:`replicated`          -- the trivial layout.
 
 Rules shard only a dim that divides evenly; anything else replicates.  The
@@ -32,14 +36,23 @@ so it runs a layout eagerly.  At rest every leaf is a ``DTensor`` in its
 layout.  In a step each rank gathers what it computes with
 (:func:`gather`, :func:`gather_params`: every mesh axis, except the rows
 of the data axes and the expert banks' model shards), runs the port's
-single-device code on its own rows, and puts the results back into their
-layouts (:func:`place`; gradients: :func:`reduce_grads`, which sums them
-over the data axes).  Compute over the model axis is replicated, except
-the MoE expert banks, which compute where they live
-(``models/layers.py::apply_moe``).  Kernels see the local tensors, never
-a ``DTensor``.  Per-op tensor parallelism (Megatron's column / row
-products, JAX's ``shard_heads`` / ``_seq_shard``) is not ported: it
-changes where work runs, not what a step computes.
+code on its own rows, and puts the results back into their layouts
+(:func:`place`; gradients: :func:`reduce_grads`, which sums them over the
+data axes).  Kernels see the local tensors, never a ``DTensor``.
+
+Serving splits the model axis by heads (tensor parallelism, Megatron's
+column / row products): :func:`tp_params` cuts a rank's columns of the
+GQA, Mamba-2 and dense-FFN input projections and the matching rows of
+their output projections (:func:`serving_param_shardings` is that cut as
+a layout), the step sums each row-parallel product over the model axis
+(``dist/tp.py::tp_sum``, its one collective), and each rank keeps its
+heads' caches (:func:`serving_cache_shardings`).  The serving engines
+take a ``par`` of a model axis alone; :func:`sharded_prefill` /
+:func:`sharded_decode_step` run the same step on data rows too.
+Training replicates compute over the model axis, except the MoE expert
+banks, which compute where they live (``models/layers.py::apply_moe``);
+tensor-parallel training (the row-parallel sum's backward, JAX's
+``_seq_shard``) is not ported.
 """
 from __future__ import annotations
 
@@ -53,6 +66,7 @@ from repro_torch.core import attention_cache as AC
 from repro_torch.core import tree as T
 from repro_torch.dist.compat import (DTensor, Partial, Replicate, Shard,
                                      distribute_tensor)
+from repro_torch.dist.tp import expert_parallel
 
 
 class Spec(tuple):
@@ -81,6 +95,10 @@ class AbstractMesh:
 
     shape: Tuple[int, ...]
     mesh_dim_names: Tuple[str, ...]
+
+    def get_coordinate(self) -> Tuple[int, ...]:
+        """Rank 0's coordinate: what a layout probe computes for."""
+        return (0,) * len(self.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,9 +196,90 @@ class Parallel:
         """The process group of ``axis`` through this rank."""
         return self.mesh.get_group(axis)
 
+    @property
+    def model_index(self) -> int:
+        """This rank's place on the model axis."""
+        return self.coordinate(self.model_axis)
+
+    @property
+    def model_group(self):
+        """The process group of the model axis through this rank."""
+        return self.group(self.model_axis)
+
 
 def replicated(par: Parallel) -> Layout:
     return par.named(())
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: heads and FFN columns over the model axis
+# ---------------------------------------------------------------------------
+
+def tp_params(params: Any, cfg, par: Optional[Parallel]) -> Any:
+    """A rank's parameters for the tensor-parallel serving step, cut from
+    the whole tensors (the same on every rank: seeded, restored, or
+    ``models/convert.py::params_from_jax``'s), Megatron's layout.  Each
+    mixer cuts its own weights (``models/attention.py::tp_shard`` for GQA
+    attention, pattern layers and the shared block alike;
+    ``models/ssm.py::TP_SHARDS`` for Mamba-2;
+    ``models/layers.py::ffn_tp_shard`` for the dense FFNs' columns and an
+    MoE's experts); this walks the tree.
+
+    Everything else stays whole on every rank: embeddings, LM head, the
+    norms over ``d``, MLA, the GLA family, mLSTM and sLSTM.  The cut
+    leaves are copies, so dropping the whole tree frees it.  This serving
+    layout is the port's own: JAX's engines keep the weights as given and
+    let GSPMD place the products from ``shard_heads``; the port, with no
+    partitioner, cuts the weights once and runs each rank's shard."""
+    if par is None or par.tp == 1:
+        return params
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SSM
+
+    def element(p, kind):
+        out = dict(p)
+        if kind == "attn":
+            out["mixer"] = ATT.tp_shard(p["mixer"], cfg, par)
+        elif kind in SSM.TP_SHARDS:
+            out["mixer"] = SSM.TP_SHARDS[kind](p["mixer"], cfg, par)
+        if "ffn" in p:
+            out["ffn"] = L.ffn_tp_shard(p["ffn"], cfg, par)
+        return out
+
+    out = dict(params)
+    if "prelude" in params:
+        out["prelude"] = [element(p, k)
+                          for p, k in zip(params["prelude"], cfg.prelude)]
+    out["groups"] = [[element(p, k) for p, k in zip(g, cfg.pattern)]
+                     for g in params["groups"]]
+    if "shared" in params:
+        sh = params["shared"]
+        out["shared"] = {**sh, "attn": ATT.tp_shard(sh["attn"], cfg, par),
+                         "ffn": L.ffn_tp_shard(sh["ffn"], cfg, par)}
+    return out
+
+
+def serving_param_shardings(params: Any, cfg, par: Parallel) -> Any:
+    """The layout the port's serving steps keep parameters in: the model
+    axis on the dim :func:`tp_params` cuts (each of its cuts is one of tp
+    equal, contiguous parts, in rank order: a ``Shard``), replicated over
+    the data axes.  A rank then holds its :func:`tp_params` at rest, and
+    :func:`sharded_prefill` / :func:`sharded_decode_step` move no weight.
+    The cut dims are located exactly, by cutting a ``meta`` copy of
+    ``params`` (tensors of any device, ``DTensor`` s included)."""
+    whole = T.leaves(params)
+    part = T.leaves(tp_params(T.tree_map(lambda t: torch.empty(
+        t.shape, dtype=t.dtype, device="meta"), params), cfg, par))
+    out = []
+    for a, b in zip(whole, part):
+        dims: list = [None] * len(a.shape)
+        cut = next((i for i, (x, y) in enumerate(zip(a.shape, b.shape))
+                    if x != y), None)
+        if cut is not None:
+            dims[cut] = par.model_axis
+        out.append(par.named(dims))
+    return T.unflatten(params, out)
 
 
 # ---------------------------------------------------------------------------
@@ -199,12 +298,6 @@ def is_expert_bank(path, shape, cfg) -> bool:
     return (getattr(cfg, "moe", None) is not None and bool(names)
             and names[-1] in ("wi", "wg", "wo") and "ffn" in names
             and len(shape) == 3)
-
-
-def expert_parallel(cfg, par: Optional[Parallel]) -> bool:
-    """Whether ``apply_moe`` runs expert-parallel over the model axis."""
-    return (par is not None and getattr(cfg, "moe", None) is not None
-            and par.tp > 1 and cfg.moe.n_experts % par.tp == 0)
 
 
 def param_shardings(params: Any, cfg, par: Parallel) -> Any:
@@ -332,20 +425,44 @@ def cache_shardings(cache_shapes: Any, cfg, par: Parallel,
     return T.unflatten(cache_shapes, out)
 
 
+@functools.lru_cache(maxsize=32)
+def _probe_head_axes(cfg, tp: int) -> tuple:
+    """The dim of every decode-cache leaf that the tensor-parallel step
+    splits over a model axis of ``tp`` ranks (None: whole on every rank),
+    located exactly: the dim where a rank's cache skeleton
+    (``init_decode_caches(..., par=)`` on ``meta``) is smaller than the
+    whole one's."""
+    from repro_torch.models import model as M
+    probe = Parallel(AbstractMesh((tp,), ("model",)), data_axes=())
+    whole = T.leaves(M.init_decode_caches(cfg, 2, 128, device="meta"))
+    part = T.leaves(M.init_decode_caches(cfg, 2, 128, device="meta",
+                                         par=probe))
+    return tuple(next((i for i, (x, y) in enumerate(zip(a.shape, b.shape))
+                       if x != y), None) for a, b in zip(whole, part))
+
+
 def serving_cache_shardings(cache_shapes: Any, cfg, par: Parallel,
                             global_batch: int) -> Any:
-    """The layout the port's serving steps keep decode caches in: JAX's
-    (:func:`cache_shardings`) with only its batch entries kept.  The port
-    replicates compute over the model axis, so every model rank reads its
-    rows' whole cache each step; in JAX's layout (time or heads over the
-    model axis) a step would all-gather every cache and slice it back.
-    The price is memory: a cache takes ``tp`` times the bytes a chip
-    would hold in JAX's layout (per-op tensor parallelism would shard it
-    by heads)."""
+    """The layout the port's serving steps keep decode caches in: the
+    batch entries of JAX's (:func:`cache_shardings`), plus the model axis
+    on the head dim of every cache the tensor-parallel step splits (a GQA
+    layer's K and V where tp divides its kv heads, a Mamba-2 layer's state
+    and conv tail where tp divides its heads: :func:`tp_params`).  A rank
+    then holds its rows of its heads' caches, what its step reads and
+    writes, and a decode step gathers no cache.  The caches of the mixers
+    that replicate over the model axis (MLA, the GLA family, xLSTM) keep
+    only their batch entries, where JAX's layout shards their time or
+    heads."""
     batch = par.batch_axes
-    return T.tree_map(
-        lambda l: par.named(tuple(e if e == batch else None for e in l.spec)),
-        cache_shardings(cache_shapes, cfg, par, global_batch))
+    heads = _probe_head_axes(cfg, par.tp) if par.tp > 1 else None
+    out = []
+    for i, l in enumerate(T.leaves(cache_shardings(cache_shapes, cfg, par,
+                                                   global_batch))):
+        dims = [e if e == batch else None for e in l.spec]
+        if heads is not None and heads[i] is not None:
+            dims[heads[i]] = par.model_axis
+        out.append(par.named(dims))
+    return T.unflatten(cache_shapes, out)
 
 
 def logits_sharding(shape, par: Parallel, global_batch: int) -> Layout:
@@ -499,15 +616,47 @@ def like(local: Any, dtensors: Any) -> Any:
 # sharded serving steps
 # ---------------------------------------------------------------------------
 
+def _local(x, layout):
+    """A ``DTensor`` leaf moved into ``layout``, as the local tensor; other
+    leaves pass through."""
+    if not isinstance(x, DTensor):
+        return x
+    pl = layout.placements
+    if tuple(x.placements) != pl:
+        x = x.redistribute(x.device_mesh, pl)
+    return x.to_local()
+
+
+def _adopt(t: torch.Tensor, layout, like=None):
+    """A rank's local tensor ``t`` in ``layout``, as a ``DTensor``; moved
+    on into ``like``'s layout where a ``DTensor`` ``like`` is given."""
+    d = DTensor.from_local(t, layout.mesh, layout.placements,
+                           run_check=False)
+    if like is not None and tuple(like.placements) != layout.placements:
+        d = d.redistribute(like.device_mesh, tuple(like.placements))
+    return d
+
+
+def _serving_params(params: Any, cfg, par: Parallel) -> Any:
+    """What a rank's serving step computes with: the local shards of
+    ``params`` (DTensors) in :func:`serving_param_shardings`, its
+    :func:`tp_params`.  A tree at rest in that layout moves nothing; a
+    leaf in another layout (the training one, say) is moved into it."""
+    return T.tree_map(_local, params,
+                      serving_param_shardings(params, cfg, par))
+
+
 def sharded_prefill(params: Any, cfg, batch: Any, par: Parallel):
     """``M.prefill`` with parameters and batch in their layouts (DTensor
-    trees): each rank runs its rows.  Returns (last-position logits, caches)
-    in their layouts (:func:`logits_sharding`,
-    :func:`serving_cache_shardings`); an encoder's caches are None."""
+    trees; the parameters best at rest in :func:`serving_param_shardings`):
+    each rank runs its rows of the tensor-parallel step on its
+    :func:`tp_params`.  Returns (last-position logits, caches) in their
+    layouts (:func:`logits_sharding`, :func:`serving_cache_shardings`);
+    an encoder's caches are None."""
     from repro_torch.models import model as M
     keep = par.batch_axes
     local_b = gather(batch, keep)
-    logits, caches = M.prefill(gather_params(params, cfg, par), cfg,
+    logits, caches = M.prefill(_serving_params(params, cfg, par), cfg,
                                local_b, par=par)
     B = next(iter(T.leaves(batch))).shape[0]
     logits = place(logits, logits_sharding(
@@ -517,8 +666,8 @@ def sharded_prefill(params: Any, cfg, batch: Any, par: Parallel):
     cap = next((c.max_len for c in M.iter_kv_caches(caches)),
                AC.PAGE_TOKENS)
     skel = M.init_decode_caches(cfg, B, cap, device="meta")
-    return logits, place(caches, serving_cache_shardings(skel, cfg, par, B),
-                         keep)
+    return logits, T.tree_map(_adopt, caches,
+                              serving_cache_shardings(skel, cfg, par, B))
 
 
 def _row_base(x) -> int:
@@ -543,21 +692,25 @@ def _row_base(x) -> int:
 def sharded_decode_step(params: Any, cfg, tokens, caches: Any, lengths,
                         par: Parallel, seed: int = 0):
     """``M.decode_step`` with parameters, tokens, lengths and caches in
-    their layouts: each rank decodes its rows against its rows' caches
-    (gathered over the model axis unless they are in
-    :func:`serving_cache_shardings`, as :func:`sharded_prefill` leaves
-    them).  Stochastic rounding counts from the rank's first row of the
-    whole batch (``ops.sr_rows_from``), so each element draws what the
-    single-device step draws for it.  Returns (logits, new caches) in
-    their layouts; the caches keep the layouts they came in."""
+    their layouts: each rank decodes its rows through the tensor-parallel
+    step (its :func:`tp_params`, as :func:`sharded_prefill` takes them)
+    against its rows' caches of its heads
+    (moved into :func:`serving_cache_shardings` unless they are in it, as
+    :func:`sharded_prefill` leaves them).  Stochastic rounding counts from
+    the rank's first row of the whole batch (``ops.sr_rows_from``) and,
+    per layer, from its first head (``ops.sr_heads_from``), so each element
+    draws what the single-device step draws for it.  Returns (logits, new
+    caches) in their layouts; the caches keep the layouts they came in."""
     from repro_torch import ops as OPS
     from repro_torch.models import model as M
     keep = par.batch_axes
+    B = tokens.shape[0]
+    target = serving_cache_shardings(caches, cfg, par, B)
     with OPS.sr_rows_from(_row_base(tokens)):
         logits, new = M.decode_step(
-            gather_params(params, cfg, par), cfg, gather(tokens, keep),
-            gather(caches, keep), gather(lengths, keep), seed, par=par)
-    B = tokens.shape[0]
+            _serving_params(params, cfg, par), cfg, gather(tokens, keep),
+            T.tree_map(_local, caches, target), gather(lengths, keep),
+            seed, par=par)
     logits = place(logits, logits_sharding(
         (B,) + tuple(logits.shape[1:]), par, B), keep)
-    return logits, place(new, caches, keep)
+    return logits, T.tree_map(_adopt, new, target, caches)

@@ -59,9 +59,8 @@ _MLA_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 _APPEND_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
     ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_APPEND_QUANT_ARGTYPES = _APPEND_ARGTYPES[:-1] + [ctypes.c_uint32,
-                                                  ctypes.c_int,
-                                                  ctypes.c_void_p]
+_APPEND_QUANT_ARGTYPES = _APPEND_ARGTYPES[:-1] + [ctypes.c_uint32] * 3 + [
+    ctypes.c_int, ctypes.c_void_p]
 
 
 def _check_pool(qt: F.QuantizedTensor, name: str) -> tuple:
@@ -248,10 +247,14 @@ def mx_paged_kv_append_quant(streams: Sequence[torch.Tensor],
                              pools: Sequence[F.QuantizedTensor],
                              bt: torch.Tensor, group: int,
                              lengths: torch.Tensor, seed: int = 0, *,
-                             rounding: str = "stochastic"
+                             rounding: str = "stochastic",
+                             head_base: int = 0,
+                             heads_total: Optional[int] = None
                              ) -> Sequence[F.QuantizedTensor]:
     """Quantize each new token's fp32 row ``streams[i] (B, 1, KVH, w)`` to
-    MX8 (SR seed ``seed + i``) into its page slot
+    MX8 (SR seed ``seed + i``, the counter over the layer's ``heads_total``
+    kv heads, of which the rows hold ``head_base ..``: a tensor-parallel
+    rank's shard) into its page slot
     ``pools[i][bt[b, len//128], group, len%128]`` of the MX8 page pool
     ``(P, n_stack, 128, KVH, w)``, in place; returns the pools.  K and V
     are two streams, an MLA latent one.  A slot outside its block table is
@@ -287,9 +290,13 @@ def mx_paged_kv_append_quant(streams: Sequence[torch.Tensor],
         raise ValueError(f"lengths {tuple(lengths.shape)} do not fit batch "
                          f"{B}")
     seed = int(seed) & 0xFFFFFFFF
+    heads_total = KVH if heads_total is None else int(heads_total)
+    if not 0 <= head_base <= heads_total - KVH:
+        raise ValueError(f"kv heads {head_base} .. {head_base + KVH - 1} "
+                         f"outside the layer's {heads_total}")
     if dev.type == "cpu":
         return plain_append_quant(streams, pools, bt, group, lengths, seed,
-                                  rounding)
+                                  rounding, head_base, heads_total)
     if dev.type != "cuda":
         raise ValueError(f"mx_paged_kv_append_quant: unsupported device "
                          f"{dev}")
@@ -309,7 +316,7 @@ def mx_paged_kv_append_quant(streams: Sequence[torch.Tensor],
                       _APPEND_QUANT_ARGTYPES)
     err = fn(xptrs, pptrs, widths, n, bt_.data_ptr(), lens.data_ptr(), B,
              int(bt_.shape[1]), P, n_stack, int(group), KVH, seed,
-             int(rounding == "stochastic"),
+             int(head_base), heads_total, int(rounding == "stochastic"),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mx_paged_kv_append_quant")
     if n == 1:

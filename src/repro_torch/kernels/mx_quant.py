@@ -54,6 +54,7 @@ _STREAMS_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [
     ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
 _APPEND_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] \
     + [ctypes.c_int] * 3 + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+                            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
                             ctypes.c_void_p]
 
 _U32 = 0xFFFFFFFF
@@ -164,12 +165,14 @@ mx_quantize.launches = 0
 def mx_kv_append_quant(streams: Sequence[torch.Tensor],
                        caches: Sequence[F.QuantizedTensor],
                        lengths: torch.Tensor, seed: int = 0, *,
-                       rounding: str = "stochastic", row_base: int = 0
+                       rounding: str = "stochastic", row_base: int = 0,
+                       head_base: int = 0, heads_total: Optional[int] = None
                        ) -> Sequence[F.QuantizedTensor]:
     """Quantize the new fp32 rows ``streams[i] (B, n, KVH, w_i)`` to MX8
-    (SR bits ``sr_bits((B, n, KVH, w_i), seed + i)``, counted from row
-    ``row_base`` of the whole batch: a data-parallel rank's first row)
-    into the dense MX8 cache ``caches[i] (B, T, KVH, w_i)`` at tokens
+    (SR bits ``sr_bits((B, n, KVH, w_i), seed + i)``, counted in the whole
+    batch's array: from row ``row_base``, a data-parallel rank's first row,
+    and kv head ``head_base`` of ``heads_total``, a tensor-parallel rank's
+    first) into the dense MX8 cache ``caches[i] (B, T, KVH, w_i)`` at tokens
     ``clamp(lengths[b], 0, T - n) + j``, in place; returns the caches.  K
     and V are two streams, an MLA latent one."""
     streams = _check_streams(streams, "mx_kv_append_quant")
@@ -192,7 +195,11 @@ def mx_kv_append_quant(streams: Sequence[torch.Tensor],
                              f"{c.device} (want ({first[0]}, n, "
                              f"{first[2]}, {w}) on {dev}, one n and one "
                              "cache length for all streams)")
-    B, T, _, n = first
+    B, T, KVH, n = first
+    heads_total = KVH if heads_total is None else int(heads_total)
+    if not 0 <= head_base <= heads_total - KVH:
+        raise ValueError(f"kv heads {head_base} .. {head_base + KVH - 1} "
+                         f"outside the layer's {heads_total}")
     if not 1 <= n <= T:
         raise ValueError(f"{n} new rows a slot for a cache of {T}")
     if tuple(lengths.shape) != (B,) or lengths.device != dev:
@@ -201,7 +208,7 @@ def mx_kv_append_quant(streams: Sequence[torch.Tensor],
     seed = int(seed) & _U32
     if dev.type == "cpu":
         return plain_append(streams, caches, lengths, seed, rounding,
-                            row_base)
+                            row_base, head_base, heads_total)
     if dev.type != "cuda":
         raise ValueError(f"mx_kv_append_quant: unsupported device {dev}")
     xs = [_aligned(x) for x in streams]
@@ -214,8 +221,8 @@ def mx_kv_append_quant(streams: Sequence[torch.Tensor],
              (ctypes.c_ulonglong * (3 * k))(*ptrs),
              (ctypes.c_int * k)(*[x.shape[2] * x.shape[3] // F.MX8_GROUP
                                   for x in xs]),
-             k, lens.data_ptr(), B, n, T, seed, int(row_base) & _U32,
-             int(rounding == "stochastic"),
+             k, lens.data_ptr(), B, n, T, seed, int(row_base) & _U32, KVH,
+             int(head_base), heads_total, int(rounding == "stochastic"),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mx_kv_append_quant")
     if k == 1:

@@ -36,7 +36,7 @@ plain = _ref.quantized_state_update_stored_ref
 plain_slab = _ref.state_update_slab_ref
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_uint32] * 4 + [ctypes.c_int, ctypes.c_void_p]
 
 
 def _operand(x: torch.Tensor, shape, name: str,
@@ -72,7 +72,8 @@ def mx_state_update(qS: F.QuantizedTensor, d: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor, q: torch.Tensor, seed: int = 0, *,
                     rounding: str = "stochastic",
                     slabs: Optional[torch.Tensor] = None, group: int = 0,
-                    row_base: int = 0
+                    row_base: int = 0, head_base: int = 0,
+                    heads_total: Optional[int] = None
                     ) -> Tuple[F.QuantizedTensor, torch.Tensor]:
     """Fused quantized state update.
 
@@ -81,8 +82,11 @@ def mx_state_update(qS: F.QuantizedTensor, d: torch.Tensor, k: torch.Tensor,
     whose rows ``qS[slabs, group]`` are updated; d: ``(B, H, dk)`` or
     ``(B, H, 1)``; k, q: ``(B, H, dk)``; v: ``(B, H, dv)``; seed: uint32 SR
     seed; row_base: the index in the whole batch of row 0, where the SR
-    counter starts (a data-parallel rank's first row).  Returns ``(state,
-    y)`` with y ``(B, H, dv)`` float32.
+    counter starts (a data-parallel rank's first row); head_base,
+    heads_total: the index of head 0 among the layer's ``heads_total``
+    heads (a tensor-parallel rank's shard; 0 and ``H`` by default), so the
+    counter runs over the whole layer's state.  Returns ``(state, y)`` with
+    y ``(B, H, dv)`` float32.
     """
     if qS.fmt != "mx8":
         raise ValueError(f"mx_state_update takes mx8 state, got {qS.fmt}")
@@ -93,9 +97,11 @@ def mx_state_update(qS: F.QuantizedTensor, d: torch.Tensor, k: torch.Tensor,
     if dev.type == "cpu":
         if slabs is not None:
             return plain_slab(qS, slabs, group, d, k, v, q,
-                              rounding=rounding, seed=seed, row_base=row_base)
+                              rounding=rounding, seed=seed, row_base=row_base,
+                              head_base=head_base, heads_total=heads_total)
         return plain(qS, d, k, v, q, rounding=rounding, seed=seed,
-                     row_base=row_base)
+                     row_base=row_base, head_base=head_base,
+                     heads_total=heads_total)
     if dev.type != "cuda":
         raise ValueError(f"mx_state_update: unsupported device {dev}")
     if slabs is None:
@@ -109,6 +115,10 @@ def mx_state_update(qS: F.QuantizedTensor, d: torch.Tensor, k: torch.Tensor,
         B = slabs.shape[0]
         if not 0 <= group < n_stack:
             raise ValueError(f"group {group} outside the pool's {n_stack}")
+    heads_total = H if heads_total is None else int(heads_total)
+    if not 0 <= head_base <= heads_total - H:
+        raise ValueError(f"heads {head_base} .. {head_base + H - 1} outside "
+                         f"the layer's {heads_total}")
     if dk % F.MX8_GROUP or dk // F.MX8_GROUP > 256:
         raise ValueError(f"dk={dk} must be a multiple of 16, at most 4096")
     _check_payload(qS)
@@ -132,7 +142,8 @@ def mx_state_update(qS: F.QuantizedTensor, d: torch.Tensor, k: torch.Tensor,
              v_.data_ptr(), q_.data_ptr(), y.data_ptr(),
              None if slab_ is None else slab_.data_ptr(), B * H, H, n_stack,
              int(group), dv, dk, int(d.shape[-1] == dk), seed,
-             int(row_base) & 0xFFFFFFFF, int(rounding == "stochastic"),
+             int(row_base) & 0xFFFFFFFF, int(head_base), heads_total,
+             int(rounding == "stochastic"),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mx_state_update")
     if slabs is None:

@@ -29,23 +29,25 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def quantized_state_update_stored_ref(
     qS: F.QuantizedTensor, d: torch.Tensor, k: torch.Tensor,
     v: torch.Tensor, q: torch.Tensor, *, rounding: str = "stochastic",
-    seed: int = 0, row_base: int = 0,
+    seed: int = 0, row_base: int = 0, head_base: int = 0,
+    heads_total: Optional[int] = None,
 ) -> Tuple[F.QuantizedTensor, torch.Tensor]:
     """One Eq. 2 step over a quantized state stored as Sᵀ, (B, H, dv, dk).
 
     Dequantize -> ``Sn = fma(S, d, v*k)`` -> requantize (SR bits from the
-    counter hash over the flat index, counted from row ``row_base`` of the
-    whole batch) -> ``y = dequant(Sn_q) · q``, for MX8 summed in kernel 1's
-    order (:func:`group_ordered_dot`).  Any quantized format; returns a new
-    container.
+    counter hash over the flat index in the whole state: rows from
+    ``row_base`` of the whole batch, heads from ``head_base`` of
+    ``heads_total``, :func:`F.sr_bits_at`) -> ``y = dequant(Sn_q) · q``,
+    for MX8 summed in kernel 1's order (:func:`group_ordered_dot`).  Any
+    quantized format; returns a new container.
     """
     B, H, dv, dk = qS.shape
     St = F.dequantize(qS)
     d_ = d.to(torch.float32).expand(B, H, dk)[:, :, None, :]
     vk = v.to(torch.float32)[..., :, None] * k.to(torch.float32)[..., None, :]
     Sn = fma_f32(St, d_, vk)
-    bits = (F.sr_bits(Sn.shape, seed, row_base * H * dv * dk,
-                      device=Sn.device)
+    bits = (F.sr_bits_at(Sn.shape, seed, row_base, 1, head_base,
+                         heads_total, device=Sn.device)
             if rounding == "stochastic" else None)
     qSn = F.quantize(Sn, qS.fmt, rounding, bits)
     if qS.fmt == "mx8":
@@ -421,16 +423,19 @@ def paged_kv_append_ref(pools, rows, bt: torch.Tensor, group: int,
 
 def paged_kv_append_quant_ref(streams, pools, bt: torch.Tensor, group: int,
                               lengths: torch.Tensor, seed: int = 0,
-                              rounding: str = "stochastic"):
+                              rounding: str = "stochastic",
+                              head_base: int = 0,
+                              heads_total: Optional[int] = None):
     """Quantize each new token's fp32 row ``streams[i] (B, 1, KVH, w)`` to
-    MX8 with SR bits ``sr_bits((B, 1, KVH, w), seed + i)`` and write its
-    payload into its page slot of ``pools[i]`` (an MX8 page pool), in
-    place: K is stream 0 and V stream 1, an MLA latent the one stream.
-    Returns the pools."""
+    MX8 with SR bits ``sr_bits((B, 1, KVH, w), seed + i)`` -- of the
+    whole layer's kv heads, ``(B, 1, heads_total, w)``, where the rows hold
+    heads ``head_base ..`` of them -- and write its payload into its page
+    slot of ``pools[i]`` (an MX8 page pool), in place: K is stream 0 and V
+    stream 1, an MLA latent the one stream.  Returns the pools."""
     rows, dst = [], []
     for i, (x, pool) in enumerate(zip(streams, pools)):
-        bits = (F.sr_bits(x.shape, (int(seed) + i) & 0xFFFFFFFF,
-                          device=x.device)
+        bits = (F.sr_bits_at(x.shape, (int(seed) + i) & 0xFFFFFFFF, 0, 2,
+                             head_base, heads_total, device=x.device)
                 if rounding == "stochastic" else None)
         q = F.mx8_quantize(x, rounding, bits)
         rows += [q.payload[f][:, 0] for f in sorted(q.payload)]
@@ -441,7 +446,8 @@ def paged_kv_append_quant_ref(streams, pools, bt: torch.Tensor, group: int,
 
 def state_update_slab_ref(pool, slabs: torch.Tensor, group: int, d, k, v, q,
                           *, rounding: str = "stochastic", seed: int = 0,
-                          row_base: int = 0):
+                          row_base: int = 0, head_base: int = 0,
+                          heads_total: Optional[int] = None):
     """The state update on slab rows ``pool[slabs, group]``, written back in
     place: the rows are gathered into a dense ``(B, H, dv, dk)`` state, so
     SR counters and operands index the batch row, exactly as the dense op
@@ -453,7 +459,7 @@ def state_update_slab_ref(pool, slabs: torch.Tensor, group: int, d, k, v, q,
                                  tuple(payload["mantissa"].shape), payload)
         new, y = quantized_state_update_stored_ref(
             rows, d, k, v, q, rounding=rounding, seed=seed,
-            row_base=row_base)
+            row_base=row_base, head_base=head_base, heads_total=heads_total)
         for f, a in pool.payload.items():
             a[idx] = new.payload[f]
         return pool, y
@@ -491,17 +497,19 @@ def mx_quantize_streams_ref(xs, seeds, rounding: str = "nearest",
 
 def kv_append_quant_ref(streams, caches, lengths: torch.Tensor,
                         seed: int = 0, rounding: str = "stochastic",
-                        row_base: int = 0):
+                        row_base: int = 0, head_base: int = 0,
+                        heads_total: Optional[int] = None):
     """The dense append: each new fp32 row block ``streams[i] (B, n, KVH,
     w)`` quantized to MX8 with SR bits ``sr_bits((B, n, KVH, w), seed +
-    i)`` counted from row ``row_base`` of the whole batch, each payload
-    field written into the dense MX8 cache ``caches[i]`` at ``lengths`` by
+    i)`` counted in the whole batch's array (rows from ``row_base``, kv
+    heads from ``head_base`` of ``heads_total``), each payload field
+    written into the dense MX8 cache ``caches[i]`` at ``lengths`` by
     ``_update_at`` (its clamp included), in place.  Returns the caches."""
     from repro_torch.core import attention_cache as AC
     for i, (x, cache) in enumerate(zip(streams, caches)):
-        bits = (F.sr_bits(x.shape, (int(seed) + i) & 0xFFFFFFFF,
-                          row_base * (x.numel() // x.shape[0]),
-                          device=x.device)
+        bits = (F.sr_bits_at(x.shape, (int(seed) + i) & 0xFFFFFFFF,
+                             row_base, 2, head_base, heads_total,
+                             device=x.device)
                 if rounding == "stochastic" else None)
         q = F.quantize(x, "mx8", rounding, bits)
         for f, a in cache.payload.items():

@@ -19,12 +19,18 @@ Per cell the dry run:
      under :class:`CommBytesMode` and ``FlopCounterMode``,
   4. records the JAX record's keys where the port has a counterpart:
      ``flops_per_chip`` is the traced local step's count (matmuls and
-     attention; compute over the model axis is replicated in the port, so
-     it is the count of the rank's rows, its model shard's experts aside),
+     attention;
+     its train step replicates compute over the model axis, so there it
+     is the count of the rank's rows, its model shard's experts aside; the
+     prefill and decode cells run the tensor-parallel serving step, so
+     there it is the count of the rank's rows of its heads and FFN columns),
      ``link_bytes_per_chip`` the bytes the traced collectives move through
      a rank's links at the ring algorithm's count (:class:`CommBytesMode`:
-     every step gathers the whole parameter tree, so this is far above a
-     GSPMD step's), ``hbm_bytes_per_chip`` and ``cache_bytes_total`` come
+     a train step gathers the whole parameter tree, so this is far above a
+     GSPMD step's; a serving step, its parameters at rest in
+     ``dist/sharding.py::serving_param_shardings``, gathers none and
+     makes only its all-reduces over the model axis),
+     ``hbm_bytes_per_chip`` and ``cache_bytes_total`` come
      from ``analysis/roofline.py::analytic_cost`` as in the JAX package
      (its model of a GSPMD step: the port's eager step also reads every
      gathered parameter), whose link bytes stay beside under
@@ -34,8 +40,9 @@ Per cell the dry run:
      null: there is no compiler to report it), and ``trace_diag`` (the JAX
      ``hlo_diag``'s place) the collectives the step made, by kind, with
      their bytes.  Decode caches sit in the port's serving layout
-     (``dist/sharding.py::serving_cache_shardings``), so a decode step
-     gathers no cache.
+     (``dist/sharding.py::serving_cache_shardings``: rows over the data
+     axes, the tensor-parallel layers' heads over the model axis), so a
+     decode step gathers no cache.
 
 Attention-free models have FLOPs linear in the sequence (chunked linear
 attention; the sLSTM's per-token loop, which the JAX dry run corrects
@@ -167,7 +174,9 @@ def run_step(cfg, sc, par, p_meta, grad_accum: int = 1):
     """Lay out the cell's inputs as fake tensors and run its step (call
     under :func:`fake_mode` with the process group up).  Returns
     (argument bytes, output bytes) of the rank's shards."""
-    p_shard = SH.param_shardings(p_meta, cfg, par)
+    layouts = (SH.param_shardings if sc.kind == "train"
+               else SH.serving_param_shardings)
+    p_shard = layouts(p_meta, cfg, par)
     params = SH.distribute(_fake(p_meta), p_shard)
     if sc.kind == "train":
         opt = O.OptimizerConfig()

@@ -10,6 +10,13 @@ speculative verify step through ``kv_append`` x n + ``spec_verify``.
 MLA runs in absorbed form everywhere, as in the JAX package: queries are
 projected into the latent space, so the cache is one (kv_lora + rope)
 stream whose first kv_lora lanes are the values -- the kernels' MLA mode.
+
+Under tensor parallelism (a ``par`` whose model axis divides the kv
+heads) a rank holds the columns of its kv heads and of their query heads
+and the rows of ``wo`` for them (:func:`tp_shard`): it
+projects, caches and attends its heads only, and one sum over the model
+axis adds the ranks' ``wo`` products.  The layers carry no bias, so none
+is added after the sum.  MLA stays whole on every rank.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 
 from repro_torch import ops as OPS
 from repro_torch.core import attention_cache as AC
+from repro_torch.dist import tp as TP
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -150,12 +158,39 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
+def local_heads(cfg: ModelConfig, par=None) -> Tuple[int, int, int]:
+    """``(H, KVH, first kv head)`` of this rank's shard of a GQA layer: the
+    model axis of ``par`` splits the kv heads, each with its G query heads,
+    where it divides them (:func:`dist.tp.layer_par`); else every
+    head, from 0."""
+    k0, kn = TP.tp_range(cfg.n_kv_heads, par)
+    return cfg.n_heads // cfg.n_kv_heads * kn, kn, k0
+
+
+def tp_shard(p: L.Params, cfg: ModelConfig, par) -> L.Params:
+    """A rank's GQA weights under ``par`` (``p`` itself where its model
+    axis does not split the kv heads): the columns of ``wq`` for its query
+    heads (the G of each of its kv heads), of ``wk`` / ``wv`` for its kv
+    heads, and the rows of ``wo`` for its query heads."""
+    H, KVH, k0 = local_heads(cfg, par)
+    if KVH == cfg.n_kv_heads:
+        return p
+    dh = cfg.head_dim
+    q = (k0 * cfg.n_heads // cfg.n_kv_heads * dh, H * dh)
+    kv = (k0 * dh, KVH * dh)
+    return {**p, "wq": TP.narrow(p["wq"], -1, *q),
+            "wk": TP.narrow(p["wk"], -1, *kv),
+            "wv": TP.narrow(p["wv"], -1, *kv),
+            "wo": TP.narrow(p["wo"], 0, *q)}
+
+
 def _project_qkv(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
-    """q (B, S, H, dh) and k, v (B, S, KVH, dh) of x (B, S, d), RoPE
-    applied at positions (B, S)."""
+                 positions: torch.Tensor, par=None):
+    """q (B, S, H, dh) and k, v (B, S, KVH, dh) of x (B, S, d) -- the
+    rank's heads under ``par`` -- RoPE applied at positions (B, S)."""
     B, S, _ = x.shape
-    H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, KVH, _ = local_heads(cfg, par)
+    dh = cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, dh)
     k = (x @ p["wk"]).reshape(B, S, KVH, dh)
     v = (x @ p["wv"]).reshape(B, S, KVH, dh)
@@ -167,25 +202,30 @@ def _project_qkv(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
 
 def attention_forward(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
                       positions: torch.Tensor,
-                      prefix_len: int = 0) -> torch.Tensor:
+                      prefix_len: int = 0, par=None) -> torch.Tensor:
     """Full-sequence attention (prefill math): causal but for an encoder,
-    the first ``prefix_len`` positions bidirectional."""
+    the first ``prefix_len`` positions bidirectional.  ``par``: the rank's
+    heads, their ``wo`` products summed over the model axis."""
     B, S, _ = x.shape
-    H, dh = cfg.n_heads, cfg.head_dim
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    lp = TP.layer_par(cfg.n_kv_heads, par)
+    H, _, _ = local_heads(cfg, lp)
+    dh = cfg.head_dim
+    q, k, v = _project_qkv(p, x, cfg, positions, lp)
     o = blockwise_attention(q, k, v,
                             causal=cfg.causal and not cfg.encoder_only,
                             prefix_len=prefix_len, q_chunk=cfg.attn_q_chunk,
                             kv_chunk=cfg.attn_kv_chunk)
-    return o.reshape(B, S, H * dh) @ p["wo"]
+    return TP.tp_sum(o.reshape(B, S, H * dh) @ p["wo"], lp)
 
 
 def attention_prefill_kv(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
-                         positions: torch.Tensor
+                         positions: torch.Tensor, par=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K/V streams (post-RoPE) for cache construction during prefill."""
+    """K/V streams (post-RoPE) for cache construction during prefill: the
+    rank's kv heads under ``par``."""
     B, S, _ = x.shape
-    KVH, dh = cfg.n_kv_heads, cfg.head_dim
+    _, KVH, _ = local_heads(cfg, par)
+    dh = cfg.head_dim
     k = (x @ p["wk"]).reshape(B, S, KVH, dh)
     v = (x @ p["wv"]).reshape(B, S, KVH, dh)
     if cfg.pos_emb == "rope":
@@ -194,35 +234,48 @@ def attention_prefill_kv(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def attention_decode(p: L.Params, x: torch.Tensor, cache: AC.KVCache,
-                     cfg: ModelConfig, positions: torch.Tensor, seed: int
-                     ) -> Tuple[torch.Tensor, AC.KVCache]:
-    """One-token decode: x (B, 1, d) -> (out (B,1,d), updated cache)."""
+                     cfg: ModelConfig, positions: torch.Tensor, seed: int,
+                     par=None) -> Tuple[torch.Tensor, AC.KVCache]:
+    """One-token decode: x (B, 1, d) -> (out (B,1,d), updated cache).
+    ``par``: the rank's heads and their cache, the append's stochastic
+    rounding counted from its first kv head of the layer's."""
     B = x.shape[0]
-    H, dh = cfg.n_heads, cfg.head_dim
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    o, cache = OPS.attention_decode_step(cache, k, v, q.reshape(B, H, dh),
-                                         cfg.state_quant, seed=seed)
-    return (o.reshape(B, 1, H * dh).to(x.dtype) @ p["wo"]), cache
+    lp = TP.layer_par(cfg.n_kv_heads, par)
+    H, _, k0 = local_heads(cfg, lp)
+    dh = cfg.head_dim
+    q, k, v = _project_qkv(p, x, cfg, positions, lp)
+    with OPS.sr_heads_from(k0, cfg.n_kv_heads):
+        o, cache = OPS.attention_decode_step(cache, k, v,
+                                             q.reshape(B, H, dh),
+                                             cfg.state_quant, seed=seed)
+    return TP.tp_sum(o.reshape(B, 1, H * dh).to(x.dtype) @ p["wo"],
+                     lp), cache
 
 
 def attention_spec_decode(p: L.Params, x: torch.Tensor, cache,
                           cfg: ModelConfig, positions: torch.Tensor,
-                          seed: int) -> Tuple[torch.Tensor, object]:
+                          seed: int, par=None) -> Tuple[torch.Tensor, object]:
     """Speculative decode: x (B, n, d) at positions (B, n) -> (out (B, n, d),
     updated cache).  Appends all n K/V rows (per-position seeds
     ``seed + i``), then verifies the n queries in one ``spec_verify`` pass:
     position j's attention row is bitwise the j-th sequential
     :func:`attention_decode` call's, and so are its projections, which run
     position by position on the decode step's (B, 1, d) input
-    (:func:`layers.per_position`)."""
+    (:func:`layers.per_position`).  ``par``: as in
+    :func:`attention_decode`, the positions' ``wo`` products summed in
+    one collective."""
     B, n, _ = x.shape
-    H, dh = cfg.n_heads, cfg.head_dim
+    lp = TP.layer_par(cfg.n_kv_heads, par)
+    H, _, k0 = local_heads(cfg, lp)
+    dh = cfg.head_dim
     q, k, v = L.per_position(
-        lambda xi, pi: _project_qkv(p, xi, cfg, pi), x, positions)
-    o, cache = OPS.attention_spec_step(cache, k, v, q, cfg.state_quant,
-                                       seed=seed)
-    return L.per_position(lambda oi: oi @ p["wo"],
-                          o.reshape(B, n, H * dh).to(x.dtype)), cache
+        lambda xi, pi: _project_qkv(p, xi, cfg, pi, lp), x, positions)
+    with OPS.sr_heads_from(k0, cfg.n_kv_heads):
+        o, cache = OPS.attention_spec_step(cache, k, v, q, cfg.state_quant,
+                                           seed=seed)
+    return TP.tp_sum(L.per_position(lambda oi: oi @ p["wo"],
+                                    o.reshape(B, n, H * dh).to(x.dtype)),
+                     lp), cache
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as Fn
 import torch.utils.checkpoint
 
+from repro_torch.dist import tp as TP
 from repro_torch.models.config import ModelConfig
 
 Params = dict
@@ -83,10 +84,17 @@ def apply_norm(p: Params, x: torch.Tensor, kind: str,
 
 
 def rmsnorm_gated(x: torch.Tensor, scale: torch.Tensor, gate: torch.Tensor,
-                  eps: float = 1e-5) -> torch.Tensor:
-    """Mamba-2 style RMSNorm(x * silu(gate))."""
+                  eps: float = 1e-5, par=None) -> torch.Tensor:
+    """Mamba-2 style RMSNorm(x * silu(gate)).  With ``par`` the last axis
+    is a rank's channel shard of it: the mean square is over every
+    channel, the ranks' sums of squares summed over the model axis (one
+    (B, S, 1) all-reduce), never per rank."""
     xf = (x * Fn.silu(gate.to(torch.float32))).to(torch.float32)
-    ms = xf.square().mean(-1, keepdim=True)
+    if par is None:
+        ms = xf.square().mean(-1, keepdim=True)
+    else:
+        ms = TP.tp_sum(xf.square().sum(-1, keepdim=True), par) / (
+            xf.shape[-1] * par.tp)
     return (xf * torch.rsqrt(ms + eps) * scale.to(torch.float32)).to(x.dtype)
 
 
@@ -150,8 +158,14 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig, device,
     return p
 
 
-def apply_ffn(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
-    """GELU is the tanh form, ``jax.nn.gelu``'s default."""
+def apply_ffn(p: Params, x: torch.Tensor, kind: str,
+              par=None) -> torch.Tensor:
+    """GELU is the tanh form, ``jax.nn.gelu``'s default.  With ``par``
+    (tensor parallelism: ``dist.tp.layer_par`` of the FFN's width)
+    ``p`` holds the rank's d_ff/tp columns of ``wi`` / ``wg`` and the
+    matching rows of ``wo``, and the ranks' products are summed over the
+    model axis.  The FFNs carry no bias, so none is added after the
+    sum."""
     if kind == "swiglu":
         h = Fn.silu(x @ p["wi"]) * (x @ p["wg"])
     elif kind == "geglu":
@@ -162,7 +176,27 @@ def apply_ffn(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = Fn.relu(x @ p["wi"])
     else:
         raise ValueError(kind)
-    return h @ p["wo"]
+    return TP.tp_sum(h @ p["wo"], par)
+
+
+def ffn_tp_shard(p: Params, cfg: ModelConfig, par) -> Params:
+    """A rank's FFN weights under ``par`` (``p`` itself where its model
+    axis splits nothing): a dense FFN, where tp divides ``d_ff``, keeps
+    d_ff/tp columns of ``wi`` / ``wg`` and the matching rows of ``wo``;
+    an MoE keeps its experts' banks under expert parallelism, its router
+    and shared experts whole."""
+    if "router" in p:
+        if not TP.expert_parallel(cfg, par):
+            return p
+        n = cfg.moe.n_experts // par.tp
+        return {**p, **{k: TP.narrow(p[k], 0, par.model_index * n, n)
+                        for k in ("wi", "wg", "wo")}}
+    f0, fn = TP.tp_range(p["wi"].shape[1], par)
+    if fn == p["wi"].shape[1]:
+        return p
+    out = {k: TP.narrow(p[k], -1, f0, fn) for k in ("wi", "wg") if k in p}
+    out["wo"] = TP.narrow(p["wo"], 0, f0, fn)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -334,8 +368,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     Parallel`` or None; expert-parallel when its model axis divides the
     expert count, and then ``p``'s expert banks are this rank's shard."""
     if par is not None:
-        from repro_torch.dist.sharding import expert_parallel
-        par = par if expert_parallel(cfg, par) else None
+        par = par if TP.expert_parallel(cfg, par) else None
     out = _moe_local(x, p["router"], p["wi"], p["wg"], p["wo"], cfg, par)
     if cfg.moe.n_shared:
         out = out + apply_ffn(p["shared"], x, cfg.ffn_kind_inner)

@@ -28,6 +28,18 @@ Decode seeds are the JAX package's exactly: ``uint32(seed) + 7919 * (i +
 1)`` for prelude layer ``i``; per group ``uint32(seed) + g * 1000003``,
 then ``+ pos + 1`` per element and ``+ 99`` for the shared block, all
 wrapping in uint32.
+
+Tensor-parallel serving: ``prefill``, ``decode_step``,
+``paged_decode_step``, ``paged_spec_decode_step`` and
+``init_decode_caches`` take a ``par`` (a ``dist.sharding.Parallel``).
+The parameters are then a rank's (``dist/sharding.py::tp_params``): GQA
+attention, Mamba-2 and the dense FFNs run the rank's heads or columns,
+each summed over the model axis after its output projection, and the
+caches hold the rank's heads.  A layer whose head count (kv heads, FFN
+columns) the model axis does not divide, and the embeddings, LM head,
+norms over ``d``, MLA, the GLA family and xLSTM, are whole on every rank;
+the MoE keeps its expert parallelism.  ``train_loss`` takes ``par`` for
+the MoE alone.
 """
 from __future__ import annotations
 
@@ -40,6 +52,7 @@ import torch.utils.checkpoint
 from repro_torch.core import attention_cache as AC
 from repro_torch.core import formats as F
 from repro_torch.core import paged as PG
+from repro_torch.dist import tp as TP
 from repro_torch.kernels.mx_quant import mx_quantize_streams
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
@@ -135,14 +148,30 @@ def _init_element(gen, cfg: ModelConfig, kind: str, device, layer_idx: int,
     return p
 
 
+def _dense_ff(cfg: ModelConfig) -> int:
+    """The width of an element's dense FFN: an MoE model's dense layers
+    (its prelude) are ``moe.first_dense_ff`` wide."""
+    if cfg.ffn_kind == "moe":
+        return cfg.moe.first_dense_ff or cfg.moe.d_expert
+    return cfg.d_ff
+
+
+def _mixer_par(kind: str, par) -> dict:
+    """``par`` for the recurrent mixers that split their heads over the
+    model axis; the others take none."""
+    return {"par": par} if par is not None and kind in SSM.TP_SHARDS else {}
+
+
 def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig,
-         par=None) -> torch.Tensor:
+         par=None, tp_par=None) -> torch.Tensor:
     """The element's FFN: MoE where its params route (expert-parallel
     under ``par``), else the dense FFN of kind ``cfg.ffn_kind_inner`` (an
-    MoE model's dense layers: SwiGLU)."""
+    MoE model's dense layers: SwiGLU), tensor-parallel under ``tp_par``
+    (its columns split where the model axis divides them)."""
     if cfg.ffn_kind == "moe" and "router" in p:
         return L.apply_moe(p, h, cfg, par)
-    return L.apply_ffn(p, h, cfg.ffn_kind_inner)
+    return L.apply_ffn(p, h, cfg.ffn_kind_inner,
+                       TP.layer_par(_dense_ff(cfg), tp_par))
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
@@ -264,27 +293,31 @@ def _build_kv_cache(k: torch.Tensor, v, cfg: ModelConfig,
 
 
 def _attn_block_forward(p: Params, x, cfg: ModelConfig, positions,
-                        prefix_len: int = 0, want_cache: bool = True):
+                        prefix_len: int = 0, want_cache: bool = True,
+                        par=None):
     """Attention + cache build shared by pattern and shared blocks (an
-    encoder, or a forward that wants no cache, builds none)."""
-    y = ATT.attention_forward(p, x, cfg, positions, prefix_len)
+    encoder, or a forward that wants no cache, builds none); the rank's
+    heads under ``par`` (the cache's quantizer rounds to nearest: it needs
+    no head base)."""
+    y = ATT.attention_forward(p, x, cfg, positions, prefix_len, par)
     if cfg.encoder_only or not want_cache:
         return y, None
-    k, v = ATT.attention_prefill_kv(p, x, cfg, positions)
+    k, v = ATT.attention_prefill_kv(p, x, cfg, positions, par)
     return y, _build_kv_cache(k, v, cfg)
 
 
 def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
                      positions, prefix_len: int = 0, want_cache: bool = True,
-                     par=None) -> Tuple[torch.Tensor, Any]:
+                     par=None, tp_par=None) -> Tuple[torch.Tensor, Any]:
     """One layer over the full sequence: (x, its decode cache).  Without
     ``want_cache`` (training) no cache is built: no state is stored or
     quantized and no stochastic-rounding seed is drawn -- what XLA drops
-    as dead code in the JAX package, eager PyTorch must not run."""
+    as dead code in the JAX package, eager PyTorch must not run.  ``par``
+    reaches the MoE, ``tp_par`` the tensor-parallel mixers and FFN."""
     h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
     if kind == "attn":
         y, cache = _attn_block_forward(p["mixer"], h, cfg, positions,
-                                       prefix_len, want_cache)
+                                       prefix_len, want_cache, tp_par)
     elif kind == "mla":
         y = ATT.mla_forward(p["mixer"], h, cfg, positions)
         cache = None
@@ -293,26 +326,30 @@ def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
             cache = _build_kv_cache(ckv[:, :, None, :], None, cfg,
                                     v_width=cfg.mla.kv_lora)
     else:
-        y, cache = SSM.mixer(kind).forward(p["mixer"], h, cfg, want_cache)
+        y, cache = SSM.mixer(kind).forward(p["mixer"], h, cfg, want_cache,
+                                           **_mixer_par(kind, tp_par))
     x = x + y
     if _has_ffn(cfg, kind):
         h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
-        x = x + _ffn(p["ffn"], h, cfg, par)
+        x = x + _ffn(p["ffn"], h, cfg, par, tp_par)
     return x, cache
 
 
 def _shared_block_forward(p: Params, x, cfg: ModelConfig, positions,
-                          prefix_len: int = 0, want_cache: bool = True):
+                          prefix_len: int = 0, want_cache: bool = True,
+                          par=None):
     h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
     y, cache = _attn_block_forward(p["attn"], h, cfg, positions, prefix_len,
-                                   want_cache)
+                                   want_cache, par)
     x = x + y
     h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
-    return x + L.apply_ffn(p["ffn"], h, cfg.ffn_kind), cache
+    return x + L.apply_ffn(p["ffn"], h, cfg.ffn_kind,
+                           TP.layer_par(cfg.d_ff, par)), cache
 
 
 def _run_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig,
-                positions, prefix_len: int, want_cache: bool, par=None):
+                positions, prefix_len: int, want_cache: bool, par=None,
+                tp_par=None):
     """Every layer over the full sequence: (x, caches ``[g][pos]`` with the
     shared block's last, and the prelude's split off) -- caches of None
     without ``want_cache``.  With ``cfg.remat``, where autograd records,
@@ -320,7 +357,8 @@ def _run_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig,
     elements (the shared block too) runs under a non-reentrant checkpoint,
     as the JAX package's nested ``jax.checkpoint``: the backward recomputes
     one element's activations at a time instead of keeping every
-    layer's.  ``par`` reaches the MoE layers (expert parallelism)."""
+    layer's.  ``par`` reaches the MoE layers (expert parallelism),
+    ``tp_par`` the tensor-parallel mixers and dense FFNs."""
     shared = params.get("shared")
     remat = cfg.remat and torch.is_grad_enabled()
     # a group of one block needs no inner checkpoint: it would recompute
@@ -336,7 +374,8 @@ def _run_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig,
     prelude = []
     for i, kind in enumerate(cfg.prelude):
         x, c = _element_forward(params["prelude"][i], x, cfg, kind,
-                                positions, prefix_len, want_cache, par)
+                                positions, prefix_len, want_cache, par,
+                                tp_par)
         prelude.append(c)
 
     def group_body(gp, x):
@@ -344,13 +383,14 @@ def _run_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig,
         for pos, kind in enumerate(cfg.pattern):
             x, c = run(inner, functools.partial(
                 _element_forward, cfg=cfg, kind=kind, positions=positions,
-                prefix_len=prefix_len, want_cache=want_cache, par=par),
-                gp[pos], x)
+                prefix_len=prefix_len, want_cache=want_cache, par=par,
+                tp_par=tp_par), gp[pos], x)
             group.append(c)
         if shared is not None:
             x, c = run(inner, functools.partial(
                 _shared_block_forward, cfg=cfg, positions=positions,
-                prefix_len=prefix_len, want_cache=want_cache), shared, x)
+                prefix_len=prefix_len, want_cache=want_cache,
+                par=tp_par), shared, x)
             group.append(c)
         return x, group
 
@@ -366,12 +406,14 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             par=None) -> Tuple[torch.Tensor, List[List[Any]]]:
     """Full-sequence forward over ``batch`` (:func:`embed_inputs`); returns
     (last-position logits (B, V), caches), or for an encoder (per-position
-    logits (B, S, V), None).  ``par`` (a ``dist.sharding.Parallel``) makes
-    the MoE layers expert-parallel: ``params`` are then a rank's gathered
-    parameters (``dist/sharding.py::sharded_prefill``)."""
+    logits (B, S, V), None).  ``par`` (a ``dist.sharding.Parallel``) runs
+    the tensor-parallel step: ``params`` are then a rank's
+    (``dist/sharding.py::tp_params``), the caches its heads', the MoE
+    layers expert-parallel."""
     x, positions, prefix_len = embed_inputs(params, cfg, batch)
     x, caches = _run_blocks(params, x, cfg, positions, prefix_len,
-                            want_cache=not cfg.encoder_only, par=par)
+                            want_cache=not cfg.encoder_only, par=par,
+                            tp_par=par)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     if cfg.encoder_only:
         return x @ _lm_head(params, cfg), None
@@ -385,8 +427,9 @@ def train_loss(params: Params, cfg: ModelConfig,
     the chunked cross-entropy of the next-token targets, averaged over the
     mask -- a VLM's over its text positions only, an audio encoder's over
     its masked frames.  Builds no cache; differentiable (the flash
-    backward in the attention, remat per ``cfg.remat``).  ``par``: as in
-    :func:`prefill` (``train/train_loop.py`` gathers the parameters)."""
+    backward in the attention, remat per ``cfg.remat``).  ``par`` makes
+    the MoE layers expert-parallel, the rest replicated over the model
+    axis (``train/train_loop.py`` gathers the parameters)."""
     x, positions, prefix_len = embed_inputs(params, cfg, batch)
     x, _ = _run_blocks(params, x, cfg, positions, prefix_len,
                        want_cache=False, par=par)
@@ -420,33 +463,36 @@ def join_caches(prelude: List[Any], groups: List[List[Any]]):
     return {"prelude": prelude, "groups": groups} if prelude else groups
 
 
-def _kv_cache(cfg: ModelConfig, B: int, cap: int, device) -> AC.KVCache:
-    return AC.init_kv_cache(B, cap, cfg.n_kv_heads, cfg.head_dim,
-                            cfg.state_quant, device=device)
+def _kv_cache(cfg: ModelConfig, B: int, cap: int, device,
+              par=None) -> AC.KVCache:
+    return AC.init_kv_cache(B, cap, ATT.local_heads(cfg, par)[1],
+                            cfg.head_dim, cfg.state_quant, device=device)
 
 
 def init_decode_caches(cfg: ModelConfig, B: int, cache_capacity: int,
-                       device=None):
+                       device=None, par=None):
     """Zeroed caches, ``caches[g][pos]`` (shared block's cache last), with
-    the prelude's split off as :func:`join_caches` builds it."""
+    the prelude's split off as :func:`join_caches` builds it; the rank's
+    heads of the tensor-parallel layers under ``par``."""
     check_supported(cfg)
     device = resolve_device(device)
 
     def one_element(kind):
         if kind == "attn":
-            return _kv_cache(cfg, B, cache_capacity, device)
+            return _kv_cache(cfg, B, cache_capacity, device, par)
         if kind == "mla":
             return AC.init_kv_cache(B, cache_capacity, 1,
                                     cfg.mla.cache_width, cfg.state_quant,
                                     device=device,
                                     mla_v_width=cfg.mla.kv_lora)
-        return SSM.mixer(kind).init_state(B, cfg, device)
+        return SSM.mixer(kind).init_state(B, cfg, device,
+                                          **_mixer_par(kind, par))
 
     caches = []
     for _ in range(cfg.n_groups):
         group = [one_element(k) for k in cfg.pattern]
         if cfg.shared_attn:
-            group.append(_kv_cache(cfg, B, cache_capacity, device))
+            group.append(_kv_cache(cfg, B, cache_capacity, device, par))
         caches.append(group)
     return join_caches([one_element(k) for k in cfg.prelude], caches)
 
@@ -520,23 +566,37 @@ def _element_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
     h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
     if kind == "attn":
         y, cache = ATT.attention_decode(p["mixer"], h, cache, cfg,
-                                        positions[:, None], seed)
+                                        positions[:, None], seed, par)
     elif kind == "mla":
         y, cache = ATT.mla_decode(p["mixer"], h, cache, cfg,
                                   positions[:, None], seed)
     else:
-        y, cache = _recurrent_decode(p["mixer"], h, cache, cfg, kind, seed)
+        y, cache = _recurrent_decode(p["mixer"], h, cache, cfg, kind, seed,
+                                     par)
     x = x + y
     if _has_ffn(cfg, kind):
         h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
-        x = x + _ffn(p["ffn"], h, cfg, par)
+        x = x + _ffn(p["ffn"], h, cfg, par, par)
     return x, cache
 
 
 def _recurrent_decode(p: Params, h, cache, cfg: ModelConfig, kind: str,
-                      seed: int):
+                      seed: int, par=None):
     """One token (B, 1, d) through a recurrent mixer."""
-    return SSM.mixer(kind).decode(p, h, cache, cfg, seed)
+    return SSM.mixer(kind).decode(p, h, cache, cfg, seed,
+                                  **_mixer_par(kind, par))
+
+
+def _shared_decode(shared: Params, x, cache, cfg: ModelConfig, positions,
+                   seed: int, par=None):
+    """The shared attention block (Zamba2) over one token: (x, cache)."""
+    h = L.apply_norm(shared["norm"], x, cfg.norm_kind, cfg.norm_eps)
+    y, cache = ATT.attention_decode(shared["attn"], h, cache, cfg,
+                                    positions[:, None], seed, par)
+    x = x + y
+    h = L.apply_norm(shared["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    return x + L.apply_ffn(shared["ffn"], h, cfg.ffn_kind,
+                           TP.layer_par(cfg.d_ff, par)), cache
 
 
 def _prelude_seed(seed: int, i: int) -> int:
@@ -551,8 +611,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
     Returns (logits (B, V), new caches).  On the card the MX8 state and KV
     buffers are updated in place; always continue from the returned caches.
-    ``par``: as in :func:`prefill` (``dist/sharding.py::
-    sharded_decode_step``).
+    ``par``: the tensor-parallel step, as in :func:`prefill`
+    (``dist/sharding.py::sharded_decode_step``, the serving engines).
     """
     check_decoder(cfg)
     positions = lengths
@@ -575,14 +635,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                    (seed_g + pos + 1) & _U32, par)
             group.append(c)
         if shared is not None:
-            h = L.apply_norm(shared["norm"], x, cfg.norm_kind, cfg.norm_eps)
-            y, c = ATT.attention_decode(shared["attn"], h, gcaches[-1], cfg,
-                                        positions[:, None],
-                                        (seed_g + 99) & _U32)
-            x = x + y
-            h = L.apply_norm(shared["ffn_norm"], x, cfg.norm_kind,
-                             cfg.norm_eps)
-            x = x + L.apply_ffn(shared["ffn"], h, cfg.ffn_kind)
+            x, c = _shared_decode(shared, x, gcaches[-1], cfg, positions,
+                                  (seed_g + 99) & _U32, par)
             group.append(c)
         new_caches.append(group)
     x = L.apply_norm(params["final_norm"], x[:, 0], cfg.norm_kind,
@@ -602,7 +656,7 @@ def _stack_position(view, layers: List[Any]):
 
 @torch.no_grad()
 def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                      caches, lengths: torch.Tensor, seed: int = 0
+                      caches, lengths: torch.Tensor, seed: int = 0, par=None
                       ) -> Tuple[torch.Tensor, List[Any]]:
     """One decode step over block-table-native paged cache views.
 
@@ -617,6 +671,8 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     paged ops update the pools in place.  Element math and seeds are
     :func:`decode_step`'s, so logits equal the dense path's over gathered
     pages.  Returns (logits (B, V), the views with re-stacked residuals).
+    ``par``: the tensor-parallel step over the rank's heads' pools, as in
+    :func:`decode_step`.
     """
     check_decoder(cfg)
     positions = lengths
@@ -627,7 +683,7 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for i, kind in enumerate(cfg.prelude):
         x, c = _element_decode(params["prelude"][i], x,
                                PG.with_group(prelude[i], 0, lengths), cfg,
-                               kind, positions, _prelude_seed(seed, i))
+                               kind, positions, _prelude_seed(seed, i), par)
         new_prelude.append(_stack_position(prelude[i], [c]))
     per_layer = [[] for _ in caches]
     for g in range(cfg.n_groups):
@@ -636,17 +692,11 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             x, c = _element_decode(params["groups"][g][pos], x,
                                    PG.with_group(caches[pos], g, lengths),
                                    cfg, kind, positions,
-                                   (seed_g + pos + 1) & _U32)
+                                   (seed_g + pos + 1) & _U32, par)
             per_layer[pos].append(c)
         if shared is not None:
-            h = L.apply_norm(shared["norm"], x, cfg.norm_kind, cfg.norm_eps)
-            y, _ = ATT.attention_decode(
-                shared["attn"], h, caches[-1].with_step(g, lengths), cfg,
-                positions[:, None], (seed_g + 99) & _U32)
-            x = x + y
-            h = L.apply_norm(shared["ffn_norm"], x, cfg.norm_kind,
-                             cfg.norm_eps)
-            x = x + L.apply_ffn(shared["ffn"], h, cfg.ffn_kind)
+            x, _ = _shared_decode(shared, x, caches[-1].with_step(g, lengths),
+                                  cfg, positions, (seed_g + 99) & _U32, par)
     new_caches = [_stack_position(v, layers)
                   for v, layers in zip(caches, per_layer)]
     x = L.apply_norm(params["final_norm"], x[:, 0], cfg.norm_kind,
@@ -683,7 +733,7 @@ def _state_snapshot(cache) -> Dict[tuple, torch.Tensor]:
 
 
 def _element_spec_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
-                         positions, seed: int):
+                         positions, seed: int, par=None):
     """Multi-position twin of :func:`_element_decode`.
 
     ``x`` is (B, n, d) -- the current token plus the drafted ones -- and
@@ -703,7 +753,7 @@ def _element_spec_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
     h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
     if kind == "attn":
         y, cache = ATT.attention_spec_decode(p["mixer"], h, cache, cfg,
-                                             positions, seed)
+                                             positions, seed, par)
         snaps = None
     elif kind == "mla":
         y, cache = ATT.mla_spec_decode(p["mixer"], h, cache, cfg, positions,
@@ -714,25 +764,30 @@ def _element_spec_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
         for i in range(n):
             yi, cache = _recurrent_decode(p["mixer"],
                                           h[:, i:i + 1].contiguous(), cache,
-                                          cfg, kind, (int(seed) + i) & _U32)
+                                          cfg, kind, (int(seed) + i) & _U32,
+                                          par)
             ys.append(yi)
             snaps.append(_state_snapshot(cache))
         y = torch.cat(ys, dim=1)
     x = x + y
     if _has_ffn(cfg, kind):
         h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
-        x = x + _verify_ffn(p["ffn"], h, cfg)
+        x = x + _verify_ffn(p["ffn"], h, cfg, _dense_ff(cfg), par)
     return x, cache, snaps
 
 
-def _verify_ffn(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """:func:`_ffn` over a verify step's n positions: a dense FFN position by
-    position (:func:`layers.per_position`), MoE over all ``B * n`` tokens at
-    once, as the JAX package routes them (capacity couples the tokens)."""
+def _verify_ffn(p: Params, h: torch.Tensor, cfg: ModelConfig, d_ff: int,
+                par=None) -> torch.Tensor:
+    """:func:`_ffn` over a verify step's n positions: a dense FFN (``d_ff``
+    wide) position by position (:func:`layers.per_position`), its products
+    summed over the model axis in one collective under ``par``; MoE over
+    all ``B * n`` tokens at once, as the JAX package routes them (capacity
+    couples the tokens)."""
     if cfg.ffn_kind == "moe" and "router" in p:
-        return L.apply_moe(p, h, cfg)
-    return L.per_position(lambda t: L.apply_ffn(p, t, cfg.ffn_kind_inner),
-                          h)
+        return L.apply_moe(p, h, cfg, par)
+    return TP.tp_sum(L.per_position(
+        lambda t: L.apply_ffn(p, t, cfg.ffn_kind_inner), h),
+        TP.layer_par(d_ff, par))
 
 
 def _stack_snaps(per_layer: List[List[Dict[tuple, torch.Tensor]]]
@@ -748,7 +803,7 @@ def _stack_snaps(per_layer: List[List[Dict[tuple, torch.Tensor]]]
 @torch.no_grad()
 def paged_spec_decode_step(params: Params, cfg: ModelConfig,
                            tokens: torch.Tensor, caches,
-                           lengths: torch.Tensor, seed: int = 0):
+                           lengths: torch.Tensor, seed: int = 0, par=None):
     """Speculative verify step: n positions per row through the paged views.
 
     ``tokens`` (B, n) holds each row's current token followed by its drafted
@@ -767,7 +822,8 @@ def paged_spec_decode_step(params: Params, cfg: ModelConfig,
     attention positions and, for a mixer position, ``{path: (n, B, G,
     ...)}`` -- the state rows after each position, which the pool's
     ``commit_select`` restores per row.  A prelude's views and snapshots
-    split off as :func:`join_caches` does (``G = 1`` each).
+    split off as :func:`join_caches` does (``G = 1`` each).  ``par``: the
+    tensor-parallel step, as in :func:`paged_decode_step`.
     """
     check_decoder(cfg)
     B, n = tokens.shape
@@ -780,7 +836,7 @@ def paged_spec_decode_step(params: Params, cfg: ModelConfig,
     for i, kind in enumerate(cfg.prelude):
         x, c, sn = _element_spec_decode(
             params["prelude"][i], x, PG.with_group(prelude[i], 0, lengths),
-            cfg, kind, positions, _prelude_seed(seed, i))
+            cfg, kind, positions, _prelude_seed(seed, i), par)
         new_prelude.append(_stack_position(prelude[i], [c]))
         prelude_snaps.append(None if sn is None else _stack_snaps([sn]))
     per_layer = [[] for _ in caches]
@@ -791,7 +847,7 @@ def paged_spec_decode_step(params: Params, cfg: ModelConfig,
             x, c, sn = _element_spec_decode(
                 params["groups"][g][pos], x,
                 PG.with_group(caches[pos], g, lengths), cfg, kind, positions,
-                (seed_g + pos + 1) & _U32)
+                (seed_g + pos + 1) & _U32, par)
             per_layer[pos].append(c)
             if sn is not None:
                 layer_snaps[pos].append(sn)
@@ -799,11 +855,11 @@ def paged_spec_decode_step(params: Params, cfg: ModelConfig,
             h = L.apply_norm(shared["norm"], x, cfg.norm_kind, cfg.norm_eps)
             y, _ = ATT.attention_spec_decode(
                 shared["attn"], h, caches[-1].with_step(g, lengths), cfg,
-                positions, (seed_g + 99) & _U32)
+                positions, (seed_g + 99) & _U32, par)
             x = x + y
             h = L.apply_norm(shared["ffn_norm"], x, cfg.norm_kind,
                              cfg.norm_eps)
-            x = x + _verify_ffn(shared["ffn"], h, cfg)
+            x = x + _verify_ffn(shared["ffn"], h, cfg, cfg.d_ff, par)
     new_caches = [_stack_position(v, layers)
                   for v, layers in zip(caches, per_layer)]
     snaps = [_stack_snaps(s) if s else None for s in layer_snaps]

@@ -9,6 +9,12 @@ backend on the card is the fused CUDA kernel.  What differs per family is
 the decay hook that makes Eq. 2's d_t (``_DECAY_HOOKS``) and the
 projections around the op.  The sLSTM is a vector recurrence with fp32
 carries and no SPU op: plain PyTorch, prefill a loop over positions.
+
+Mamba-2 splits its heads over the model axis of a ``par`` that divides
+them (:func:`mamba2_tp_shard`): a rank projects, convolves, scans
+and stores its heads' channels, the gated norm sums its squares over the
+model axis, and one sum adds the ranks' ``out_proj`` products.  The other
+mixers stay whole on every rank (``TP_SHARDS``).
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch.nn.functional as Fn
 
 from repro_torch import ops as OPS
 from repro_torch.core import formats as F
+from repro_torch.dist import tp as TP
 from repro_torch.kernels.mx_quant import store_quantized
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -179,6 +186,46 @@ def _m2_dims(cfg: ModelConfig):
     return d_inner, d_inner // sc.head_dim, sc.d_state, sc.head_dim
 
 
+def _m2_shard(cfg: ModelConfig, par=None):
+    """``(d_inner, H, h0, lp)``: the rank's channels, heads and first head
+    of a Mamba-2 layer, and ``par`` where its model axis splits the heads
+    (None: the whole layer)."""
+    _, H_all, _, P = _m2_dims(cfg)
+    lp = TP.layer_par(H_all, par)
+    h0, H = TP.tp_range(H_all, lp)
+    return H * P, H, h0, lp
+
+
+def mamba2_tp_shard(p: Params, cfg: ModelConfig, par) -> Params:
+    """A rank's Mamba-2 weights under ``par`` (``p`` itself where its
+    model axis does not split the heads): ``wz`` / ``wx`` / ``conv_x_*``
+    and the gated norm's scale keep its heads' channels, ``wdt`` /
+    ``A_log`` / ``D`` / ``dt_bias`` its heads, ``out_proj`` the rows of
+    its channels; ``wbc`` and ``conv_bc_*`` stay whole (every head reads
+    B and C)."""
+    d_inner, H, h0, lp = _m2_shard(cfg, par)
+    if lp is None:
+        return p
+    P = cfg.ssm.head_dim
+    ch, hd = (h0 * P, d_inner), (h0, H)
+    out = dict(p)
+    for name in ("wz", "wx", "conv_x_w"):
+        out[name] = TP.narrow(p[name], -1, *ch)
+    out["wdt"] = TP.narrow(p["wdt"], -1, *hd)
+    for name in ("A_log", "D", "dt_bias"):
+        out[name] = TP.narrow(p[name], 0, *hd)
+    for name in ("conv_x_b", "out_proj"):
+        out[name] = TP.narrow(p[name], 0, *ch)
+    out["norm"] = {**p["norm"], "scale": TP.narrow(p["norm"]["scale"], 0,
+                                                   *ch)}
+    return out
+
+
+#: the mixers whose heads the model axis splits, and their cuts
+#: (``forward``, ``decode`` and ``init_state`` then take a ``par``)
+TP_SHARDS = {"mamba2": mamba2_tp_shard}
+
+
 def _conv_tail(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The last ``d_conv - 1`` rows of ``x`` (B, S, C), a conv cache's
     contents after a prompt; zero rows stand in for positions before a
@@ -226,12 +273,15 @@ def _m2_project(p, x, cfg):
 
 
 def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                   want_cache: bool = True
+                   want_cache: bool = True, par=None
                    ) -> Tuple[torch.Tensor, MixerState]:
     """Full-sequence Mamba-2; the decode state (``None`` unless
-    ``want_cache``: a training forward stores and quantizes nothing)."""
+    ``want_cache``: a training forward stores and quantizes nothing).
+    ``par``: the rank's heads (the prefill's stored state rounds to
+    nearest, so it needs no head base)."""
     B, S, _ = x.shape
-    d_inner, H, N, P = _m2_dims(cfg)
+    _, _, N, P = _m2_dims(cfg)
+    d_inner, H, _, lp = _m2_shard(cfg, par)
     z, xin, Bv, Cv, dt_ = _m2_project(p, x, cfg)
     xin = Fn.silu(causal_conv(xin, p["conv_x_w"], p["conv_x_b"]))
     bc = Fn.silu(causal_conv(torch.cat([Bv, Cv], -1), p["conv_bc_w"],
@@ -249,8 +299,8 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y, S_fin = chunked_la_scalar(q, k, v, log_decay, cfg.ssm.chunk)
     y = y + p["D"][None, :, None, None] * xh.transpose(1, 2)
     y = y.transpose(1, 2).reshape(B, S, d_inner).to(x.dtype)
-    y = L.rmsnorm_gated(y, p["norm"]["scale"], z, cfg.norm_eps)
-    out = y @ p["out_proj"]
+    y = L.rmsnorm_gated(y, p["norm"]["scale"], z, cfg.norm_eps, lp)
+    out = TP.tp_sum(y @ p["out_proj"], lp)
     if not want_cache:
         return out, None
 
@@ -261,8 +311,11 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return out, state
 
 
-def mamba2_init_state(B: int, cfg: ModelConfig, device) -> MixerState:
-    d_inner, H, N, P = _m2_dims(cfg)
+def mamba2_init_state(B: int, cfg: ModelConfig, device,
+                      par=None) -> MixerState:
+    """Zero state of the rank's heads under ``par``."""
+    _, _, N, P = _m2_dims(cfg)
+    d_inner, H, _, _ = _m2_shard(cfg, par)
     dt = getattr(torch, cfg.param_dtype)
     tail = cfg.ssm.d_conv - 1
     return {"S": OPS.init_state(B, H, N, P, cfg.state_quant, device=device),
@@ -271,11 +324,14 @@ def mamba2_init_state(B: int, cfg: ModelConfig, device) -> MixerState:
 
 
 def mamba2_decode(p: Params, x: torch.Tensor, state: MixerState,
-                  cfg: ModelConfig, seed: int
+                  cfg: ModelConfig, seed: int, par=None
                   ) -> Tuple[torch.Tensor, MixerState]:
-    """x: (B, 1, d) one token."""
+    """x: (B, 1, d) one token.  ``par``: the rank's heads, the state
+    update's stochastic rounding counted from its first head of the
+    layer's."""
     B = x.shape[0]
-    d_inner, H, N, P = _m2_dims(cfg)
+    _, H_all, N, P = _m2_dims(cfg)
+    d_inner, H, h0, lp = _m2_shard(cfg, par)
     z, xin, Bv, Cv, dt_ = _m2_project(p, x[:, 0], cfg)
     xin, conv_x_state = causal_conv_step(xin, state["conv_x"],
                                          p["conv_x_w"], p["conv_x_b"])
@@ -294,11 +350,12 @@ def mamba2_decode(p: Params, x: torch.Tensor, state: MixerState,
     xh = xin.reshape(B, H, P)
     v = xh * dt_f[..., None]
 
-    Sn, y = _spu_state_update(state["S"], decay, k, v, q, cfg, seed)
+    with OPS.sr_heads_from(h0, H_all):
+        Sn, y = _spu_state_update(state["S"], decay, k, v, q, cfg, seed)
     y = y + p["D"][None, :, None] * xh
     y = y.reshape(B, d_inner).to(x.dtype)
-    y = L.rmsnorm_gated(y, p["norm"]["scale"], z, cfg.norm_eps)
-    out = (y @ p["out_proj"])[:, None]
+    y = L.rmsnorm_gated(y, p["norm"]["scale"], z, cfg.norm_eps, lp)
+    out = TP.tp_sum(y @ p["out_proj"], lp)[:, None]
     return out, {"S": Sn, "conv_x": conv_x_state, "conv_bc": conv_bc_state}
 
 

@@ -18,7 +18,8 @@ One registry-dispatched decode-op interface for attention and state updates
 # traffic bridge
 from repro_torch.ops.base import (LAYOUTS, OpPlan, SpuDeprecationWarning,
                                   SpuOp, StateQuantConfig, TrafficBytes,
-                                  fmt_bits, fmt_of_state, sr_row_base,
+                                  fmt_bits, fmt_of_state, sr_heads,
+                                  sr_heads_from, sr_row_base,
                                   sr_rows_from)
 from repro_torch.ops.registry import (BACKEND_PREFERENCE, OP_KINDS,
                                       backends_for, execute, get_op, plan,
@@ -40,7 +41,8 @@ from repro_torch.ops.model_traffic import (OpTrafficEntry, decode_op_plans,
 __all__ = [
     "LAYOUTS", "OpPlan", "SpuDeprecationWarning", "SpuOp",
     "StateQuantConfig", "TrafficBytes",
-    "fmt_bits", "fmt_of_state", "sr_row_base", "sr_rows_from",
+    "fmt_bits", "fmt_of_state", "sr_heads", "sr_heads_from",
+    "sr_row_base", "sr_rows_from",
     "BACKEND_PREFERENCE", "OP_KINDS", "backends_for", "execute", "get_op",
     "plan", "register", "registered", "resolve_backend", "traffic",
     "StateLike", "init_state", "plan_state_update", "plan_state_update_dims",

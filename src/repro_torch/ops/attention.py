@@ -33,7 +33,7 @@ from repro_torch.kernels.mx_quant import mx_kv_append_quant as _append_cuda
 from repro_torch.ops import registry
 from repro_torch.ops.base import (OPERAND_BYTES, OUTPUT_BYTES, OpPlan, SpuOp,
                                   StateQuantConfig, TrafficBytes,
-                                  fmt_of_state, sr_row_base)
+                                  fmt_of_state, sr_heads, sr_row_base)
 
 _U32 = 0xFFFFFFFF
 
@@ -71,7 +71,9 @@ class KVAppendCuda(_KVAppendBase):
         _append_cuda(streams, caches, cache.lengths,
                      int(inputs.get("seed", 0)) & _U32,
                      rounding=plan.rounding,
-                     row_base=inputs.get("row_base", 0))
+                     row_base=inputs.get("row_base", 0),
+                     head_base=inputs.get("head_base", 0),
+                     heads_total=inputs.get("heads_total"))
         return AC.KVCache(cache.k, cache.v, cache.lengths + k_new.shape[1],
                           cache.fmt, cache.v_width), None
 
@@ -87,14 +89,15 @@ class KVAppendTorch(_KVAppendBase):
         k_new, v_new = inputs["k"], inputs.get("v")
         seed = int(inputs.get("seed", 0)) & _U32
         row_base = inputs.get("row_base", 0)
+        head_base = inputs.get("head_base", 0)
+        heads_total = inputs.get("heads_total")
         stochastic = plan.rounding == "stochastic"
 
         def put(stream, rows, s):
             if not isinstance(stream, F.QuantizedTensor):
                 return AC._update_at(stream, rows, cache.lengths)
-            bits = (F.sr_bits(rows.shape, s,
-                              row_base * (rows.numel() // rows.shape[0]),
-                              device=rows.device)
+            bits = (F.sr_bits_at(rows.shape, s, row_base, 2, head_base,
+                                 heads_total, device=rows.device)
                     if stochastic else None)
             qr = F.quantize(rows, cache.fmt, plan.rounding, bits)
             for f, a in stream.payload.items():
@@ -221,13 +224,17 @@ def kv_append(cache, k_new: torch.Tensor, v_new: Optional[torch.Tensor],
               cfg: StateQuantConfig, seed: int = 0):
     """Append one (or n) token(s): k_new (B, n, KVH, dk); ``v_new`` None
     for a latent-only MLA cache.  In place.  Stochastic rounding counts
-    from the row base of :func:`~repro_torch.ops.base.sr_rows_from`."""
+    from the row base of :func:`~repro_torch.ops.base.sr_rows_from` and
+    the kv-head base of :func:`~repro_torch.ops.base.sr_heads_from`."""
     p = registry.plan("kv_append", _cache_dims(cache, n=k_new.shape[1]),
                       _cache_quant(cache, cfg), cfg.backend,
                       layout=_layout_of(cache))
+    head_base, heads_total = sr_heads()
     new_cache, _ = registry.execute(cache, {"k": k_new, "v": v_new,
                                             "seed": seed,
-                                            "row_base": sr_row_base()}, p)
+                                            "row_base": sr_row_base(),
+                                            "head_base": head_base,
+                                            "heads_total": heads_total}, p)
     return new_cache
 
 

@@ -76,6 +76,30 @@ def sr_row_base() -> int:
     return _SR_ROW_BASE.get()
 
 
+_SR_HEADS = contextvars.ContextVar("sr_heads", default=(0, None))
+
+
+@contextlib.contextmanager
+def sr_heads_from(head_base: int, heads_total: int) -> Iterator[None]:
+    """Within the block, the decode ops that round stochastically (state
+    update, dense and paged KV append) hold heads ``head_base ..`` of a
+    layer of ``heads_total`` heads (kv heads for an append): a
+    tensor-parallel rank's shard.  Each element then draws what the whole
+    layer's step draws for it (its flat index over every head, as under
+    GSPMD).  The tensor-parallel step sets it per layer."""
+    token = _SR_HEADS.set((int(head_base), int(heads_total)))
+    try:
+        yield
+    finally:
+        _SR_HEADS.reset(token)
+
+
+def sr_heads() -> Tuple[int, Any]:
+    """``(head_base, heads_total)`` set by :func:`sr_heads_from`; ``(0,
+    None)`` -- every head -- outside it."""
+    return _SR_HEADS.get()
+
+
 def fmt_bits(fmt: str) -> float:
     """Logical stored bits per value of ``fmt``."""
     return F.FORMAT_BITS[fmt]

@@ -29,7 +29,7 @@ state updates touch the owned slab rows.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -146,7 +146,8 @@ class _PagedKVAppendBase(SpuOp):
     def _new_rows(inputs: Dict[str, Any]):
         """The new token's K and V rows (V None for an MLA latent stream)
         and the seed, after the one-token check (and that no row base is
-        set: the paged pool serves one whole batch)."""
+        set: the paged pool serves one whole batch; a kv-head base is
+        taken, ``inputs["head_base"]`` of ``inputs["heads_total"]``)."""
         k_new, v_new = inputs["k"], inputs.get("v")
         if k_new.shape[1] != 1:
             raise ValueError(f"the paged kv_append writes one token per "
@@ -171,7 +172,9 @@ class PagedKVAppendCuda(_PagedKVAppendBase):
             streams.append(v_new.to(torch.float32))
             pools.append(cache.v)
         _paged_append_quant_cuda(streams, pools, cache.bt, cache.group,
-                                 cache.lengths, seed, rounding=plan.rounding)
+                                 cache.lengths, seed, rounding=plan.rounding,
+                                 head_base=inputs.get("head_base", 0),
+                                 heads_total=inputs.get("heads_total"))
         return dataclasses.replace(cache, lengths=cache.lengths + 1), None
 
 
@@ -183,13 +186,17 @@ class PagedKVAppendTorch(_PagedKVAppendBase):
 
     @staticmethod
     def _quant_rows(cache: PagedKVCache, new: torch.Tensor, plan: OpPlan,
-                    seed: int) -> Tuple[torch.Tensor, ...]:
+                    seed: int, inputs: Optional[Dict[str, Any]] = None
+                    ) -> Tuple[torch.Tensor, ...]:
         """(B, 1, KVH, d) -> payload rows ((B, KVH, w), ...), sorted by
         field, bit-identical to what the dense append stores for the same
-        (shape, seed)."""
+        (shape, seed, kv-head base)."""
         if not isinstance(cache.k, F.QuantizedTensor):
             return (new[:, 0],)
-        bits = (F.sr_bits(new.shape, seed, device=new.device)
+        inputs = inputs or {}
+        bits = (F.sr_bits_at(new.shape, seed, 0, 2,
+                             inputs.get("head_base", 0),
+                             inputs.get("heads_total"), device=new.device)
                 if plan.rounding == "stochastic" else None)
         q = F.quantize(new, cache.fmt, plan.rounding, bits)
         return tuple(q.payload[f][:, 0] for f in sorted(q.payload))
@@ -203,10 +210,11 @@ class PagedKVAppendTorch(_PagedKVAppendBase):
     def execute(self, cache: PagedKVCache, inputs: Dict[str, Any],
                 plan: OpPlan) -> Tuple[PagedKVCache, None]:
         k_new, v_new, seed = self._new_rows(inputs)
-        rows = self._quant_rows(cache, k_new, plan, seed)
+        rows = self._quant_rows(cache, k_new, plan, seed, inputs)
         pools = self._pools_of(cache.k)
         if v_new is not None:           # an MLA latent stream has no V
-            rows += self._quant_rows(cache, v_new, plan, (seed + 1) & _U32)
+            rows += self._quant_rows(cache, v_new, plan, (seed + 1) & _U32,
+                                     inputs)
             pools += self._pools_of(cache.v)
         _ref.paged_kv_append_ref(pools, rows, cache.bt, cache.group,
                                  cache.lengths)
@@ -240,7 +248,9 @@ class PagedStateUpdateCuda(_PagedStateUpdateBase):
                         inputs["q"], inputs.get("seed", 0),
                         rounding=plan.rounding, slabs=state.slabs,
                         group=state.group,
-                        row_base=inputs.get("row_base", 0))
+                        row_base=inputs.get("row_base", 0),
+                        head_base=inputs.get("head_base", 0),
+                        heads_total=inputs.get("heads_total"))
         return state, y
 
 
@@ -256,5 +266,7 @@ class PagedStateUpdateTorch(_PagedStateUpdateBase):
         _, y = _ref.state_update_slab_ref(
             state.pool, state.slabs, state.group, inputs["d"], inputs["k"],
             inputs["v"], inputs["q"], rounding=plan.rounding, seed=seed,
-            row_base=inputs.get("row_base", 0))
+            row_base=inputs.get("row_base", 0),
+            head_base=inputs.get("head_base", 0),
+            heads_total=inputs.get("heads_total"))
         return state, y

@@ -26,7 +26,7 @@ from repro_torch.kernels.mx_state_update import mx_state_update as _su_cuda
 from repro_torch.ops import registry
 from repro_torch.ops.base import (OPERAND_BYTES, OUTPUT_BYTES, OpPlan, SpuOp,
                                   StateQuantConfig, TrafficBytes,
-                                  fmt_of_state, sr_row_base)
+                                  fmt_of_state, sr_heads, sr_row_base)
 
 StateLike = Union[F.QuantizedTensor, torch.Tensor]
 
@@ -68,7 +68,9 @@ class StateUpdateCuda(_StateUpdateBase):
         return _su_cuda(state, inputs["d"], inputs["k"], inputs["v"],
                         inputs["q"], inputs.get("seed", 0),
                         rounding=plan.rounding,
-                        row_base=inputs.get("row_base", 0))
+                        row_base=inputs.get("row_base", 0),
+                        head_base=inputs.get("head_base", 0),
+                        heads_total=inputs.get("heads_total"))
 
 
 @registry.register
@@ -86,7 +88,9 @@ class StateUpdateTorch(_StateUpdateBase):
                                            dtype=state.dtype)
         return _ref.quantized_state_update_stored_ref(
             state, d, k, v, q, rounding=plan.rounding, seed=seed,
-            row_base=inputs.get("row_base", 0))
+            row_base=inputs.get("row_base", 0),
+            head_base=inputs.get("head_base", 0),
+            heads_total=inputs.get("heads_total"))
 
 
 def plan_state_update_dims(B: int, H: int, dk: int, dv: int,
@@ -122,9 +126,13 @@ def state_update_step(state: StateLike, d: torch.Tensor, k: torch.Tensor,
 
     d: (B,H,dk) or (B,H,1); k,q: (B,H,dk); v: (B,H,dv) -> y: (B,H,dv) f32.
     Stochastic rounding counts from the row base of
-    :func:`~repro_torch.ops.base.sr_rows_from`.
+    :func:`~repro_torch.ops.base.sr_rows_from` and the head base of
+    :func:`~repro_torch.ops.base.sr_heads_from`.
     """
     p = plan_state_update(state, cfg)
+    head_base, heads_total = sr_heads()
     return registry.execute(state, {"d": d, "k": k, "v": v, "q": q,
                                     "seed": seed,
-                                    "row_base": sr_row_base()}, p)
+                                    "row_base": sr_row_base(),
+                                    "head_base": head_base,
+                                    "heads_total": heads_total}, p)

@@ -204,17 +204,27 @@ def _rid_of(handle) -> int:
 
 class Engine:
     """The one serving facade over both backends; runs where ``params``
-    live (the card unless they were made on the CPU)."""
+    live (the card unless they were made on the CPU).
+
+    ``par`` (a ``dist.sharding.Parallel`` of a model axis alone, JAX's
+    ``mesh_axes``) serves tensor-parallel: every rank of the model group
+    builds an Engine from the same whole ``params`` and submits the same
+    requests; each keeps and computes its heads (GQA attention, Mamba-2,
+    the dense FFNs), and every rank's host side -- scheduler, block
+    tables, prefix store, tiers, drafts, sampler -- takes the same
+    decisions, since the logits after each step's sums are the same bits
+    on every rank."""
 
     def __init__(self, params, cfg: ModelConfig,
                  scfg: ServeConfig = ServeConfig(),
-                 obs: Optional[Observability] = None):
+                 obs: Optional[Observability] = None, par=None):
         self.scfg = scfg
         ecfg = scfg.engine_config()
         if scfg.backend == "slots":
-            self._eng = ServingEngine(params, cfg, ecfg, obs=obs)
+            self._eng = ServingEngine(params, cfg, ecfg, obs=obs, par=par)
         else:
-            self._eng = PagedServingEngine(params, cfg, ecfg, obs=obs)
+            self._eng = PagedServingEngine(params, cfg, ecfg, obs=obs,
+                                           par=par)
         self._rids = itertools.count()
 
     @property

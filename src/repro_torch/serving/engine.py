@@ -51,6 +51,7 @@ import torch
 from repro_torch import ops as OPS
 from repro_torch.core import pimsim
 from repro_torch.core.paged import PAGE_TOKENS, pages_for
+from repro_torch.dist import sharding as SH
 from repro_torch.kernels import _build
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -149,6 +150,22 @@ class _OpTrafficMeter:
 # ===========================================================================
 # Shared stepper core
 # ===========================================================================
+
+
+def tensor_parallel(params, cfg: ModelConfig, par):
+    """The parameters an engine serves under ``par`` (a
+    ``dist.sharding.Parallel``, JAX's ``mesh_axes``): this rank's
+    (:func:`~repro_torch.dist.sharding.tp_params`; the whole tree without
+    ``par``).  The engines split the model axis alone: a ``par`` whose
+    data axes hold more than one rank is refused."""
+    if par is None:
+        return params
+    if par.batch_size_divisor > 1:
+        raise ValueError(
+            f"the serving engines take a model axis alone, got data axes "
+            f"{par.data_axes} of {par.batch_size_divisor} ranks (ROADMAP.md "
+            "§1 item 4.1, its queue: data axes inside the engines)")
+    return SH.tp_params(params, cfg, par)
 
 
 def refuse_unservable(cfg: ModelConfig) -> None:
@@ -382,9 +399,9 @@ class ServingEngine(_EngineCore):
     backend = "slots"
 
     def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig,
-                 obs: Optional[Observability] = None):
+                 obs: Optional[Observability] = None, par=None):
         super().__init__(cfg, obs)
-        self.params = params
+        self.params = tensor_parallel(params, cfg, par)
         self.ecfg = ecfg
         self.device = M.params_device(params)
         if cfg.pos_emb == "learned" and ecfg.cache_capacity > M.POS_ROWS:
@@ -393,7 +410,7 @@ class ServingEngine(_EngineCore):
                 f"{M.POS_ROWS} rows of {cfg.name}'s learned position table")
         B = ecfg.slots
         self.caches = M.init_decode_caches(cfg, B, ecfg.cache_capacity,
-                                           device=self.device)
+                                           device=self.device, par=par)
         # host-side mirror of per-slot lengths: the engine is the writer of
         # record, so it streams host->device with the decode call instead
         # of being read back every step
@@ -405,11 +422,11 @@ class ServingEngine(_EngineCore):
         self.queue: List[Request] = []
         self._gen = torch.Generator(device=self.device).manual_seed(ecfg.seed)
         self._traffic = _OpTrafficMeter(cfg, metrics=self.obs.metrics)
-        self.obs.recompiles.fixed(params)
-        self._decode = self.obs.wrap_step(partial(M.decode_step, cfg=cfg),
-                                          "engine.decode")
-        self._prefill = self.obs.wrap_step(partial(M.prefill, cfg=cfg),
-                                           "engine.prefill")
+        self.obs.recompiles.fixed(self.params)
+        self._decode = self.obs.wrap_step(
+            partial(M.decode_step, cfg=cfg, par=par), "engine.decode")
+        self._prefill = self.obs.wrap_step(
+            partial(M.prefill, cfg=cfg, par=par), "engine.prefill")
 
     def _enqueue(self, req: Request):
         self.queue.append(req)
@@ -571,9 +588,9 @@ class PagedServingEngine(_EngineCore):
     backend = "paged"
 
     def __init__(self, params, cfg: ModelConfig, pcfg: PagedEngineConfig,
-                 obs: Optional[Observability] = None):
+                 obs: Optional[Observability] = None, par=None):
         super().__init__(cfg, obs)
-        self.params = params
+        self.params = tensor_parallel(params, cfg, par)
         self.pcfg = pcfg
         self.device = M.params_device(params)
         self.pool = TieredStatePool(
@@ -581,9 +598,9 @@ class PagedServingEngine(_EngineCore):
             n_slabs=pcfg.n_slabs, byte_budget=pcfg.byte_budget,
             device=self.device, host_tier_bytes=pcfg.host_tier_bytes,
             prefix_cache=pcfg.prefix_cache,
-            prefix_store_pages=pcfg.prefix_store_pages)
+            prefix_store_pages=pcfg.prefix_store_pages, par=par)
         self.pool.attach_obs(self.obs)
-        self.obs.recompiles.fixed(params)
+        self.obs.recompiles.fixed(self.params)
         self.sched = Scheduler(pcfg.scheduler)
         self.sched.obs = self.obs
         self.active: Dict[int, _Active] = {}
@@ -611,8 +628,8 @@ class PagedServingEngine(_EngineCore):
         #: rid -> consecutive failed admission attempts (degradation rung)
         self._admit_fails: Dict[int, int] = {}
         self._gen = torch.Generator(device=self.device).manual_seed(pcfg.seed)
-        self._prefill = self.obs.wrap_step(partial(M.prefill, cfg=cfg),
-                                           "engine.prefill")
+        self._prefill = self.obs.wrap_step(
+            partial(M.prefill, cfg=cfg, par=par), "engine.prefill")
         if pages_for(pcfg.prefill_chunk) > self.pool.usable_pages:
             raise ValueError("prefill_chunk does not fit the page pool")
         # --- speculative decoding (serving/spec) ---

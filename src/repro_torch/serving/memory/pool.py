@@ -25,6 +25,12 @@ victim's private pages + slab to host memory bit-exactly (pinned on the
 card, CRC-checked); resume re-pins them to fresh physical ids.  The host
 tier, async prefetch and the prefix store extend this class in
 :mod:`.tiered`.
+
+Under tensor parallelism (``par``) each rank's pool holds its heads of
+every page and slab (``models.model.init_decode_caches(..., par=)``) and
+its steps run the tensor-parallel model step; the block tables, slab ids
+and every other host-side decision are the same on every rank, so spill,
+resume and the host tier move each rank's own pages.
 """
 from __future__ import annotations
 
@@ -45,37 +51,37 @@ from repro_torch.serving.memory.placement import (BankAwarePlacement,
 from repro_torch.serving.resilience import crc_blob, verify_blob
 
 
-def _paged_step(paging: CachePaging, cfg: ModelConfig, params, pools, bt,
-                slabs, lengths, tokens, seed) -> torch.Tensor:
+def _paged_step(paging: CachePaging, cfg: ModelConfig, par, params, pools,
+                bt, slabs, lengths, tokens, seed) -> torch.Tensor:
     """Block-table-native step: the layout="paged" ops read pages and slab
     rows where they live and write the new token / state back in place --
     no gathered dense cache exists in the steady-state loop."""
     views = paging.paged_view(pools, bt, slabs, lengths)
     logits, views = M.paged_decode_step(params, cfg, tokens, views, lengths,
-                                        seed=seed)
+                                        seed=seed, par=par)
     paging.commit(pools, views, slabs)
     return logits
 
 
-def _spec_step(paging: CachePaging, cfg: ModelConfig, params, pools, bt,
-               slabs, lengths, tokens, seed):
+def _spec_step(paging: CachePaging, cfg: ModelConfig, par, params, pools,
+               bt, slabs, lengths, tokens, seed):
     """Speculative verify step: tokens (B, n) through the paged caches in
     one pass; the per-position state snapshots come back so ``commit_spec``
     can roll rejected positions back bit-exactly."""
     views = paging.paged_view(pools, bt, slabs, lengths)
     logits, views, snaps = M.paged_spec_decode_step(
-        params, cfg, tokens, views, lengths, seed=seed)
+        params, cfg, tokens, views, lengths, seed=seed, par=par)
     paging.commit(pools, views, slabs)
     return logits, snaps
 
 
-def _gather_step(paging: CachePaging, cfg: ModelConfig, params, pools, bt,
-                 slabs, lengths, tokens, seed) -> torch.Tensor:
+def _gather_step(paging: CachePaging, cfg: ModelConfig, par, params, pools,
+                 bt, slabs, lengths, tokens, seed) -> torch.Tensor:
     """Dense-gather reference step: gather the context, run the dense ops,
     scatter one token back (bit-exact parity checks)."""
     caches = paging.gather(pools, bt, slabs, lengths)
     logits, caches = M.decode_step(params, cfg, tokens, caches, lengths,
-                                   seed=seed)
+                                   seed=seed, par=par)
     paging.scatter_step(pools, caches, bt, slabs, lengths)
     return logits
 
@@ -116,13 +122,13 @@ class PagedStatePool:
     Page id 0 and slab id 0 are reserved scratch targets for idle decode
     rows; usable capacity is ``n_pages - 1`` pages / ``n_slabs - 1`` slabs.
     The pools live on ``device`` (the card unless the caller asks for the
-    CPU).
+    CPU); under ``par`` (tensor parallelism) they hold this rank's heads.
     """
 
     def __init__(self, cfg: ModelConfig, n_pages: Optional[int] = None,
                  n_slabs: int = 9, byte_budget: Optional[int] = None,
                  topology: Optional[BankTopology] = None,
-                 decode_mode: str = "paged", device=None):
+                 decode_mode: str = "paged", device=None, par=None):
         if decode_mode not in ("paged", "gather"):
             raise ValueError(f"decode_mode must be 'paged' or 'gather', got "
                              f"{decode_mode!r}")
@@ -130,7 +136,8 @@ class PagedStatePool:
         self.decode_mode = decode_mode
         self.device = M.resolve_device(device)
         self.paging = CachePaging(
-            M.init_decode_caches(cfg, 1, PAGE_TOKENS, device=self.device))
+            M.init_decode_caches(cfg, 1, PAGE_TOKENS, device=self.device,
+                                 par=par))
 
         if byte_budget is not None:
             if n_pages is not None:
@@ -149,10 +156,10 @@ class PagedStatePool:
         # recompile watcher around each, under the JAX package's site names.
         # None holds the pool itself: a pool dropped by its engine frees its
         # device memory at once, without waiting for the cycle collector
-        self._decode = partial(_paged_step, self.paging, cfg)
-        self._decode_spec = partial(_spec_step, self.paging, cfg)
+        self._decode = partial(_paged_step, self.paging, cfg, par)
+        self._decode_spec = partial(_spec_step, self.paging, cfg, par)
         self._commit_spec = self.paging.commit_select
-        self._decode_gather = partial(_gather_step, self.paging, cfg)
+        self._decode_gather = partial(_gather_step, self.paging, cfg, par)
         self._insert = self.paging.insert_request
         self._insert_blob = self.paging.insert_blob
         if topology is None:

@@ -1190,6 +1190,144 @@ def test_dense_append_row_base_draws_the_whole_batchs_bits(cuda, KVH, w,
             assert torch.equal(p.payload[f], want.payload[f]), f
 
 
+#: (ranks, rank): a tensor-parallel rank's shard of a layer's heads
+TP_SHARDS = [(2, 1), (4, 3)]
+
+
+def _head_shard(qt, h0, n, dim):
+    return F.QuantizedTensor("mx8", tuple(
+        n if i == dim else e for i, e in enumerate(qt.shape)),
+        {f: a.narrow(dim, h0, n).clone() for f, a in qt.payload.items()})
+
+
+@pytest.mark.parametrize("tp,rank", TP_SHARDS)
+@pytest.mark.parametrize("slab", [False, True], ids=["dense", "slab"])
+def test_state_update_kernel_head_base_draws_the_whole_layers_bits(
+        cuda, tp, rank, slab):
+    """Kernel 1 on a tensor-parallel rank's heads of zamba2's Mamba-2 layer
+    (80 heads of (64, 64): 40 or 20 a rank) with ``head_base`` at its
+    first head: bitwise the whole layer's launch on those heads, dense and
+    slab mode, and within the state update's contract of its plain
+    version with the same head base."""
+    B, H, dk, dv = 4, 80, 64, 64
+    qS, d, k, v, q = _su_inputs(B, H, dk, dv, cuda, scalar_decay=True)
+    n = H // tp
+    h0 = rank * n
+    sh = lambda t: t[:, h0:h0 + n].contiguous()
+    kw, dim = {}, 1
+    if slab:                               # slab pool (6, 2, H, dv, dk)
+        g = torch.Generator(device=cuda).manual_seed(3)
+        qS = F.mx8_quantize(torch.randn((6, 2, H, dv, dk), generator=g,
+                                        device=cuda))
+        kw = dict(slabs=torch.tensor([4, 1, 5, 2], dtype=torch.int32,
+                                     device=cuda), group=1)
+        dim = 2
+    part = _head_shard(qS, h0, n, dim)
+    qw, yw = KS.mx_state_update(qS.clone(), d, k, v, q, seed=5, **kw)
+    qk, yk = KS.mx_state_update(part.clone(), sh(d), sh(k), sh(v), sh(q),
+                                seed=5, head_base=h0, heads_total=H, **kw)
+    cpu = F.QuantizedTensor("mx8", part.shape, {
+        f: a.cpu() for f, a in part.payload.items()})
+    qp, yp = KS.mx_state_update(cpu, *(sh(t).cpu() for t in (d, k, v, q)),
+                                seed=5, head_base=h0, heads_total=H,
+                                **{a: (b.cpu() if torch.is_tensor(b) else b)
+                                   for a, b in kw.items()})
+    torch.cuda.synchronize()
+    for f in qk.payload:
+        assert torch.equal(qk.payload[f], qw.payload[f].narrow(dim, h0, n)), f
+    assert torch.equal(yk, yw[:, h0:h0 + n])
+    rows = ((lambda a: a) if not slab
+            else (lambda a: a[kw["slabs"].long(), kw["group"]]))
+    _assert_state_update_contract(
+        {f: rows(a.cuda()) for f, a in qp.payload.items()}, yp.cuda(),
+        {f: rows(a) for f, a in qk.payload.items()}, yk)
+
+
+@pytest.mark.parametrize("tp,rank", TP_SHARDS)
+def test_dense_append_head_base_draws_the_whole_layers_bits(cuda, tp, rank):
+    """The dense append of a rank's kv heads of zamba2's shared attention
+    (32 of width 80: 16 or 8 a rank) with ``head_base`` at its first:
+    every cache byte equal to the whole layer's append on those heads and
+    to the plain version's with the same head base."""
+    from repro_torch.kernels import mx_quant as KQ
+    caches, rows, lens = _dense_append_case(cuda, 32, 80, 2, 1)
+    n = 32 // tp
+    h0 = rank * n
+    part = [_head_shard(c, h0, n, 2) for c in caches]
+    plain = [_head_shard(c, h0, n, 2) for c in caches]
+    mine = [r[:, :, h0:h0 + n].contiguous() for r in rows]
+    KQ.mx_kv_append_quant(rows, caches, lens, 17, rounding="stochastic")
+    KQ.mx_kv_append_quant(mine, part, lens, 17, rounding="stochastic",
+                          head_base=h0, heads_total=32)
+    KQ.plain_append(mine, plain, lens, 17, "stochastic", 0, h0, 32)
+    torch.cuda.synchronize()
+    for c, p, want in zip(caches, part, plain):
+        for f in p.payload:
+            assert torch.equal(p.payload[f],
+                               c.payload[f].narrow(2, h0, n)), f
+            assert torch.equal(p.payload[f], want.payload[f]), f
+
+
+@pytest.mark.parametrize("tp,rank", TP_SHARDS)
+def test_paged_append_head_base_draws_the_whole_layers_bits(cuda, tp, rank):
+    """The fused paged append of a rank's kv heads of zamba2's shared
+    attention with ``head_base``: every pool byte equal to the whole
+    layer's append on those heads and to the plain version's."""
+    from repro_torch.kernels import mx_paged_attention as KP
+    _, K, V, bt, lengths = _paged_kv(cuda, (0, 127, 128, 1000), 3, 32, 80,
+                                     32, seed=3)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    rows = [torch.randn((4, 1, 32, 80), generator=g, device=cuda)
+            for _ in "kv"]
+    n = 32 // tp
+    h0 = rank * n
+    part = [_head_shard(p, h0, n, 3) for p in (K, V)]
+    plain = [_head_shard(p, h0, n, 3) for p in (K, V)]
+    mine = [r[:, :, h0:h0 + n].contiguous() for r in rows]
+    KP.mx_paged_kv_append_quant(rows, [K, V], bt, 2, lengths, 0xFFFFFFFF)
+    KP.mx_paged_kv_append_quant(mine, part, bt, 2, lengths, 0xFFFFFFFF,
+                                head_base=h0, heads_total=32)
+    KP.plain_append_quant(mine, plain, bt, 2, lengths, 0xFFFFFFFF,
+                          "stochastic", h0, 32)
+    torch.cuda.synchronize()
+    for w, p, want in zip((K, V), part, plain):
+        for f in p.payload:
+            assert torch.equal(p.payload[f], w.payload[f].narrow(3, h0, n)), f
+            assert torch.equal(p.payload[f], want.payload[f]), f
+
+
+@pytest.mark.parametrize("tp,rank", TP_SHARDS)
+def test_attention_kernels_on_a_kv_head_shard_are_the_whole_launchs(
+        cuda, tp, rank):
+    """Kernels 2, 3 and 5 on a rank's kv heads of zamba2's shared attention
+    (and their query heads): bitwise the whole launch's rows of those
+    heads (the grid's split count does not depend on the kv heads)."""
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    lens = (1100, 127, 257, 384)
+    q, K, V, bt, lengths = _paged_kv(cuda, lens, 3, 32, 80, 32, seed=11)
+    n = 32 // tp
+    h0 = rank * n
+    Ks, Vs = (_head_shard(p, h0, n, 3) for p in (K, V))
+    qs = q[:, h0:h0 + n].contiguous()
+    Kd, Vd = R.gather_pages(K, bt, 1), R.gather_pages(V, bt, 1)
+    y2 = KA.mx_attention_decode(q, Kd, Vd, lengths)
+    y2s = KA.mx_attention_decode(qs, _head_shard(Kd, h0, n, 2),
+                                 _head_shard(Vd, h0, n, 2), lengths)
+    y3 = KP.mx_paged_attention_decode(q, K, V, bt, 1, lengths)
+    y3s = KP.mx_paged_attention_decode(qs, Ks, Vs, bt, 1, lengths)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q5 = torch.randn((4, 4, 32, 80), generator=g, device=cuda)
+    y5 = KV.mx_paged_spec_attention_decode(q5, K, V, bt, 1, lengths)
+    y5s = KV.mx_paged_spec_attention_decode(
+        q5[:, :, h0:h0 + n].contiguous(), Ks, Vs, bt, 1, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(y2s, y2[:, h0:h0 + n])
+    assert torch.equal(y3s, y3[:, h0:h0 + n])
+    assert torch.equal(y5s, y5[:, :, h0:h0 + n])
+
+
 def test_dense_append_replays_in_a_cuda_graph_bitwise(cuda):
     """Ten appends of K and V at yi-9b's widths (n = 1; the rows and
     lengths written in place between them, as a decode step would) from a

@@ -14,7 +14,14 @@ and against the JAX package (which the ranks never import):
 * MoE expert parallelism at dbrx's smoke size against JAX's ``_moe_local``
   under ``jax.vmap(axis_name=...)`` one data shard at a time, and its
   gradients against the unsharded MoE's where no expert overflows;
-* sharded prefill + decode of zamba2 against the single-device steps;
+* sharded prefill + decode of zamba2 (data rows and tp = 2 through
+  ``sharded_decode_step``; data rows alone, bitwise) and of dbrx (expert
+  and tensor parallelism) against the single-device steps and JAX's;
+* tensor-parallel serving at (1, 4): zamba2's attention, Mamba-2 and FFN
+  against JAX's modules, prefill + decode through ``decode_step`` and the
+  paged pool against JAX's model, the slot, paged (with a preemption) and
+  paged + n-gram engines against the single-device engines, and a rank's
+  weight and pool bytes;
 * the compressed all-reduce over the 'pod' axis against JAX's ``pmean``;
 * a checkpoint saved at (2, 2) restored bitwise at (4, 1) and (1, 4);
 * a dim sharded over ("data", "model") in JAX's major-to-minor order.
@@ -30,10 +37,17 @@ import pytest
 import torch
 
 from conftest import subprocess_env
+from repro import ops as JOPS
 from repro.configs import get_smoke_config as j_smoke
 from repro.dist import compression as JCOMP
+from repro.models import attention as JATT
 from repro.models import layers as JL
+from repro.models import model as JM
+from repro.models import ssm as JSSM
+from repro_torch import ops as TOPS
 from repro_torch.configs import get_smoke_config as t_smoke
+from repro_torch.models.convert import params_from_jax
+from repro_torch.serving.api import Engine, ServeConfig
 from repro_torch.core import tree as T
 from repro_torch.data.pipeline import make_batch_fn
 from repro_torch.launch.mesh import local_init_method
@@ -46,6 +60,15 @@ WORLD = 4
 SEQ, BATCH = 32, 4
 MOE_X = (4, 16)                       # dbrx's (batch, seq) for the EP test
 DECODE = dict(B=4, S=16, steps=4)
+#: the tensor-parallel engines: (name, ServeConfig keywords, (prompt name,
+#: new tokens) per request); the paged run's two requests each grow a
+#: second page in a pool of 2 usable pages, so one is preempted
+ENGINES = [("slots", dict(backend="slots", batch=2),
+            (("p5", 4), ("p8", 4))),
+           ("paged", dict(batch=2, n_pages=3, prefill_chunk=128),
+            (("p125", 6), ("p124", 6))),
+           ("ngram", dict(batch=2, spec="ngram"),
+            (("rep", 5), ("p8", 4)))]
 
 _RANKS = r'''
 import os, sys
@@ -65,6 +88,7 @@ from repro_torch.core import tree as T
 from repro_torch.data.pipeline import make_batch_fn
 from repro_torch.dist import compression as C
 from repro_torch.dist import sharding as SH
+from repro_torch.dist import tp as TP
 from repro_torch.launch.mesh import make_local_parallel
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
@@ -120,31 +144,144 @@ for tag, cf in (("moe", None), ("moe_nodrop", 8.0)):
         res[f"{tag}_g{k}"] = p[k].grad.numpy()
     res[f"{tag}_gx"] = x.grad.numpy()
 
-# 3. sharded prefill + greedy decode of zamba2, at its stochastic rounding
-# and at round-to-nearest
+# 3. sharded prefill + decode (parameters, batch and caches in their
+# layouts): zamba2 (JAX's weights; the tokens JAX's fp32 greedy run fed)
+# at (2, 2), data rows and tp = 2, at its stochastic rounding, at
+# round-to-nearest and at fp32 state, and at (4, 1), data rows alone;
+# dbrx (MoE) at (1, 4) and (2, 2), its parameters at rest in the serving
+# layout and in the training one
+from repro_torch import ops as OPS
 zcfg = get_smoke_config("zamba2-2.7b")
+zw = torch.load(os.path.join(out, "zamba2.pt"))
 tok = torch.from_numpy(np.load(os.path.join(out, "decode_in.npy")))
+feed = torch.from_numpy(np.load(os.path.join(out, "feed.npy")))
 B, S = tok.shape
-for tag, rounding in (("sr", "stochastic"), ("rn", "nearest")):
-    c = zcfg.with_(state_quant=zcfg.state_quant.__class__(
-        zcfg.state_quant.fmt, rounding, zcfg.state_quant.backend))
-    zp = M.init_model(c, g(0), device="cpu")
-    zp = SH.distribute(zp, SH.param_shardings(zp, c, par))
+QUANT = {"sr": ("mx8", "stochastic", "cuda"), "rn": ("mx8", "nearest", "cuda"),
+         "fp32": ("fp32", "nearest", "torch")}
+zc = {t: zcfg.with_(state_quant=OPS.StateQuantConfig(*q))
+      for t, q in QUANT.items()}
+
+def sharded_run(params, c, p_layout, tok, feed, par):
+    """Prefill + decode steps through the sharded steps: every step's
+    whole logits."""
+    lengths = torch.full((tok.shape[0],), tok.shape[1], dtype=torch.int32)
+    sp = SH.distribute(params, p_layout(params, c, par))
     tb = SH.distribute({"tokens": tok},
                        SH.batch_shardings({"tokens": tok}, par))
-    logits, caches = SH.sharded_prefill(zp, c, tb, par)
-    lengths = torch.full((B,), S, dtype=torch.int32)
+    logits, caches = SH.sharded_prefill(sp, c, tb, par)
     ln_layout = SH.batch_shardings(lengths, par)
     step_logits = [logits.full_tensor().numpy()]
-    nxt = torch.argmax(logits.full_tensor(), -1)
-    for s in range(%(STEPS)d):
-        t_d = SH.distribute(nxt, ln_layout)
+    for s in range(len(feed)):
+        t_d = SH.distribute(feed[s], ln_layout)
         l_d = SH.distribute(lengths + s, ln_layout)
-        logits, caches = SH.sharded_decode_step(zp, c, t_d, caches, l_d, par,
+        logits, caches = SH.sharded_decode_step(sp, c, t_d, caches, l_d, par,
                                                 seed=5 + s)
         step_logits.append(logits.full_tensor().numpy())
-        nxt = torch.argmax(logits.full_tensor(), -1)
-    res[f"decode_{tag}"] = np.stack(step_logits)
+    return np.stack(step_logits)
+
+for tag in ("sr", "rn", "fp32"):
+    res[f"decode_{tag}"] = sharded_run(zw, zc[tag], SH.serving_param_shardings,
+                                       tok, feed, par)
+rows = np.load(os.path.join(out, "rows_in.npz"))
+par41 = make_local_parallel(4, 1, device_type="cpu")
+for tag in ("sr", "rn"):
+    res[f"decode41_{tag}"] = sharded_run(
+        zw, zc[tag], SH.serving_param_shardings,
+        torch.from_numpy(rows["tok"]), torch.from_numpy(rows["feed"]), par41)
+mcfg = get_smoke_config("dbrx-132b")
+mcfg = mcfg.with_(state_quant=OPS.StateQuantConfig(*QUANT["fp32"]),
+                  moe=mcfg.moe.__class__(**{**mcfg.moe.__dict__,
+                                            "capacity_factor": 8.0}))
+mw = M.init_model(mcfg, g(0), device="cpu")
+for shape, lay in (((1, 4), "serving_param_shardings"),
+                   ((2, 2), "param_shardings")):
+    res[f"moe_decode_{shape[0]}x{shape[1]}"] = sharded_run(
+        mw, mcfg, getattr(SH, lay), tok, feed,
+        make_local_parallel(*shape, device_type="cpu"))
+lengths = torch.full((B,), S, dtype=torch.int32)
+
+# 7. tensor-parallel serving at (1, 4): the modules, the model steps
+# (dense and paged), the engines, a rank's bytes
+from repro_torch.models import attention as ATT
+from repro_torch.models import ssm as SSM
+from repro_torch.serving import engine as E
+from repro_torch.serving.api import Engine, ServeConfig
+from repro_torch.serving.memory import PagedStatePool
+par4 = make_local_parallel(1, 4, device_type="cpu")
+mod = np.load(os.path.join(out, "tp_in.npz"))
+x, x1 = torch.from_numpy(mod["x"]), torch.from_numpy(mod["x1"])
+Bm, Sm = x.shape[:2]
+pos = torch.arange(Sm)[None].expand(Bm, Sm)
+pos1 = torch.full((Bm, 1), Sm)
+
+def payload(prefix, tree):
+    return {f"{prefix}{i}": a.numpy() for i, a in enumerate(T.leaves(tree))}
+
+for tag in ("fp32", "sr"):
+    c = zc[tag]
+    p = SH.tp_params(zw, c, par4)
+    a = p["shared"]["attn"]
+    y0, cache = M._attn_block_forward(a, x, c, pos, 0, True, par4)
+    y1, cache = ATT.attention_decode(a, x1, cache, c, pos1, 7, par4)
+    res[f"tp_{tag}_attn"] = torch.cat([y0, y1], 1).numpy()
+    res.update(payload(f"tp_{tag}_kv", (cache.k, cache.v)))
+    m2 = p["groups"][0][0]["mixer"]
+    y0, st = SSM.mamba2_forward(m2, x, c, par=par4)
+    y1, st = SSM.mamba2_decode(m2, x1, st, c, 9, par=par4)
+    res[f"tp_{tag}_m2"] = torch.cat([y0, y1], 1).numpy()
+    res.update(payload(f"tp_{tag}_S", st["S"]))
+    res[f"tp_{tag}_ffn"] = L.apply_ffn(p["shared"]["ffn"], x, c.ffn_kind,
+                                       TP.layer_par(c.d_ff, par4)).numpy()
+    # prefill + decode steps: decode_step, and the paged pool
+    logits, caches = M.prefill(p, c, {"tokens": tok}, par=par4)
+    dense = [logits]
+    for s in range(%(STEPS)d):
+        logits, caches = M.decode_step(p, c, feed[s], caches, lengths + s,
+                                       seed=5 + s, par=par4)
+        dense.append(logits)
+    res[f"tp_dense_{tag}"] = torch.stack(dense).numpy()
+    pool = PagedStatePool(c, n_pages=B + 1, n_slabs=B + 1, device="cpu",
+                          par=par4)
+    paged = []
+    for b in range(B):
+        assert pool.register(b, 1)
+        logits, rc = M.prefill(p, c, {"tokens": tok[b:b + 1]}, par=par4)
+        pool.insert_prefill(b, rc)
+        paged.append(logits[0])
+    paged = [torch.stack(paged)]
+    for s in range(%(STEPS)d):
+        paged.append(pool.decode(p, list(range(B)), feed[s].numpy(),
+                                 (lengths + s).numpy(), 5 + s))
+    res[f"tp_paged_{tag}"] = torch.stack(paged).numpy()
+    if tag == "sr":                  # a rank's bytes against tp = 1
+        whole = PagedStatePool(c, n_pages=B + 1, n_slabs=B + 1,
+                               device="cpu")
+        for k, pl in (("tp", pool), ("whole", whole)):
+            res[f"pool_{k}"] = np.asarray([t.numel() * t.element_size()
+                                           for t in pl.pools])
+        for k, w in (("tp", p), ("whole", zw)):
+            res[f"weights_{k}"] = np.asarray([t.numel() for t in
+                                              T.leaves(w)])
+
+# the engines at fp32 state, every sampled step's logits recorded
+eng_in = np.load(os.path.join(out, "engines_in.npz"))
+seen = []
+sample = E.sample
+def recording(logits, *a, **k):
+    seen.append(logits.detach().clone().reshape(-1, logits.shape[-1]))
+    return sample(logits, *a, **k)
+E.sample = recording
+for name, kw, prompts in %(ENGINES)s:
+    seen.clear()
+    eng = Engine(zw, zc["fp32"], ServeConfig(**kw), par=par4)
+    hs = [eng.submit(eng_in[pr], max_new_tokens=n) for pr, n in prompts]
+    eng.run()
+    res[f"eng_{name}"] = np.concatenate([np.asarray(h.result().output)
+                                         for h in hs])
+    res[f"eng_{name}_logits"] = torch.cat(seen).numpy()
+    res[f"eng_{name}_preempt"] = np.asarray(
+        eng.stats().get("preemptions", 0))
+E.sample = sample
 
 # 4. the compressed all-reduce over a 4-rank 'pod' axis
 from repro_torch.dist.compat import init_device_mesh
@@ -180,7 +317,7 @@ res["major_minor"] = SH.distribute(
 np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
 dist.barrier()
 dist.destroy_process_group()
-''' % dict(SEQ=SEQ, BATCH=BATCH, STEPS=DECODE["steps"])
+''' % dict(SEQ=SEQ, BATCH=BATCH, STEPS=DECODE["steps"], ENGINES=repr(ENGINES))
 
 
 def _moe_cfgs(capacity_factor=None):
@@ -208,6 +345,12 @@ def ranks(tmp_path_factory):
     zc = t_smoke("zamba2-2.7b")
     tok = r.integers(0, zc.vocab_size, (DECODE["B"], DECODE["S"]))
     np.save(out / "decode_in.npy", tok)
+    np.savez(out / "rows_in.npz", **ROWS)
+    jz = _zamba2_jax(tok)
+    torch.save(jz["tparams"], out / "zamba2.pt")
+    np.save(out / "feed.npy", jz["feed"])
+    np.savez(out / "tp_in.npz", x=jz["x"], x1=jz["x1"])
+    np.savez(out / "engines_in.npz", **ENGINE_PROMPTS)
     grads = np.asarray(jax.random.normal(jax.random.PRNGKey(0),
                                          (WORLD, 64, 32)))
     np.save(out / "comp_in.npy", grads)
@@ -236,7 +379,100 @@ def ranks(tmp_path_factory):
         assert proc.returncode == 0, f"rank {i}:\n{text[-4000:]}"
     print(f"four gloo ranks: {time.perf_counter() - t0:.1f} s")
     res = [dict(np.load(out / f"rank{i}.npz")) for i in range(WORLD)]
-    return res, dict(moe=(p, x, cot), tok=tok, grads=grads)
+    return res, dict(moe=(p, x, cot), tok=tok, grads=grads, zamba2=jz)
+
+
+#: the data-rows-only decode at (4, 1): two rows a rank, as the whole
+#: batch's products are bitwise its rows' on the CPU then (a lone row
+#: takes the BLAS's one-row path, whose sums run in another order)
+_RW = np.random.default_rng(11)
+ROWS = {"tok": _RW.integers(0, 512, (8, 16)),
+        "feed": _RW.integers(0, 512, (DECODE["steps"], 8))}
+
+#: the engines' prompts (numpy's generator, seed 9)
+_PR = np.random.default_rng(9)
+ENGINE_PROMPTS = {"p5": _PR.integers(0, 512, 5), "p8": _PR.integers(0, 512, 8),
+                  "p125": _PR.integers(0, 512, 125),
+                  "p124": _PR.integers(0, 512, 124),
+                  "rep": np.tile(_PR.integers(0, 512, 4), 4)}
+
+
+def _zcfgs():
+    """zamba2's smoke configs, JAX's and the port's, at fp32 state and at
+    MX8 with stochastic rounding (JAX: ``jnp``; the port: its kernels'
+    plain versions on the CPU)."""
+    out = {}
+    for tag, fmt, jb, tb in (("fp32", "fp32", "jnp", "torch"),
+                             ("sr", "mx8", "jnp", "cuda")):
+        out[tag] = (j_smoke("zamba2-2.7b").with_(
+            state_quant=JOPS.StateQuantConfig(fmt, "stochastic", jb)),
+            t_smoke("zamba2-2.7b").with_(
+                state_quant=TOPS.StateQuantConfig(fmt, "stochastic", tb)))
+    return out
+
+
+def _zamba2_jax(tok):
+    """JAX's side of the tensor-parallel cases, before the ranks start:
+    the weights (and their port copy), the fp32 greedy run's tokens
+    (every decode run is fed them), prefill + decode logits at fp32 and
+    MX8 SR state, and the modules' outputs and stored states on one
+    input."""
+    cf = _zcfgs()
+    tparams = TM.init_model(cf["fp32"][1], torch.Generator().manual_seed(0),
+                            device="cpu")
+    # the JAX package's layout: each pattern position's layers stacked
+    tree = {k: v for k, v in tparams.items() if k != "groups"}
+    tree["groups"] = [{k: v for k, v in T.unflatten(
+        tparams["groups"][0][pos], [torch.stack(xs) for xs in zip(*(
+            T.leaves(g[pos]) for g in tparams["groups"]))]).items()}
+        for pos in range(len(cf["fp32"][1].pattern))]
+    jparams = jax.tree.map(lambda t: jnp.asarray(t.numpy()), tree)
+    out = {"tparams": params_from_jax(jax.tree.map(np.asarray, jparams),
+                                      cf["fp32"][1], device="cpu")}
+    B, S = tok.shape
+    lens = jnp.full((B,), S, jnp.int32)
+    feed = None
+    for tag in ("fp32", "sr"):
+        jc = cf[tag][0]
+        jl, caches = jax.jit(lambda p, b: JM.prefill(p, jc, b))(
+            jparams, {"tokens": jnp.asarray(tok, jnp.int32)})
+        dec = jax.jit(lambda p, t, c, L, s: JM.decode_step(p, jc, t, c, L, s))
+        logits, fed = [jl], []
+        for s in range(DECODE["steps"]):
+            nxt = (jnp.argmax(jl, -1).astype(jnp.int32) if feed is None
+                   else jnp.asarray(feed[s]))
+            fed.append(np.asarray(nxt))
+            jl, caches = dec(jparams, nxt, caches, lens + s, jnp.int32(5 + s))
+            logits.append(jl)
+        feed = np.stack(fed) if feed is None else feed
+        out[f"logits_{tag}"] = np.stack([np.asarray(a) for a in logits])
+    out["feed"] = feed
+    r = np.random.default_rng(4)
+    x = r.standard_normal((2, 8, cf["fp32"][0].d_model)).astype(np.float32)
+    x1 = r.standard_normal((2, 1, x.shape[-1])).astype(np.float32)
+    out["x"], out["x1"] = x, x1
+    pos = jnp.broadcast_to(jnp.arange(8)[None], (2, 8))
+    pos1 = jnp.full((2, 1), 8)
+    a, m2 = jparams["shared"]["attn"], jax.tree.map(
+        lambda t: t[0], jparams["groups"][0])["mixer"]
+
+    def modules(jc, x, x1):
+        y0 = JATT.attention_forward(a, x, jc, pos)
+        k, v = JATT.attention_prefill_kv(a, x, jc, pos)
+        y1, cache = JATT.attention_decode(a, x1, JM._build_kv_cache(k, v, jc),
+                                          jc, pos1, jnp.uint32(7))
+        m0, st = JSSM.mamba2_forward(m2, x, jc)
+        m1, st = JSSM.mamba2_decode(m2, x1, st, jc, jnp.uint32(9))
+        return (jnp.concatenate([y0, y1], 1), (cache.k, cache.v),
+                jnp.concatenate([m0, m1], 1), st["S"],
+                JL.apply_ffn(jparams["shared"]["ffn"], x, jc.ffn_kind))
+
+    for tag in ("fp32", "sr"):
+        got = jax.jit(lambda x, x1, jc=cf[tag][0]: modules(jc, x, x1))(
+            jnp.asarray(x), jnp.asarray(x1))
+        for name, v in zip(("attn", "kv", "m2", "S", "ffn"), got):
+            out[f"{name}_{tag}"] = v
+    return out
 
 
 def _coord(rank):
@@ -336,44 +572,210 @@ def test_moe_ep_gradients_equal_the_unsharded_moe(ranks):
                                    **tol)
 
 
-def _single_device_decode(cfg, tok):
-    """Prefill + greedy decode steps of the port on one device: the logits
-    of every step, (steps + 1, B, V)."""
-    params = TM.init_model(cfg, torch.Generator().manual_seed(0),
-                           device="cpu")
+def _single_device_decode(cfg, tok, params, feed):
+    """Prefill + decode steps of the port on one device, fed ``feed``: the
+    logits of every step, (steps + 1, B, V)."""
     B, S = tok.shape
     logits, caches = TM.prefill(params, cfg, {"tokens": tok})
     out = [logits.numpy()]
     lengths = torch.full((B,), S, dtype=torch.int32)
-    nxt = torch.argmax(logits, -1)
     for s in range(DECODE["steps"]):
-        logits, caches = TM.decode_step(params, cfg, nxt, caches,
+        logits, caches = TM.decode_step(params, cfg,
+                                        torch.from_numpy(feed[s]), caches,
                                         lengths + s, seed=5 + s)
         out.append(logits.numpy())
-        nxt = torch.argmax(logits, -1)
     return np.stack(out)
 
 
 def test_decode_sharded_matches_single_device(ranks):
-    """Each rank decodes its rows (model axis: replicated), with its
+    """Each rank decodes its rows of its heads, with its
     stochastic-rounding draws counted from its first row of the whole
-    batch, so the sharded prefill + decode steps are the single-device
-    steps on the whole batch, at zamba2's stochastic rounding and at
-    round-to-nearest: |dlogit| below JAX's 1e-2 and the greedy tokens
-    equal -- here bitwise, on every rank."""
+    batch and its first head of each layer, at zamba2's stochastic
+    rounding and at round-to-nearest.  At (4, 1), data rows alone, the
+    sharded prefill + decode steps are the single-device steps on the
+    whole batch, bitwise.  At (2, 2), data rows and tp = 2, they are so
+    but for the order of the row-parallel sums: |dlogit| below JAX's 1e-2
+    and the greedy tokens equal.  Every rank holds the same logits,
+    bitwise."""
     res, inp = ranks
     cfg = t_smoke("zamba2-2.7b")
     tok = torch.from_numpy(inp["tok"])
+    jz = inp["zamba2"]
     rn = cfg.with_(state_quant=cfg.state_quant.__class__(
         cfg.state_quant.fmt, "nearest", cfg.state_quant.backend))
     for tag, c in (("sr", cfg), ("rn", rn)):
-        want = _single_device_decode(c, tok)
+        want = _single_device_decode(c, torch.from_numpy(ROWS["tok"]),
+                                     jz["tparams"], ROWS["feed"])
+        for r in res:
+            np.testing.assert_array_equal(r[f"decode41_{tag}"], want)
+        want = _single_device_decode(c, tok, jz["tparams"], jz["feed"])
         got = res[0][f"decode_{tag}"]
+        print(tag, "max |dlogit|", float(np.max(np.abs(got - want))))
         assert np.max(np.abs(got - want)) < 1e-2, tag
         np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
-        np.testing.assert_array_equal(got, want)
         for r in res[1:]:
             np.testing.assert_array_equal(r[f"decode_{tag}"], got)
+
+
+@pytest.mark.parametrize("mesh", ["1x4", "2x2"])
+def test_moe_sharded_decode_matches_single_device(ranks, mesh):
+    """dbrx (MoE, GQA) through the sharded prefill + 4 decode steps, at
+    fp32 state and a capacity no expert overflows: at (1, 4) its 2 kv
+    heads stay whole and each rank runs 1 of its 4 experts, parameters at
+    rest in the serving layout; at (2, 2) each rank runs 1 kv head and 2
+    experts on its rows, parameters at rest in the training layout (moved
+    into the serving one).  The single-device steps' logits within rtol
+    1e-4, atol 1e-4 * max|logits|, greedy tokens equal, every rank the
+    same bits."""
+    res, inp = ranks
+    cfg = t_smoke("dbrx-132b")
+    cfg = cfg.with_(state_quant=TOPS.StateQuantConfig("fp32", "nearest",
+                                                      "torch"),
+                    moe=cfg.moe.__class__(**{**cfg.moe.__dict__,
+                                             "capacity_factor": 8.0}))
+    params = TM.init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    want = _single_device_decode(cfg, torch.from_numpy(inp["tok"]), params,
+                                 inp["zamba2"]["feed"])
+    got = res[0][f"moe_decode_{mesh}"]
+    print(mesh, "max |dlogit|", float(np.max(np.abs(got - want))))
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    for r in res[1:]:
+        np.testing.assert_array_equal(r[f"moe_decode_{mesh}"], got)
+
+
+def _mx8_close(got, want):
+    """The MX8 parity contract: exponent and micro bytes bitwise,
+    mantissas off by at most one step at a mismatch rate <= 1e-5."""
+    for f in ("exponent", "micro"):
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    mg = got["mantissa"].astype(np.int32)
+    mw = want["mantissa"].astype(np.int32)
+    assert np.abs(mg - mw).max() <= 1
+    assert (mg != mw).mean() <= 1e-5
+
+
+def _leaves_np(res, prefix, n):
+    return [res[f"{prefix}{i}"] for i in range(n)]
+
+
+def test_tensor_parallel_modules_match_jax(ranks):
+    """At (1, 4), each rank's zamba2 shared attention (prefill then one
+    decode step, 1 kv head a rank), Mamba-2 (2 heads a rank) and FFN (32
+    columns a rank), summed over the model axis, against JAX's whole
+    modules: at fp32 state within rtol 1e-5, atol 1e-5 * max|y|; at MX8
+    SR every rank's stored state against JAX's slice of its heads, by the
+    MX8 parity contract (its SR draws counted from its first head)."""
+    res, inp = ranks
+    jz = inp["zamba2"]
+    for tag in ("fp32", "sr"):
+        for mod in ("attn", "m2", "ffn"):
+            want = jz[f"{mod}_{tag}"]
+            for r in res:
+                np.testing.assert_allclose(
+                    r[f"tp_{tag}_{mod}"], want, rtol=1e-5,
+                    atol=1e-5 * np.abs(want).max(), err_msg=f"{mod} {tag}")
+        if tag != "sr":
+            continue
+        for rank, r in enumerate(res):
+            kvh, heads = 1, 2               # a rank's kv heads, its heads
+            got_kv = _leaves_np(r, "tp_sr_kv", 6)
+            for i, stream in enumerate(jz["kv_sr"]):
+                _mx8_close({f: got_kv[3 * i + j] for j, f in enumerate(
+                    ("exponent", "mantissa", "micro"))},
+                    {f: np.asarray(a)[:, :, rank * kvh:(rank + 1) * kvh]
+                     for f, a in stream.payload.items()})
+            got_s = _leaves_np(r, "tp_sr_S", 3)
+            _mx8_close({f: got_s[j] for j, f in enumerate(
+                ("exponent", "mantissa", "micro"))},
+                {f: np.asarray(a)[:, rank * heads:(rank + 1) * heads]
+                 for f, a in jz["S_sr"].payload.items()})
+
+
+def test_tensor_parallel_decode_matches_jax(ranks):
+    """Prefill + 4 decode steps of zamba2 fed the same tokens: at (1, 4)
+    through ``decode_step`` and the paged pool (``paged_decode_step``),
+    at (2, 2) through ``sharded_decode_step`` (data rows and tp = 2),
+    against JAX's ``M.prefill`` / ``M.decode_step``.  fp32 state: logits
+    within rtol 1e-4, atol 1e-4 * max|logits|, greedy tokens equal.  MX8
+    SR: |dlogit| < 1e-2 (``tests/test_sharding.py``'s bound), token
+    agreement printed.  Every rank holds the same logits, bitwise."""
+    res, inp = ranks
+    jz = inp["zamba2"]
+    for tag in ("fp32", "sr"):
+        want = jz[f"logits_{tag}"]
+        for run in (f"tp_dense_{tag}", f"tp_paged_{tag}", f"decode_{tag}"):
+            got = res[0][run]
+            for r in res[1:]:
+                np.testing.assert_array_equal(r[run], got, err_msg=run)
+            agree = float(np.mean(got.argmax(-1) == want.argmax(-1)))
+            err = float(np.max(np.abs(got - want)))
+            print(f"{run}: max |dlogit| {err:.3g}, greedy token agreement "
+                  f"{agree:.2f}")
+            if tag == "fp32":
+                np.testing.assert_allclose(got, want, rtol=1e-4,
+                                           atol=1e-4 * np.abs(want).max())
+                assert agree == 1.0, run
+            else:
+                assert err < 1e-2, run
+
+
+def _single_device_engines(params, cfg):
+    out = {}
+    for name, kw, prompts in ENGINES:
+        eng = Engine(params, cfg, ServeConfig(**kw))
+        hs = [eng.submit(ENGINE_PROMPTS[pr], max_new_tokens=n)
+              for pr, n in prompts]
+        eng.run()
+        out[name] = (np.concatenate([np.asarray(h.result().output)
+                                     for h in hs]),
+                     eng.stats().get("preemptions", 0))
+    return out
+
+
+def test_tensor_parallel_engines_match_single_device(ranks):
+    """The slot, paged and paged + n-gram engines at (1, 4), fp32 state:
+    the single-device engines' greedy tokens, the paged run through a
+    preemption (spill and resume of each rank's own pages), and every
+    rank's sampled logits the same bits at every step."""
+    res, inp = ranks
+    cfg = _zcfgs()["fp32"][1]
+    want = _single_device_engines(inp["zamba2"]["tparams"], cfg)
+    for name, _, _ in ENGINES:
+        for r in res:
+            np.testing.assert_array_equal(r[f"eng_{name}"], want[name][0],
+                                          err_msg=name)
+            np.testing.assert_array_equal(r[f"eng_{name}_logits"],
+                                          res[0][f"eng_{name}_logits"])
+    assert int(res[0]["eng_paged_preempt"]) == want["paged"][1] >= 1
+
+
+def test_tensor_parallel_bytes_a_rank(ranks):
+    """A rank's weight and pool bytes at tp = 4: each leaf the model axis
+    splits holds a quarter of its tp = 1 size, the rest the whole."""
+    res, _ = ranks
+    for kind in ("weights", "pool"):
+        tp, whole = res[0][f"{kind}_tp"], res[0][f"{kind}_whole"]
+        split = tp != whole
+        assert split.any() and (tp[split] * 4 == whole[split]).all(), kind
+        print(f"{kind}: a rank {int(tp.sum())} of {int(whole.sum())} "
+              f"(split leaves {int(tp[split].sum())} of "
+              f"{int(whole[split].sum())})")
+
+
+def test_engines_refuse_data_axes():
+    """The engines split a model axis alone: a ``par`` with data ranks
+    names the queue item that brings them."""
+    from repro_torch.dist import sharding as SH
+    par = SH.Parallel(SH.AbstractMesh((2, 2), ("data", "model")))
+    cfg = t_smoke("zamba2-2.7b")
+    params = TM.init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    for backend in ("slots", "paged"):
+        with pytest.raises(ValueError, match="ROADMAP.md"):
+            Engine(params, cfg, ServeConfig(backend=backend), par=par)
 
 
 def test_gradient_compression_error_feedback(ranks):

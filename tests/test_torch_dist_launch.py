@@ -5,7 +5,9 @@ at smoke size on a fake (2, 4) mesh, and one cell on the fake production
 (16, 16) mesh.  A cell's record has the JAX dry run's keys where the port
 has a counterpart, plus ``analytic`` and ``sources``; its traced FLOPs are
 ``FlopCounterMode``'s count of the single-device step on the rank's rows
-(an expert-parallel MoE: on its model shard's experts); its link bytes
+(an expert-parallel MoE: on its model shard's experts; a serving cell:
+the tensor-parallel step of the rank's heads and FFN columns); its link
+bytes
 are its traced collectives' (counted as a test here checks on known
 collectives), and ``analytic_cost`` is the JAX function's."""
 import dataclasses
@@ -110,10 +112,21 @@ def _cfg(arch, over):
     return cfg
 
 
-def _single_device_flops(cfg, sc, rows, ep_shards=1):
+def _single_device_flops(cfg, sc, rows, ep_shards=1, tp=1):
     """``FlopCounterMode``'s count of the single-device step on ``rows``
     of the batch (fake tensors; an MoE's dispatch on ``1 / ep_shards`` of
-    its experts, as an expert-parallel rank computes)."""
+    its experts, as an expert-parallel rank computes).  With ``tp`` > 1
+    (a serving cell): the tensor-parallel step of model rank 0 on its
+    ``tp_params`` and its heads' caches, over a shape-only model axis of
+    ``tp`` ranks, its sums over that axis left out (they count no
+    FLOPs; an MoE's expert shard is then ``ep_shards``' count)."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist import tp as TP
+    par = None
+    if tp > 1:
+        par = SH.Parallel(SH.AbstractMesh((tp,), ("model",)), data_axes=())
+        orig_sum, TP.tp_sum = TP.tp_sum, lambda x, p: x
+        orig_ep, TP.expert_parallel = TP.expert_parallel, lambda c, p: False
     if ep_shards > 1:
         orig = TL._moe_dispatch_compute
 
@@ -125,6 +138,8 @@ def _single_device_flops(cfg, sc, rows, ep_shards=1):
     try:
         with D.fake_mode(), FlopCounterMode(display=False) as counter:
             params = D._fake(SP.params_struct(cfg))
+            if par is not None:
+                params = SH.tp_params(params, cfg, par)
             if sc.kind == "train":
                 opt = TO.OptimizerConfig()
                 batch = D._fake(SP.batch_struct(cfg, sc))
@@ -133,14 +148,20 @@ def _single_device_flops(cfg, sc, rows, ep_shards=1):
             elif sc.kind == "prefill":
                 batch = D._fake(SP.batch_struct(cfg, sc))
                 batch.pop("targets")
-                TM.prefill(params, cfg, batch)
+                TM.prefill(params, cfg, batch, par=par)
             else:
                 tok, lengths, caches = (D._fake(t) for t in
                                         SP.decode_struct(cfg, sc))
-                TM.decode_step(params, cfg, tok, caches, lengths)
+                if par is not None:         # the rank's heads' caches
+                    caches = D._fake(TM.init_decode_caches(
+                        cfg, rows, -(-sc.seq_len // 128) * 128, "meta",
+                        par))
+                TM.decode_step(params, cfg, tok, caches, lengths, par=par)
     finally:
         if ep_shards > 1:
             TL._moe_dispatch_compute = orig
+        if par is not None:
+            TP.tp_sum, TP.expert_parallel = orig_sum, orig_ep
     return float(counter.get_total_flops())
 
 
@@ -167,9 +188,18 @@ def test_dryrun_cell_on_a_fake_mesh(arch, shape, over):
     assert rec["probe"] == {"traced_flops": rec["flops_per_chip"] / scale,
                             "seq_scale": scale}
     ep = 4 if cfg.moe is not None else 1
+    serving = sc.kind != "train"
     want = _single_device_flops(cfg_trace, sc_trace, sc.global_batch // 2,
-                                ep)
+                                ep, tp=4 if serving else 1)
     assert rec["probe"]["traced_flops"] == want > 0
+    if serving:        # the tensor-parallel step sums over the model axis
+        assert rec["trace_diag"]["collectives"].get("all_reduce", 0) > 0
+        # fewer FLOPs where tp splits heads; dbrx's 2 kv heads at tp = 4
+        # replicate, so its step is the whole one (its experts aside)
+        whole = _single_device_flops(cfg_trace, sc_trace,
+                                     sc.global_batch // 2, ep)
+        split = "mamba2" in cfg.pattern or cfg.n_kv_heads % 4 == 0
+        assert want < whole if split else want == whole
     # the memory and link terms are the JAX package's function, on the JAX
     # dry run's config
     jcfg = j_smoke(arch).with_(

@@ -196,6 +196,32 @@ def test_batch_and_cache_layouts_equal_jax(trees, arch, mesh):
                 assert got == want, (path, got, want)
 
 
+def _tp_head_dim(cfg, path, tp):
+    """The dim of a cache leaf (at ``path`` in the port's cache tree) that
+    the tensor-parallel step splits over ``tp`` model ranks, from the
+    config alone: a GQA layer's K and V payloads (dim 2, its kv heads)
+    where tp divides the kv heads, a Mamba-2 layer's state (dim 1, its
+    heads) and conv tail (dim 2, its heads' channels) where tp divides its
+    heads; else None."""
+    if tp == 1:
+        return None
+    if path[0] == "prelude":
+        kind = cfg.prelude[path[1]]
+        path = path[2:]
+    else:
+        path = path[2:] if path[0] == "groups" else path[1:]
+        kind = (cfg.pattern[path[0]] if path[0] < len(cfg.pattern)
+                else "attn")               # the shared block's, last
+        path = path[1:]
+    if kind == "attn" and cfg.n_kv_heads % tp == 0 and path[0] in "kv":
+        return 2
+    if kind == "mamba2":
+        heads = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+        if heads % tp == 0:
+            return {"S": 1, "conv_x": 2}.get(path[0])
+    return None
+
+
 @pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)
 @pytest.mark.parametrize("arch", [a for a in TC.ALL_ARCHS
                                   if not t_smoke(a).encoder_only])
@@ -203,8 +229,11 @@ def test_serving_cache_layout_keeps_only_the_batch_entries(trees, arch,
                                                            mesh):
     """The layout the port's serving steps keep caches in: each leaf's
     batch entry where JAX's layout has one (checked equal to JAX's
-    above), and no other dim sharded -- compute over the model axis is
-    replicated, so a decode step gathers no cache."""
+    above), the model axis on the heads of the caches the tensor-parallel
+    step splits (GQA K and V where tp divides the kv heads; Mamba-2's
+    state and conv tail where tp divides its heads), and no other dim
+    sharded -- each rank keeps its rows of its heads, so a decode step
+    gathers no cache."""
     _, tc, _, _, caches = trees[arch]
     _, tpar = _pars(mesh)
     batch = tpar.batch_axes
@@ -212,11 +241,23 @@ def test_serving_cache_layout_keeps_only_the_batch_entries(trees, arch,
         tcache = caches[(B, cap)][1]
         full = T.leaves(SH.cache_shardings(tcache, tc, tpar, B))
         serving = T.leaves(SH.serving_cache_shardings(tcache, tc, tpar, B))
-        assert len(serving) == len(full) > 0
-        for f, s in zip(full, serving):
-            assert all(e is None or e == batch for e in s.spec), s.spec
+        paths = [p for p, _ in T.leaves_with_paths(tcache)]
+        assert len(serving) == len(full) == len(paths) > 0
+        split = 0
+        for path, f, s in zip(paths, full, serving):
+            hd = _tp_head_dim(tc, path, tpar.tp)
+            split += hd is not None
+            assert all(e is None or e == batch or e == "model"
+                       for e in s.spec), s.spec
             assert [e == batch for e in s.spec] == [e == batch
                                                     for e in f.spec]
+            assert [e == "model" for e in s.spec] == [
+                i == hd for i in range(len(s.spec))], (path, s.spec)
+        # the attention / Mamba-2 archs split their caches at tp > 1
+        if tpar.tp > 1 and ("mamba2" in tc.pattern or (
+                "attn" in tc.pattern + tc.prelude or tc.shared_attn)
+                and tc.n_kv_heads % tpar.tp == 0):
+            assert split > 0
 
 
 def test_placements_of_a_spec():

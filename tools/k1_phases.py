@@ -113,8 +113,8 @@ def main() -> int:
             return fn(p["mantissa"].data_ptr(), p["exponent"].data_ptr(),
                       p["micro"].data_ptr(), d.data_ptr(), k.data_ptr(),
                       v.data_ptr(), q.data_ptr(), y.data_ptr(), sl, B * H, H,
-                      n_stack, group, dv, dk, int(per_channel), seed, 1,
-                      torch.cuda.current_stream().cuda_stream)
+                      n_stack, group, dv, dk, int(per_channel), seed, 0,
+                      0, H, 1, torch.cuda.current_stream().cuda_stream)
         for i in range(3):                     # warm up
             assert launch(i) == 0
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]

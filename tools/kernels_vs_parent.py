@@ -95,10 +95,16 @@ _SOURCES = {"mla": ("mx_attention", "mx_paged_attention",
 def _other_lib(csrc: Path, name: str, out: Path, flags) -> ctypes.CDLL:
     from repro_torch.kernels import _build
     lib = out / f"{name}.so"
-    subprocess.run([_build.nvcc(), *flags, "-o", str(lib),
-                    str(csrc / f"{name}.cu")], check=True,
-                   capture_output=True, text=True)
-    return ctypes.CDLL(str(lib))
+    src = csrc / f"{name}.cu"
+    subprocess.run([_build.nvcc(), *flags, "-o", str(lib), str(src)],
+                   check=True, capture_output=True, text=True)
+    out_lib = ctypes.CDLL(str(lib))
+    # kernel 1's entry point grew SR-counter arguments: a row base, then a
+    # head base and the layer's head count
+    text = src.read_text()
+    out_lib.k1_counter_args = (3 if "heads_total" in text else
+                               1 if "row_base" in text else 0)
+    return out_lib
 
 
 def _entry(lib, name, argtypes):
@@ -470,13 +476,28 @@ SU_SHAPES = ((4, 80, 64, 64), (4, 80, 64, 128), (4, 4, 640, 320),
 SU_MAGS = (1.0, 1e-3, 1e-37, 1e35)
 
 
+def _k1_tail(lib, H: int) -> tuple:
+    """The SR-counter arguments between kernel 1's seed and its rounding
+    flag, as the checkout of ``lib`` declares them: ``(row_base,
+    head_base, heads_total)`` for a whole layer, ``(row_base,)`` before the
+    head base, nothing before the row base."""
+    return {3: (0, 0, H), 1: (0,), 0: ()}[lib.k1_counter_args]
+
+
+def _k1_argtypes(lib) -> list:
+    """Kernel 1's entry-point argument types in the checkout of ``lib``."""
+    from repro_torch.kernels import mx_state_update as KS
+    return (KS._ARGTYPES[:17] + [ctypes.c_uint32] * len(_k1_tail(lib, 1))
+            + KS._ARGTYPES[-2:])
+
+
 def _state_update_cases(lib) -> bool:
     """Kernel 1, dense and slab mode, this checkout's wrapper against the
     other checkout's entry point on clones of the same state."""
     import torch
     from repro_torch.core import formats as F
     from repro_torch.kernels import mx_state_update as KS
-    fn = _entry(lib, "mx_state_update_launch", KS._ARGTYPES)
+    fn = _entry(lib, "mx_state_update_launch", _k1_argtypes(lib))
     stream = torch.cuda.current_stream().cuda_stream
     ok = True
     for (B, H, dv, dk), mag in itertools.product(SU_SHAPES, SU_MAGS):
@@ -518,7 +539,8 @@ def _state_update_cases(lib) -> bool:
                              B * H, H, 1 if mode == "dense" else n_stack,
                              0 if mode == "dense" else group, dv, dk,
                              int(per_channel), 11,
-                             int(rounding == "stochastic"), stream)
+                             *_k1_tail(lib, H), int(rounding == "stochastic"),
+                             stream)
                     torch.cuda.synchronize()
                     res.append((err == 0 and all(
                         torch.equal(a.payload[f], p[f]) for f in p),
@@ -827,7 +849,7 @@ def _time_cases(other, split_loop: bool) -> None:
     f1 = {"this": _build.entry(KS.SOURCE, "mx_state_update_launch",
                                KS._ARGTYPES),
           "other": _entry(other["mx_state_update"], "mx_state_update_launch",
-                          KS._ARGTYPES)}
+                          _k1_argtypes(other["mx_state_update"]))}
     for label, (B, H, dv, dk), slab, per_channel in K1_TIMED:
         g = torch.Generator(device="cuda").manual_seed(dk + dv)
         payload = B * H * dv * dk * (1 + 2 / 16)
@@ -849,16 +871,19 @@ def _time_cases(other, split_loop: bool) -> None:
                 (B, H, dv, dk), generator=g, device="cuda")).payload, None,
                 1, 0) for _ in range(n_rot)]
 
-        def call(fn, i):
+        tails = {"this": (0, 0, H),
+                 "other": _k1_tail(other["mx_state_update"], H)}
+
+        def call(w, i):
             p, sl, n_stack, group = states[i]
-            return lambda: fn(
+            return lambda: f1[w](
                 p["mantissa"].data_ptr(), p["exponent"].data_ptr(),
                 p["micro"].data_ptr(), d.data_ptr(), k.data_ptr(),
                 v.data_ptr(), q.data_ptr(), y.data_ptr(), sl, B * H, H,
-                n_stack, group, dv, dk, int(per_channel), i, 1,
+                n_stack, group, dv, dk, int(per_channel), i, *tails[w], 1,
                 torch.cuda.current_stream().cuda_stream)
         _turns(f"kernel 1 {label} {(B, H, dv, dk)}",
-               {w: [call(f1[w], i) for i in range(n_rot)] for w in f1}, 10)
+               {w: [call(w, i) for i in range(n_rot)] for w in f1}, 10)
         del states
     f7 = {"this": _build.entry(KQ.SOURCE, "mx_quant_launch", KQ._ARGTYPES),
           "other": _entry(other["mx_quant"], "mx_quant_launch",
