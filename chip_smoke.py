@@ -143,7 +143,15 @@ Phases, in the order they run:
   bitwise across the ranks, then the paged engine (4 requests, 16 new
   tokens); each rank's launches a step (kernel 1 at 40 heads, kernels 2
   / 3 and the appends at 16 kv heads, no plain quantizer) and its weight
-  and pool bytes against tp = 1
+  and pool bytes against tp = 1.  Then the GLA family, mLSTM and MLA:
+  (a) kernel 1 at the head shards of gla, retnet, hgrn2 and xlstm's
+  mLSTM (dense and slab mode, the head base) and MLA kernels 2, 3 and 5
+  at 64 and 32 of deepseek's 128 query rows, each against the whole
+  launch's heads or rows, the tp = 2 shards timed; (b) the same two
+  workers serve gla-2.7b (TP_NEW's depth), xlstm-1.3b (one sLSTM
+  included) and deepseek-v2-236b (prelude + one MoE layer, expert
+  parallel) at model level against tp = 1, then deepseek through the
+  paged engine with n-gram speculation
   8. kernels line
 
 The card's peaks in every bound come from
@@ -2400,11 +2408,12 @@ def _time_k7(key, shape, n):
                    n_val * 9 / 8 + 4 * n_val, n=n)
 
 
-def _time_su(key, shape, scalar, mode, n):
+def _time_su(key, shape, scalar, mode, n, heads=None):
     """Kernel 1 at ``shape`` in ``mode`` ("dense", or "slab" on a pool of
     ``n_rot`` layers), states rotated cold in L2, its plain version, and
     its host-loop time; bytes = the payload read and written once, the
-    operands, y, and the slab ids."""
+    operands, y, and the slab ids.  ``heads``: ``(head_base,
+    heads_total)`` where ``shape`` holds a tensor-parallel rank's heads."""
     import torch
     from repro_torch import ops as OPS
     from repro_torch.core import formats as F
@@ -2421,13 +2430,16 @@ def _time_su(key, shape, scalar, mode, n):
             for _ in "kq")
     v = torch.randn((B, H, dv), generator=g, device="cuda")
     n_rot = _rotation(payload)
+    hb = {} if heads is None else dict(head_base=heads[0],
+                                       heads_total=heads[1])
     if mode == "dense":
         states = [F.mx8_quantize(torch.randn(shape, generator=g,
                                              device="cuda"))
                   for _ in range(n_rot)]
-        kern = [lambda i=i: KS.mx_state_update(states[i], d, k, v, q, seed=i)
+        kern = [lambda i=i: KS.mx_state_update(states[i], d, k, v, q, seed=i,
+                                               **hb)
                 for i in range(n_rot)]
-        plain = [lambda i=i: KS.plain(states[i], d, k, v, q, seed=i)
+        plain = [lambda i=i: KS.plain(states[i], d, k, v, q, seed=i, **hb)
                  for i in range(8)]
         extra = 0
     else:
@@ -5784,7 +5796,18 @@ def phase_dist():
 #: with four requests and ``max_new`` new tokens
 TP = dict(degrees=(2, 4), ranks=2, B=4, S=64, steps=8, sr_steps=4,
           max_new=16, paged=dict(batch=4, n_pages=17, prefill_chunk=512),
-          prompts=(64, 400, 133, 251), timeout_s=400)
+          prompts=(64, 400, 133, 251), timeout_s=700)
+#: phase 70 (b)'s other models, after zamba2, on the same two workers:
+#: (arch, layers, the cut), each at full width; a model-level prefill of
+#: ``TP["B"]`` prompts of ``TP["S"]`` tokens and TP_NEW_STEPS decode steps
+#: at fp32 state and at MX8 SR against tp = 1; deepseek then through the
+#: paged engine without and with n-gram speculation (TP_DS_ENGINE)
+TP_NEW = (("gla-2.7b", 4, "n_layers 32 -> 4"),
+          ("xlstm-1.3b", 8, "n_layers 48 -> 8 (7 mLSTM + the sLSTM)"),
+          ("deepseek-v2-236b", 2,
+           "n_layers 60 -> 2 (the dense prelude layer + one MoE layer)"))
+TP_NEW_STEPS = 4
+TP_DS_ENGINE = dict(prompts=(64, 133, 97, 120), max_new=8)
 
 
 def _shard(qt, h0, n, dim):
@@ -6012,11 +6035,23 @@ def _tp_kernels(tp):
                         graph_ms(plain, 3), graph_ms(lib, 30),
                         host_loop_ms(kern[0], 100), nbytes, flops, nbytes,
                         n=70)
+    # kernel 5's yardstick: SDPA with the boolean (B, H, Kq, T) verify mask
+    shift = torch.arange(KQ, device="cuda") - (KQ - 1)
+    mask5 = (torch.arange(bt.shape[1] * 128, device="cuda")[None, None, :]
+             < (lens5[:, None] + shift[None, :])[:, :, None])[:, None]
+    q5h = q5s.permute(0, 2, 1, 3).contiguous()
+    lib5 = [lambda: torch.nn.functional.scaled_dot_product_attention(
+        q5h, kf, vf, attn_mask=mask5, enable_gqa=G_ > 1)]
+    y_lib5 = lib5[0]().permute(0, 2, 1, 3)
+    torch.cuda.synchronize()
+    check(bool(((y_lib5 - y5s).abs() <= 1e-4 + 1e-3 * y5s.abs()).all()),
+          f"verify yardstick (SDPA) disagrees with kernel 5 at tp={tp}")
     kern = [lambda l=l: KV.mx_paged_spec_attention_decode(
         q5s, Ks, Vs, bt, l, lens5) for l in range(N_STACK)]
     plain = [lambda: KV.plain_paged(q5s, Ks, Vs, bt, 1, lens5)]
     out["k5"] = _report(f"mx_paged_spec_attention_decode[tp{tp}]",
-                        graph_ms(kern, 30), graph_ms(plain, 3), None,
+                        graph_ms(kern, 30), graph_ms(plain, 3),
+                        graph_ms(lib5, 30),
                         host_loop_ms(kern[0], 100),
                         nbytes + 4 * B * kn * G_ * 2 * w * (KQ - 1),
                         KQ * flops, nbytes, n=70)
@@ -6031,10 +6066,208 @@ def _tp_kernels(tp):
     return out, errs, bitwise
 
 
+#: phase 70 (a)'s kernel-1 head shards of the GLA family and the mLSTM:
+#: (tag, the whole layer's (B, H, dv, dk), scalar decay, tp degrees); a
+#: rank holds H / tp heads, the last rank's from (tp - 1) * H / tp
+TP_SU = (("gla", GLA_SU[0][1], False, (2, 4)),
+         ("retnet", GLA_SU[1][1], True, (2,)),
+         ("hgrn2", GLA_SU[2][1], False, (2, 4)),
+         ("xlstm", XLSTM_SU, True, (2, 4)))
+
+
+def _tp_su_shards():
+    """Phase 70 (a), kernel 1 at the GLA family's and the mLSTM's head
+    shards: the last rank's heads of a whole dense launch and of a whole
+    slab-mode launch (their pools' rows of the rank's heads), with its
+    head base, bitwise the whole launch's heads (state payload and ``y``)
+    and its plain version's; the tp = 2 shards timed as ``_time_su``
+    times the whole layers (no PyTorch call updates an MX8 state: no
+    library time)."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_state_update as KS
+    out, errs = {}, {}
+    for tag, shape, scalar, degrees in TP_SU:
+        B, H, dv, dk = shape
+        g = torch.Generator(device="cuda").manual_seed(720 + H)
+        dd = 1 if scalar else dk
+        d = torch.sigmoid(torch.randn((B, H, dd), generator=g, device="cuda"))
+        k, q = (torch.randn((B, H, dk), generator=g, device="cuda")
+                for _ in "kq")
+        v = torch.randn((B, H, dv), generator=g, device="cuda")
+        S = F.mx8_quantize(torch.randn(shape, generator=g, device="cuda"))
+        pool = F.mx8_quantize(torch.randn((B + 1, 2, H, dv, dk), generator=g,
+                                          device="cuda"))
+        slabs = torch.arange(B, 0, -1, dtype=torch.int32, device="cuda")
+        sw, yw = KS.mx_state_update(S.clone(), d, k, v, q, seed=71)
+        pw = pool.clone()
+        _, ysw = KS.mx_state_update(pw, d, k, v, q, seed=72, slabs=slabs,
+                                    group=1)
+        err = 0.0
+        for tp in degrees:
+            n = H // tp
+            h0 = (tp - 1) * n
+            hs = lambda t: t[:, h0:h0 + n].contiguous()
+            args = (hs(d), hs(k), hs(v), hs(q))
+            hb = dict(head_base=h0, heads_total=H)
+            ss, ys = KS.mx_state_update(_shard(S, h0, n, 1), *args, seed=71,
+                                        **hb)
+            sp, yp = KS.plain(_shard(S, h0, n, 1), *args, seed=71, **hb)
+            ps = _shard(pool, h0, n, 2)
+            _, yss = KS.mx_state_update(ps, *args, seed=72, slabs=slabs,
+                                        group=1, **hb)
+            torch.cuda.synchronize()
+            what = f"kernel 1 at {tag}'s heads {h0}..{h0 + n - 1} of {H}"
+            _same_heads(ss, sw, h0, 1, what)
+            _same_heads(ys, yw, h0, 1, f"{what}: y")
+            _same_heads(ps, pw, h0, 2, f"{what}, slab mode")
+            _same_heads(yss, ysw, h0, 1, f"{what}, slab mode: y")
+            _hold_su(what, sp.payload, yp, ss.payload, ys)
+            err = max(err, float((ys - yp).abs().max()))
+            phase(70, f"mx_state_update head shard {tag} tp={tp}",
+                  heads=f"{h0}..{h0 + n - 1} of {H}", shape=(B, n, dv, dk),
+                  dense_and_slab="bitwise the whole launch's heads",
+                  vs_plain="bitwise state, y within "
+                  f"{float((ys - yp).abs().max()):.3g}")
+            if tp == 2:
+                key = f"mx_state_update[{tag},tp2]"
+                out[key] = _time_su(key, (B, n, dv, dk), scalar, "dense",
+                                    n=70, heads=(h0, H))
+        errs[tag] = err
+        del S, pool, pw
+    torch.cuda.empty_cache()
+    return out, errs
+
+
+def _tp_mla_shards():
+    """Phase 70 (a), MLA kernels 2, 3 (decode) and 5 (verify, Kq = 4) at
+    deepseek's widths on the last rank's 64 and 32 of the 128 query heads
+    over the whole latent (every rank reads all of it), against the whole
+    launch's rows, bitwise where the kernels' 16-row blocks make them so
+    (else within the decode-attention contract, rtol 2e-4, atol 2e-5, and
+    said), and against the plain versions; the 64-head launches timed as
+    ``phase_mla_timing`` times the whole ones: 96 layers' latent pages
+    rotating cold in L2, the library yardstick SDPA on the dequantized
+    latent at the rank's heads, the bound the design's own (three bf16
+    tensor-core terms a product) with the fp32 one beside it."""
+    import torch
+    from repro_torch import ops as OPS
+    from repro_torch.core import formats as F
+    from repro_torch.core.paged import pages_for
+    from repro_torch.kernels import mx_attention as KA
+    from repro_torch.kernels import mx_paged_attention as KP
+    from repro_torch.kernels import mx_spec_attention as KV
+    from repro_torch.kernels import ref as R
+    m = MLA
+    n_rot = 96
+    it = iter(range(10 ** 9))
+    scale = _mla_scale()
+    kw = dict(scale=scale, v_width=m["dv"])
+    base = [n + DS_MAX_NEW // 2 for n in DS_PROMPT_LENS[:m["B"]]]
+    out, errs, bitwise = {}, {}, {}
+    for n_q in (1, KQ):
+        lengths = [n + n_q - 1 for n in base]
+        q_all, C, bt, lens = _mla_pool(lengths, seed=170 + n_q,
+                                       n_stack=n_rot, spare=0)
+        q = q_all[:, :n_q].contiguous()
+        dense = [R.gather_pages(C, bt, g) for g in range(n_rot)]
+        if n_q == 1:
+            q1 = q[:, 0].contiguous()
+            calls = {
+                "k2": (lambda qq, c=0: KA.mx_attention_decode(
+                    qq, dense[c], None, lens, **kw),
+                    lambda qq, c=0: KA.plain(qq, dense[c], None, lens, scale,
+                                             m["dv"]), q1),
+                "k3": (lambda qq, c=0: KP.mx_paged_attention_decode(
+                    qq, C, None, bt, c, lens, **kw),
+                    lambda qq, c=0: KP.plain(qq, C, None, bt, c, lens, scale,
+                                             m["dv"]), q1)}
+        else:
+            calls = {"k5": (lambda qq, c=0: KV.mx_paged_spec_attention_decode(
+                qq, C, None, bt, c, lens, **kw),
+                lambda qq, c=0: KV.plain_paged(qq, C, None, bt, c, lens,
+                                               scale, m["dv"]), q)}
+        T = bt.shape[1] * 128
+        shift = torch.arange(n_q, device="cuda") - (n_q - 1)
+        mask = (torch.arange(T, device="cuda")[None, None, :]
+                < (lens[:, None] + shift[None, :])[:, :, None])[:, None]
+        row_pos = sum(n - (n_q - 1 - j) for n in lengths for j in range(n_q))
+        cache = sum(lengths) * m["dk"] * (1 + 2 / F.MX8_GROUP)
+        bt_bytes = 4 * sum(pages_for(n) for n in lengths)
+        for name, (kern, plain, qq) in calls.items():
+            whole = kern(qq)
+            for tp in (2, 4):
+                nh = m["H"] // tp
+                h0 = (tp - 1) * nh
+                qs = qq[..., h0:h0 + nh, :].contiguous()
+                got = kern(qs)
+                want = whole[..., h0:h0 + nh, :]
+                pl = plain(qs)
+                torch.cuda.synchronize()
+                bw = torch.equal(got, want)
+                if not bw:
+                    torch.testing.assert_close(got, want, rtol=2e-4,
+                                               atol=2e-5)
+                torch.testing.assert_close(got, pl, rtol=2e-4, atol=2e-5)
+                bitwise[f"{name}_tp{tp}"] = bw
+                errs[f"{name}_tp{tp}"] = float((got - pl).abs().max())
+                if tp != 2:
+                    continue
+                key = {"k2": "mx_attention_decode[mla,tp2]",
+                       "k3": "mx_paged_attention_decode[mla,tp2]",
+                       "k5": "mx_paged_spec_attention_decode[mla,tp2]"}[name]
+                qh = (qs[:, :, None] if n_q == 1 else
+                      qs.permute(0, 2, 1, 3)).contiguous()
+                kfs = [F.dequantize(c)[:, :, 0][:, None] for c in dense[:8]]
+                lib = [lambda k_=k_: torch.nn.functional
+                       .scaled_dot_product_attention(
+                           qh, k_, k_[..., :m["dv"]], attn_mask=mask,
+                           scale=scale, enable_gqa=True) for k_ in kfs]
+                y_lib = lib[0]()
+                y_lib = y_lib[:, :, 0] if n_q == 1 else y_lib.permute(
+                    0, 2, 1, 3)
+                y0 = kern(qs)              # group 0: dense[0]'s pages
+                torch.cuda.synchronize()
+                check(bool(((y_lib - y0).abs() <= 1e-4 + 1e-3 * y0.abs())
+                           .all()), f"MLA yardstick (SDPA) disagrees with "
+                      f"{key}")
+                kr = [lambda c=c, f=kern: f(qs, c) for c in range(n_rot)]
+                extra = 0 if name == "k2" else bt_bytes
+                flops = row_pos * nh * 2 * (m["dk"] + m["dv"])
+                io = 4 * m["B"] * n_q * nh * (m["dk"] + m["dv"]) + 4 * m["B"]
+                plan_bytes = sum(OPS.traffic(OPS.registry.plan(
+                    "mla_decode" if n_q == 1 else "spec_verify",
+                    dict(B=1, T=n, KVH=1, dk=m["dk"], dv=0, n=1, H=nh,
+                         Kq=n_q), OPS.StateQuantConfig(), "cuda",
+                    layout="dense" if name == "k2" else "paged",
+                    v_width=m["dv"])).total for n in lengths)
+                out[key] = _report(
+                    key, graph_ms(kr, 5),
+                    graph_ms([lambda c=c: plain(qs, c) for c in range(8)], 2),
+                    graph_ms(lib, 5),
+                    host_loop_ms(lambda k_=kr: k_[next(it) % len(k_)](), 96),
+                    cache + io + extra, flops, plan_bytes, n=70,
+                    tc_flops=MLA_TERMS * flops)
+                del kfs, lib
+        del dense, C
+    phase(70, "MLA kernels at a rank's query heads (the last rank's of tp "
+          "= 2 and 4: 64 and 32 of 128) over the whole latent",
+          **{k: "bitwise the whole launch's rows" if v else
+             "within rtol 2e-4, atol 2e-5 of the whole launch's rows"
+             for k, v in bitwise.items()},
+          max_abs_err_vs_plain=",".join(f"{k}={v:.3g}"
+                                        for k, v in errs.items()))
+    torch.cuda.empty_cache()
+    return out, errs, bitwise
+
+
 def phase_tp_kernels():
-    """Phase 70 (a): the head-shard launches at tp = 2 and 4."""
+    """Phase 70 (a): the head-shard launches at tp = 2 and 4: zamba2's,
+    then the GLA family's, the mLSTM's and MLA's."""
     t0 = time.perf_counter()
     res = {tp: _tp_kernels(tp) for tp in TP["degrees"]}
+    res["su"] = _tp_su_shards()
+    res["mla"] = _tp_mla_shards()
     phase(70, "head-shard kernels", seconds=f"{time.perf_counter() - t0:.1f}")
     return res
 
@@ -6165,6 +6398,10 @@ def tp_worker(rank, world, init, out):
                                                 pool.paging.specs)
                 if s.kind == "page"][:1])
         del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        for arch, layers, _ in TP_NEW:
+            res[arch] = _tp_new_model(rank, par, out, arch, layers)
         res["seconds"] = time.perf_counter() - t_start
     finally:
         dist.destroy_process_group()
@@ -6172,10 +6409,110 @@ def tp_worker(rank, world, init, out):
     return 0
 
 
+def _tp_new_model(rank, par, out, arch, layers):
+    """One of TP_NEW in a phase 70 (b) worker: the model-level runs against
+    tp = 1 (rank 0 runs tp = 1, and at MX8 SR the one-ulp control
+    too), a rank's launches, bytes and logits (saved for the
+    parent); deepseek then through the paged engine, without and with
+    n-gram speculation, its latent pool's digest."""
+    import hashlib
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import ops as OPS
+    from repro_torch.core import tree as T
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import Engine, ServeConfig
+    from repro_torch.serving.memory.layout import CachePaging
+    nbytes = lambda tree: sum(t.numel() * t.element_size()
+                              for t in T.leaves(tree))
+    t0 = time.perf_counter()
+    cfg, params, _ = _model_at(arch, layers)
+    B, S, n = TP["B"], TP["S"], TP_NEW_STEPS
+    g = torch.Generator(device="cuda").manual_seed(71)
+    tok = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda")
+    lengths = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    r = {}
+    for tag, sq in (("fp32", OPS.StateQuantConfig("fp32", "nearest",
+                                                  "torch")),
+                    ("sr", cfg.state_quant)):
+        c = cfg.with_(state_quant=sq)
+        feed = torch.zeros((n, B), dtype=torch.int64, device="cuda")
+        if rank == 0:
+            ref, fed, ms1 = _tp_decode(M, params, c, None, tok, lengths, n)
+            feed.copy_(fed)
+            r[f"{tag}_tp1_step_ms"] = ms1
+            if tag == "sr":
+                with _first_update_one_ulp_up(attention="mla" in c.pattern):
+                    ctl, _, _ = _tp_decode(M, params, c, None, tok, lengths,
+                                           n, feed)
+                r["sr_control"] = float((ctl - ref).abs().max())
+        dist.broadcast(feed, src=0)
+        p = SH.tp_params(params, c, par)
+        PLAIN_QUANT["calls"] = 0
+        _counts_reset()
+        got, _, ms = _tp_decode(M, p, c, par, tok, lengths, n, feed)
+        r[f"{tag}_counts"] = {k: v for k, v in _counts().items() if v}
+        r[f"{tag}_plain_quant"] = PLAIN_QUANT["calls"]
+        r[f"{tag}_step_ms"] = ms
+        np.save(Path(out) / f"rank{rank}_{arch}_{tag}.npy", got.cpu().numpy())
+        if rank == 0:
+            d = (got - ref).abs().flatten(1).amax(1)
+            r[f"{tag}_dlogit_by_step"] = [float(x) for x in d]
+            r[f"{tag}_max_dlogit"] = float(d.max())
+            r[f"{tag}_agree"] = float(
+                (got.argmax(-1) == ref.argmax(-1)).float().mean())
+            r[f"{tag}_finite"] = bool(torch.isfinite(got).all())
+        if tag == "sr":
+            r["bytes"] = dict(weights=nbytes(p), weights_tp1=nbytes(params),
+                              layers=nbytes([p.get("prelude", []),
+                                             p["groups"]]),
+                              layers_tp1=nbytes([params.get("prelude", []),
+                                                 params["groups"]]))
+        del p
+    whole = CachePaging(M.init_decode_caches(cfg, 1, 128, device="meta"))
+    mine = CachePaging(M.init_decode_caches(cfg, 1, 128, device="meta",
+                                            par=par))
+    r["bytes"].update(slab=mine.slab_nbytes, slab_tp1=whole.slab_nbytes,
+                      page=mine.page_nbytes, page_tp1=whole.page_nbytes)
+    if arch == "deepseek-v2-236b":
+        rng = np.random.default_rng(3)
+        prompts = [np.resize(rng.integers(0, cfg.vocab_size, 8), k)
+                   for k in TP_DS_ENGINE["prompts"]]
+        L = cfg.n_layers
+        for name, kw, want in (
+                ("paged", {}, dict(k3=L, k4q_mla=L)),
+                ("spec", dict(spec="ngram", spec_k=SPEC_K),
+                 dict(k5=L, k4q_mla=L * KQ))):
+            eng = Engine(params, cfg, ServeConfig(**DS_PAGED, **kw), par=par)
+            run = _serve_counted(eng, cfg, prompts, TP_DS_ENGINE["max_new"],
+                                 want, _k7_per_prefill(cfg),
+                                 f"phase 70 rank {rank} deepseek {name}")
+            pool = eng.engine.pool
+            h = hashlib.sha256()
+            for t, sp in zip(pool.pools, pool.paging.specs):
+                if sp.kind == "page":
+                    h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                             .tobytes())
+            r[f"engine_{name}"] = dict(
+                n={k: v for k, v in run["n"].items() if v},
+                steps=run["steps"], wall=run["wall"],
+                outputs=[list(map(int, o)) for o in run["outputs"]],
+                latent_sha=h.hexdigest(),
+                p50_step_ms=run["stats"]["p50_step_s"] * 1e3)
+            del eng, pool
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    r["seconds"] = time.perf_counter() - t0
+    return r
+
+
 def phase_tp_serve():
     """Phase 70 (b): two ranks on the card, each in its own process
-    (:func:`tp_worker`), serve zamba2-2.7b tensor-parallel; this process
-    checks what they wrote."""
+    (:func:`tp_worker`), serve zamba2-2.7b tensor-parallel, then TP_NEW's
+    models; this process checks what they wrote."""
     import tempfile
     import numpy as np
     from repro_torch.launch.mesh import local_init_method
@@ -6209,6 +6546,11 @@ def phase_tp_serve():
                     for r in range(2))
             check(np.array_equal(a, b), f"phase 70: the ranks' {tag} "
                   "logits differ")
+            for arch, _, _ in TP_NEW:
+                a, b = (np.load(Path(tmp) / f"rank{r}_{arch}_{tag}.npy")
+                        for r in range(2))
+                check(np.array_equal(a, b), f"phase 70: the ranks' {arch} "
+                      f"{tag} logits differ")
     r0 = res[0]
     cfg_steps = TP["steps"]
     n_su, n_at = _zamba2_launches(_model_cfg())
@@ -6275,10 +6617,98 @@ def phase_tp_serve():
           slab_bytes=by["slab"], slab_tp1_bytes=by["slab_tp1"],
           pool_GB=f"{by['pool'] / 1e9:.4f}",
           pool_tp1_GB=f"{by['pool_tp1'] / 1e9:.4f}")
+    for arch, layers, cut in TP_NEW:
+        _tp_new_checks(arch, layers, cut, [r[arch] for r in res])
     phase(70, "tensor-parallel serving", seconds=f"{time.perf_counter() - t0:.1f}",
           rank_seconds=",".join(f"{r['seconds']:.1f}" for r in res),
           rank_setup_s=",".join(f"{r['setup_s']:.1f}" for r in res))
     return r0
+
+
+def _tp_new_checks(arch, layers, cut, rs):
+    """Phase 70 (b)'s checks of one TP_NEW model, on what the two workers
+    wrote: fp32 state within 1e-3 of tp = 1 with every greedy token equal;
+    MX8 SR within 1e-2, or within CONTROL_FACTOR times what moving one
+    ``y`` of layer 0's first decode step one ulp does at tp = 1 (the
+    control of ``_reference_check_by_depth``): the row-parallel sums
+    differ from tp = 1's in the last bits, and at full width a last-bit
+    difference flips some MX8 roundings of the millions of state values a
+    layer, which the layers above amplify; each model-level step's launches (kernel 1 a
+    split layer, MLA's kernel 2 and latent append a layer, kernel 7 a
+    prefilled layer) and no plain quantizer; a rank's bytes; deepseek's
+    engines: launches a step, the same tokens and latent pool bits on both
+    ranks."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).with_(n_layers=layers)
+    r0 = rs[0]
+    n = TP_NEW_STEPS
+    per = (lambda kinds: sum(cfg.pattern.count(k) for k in kinds)
+           * cfg.n_groups + sum(cfg.prelude.count(k) for k in kinds))
+    n_su = per(("gla", "retnet", "hgrn2", "mlstm"))
+    n_mla = per(("mla",))
+    want = {k: v for k, v in dict(k1=n_su * n, k2=n_mla * n,
+                                  apd_mla=n_mla * n,
+                                  k7=_k7_per_prefill(cfg)).items() if v}
+    check(r0["fp32_max_dlogit"] <= 1e-3 and r0["fp32_agree"] == 1.0
+          and r0["fp32_finite"], f"phase 70 {arch} fp32 state: |dlogit| "
+          f"{r0['fp32_max_dlogit']:.3g}, agreement {r0['fp32_agree']}")
+    sr_bound = max(1e-2, CONTROL_FACTOR * r0["sr_control"])
+    check(r0["sr_max_dlogit"] < sr_bound and r0["sr_finite"],
+          f"phase 70 {arch} MX8 SR: |dlogit| {r0['sr_max_dlogit']:.3g} "
+          f"(bound {sr_bound:.3g})")
+    for r in rs:
+        check(r["sr_counts"] == want and r["sr_plain_quant"] == 0
+              and not r["fp32_counts"], f"phase 70 {arch} launches "
+              f"{r['sr_counts']} (want {want}), at fp32 {r['fp32_counts']}, "
+              f"plain quantizer {r['sr_plain_quant']}")
+    by = r0["bytes"]
+    layer_share = by["layers"] / by["layers_tp1"]
+    check(by["slab"] * 2 == by["slab_tp1"] if arch == "gla-2.7b"
+          else by["slab"] < by["slab_tp1"] or by["slab_tp1"] == 0,
+          f"phase 70 {arch}: a rank's slab {by['slab']} of {by['slab_tp1']}")
+    check(by["page"] == by["page_tp1"], f"phase 70 {arch}: a rank's page "
+          f"{by['page']} of {by['page_tp1']} (the latent is whole)")
+    if arch == "gla-2.7b":
+        check(0.49 <= layer_share <= 0.52, f"phase 70 gla: a rank's layer "
+              f"weights {layer_share:.3f} of the whole")
+    phase(70, f"tensor-parallel {arch}, two ranks, model level",
+          reduced=repr(cut), prompts=f"{TP['B']}x{TP['S']}", steps=n,
+          fp32_max_dlogit_vs_tp1=f"{r0['fp32_max_dlogit']:.3g}",
+          fp32_greedy_agreement=r0["fp32_agree"],
+          sr_dlogit_vs_tp1_by_step=",".join(
+              f"{x:.3g}" for x in r0["sr_dlogit_by_step"]),
+          sr_greedy_agreement=r0["sr_agree"],
+          sr_one_ulp_control=f"{r0['sr_control']:.3g}",
+          logits_across_ranks="bitwise",
+          launches_per_rank=",".join(f"{k}={v}" for k, v in
+                                     r0["sr_counts"].items()),
+          plain_quantizer_calls=0,
+          sr_tp1_step_ms=f"{np.median(r0['sr_tp1_step_ms']):.2f}",
+          sr_tp2_step_ms=f"{np.median(r0['sr_step_ms']):.2f}",
+          seconds=",".join(f"{r['seconds']:.1f}" for r in rs))
+    phase(70, f"{arch}: a rank's bytes against tp = 1",
+          weights_GB=f"{by['weights'] / 1e9:.3f}",
+          weights_tp1_GB=f"{by['weights_tp1'] / 1e9:.3f}",
+          layer_weights_share=f"{layer_share:.4f}",
+          slab_bytes=by["slab"], slab_tp1_bytes=by["slab_tp1"],
+          page_bytes=by["page"], page_tp1_bytes=by["page_tp1"])
+    for name in ("paged", "spec"):
+        if f"engine_{name}" not in r0:
+            continue
+        e0, e1 = (r[f"engine_{name}"] for r in rs)
+        check(e0["outputs"] == e1["outputs"]
+              and e0["latent_sha"] == e1["latent_sha"] and e0["n"] == e1["n"],
+              f"phase 70 {arch} {name} engine: the ranks differ")
+        phase(70, f"tensor-parallel {arch} paged engine"
+              + (" + n-gram speculation" if name == "spec" else ""),
+              requests=len(TP_DS_ENGINE["prompts"]),
+              max_new=TP_DS_ENGINE["max_new"], steps=e0["steps"],
+              launches_per_rank=",".join(f"{k}={v}" for k, v in
+                                         e0["n"].items()),
+              tokens_across_ranks="equal", latent_pages_across_ranks="bitwise",
+              p50_step_ms=f"{e0['p50_step_ms']:.2f}",
+              wall_s=f"{e0['wall']:.2f}")
 
 
 def _model_cfg():
@@ -6439,7 +6869,10 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla, dense, xlstm,
     serving at tp = 2, counted on phase 70's path in rank 0's process:
     kernels 1, 2 and the dense append on its model-level decode, kernel 1
     in slab mode, kernel 3 and the fused paged append on its paged
-    engine); ``launches`` counts
+    engine; then kernel 1 at gla's and xlstm's head shards, counted on
+    their model-level decodes, and MLA kernels 2, 3 and 5 at 64 of 128
+    query rows, on deepseek's model-level decode, paged engine and paged
+    engine with speculation); ``launches`` counts
     each one's own main path (the verify kernels: the speculative path,
     where kernel 6, the dense-cache twin, has no launch; kernel 4: the
     fused quantize-and-append on the paged paths, the copy on none),
@@ -6596,6 +7029,29 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla, dense, xlstm,
                             replaces=replaces,
                             launches=tp_run[counts].get(counter, 0),
                             max_abs_err=errs2[key], **out2[key]))
+    su_out, su_errs = tp_kern["su"]
+    mla_out, mla_errs, _ = tp_kern["mla"]
+    ds = tp_run["deepseek-v2-236b"]
+    at_src = "src/repro_torch/csrc/mx_attention.cu"
+    for name, times, launches, err, source, replaces in (
+            ("mx_state_update[gla,tp2]", su_out,
+             tp_run["gla-2.7b"]["sr_counts"].get("k1", 0), su_errs["gla"],
+             su_src, su_tpu),
+            ("mx_state_update[xlstm,tp2]", su_out,
+             tp_run["xlstm-1.3b"]["sr_counts"].get("k1", 0),
+             su_errs["xlstm"], su_src, su_tpu),
+            ("mx_attention_decode[mla,tp2]", mla_out,
+             ds["sr_counts"].get("k2", 0), mla_errs["k2_tp2"], at_src,
+             "src/repro/kernels/mx_attention.py:98"),
+            ("mx_paged_attention_decode[mla,tp2]", mla_out,
+             ds["engine_paged"]["n"].get("k3", 0), mla_errs["k3_tp2"],
+             pa_src, "src/repro/kernels/mx_paged_attention.py:108"),
+            ("mx_paged_spec_attention_decode[mla,tp2]", mla_out,
+             ds["engine_spec"]["n"].get("k5", 0), mla_errs["k5_tp2"],
+             sv_src, "src/repro/kernels/mx_spec_attention.py:193")):
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=launches,
+                            max_abs_err=err, **times[name]))
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             check(math.isfinite(k[key]), f"{k['name']}: {key} not finite")

@@ -42,8 +42,8 @@ data axes).  Kernels see the local tensors, never a ``DTensor``.
 
 Serving splits the model axis by heads (tensor parallelism, Megatron's
 column / row products): :func:`tp_params` cuts a rank's columns of the
-GQA, Mamba-2 and dense-FFN input projections and the matching rows of
-their output projections (:func:`serving_param_shardings` is that cut as
+GQA, MLA, Mamba-2, GLA-family, mLSTM and dense-FFN input projections and
+the matching rows of their output projections (:func:`serving_param_shardings` is that cut as
 a layout), the step sums each row-parallel product over the model axis
 (``dist/tp.py::tp_sum``, its one collective), and each rank keeps its
 heads' caches (:func:`serving_cache_shardings`).  The serving engines
@@ -220,14 +220,17 @@ def tp_params(params: Any, cfg, par: Optional[Parallel]) -> Any:
     the whole tensors (the same on every rank: seeded, restored, or
     ``models/convert.py::params_from_jax``'s), Megatron's layout.  Each
     mixer cuts its own weights (``models/attention.py::tp_shard`` for GQA
-    attention, pattern layers and the shared block alike;
-    ``models/ssm.py::TP_SHARDS`` for Mamba-2;
+    attention, pattern layers and the shared block alike,
+    ``attention.py::mla_tp_shard`` for MLA's query heads;
+    ``models/ssm.py::TP_SHARDS`` for Mamba-2, the GLA family and mLSTM;
     ``models/layers.py::ffn_tp_shard`` for the dense FFNs' columns and an
-    MoE's experts); this walks the tree.
+    MoE's experts); this walks the tree.  A layer whose heads the model
+    axis does not divide stays whole (``dist/tp.py::layer_par``).
 
     Everything else stays whole on every rank: embeddings, LM head, the
-    norms over ``d``, MLA, the GLA family, mLSTM and sLSTM.  The cut
-    leaves are copies, so dropping the whole tree frees it.  This serving
+    norms over ``d``, MLA's query and latent down-projections, and the
+    sLSTM.  The cut leaves are copies, so dropping the whole tree frees
+    it.  This serving
     layout is the port's own: JAX's engines keep the weights as given and
     let GSPMD place the products from ``shard_heads``; the port, with no
     partitioner, cuts the weights once and runs each rank's shard."""
@@ -241,6 +244,8 @@ def tp_params(params: Any, cfg, par: Optional[Parallel]) -> Any:
         out = dict(p)
         if kind == "attn":
             out["mixer"] = ATT.tp_shard(p["mixer"], cfg, par)
+        elif kind == "mla":
+            out["mixer"] = ATT.mla_tp_shard(p["mixer"], cfg, par)
         elif kind in SSM.TP_SHARDS:
             out["mixer"] = SSM.TP_SHARDS[kind](p["mixer"], cfg, par)
         if "ffn" in p:
@@ -446,13 +451,14 @@ def serving_cache_shardings(cache_shapes: Any, cfg, par: Parallel,
     """The layout the port's serving steps keep decode caches in: the
     batch entries of JAX's (:func:`cache_shardings`), plus the model axis
     on the head dim of every cache the tensor-parallel step splits (a GQA
-    layer's K and V where tp divides its kv heads, a Mamba-2 layer's state
-    and conv tail where tp divides its heads: :func:`tp_params`).  A rank
-    then holds its rows of its heads' caches, what its step reads and
-    writes, and a decode step gathers no cache.  The caches of the mixers
-    that replicate over the model axis (MLA, the GLA family, xLSTM) keep
-    only their batch entries, where JAX's layout shards their time or
-    heads."""
+    layer's K and V where tp divides its kv heads; a Mamba-2, GLA-family
+    or mLSTM layer's state and conv tail where tp divides its heads:
+    :func:`tp_params`).  A rank then holds its rows of its heads' caches,
+    what its step reads and writes, and a decode step gathers no cache.
+    The caches that are whole on every rank (MLA's latent, which every
+    query head reads; the sLSTM's carries; a layer tp does not divide)
+    keep only their batch entries, where JAX's layout shards MLA's time
+    axis."""
     batch = par.batch_axes
     heads = _probe_head_axes(cfg, par.tp) if par.tp > 1 else None
     out = []

@@ -2,8 +2,8 @@
 axis splits, a rank's share of them, the forward path's one collective,
 and the cut of a weight.  It imports nothing of the models: each mixer
 keeps its own cut next to the code that reshapes by heads
-(``models/attention.py::tp_shard``, ``models/ssm.py::mamba2_tp_shard``,
-``models/layers.py::ffn_tp_shard``), and ``dist/sharding.py::tp_params``
+(``models/attention.py::tp_shard`` / ``mla_tp_shard``,
+``models/ssm.py::TP_SHARDS``, ``models/layers.py::ffn_tp_shard``), and ``dist/sharding.py::tp_params``
 walks a parameter tree and calls them.
 
 ``par`` is a ``dist.sharding.Parallel`` (``tp``, ``model_index`` and
@@ -18,7 +18,8 @@ import torch
 
 def layer_par(n: int, par):
     """``par`` where its model axis splits a layer of ``n`` heads (kv heads
-    of a GQA layer, Mamba-2 heads, a dense FFN's columns): tp > 1 divides
+    of a GQA layer, query heads of an MLA layer, the heads of a Mamba-2,
+    GLA-family or mLSTM layer, a dense FFN's columns): tp > 1 divides
     ``n``.  Else None: the layer is whole on every rank, JAX's own
     fallback for an indivisible head count (``repro/models/ssm.py``'s
     ``shard_heads``)."""
@@ -35,6 +36,15 @@ def tp_range(n: int, par) -> Tuple[int, int]:
         return 0, n
     count = n // lp.tp
     return lp.model_index * count, count
+
+
+def local_share(n: int, par) -> Tuple[int, int, Optional[object]]:
+    """``(count, first, lp)``: this rank's share of a layer's ``n`` heads,
+    its first head, and ``par`` where the model axis splits them (else
+    None: all ``n``, from 0)."""
+    lp = layer_par(n, par)
+    first, count = tp_range(n, lp)
+    return count, first, lp
 
 
 def tp_sum(x: torch.Tensor, par) -> torch.Tensor:

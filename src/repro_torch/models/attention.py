@@ -16,7 +16,17 @@ heads) a rank holds the columns of its kv heads and of their query heads
 and the rows of ``wo`` for them (:func:`tp_shard`): it
 projects, caches and attends its heads only, and one sum over the model
 axis adds the ranks' ``wo`` products.  The layers carry no bias, so none
-is added after the sum.  MLA stays whole on every rank.
+is added after the sum.
+
+MLA splits its query heads the same way where the model axis divides them
+(:func:`mla_tp_shard`): a rank holds its heads' columns of ``wq_b``, its
+heads of the absorbed ``w_uk`` / ``w_uv`` and the rows of ``wo`` for them.
+The latent cache is one stream that every head reads, so it stays whole
+on every rank: each rank projects and appends the same latent (its
+stochastic rounding counted over the whole stream, with no head base) and
+the ranks' latent caches stay bitwise equal.  The JAX package's cache
+layout shards the latent's time axis instead, which needs a softmax
+combine across ranks; the port does not take it.
 """
 from __future__ import annotations
 
@@ -307,12 +317,31 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig, device) -> L.Params:
     }
 
 
+def mla_tp_shard(p: L.Params, cfg: ModelConfig, par) -> L.Params:
+    """A rank's MLA weights under ``par`` (``p`` itself where its model
+    axis does not split the query heads): its heads' columns of ``wq_b``
+    (nope + rope each), its heads of ``w_uk`` / ``w_uv`` and the rows of
+    ``wo`` for them; ``wq_a``, ``q_norm``, ``wkv_a`` and ``kv_norm`` (the
+    query and latent down-projections) stay whole."""
+    H, h0, lp = TP.local_share(cfg.n_heads, par)
+    if lp is None:
+        return p
+    m = cfg.mla
+    qw, vw = m.nope_dim + m.rope_dim, m.v_dim
+    return {**p, "wq_b": TP.narrow(p["wq_b"], -1, h0 * qw, H * qw),
+            "w_uk": TP.narrow(p["w_uk"], 0, h0, H),
+            "w_uv": TP.narrow(p["w_uv"], 0, h0, H),
+            "wo": TP.narrow(p["wo"], 0, h0 * vw, H * vw)}
+
+
 def _mla_queries(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
-    """Absorbed queries (B, S, H, kv_lora + rope)."""
+    """Absorbed queries (B, S, H, kv_lora + rope) of the heads ``p`` holds
+    (a rank's under :func:`mla_tp_shard`)."""
     m = cfg.mla
     B, S, _ = x.shape
     ql = L.apply_norm(p["q_norm"], x @ p["wq_a"], "rmsnorm", cfg.norm_eps)
-    qh = (ql @ p["wq_b"]).reshape(B, S, cfg.n_heads, m.nope_dim + m.rope_dim)
+    qh = (ql @ p["wq_b"]).reshape(B, S, p["w_uk"].shape[0],
+                                  m.nope_dim + m.rope_dim)
     q_nope, q_rope = qh[..., :m.nope_dim], qh[..., m.nope_dim:]
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
     # absorb W_UK: q_eff = q_nope @ W_UK -> (B, S, H, kv_lora)
@@ -336,10 +365,13 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 
 def mla_forward(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence MLA in absorbed form (one latent KV stream)."""
+                positions: torch.Tensor, par=None) -> torch.Tensor:
+    """Full-sequence MLA in absorbed form (one latent KV stream).
+    ``par``: the rank's query heads over the whole latent, their ``wo``
+    products summed over the model axis."""
     m = cfg.mla
     B, S, _ = x.shape
+    H, _, lp = TP.local_share(cfg.n_heads, par)
     q = _mla_queries(p, x, cfg, positions)              # (B, S, H, cw)
     kv = mla_cache_stream(p, x, cfg, positions)[:, :, None, :]   # KVH = 1
     ctx = blockwise_attention(q, kv, kv[..., :m.kv_lora],
@@ -347,41 +379,48 @@ def mla_forward(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
                               q_chunk=cfg.attn_q_chunk,
                               kv_chunk=cfg.attn_kv_chunk)  # (B,S,H,kv_lora)
     o = torch.einsum("bshc,hcv->bshv", ctx, p["w_uv"])
-    return o.reshape(B, S, cfg.n_heads * m.v_dim) @ p["wo"]
+    return TP.tp_sum(o.reshape(B, S, H * m.v_dim) @ p["wo"], lp)
 
 
 def mla_decode(p: L.Params, x: torch.Tensor, cache, cfg: ModelConfig,
-               positions: torch.Tensor, seed: int) -> Tuple[torch.Tensor,
-                                                            object]:
+               positions: torch.Tensor, seed: int, par=None
+               ) -> Tuple[torch.Tensor, object]:
     """One-token MLA decode: x (B, 1, d) -> (out (B, 1, d), cache).  The
-    same op step as GQA; the cache's ``v_width`` selects ``mla_decode``."""
+    same op step as GQA; the cache's ``v_width`` selects ``mla_decode``.
+    ``par``: the rank's query heads; the latent append is the whole
+    stream's on every rank (no head base)."""
     B = x.shape[0]
-    q = _mla_queries(p, x, cfg, positions).reshape(B, cfg.n_heads, -1)
+    H, _, lp = TP.local_share(cfg.n_heads, par)
+    q = _mla_queries(p, x, cfg, positions).reshape(B, H, -1)
     ckv = mla_cache_stream(p, x, cfg, positions)[:, :, None, :]  # (B,1,1,cw)
     ctx, cache = OPS.attention_decode_step(cache, ckv, None, q,
                                            cfg.state_quant,
                                            scale=_mla_scale(cfg), seed=seed)
-    return _mla_out(p, ctx.to(x.dtype), cfg), cache
+    return TP.tp_sum(_mla_out(p, ctx.to(x.dtype), cfg), lp), cache
 
 
 def _mla_out(p: L.Params, ctx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """One position's output (B, 1, d) of its latent context (B, H,
-    kv_lora): W_UV absorbed back, then ``wo``."""
+    kv_lora): W_UV absorbed back, then ``wo`` (a rank's partial product
+    under :func:`mla_tp_shard`)."""
     o = torch.einsum("bhc,hcv->bhv", ctx, p["w_uv"])
-    return o.reshape(ctx.shape[0], 1, cfg.n_heads * cfg.mla.v_dim) @ p["wo"]
+    return o.reshape(ctx.shape[0], 1, -1) @ p["wo"]
 
 
 def mla_spec_decode(p: L.Params, x: torch.Tensor, cache, cfg: ModelConfig,
-                    positions: torch.Tensor, seed: int
+                    positions: torch.Tensor, seed: int, par=None
                     ) -> Tuple[torch.Tensor, object]:
     """Speculative MLA decode over n positions (see
     :func:`attention_spec_decode`): the projections and both absorb
-    einsums run position by position, as :func:`mla_decode` runs them."""
+    einsums run position by position, as :func:`mla_decode` runs them.
+    ``par``: as in :func:`mla_decode`, the positions' ``wo`` products
+    summed in one collective."""
+    lp = TP.local_share(cfg.n_heads, par)[2]
     q, ckv = L.per_position(
         lambda xi, pi: (_mla_queries(p, xi, cfg, pi),
                         mla_cache_stream(p, xi, cfg, pi)), x, positions)
     ctx, cache = OPS.attention_spec_step(cache, ckv[:, :, None, :], None, q,
                                          cfg.state_quant,
                                          scale=_mla_scale(cfg), seed=seed)
-    return L.per_position(lambda c: _mla_out(p, c[:, 0], cfg),
-                          ctx.to(x.dtype)), cache
+    return TP.tp_sum(L.per_position(lambda c: _mla_out(p, c[:, 0], cfg),
+                                    ctx.to(x.dtype)), lp), cache

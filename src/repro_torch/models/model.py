@@ -33,13 +33,14 @@ Tensor-parallel serving: ``prefill``, ``decode_step``,
 ``paged_decode_step``, ``paged_spec_decode_step`` and
 ``init_decode_caches`` take a ``par`` (a ``dist.sharding.Parallel``).
 The parameters are then a rank's (``dist/sharding.py::tp_params``): GQA
-attention, Mamba-2 and the dense FFNs run the rank's heads or columns,
-each summed over the model axis after its output projection, and the
-caches hold the rank's heads.  A layer whose head count (kv heads, FFN
-columns) the model axis does not divide, and the embeddings, LM head,
-norms over ``d``, MLA, the GLA family and xLSTM, are whole on every rank;
-the MoE keeps its expert parallelism.  ``train_loss`` takes ``par`` for
-the MoE alone.
+attention, MLA, Mamba-2, the GLA family, mLSTM and the dense FFNs run the
+rank's heads or columns, each summed over the model axis after its output
+projection, and the caches hold the rank's heads (MLA's latent cache, one
+stream for all heads, is whole and the same on every rank).  A layer whose
+head count (kv heads, heads, FFN columns) the model axis does not divide,
+and the embeddings, LM head, norms over ``d`` and the sLSTM, are whole on
+every rank; the MoE keeps its expert parallelism.  ``train_loss`` takes
+``par`` for the MoE alone.
 """
 from __future__ import annotations
 
@@ -158,7 +159,7 @@ def _dense_ff(cfg: ModelConfig) -> int:
 
 def _mixer_par(kind: str, par) -> dict:
     """``par`` for the recurrent mixers that split their heads over the
-    model axis; the others take none."""
+    model axis (``ssm.TP_SHARDS``); the sLSTM takes none."""
     return {"par": par} if par is not None and kind in SSM.TP_SHARDS else {}
 
 
@@ -319,7 +320,7 @@ def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
         y, cache = _attn_block_forward(p["mixer"], h, cfg, positions,
                                        prefix_len, want_cache, tp_par)
     elif kind == "mla":
-        y = ATT.mla_forward(p["mixer"], h, cfg, positions)
+        y = ATT.mla_forward(p["mixer"], h, cfg, positions, tp_par)
         cache = None
         if want_cache:
             ckv = ATT.mla_cache_stream(p["mixer"], h, cfg, positions)
@@ -473,7 +474,8 @@ def init_decode_caches(cfg: ModelConfig, B: int, cache_capacity: int,
                        device=None, par=None):
     """Zeroed caches, ``caches[g][pos]`` (shared block's cache last), with
     the prelude's split off as :func:`join_caches` builds it; the rank's
-    heads of the tensor-parallel layers under ``par``."""
+    heads of the tensor-parallel layers under ``par`` (MLA's latent cache
+    whole: every head reads it)."""
     check_supported(cfg)
     device = resolve_device(device)
 
@@ -569,7 +571,7 @@ def _element_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
                                         positions[:, None], seed, par)
     elif kind == "mla":
         y, cache = ATT.mla_decode(p["mixer"], h, cache, cfg,
-                                  positions[:, None], seed)
+                                  positions[:, None], seed, par)
     else:
         y, cache = _recurrent_decode(p["mixer"], h, cache, cfg, kind, seed,
                                      par)
@@ -757,7 +759,7 @@ def _element_spec_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
         snaps = None
     elif kind == "mla":
         y, cache = ATT.mla_spec_decode(p["mixer"], h, cache, cfg, positions,
-                                       seed)
+                                       seed, par)
         snaps = None
     else:
         ys, snaps = [], []

@@ -10,11 +10,29 @@ the decay hook that makes Eq. 2's d_t (``_DECAY_HOOKS``) and the
 projections around the op.  The sLSTM is a vector recurrence with fp32
 carries and no SPU op: plain PyTorch, prefill a loop over positions.
 
-Mamba-2 splits its heads over the model axis of a ``par`` that divides
-them (:func:`mamba2_tp_shard`): a rank projects, convolves, scans
-and stores its heads' channels, the gated norm sums its squares over the
-model axis, and one sum adds the ranks' ``out_proj`` products.  The other
-mixers stay whole on every rank (``TP_SHARDS``).
+Under tensor parallelism the model axis of a ``par`` that divides a
+mixer's heads splits them (``TP_SHARDS``, Megatron's column / row cuts); a
+layer whose heads it does not divide stays whole (``dist/tp.py::
+layer_par``).  A rank projects, scans and stores its heads, each stochastic
+rounding counted from its first head of the layer's
+(``ops.sr_heads_from``), and one sum over the model axis adds the ranks'
+output products:
+
+* Mamba-2 (:func:`mamba2_tp_shard`): its heads' channels, convolved; the
+  gated norm sums its squares over the model axis.
+* The GLA family (:func:`gla_family_tp_shard`): its heads' columns of the
+  q / k / v / output-gate projections and of GLA's and HGRN2's gates;
+  RetNet's fixed decays are those of its global heads.
+* mLSTM (:func:`mlstm_tp_shard`): its heads' channels of ``d_up``, the
+  conv tail of those channels, its block-diagonal heads.  The input and
+  forget gates read every channel of ``u``: as in the JAX package's
+  layout (``wi`` / ``wf`` sharded on their ``d_up`` rows), a rank takes
+  the rows of its channels and a second sum over the model axis adds the
+  ranks' (B, S, 2H) gate pre-activations, after which each rank adds the
+  bias and keeps its heads' gates.
+
+The sLSTM stays whole on every rank, as the JAX package's ``shard_map``
+keeps it (batch-split only).
 """
 from __future__ import annotations
 
@@ -191,8 +209,7 @@ def _m2_shard(cfg: ModelConfig, par=None):
     of a Mamba-2 layer, and ``par`` where its model axis splits the heads
     (None: the whole layer)."""
     _, H_all, _, P = _m2_dims(cfg)
-    lp = TP.layer_par(H_all, par)
-    h0, H = TP.tp_range(H_all, lp)
+    H, h0, lp = TP.local_share(H_all, par)
     return H * P, H, h0, lp
 
 
@@ -219,11 +236,6 @@ def mamba2_tp_shard(p: Params, cfg: ModelConfig, par) -> Params:
     out["norm"] = {**p["norm"], "scale": TP.narrow(p["norm"]["scale"], 0,
                                                    *ch)}
     return out
-
-
-#: the mixers whose heads the model axis splits, and their cuts
-#: (``forward``, ``decode`` and ``init_state`` then take a ``par``)
-TP_SHARDS = {"mamba2": mamba2_tp_shard}
 
 
 def _conv_tail(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -369,6 +381,31 @@ def _gla_dims(cfg: ModelConfig):
             sc.dv_head or cfg.head_dim)
 
 
+def gla_family_tp_shard(p: Params, cfg: ModelConfig, par) -> Params:
+    """A rank's GLA / RetNet / HGRN2 weights under ``par`` (``p`` itself
+    where its model axis does not split the heads): the columns of its
+    heads of ``wq`` / ``wk`` (and GLA's ``wgb`` / ``gb``, HGRN2's ``wf`` /
+    ``fb``: H * dk wide) and of ``wv`` / ``wg_out`` (H * dv), and the rows
+    of ``wo`` for them.  GLA's ``wga`` (d x 16) and HGRN2's ``beta`` stay
+    whole."""
+    H_all, dk, dv = _gla_dims(cfg)
+    H, h0, lp = TP.local_share(H_all, par)
+    if lp is None:
+        return p
+    k_cols, v_cols = (h0 * dk, H * dk), (h0 * dv, H * dv)
+    out = dict(p)
+    for name in ("wq", "wk", "wgb", "wf"):
+        if name in p:
+            out[name] = TP.narrow(p[name], -1, *k_cols)
+    for name in ("gb", "fb"):
+        if name in p:
+            out[name] = TP.narrow(p[name], 0, *k_cols)
+    for name in ("wv", "wg_out"):
+        out[name] = TP.narrow(p[name], -1, *v_cols)
+    out["wo"] = TP.narrow(p["wo"], 0, *v_cols)
+    return out
+
+
 def init_gla_family(gen: torch.Generator, cfg: ModelConfig, kind: str,
                     device) -> Params:
     """HGRN2's ``beta`` (the depth-dependent forget-gate lower bound) is
@@ -397,18 +434,22 @@ def init_gla_family(gen: torch.Generator, cfg: ModelConfig, kind: str,
     return p
 
 
-def _retnet_log_gamma(H: int, device) -> torch.Tensor:
-    h = torch.arange(H, dtype=torch.float32, device=device)
+def _retnet_log_gamma(H: int, device, h0: int = 0) -> torch.Tensor:
+    """The log decays of heads ``h0 .. h0 + H - 1`` of a RetNet layer (head
+    h decays by ``1 - 2^(-5 - h)``, numbered in the whole layer)."""
+    h = torch.arange(h0, h0 + H, dtype=torch.float32, device=device)
     return torch.log1p(-torch.exp2(-5.0 - h))
 
 
-def _gla_family_qkv(p, x, cfg: ModelConfig, kind: str):
+def _gla_family_qkv(p, x, cfg: ModelConfig, kind: str, par=None):
     """q, k (B,H,S,dk), v (B,H,S,dv) and the log decay: (B,H,S,dk) for GLA
     (``log_sigmoid(g) / 16``) and HGRN2 (the forget gate over its lower
     bound, with ``k = 1 - f``), both clamped to ``ssm.log_decay_min``;
-    (B,H,S) for RetNet (the fixed per-head gamma)."""
+    (B,H,S) for RetNet (the fixed per-head gamma).  The rank's H heads
+    under ``par``."""
     B, S, _ = x.shape
-    H, dk, dv = _gla_dims(cfg)
+    H_all, dk, dv = _gla_dims(cfg)
+    H, h0, _ = TP.local_share(H_all, par)
     q = (x @ p["wq"]).reshape(B, S, H, dk).transpose(1, 2)
     k = (x @ p["wk"]).reshape(B, S, H, dk).transpose(1, 2)
     v = (x @ p["wv"]).reshape(B, S, H, dv).transpose(1, 2)
@@ -426,43 +467,56 @@ def _gla_family_qkv(p, x, cfg: ModelConfig, kind: str):
         log_f = log_f.reshape(B, S, H, dk).transpose(1, 2)
         k = (1.0 - torch.exp(log_f)).to(k.dtype)    # input gate = 1 - f
     else:
-        log_f = _retnet_log_gamma(H, x.device)[None, :, None].expand(B, H, S)
+        log_f = _retnet_log_gamma(H, x.device, h0)[None, :, None].expand(
+            B, H, S)
     return q * (dk ** -0.5), k, v, log_f
 
 
-def _gla_family_out(p, y, x, cfg: ModelConfig):
-    """Per-head RMSNorm of y (B,H,S,dv), output gate, out projection."""
+def _gla_family_out(p, y, x, cfg: ModelConfig, lp=None):
+    """Per-head RMSNorm of y (B,H,S,dv), output gate, out projection (the
+    ranks' products summed over the model axis of ``lp``)."""
     B, S, _ = x.shape
     y = L.head_rmsnorm(y, cfg.norm_eps).transpose(1, 2).reshape(B, S, -1)
     gate = Fn.silu(x @ p["wg_out"])
-    return (y.to(x.dtype) * gate) @ p["wo"]
+    return TP.tp_sum((y.to(x.dtype) * gate) @ p["wo"], lp)
 
 
 def gla_family_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                       kind: str, want_cache: bool = True
+                       kind: str, want_cache: bool = True, par=None
                        ) -> Tuple[torch.Tensor, MixerState]:
-    q, k, v, log_f = _gla_family_qkv(p, x, cfg, kind)
+    """Full-sequence GLA / RetNet / HGRN2; ``par``: the rank's heads (the
+    stored state rounds to nearest: no head base)."""
+    _, _, lp = TP.local_share(_gla_dims(cfg)[0], par)
+    q, k, v, log_f = _gla_family_qkv(p, x, cfg, kind, lp)
     scan = chunked_la_scalar if kind == "retnet" else chunked_la_vector
     y, S_fin = scan(q, k, v, log_f, cfg.ssm.chunk)
-    out = _gla_family_out(p, y, x, cfg)
+    out = _gla_family_out(p, y, x, cfg, lp)
     return out, ({"S": _store_state(S_fin, cfg)} if want_cache else None)
 
 
-def gla_family_init_state(B: int, cfg: ModelConfig, device) -> MixerState:
-    H, dk, dv = _gla_dims(cfg)
+def gla_family_init_state(B: int, cfg: ModelConfig, device,
+                          par=None) -> MixerState:
+    """Zero state of the rank's heads under ``par``."""
+    H_all, dk, dv = _gla_dims(cfg)
+    H, _, _ = TP.local_share(H_all, par)
     return {"S": OPS.init_state(B, H, dk, dv, cfg.state_quant,
                                 device=device)}
 
 
 def gla_family_decode(p: Params, x: torch.Tensor, state: MixerState,
-                      cfg: ModelConfig, kind: str, seed: int
+                      cfg: ModelConfig, kind: str, seed: int, par=None
                       ) -> Tuple[torch.Tensor, MixerState]:
-    """x: (B, 1, d) one token."""
-    q, k, v, log_f = _gla_family_qkv(p, x, cfg, kind)       # (B,H,1,*)
+    """x: (B, 1, d) one token.  ``par``: the rank's heads, the state
+    update's stochastic rounding counted from its first head of the
+    layer's."""
+    H_all = _gla_dims(cfg)[0]
+    _, h0, lp = TP.local_share(H_all, par)
+    q, k, v, log_f = _gla_family_qkv(p, x, cfg, kind, lp)   # (B,H,1,*)
     decay = _DECAY_HOOKS[kind](log_f)
-    Sn, y = _spu_state_update(state["S"], decay, k[:, :, 0], v[:, :, 0],
-                              q[:, :, 0], cfg, seed)
-    return _gla_family_out(p, y[:, :, None], x, cfg), {"S": Sn}
+    with OPS.sr_heads_from(h0, H_all):
+        Sn, y = _spu_state_update(state["S"], decay, k[:, :, 0], v[:, :, 0],
+                                  q[:, :, 0], cfg, seed)
+    return _gla_family_out(p, y[:, :, None], x, cfg, lp), {"S": Sn}
 
 
 # ---------------------------------------------------------------------------
@@ -505,20 +559,64 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     }
 
 
-def _mlstm_gates_qkv(p, u, uc, cfg: ModelConfig):
+def _mlstm_shard(cfg: ModelConfig, par=None):
+    """``(channels, H, h0, lp)``: the rank's channels of ``d_up``, its heads
+    and first head of an mLSTM layer, and ``par`` where its model axis
+    splits the heads (None: the whole layer)."""
+    _, H_all, dk, _, _ = _mlstm_dims(cfg)
+    H, h0, lp = TP.local_share(H_all, par)
+    return H * dk, H, h0, lp
+
+
+def mlstm_tp_shard(p: Params, cfg: ModelConfig, par) -> Params:
+    """A rank's mLSTM weights under ``par`` (``p`` itself where its model
+    axis does not split the heads): the columns of its heads' channels of
+    ``wu`` / ``wz`` / ``conv_w`` / ``conv_b``, its heads of the
+    block-diagonal ``wq`` / ``wk`` / ``wv`` and of ``hnorm``, and the rows
+    of its channels of ``down`` and of the gates ``wi`` / ``wf`` (whose
+    pre-activations the step sums over the model axis); ``fb`` stays
+    whole."""
+    ch, H, h0, lp = _mlstm_shard(cfg, par)
+    if lp is None:
+        return p
+    c0 = h0 * (ch // H)
+    out = dict(p)
+    for name in ("wu", "wz", "conv_w"):
+        out[name] = TP.narrow(p[name], -1, c0, ch)
+    for name in ("conv_b", "down", "wi", "wf"):
+        out[name] = TP.narrow(p[name], 0, c0, ch)
+    for name in ("wq", "wk", "wv", "hnorm"):
+        out[name] = TP.narrow(p[name], 0, h0, H)
+    return out
+
+
+def _mlstm_gate_pre(p, u, lp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The input and forget gates' pre-activations (B, S, H) of every head
+    of the layer: ``u`` (B, S, channels) times the rows of ``wi`` / ``wf``
+    for those channels, summed over the model axis of ``lp`` in one
+    collective (both gates at once)."""
+    H = p["wi"].shape[-1]
+    g = TP.tp_sum(torch.cat([u @ p["wi"], u @ p["wf"]], -1), lp)
+    return g[..., :H], g[..., H:]
+
+
+def _mlstm_gates_qkv(p, u, uc, cfg: ModelConfig, par=None):
     """q (B,H,S,dk), k_eff = k * exp(i) (B,H,S,dk), v_aug = [v, 1, 0 x 15]
     (B,H,S,dv_aug) and the forget gate's log (B,H,S) of u / uc (B,S,d_up):
-    the exp input gate rides in k, the normalizer n as state row dv."""
+    the exp input gate rides in k, the normalizer n as state row dv.  The
+    rank's heads and channels under ``par``."""
     B, S, _ = u.shape
-    _, H, dk, dv, dv_aug = _mlstm_dims(cfg)
+    _, _, dk, dv, dv_aug = _mlstm_dims(cfg)
+    _, H, h0, lp = _mlstm_shard(cfg, par)
     uh = uc.reshape(B, S, H, dk)
     q = torch.einsum("bshd,hde->bhse", uh, p["wq"])
     k = torch.einsum("bshd,hde->bhse", uh, p["wk"]) * dk ** -0.5
     v = torch.einsum("bshd,hde->bhse", u.reshape(B, S, H, dv), p["wv"])
-    i_log = torch.clamp((u @ p["wi"]).to(torch.float32), -12.0, 4.0)
-    log_f = Fn.logsigmoid((u @ p["wf"]).to(torch.float32) + p["fb"])
-    i_log = i_log.transpose(1, 2)                  # (B,H,S)
-    log_f = log_f.transpose(1, 2)
+    i_pre, f_pre = _mlstm_gate_pre(p, u, lp)
+    i_log = torch.clamp(i_pre.to(torch.float32), -12.0, 4.0)
+    log_f = Fn.logsigmoid(f_pre.to(torch.float32) + p["fb"])
+    i_log = i_log[..., h0:h0 + H].transpose(1, 2)  # (B,H,S)
+    log_f = log_f[..., h0:h0 + H].transpose(1, 2)
     k_eff = (k.to(torch.float32) * torch.exp(i_log)[..., None]).to(k.dtype)
     ones = torch.ones(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device)
     zeros = torch.zeros(v.shape[:-1] + (dv_aug - dv - 1,), dtype=v.dtype,
@@ -527,27 +625,30 @@ def _mlstm_gates_qkv(p, u, uc, cfg: ModelConfig):
     return q, k_eff, v_aug, log_f
 
 
-def _mlstm_out(p, y_aug, z, cfg: ModelConfig):
+def _mlstm_out(p, y_aug, z, cfg: ModelConfig, lp=None):
     """h = y / max(|n.q|, 1), per-head RMSNorm times ``hnorm``, output gate
-    silu(z), down projection; y_aug (..., H, dv_aug) with heads before the
-    last axis, z (..., d_up)."""
-    _, H, _, dv, _ = _mlstm_dims(cfg)
+    silu(z), down projection (the ranks' products summed over the model
+    axis of ``lp``); y_aug (..., H, dv_aug) with heads before the last
+    axis, z (..., channels): the rank's heads and their channels."""
+    dv = _mlstm_dims(cfg)[3]
     y, n_dot = y_aug[..., :dv], y_aug[..., dv]
     h = y / torch.clamp(torch.abs(n_dot), min=1.0)[..., None]
     h = L.head_rmsnorm(h, cfg.norm_eps) * p["hnorm"]
     h = h.reshape(z.shape).to(z.dtype)
-    return (h * Fn.silu(z)) @ p["down"]
+    return TP.tp_sum((h * Fn.silu(z)) @ p["down"], lp)
 
 
 def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                  want_cache: bool = True
+                  want_cache: bool = True, par=None
                   ) -> Tuple[torch.Tensor, MixerState]:
-    d_up, H, dk, dv, dv_aug = _mlstm_dims(cfg)
+    """Full-sequence mLSTM; ``par``: the rank's heads and channels (the
+    stored state rounds to nearest: no head base)."""
+    lp = _mlstm_shard(cfg, par)[3]
     u, z = x @ p["wu"], x @ p["wz"]
     uc = Fn.silu(causal_conv(u, p["conv_w"], p["conv_b"]))
-    q, k_eff, v_aug, log_f = _mlstm_gates_qkv(p, u, uc, cfg)
+    q, k_eff, v_aug, log_f = _mlstm_gates_qkv(p, u, uc, cfg, lp)
     y_aug, S_fin = chunked_la_scalar(q, k_eff, v_aug, log_f, cfg.ssm.chunk)
-    out = _mlstm_out(p, y_aug.transpose(1, 2), z, cfg)
+    out = _mlstm_out(p, y_aug.transpose(1, 2), z, cfg, lp)
     if not want_cache:
         return out, None
     # the conv tail holds u of the last d_conv-1 steps
@@ -555,29 +656,37 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  "conv": _conv_tail(u, cfg).contiguous()}
 
 
-def mlstm_init_state(B: int, cfg: ModelConfig, device) -> MixerState:
-    d_up, H, dk, dv, dv_aug = _mlstm_dims(cfg)
+def mlstm_init_state(B: int, cfg: ModelConfig, device,
+                     par=None) -> MixerState:
+    """Zero state and conv tail of the rank's heads under ``par``."""
+    _, _, dk, _, dv_aug = _mlstm_dims(cfg)
+    ch, H, _, _ = _mlstm_shard(cfg, par)
     dt = getattr(torch, cfg.param_dtype)
     return {"S": OPS.init_state(B, H, dk, dv_aug, cfg.state_quant,
                                 device=device),
-            "conv": torch.zeros((B, cfg.ssm.d_conv - 1, d_up), dtype=dt,
+            "conv": torch.zeros((B, cfg.ssm.d_conv - 1, ch), dtype=dt,
                                 device=device)}
 
 
 def mlstm_decode(p: Params, x: torch.Tensor, state: MixerState,
-                 cfg: ModelConfig, seed: int
+                 cfg: ModelConfig, seed: int, par=None
                  ) -> Tuple[torch.Tensor, MixerState]:
-    """x: (B, 1, d) one token."""
+    """x: (B, 1, d) one token.  ``par``: the rank's heads, the state
+    update's stochastic rounding counted from its first head of the
+    layer's."""
+    H_all = _mlstm_dims(cfg)[1]
+    _, _, h0, lp = _mlstm_shard(cfg, par)
     u, z = x[:, 0] @ p["wu"], x[:, 0] @ p["wz"]
     conv_out, conv_state = causal_conv_step(u, state["conv"], p["conv_w"],
                                             p["conv_b"])
     uc = Fn.silu(conv_out)
     q, k_eff, v_aug, log_f = _mlstm_gates_qkv(p, u[:, None], uc[:, None],
-                                              cfg)
+                                              cfg, lp)
     decay = _DECAY_HOOKS["mlstm"](log_f)                       # (B,H,1)
-    Sn, y_aug = _spu_state_update(state["S"], decay, k_eff[:, :, 0],
-                                  v_aug[:, :, 0], q[:, :, 0], cfg, seed)
-    out = _mlstm_out(p, y_aug, z, cfg)[:, None]
+    with OPS.sr_heads_from(h0, H_all):
+        Sn, y_aug = _spu_state_update(state["S"], decay, k_eff[:, :, 0],
+                                      v_aug[:, :, 0], q[:, :, 0], cfg, seed)
+    out = _mlstm_out(p, y_aug, z, cfg, lp)[:, None]
     return out, {"S": Sn, "conv": conv_state}
 
 
@@ -672,7 +781,8 @@ class Mixer(NamedTuple):
     """A recurrent mixer's functions: ``init(gen, cfg, device)``,
     ``forward(p, x, cfg, want_cache=True)`` (the state ``None`` without
     ``want_cache``), ``init_state(B, cfg, device)`` and
-    ``decode(p, x, state, cfg, seed)``."""
+    ``decode(p, x, state, cfg, seed)``; those of a mixer in
+    :data:`TP_SHARDS` also take a ``par``."""
     init: Callable
     forward: Callable
     init_state: Callable
@@ -682,11 +792,11 @@ class Mixer(NamedTuple):
 def _gla_mixer(kind: str) -> Mixer:
     return Mixer(
         lambda gen, cfg, device: init_gla_family(gen, cfg, kind, device),
-        lambda p, x, cfg, want_cache=True: gla_family_forward(
-            p, x, cfg, kind, want_cache),
+        lambda p, x, cfg, want_cache=True, par=None: gla_family_forward(
+            p, x, cfg, kind, want_cache, par),
         gla_family_init_state,
-        lambda p, x, state, cfg, seed: gla_family_decode(p, x, state, cfg,
-                                                         kind, seed))
+        lambda p, x, state, cfg, seed, par=None: gla_family_decode(
+            p, x, state, cfg, kind, seed, par))
 
 
 MIXERS: Dict[str, Mixer] = {
@@ -696,6 +806,13 @@ MIXERS: Dict[str, Mixer] = {
     "slstm": Mixer(init_slstm, slstm_forward, slstm_init_state, slstm_decode),
     **{kind: _gla_mixer(kind) for kind in GLA_FAMILY},
 }
+
+
+#: the mixers whose heads the model axis splits, and their cuts
+#: (``forward``, ``decode`` and ``init_state`` then take a ``par``); the
+#: sLSTM is whole on every rank
+TP_SHARDS = {"mamba2": mamba2_tp_shard, "mlstm": mlstm_tp_shard,
+             **{kind: gla_family_tp_shard for kind in GLA_FAMILY}}
 
 
 def mixer(kind: str) -> Mixer:

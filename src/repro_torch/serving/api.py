@@ -209,8 +209,8 @@ class Engine:
     ``par`` (a ``dist.sharding.Parallel`` of a model axis alone, JAX's
     ``mesh_axes``) serves tensor-parallel: every rank of the model group
     builds an Engine from the same whole ``params`` and submits the same
-    requests; each keeps and computes its heads (GQA attention, Mamba-2,
-    the dense FFNs), and every rank's host side -- scheduler, block
+    requests; each keeps and computes its heads (GQA and MLA attention,
+    Mamba-2, the GLA family, mLSTM, the dense FFNs), and every rank's host side -- scheduler, block
     tables, prefix store, tiers, drafts, sampler -- takes the same
     decisions, since the logits after each step's sums are the same bits
     on every rank."""

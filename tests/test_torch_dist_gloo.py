@@ -22,6 +22,14 @@ and against the JAX package (which the ranks never import):
   paged pool against JAX's model, the slot, paged (with a preemption) and
   paged + n-gram engines against the single-device engines, and a rank's
   weight and pool bytes;
+* tensor-parallel serving of the GLA family, mLSTM and MLA: gla, retnet,
+  xlstm (7 mLSTM + 1 sLSTM, whole on every rank) and deepseek-v2-236b
+  through ``sharded_prefill`` / ``sharded_decode_step`` at (2, 2), where
+  tp = 2 splits their heads, and at (1, 4), where deepseek splits its 4
+  heads and the 2-head configs take the whole-layer fallback, against
+  JAX's model (computed while the ranks run); the paged + n-gram engine
+  on model groups of 2 (gla, xlstm) and 4 (deepseek) against the
+  single-device engines; a rank's slab bytes and the latent pools;
 * the compressed all-reduce over the 'pod' axis against JAX's ``pmean``;
 * a checkpoint saved at (2, 2) restored bitwise at (4, 1) and (1, 4);
 * a dim sharded over ("data", "model") in JAX's major-to-minor order.
@@ -60,6 +68,12 @@ WORLD = 4
 SEQ, BATCH = 32, 4
 MOE_X = (4, 16)                       # dbrx's (batch, seq) for the EP test
 DECODE = dict(B=4, S=16, steps=4)
+#: the archs whose GLA-family, mLSTM and MLA heads the model axis splits
+NEW_ARCHS = ("gla-2.7b", "retnet-2.7b", "xlstm-1.3b", "deepseek-v2-236b")
+#: their engines: (arch, model-group size, (prompt name, new tokens) each)
+NEW_ENGINES = [("gla-2.7b", 2, (("rep", 5), ("p8", 4))),
+               ("xlstm-1.3b", 2, (("rep", 5), ("p8", 4))),
+               ("deepseek-v2-236b", 4, (("rep", 5), ("p8", 4)))]
 #: the tensor-parallel engines: (name, ServeConfig keywords, (prompt name,
 #: new tokens) per request); the paged run's two requests each grow a
 #: second page in a pool of 2 usable pages, so one is preempted
@@ -71,7 +85,7 @@ ENGINES = [("slots", dict(backend="slots", batch=2),
             (("rep", 5), ("p8", 4)))]
 
 _RANKS = r'''
-import os, sys
+import os, sys, time
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -144,22 +158,17 @@ for tag, cf in (("moe", None), ("moe_nodrop", 8.0)):
         res[f"{tag}_g{k}"] = p[k].grad.numpy()
     res[f"{tag}_gx"] = x.grad.numpy()
 
-# 3. sharded prefill + decode (parameters, batch and caches in their
-# layouts): zamba2 (JAX's weights; the tokens JAX's fp32 greedy run fed)
-# at (2, 2), data rows and tp = 2, at its stochastic rounding, at
-# round-to-nearest and at fp32 state, and at (4, 1), data rows alone;
-# dbrx (MoE) at (1, 4) and (2, 2), its parameters at rest in the serving
-# layout and in the training one
+# the serving sections' shared pieces: the state formats, a run through
+# the sharded steps, the (1, 4) mesh, and a sampler that records every
+# sampled step's logits
 from repro_torch import ops as OPS
-zcfg = get_smoke_config("zamba2-2.7b")
-zw = torch.load(os.path.join(out, "zamba2.pt"))
-tok = torch.from_numpy(np.load(os.path.join(out, "decode_in.npy")))
-feed = torch.from_numpy(np.load(os.path.join(out, "feed.npy")))
-B, S = tok.shape
+from repro_torch.models import attention as ATT
+from repro_torch.models import ssm as SSM
+from repro_torch.serving import engine as E
+from repro_torch.serving.api import Engine, ServeConfig
+from repro_torch.serving.memory import PagedStatePool
 QUANT = {"sr": ("mx8", "stochastic", "cuda"), "rn": ("mx8", "nearest", "cuda"),
          "fp32": ("fp32", "nearest", "torch")}
-zc = {t: zcfg.with_(state_quant=OPS.StateQuantConfig(*q))
-      for t, q in QUANT.items()}
 
 def sharded_run(params, c, p_layout, tok, feed, par):
     """Prefill + decode steps through the sharded steps: every step's
@@ -178,6 +187,86 @@ def sharded_run(params, c, p_layout, tok, feed, par):
                                                 seed=5 + s)
         step_logits.append(logits.full_tensor().numpy())
     return np.stack(step_logits)
+
+def payload(prefix, tree):
+    return {f"{prefix}{i}": a.numpy() for i, a in enumerate(T.leaves(tree))}
+
+par4 = make_local_parallel(1, 4, device_type="cpu")
+eng_in = np.load(os.path.join(out, "engines_in.npz"))
+seen = []
+sample = E.sample
+def recording(logits, *a, **k):
+    seen.append(logits.detach().clone().reshape(-1, logits.shape[-1]))
+    return sample(logits, *a, **k)
+
+# 8. the GLA family, mLSTM and MLA under tensor parallelism: sharded
+# prefill + decode at (2, 2) (tp = 2 splits the smoke configs' 2 heads and
+# deepseek's 4) and at (1, 4) (deepseek splits its 4; the 2-head configs
+# fall back to whole layers); then the paged + n-gram engine on model
+# groups of 2 (no data axis: two replicas of tp = 2) and of 4
+new = np.load(os.path.join(out, "new_in.npz"))
+ntok, nfeed = torch.from_numpy(new["tok"]), torch.from_numpy(new["feed"])
+
+def new_cfg(arch, tag):
+    c = get_smoke_config(arch).with_(
+        state_quant=OPS.StateQuantConfig(*QUANT[tag]))
+    if c.moe is not None:            # no expert overflows: EP == one device
+        c = c.with_(moe=c.moe.__class__(**{**c.moe.__dict__,
+                                           "capacity_factor": 8.0}))
+    return c
+
+for arch in %(NEW_ARCHS)s:
+    nw = M.init_model(new_cfg(arch, "fp32"), g(0), device="cpu")
+    for tag in ("fp32", "sr"):
+        for mesh, pr in (("2x2", par), ("1x4", par4)):
+            res[f"new_{arch}_{mesh}_{tag}"] = sharded_run(
+                nw, new_cfg(arch, tag), SH.serving_param_shardings, ntok,
+                nfeed, pr)
+tp2 = SH.Parallel(par.mesh, data_axes=())
+E.sample = recording
+for arch, size, prompts in %(NEW_ENGINES)s:
+    seen.clear()
+    c = new_cfg(arch, "fp32")
+    eng = Engine(M.init_model(c, g(0), device="cpu"), c,
+                 ServeConfig(batch=2, spec="ngram"),
+                 par=tp2 if size == 2 else par4)
+    hs = [eng.submit(eng_in[pr], max_new_tokens=n) for pr, n in prompts]
+    eng.run()
+    res[f"neweng_{arch}"] = np.concatenate([np.asarray(h.result().output)
+                                            for h in hs])
+    res[f"neweng_{arch}_logits"] = torch.cat(seen).numpy()
+    res[f"neweng_{arch}_gather"] = np.asarray(eng.stats()["gather_bytes"])
+    pool = eng.engine.pool
+    res[f"neweng_{arch}_slabs"] = np.asarray(     # one slab's, each leaf
+        [t[0].numel() * t.element_size() for t, sp in zip(pool.pools,
+                                                           pool.paging.specs)
+         if sp.kind == "slab"])
+    if arch == "deepseek-v2-236b":   # the latent pages, whole on each rank
+        res.update(payload("neweng_latent", [t for t, sp in zip(
+            pool.pools, pool.paging.specs) if sp.kind == "page"]))
+E.sample = sample
+
+# sections 3 and 7 read JAX's zamba2 results, which the fixture writes
+# while the ranks run the sections above
+deadline = time.monotonic() + 600
+while not os.path.exists(os.path.join(out, "zamba2.ready")):
+    if time.monotonic() > deadline:
+        raise TimeoutError("no zamba2 inputs from the fixture")
+    time.sleep(0.05)
+
+# 3. sharded prefill + decode (parameters, batch and caches in their
+# layouts): zamba2 (JAX's weights; the tokens JAX's fp32 greedy run fed)
+# at (2, 2), data rows and tp = 2, at its stochastic rounding, at
+# round-to-nearest and at fp32 state, and at (4, 1), data rows alone;
+# dbrx (MoE) at (1, 4) and (2, 2), its parameters at rest in the serving
+# layout and in the training one
+zcfg = get_smoke_config("zamba2-2.7b")
+zw = torch.load(os.path.join(out, "zamba2.pt"))
+tok = torch.from_numpy(np.load(os.path.join(out, "decode_in.npy")))
+feed = torch.from_numpy(np.load(os.path.join(out, "feed.npy")))
+B, S = tok.shape
+zc = {t: zcfg.with_(state_quant=OPS.StateQuantConfig(*q))
+      for t, q in QUANT.items()}
 
 for tag in ("sr", "rn", "fp32"):
     res[f"decode_{tag}"] = sharded_run(zw, zc[tag], SH.serving_param_shardings,
@@ -202,20 +291,11 @@ lengths = torch.full((B,), S, dtype=torch.int32)
 
 # 7. tensor-parallel serving at (1, 4): the modules, the model steps
 # (dense and paged), the engines, a rank's bytes
-from repro_torch.models import attention as ATT
-from repro_torch.models import ssm as SSM
-from repro_torch.serving import engine as E
-from repro_torch.serving.api import Engine, ServeConfig
-from repro_torch.serving.memory import PagedStatePool
-par4 = make_local_parallel(1, 4, device_type="cpu")
 mod = np.load(os.path.join(out, "tp_in.npz"))
 x, x1 = torch.from_numpy(mod["x"]), torch.from_numpy(mod["x1"])
 Bm, Sm = x.shape[:2]
 pos = torch.arange(Sm)[None].expand(Bm, Sm)
 pos1 = torch.full((Bm, 1), Sm)
-
-def payload(prefix, tree):
-    return {f"{prefix}{i}": a.numpy() for i, a in enumerate(T.leaves(tree))}
 
 for tag in ("fp32", "sr"):
     c = zc[tag]
@@ -264,12 +344,6 @@ for tag in ("fp32", "sr"):
                                               T.leaves(w)])
 
 # the engines at fp32 state, every sampled step's logits recorded
-eng_in = np.load(os.path.join(out, "engines_in.npz"))
-seen = []
-sample = E.sample
-def recording(logits, *a, **k):
-    seen.append(logits.detach().clone().reshape(-1, logits.shape[-1]))
-    return sample(logits, *a, **k)
 E.sample = recording
 for name, kw, prompts in %(ENGINES)s:
     seen.clear()
@@ -317,7 +391,8 @@ res["major_minor"] = SH.distribute(
 np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
 dist.barrier()
 dist.destroy_process_group()
-''' % dict(SEQ=SEQ, BATCH=BATCH, STEPS=DECODE["steps"], ENGINES=repr(ENGINES))
+''' % dict(SEQ=SEQ, BATCH=BATCH, STEPS=DECODE["steps"], ENGINES=repr(ENGINES),
+       NEW_ARCHS=repr(NEW_ARCHS), NEW_ENGINES=repr(NEW_ENGINES))
 
 
 def _moe_cfgs(capacity_factor=None):
@@ -346,11 +421,8 @@ def ranks(tmp_path_factory):
     tok = r.integers(0, zc.vocab_size, (DECODE["B"], DECODE["S"]))
     np.save(out / "decode_in.npy", tok)
     np.savez(out / "rows_in.npz", **ROWS)
-    jz = _zamba2_jax(tok)
-    torch.save(jz["tparams"], out / "zamba2.pt")
-    np.save(out / "feed.npy", jz["feed"])
-    np.savez(out / "tp_in.npz", x=jz["x"], x1=jz["x1"])
     np.savez(out / "engines_in.npz", **ENGINE_PROMPTS)
+    np.savez(out / "new_in.npz", **NEW_IN)
     grads = np.asarray(jax.random.normal(jax.random.PRNGKey(0),
                                          (WORLD, 64, 32)))
     np.save(out / "comp_in.npy", grads)
@@ -362,6 +434,21 @@ def ranks(tmp_path_factory):
         env=subprocess_env(RANK=str(i), WORLD_SIZE=str(WORLD),
                            DIST_INIT=init, OMP_NUM_THREADS="1"),
         stdout=logs[i], stderr=subprocess.STDOUT) for i in range(WORLD)]
+    # JAX's side while the ranks run: zamba2's weights, fed tokens and
+    # module inputs, which the ranks wait for after their first sections
+    # (``zamba2.ready``), then the new mixers' prefill + decode on the
+    # port's weights, which they need none of
+    try:
+        jz = _zamba2_jax(tok)
+        torch.save(jz["tparams"], out / "zamba2.pt")
+        np.save(out / "feed.npy", jz["feed"])
+        np.savez(out / "tp_in.npz", x=jz["x"], x1=jz["x1"])
+        (out / "zamba2.ready").touch()
+        new_jax = {arch: _new_mixers_jax(arch) for arch in NEW_ARCHS}
+    except BaseException:
+        for proc in procs:
+            proc.kill()
+        raise
     # a rank that fails leaves the others waiting in a collective: end
     # them all then, and at the deadline
     deadline = time.monotonic() + 600
@@ -379,7 +466,8 @@ def ranks(tmp_path_factory):
         assert proc.returncode == 0, f"rank {i}:\n{text[-4000:]}"
     print(f"four gloo ranks: {time.perf_counter() - t0:.1f} s")
     res = [dict(np.load(out / f"rank{i}.npz")) for i in range(WORLD)]
-    return res, dict(moe=(p, x, cot), tok=tok, grads=grads, zamba2=jz)
+    return res, dict(moe=(p, x, cot), tok=tok, grads=grads, zamba2=jz,
+                     new=new_jax)
 
 
 #: the data-rows-only decode at (4, 1): two rows a rank, as the whole
@@ -395,6 +483,55 @@ ENGINE_PROMPTS = {"p5": _PR.integers(0, 512, 5), "p8": _PR.integers(0, 512, 8),
                   "p125": _PR.integers(0, 512, 125),
                   "p124": _PR.integers(0, 512, 124),
                   "rep": np.tile(_PR.integers(0, 512, 4), 4)}
+
+
+#: the sharded xlstm's MX8 difference from one device, at most this many
+#: times the one-ulp control's (``chip_smoke.py``'s factor)
+CONTROL_FACTOR = 4
+#: the new mixers' prompts and fed tokens (numpy's generator, seed 12)
+_NW = np.random.default_rng(12)
+NEW_IN = {"tok": _NW.integers(0, 512, (DECODE["B"], DECODE["S"])),
+          "feed": _NW.integers(0, 512, (DECODE["steps"], DECODE["B"]))}
+
+
+def _new_cfgs(arch, tag):
+    """JAX's and the port's smoke config of ``arch`` at fp32 state or MX8
+    SR, an MoE's capacity wide enough that no expert overflows (expert
+    parallelism then routes as one device does)."""
+    fmt, tb = ("fp32", "torch") if tag == "fp32" else ("mx8", "cuda")
+    out = []
+    for get, Q, b in ((j_smoke, JOPS, "jnp"), (t_smoke, TOPS, tb)):
+        c = get(arch).with_(state_quant=Q.StateQuantConfig(fmt, "stochastic",
+                                                           b))
+        if c.moe is not None:
+            c = c.with_(moe=c.moe.__class__(**{**c.moe.__dict__,
+                                               "capacity_factor": 8.0}))
+        out.append(c)
+    return out
+
+
+def _new_mixers_jax(arch):
+    """JAX's prefill + decode of ``arch`` on the port's weights (seed 0)
+    fed ``NEW_IN``: the logits of every step at fp32 state and MX8 SR."""
+    from test_torch_train import _jax_layout
+    tparams = TM.init_model(_new_cfgs(arch, "fp32")[1],
+                            torch.Generator().manual_seed(0), device="cpu")
+    jparams = jax.tree.map(jnp.asarray, _jax_layout(tparams, arch))
+    tok, feed = NEW_IN["tok"], NEW_IN["feed"]
+    lens = jnp.full((tok.shape[0],), tok.shape[1], jnp.int32)
+    out = {"tparams": tparams}
+    for tag in ("fp32", "sr"):
+        jc = _new_cfgs(arch, tag)[0]
+        jl, caches = jax.jit(lambda p, b: JM.prefill(p, jc, b))(
+            jparams, {"tokens": jnp.asarray(tok, jnp.int32)})
+        dec = jax.jit(lambda p, t, c, L, s: JM.decode_step(p, jc, t, c, L, s))
+        logits = [jl]
+        for s in range(DECODE["steps"]):
+            jl, caches = dec(jparams, jnp.asarray(feed[s], jnp.int32), caches,
+                             lens + s, jnp.int32(5 + s))
+            logits.append(jl)
+        out[tag] = np.stack([np.asarray(a) for a in logits])
+    return out
 
 
 def _zcfgs():
@@ -763,6 +900,140 @@ def test_tensor_parallel_bytes_a_rank(ranks):
         print(f"{kind}: a rank {int(tp.sum())} of {int(whole.sum())} "
               f"(split leaves {int(tp[split].sum())} of "
               f"{int(whole[split].sum())})")
+
+
+def _single_device_new(arch, tag, nudge=False):
+    """The port's single-device prefill + decode of ``arch`` fed
+    ``NEW_IN``, on the ranks' weights; with ``nudge``, the first decode
+    step's first state update returns its ``y`` one ulp up (every value),
+    every later one untouched: the control of the MX8 amplification."""
+    from repro_torch.models import ssm as TSSM
+    c = _new_cfgs(arch, tag)[1]
+    params = TM.init_model(_new_cfgs(arch, "fp32")[1],
+                           torch.Generator().manual_seed(0), device="cpu")
+    real, calls = TSSM._spu_state_update, [0]
+
+    def nudged(*args, **kw):
+        S, y = real(*args, **kw)
+        calls[0] += 1
+        if calls[0] == 1:
+            y = torch.nextafter(y, torch.full_like(y, float("inf")))
+        return S, y
+    TSSM._spu_state_update = nudged if nudge else real
+    try:
+        return _single_device_decode(c, torch.from_numpy(NEW_IN["tok"]),
+                                     params, NEW_IN["feed"])
+    finally:
+        TSSM._spu_state_update = real
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x4"])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_tensor_parallel_new_mixers_decode_matches_jax(ranks, arch, mesh):
+    """The GLA family, xLSTM and deepseek-v2-236b (MLA + MoE) through the
+    sharded prefill + 4 decode steps, fed the same tokens: at (2, 2) tp =
+    2 splits every mixer's heads but the sLSTM's (data rows split too), at
+    (1, 4) deepseek's MLA splits its 4 heads and the 2-head mixers run
+    whole (``layer_par``), against JAX's ``M.prefill`` /
+    ``M.decode_step``, as ``test_tensor_parallel_decode_matches_jax``
+    holds zamba2: fp32 state within rtol 1e-4, atol 1e-4 * max|logits|,
+    greedy tokens equal; MX8 SR |dlogit| < 1e-2; every rank the same bits.
+    xlstm at MX8 SR is held so at prefill only: seven mLSTM layers amplify
+    each MX8 mantissa that a last-bit difference flips
+    (``test_torch_xlstm.py``), so the single-device port's own decode
+    steps part from JAX's past 1e-2 too.  Its decode steps are held to the
+    size of that amplification instead: the sharded run's difference from
+    the single-device port at most ``CONTROL_FACTOR`` times what moving one
+    state update's ``y`` one ulp does to the single-device run (the
+    control of ``chip_smoke.py``'s reference check)."""
+    res, inp = ranks
+    jx = inp["new"][arch]
+    for tag in ("fp32", "sr"):
+        run = f"new_{arch}_{mesh}_{tag}"
+        got, want = res[0][run], jx[tag]
+        for r in res[1:]:
+            np.testing.assert_array_equal(r[run], got, err_msg=run)
+        err = np.abs(got - want).max(axis=(1, 2))
+        agree = float(np.mean(got.argmax(-1) == want.argmax(-1)))
+        print(f"{run}: max |dlogit| by step {np.array2string(err, precision=3)}"
+              f", greedy token agreement {agree:.2f}")
+        assert np.isfinite(got).all(), run
+        if tag == "fp32":
+            np.testing.assert_allclose(got, want, rtol=1e-4,
+                                       atol=1e-4 * np.abs(want).max())
+            assert agree == 1.0, run
+        elif arch == "xlstm-1.3b":
+            one = _single_device_new(arch, tag)
+            d_tp = float(np.abs(got - one).max())
+            d_ctl = float(np.abs(_single_device_new(arch, tag, True)
+                                 - one).max())
+            by_step = np.abs(one - want).max(axis=(1, 2))
+            print(f"{run}: the single-device port's |dlogit| from JAX by "
+                  f"step {np.array2string(by_step, precision=3)}; from it: "
+                  f"sharded {d_tp:.3g}, one-ulp control {d_ctl:.3g}")
+            assert err[0] < 1e-2 and d_tp <= CONTROL_FACTOR * d_ctl, run
+        else:
+            assert err.max() < 1e-2, run
+
+
+@pytest.mark.parametrize("arch", [a for a, _, _ in NEW_ENGINES])
+def test_tensor_parallel_new_mixers_engines_match_single_device(ranks, arch):
+    """The paged engine with n-gram speculation, fp32 state, on model
+    groups of 2 (gla, xlstm: 1 head a rank) and of 4 (deepseek: 1 query
+    head a rank, the MoE expert-parallel): the single-device engine's
+    greedy tokens, every rank's sampled logits the same bits, and a rank's
+    own bytes in ``stats()`` (the prefills' slab inserts: half of one
+    device's for gla, less than it for xlstm, whose sLSTM is whole)."""
+    res, _ = ranks
+    c = _new_cfgs(arch, "fp32")[1]
+    params = TM.init_model(c, torch.Generator().manual_seed(0), device="cpu")
+    prompts = next(p for a, _, p in NEW_ENGINES if a == arch)
+    eng = Engine(params, c, ServeConfig(batch=2, spec="ngram"))
+    hs = [eng.submit(ENGINE_PROMPTS[pr], max_new_tokens=n)
+          for pr, n in prompts]
+    eng.run()
+    want = np.concatenate([np.asarray(h.result().output) for h in hs])
+    for r in res:
+        np.testing.assert_array_equal(r[f"neweng_{arch}"], want)
+        np.testing.assert_array_equal(r[f"neweng_{arch}_logits"],
+                                      res[0][f"neweng_{arch}_logits"])
+    gathered = float(res[0][f"neweng_{arch}_gather"])
+    whole = eng.stats()["gather_bytes"]
+    print(f"{arch}: a rank's gather bytes {gathered:.0f} of {whole:.0f}")
+    if arch == "gla-2.7b":
+        assert gathered * 2 == whole
+    elif arch == "xlstm-1.3b":
+        assert whole / 2 < gathered < whole
+
+
+def test_tensor_parallel_slabs_and_latent_pools(ranks):
+    """At tp = 2 a rank's GLA slab is half of one device's and each
+    mLSTM slab leaf (state, conv tail) half, the sLSTM's carries whole;
+    deepseek's latent pages (whole: one stream for every query head) are
+    the same bits on every rank after the engine run."""
+    res, _ = ranks
+    from repro_torch.serving.memory import PagedStatePool
+    for arch in ("gla-2.7b", "xlstm-1.3b"):
+        c = _new_cfgs(arch, "fp32")[1]
+        pool = PagedStatePool(c, n_pages=2, device="cpu")
+        whole = np.asarray([t[0].numel() * t.element_size() for t, sp in
+                            zip(pool.pools, pool.paging.specs)
+                            if sp.kind == "slab"])
+        got = res[0][f"neweng_{arch}_slabs"]
+        assert got.shape == whole.shape
+        half = got * 2 == whole
+        if arch == "gla-2.7b":
+            assert half.all()
+        else:                    # 7 mLSTM layers' S and conv; 4 sLSTM leaves
+            assert half.sum() == 2 * c.pattern.count("mlstm")
+            assert (got[~half] == whole[~half]).all()
+        print(f"{arch}: a rank's slab {int(got.sum())} of {int(whole.sum())}"
+              " bytes")
+    latent = sorted(k for k in res[0] if k.startswith("neweng_latent"))
+    assert latent
+    for r in res[1:]:
+        for k in latent:
+            np.testing.assert_array_equal(r[k], res[0][k], err_msg=k)
 
 
 def test_engines_refuse_data_axes():

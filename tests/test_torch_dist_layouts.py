@@ -200,9 +200,10 @@ def _tp_head_dim(cfg, path, tp):
     """The dim of a cache leaf (at ``path`` in the port's cache tree) that
     the tensor-parallel step splits over ``tp`` model ranks, from the
     config alone: a GQA layer's K and V payloads (dim 2, its kv heads)
-    where tp divides the kv heads, a Mamba-2 layer's state (dim 1, its
-    heads) and conv tail (dim 2, its heads' channels) where tp divides its
-    heads; else None."""
+    where tp divides the kv heads, a Mamba-2 or mLSTM layer's state (dim
+    1, its heads) and conv tail (dim 2, its heads' channels) and a
+    GLA-family layer's state where tp divides its heads; else None (MLA's
+    latent and the sLSTM's carries are whole on every rank)."""
     if tp == 1:
         return None
     if path[0] == "prelude":
@@ -219,6 +220,9 @@ def _tp_head_dim(cfg, path, tp):
         heads = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
         if heads % tp == 0:
             return {"S": 1, "conv_x": 2}.get(path[0])
+    if kind in ("gla", "retnet", "hgrn2", "mlstm"):
+        if (cfg.ssm.n_heads or cfg.n_heads) % tp == 0:
+            return {"S": 1, "conv": 2}.get(path[0])
     return None
 
 
@@ -230,8 +234,9 @@ def test_serving_cache_layout_keeps_only_the_batch_entries(trees, arch,
     """The layout the port's serving steps keep caches in: each leaf's
     batch entry where JAX's layout has one (checked equal to JAX's
     above), the model axis on the heads of the caches the tensor-parallel
-    step splits (GQA K and V where tp divides the kv heads; Mamba-2's
-    state and conv tail where tp divides its heads), and no other dim
+    step splits (GQA K and V where tp divides the kv heads; the state of
+    Mamba-2, the GLA family and mLSTM, and the conv tails, where tp
+    divides their heads), and no other dim
     sharded -- each rank keeps its rows of its heads, so a decode step
     gathers no cache."""
     _, tc, _, _, caches = trees[arch]
@@ -253,10 +258,13 @@ def test_serving_cache_layout_keeps_only_the_batch_entries(trees, arch,
                                                     for e in f.spec]
             assert [e == "model" for e in s.spec] == [
                 i == hd for i in range(len(s.spec))], (path, s.spec)
-        # the attention / Mamba-2 archs split their caches at tp > 1
+        # the attention / state-update archs split their caches at tp > 1
+        recurrent = {"mamba2", "gla", "retnet", "hgrn2", "mlstm"}
         if tpar.tp > 1 and ("mamba2" in tc.pattern or (
                 "attn" in tc.pattern + tc.prelude or tc.shared_attn)
-                and tc.n_kv_heads % tpar.tp == 0):
+                and tc.n_kv_heads % tpar.tp == 0 or set(tc.pattern)
+                & recurrent and (tc.ssm.n_heads or tc.n_heads) % tpar.tp
+                == 0):
             assert split > 0
 
 
