@@ -150,8 +150,14 @@ Phases, in the order they run:
   launch's heads or rows, the tp = 2 shards timed; (b) the same two
   workers serve gla-2.7b (TP_NEW's depth), xlstm-1.3b (one sLSTM
   included) and deepseek-v2-236b (prelude + one MoE layer, expert
-  parallel) at model level against tp = 1, then deepseek through the
-  paged engine with n-gram speculation
+  parallel) at model level against tp = 1 (gla: bitwise tp = 1 with its
+  products summed in the ranks' order, ``dist.emulate.split_sums``), then
+  deepseek through the paged engine with n-gram speculation.  Then the
+  data axes: (a) the fused paged append on a data rank's half batch with
+  its SR row base, bitwise the whole batch's launch; (b) the two workers
+  as a (2, 1) mesh serve zamba2 through the slot and the paged engine
+  (DP: preemptions resume in the other rank's rows, pages move between
+  the ranks) at fp32 state and MX8 SR, against one process's engines
   8. kernels line
 
 The card's peaks in every bound come from
@@ -5808,6 +5814,14 @@ TP_NEW = (("gla-2.7b", 4, "n_layers 32 -> 4"),
            "n_layers 60 -> 2 (the dense prelude layer + one MoE layer)"))
 TP_NEW_STEPS = 4
 TP_DS_ENGINE = dict(prompts=(64, 133, 97, 120), max_new=8)
+#: phase 70 (b)'s data axes, last on the same two workers as a (2, 1)
+#: mesh: zamba2 (ZAMBA2_LAYERS deep) through the slot engine and through a
+#: paged engine whose 4 usable pages force preemptions (each request grows
+#: a second page), so requests resume in rows of the other data rank and
+#: their pages move; fp32 state and the config's MX8 SR
+DP = dict(prompts=(120, 126, 121, 127), max_new=8,
+          slots=dict(backend="slots", batch=4, cache_capacity=256),
+          paged=dict(batch=4, n_pages=5, prefill_chunk=512))
 
 
 def _shard(qt, h0, n, dim):
@@ -6261,13 +6275,73 @@ def _tp_mla_shards():
     return out, errs, bitwise
 
 
+def _dp_append():
+    """Phase 70 (a), the fused paged append on a data rank's rows: zamba2's
+    K and V of a batch of 4 as two launches of 2 rows, the second with row
+    base 2, bitwise the whole batch's launch in all three MX8 fields, and
+    so is the plain version of each half; row base 0 is bitwise the launch
+    without one.  The second half's launch is timed beside its plain
+    version (kernel 4's row has the whole batch's)."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_paged_attention as KP
+    KVH, w = ATTN["KVH"], ATTN["d"]
+    B = 4
+    b0 = B // 2
+    lengths = [n_ + MAX_NEW // 2 for n_ in PROMPT_LENS[:B]]
+    _, K, V, bt, lens = _paged_kv(lengths, seed=720, spare=0)
+    rows = _new_rows(B, KVH, w, 2, seed=721)
+    half = lambda lo, hi: [r[lo:hi].contiguous() for r in rows]
+    whole = [K.clone(), V.clone()]
+    KP.mx_paged_kv_append_quant(rows, whole, bt, 1, lens, 0xFFFFFFF0)
+    zero = [K.clone(), V.clone()]
+    KP.mx_paged_kv_append_quant(rows, zero, bt, 1, lens, 0xFFFFFFF0,
+                                row_base=0)
+    split, plain = [K.clone(), V.clone()], [K.clone(), V.clone()]
+    for lo, hi in ((0, b0), (b0, B)):
+        KP.mx_paged_kv_append_quant(half(lo, hi), split, bt[lo:hi], 1,
+                                    lens[lo:hi], 0xFFFFFFF0, row_base=lo)
+        KP.plain_append_quant(half(lo, hi), plain, bt[lo:hi], 1,
+                              lens[lo:hi], 0xFFFFFFF0, "stochastic", 0, KVH,
+                              lo)
+    torch.cuda.synchronize()
+    for what, got in (("two halves with their row bases", split),
+                      ("row base 0", zero), ("the plain halves", plain)):
+        for a, b in zip(got, whole):
+            for f in ("mantissa", "exponent", "micro"):
+                check(torch.equal(a.payload[f], b.payload[f]),
+                      f"phase 70 (a) fused paged append, {what}: {f} "
+                      "differs from the whole batch's launch")
+    err = max(_payload_err(a, b) for a, b in zip(split, plain))
+    mine = half(b0, B)
+    Kt, Vt = K.clone(), V.clone()
+    kern = [lambda l=l: KP.mx_paged_kv_append_quant(
+        mine, [Kt, Vt], bt[b0:], l, lens[b0:], l, row_base=b0)
+        for l in range(N_STACK)]
+    plain_k = [lambda l=l: KP.plain_append_quant(
+        mine, [Kt, Vt], bt[b0:], l, lens[b0:], l, "stochastic", 0, KVH, b0)
+        for l in range(3)]
+    n_val = 2 * (B - b0) * KVH * w
+    out = _report("mx_paged_kv_append[quant,rows2..3]", graph_ms(kern, 50),
+                  graph_ms(plain_k, 10), None, host_loop_ms(kern[0], 100),
+                  n_val * (4 + 1 + 2 / F.MX8_GROUP) + 4 * (B - b0) * 2,
+                  5 * n_val, n_val * 9 / 8, n=70)
+    phase(70, "the fused paged append on a data rank's rows (row base)",
+          rows=f"{b0}..{B - 1} of {B}", halves_vs_whole="bitwise",
+          row_base_0_vs_none="bitwise", plain_halves_vs_whole="bitwise",
+          max_abs_err_vs_plain=f"{err:.3g}")
+    return out, err
+
+
 def phase_tp_kernels():
     """Phase 70 (a): the head-shard launches at tp = 2 and 4: zamba2's,
-    then the GLA family's, the mLSTM's and MLA's."""
+    then the GLA family's, the mLSTM's and MLA's; the fused paged append
+    on a data rank's rows."""
     t0 = time.perf_counter()
     res = {tp: _tp_kernels(tp) for tp in TP["degrees"]}
     res["su"] = _tp_su_shards()
     res["mla"] = _tp_mla_shards()
+    res["rows"] = _dp_append()
     phase(70, "head-shard kernels", seconds=f"{time.perf_counter() - t0:.1f}")
     return res
 
@@ -6402,6 +6476,7 @@ def tp_worker(rank, world, init, out):
         torch.cuda.empty_cache()
         for arch, layers, _ in TP_NEW:
             res[arch] = _tp_new_model(rank, par, out, arch, layers)
+        res["dp"] = _dp_engines(rank, world)
         res["seconds"] = time.perf_counter() - t_start
     finally:
         dist.destroy_process_group()
@@ -6457,6 +6532,17 @@ def _tp_new_model(rank, par, out, arch, layers):
         r[f"{tag}_plain_quant"] = PLAIN_QUANT["calls"]
         r[f"{tag}_step_ms"] = ms
         np.save(Path(out) / f"rank{rank}_{arch}_{tag}.npy", got.cpu().numpy())
+        if rank == 0 and tag == "sr" and arch == "gla-2.7b":
+            # tp = 1 with each row-parallel sum cut and added as the two
+            # ranks add it: the drift's cause, if bitwise
+            from repro_torch.dist.emulate import split_sums
+            with split_sums(params, c, par.tp) as emulated:
+                emu, _, _ = _tp_decode(M, emulated, c, None, tok, lengths, n,
+                                       feed)
+            de = (got - emu).abs().flatten(1).amax(1)
+            r["sr_emulation_by_step"] = [float(x) for x in de]
+            r["sr_emulation_bitwise"] = bool(torch.equal(got, emu))
+            del emu
         if rank == 0:
             d = (got - ref).abs().flatten(1).amax(1)
             r[f"{tag}_dlogit_by_step"] = [float(x) for x in d]
@@ -6507,6 +6593,163 @@ def _tp_new_model(rank, par, out, arch, layers):
     torch.cuda.empty_cache()
     r["seconds"] = time.perf_counter() - t0
     return r
+
+
+def _dp_engines(rank, world):
+    """Phase 70 (b)'s data axes in a worker: the two ranks as a (2, 1)
+    mesh serve zamba2 through the slot and the paged engine (DP), each
+    rank its 2 of the 4 decode rows, at fp32 state and at MX8 SR, every
+    launch counter reset just before a run and read just after; then rank
+    0 serves the same requests on one process, the tokens and the live
+    rows' sampled logits to compare, and at MX8 SR once more with the one-ulp control
+    (:func:`_first_update_one_ulp_up`), what a wrong SR row would move."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import ops as OPS
+    from repro_torch.core import tree as T
+    from repro_torch.launch.mesh import make_local_parallel
+    from repro_torch.serving import engine as SE
+    from repro_torch.serving.api import Engine, ServeConfig
+    t0 = time.perf_counter()
+    par = make_local_parallel(world, 1, device_type="cuda")
+    cfg, params, _ = _model()
+    rng = np.random.default_rng(72)
+    prompts = [rng.integers(0, cfg.vocab_size, n_) for n_ in DP["prompts"]]
+    r = {}
+    for tag, sq in (("fp32", OPS.StateQuantConfig("fp32", "nearest",
+                                                  "torch")),
+                    ("sr", cfg.state_quant)):
+        c = cfg.with_(state_quant=sq)
+        for name in ("slots", "paged"):
+            runs = [("dp", par)] + ([("one", None)] if rank == 0 else [])
+            if rank == 0 and tag == "sr":
+                runs.append(("ctl", None))
+            seen = {}
+            for who, pr in runs:
+                eng = Engine(params, c, ServeConfig(**DP[name]), par=pr)
+                PLAIN_QUANT["calls"] = 0
+                _counts_reset()
+                seen[who], real = [], SE.sample
+
+                def recording(lg, *a, _s=seen[who], _c=eng.engine, **k):
+                    x = lg.detach().float().cpu()
+                    if x.shape[0] == DP[name]["batch"]:   # live rows only
+                        x = x[torch.as_tensor(np.asarray(
+                            _c.active if _c.backend == "slots"
+                            else [r is not None for r in _c.rows], bool))]
+                    _s.append(x)
+                    return real(lg, *a, **k)
+                SE.sample = recording
+                ctl = (_first_update_one_ulp_up() if who == "ctl"
+                       else contextlib.nullcontext())
+                t1 = time.perf_counter()
+                try:
+                    with ctl:
+                        hs = [eng.submit(p, max_new_tokens=DP["max_new"])
+                              for p in prompts]
+                        eng.run()
+                finally:
+                    SE.sample = real
+                torch.cuda.synchronize()
+                key = f"{name}_{tag}_{who}"
+                st = eng.stats()
+                held = (eng.engine.caches if name == "slots"
+                        else eng.engine.pool.pools)
+                r[key] = dict(
+                    tokens=[list(map(int, h.result().output)) for h in hs],
+                    status=[h.status for h in hs],
+                    counts={k: v for k, v in _counts().items() if v},
+                    plain_quant=PLAIN_QUANT["calls"],
+                    steps=eng.engine.step_count,
+                    wall=time.perf_counter() - t1,
+                    moves=st.get("dp_moves", 0.0),
+                    move_bytes=st.get("dp_move_bytes", 0.0),
+                    preemptions=st.get("preemptions", 0.0),
+                    bytes=sum(t.numel() * t.element_size()
+                              for t in T.leaves(held)))
+                del eng, held
+                gc.collect()
+            if rank == 0:       # max |dlogit| of each run from one process's
+                for who in seen:
+                    a, b = seen[who], seen["one"]
+                    r[f"{name}_{tag}_{who}"]["dlogit"] = (
+                        max(float((x - y).abs().max()) for x, y in zip(a, b))
+                        if [x.shape for x in a] == [y.shape for y in b]
+                        else math.inf)
+            dist.barrier()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    r["seconds"] = time.perf_counter() - t0
+    return r
+
+
+def _dp_checks(rs):
+    """Phase 70 (b)'s checks of the (2, 1) runs: every request done with
+    its tokens; both ranks the same tokens, the one-process engine's; at
+    MX8 SR the sampled logits within ``CONTROL_FACTOR`` times what the
+    one-ulp control moves them from one process's; each rank's launches a
+    step as one process's, no plain quantizer; the paged run preempted and
+    moved pages between the ranks; a rank's slot caches half of one
+    process's."""
+    n_su, n_at = _zamba2_launches(_model_cfg())
+    r0 = rs[0]
+    for tag in ("fp32", "sr"):
+        for name in ("slots", "paged"):
+            key = f"{name}_{tag}"
+            d0, d1, one = r0[key + "_dp"], rs[1][key + "_dp"], r0[key + "_one"]
+            for d in (d0, d1, one):
+                check(all(x == "done" for x in d["status"])
+                      and all(len(t) == DP["max_new"] for t in d["tokens"])
+                      and d["plain_quant"] == 0,
+                      f"phase 70 (2, 1) {key}: {d['status']}, plain "
+                      f"quantizer {d['plain_quant']}")
+            ctl = r0[key + "_ctl"]["dlogit"] if tag == "sr" else None
+            agree = float(sum(a == b for x, y in zip(
+                d0["tokens"], one["tokens"]) for a, b in zip(x, y))
+                / sum(len(x) for x in one["tokens"]))
+            phase(70, f"data-parallel zamba2-2.7b {name} engine, (2, 1) "
+                  f"mesh, {tag}", layers=ZAMBA2_LAYERS,
+                  requests=len(DP["prompts"]), max_new=DP["max_new"],
+                  steps=d0["steps"], token_agreement_with_one_process=(
+                      f"{agree:.3f}"),
+                  max_dlogit_vs_one_process=f"{d0['dlogit']:.3g}",
+                  one_ulp_control=("n/a" if ctl is None
+                                   else f"{ctl:.3g}"),
+                  preemptions=int(d0["preemptions"]),
+                  dp_moves=int(d0["moves"]),
+                  dp_move_bytes=int(d0["move_bytes"]),
+                  rank_bytes=d0["bytes"], one_process_bytes=one["bytes"],
+                  launches_per_rank=",".join(f"{k}={v}" for k, v in
+                                             d0["counts"].items()),
+                  wall_s=f"{d0['wall']:.2f}",
+                  one_process_wall_s=f"{one['wall']:.2f}")
+            check(d0["tokens"] == d1["tokens"], f"phase 70 (2, 1) {key}: "
+                  "the data ranks sampled other tokens")
+            check(d0["tokens"] == one["tokens"], f"phase 70 (2, 1) "
+                  f"{key}: tokens differ from one process's")
+            if tag == "sr":
+                check(d0["dlogit"] <= CONTROL_FACTOR * ctl,
+                      f"phase 70 (2, 1) {key}: |dlogit| {d0['dlogit']:.3g} "
+                      f"from one process, above {CONTROL_FACTOR} x the "
+                      f"one-ulp control's {ctl:.3g}")
+                n = d0["steps"]
+                want = (dict(k1=n_su * n, k2_gqa=n_at * n, apd=n_at * n)
+                        if name == "slots" else
+                        dict(k1s=n_su * n, k3_gqa=n_at * n, k4q=n_at * n))
+                for d in (d0, d1):
+                    got = {k: d["counts"].get(k, 0) for k in want}
+                    check(got == want, f"phase 70 (2, 1) {key}: launches "
+                          f"{d['counts']} over {n} steps (want {want})")
+    check(r0["paged_sr_dp"]["preemptions"] >= 1
+          and r0["paged_sr_dp"]["moves"] > 0,
+          f"phase 70 (2, 1): the paged run preempted "
+          f"{r0['paged_sr_dp']['preemptions']} and moved "
+          f"{r0['paged_sr_dp']['moves']} pages")
+    check(r0["slots_sr_dp"]["bytes"] * 2 == r0["slots_sr_one"]["bytes"],
+          f"phase 70 (2, 1): a rank's slot caches "
+          f"{r0['slots_sr_dp']['bytes']} of {r0['slots_sr_one']['bytes']}")
 
 
 def phase_tp_serve():
@@ -6619,6 +6862,7 @@ def phase_tp_serve():
           pool_tp1_GB=f"{by['pool_tp1'] / 1e9:.4f}")
     for arch, layers, cut in TP_NEW:
         _tp_new_checks(arch, layers, cut, [r[arch] for r in res])
+    _dp_checks([r["dp"] for r in res])
     phase(70, "tensor-parallel serving", seconds=f"{time.perf_counter() - t0:.1f}",
           rank_seconds=",".join(f"{r['seconds']:.1f}" for r in res),
           rank_setup_s=",".join(f"{r['setup_s']:.1f}" for r in res))
@@ -6628,12 +6872,15 @@ def phase_tp_serve():
 def _tp_new_checks(arch, layers, cut, rs):
     """Phase 70 (b)'s checks of one TP_NEW model, on what the two workers
     wrote: fp32 state within 1e-3 of tp = 1 with every greedy token equal;
-    MX8 SR within 1e-2, or within CONTROL_FACTOR times what moving one
-    ``y`` of layer 0's first decode step one ulp does at tp = 1 (the
-    control of ``_reference_check_by_depth``): the row-parallel sums
-    differ from tp = 1's in the last bits, and at full width a last-bit
-    difference flips some MX8 roundings of the millions of state values a
-    layer, which the layers above amplify; each model-level step's launches (kernel 1 a
+    MX8 SR: gla bitwise tp = 1 under the split-sum emulation
+    (``dist.emulate.split_sums``: its products summed in the ranks'
+    order) at every step; the others within 1e-2, or within
+    CONTROL_FACTOR times what moving one ``y`` of layer 0's first decode
+    step one ulp does at tp = 1 (the control of
+    ``_reference_check_by_depth``): the row-parallel sums differ from tp =
+    1's in the last bits, and at full width a last-bit difference flips
+    some MX8 roundings of the millions of state values a layer, which the
+    layers above amplify; each model-level step's launches (kernel 1 a
     split layer, MLA's kernel 2 and latent append a layer, kernel 7 a
     prefilled layer) and no plain quantizer; a rank's bytes; deepseek's
     engines: launches a step, the same tokens and latent pool bits on both
@@ -6653,10 +6900,18 @@ def _tp_new_checks(arch, layers, cut, rs):
     check(r0["fp32_max_dlogit"] <= 1e-3 and r0["fp32_agree"] == 1.0
           and r0["fp32_finite"], f"phase 70 {arch} fp32 state: |dlogit| "
           f"{r0['fp32_max_dlogit']:.3g}, agreement {r0['fp32_agree']}")
-    sr_bound = max(1e-2, CONTROL_FACTOR * r0["sr_control"])
-    check(r0["sr_max_dlogit"] < sr_bound and r0["sr_finite"],
-          f"phase 70 {arch} MX8 SR: |dlogit| {r0['sr_max_dlogit']:.3g} "
-          f"(bound {sr_bound:.3g})")
+    if "sr_emulation_bitwise" in r0:
+        # gla: the ranks' logits are tp = 1's with the products' sums in
+        # the ranks' order (dist.emulate.split_sums), bitwise at every step:
+        # their drift from tp = 1 is that order, not an SR counter
+        check(r0["sr_emulation_bitwise"] and r0["sr_finite"],
+              f"phase 70 {arch} MX8 SR: the ranks' logits differ from the "
+              f"split-sum emulation by {r0['sr_emulation_by_step']} a step")
+    else:
+        sr_bound = max(1e-2, CONTROL_FACTOR * r0["sr_control"])
+        check(r0["sr_max_dlogit"] < sr_bound and r0["sr_finite"],
+              f"phase 70 {arch} MX8 SR: |dlogit| {r0['sr_max_dlogit']:.3g}"
+              f" (bound {sr_bound:.3g})")
     for r in rs:
         check(r["sr_counts"] == want and r["sr_plain_quant"] == 0
               and not r["fp32_counts"], f"phase 70 {arch} launches "
@@ -6680,6 +6935,9 @@ def _tp_new_checks(arch, layers, cut, rs):
               f"{x:.3g}" for x in r0["sr_dlogit_by_step"]),
           sr_greedy_agreement=r0["sr_agree"],
           sr_one_ulp_control=f"{r0['sr_control']:.3g}",
+          **({"sr_vs_split_sum_emulation_by_step": ",".join(
+              f"{x:.3g}" for x in r0["sr_emulation_by_step"])}
+             if "sr_emulation_by_step" in r0 else {}),
           logits_across_ranks="bitwise",
           launches_per_rank=",".join(f"{k}={v}" for k, v in
                                      r0["sr_counts"].items()),
@@ -6872,7 +7130,9 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla, dense, xlstm,
     engine; then kernel 1 at gla's and xlstm's head shards, counted on
     their model-level decodes, and MLA kernels 2, 3 and 5 at 64 of 128
     query rows, on deepseek's model-level decode, paged engine and paged
-    engine with speculation); ``launches`` counts
+    engine with speculation; and the fused paged append on a data rank's
+    2 of 4 rows with its row base, counted on rank 0's paged engine at the
+    (2, 1) mesh); ``launches`` counts
     each one's own main path (the verify kernels: the speculative path,
     where kernel 6, the dense-cache twin, has no launch; kernel 4: the
     fused quantize-and-append on the paged paths, the copy on none),
@@ -7052,6 +7312,12 @@ def kernels_line(errs, times, slot, paged, spec, ds, gla, dense, xlstm,
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,
                             max_abs_err=err, **times[name]))
+    rows_out, rows_err = tp_kern["rows"]
+    kernels.append(dict(
+        name="mx_paged_kv_append[quant,rows2..3]", route="cuda",
+        source=pa_src, replaces="src/repro/kernels/mx_paged_attention.py:199",
+        launches=tp_run["dp"]["paged_sr_dp"]["counts"].get("k4q", 0),
+        max_abs_err=rows_err, **rows_out))
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             check(math.isfinite(k[key]), f"{k['name']}: {key} not finite")

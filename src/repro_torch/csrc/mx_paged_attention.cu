@@ -32,11 +32,13 @@
 // thread owns one 16-value group, across (stream x B x KVH x w / 16): four
 // float4 loads, mx8_group.cuh's arithmetic (kernels 1 and 7's), one
 // 16-byte mantissa store into the slot, one exponent byte, one micro byte.
-// Stream i rounds with SR bits counter_hash_u32((b * KVH_tot + kvh_base +
-// h) * w + j, seed + i): what sr_bits over the layer's (B, 1, KVH_tot, w)
-// gives its heads kvh_base .. (a tensor-parallel rank's kv heads; 0 and
-// KVH for a whole layer), so the slots hold byte for byte what the eager
-// quantize followed by the copy wrote.  Bound
+// Stream i rounds with SR bits counter_hash_u32(((row_base + b) * KVH_tot
+// + kvh_base + h) * w + j, seed + i), in uint32 arithmetic: what sr_bits
+// over the whole batch's (B_tot, 1, KVH_tot, w) gives rows row_base .. (a
+// data-parallel rank's rows; 0 for the whole batch) of its heads
+// kvh_base .. (a tensor-parallel rank's kv heads; 0 and KVH for a whole
+// layer), so the slots hold byte for byte what the eager quantize
+// followed by the copy wrote.  Bound
 // by launch latency too (B * KVH * (dk + dv) * (4 + 9/8) bytes).
 //
 // MLA mode (mx_paged_attention_decode_mla_launch; the TPU kernel's
@@ -153,7 +155,8 @@ mx_paged_kv_append_quant_kernel(AppendQuantArgs a, int n,
                                 const int* __restrict__ lengths, int B,
                                 int npg, int n_pages, int n_stack, int group,
                                 int KVH, uint32_t kvh_base,
-                                uint32_t kvh_total, int stochastic) {
+                                uint32_t kvh_total, uint32_t row_base,
+                                int stochastic) {
   // groups are numbered stream after stream; g becomes the index within
   // the stream's (B, KVH, w / 16) groups (constant indices only, so the
   // arguments stay in the parameter space)
@@ -206,9 +209,11 @@ mx_paged_kv_append_quant_kernel(AppendQuantArgs a, int n,
   float t[kGroup], scale[kGroup / 2];
   uint32_t packed[4];
   int e, micro_bits;
-  // the SR counter: the element's flat index among the layer's kv heads
+  // the SR counter: the element's flat index in the whole batch's array
+  // of the layer's kv heads
   const uint32_t flat0 =
-      (((uint32_t)b * kvh_total + kvh_base + (uint32_t)h) * (uint32_t)ng +
+      (((row_base + (uint32_t)b) * kvh_total + kvh_base + (uint32_t)h) *
+           (uint32_t)ng +
        (uint32_t)j) * kGroup;
   mx8::quantize_group(v, flat0, seed, stochastic, t, packed, e, micro_bits,
                       scale);
@@ -303,14 +308,16 @@ extern "C" int mx_paged_kv_append_launch(
 // stream's MX8 page pool, the mantissas 16-byte aligned; widths: the n row
 // widths w_i (multiples of 16).  Stream i rounds with seed + i, its SR
 // counter over the layer's kvh_total kv heads, of which the rows hold
-// kvh_base .. kvh_base + KVH - 1 (0 and KVH for a whole layer).  Pools are
-// updated in place.  Same return convention.
+// kvh_base .. kvh_base + KVH - 1 (0 and KVH for a whole layer), and over
+// the whole batch, of which the rows are rows row_base .. row_base + B - 1
+// (0 for the whole batch).  Pools are updated in place.  Same return
+// convention.
 extern "C" int mx_paged_kv_append_quant_launch(
     const unsigned long long* xs, const unsigned long long* pools,
     const int* widths, int n, const void* bt, const void* lengths, int B,
     int npg, int n_pages, int n_stack, int group, int KVH, unsigned int seed,
-    unsigned int kvh_base, unsigned int kvh_total, int stochastic,
-    void* stream) {
+    unsigned int kvh_base, unsigned int kvh_total, unsigned int row_base,
+    int stochastic, void* stream) {
   if (n <= 0 || n > kMaxStreams || B <= 0 || npg <= 0 || KVH <= 0 ||
       n_pages <= 0 || n_stack <= 0 || group < 0 || group >= n_stack ||
       kvh_total < (unsigned int)KVH || kvh_base > kvh_total - KVH)
@@ -334,6 +341,6 @@ extern "C" int mx_paged_kv_append_quant_launch(
   mx_paged_kv_append_quant_kernel<<<blocks, kQuantThreads, 0,
                                     (cudaStream_t)stream>>>(
       a, n, (const int*)bt, (const int*)lengths, B, npg, n_pages, n_stack,
-      group, KVH, kvh_base, kvh_total, stochastic);
+      group, KVH, kvh_base, kvh_total, row_base, stochastic);
   return (int)cudaGetLastError();
 }

@@ -47,8 +47,9 @@ the matching rows of their output projections (:func:`serving_param_shardings` i
 a layout), the step sums each row-parallel product over the model axis
 (``dist/tp.py::tp_sum``, its one collective), and each rank keeps its
 heads' caches (:func:`serving_cache_shardings`).  The serving engines
-take a ``par`` of a model axis alone; :func:`sharded_prefill` /
-:func:`sharded_decode_step` run the same step on data rows too.
+split their decode rows over the data axes besides (``dist/rows.py``);
+:func:`sharded_prefill` / :func:`sharded_decode_step` run the same step
+on a batch laid out over the data axes.
 Training replicates compute over the model axis, except the MoE expert
 banks, which compute where they live (``models/layers.py::apply_moe``);
 tensor-parallel training (the row-parallel sum's backward, JAX's

@@ -59,7 +59,7 @@ _MLA_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 _APPEND_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
     ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_APPEND_QUANT_ARGTYPES = _APPEND_ARGTYPES[:-1] + [ctypes.c_uint32] * 3 + [
+_APPEND_QUANT_ARGTYPES = _APPEND_ARGTYPES[:-1] + [ctypes.c_uint32] * 4 + [
     ctypes.c_int, ctypes.c_void_p]
 
 
@@ -249,12 +249,14 @@ def mx_paged_kv_append_quant(streams: Sequence[torch.Tensor],
                              lengths: torch.Tensor, seed: int = 0, *,
                              rounding: str = "stochastic",
                              head_base: int = 0,
-                             heads_total: Optional[int] = None
+                             heads_total: Optional[int] = None,
+                             row_base: int = 0
                              ) -> Sequence[F.QuantizedTensor]:
     """Quantize each new token's fp32 row ``streams[i] (B, 1, KVH, w)`` to
     MX8 (SR seed ``seed + i``, the counter over the layer's ``heads_total``
     kv heads, of which the rows hold ``head_base ..``: a tensor-parallel
-    rank's shard) into its page slot
+    rank's shard, and over the whole batch, of which the rows are rows
+    ``row_base ..``: a data-parallel rank's rows) into its page slot
     ``pools[i][bt[b, len//128], group, len%128]`` of the MX8 page pool
     ``(P, n_stack, 128, KVH, w)``, in place; returns the pools.  K and V
     are two streams, an MLA latent one.  A slot outside its block table is
@@ -294,9 +296,12 @@ def mx_paged_kv_append_quant(streams: Sequence[torch.Tensor],
     if not 0 <= head_base <= heads_total - KVH:
         raise ValueError(f"kv heads {head_base} .. {head_base + KVH - 1} "
                          f"outside the layer's {heads_total}")
+    if not 0 <= int(row_base) <= 0xFFFFFFFF:
+        raise ValueError(f"row_base {row_base} is not a uint32")
     if dev.type == "cpu":
         return plain_append_quant(streams, pools, bt, group, lengths, seed,
-                                  rounding, head_base, heads_total)
+                                  rounding, head_base, heads_total,
+                                  int(row_base))
     if dev.type != "cuda":
         raise ValueError(f"mx_paged_kv_append_quant: unsupported device "
                          f"{dev}")
@@ -316,7 +321,8 @@ def mx_paged_kv_append_quant(streams: Sequence[torch.Tensor],
                       _APPEND_QUANT_ARGTYPES)
     err = fn(xptrs, pptrs, widths, n, bt_.data_ptr(), lens.data_ptr(), B,
              int(bt_.shape[1]), P, n_stack, int(group), KVH, seed,
-             int(head_base), heads_total, int(rounding == "stochastic"),
+             int(head_base), heads_total, int(row_base),
+             int(rounding == "stochastic"),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mx_paged_kv_append_quant")
     if n == 1:

@@ -425,17 +425,19 @@ def paged_kv_append_quant_ref(streams, pools, bt: torch.Tensor, group: int,
                               lengths: torch.Tensor, seed: int = 0,
                               rounding: str = "stochastic",
                               head_base: int = 0,
-                              heads_total: Optional[int] = None):
+                              heads_total: Optional[int] = None,
+                              row_base: int = 0):
     """Quantize each new token's fp32 row ``streams[i] (B, 1, KVH, w)`` to
     MX8 with SR bits ``sr_bits((B, 1, KVH, w), seed + i)`` -- of the
     whole layer's kv heads, ``(B, 1, heads_total, w)``, where the rows hold
-    heads ``head_base ..`` of them -- and write its payload into its page
+    heads ``head_base ..`` of them, and of the whole batch, where they are
+    rows ``row_base ..`` -- and write its payload into its page
     slot of ``pools[i]`` (an MX8 page pool), in place: K is stream 0 and V
     stream 1, an MLA latent the one stream.  Returns the pools."""
     rows, dst = [], []
     for i, (x, pool) in enumerate(zip(streams, pools)):
-        bits = (F.sr_bits_at(x.shape, (int(seed) + i) & 0xFFFFFFFF, 0, 2,
-                             head_base, heads_total, device=x.device)
+        bits = (F.sr_bits_at(x.shape, (int(seed) + i) & 0xFFFFFFFF, row_base,
+                             2, head_base, heads_total, device=x.device)
                 if rounding == "stochastic" else None)
         q = F.mx8_quantize(x, rounding, bits)
         rows += [q.payload[f][:, 0] for f in sorted(q.payload)]

@@ -145,15 +145,14 @@ class _PagedKVAppendBase(SpuOp):
     @staticmethod
     def _new_rows(inputs: Dict[str, Any]):
         """The new token's K and V rows (V None for an MLA latent stream)
-        and the seed, after the one-token check (and that no row base is
-        set: the paged pool serves one whole batch; a kv-head base is
-        taken, ``inputs["head_base"]`` of ``inputs["heads_total"]``)."""
+        and the seed, after the one-token check.  The SR counter's row
+        base (``inputs["row_base"]``: a data-parallel rank's first row of
+        the whole batch) and kv-head base (``inputs["head_base"]`` of
+        ``inputs["heads_total"]``) are read by the executors."""
         k_new, v_new = inputs["k"], inputs.get("v")
         if k_new.shape[1] != 1:
             raise ValueError(f"the paged kv_append writes one token per "
                              f"step, got n={k_new.shape[1]}")
-        if inputs.get("row_base", 0):
-            raise ValueError("the paged kv_append takes no SR row base")
         return k_new, v_new, int(inputs.get("seed", 0)) & _U32
 
 
@@ -174,7 +173,8 @@ class PagedKVAppendCuda(_PagedKVAppendBase):
         _paged_append_quant_cuda(streams, pools, cache.bt, cache.group,
                                  cache.lengths, seed, rounding=plan.rounding,
                                  head_base=inputs.get("head_base", 0),
-                                 heads_total=inputs.get("heads_total"))
+                                 heads_total=inputs.get("heads_total"),
+                                 row_base=inputs.get("row_base", 0))
         return dataclasses.replace(cache, lengths=cache.lengths + 1), None
 
 
@@ -190,11 +190,11 @@ class PagedKVAppendTorch(_PagedKVAppendBase):
                     ) -> Tuple[torch.Tensor, ...]:
         """(B, 1, KVH, d) -> payload rows ((B, KVH, w), ...), sorted by
         field, bit-identical to what the dense append stores for the same
-        (shape, seed, kv-head base)."""
+        (shape, seed, row base, kv-head base)."""
         if not isinstance(cache.k, F.QuantizedTensor):
             return (new[:, 0],)
         inputs = inputs or {}
-        bits = (F.sr_bits_at(new.shape, seed, 0, 2,
+        bits = (F.sr_bits_at(new.shape, seed, inputs.get("row_base", 0), 2,
                              inputs.get("head_base", 0),
                              inputs.get("heads_total"), device=new.device)
                 if plan.rounding == "stochastic" else None)

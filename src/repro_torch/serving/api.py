@@ -206,14 +206,15 @@ class Engine:
     """The one serving facade over both backends; runs where ``params``
     live (the card unless they were made on the CPU).
 
-    ``par`` (a ``dist.sharding.Parallel`` of a model axis alone, JAX's
-    ``mesh_axes``) serves tensor-parallel: every rank of the model group
-    builds an Engine from the same whole ``params`` and submits the same
-    requests; each keeps and computes its heads (GQA and MLA attention,
-    Mamba-2, the GLA family, mLSTM, the dense FFNs), and every rank's host side -- scheduler, block
-    tables, prefix store, tiers, drafts, sampler -- takes the same
-    decisions, since the logits after each step's sums are the same bits
-    on every rank."""
+    ``par`` (a ``dist.sharding.Parallel``, JAX's ``mesh_axes``) serves
+    over a mesh: every rank builds an Engine from the same whole
+    ``params`` and submits the same requests.  The model axis splits the
+    heads (GQA and MLA attention, Mamba-2, the GLA family, mLSTM, the
+    dense FFNs); the data axes split the decode rows
+    (``dist.rows.DataRows``), the logits put together after each step.
+    Every rank's host side -- scheduler, block tables, prefix store,
+    tiers, drafts, sampler -- takes the same decisions, since every rank
+    holds the same logits bits."""
 
     def __init__(self, params, cfg: ModelConfig,
                  scfg: ServeConfig = ServeConfig(),

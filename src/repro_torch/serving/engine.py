@@ -52,6 +52,7 @@ from repro_torch import ops as OPS
 from repro_torch.core import pimsim
 from repro_torch.core.paged import PAGE_TOKENS, pages_for
 from repro_torch.dist import sharding as SH
+from repro_torch.dist.rows import DataRows
 from repro_torch.kernels import _build
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -154,17 +155,12 @@ class _OpTrafficMeter:
 
 def tensor_parallel(params, cfg: ModelConfig, par):
     """The parameters an engine serves under ``par`` (a
-    ``dist.sharding.Parallel``, JAX's ``mesh_axes``): this rank's
-    (:func:`~repro_torch.dist.sharding.tp_params`; the whole tree without
-    ``par``).  The engines split the model axis alone: a ``par`` whose
-    data axes hold more than one rank is refused."""
+    ``dist.sharding.Parallel``, JAX's ``mesh_axes``): this rank's shard of
+    the model axis (:func:`~repro_torch.dist.sharding.tp_params`; the
+    whole tree without ``par``), the same on every data rank.  The data
+    axes split the decode rows instead (``dist.rows.DataRows``)."""
     if par is None:
         return params
-    if par.batch_size_divisor > 1:
-        raise ValueError(
-            f"the serving engines take a model axis alone, got data axes "
-            f"{par.data_axes} of {par.batch_size_divisor} ranks (ROADMAP.md "
-            "§1 item 4.1, its queue: data axes inside the engines)")
     return SH.tp_params(params, cfg, par)
 
 
@@ -409,7 +405,11 @@ class ServingEngine(_EngineCore):
                 f"cache_capacity {ecfg.cache_capacity} reaches past the "
                 f"{M.POS_ROWS} rows of {cfg.name}'s learned position table")
         B = ecfg.slots
-        self.caches = M.init_decode_caches(cfg, B, ecfg.cache_capacity,
+        #: the decode rows' split over the data ranks: this rank holds the
+        #: caches of its slots ``data_rows.lo ..`` alone
+        self.data_rows = DataRows(par, B, cfg)
+        self.caches = M.init_decode_caches(cfg, self.data_rows.n_local,
+                                           ecfg.cache_capacity,
                                            device=self.device, par=par)
         # host-side mirror of per-slot lengths: the engine is the writer of
         # record, so it streams host->device with the decode call instead
@@ -471,9 +471,14 @@ class ServingEngine(_EngineCore):
         self._count_prefill(S)
         prompt = torch.as_tensor(req.prompt, dtype=torch.int64,
                                  device=self.device)[None]
-        logits, row_caches = self._prefill(self.params,
-                                           batch={"tokens": prompt})
-        M.write_row(self.caches, row_caches, slot, S)
+        logits = None
+        if self.data_rows.computes(slot):    # the slot's ranks prefill it
+            logits, row_caches = self._prefill(self.params,
+                                               batch={"tokens": prompt})
+            M.write_row(self.caches, row_caches, slot - self.data_rows.lo, S)
+        logits = self.data_rows.from_owner(
+            logits, slot, (1, self.cfg.vocab_size),
+            self.params["embed"].dtype, self.device)
         tok = int(sample(logits, self.ecfg.sampling, self._gen)[0])
         req.t_first = time.perf_counter()
         self.obs.lifecycle.first_token(req.rid, t=req.t_first)
@@ -497,10 +502,13 @@ class ServingEngine(_EngineCore):
         self.step_count += 1
         builds = _build.builds_done()
         t0 = time.perf_counter()
-        lengths = torch.from_numpy(self.lengths).to(self.device)
-        logits, self.caches = self._decode(
-            self.params, tokens=self.cur_tokens, caches=self.caches,
-            lengths=lengths, seed=self.step_count)
+        lo, hi = self.data_rows.lo, self.data_rows.hi
+        lengths = torch.from_numpy(self.lengths[lo:hi]).to(self.device)
+        with self.data_rows.sr_rows():
+            logits, self.caches = self._decode(
+                self.params, tokens=self.cur_tokens[lo:hi],
+                caches=self.caches, lengths=lengths, seed=self.step_count)
+        logits = self.data_rows.gather(logits)
         toks = sample(logits, self.ecfg.sampling, self._gen)
         self.lengths = self.lengths + self.active.astype(np.int32)
         self.cur_tokens = toks
@@ -593,12 +601,16 @@ class PagedServingEngine(_EngineCore):
         self.params = tensor_parallel(params, cfg, par)
         self.pcfg = pcfg
         self.device = M.params_device(params)
+        #: the decode rows' split over the data ranks (the pool steps this
+        #: rank's rows and moves pages between ranks)
+        self.data_rows = DataRows(par, pcfg.max_decode_batch, cfg)
         self.pool = TieredStatePool(
             cfg, n_pages=None if pcfg.byte_budget is not None else pcfg.n_pages,
             n_slabs=pcfg.n_slabs, byte_budget=pcfg.byte_budget,
             device=self.device, host_tier_bytes=pcfg.host_tier_bytes,
             prefix_cache=pcfg.prefix_cache,
-            prefix_store_pages=pcfg.prefix_store_pages, par=par)
+            prefix_store_pages=pcfg.prefix_store_pages, par=par,
+            data_rows=self.data_rows)
         self.pool.attach_obs(self.obs)
         self.obs.recompiles.fixed(self.params)
         self.sched = Scheduler(pcfg.scheduler)
@@ -990,9 +1002,14 @@ class PagedServingEngine(_EngineCore):
         # lint: disable=JH103  s0 is bucketed (_bucket_prefill_len)
         prompt = torch.as_tensor(src[:s0], dtype=torch.int64,
                                  device=self.device)[None]
-        logits, row_caches = self._prefill(self.params,
-                                           batch={"tokens": prompt})
-        self.pool.insert_prefill(req.rid, row_caches)
+        # the request's decode row (``_start`` seats it in the first free
+        # one): only that row's data ranks prefill it
+        row = self.rows.index(None)
+        logits = row_caches = None
+        if self.data_rows.computes(row):
+            logits, row_caches = self._prefill(self.params,
+                                               batch={"tokens": prompt})
+        self.pool.insert_prefill(req.rid, row_caches, row)
         if replay is None and s0 % PAGE_TOKENS == 0:
             # the prefilled pages are full and immutable: remember them in
             # the prefix store for future requests sharing this prompt
@@ -1006,6 +1023,9 @@ class PagedServingEngine(_EngineCore):
         a = _Active(req, length=s0, pending=list(map(int, src[s0:])),
                     cur_token=-1, replayed=replay is not None)
         if not a.pending:
+            logits = self.data_rows.from_owner(
+                logits, row, (1, self.cfg.vocab_size),
+                self.params["embed"].dtype, self.device)
             tok = int(sample(logits, self.pcfg.sampling, self._gen)[0])
             if not req.t_first:         # replays already emitted tokens
                 req.t_first = time.perf_counter()
@@ -1521,6 +1541,12 @@ class PagedServingEngine(_EngineCore):
                 "demote_bytes_total"),
             "host_bytes": float(self.pool.host.bytes_used),
         })
+        if self.data_rows.dp > 1:
+            # pages and slabs moved between data ranks, and their bytes on
+            # this rank: keys of a data-parallel engine alone (one device
+            # keeps the JAX engine's schema)
+            out["dp_moves"] = float(self.pool.homes.moves)
+            out["dp_move_bytes"] = float(self.pool.homes.move_bytes)
         return out
 
     def bank_report(self) -> Dict[str, float]:

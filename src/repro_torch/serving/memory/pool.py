@@ -31,18 +31,30 @@ every page and slab (``models.model.init_decode_caches(..., par=)``) and
 its steps run the tensor-parallel model step; the block tables, slab ids
 and every other host-side decision are the same on every rank, so spill,
 resume and the host tier move each rank's own pages.
+
+Under data parallelism (``data_rows``, a ``dist.rows.DataRows``) a rank
+decodes only its block of the decode rows, and a page or slab holds valid
+bits only on the data ranks that wrote it (its *homes*,
+:class:`DataHomes`): the rank of the row whose prefill or step wrote it,
+and every rank a copy reached.  Copies between ids (fork, spill, resume,
+the host tier, the prefix store) carry the homes with the bits.  Before a
+step, every page or slab a row is about to read that is not valid on the
+row's rank is broadcast from its first home over the data group
+(``dp_moves`` / ``dp_move_bytes``).  Every rank holds the whole id space,
+as every device holds the JAX engine's replicated pools.
 """
 from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import ops as OPS
-from repro_torch.core.paged import PAGE_TOKENS
+from repro_torch.core.paged import PAGE_TOKENS, pages_for
+from repro_torch.dist.rows import DataRows
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.memory.layout import CachePaging
@@ -92,6 +104,51 @@ def bucket_pages(npg: int) -> int:
     return 1 << max(0, (npg - 1).bit_length())
 
 
+class DataHomes:
+    """The data ranks on which each page's and slab's bits are valid.
+
+    Inactive (every query returns None, every update is a no-op) unless
+    ``rows`` splits the decode rows over data ranks.  Every rank keeps the
+    same table: it follows the replicated host-side decisions."""
+
+    def __init__(self, rows):
+        self.rows = rows
+        self.active = rows.split
+        self.pages: Dict[int, FrozenSet[int]] = {}
+        self.slabs: Dict[int, FrozenSet[int]] = {}
+        #: pages and slabs moved between data ranks, and their bytes
+        self.moves = 0
+        self.move_bytes = 0.0
+
+    def of_row(self, row: int) -> Optional[FrozenSet[int]]:
+        return self.rows.owners(row) if self.active else None
+
+    def set_pages(self, ids: Sequence[int], homes) -> None:
+        """``homes``: one set for every id, or a sequence of sets."""
+        if not self.active:
+            return
+        each = isinstance(homes, (list, tuple))
+        for i, pid in enumerate(ids):
+            self.pages[pid] = frozenset(homes[i] if each else homes)
+
+    def set_slab(self, slab: int, homes) -> None:
+        if self.active:
+            self.slabs[slab] = frozenset(homes)
+
+    def page_homes(self, ids: Sequence[int]) -> Optional[tuple]:
+        if not self.active:
+            return None
+        return tuple(self.pages.get(pid, frozenset()) for pid in ids)
+
+    def slab_homes(self, slab: int) -> Optional[FrozenSet[int]]:
+        return self.slabs.get(slab, frozenset()) if self.active else None
+
+    def forget_pages(self, ids: Sequence[int]) -> None:
+        """Pages back on the free list: valid nowhere."""
+        for pid in ids:
+            self.pages.pop(pid, None)
+
+
 @dataclasses.dataclass
 class SpilledRequest:
     """Host-side copy of an evicted request's state (bit-exact).
@@ -109,6 +166,10 @@ class SpilledRequest:
     shared: List[tuple] = dataclasses.field(default_factory=list)
     #: CRC32 of ``blob`` at extraction; resume verifies it
     crc: Optional[int] = None
+    #: under data parallelism, the data ranks whose blob holds valid bits:
+    #: (one set per private page, the slab's set); their host tiers hold
+    #: the request
+    homes: Optional[Tuple[tuple, FrozenSet[int]]] = None
 
     @property
     def pages_needed(self) -> int:
@@ -128,13 +189,18 @@ class PagedStatePool:
     def __init__(self, cfg: ModelConfig, n_pages: Optional[int] = None,
                  n_slabs: int = 9, byte_budget: Optional[int] = None,
                  topology: Optional[BankTopology] = None,
-                 decode_mode: str = "paged", device=None, par=None):
+                 decode_mode: str = "paged", device=None, par=None,
+                 data_rows=None):
         if decode_mode not in ("paged", "gather"):
             raise ValueError(f"decode_mode must be 'paged' or 'gather', got "
                              f"{decode_mode!r}")
         self.cfg = cfg
         self.decode_mode = decode_mode
         self.device = M.resolve_device(device)
+        #: the decode rows' split over data ranks (default: one data rank)
+        self.data_rows = data_rows if data_rows is not None else DataRows(
+            None, 0)
+        self.homes = DataHomes(self.data_rows)
         self.paging = CachePaging(
             M.init_decode_caches(cfg, 1, PAGE_TOKENS, device=self.device,
                                  par=par))
@@ -301,7 +367,7 @@ class PagedStatePool:
         when the last owner drops them (forks keep shared prefix pages
         alive); the slab is always exclusive and frees now."""
         pages = self.page_table.pop(rid)
-        self.placement.unref(pages)
+        self.homes.forget_pages(self.placement.unref(pages))
         self._free_slabs.append(self.slab_of.pop(rid))
         self._instant("pool.release", rid=rid, pages=len(pages))
 
@@ -334,10 +400,14 @@ class PagedStatePool:
         if tail:
             self.paging.fork_copy(self.pools, parent_pages[n_full],
                                   new_pages[0], src_slab, slab)
+            self.homes.set_pages(new_pages, self.homes.page_homes(
+                [parent_pages[n_full]]))
             self._account_gather(self.page_nbytes + self.slab_nbytes)
         else:
             self.paging.copy_slab(self.pools, src_slab, slab)
             self._account_gather(self.slab_nbytes)
+        if self.homes.active:
+            self.homes.set_slab(slab, self.homes.slab_homes(src_slab))
         self._instant("pool.fork", parent=parent_rid, child=child_rid,
                       shared_pages=len(shared), copied_pages=len(new_pages))
         if self._obs is not None:
@@ -354,10 +424,18 @@ class PagedStatePool:
         """Physical bytes one request's pages + slab occupy (spill size)."""
         return n_pages * self.page_nbytes + self.slab_nbytes
 
-    def insert_prefill(self, rid: int, row_caches):
-        """Pin a prefilled B=1 cache row (T must equal npg*PAGE_TOKENS)."""
-        self._insert(self.pools, row_caches, self._ids(self.page_table[rid]),
-                     self.slab_of[rid])
+    def insert_prefill(self, rid: int, row_caches, row: Optional[int] = None):
+        """Pin a prefilled B=1 cache row (T must equal npg*PAGE_TOKENS).
+        Under data parallelism the prefill ran on the ranks of decode row
+        ``row``, and the others pass ``row_caches`` None: their bits of the
+        request are not valid."""
+        if row_caches is not None:
+            self._insert(self.pools, row_caches,
+                         self._ids(self.page_table[rid]), self.slab_of[rid])
+        if self.homes.active:
+            owners = self.homes.of_row(row)
+            self.homes.set_pages(self.page_table[rid], owners)
+            self.homes.set_slab(self.slab_of[rid], owners)
         self._account_gather(self.request_nbytes(len(self.page_table[rid])))
 
     def spill(self, rid: int, length: int) -> SpilledRequest:
@@ -373,8 +451,11 @@ class PagedStatePool:
         priv = [pages[i] for i in private_idx]
         blob = self.paging.extract_request(self.pools, self._ids(priv),
                                            self.slab_of[rid])
+        homes = (None if not self.homes.active else
+                 (self.homes.page_homes(priv),
+                  self.homes.slab_homes(self.slab_of[rid])))
         self.page_table.pop(rid)
-        self.placement.unref(priv)
+        self.homes.forget_pages(self.placement.unref(priv))
         self._free_slabs.append(self.slab_of.pop(rid))
         self._account_gather(self.request_nbytes(len(priv)))
         self._instant("pool.spill", rid=rid, private_pages=len(priv),
@@ -382,7 +463,7 @@ class PagedStatePool:
         # checksum the host copy at the tier boundary: resume verifies it
         return SpilledRequest(blob, len(pages), length,
                               private_idx=private_idx, shared=shared,
-                              crc=crc_blob(blob))
+                              crc=crc_blob(blob), homes=homes)
 
     def resume(self, rid: int, sp: SpilledRequest) -> bool:
         """Re-pin a spilled request: private pages land on fresh physical
@@ -408,16 +489,26 @@ class PagedStatePool:
         slab = self._free_slabs.pop()
         self.slab_of[rid] = slab
         self._insert_blob(self.pools, sp.blob, self._ids(fresh), slab)
+        self._adopt_homes(sp, fresh, slab)
         self._account_gather(self.request_nbytes(sp.pages_needed))
         self._instant("pool.resume", rid=rid, pages=sp.pages_needed,
                       shared_pages=len(sp.shared))
         return True
 
+    def _adopt_homes(self, sp: SpilledRequest, pages: Sequence[int],
+                     slab: int) -> None:
+        """A spilled request's bits re-entered ``pages`` and ``slab``: valid
+        where its blob was."""
+        if sp.homes is not None:
+            self.homes.set_pages(pages, sp.homes[0])
+            self.homes.set_slab(slab, sp.homes[1])
+
     def drop_spilled(self, sp: SpilledRequest, rid: Optional[int] = None):
         """Abort a spilled request: release the references its blob holds on
         still-resident shared pages (the last owner to drop frees them).
         ``rid`` lets the tiered pool release per-request host accounting."""
-        self.placement.unref([pid for _, pid in sp.shared])
+        self.homes.forget_pages(
+            self.placement.unref([pid for _, pid in sp.shared]))
         sp.shared = []
 
     # ------------------------------------------------------------------
@@ -466,19 +557,95 @@ class PagedStatePool:
                              for r in rids], dtype=torch.int32,
                             device=self.device)
 
+    def _local(self, rids, *per_row):
+        """This rank's rows of ``rids`` and of each per-row array."""
+        dr = self.data_rows
+        if not dr.split:
+            return (list(rids),) + per_row
+        return (list(rids[dr.lo:dr.hi]),) + tuple(a[dr.lo:dr.hi]
+                                                 for a in per_row)
+
+    def _fetch(self, rids: Sequence[Optional[int]], lengths, n: int) -> None:
+        """Before a step over ``rids`` at ``lengths`` and ``n`` positions a
+        row: broadcast over the data group, from its first home, every page
+        a row reads (``pages_for(length + n)`` of its table) and every slab
+        that is not valid on the row's rank.  Every rank computes the same
+        moves; afterwards the moved ids are valid everywhere."""
+        h = self.homes
+        if not h.active:
+            return
+        moves: Dict[int, List[Tuple[str, int]]] = {}
+        for row, rid in enumerate(rids):
+            if rid is None:
+                continue
+            owners = h.of_row(row)
+            table = self.page_table[rid]
+            npg = min(pages_for(int(lengths[row]) + n), len(table))
+            for pid in table[:npg]:
+                have = h.pages.get(pid)
+                if have and not owners <= have:
+                    moves.setdefault(min(have), []).append(("page", pid))
+            slab = self.slab_of[rid]
+            have = h.slabs.get(slab)
+            if self.slab_nbytes and have and not owners <= have:
+                moves.setdefault(min(have), []).append(("slab", slab))
+        everywhere = frozenset(range(self.data_rows.dp))
+        for src in sorted(moves):
+            items = list(dict.fromkeys(moves[src]))
+            for kind in ("page", "slab"):
+                ids = [i for k, i in items if k == kind]
+                if not ids:
+                    continue
+                idx = self._ids(ids)
+                for pool, spec in zip(self.pools, self.paging.specs):
+                    if spec.kind == kind:
+                        pool[idx] = self.data_rows.broadcast(pool[idx], src)
+                if kind == "page":
+                    h.set_pages(ids, everywhere)
+                else:
+                    for i in ids:
+                        h.set_slab(i, everywhere)
+                h.moves += len(ids)
+                h.move_bytes += len(ids) * (self.page_nbytes if kind == "page"
+                                            else self.slab_nbytes)
+
+    def _wrote(self, rids: Sequence[Optional[int]], lengths, n: int) -> None:
+        """After a step: each row's slab and the pages of its ``n`` new
+        positions are valid on the row's rank alone."""
+        h = self.homes
+        if not h.active:
+            return
+        for row, rid in enumerate(rids):
+            if rid is None:
+                continue
+            owners = h.of_row(row)
+            table = self.page_table[rid]
+            first = int(lengths[row]) // PAGE_TOKENS
+            last = (int(lengths[row]) + n - 1) // PAGE_TOKENS
+            h.set_pages(table[first:last + 1], owners)
+            h.set_slab(self.slab_of[rid], owners)
+
     def decode(self, params, rids: Sequence[Optional[int]],
                tokens: np.ndarray, lengths: np.ndarray, seed: int
                ) -> torch.Tensor:
         """Run one batched decode step over ``rids`` (None = idle row),
         updating the pools in place.  Returns logits (B, V) on the device.
+        Under data parallelism the rank steps its rows (stochastic rounding
+        counted from its first row of the whole batch) and every rank gets
+        the whole batch's logits.
 
         ``decode_mode="paged"`` runs the block-table-native ops over the
         pools; ``"gather"`` the dense-gather reference path.
         """
-        bt, slabs, lens, toks = self._step_tensors(rids, lengths, tokens)
+        self._fetch(rids, lengths, 1)
+        local, toks_l, lens_l = self._local(rids, tokens, lengths)
+        bt, slabs, lens, toks = self._step_tensors(local, lens_l, toks_l)
         step = (self._decode if self.decode_mode == "paged"
                 else self._decode_gather)
-        return step(params, self.pools, bt, slabs, lens, toks, seed)
+        with self.data_rows.sr_rows():
+            logits = step(params, self.pools, bt, slabs, lens, toks, seed)
+        self._wrote(rids, lengths, 1)
+        return self.data_rows.gather(logits)
 
     def decode_spec(self, params, rids: Sequence[Optional[int]],
                     tokens: np.ndarray, lengths: np.ndarray, seed: int,
@@ -494,20 +661,28 @@ class PagedStatePool:
         if self.decode_mode != "paged":
             raise ValueError("speculative decode needs the block-table-"
                              "native path (decode_mode='paged')")
-        bt, slabs, lens, toks = self._step_tensors(rids, lengths, tokens,
+        n = int(np.shape(tokens)[1])
+        self._fetch(rids, lengths, n)
+        local, toks_l, lens_l = self._local(rids, tokens, lengths)
+        bt, slabs, lens, toks = self._step_tensors(local, lens_l, toks_l,
                                                    min_pages)
-        return self._decode_spec(params, self.pools, bt, slabs, lens, toks,
-                                 seed)
+        with self.data_rows.sr_rows():
+            logits, snaps = self._decode_spec(params, self.pools, bt, slabs,
+                                              lens, toks, seed)
+        self._wrote(rids, lengths, n)
+        return self.data_rows.gather(logits), snaps
 
     def commit_spec(self, rids: Sequence[Optional[int]], snaps,
                     sel: np.ndarray) -> None:
         """Roll recurrent state back to each row's last accepted position
         (``sel`` (B,), an index into the verify step's n positions).  KV
         needs no rollback -- the engine's host lengths mask rejected rows
-        and later appends overwrite them."""
+        and later appends overwrite them.  Under data parallelism the rank
+        rolls back its rows (``snaps`` are its step's)."""
+        local, sel_l = self._local(rids, np.asarray(sel, np.int64))
         self._commit_spec(
-            self.pools, snaps, self._slabs(rids),
-            torch.as_tensor(np.asarray(sel, np.int64), device=self.device))
+            self.pools, snaps, self._slabs(local),
+            torch.as_tensor(sel_l, device=self.device))
 
     # ------------------------------------------------------------------
     # accounting

@@ -58,6 +58,11 @@ class StoredPage:
     #: empty list is valid (attention-only models have no slab leaves)
     state: Optional[object] = None
     last_used: int = 0
+    #: under data parallelism, the data ranks whose copies of ``state`` and
+    #: ``host_blob`` hold valid bits (the slab's and the page's homes when
+    #: they were taken)
+    state_homes: Optional[object] = None
+    host_homes: Optional[object] = None
 
     @property
     def resident(self) -> bool:

@@ -294,6 +294,7 @@ class TieredStatePool(PagedStatePool):
                                   slab)
                 done = torch.cuda.Event()
                 done.record(self.copy_stream)
+        self._adopt_homes(sp, pages, slab)
         self._staged[rid] = _Staged(pages, slab, sp, done, ts0)
         self._tier_instant("prefetch.dispatch", rid=rid, pages=need)
         return True
@@ -346,7 +347,7 @@ class TieredStatePool(PagedStatePool):
         if st is None:
             return
         self._join(st)
-        self.placement.unref(st.pages)
+        self.homes.forget_pages(self.placement.unref(st.pages))
         self._free_slabs.append(st.slab)
         self.prefetch_cancels += 1
         if self._obs is not None:
@@ -400,6 +401,8 @@ class TieredStatePool(PagedStatePool):
         if self._has_slabs:
             self._insert_slab(self.pools, nodes[-1].state, slab)
             self._account_gather(self.slab_nbytes)
+        if self.homes.active:
+            self.homes.set_slab(slab, nodes[-1].state_homes)
         self.store.touch(nodes)
         self.prefix_hits += 1
         self.prefix_hit_pages += len(nodes)
@@ -438,6 +441,7 @@ class TieredStatePool(PagedStatePool):
         if tail.state is None:
             state = self.snapshot_slab(rid)
             tail.state = state
+            tail.state_homes = self.homes.slab_homes(self.slab_of[rid])
             self.host.cache_add(_blob_nbytes(state))
             self._account_gather(self.slab_nbytes)
             self._sync_host_gauge()
@@ -472,9 +476,10 @@ class TieredStatePool(PagedStatePool):
         node.host_blob = host_copy(self._extract_pages(
             self.pools, self._ids([node.device_page])))
         node.host_crc = crc_blob(node.host_blob)
+        node.host_homes = self.homes.page_homes([node.device_page])
         if self._inject("blob_corrupt", what="store_demote"):
             corrupt_blob(node.host_blob)
-        self.placement.unref([node.device_page])
+        self.homes.forget_pages(self.placement.unref([node.device_page]))
         node.device_page = None
         self.host.cache_add(nbytes)
         self._account_gather(nbytes)
@@ -507,6 +512,8 @@ class TieredStatePool(PagedStatePool):
             return False
         self.pages_allocated += 1
         self._insert_pages(self.pools, node.host_blob, self._ids(got))
+        if node.host_homes is not None:
+            self.homes.set_pages(got, node.host_homes)
         node.device_page = got[0]
         node.host_blob = None
         node.host_crc = None
@@ -524,7 +531,8 @@ class TieredStatePool(PagedStatePool):
         assert not self._locked(node)
         self.store.remove(node)
         if node.resident:
-            self.placement.unref([node.device_page])
+            self.homes.forget_pages(
+                self.placement.unref([node.device_page]))
             node.device_page = None
         if node.host_blob is not None:
             self.host.cache_drop(self.page_nbytes)

@@ -41,6 +41,8 @@ from repro_torch.core import pimsim as TPS
 from repro_torch.models import config as TC
 from repro_torch.models.convert import params_from_jax
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 BATCHES = (1, 32, 128)
 SEQS = (512, 2048)
 DESIGNS = ("time_multiplexed", "pipelined", "pimba")

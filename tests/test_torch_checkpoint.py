@@ -21,6 +21,8 @@ from repro_torch.models import model as M
 from repro_torch.train import optimizer as O
 from repro_torch.train.train_loop import LoopConfig, make_train_step, train_loop
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 CFG = get_smoke_config("smollm-360m")
 
 

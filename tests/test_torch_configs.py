@@ -49,6 +49,8 @@ from repro_torch.serving.memory import PagedStatePool
 
 from test_torch_dense_family import _close, _decode_steps, _run
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 ARCHS = ("smollm-360m", "yi-34b", "dbrx-132b")
 _PAIRS = {}
 

@@ -18,6 +18,8 @@ from repro_torch.core import formats as F
 from repro_torch.kernels import mx_attention as KA
 from repro_torch.kernels import mx_state_update as KS
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 pytestmark = pytest.mark.gpu
 
 

@@ -30,6 +30,8 @@ from repro_torch.kernels import ref as R
 from repro_torch.models import model as M
 from repro_torch.ops.attention import KVAppendCuda, KVAppendTorch
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 B, T = 4, 128
 #: (KVH, width, streams): GQA K and V, the MLA latent alone
 KINDS = {"gqa": (2, 32, 2), "mla": (1, 80, 1)}

@@ -40,6 +40,8 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.serving.api import Engine, ServeConfig
 from repro_torch.serving.memory import PagedStatePool
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 ARCHS = ("opt-6.7b", "yi-9b")
 N_STEPS = 8
 _PAIRS = {}

@@ -15,6 +15,8 @@ from repro_torch.dist.compression import (INT8_MAX,
                                           compressed_bytes, dequantize_int8,
                                           init_error_feedback, quantize_int8)
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 
 def _t(rng, shape):
     return torch.from_numpy(rng.normal(size=shape).astype(np.float32))

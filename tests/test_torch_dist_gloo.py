@@ -30,6 +30,17 @@ and against the JAX package (which the ranks never import):
   JAX's model (computed while the ranks run); the paged + n-gram engine
   on model groups of 2 (gla, xlstm) and 4 (deepseek) against the
   single-device engines; a rank's slab bytes and the latent pools;
+* the split-sum emulation (``dist.emulate.split_sums``): one device with
+  each sharded product cut and added as tp = 2 does it, bitwise the
+  (2, 2) runs of gla and zamba2 at MX8 SR -- their drift from one device
+  is the order of those sums alone;
+* data axes inside the engines: the slot, paged (a preemption that
+  resumes on another data rank; a prefix hit on a page another data rank
+  wrote during decode) and paged + n-gram engines at (4, 1), two rows a
+  rank, and at (2, 2), against JAX's single-device engines (computed
+  while the ranks run) and the port's; dbrx at (4, 1), whose experts the
+  model axis does not split, routing the whole batch as one device; a
+  rank's cache and pool bytes;
 * the compressed all-reduce over the 'pod' axis against JAX's ``pmean``;
 * a checkpoint saved at (2, 2) restored bitwise at (4, 1) and (1, 4);
 * a dim sharded over ("data", "model") in JAX's major-to-minor order.
@@ -52,6 +63,8 @@ from repro.models import attention as JATT
 from repro.models import layers as JL
 from repro.models import model as JM
 from repro.models import ssm as JSSM
+from repro.serving.api import Engine as JEngine
+from repro.serving.api import ServeConfig as JServeConfig
 from repro_torch import ops as TOPS
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.models.convert import params_from_jax
@@ -63,6 +76,8 @@ from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.train import optimizer as TO
 from repro_torch.train.train_loop import make_train_step
+
+torch.set_num_threads(1)  # test workers share the cores: one thread each
 
 WORLD = 4
 SEQ, BATCH = 32, 4
@@ -83,6 +98,77 @@ ENGINES = [("slots", dict(backend="slots", batch=2),
             (("p125", 6), ("p124", 6))),
            ("ngram", dict(batch=2, spec="ngram"),
             (("rep", 5), ("p8", 4)))]
+
+#: the data-parallel engine runs: name -> (ServeConfig keywords, (prompt
+#: name, new tokens) per request, a late request: (prompt, new tokens, the
+#: request whose length it waits for, that length) or None).  ``paged``: 8
+#: requests grow a second page in a pool of 8 usable pages, so some are
+#: preempted and resume in the first free row, on another data rank;
+#: ``hit``: ``dp_l134`` prefills 120 positions and streams the rest, so its
+#: first page is completed by a decode step on its row's rank and stored,
+#: and the late request, seated on another data rank, adopts that page
+DP_RUNS = {
+    "slots": (dict(backend="slots", batch=8),
+              tuple((f"dp_s{i}", 6) for i in range(8)), None),
+    "paged": (dict(batch=8, n_pages=9),
+              tuple((f"dp_p{i}", 6) for i in range(8)), None),
+    "hit": (dict(batch=8, n_pages=17, prefix_cache=True, prefill_chunk=120),
+            (("dp_l134", 3), ("dp_s0", 30), ("dp_s1", 30)),
+            ("dp_l128t", 4, 0, 128)),
+    "ngram": (dict(batch=8, spec="ngram"),
+              (("rep", 5),) + tuple((f"dp_s{i}", 5) for i in range(7)),
+              None),
+}
+#: the runs at each mesh: (run, state format)
+DP41 = [("slots", "fp32"), ("slots", "sr"), ("paged", "fp32"),
+        ("paged", "sr"), ("hit", "sr"), ("ngram", "fp32"), ("ngram", "sr")]
+DP22 = [("slots", "fp32"), ("slots", "sr"), ("paged", "fp32"),
+        ("paged", "sr"), ("ngram", "fp32")]
+#: dbrx's runs at (4, 1), and the capacity factor at which an expert of
+#: its 8 decode rows overflows (4 experts, top 2: a capacity of 4 entries)
+DP_MOE = [("slots", "fp32"), ("paged", "sr")]
+DP_MOE_CF = 1.0
+
+#: one engine run, the ranks' and the single-device side's code alike
+_DP_RUN = '''
+def dp_serve(Engine, E, params, c, name, prompts, par=None):
+    """Run DP_RUNS[name]: (the requests' tokens, the logits of every live
+    row at every sampled step and every decode step, stats, the engine)."""
+    kw, reqs, late = %(DP_RUNS)r[name]
+    eng = Engine(params, c, ServeConfig(**kw), par=par)
+    core, seen, sample = eng.engine, [], E.sample
+    B = kw["batch"]
+
+    def live(x):
+        x = x.detach().reshape(x.shape[0], -1, x.shape[-1])
+        if x.shape[0] == B:
+            on = (core.active if core.backend == "slots"
+                  else [r is not None for r in core.rows])
+            x = x[torch.as_tensor(np.asarray(on, bool))]
+        seen.append(x.reshape(-1, x.shape[-1]).clone())
+
+    def recording(logits, *a, **k):
+        if core.backend == "slots" or logits.shape[0] == 1:
+            live(logits)
+        return sample(logits, *a, **k)
+    guard = getattr(core, "_guard", None)
+    if guard is not None:
+        core._guard = lambda lg: (live(lg), guard(lg))[1]
+    E.sample = recording
+    try:
+        hs = [eng.submit(prompts[p], max_new_tokens=n) for p, n in reqs]
+        if late is not None:
+            wait = hs[late[2]].rid
+            act = core.active
+            while wait not in act or act[wait].length < late[3]:
+                eng.step()
+            hs.append(eng.submit(prompts[late[0]], max_new_tokens=late[1]))
+        eng.run()
+    finally:
+        E.sample = sample
+    return (np.concatenate([np.asarray(h.result().output) for h in hs]),
+            torch.cat(seen).numpy(), eng.stats(), core)
+''' % dict(DP_RUNS=DP_RUNS)
 
 _RANKS = r'''
 import os, sys, time
@@ -260,6 +346,7 @@ while not os.path.exists(os.path.join(out, "zamba2.ready")):
 # round-to-nearest and at fp32 state, and at (4, 1), data rows alone;
 # dbrx (MoE) at (1, 4) and (2, 2), its parameters at rest in the serving
 # layout and in the training one
+par41 = make_local_parallel(4, 1, device_type="cpu")
 zcfg = get_smoke_config("zamba2-2.7b")
 zw = torch.load(os.path.join(out, "zamba2.pt"))
 tok = torch.from_numpy(np.load(os.path.join(out, "decode_in.npy")))
@@ -272,7 +359,6 @@ for tag in ("sr", "rn", "fp32"):
     res[f"decode_{tag}"] = sharded_run(zw, zc[tag], SH.serving_param_shardings,
                                        tok, feed, par)
 rows = np.load(os.path.join(out, "rows_in.npz"))
-par41 = make_local_parallel(4, 1, device_type="cpu")
 for tag in ("sr", "rn"):
     res[f"decode41_{tag}"] = sharded_run(
         zw, zc[tag], SH.serving_param_shardings,
@@ -388,11 +474,39 @@ x = torch.arange(8, dtype=torch.float32)
 res["major_minor"] = SH.distribute(
     x, par.named((("data", "model"),))).to_local().numpy()
 
+# 9. data axes inside the engines: zamba2 (JAX's weights) at (4, 1), two
+# rows a rank, and at (2, 2); dbrx (MoE) at (4, 1), where the model axis
+# splits no experts and a capacity factor of 1 overflows an expert of the
+# 8 decode rows; every run's tokens, its live rows' logits, stats
+%(DP_RUN)s
+for mesh, pr, runs in (("4x1", par41, %(DP41)s), ("2x2", par, %(DP22)s)):
+    for name, tag in runs:
+        toks, logits, st, core = dp_serve(Engine, E, zw, new_cfg(
+            "zamba2-2.7b", tag), name, eng_in, pr)
+        key = f"dp_{mesh}_{name}_{tag}"
+        res[key], res[key + "_logits"] = toks, logits
+        res[key + "_moves"] = np.asarray(st.get("dp_moves", -1.0))
+        res[key + "_preempt"] = np.asarray(st.get("preemptions", 0.0))
+        res[key + "_hits"] = np.asarray(st.get("prefix_hits", 0.0))
+        if mesh == "2x2" and tag == "sr":   # a rank's bytes at dp = 2
+            held = core.caches if name == "slots" else core.pool.pools
+            res[key + "_bytes"] = np.asarray(
+                [t.numel() * t.element_size() for t in T.leaves(held)])
+for name, tag in %(DP_MOE)s:
+    c = new_cfg("dbrx-132b", tag)
+    c = c.with_(moe=c.moe.__class__(**{**c.moe.__dict__,
+                                       "capacity_factor": %(DP_MOE_CF)r}))
+    key = f"dp_moe_{name}_{tag}"
+    res[key], res[key + "_logits"], _, _ = dp_serve(Engine, E, mw, c, name,
+                                                    eng_in, par41)
+
 np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
 dist.barrier()
 dist.destroy_process_group()
 ''' % dict(SEQ=SEQ, BATCH=BATCH, STEPS=DECODE["steps"], ENGINES=repr(ENGINES),
-       NEW_ARCHS=repr(NEW_ARCHS), NEW_ENGINES=repr(NEW_ENGINES))
+       NEW_ARCHS=repr(NEW_ARCHS), NEW_ENGINES=repr(NEW_ENGINES),
+       DP_RUN=_DP_RUN, DP41=repr(DP41), DP22=repr(DP22), DP_MOE=repr(DP_MOE),
+       DP_MOE_CF=DP_MOE_CF)
 
 
 def _moe_cfgs(capacity_factor=None):
@@ -437,7 +551,8 @@ def ranks(tmp_path_factory):
     # JAX's side while the ranks run: zamba2's weights, fed tokens and
     # module inputs, which the ranks wait for after their first sections
     # (``zamba2.ready``), then the new mixers' prefill + decode on the
-    # port's weights, which they need none of
+    # port's weights and the single-device engines of the data-parallel
+    # runs on zamba2's, which they need none of
     try:
         jz = _zamba2_jax(tok)
         torch.save(jz["tparams"], out / "zamba2.pt")
@@ -445,6 +560,8 @@ def ranks(tmp_path_factory):
         np.savez(out / "tp_in.npz", x=jz["x"], x1=jz["x1"])
         (out / "zamba2.ready").touch()
         new_jax = {arch: _new_mixers_jax(arch) for arch in NEW_ARCHS}
+        dp_jax = {(name, tag): _dp_serve_jax(jz["jparams"], name, tag)
+                  for name, tag in DP41}
     except BaseException:
         for proc in procs:
             proc.kill()
@@ -467,7 +584,7 @@ def ranks(tmp_path_factory):
     print(f"four gloo ranks: {time.perf_counter() - t0:.1f} s")
     res = [dict(np.load(out / f"rank{i}.npz")) for i in range(WORLD)]
     return res, dict(moe=(p, x, cot), tok=tok, grads=grads, zamba2=jz,
-                     new=new_jax)
+                     new=new_jax, dp_jax=dp_jax)
 
 
 #: the data-rows-only decode at (4, 1): two rows a rank, as the whole
@@ -483,6 +600,16 @@ ENGINE_PROMPTS = {"p5": _PR.integers(0, 512, 5), "p8": _PR.integers(0, 512, 8),
                   "p125": _PR.integers(0, 512, 125),
                   "p124": _PR.integers(0, 512, 124),
                   "rep": np.tile(_PR.integers(0, 512, 4), 4)}
+_DPR = np.random.default_rng(21)
+ENGINE_PROMPTS.update(
+    {f"dp_s{i}": _DPR.integers(0, 512, n)
+     for i, n in enumerate((5, 8, 6, 7, 9, 4, 10, 8))},
+    **{f"dp_p{i}": _DPR.integers(0, 512, n)
+       for i, n in enumerate((120, 126, 121, 127, 123, 125, 122, 124))})
+ENGINE_PROMPTS["dp_l134"] = _DPR.integers(0, 512, 134)
+ENGINE_PROMPTS["dp_l128t"] = np.concatenate([ENGINE_PROMPTS["dp_l134"][:128],
+                                             _DPR.integers(0, 512, 8)])
+exec(_DP_RUN)
 
 
 #: the sharded xlstm's MX8 difference from one device, at most this many
@@ -565,7 +692,8 @@ def _zamba2_jax(tok):
         for pos in range(len(cf["fp32"][1].pattern))]
     jparams = jax.tree.map(lambda t: jnp.asarray(t.numpy()), tree)
     out = {"tparams": params_from_jax(jax.tree.map(np.asarray, jparams),
-                                      cf["fp32"][1], device="cpu")}
+                                      cf["fp32"][1], device="cpu"),
+           "jparams": jparams}
     B, S = tok.shape
     lens = jnp.full((B,), S, jnp.int32)
     feed = None
@@ -1036,17 +1164,270 @@ def test_tensor_parallel_slabs_and_latent_pools(ranks):
             np.testing.assert_array_equal(r[k], res[0][k], err_msg=k)
 
 
-def test_engines_refuse_data_axes():
-    """The engines split a model axis alone: a ``par`` with data ranks
-    names the queue item that brings them."""
-    from repro_torch.dist import sharding as SH
-    par = SH.Parallel(SH.AbstractMesh((2, 2), ("data", "model")))
-    cfg = t_smoke("zamba2-2.7b")
+def _dp_cfg(tag):
+    """zamba2's smoke config as the ranks' ``new_cfg`` gives it."""
+    q = {"fp32": ("fp32", "nearest", "torch"),
+         "sr": ("mx8", "stochastic", "cuda")}[tag]
+    return t_smoke("zamba2-2.7b").with_(state_quant=TOPS.StateQuantConfig(*q))
+
+
+def _dp_single(name, tag, params, cfg=None):
+    """The port's single-device engine's run of ``DP_RUNS[name]`` on
+    ``params`` (zamba2's: ``cfg`` None), with one intra-op thread as each
+    rank runs (a long prefill's BLAS product sums by the thread count)."""
+    from repro_torch.serving import engine as TE
+    return dp_serve(Engine, TE, params, cfg or _dp_cfg(tag), name,
+                    ENGINE_PROMPTS)
+
+
+def _dp_serve_jax(jparams, name, tag):
+    """JAX's single-device engine's run of ``DP_RUNS[name]`` on zamba2's
+    weights (the ranks' ``zw``, converted from these): the requests'
+    tokens and the logits of every live row at every sampled prefill and
+    every decode or verify step, recorded as ``dp_serve`` records the
+    port's (the paged engine's decode and verify logits at its non-finite
+    scan, which ``nan_guard`` turns on and which changes nothing else;
+    ``prefetch_window=0`` as the file's other JAX engines run)."""
+    from repro.serving import engine as JE
+    kw, reqs, late = DP_RUNS[name]
+    slots = kw.get("backend") == "slots"
+    extra = {} if slots else dict(prefetch_window=0, nan_guard=True)
+    eng = JEngine(jparams, _zcfgs()[tag][0], JServeConfig(**kw, **extra))
+    core, seen, real = eng.engine, [], JE._sample_tokens
+
+    def live(x):
+        x = np.asarray(x)
+        x = x.reshape(x.shape[0], -1, x.shape[-1])
+        if x.shape[0] == kw["batch"]:
+            on = core.active if slots else [r is not None for r in core.rows]
+            x = x[np.asarray(on, bool)]
+        seen.append(x.reshape(-1, x.shape[-1]))
+
+    def recording(key, logits, sampling):
+        if slots or logits.shape[0] == 1:
+            live(logits)
+        return real(key, logits, sampling)
+    if not slots:
+        scan = core._scan_nonfinite
+        core._scan_nonfinite = lambda lg: (live(lg), scan(lg))[1]
+    JE._sample_tokens = recording
+    try:
+        hs = [eng.submit(ENGINE_PROMPTS[p], max_new_tokens=n)
+              for p, n in reqs]
+        if late is not None:
+            wait = hs[late[2]].rid
+            while wait not in core.active \
+                    or core.active[wait].length < late[3]:
+                eng.step()
+            hs.append(eng.submit(ENGINE_PROMPTS[late[0]],
+                                 max_new_tokens=late[1]))
+        eng.run()
+    finally:
+        JE._sample_tokens = real
+    return (np.concatenate([np.asarray(h.result().output) for h in hs]),
+            np.concatenate(seen))
+
+
+def _dp_against_jax(key, toks, logits, jx, tag):
+    """The data-parallel run ``key`` against JAX's single-device engine
+    ``jx``: its tokens, and its logits within the file's JAX bounds (fp32
+    state: rtol 1e-4, atol 1e-4 * max|logits|; MX8 SR: |dlogit| < 1e-2)."""
+    np.testing.assert_array_equal(toks, jx[0], err_msg=key)
+    assert logits.shape == jx[1].shape, key
+    print(f"{key}: max |dlogit| from JAX's engine "
+          f"{float(np.abs(logits - jx[1]).max()):.3g}")
+    if tag == "fp32":
+        np.testing.assert_allclose(logits, jx[1], rtol=1e-4,
+                                   atol=1e-4 * np.abs(jx[1]).max(),
+                                   err_msg=key)
+    else:
+        assert float(np.abs(logits - jx[1]).max()) < 1e-2, key
+
+
+@pytest.mark.parametrize("arch", ["gla-2.7b", "zamba2-2.7b"])
+def test_tp2_drift_is_the_order_of_the_row_parallel_sums(ranks, arch):
+    """The (2, 2) runs at MX8 SR (tp = 2 over the model axis, data rows
+    over the other), against one device whose row-parallel sums -- the
+    ``wo`` / out-projection and FFN down rows, Mamba-2's gated-norm and
+    the mLSTM's gate sums -- are cut into the two ranks' parts and added
+    in rank order (``dist.emulate.split_sums``), everything else,
+    stochastic rounding included, the whole layer's: bitwise, prefill and
+    every decode step.  So the sharded run's drift from one device is the
+    order of those sums alone, not an SR counter (the head base of
+    ``ops.sr_heads_from``)."""
+    from repro_torch.dist.emulate import split_sums
+    res, inp = ranks
+    if arch == "gla-2.7b":
+        got = res[0][f"new_{arch}_2x2_sr"]
+        c = _new_cfgs(arch, "sr")[1]
+        params = TM.init_model(_new_cfgs(arch, "fp32")[1],
+                               torch.Generator().manual_seed(0), device="cpu")
+        tok, feed = NEW_IN["tok"], NEW_IN["feed"]
+    else:
+        got = res[0]["decode_sr"]
+        c = _zcfgs()["sr"][1]
+        params, tok, feed = inp["zamba2"]["tparams"], inp["tok"], \
+            inp["zamba2"]["feed"]
+    one = _single_device_decode(c, torch.from_numpy(tok), params, feed)
+    with split_sums(params, c, 2) as emulated:
+        emu = _single_device_decode(c, torch.from_numpy(tok), emulated, feed)
+    print(f"{arch} MX8 SR at (2, 2): |dlogit| from one device "
+          f"{float(np.abs(got - one).max()):.3g}, from the emulation "
+          f"{float(np.abs(got - emu).max()):.3g}")
+    np.testing.assert_array_equal(got, emu)
+    assert not np.array_equal(got, one)
+
+
+@pytest.mark.parametrize("name", list(DP_RUNS))
+def test_data_parallel_engines_match_single_device(ranks, name):
+    """At (4, 1), two of the 8 decode rows a rank, on zamba2's weights
+    from JAX: the engine run's tokens are JAX's single-device engine's
+    and the port's on every rank, its live rows' logits (every sampled
+    prefill, every decode or verify step) within the file's JAX bounds
+    and the same bits on every rank.  At MX8 SR they are bitwise the
+    port's single-device engine's, but for the n-gram run's verify steps.
+    Those, and every run at fp32 state, are so to rtol 1e-5, atol 1e-5 *
+    max|logits|: on an AVX-512 host the CPU's vectorized softplus
+    (Mamba-2's dt) rounds a rank's 2 x 8 heads, which fall in its scalar
+    tail, otherwise than one device's 8 x 8, and an fp32 state (or the
+    verify step's ``y``) keeps the last-bit difference that an MX8 state
+    mostly rounds away.  ``paged`` resumes preempted requests on other
+    data ranks, ``hit`` adopts a page that another data rank's decode
+    step wrote: both move pages between ranks (``dp_moves``)."""
+    res, inp = ranks
+    for run, tag in DP41:
+        if run != name:
+            continue
+        key = f"dp_4x1_{name}_{tag}"
+        toks, logits, st, _ = _dp_single(name, tag, inp["zamba2"]["tparams"])
+        for r in res:
+            np.testing.assert_array_equal(r[key], toks, err_msg=key)
+            np.testing.assert_array_equal(r[key + "_logits"],
+                                          res[0][key + "_logits"])
+        got = res[0][key + "_logits"]
+        _dp_against_jax(key, res[0][key], got, inp["dp_jax"][name, tag], tag)
+        print(f"{key}: max |dlogit| {float(np.abs(got - logits).max()):.3g}"
+              f", moves {float(res[0][key + '_moves'])}")
+        if tag == "sr" and name != "ngram":
+            np.testing.assert_array_equal(got, logits, err_msg=key)
+        else:
+            np.testing.assert_allclose(got, logits, rtol=1e-5,
+                                       atol=1e-5 * np.abs(logits).max())
+        if name in ("paged", "hit"):
+            assert float(res[0][key + "_moves"]) > 0, key
+        if name == "paged":
+            assert float(res[0][key + "_preempt"]) == st["preemptions"] >= 1
+        if name == "hit":
+            assert float(res[0][key + "_hits"]) == st["prefix_hits"] == 1
+
+
+@pytest.mark.parametrize("name", ["slots", "paged", "ngram"])
+def test_data_parallel_engines_at_2x2(ranks, name):
+    """At (2, 2), data rows over one axis and tp = 2 over the other: the
+    tokens of JAX's and of the port's single-device engines, the logits
+    within the file's JAX bounds of JAX's engine (fp32 state: rtol 1e-4;
+    MX8 SR: 1e-2, ``tests/test_sharding.py``'s bound for a sharded
+    decode) and, at MX8 SR, of the port's; every rank the same bits.  The
+    one-ulp control of the file's MX8 checks moves these runs' logits
+    ~40x less than tp = 2's sum order in every layer does (2.2e-5 against
+    8.4e-4), so it bounds nothing here, and the single-device engine
+    under the split-sum emulation is not bitwise these runs either
+    (``PERF.md`` gives the readings)."""
+    res, inp = ranks
+    for run, tag in DP22:
+        if run != name:
+            continue
+        key = f"dp_2x2_{name}_{tag}"
+        for r in res[1:]:
+            np.testing.assert_array_equal(r[key], res[0][key], err_msg=key)
+            np.testing.assert_array_equal(r[key + "_logits"],
+                                          res[0][key + "_logits"])
+        toks, logits, _, _ = _dp_single(name, tag, inp["zamba2"]["tparams"])
+        np.testing.assert_array_equal(res[0][key], toks, err_msg=key)
+        got = res[0][key + "_logits"]
+        _dp_against_jax(key, res[0][key], got, inp["dp_jax"][name, tag], tag)
+        if tag == "sr":
+            assert got.shape == logits.shape, key
+            d_tp = float(np.abs(got - logits).max())
+            print(f"{key}: |dlogit| from one device {d_tp:.3g}")
+            assert d_tp < 1e-2, key
+
+
+def _moe_overflows(cfg):
+    """A wrapper of ``_moe_local`` for one device's run, and the list it
+    fills: for each call over 8 tokens (a step of the 8 decode rows), the
+    most entries one expert was given, beside the capacity."""
+    real, seen = TL._moe_local, []
+
+    def counted(x, router, *a, **k):
+        xf = x.reshape(-1, x.shape[-1])
+        if xf.shape[0] == 8:
+            probs = torch.softmax((xf.float() @ router).float(), -1)
+            sel = torch.topk(probs, cfg.moe.top_k, -1).indices
+            most = int(torch.bincount(sel.flatten(),
+                                      minlength=cfg.moe.n_experts).max())
+            seen.append((most, TL.moe_capacity(8, cfg)))
+        return real(x, router, *a, **k)
+    return counted, seen
+
+
+@pytest.mark.parametrize("run", DP_MOE, ids=lambda r: "_".join(r))
+def test_data_parallel_moe_routes_the_whole_batch(ranks, run):
+    """dbrx at (4, 1): its model axis splits none of its experts, so each
+    data rank computes the whole batch and routes it with the whole
+    batch's capacity, as JAX's ``apply_moe`` does under GSPMD (a rank's 2
+    rows alone would never fill an expert's 4 entries).  A capacity factor
+    of 1 overflows an expert at some step of the single-device run, whose
+    tokens and logits every rank's equal bitwise."""
+    res, _ = ranks
+    name, tag = run
+    c = t_smoke("dbrx-132b")
+    q = {"fp32": ("fp32", "nearest", "torch"),
+         "sr": ("mx8", "stochastic", "cuda")}[tag]
+    c = c.with_(state_quant=TOPS.StateQuantConfig(*q),
+                moe=c.moe.__class__(**{**c.moe.__dict__,
+                                       "capacity_factor": DP_MOE_CF}))
+    params = TM.init_model(c, torch.Generator().manual_seed(0), device="cpu")
+    counted, seen = _moe_overflows(c)
+    real = TL._moe_local
+    TL._moe_local = counted
+    try:
+        toks, logits, _, _ = _dp_single(name, tag, params, c)
+    finally:
+        TL._moe_local = real
+    assert any(most > cap for most, cap in seen), seen
+    key = f"dp_moe_{name}_{tag}"
+    for r in res:
+        np.testing.assert_array_equal(r[key], toks, err_msg=key)
+        np.testing.assert_array_equal(r[key + "_logits"], logits,
+                                      err_msg=key)
+
+
+def test_data_parallel_bytes_a_rank(ranks):
+    """A rank's bytes at (2, 2) against one device's: the slot engine
+    holds its 4 of the 8 slots' caches (each leaf a half, the heads tp = 2
+    splits a quarter); the paged engine holds every page and slab id, each
+    of its heads only (the data axes split rows, not the id space: a
+    row's pages move to it when it needs them)."""
+    res, _ = ranks
+    cfg = _dp_cfg("sr")
     params = TM.init_model(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
-    for backend in ("slots", "paged"):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            Engine(params, cfg, ServeConfig(backend=backend), par=par)
+    whole = {}
+    for name in ("slots", "paged"):
+        core = Engine(params, cfg, ServeConfig(**DP_RUNS[name][0])).engine
+        held = core.caches if name == "slots" else core.pool.pools
+        whole[name] = np.asarray([t.numel() * t.element_size()
+                                  for t in T.leaves(held)])
+    for name, w in whole.items():
+        got = res[0][f"dp_2x2_{name}_sr_bytes"]
+        assert got.shape == w.shape
+        print(f"{name}: a rank {int(got.sum())} of {int(w.sum())} bytes")
+        if name == "slots":
+            assert ((got * 2 == w) | (got * 4 == w)).all()
+            assert (got * 4 == w).any()
+        else:
+            assert ((got == w) | (got * 2 == w)).all()
 
 
 def test_gradient_compression_error_feedback(ranks):

@@ -35,6 +35,8 @@ from repro_torch.models.config import SHAPES
 from repro_torch.train import optimizer as TO
 from repro_torch.train.train_loop import make_train_step
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 
 def test_train_launcher_on_a_cpu_mesh():
     args = ["--arch", "smollm-360m", "--smoke-size", "--device", "cpu",

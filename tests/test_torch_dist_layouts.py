@@ -31,6 +31,8 @@ from repro_torch.launch import specs as TSP
 from repro_torch.models import model as TM
 from repro_torch.models.config import SHAPES
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 MESHES = [
     ((2, 4), ("data", "model"), ("data",)),
     ((4, 2), ("data", "model"), ("data",)),

@@ -26,6 +26,8 @@ from repro_torch.kernels import mx_paged_attention as KP
 from repro_torch.kernels import mx_quant as KQ
 from repro_torch.kernels import mx_state_update as KS
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 B, H, KVH = 4, 6, 4
 #: (first head, heads) of a shard: the second of three, the last of two
 SHARDS = [(2, 2), (3, 3)]
@@ -172,6 +174,10 @@ def test_dense_append_wrapper_head_base_equals_the_whole_layer():
         assert _equal(p, _heads(c, 1, 3, 2))
 
 
+def _pages(qt, ids):
+    return {f: a[ids] for f, a in qt.payload.items()}
+
+
 def _paged(r, kvh, w=16):
     pools = [F.mx8_quantize(_t(r, 9, 2, 128, kvh, w)) for _ in "kv"]
     bt = torch.tensor([[5, 7], [2, 4], [6, 1], [3, 8]], dtype=torch.int32)
@@ -181,8 +187,8 @@ def _paged(r, kvh, w=16):
 
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
 def test_paged_append_heads_draw_as_the_whole_layer(backend):
-    """The paged append takes a kv-head base (and still refuses a row
-    base): the rank's pools of its kv heads against the whole pools'."""
+    """The paged append takes a kv-head base, and a row base beside it:
+    the rank's pools of its kv heads against the whole pools'."""
     cfg = OPS.StateQuantConfig("mx8", "stochastic", backend)
     r = np.random.default_rng(11)
     pools, bt, lengths = _paged(r, KVH)
@@ -196,8 +202,17 @@ def test_paged_append_heads_draw_as_the_whole_layer(backend):
                       seed=0xFFFFFFFF)
     for p, w in zip(part, pools):
         assert _equal(p, _heads(w, 2, 2, 3))
-    with OPS.sr_rows_from(1), pytest.raises(ValueError, match="row base"):
-        OPS.kv_append(whole, *new, cfg)
+    # rows 2.. of the batch on the same kv heads: their pages (1 and 8)
+    # as the whole batch's step wrote them
+    rows = [_heads(p, 2, 2, 3) for p in _paged(np.random.default_rng(11),
+                                               KVH)[0]]
+    with OPS.sr_rows_from(2), OPS.sr_heads_from(2, KVH):
+        OPS.kv_append(PG.PagedKVCache(rows[0], rows[1], bt[2:], lengths[2:],
+                                      1),
+                      *(x[2:, :, 2:].contiguous() for x in new), cfg,
+                      seed=0xFFFFFFFF)
+    for p, w in zip(rows, part):
+        assert _equal(_pages(p, [1, 8]), _pages(w, [1, 8]))
 
 
 def test_paged_append_wrapper_head_base_equals_the_whole_layer():

@@ -7,9 +7,10 @@ over the global array.
 
 Held here: the state update (kernel 1's plain version and the ``torch``
 op, in MX8, int8 and fp8), the dense append (the append kernel's plain
-version and the ``torch`` op, K/V and an MLA latent), a whole zamba2
-decode step, and the wrappers' ``row_base`` against the whole batch's
-call.  The kernels themselves are held on the card in
+version and the ``torch`` op, K/V and an MLA latent), the paged append
+(the fused kernel's plain version and the ``torch`` op, with a kv-head
+base too), a whole zamba2 decode step, and the wrappers' ``row_base``
+against the whole batch's call.  The kernels themselves are held on the card in
 ``tests/test_torch_cuda.py``.
 """
 import numpy as np
@@ -21,9 +22,13 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import attention_cache as AC
 from repro_torch.core import formats as F
 from repro_torch.core import tree as T
+from repro_torch.core import paged as PG
+from repro_torch.kernels import mx_paged_attention as KP
 from repro_torch.kernels import mx_quant as KQ
 from repro_torch.kernels import mx_state_update as KS
 from repro_torch.models import model as M
+
+torch.set_num_threads(1)  # test workers share the cores: one thread each
 
 B, B0 = 4, 2                    # the whole batch; the second rank's first row
 
@@ -130,8 +135,83 @@ def test_zamba2_decode_step_rows_equal_the_whole_batch():
     assert not torch.equal(alone, whole[B0:])
 
 
-def test_the_paged_append_takes_no_row_base():
-    from repro_torch.ops.paged_ops import _PagedKVAppendBase
-    x = torch.zeros((1, 1, 2, 32))
-    with pytest.raises(ValueError, match="row base"):
-        _PagedKVAppendBase._new_rows({"k": x, "v": x, "row_base": 1})
+def _paged(r, kvh=4, w=16):
+    pools = [F.mx8_quantize(torch.from_numpy(r.standard_normal(
+        (9, 2, 128, kvh, w)).astype(np.float32))) for _ in "kv"]
+    bt = torch.tensor([[5, 7], [2, 4], [6, 1], [3, 8]], dtype=torch.int32)
+    lengths = torch.tensor([0, 127, 128, 129], dtype=torch.int32)
+    new = [torch.from_numpy(r.standard_normal((B, 1, kvh, w)).astype(
+        np.float32)) for _ in "kv"]
+    return pools, bt, lengths, new
+
+
+def _pages(qt, ids, h0=0, n=None):
+    n = qt.payload["mantissa"].shape[3] - h0 if n is None else n
+    return {f: a[ids].narrow(3, h0, n) for f, a in qt.payload.items()}
+
+
+#: the pages rows B0.. of ``_paged``'s batch write (rows 0 and 1 write 5, 2)
+ROW_PAGES = [1, 8]
+
+
+@pytest.mark.parametrize("heads", [None, (1, 2)], ids=["all", "h1of4"])
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_paged_append_rows_draw_as_the_whole_batch(backend, heads):
+    """The paged append (the fused kernel's plain version, and the
+    ``torch`` op) on rows ``B0 ..`` under ``sr_rows_from(B0)`` -- and on
+    kv heads ``h0 ..`` of them under ``sr_heads_from`` too -- writes the
+    slots the whole batch's append writes, byte for byte; without the row
+    base it does not."""
+    cfg = OPS.StateQuantConfig("mx8", "stochastic", backend)
+    pools, bt, lengths, new = _paged(np.random.default_rng(17))
+    h0, nh = heads or (0, 4)
+    part = [F.QuantizedTensor(p.fmt, p.shape, {
+        f: a.narrow(3, h0, nh).clone() for f, a in p.payload.items()})
+        for p in pools]
+    alone = [F.QuantizedTensor(p.fmt, p.shape, {
+        f: a.clone() for f, a in p.payload.items()}) for p in part]
+    OPS.kv_append(PG.PagedKVCache(pools[0], pools[1], bt, lengths, 1), *new,
+                  cfg, seed=0xFFFFFFFE)
+    rows = [x[B0:, :, h0:h0 + nh].contiguous() for x in new]
+    with OPS.sr_rows_from(B0), OPS.sr_heads_from(h0, 4):
+        OPS.kv_append(PG.PagedKVCache(part[0], part[1], bt[B0:],
+                                      lengths[B0:], 1), *rows, cfg,
+                      seed=0xFFFFFFFE)
+    with OPS.sr_heads_from(h0, 4):
+        OPS.kv_append(PG.PagedKVCache(alone[0], alone[1], bt[B0:],
+                                      lengths[B0:], 1), *rows, cfg,
+                      seed=0xFFFFFFFE)
+    for p, a, w in zip(part, alone, pools):
+        assert _payload_equal_d(_pages(p, ROW_PAGES),
+                                _pages(w, ROW_PAGES, h0, nh))
+        assert not _payload_equal_d(_pages(a, ROW_PAGES),
+                                    _pages(w, ROW_PAGES, h0, nh))
+
+
+def _payload_equal_d(a, b):
+    return all(torch.equal(a[f], b[f]) for f in a)
+
+
+@pytest.mark.parametrize("rounding", ["stochastic", "nearest"])
+def test_paged_append_wrapper_row_base_equals_the_whole_batch(rounding):
+    """``mx_paged_kv_append_quant(..., row_base=B0)`` on the last half
+    batch (its plain version on CPU tensors) writes what the whole batch's
+    call writes into those rows' slots, in all three MX8 fields; at
+    ``row_base = 0`` it is the call without the argument."""
+    pools, bt, lengths, new = _paged(np.random.default_rng(19))
+    half = [F.QuantizedTensor(p.fmt, p.shape, {
+        f: a.clone() for f, a in p.payload.items()}) for p in pools]
+    zero = [F.QuantizedTensor(p.fmt, p.shape, {
+        f: a.clone() for f, a in p.payload.items()}) for p in pools]
+    KP.mx_paged_kv_append_quant(new, pools, bt, 1, lengths, 0xFFFFFFFF,
+                                rounding=rounding)
+    KP.mx_paged_kv_append_quant([x[B0:] for x in new], half, bt[B0:], 1,
+                                lengths[B0:], 0xFFFFFFFF, rounding=rounding,
+                                row_base=B0)
+    KP.mx_paged_kv_append_quant(new, zero, bt, 1, lengths, 0xFFFFFFFF,
+                                rounding=rounding, row_base=0)
+    for h, z, w in zip(half, zero, pools):
+        assert _payload_equal_d(_pages(h, ROW_PAGES), _pages(w, ROW_PAGES))
+        assert _payload_equal(z, w)
+    with pytest.raises(ValueError, match="uint32"):
+        KP.mx_paged_kv_append_quant(new, zero, bt, 1, lengths, row_base=-1)

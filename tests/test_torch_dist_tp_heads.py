@@ -41,6 +41,8 @@ from repro_torch.models import attention as ATT
 from repro_torch.models import model as M
 from repro_torch.models import ssm as SSM
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 B, S = 2, 11
 QUANT = {"fp32": OPS.StateQuantConfig("fp32", "stochastic", "torch"),
          "sr": OPS.StateQuantConfig("mx8", "stochastic", "cuda")}

@@ -19,6 +19,8 @@ import torch
 from repro.core import formats as JF
 from repro_torch.core import formats as TF
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 MAGNITUDES = (1e-4, 1e-3, 1e-2, 1.0, 30.0)
 SHAPES = ((64, 256), (3, 5, 128))
 

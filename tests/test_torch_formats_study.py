@@ -21,6 +21,8 @@ import torch
 from repro.analysis.formats_study import run_swamping_study as j_study
 from repro_torch.analysis import formats_study as TFS
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 T_PARITY = 100
 DK = DV = 32
 

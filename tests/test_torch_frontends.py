@@ -49,6 +49,8 @@ from repro_torch.serving.api import Engine, ServeConfig
 from test_torch_configs import jax_param_count, meta_param_count, same_config
 from test_torch_dense_family import _close
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 ARCHS = ("paligemma-3b", "hubert-xlarge")
 VLM, AUDIO = ARCHS
 N_STEPS = 8

@@ -42,6 +42,8 @@ from repro_torch.models import model as TM
 from repro_torch.models import ssm as TSSM
 from repro_torch.models.convert import params_from_jax
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 KINDS = ("gla", "retnet", "hgrn2")
 ARCH = {"gla": "gla-2.7b", "retnet": "retnet-2.7b", "hgrn2": "hgrn2-2.7b"}
 

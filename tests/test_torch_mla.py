@@ -65,6 +65,8 @@ from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving.api import Engine, ServeConfig
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 ARCH = "deepseek-v2-236b"
 # tests/test_kernels.py::test_attention_kernel_mla_mode's shapes
 B, H, DK, VW, T = 2, 16, 192, 128, 256

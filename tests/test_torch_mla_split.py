@@ -36,6 +36,8 @@ from repro_torch.core import formats as TF
 from repro_torch.kernels import mx_spec_attention as KV
 from repro_torch.kernels import ref as R
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 # tests/test_torch_mla.py's kernel shapes: 16 heads, dk 192, values 128
 B, H, DK, VW, T = 2, 16, 192, 128, 256
 #: lengths count the Kq appended rows; at Kq = 4 row 0 ends a split before

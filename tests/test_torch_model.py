@@ -28,6 +28,8 @@ from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_jax
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 ARCHS = ("zamba2-2.7b", "mamba2-2.7b", "llama3.2-1b", "deepseek-v2-236b",
          "gla-2.7b", "retnet-2.7b", "hgrn2-2.7b")
 N_STEPS = 8

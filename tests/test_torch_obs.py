@@ -61,6 +61,8 @@ from repro_torch.serving.scheduler import SchedulerConfig
 
 from conftest import subprocess_env
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 # ---------------------------------------------------------------------------
 # metrics registry
 # ---------------------------------------------------------------------------

@@ -30,6 +30,8 @@ from repro_torch.core import attention_cache as TAC
 from repro_torch.core import formats as TF
 from repro_torch.kernels.mx_attention import mx_attention_decode
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 BACKEND_PAIRS = {"torch": "jnp", "cuda": "pallas"}
 #: kernel ops of the port whose JAX twin is no Pallas kernel: the dense MX8
 #: append, which the JAX package leaves to XLA (its jnp op)

@@ -25,6 +25,8 @@ from repro_torch.kernels import mx_paged_attention as KP
 from repro_torch.kernels import ref as R
 from repro_torch.ops.paged_ops import PagedKVAppendTorch
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 P, N_STACK, GROUP = 9, 3, 1
 LENGTHS = (0, 127, 128, 129)
 BT = np.array([[5, 7, 0, 0], [2, 4, 0, 0], [6, 1, 0, 0], [3, 8, 0, 0]],

@@ -33,6 +33,8 @@ from repro_torch.kernels import mx_paged_attention as KP
 from repro_torch.kernels import mx_state_update as KS
 from repro_torch.kernels import ref as R
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 P, G, KVH, D, H = 9, 3, 2, 32, 4
 LENGTHS = (1, 127, 128, 129)
 BT = np.array([[5, 7, 0, 0], [2, 4, 0, 0], [6, 1, 0, 0], [3, 8, 0, 0]],

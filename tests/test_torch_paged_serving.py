@@ -37,6 +37,8 @@ from repro_torch.serving.memory import (BankAwarePlacement, BankTopology,
                                         PagedStatePool)
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 ARCHS = ("llama3.2-1b", "mamba2-2.7b", "zamba2-2.7b", "deepseek-v2-236b",
          "gla-2.7b", "retnet-2.7b", "hgrn2-2.7b")
 

@@ -36,6 +36,8 @@ from repro_torch.models import model as M
 from repro_torch.models import ssm as SSM
 from repro_torch.ops.base import SpuDeprecationWarning
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 SHAPES = [(16, 64), (300, 128), (5, 7, 32)]
 
 

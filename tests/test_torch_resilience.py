@@ -39,6 +39,8 @@ from repro_torch.serving.scheduler import SchedulerConfig
 
 from test_torch_paged_serving import _pair
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 _GREEDY = SamplingConfig(temperature=0.0)
 
 

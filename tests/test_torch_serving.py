@@ -21,6 +21,8 @@ from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving.api import Engine, ServeConfig
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 PROMPT_LENS = (8, 13, 21, 13, 8)
 MAX_NEW = 6
 

@@ -35,6 +35,8 @@ from repro_torch.core import paged as TPG
 from repro_torch.kernels import mx_spec_attention as KV
 from repro_torch.kernels import ref as R
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 P, NS, KVH, D = 9, 3, 2, 32
 BT = np.array([[5, 7, 0, 0], [2, 4, 0, 0], [6, 1, 0, 0], [3, 8, 0, 0]],
               np.int32)                   # shuffled pages, bucketed tail 0

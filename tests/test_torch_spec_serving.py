@@ -39,6 +39,8 @@ from repro_torch.serving.memory import PagedStatePool
 from repro_torch.serving.sampler import SamplingConfig
 from repro_torch.serving.spec import KController, ModelDraft, NGramDraft
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 _CACHE = {}
 
 

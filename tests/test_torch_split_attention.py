@@ -26,6 +26,8 @@ from repro.kernels.mx_spec_attention import \
 from repro_torch.core import formats as TF
 from repro_torch.kernels import ref as R
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 B, T, KVH, D = 4, 640, 2, 32
 #: lengths count the Kq appended rows; at Kq = 4 each ends row 0 in an
 #: earlier split than row 3 at split 32 (131, 517), 64 and 128 (131)

@@ -41,6 +41,8 @@ from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 
 from test_torch_paged_serving import _pair
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 try:
     from hypothesis import given, settings, strategies as st
     HAVE_HYPOTHESIS = True

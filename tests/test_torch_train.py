@@ -59,6 +59,8 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.train import optimizer as TO
 from repro_torch.train.train_loop import batch_to_device, make_train_step
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 GRAD_ARCHS = ("smollm-360m", "zamba2-2.7b", "gla-2.7b", "deepseek-v2-236b")
 LOSS_ARCHS = ("opt-6.7b", "hgrn2-2.7b", "retnet-2.7b", "paligemma-3b",
               "hubert-xlarge", "xlstm-1.3b")

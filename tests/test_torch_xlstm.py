@@ -61,6 +61,8 @@ from repro_torch.ops import model_traffic as TMT
 from repro_torch.serving.api import Engine, ServeConfig
 from repro_torch.serving.memory import PagedStatePool
 
+torch.set_num_threads(1)  # test workers share the cores: one thread each
+
 ARCH = "xlstm-1.3b"
 N_STEPS = 6
 _PAIRS = {}

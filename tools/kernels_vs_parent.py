@@ -45,6 +45,12 @@ separated; default ``mla,k1,k7``):
   ``mx_paged_kv_append_launch``) at zamba2-2.7b's K and V and
   deepseek-v2-236b's latent, magnitudes 1, 1e-3, 1e-37 and 1e35, both
   roundings, slots straddling page ends: every pool byte;
+* ``k4q``: kernel 4's fused quantize-and-append of both checkouts, each
+  called with its own SR-counter arguments (this one's ``row_base`` 0;
+  the other's as its source takes them: none before the kv-head base,
+  then a head base, then a row base) at zamba2-2.7b's K and V and
+  deepseek-v2-236b's latent, magnitudes 1, 1e-3, 1e-37 and 1e35, both
+  roundings, seeds 0 and 0xFFFFFFFF: every pool byte;
 * ``gqa``: kernels 2, 3, 5 and 6 in GQA mode (``csrc/mx_attention_split.cuh``)
   at zamba2-2.7b's, llama3.2-1b's smoke, opt-6.7b's and yi-9b's widths,
   lengths across split boundaries, decode and verify (Kq = 4; yi-9b at Kq
@@ -82,10 +88,11 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))                 # chip_smoke's timing helpers
 
-FAMILIES = ("mla", "k1", "k7", "gqa", "k4", "dense_append")
+FAMILIES = ("mla", "k1", "k7", "gqa", "k4", "k4q", "dense_append")
 _SOURCES = {"mla": ("mx_attention", "mx_paged_attention",
                     "mx_spec_attention"),
             "k4": ("mx_paged_attention",),
+            "k4q": ("mx_paged_attention",),
             "gqa": ("mx_attention", "mx_paged_attention",
                     "mx_spec_attention"),
             "k1": ("mx_state_update",), "k7": ("mx_quant",),
@@ -104,6 +111,10 @@ def _other_lib(csrc: Path, name: str, out: Path, flags) -> ctypes.CDLL:
     text = src.read_text()
     out_lib.k1_counter_args = (3 if "heads_total" in text else
                                1 if "row_base" in text else 0)
+    # kernel 4's fused append grew a kv-head base, then a row base
+    tail = text[text.find("mx_paged_kv_append_quant_launch("):]
+    out_lib.k4_counter_args = (0 if "kvh_base" not in tail else
+                               3 if "row_base" in tail.split("{")[0] else 2)
     return out_lib
 
 
@@ -432,6 +443,64 @@ def _append_cases(lib) -> bool:
             ok &= _report(f"append {label} (KVH={KVH}, d={d}) magnitude "
                           f"{mag:g} {rounding}: fused vs eager + copy, "
                           f"mantissa, exponent, micro per stream",
+                          [(a.payload[f], b.payload[f])
+                           for a, b in zip(mine, theirs)
+                           for f in ("mantissa", "exponent", "micro")],
+                          [err])
+    return ok
+
+
+def _other_append_quant(lib, rows, pools, bt, group, lengths, seed,
+                        rounding):
+    """The other checkout's fused append, with the SR-counter arguments
+    its entry point takes (whole layer, whole batch)."""
+    import torch
+    from repro_torch.kernels import mx_paged_attention as KP
+    n_args = lib.k4_counter_args
+    fn = _entry(lib, "mx_paged_kv_append_quant_launch",
+                KP._APPEND_ARGTYPES[:-1] + [ctypes.c_uint32] * (1 + n_args)
+                + [ctypes.c_int, ctypes.c_void_p])
+    n = len(rows)
+    B, _, KVH, _ = rows[0].shape
+    P, n_stack = pools[0].payload["mantissa"].shape[:2]
+    counters = (0, KVH, 0)[:n_args]
+    return fn((ctypes.c_ulonglong * n)(*[r.data_ptr() for r in rows]),
+              (ctypes.c_ulonglong * (3 * n))(*[
+                  p.payload[f].data_ptr() for p in pools
+                  for f in ("mantissa", "exponent", "micro")]),
+              (ctypes.c_int * n)(*[int(r.shape[-1]) for r in rows]), n,
+              bt.data_ptr(), lengths.data_ptr(), B, bt.shape[1], P, n_stack,
+              group, KVH, seed, *counters, int(rounding == "stochastic"),
+              torch.cuda.current_stream().cuda_stream)
+
+
+def _append_quant_cases(lib) -> bool:
+    """Kernel 4's fused launch of both checkouts (this one at row base 0),
+    every pool byte."""
+    import torch
+    from repro_torch.kernels import mx_paged_attention as KP
+    ok = True
+    lens = (0, 127, 128, 1000)
+    for (label, KVH, d, n), mag, seed in itertools.product(
+            K4_CASES, K4_MAGS, (0, 0xFFFFFFFF)):
+        _, K, V, bt, _ = _pool([x + 1 for x in lens], KVH, d, 3, d + n, 1,
+                               KVH)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(d + seed % 7)
+        for rounding in ("nearest", "stochastic"):
+            rows = [torch.randn((4, 1, KVH, d), generator=g, device="cuda")
+                    * mag for _ in range(n)]
+            mine = [p.clone() for p in (K, V)[:n]]
+            theirs = [p.clone() for p in (K, V)[:n]]
+            KP.mx_paged_kv_append_quant(rows, mine, bt, 2, lengths, seed,
+                                        rounding=rounding, row_base=0)
+            err = _other_append_quant(lib, rows, theirs, bt, 2, lengths,
+                                      seed, rounding)
+            torch.cuda.synchronize()
+            ok &= _report(f"fused append {label} (KVH={KVH}, d={d}) "
+                          f"magnitude {mag:g} {rounding} seed {seed:#x}: "
+                          f"this (row base 0) vs other, mantissa, exponent,"
+                          f" micro per stream",
                           [(a.payload[f], b.payload[f])
                            for a, b in zip(mine, theirs)
                            for f in ("mantissa", "exponent", "micro")],
@@ -947,6 +1016,8 @@ def main() -> int:
                "k1": lambda: _state_update_cases(other["mx_state_update"]),
                "k7": lambda: _quant_cases(other["mx_quant"]),
                "k4": lambda: _append_cases(other["mx_paged_attention"]),
+               "k4q": lambda: _append_quant_cases(
+                   other["mx_paged_attention"]),
                "dense_append": _dense_append_cases}
         for c in cases:
             ok &= run[c]()
