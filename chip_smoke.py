@@ -158,6 +158,16 @@ Phases, in the order they run:
   as a (2, 1) mesh serve zamba2 through the slot and the paged engine
   (DP: preemptions resume in the other rank's rows, pages move between
   the ranks) at fp32 state and MX8 SR, against one process's engines
+  71 (after 70; training under tensor parallelism): two ranks in their
+  own processes (``--tp-train-worker``) share the card over gloo as a
+  (1, 2) mesh and train zamba2-2.7b at full width, TP_TRAIN's depth (one
+  group of six Mamba-2 layers and one shared-block application), remat
+  and sequence parallelism on: a step and a ``grad_accum=2`` step
+  against the same weights trained at tp = 1 in rank 0's process
+  (losses, the largest parameter difference, the first step's gradients
+  of ``wbc`` and of the shared attention's ``wq``), a rank's parameter
+  bytes and peak device memory against tp = 1, the step's wall time (two
+  ranks sharing one card over gloo: no speed figure), no kernel launched
   8. kernels line
 
 The card's peaks in every bound come from
@@ -5542,7 +5552,7 @@ def _dist_train(cfg, par, SH, M, O, make_train_step, batch_fn):
     """Phase 69's training half: DIST["train_steps"] plain steps and as
     many sharded ones from the same seeded weights and batches; losses,
     parameters and moments bitwise.  Returns (plain parameters, sharded
-    parameters, step times, the gather's host ms)."""
+    parameters, step times, the host ms of a rank's parameter cut)."""
     import torch
     from repro_torch.core import tree as T
     opt = O.OptimizerConfig(lr=3e-4, total_steps=TRAIN["steps"],
@@ -5583,7 +5593,7 @@ def _dist_train(cfg, par, SH, M, O, make_train_step, batch_fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(5):
-        SH.gather_params(sp, cfg, par)
+        SH.cut_params(sp, cfg, par)
     gather_ms = (time.perf_counter() - t0) / 5 * 1e3
     return params, sp, losses, ms, gather_ms
 
@@ -5764,7 +5774,7 @@ def phase_dist():
               losses_and_params="bitwise the plain steps'",
               plain_step_ms=",".join(f"{v:.1f}" for v in ms["plain"]),
               sharded_step_ms=",".join(f"{v:.1f}" for v in ms["sharded"]),
-              gather_params_host_ms=f"{gather_ms:.2f}",
+              cut_params_host_ms=f"{gather_ms:.2f}",
               nccl_init_s=f"{init_s:.1f}")
         per_step, k7, dec_ms, finite = _dist_decode(cfg, par, SH, M, params,
                                                     sp)
@@ -6752,38 +6762,46 @@ def _dp_checks(rs):
           f"{r0['slots_sr_dp']['bytes']} of {r0['slots_sr_one']['bytes']}")
 
 
+def _run_ranks(flag, world, tmp, timeout_s, n):
+    """``world`` processes of this script (``flag RANK WORLD INIT TMP``)
+    sharing the card over gloo, waited for (all ended at the first that
+    fails, or at ``timeout_s``): what each wrote to ``TMP/rank{r}.json``.
+    A rank that failed fails phase ``n``."""
+    from repro_torch.launch.mesh import local_init_method
+    init = local_init_method()
+    logs = [open(Path(tmp) / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(r),
+         str(world), init, tmp], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + timeout_s
+    while any(p.poll() is None for p in procs) \
+            and time.monotonic() < deadline \
+            and not any(p.poll() for p in procs):
+        time.sleep(0.2)
+    for p, log in zip(procs, logs):
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        log.close()
+    for r, p in enumerate(procs):
+        text = (Path(tmp) / f"rank{r}.log").read_text()
+        check(p.returncode == 0, f"phase {n} rank {r} exited "
+              f"{p.returncode}:\n{text[-3000:]}")
+    return [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
 def phase_tp_serve():
     """Phase 70 (b): two ranks on the card, each in its own process
     (:func:`tp_worker`), serve zamba2-2.7b tensor-parallel, then TP_NEW's
     models; this process checks what they wrote."""
     import tempfile
     import numpy as np
-    from repro_torch.launch.mesh import local_init_method
     t0 = time.perf_counter()
     world = TP["ranks"]
     with tempfile.TemporaryDirectory() as tmp:
-        init = local_init_method()
-        logs = [open(Path(tmp) / f"rank{r}.log", "w") for r in range(world)]
-        procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-worker",
-             str(r), str(world), init, tmp], stdout=logs[r],
-            stderr=subprocess.STDOUT) for r in range(world)]
-        deadline = time.monotonic() + TP["timeout_s"]
-        while any(p.poll() is None for p in procs) \
-                and time.monotonic() < deadline \
-                and not any(p.poll() for p in procs):
-            time.sleep(0.2)
-        for p, log in zip(procs, logs):
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-            log.close()
-        for r, p in enumerate(procs):
-            text = (Path(tmp) / f"rank{r}.log").read_text()
-            check(p.returncode == 0, f"phase 70 rank {r} exited "
-                  f"{p.returncode}:\n{text[-3000:]}")
-        res = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
-               for r in range(world)]
+        res = _run_ranks("--tp-worker", world, tmp, TP["timeout_s"], 70)
         for tag in ("fp32", "sr"):
             a, b = (np.load(Path(tmp) / f"rank{r}_{tag}.npy")
                     for r in range(2))
@@ -6974,15 +6992,216 @@ def _model_cfg():
     return get_config("zamba2-2.7b").with_(n_layers=ZAMBA2_LAYERS)
 
 
+# ---------------------------------------------------------------------------
+# phase 71: training under tensor parallelism
+# ---------------------------------------------------------------------------
+
+#: phase 71: zamba2-2.7b at full width, ``layers`` deep (one group of six
+#: Mamba-2 layers and one shared-block application), trained at (1, 2) by
+#: two ranks sharing the card over gloo: ``batch`` rows of ``seq_len``
+#: tokens, a step, then a step of ``grad_accum=2``, remat and sequence
+#: parallelism on (the config's), against tp = 1 in rank 0's process.
+#: Tolerances: the losses to ``loss_rtol``; each parameter after the two
+#: steps within ``param_atol`` of tp = 1's (2.42e-6 measured on the card:
+#: AdamW moves a weight by up to lr a step, so a bound near lr would pass
+#: any gradient, while a rank's partial gradient in the ``grad_accum=2``
+#: step moves the second update by a fair share of lr); the first step's
+#: gradients of ``wbc`` (whole on each rank, a Megatron f after its B / C
+#: stream) and of the shared attention's ``wq`` (cut) within ``grad_rel``
+#: of tp = 1's largest entry -- a rank's partial gradient would be off by
+#: about half
+TP_TRAIN = dict(ranks=2, layers=6, cut="n_layers 54 -> 6", batch=2,
+                seq_len=512, lr=1e-3, loss_rtol=1e-4, param_atol=1e-4,
+                grad_rel=1e-3, timeout_s=300)
+
+
+def _tp_train_leaves(tree):
+    """The paths of the leaves phase 71 holds the gradients of."""
+    from repro_torch.core import tree as T
+    paths = ["/".join(map(str, p)) for p, _ in T.leaves_with_paths(tree)]
+    return {"wbc": paths.index("groups/0/0/mixer/wbc"),
+            "shared_wq": paths.index("shared/attn/wq")}
+
+
+def _whole(x, par):
+    """A DTensor leaf at rest in the training layout, put together on every
+    rank with the model axis's c10d all-gather (gloo's functional
+    all-gather of a CUDA tensor crashes; no data axis at (1, 2))."""
+    from repro_torch.dist.sharding import Shard
+    from repro_torch.dist.tp import model_gather
+    t = x.to_local()
+    for pl in x.placements:
+        if isinstance(pl, Shard):
+            t = model_gather(t, pl.dim, par)
+    return t
+
+
+def tp_train_worker(rank, world, init, out):
+    """One rank of phase 71, in its own process: a gloo group of
+    ``world`` ranks on the one card, the (1, world) mesh's train steps,
+    then (rank 0) tp = 1 from the same seed; writes its numbers, and rank
+    0 the comparison, to ``out``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.core import tree as T
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import make_local_parallel
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import (make_train_step,
+                                              sharded_loss_and_grads,
+                                              _loss_and_grads,
+                                              batch_to_device)
+    torch.cuda.set_device(0)
+    t_start = time.perf_counter()
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    w = TP_TRAIN
+    res = {}
+    nbytes = lambda tree: sum(t.numel() * t.element_size()
+                              for t in T.leaves(tree))
+    try:
+        par = make_local_parallel(1, world, device_type="cuda")
+        cfg, params, _ = _model_at("zamba2-2.7b", w["layers"])
+        check(cfg.seq_parallel and cfg.remat and cfg.n_groups == 1
+              and cfg.shared_attn, f"phase 71: unexpected {cfg.name}")
+        opt = O.OptimizerConfig(lr=w["lr"])
+        batch_fn = make_batch_fn(cfg, w["seq_len"], w["batch"])
+        which = _tp_train_leaves(params)
+        res["bytes_tp1"] = nbytes(params)
+        lay = SH.param_shardings(params, cfg, par)
+        ps = SH.distribute(params, lay)
+        st = O.init_opt_state(params, opt)
+        st = SH.distribute(st, SH.opt_state_shardings(st, lay, par))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["bytes_cut"] = nbytes(SH.cut_params(ps, cfg, par))
+        res["setup_s"] = time.perf_counter() - t_start
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _counts_reset()
+        _, grads = sharded_loss_and_grads(ps, cfg, batch_fn(0), par)
+        leaves = T.leaves(ps)
+        g_tp = {k: _whole(SH.like([T.leaves(grads)[i]], [leaves[i]])[0],
+                          par) for k, i in which.items()}
+        del grads
+        losses, ms = [], []
+        for i, ga in enumerate((1, 2)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ps, st, m = make_train_step(cfg, opt, par=par, grad_accum=ga)(
+                ps, st, batch_fn(i))
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        res["launches"] = {k: v for k, v in _counts().items() if v}
+        res["losses"], res["step_ms"] = losses, ms
+        final = [_whole(x, par) for x in T.leaves(ps)]
+        del ps, st
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:                   # tp = 1 from the same seed
+            cfg1, params, _ = _model_at("zamba2-2.7b", w["layers"])
+            st1 = O.init_opt_state(params, opt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, g1 = _loss_and_grads(params, cfg1, batch_to_device(
+                batch_fn(0), "cuda"))
+            g1 = T.leaves(g1)
+            res["grad_rel"] = {
+                k: float((g_tp[k] - g1[i]).abs().max()
+                         / g1[i].abs().max()) for k, i in which.items()}
+            del g1
+            step = {ga: make_train_step(cfg1, opt, grad_accum=ga)
+                    for ga in (1, 2)}
+            l1, ms1 = [], []
+            for i, ga in enumerate((1, 2)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, st1, m = step[ga](params, st1, batch_fn(i))
+                l1.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                ms1.append((time.perf_counter() - t0) * 1e3)
+            res["peak_GB_tp1"] = torch.cuda.max_memory_allocated() / 1e9
+            res["losses_tp1"], res["step_ms_tp1"] = l1, ms1
+            res["param_max_abs"] = max(float((a - b).abs().max()) for a, b
+                                       in zip(final, T.leaves(params)))
+            res["param_max_rel"] = max(
+                float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(final, T.leaves(params)))
+            res["finite"] = all(bool(torch.isfinite(a).all())
+                                for a in final)
+        res["seconds"] = time.perf_counter() - t_start
+    finally:
+        dist.destroy_process_group()
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def phase_tp_train():
+    """Phase 71: two ranks on the card (:func:`tp_train_worker`) train
+    zamba2-2.7b at (1, 2); this process checks what they wrote."""
+    import tempfile
+    t0 = time.perf_counter()
+    w = TP_TRAIN
+    with tempfile.TemporaryDirectory() as tmp:
+        res = _run_ranks("--tp-train-worker", w["ranks"], tmp,
+                         w["timeout_s"], 71)
+    r0 = res[0]
+    for r in res:
+        check(r["losses"] == r0["losses"], f"phase 71: the ranks' losses "
+              f"{[x['losses'] for x in res]} differ")
+        check(not r["launches"], f"phase 71: the training steps launched "
+              f"kernels: {r['launches']}")
+        check(r["bytes_cut"] < r["bytes_tp1"], f"phase 71: a rank computes "
+              f"with {r['bytes_cut']} parameter bytes of {r['bytes_tp1']}")
+    dl = [abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                              r0["losses_tp1"])]
+    check(all(math.isfinite(v) for v in r0["losses"]) and r0["finite"]
+          and max(dl) <= w["loss_rtol"], f"phase 71: losses "
+          f"{r0['losses']} against tp = 1's {r0['losses_tp1']}")
+    check(r0["param_max_abs"] <= w["param_atol"], f"phase 71: parameters "
+          f"{r0['param_max_abs']:.3g} from tp = 1's")
+    check(max(r0["grad_rel"].values()) <= w["grad_rel"], f"phase 71: "
+          f"gradients {r0['grad_rel']} from tp = 1's")
+    phase(71, "zamba2-2.7b trained tensor-parallel, two ranks sharing one "
+          "card over gloo at (1, 2), sequence-parallel, remat",
+          reduced=w["cut"], batch=w["batch"], seq_len=w["seq_len"],
+          losses=",".join(f"{v:.6f}" for v in r0["losses"]),
+          losses_tp1=",".join(f"{v:.6f}" for v in r0["losses_tp1"]),
+          loss_rel_diff=",".join(f"{v:.3g}" for v in dl),
+          param_max_abs_diff=f"{r0['param_max_abs']:.3g}",
+          param_max_rel_diff=f"{r0['param_max_rel']:.3g}",
+          grad_rel_diff_wbc=f"{r0['grad_rel']['wbc']:.3g}",
+          grad_rel_diff_shared_wq=f"{r0['grad_rel']['shared_wq']:.3g}",
+          param_GB_a_rank=f"{r0['bytes_cut'] / 1e9:.3f}",
+          param_GB_tp1=f"{r0['bytes_tp1'] / 1e9:.3f}",
+          peak_GB_a_rank=",".join(f"{r['peak_GB']:.2f}" for r in res),
+          peak_GB_tp1=f"{r0['peak_GB_tp1']:.2f}",
+          step_ms_two_ranks_sharing_one_card_over_gloo=",".join(
+              f"{v:.0f}" for v in r0["step_ms"]),
+          step_ms_tp1=",".join(f"{v:.0f}" for v in r0["step_ms_tp1"]),
+          kernel_launches_in_training=0,
+          worker_s=",".join(f"{r['seconds']:.1f}" for r in res),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to chip_smoke.py; "
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--tp-worker"]:      # one rank of phase 70 (b)
+    workers = {"--tp-worker": lambda *a: tp_worker(*a),   # phase 70 (b)
+               "--tp-train-worker": lambda *a: tp_train_worker(*a)}  # 71
+    if sys.argv[1:2] and sys.argv[1] in workers:
         rank, world, init, out = sys.argv[2:6]
         try:
-            return tp_worker(int(rank), int(world), init, out)
+            return workers[sys.argv[1]](int(rank), int(world), init, out)
         except SmokeFailure as e:
             print(f"chip_smoke: rank {rank} FAILED: {e}", file=sys.stderr)
             return 1
@@ -7098,6 +7317,7 @@ def main():
         phase_dist()
         tp_kern = phase_tp_kernels()
         tp_run = phase_tp_serve()
+        phase_tp_train()
         kernels = kernels_line(errs, times, slot, paged, spec, ds, gla,
                                dense, xlstm, pali, tp_kern, tp_run)
     except SmokeFailure as e:

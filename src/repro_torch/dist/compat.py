@@ -46,6 +46,11 @@ Partial = _first("Partial", _TENSOR + ("torch.distributed._tensor."
 CommDebugMode = _first("CommDebugMode", ("torch.distributed.tensor.debug",
                                          "torch.distributed._tensor.debug"))
 funcol = importlib.import_module("torch.distributed._functional_collectives")
+#: c10d's all-gather into one buffer (``all_gather_single`` since PyTorch
+#: 2.13, ``all_gather_into_tensor`` before)
+_c10d = importlib.import_module("torch.distributed")
+all_gather_single = getattr(_c10d, "all_gather_single", None) \
+    or _c10d.all_gather_into_tensor
 resolve_process_group = _first("_resolve_process_group",
                                ("torch.distributed.distributed_c10d",))
 

@@ -33,27 +33,31 @@ is the same.
 
 GSPMD partitions the JAX package's steps; the port has no such compiler,
 so it runs a layout eagerly.  At rest every leaf is a ``DTensor`` in its
-layout.  In a step each rank gathers what it computes with
-(:func:`gather`, :func:`gather_params`: every mesh axis, except the rows
-of the data axes and the expert banks' model shards), runs the port's
-code on its own rows, and puts the results back into their layouts
-(:func:`place`; gradients: :func:`reduce_grads`, which sums them over the
-data axes).  Kernels see the local tensors, never a ``DTensor``.
+layout.  In a step each rank takes what it computes with -- its rows of
+the batch over the data axes (:func:`gather`) and its tensor-parallel cut
+of the parameters (:func:`cut_params`) -- runs the port's code, and puts
+the results back into their layouts (:func:`place`; gradients:
+:func:`reduce_grads`, which sums them over the data axes).  Kernels see
+the local tensors, never a ``DTensor``.
 
-Serving splits the model axis by heads (tensor parallelism, Megatron's
-column / row products): :func:`tp_params` cuts a rank's columns of the
-GQA, MLA, Mamba-2, GLA-family, mLSTM and dense-FFN input projections and
-the matching rows of their output projections (:func:`serving_param_shardings` is that cut as
-a layout), the step sums each row-parallel product over the model axis
-(``dist/tp.py::tp_sum``, its one collective), and each rank keeps its
-heads' caches (:func:`serving_cache_shardings`).  The serving engines
+The model axis splits by heads (tensor parallelism, Megatron's column /
+row products): :func:`tp_params` cuts a rank's columns of the GQA, MLA,
+Mamba-2, GLA-family, mLSTM and dense-FFN input projections and the
+matching rows of their output projections (an MoE's experts where the
+model axis divides them), and :func:`serving_param_shardings` is that cut
+as a layout.  Serving keeps parameters at rest in it; each rank keeps its
+heads' caches (:func:`serving_cache_shardings`), and the serving engines
 split their decode rows over the data axes besides (``dist/rows.py``);
 :func:`sharded_prefill` / :func:`sharded_decode_step` run the same step
-on a batch laid out over the data axes.
-Training replicates compute over the model axis, except the MoE expert
-banks, which compute where they live (``models/layers.py::apply_moe``);
-tensor-parallel training (the row-parallel sum's backward, JAX's
-``_seq_shard``) is not ported.
+on a batch laid out over the data axes.  Training keeps the JAX
+package's layout (:func:`param_shardings`, ZeRO over the data axes) at
+rest and computes on the cut: ``train/train_loop.py::make_train_step``
+takes each rank's :func:`cut_params`, runs forward and backward with
+Megatron's f / g around every model-axis sum and sequence parallelism at
+the layer boundaries (``dist/tp.py``), so every gradient comes out whole
+for the rank's cut, and :func:`reduce_grads` moves it into the training
+layout.  Where the model axis splits no MoE experts, the sharded steps
+route the MoE over the whole batch of the data axes, as JAX's does.
 """
 from __future__ import annotations
 
@@ -67,7 +71,7 @@ from repro_torch.core import attention_cache as AC
 from repro_torch.core import tree as T
 from repro_torch.dist.compat import (DTensor, Partial, Replicate, Shard,
                                      distribute_tensor)
-from repro_torch.dist.tp import expert_parallel
+from repro_torch.dist import tp as TP
 
 
 class Spec(tuple):
@@ -135,11 +139,15 @@ class Parallel:
     axis is the inter-pod network -- see launch/mesh.py); ``model_axis``
     carries tensor / expert parallelism.  ``mesh`` is a ``DeviceMesh`` with
     named dims (or an :class:`AbstractMesh` where only layouts are built).
+    ``seq``: a training step's sequence-parallel form
+    (``dist/tp.py::seq_par``), where a split layer's input and output are
+    a rank's positions.
     """
 
     mesh: Any
     data_axes: Tuple[str, ...] = ("data",)
     model_axis: str = "model"
+    seq: bool = False
 
     def size(self, axis: str) -> int:
         return int(self.mesh.shape[self.mesh.mesh_dim_names.index(axis)])
@@ -530,21 +538,6 @@ def gather(tree: Any, keep: Tuple[str, ...] = ()) -> Any:
     return T.tree_map(lambda x: _gather_leaf(x, keep), tree)
 
 
-def gather_params(params: Any, cfg, par: Parallel) -> Any:
-    """The parameters a rank computes with: every leaf whole, except the
-    MoE expert banks under expert parallelism, which keep their model-axis
-    shard (the local experts)."""
-    ep = expert_parallel(cfg, par)
-
-    def one(path, x):
-        keep = ((par.model_axis,) if ep and is_expert_bank(path, x.shape, cfg)
-                else ())
-        return _gather_leaf(x, keep)
-
-    return T.unflatten(params, [one(p, x) for p, x
-                                in T.leaves_with_paths(params)])
-
-
 def place(tree: Any, layouts: Any, keep: Tuple[str, ...] = ()) -> Any:
     """Local results into their layouts: each leaf of ``tree`` is what
     :func:`gather` gives a rank (its rows over the ``keep`` axes, whole
@@ -559,29 +552,70 @@ def place(tree: Any, layouts: Any, keep: Tuple[str, ...] = ()) -> Any:
     return T.tree_map(one, tree, layouts)
 
 
-def reduce_grads(grads: Any, params: Any, cfg, par: Parallel) -> Any:
-    """Each rank's gradients (of its rows; expert banks: of its local
-    experts) summed over the data axes into the parameters' layouts: the
-    local shards.  A gradient is partial over the data axes -- each rank
-    holds its rows' share -- so it is declared ``Partial`` there and
-    reduce-scattered (or all-reduced where the parameter is replicated);
-    over the model axis compute is replicated, so it is ``Replicate``
-    there (the expert banks: their shard)."""
-    ep = expert_parallel(cfg, par)
-    data = set(par.data_axes)
+def _model_dim(mesh, par) -> int:
+    return tuple(mesh.mesh_dim_names).index(par.model_axis)
 
-    def one(path, g, p):
-        mesh = p.device_mesh
-        keep = ((par.model_axis,) if ep and is_expert_bank(path, p.shape, cfg)
-                else ())
-        src = tuple(Partial() if n in data else r for n, r in
-                    zip(mesh.mesh_dim_names,
-                        _rows(p.placements, mesh.mesh_dim_names, keep)))
+
+def _model_move(t: torch.Tensor, src, dst, mesh, par) -> torch.Tensor:
+    """A rank's local ``t`` placed ``src`` on the model axis, as placed
+    ``dst`` there: a ``Shard`` kept, cut locally from a replicated tensor,
+    put together (``dist/tp.py::model_gather``), or moved to another dim
+    (an all-to-all over the model axis)."""
+    if src == dst:
+        return t
+    if src == Replicate():
+        return TP.narrow(t, dst.dim, par.model_index * (t.shape[dst.dim]
+                                                        // par.tp),
+                         t.shape[dst.dim] // par.tp)
+    if dst == Replicate():
+        return TP.model_gather(t, src.dim, par)
+    sub = mesh[par.model_axis]
+    return DTensor.from_local(t, sub, (src,), run_check=False).redistribute(
+        sub, (dst,)).to_local()
+
+
+def cut_params(params: Any, cfg, par: Parallel) -> Any:
+    """The parameters a rank computes with (the tensor-parallel step of
+    training and serving): the local shards of ``params`` (DTensors, in
+    any layout) in :func:`serving_param_shardings`, its :func:`tp_params`.
+    A tree at rest in that layout moves nothing.  From the training
+    layout each leaf is gathered over the data axes (the ZeRO shards) and
+    moved on the model axis into its cut."""
+    def one(x, layout):
+        if not isinstance(x, DTensor):
+            return x
+        mesh, m = x.device_mesh, _model_dim(x.device_mesh, par)
+        mid = tuple(pl if i == m else Replicate()
+                    for i, pl in enumerate(x.placements))
+        if mid != tuple(x.placements):
+            x = x.redistribute(mesh, mid)
+        return _model_move(x.to_local(), mid[m], layout.placements[m], mesh,
+                           par)
+    return T.tree_map(one, params, serving_param_shardings(params, cfg, par))
+
+
+def reduce_grads(grads: Any, params: Any, cfg, par: Parallel) -> Any:
+    """Each rank's gradients of its :func:`cut_params` (of its rows; whole
+    for its cut on every model rank) into the parameters' layouts, as
+    local shards: each is declared in the layout of its cut -- ``Shard``
+    over the model axis on the cut dim, ``Replicate`` there where the leaf
+    is whole, and ``Partial`` over the data axes, as each rank holds its
+    rows' share -- moved on the model axis into the training layout, and
+    reduce-scattered (or all-reduced where the parameter is replicated)
+    over the data axes."""
+    data = set(par.data_axes)
+    cut = serving_param_shardings(params, cfg, par)
+
+    def one(g, p, c):
+        mesh, m = p.device_mesh, _model_dim(p.device_mesh, par)
+        g = _model_move(g, c.placements[m], p.placements[m], mesh, par)
+        src = tuple(Partial() if n in data else
+                    (p.placements[i] if i == m else Replicate())
+                    for i, n in enumerate(mesh.mesh_dim_names))
         return DTensor.from_local(g, mesh, src, run_check=False).redistribute(
             mesh, tuple(p.placements)).to_local()
 
-    return T.unflatten(params, [one(path, g, p) for (path, p), g in zip(
-        T.leaves_with_paths(params), T.leaves(grads))])
+    return T.tree_map(one, grads, params, cut)
 
 
 def global_norm(local_grads: Any, params: Any) -> torch.Tensor:
@@ -644,13 +678,13 @@ def _adopt(t: torch.Tensor, layout, like=None):
     return d
 
 
-def _serving_params(params: Any, cfg, par: Parallel) -> Any:
-    """What a rank's serving step computes with: the local shards of
-    ``params`` (DTensors) in :func:`serving_param_shardings`, its
-    :func:`tp_params`.  A tree at rest in that layout moves nothing; a
-    leaf in another layout (the training one, say) is moved into it."""
-    return T.tree_map(_local, params,
-                      serving_param_shardings(params, cfg, par))
+def split_rows(local: int, B: int, par: Parallel) -> Optional[Parallel]:
+    """``par`` where its data axes split a batch of ``B`` rows (a rank
+    holds ``local`` of them, fewer than ``B``): an MoE the model axis does
+    not split then routes the whole batch (``layers.apply_moe``'s
+    ``rows``).  None where every rank holds the whole batch (one the data
+    axes do not divide, laid out replicated), which it routes as it is."""
+    return par if local < B else None
 
 
 def sharded_prefill(params: Any, cfg, batch: Any, par: Parallel):
@@ -659,13 +693,15 @@ def sharded_prefill(params: Any, cfg, batch: Any, par: Parallel):
     each rank runs its rows of the tensor-parallel step on its
     :func:`tp_params`.  Returns (last-position logits, caches) in their
     layouts (:func:`logits_sharding`, :func:`serving_cache_shardings`);
-    an encoder's caches are None."""
+    an encoder's caches are None.  An MoE whose experts the model axis
+    does not split routes the whole batch (``M.prefill``'s ``rows``)."""
     from repro_torch.models import model as M
     keep = par.batch_axes
     local_b = gather(batch, keep)
-    logits, caches = M.prefill(_serving_params(params, cfg, par), cfg,
-                               local_b, par=par)
     B = next(iter(T.leaves(batch))).shape[0]
+    logits, caches = M.prefill(
+        cut_params(params, cfg, par), cfg, local_b, par=par,
+        rows=split_rows(next(iter(T.leaves(local_b))).shape[0], B, par))
     logits = place(logits, logits_sharding(
         (B,) + tuple(logits.shape[1:]), par, B), keep)
     if caches is None:
@@ -706,18 +742,21 @@ def sharded_decode_step(params: Any, cfg, tokens, caches: Any, lengths,
     :func:`sharded_prefill` leaves them).  Stochastic rounding counts from
     the rank's first row of the whole batch (``ops.sr_rows_from``) and,
     per layer, from its first head (``ops.sr_heads_from``), so each element
-    draws what the single-device step draws for it.  Returns (logits, new
+    draws what the single-device step draws for it; an MoE whose experts
+    the model axis does not split routes the whole batch, as
+    :func:`sharded_prefill`'s.  Returns (logits, new
     caches) in their layouts; the caches keep the layouts they came in."""
     from repro_torch import ops as OPS
     from repro_torch.models import model as M
     keep = par.batch_axes
     B = tokens.shape[0]
     target = serving_cache_shardings(caches, cfg, par, B)
+    local_t = gather(tokens, keep)
     with OPS.sr_rows_from(_row_base(tokens)):
         logits, new = M.decode_step(
-            _serving_params(params, cfg, par), cfg, gather(tokens, keep),
+            cut_params(params, cfg, par), cfg, local_t,
             T.tree_map(_local, caches, target), gather(lengths, keep),
-            seed, par=par)
+            seed, par=par, rows=split_rows(local_t.shape[0], B, par))
     logits = place(logits, logits_sharding(
         (B,) + tuple(logits.shape[1:]), par, B), keep)
     return logits, T.tree_map(_adopt, new, target, caches)

@@ -19,15 +19,17 @@ Per cell the dry run:
      under :class:`CommBytesMode` and ``FlopCounterMode``,
   4. records the JAX record's keys where the port has a counterpart:
      ``flops_per_chip`` is the traced local step's count (matmuls and
-     attention;
-     its train step replicates compute over the model axis, so there it
-     is the count of the rank's rows, its model shard's experts aside; the
-     prefill and decode cells run the tensor-parallel serving step, so
-     there it is the count of the rank's rows of its heads and FFN columns),
+     attention): every cell runs the tensor-parallel step, so it is the
+     count of the rank's rows of its heads and FFN columns (its model
+     shard's experts; the layers tp does not split whole), the train
+     cells' forward, remat recomputation and backward included;
      ``link_bytes_per_chip`` the bytes the traced collectives move through
      a rank's links at the ring algorithm's count (:class:`CommBytesMode`:
-     a train step gathers the whole parameter tree, so this is far above a
-     GSPMD step's; a serving step, its parameters at rest in
+     a train step gathers its parameters' ZeRO shards over the data axes,
+     moves them into its tensor-parallel cut over the model axis, sums,
+     gathers and scatters its activations over the model axis at every
+     split layer, and reduce-scatters its gradients over the data axes;
+     a serving step, its parameters at rest in
      ``dist/sharding.py::serving_param_shardings``, gathers none and
      makes only its all-reduces over the model axis),
      ``hbm_bytes_per_chip`` and ``cache_bytes_total`` come
@@ -48,8 +50,11 @@ Attention-free models have FLOPs linear in the sequence (chunked linear
 attention; the sLSTM's per-token loop, which the JAX dry run corrects
 analytically): their train and prefill cells trace at ``PROBE_SEQ``
 positions and scale by ``S / PROBE_SEQ``, exact for a linear count.  Their
-collectives (parameter gathers and gradient reductions) do not depend on
-``S`` and are not scaled.
+link bytes are ``a + b * S`` (the parameter moves and gradient reductions
+do not depend on ``S``; the tensor-parallel sums, gathers and scatters of
+activations grow with it), so these cells trace a second time at
+``PROBE_SEQ / 2`` positions and take each kind's bytes at ``S`` on the
+line through both traces.
 Attention traces with 4096-position chunks, as the JAX probe does (every
 chunk pair is computed either way, so the count does not change).
 """
@@ -216,11 +221,18 @@ _RING = {
 }
 
 
+#: c10d's own (in-place) all-gather, as the kind it counts as: its
+#: arguments are (output, input, process group, ...), the output the
+#: group's inputs put together
+_C10D = {"_allgather_base_": ("all_gather_into_tensor",)}
+
+
 class CommBytesMode(CommDebugMode):
     """``CommDebugMode`` that also adds up, by kind, the bytes each traced
-    functional collective moves through this rank's links (:data:`_RING`
-    on its input's bytes and its group's size).  A collective of another
-    kind, or of a symbolic size, is left out and counted as unsized."""
+    functional collective, or c10d collective of :data:`_C10D`, moves
+    through this rank's links (:data:`_RING` on its input's bytes and its
+    group's size).  A collective of another kind, or of a symbolic size,
+    is left out and counted as unsized."""
 
     def __init__(self):
         super().__init__()
@@ -231,25 +243,45 @@ class CommBytesMode(CommDebugMode):
         out = super().__torch_dispatch__(func, types, args, kwargs)
         name = getattr(func, "_overloadpacket", None)
         name = getattr(name, "__name__", "")
-        if out is not NotImplemented and name in _RING \
-                and getattr(func, "namespace", "") == "_c10d_functional":
+        ns = getattr(func, "namespace", "")
+        if out is NotImplemented:
+            return out
+        if ns == "_c10d_functional" and name in _RING:
             group = next(a for a in reversed(args) if isinstance(a, str))
-            x = args[0]
-            try:
-                nbytes = int(x.numel()) * x.element_size()
-            except Exception:           # a data-dependent (symbolic) size
-                return out
-            n = resolve_process_group(group).size()
-            self.link_bytes[name] = (self.link_bytes.get(name, 0.0)
-                                     + nbytes * _RING[name](n))
-            self.sized += 1
+            kind, x = name, args[0]
+            size = lambda: resolve_process_group(group).size()
+        elif ns == "c10d" and name in _C10D:
+            (kind,), x = _C10D[name], args[1]
+            size = lambda: int(args[0].numel()) // int(x.numel())
+        else:
+            return out
+        try:
+            nbytes = int(x.numel()) * x.element_size()
+            n = size()
+        except Exception:               # a data-dependent (symbolic) size
+            return out
+        self.link_bytes[kind] = (self.link_bytes.get(kind, 0.0)
+                                 + nbytes * _RING[kind](n))
+        self.sized += 1
         return out
+
+
+def _at_seq(traced: Dict[int, Dict[str, float]],
+            seq_len: int) -> Dict[str, float]:
+    """Each kind's link bytes at ``seq_len`` positions, from two traces
+    (positions -> bytes by kind): a + b * S through both, exact where the
+    bytes are linear in S, as the parameter moves (constant) and the
+    activations' sums (linear) are."""
+    (s1, b1), (s2, b2) = sorted(traced.items())
+    return {k: b2.get(k, 0.0) + (b2.get(k, 0.0) - b1.get(k, 0.0))
+            * (seq_len - s2) / (s2 - s1) for k in sorted(set(b1) | set(b2))}
 
 
 def _collectives(comm: CommBytesMode) -> Dict[str, Any]:
     by_kind: Dict[str, int] = {}
     for op, n in comm.get_comm_counts().items():
         name = str(op).split(".")[-1]
+        name = _C10D.get(name, (name,))[0]
         by_kind[name] = by_kind.get(name, 0) + int(n)
     total = sum(by_kind.values())
     return {"collectives": by_kind, "n_collectives": total,
@@ -302,6 +334,16 @@ def lower_cell(arch: str, shape: str, multi_pod: bool = False,
                                             p_meta, grad_accum)
         traced = float(counter.get_total_flops())
         diag = _collectives(comm)
+        if s_scale != 1.0:
+            # link bytes are a + b * S: a second trace at half the
+            # positions gives b
+            half = dataclasses.replace(sc_trace,
+                                       seq_len=sc_trace.seq_len // 2)
+            with fake_mode(), CommBytesMode() as comm_half:
+                run_step(cfg_trace, half, par, p_meta, grad_accum)
+            diag["link_bytes"] = _at_seq(
+                {sc_trace.seq_len: diag["link_bytes"],
+                 half.seq_len: dict(comm_half.link_bytes)}, sc.seq_len)
         tp, fsdp = par.tp, par.fsdp
     flops_per_chip = traced * s_scale
 

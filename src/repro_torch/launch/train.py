@@ -28,9 +28,11 @@ median step time (steps after the first), tokens a second and the peak
 device memory.
 
 On a mesh (``--mesh DxM``: D-way data parallelism with ZeRO-sharded
-parameters and moments, M-way expert parallelism for MoE layers and
-replicated compute otherwise -- ``dist/sharding.py``) every rank runs this
-program and rank 0 prints.  ``--host-devices N`` rehearses it on the CPU:
+parameters and moments; M-way tensor parallelism, each rank computing
+its heads and FFN columns with the residual stream's positions split at
+the layer boundaries, and expert parallelism for MoE layers --
+``dist/sharding.py``, ``dist/tp.py``) every rank runs this program and
+rank 0 prints.  ``--host-devices N`` rehearses it on the CPU:
 it spawns N ranks over gloo (the JAX package's fake host devices; D * M
 must equal N):
 

@@ -18,6 +18,11 @@ projects, caches and attends its heads only, and one sum over the model
 axis adds the ranks' ``wo`` products.  The layers carry no bias, so none
 is added after the sum.
 
+In training (:func:`attention_forward`, :func:`mla_forward`) the normed
+input enters the split heads through ``dist.tp.tp_enter`` (Megatron's f)
+and the ``wo`` sum leaves through ``tp_sum`` (g), so each rank's weight
+gradients are whole for its shard.
+
 MLA splits its query heads the same way where the model axis divides them
 (:func:`mla_tp_shard`): a rank holds its heads' columns of ``wq_b``, its
 heads of the absorbed ``w_uk`` / ``w_uv`` and the rows of ``wo`` for them.
@@ -220,7 +225,7 @@ def attention_forward(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
     lp = TP.layer_par(cfg.n_kv_heads, par)
     H, _, _ = local_heads(cfg, lp)
     dh = cfg.head_dim
-    q, k, v = _project_qkv(p, x, cfg, positions, lp)
+    q, k, v = _project_qkv(p, TP.tp_enter(x, lp)[0], cfg, positions, lp)
     o = blockwise_attention(q, k, v,
                             causal=cfg.causal and not cfg.encoder_only,
                             prefix_len=prefix_len, q_chunk=cfg.attn_q_chunk,
@@ -334,12 +339,16 @@ def mla_tp_shard(p: L.Params, cfg: ModelConfig, par) -> L.Params:
             "wo": TP.narrow(p["wo"], 0, h0 * vw, H * vw)}
 
 
-def _mla_queries(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
+def _mla_queries(p, x, cfg: ModelConfig, positions,
+                 lp=None) -> torch.Tensor:
     """Absorbed queries (B, S, H, kv_lora + rope) of the heads ``p`` holds
-    (a rank's under :func:`mla_tp_shard`)."""
+    (a rank's under :func:`mla_tp_shard`); the query latent, whole on
+    every rank, enters the split heads through Megatron's f under
+    ``lp``."""
     m = cfg.mla
     B, S, _ = x.shape
-    ql = L.apply_norm(p["q_norm"], x @ p["wq_a"], "rmsnorm", cfg.norm_eps)
+    ql = TP.tp_copy(L.apply_norm(p["q_norm"], x @ p["wq_a"], "rmsnorm",
+                                 cfg.norm_eps), lp)
     qh = (ql @ p["wq_b"]).reshape(B, S, p["w_uk"].shape[0],
                                   m.nope_dim + m.rope_dim)
     q_nope, q_rope = qh[..., :m.nope_dim], qh[..., m.nope_dim:]
@@ -368,12 +377,15 @@ def mla_forward(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, par=None) -> torch.Tensor:
     """Full-sequence MLA in absorbed form (one latent KV stream).
     ``par``: the rank's query heads over the whole latent, their ``wo``
-    products summed over the model axis."""
+    products summed over the model axis; the query and KV latents (whole
+    on every rank) enter the split heads through Megatron's f."""
     m = cfg.mla
     B, S, _ = x.shape
     H, _, lp = TP.local_share(cfg.n_heads, par)
-    q = _mla_queries(p, x, cfg, positions)              # (B, S, H, cw)
-    kv = mla_cache_stream(p, x, cfg, positions)[:, :, None, :]   # KVH = 1
+    x = TP.tp_enter(x, lp)[1]              # only whole weights read x
+    q = _mla_queries(p, x, cfg, positions, lp)          # (B, S, H, cw)
+    kv = TP.tp_copy(mla_cache_stream(p, x, cfg, positions),
+                    lp)[:, :, None, :]                  # KVH = 1
     ctx = blockwise_attention(q, kv, kv[..., :m.kv_lora],
                               scale=_mla_scale(cfg),
                               q_chunk=cfg.attn_q_chunk,

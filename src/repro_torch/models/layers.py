@@ -88,12 +88,13 @@ def rmsnorm_gated(x: torch.Tensor, scale: torch.Tensor, gate: torch.Tensor,
     """Mamba-2 style RMSNorm(x * silu(gate)).  With ``par`` the last axis
     is a rank's channel shard of it: the mean square is over every
     channel, the ranks' sums of squares summed over the model axis (one
-    (B, S, 1) all-reduce), never per rank."""
+    (B, S, 1) all-reduce, and one for its gradient: each rank reads the
+    sum for its own channels), never per rank."""
     xf = (x * Fn.silu(gate.to(torch.float32))).to(torch.float32)
     if par is None:
         ms = xf.square().mean(-1, keepdim=True)
     else:
-        ms = TP.tp_sum(xf.square().sum(-1, keepdim=True), par) / (
+        ms = TP.tp_sum_split(xf.square().sum(-1, keepdim=True), par) / (
             xf.shape[-1] * par.tp)
     return (xf * torch.rsqrt(ms + eps) * scale.to(torch.float32)).to(x.dtype)
 
@@ -164,8 +165,10 @@ def apply_ffn(p: Params, x: torch.Tensor, kind: str,
     (tensor parallelism: ``dist.tp.layer_par`` of the FFN's width)
     ``p`` holds the rank's d_ff/tp columns of ``wi`` / ``wg`` and the
     matching rows of ``wo``, and the ranks' products are summed over the
-    model axis.  The FFNs carry no bias, so none is added after the
-    sum."""
+    model axis (Megatron's f before the columns, g after the rows:
+    ``dist.tp.tp_enter`` / ``tp_sum``).  The FFNs carry no bias, so none
+    is added after the sum."""
+    x = TP.tp_enter(x, par)[0]
     if kind == "swiglu":
         h = Fn.silu(x @ p["wi"]) * (x @ p["wg"])
     elif kind == "geglu":
@@ -221,7 +224,10 @@ def ffn_tp_shard(p: Params, cfg: ModelConfig, par) -> Params:
 # holds the same output and so the same loss: the backward of that sum is
 # the identity, and the gradients of ``x`` and of the (replicated) router,
 # which each rank holds only for its own experts, are summed over the model
-# axis instead (Megatron's f / g pair, :class:`_SumGrad` / :class:`_SumOut`).
+# axis instead (Megatron's f / g pair, ``dist.tp.tp_copy`` / ``tp_sum``).
+# Where the model axis splits no experts and the data axes split the batch
+# (``rows``), every data rank routes the whole batch, as GSPMD computes
+# JAX's ``apply_moe`` on the global batch, and keeps its rows.
 
 def _stack_init(gen: torch.Generator, n: int, d_in: int, d_out: int, dtype,
                 device, scale: float = 1.0) -> torch.Tensor:
@@ -294,39 +300,6 @@ def _moe_dispatch_compute(x_flat: torch.Tensor, sel: torch.Tensor,
     return out
 
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    from repro_torch.dist.compat import funcol
-    return funcol.wait_tensor(funcol.all_reduce(x.contiguous(), "sum",
-                                                group))
-
-
-class _SumGrad(torch.autograd.Function):
-    """Megatron's f: the identity forward, its gradient summed over
-    ``group`` in the backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_reduce(g, ctx.group), None
-
-
-class _SumOut(torch.autograd.Function):
-    """Megatron's g: the forward sums over ``group``, the backward is the
-    identity (every rank of the group holds the same loss)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        return _all_reduce(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 def _moe_local(x: torch.Tensor, router, wi, wg, wo, cfg: ModelConfig,
                par=None) -> torch.Tensor:
     """Route + dispatch + expert FFNs for the tokens of ``x`` (B, S, d).
@@ -337,39 +310,43 @@ def _moe_local(x: torch.Tensor, router, wi, wg, wo, cfg: ModelConfig,
     combines."""
     mc = cfg.moe
     B, S, d = x.shape
-    group = None
     if par is not None:
         n_local = mc.n_experts // par.tp
         if wi.shape[0] != n_local:
             raise ValueError(f"expert parallelism over {par.tp} ranks needs "
                              f"the local {n_local} experts a rank, got "
                              f"{wi.shape[0]}")
-        group = par.group(par.model_axis)
-        x = _SumGrad.apply(x, group)
-        router = _SumGrad.apply(router, group)
+        x, router = TP.tp_copy(x, par), TP.tp_copy(router, par)
     x_flat = x.reshape(-1, d)
     logits = (x_flat.to(torch.float32) @ router).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     w, sel = torch.topk(probs, mc.top_k, dim=-1)                 # (N, k)
     w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
     cap = moe_capacity(x_flat.shape[0], cfg)
-    if group is None:
+    if par is None:
         out = _moe_dispatch_compute(x_flat, sel, w, wi, wg, wo, cap)
     else:
-        out = _SumOut.apply(_moe_dispatch_compute(
+        out = TP.tp_sum(_moe_dispatch_compute(
             x_flat, sel, w, wi, wg, wo, cap,
-            e_offset=par.coordinate(par.model_axis) * wi.shape[0]), group)
+            e_offset=par.model_index * wi.shape[0]), par)
     return out.reshape(B, S, d).to(x.dtype)
 
 
 def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
-              par=None) -> torch.Tensor:
+              par=None, rows=None) -> torch.Tensor:
     """MoE FFN.  x: (B, S, d).  ``par``: a ``repro_torch.dist.sharding.
     Parallel`` or None; expert-parallel when its model axis divides the
-    expert count, and then ``p``'s expert banks are this rank's shard."""
-    if par is not None:
-        par = par if TP.expert_parallel(cfg, par) else None
-    out = _moe_local(x, p["router"], p["wi"], p["wg"], p["wo"], cfg, par)
+    expert count, and then ``p``'s expert banks are this rank's shard.
+    ``rows``: a ``Parallel`` whose data axes split the batch in equal
+    blocks, ``x`` this rank's; where the MoE is not expert-parallel it
+    routes the whole batch (gathered over the data axes) with the whole
+    batch's capacity and returns this rank's rows."""
+    ep = par if TP.expert_parallel(cfg, par) else None
+    whole = ep is None and rows is not None and rows.batch_size_divisor > 1
+    out = _moe_local(TP.rows_whole(x, rows) if whole else x, p["router"],
+                     p["wi"], p["wg"], p["wo"], cfg, ep)
+    if whole:
+        out = TP.rows_local(out, rows)
     if cfg.moe.n_shared:
         out = out + apply_ffn(p["shared"], x, cfg.ffn_kind_inner)
     return out

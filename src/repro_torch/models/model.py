@@ -39,8 +39,20 @@ projection, and the caches hold the rank's heads (MLA's latent cache, one
 stream for all heads, is whole and the same on every rank).  A layer whose
 head count (kv heads, heads, FFN columns) the model axis does not divide,
 and the embeddings, LM head, norms over ``d`` and the sLSTM, are whole on
-every rank; the MoE keeps its expert parallelism.  ``train_loss`` takes
-``par`` for the MoE alone.
+every rank; the MoE keeps its expert parallelism.
+
+Tensor-parallel training: ``train_loss(params, cfg, batch, par)`` runs the
+same cut (``params`` a rank's ``tp_params``, ``batch`` its rows), each
+collective autograd-aware (``dist/tp.py``: Megatron's f before the split
+weights, g after them), so every leaf's gradient is whole on each model
+rank.  With ``cfg.seq_parallel`` and ``S`` divisible by tp, the residual
+stream between layers holds a rank's ``S / tp`` positions (Megatron-SP,
+JAX's ``_seq_shard``): the norms and residual adds run on them, a split
+layer's input is gathered and its output reduce-scattered, and a layer
+every rank runs whole (the sLSTM, an MoE, a mixer whose heads tp does not
+divide) takes the gathered sequence and keeps its positions.  An MoE
+whose experts the model axis does not split routes the whole batch of
+the data axes (``rows``), as GSPMD does in the JAX package.
 """
 from __future__ import annotations
 
@@ -163,16 +175,57 @@ def _mixer_par(kind: str, par) -> dict:
     return {"par": par} if par is not None and kind in SSM.TP_SHARDS else {}
 
 
+def _is_moe(cfg: ModelConfig, p: Params) -> bool:
+    return cfg.ffn_kind == "moe" and "router" in p
+
+
 def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig,
-         par=None, tp_par=None) -> torch.Tensor:
+         par=None, tp_par=None, rows=None) -> torch.Tensor:
     """The element's FFN: MoE where its params route (expert-parallel
-    under ``par``), else the dense FFN of kind ``cfg.ffn_kind_inner`` (an
-    MoE model's dense layers: SwiGLU), tensor-parallel under ``tp_par``
-    (its columns split where the model axis divides them)."""
-    if cfg.ffn_kind == "moe" and "router" in p:
-        return L.apply_moe(p, h, cfg, par)
+    under ``par``; the whole batch of ``rows``' data axes where it is
+    not), else the dense FFN of kind ``cfg.ffn_kind_inner`` (an MoE
+    model's dense layers: SwiGLU), tensor-parallel under ``tp_par`` (its
+    columns split where the model axis divides them)."""
+    if _is_moe(cfg, p):
+        return L.apply_moe(p, h, cfg, par, rows)
     return L.apply_ffn(p, h, cfg.ffn_kind_inner,
                        TP.layer_par(_dense_ff(cfg), tp_par))
+
+
+def _mixer_heads(kind: str, cfg: ModelConfig):
+    """The heads (kv heads of GQA) by which the model axis splits a mixer
+    of ``kind``; None for the sLSTM, which it never splits."""
+    if kind == "attn":
+        return cfg.n_kv_heads
+    if kind == "mla":
+        return cfg.n_heads
+    return SSM.tp_heads(kind, cfg) if kind in SSM.TP_SHARDS else None
+
+
+def _norm(p: Params, x: torch.Tensor, cfg: ModelConfig, sp=None):
+    """The norm over ``d``; under sequence parallelism (``sp``) ``x`` is a
+    rank's positions, so its weights' gradients are summed over the model
+    axis (Megatron's f on the weights)."""
+    if sp is not None:
+        p = {k: TP.tp_copy(v, sp) for k, v in p.items()}
+    return L.apply_norm(p, x, cfg.norm_kind, cfg.norm_eps)
+
+
+def _sub(fn, h: torch.Tensor, tp_par, sp, n) -> torch.Tensor:
+    """``fn(h, lp)`` -- a mixer or FFN on its normed input, ``lp`` the
+    ``par`` it runs tensor-parallel under -- ``fn(h, tp_par)`` without
+    sequence parallelism.  Under it (``sp``) ``h`` holds a rank's
+    positions: a layer whose ``n`` heads or columns the model axis splits
+    takes them gathered (f's sequence form) and its output leaves
+    reduce-scattered (its ``tp_sum`` under ``sp``); a whole one (``n``
+    None, or not divided) takes the gathered sequence and keeps the
+    rank's positions of its output."""
+    if sp is None:
+        return fn(h, tp_par)
+    lp = None if n is None else TP.layer_par(n, sp)
+    if lp is not None:
+        return fn(TP.seq_gather(h, sp), lp)
+    return TP.seq_local(fn(TP.seq_whole(h, sp), None), sp)
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
@@ -309,48 +362,64 @@ def _attn_block_forward(p: Params, x, cfg: ModelConfig, positions,
 
 def _element_forward(p: Params, x, cfg: ModelConfig, kind: str,
                      positions, prefix_len: int = 0, want_cache: bool = True,
-                     par=None, tp_par=None) -> Tuple[torch.Tensor, Any]:
+                     par=None, tp_par=None, rows=None,
+                     sp=None) -> Tuple[torch.Tensor, Any]:
     """One layer over the full sequence: (x, its decode cache).  Without
     ``want_cache`` (training) no cache is built: no state is stored or
     quantized and no stochastic-rounding seed is drawn -- what XLA drops
     as dead code in the JAX package, eager PyTorch must not run.  ``par``
-    reaches the MoE, ``tp_par`` the tensor-parallel mixers and FFN."""
-    h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
-    if kind == "attn":
-        y, cache = _attn_block_forward(p["mixer"], h, cfg, positions,
-                                       prefix_len, want_cache, tp_par)
-    elif kind == "mla":
-        y = ATT.mla_forward(p["mixer"], h, cfg, positions, tp_par)
-        cache = None
-        if want_cache:
-            ckv = ATT.mla_cache_stream(p["mixer"], h, cfg, positions)
-            cache = _build_kv_cache(ckv[:, :, None, :], None, cfg,
-                                    v_width=cfg.mla.kv_lora)
-    else:
-        y, cache = SSM.mixer(kind).forward(p["mixer"], h, cfg, want_cache,
-                                           **_mixer_par(kind, tp_par))
-    x = x + y
+    and ``rows`` reach the MoE, ``tp_par`` the tensor-parallel mixers and
+    FFN; under sequence parallelism (``sp``: a training forward, no
+    cache) ``x`` is a rank's positions (:func:`_sub`)."""
+    out = {}
+
+    def mixer(h, lp):
+        if kind == "attn":
+            y, out["cache"] = _attn_block_forward(
+                p["mixer"], h, cfg, positions, prefix_len, want_cache, lp)
+        elif kind == "mla":
+            y = ATT.mla_forward(p["mixer"], h, cfg, positions, lp)
+            if want_cache:
+                ckv = ATT.mla_cache_stream(p["mixer"], h, cfg, positions)
+                out["cache"] = _build_kv_cache(ckv[:, :, None, :], None, cfg,
+                                               v_width=cfg.mla.kv_lora)
+        else:
+            y, out["cache"] = SSM.mixer(kind).forward(
+                p["mixer"], h, cfg, want_cache, **_mixer_par(kind, lp))
+        return y
+
+    x = x + _sub(mixer, _norm(p["norm"], x, cfg, sp), tp_par, sp,
+                 _mixer_heads(kind, cfg))
     if _has_ffn(cfg, kind):
-        h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
-        x = x + _ffn(p["ffn"], h, cfg, par, tp_par)
-    return x, cache
+        n = None if _is_moe(cfg, p["ffn"]) else _dense_ff(cfg)
+        x = x + _sub(lambda h, lp: _ffn(p["ffn"], h, cfg, par, lp, rows),
+                     _norm(p["ffn_norm"], x, cfg, sp), tp_par, sp, n)
+    return x, out.get("cache")
 
 
 def _shared_block_forward(p: Params, x, cfg: ModelConfig, positions,
                           prefix_len: int = 0, want_cache: bool = True,
-                          par=None):
-    h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
-    y, cache = _attn_block_forward(p["attn"], h, cfg, positions, prefix_len,
-                                   want_cache, par)
-    x = x + y
-    h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
-    return x + L.apply_ffn(p["ffn"], h, cfg.ffn_kind,
-                           TP.layer_par(cfg.d_ff, par)), cache
+                          par=None, sp=None):
+    out = {}
+
+    def attn(h, lp):
+        y, out["cache"] = _attn_block_forward(
+            p["attn"], h, cfg, positions, prefix_len, want_cache, lp)
+        return y
+
+    def ffn(h, lp):
+        return L.apply_ffn(p["ffn"], h, cfg.ffn_kind,
+                           TP.layer_par(cfg.d_ff, lp))
+
+    x = x + _sub(attn, _norm(p["norm"], x, cfg, sp), par, sp,
+                 cfg.n_kv_heads)
+    x = x + _sub(ffn, _norm(p["ffn_norm"], x, cfg, sp), par, sp, cfg.d_ff)
+    return x, out.get("cache")
 
 
 def _run_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 positions, prefix_len: int, want_cache: bool, par=None,
-                tp_par=None):
+                tp_par=None, rows=None, seq_parallel: bool = False):
     """Every layer over the full sequence: (x, caches ``[g][pos]`` with the
     shared block's last, and the prelude's split off) -- caches of None
     without ``want_cache``.  With ``cfg.remat``, where autograd records,
@@ -359,8 +428,16 @@ def _run_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig,
     as the JAX package's nested ``jax.checkpoint``: the backward recomputes
     one element's activations at a time instead of keeping every
     layer's.  ``par`` reaches the MoE layers (expert parallelism),
-    ``tp_par`` the tensor-parallel mixers and dense FFNs."""
+    ``tp_par`` the tensor-parallel mixers and dense FFNs, ``rows`` (a
+    ``Parallel`` whose data axes split the batch) an MoE that is not
+    expert-parallel.  ``seq_parallel`` (a training forward) runs the
+    layers sequence-parallel where ``tp_par`` splits and divides the
+    sequence: the residual stream a rank's positions between the
+    embeddings and the returned ``x``, which is whole again."""
     shared = params.get("shared")
+    sp = TP.seq_par(tp_par, x.shape[1]) if seq_parallel else None
+    if sp is not None:
+        x = TP.seq_local(x, sp)
     remat = cfg.remat and torch.is_grad_enabled()
     # a group of one block needs no inner checkpoint: it would recompute
     # the outer one's forward a third time
@@ -376,7 +453,7 @@ def _run_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig,
     for i, kind in enumerate(cfg.prelude):
         x, c = _element_forward(params["prelude"][i], x, cfg, kind,
                                 positions, prefix_len, want_cache, par,
-                                tp_par)
+                                tp_par, rows, sp)
         prelude.append(c)
 
     def group_body(gp, x):
@@ -385,13 +462,13 @@ def _run_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig,
             x, c = run(inner, functools.partial(
                 _element_forward, cfg=cfg, kind=kind, positions=positions,
                 prefix_len=prefix_len, want_cache=want_cache, par=par,
-                tp_par=tp_par), gp[pos], x)
+                tp_par=tp_par, rows=rows, sp=sp), gp[pos], x)
             group.append(c)
         if shared is not None:
             x, c = run(inner, functools.partial(
                 _shared_block_forward, cfg=cfg, positions=positions,
                 prefix_len=prefix_len, want_cache=want_cache,
-                par=tp_par), shared, x)
+                par=tp_par, sp=sp), shared, x)
             group.append(c)
         return x, group
 
@@ -399,22 +476,27 @@ def _run_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig,
     for g in range(cfg.n_groups):
         x, group = run(remat, group_body, params["groups"][g], x)
         caches.append(group)
+    if sp is not None:
+        x = TP.seq_whole(x, sp)
     return x, join_caches(prelude, caches)
 
 
 @torch.no_grad()
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            par=None) -> Tuple[torch.Tensor, List[List[Any]]]:
+            par=None, rows=None) -> Tuple[torch.Tensor, List[List[Any]]]:
     """Full-sequence forward over ``batch`` (:func:`embed_inputs`); returns
     (last-position logits (B, V), caches), or for an encoder (per-position
     logits (B, S, V), None).  ``par`` (a ``dist.sharding.Parallel``) runs
     the tensor-parallel step: ``params`` are then a rank's
     (``dist/sharding.py::tp_params``), the caches its heads', the MoE
-    layers expert-parallel."""
+    layers expert-parallel.  ``rows``: the batch is this rank's block of
+    one split over ``rows``' data axes (``dist/sharding.py::
+    sharded_prefill``), so an MoE that is not expert-parallel routes the
+    whole of it."""
     x, positions, prefix_len = embed_inputs(params, cfg, batch)
     x, caches = _run_blocks(params, x, cfg, positions, prefix_len,
                             want_cache=not cfg.encoder_only, par=par,
-                            tp_par=par)
+                            tp_par=par, rows=rows)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     if cfg.encoder_only:
         return x @ _lm_head(params, cfg), None
@@ -422,18 +504,26 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 def train_loss(params: Params, cfg: ModelConfig,
-               batch: Dict[str, torch.Tensor], par=None) -> torch.Tensor:
+               batch: Dict[str, torch.Tensor], par=None,
+               whole_batch: bool = False) -> torch.Tensor:
     """The training objective over ``batch`` (tensors: the inputs of
     :func:`embed_inputs`, ``targets`` (B, S) and an optional ``mask``):
     the chunked cross-entropy of the next-token targets, averaged over the
     mask -- a VLM's over its text positions only, an audio encoder's over
     its masked frames.  Builds no cache; differentiable (the flash
-    backward in the attention, remat per ``cfg.remat``).  ``par`` makes
-    the MoE layers expert-parallel, the rest replicated over the model
-    axis (``train/train_loop.py`` gathers the parameters)."""
+    backward in the attention, remat per ``cfg.remat``).  ``par`` runs
+    the tensor-parallel step on a rank's rows of the batch: ``params``
+    are then its ``dist/sharding.py::tp_params`` (the MoE layers
+    expert-parallel), sequence-parallel per ``cfg.seq_parallel``, and
+    every leaf's gradient is whole on each model rank
+    (``train/train_loop.py::make_train_step`` sums them over the data
+    axes).  ``whole_batch``: every data rank holds the whole batch (one
+    the data axes do not divide), so an MoE routes it as it is."""
     x, positions, prefix_len = embed_inputs(params, cfg, batch)
     x, _ = _run_blocks(params, x, cfg, positions, prefix_len,
-                       want_cache=False, par=par)
+                       want_cache=False, par=par, tp_par=par,
+                       rows=None if whole_batch else par,
+                       seq_parallel=cfg.seq_parallel)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     labels = batch["targets"]
     mask = batch.get("mask")
@@ -563,7 +653,7 @@ def write_row(caches, row_caches, slot: int, length: int) -> None:
 # ---------------------------------------------------------------------------
 
 def _element_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
-                    positions, seed: int, par=None
+                    positions, seed: int, par=None, rows=None
                     ) -> Tuple[torch.Tensor, Any]:
     h = L.apply_norm(p["norm"], x, cfg.norm_kind, cfg.norm_eps)
     if kind == "attn":
@@ -578,7 +668,7 @@ def _element_decode(p: Params, x, cache, cfg: ModelConfig, kind: str,
     x = x + y
     if _has_ffn(cfg, kind):
         h = L.apply_norm(p["ffn_norm"], x, cfg.norm_kind, cfg.norm_eps)
-        x = x + _ffn(p["ffn"], h, cfg, par, par)
+        x = x + _ffn(p["ffn"], h, cfg, par, par, rows)
     return x, cache
 
 
@@ -607,14 +697,15 @@ def _prelude_seed(seed: int, i: int) -> int:
 
 @torch.no_grad()
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                caches, lengths: torch.Tensor, seed: int = 0, par=None
-                ) -> Tuple[torch.Tensor, List[List[Any]]]:
+                caches, lengths: torch.Tensor, seed: int = 0, par=None,
+                rows=None) -> Tuple[torch.Tensor, List[List[Any]]]:
     """One decode step.  tokens: (B,) int; lengths: (B,) positions so far.
 
     Returns (logits (B, V), new caches).  On the card the MX8 state and KV
     buffers are updated in place; always continue from the returned caches.
     ``par``: the tensor-parallel step, as in :func:`prefill`
-    (``dist/sharding.py::sharded_decode_step``, the serving engines).
+    (``dist/sharding.py::sharded_decode_step``, the serving engines);
+    ``rows``: as in :func:`prefill`.
     """
     check_decoder(cfg)
     positions = lengths
@@ -624,7 +715,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     new_prelude = []
     for i, kind in enumerate(cfg.prelude):
         x, c = _element_decode(params["prelude"][i], x, prelude[i], cfg,
-                               kind, positions, _prelude_seed(seed, i), par)
+                               kind, positions, _prelude_seed(seed, i), par,
+                               rows)
         new_prelude.append(c)
     new_caches = []
     for g in range(cfg.n_groups):
@@ -634,7 +726,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         for pos, kind in enumerate(cfg.pattern):
             x, c = _element_decode(params["groups"][g][pos], x, gcaches[pos],
                                    cfg, kind, positions,
-                                   (seed_g + pos + 1) & _U32, par)
+                                   (seed_g + pos + 1) & _U32, par, rows)
             group.append(c)
         if shared is not None:
             x, c = _shared_decode(shared, x, gcaches[-1], cfg, positions,

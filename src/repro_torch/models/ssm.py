@@ -33,6 +33,13 @@ output products:
 
 The sLSTM stays whole on every rank, as the JAX package's ``shard_map``
 keeps it (batch-split only).
+
+In training each mixer's normed input enters its split projections
+through ``dist.tp.tp_enter`` (Megatron's f) and leaves through
+``tp_sum`` (g); what a rank computes whole and its split heads read --
+Mamba-2's B / C stream, GLA's gate bottleneck, HGRN2's ``beta``, the
+mLSTM's forget bias -- enters them through ``tp_copy``, so every
+weight's gradient is whole on each rank (for its shard where it is cut).
 """
 from __future__ import annotations
 
@@ -278,9 +285,11 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     }
 
 
-def _m2_project(p, x, cfg):
+def _m2_project(p, x, cfg, x_whole=None):
+    """z, x, B, C and dt of ``x``; B and C (whole on every rank: every
+    head reads them) of ``x_whole`` where one is given."""
     N = cfg.ssm.d_state
-    bc = x @ p["wbc"]
+    bc = (x if x_whole is None else x_whole) @ p["wbc"]
     return x @ p["wz"], x @ p["wx"], bc[..., :N], bc[..., N:], x @ p["wdt"]
 
 
@@ -294,10 +303,11 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     B, S, _ = x.shape
     _, _, N, P = _m2_dims(cfg)
     d_inner, H, _, lp = _m2_shard(cfg, par)
-    z, xin, Bv, Cv, dt_ = _m2_project(p, x, cfg)
+    x_split, x_whole = TP.tp_enter(x, lp)
+    z, xin, Bv, Cv, dt_ = _m2_project(p, x_split, cfg, x_whole)
     xin = Fn.silu(causal_conv(xin, p["conv_x_w"], p["conv_x_b"]))
-    bc = Fn.silu(causal_conv(torch.cat([Bv, Cv], -1), p["conv_bc_w"],
-                             p["conv_bc_b"]))
+    bc = TP.tp_copy(Fn.silu(causal_conv(torch.cat([Bv, Cv], -1),
+                                        p["conv_bc_w"], p["conv_bc_b"])), lp)
     Bv, Cv = bc[..., :N], bc[..., N:]
 
     dt_f = Fn.softplus(dt_.to(torch.float32) + p["dt_bias"])    # (B,S,H)
@@ -441,12 +451,14 @@ def _retnet_log_gamma(H: int, device, h0: int = 0) -> torch.Tensor:
     return torch.log1p(-torch.exp2(-5.0 - h))
 
 
-def _gla_family_qkv(p, x, cfg: ModelConfig, kind: str, par=None):
+def _gla_family_qkv(p, x, cfg: ModelConfig, kind: str, par=None,
+                    x_whole=None):
     """q, k (B,H,S,dk), v (B,H,S,dv) and the log decay: (B,H,S,dk) for GLA
     (``log_sigmoid(g) / 16``) and HGRN2 (the forget gate over its lower
     bound, with ``k = 1 - f``), both clamped to ``ssm.log_decay_min``;
     (B,H,S) for RetNet (the fixed per-head gamma).  The rank's H heads
-    under ``par``."""
+    under ``par``; GLA's whole gate bottleneck ``wga`` reads ``x_whole``
+    where one is given."""
     B, S, _ = x.shape
     H_all, dk, dv = _gla_dims(cfg)
     H, h0, _ = TP.local_share(H_all, par)
@@ -454,13 +466,14 @@ def _gla_family_qkv(p, x, cfg: ModelConfig, kind: str, par=None):
     k = (x @ p["wk"]).reshape(B, S, H, dk).transpose(1, 2)
     v = (x @ p["wv"]).reshape(B, S, H, dv).transpose(1, 2)
     if kind == "gla":
-        g = (x @ p["wga"]) @ p["wgb"] + p["gb"]
+        g16 = (x if x_whole is None else x_whole) @ p["wga"]
+        g = TP.tp_copy(g16, par) @ p["wgb"] + p["gb"]
         log_f = Fn.logsigmoid(g.to(torch.float32)) / 16.0
         log_f = torch.clamp(log_f, min=cfg.ssm.log_decay_min)
         log_f = log_f.reshape(B, S, H, dk).transpose(1, 2)
     elif kind == "hgrn2":
         f_pre = (x @ p["wf"]) + p["fb"]
-        beta = p["beta"][0]
+        beta = TP.tp_copy(p["beta"], par)[0]
         fgate = beta + (1.0 - beta) * torch.sigmoid(f_pre.to(torch.float32))
         log_f = torch.clamp(torch.log(fgate + 1e-9),
                             min=cfg.ssm.log_decay_min)
@@ -487,7 +500,8 @@ def gla_family_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """Full-sequence GLA / RetNet / HGRN2; ``par``: the rank's heads (the
     stored state rounds to nearest: no head base)."""
     _, _, lp = TP.local_share(_gla_dims(cfg)[0], par)
-    q, k, v, log_f = _gla_family_qkv(p, x, cfg, kind, lp)
+    x, x_whole = TP.tp_enter(x, lp)
+    q, k, v, log_f = _gla_family_qkv(p, x, cfg, kind, lp, x_whole)
     scan = chunked_la_scalar if kind == "retnet" else chunked_la_vector
     y, S_fin = scan(q, k, v, log_f, cfg.ssm.chunk)
     out = _gla_family_out(p, y, x, cfg, lp)
@@ -594,9 +608,10 @@ def _mlstm_gate_pre(p, u, lp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The input and forget gates' pre-activations (B, S, H) of every head
     of the layer: ``u`` (B, S, channels) times the rows of ``wi`` / ``wf``
     for those channels, summed over the model axis of ``lp`` in one
-    collective (both gates at once)."""
+    collective (both gates at once; its gradient all-reduced too, as each
+    rank reads its own heads' gates)."""
     H = p["wi"].shape[-1]
-    g = TP.tp_sum(torch.cat([u @ p["wi"], u @ p["wf"]], -1), lp)
+    g = TP.tp_sum_split(torch.cat([u @ p["wi"], u @ p["wf"]], -1), lp)
     return g[..., :H], g[..., H:]
 
 
@@ -614,7 +629,8 @@ def _mlstm_gates_qkv(p, u, uc, cfg: ModelConfig, par=None):
     v = torch.einsum("bshd,hde->bhse", u.reshape(B, S, H, dv), p["wv"])
     i_pre, f_pre = _mlstm_gate_pre(p, u, lp)
     i_log = torch.clamp(i_pre.to(torch.float32), -12.0, 4.0)
-    log_f = Fn.logsigmoid(f_pre.to(torch.float32) + p["fb"])
+    fb = TP.tp_copy(p["fb"], lp)
+    log_f = Fn.logsigmoid(f_pre.to(torch.float32) + fb)
     i_log = i_log[..., h0:h0 + H].transpose(1, 2)  # (B,H,S)
     log_f = log_f[..., h0:h0 + H].transpose(1, 2)
     k_eff = (k.to(torch.float32) * torch.exp(i_log)[..., None]).to(k.dtype)
@@ -644,6 +660,7 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """Full-sequence mLSTM; ``par``: the rank's heads and channels (the
     stored state rounds to nearest: no head base)."""
     lp = _mlstm_shard(cfg, par)[3]
+    x = TP.tp_enter(x, lp)[0]
     u, z = x @ p["wu"], x @ p["wz"]
     uc = Fn.silu(causal_conv(u, p["conv_w"], p["conv_b"]))
     q, k_eff, v_aug, log_f = _mlstm_gates_qkv(p, u, uc, cfg, lp)
@@ -813,6 +830,16 @@ MIXERS: Dict[str, Mixer] = {
 #: sLSTM is whole on every rank
 TP_SHARDS = {"mamba2": mamba2_tp_shard, "mlstm": mlstm_tp_shard,
              **{kind: gla_family_tp_shard for kind in GLA_FAMILY}}
+
+
+def tp_heads(kind: str, cfg: ModelConfig) -> int:
+    """The heads of a mixer of ``kind`` in :data:`TP_SHARDS` that the
+    model axis splits (``dist.tp.layer_par``'s count)."""
+    if kind == "mamba2":
+        return _m2_dims(cfg)[1]
+    if kind == "mlstm":
+        return _mlstm_dims(cfg)[1]
+    return _gla_dims(cfg)[0]
 
 
 def mixer(kind: str) -> Mixer:

@@ -41,6 +41,17 @@ and against the JAX package (which the ranks never import):
   while the ranks run) and the port's; dbrx at (4, 1), whose experts the
   model axis does not split, routing the whole batch as one device; a
   rank's cache and pool bytes;
+* training under tensor parallelism: llama3.2-1b, zamba2, gla, xlstm and
+  deepseek-v2-236b at (2, 2) and zamba2 at (1, 4), a step and a
+  ``grad_accum=2`` step, sequence-parallel, against JAX's single-device
+  ``make_train_step`` (loss within 1e-4, parameters within 5e-3), every
+  gradient leaf against the port's single-device gradient, sequence
+  parallelism on against off, the model ranks' replicated leaves; dbrx at
+  (4, 1), whose experts the model axis does not split, an expert
+  overflowing: the sharded prefill + decode steps bitwise one device's
+  and a train step against JAX's, and on 2 rows (which the data ranks do
+  not divide, so each holds them whole) bitwise one device's steps and a
+  train step against one device's;
 * the compressed all-reduce over the 'pod' axis against JAX's ``pmean``;
 * a checkpoint saved at (2, 2) restored bitwise at (4, 1) and (1, 4);
 * a dim sharded over ("data", "model") in JAX's major-to-minor order.
@@ -128,6 +139,11 @@ DP22 = [("slots", "fp32"), ("slots", "sr"), ("paged", "fp32"),
 #: its 8 decode rows overflows (4 experts, top 2: a capacity of 4 entries)
 DP_MOE = [("slots", "fp32"), ("paged", "sr")]
 DP_MOE_CF = 1.0
+#: tensor-parallel training: (arch, mesh) runs; MoE capacity wide enough
+#: that no expert overflows (expert parallelism routes a rank's rows)
+TRAIN_RUNS = [(a, "2x2") for a in ("llama3.2-1b", "zamba2-2.7b", "gla-2.7b",
+                                   "xlstm-1.3b", "deepseek-v2-236b")]
+TRAIN_RUNS.append(("zamba2-2.7b", "1x4"))
 
 #: one engine run, the ranks' and the single-device side's code alike
 _DP_RUN = '''
@@ -332,6 +348,95 @@ for arch, size, prompts in %(NEW_ENGINES)s:
             pool.pools, pool.paging.specs) if sp.kind == "page"]))
 E.sample = sample
 
+# 10. training under tensor parallelism: TRAIN_RUNS, sequence-parallel
+# (the configs' default); the first step's loss and gradients (whole), the
+# positions of the residual stream each layer took, the loss without
+# sequence parallelism, then a step and a grad_accum=2 step: losses, the
+# parameters, and the local shards of the leaves the model axis
+# replicates; then dbrx at (4, 1), whose experts the model axis does not
+# split, at a capacity an expert overflows: the sharded prefill + decode
+# of 8 rows (two a rank) and a train step
+from repro_torch.train.train_loop import (batch_to_device,
+                                          sharded_loss_and_grads)
+
+def train_cfg(arch, cf=8.0):
+    c = get_smoke_config(arch)
+    if c.moe is not None:
+        c = c.with_(moe=c.moe.__class__(**{**c.moe.__dict__,
+                                           "capacity_factor": cf}))
+    return c
+
+def full_like(local, dts):
+    return full(SH.like(local, dts))
+
+seen_S, element_forward = [], M._element_forward
+def hooked(p, x, *a, **k):
+    seen_S.append(x.shape[1])
+    return element_forward(p, x, *a, **k)
+
+meshes = {"2x2": par, "1x4": par4}
+for arch, mesh in %(TRAIN_RUNS)s:
+    pr, c, key = meshes[mesh], train_cfg(arch), f"tt_{arch}_{mesh}"
+    w = M.init_model(c, g(0), device="cpu")
+    b = make_batch_fn(c, %(SEQ)d, %(BATCH)d)(0)
+    b["mask"][0, 5:] = 0.0
+    ps = SH.distribute(w, SH.param_shardings(w, c, pr))
+    seen_S.clear()
+    M._element_forward = hooked
+    try:
+        loss, grads = sharded_loss_and_grads(ps, c, b, pr)
+    finally:
+        M._element_forward = element_forward
+    res[key + "_S"] = np.asarray(seen_S)
+    res[key + "_gloss"] = loss.numpy()
+    res.update({f"{key}_g{i}": a for i, a in enumerate(full_like(grads, ps))})
+    res[key + "_loss_nosp"] = sharded_loss_and_grads(
+        ps, c.with_(seq_parallel=False), b, pr)[0].numpy()
+    opt = O.OptimizerConfig(lr=1e-3)
+    st = O.init_opt_state(w, opt)
+    st = SH.distribute(st, SH.opt_state_shardings(
+        st, SH.param_shardings(w, c, pr), pr))
+    for i, ga in enumerate((1, 2)):
+        ps, st, m = make_train_step(c, opt, par=pr, grad_accum=ga)(ps, st, b)
+        res[f"{key}_loss{i}"] = m["loss"].numpy()
+    res.update({f"{key}_p{i}": a for i, a in enumerate(full(ps))})
+    mi = list(pr.mesh.mesh_dim_names).index("model")
+    res.update({f"{key}_rep{i}": x.to_local().numpy()
+                for i, x in enumerate(T.leaves(ps))
+                if x.placements[mi] == SH.Replicate()})
+
+par41 = make_local_parallel(4, 1, device_type="cpu")
+rows = np.load(os.path.join(out, "rows_in.npz"))
+mc = train_cfg("dbrx-132b", %(DP_MOE_CF)r)
+mw41 = M.init_model(mc, g(0), device="cpu")
+for tag in ("fp32", "sr"):
+    res[f"moe41_{tag}"] = sharded_run(
+        mw41, mc.with_(state_quant=OPS.StateQuantConfig(*QUANT[tag])),
+        SH.serving_param_shardings, torch.from_numpy(rows["tok"]),
+        torch.from_numpy(rows["feed"]), par41)
+opt = O.OptimizerConfig(lr=1e-3)
+st = O.init_opt_state(mw41, opt)
+p_l = SH.param_shardings(mw41, mc, par41)
+ps, st, m = make_train_step(mc, opt, par=par41)(
+    SH.distribute(mw41, p_l), SH.distribute(st, SH.opt_state_shardings(
+        st, p_l, par41)), make_batch_fn(mc, %(SEQ)d, %(BATCH)d)(0))
+res["moe41_train_loss"] = m["loss"].numpy()
+res.update({f"moe41_train_p{i}": a for i, a in enumerate(full(ps))})
+# two rows at (4, 1): the data axes do not divide them, so every rank
+# holds the whole batch (replicated) and routes it as it is
+for tag in ("fp32", "sr"):
+    res[f"moe41b2_{tag}"] = sharded_run(
+        mw41, mc.with_(state_quant=OPS.StateQuantConfig(*QUANT[tag])),
+        SH.serving_param_shardings, torch.from_numpy(rows["tok"][:2]),
+        torch.from_numpy(rows["feed"][:, :2]), par41)
+st = O.init_opt_state(mw41, opt)
+b2 = batch_to_device(make_batch_fn(mc, %(SEQ)d, 2)(0), "cpu")
+ps, st, m = make_train_step(mc, opt, par=par41)(
+    SH.distribute(mw41, p_l), SH.distribute(st, SH.opt_state_shardings(
+        st, p_l, par41)), SH.distribute(b2, SH.batch_shardings(b2, par41)))
+res["moe41b2_train_loss"] = m["loss"].numpy()
+res.update({f"moe41b2_train_p{i}": a for i, a in enumerate(full(ps))})
+
 # sections 3 and 7 read JAX's zamba2 results, which the fixture writes
 # while the ranks run the sections above
 deadline = time.monotonic() + 600
@@ -346,7 +451,6 @@ while not os.path.exists(os.path.join(out, "zamba2.ready")):
 # round-to-nearest and at fp32 state, and at (4, 1), data rows alone;
 # dbrx (MoE) at (1, 4) and (2, 2), its parameters at rest in the serving
 # layout and in the training one
-par41 = make_local_parallel(4, 1, device_type="cpu")
 zcfg = get_smoke_config("zamba2-2.7b")
 zw = torch.load(os.path.join(out, "zamba2.pt"))
 tok = torch.from_numpy(np.load(os.path.join(out, "decode_in.npy")))
@@ -358,7 +462,6 @@ zc = {t: zcfg.with_(state_quant=OPS.StateQuantConfig(*q))
 for tag in ("sr", "rn", "fp32"):
     res[f"decode_{tag}"] = sharded_run(zw, zc[tag], SH.serving_param_shardings,
                                        tok, feed, par)
-rows = np.load(os.path.join(out, "rows_in.npz"))
 for tag in ("sr", "rn"):
     res[f"decode41_{tag}"] = sharded_run(
         zw, zc[tag], SH.serving_param_shardings,
@@ -506,7 +609,7 @@ dist.destroy_process_group()
 ''' % dict(SEQ=SEQ, BATCH=BATCH, STEPS=DECODE["steps"], ENGINES=repr(ENGINES),
        NEW_ARCHS=repr(NEW_ARCHS), NEW_ENGINES=repr(NEW_ENGINES),
        DP_RUN=_DP_RUN, DP41=repr(DP41), DP22=repr(DP22), DP_MOE=repr(DP_MOE),
-       DP_MOE_CF=DP_MOE_CF)
+       DP_MOE_CF=DP_MOE_CF, TRAIN_RUNS=repr(TRAIN_RUNS))
 
 
 def _moe_cfgs(capacity_factor=None):
@@ -562,6 +665,9 @@ def ranks(tmp_path_factory):
         new_jax = {arch: _new_mixers_jax(arch) for arch in NEW_ARCHS}
         dp_jax = {(name, tag): _dp_serve_jax(jz["jparams"], name, tag)
                   for name, tag in DP41}
+        train_jax = {arch: _train_jax(arch) for arch in dict(TRAIN_RUNS)}
+        train_jax["dbrx-132b"] = _train_jax("dbrx-132b", DP_MOE_CF, (1,))
+        print(f"JAX's side: {time.perf_counter() - t0:.1f} s")
     except BaseException:
         for proc in procs:
             proc.kill()
@@ -584,7 +690,7 @@ def ranks(tmp_path_factory):
     print(f"four gloo ranks: {time.perf_counter() - t0:.1f} s")
     res = [dict(np.load(out / f"rank{i}.npz")) for i in range(WORLD)]
     return res, dict(moe=(p, x, cot), tok=tok, grads=grads, zamba2=jz,
-                     new=new_jax, dp_jax=dp_jax)
+                     new=new_jax, dp_jax=dp_jax, train_jax=train_jax)
 
 
 #: the data-rows-only decode at (4, 1): two rows a rank, as the whole
@@ -659,6 +765,51 @@ def _new_mixers_jax(arch):
             logits.append(jl)
         out[tag] = np.stack([np.asarray(a) for a in logits])
     return out
+
+
+def _train_cfgs(arch, cf=8.0):
+    """JAX's and the port's smoke config of ``arch`` as the ranks train it:
+    an MoE's capacity factor ``cf``."""
+    out = []
+    for get in (j_smoke, t_smoke):
+        c = get(arch)
+        if c.moe is not None:
+            c = c.with_(moe=c.moe.__class__(**{**c.moe.__dict__,
+                                               "capacity_factor": cf}))
+        out.append(c)
+    return out
+
+
+def _train_batch(arch):
+    """The ranks' batch (numpy): the pipeline's step 0, the mask of the
+    tensor-parallel runs' first row cut at position 5 (dbrx's whole)."""
+    b = make_batch_fn(t_smoke(arch), SEQ, BATCH)(0)
+    if arch != "dbrx-132b":
+        b["mask"][0, 5:] = 0.0
+    return b
+
+
+def _train_jax(arch, cf=8.0, accum=(1, 2)):
+    """JAX's single-device ``make_train_step`` from the ranks' weights (the
+    port's seed-0 init, carried into the JAX layout) on the ranks' batch,
+    one step at each ``grad_accum`` of ``accum``: the losses and the
+    parameters after, in the port's leaf order."""
+    from repro.train import optimizer as JO
+    from repro.train.train_loop import make_train_step as j_make_train_step
+    from test_torch_train import _jax_layout
+    jc, tc = _train_cfgs(arch, cf)
+    jp = jax.tree.map(jnp.asarray, _jax_layout(TM.init_model(
+        tc, torch.Generator().manual_seed(0), device="cpu"), arch))
+    opt = JO.OptimizerConfig(lr=1e-3)
+    st = JO.init_opt_state(jp, opt)
+    b = _train_batch(arch)
+    losses = []
+    for ga in accum:
+        jp, st, m = jax.jit(j_make_train_step(jc, opt, grad_accum=ga))(
+            jp, st, b)
+        losses.append(float(m["loss"]))
+    return losses, [a.numpy() for a in T.leaves(params_from_jax(
+        jax.tree.map(np.asarray, jp), tc, device="cpu"))]
 
 
 def _zcfgs():
@@ -1353,20 +1504,21 @@ def test_data_parallel_engines_at_2x2(ranks, name):
             assert d_tp < 1e-2, key
 
 
-def _moe_overflows(cfg):
+def _moe_overflows(cfg, n_tokens=8):
     """A wrapper of ``_moe_local`` for one device's run, and the list it
-    fills: for each call over 8 tokens (a step of the 8 decode rows), the
-    most entries one expert was given, beside the capacity."""
+    fills: for each call over ``n_tokens`` tokens (8: a step of the 8
+    decode rows), the most entries one expert was given, beside the
+    capacity."""
     real, seen = TL._moe_local, []
 
     def counted(x, router, *a, **k):
         xf = x.reshape(-1, x.shape[-1])
-        if xf.shape[0] == 8:
+        if xf.shape[0] == n_tokens:
             probs = torch.softmax((xf.float() @ router).float(), -1)
             sel = torch.topk(probs, cfg.moe.top_k, -1).indices
             most = int(torch.bincount(sel.flatten(),
                                       minlength=cfg.moe.n_experts).max())
-            seen.append((most, TL.moe_capacity(8, cfg)))
+            seen.append((most, TL.moe_capacity(n_tokens, cfg)))
         return real(x, router, *a, **k)
     return counted, seen
 
@@ -1428,6 +1580,242 @@ def test_data_parallel_bytes_a_rank(ranks):
             assert (got * 4 == w).any()
         else:
             assert ((got == w) | (got * 2 == w)).all()
+
+
+def _train_runs():
+    return [f"{a}-{m}" for a, m in TRAIN_RUNS]
+
+
+def _run_key(run):
+    arch, mesh = run.rsplit("-", 1)
+    return arch, mesh, f"tt_{arch}_{mesh}"
+
+
+@pytest.mark.parametrize("run", _train_runs())
+def test_tensor_parallel_train_matches_jax(ranks, run):
+    """A step and a ``grad_accum=2`` step of the tensor-parallel step
+    (each rank its rows and its cut: heads and FFN columns over the model
+    axis, sequence-parallel at the layer boundaries) against JAX's
+    single-device ``make_train_step`` on the same weights and batch, with
+    ``tests/test_sharding.py``'s tolerances: loss within 1e-4, parameters
+    within 5e-3; every rank the same losses."""
+    res, inp = ranks
+    arch, mesh, key = _run_key(run)
+    want_l, want_p = inp["train_jax"][arch]
+    for r in res:
+        for i, want in enumerate(want_l):
+            assert abs(float(r[f"{key}_loss{i}"]) - want) < 1e-4, (run, i)
+            assert float(r[f"{key}_loss{i}"]) == float(res[0][f"{key}_loss{i}"])
+    d = max(float(np.max(np.abs(res[0][f"{key}_p{i}"] - w)))
+            for i, w in enumerate(want_p))
+    print(run, "losses", [float(res[0][f"{key}_loss{i}"]) for i in (0, 1)],
+          "JAX", want_l, "max |dparam|", d)
+    assert d < 5e-3, run
+
+
+def _one_device_grads(arch, cfg=None):
+    """The port's single-device loss and gradient of the ranks' first
+    step."""
+    from repro_torch.train.train_loop import _loss_and_grads, batch_to_device
+    tc = cfg or _train_cfgs(arch)[1]
+    params = TM.init_model(tc, torch.Generator().manual_seed(0),
+                           device="cpu")
+    loss, grads = _loss_and_grads(params, tc, batch_to_device(
+        _train_batch(arch), "cpu"))
+    return params, float(loss), grads
+
+
+def _grad_excess(got, want, rtol=1e-4, atol=1e-5):
+    """How far ``got`` lies past ``rtol`` and ``atol * max|want|`` of
+    ``want``, in units of max|want| (<= 0: within)."""
+    m = float(want.abs().max()) or 1.0
+    over = (torch.from_numpy(got) - want).abs() - (rtol * want.abs()
+                                                   + atol * m)
+    return float(over.max()) / m
+
+
+@pytest.mark.parametrize("run", _train_runs())
+def test_tensor_parallel_train_gradients_match_one_device(ranks, run):
+    """Every leaf's gradient of the first step -- whole for the cut on
+    each model rank (a missing f leaves a rank's partial gradient, off by
+    about 1 / tp), reduced into the training layout and gathered -- against
+    the port's single-device gradient: rtol 1e-4, atol 1e-5 * max|g|, the
+    port's gradient contract (``tests/test_torch_train.py``); the leaf's
+    path (``wbc``, ``conv_bc_*``, ``wq_a``, ``wkv_a``, the norms...) in the
+    message.  xlstm's model gradient sits below fp32's conditioning at this
+    size (``test_torch_train.py``): its leaves are held to
+    ``CONTROL_FACTOR`` times what moving every weight one ulp does to the
+    single-device gradient."""
+    res, _ = ranks
+    arch, mesh, key = _run_key(run)
+    params, loss, grads = _one_device_grads(arch)
+    assert abs(float(res[0][key + "_gloss"]) - loss) < 1e-5
+    paths = ["/".join(map(str, p)) for p, _ in T.leaves_with_paths(grads)]
+    excess = {p: _grad_excess(res[0][f"{key}_g{i}"], g) for i, (p, g) in
+              enumerate(zip(paths, T.leaves(grads)))}
+    for r in res[1:]:
+        for i in range(len(paths)):
+            np.testing.assert_array_equal(r[f"{key}_g{i}"],
+                                          res[0][f"{key}_g{i}"])
+    worst = max(excess, key=excess.get)
+    print(run, "worst leaf", worst, f"{excess[worst]:.3g}")
+    if arch != "xlstm-1.3b":
+        bad = {p: e for p, e in excess.items() if e > 0}
+        assert not bad, (run, bad)
+        return
+    nudged = T.tree_map(lambda w: torch.nextafter(
+        w, torch.full_like(w, float("inf"))), params)
+    from repro_torch.train.train_loop import _loss_and_grads, batch_to_device
+    tc = _train_cfgs(arch)[1]
+    _, g_ctl = _loss_and_grads(nudged, tc, batch_to_device(
+        _train_batch(arch), "cpu"))
+
+    def rel(a, b):
+        return max(float((torch.as_tensor(x) - y).abs().max())
+                   / (float(y.abs().max()) or 1.0) for x, y in zip(a, b))
+    d_tp = rel([res[0][f"{key}_g{i}"] for i in range(len(paths))],
+               T.leaves(grads))
+    d_ctl = rel(T.leaves(g_ctl), T.leaves(grads))
+    print(run, f"max |dg| / max|g|: tensor-parallel {d_tp:.3g}, one-ulp "
+          f"control {d_ctl:.3g}")
+    assert d_tp <= CONTROL_FACTOR * d_ctl, run
+
+
+@pytest.mark.parametrize("run", _train_runs())
+def test_sequence_parallelism_holds_a_ranks_positions(ranks, run):
+    """Sequence parallelism on (the configs' default) against off: the
+    first step's loss within 1e-6; with it on, every layer took a
+    residual stream of ``S / tp`` positions (a hook on the element
+    forward, the backward's recomputation included)."""
+    res, _ = ranks
+    arch, mesh, key = _run_key(run)
+    tp = int(mesh.split("x")[1])
+    for r in res:
+        seen = r[key + "_S"]
+        assert len(seen) > 0 and (seen == SEQ // tp).all(), (run, seen)
+        assert abs(float(r[key + "_gloss"])
+                   - float(r[key + "_loss_nosp"])) < 1e-6, run
+
+
+def test_tensor_parallel_train_replicated_leaves_agree(ranks):
+    """After the two steps, the ranks of a model group hold the same bits
+    in every leaf the model axis replicates (its local shard: the data
+    axes may split it), at (2, 2) and (1, 4)."""
+    res, _ = ranks
+    for arch, mesh in TRAIN_RUNS:
+        key = f"tt_{arch}_{mesh}_rep"
+        names = sorted(k for k in res[0] if k.startswith(key))
+        assert names, (arch, mesh)
+        for rank, r in enumerate(res):
+            peer = rank - rank % 2 if mesh == "2x2" else 0
+            for k in names:
+                np.testing.assert_array_equal(r[k], res[peer][k], err_msg=k)
+
+
+@pytest.mark.parametrize("tag", ["fp32", "sr"])
+def test_sharded_steps_route_a_whole_batch_moe(ranks, tag):
+    """dbrx at (4, 1): the model axis splits none of its experts, so the
+    sharded prefill + 4 decode steps of 8 rows (two a rank) route the
+    MoE over the whole batch, as JAX's ``apply_moe`` does under GSPMD,
+    and are bitwise the port's one-device steps; a capacity factor of 1
+    overflows an expert at some decode step of the one-device run."""
+    res, _ = ranks
+    tc = _train_cfgs("dbrx-132b", DP_MOE_CF)[1]
+    q = {"fp32": ("fp32", "nearest", "torch"),
+         "sr": ("mx8", "stochastic", "cuda")}[tag]
+    c = tc.with_(state_quant=TOPS.StateQuantConfig(*q))
+    params = TM.init_model(c, torch.Generator().manual_seed(0), device="cpu")
+    counted, seen = _moe_overflows(c)
+    real = TL._moe_local
+    TL._moe_local = counted
+    try:
+        want = _single_device_decode(c, torch.from_numpy(ROWS["tok"]),
+                                     params, ROWS["feed"])
+    finally:
+        TL._moe_local = real
+    assert any(most > cap for most, cap in seen), seen
+    for r in res:
+        np.testing.assert_array_equal(r[f"moe41_{tag}"], want)
+
+
+def test_train_step_routes_a_whole_batch_moe(ranks):
+    """dbrx's train step at (4, 1), a capacity factor of 1 (an expert of
+    the batch's 128 tokens overflows): each rank routes the MoE over the
+    whole batch and keeps its rows, so the step matches JAX's
+    single-device step (loss within 1e-4, parameters within 5e-3)."""
+    res, inp = ranks
+    tc = _train_cfgs("dbrx-132b", DP_MOE_CF)[1]
+    counted, seen = _moe_overflows(tc, SEQ * BATCH)
+    real = TL._moe_local
+    TL._moe_local = counted
+    try:
+        _one_device_grads("dbrx-132b", tc)
+    finally:
+        TL._moe_local = real
+    assert any(most > cap for most, cap in seen), seen
+    want_l, want_p = inp["train_jax"]["dbrx-132b"]
+    for r in res:
+        assert abs(float(r["moe41_train_loss"]) - want_l[0]) < 1e-4
+    d = max(float(np.max(np.abs(res[0][f"moe41_train_p{i}"] - w)))
+            for i, w in enumerate(want_p))
+    print("dbrx (4, 1) train: loss", float(res[0]["moe41_train_loss"]),
+          "JAX", want_l[0], "max |dparam|", d)
+    assert d < 5e-3
+
+
+@pytest.mark.parametrize("tag", ["fp32", "sr"])
+def test_sharded_steps_route_an_undivided_batch_moe(ranks, tag):
+    """dbrx at (4, 1) with 2 rows, which the 4 data ranks do not divide:
+    the batch is laid out replicated, every rank holds it whole and routes
+    the MoE over it as it is (not 4 copies stacked), so the sharded prefill
+    + 4 decode steps are bitwise the port's one-device steps; a capacity
+    factor of 1 overflows an expert at the one-device prefill."""
+    res, _ = ranks
+    tc = _train_cfgs("dbrx-132b", DP_MOE_CF)[1]
+    q = {"fp32": ("fp32", "nearest", "torch"),
+         "sr": ("mx8", "stochastic", "cuda")}[tag]
+    c = tc.with_(state_quant=TOPS.StateQuantConfig(*q))
+    params = TM.init_model(c, torch.Generator().manual_seed(0), device="cpu")
+    counted, seen = _moe_overflows(c, 2 * ROWS["tok"].shape[1])
+    real = TL._moe_local
+    TL._moe_local = counted
+    try:
+        want = _single_device_decode(c, torch.from_numpy(ROWS["tok"][:2]),
+                                     params, ROWS["feed"][:, :2])
+    finally:
+        TL._moe_local = real
+    assert any(most > cap for most, cap in seen), seen
+    for r in res:
+        np.testing.assert_array_equal(r[f"moe41b2_{tag}"], want)
+
+
+def test_train_step_routes_an_undivided_batch_moe(ranks):
+    """dbrx's train step at (4, 1) on 2 rows, laid out replicated (the 4
+    data ranks do not divide them): each rank routes the whole batch as it
+    is, each loss weighted by a quarter, so the step matches the port's
+    one-device step (loss within 1e-6, parameters within 1e-6); a
+    capacity factor of 1 overflows an expert of the batch's 64 tokens."""
+    from repro_torch.train.train_loop import batch_to_device
+    res, _ = ranks
+    tc = _train_cfgs("dbrx-132b", DP_MOE_CF)[1]
+    params = TM.init_model(tc, torch.Generator().manual_seed(0),
+                           device="cpu")
+    opt = TO.OptimizerConfig(lr=1e-3)
+    b2 = batch_to_device(make_batch_fn(tc, SEQ, 2)(0), "cpu")
+    counted, seen = _moe_overflows(tc, 2 * SEQ)
+    real = TL._moe_local
+    TL._moe_local = counted
+    try:
+        want_p, _, m = make_train_step(tc, opt)(
+            params, TO.init_opt_state(params, opt), b2)
+    finally:
+        TL._moe_local = real
+    assert any(most > cap for most, cap in seen), seen
+    for r in res:
+        assert abs(float(r["moe41b2_train_loss"]) - float(m["loss"])) < 1e-6
+        d = max(float(np.max(np.abs(r[f"moe41b2_train_p{i}"] - w.numpy())))
+                for i, w in enumerate(T.leaves(want_p)))
+        assert d < 1e-6, d
 
 
 def test_gradient_compression_error_feedback(ranks):

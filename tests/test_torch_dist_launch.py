@@ -117,24 +117,32 @@ def _cfg(arch, over):
 def _single_device_flops(cfg, sc, rows, ep_shards=1, tp=1):
     """``FlopCounterMode``'s count of the single-device step on ``rows``
     of the batch (fake tensors; an MoE's dispatch on ``1 / ep_shards`` of
-    its experts, as an expert-parallel rank computes).  With ``tp`` > 1
-    (a serving cell): the tensor-parallel step of model rank 0 on its
-    ``tp_params`` and its heads' caches, over a shape-only model axis of
-    ``tp`` ranks, its sums over that axis left out (they count no
-    FLOPs; an MoE's expert shard is then ``ep_shards``' count)."""
+    its experts, as an expert-parallel rank computes).  With ``tp`` > 1:
+    the tensor-parallel step of model rank 0 on its ``tp_params`` (a
+    decode cell: and its heads' caches; a train cell: the loss and its
+    gradient, as AdamW counts no FLOPs), over a shape-only model axis of
+    ``tp`` ranks, its collectives over that axis left out (they count no
+    FLOPs, and sequence parallelism changes no product; an MoE's expert
+    shard is then ``ep_shards``' count)."""
     from repro_torch.dist import sharding as SH
     from repro_torch.dist import tp as TP
+    from repro_torch.train.train_loop import _loss_and_grads
     par = None
+    stubs = dict(tp_sum=lambda x, p: x, tp_sum_split=lambda x, p: x,
+                 tp_copy=lambda x, p: x, tp_enter=lambda x, p: (x, x),
+                 seq_par=lambda p, S: None,
+                 expert_parallel=lambda c, p: False)
     if tp > 1:
         par = SH.Parallel(SH.AbstractMesh((tp,), ("model",)), data_axes=())
-        orig_sum, TP.tp_sum = TP.tp_sum, lambda x, p: x
-        orig_ep, TP.expert_parallel = TP.expert_parallel, lambda c, p: False
+        orig = {k: getattr(TP, k) for k in stubs}
+        for k, v in stubs.items():
+            setattr(TP, k, v)
     if ep_shards > 1:
-        orig = TL._moe_dispatch_compute
+        dispatch = TL._moe_dispatch_compute
 
         def local(x, sel, w, wi, wg, wo, cap, e_offset=0):
             n = wi.shape[0] // ep_shards
-            return orig(x, sel, w, wi[:n], wg[:n], wo[:n], cap)
+            return dispatch(x, sel, w, wi[:n], wg[:n], wo[:n], cap)
         TL._moe_dispatch_compute = local
     sc = dataclasses.replace(sc, global_batch=rows)
     try:
@@ -142,7 +150,10 @@ def _single_device_flops(cfg, sc, rows, ep_shards=1, tp=1):
             params = D._fake(SP.params_struct(cfg))
             if par is not None:
                 params = SH.tp_params(params, cfg, par)
-            if sc.kind == "train":
+            if sc.kind == "train" and par is not None:
+                _loss_and_grads(params, cfg, D._fake(SP.batch_struct(
+                    cfg, sc)), par=par)
+            elif sc.kind == "train":
                 opt = TO.OptimizerConfig()
                 batch = D._fake(SP.batch_struct(cfg, sc))
                 make_train_step(cfg, opt)(params, TO.init_opt_state(
@@ -161,9 +172,10 @@ def _single_device_flops(cfg, sc, rows, ep_shards=1, tp=1):
                 TM.decode_step(params, cfg, tok, caches, lengths, par=par)
     finally:
         if ep_shards > 1:
-            TL._moe_dispatch_compute = orig
+            TL._moe_dispatch_compute = dispatch
         if par is not None:
-            TP.tp_sum, TP.expert_parallel = orig_sum, orig_ep
+            for k, v in orig.items():
+                setattr(TP, k, v)
     return float(counter.get_total_flops())
 
 
@@ -190,18 +202,19 @@ def test_dryrun_cell_on_a_fake_mesh(arch, shape, over):
     assert rec["probe"] == {"traced_flops": rec["flops_per_chip"] / scale,
                             "seq_scale": scale}
     ep = 4 if cfg.moe is not None else 1
-    serving = sc.kind != "train"
     want = _single_device_flops(cfg_trace, sc_trace, sc.global_batch // 2,
-                                ep, tp=4 if serving else 1)
+                                ep, tp=4)
     assert rec["probe"]["traced_flops"] == want > 0
-    if serving:        # the tensor-parallel step sums over the model axis
-        assert rec["trace_diag"]["collectives"].get("all_reduce", 0) > 0
-        # fewer FLOPs where tp splits heads; dbrx's 2 kv heads at tp = 4
-        # replicate, so its step is the whole one (its experts aside)
-        whole = _single_device_flops(cfg_trace, sc_trace,
-                                     sc.global_batch // 2, ep)
-        split = "mamba2" in cfg.pattern or cfg.n_kv_heads % 4 == 0
-        assert want < whole if split else want == whole
+    # every step is tensor-parallel: it sums over the model axis
+    assert rec["trace_diag"]["collectives"].get("all_reduce", 0) > 0
+    # fewer FLOPs where tp splits heads or FFN columns; dbrx's 2 kv heads
+    # at tp = 4 replicate and its FFN is an MoE, so its step is the whole
+    # one (its experts aside)
+    whole = _single_device_flops(cfg_trace, sc_trace, sc.global_batch // 2,
+                                 ep)
+    split = ("mamba2" in cfg.pattern or cfg.n_kv_heads % 4 == 0
+             or (cfg.ffn_kind not in ("moe", "none") and cfg.d_ff % 4 == 0))
+    assert want < whole if split else want == whole
     # the memory and link terms are the JAX package's function, on the JAX
     # dry run's config
     jcfg = j_smoke(arch).with_(
@@ -255,6 +268,6 @@ def test_dryrun_on_the_fake_production_mesh():
     assert kinds.get("reduce_scatter_tensor", 0) > 0
     cfg, sc, _ = D.trace_setup(D.dryrun_config("smollm-360m", smoke=True),
                                SHAPES["train_4k"])
-    want = _single_device_flops(cfg, sc, 256 // 16)
+    want = _single_device_flops(cfg, sc, 256 // 16, tp=16)
     assert rec["flops_per_chip"] == want
     assert not torch.distributed.is_initialized()
